@@ -1,0 +1,85 @@
+"""Configuration for the PyTorch port: the fields the CD-BFL host round reads.
+
+A copy of the subset of ``repro/config.py`` this package runs, with the same
+defaults (``FedConfig``: ``config.py:288-312`` of the reference). Values the
+port does not run yet raise :class:`NotImplementedError` naming the ROADMAP
+item that ports them, so a config can never silently select a path that is
+missing here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """The LeNet fields of the reference ``ModelConfig``."""
+    name: str = "model"
+    family: str = "lenet"
+    input_hw: Tuple[int, int] = (0, 0)
+    num_classes: int = 0
+    dtype: str = "float32"
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# values of each FedConfig field the port runs, and where the rest go
+_SUPPORTED = {
+    "compressor": (("block_topk",), "A6 (the other codecs)"),
+    "fused_compress": ((True,), "A4 (the top_k-order BlockTopKCodec path)"),
+    "control_dtype": (("float32",), "A3 (bfloat16 control variates)"),
+    "algorithm": (("cdbfl",), "A6 (dsgld, cffl and sgld baselines)"),
+    "topology": (("full", "ring"), "A4 (the other graph families)"),
+}
+
+
+@dataclass(frozen=True)
+class FedConfig:
+    """The federated run's knobs (paper notation); same defaults as the
+    reference ``FedConfig``."""
+    num_nodes: int = 10             # K
+    topology: str = "full"          # full | ring
+    local_steps: int = 8            # L
+    zeta: float = 0.03              # consensus mixing weight
+    eta: float = 1e-4               # SGLD learning rate
+    temperature: float = 1.0        # posterior tempering
+    burn_in: int = 700              # T_b
+    rounds: int = 800               # T
+    compressor: str = "block_topk"
+    compress_ratio: float = 0.01    # paper: 1% of parameters
+    block_size: int = 1024          # block-local top-k granularity
+    min_dense_size: int = 0         # leaves this small are sent dense
+    fused_compress: bool = False
+    algorithm: str = "cdbfl"
+    control_dtype: str = "float32"  # v / v̄ storage
+    seed: int = 0
+
+    def check_supported(self) -> None:
+        """Raise NotImplementedError for a value the port does not run."""
+        for name, (ok, item) in _SUPPORTED.items():
+            value = getattr(self, name)
+            if value not in ok:
+                raise NotImplementedError(
+                    f"FedConfig.{name}={value!r} is not ported yet "
+                    f"(runs: {ok}); ROADMAP {item}")
+
+
+# the paper's radar ROI classifier (reference: configs/lenet_radar.py)
+LENET_RADAR = ModelConfig(name="lenet-radar", family="lenet",
+                          input_hw=(256, 63), num_classes=10)
+LENET_RADAR_REDUCED = LENET_RADAR.replace(name="lenet-radar-reduced",
+                                          input_hw=(32, 16))
+
+_ARCHS = {"lenet-radar": (LENET_RADAR, LENET_RADAR_REDUCED)}
+
+
+def get_arch(arch_id: str, reduced: bool = False) -> ModelConfig:
+    if arch_id not in _ARCHS:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported yet (ported: {sorted(_ARCHS)}); "
+            f"ROADMAP A12 (LM model zoo)")
+    full, small = _ARCHS[arch_id]
+    return small if reduced else full

@@ -1,0 +1,18 @@
+"""Legacy string API for Ω (copy of ``repro/core/mixing.py``)."""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.core.topology import graph_adjacency, mixing_weights
+
+
+def adjacency(topology: str, k: int) -> np.ndarray:
+    return graph_adjacency(topology, k)
+
+
+def mixing_matrix(topology: str, k: int, rule: str = "metropolis") -> np.ndarray:
+    """Symmetric doubly-stochastic Ω for the given graph."""
+    if k == 1:
+        return np.ones((1, 1))
+    return mixing_weights(adjacency(topology, k), rule)
+

@@ -1,0 +1,20 @@
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+Importing this package builds nothing: the CUDA library is compiled on the
+first launch (``_build.library``).
+"""
+from repro_torch.kernels.fused_compress import delta_pack
+from repro_torch.kernels.fused_update import fused_update
+from repro_torch.kernels.pack import pack_topk, unpack_topk
+
+WRAPPERS = {"pack": pack_topk, "delta_pack": delta_pack,
+            "unpack": unpack_topk, "fused_update": fused_update}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0

@@ -1,0 +1,171 @@
+"""Federated training harness (``repro/train/trainer.py:FedTrainer``): the
+host round loop of the paper's protocol, a posterior bank filled after
+burn-in, and BMA evaluation of accuracy and ECE.
+
+    trainer = FedTrainer(model, fed_cfg, shards)          # device="cuda"
+    result = trainer.run(rounds=T, eval_batch=test)
+
+The card is the default device. ``device="cpu"`` runs every kernel's plain
+version on the CPU; a ``cuda`` device without a card raises.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.algorithms import make_cdbfl_round
+from repro_torch.core.compression import make_compressor
+from repro_torch.core.fed_state import FedState, init_fed_state
+from repro_torch.core.posterior import SampleBank
+from repro_torch.core.topology import build_topology, resolve_topology
+from repro_torch.data.partition import DeviceShards
+from repro_torch.eval.engine import EvalReport, HostEvalEngine
+from repro_torch.train.engine import HostRoundEngine
+from repro_torch.utils.tree import tree_map
+
+
+@dataclass
+class TrainResult:
+    accuracy: float
+    ece: float
+    nll: float
+    brier: float
+    bytes_sent_per_round: float
+    total_bytes: float
+    overconf_gap: float = float("nan")
+    report: Optional[EvalReport] = None
+    # measured from the packed WirePayload buffers, scaled by the directed
+    # edge count like bytes_sent_per_round
+    measured_bytes_per_round: float = 0.0
+    wire_history: List[float] = field(default_factory=list)   # bytes/node
+    loss_history: List[float] = field(default_factory=list)
+    consensus_history: List[float] = field(default_factory=list)
+    round_ms: List[float] = field(default_factory=list)       # wall, per round
+    probs: Optional[np.ndarray] = None
+    labels: Optional[np.ndarray] = None
+    wall_s: float = 0.0
+
+
+def resolve_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={device!r} but no CUDA device is available; pass "
+            f"device='cpu' to run the kernels' plain versions on the CPU")
+    return dev
+
+
+class FedTrainer:
+    """Host-side orchestration of the decentralized protocol.
+
+    ``params`` (one model's params, e.g. the reference's through
+    ``params_from_jax``) replaces the port's own init; ``draws`` (see
+    :class:`HostRoundEngine`) replaces its generator's per-round draws.
+    """
+
+    def __init__(self, model, fed_cfg, shards: List[Dict[str, np.ndarray]],
+                 minibatch: int = 10, data_scale: Optional[float] = None,
+                 seed: int = 0, engine: str = "host", bank_capacity: int = 40,
+                 bank_thin: int = 2, eval_batch_size: int = 64,
+                 device="cuda", params: Optional[Dict] = None,
+                 draws: Optional[Callable] = None):
+        if engine != "host":
+            raise NotImplementedError(
+                f"engine={engine!r} is not ported yet (runs: 'host'); "
+                f"ROADMAP A5 (scan-style chunked engine), A10 (shard engine)")
+        fed_cfg.check_supported()
+        assert len(shards) == fed_cfg.num_nodes, "one shard per node"
+        self.device = resolve_device(device)
+        self.model = model
+        self.fed_cfg = fed_cfg
+        self.minibatch = minibatch
+        self.topology = build_topology(resolve_topology(fed_cfg),
+                                       fed_cfg.num_nodes)
+        self.omega = self.topology.omega
+        self.compressor = make_compressor(fed_cfg)
+        if data_scale is None:
+            data_scale = float(np.mean([len(s[next(iter(s))]) for s in shards]))
+        self.data_scale = data_scale
+
+        if self.device.type == "cuda":
+            gen = torch.Generator(device=self.device)
+        else:
+            gen = torch.Generator()
+        gen.manual_seed(seed)
+        if params is None:
+            params = model.init(gen, self.device)
+        params0 = tree_map(lambda x: x.to(self.device), params)
+        self.state: FedState = init_fed_state(params0, fed_cfg)
+        self.round_fn = make_cdbfl_round(model.nll, fed_cfg, self.omega,
+                                         self.compressor, self.data_scale,
+                                         self.device)
+        self.device_shards = DeviceShards.from_shards(shards, self.device)
+        self._engine = HostRoundEngine(self.round_fn, self.device_shards,
+                                       fed_cfg, minibatch, gen, draws)
+        self.bank = SampleBank(burn_in=fed_cfg.burn_in,
+                               max_samples=bank_capacity, thin=bank_thin)
+        self._eval = HostEvalEngine(model.logits, batch_size=eval_batch_size)
+
+        n_edges = float(self.topology.adjacency.sum())
+        self._n_edges = n_edges
+        self.bytes_per_round = float(self.compressor.wire_bytes(params0)
+                                     * n_edges)
+
+    def run(self, rounds: Optional[int] = None, log_every: int = 0,
+            eval_batch: Optional[Dict[str, np.ndarray]] = None) -> TrainResult:
+        rounds = rounds if rounds is not None else self.fed_cfg.rounds
+        log_cb = None
+        if log_every:
+            log_cb = lambda t, l, c: print(
+                f"  round {t:4d}  loss={l:.4f} consensus={c:.3e}")
+        t0 = time.time()
+        self.state, self.bank, losses, cons = self._engine.run(
+            self.state, self.bank, rounds, t0=self.state.round,
+            log_every=log_every, log_cb=log_cb)
+        wire = list(self._engine.last_wire_history)
+        res = TrainResult(
+            accuracy=float("nan"), ece=float("nan"), nll=float("nan"),
+            brier=float("nan"),
+            bytes_sent_per_round=self.bytes_per_round,
+            total_bytes=self.bytes_per_round * rounds,
+            measured_bytes_per_round=(float(np.mean(wire)) * self._n_edges
+                                      if wire else self.bytes_per_round),
+            wire_history=wire, loss_history=losses, consensus_history=cons,
+            round_ms=list(self._engine.last_round_ms),
+            wall_s=time.time() - t0)
+        if eval_batch is not None:
+            res = self.evaluate(eval_batch, res)
+        return res
+
+    def _stacked_bank(self):
+        """(S, K, ...) posterior samples; the current params (S = 1) while
+        the bank is empty."""
+        stacked = self.bank.stacked()
+        if stacked is None:
+            stacked = tree_map(lambda x: x[None], self.state.params)
+        return stacked
+
+    def eval_report(self, batch: Dict[str, np.ndarray],
+                    return_probs: bool = False):
+        return self._eval.evaluate(self._stacked_bank(), batch, node_axis=1,
+                                   return_probs=return_probs,
+                                   device=self.device)
+
+    def evaluate(self, batch: Dict[str, np.ndarray],
+                 res: Optional[TrainResult] = None) -> TrainResult:
+        rep, probs = self.eval_report(batch, return_probs=True)
+        if res is None:
+            res = TrainResult(0, 0, 0, 0, self.bytes_per_round, 0)
+        res.accuracy = rep.accuracy
+        res.ece = rep.ece
+        res.nll = rep.nll
+        res.brier = rep.brier
+        res.overconf_gap = rep.overconf_gap
+        res.report = rep
+        res.probs = probs
+        res.labels = np.asarray(batch["y"])
+        return res

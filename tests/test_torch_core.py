@@ -1,0 +1,148 @@
+"""The port's topology, gossip, federated state, calibration, posterior and
+eval accumulators against the reference's, on numpy inputs from a seed.
+
+Exact where both sides run the same f32 operations in the same order
+(topology, masks, counts); rtol 1e-6 where a reduction's summation order
+may differ (means, einsum, the streaming sums)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.config import FedConfig as JaxFedConfig
+from repro.core import calibration as jcal
+from repro.core import build_topology as jbuild_topology
+from repro.core import resolve_topology as jresolve_topology
+from repro.core.gossip import dense_mix as jdense_mix
+from repro.core.posterior import SampleBank as JaxSampleBank
+from repro.core.posterior import bma_predict_stacked as jbma
+from repro.eval import engine as jeval
+from repro.models import lenet as jlenet
+from repro_torch.config import FedConfig, LENET_RADAR_REDUCED
+from repro_torch.core import calibration as cal
+from repro_torch.core.fed_state import init_fed_state
+from repro_torch.core.gossip import make_mixer
+from repro_torch.core.mixing import mixing_matrix
+from repro_torch.core.posterior import SampleBank, bma_predict_stacked
+from repro_torch.core.topology import build_topology, resolve_topology
+from repro_torch.eval import engine as peval
+from repro_torch.models.lenet import lenet_logits, params_from_jax
+from repro_torch.utils.tree import tree_leaves, tree_map
+
+RTOL = 1e-6
+
+
+@pytest.mark.parametrize("graph,k", [("full", 10), ("full", 3), ("ring", 10),
+                                     ("ring", 5), ("full", 1)])
+def test_omega_is_the_reference_omega(graph, k):
+    want = jbuild_topology(jresolve_topology(JaxFedConfig(topology=graph)), k)
+    got = build_topology(resolve_topology(FedConfig(topology=graph)), k)
+    np.testing.assert_array_equal(got.adjacency, want.adjacency)
+    np.testing.assert_array_equal(got.omega, want.omega)
+    np.testing.assert_array_equal(mixing_matrix(graph, k), want.omega)
+
+
+@pytest.mark.parametrize("graph", ["full", "ring"])
+def test_dense_mix_matches_reference(graph):
+    k = 5
+    omega = build_topology(graph, k).omega
+    rng = np.random.default_rng(0)
+    tree = {"a": rng.standard_normal((k, 7, 3)).astype(np.float32),
+            "b": {"c": rng.standard_normal((k, 11)).astype(np.float32)}}
+    want = jdense_mix(omega, jax.tree.map(jnp.asarray, tree))
+    got = make_mixer(omega, "cpu")(tree_map(torch.from_numpy, tree))
+    for g, w in zip(tree_leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL, atol=1e-7)
+
+
+def test_init_fed_state_stacks_params_and_zeroes_controls():
+    p = {"w": torch.arange(6.0).reshape(2, 3), "b": torch.ones(3)}
+    st = init_fed_state(p, FedConfig(num_nodes=4))
+    assert st.params["w"].shape == (4, 2, 3) and st.round == 0
+    assert torch.equal(st.params["w"][3], p["w"])
+    for tree in (st.v, st.v_bar):
+        assert all(x.dtype == torch.float32 and not x.any()
+                   for x in tree_leaves(tree))
+    assert len(set(st.seeds)) == 4
+
+
+def _probs(n=300, c=10, seed=0):
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((n, c)).astype(np.float32) * 2
+    probs = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    return probs.astype(np.float32), rng.integers(0, c, n).astype(np.int32)
+
+
+def test_calibration_matches_reference():
+    probs, labels = _probs()
+    tp, tl = torch.from_numpy(probs), torch.from_numpy(labels)
+    jp, jl = jnp.asarray(probs), jnp.asarray(labels)
+    for name in ("accuracy", "ece", "nll", "brier"):
+        np.testing.assert_allclose(float(getattr(cal, name)(tp, tl)),
+                                   float(getattr(jcal, name)(jp, jl)),
+                                   rtol=RTOL, err_msg=name)
+    got, want = cal.reliability_bins(tp, tl), jcal.reliability_bins(jp, jl)
+    np.testing.assert_array_equal(got.bin_counts.numpy(), np.asarray(want.bin_counts))
+    for f in ("bin_confidence", "bin_accuracy"):
+        np.testing.assert_allclose(getattr(got, f).numpy(),
+                                   np.asarray(getattr(want, f)), rtol=RTOL)
+
+
+def test_eval_accumulators_match_reference():
+    probs, labels = _probs(seed=1)
+    mask = np.ones(len(labels), np.float32)
+    mask[-17:] = 0.0
+    acc_t = peval.init_accum(10)
+    acc_j = jeval.init_accum(10)
+    for sl in (slice(0, 128), slice(128, 300)):
+        acc_t = peval.update_accum(acc_t, torch.from_numpy(probs[sl]),
+                                   torch.from_numpy(labels[sl]),
+                                   torch.from_numpy(mask[sl]), 10, 1.5)
+        acc_j = jeval.update_accum(acc_j, jnp.asarray(probs[sl]),
+                                   jnp.asarray(labels[sl]),
+                                   jnp.asarray(mask[sl]), 10, 1.5)
+    got, want = peval.finalize(acc_t), jeval.finalize(acc_j)
+    for f in ("accuracy", "ece", "mce", "nll", "brier", "entropy",
+              "overconf_gap", "count", "abstain_rate", "kept_accuracy"):
+        np.testing.assert_allclose(getattr(got, f), getattr(want, f),
+                                   rtol=1e-5, err_msg=f)
+    np.testing.assert_array_equal(got.bins.bin_counts, want.bins.bin_counts)
+
+
+def test_sample_bank_admits_like_reference():
+    port, ref = SampleBank(burn_in=3, max_samples=4, thin=2), \
+        JaxSampleBank(burn_in=3, max_samples=4, thin=2)
+    for t in range(15):
+        assert port.maybe_add(t, {"w": torch.full((2,), float(t))}) == \
+            ref.maybe_add(t, {"w": np.full((2,), float(t))})
+    assert port.rounds == ref.rounds
+    assert port.stacked()["w"][:, 0].tolist() == [float(r) for r in ref.rounds]
+
+
+def test_bma_and_host_eval_engine_match_reference():
+    """Stacked (S=2, K=3) reduced LeNets: BMA probabilities and the host
+    eval engine's report against the reference's."""
+    cfg = LENET_RADAR_REDUCED
+    samples = [[jlenet.init_lenet(jax.random.PRNGKey(10 * s + k), cfg)
+                for k in range(3)] for s in range(2)]
+    stacked_j = jax.tree.map(lambda *xs: jnp.stack(xs), *[
+        jax.tree.map(lambda *ks: jnp.stack(ks), *row) for row in samples])
+    stacked_t = params_from_jax(jax.tree.map(np.asarray, stacked_j))
+    rng = np.random.default_rng(2)
+    data = {"x": rng.standard_normal((70, 32, 16, 1)).astype(np.float32),
+            "y": rng.integers(0, 10, 70).astype(np.int32)}
+    want = jbma(lambda p, b: jlenet.lenet_logits(p, b["x"]), stacked_j,
+                {"x": jnp.asarray(data["x"][:8])}, node_axis=1)
+    got = bma_predict_stacked(lenet_logits, stacked_t,
+                              torch.from_numpy(data["x"][:8]), node_axis=1)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-6)
+    rep_j, probs_j = jeval.HostEvalEngine(
+        lambda p, b: jlenet.lenet_logits(p, b["x"]), batch_size=32).evaluate(
+        stacked_j, data, node_axis=1, return_probs=True)
+    rep_t, probs_t = peval.HostEvalEngine(lenet_logits, batch_size=32).evaluate(
+        stacked_t, data, node_axis=1, return_probs=True)
+    np.testing.assert_allclose(probs_t, probs_j, rtol=1e-5, atol=1e-6)
+    assert rep_t.accuracy == rep_j.accuracy and rep_t.count == rep_j.count == 70
+    np.testing.assert_allclose(rep_t.ece, rep_j.ece, atol=1e-5)

@@ -1,0 +1,67 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: skipped, with the reason, on a host without a CUDA device.
+On a card host: ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels.fused_compress import delta_pack_plain
+from repro_torch.kernels.fused_update import fused_update_plain
+from repro_torch.kernels.pack import pack_topk_plain, unpack_topk_plain
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _same_bits(a, b):
+    view = {torch.float32: torch.int32, torch.uint16: torch.int16}[a.dtype]
+    return a.shape == b.shape and torch.equal(a.view(view), b.view(view))
+
+
+@pytest.mark.parametrize("n", [6, 150, 1024, 4097, 21000])
+def test_kernels_match_plain_versions(card, n):
+    gen = torch.Generator(device=card).manual_seed(n)
+    theta = torch.randn((4, n), generator=gen, device=card)
+    v = torch.randn((4, n), generator=gen, device=card) * 0.1
+    kernels.reset_launch_counts()
+    vals, idx = kernels.pack_topk(theta, 11)
+    want = pack_topk_plain(theta, 11)
+    assert _same_bits(vals, want[0]) and _same_bits(idx, want[1])
+    dvals, didx = kernels.delta_pack(theta, v, 11)
+    dwant = delta_pack_plain(theta, v, 11)
+    assert _same_bits(dvals, dwant[0]) and _same_bits(didx, dwant[1])
+    dense = kernels.unpack_topk(dvals, didx, n)
+    assert _same_bits(dense, unpack_topk_plain(dvals, didx, n))
+    xi = torch.randn((4, n), generator=gen, device=card)
+    out = kernels.fused_update(theta, v * 0.5, v, xi, 0.03, 1.0)
+    assert _same_bits(out, fused_update_plain(theta, v * 0.5, v, xi, 0.03, 1.0))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {"pack": 1, "delta_pack": 1,
+                                       "unpack": 1, "fused_update": 1}
+
+
+def test_ties_and_zeros(card):
+    ties = torch.randint(-3, 4, (3, 5000), device=card).float()
+    for x in (ties, torch.zeros_like(ties)):
+        vals, idx = kernels.pack_topk(x, 11)
+        want = pack_topk_plain(x, 11)
+        assert _same_bits(vals, want[0]) and _same_bits(idx, want[1])
+
+
+def test_misaligned_fused_update(card):
+    """The float4 path needs 16-byte alignment; offset views take the
+    scalar path and must agree too."""
+    base = torch.randn((5, 1001), device=card)
+    a, b, c, d = (base[i, 1:].contiguous()[1:] for i in range(4))
+    out = kernels.fused_update(a, b, c, d, 0.03, 0.5)
+    assert _same_bits(out, fused_update_plain(a, b, c, d, 0.03, 0.5))
+    np.testing.assert_array_equal(out.isfinite().cpu().numpy(), True)

@@ -1,0 +1,160 @@
+"""The port's kernel wrappers (plain versions on the CPU) against the
+reference's Pallas kernels run in interpret mode, as tests/test_kernels.py
+runs them. Inputs are made with numpy from a seed. Values and indices are
+compared exactly: both sides run the same f32 arithmetic.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro_torch import kernels
+from repro_torch.kernels import ops
+from repro_torch.kernels.fused_update import fma_f32
+from repro_torch.kernels.pack import pack_topk
+
+SHAPES = [(1024,), (3, 1000, 7), (4097,), (6,), (150,)]
+ROWS = 2        # node-stacked: two nodes per leaf, one launch
+
+
+def _leaf(shape, kind, seed=0):
+    rng = np.random.default_rng(seed)
+    if kind == "normal":
+        return rng.standard_normal((ROWS,) + shape).astype(np.float32)
+    if kind == "zeros":
+        return np.zeros((ROWS,) + shape, np.float32)
+    # heavy ties: 7 distinct magnitudes over thousands of entries
+    return rng.integers(-3, 4, size=(ROWS,) + shape).astype(np.float32)
+
+
+CASES = ([(s, "normal") for s in SHAPES]
+         + [((4097,), "zeros"), ((150,), "zeros"),
+            ((4097,), "ties"), ((3, 1000, 7), "ties")])
+
+
+def _assert_exact(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape,kind", CASES)
+def test_pack_matches_reference(shape, kind):
+    x = _leaf(shape, kind)
+    vals, idx = ops.block_topk_pack(torch.from_numpy(x), ratio=0.01)
+    for r in range(ROWS):
+        want_v, want_i = jops.block_topk_pack(jnp.asarray(x[r]), ratio=0.01)
+        _assert_exact(vals[r].numpy(), want_v)
+        _assert_exact(idx[r].numpy(), want_i)
+
+
+@pytest.mark.parametrize("shape,kind", CASES)
+def test_delta_pack_matches_reference(shape, kind):
+    theta = _leaf(shape, kind, seed=1)
+    v = _leaf(shape, "normal", seed=2) if kind == "normal" else theta * 0.5
+    vals, idx = ops.fused_delta_pack(torch.from_numpy(theta),
+                                     torch.from_numpy(v), ratio=0.01)
+    for r in range(ROWS):
+        want_v, want_i = jops.fused_delta_pack(jnp.asarray(theta[r]),
+                                               jnp.asarray(v[r]), ratio=0.01)
+        _assert_exact(vals[r].numpy(), want_v)
+        _assert_exact(idx[r].numpy(), want_i)
+
+
+@pytest.mark.parametrize("shape,kind", CASES)
+def test_unpack_matches_reference(shape, kind):
+    x = _leaf(shape, kind, seed=3)
+    n = int(np.prod(shape))
+    packed = [jops.block_topk_pack(jnp.asarray(x[r]), ratio=0.01)
+              for r in range(ROWS)]
+    vals = torch.from_numpy(np.stack([np.asarray(p[0]) for p in packed]))
+    idx = torch.from_numpy(np.stack([np.asarray(p[1]) for p in packed]))
+    got = ops.block_topk_unpack(vals, idx, shape)
+    for r in range(ROWS):
+        want = jops.block_topk_unpack(packed[r][0], packed[r][1], n, shape)
+        _assert_exact(got[r].numpy(), want)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("noise_scale", [1.0, 0.0141])
+def test_fused_update_matches_reference(shape, noise_scale):
+    rng = np.random.default_rng(4)
+    th, vb, v, xi = (rng.standard_normal(shape).astype(np.float32)
+                     for _ in range(4))
+    got = ops.leaf_fused_update(*(torch.from_numpy(a) for a in (th, vb, v, xi)),
+                                zeta=0.03, noise_scale=noise_scale)
+    want = jops.fused_update(*(jnp.asarray(a) for a in (th, vb, v, xi)),
+                             zeta=0.03, noise_scale=noise_scale)
+    _assert_exact(got.numpy(), want)
+
+
+def test_fused_update_matches_reference_round_expression():
+    """The round's Eq. 9 tree_map (algorithms.py:415-422) is what the port's
+    round replaces with the kernel at noise_scale=1."""
+    rng = np.random.default_rng(5)
+    th, vb, v, n = (rng.standard_normal((3, 2000)).astype(np.float32)
+                    for _ in range(4))
+    eq9 = jax.jit(lambda t, vb, v, n: t.astype(jnp.float32)
+                  + 0.03 * (vb.astype(jnp.float32) - v.astype(jnp.float32)) + n)
+    want = eq9(*(jnp.asarray(a) for a in (th, vb, v, n)))
+    got = ops.leaf_fused_update(*(torch.from_numpy(a) for a in (th, vb, v, n)),
+                                zeta=0.03, noise_scale=1.0)
+    _assert_exact(got.numpy(), want)
+
+
+def test_fma_f32_is_single_rounding():
+    """fma_f32 against an exact rational evaluation. The first two cases
+    are double-rounding traps: (1 + 2^-15)(1 - 2^-15) + (2^24 + 2) is
+    2^24 + 3 - 2^-30, which a float64 sum rounds to the f32 midpoint
+    2^24 + 3 and then (ties to even) to 2^24 + 4; the fma gives 2^24 + 2."""
+    from fractions import Fraction
+    rng = np.random.default_rng(6)
+    a = rng.standard_normal(4000).astype(np.float32)
+    b = rng.standard_normal(4000).astype(np.float32)
+    c = (a.astype(np.float64) * b.astype(np.float64)).astype(np.float32)
+    c = -c + np.float32(2.0) ** rng.integers(-40, -20, 4000).astype(np.float32)
+    a[:2] = 1 + 2.0 ** -15, -(1 + 2.0 ** -15)
+    b[:2] = 1 - 2.0 ** -15
+    c[:2] = 2.0 ** 24 + 2, -(2.0 ** 24 + 2)
+    got = fma_f32(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c))
+    assert got[0] == 2.0 ** 24 + 2 and got[1] == -(2.0 ** 24 + 2)
+    for ai, bi, ci, gi in zip(a, b, c, got.numpy()):
+        exact = Fraction(float(ai)) * Fraction(float(bi)) + Fraction(float(ci))
+        lo = np.nextafter(gi, np.float32(-np.inf))
+        hi = np.nextafter(gi, np.float32(np.inf))
+        err = abs(Fraction(float(gi)) - exact)
+        assert err <= abs(Fraction(float(lo)) - exact)
+        assert err <= abs(Fraction(float(hi)) - exact)
+
+
+def test_delta_pack_equals_pack_of_residual():
+    rng = np.random.default_rng(7)
+    theta = torch.from_numpy(rng.standard_normal((3, 5000)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((3, 5000)).astype(np.float32))
+    a = ops.fused_delta_pack(theta, v)
+    b = ops.block_topk_pack(theta - v)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_cpu_tensors_run_the_plain_versions():
+    kernels.reset_launch_counts()
+    x = torch.randn(2, 3000)
+    vals, idx = pack_topk(x, 11)
+    ops.block_topk_unpack(vals, idx, (3000,))
+    ops.fused_delta_pack(x, x)
+    ops.leaf_fused_update(x, x, x, x, 0.03, 1.0)
+    assert kernels.launch_counts() == {"pack": 0, "delta_pack": 0,
+                                       "unpack": 0, "fused_update": 0}
+
+
+def test_meta_tensors_give_payload_shapes():
+    vals, idx = pack_topk(torch.empty((10, 11712 * 220), device="meta"), 11)
+    assert vals.shape == idx.shape == (10, 2517, 11)
+    assert vals.dtype == torch.float32 and idx.dtype == torch.uint16
+
+
+def test_wrappers_check_dtypes():
+    with pytest.raises(ValueError, match="float32"):
+        pack_topk(torch.zeros(1, 64, dtype=torch.float64), 1)
