@@ -11,7 +11,9 @@ Phases, each of which fails the run by raising:
              PyTorch versions on the card, exactly, at the main path's
              full-width leaf shapes (K=10) and at edge cases (a ragged
              leaf, leaves shorter than a block, an all-zero leaf, a leaf of
-             exact ties); time each beside its bound and its plain version.
+             exact ties); time each beside its bound and its plain version,
+             by CUDA events (host time per call included) and by the device
+             time in a profiler trace (the kernels alone).
 3. slice   — FedTrainer(device="cuda") on full-width lenet-radar (256x63,
              K=10, L=8, minibatch 10, block_topk with fused compression,
              η=1e-4, ζ=0.03, T=1) for a few rounds, then BMA evaluation on a
@@ -20,6 +22,9 @@ Phases, each of which fails the run by raising:
 4. oracle  — one round from the same state through FusedCodec(fused=False),
              which runs the pack kernel: its payload equals the fused one
              byte for byte.
+5. profile — a traced fused round and a traced oracle round: the device's
+             busy share, its top kernels, and each ported kernel's device
+             time in the round.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository, it exits non-zero and prints no
@@ -37,6 +42,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -112,6 +119,32 @@ def device_ms(fn, reps: int = 5, per_rep: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / per_rep)
     return statistics.median(times)
+
+
+def traced_ms(fns, reps: int = 3):
+    """Device time of one pass over ``fns`` from a torch.profiler trace:
+    the summed intervals of the device kernels, fills and copies they ran,
+    with no host time in it. None if the profiler saw no device events."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for fn in fns:
+                fn()
+        torch.cuda.synchronize()
+    us = sum(t for t, _ in device_time_by_name(prof).values())
+    return us / 1e3 / reps if us else None
+
+
+def device_time_by_name(prof):
+    """{device kernel name: (summed µs, count)} of a torch.profiler trace."""
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            tot, cnt = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
+    return by_name
 
 
 def bound(nbytes: float, ops: float):
@@ -193,34 +226,45 @@ def check_kernels(shapes):
     return errs
 
 
+def leaf_runs(th, v, vb, xi, vals, idx):
+    """{kernel: (kernel call, plain call, bytes, operations)} on one leaf's
+    (K, n) operands; a function of its own so each call binds its leaf."""
+    n = th.shape[1]
+    nb = num_blocks(n, BLOCK)
+    wire = K * nb * SURVIVORS * 6
+    padded = K * nb * BLOCK
+    return {
+        "pack": (lambda: pack_topk(th, SURVIVORS),
+                 lambda: pack_topk_plain(th, SURVIVORS),
+                 K * n * 4 + wire, PACK_OPS * padded),
+        "delta_pack": (lambda: delta_pack(th, v, SURVIVORS),
+                       lambda: delta_pack_plain(th, v, SURVIVORS),
+                       2 * K * n * 4 + wire, DELTA_PACK_OPS * padded),
+        "unpack": (lambda: unpack_topk(vals, idx, n),
+                   lambda: unpack_topk_plain(vals, idx, n),
+                   wire + K * n * 4, 0),
+        "fused_update": (lambda: fused_update(th, vb, v, xi, 0.03, 1.0),
+                         lambda: fused_update_plain(th, vb, v, xi, 0.03, 1.0),
+                         5 * K * n * 4, UPDATE_OPS * K * n),
+    }
+
+
 def time_kernels(shapes):
     """Per-round time of each kernel over the main path's leaves (one
-    launch per leaf, K=10 rows), its plain version's, and its bound."""
+    launch per leaf, K=10 rows), its plain version's, and its bound. Two
+    clocks: CUDA events around back-to-back calls (``ms``, ``plain_ms``:
+    what a caller pays, host time per call included wherever it exceeds
+    the device work) and the device time in a profiler trace
+    (``device_ms``, ``plain_device_ms``: the kernels alone)."""
     gen = torch.Generator(device=DEVICE).manual_seed(1)
-    rows = {name: dict(ms=0.0, plain_ms=0.0, nbytes=0.0, ops=0.0)
-            for name in KERNELS}
+    rows = {name: dict(ms=0.0, plain_ms=0.0, nbytes=0.0, ops=0.0, fns=[],
+                       plain_fns=[]) for name in KERNELS}
     for _, shape in shapes:
         n = int(np.prod(shape))
-        nb = num_blocks(n, BLOCK)
         th = torch.randn((K, n), generator=gen, device=DEVICE)
         v, vb, xi = th * 0.1, th * 0.05, th * 0.01
         vals, idx = delta_pack(th, v, SURVIVORS)
-        wire = K * nb * SURVIVORS * 6
-        padded = K * nb * BLOCK
-        runs = {
-            "pack": (lambda: pack_topk(th, SURVIVORS),
-                     lambda: pack_topk_plain(th, SURVIVORS),
-                     K * n * 4 + wire, PACK_OPS * padded),
-            "delta_pack": (lambda: delta_pack(th, v, SURVIVORS),
-                           lambda: delta_pack_plain(th, v, SURVIVORS),
-                           2 * K * n * 4 + wire, DELTA_PACK_OPS * padded),
-            "unpack": (lambda: unpack_topk(vals, idx, n),
-                       lambda: unpack_topk_plain(vals, idx, n),
-                       wire + K * n * 4, 0),
-            "fused_update": (lambda: fused_update(th, vb, v, xi, 0.03, 1.0),
-                             lambda: fused_update_plain(th, vb, v, xi, 0.03, 1.0),
-                             5 * K * n * 4, UPDATE_OPS * K * n),
-        }
+        runs = leaf_runs(th, v, vb, xi, vals, idx)
         for name, (kern, plain, nbytes, ops) in runs.items():
             r = rows[name]
             ms, plain_ms = device_ms(kern), device_ms(plain, reps=3, per_rep=2)
@@ -228,13 +272,21 @@ def time_kernels(shapes):
             r["plain_ms"] += plain_ms
             r["nbytes"] += nbytes
             r["ops"] += ops
+            r["fns"].append(kern)
+            r["plain_fns"].append(plain)
             if n == max(int(np.prod(s)) for _, s in shapes):
                 b_ms, b_by = bound(nbytes, ops)
                 log("kernels", f"{name} on the largest leaf {shape} (K={K}): "
                                f"{ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
                                f"{b_ms:.4f} ms ({b_by})")
-    for r in rows.values():
+    for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound(r["nbytes"], r["ops"])
+        r["device_ms"] = traced_ms(r.pop("fns"))
+        r["plain_device_ms"] = traced_ms(r.pop("plain_fns"))
+        if r["device_ms"] is None or r["plain_device_ms"] is None:
+            log("kernels", f"{name}: the profiler saw no device events; "
+                           f"device time not measured, event times used")
+            r["device_ms"], r["plain_device_ms"] = r["ms"], r["plain_ms"]
     return rows
 
 
@@ -317,36 +369,37 @@ def oracle_round(trainer):
     log("oracle", f"FusedCodec(fused=False) round: payload "
                   f"({m_two.payload.measured_bytes()} bytes, {K} nodes) equal "
                   f"to the fused round's byte for byte; launches {launches}")
-    return launches
+    return launches, oracle_fn
 
 
-def profile_round(trainer):
-    """Device-busy share of one full-width round and its top device kernels
-    (torch.profiler; the kernels' own intervals, summed)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# device kernel names of the ported kernels in a profiler trace
+TRACE_NAMES = {"pack": "pack_kernel<false>", "delta_pack": "pack_kernel<true>",
+               "unpack": "unpack_kernel", "fused_update": "fused_update_"}
+
+
+def profile_round(trainer, oracle_fn, timing):
+    """Device-busy share of one full-width round and its top device
+    kernels (torch.profiler; the kernels' own intervals, summed), and each
+    ported kernel's device time in the round beside its event-timed cost
+    (pack from a traced oracle round)."""
     fed = trainer.fed_cfg
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     state = trainer.state
 
-    def one_round():
+    def one_round(round_fn):
         batches = trainer.device_shards.gather(
             trainer.device_shards.sample_indices(gen, fed.local_steps, MINIBATCH))
         noise = langevin_noise(gen, state.params, fed.eta, fed.temperature)
-        trainer.round_fn(state, batches, noise)
+        round_fn(state, batches, noise)
         torch.cuda.synchronize()
 
-    one_round()
+    one_round(trainer.round_fn)
     t0 = time.perf_counter()
-    one_round()
+    one_round(trainer.round_fn)
     wall_ms = 1e3 * (time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        one_round()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            tot, cnt = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
+        one_round(trainer.round_fn)
+    by_name = device_time_by_name(prof)
     if not by_name:
         log("profile", "the profiler saw no device events: device time not "
                        "measured")
@@ -356,6 +409,17 @@ def profile_round(trainer):
                    f"round's {wall_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%)")
     for kname, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         log("profile", f"  {tot / 1e3:8.3f} ms x{cnt:<4d} {kname[:90]}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        one_round(oracle_fn)
+    oracle_by_name = device_time_by_name(prof)
+    for kname, pattern in TRACE_NAMES.items():
+        trace = oracle_by_name if kname == "pack" else by_name
+        hits = [(t, c) for n, (t, c) in trace.items() if pattern in n]
+        us, cnt = sum(t for t, _ in hits), sum(c for _, c in hits)
+        log("profile", f"{kname}: {us / 1e3:.4f} ms device time in the traced "
+                       f"{'oracle ' if kname == 'pack' else ''}round, {cnt} "
+                       f"launches; event-timed {timing[kname]['ms']:.4f} ms a "
+                       f"round (phase 2)")
 
 
 def main() -> int:
@@ -387,20 +451,23 @@ def main() -> int:
     errs = check_kernels(shapes)
     timing = time_kernels(shapes)
     for kname, r in timing.items():
-        log("kernels", f"{kname} per round (10 leaves, K={K}): {r['ms']:.4f} ms; "
-                       f"plain {r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
-                       f"({r['bound_by']}: {r['nbytes']:.0f} B, {r['ops']:.0f} ops)")
+        log("kernels", f"{kname} per round (10 leaves, K={K}): device "
+                       f"{r['device_ms']:.4f} ms, event-timed {r['ms']:.4f} ms; "
+                       f"plain: device {r['plain_device_ms']:.4f} ms, "
+                       f"event-timed {r['plain_ms']:.4f} ms; bound "
+                       f"{r['bound_ms']:.4f} ms ({r['bound_by']}: "
+                       f"{r['nbytes']:.0f} B, {r['ops']:.0f} ops)")
 
     trainer, launches, _ = run_slice()
-    oracle_launches = oracle_round(trainer)
-    profile_round(trainer)
+    oracle_launches, oracle_fn = oracle_round(trainer)
+    profile_round(trainer, oracle_fn, timing)
 
     launches = dict(launches, pack=oracle_launches["pack"])
     record = {"kernels": [
         {"name": kname, "route": "cuda", "source": KERNELS[kname][0],
          "replaces": KERNELS[kname][1], "launches": launches[kname],
-         "max_abs_err": errs[kname], "ms": timing[kname]["ms"],
-         "plain_ms": timing[kname]["plain_ms"],
+         "max_abs_err": errs[kname], "ms": timing[kname]["device_ms"],
+         "plain_ms": timing[kname]["plain_device_ms"],
          "bound_ms": timing[kname]["bound_ms"],
          "bound_by": timing[kname]["bound_by"], "library_ms": None}
         for kname in KERNELS]}

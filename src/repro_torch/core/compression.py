@@ -12,7 +12,7 @@ counts and the metadata equal the reference's.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
 from typing import Any, Dict, List, NamedTuple, Tuple
 
 import numpy as np
@@ -36,14 +36,12 @@ class _SparseMeta(NamedTuple):
 @dataclass(frozen=True)
 class BlockTopKCodec:
     """Block-local top-k, a codec stage: uint16 block-local indices and an
-    (nb, k) value buffer a node.
-
-    Only the kernel path (``use_pallas=True``, the reference's ``"pallas"``
-    mode) is ported; the ``lax.top_k``-order path is ROADMAP A4.
+    (nb, k) value buffer a node, in the kernel path's slot order (the
+    reference's ``use_pallas=True``). The ``lax.top_k``-order path is
+    ROADMAP A4.
     """
     ratio: float = 0.01
     block_size: int = 1024
-    use_pallas: bool = False
 
     def _meta(self, x, vals) -> _SparseMeta:
         shape = tuple(x.shape[1:])
@@ -51,10 +49,6 @@ class BlockTopKCodec:
                            nb=vals.shape[1], bs=self.block_size)
 
     def encode(self, x):
-        if not self.use_pallas:
-            raise NotImplementedError(
-                "BlockTopKCodec(use_pallas=False), the top_k-order path, is "
-                "not ported yet; ROADMAP A4")
         vals, idx = kops.block_topk_pack(x, ratio=self.ratio,
                                          block_size=self.block_size)
         return vals, {"idx": idx}, self._meta(x, vals)
@@ -110,7 +104,7 @@ class WirePayload:
 class CompressionPipeline:
     """Chainable codec stages with a materialized wire format."""
 
-    stages: Tuple[BlockTopKCodec, ...] = (BlockTopKCodec(use_pallas=True),)
+    stages: Tuple[BlockTopKCodec, ...] = (BlockTopKCodec(),)
     min_dense_size: int = 0
 
     def _encode_leaf(self, x, v):
@@ -168,13 +162,6 @@ class CompressionPipeline:
         return self.encode(specs).measured_bytes()
 
 
-def _lower_stage0(stages: Tuple[BlockTopKCodec, ...]) -> Tuple[BlockTopKCodec, ...]:
-    """A leading block-top-k stage runs on the kernel path (its slot order)."""
-    if stages and isinstance(stages[0], BlockTopKCodec):
-        return (replace(stages[0], use_pallas=True),) + tuple(stages[1:])
-    return tuple(stages)
-
-
 @dataclass(frozen=True)
 class FusedCodec(CompressionPipeline):
     """Compress-in-update lowering: ``encode_pair`` runs the delta-pack
@@ -188,15 +175,13 @@ class FusedCodec(CompressionPipeline):
     @classmethod
     def wrap(cls, pipeline: CompressionPipeline, fused: bool = True
              ) -> "FusedCodec":
-        return cls(stages=_lower_stage0(pipeline.stages),
+        return cls(stages=pipeline.stages,
                    min_dense_size=pipeline.min_dense_size, fused=fused)
 
     def _encode_leaf(self, x, v):
-        s0 = self.stages[0] if self.stages else None
-        eligible = (v is not None and self.fused
-                    and isinstance(s0, BlockTopKCodec) and s0.use_pallas)
-        if not eligible:
+        if v is None or not self.fused:
             return super()._encode_leaf(x, v)
+        (s0,) = self.stages     # one block-top-k stage (block_topk|qsgd: B5)
         vals, idx = kops.fused_delta_pack(x, v, ratio=s0.ratio,
                                           block_size=s0.block_size)
         return vals, ({"idx": idx},), (s0._meta(x, vals),)
@@ -205,7 +190,7 @@ class FusedCodec(CompressionPipeline):
 def make_compressor(fed_cfg) -> CompressionPipeline:
     """The compression object a FedConfig names. The slice runs
     ``compressor="block_topk"`` with ``fused_compress=True``: a
-    :class:`FusedCodec` whose stage 0 is the kernel-path block-top-k."""
+    :class:`FusedCodec` over one block-top-k stage."""
     fed_cfg.check_supported()
     base = CompressionPipeline(
         stages=(BlockTopKCodec(ratio=fed_cfg.compress_ratio,

@@ -135,12 +135,10 @@ class HostEvalEngine:
     accumulators in batch order."""
 
     def __init__(self, logits_fn: Callable, num_bins: int = 10,
-                 batch_size: int = 64,
-                 entropy_threshold: float = float("inf")):
+                 batch_size: int = 64):
         self.logits_fn = logits_fn
         self.num_bins = int(num_bins)
         self.batch_size = int(batch_size)
-        self.entropy_threshold = float(entropy_threshold)
 
     @torch.no_grad()
     def evaluate(self, stacked, data: Dict[str, np.ndarray],
@@ -154,7 +152,7 @@ class HostEvalEngine:
             probs = bma_predict_stacked(self.logits_fn, stacked,
                                         batches["x"][i], node_axis=node_axis)
             acc = update_accum(acc, probs, batches["y"][i], masks[i],
-                               self.num_bins, self.entropy_threshold)
+                               self.num_bins)
             if return_probs:
                 all_probs.append(probs)
         report = finalize(acc)

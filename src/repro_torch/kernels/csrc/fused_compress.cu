@@ -9,13 +9,13 @@
 // block reads its missing elements as 0, which is what the reference's
 // zero-padded tail tile holds (θ − v = 0 − 0 there).
 //
-// What bounds it on an H100: two reads of the leaf (θ and v, 8 bytes an
-// element at 3.35 TB/s, 2.4 ps) against the 40 compare passes of the
-// bisection (45 f32 operations an element with the subtraction, 0.67 ps at
-// 67 TFLOP/s; a serial chain of 40 steps per block, see pack.cu) and a
-// wire-sized write. The residual d = θ − v is
-// formed in registers (__fsub_rn, the reference's f32 subtraction) and never
-// reaches device memory: that is the kernel's whole point, and the design
+// What bounds it on an H100: the function's own bound is two reads of the
+// leaf (θ and v, 8 bytes an element at 3.35 TB/s, 2.4 ps) against the 40
+// compare passes of the bisection (45 f32 operations an element with the
+// subtraction, 0.67 ps at 67 TFLOP/s) and a wire-sized write. This design
+// is bound by the popcount issue rate of its 40 passes, as pack is (see
+// pack.cu). The residual d = θ − v is formed in registers (__fsub_rn, the
+// reference's f32 subtraction) and never reaches device memory: that is the kernel's whole point, and the design
 // keeps it by running the shared register-resident tile (pack_tile.cuh)
 // with HAS_V = true.
 #include "pack_tile.cuh"
