@@ -7,24 +7,33 @@ Phases, each of which fails the run by raising:
 
 1. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
              with nvcc for sm_90a; print the card's name and power limit.
-2. kernels — pack, delta-pack, unpack and fused_update against their plain
-             PyTorch versions on the card, exactly, at the main path's
-             full-width leaf shapes (K=10) and at edge cases (a ragged
-             leaf, leaves shorter than a block, an all-zero leaf, a leaf of
-             exact ties); time each beside its bound and its plain version,
-             by CUDA events (host time per call included) and by the device
-             time in a profiler trace (the kernels alone).
+2. kernels — the seven kernels (pack, delta-pack, unpack, fused_update,
+             grid_quant, qsgd, block_topk) against their plain PyTorch
+             versions on the card, exactly, at the main paths' full-width
+             shapes (K=10: the 10 leaves; grid_quant the 10 packed (K, nb,
+             11) carriers) and at edge cases (a ragged leaf, leaves shorter
+             than a block, an all-zero leaf, a leaf of exact ties, a leaf
+             with -0.0 entries); time each beside its bound and its plain
+             version, by CUDA events (host time per call included) and by
+             the device time in a profiler trace (the kernels alone).
 3. slice   — FedTrainer(device="cuda") on full-width lenet-radar (256x63,
-             K=10, L=8, minibatch 10, block_topk with fused compression,
-             η=1e-4, ζ=0.03, T=1) for a few rounds, then BMA evaluation on a
-             day-1 test set. Every value finite, exactly 168,036 wire bytes
-             per node per round, and every kernel of the path launched.
-4. oracle  — one round from the same state through FusedCodec(fused=False),
-             which runs the pack kernel: its payload equals the fused one
-             byte for byte.
-5. profile — a traced fused round and a traced oracle round: the device's
-             busy share, its top kernels, and each ported kernel's device
-             time in the round.
+             K=10, L=8, minibatch 10, ratio 1%, block 1024, η=1e-4, ζ=0.03,
+             T=1) in four configurations, each run with the launch counts
+             set to 0 just before it and read just after: block_topk with
+             fused compression (4 rounds, BMA evaluation, 168,036 wire
+             bytes per node per round), the block_topk|qsgd pipeline (4
+             rounds, BMA evaluation, 84,058 bytes), and the legacy dense
+             qsgd_pallas (2 rounds, 1,949,174 bytes) and block_topk_pallas
+             (2 rounds, 155,934 bytes) compressors. Every value finite, the
+             bytes exact, and every kernel of each path launched.
+4. oracle  — one round of each pipeline from its run's state through
+             FusedCodec(fused=False), which runs the pack kernel (and QSGD's
+             own torch arithmetic): its payload and params equal the fused
+             round's bit for bit. The card's decode of the block_topk|qsgd
+             payload equals the plain CPU decode of the same payload.
+5. profile — traced rounds (block_topk fused, its oracle, block_topk|qsgd,
+             qsgd_pallas, block_topk_pallas): the device's busy share, the
+             top kernels, and each ported kernel's device time in a round.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository, it exits non-zero and prints no
@@ -52,31 +61,52 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.config import FedConfig, get_arch  # noqa: E402
 from repro_torch.core.algorithms import langevin_noise, make_cdbfl_round  # noqa: E402
 from repro_torch.core.compression import (BlockTopKCodec,  # noqa: E402
-                                          CompressionPipeline, FusedCodec)
+                                          CompressionPipeline, FusedCodec,
+                                          LeafPayload, QSGDCodec, WirePayload)
 from repro_torch.data.partition import partition_iid  # noqa: E402
 from repro_torch.data.radar import make_dataset  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.fused_compress import delta_pack, delta_pack_plain  # noqa: E402
+from repro_torch.kernels.block_topk import block_topk, block_topk_plain  # noqa: E402
+from repro_torch.kernels.fused_compress import (delta_pack,  # noqa: E402
+                                                delta_pack_plain, grid_quant,
+                                                grid_quant_plain)
 from repro_torch.kernels.fused_update import fused_update, fused_update_plain  # noqa: E402
 from repro_torch.kernels.pack import (from_uint16, num_blocks,  # noqa: E402
                                       pack_topk, pack_topk_plain, unpack_topk,
                                       unpack_topk_plain)
+from repro_torch.kernels.qsgd import (inv_one_plus, qsgd, qsgd_omega,  # noqa: E402
+                                      qsgd_plain, row_norm)
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.utils.tree import (tree_count, tree_leaves,  # noqa: E402
                                     tree_leaves_with_path)
 
 DEVICE = "cuda"
 REDUCED = False                                    # full lenet-radar width
-K, L, MINIBATCH, ROUNDS, BURN_IN = 10, 8, 10, 4, 2
-RATIO, BLOCK = 0.01, 1024
+K, L, MINIBATCH, BURN_IN = 10, 8, 10, 2
+RATIO, BLOCK, LEVELS = 0.01, 1024, 16
 SURVIVORS = max(1, math.ceil(RATIO * BLOCK))       # 11
-WIRE_BYTES_PER_NODE = 168_036                      # reference FusedCodec.wire_bytes
+PIPE = "block_topk|qsgd"
+# the slice's configurations: FedConfig overrides, rounds, wire bytes per
+# node per round (the reference's wire_bytes), the kernels each launches
+RUNS = {
+    "block_topk": (dict(compressor="block_topk", fused_compress=True), 4,
+                   168_036, ("delta_pack", "unpack", "fused_update")),
+    PIPE: (dict(pipeline=PIPE, fused_compress=True), 4, 84_058,
+           ("delta_pack", "grid_quant", "unpack", "fused_update")),
+    "qsgd_pallas": (dict(compressor="qsgd_pallas"), 2, 1_949_174,
+                    ("qsgd", "fused_update")),
+    "block_topk_pallas": (dict(compressor="block_topk_pallas"), 2, 155_934,
+                          ("block_topk", "fused_update")),
+}
 # H100 SXM peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # f32 operations per element: |d|, the max, 40 bisection compares, 2 mask
-# compares (delta-pack adds the subtraction); Eq. 9: sub + 2 fma
+# compares (delta-pack adds the subtraction; block_topk is pack's); Eq. 9:
+# sub + 2 fma; QSGD's level: |x|, div, mul, floor, sub, compare (grid_quant
+# adds the sign; qsgd the sign and its three products)
 PACK_OPS, DELTA_PACK_OPS, UPDATE_OPS = 44, 45, 5
+GRID_QUANT_OPS, QSGD_OPS, BLOCK_TOPK_OPS = 6, 8, 44
 
 KERNELS = {
     "pack": ("src/repro_torch/kernels/csrc/pack.cu",
@@ -87,6 +117,12 @@ KERNELS = {
                "src/repro/kernels/pack.py:122"),
     "fused_update": ("src/repro_torch/kernels/csrc/fused_update.cu",
                      "src/repro/kernels/fused_update.py:43"),
+    "grid_quant": ("src/repro_torch/kernels/csrc/fused_compress.cu",
+                   "src/repro/kernels/fused_compress.py:93"),
+    "qsgd": ("src/repro_torch/kernels/csrc/qsgd.cu",
+             "src/repro/kernels/qsgd.py:50"),
+    "block_topk": ("src/repro_torch/kernels/csrc/block_topk.cu",
+                   "src/repro/kernels/block_topk.py:61"),
 }
 
 
@@ -121,20 +157,26 @@ def device_ms(fn, reps: int = 5, per_rep: int = 10) -> float:
     return statistics.median(times)
 
 
-def traced_ms(fns, reps: int = 3):
+def traced_ms(fns, reps: int = 3, attempts: int = 3):
     """Device time of one pass over ``fns`` from a torch.profiler trace:
     the summed intervals of the device kernels, fills and copies they ran,
-    with no host time in it. None if the profiler saw no device events."""
+    with no host time in it. A trace that comes back without device events
+    (it happens now and then on one kernel of a run) is taken again, up to
+    ``attempts`` times; None if every trace was empty."""
     for fn in fns:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            for fn in fns:
-                fn()
-        torch.cuda.synchronize()
-    us = sum(t for t, _ in device_time_by_name(prof).values())
-    return us / 1e3 / reps if us else None
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for fn in fns:
+                    fn()
+            torch.cuda.synchronize()
+        us = sum(t for t, _ in device_time_by_name(prof).values())
+        if us:
+            return us / 1e3 / reps
+    return None
 
 
 def device_time_by_name(prof):
@@ -153,7 +195,8 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-_AS_INT = {torch.float32: torch.int32, torch.uint16: torch.int16}
+_AS_INT = {torch.float32: torch.int32, torch.uint16: torch.int16,
+           torch.int8: torch.int8}
 
 
 def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -190,6 +233,9 @@ def leaf_cases(shapes):
     yield "all-zero 3000", zeros, zeros.clone()
     ties = torch.randint(-3, 4, (K, 5000), generator=gen, device=DEVICE).float()
     yield "ties 5000", ties, torch.zeros_like(ties)
+    signed = normal(4097)
+    signed[:, ::3] = -0.0
+    yield "signed zeros 4097", signed, torch.zeros_like(signed)
 
 
 def check_kernels(shapes):
@@ -207,10 +253,24 @@ def check_kernels(shapes):
                                              device=DEVICE) * 1.4e-2
         upd = fused_update(theta, vb, v, xi, 0.03, 1.0)
         upd_want = fused_update_plain(theta, vb, v, xi, 0.03, 1.0)
+        # QSGD: the leaf's rows and the packed carrier's, uniforms and norms
+        # made on the card (the all-zero leaf's norm is eps alone)
+        u = torch.rand(theta.shape, generator=gen, device=DEVICE)
+        norm = row_norm(theta)
+        recip = inv_one_plus(qsgd_omega(n, LEVELS))
+        carrier = dvals.reshape(K, -1)
+        uc = torch.rand(carrier.shape, generator=gen, device=DEVICE)
+        nc = row_norm(carrier)
         checks = {"pack": [(vals, want[0]), (idx, want[1])],
                   "delta_pack": [(dvals, dwant[0]), (didx, dwant[1])],
                   "unpack": [(dense, dense_want)],
-                  "fused_update": [(upd, upd_want)]}
+                  "fused_update": [(upd, upd_want)],
+                  "grid_quant": [(grid_quant(carrier, uc, nc, LEVELS),
+                                  grid_quant_plain(carrier, uc, nc, LEVELS))],
+                  "qsgd": [(qsgd(theta, u, norm, LEVELS, recip),
+                            qsgd_plain(theta, u, norm, LEVELS, recip))],
+                  "block_topk": [(block_topk(theta, SURVIVORS),
+                                  block_topk_plain(theta, SURVIVORS))]}
         for kname, pairs in checks.items():
             for got, ref in pairs:
                 if not bitwise_equal(got, ref):
@@ -221,18 +281,22 @@ def check_kernels(shapes):
         if not (bitwise_equal(dvals, pack_topk(theta - v, SURVIVORS)[0])
                 and bitwise_equal(didx, pack_topk(theta - v, SURVIVORS)[1])):
             raise AssertionError(f"delta_pack != pack(θ − v) on {name}")
-        log("kernels", f"{name}: K={K} n={n}: pack, delta_pack, unpack, "
-                       f"fused_update bit-exact to their plain versions")
+        log("kernels", f"{name}: K={K} n={n}: {', '.join(checks)} bit-exact "
+                       f"to their plain versions")
     return errs
 
 
-def leaf_runs(th, v, vb, xi, vals, idx):
+def leaf_runs(th, v, vb, xi, vals, idx, u, uc):
     """{kernel: (kernel call, plain call, bytes, operations)} on one leaf's
     (K, n) operands; a function of its own so each call binds its leaf."""
     n = th.shape[1]
     nb = num_blocks(n, BLOCK)
     wire = K * nb * SURVIVORS * 6
     padded = K * nb * BLOCK
+    carrier = vals.reshape(K, -1)
+    m = carrier.shape[1]
+    norm, nc = row_norm(th), row_norm(carrier)
+    recip = inv_one_plus(qsgd_omega(n, LEVELS))
     return {
         "pack": (lambda: pack_topk(th, SURVIVORS),
                  lambda: pack_topk_plain(th, SURVIVORS),
@@ -246,6 +310,15 @@ def leaf_runs(th, v, vb, xi, vals, idx):
         "fused_update": (lambda: fused_update(th, vb, v, xi, 0.03, 1.0),
                          lambda: fused_update_plain(th, vb, v, xi, 0.03, 1.0),
                          5 * K * n * 4, UPDATE_OPS * K * n),
+        "grid_quant": (lambda: grid_quant(carrier, uc, nc, LEVELS),
+                       lambda: grid_quant_plain(carrier, uc, nc, LEVELS),
+                       K * m * (4 + 4 + 1) + K * 4, GRID_QUANT_OPS * K * m),
+        "qsgd": (lambda: qsgd(th, u, norm, LEVELS, recip),
+                 lambda: qsgd_plain(th, u, norm, LEVELS, recip),
+                 K * n * (4 + 4 + 4) + K * 4, QSGD_OPS * K * n),
+        "block_topk": (lambda: block_topk(th, SURVIVORS),
+                       lambda: block_topk_plain(th, SURVIVORS),
+                       2 * K * n * 4, BLOCK_TOPK_OPS * padded),
     }
 
 
@@ -264,7 +337,10 @@ def time_kernels(shapes):
         th = torch.randn((K, n), generator=gen, device=DEVICE)
         v, vb, xi = th * 0.1, th * 0.05, th * 0.01
         vals, idx = delta_pack(th, v, SURVIVORS)
-        runs = leaf_runs(th, v, vb, xi, vals, idx)
+        u = torch.rand(th.shape, generator=gen, device=DEVICE)
+        uc = torch.rand((K, vals.shape[1] * SURVIVORS), generator=gen,
+                        device=DEVICE)
+        runs = leaf_runs(th, v, vb, xi, vals, idx, u, uc)
         for name, (kern, plain, nbytes, ops) in runs.items():
             r = rows[name]
             ms, plain_ms = device_ms(kern), device_ms(plain, reps=3, per_rep=2)
@@ -291,135 +367,192 @@ def time_kernels(shapes):
 
 
 # --------------------------------------------------------------------------
-# phases 3 and 4: the slice, and the two-pass oracle round
+# phases 3 and 4: the slice's runs, and the two-pass oracle rounds
 # --------------------------------------------------------------------------
 
-def run_slice():
+def fed_config(name: str) -> FedConfig:
+    overrides, rounds, _, _ = RUNS[name]
+    return FedConfig(**dict(
+        dict(num_nodes=K, local_steps=L, eta=1e-4, zeta=0.03, temperature=1.0,
+             burn_in=BURN_IN, rounds=rounds, compress_ratio=RATIO,
+             block_size=BLOCK, qsgd_levels=LEVELS, topology="full"),
+        **overrides))
+
+
+def run_slice(name: str, train, test):
+    """FedTrainer(device="cuda") for the configuration's rounds, then BMA
+    evaluation; the launch counts set to 0 just before, read just after."""
     from repro_torch.train import FedTrainer
     cfg = get_arch("lenet-radar", reduced=REDUCED)
-    fed = FedConfig(num_nodes=K, local_steps=L, eta=1e-4, zeta=0.03,
-                    temperature=1.0, burn_in=BURN_IN, rounds=ROUNDS,
-                    compressor="block_topk", compress_ratio=RATIO,
-                    block_size=BLOCK, fused_compress=True, topology="full")
-    t0 = time.perf_counter()
-    train = make_dataset(K * 50, hw=cfg.input_hw, day=1, seed=0)
-    test = make_dataset(200, hw=cfg.input_hw, day=1, seed=99)
-    log("slice", f"data: {len(train['y'])} train / {len(test['y'])} test maps "
-                 f"at {cfg.input_hw} in {time.perf_counter() - t0:.1f} s")
-    trainer = FedTrainer(get_model(cfg), fed, partition_iid(train, K),
-                         minibatch=MINIBATCH, seed=0, bank_thin=1,
-                         device=DEVICE)
+    _, rounds, wire, launched = RUNS[name]
+    trainer = FedTrainer(get_model(cfg), fed_config(name),
+                         partition_iid(train, K), minibatch=MINIBATCH, seed=0,
+                         bank_thin=1, device=DEVICE)
     kernels.reset_launch_counts()
-    res = trainer.run(rounds=ROUNDS, eval_batch=test)
+    res = trainer.run(rounds=rounds, eval_batch=test)
     launches = kernels.launch_counts()
-    for t in range(ROUNDS):
-        log("slice", f"round {t}: {res.round_ms[t]:.2f} ms, loss "
+    for t in range(rounds):
+        log("slice", f"{name} round {t}: {res.round_ms[t]:.2f} ms, loss "
                      f"{res.loss_history[t]:.4f}, consensus "
                      f"{res.consensus_history[t]:.6e}, wire bytes/node "
                      f"{res.wire_history[t]:.0f}")
     steady = statistics.median(res.round_ms[1:])
-    log("slice", f"median ms/round after the first: {steady:.2f}; bank "
-                 f"{len(trainer.bank)} samples; accuracy {res.accuracy:.4f}, "
-                 f"ECE {res.ece:.4f}, NLL {res.nll:.4f}, Brier {res.brier:.4f}")
-    log("slice", f"launches in the run: {launches}")
+    log("slice", f"{name}: median ms/round after the first: {steady:.2f}; "
+                 f"bank {len(trainer.bank)} samples; accuracy "
+                 f"{res.accuracy:.4f}, ECE {res.ece:.4f}, NLL {res.nll:.4f}, "
+                 f"Brier {res.brier:.4f}")
+    log("slice", f"{name}: launches in the run: {launches}")
     values = (res.loss_history + res.consensus_history + res.round_ms
               + [res.accuracy, res.ece, res.nll, res.brier])
     if not all(math.isfinite(x) for x in values):
-        raise AssertionError(f"non-finite metric in {values}")
+        raise AssertionError(f"{name}: non-finite metric in {values}")
     if not all(torch.isfinite(x).all() for x in tree_leaves(trainer.state.params)):
-        raise AssertionError("non-finite params after the run")
-    if res.wire_history != [float(WIRE_BYTES_PER_NODE)] * ROUNDS:
-        raise AssertionError(f"wire bytes/node/round {res.wire_history}, "
-                             f"want {WIRE_BYTES_PER_NODE}")
-    for name in ("delta_pack", "unpack", "fused_update"):
-        if launches[name] <= 0:
-            raise AssertionError(f"the slice never launched {name}")
-    if len(trainer.bank) != ROUNDS - BURN_IN:
-        raise AssertionError(f"bank holds {len(trainer.bank)} samples")
-    return trainer, launches, steady
+        raise AssertionError(f"{name}: non-finite params after the run")
+    if res.wire_history != [float(wire)] * rounds:
+        raise AssertionError(f"{name}: wire bytes/node/round "
+                             f"{res.wire_history}, want {wire}")
+    for kname in launched:
+        if launches[kname] <= 0:
+            raise AssertionError(f"{name}: the run never launched {kname}")
+    if len(trainer.bank) != max(0, rounds - BURN_IN):
+        raise AssertionError(f"{name}: bank holds {len(trainer.bank)} samples")
+    return trainer, launches
 
 
-def oracle_round(trainer):
-    """One round from the trainer's state, fused and two-pass; same draws."""
+def round_inputs(trainer, gen):
+    """One round's draws from ``gen``, in the engine's order: minibatches,
+    noise, then the QSGD uniforms the compressor names."""
+    fed, state, shards = trainer.fed_cfg, trainer.state, trainer.device_shards
+    batches = shards.gather(shards.sample_indices(gen, fed.local_steps,
+                                                  MINIBATCH))
+    noise = langevin_noise(gen, state.params, fed.eta, fed.temperature)
+    uniforms = {p: torch.rand(shape, generator=gen, device=DEVICE)
+                for p, shape in
+                trainer.compressor.uniform_shapes(state.params).items()}
+    return batches, noise, uniforms
+
+
+def oracle_round(name: str, trainer):
+    """One round from the trainer's state, fused and two-pass; same draws.
+    Returns the oracle's launches, its round function and the fused
+    round's payload."""
     fed = trainer.fed_cfg
-    oracle = FusedCodec.wrap(CompressionPipeline(
-        (BlockTopKCodec(ratio=fed.compress_ratio, block_size=fed.block_size),)),
-        fused=False)
+    oracle = FusedCodec.wrap(CompressionPipeline(trainer.compressor.stages),
+                             fused=False)
     oracle_fn = make_cdbfl_round(trainer.model.nll, fed, trainer.omega, oracle,
                                  trainer.data_scale, trainer.device)
     gen = torch.Generator(device=DEVICE).manual_seed(123)
     state = trainer.state
-    batches = trainer.device_shards.gather(
-        trainer.device_shards.sample_indices(gen, fed.local_steps, MINIBATCH))
-    noise = langevin_noise(gen, state.params, fed.eta, fed.temperature)
-    s_fused, m_fused = trainer.round_fn(state, batches, noise)
+    inputs = round_inputs(trainer, gen)
+    s_fused, m_fused = trainer.round_fn(state, *inputs)
     kernels.reset_launch_counts()
-    s_two, m_two = oracle_fn(state, batches, noise)
+    s_two, m_two = oracle_fn(state, *inputs)
     launches = kernels.launch_counts()
-    if launches["pack"] <= 0 or launches["delta_pack"] != 0:
-        raise AssertionError(f"oracle round launches {launches}")
+    if (launches["pack"] <= 0 or launches["delta_pack"] != 0
+            or launches["grid_quant"] != 0):
+        raise AssertionError(f"{name} oracle round launches {launches}")
     for (path, _), a, b in zip(tree_leaves_with_path(state.params),
                                m_fused.payload.entries, m_two.payload.entries):
-        if not (bitwise_equal(a.wire, b.wire)
-                and bitwise_equal(a.aux[0]["idx"], b.aux[0]["idx"])):
-            raise AssertionError(f"two-pass payload differs on {path}")
+        same = bitwise_equal(a.wire, b.wire) and all(
+            bitwise_equal(x[key], y[key])
+            for x, y in zip(a.aux, b.aux) for key in x)
+        if not same:
+            raise AssertionError(f"{name}: two-pass payload differs on {path}")
     for a, b in zip(tree_leaves(s_fused.params), tree_leaves(s_two.params)):
         if not bitwise_equal(a, b):
-            raise AssertionError("two-pass round's params differ")
-    log("oracle", f"FusedCodec(fused=False) round: payload "
-                  f"({m_two.payload.measured_bytes()} bytes, {K} nodes) equal "
-                  f"to the fused round's byte for byte; launches {launches}")
-    return launches, oracle_fn
+            raise AssertionError(f"{name}: two-pass round's params differ")
+    log("oracle", f"{name}: FusedCodec(fused=False) round: payload "
+                  f"({m_two.payload.measured_bytes()} bytes, {K} nodes) and "
+                  f"params equal to the fused round's bit for bit; launches "
+                  f"{launches}")
+    return launches, oracle_fn, m_fused.payload
+
+
+def check_cpu_decode(compressor, payload):
+    """The card's decode of a payload equals the plain CPU decode of the
+    same payload, bit for bit."""
+    cpu = WirePayload(
+        [LeafPayload(wire=e.wire.cpu(),
+                     aux=tuple({k: t.cpu() for k, t in aux.items()}
+                               for aux in e.aux)) for e in payload.entries],
+        payload.paths, payload.specs, payload.stages)
+    on_card, on_cpu = compressor.decode(payload), compressor.decode(cpu)
+    for (path, a), (_, b) in zip(tree_leaves_with_path(on_card),
+                                 tree_leaves_with_path(on_cpu)):
+        if a.device != payload.entries[0].wire.device or \
+                not bitwise_equal(a.cpu(), b):
+            raise AssertionError(f"card decode differs from the CPU's on {path}")
+    log("oracle", f"{PIPE}: the card's decode of the fused payload equals the "
+                  f"plain CPU decode bit for bit ({len(payload.entries)} leaves)")
 
 
 # device kernel names of the ported kernels in a profiler trace
 TRACE_NAMES = {"pack": "pack_kernel<false>", "delta_pack": "pack_kernel<true>",
-               "unpack": "unpack_kernel", "fused_update": "fused_update_"}
+               "unpack": "unpack_kernel", "fused_update": "fused_update_",
+               "grid_quant": "grid_quant_kernel", "qsgd": "qsgd_kernel",
+               "block_topk": "block_topk_kernel"}
+# the traced round each kernel's in-round device time is read from
+TRACE_ROUND = {"pack": "block_topk oracle", "delta_pack": "block_topk",
+               "unpack": "block_topk", "fused_update": "block_topk",
+               "grid_quant": PIPE, "qsgd": "qsgd_pallas",
+               "block_topk": "block_topk_pallas"}
 
 
-def profile_round(trainer, oracle_fn, timing):
-    """Device-busy share of one full-width round and its top device
-    kernels (torch.profiler; the kernels' own intervals, summed), and each
-    ported kernel's device time in the round beside its event-timed cost
-    (pack from a traced oracle round)."""
-    fed = trainer.fed_cfg
+def trace_round(trainer, round_fn):
+    """(wall ms of an untraced round, {device kernel: (µs, count)} of a
+    traced one), from the trainer's state, after a warm-up round."""
     gen = torch.Generator(device=DEVICE).manual_seed(7)
-    state = trainer.state
 
-    def one_round(round_fn):
-        batches = trainer.device_shards.gather(
-            trainer.device_shards.sample_indices(gen, fed.local_steps, MINIBATCH))
-        noise = langevin_noise(gen, state.params, fed.eta, fed.temperature)
-        round_fn(state, batches, noise)
+    def one_round():
+        round_fn(trainer.state, *round_inputs(trainer, gen))
         torch.cuda.synchronize()
 
-    one_round(trainer.round_fn)
+    one_round()
     t0 = time.perf_counter()
-    one_round(trainer.round_fn)
+    one_round()
     wall_ms = 1e3 * (time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        one_round(trainer.round_fn)
-    by_name = device_time_by_name(prof)
-    if not by_name:
-        log("profile", "the profiler saw no device events: device time not "
-                       "measured")
-        return
-    busy_ms = sum(t for t, _ in by_name.values()) / 1e3
-    log("profile", f"one round: device busy {busy_ms:.3f} ms of the untraced "
-                   f"round's {wall_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%)")
-    for kname, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
-        log("profile", f"  {tot / 1e3:8.3f} ms x{cnt:<4d} {kname[:90]}")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        one_round(oracle_fn)
-    oracle_by_name = device_time_by_name(prof)
+        one_round()
+    return wall_ms, device_time_by_name(prof)
+
+
+def profile_rounds(trainers, oracle_fns, timing):
+    """Device-busy share of one full-width round of each configuration and
+    its top device kernels (torch.profiler; the kernels' own intervals,
+    summed), and each ported kernel's device time in a round beside its
+    event-timed cost (pack from a traced oracle round)."""
+    rounds = {name: (trainers[name], trainers[name].round_fn)
+              for name in RUNS}
+    rounds["block_topk oracle"] = (trainers["block_topk"],
+                                   oracle_fns["block_topk"])
+    traces = {}
+    for label, (trainer, fn) in rounds.items():
+        wall_ms, by_name = trace_round(trainer, fn)
+        if not by_name:
+            log("profile", "the profiler saw no device events: device time "
+                           "not measured")
+            return
+        traces[label] = by_name
+        busy_ms = sum(t for t, _ in by_name.values()) / 1e3
+        log("profile", f"{label}: one round: device busy {busy_ms:.3f} ms of "
+                       f"the untraced round's {wall_ms:.3f} ms "
+                       f"({100 * busy_ms / wall_ms:.1f}%)")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+        for kname, (tot, cnt) in top[:10 if label == PIPE else 5]:
+            log("profile", f"  {tot / 1e3:8.3f} ms x{cnt:<4d} {kname[:90]}")
+        for kname, pattern in TRACE_NAMES.items():
+            hits = [(t, c) for n, (t, c) in by_name.items() if pattern in n]
+            if hits:
+                log("profile", f"  {label}: {kname} "
+                               f"{sum(t for t, _ in hits) / 1e3:.4f} ms device "
+                               f"time, {sum(c for _, c in hits)} launches")
     for kname, pattern in TRACE_NAMES.items():
-        trace = oracle_by_name if kname == "pack" else by_name
-        hits = [(t, c) for n, (t, c) in trace.items() if pattern in n]
+        label = TRACE_ROUND[kname]
+        hits = [(t, c) for n, (t, c) in traces[label].items() if pattern in n]
         us, cnt = sum(t for t, _ in hits), sum(c for _, c in hits)
         log("profile", f"{kname}: {us / 1e3:.4f} ms device time in the traced "
-                       f"{'oracle ' if kname == 'pack' else ''}round, {cnt} "
-                       f"launches; event-timed {timing[kname]['ms']:.4f} ms a "
-                       f"round (phase 2)")
+                       f"{label} round, {cnt} launches; event-timed "
+                       f"{timing[kname]['ms']:.4f} ms a round (phase 2)")
 
 
 def main() -> int:
@@ -430,8 +563,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True      # the oracle compares rounds
     torch.backends.cudnn.benchmark = False
-    name = torch.cuda.get_device_name(0)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}; {name}; TF32 "
+    device_name = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; {device_name}; TF32 "
           f"off for convolutions and matmuls; cuDNN deterministic", flush=True)
 
     t0 = time.perf_counter()
@@ -439,11 +572,11 @@ def main() -> int:
     _build.library()
     log("build", f"{lib.name} in {time.perf_counter() - t0:.1f} s")
     for line in _build.build_log.splitlines():
-        if "registers" in line or line.startswith("["):
+        if "registers" in line or "spill" in line or line.startswith("["):
             log("build", line.strip())
     print(card_line(), flush=True)
 
-    cfg = get_arch("lenet-radar")
+    cfg = get_arch("lenet-radar", reduced=REDUCED)
     params = get_model(cfg).init(torch.Generator().manual_seed(0), "meta")
     shapes = [(p, tuple(x.shape)) for p, x in tree_leaves_with_path(params)]
     log("kernels", f"{cfg.name}: {tree_count(params):,} parameters in "
@@ -458,11 +591,24 @@ def main() -> int:
                        f"{r['bound_ms']:.4f} ms ({r['bound_by']}: "
                        f"{r['nbytes']:.0f} B, {r['ops']:.0f} ops)")
 
-    trainer, launches, _ = run_slice()
-    oracle_launches, oracle_fn = oracle_round(trainer)
-    profile_round(trainer, oracle_fn, timing)
+    t0 = time.perf_counter()
+    train = make_dataset(K * 50, hw=cfg.input_hw, day=1, seed=0)
+    test = make_dataset(200, hw=cfg.input_hw, day=1, seed=99)
+    log("slice", f"data: {len(train['y'])} train / {len(test['y'])} test maps "
+                 f"at {cfg.input_hw} in {time.perf_counter() - t0:.1f} s")
+    trainers, runs = {}, {}
+    for name in RUNS:
+        trainers[name], runs[name] = run_slice(name, train, test)
+    oracles = {name: oracle_round(name, trainers[name])
+               for name in ("block_topk", PIPE)}
+    check_cpu_decode(trainers[PIPE].compressor, oracles[PIPE][2])
+    profile_rounds(trainers, {n: o[1] for n, o in oracles.items()}, timing)
 
-    launches = dict(launches, pack=oracle_launches["pack"])
+    # each kernel's launches in the run of the path that reaches it
+    launches = dict(runs["block_topk"], pack=oracles["block_topk"][0]["pack"],
+                    grid_quant=runs[PIPE]["grid_quant"],
+                    qsgd=runs["qsgd_pallas"]["qsgd"],
+                    block_topk=runs["block_topk_pallas"]["block_topk"])
     record = {"kernels": [
         {"name": kname, "route": "cuda", "source": KERNELS[kname][0],
          "replaces": KERNELS[kname][1], "launches": launches[kname],
@@ -474,7 +620,8 @@ def main() -> int:
     print(card_line())
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": device_name,
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -28,8 +28,12 @@ class ModelConfig:
 
 # values of each FedConfig field the port runs, and where the rest go
 _SUPPORTED = {
-    "compressor": (("block_topk",), "A6 (the other codecs)"),
-    "fused_compress": ((True,), "A4 (the top_k-order BlockTopKCodec path)"),
+    "compressor": (("block_topk", "qsgd_pallas", "block_topk_pallas"),
+                   "A6 (the other codecs)"),
+    "pipeline": (("", "block_topk|qsgd"), "A6 (the other codecs)"),
+    # powers of two: XLA folds the reference's `/ s / (1 + ω)` differently
+    # in its qsgd kernel and in its decode for any other s (ROADMAP C5)
+    "qsgd_levels": ((1, 2, 4, 8, 16, 32, 64), "C5 (QSGD levels)"),
     "control_dtype": (("float32",), "A3 (bfloat16 control variates)"),
     "algorithm": (("cdbfl",), "A6 (dsgld, cffl and sgld baselines)"),
     "topology": (("full", "ring"), "A4 (the other graph families)"),
@@ -48,8 +52,12 @@ class FedConfig:
     temperature: float = 1.0        # posterior tempering
     burn_in: int = 700              # T_b
     rounds: int = 800               # T
-    compressor: str = "block_topk"
+    compressor: str = "block_topk"  # block_topk | qsgd_pallas | block_topk_pallas
+    # codec pipeline DSL, e.g. "block_topk|qsgd" (sparsify, then quantize
+    # the survivors); takes precedence over ``compressor`` when set
+    pipeline: str = ""
     compress_ratio: float = 0.01    # paper: 1% of parameters
+    qsgd_levels: int = 16
     block_size: int = 1024          # block-local top-k granularity
     min_dense_size: int = 0         # leaves this small are sent dense
     fused_compress: bool = False
@@ -65,6 +73,14 @@ class FedConfig:
                 raise NotImplementedError(
                     f"FedConfig.{name}={value!r} is not ported yet "
                     f"(runs: {ok}); ROADMAP {item}")
+        # a legacy dense *_pallas name with no pipeline ignores
+        # fused_compress, as the reference's make_compressor does
+        legacy = not self.pipeline and self.compressor.endswith("_pallas")
+        if not (legacy or self.fused_compress):
+            raise NotImplementedError(
+                "FedConfig.fused_compress=False is not ported yet (runs: "
+                "True, or a *_pallas compressor with no pipeline); ROADMAP "
+                "A4 (the top_k-order BlockTopKCodec path)")
 
 
 # the paper's radar ROI classifier (reference: configs/lenet_radar.py)

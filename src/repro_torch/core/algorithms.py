@@ -5,9 +5,11 @@ links: no transport, no participation model, one device. Every leaf leads
 with the node axis K, and the K nodes run batched (grouped convolutions,
 batched matmuls), not in a Python loop.
 
-Random draws are inputs: ``round_fn(state, batches, noise)`` takes the
-round's minibatches and the Langevin noise already scaled by √(2ηT). The
-engine draws both from its ``torch.Generator``; the parity tests hand in the
+Random draws are inputs: ``round_fn(state, batches, noise, uniforms)``
+takes the round's minibatches, the Langevin noise already scaled by
+√(2ηT), and the QSGD uniforms of the leaves the compressor names
+(``compressor.uniform_shapes``; none for block-top-k alone). The engine
+draws them from its ``torch.Generator``; the parity tests hand in the
 reference's own draws instead.
 """
 from __future__ import annotations
@@ -28,8 +30,10 @@ class RoundMetrics(NamedTuple):
     loss: torch.Tensor             # (K, L) local objective per step
     consensus_error: torch.Tensor  # scalar: mean ||θ_k - θ̄||²
     delta_norm: torch.Tensor       # scalar: mean ||Δθ_k||²
-    wire_bytes: float              # bytes/node/round, from the payload
-    payload: Any = None            # the round's WirePayload (Eq. 6)
+    wire_bytes: float              # bytes/node/round: the payload's, or
+                                   # the legacy Compressor's closed form
+    payload: Any = None            # the round's WirePayload (Eq. 6); None
+                                   # for the legacy dense Compressor
 
 
 def _local_sgd(nll_fn, params, batches, eta: float, prior_weight: float,
@@ -72,6 +76,24 @@ def _sq_norm(tree) -> torch.Tensor:
     return sum((x.float() ** 2).sum() for x in tree_leaves(tree))
 
 
+def _compress_exchange(compressor, theta, v, uniforms):
+    """Q over the residual ``theta - v`` of every node: ``(delta, wire
+    bytes per node, payload)``. A pipeline encodes the pair (a
+    :class:`FusedCodec` never materializes the residual) into a measured
+    :class:`WirePayload` and decodes it; the legacy dense
+    :class:`Compressor` is applied to the materialized residual, and its
+    bytes are the closed-form table on one node's tree
+    (``algorithms.py:235-238`` of the reference)."""
+    if hasattr(compressor, "encode_pair"):
+        payload = compressor.encode_pair(theta, v, uniforms)
+        num_nodes = tree_leaves(theta)[0].shape[0]
+        return (compressor.decode(payload),
+                payload.measured_bytes() / num_nodes, payload)
+    residual = tree_map(lambda t, vv: t - vv.to(t.dtype), theta, v)
+    wire = compressor.wire_bytes(tree_map(lambda x: x[0], residual))
+    return compressor(residual, uniforms), float(wire), None
+
+
 def make_cdbfl_round(nll_fn, fed_cfg, omega, compressor, data_scale: float = 1.0,
                      device="cuda"):
     """One round = L local SGD steps per node (Eq. 5), compressed residual
@@ -83,14 +105,14 @@ def make_cdbfl_round(nll_fn, fed_cfg, omega, compressor, data_scale: float = 1.0
     mix = make_mixer(omega, device)
     prior_weight = 1.0 / num_nodes
 
-    def round_fn(state: FedState, batches, noise):
+    def round_fn(state: FedState, batches, noise, uniforms=None):
         # Eq. 5
         theta_l, losses = _local_sgd(nll_fn, state.params, batches, eta,
                                      prior_weight, data_scale,
                                      fed_cfg.local_steps)
         # Eq. 6: encode -> wire payload -> decode
-        payload = compressor.encode_pair(theta_l, state.v)
-        delta = compressor.decode(payload)
+        delta, wire, payload = _compress_exchange(compressor, theta_l,
+                                                  state.v, uniforms)
         # Eqs. 7-8, control sequences stored in control_dtype
         v_new = tree_map(lambda v, d: v + d.to(v.dtype), state.v, delta)
         v_bar_new = tree_map(lambda vb, m: vb + m.to(vb.dtype), state.v_bar,
@@ -103,7 +125,7 @@ def make_cdbfl_round(nll_fn, fed_cfg, omega, compressor, data_scale: float = 1.0
             loss=losses,
             consensus_error=_consensus_error(params_new) / num_nodes,
             delta_norm=_sq_norm(delta) / num_nodes,
-            wire_bytes=payload.measured_bytes() / num_nodes,
+            wire_bytes=wire,
             payload=payload,
         )
         return state._replace(params=params_new, v=v_new, v_bar=v_bar_new,

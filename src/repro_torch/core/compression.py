@@ -1,14 +1,25 @@
 """Compression Q(.) for CD-BFL (paper Eq. 6) and its wire format.
 
-The subset of ``repro/core/compression.py`` the slice runs: the block-top-k
+The subset of ``repro/core/compression.py`` the port runs: the block-top-k
 codec on the kernel path (``"pallas"`` mode: two-tier slot order, uint16
-block-local indices), the codec pipeline, the fused compress-in-update
-lowering and the materialized :class:`WirePayload`.
+block-local indices), the QSGD codec (int8 grid + f32 scale), the
+``block_topk`` and ``block_topk|qsgd`` pipelines, the fused
+compress-in-update lowering, the materialized :class:`WirePayload`, and
+the legacy dense :class:`Compressor` under its ``block_topk_pallas`` and
+``qsgd_pallas`` names.
 
 Leaves are node-stacked, ``(K, *shape)``: one encode covers every node, as
 the reference's ``vmap(encode_pair)`` does, and each payload buffer leads
 with K. The per-leaf metadata describes one node's leaf, so the byte
 counts and the metadata equal the reference's.
+
+Random draws are inputs. A compressor's ``uniform_shapes(tree)`` names the
+leaves whose encode draws QSGD uniforms, ``{path: node-stacked shape}`` in
+leaf order; encode takes them as ``uniforms`` (``{path: tensor}``) and
+raises if one is missing. The reference draws them from per-node, per-leaf
+keys (``repro/core/compression.py:674-677, 719-723``); the port's engine
+draws them from its generator, and the parity tests hand in the
+reference's own.
 """
 from __future__ import annotations
 
@@ -19,8 +30,11 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.utils.tree import (tree_leaves_with_path, tree_map,
-                                   tree_unflatten)
+from repro_torch.kernels.fused_compress import grid_quant_plain
+from repro_torch.kernels.qsgd import inv_one_plus, row_norm
+from repro_torch.kernels.qsgd import qsgd_omega as _qsgd_omega
+from repro_torch.utils.tree import (tree_count, tree_leaves_with_path,
+                                   tree_map, tree_unflatten)
 
 
 class _SparseMeta(NamedTuple):
@@ -42,13 +56,20 @@ class BlockTopKCodec:
     """
     ratio: float = 0.01
     block_size: int = 1024
+    stochastic = False
 
     def _meta(self, x, vals) -> _SparseMeta:
         shape = tuple(x.shape[1:])
         return _SparseMeta(shape, int(np.prod(shape)), vals.shape[2], "pallas",
                            nb=vals.shape[1], bs=self.block_size)
 
-    def encode(self, x):
+    def out_shape(self, shape) -> Tuple[int, int]:
+        """One node's carrier shape for a leaf of ``shape``: ``(nb, k)``."""
+        n = int(np.prod(shape))
+        return (kops.num_blocks(n, self.block_size),
+                kops.survivors_per_block(self.ratio, self.block_size))
+
+    def encode(self, x, u=None):
         vals, idx = kops.block_topk_pack(x, ratio=self.ratio,
                                          block_size=self.block_size)
         return vals, {"idx": idx}, self._meta(x, vals)
@@ -56,6 +77,74 @@ class BlockTopKCodec:
     def decode(self, carrier, aux, meta):
         return kops.block_topk_unpack(carrier, aux["idx"], meta.shape,
                                       block_size=self.block_size)
+
+
+class _QuantMeta(NamedTuple):
+    """Static decode info of a QSGD stage (one node's carrier)."""
+    shape: Tuple[int, ...]
+    n: int
+    in_dtype: str               # dtype of the carrier consumed
+    levels: int = 0
+    omega: float = 0.0          # the 1/(1+ω) contraction scaling
+
+
+@dataclass(frozen=True)
+class QSGDCodec:
+    """QSGD stochastic quantization (``compression.py:505-550`` of the
+    reference): the carrier is the int8 grid ``sign(x)·q`` and the sidecar
+    the ``(1,)`` f32 norm ``‖x‖₂ + 1e-12`` of each node's carrier, so a
+    node-stacked encode gives ``(K, *shape)`` int8 and a ``(K, 1)`` scale.
+
+    ``encode`` is the codec's own arithmetic in torch ops (the two-pass
+    oracle's); the fused path runs the grid_quant kernel instead
+    (:func:`_qsgd_encode_kernel`). Decode is ``q·norm/s·r`` with ``r`` the
+    f32 reciprocal of ``1 + ω``: the reference's jit-compiled decode, which
+    XLA folds from ``/ s / (1 + ω)``.
+    """
+    levels: int = 16
+    stochastic = True
+
+    def _meta(self, x) -> _QuantMeta:
+        shape = tuple(x.shape[1:])
+        n = int(np.prod(shape))
+        return _QuantMeta(shape, n, str(x.dtype).replace("torch.", ""),
+                          levels=self.levels, omega=_qsgd_omega(n, self.levels))
+
+    def out_shape(self, shape):
+        return tuple(shape)
+
+    def encode(self, x, u):
+        rows = x.float().reshape(x.shape[0], -1)
+        norm = row_norm(rows)
+        grid = grid_quant_plain(rows, u.reshape(rows.shape), norm, self.levels)
+        return (grid.reshape(x.shape), {"scale": norm.reshape(-1, 1)},
+                self._meta(x))
+
+    def decode(self, carrier, aux, meta):
+        norm = aux["scale"].reshape((-1,) + (1,) * len(meta.shape))
+        out = carrier.float() * norm / meta.levels * inv_one_plus(meta.omega)
+        return out.to(getattr(torch, meta.in_dtype))
+
+
+def _qsgd_encode_kernel(stage: QSGDCodec, x, u):
+    """:meth:`QSGDCodec.encode` with the grid arithmetic in the grid_quant
+    kernel; the same carrier and scale bit for bit."""
+    grid, norm = kops.qsgd_quantize_carrier(x, u, levels=stage.levels)
+    return grid, {"scale": norm.reshape(-1, 1)}, stage._meta(x)
+
+
+def _rides_dense(x, min_dense_size: int) -> bool:
+    """A node-stacked leaf of at most ``min_dense_size`` elements a node
+    crosses the link uncompressed."""
+    return bool(min_dense_size) and \
+        int(np.prod(tuple(x.shape[1:]))) <= min_dense_size
+
+
+def _uniforms_for(uniforms, path):
+    if uniforms is None or path not in uniforms:
+        raise ValueError(f"leaf {path!r} needs QSGD uniforms and none were "
+                         f"given (see uniform_shapes)")
+    return uniforms[path]
 
 
 class LeafPayload(NamedTuple):
@@ -78,7 +167,8 @@ def _buffer_bytes(buf) -> int:
 
 class WirePayload:
     """The packed representation that crosses the link: per leaf, the
-    value buffer and its uint16 index sidecar, each leading with K."""
+    carrier (f32 values, or the int8 QSGD grid) and the stages' sidecars
+    (uint16 indices, f32 scale), each leading with K."""
 
     def __init__(self, entries, paths, specs, stages):
         self.entries = tuple(entries)
@@ -104,43 +194,59 @@ class WirePayload:
 class CompressionPipeline:
     """Chainable codec stages with a materialized wire format."""
 
-    stages: Tuple[BlockTopKCodec, ...] = (BlockTopKCodec(),)
+    stages: Tuple[Any, ...] = (BlockTopKCodec(),)
     min_dense_size: int = 0
 
-    def _encode_leaf(self, x, v):
+    def uniform_shapes(self, tree) -> Dict[str, Tuple[int, ...]]:
+        """``{path: (K, *carrier shape)}`` of the leaves whose stochastic
+        stage draws uniforms, in leaf order; ``tree`` is node-stacked."""
+        out = {}
+        for path, x in tree_leaves_with_path(tree):
+            if _rides_dense(x, self.min_dense_size):
+                continue
+            shape = tuple(x.shape[1:])
+            for stage in self.stages:
+                if stage.stochastic:
+                    out[path] = (x.shape[0],) + tuple(shape)
+                shape = stage.out_shape(shape)
+        return out
+
+    def _encode_leaf(self, x, v, u):
         """The two-pass encode: the residual is materialized here."""
         carrier = x if v is None else x - v.to(x.dtype)
         auxes, metas = [], []
         for stage in self.stages:
-            carrier, aux, meta = stage.encode(carrier)
+            carrier, aux, meta = stage.encode(carrier, u)
             auxes.append(aux)
             metas.append(meta)
         return carrier, tuple(auxes), tuple(metas)
 
-    def _encode_impl(self, tree, vtree) -> WirePayload:
+    def _encode_impl(self, tree, vtree, uniforms) -> WirePayload:
         leaves = tree_leaves_with_path(tree)
         vleaves = ([x for _, x in tree_leaves_with_path(vtree)]
                    if vtree is not None else [None] * len(leaves))
+        stochastic = any(s.stochastic for s in self.stages)
         entries, specs = [], []
-        for (_, x), v in zip(leaves, vleaves):
+        for (path, x), v in zip(leaves, vleaves):
             shape = tuple(x.shape[1:])
             dtype = str(x.dtype).replace("torch.", "")
-            if self.min_dense_size and int(np.prod(shape)) <= self.min_dense_size:
+            if _rides_dense(x, self.min_dense_size):
                 wire = x if v is None else x - v.to(x.dtype)
                 entries.append(LeafPayload(wire=wire, aux=()))
                 specs.append(LeafSpec(shape, dtype, True))
                 continue
-            carrier, auxes, metas = self._encode_leaf(x, v)
+            u = _uniforms_for(uniforms, path) if stochastic else None
+            carrier, auxes, metas = self._encode_leaf(x, v, u)
             entries.append(LeafPayload(wire=carrier, aux=auxes))
             specs.append(LeafSpec(shape, dtype, False, metas))
         return WirePayload(entries, [p for p, _ in leaves], specs, self.stages)
 
-    def encode(self, tree) -> WirePayload:
-        return self._encode_impl(tree, None)
+    def encode(self, tree, uniforms=None) -> WirePayload:
+        return self._encode_impl(tree, None, uniforms)
 
-    def encode_pair(self, theta, v) -> WirePayload:
+    def encode_pair(self, theta, v, uniforms=None) -> WirePayload:
         """Encode the residual ``theta - v`` handed as its two operands."""
-        return self._encode_impl(theta, v)
+        return self._encode_impl(theta, v, uniforms)
 
     def decode(self, payload: WirePayload):
         leaves = []
@@ -159,16 +265,19 @@ class CompressionPipeline:
         specs = tree_map(lambda x: torch.empty((1,) + tuple(x.shape),
                                                dtype=x.dtype, device="meta"),
                          tree)
-        return self.encode(specs).measured_bytes()
+        uniforms = {p: torch.empty(s, device="meta")
+                    for p, s in self.uniform_shapes(specs).items()}
+        return self.encode(specs, uniforms).measured_bytes()
 
 
 @dataclass(frozen=True)
 class FusedCodec(CompressionPipeline):
     """Compress-in-update lowering: ``encode_pair`` runs the delta-pack
-    kernel, so the dense residual never reaches device memory. With
-    ``fused=False`` the same object is the two-pass oracle: residual
-    materialized, then the pack kernel. Both give the same payload bit for
-    bit."""
+    kernel, so the dense residual never reaches device memory, and a
+    trailing QSGD stage quantizes the packed carrier in the grid_quant
+    kernel. With ``fused=False`` the same object is the two-pass oracle:
+    residual materialized, the pack kernel, then the QSGD codec's own
+    arithmetic. Both give the same payload bit for bit."""
 
     fused: bool = True
 
@@ -178,22 +287,105 @@ class FusedCodec(CompressionPipeline):
         return cls(stages=pipeline.stages,
                    min_dense_size=pipeline.min_dense_size, fused=fused)
 
-    def _encode_leaf(self, x, v):
+    def _encode_leaf(self, x, v, u):
         if v is None or not self.fused:
-            return super()._encode_leaf(x, v)
-        (s0,) = self.stages     # one block-top-k stage (block_topk|qsgd: B5)
+            return super()._encode_leaf(x, v, u)
+        s0, *rest = self.stages          # parse_pipeline: block_topk first
         vals, idx = kops.fused_delta_pack(x, v, ratio=s0.ratio,
                                           block_size=s0.block_size)
-        return vals, ({"idx": idx},), (s0._meta(x, vals),)
+        carrier, auxes, metas = vals, [{"idx": idx}], [s0._meta(x, vals)]
+        for stage in rest:               # QSGD, the one stage that follows
+            carrier, aux, meta = _qsgd_encode_kernel(stage, carrier, u)
+            auxes.append(aux)
+            metas.append(meta)
+        return carrier, tuple(auxes), tuple(metas)
 
 
-def make_compressor(fed_cfg) -> CompressionPipeline:
-    """The compression object a FedConfig names. The slice runs
-    ``compressor="block_topk"`` with ``fused_compress=True``: a
-    :class:`FusedCodec` over one block-top-k stage."""
+@dataclass(frozen=True)
+class Compressor:
+    """The legacy dense compressor (``compression.py:162-236`` of the
+    reference) under the names that reach a kernel: ``block_topk_pallas``
+    (the dense masked block top-k) and ``qsgd_pallas`` (dense QSGD, one
+    norm per node's leaf). ``__call__`` maps node-stacked leaves to dense
+    leaves of the same shape; leaves of at most ``min_dense_size``
+    elements pass through. ``wire_bytes`` is the reference's closed-form
+    table, not a measured payload: there is none."""
+
+    name: str = "block_topk_pallas"
+    ratio: float = 0.01
+    block_size: int = 1024
+    qsgd_levels: int = 16
+    min_dense_size: int = 0
+
+    def uniform_shapes(self, tree) -> Dict[str, Tuple[int, ...]]:
+        if self.name != "qsgd_pallas":
+            return {}
+        return {p: tuple(x.shape) for p, x in tree_leaves_with_path(tree)
+                if not _rides_dense(x, self.min_dense_size)}
+
+    def __call__(self, tree, uniforms=None):
+        leaves = []
+        for path, x in tree_leaves_with_path(tree):
+            if _rides_dense(x, self.min_dense_size):
+                leaves.append(x)
+            elif self.name == "block_topk_pallas":
+                leaves.append(kops.block_topk(x, ratio=self.ratio,
+                                              block_size=self.block_size))
+            else:
+                leaves.append(kops.qsgd(x, _uniforms_for(uniforms, path),
+                                        levels=self.qsgd_levels))
+        return tree_unflatten([p for p, _ in tree_leaves_with_path(tree)],
+                              leaves)
+
+    def wire_bytes(self, tree) -> int:
+        """Closed-form bytes one node sends for a single-model ``tree``."""
+        n = tree_count(tree)
+        if self.name == "block_topk_pallas":
+            # values + uint16 block-local indices
+            return int(np.ceil(self.ratio * n)) * (4 + 2)
+        bits = max(1, int(np.ceil(np.log2(self.qsgd_levels + 1))) + 1)
+        return n * bits // 8 + 4 * len(tree_leaves_with_path(tree))
+
+
+_PIPELINES = {
+    "block_topk": lambda ratio, block_size, levels: (
+        BlockTopKCodec(ratio=ratio, block_size=block_size),),
+    "block_topk|qsgd": lambda ratio, block_size, levels: (
+        BlockTopKCodec(ratio=ratio, block_size=block_size),
+        QSGDCodec(levels=levels)),
+}
+
+
+def parse_pipeline(spec: str, *, ratio: float = 0.01, block_size: int = 1024,
+                   qsgd_levels: int = 16,
+                   min_dense_size: int = 0) -> CompressionPipeline:
+    """The ``"stage|stage"`` DSL, for the pipelines the port runs."""
+    key = "|".join(s.strip() for s in spec.split("|"))
+    if key not in _PIPELINES:
+        raise NotImplementedError(
+            f"pipeline {spec!r} is not ported yet (runs: {sorted(_PIPELINES)})"
+            f"; ROADMAP A6 (the other codecs)")
+    return CompressionPipeline(
+        stages=_PIPELINES[key](ratio, block_size, qsgd_levels),
+        min_dense_size=min_dense_size)
+
+
+def make_compressor(fed_cfg):
+    """The compression object a FedConfig names, routed as the reference's
+    ``make_compressor`` (``compression.py:1129-1164``): a legacy
+    ``*_pallas`` name with no ``pipeline`` is a :class:`Compressor`;
+    otherwise ``pipeline`` (or the ``compressor`` name) is parsed into a
+    pipeline wrapped in a :class:`FusedCodec`."""
     fed_cfg.check_supported()
-    base = CompressionPipeline(
-        stages=(BlockTopKCodec(ratio=fed_cfg.compress_ratio,
-                               block_size=fed_cfg.block_size),),
-        min_dense_size=fed_cfg.min_dense_size)
+    if not fed_cfg.pipeline and fed_cfg.compressor.endswith("_pallas"):
+        return Compressor(name=fed_cfg.compressor,
+                          ratio=fed_cfg.compress_ratio,
+                          block_size=fed_cfg.block_size,
+                          qsgd_levels=fed_cfg.qsgd_levels,
+                          min_dense_size=fed_cfg.min_dense_size)
+    base = parse_pipeline(fed_cfg.pipeline or fed_cfg.compressor,
+                          ratio=fed_cfg.compress_ratio,
+                          block_size=fed_cfg.block_size,
+                          qsgd_levels=fed_cfg.qsgd_levels,
+                          min_dense_size=fed_cfg.min_dense_size)
     return FusedCodec.wrap(base, fused=True)

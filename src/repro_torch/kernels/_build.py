@@ -24,8 +24,9 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).with_name("csrc")
-SOURCES = ("pack.cu", "fused_compress.cu", "fused_update.cu")
-HEADERS = ("pack_tile.cuh",)
+SOURCES = ("pack.cu", "fused_compress.cu", "fused_update.cu", "block_topk.cu",
+           "qsgd.cu")
+HEADERS = ("pack_tile.cuh", "qsgd_round.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
@@ -35,6 +36,9 @@ _SIGNATURES = {
     "repro_delta_pack": [_P, _P, _P, _P, _L, _L, _L, _I, _P],
     "repro_unpack_topk": [_P, _P, _P, _L, _L, _L, _I, _P],
     "repro_fused_update": [_P, _P, _P, _P, _P, _L, _F, _F, _P],
+    "repro_block_topk": [_P, _P, _L, _L, _L, _I, _P],
+    "repro_grid_quant": [_P, _P, _P, _P, _L, _L, _F, _P],
+    "repro_qsgd": [_P, _P, _P, _P, _L, _L, _F, _F, _P],
 }
 
 _lib = None

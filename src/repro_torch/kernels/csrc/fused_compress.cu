@@ -1,24 +1,63 @@
-// Fused delta-pack for Hopper (sm_90a): encode Q(θ − v) without writing the
-// residual.
+// Compress-in-update for Hopper (sm_90a): the two kernels of the fused
+// block_topk|qsgd encode.
 //
-// Replaces delta_pack_pallas (pl.pallas_call at
-// src/repro/kernels/fused_compress.py:58, body _delta_pack_kernel at :41-48)
-// and the wrapper's aligned-head / padded-tail split (kernels/ops.py:141-174).
-// The split is a TPU tiling device (8-row tiles) and is not carried over:
-// one launch covers every block of every node of a leaf, and the ragged last
-// block reads its missing elements as 0, which is what the reference's
-// zero-padded tail tile holds (θ − v = 0 − 0 there).
+// 1. delta-pack: the block-top-k pack of θ − v without writing the
+//    residual. Replaces delta_pack_pallas (pl.pallas_call at
+//    src/repro/kernels/fused_compress.py:58, body _delta_pack_kernel at
+//    :41-48) and the wrapper's aligned-head / padded-tail split
+//    (kernels/ops.py:141-174). The split is a TPU tiling device (8-row
+//    tiles) and is not carried over: one launch covers every block of every
+//    node of a leaf, and the ragged last block reads its missing elements
+//    as 0, which is what the reference's zero-padded tail tile holds
+//    (θ − v = 0 − 0 there).
+//    What bounds it on an H100: the function's own bound is two reads of
+//    the leaf (θ and v, 8 bytes an element at 3.35 TB/s, 2.4 ps) against
+//    the 40 compare passes of the bisection (45 f32 operations an element
+//    with the subtraction, 0.67 ps at 67 TFLOP/s) and a wire-sized write.
+//    This design is bound by the popcount issue rate of its 40 passes, as
+//    pack is (see pack.cu). The residual d = θ − v is formed in registers
+//    (__fsub_rn, the reference's f32 subtraction) and never reaches device
+//    memory: that is the kernel's whole point, and the design keeps it by
+//    running the shared register-resident tile (pack_tile.cuh) with
+//    HAS_V = true.
 //
-// What bounds it on an H100: the function's own bound is two reads of the
-// leaf (θ and v, 8 bytes an element at 3.35 TB/s, 2.4 ps) against the 40
-// compare passes of the bisection (45 f32 operations an element with the
-// subtraction, 0.67 ps at 67 TFLOP/s) and a wire-sized write. This design
-// is bound by the popcount issue rate of its 40 passes, as pack is (see
-// pack.cu). The residual d = θ − v is formed in registers (__fsub_rn, the
-// reference's f32 subtraction) and never reaches device memory: that is the kernel's whole point, and the design
-// keeps it by running the shared register-resident tile (pack_tile.cuh)
-// with HAS_V = true.
+// 2. grid_quant: QSGD stochastic rounding of the packed (rows, nb·k)
+//    carrier onto the signed integer grid, sign(x)·q as int8, each row
+//    (node) with its own norm ‖carrier‖₂ + 1e-12 (a torch reduction between
+//    the two kernels, as the reference's wrapper computes it in jnp,
+//    kernels/ops.py:177-196). Replaces grid_quant_pallas (pl.pallas_call at
+//    src/repro/kernels/fused_compress.py:93, body _grid_quant_kernel at
+//    :71-77); the wrapper's padding of the rows to the 8-row TPU tile is
+//    not carried over. The level arithmetic is qsgd_round.cuh's, shared
+//    with the dense qsgd kernel. q <= s <= 64 fits int8.
+//    What bounds it on an H100: bytes, two f32 reads and one int8 write an
+//    element (9 bytes) against ~6 f32 operations; but the carrier is
+//    wire-sized (280,060 elements a round at full width and K=10, 2.5 MB),
+//    so launch latency, not either bound, sets its time. One thread an
+//    element, coalesced; nothing more is worth doing at this size.
 #include "pack_tile.cuh"
+#include "qsgd_round.cuh"
+
+namespace repro_torch {
+
+__global__ void __launch_bounds__(kQuantThreads)
+grid_quant_kernel(const float* __restrict__ x, const float* __restrict__ u,
+                  const float* __restrict__ norm, int8_t* __restrict__ q,
+                  long long rows, long long m, float levels) {
+  const long long stride = (long long)gridDim.x * kQuantThreads;
+  for (long long row = blockIdx.y; row < rows; row += gridDim.y) {
+    const float nrm = norm[row];
+    const long long base = row * m;
+    for (long long c = (long long)blockIdx.x * kQuantThreads + threadIdx.x;
+         c < m; c += stride) {
+      const float f = x[base + c];
+      const int level = (int)qsgd_level(f, u[base + c], nrm, levels);
+      q[base + c] = (int8_t)(f > 0.0f ? level : (f < 0.0f ? -level : 0));
+    }
+  }
+}
+
+}  // namespace repro_torch
 
 extern "C" int repro_delta_pack(const float* theta, const float* v,
                                 float* vals, uint16_t* idx, long long rows,
@@ -26,4 +65,15 @@ extern "C" int repro_delta_pack(const float* theta, const float* v,
                                 void* stream) {
   return repro_torch::launch_pack<true>(theta, v, vals, idx, rows, n, nb, k,
                                         stream);
+}
+
+extern "C" int repro_grid_quant(const float* x, const float* u,
+                                const float* norm, int8_t* q, long long rows,
+                                long long m, float levels, void* stream) {
+  if (rows > 0 && m > 0)
+    repro_torch::grid_quant_kernel<<<repro_torch::rows_grid(rows, m),
+                                     repro_torch::kQuantThreads, 0,
+                                     (cudaStream_t)stream>>>(x, u, norm, q,
+                                                             rows, m, levels);
+  return (int)cudaGetLastError();
 }

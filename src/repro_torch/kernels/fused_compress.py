@@ -1,13 +1,16 @@
-"""Compress-in-update: delta-pack (``repro/kernels/fused_compress.py``).
+"""Compress-in-update: the two kernels of the fused ``block_topk|qsgd``
+encode (``repro/kernels/fused_compress.py``), both in
+``csrc/fused_compress.cu``.
 
 ``delta_pack(theta, v)`` is ``pack_topk(theta - v)`` without writing the
-residual: the CUDA kernel (``csrc/fused_compress.cu``) forms
-``d = theta - v`` in registers and runs the pack tile on it. The plain
-version forms the same f32 residual and runs the same plain tile, so the
-two paths agree bit for bit.
+residual: the CUDA kernel forms ``d = theta - v`` in registers and runs the
+pack tile on it. The plain version forms the same f32 residual and runs the
+same plain tile, so the two paths agree bit for bit.
 
-The reference's QSGD grid kernel (``grid_quant_pallas``) of this module is
-not ported yet (ROADMAP B5).
+``grid_quant(x, u, norm, levels)`` rounds the packed ``(rows, nb·k)``
+carrier onto the signed QSGD grid, ``sign(x)·q`` as int8, with each row's
+norm handed in (``ops.qsgd_quantize_carrier`` computes it between the two
+kernels). Its level arithmetic is the dense QSGD's (``qsgd.py``).
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 from repro_torch.kernels._build import check, library, on_card, stream_of
 from repro_torch.kernels.pack import (check_kernel_shape, empty_payload,
                                       pack_topk_plain)
+from repro_torch.kernels.qsgd import qsgd_levels_plain
 
 
 def delta_pack_plain(theta: torch.Tensor, v: torch.Tensor, k: int,
@@ -44,3 +48,33 @@ def delta_pack(theta: torch.Tensor, v: torch.Tensor, k: int,
 
 
 delta_pack.launches = 0
+
+
+def grid_quant_plain(x: torch.Tensor, u: torch.Tensor, norm: torch.Tensor,
+                     levels: int) -> torch.Tensor:
+    q = qsgd_levels_plain(x, u, norm, levels)
+    return (torch.sign(x) * q).to(torch.int8)
+
+
+def grid_quant(x: torch.Tensor, u: torch.Tensor, norm: torch.Tensor,
+               levels: int) -> torch.Tensor:
+    """(rows, m) f32 carrier and uniforms, (rows,) f32 norm -> (rows, m)
+    int8 grid."""
+    if not on_card("grid_quant", [(x, torch.float32), (u, torch.float32),
+                                  (norm, torch.float32)]):
+        return grid_quant_plain(x, u, norm, levels)
+    rows, m = x.shape
+    if u.shape != x.shape or norm.shape != (rows,) or not 1 <= levels <= 127:
+        raise ValueError(f"grid_quant: x {tuple(x.shape)}, u {tuple(u.shape)}, "
+                         f"norm {tuple(norm.shape)}, levels {levels}")
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = library().repro_grid_quant(x.data_ptr(), u.data_ptr(),
+                                        norm.data_ptr(), q.data_ptr(), rows, m,
+                                        float(levels), stream_of(x))
+    check(rc, "grid_quant")
+    grid_quant.launches += 1
+    return q
+
+
+grid_quant.launches = 0

@@ -10,9 +10,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels.fused_compress import delta_pack
+from repro_torch.kernels.block_topk import block_topk as block_topk_rows
+from repro_torch.kernels.fused_compress import delta_pack, grid_quant
 from repro_torch.kernels.fused_update import fused_update
-from repro_torch.kernels.pack import pack_topk, unpack_topk
+from repro_torch.kernels.pack import num_blocks, pack_topk, unpack_topk
+from repro_torch.kernels.qsgd import inv_one_plus, qsgd_omega, row_norm
+from repro_torch.kernels.qsgd import qsgd as qsgd_rows
 
 
 def survivors_per_block(ratio: float, block_size: int) -> int:
@@ -21,6 +24,14 @@ def survivors_per_block(ratio: float, block_size: int) -> int:
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], -1)
+
+
+def block_topk(x: torch.Tensor, ratio: float = 0.01,
+               block_size: int = 1024) -> torch.Tensor:
+    """Dense masked block top-k of a ``(K, *shape)`` leaf: the
+    ``ceil(ratio·block_size)`` largest magnitudes of every block kept."""
+    k = survivors_per_block(ratio, block_size)
+    return block_topk_rows(_rows(x), k, block_size).reshape(x.shape)
 
 
 def block_topk_pack(x: torch.Tensor, ratio: float = 0.01,
@@ -51,3 +62,28 @@ def leaf_fused_update(theta, vbar, v, noise, zeta: float,
                       noise_scale: float) -> torch.Tensor:
     return fused_update(theta, vbar.to(theta.dtype), v.to(theta.dtype),
                         noise, zeta, noise_scale)
+
+
+def qsgd(x: torch.Tensor, u: torch.Tensor, levels: int = 16) -> torch.Tensor:
+    """Dense QSGD of a ``(K, *shape)`` leaf, each node's row under its own
+    norm, with uniforms ``u`` of the leaf's shape; ω counts one node's
+    elements. A zero-size leaf comes back as it is (the reference's
+    ``ops.py:122``)."""
+    if x.numel() == 0:
+        return x
+    rows = _rows(x)
+    recip = inv_one_plus(qsgd_omega(rows.shape[1], levels))
+    return qsgd_rows(rows, _rows(u), row_norm(rows), levels,
+                     recip).reshape(x.shape)
+
+
+def qsgd_quantize_carrier(carrier: torch.Tensor, u: torch.Tensor,
+                          levels: int = 16):
+    """QSGD grid of a packed ``(K, nb, k)`` carrier: ``(grid (K, nb, k)
+    int8, norm (K,) f32)``. The per-node norm is a torch reduction here,
+    between the delta-pack and grid_quant kernels (the reference's
+    ``ops.py:177-196`` computes it in jnp outside its kernel)."""
+    rows = _rows(carrier)
+    norm = row_norm(rows)
+    grid = grid_quant(rows, _rows(u), norm, levels)
+    return grid.reshape(carrier.shape), norm

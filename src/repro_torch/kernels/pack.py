@@ -26,9 +26,10 @@ def num_blocks(n: int, block_size: int) -> int:
     return max(1, -(-n // block_size))
 
 
-def pack_tile_plain(x2d: torch.Tensor, k: int):
-    """``_pack_tile`` on ``(rows, bs)`` blocks -> (vals f32, idx int64)."""
-    rows, bs = x2d.shape
+def two_tier_ranks(x2d: torch.Tensor, k: int):
+    """``_pack_tile``'s selection on ``(rows, bs)`` blocks (40-step
+    bisection, then the two-tier rank), shared with the dense block top-k:
+    the definite and tie masks and each element's rank within its tier."""
     mag = x2d.abs()
     hi = mag.amax(dim=1, keepdim=True) + 1.0         # count(mag >= hi) < k
     lo = torch.zeros_like(hi)                        # count(mag >= lo) >= k
@@ -42,6 +43,13 @@ def pack_tile_plain(x2d: torch.Tensor, k: int):
     n_def = mask_def.sum(dim=1, keepdim=True)
     pos_def = mask_def.cumsum(dim=1) - 1
     pos_tie = n_def + mask_tie.cumsum(dim=1) - 1
+    return mask_def, mask_tie, pos_def, pos_tie
+
+
+def pack_tile_plain(x2d: torch.Tensor, k: int):
+    """``_pack_tile`` on ``(rows, bs)`` blocks -> (vals f32, idx int64)."""
+    rows, bs = x2d.shape
+    mask_def, mask_tie, pos_def, pos_tie = two_tier_ranks(x2d, k)
     pos = torch.where(mask_def, pos_def, torch.where(mask_tie, pos_tie, bs))
     # ranks past k (and non-survivors) land in a spare column, dropped below
     slot = torch.clamp(pos, max=k)
@@ -62,7 +70,7 @@ def from_uint16(idx: torch.Tensor) -> torch.Tensor:
     return idx.view(torch.int16).long() & 0xFFFF
 
 
-def _blocks(x: torch.Tensor, block_size: int) -> torch.Tensor:
+def to_blocks(x: torch.Tensor, block_size: int) -> torch.Tensor:
     """(rows, n) -> zero-padded (rows·nb, block_size)."""
     rows, n = x.shape
     nb = num_blocks(n, block_size)
@@ -71,7 +79,7 @@ def _blocks(x: torch.Tensor, block_size: int) -> torch.Tensor:
 
 def pack_topk_plain(x: torch.Tensor, k: int, block_size: int = 1024):
     rows, n = x.shape
-    vals, idx = pack_tile_plain(_blocks(x, block_size), k)
+    vals, idx = pack_tile_plain(to_blocks(x, block_size), k)
     nb = num_blocks(n, block_size)
     return vals.reshape(rows, nb, k), to_uint16(idx).reshape(rows, nb, k)
 

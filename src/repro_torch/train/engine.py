@@ -1,10 +1,13 @@
 """The host round loop (``repro/train/engine.py:HostRoundEngine``).
 
-Per round: draw the round's ``(K, L, M)`` minibatch indices and its
-Langevin noise from the engine's ``torch.Generator`` (or take them from
-``draws(t)``, which is how a run is driven with the reference's own draws),
-gather the batches on the device, call the round, and offer the new params
-to the posterior bank. The scan-style chunked engine is ROADMAP A5.
+Per round: draw the round's inputs from the engine's ``torch.Generator``
+in this order: the ``(K, L, M)`` minibatch indices, the Langevin noise
+(one normal draw a leaf, in leaf order), then the QSGD uniforms (one
+``torch.rand`` a leaf that the compressor's ``uniform_shapes`` names, in
+leaf order; none for block-top-k alone). ``draws(t)`` replaces all three,
+which is how a run is driven with the reference's own draws. Then gather
+the batches on the device, call the round, and offer the new params to
+the posterior bank. The scan-style chunked engine is ROADMAP A5.
 """
 from __future__ import annotations
 
@@ -22,13 +25,15 @@ LogCb = Callable[[int, float, float], None]
 
 
 class HostRoundEngine:
-    """Per-round dispatch loop. ``draws(t) -> (idx (K, L, M), noise tree)``
-    replaces the generator's draws when given (noise already scaled)."""
+    """Per-round dispatch loop. ``draws(t) -> (idx (K, L, M), noise tree,
+    uniforms {path: array})`` replaces the generator's draws when given
+    (noise already scaled)."""
 
-    def __init__(self, round_fn, shards: DeviceShards, fed_cfg, minibatch: int,
-                 generator: torch.Generator,
+    def __init__(self, round_fn, compressor, shards: DeviceShards, fed_cfg,
+                 minibatch: int, generator: torch.Generator,
                  draws: Optional[Callable] = None):
         self.round_fn = round_fn
+        self.compressor = compressor
         self.shards = shards
         self.fed_cfg = fed_cfg
         self.minibatch = int(minibatch)
@@ -38,17 +43,22 @@ class HostRoundEngine:
         self.last_round_ms: List[float] = []
 
     def _round_inputs(self, t: int, params):
+        dev = self.shards.device
         if self.draws is not None:
-            idx, noise = self.draws(t)
-            dev = self.shards.device
+            idx, noise, uniforms = self.draws(t)
             noise = tree_map(lambda a: torch.as_tensor(a, device=dev), noise)
-            return self.shards.gather(idx), noise
+            uniforms = {p: torch.as_tensor(a, device=dev)
+                        for p, a in uniforms.items()}
+            return self.shards.gather(idx), noise, uniforms
         cfg = self.fed_cfg
         idx = self.shards.sample_indices(self.generator, cfg.local_steps,
                                          self.minibatch)
         noise = langevin_noise(self.generator, params, cfg.eta,
                                cfg.temperature)
-        return self.shards.gather(idx), noise
+        uniforms = {p: torch.rand(shape, generator=self.generator, device=dev)
+                    for p, shape in
+                    self.compressor.uniform_shapes(params).items()}
+        return self.shards.gather(idx), noise, uniforms
 
     def run(self, state, bank: Optional[SampleBank], rounds: int, t0: int = 0,
             log_every: int = 0, log_cb: Optional[LogCb] = None):
@@ -59,8 +69,8 @@ class HostRoundEngine:
         for i in range(rounds):
             t = t0 + i
             start = time.perf_counter()
-            batches, noise = self._round_inputs(t, state.params)
-            state, metrics = self.round_fn(state, batches, noise)
+            batches, noise, uniforms = self._round_inputs(t, state.params)
+            state, metrics = self.round_fn(state, batches, noise, uniforms)
             # float() waits for the device: the round's wall time ends here
             losses.append(float(metrics.loss.mean()))
             cons.append(float(metrics.consensus_error))

@@ -104,14 +104,17 @@ class FedTrainer:
                                          self.compressor, self.data_scale,
                                          self.device)
         self.device_shards = DeviceShards.from_shards(shards, self.device)
-        self._engine = HostRoundEngine(self.round_fn, self.device_shards,
-                                       fed_cfg, minibatch, gen, draws)
+        self._engine = HostRoundEngine(self.round_fn, self.compressor,
+                                       self.device_shards, fed_cfg, minibatch,
+                                       gen, draws)
         self.bank = SampleBank(burn_in=fed_cfg.burn_in,
                                max_samples=bank_capacity, thin=bank_thin)
         self._eval = HostEvalEngine(model.logits, batch_size=eval_batch_size)
 
         n_edges = float(self.topology.adjacency.sum())
         self._n_edges = n_edges
+        # a pipeline's measured payload of meta leaves, or the legacy
+        # Compressor's closed-form table
         self.bytes_per_round = float(self.compressor.wire_bytes(params0)
                                      * n_edges)
 

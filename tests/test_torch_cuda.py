@@ -8,9 +8,12 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels.fused_compress import delta_pack_plain
+from repro_torch.kernels.block_topk import block_topk_plain
+from repro_torch.kernels.fused_compress import delta_pack_plain, grid_quant_plain
 from repro_torch.kernels.fused_update import fused_update_plain
 from repro_torch.kernels.pack import pack_topk_plain, unpack_topk_plain
+from repro_torch.kernels.qsgd import (inv_one_plus, qsgd_omega, qsgd_plain,
+                                      row_norm)
 
 pytestmark = pytest.mark.cuda
 
@@ -23,7 +26,8 @@ def card():
 
 
 def _same_bits(a, b):
-    view = {torch.float32: torch.int32, torch.uint16: torch.int16}[a.dtype]
+    view = {torch.float32: torch.int32, torch.uint16: torch.int16,
+            torch.int8: torch.int8}[a.dtype]
     return a.shape == b.shape and torch.equal(a.view(view), b.view(view))
 
 
@@ -45,8 +49,34 @@ def test_kernels_match_plain_versions(card, n):
     out = kernels.fused_update(theta, v * 0.5, v, xi, 0.03, 1.0)
     assert _same_bits(out, fused_update_plain(theta, v * 0.5, v, xi, 0.03, 1.0))
     torch.cuda.synchronize()
-    assert kernels.launch_counts() == {"pack": 1, "delta_pack": 1,
-                                       "unpack": 1, "fused_update": 1}
+    assert kernels.launch_counts() == {
+        "pack": 1, "delta_pack": 1, "unpack": 1, "fused_update": 1,
+        "grid_quant": 0, "qsgd": 0, "block_topk": 0}
+
+
+@pytest.mark.parametrize("n", [6, 150, 1024, 4097, 21000])
+def test_qsgd_and_dense_kernels_match_plain_versions(card, n):
+    """block_topk, qsgd and grid_quant (on the packed carrier), with -0.0
+    entries in the leaf; bit-exact."""
+    gen = torch.Generator(device=card).manual_seed(100 + n)
+    x = torch.randn((4, n), generator=gen, device=card)
+    x[:, ::5] = -0.0
+    u = torch.rand((4, n), generator=gen, device=card)
+    norm = row_norm(x)
+    recip = inv_one_plus(qsgd_omega(n, 16))
+    kernels.reset_launch_counts()
+    assert _same_bits(kernels.block_topk(x, 11), block_topk_plain(x, 11))
+    assert _same_bits(kernels.qsgd(x, u, norm, 16, recip),
+                      qsgd_plain(x, u, norm, 16, recip))
+    carrier = kernels.pack_topk(x, 11)[0].reshape(4, -1)
+    uc = torch.rand(carrier.shape, generator=gen, device=card)
+    nc = row_norm(carrier)
+    assert _same_bits(kernels.grid_quant(carrier, uc, nc, 16),
+                      grid_quant_plain(carrier, uc, nc, 16))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["block_topk"], counts["qsgd"], counts["grid_quant"]) == \
+        (1, 1, 1)
 
 
 def test_ties_and_zeros(card):
@@ -55,6 +85,11 @@ def test_ties_and_zeros(card):
         vals, idx = kernels.pack_topk(x, 11)
         want = pack_topk_plain(x, 11)
         assert _same_bits(vals, want[0]) and _same_bits(idx, want[1])
+        assert _same_bits(kernels.block_topk(x, 11), block_topk_plain(x, 11))
+        u = torch.rand(x.shape, device=card)
+        norm = row_norm(x)      # eps alone for the all-zero leaf
+        assert _same_bits(kernels.qsgd(x, u, norm, 16, 0.5),
+                          qsgd_plain(x, u, norm, 16, 0.5))
 
 
 def test_misaligned_fused_update(card):

@@ -1,7 +1,10 @@
 """The port's kernel wrappers (plain versions on the CPU) against the
 reference's Pallas kernels run in interpret mode, as tests/test_kernels.py
-runs them. Inputs are made with numpy from a seed. Values and indices are
-compared exactly: both sides run the same f32 arithmetic.
+runs them. Inputs are made with numpy from a seed. Values, indices and
+grids are compared exactly: both sides run the same f32 arithmetic. The
+QSGD kernels are handed the reference's norm and uniforms: the port
+computes the norm with a torch reduction, whose summation order differs
+from XLA's in the last bit (the codec and round tests bound that).
 """
 import jax
 import jax.numpy as jnp
@@ -9,11 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.compression import _qsgd_omega
 from repro.kernels import ops as jops
+from repro.kernels.fused_compress import grid_quant_pallas
 from repro_torch import kernels
 from repro_torch.kernels import ops
+from repro_torch.kernels.fused_compress import grid_quant
 from repro_torch.kernels.fused_update import fma_f32
 from repro_torch.kernels.pack import pack_topk
+from repro_torch.kernels.qsgd import inv_one_plus, qsgd, qsgd_omega
 
 SHAPES = [(1024,), (3, 1000, 7), (4097,), (6,), (150,)]
 ROWS = 2        # node-stacked: two nodes per leaf, one launch
@@ -25,19 +32,34 @@ def _leaf(shape, kind, seed=0):
         return rng.standard_normal((ROWS,) + shape).astype(np.float32)
     if kind == "zeros":
         return np.zeros((ROWS,) + shape, np.float32)
+    if kind == "signed_zero":       # every third entry -0.0
+        x = rng.standard_normal((ROWS,) + shape).astype(np.float32)
+        x.reshape(ROWS, -1)[:, ::3] = -0.0
+        return x
     # heavy ties: 7 distinct magnitudes over thousands of entries
     return rng.integers(-3, 4, size=(ROWS,) + shape).astype(np.float32)
 
 
 CASES = ([(s, "normal") for s in SHAPES]
          + [((4097,), "zeros"), ((150,), "zeros"),
-            ((4097,), "ties"), ((3, 1000, 7), "ties")])
+            ((4097,), "ties"), ((3, 1000, 7), "ties"),
+            ((4097,), "signed_zero")])
 
 
 def _assert_exact(got, want):
+    """Equal bits: the dtype, the shape, and every value, a zero's sign
+    included."""
     got, want = np.asarray(got), np.asarray(want)
     assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == np.float32:
+        got, want = got.view(np.int32), want.view(np.int32)
     np.testing.assert_array_equal(got, want)
+
+
+def _ref_norm(x):
+    """The reference's QSGD norm (``ops.py:124-125, 187``), as (1,) f32."""
+    return np.array(jnp.linalg.norm(jnp.asarray(x).reshape(-1)
+                                    .astype(jnp.float32)) + 1e-12).reshape(1)
 
 
 @pytest.mark.parametrize("shape,kind", CASES)
@@ -75,6 +97,76 @@ def test_unpack_matches_reference(shape, kind):
     for r in range(ROWS):
         want = jops.block_topk_unpack(packed[r][0], packed[r][1], n, shape)
         _assert_exact(got[r].numpy(), want)
+
+
+@pytest.mark.parametrize("shape,kind", CASES)
+def test_block_topk_matches_reference(shape, kind):
+    x = _leaf(shape, kind, seed=8)
+    got = ops.block_topk(torch.from_numpy(x), ratio=0.01)
+    for r in range(ROWS):
+        _assert_exact(got[r].numpy(),
+                      jops.block_topk(jnp.asarray(x[r]), ratio=0.01))
+
+
+@pytest.mark.parametrize("shape,kind", CASES)
+def test_grid_quant_matches_reference(shape, kind):
+    """On the packed carrier of each case, with the reference's uniforms
+    and norm; the reference pads the rows to its 8-row tile, as
+    ``ops.py:191-195`` does."""
+    x = _leaf(shape, kind, seed=9)
+    for r in range(ROWS):
+        carrier = np.array(jops.block_topk_pack(jnp.asarray(x[r]),
+                                                ratio=0.01)[0])
+        nb, k = carrier.shape
+        u = np.array(jax.random.uniform(jax.random.PRNGKey(r), (nb, k)))
+        norm = _ref_norm(carrier)
+        pad = ((0, -(-nb // 8) * 8 - nb), (0, 0))
+        want = grid_quant_pallas(jnp.pad(carrier, pad), jnp.pad(u, pad),
+                                 jnp.asarray(norm).reshape(1, 1), 16,
+                                 jnp.int8)[:nb]
+        got = grid_quant(torch.from_numpy(carrier.reshape(1, -1)),
+                         torch.from_numpy(u.reshape(1, -1)),
+                         torch.from_numpy(norm), 16)
+        _assert_exact(got.numpy().reshape(nb, k), want)
+
+
+@pytest.mark.parametrize("shape,kind", CASES)
+@pytest.mark.parametrize("levels", [16, 4])
+def test_qsgd_matches_reference(shape, kind, levels):
+    """``jops.qsgd(x, key)`` draws ``uniform(key, x.shape)``; the port is
+    handed those uniforms and the reference's norm."""
+    x = _leaf(shape, kind, seed=10)
+    for r in range(ROWS):
+        key = jax.random.PRNGKey(20 + r)
+        want = jops.qsgd(jnp.asarray(x[r]), key, levels=levels)
+        u = np.array(jax.random.uniform(key, x[r].shape, jnp.float32))
+        n = x[r].size
+        got = qsgd(torch.from_numpy(x[r].reshape(1, -1)),
+                   torch.from_numpy(u.reshape(1, -1)),
+                   torch.from_numpy(_ref_norm(x[r])), levels,
+                   inv_one_plus(qsgd_omega(n, levels)))
+        _assert_exact(got.numpy().reshape(x[r].shape), want)
+
+
+def test_qsgd_keeps_the_sign_of_zero():
+    """jnp.sign(-0.0) is -0.0 and torch.sign(-0.0) is +0.0; the port
+    gives the reference's -0.0."""
+    x = torch.tensor([[-0.0, 0.0, 1.0, -2.0]])
+    out = qsgd(x, torch.zeros_like(x), torch.ones(1), 16, 1.0)
+    assert torch.signbit(out[0, :2]).tolist() == [True, False]
+    assert torch.signbit(ops.qsgd(x, torch.zeros_like(x))[0, :2]).tolist() \
+        == [True, False]
+
+
+@pytest.mark.parametrize("n,levels", [(28006, 16), (2598846, 16), (6, 4),
+                                      (150, 64)])
+def test_qsgd_omega_matches_reference(n, levels):
+    assert qsgd_omega(n, levels) == _qsgd_omega(n, levels)
+
+
+def test_qsgd_of_a_zero_size_leaf_is_the_leaf():
+    x = torch.empty((3, 0, 4))
+    assert ops.qsgd(x, None) is x
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -145,8 +237,12 @@ def test_cpu_tensors_run_the_plain_versions():
     ops.block_topk_unpack(vals, idx, (3000,))
     ops.fused_delta_pack(x, x)
     ops.leaf_fused_update(x, x, x, x, 0.03, 1.0)
-    assert kernels.launch_counts() == {"pack": 0, "delta_pack": 0,
-                                       "unpack": 0, "fused_update": 0}
+    ops.block_topk(x)
+    ops.qsgd(x, torch.rand(2, 3000))
+    ops.qsgd_quantize_carrier(vals, torch.rand(vals.shape))
+    assert kernels.launch_counts() == {
+        "pack": 0, "delta_pack": 0, "unpack": 0, "fused_update": 0,
+        "grid_quant": 0, "qsgd": 0, "block_topk": 0}
 
 
 def test_meta_tensors_give_payload_shapes():
@@ -155,6 +251,21 @@ def test_meta_tensors_give_payload_shapes():
     assert vals.dtype == torch.float32 and idx.dtype == torch.uint16
 
 
+def test_meta_tensors_give_dense_and_grid_shapes():
+    x = torch.empty((10, 11712 * 220), device="meta")
+    assert ops.block_topk(x).shape == x.shape
+    grid, norm = ops.qsgd_quantize_carrier(
+        torch.empty((10, 2517, 11), device="meta"),
+        torch.empty((10, 2517, 11), device="meta"))
+    assert grid.shape == (10, 2517, 11) and grid.dtype == torch.int8
+    assert norm.shape == (10,)
+
+
 def test_wrappers_check_dtypes():
     with pytest.raises(ValueError, match="float32"):
         pack_topk(torch.zeros(1, 64, dtype=torch.float64), 1)
+    x = torch.zeros(1, 64)
+    with pytest.raises(ValueError, match="float32"):
+        grid_quant(x, x.double(), torch.ones(1), 16)
+    with pytest.raises(ValueError, match="float32"):
+        qsgd(x, x, torch.ones(1, dtype=torch.float64), 16, 1.0)

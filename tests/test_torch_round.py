@@ -1,8 +1,12 @@
 """One round, then five, of the port's ``make_cdbfl_round`` against the
 reference's, on the reduced LeNet with K=3 and the reference's own draws:
 the minibatch indices of ``DeviceShards.sample_indices(round_data_key(
-kround), L, M)`` and the noise of ``algorithms._langevin_noise(knoise, ...)``,
-from the keys the reference's host engine derives.
+kround), L, M)``, the noise of ``algorithms._langevin_noise(knoise, ...)``
+and, for the QSGD configurations, the uniforms the reference draws from
+``kql`` (``test_torch_compression.reference_uniforms``), from the keys the
+reference's host engine derives. ``block_topk`` runs 1 and 5 rounds; the
+``block_topk|qsgd`` pipeline and the legacy ``qsgd_pallas`` and
+``block_topk_pallas`` compressors 1 and 3.
 
 Tolerances and why:
 - wire bytes: exact (a function of shapes).
@@ -14,6 +18,16 @@ Tolerances and why:
   each round. The differences are the last-bit differences of the local
   steps, carried by the linear parts of the update; they stay near 1e-6
   relative over five rounds.
+- QSGD grids: a grid element may move one step where its uniform lies
+  within the residual's last bits of its fraction (and the port's norm,
+  a torch reduction, may differ from XLA's in the last bit). A flip is
+  counted on the round's decoded delta, against the reference's decode of
+  the same round: an element off by one grid step, ``‖x‖/s/(1+ω)`` of its
+  node's carrier or leaf (``assert_grid_close``, at most 0.1% of the
+  elements). The state after the round is then held to the tolerance
+  above everywhere except at the flipped elements of v (the sender's
+  control variate absorbs the whole step) and of every node's v̄ and
+  params at those positions.
 """
 from functools import partial
 
@@ -40,6 +54,7 @@ from repro_torch.data.partition import DeviceShards
 from repro_torch.models import get_model
 from repro_torch.models.lenet import params_from_jax
 from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path
+from test_torch_compression import assert_grid_close, reference_uniforms
 
 K, L, M = 3, 2, 5
 FED = dict(num_nodes=K, local_steps=L, eta=3e-3, zeta=0.3, temperature=0.2,
@@ -47,12 +62,20 @@ FED = dict(num_nodes=K, local_steps=L, eta=3e-3, zeta=0.3, temperature=0.2,
            topology="full")
 RTOL, ATOL = 1e-4, 1e-6
 MIN_BLOCK_AGREEMENT = 0.999
+# the slice-2 configurations: FedConfig overrides, uniforms kind, bytes/node
+QSGD_CONFIGS = {
+    "block_topk|qsgd": (dict(pipeline="block_topk|qsgd"), "pipeline", 568.0),
+    "qsgd_pallas": (dict(compressor="qsgd_pallas", fused_compress=False),
+                    "qsgd_pallas", 6629.0),
+    "block_topk_pallas": (dict(compressor="block_topk_pallas",
+                               fused_compress=False), None, 528.0),
+}
 
 
-def _reference_rounds(num_rounds):
+def _reference_rounds(num_rounds, overrides=None, uniforms_kind=None):
     """Run the reference round; yield per round (idx, noise, theta_L's
-    payload, state after the round)."""
-    fed = JaxFedConfig(**FED)
+    payload, state after the round, wire bytes, uniforms, decoded delta)."""
+    fed = JaxFedConfig(**dict(FED, **(overrides or {})))
     model = jax_get_model(jax_get_arch("lenet-radar").reduced)
     shards = partition_iid(make_dataset(K * 20, hw=(32, 16), seed=0), K)
     dshards = JaxDeviceShards.from_shards(shards)
@@ -67,7 +90,8 @@ def _reference_rounds(num_rounds):
     local = jax.jit(jax.vmap(partial(
         _local_sgd, loss_fn=model.loss, eta=fed.eta, prior_weight=1.0 / K,
         data_scale=data_scale, num_steps_static=L)))
-    encode = jax.jit(jax.vmap(comp.encode_pair))
+    pipeline = hasattr(comp, "encode_pair")
+    encode = jax.jit(jax.vmap(comp.encode_pair)) if pipeline else None
     draw_noise = jax.jit(lambda k, p: _langevin_noise(
         k, p, fed.eta, fed.temperature, jnp.arange(K)))
     draw_idx = jax.jit(lambda k: dshards.sample_indices(round_data_key(k), L, M))
@@ -83,11 +107,38 @@ def _reference_rounds(num_rounds):
             state.key, state.round)
         theta_l, _ = local(state.params, batches, node_keys)
         keys = jax.vmap(lambda i: jax.random.fold_in(kql, i))(jnp.arange(K))
-        payload = encode(theta_l, state.v, keys)
+        payload = encode(theta_l, state.v, keys) if pipeline else None
+        uniforms, steps = {}, None
+        if uniforms_kind is not None:
+            uniforms = reference_uniforms(uniforms_kind, state.params, kql)
+            steps = _grid_steps(uniforms_kind, payload, jax.tree.map(
+                lambda t, v: t - v, theta_l, state.v), fed.qsgd_levels)
         state, metrics = round_fn(state, batches, kround)
         out.append((np.asarray(idx), jax.tree.map(np.asarray, noise),
-                    payload, state, float(metrics.wire_bytes)))
+                    payload, state, float(metrics.wire_bytes), uniforms,
+                    steps))
     return shards, data_scale, jax.tree.map(np.asarray, params0), out
+
+
+def _grid_steps(kind, payload, residual, levels):
+    """One QSGD grid step ``‖x‖/s/(1+ω)`` of each node's carrier (pipeline,
+    from the payload's scale) or leaf (dense), by dotted path, shaped to
+    broadcast over the leaf."""
+    steps = {}
+    for i, (path, leaf) in enumerate(jax.tree_util.tree_flatten_with_path(
+            residual)[0]):
+        r = np.asarray(leaf, np.float64).reshape(K, -1)
+        if kind == "pipeline":
+            norm = np.asarray(payload.entries[i].aux[1]["scale"], np.float64)
+            n = payload.entries[i].wire[0].size
+        else:
+            norm = np.linalg.norm(r, axis=1)
+            n = r.shape[1]
+        omega = min(n / levels ** 2, np.sqrt(n) / levels)
+        steps[".".join(k.key for k in path)] = (
+            norm.reshape(K) / levels / (1 + omega)).reshape(
+                (K,) + (1,) * (leaf.ndim - 1))
+    return steps
 
 
 @pytest.fixture(scope="module")
@@ -95,8 +146,8 @@ def reference():
     return _reference_rounds(5)
 
 
-def _port_round(shards, data_scale):
-    fed = FedConfig(**FED)
+def _port_round(shards, data_scale, overrides=None):
+    fed = FedConfig(**dict(FED, **(overrides or {})))
     model = get_model(get_arch("lenet-radar", reduced=True))
     omega = build_topology(resolve_topology(JaxFedConfig(**FED)), K).omega
     return (port_alg.make_cdbfl_round(model.nll, fed, omega,
@@ -127,7 +178,8 @@ def test_rounds_track_reference(reference, num_rounds):
     shards, data_scale, params0, rounds = reference
     round_fn, dshards, fed = _port_round(shards, data_scale)
     state = port_state.init_fed_state(params_from_jax(params0), fed)
-    for idx, noise, ref_payload, ref_state, ref_wire in rounds[:num_rounds]:
+    for idx, noise, ref_payload, ref_state, ref_wire, _, _ in \
+            rounds[:num_rounds]:
         noise_t = {k: {kk: torch.tensor(vv) for kk, vv in v.items()}
                    for k, v in noise.items()}
         state, metrics = round_fn(state, dshards.gather(idx), noise_t)
@@ -135,5 +187,87 @@ def test_rounds_track_reference(reference, num_rounds):
         assert metrics.payload.measured_bytes() == ref_payload.measured_bytes()
         assert _block_agreement(metrics.payload, ref_payload) >= MIN_BLOCK_AGREEMENT
         _assert_state_close(state, ref_state)
+        assert all(torch.isfinite(x).all() for x in tree_leaves(state.params))
+    assert state.round == num_rounds
+
+
+@pytest.fixture(scope="module")
+def qsgd_references():
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            overrides, kind, _ = QSGD_CONFIGS[name]
+            cache[name] = _reference_rounds(3, overrides, kind)
+        return cache[name]
+    return get
+
+
+def _flips(port_v, old_v, ref_v, ref_old_v, steps):
+    """Positions where the port's delta (its v's increment) is off the
+    reference's by one QSGD grid step; asserts the flip rule."""
+    flipped = {}
+    for (path, g), g0, w, w0 in zip(tree_leaves_with_path(port_v),
+                                    tree_leaves(old_v),
+                                    jax.tree.leaves(ref_v),
+                                    jax.tree.leaves(ref_old_v)):
+        got = g.double().numpy() - g0.double().numpy()
+        want = np.asarray(w, np.float64) - np.asarray(w0, np.float64)
+        off = ~np.isclose(got, want, rtol=RTOL, atol=ATOL)
+        if steps is None:
+            assert not off.any(), path
+        else:
+            assert off.sum() <= 1e-3 * off.size, (path, off.sum())
+            step = np.broadcast_to(steps[path], off.shape)
+            np.testing.assert_allclose(np.abs(got - want)[off], step[off],
+                                       rtol=1e-3, err_msg=path)
+        flipped[path] = off
+    return flipped
+
+
+def _assert_state_close_but(port, ref, flipped):
+    """The state tolerance, except where a grid flip moved the state: v of
+    the flipped node, v̄ and params of every node at that position."""
+    for name in ("params", "v", "v_bar"):
+        for (path, g), w in zip(tree_leaves_with_path(getattr(port, name)),
+                                jax.tree.leaves(getattr(ref, name))):
+            g, w = g.numpy(), np.asarray(w)
+            skip = flipped[path] if name == "v" else \
+                np.broadcast_to(flipped[path].any(axis=0), g.shape)
+            np.testing.assert_allclose(g[~skip], w[~skip], rtol=RTOL,
+                                       atol=ATOL, err_msg=f"{name}.{path}")
+
+
+@pytest.mark.parametrize("num_rounds", [1, 3])
+@pytest.mark.parametrize("name", list(QSGD_CONFIGS))
+def test_qsgd_and_dense_rounds_track_reference(qsgd_references, name,
+                                               num_rounds):
+    overrides, kind, wire = QSGD_CONFIGS[name]
+    shards, data_scale, params0, rounds = qsgd_references(name)
+    round_fn, dshards, fed = _port_round(shards, data_scale, overrides)
+    state = port_state.init_fed_state(params_from_jax(params0), fed)
+    ref_v = jax.tree.map(np.zeros_like, state.v)
+    flipped = {p: np.zeros(tuple(x.shape), bool)
+               for p, x in tree_leaves_with_path(state.params)}
+    for (idx, noise, ref_payload, ref_state, ref_wire, uniforms,
+         steps) in rounds[:num_rounds]:
+        noise_t = {k: {kk: torch.tensor(vv) for kk, vv in v.items()}
+                   for k, v in noise.items()}
+        uniforms_t = {p: torch.from_numpy(u) for p, u in uniforms.items()}
+        old_v = state.v
+        state, metrics = round_fn(state, dshards.gather(idx), noise_t,
+                                  uniforms_t)
+        assert metrics.wire_bytes == ref_wire == wire
+        if ref_payload is not None:
+            assert metrics.payload.measured_bytes() == \
+                ref_payload.measured_bytes()
+            assert _block_agreement(metrics.payload, ref_payload) >= \
+                MIN_BLOCK_AGREEMENT
+        else:
+            assert metrics.payload is None
+        new = _flips(state.v, old_v, ref_state.v, ref_v, steps)
+        flipped = {p: flipped[p] | new[p] for p in flipped}
+        ref_v = ref_state.v
+        _assert_state_close_but(state, ref_state, flipped)
         assert all(torch.isfinite(x).all() for x in tree_leaves(state.params))
     assert state.round == num_rounds

@@ -6,7 +6,11 @@ then BMA evaluation on a day-1 test set.
 Bounds: accuracy within one test example; ECE within 0.01. The chains
 differ only by the last-bit differences of the local steps (see
 test_torch_round.py), so the BMA probabilities agree to about 1e-5 and only
-an example sitting on an argmax tie or a bin edge could move.
+an example sitting on an argmax tie or a bin edge could move. The same run
+of the ``block_topk|qsgd`` pipeline, with the reference's QSGD uniforms
+replayed too, is held to the same bounds (its grid can flip where a
+uniform lies within the residual's last bits of its fraction; see
+test_torch_round.py).
 """
 import jax
 import jax.numpy as jnp
@@ -25,6 +29,7 @@ from repro_torch.config import FedConfig, get_arch
 from repro_torch.models import get_model
 from repro_torch.models.lenet import params_from_jax
 from repro_torch.train import FedTrainer
+from test_torch_compression import reference_uniforms
 
 K, L, M, ROUNDS, SEED = 3, 2, 5, 6, 0
 FED = dict(num_nodes=K, local_steps=L, eta=3e-3, zeta=0.3, temperature=0.2,
@@ -34,7 +39,8 @@ ECE_BOUND = 0.01
 
 
 def _replayed_draws(shards, params0, fed):
-    """The reference host engine's per-round draws, by round index."""
+    """The reference host engine's per-round draws, by round index: the
+    minibatch indices, the noise, and the QSGD uniforms of a pipeline."""
     dshards = JaxDeviceShards.from_shards(shards)
     stacked = stack_node_params(params0, K)
     draw_idx = jax.jit(lambda k: dshards.sample_indices(round_data_key(k), L, M))
@@ -45,16 +51,19 @@ def _replayed_draws(shards, params0, fed):
     draws = []
     for _ in range(ROUNDS):
         key, kround = jax.random.split(key)
+        uniforms = ({} if not fed.pipeline else reference_uniforms(
+            "pipeline", stacked, jax.random.split(kround)[0]))
         draws.append((np.asarray(draw_idx(kround)),
-                      jax.tree.map(np.array, draw_noise(kround))))
+                      jax.tree.map(np.array, draw_noise(kround)), uniforms))
     return lambda t: draws[t]
 
 
-def test_trainer_matches_reference():
+def _check_trainer_against_reference(pipeline, wire):
     model_cfg = jax_get_arch("lenet-radar").reduced
     shards = partition_iid(make_dataset(K * 20, hw=(32, 16), seed=0), K)
     test = make_dataset(60, hw=(32, 16), day=1, seed=99)
-    jfed = JaxFedConfig(**FED)
+    fed = dict(FED, pipeline=pipeline)
+    jfed = JaxFedConfig(**fed)
     jmodel = jax_get_model(model_cfg)
     ref = JaxFedTrainer(jmodel, jfed, shards, minibatch=M, seed=SEED,
                         engine="host")
@@ -63,15 +72,23 @@ def test_trainer_matches_reference():
     want = ref.run(eval_batch=test)
 
     port = FedTrainer(get_model(get_arch("lenet-radar", reduced=True)),
-                      FedConfig(**FED), shards, minibatch=M, seed=SEED,
+                      FedConfig(**fed), shards, minibatch=M, seed=SEED,
                       device="cpu", draws=draws,
                       params=params_from_jax(jax.tree.map(np.asarray, params0)))
     got = port.run(eval_batch=test)
 
-    assert got.wire_history == want.wire_history == [1056.0] * ROUNDS
+    assert got.wire_history == want.wire_history == [wire] * ROUNDS
     assert len(port.bank) == len(ref.bank) == 2
     np.testing.assert_allclose(got.loss_history, want.loss_history, rtol=1e-4)
     assert abs(got.accuracy - want.accuracy) <= 1.0 / len(test["y"]) + 1e-6
     assert abs(got.ece - want.ece) <= ECE_BOUND
     np.testing.assert_allclose(got.probs, want.probs, atol=1e-4)
     assert np.isfinite([got.nll, got.brier]).all()
+
+
+def test_trainer_matches_reference():
+    _check_trainer_against_reference("", 1056.0)
+
+
+def test_qsgd_pipeline_trainer_matches_reference():
+    _check_trainer_against_reference("block_topk|qsgd", 568.0)
