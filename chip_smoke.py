@@ -13,9 +13,14 @@ Phases, each of which fails the run by raising:
              shapes (K=10: the 10 leaves; grid_quant the 10 packed (K, nb,
              11) carriers) and at edge cases (a ragged leaf, leaves shorter
              than a block, an all-zero leaf, a leaf of exact ties, a leaf
-             with -0.0 entries); time each beside its bound and its plain
+             with -0.0 entries; and, for pack, delta-pack, unpack and
+             block_topk, leaves with NaN and ±inf blocks); pack and
+             delta-pack also as one table launch over all those leaves
+             mixed together. Time each beside its bound and its plain
              version, by CUDA events (host time per call included) and by
-             the device time in a profiler trace (the kernels alone).
+             the device time in a profiler trace (the kernels alone); pack
+             and delta-pack as the round runs delta-pack, one table launch
+             over the 10 leaves.
 3. slice   — FedTrainer(device="cuda") on full-width lenet-radar (256x63,
              K=10, L=8, minibatch 10, ratio 1%, block 1024, η=1e-4, ζ=0.03,
              T=1) in four configurations, each run with the launch counts
@@ -25,7 +30,8 @@ Phases, each of which fails the run by raising:
              rounds, BMA evaluation, 84,058 bytes), and the legacy dense
              qsgd_pallas (2 rounds, 1,949,174 bytes) and block_topk_pallas
              (2 rounds, 155,934 bytes) compressors. Every value finite, the
-             bytes exact, and every kernel of each path launched.
+             bytes exact, every kernel of each path launched, and
+             delta-pack once a round.
 4. oracle  — one round of each pipeline from its run's state through
              FusedCodec(fused=False), which runs the pack kernel (and QSGD's
              own torch arithmetic): its payload and params equal the fused
@@ -236,41 +242,64 @@ def leaf_cases(shapes):
     signed = normal(4097)
     signed[:, ::3] = -0.0
     yield "signed zeros 4097", signed, torch.zeros_like(signed)
+    # ROADMAP C6: a lone NaN, a block that is NaN but for 5 values, NaNs in
+    # the ragged block; a lone ±inf, fewer and more than k infs, a whole
+    # block of -inf, and inf - inf
+    nan = normal(4097)
+    nan[0, 5] = nan[1, 1024:2048] = float("nan")
+    nan[1, 1030:1080:10] = 1.5
+    nan[2:, 4096] = nan[3, 100] = float("nan")
+    nan[3, 200] = float("inf")
+    yield "nan 4097", nan, normal(4097) * 0.1
+    inf = normal(4097)
+    inf[0, 77] = -float("inf")
+    inf[1, 1027:1030] = float("inf")
+    inf[2, 2048:3072:50] = float("inf")
+    inf[3:, 3072:4096] = -float("inf")
+    inf[0, 4096] = float("inf")
+    v_inf = normal(4097) * 0.1
+    v_inf[0, 4096] = float("inf")
+    yield "inf 4097", inf, v_inf
 
 
 def check_kernels(shapes):
     errs = {name: 0.0 for name in KERNELS}
     gen = torch.Generator(device=DEVICE).manual_seed(2)
-    for name, theta, v in leaf_cases(shapes):
+    cases = list(leaf_cases(shapes))
+    for name, theta, v in cases:
         n = theta.shape[1]
-        vals, idx = pack_topk(theta, SURVIVORS)
+        (vals, idx), = pack_topk([theta], SURVIVORS)
         want = pack_topk_plain(theta, SURVIVORS)
-        dvals, didx = delta_pack(theta, v, SURVIVORS)
+        (dvals, didx), = delta_pack([theta], [v], SURVIVORS)
         dwant = delta_pack_plain(theta, v, SURVIVORS)
         dense = unpack_topk(dvals, didx, n)
         dense_want = unpack_topk_plain(dvals, didx, n)
-        vb, xi = v * 0.5 + 0.01, torch.randn(theta.shape, generator=gen,
-                                             device=DEVICE) * 1.4e-2
-        upd = fused_update(theta, vb, v, xi, 0.03, 1.0)
-        upd_want = fused_update_plain(theta, vb, v, xi, 0.03, 1.0)
-        # QSGD: the leaf's rows and the packed carrier's, uniforms and norms
-        # made on the card (the all-zero leaf's norm is eps alone)
-        u = torch.rand(theta.shape, generator=gen, device=DEVICE)
-        norm = row_norm(theta)
-        recip = inv_one_plus(qsgd_omega(n, LEVELS))
-        carrier = dvals.reshape(K, -1)
-        uc = torch.rand(carrier.shape, generator=gen, device=DEVICE)
-        nc = row_norm(carrier)
         checks = {"pack": [(vals, want[0]), (idx, want[1])],
                   "delta_pack": [(dvals, dwant[0]), (didx, dwant[1])],
                   "unpack": [(dense, dense_want)],
-                  "fused_update": [(upd, upd_want)],
-                  "grid_quant": [(grid_quant(carrier, uc, nc, LEVELS),
-                                  grid_quant_plain(carrier, uc, nc, LEVELS))],
-                  "qsgd": [(qsgd(theta, u, norm, LEVELS, recip),
-                            qsgd_plain(theta, u, norm, LEVELS, recip))],
                   "block_topk": [(block_topk(theta, SURVIVORS),
                                   block_topk_plain(theta, SURVIVORS))]}
+        # the other three kernels follow the reference on finite leaves only
+        # (ROADMAP C6)
+        if bool(torch.isfinite(theta).all() and torch.isfinite(v).all()):
+            vb, xi = v * 0.5 + 0.01, torch.randn(theta.shape, generator=gen,
+                                                 device=DEVICE) * 1.4e-2
+            # QSGD: the leaf's rows and the packed carrier's, uniforms and
+            # norms made on the card (the all-zero leaf's norm is eps alone)
+            u = torch.rand(theta.shape, generator=gen, device=DEVICE)
+            norm = row_norm(theta)
+            recip = inv_one_plus(qsgd_omega(n, LEVELS))
+            carrier = dvals.reshape(K, -1)
+            uc = torch.rand(carrier.shape, generator=gen, device=DEVICE)
+            nc = row_norm(carrier)
+            checks.update({
+                "fused_update": [(fused_update(theta, vb, v, xi, 0.03, 1.0),
+                                  fused_update_plain(theta, vb, v, xi, 0.03,
+                                                     1.0))],
+                "grid_quant": [(grid_quant(carrier, uc, nc, LEVELS),
+                                grid_quant_plain(carrier, uc, nc, LEVELS))],
+                "qsgd": [(qsgd(theta, u, norm, LEVELS, recip),
+                          qsgd_plain(theta, u, norm, LEVELS, recip))]})
         for kname, pairs in checks.items():
             for got, ref in pairs:
                 if not bitwise_equal(got, ref):
@@ -278,11 +307,29 @@ def check_kernels(shapes):
                                          f"version on {name} (K={K}, n={n})")
                 errs[kname] = max(errs[kname], max_abs_err(got, ref))
         # the fused encode is the two-pass encode, bit for bit
-        if not (bitwise_equal(dvals, pack_topk(theta - v, SURVIVORS)[0])
-                and bitwise_equal(didx, pack_topk(theta - v, SURVIVORS)[1])):
+        (pvals, pidx), = pack_topk([theta - v], SURVIVORS)
+        if not (bitwise_equal(dvals, pvals) and bitwise_equal(didx, pidx)):
             raise AssertionError(f"delta_pack != pack(θ − v) on {name}")
         log("kernels", f"{name}: K={K} n={n}: {', '.join(checks)} bit-exact "
                        f"to their plain versions")
+    # one table launch over every case's leaf, each against its leaf's
+    # plain version
+    launched = pack_topk.launches, delta_pack.launches
+    thetas, vs = [c[1] for c in cases], [c[2] for c in cases]
+    packed = pack_topk(thetas, SURVIVORS)
+    dpacked = delta_pack(thetas, vs, SURVIVORS)
+    if (pack_topk.launches - launched[0], delta_pack.launches - launched[1]) \
+            != (1, 1):
+        raise AssertionError("the mixed table took more than one launch")
+    for (name, theta, v), got, dgot in zip(cases, packed, dpacked):
+        for a, b in zip(got + dgot, pack_topk_plain(theta, SURVIVORS)
+                        + delta_pack_plain(theta, v, SURVIVORS)):
+            if not bitwise_equal(a, b):
+                raise AssertionError(f"the table launch differs from the "
+                                     f"plain version on {name}")
+    log("kernels", f"one table launch each of pack and delta-pack over the "
+                   f"{len(cases)} leaves above: bit-exact to every leaf's "
+                   f"plain version")
     return errs
 
 
@@ -298,10 +345,10 @@ def leaf_runs(th, v, vb, xi, vals, idx, u, uc):
     norm, nc = row_norm(th), row_norm(carrier)
     recip = inv_one_plus(qsgd_omega(n, LEVELS))
     return {
-        "pack": (lambda: pack_topk(th, SURVIVORS),
+        "pack": (lambda: pack_topk([th], SURVIVORS),
                  lambda: pack_topk_plain(th, SURVIVORS),
                  K * n * 4 + wire, PACK_OPS * padded),
-        "delta_pack": (lambda: delta_pack(th, v, SURVIVORS),
+        "delta_pack": (lambda: delta_pack([th], [v], SURVIVORS),
                        lambda: delta_pack_plain(th, v, SURVIVORS),
                        2 * K * n * 4 + wire, DELTA_PACK_OPS * padded),
         "unpack": (lambda: unpack_topk(vals, idx, n),
@@ -322,21 +369,31 @@ def leaf_runs(th, v, vb, xi, vals, idx, u, uc):
     }
 
 
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def time_kernels(shapes):
-    """Per-round time of each kernel over the main path's leaves (one
-    launch per leaf, K=10 rows), its plain version's, and its bound. Two
-    clocks: CUDA events around back-to-back calls (``ms``, ``plain_ms``:
-    what a caller pays, host time per call included wherever it exceeds
-    the device work) and the device time in a profiler trace
-    (``device_ms``, ``plain_device_ms``: the kernels alone)."""
+    """Per-round time of each kernel over the main path's leaves (K=10
+    rows), its plain version's, and its bound: one launch a leaf, but for
+    pack and delta-pack one table launch over the 10 leaves, as the round's
+    codec runs delta-pack. Two clocks: CUDA events around back-to-back
+    calls (``ms``, ``plain_ms``: what a caller pays, host time per call
+    included wherever it exceeds the device work) and the device time in a
+    profiler trace (``device_ms``, ``plain_device_ms``: the kernels alone,
+    None where the profiler saw no device events)."""
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     rows = {name: dict(ms=0.0, plain_ms=0.0, nbytes=0.0, ops=0.0, fns=[],
                        plain_fns=[]) for name in KERNELS}
+    largest = max(int(np.prod(s)) for _, s in shapes)
+    ths, vs = [], []
     for _, shape in shapes:
         n = int(np.prod(shape))
         th = torch.randn((K, n), generator=gen, device=DEVICE)
         v, vb, xi = th * 0.1, th * 0.05, th * 0.01
-        vals, idx = delta_pack(th, v, SURVIVORS)
+        ths.append(th)
+        vs.append(v)
+        (vals, idx), = delta_pack([th], [v], SURVIVORS)
         u = torch.rand(th.shape, generator=gen, device=DEVICE)
         uc = torch.rand((K, vals.shape[1] * SURVIVORS), generator=gen,
                         device=DEVICE)
@@ -350,19 +407,30 @@ def time_kernels(shapes):
             r["ops"] += ops
             r["fns"].append(kern)
             r["plain_fns"].append(plain)
-            if n == max(int(np.prod(s)) for _, s in shapes):
+            if n == largest:
                 b_ms, b_by = bound(nbytes, ops)
                 log("kernels", f"{name} on the largest leaf {shape} (K={K}): "
                                f"{ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
                                f"{b_ms:.4f} ms ({b_by})")
+    # pack and delta-pack as the round runs delta-pack, one table launch
+    # over the 10 leaves, in place of their sums of one launch a leaf
+    table = {"pack": (lambda: pack_topk(ths, SURVIVORS),
+                      lambda: [pack_topk_plain(t, SURVIVORS) for t in ths]),
+             "delta_pack": (lambda: delta_pack(ths, vs, SURVIVORS),
+                            lambda: [delta_pack_plain(t, v, SURVIVORS)
+                                     for t, v in zip(ths, vs)])}
+    for name, (kern, plain) in table.items():
+        r = rows[name]
+        r["ms"], r["plain_ms"] = device_ms(kern), device_ms(plain, reps=3,
+                                                            per_rep=2)
+        r["fns"], r["plain_fns"] = [kern], [plain]
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound(r["nbytes"], r["ops"])
         r["device_ms"] = traced_ms(r.pop("fns"))
         r["plain_device_ms"] = traced_ms(r.pop("plain_fns"))
         if r["device_ms"] is None or r["plain_device_ms"] is None:
             log("kernels", f"{name}: the profiler saw no device events; "
-                           f"device time not measured, event times used")
-            r["device_ms"], r["plain_device_ms"] = r["ms"], r["plain_ms"]
+                           f"device time not measured")
     return rows
 
 
@@ -414,6 +482,10 @@ def run_slice(name: str, train, test):
     for kname in launched:
         if launches[kname] <= 0:
             raise AssertionError(f"{name}: the run never launched {kname}")
+    if "delta_pack" in launched and launches["delta_pack"] != rounds:
+        raise AssertionError(f"{name}: delta_pack launched "
+                             f"{launches['delta_pack']} times in {rounds} "
+                             f"rounds, not once a round")
     if len(trainer.bank) != max(0, rounds - BURN_IN):
         raise AssertionError(f"{name}: bank holds {len(trainer.bank)} samples")
     return trainer, launches
@@ -585,11 +657,12 @@ def main() -> int:
     timing = time_kernels(shapes)
     for kname, r in timing.items():
         log("kernels", f"{kname} per round (10 leaves, K={K}): device "
-                       f"{r['device_ms']:.4f} ms, event-timed {r['ms']:.4f} ms; "
-                       f"plain: device {r['plain_device_ms']:.4f} ms, "
-                       f"event-timed {r['plain_ms']:.4f} ms; bound "
-                       f"{r['bound_ms']:.4f} ms ({r['bound_by']}: "
-                       f"{r['nbytes']:.0f} B, {r['ops']:.0f} ops)")
+                       f"{fmt_ms(r['device_ms'])}, event-timed "
+                       f"{r['ms']:.4f} ms; plain: device "
+                       f"{fmt_ms(r['plain_device_ms'])}, event-timed "
+                       f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+                       f"({r['bound_by']}: {r['nbytes']:.0f} B, "
+                       f"{r['ops']:.0f} ops)")
 
     t0 = time.perf_counter()
     train = make_dataset(K * 50, hw=cfg.input_hw, day=1, seed=0)

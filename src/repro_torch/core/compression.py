@@ -221,22 +221,31 @@ class CompressionPipeline:
             metas.append(meta)
         return carrier, tuple(auxes), tuple(metas)
 
+    def _encode_leaves(self, xs, vs, us):
+        """``(carrier, auxes, metas)`` of every compressed leaf, in order."""
+        return [self._encode_leaf(x, v, u) for x, v, u in zip(xs, vs, us)]
+
     def _encode_impl(self, tree, vtree, uniforms) -> WirePayload:
         leaves = tree_leaves_with_path(tree)
         vleaves = ([x for _, x in tree_leaves_with_path(vtree)]
                    if vtree is not None else [None] * len(leaves))
         stochastic = any(s.stochastic for s in self.stages)
+        packed = [i for i, (_, x) in enumerate(leaves)
+                  if not _rides_dense(x, self.min_dense_size)]
+        encoded = dict(zip(packed, self._encode_leaves(
+            [leaves[i][1] for i in packed], [vleaves[i] for i in packed],
+            [_uniforms_for(uniforms, leaves[i][0]) if stochastic else None
+             for i in packed])))
         entries, specs = [], []
-        for (path, x), v in zip(leaves, vleaves):
+        for i, ((path, x), v) in enumerate(zip(leaves, vleaves)):
             shape = tuple(x.shape[1:])
             dtype = str(x.dtype).replace("torch.", "")
-            if _rides_dense(x, self.min_dense_size):
+            if i not in encoded:
                 wire = x if v is None else x - v.to(x.dtype)
                 entries.append(LeafPayload(wire=wire, aux=()))
                 specs.append(LeafSpec(shape, dtype, True))
                 continue
-            u = _uniforms_for(uniforms, path) if stochastic else None
-            carrier, auxes, metas = self._encode_leaf(x, v, u)
+            carrier, auxes, metas = encoded[i]
             entries.append(LeafPayload(wire=carrier, aux=auxes))
             specs.append(LeafSpec(shape, dtype, False, metas))
         return WirePayload(entries, [p for p, _ in leaves], specs, self.stages)
@@ -273,10 +282,11 @@ class CompressionPipeline:
 @dataclass(frozen=True)
 class FusedCodec(CompressionPipeline):
     """Compress-in-update lowering: ``encode_pair`` runs the delta-pack
-    kernel, so the dense residual never reaches device memory, and a
-    trailing QSGD stage quantizes the packed carrier in the grid_quant
-    kernel. With ``fused=False`` the same object is the two-pass oracle:
-    residual materialized, the pack kernel, then the QSGD codec's own
+    kernel once over every compressed leaf (one launch a table of leaves),
+    so the dense residual never reaches device memory, and a trailing QSGD
+    stage quantizes each packed carrier in the grid_quant kernel. With
+    ``fused=False`` the same object is the two-pass oracle: residual
+    materialized, the pack kernel leaf by leaf, then the QSGD codec's own
     arithmetic. Both give the same payload bit for bit."""
 
     fused: bool = True
@@ -287,18 +297,21 @@ class FusedCodec(CompressionPipeline):
         return cls(stages=pipeline.stages,
                    min_dense_size=pipeline.min_dense_size, fused=fused)
 
-    def _encode_leaf(self, x, v, u):
-        if v is None or not self.fused:
-            return super()._encode_leaf(x, v, u)
+    def _encode_leaves(self, xs, vs, us):
+        if not xs or vs[0] is None or not self.fused:
+            return super()._encode_leaves(xs, vs, us)
         s0, *rest = self.stages          # parse_pipeline: block_topk first
-        vals, idx = kops.fused_delta_pack(x, v, ratio=s0.ratio,
-                                          block_size=s0.block_size)
-        carrier, auxes, metas = vals, [{"idx": idx}], [s0._meta(x, vals)]
-        for stage in rest:               # QSGD, the one stage that follows
-            carrier, aux, meta = _qsgd_encode_kernel(stage, carrier, u)
-            auxes.append(aux)
-            metas.append(meta)
-        return carrier, tuple(auxes), tuple(metas)
+        packed = kops.fused_delta_pack_leaves(xs, vs, ratio=s0.ratio,
+                                              block_size=s0.block_size)
+        out = []
+        for x, u, (vals, idx) in zip(xs, us, packed):
+            carrier, auxes, metas = vals, [{"idx": idx}], [s0._meta(x, vals)]
+            for stage in rest:           # QSGD, the one stage that follows
+                carrier, aux, meta = _qsgd_encode_kernel(stage, carrier, u)
+                auxes.append(aux)
+                metas.append(meta)
+            out.append((carrier, tuple(auxes), tuple(metas)))
+        return out
 
 
 @dataclass(frozen=True)

@@ -31,9 +31,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
 _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+# leaf tables: host arrays of pointers and of sizes
+_PP, _PL = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
-    "repro_pack_topk": [_P, _P, _P, _L, _L, _L, _I, _P],
-    "repro_delta_pack": [_P, _P, _P, _P, _L, _L, _L, _I, _P],
+    "repro_pack_topk": [_PP, _PL, _PL, _PL, _I, _L, _P, _P, _I, _P],
+    "repro_delta_pack": [_PP, _PP, _PL, _PL, _PL, _I, _L, _P, _P, _I, _P],
     "repro_unpack_topk": [_P, _P, _P, _L, _L, _L, _I, _P],
     "repro_fused_update": [_P, _P, _P, _P, _P, _L, _F, _F, _P],
     "repro_block_topk": [_P, _P, _L, _L, _L, _I, _P],

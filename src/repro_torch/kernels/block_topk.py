@@ -8,9 +8,12 @@ be picked as ties, and positions at or past ``n`` are dropped, as the
 reference's wrapper drops them (``ops.py:43-50``).
 
 The plain version shares the selection with pack's (:func:`two_tier_ranks`)
-and keeps ``mask_def | (mask_tie & pos_tie < k)``, the reference's mask. A
-CPU tensor goes to it, a CUDA tensor to the kernel (``csrc/block_topk.cu``)
-or to an exception; ``.launches`` counts the kernel's launches.
+and keeps ``mask_def | (mask_tie & pos_tie < k)``, the reference's mask: a
+block holding a NaN keeps its first ``k`` non-NaN elements and zeroes the
+NaN, and a block with ``k`` or more ±inf keeps every one of them (ROADMAP
+C6). A CPU tensor goes to it, a CUDA tensor to the kernel
+(``csrc/block_topk.cu``) or to an exception; ``.launches`` counts the
+kernel's launches.
 """
 from __future__ import annotations
 

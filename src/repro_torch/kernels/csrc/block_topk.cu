@@ -12,12 +12,14 @@
 // What bounds it on an H100: the function's own bound is bytes, one f32
 // read and one f32 write an element (8 bytes at 3.35 TB/s) against pack's
 // 44 f32 operations an element at 67 TFLOP/s. This design is bound, as
-// pack is, by the popcount issue rate of its 40 bisection passes
-// (pack.cu's note: ~1.0e9 popcounts on fc1.w at K=10).
-// What the simple design does about that: it is pack's warp-per-block tile
-// (pack_tile.cuh: load_block, bisect_block, rank_block, shared, not copied),
-// with a dense epilogue: every lane writes its 32 elements, the survivor's
-// value or 0, as coalesced 128-byte rows.
+// pack is, by the instruction issue of pack_tile.cuh's selection (the
+// 31-pass search for the block's k-th magnitude, then the rank), and on
+// the small leaves by launch latency: it keeps one launch a leaf.
+// What the design does about that: it is pack's warp-per-block tile
+// (pack_tile.cuh: load_block, bisect_block, rank_block, shared, not
+// copied), so it runs the same selection, with a dense epilogue: every
+// lane writes its 32 elements, the survivor's value or 0, as coalesced
+// 128-byte rows.
 #include "pack_tile.cuh"
 
 namespace repro_torch {
@@ -38,10 +40,13 @@ block_topk_kernel(const float* __restrict__ x, float* __restrict__ out,
   float lo, hi;
   bisect_block(d, m, k, lo, hi);
 
+  // the reference keeps every definite survivor (mask_def | ...), which is
+  // more than k only when k or more elements are ±inf (lo = hi = inf);
+  // a NaN is neither definite nor a tie, so it becomes 0 (ROADMAP C6)
   float* orow = out + row * n;
   rank_block(d, lo, hi, k, lane, [&](int j, bool keep, int) {
     const long long e = start + j * 32 + lane;
-    if (e < n) orow[e] = keep ? d[j] : 0.0f;
+    if (e < n) orow[e] = keep || fabsf(d[j]) >= hi ? d[j] : 0.0f;
   });
 }
 

@@ -6,20 +6,22 @@
 //    src/repro/kernels/fused_compress.py:58, body _delta_pack_kernel at
 //    :41-48) and the wrapper's aligned-head / padded-tail split
 //    (kernels/ops.py:141-174). The split is a TPU tiling device (8-row
-//    tiles) and is not carried over: one launch covers every block of every
-//    node of a leaf, and the ragged last block reads its missing elements
-//    as 0, which is what the reference's zero-padded tail tile holds
-//    (θ − v = 0 − 0 there).
+//    tiles) and is not carried over: the ragged last block reads its
+//    missing elements as 0, which is what the reference's zero-padded tail
+//    tile holds (θ − v = 0 − 0 there).
 //    What bounds it on an H100: the function's own bound is two reads of
 //    the leaf (θ and v, 8 bytes an element at 3.35 TB/s, 2.4 ps) against
-//    the 40 compare passes of the bisection (45 f32 operations an element
-//    with the subtraction, 0.67 ps at 67 TFLOP/s) and a wire-sized write.
-//    This design is bound by the popcount issue rate of its 40 passes, as
-//    pack is (see pack.cu). The residual d = θ − v is formed in registers
-//    (__fsub_rn, the reference's f32 subtraction) and never reaches device
-//    memory: that is the kernel's whole point, and the design keeps it by
-//    running the shared register-resident tile (pack_tile.cuh) with
-//    HAS_V = true.
+//    45 f32 operations an element with the subtraction (0.67 ps at
+//    67 TFLOP/s) and a wire-sized write. This design is bound by the
+//    instruction issue of pack_tile.cuh's selection, as pack is (see
+//    pack.cu): the 31-pass search for the block's k-th magnitude, then the
+//    rank's ballots and popcounts.
+//    What the design does about that: the residual d = θ − v is formed in
+//    registers (__fsub_rn, the reference's f32 subtraction) and never
+//    reaches device memory, which is the kernel's whole point; the shared
+//    register-resident tile runs with HAS_V = true. The round encodes every
+//    packed leaf with one launch over a table of the leaves (the codec's
+//    one call a round), so the small leaves' blocks run beside fc1.w's.
 //
 // 2. grid_quant: QSGD stochastic rounding of the packed (rows, nb·k)
 //    carrier onto the signed integer grid, sign(x)·q as int8, each row
@@ -59,12 +61,16 @@ grid_quant_kernel(const float* __restrict__ x, const float* __restrict__ u,
 
 }  // namespace repro_torch
 
-extern "C" int repro_delta_pack(const float* theta, const float* v,
-                                float* vals, uint16_t* idx, long long rows,
-                                long long n, long long nb, int k,
-                                void* stream) {
-  return repro_torch::launch_pack<true>(theta, v, vals, idx, rows, n, nb, k,
-                                        stream);
+// One launch packs θ − v of `count` <= kMaxLeaves leaves of `rows` rows
+// each: leaf l is thetas[l] and vs[l], (rows, ns[l]) with nbs[l] blocks a
+// row, and its payload starts at element outs[l] of vals and idx.
+extern "C" int repro_delta_pack(const float* const* thetas,
+                                const float* const* vs, const long long* ns,
+                                const long long* nbs, const long long* outs,
+                                int count, long long rows, float* vals,
+                                uint16_t* idx, int k, void* stream) {
+  return repro_torch::launch_pack<true>(thetas, vs, ns, nbs, outs, count,
+                                        rows, vals, idx, k, stream);
 }
 
 extern "C" int repro_grid_quant(const float* x, const float* u,

@@ -1,19 +1,39 @@
 // Block-top-k selection of one 1024-element block per warp, shared by
 // pack.cu (pack_topk, HAS_V = false), fused_compress.cu (delta_pack,
-// HAS_V = true) and block_topk.cu (the dense masked output). It is the CUDA
-// form of the reference's tile body (src/repro/kernels/pack.py:39-80,
-// _pack_tile): the same 40-step f32 threshold bisection and the same
+// HAS_V = true) and block_topk.cu (the dense masked output). It gives the
+// reference's tile body (src/repro/kernels/pack.py:39-80, _pack_tile)
+// exactly: the 40-step f32 threshold bisection's lo and hi, then the
 // two-tier rank (definite survivors first, then ties at the threshold in
-// index order), so pack and delta-pack select and order survivors exactly
-// as the reference does. block_topk_pallas (src/repro/kernels/
-// block_topk.py:28-51) runs the same bisection and tie rule, so the dense
-// kernel keeps exactly the elements that pack packs.
+// index order). block_topk_pallas (src/repro/kernels/block_topk.py:28-51)
+// runs the same bisection and tie rule.
+//
+// The selection. Every decision of the reference's bisection is
+// count(|d| >= mid) >= k, which holds exactly when v_k >= mid, v_k being
+// the block's k-th largest magnitude counted with multiplicity. So the 40
+// steps depend only on the block's maximum m and on v_k, and bisect_block
+// finds them in two steps:
+//   (a) v_k exactly, by an MSB-first search on its bits (non-negative
+//       floats order as their bit patterns): at most 31 passes of 32
+//       register compares and adds a lane plus one __reduce_add_sync, with
+//       no ballots and no popcounts (Hopper retires 16 popcounts per SM per
+//       clock, a quarter of its compare rate), stopping early once exactly
+//       k magnitudes reach the candidate;
+//   (b) the 40 steps replayed in scalar registers from m and v_k, with the
+//       reference's f32 arithmetic, identical in every lane.
+// The survivor set and slot order still come from lo and hi through the
+// two-tier rank, one pass of two ballots a row, so a radix select's
+// different choice inside the final bracket never arises. What bounds the
+// tile is instruction issue: ~70 warp instructions a pass of (a), and the
+// rank's ~160 popcounts a lane.
+//
+// Non-finite blocks follow the reference (ROADMAP C6): m propagates NaN as
+// jnp.max does, so a block holding a NaN ends at lo = 0, hi = NaN and keeps
+// its first k non-NaN elements; ±inf take part as magnitudes.
 //
 // Layout: lane l of a warp holds elements j*32 + l (j = 0..31) of its block
 // in registers, so every load is one coalesced 128-byte row and element
-// order is (j, lane). A count over the block is 32 ballots + popcounts; the
-// rank of an element is a prefix popcount of its ballot row plus a running
-// total that every lane holds.
+// order is (j, lane). The rank of an element is a prefix popcount of its
+// ballot row plus a running total that every lane holds.
 #pragma once
 
 #include <cstdint>
@@ -25,17 +45,32 @@ constexpr int kBlock = 1024;            // elements per top-k block
 constexpr int kPerLane = kBlock / 32;   // values a lane keeps in registers
 constexpr int kBisectIters = 40;        // pack.py: BISECT_ITERS
 constexpr int kWarpsPerCta = 8;
+constexpr int kMaxLeaves = 32;          // pack.py: MAX_TABLE_LEAVES
 constexpr unsigned kFull = 0xffffffffu;
 
 // The steps of one warp's block, shared by the packed kernel below and the
 // dense kernel of block_topk.cu. Lane l of the warp holds elements
 // j*32 + l of the block in d[j].
 
+// false for ±inf and NaN
+__device__ __forceinline__ bool is_finite(float a) {
+  return fabsf(a) <= 3.40282347e38f;
+}
+
+// max that keeps a NaN, as jnp.max does (fmaxf drops it): one
+// instruction, PTX's max.NaN
+__device__ __forceinline__ float max_keep_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // Load the block that starts at element `start` of a row (d = x − v when
 // HAS_V: the residual is formed here and lives only in registers, which is
 // fused_compress.py's point). Elements at or past n read as 0, as the
 // reference's zero padding of the ragged last block: such zeros can be
-// picked as ties. Returns the block's largest magnitude.
+// picked as ties. Returns the block's largest magnitude, NaN if it holds
+// one.
 template <bool HAS_V>
 __device__ __forceinline__ float load_block(const float* __restrict__ xr,
                                             const float* __restrict__ vr,
@@ -51,29 +86,64 @@ __device__ __forceinline__ float load_block(const float* __restrict__ xr,
       if (HAS_V) t = __fsub_rn(t, vr[e]);
     }
     d[j] = t;
-    m = fmaxf(m, fabsf(t));
+    m = max_keep_nan(m, fabsf(t));
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
+    m = max_keep_nan(m, __shfl_xor_sync(kFull, m, off));
   return m;
 }
 
-// The 40-step f32 threshold bisection; on return count(|d| >= lo) >= k and
-// count(|d| >= hi) < k.
+// (a) v_k, the k-th largest of the block's 1,024 magnitudes. Bit b of v_k
+// is set exactly when at least k magnitudes are >= (the bits found so far
+// with bit b set); candidates past +inf's bits are NaN and count nothing,
+// and a NaN magnitude is never counted (NaN >= c is false). A lane counts
+// its 32 compares as four partial sums of 1.0s and 0.0s (exact small
+// integers): a compare that writes the float (FSET) and an add on the FMA
+// pipe, in four independent chains. When exactly k magnitudes reach a
+// candidate, they are the k largest, and v_k is their least: the search
+// stops there, well before the 31st pass on continuous data (ties at v_k
+// run all 31).
+__device__ __forceinline__ float kth_magnitude(const float (&d)[kPerLane],
+                                               int k) {
+  unsigned bits = 0u;
+#pragma unroll 1
+  for (int b = 30; b >= 0; --b) {
+    const unsigned cand = bits | (1u << b);
+    const float c = __uint_as_float(cand);
+    float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j)
+      part[j & 3] = __fadd_rn(part[j & 3], fabsf(d[j]) >= c ? 1.0f : 0.0f);
+    const float mine = __fadd_rn(__fadd_rn(part[0], part[1]),
+                                 __fadd_rn(part[2], part[3]));
+    const int count = (int)__reduce_add_sync(kFull, (unsigned)mine);
+    if (count < k) continue;
+    bits = cand;
+    if (count == k) {
+      float least = __uint_as_float(0x7f800000u);           // +inf
+#pragma unroll
+      for (int j = 0; j < kPerLane; ++j)
+        if (fabsf(d[j]) >= c) least = fminf(least, fabsf(d[j]));
+      return __uint_as_float(__reduce_min_sync(kFull, __float_as_uint(least)));
+    }
+  }
+  return __uint_as_float(bits);
+}
+
+// (b) The reference's 40-step bisection, replayed: count(|d| >= mid) >= k
+// is v_k >= mid. On return count(|d| >= lo) >= k and count(|d| >= hi) < k,
+// as the reference's invariants say, for every finite block.
 __device__ __forceinline__ void bisect_block(const float (&d)[kPerLane],
                                              float m, int k, float& lo,
                                              float& hi) {
+  const float vk = kth_magnitude(d, k);
   lo = 0.0f;
   hi = __fadd_rn(m, 1.0f);
-#pragma unroll 1
+#pragma unroll
   for (int it = 0; it < kBisectIters; ++it) {
     const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
-    int cnt = 0;
-#pragma unroll
-    for (int j = 0; j < kPerLane; ++j)
-      cnt += __popc(__ballot_sync(kFull, fabsf(d[j]) >= mid));
-    if (cnt >= k) lo = mid; else hi = mid;
+    if (vk >= mid) lo = mid; else hi = mid;
   }
 }
 
@@ -108,54 +178,108 @@ __device__ __forceinline__ void rank_block(const float (&d)[kPerLane],
   }
 }
 
-// x (and v) are (rows, n) row-major; vals and idx are (rows, nb, k). Warp w
-// packs block w % nb of row w / nb. Padding zeros picked as ties put their
-// block-local indices in the payload, as the reference's do.
+// A table of node-stacked leaves packed by one launch. Leaf l is a
+// (rows, n) row-major operand (x, and v when HAS_V) cut into nb blocks a
+// row; its blocks are the launch's warps begin .. begin + rows·nb − 1,
+// and its payload, (rows, nb, k) values and indices, starts at element
+// `out` of the output arrays. Passed by value as a kernel parameter
+// (__grid_constant__: read in place from the parameter bank, never
+// copied).
+struct PackLeaf {
+  const float* x;
+  const float* v;
+  long long n, nb, begin, out;
+};
+
+struct PackTable {
+  PackLeaf leaf[kMaxLeaves];
+  long long total;                                // Σ rows·nb
+  int count;
+};
+
+// the NaN the port writes: torch's float('nan')
+__device__ __forceinline__ float quiet_nan() {
+  return __int_as_float(0x7fc00000);
+}
+
+// Warp w packs block w of the table: leaf l with begin_l <= w <
+// begin_{l+1}, row (w − begin_l) / nb, block (w − begin_l) % nb. Padding
+// zeros picked as ties put their block-local indices in the payload, as
+// the reference's do.
+//
+// Values follow the reference's one-hot contraction (pack.py:78), which
+// computes slot s as 0 + Σ_b x[b]·[slot(b) == s]: a -0.0 survivor comes
+// out +0.0, and since 0·inf and 0·NaN are NaN, every slot of a block with
+// a non-finite element is NaN except the slot of a lone ±inf, which keeps
+// it (ROADMAP C6). A block holding a NaN may keep fewer than k elements;
+// its empty slots are NaN at index 0, the contraction's zero index.
 template <bool HAS_V>
 __global__ void __launch_bounds__(kWarpsPerCta * 32)
-pack_kernel(const float* __restrict__ x, const float* __restrict__ v,
-            float* __restrict__ vals, uint16_t* __restrict__ idx,
-            long long rows, long long n, long long nb, int k) {
+pack_kernel(const __grid_constant__ PackTable table, float* __restrict__ vals,
+            uint16_t* __restrict__ idx, int k) {
   const int lane = threadIdx.x & 31;
   const long long warp =
       (long long)blockIdx.x * kWarpsPerCta + (threadIdx.x >> 5);
-  if (warp >= rows * nb) return;                  // uniform within a warp
-  const long long row = warp / nb;
-  const long long start = (warp - row * nb) * kBlock;
+  if (warp >= table.total) return;                // uniform within a warp
+  int l = 0;
+  while (l + 1 < table.count && warp >= table.leaf[l + 1].begin) ++l;
+  const PackLeaf& leaf = table.leaf[l];
+  const long long local = warp - leaf.begin;
+  const long long row = local / leaf.nb;
+  const long long start = (local - row * leaf.nb) * kBlock;
 
   float d[kPerLane];
-  const float m = load_block<HAS_V>(x + row * n, HAS_V ? v + row * n : nullptr,
-                                    start, n, lane, d);
+  const float m = load_block<HAS_V>(leaf.x + row * leaf.n,
+                                    HAS_V ? leaf.v + row * leaf.n : nullptr,
+                                    start, leaf.n, lane, d);
   float lo, hi;
   bisect_block(d, m, k, lo, hi);
 
-  float* vrow = vals + warp * k;
-  uint16_t* irow = idx + warp * k;
-  // every slot is filled unless the block holds a NaN; zero them first so
-  // the output is defined either way, as the reference's one-hot sum is
-  for (int s = lane; s < k; s += 32) {
-    vrow[s] = 0.0f;
-    irow[s] = 0;
+  float* vrow = vals + leaf.out + local * k;
+  uint16_t* irow = idx + leaf.out + local * k;
+  int bad = 0;                                    // non-finite elements
+  if (!is_finite(m)) {                             // uniform within a warp
+    unsigned cnt = 0;
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) cnt += !is_finite(d[j]);
+    bad = (int)__reduce_add_sync(kFull, cnt);
+    for (int s = lane; s < k; s += 32) {
+      vrow[s] = quiet_nan();
+      irow[s] = 0;
+    }
+    __syncwarp();
   }
-  __syncwarp();
   rank_block(d, lo, hi, k, lane, [&](int j, bool keep, int pos) {
     if (keep) {
-      vrow[pos] = d[j];
+      vrow[pos] = bad > (int)!is_finite(d[j]) ? quiet_nan()
+                                             : __fadd_rn(d[j], 0.0f);
       irow[pos] = (uint16_t)(j * 32 + lane);
     }
   });
 }
 
+// Fill a table from the host arrays of `count` <= kMaxLeaves leaves and
+// launch once; leaf l's payload goes to vals and idx from element outs[l].
 template <bool HAS_V>
-inline int launch_pack(const float* x, const float* v, float* vals,
-                       uint16_t* idx, long long rows, long long n,
-                       long long nb, int k, void* stream) {
-  const long long warps = rows * nb;
-  if (warps > 0) {
-    const long long ctas = (warps + kWarpsPerCta - 1) / kWarpsPerCta;
+inline int launch_pack(const float* const* xs, const float* const* vs,
+                       const long long* ns, const long long* nbs,
+                       const long long* outs, int count, long long rows,
+                       float* vals, uint16_t* idx, int k, void* stream) {
+  if (count < 1 || count > kMaxLeaves || rows < 0)
+    return (int)cudaErrorInvalidValue;
+  PackTable table{};
+  long long total = 0;
+  for (int l = 0; l < count; ++l) {
+    table.leaf[l] = PackLeaf{xs[l], HAS_V ? vs[l] : nullptr, ns[l], nbs[l],
+                             total, outs[l]};
+    total += rows * nbs[l];
+  }
+  table.total = total;
+  table.count = count;
+  if (total > 0) {
+    const long long ctas = (total + kWarpsPerCta - 1) / kWarpsPerCta;
     pack_kernel<HAS_V><<<(unsigned)ctas, kWarpsPerCta * 32, 0,
-                         (cudaStream_t)stream>>>(x, v, vals, idx, rows, n,
-                                                 nb, k);
+                         (cudaStream_t)stream>>>(table, vals, idx, k);
   }
   return (int)cudaGetLastError();
 }

@@ -2,10 +2,13 @@
 encode (``repro/kernels/fused_compress.py``), both in
 ``csrc/fused_compress.cu``.
 
-``delta_pack(theta, v)`` is ``pack_topk(theta - v)`` without writing the
-residual: the CUDA kernel forms ``d = theta - v`` in registers and runs the
-pack tile on it. The plain version forms the same f32 residual and runs the
-same plain tile, so the two paths agree bit for bit.
+``delta_pack(thetas, vs)`` is ``pack_topk`` of every ``theta - v`` of two
+lists of leaves without writing the residuals: the CUDA kernel forms
+``d = theta - v`` in registers and runs the pack tile on it, one launch a
+table of up to ``MAX_TABLE_LEAVES`` leaves (the round's codec encodes all
+its packed leaves with one call). The plain version forms the same f32
+residual and runs the same plain tile, leaf by leaf, so the two paths agree
+bit for bit.
 
 ``grid_quant(x, u, norm, levels)`` rounds the packed ``(rows, nb·k)``
 carrier onto the signed QSGD grid, ``sign(x)·q`` as int8, with each row's
@@ -17,8 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._build import check, library, on_card, stream_of
-from repro_torch.kernels.pack import (check_kernel_shape, empty_payload,
-                                      pack_topk_plain)
+from repro_torch.kernels.pack import pack_table, pack_topk_plain
 from repro_torch.kernels.qsgd import qsgd_levels_plain
 
 
@@ -27,24 +29,21 @@ def delta_pack_plain(theta: torch.Tensor, v: torch.Tensor, k: int,
     return pack_topk_plain(theta - v.to(theta.dtype), k, block_size)
 
 
-def delta_pack(theta: torch.Tensor, v: torch.Tensor, k: int,
-               block_size: int = 1024):
-    """(theta, v) as (rows, n) f32 -> (vals (rows, nb, k), idx uint16)."""
-    if not on_card("delta_pack", [(theta, torch.float32), (v, torch.float32)]):
-        return delta_pack_plain(theta, v, k, block_size)
-    check_kernel_shape("delta_pack", k, block_size)
-    if theta.shape != v.shape:
-        raise ValueError(f"delta_pack: theta {tuple(theta.shape)} vs v "
-                         f"{tuple(v.shape)}")
-    vals, idx = empty_payload(theta, k, block_size)
-    rows, n = theta.shape
-    with torch.cuda.device(theta.device):
-        rc = library().repro_delta_pack(
-            theta.data_ptr(), v.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-            rows, n, vals.shape[1], k, stream_of(theta))
-    check(rc, "delta_pack")
-    delta_pack.launches += 1
-    return vals, idx
+def delta_pack(thetas, vs, k: int, block_size: int = 1024):
+    """Lists of ``(rows, n)`` f32 leaves theta and v -> a list of ``(vals
+    (rows, nb, k), idx uint16)``, one per leaf."""
+    if isinstance(thetas, torch.Tensor) or isinstance(vs, torch.Tensor):
+        raise TypeError("delta_pack takes lists of leaves")
+    if len(vs) != len(thetas):
+        raise ValueError(f"delta_pack: {len(thetas)} thetas, {len(vs)} vs")
+    if not thetas:
+        return []
+    if not on_card("delta_pack", [(t, torch.float32) for t in thetas]
+                   + [(v, torch.float32) for v in vs]):
+        return [delta_pack_plain(t, v, k, block_size)
+                for t, v in zip(thetas, vs)]
+    return pack_table(delta_pack, library().repro_delta_pack, [thetas, vs],
+                      k, block_size)
 
 
 delta_pack.launches = 0

@@ -38,15 +38,24 @@ def block_topk_pack(x: torch.Tensor, ratio: float = 0.01,
                     block_size: int = 1024):
     """(K, *shape) -> (vals (K, nb, k) f32, idx (K, nb, k) uint16)."""
     assert block_size <= 65536, "uint16 block-local indices"
-    return pack_topk(_rows(x), survivors_per_block(ratio, block_size),
-                     block_size)
+    return pack_topk([_rows(x)], survivors_per_block(ratio, block_size),
+                     block_size)[0]
 
 
 def fused_delta_pack(theta: torch.Tensor, v: torch.Tensor, ratio: float = 0.01,
                      block_size: int = 1024):
     """``block_topk_pack(theta - v)`` without writing the residual."""
+    return fused_delta_pack_leaves([theta], [v], ratio, block_size)[0]
+
+
+def fused_delta_pack_leaves(thetas, vs, ratio: float = 0.01,
+                            block_size: int = 1024):
+    """:func:`fused_delta_pack` of every ``(K, *shape)`` leaf of two lists,
+    in one launch a table of up to ``MAX_TABLE_LEAVES`` leaves; each
+    leaf's ``(vals, idx)`` is a view of one allocation."""
     assert block_size <= 65536, "uint16 block-local indices"
-    return delta_pack(_rows(theta), _rows(v.to(theta.dtype)),
+    return delta_pack([_rows(t) for t in thetas],
+                      [_rows(v.to(t.dtype)) for t, v in zip(thetas, vs)],
                       survivors_per_block(ratio, block_size), block_size)
 
 

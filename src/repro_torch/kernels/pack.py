@@ -3,16 +3,20 @@
 Each leaf is handled as a ``(rows, n)`` tensor, one row per node, cut into
 ``nb = ceil(n / block_size)`` blocks; the ragged last block is padded with
 zeros. Pack keeps ``k`` survivors per block as ``(rows, nb, k)`` f32 values
-and uint16 block-local indices; unpack scatters them back.
+and uint16 block-local indices; unpack scatters them back. Pack takes a
+list of leaves with the same ``rows`` and packs them with one launch a
+table of up to ``MAX_TABLE_LEAVES``; a single leaf is a table of one.
 
 Beside each kernel wrapper is its plain PyTorch version, which transcribes
 the reference's arithmetic (``_pack_tile``: 40-step bisection, definite and
-tie masks, cumulative-sum ranks). A CPU tensor goes to the plain version, a
-CUDA tensor to the kernel (``csrc/pack.cu``) or to an exception. Each
-wrapper counts its kernel launches in ``.launches``.
+tie masks, cumulative-sum ranks, and the one-hot contraction's values,
+ROADMAP C6). A CPU tensor goes to the plain version, a CUDA tensor to the
+kernel (``csrc/pack.cu``) or to an exception. Each wrapper counts its
+kernel launches in ``.launches``.
 """
 from __future__ import annotations
 
+import ctypes
 import torch
 import torch.nn.functional as F
 
@@ -20,10 +24,26 @@ from repro_torch.kernels._build import check, library, on_card, stream_of
 
 BISECT_ITERS = 40
 KERNEL_BLOCK = 1024          # the CUDA kernels hold one block per warp
+MAX_TABLE_LEAVES = 32        # csrc/pack_tile.cuh: kMaxLeaves
+PAYLOAD_ALIGN = 128          # elements: 512 bytes of f32, 256 of uint16
+NAN = float("nan")           # the NaN the kernels write (0x7fc00000)
 
 
 def num_blocks(n: int, block_size: int) -> int:
     return max(1, -(-n // block_size))
+
+
+def bisection_bounds(mag: torch.Tensor, k: int):
+    """The reference's 40-step f32 threshold bisection on ``(rows, bs)``
+    magnitudes: ``(lo, hi)``, each ``(rows, 1)``. A row holding a NaN ends
+    at ``lo = 0, hi = NaN``: ``amax`` propagates NaN as ``jnp.max`` does."""
+    hi = mag.amax(dim=1, keepdim=True) + 1.0         # count(mag >= hi) < k
+    lo = torch.zeros_like(hi)                        # count(mag >= lo) >= k
+    for _ in range(BISECT_ITERS):
+        mid = 0.5 * (lo + hi)
+        pred = (mag >= mid).sum(dim=1, keepdim=True) >= k
+        lo, hi = torch.where(pred, mid, lo), torch.where(pred, hi, mid)
+    return lo, hi
 
 
 def two_tier_ranks(x2d: torch.Tensor, k: int):
@@ -31,12 +51,7 @@ def two_tier_ranks(x2d: torch.Tensor, k: int):
     bisection, then the two-tier rank), shared with the dense block top-k:
     the definite and tie masks and each element's rank within its tier."""
     mag = x2d.abs()
-    hi = mag.amax(dim=1, keepdim=True) + 1.0         # count(mag >= hi) < k
-    lo = torch.zeros_like(hi)                        # count(mag >= lo) >= k
-    for _ in range(BISECT_ITERS):
-        mid = 0.5 * (lo + hi)
-        pred = (mag >= mid).sum(dim=1, keepdim=True) >= k
-        lo, hi = torch.where(pred, mid, lo), torch.where(pred, hi, mid)
+    lo, hi = bisection_bounds(mag, k)
     # two-tier rank: definite survivors first, then ties in index order
     mask_def = mag >= hi
     mask_tie = (mag >= lo) & ~mask_def
@@ -57,6 +72,11 @@ def pack_tile_plain(x2d: torch.Tensor, k: int):
     vals = x2d.new_zeros((rows, k + 1)).scatter_(1, slot, x2d)[:, :k]
     idx = torch.zeros((rows, k + 1), dtype=torch.int64, device=x2d.device)
     idx = idx.scatter_(1, slot, cols)[:, :k]
+    # the reference's one-hot contraction, 0 + sum_b x[b]·[slot(b) == s]:
+    # -0.0 comes out +0.0, and 0·inf, 0·NaN make every slot of a block with
+    # a non-finite element NaN but the slot of a lone ±inf (ROADMAP C6)
+    bad = (~torch.isfinite(x2d)).sum(dim=1, keepdim=True)
+    vals = torch.where(bad > (~torch.isfinite(vals)).long(), NAN, vals + 0.0)
     return vals, idx
 
 
@@ -84,13 +104,6 @@ def pack_topk_plain(x: torch.Tensor, k: int, block_size: int = 1024):
     return vals.reshape(rows, nb, k), to_uint16(idx).reshape(rows, nb, k)
 
 
-def empty_payload(x: torch.Tensor, k: int, block_size: int):
-    rows, n = x.shape
-    shape = (rows, num_blocks(n, block_size), k)
-    return (torch.empty(shape, dtype=torch.float32, device=x.device),
-            torch.empty(shape, dtype=torch.uint16, device=x.device))
-
-
 def check_kernel_shape(kernel: str, k: int, block_size: int) -> None:
     if block_size != KERNEL_BLOCK or not 1 <= k <= block_size:
         raise ValueError(f"{kernel}: the CUDA kernel takes block_size="
@@ -98,20 +111,68 @@ def check_kernel_shape(kernel: str, k: int, block_size: int) -> None:
                          f"block_size={block_size}, k={k}")
 
 
-def pack_topk(x: torch.Tensor, k: int, block_size: int = 1024):
-    """(rows, n) f32 -> (vals (rows, nb, k) f32, idx (rows, nb, k) uint16)."""
-    if not on_card("pack_topk", [(x, torch.float32)]):
-        return pack_topk_plain(x, k, block_size)
-    check_kernel_shape("pack_topk", k, block_size)
-    vals, idx = empty_payload(x, k, block_size)
-    rows, n = x.shape
-    with torch.cuda.device(x.device):
-        rc = library().repro_pack_topk(
-            x.data_ptr(), vals.data_ptr(), idx.data_ptr(), rows, n,
-            vals.shape[1], k, stream_of(x))
-    check(rc, "pack_topk")
-    pack_topk.launches += 1
-    return vals, idx
+def c_array(ctype, values):
+    return (ctype * len(values))(*values)
+
+
+def pack_table(wrapper, entry, operands, k: int, block_size: int):
+    """Launch a pack kernel over leaf tables: ``operands`` is ``[xs]`` or
+    ``[thetas, vs]``, lists of ``(rows, n)`` CUDA tensors with the same
+    ``rows``. One launch packs up to ``MAX_TABLE_LEAVES`` leaves into one
+    allocation, leaf after leaf; returns each leaf's ``(vals, idx)``
+    ``(rows, nb, k)`` views of it. Each leaf's payload starts
+    ``PAYLOAD_ALIGN``-aligned, as an allocation of its own would: torch's
+    reductions (the QSGD norm of a packed carrier) sum a misaligned view in
+    another order."""
+    name = wrapper.__name__
+    check_kernel_shape(name, k, block_size)
+    leaves = operands[0]
+    rows = leaves[0].shape[0]
+    for i, x in enumerate(leaves):
+        if x.dim() != 2 or x.shape[0] != rows or \
+                any(op[i].shape != x.shape for op in operands):
+            raise ValueError(f"{name}: leaf {i} has shapes "
+                             f"{[tuple(op[i].shape) for op in operands]}; "
+                             f"every leaf must be (rows={rows}, n)")
+    nbs = [num_blocks(x.shape[1], block_size) for x in leaves]
+    outs, end = [], 0
+    for nb in nbs:
+        outs.append(-(-end // PAYLOAD_ALIGN) * PAYLOAD_ALIGN)
+        end = outs[-1] + rows * nb * k
+    dev = leaves[0].device
+    vals = torch.empty(end, dtype=torch.float32, device=dev)
+    idx = torch.empty(end, dtype=torch.uint16, device=dev)
+    if rows:
+        with torch.cuda.device(dev):
+            for c in range(0, len(leaves), MAX_TABLE_LEAVES):
+                part = slice(c, c + MAX_TABLE_LEAVES)
+                rc = entry(*(c_array(ctypes.c_void_p,
+                                     [t.data_ptr() for t in op[part]])
+                             for op in operands),
+                           c_array(ctypes.c_longlong,
+                                   [x.shape[1] for x in leaves[part]]),
+                           c_array(ctypes.c_longlong, nbs[part]),
+                           c_array(ctypes.c_longlong, outs[part]),
+                           len(leaves[part]), rows, vals.data_ptr(),
+                           idx.data_ptr(), k, stream_of(leaves[0]))
+                check(rc, name)
+                wrapper.launches += 1
+    return [(vals[o:o + rows * nb * k].view(rows, nb, k),
+             idx[o:o + rows * nb * k].view(rows, nb, k))
+            for nb, o in zip(nbs, outs)]
+
+
+def pack_topk(xs, k: int, block_size: int = 1024):
+    """A list of ``(rows, n)`` f32 leaves -> a list of ``(vals (rows, nb, k)
+    f32, idx (rows, nb, k) uint16)``, one per leaf."""
+    if isinstance(xs, torch.Tensor):
+        raise TypeError("pack_topk takes a list of leaves")
+    if not xs:
+        return []
+    if not on_card("pack_topk", [(x, torch.float32) for x in xs]):
+        return [pack_topk_plain(x, k, block_size) for x in xs]
+    return pack_table(pack_topk, library().repro_pack_topk, [xs], k,
+                      block_size)
 
 
 pack_topk.launches = 0
@@ -120,9 +181,16 @@ pack_topk.launches = 0
 def unpack_topk_plain(vals: torch.Tensor, idx: torch.Tensor, n: int,
                       block_size: int = 1024) -> torch.Tensor:
     rows, nb, k = vals.shape
-    dense = vals.new_zeros((rows * nb, block_size))
-    dense.scatter_(1, from_uint16(idx).reshape(rows * nb, k),
-                   vals.reshape(rows * nb, k))
+    v = vals.reshape(rows * nb, k)
+    i = from_uint16(idx).reshape(rows * nb, k)
+    dense = vals.new_zeros((rows * nb, block_size)).scatter_(1, i, v + 0.0)
+    # the reference's one-hot contraction, 0 + sum_s vals[s]·[idx[s] == b]:
+    # 0·inf and 0·NaN make a block whose values hold a non-finite NaN
+    # everywhere but at the index of a lone non-finite value (ROADMAP C6)
+    bad = ~torch.isfinite(v)
+    here = torch.zeros_like(dense, dtype=torch.int64).scatter_add_(
+        1, i, bad.long())
+    dense = torch.where(bad.sum(dim=1, keepdim=True) > here, NAN, dense)
     return dense.reshape(rows, nb * block_size)[:, :n].contiguous()
 
 

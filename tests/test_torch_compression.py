@@ -355,3 +355,52 @@ def test_legacy_min_dense_size_leaves_pass_through(trees):
                                            min_dense_size=200))
     assert comp.wire_bytes(one) == ref.wire_bytes(
         jax.tree.map(lambda x: x[0], trees[0]))
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("pipe,min_dense", [("block_topk", 0),
+                                            ("block_topk", 200),
+                                            (PIPE, 0), (PIPE, 200)])
+def test_fused_encode_packs_every_leaf_in_one_call(trees, monkeypatch, pipe,
+                                                   min_dense):
+    """``FusedCodec(fused=True)`` hands every compressed leaf to one
+    ``fused_delta_pack_leaves`` call (the leaves that ride dense stay out
+    of it), and its payload equals the per-leaf two-pass oracle's bit for
+    bit and the reference's fused encode (the QSGD grid within the norm's
+    tolerance, as in test_qsgd_pipeline_encode_matches_reference)."""
+    from repro_torch.kernels import ops as kops
+    calls = []
+    one_call = kops.fused_delta_pack_leaves
+    monkeypatch.setattr(kops, "fused_delta_pack_leaves", lambda t, v, **kw: (
+        calls.append(len(t)) or one_call(t, v, **kw)))
+    theta, v = trees
+    key = jax.random.PRNGKey(5)
+    ref = JaxFusedCodec.wrap(parse_pipeline(pipe, min_dense_size=min_dense))
+    want = jax.vmap(ref.encode_pair)(theta, v, _node_keys(key))
+    uniforms = (_torch_uniforms(reference_uniforms("pipeline", theta, key))
+                if pipe == PIPE else None)
+    stages = (BlockTopKCodec(),) + ((QSGDCodec(),) if pipe == PIPE else ())
+    got, oracle = (FusedCodec.wrap(
+        CompressionPipeline(stages, min_dense_size=min_dense), fused=fused
+    ).encode_pair(_torch_tree(theta), _torch_tree(v), uniforms)
+        for fused in (True, False))
+
+    packed = [not s.passthrough for s in got.specs]
+    assert calls == [sum(packed)] and (min_dense > 0) == (not all(packed))
+    assert got.measured_bytes() == want.measured_bytes()
+    for g, o, w, is_packed in zip(got.entries, oracle.entries, want.entries,
+                                  packed):
+        assert torch.equal(_bits(g.wire), _bits(o.wire))
+        if not is_packed:
+            continue
+        assert torch.equal(g.aux[0]["idx"], o.aux[0]["idx"])
+        np.testing.assert_array_equal(g.aux[0]["idx"].numpy(),
+                                      np.asarray(w.aux[0]["idx"]))
+        if pipe == PIPE:
+            assert_grid_close(g.wire.numpy(), np.asarray(w.wire), 1.0)
+        else:
+            np.testing.assert_array_equal(_bits(g.wire).numpy(),
+                                          np.asarray(w.wire).view(np.int32))

@@ -37,10 +37,10 @@ def test_kernels_match_plain_versions(card, n):
     theta = torch.randn((4, n), generator=gen, device=card)
     v = torch.randn((4, n), generator=gen, device=card) * 0.1
     kernels.reset_launch_counts()
-    vals, idx = kernels.pack_topk(theta, 11)
+    vals, idx = kernels.pack_topk([theta], 11)[0]
     want = pack_topk_plain(theta, 11)
     assert _same_bits(vals, want[0]) and _same_bits(idx, want[1])
-    dvals, didx = kernels.delta_pack(theta, v, 11)
+    dvals, didx = kernels.delta_pack([theta], [v], 11)[0]
     dwant = delta_pack_plain(theta, v, 11)
     assert _same_bits(dvals, dwant[0]) and _same_bits(didx, dwant[1])
     dense = kernels.unpack_topk(dvals, didx, n)
@@ -68,7 +68,7 @@ def test_qsgd_and_dense_kernels_match_plain_versions(card, n):
     assert _same_bits(kernels.block_topk(x, 11), block_topk_plain(x, 11))
     assert _same_bits(kernels.qsgd(x, u, norm, 16, recip),
                       qsgd_plain(x, u, norm, 16, recip))
-    carrier = kernels.pack_topk(x, 11)[0].reshape(4, -1)
+    carrier = kernels.pack_topk([x], 11)[0][0].reshape(4, -1)
     uc = torch.rand(carrier.shape, generator=gen, device=card)
     nc = row_norm(carrier)
     assert _same_bits(kernels.grid_quant(carrier, uc, nc, 16),
@@ -82,7 +82,7 @@ def test_qsgd_and_dense_kernels_match_plain_versions(card, n):
 def test_ties_and_zeros(card):
     ties = torch.randint(-3, 4, (3, 5000), device=card).float()
     for x in (ties, torch.zeros_like(ties)):
-        vals, idx = kernels.pack_topk(x, 11)
+        vals, idx = kernels.pack_topk([x], 11)[0]
         want = pack_topk_plain(x, 11)
         assert _same_bits(vals, want[0]) and _same_bits(idx, want[1])
         assert _same_bits(kernels.block_topk(x, 11), block_topk_plain(x, 11))
@@ -100,3 +100,72 @@ def test_misaligned_fused_update(card):
     out = kernels.fused_update(a, b, c, d, 0.03, 0.5)
     assert _same_bits(out, fused_update_plain(a, b, c, d, 0.03, 0.5))
     np.testing.assert_array_equal(out.isfinite().cpu().numpy(), True)
+
+
+def _nonfinite(card, kind):
+    """(3, 4097) leaves with NaN or ±inf blocks (ROADMAP C6's cases)."""
+    x = torch.randn((3, 4097), generator=torch.Generator(device=card)
+                    .manual_seed(7), device=card)
+    if kind == "nan":
+        x[0, 5] = float("nan")
+        x[0, 1024:2048] = float("nan")
+        x[0, 1030:1080:10] = 1.5
+        x[1, 2048::3] = float("nan")
+        x[2, 100], x[2, 200] = float("nan"), float("inf")
+    else:
+        x[0, 77] = -float("inf")
+        x[0, 1027:1030] = float("inf")
+        x[1, 2048:3072:50] = float("inf")
+        x[1, 4096] = -float("inf")
+        x[2, 3072:4096] = -float("inf")
+    return x
+
+
+@pytest.mark.parametrize("kind", ["nan", "inf"])
+def test_nonfinite_blocks_match_plain_versions(card, kind):
+    """pack, delta-pack, unpack and block_topk on NaN and ±inf blocks, bit
+    for bit (the plain versions follow the reference, ROADMAP C6)."""
+    x = _nonfinite(card, kind)
+    v = torch.full_like(x, 0.125)
+    v[2, 3072] = float("inf")                        # inf - inf = NaN
+    vals, idx = kernels.pack_topk([x], 11)[0]
+    want = pack_topk_plain(x, 11)
+    assert _same_bits(vals, want[0]) and _same_bits(idx, want[1])
+    dvals, didx = kernels.delta_pack([x], [v], 11)[0]
+    dwant = delta_pack_plain(x, v, 11)
+    assert _same_bits(dvals, dwant[0]) and _same_bits(didx, dwant[1])
+    for p in ((vals, idx), (dvals, didx)):
+        assert _same_bits(kernels.unpack_topk(*p, 4097),
+                          unpack_topk_plain(*p, 4097))
+    assert _same_bits(kernels.block_topk(x, 11), block_topk_plain(x, 11))
+
+
+def test_table_launch_matches_per_leaf_plain_versions(card):
+    """One launch packs a table of mixed leaves (short, ragged, full-block,
+    NaN and ±inf), each leaf's payload a contiguous view of one allocation;
+    a list longer than a table takes one launch a table."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    xs = [torch.randn((3, n), generator=gen, device=card)
+          for n in (6, 150, 1024, 4097, 21000)]
+    xs += [_nonfinite(card, "nan"), _nonfinite(card, "inf")]
+    vs = [x * 0.5 for x in xs]
+    kernels.reset_launch_counts()
+    packed = kernels.pack_topk(xs, 11)
+    dpacked = kernels.delta_pack(xs, vs, 11)
+    assert kernels.launch_counts()["pack"] == 1
+    assert kernels.launch_counts()["delta_pack"] == 1
+    for x, v, (vals, idx), (dvals, didx) in zip(xs, vs, packed, dpacked):
+        want, dwant = pack_topk_plain(x, 11), delta_pack_plain(x, v, 11)
+        assert vals.is_contiguous() and didx.is_contiguous()
+        assert _same_bits(vals, want[0]) and _same_bits(idx, want[1])
+        assert _same_bits(dvals, dwant[0]) and _same_bits(didx, dwant[1])
+        # aligned as an allocation of its own, so torch reduces it alike
+        assert _same_bits(row_norm(dvals.reshape(3, -1)),
+                          row_norm(dvals.clone().reshape(3, -1)))
+    many = [torch.randn((2, 100 + i), generator=gen, device=card)
+            for i in range(40)]
+    for x, (vals, idx) in zip(many, kernels.pack_topk(many, 7)):
+        want = pack_topk_plain(x, 7)
+        assert _same_bits(vals, want[0]) and _same_bits(idx, want[1])
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["pack"] == 3

@@ -15,11 +15,13 @@ import torch
 from repro.core.compression import _qsgd_omega
 from repro.kernels import ops as jops
 from repro.kernels.fused_compress import grid_quant_pallas
+from repro.kernels.pack import unpack_topk_pallas
 from repro_torch import kernels
 from repro_torch.kernels import ops
-from repro_torch.kernels.fused_compress import grid_quant
+from repro_torch.kernels.fused_compress import delta_pack, grid_quant
 from repro_torch.kernels.fused_update import fma_f32
-from repro_torch.kernels.pack import pack_topk
+from repro_torch.kernels.pack import (BISECT_ITERS, bisection_bounds,
+                                      pack_topk, unpack_topk_plain)
 from repro_torch.kernels.qsgd import inv_one_plus, qsgd, qsgd_omega
 
 SHAPES = [(1024,), (3, 1000, 7), (4097,), (6,), (150,)]
@@ -43,7 +45,7 @@ def _leaf(shape, kind, seed=0):
 CASES = ([(s, "normal") for s in SHAPES]
          + [((4097,), "zeros"), ((150,), "zeros"),
             ((4097,), "ties"), ((3, 1000, 7), "ties"),
-            ((4097,), "signed_zero")])
+            ((4097,), "signed_zero"), ((6,), "signed_zero")])
 
 
 def _assert_exact(got, want):
@@ -233,7 +235,7 @@ def test_delta_pack_equals_pack_of_residual():
 def test_cpu_tensors_run_the_plain_versions():
     kernels.reset_launch_counts()
     x = torch.randn(2, 3000)
-    vals, idx = pack_topk(x, 11)
+    vals, idx = pack_topk([x], 11)[0]
     ops.block_topk_unpack(vals, idx, (3000,))
     ops.fused_delta_pack(x, x)
     ops.leaf_fused_update(x, x, x, x, 0.03, 1.0)
@@ -246,7 +248,8 @@ def test_cpu_tensors_run_the_plain_versions():
 
 
 def test_meta_tensors_give_payload_shapes():
-    vals, idx = pack_topk(torch.empty((10, 11712 * 220), device="meta"), 11)
+    vals, idx = pack_topk([torch.empty((10, 11712 * 220), device="meta")],
+                          11)[0]
     assert vals.shape == idx.shape == (10, 2517, 11)
     assert vals.dtype == torch.float32 and idx.dtype == torch.uint16
 
@@ -263,9 +266,249 @@ def test_meta_tensors_give_dense_and_grid_shapes():
 
 def test_wrappers_check_dtypes():
     with pytest.raises(ValueError, match="float32"):
-        pack_topk(torch.zeros(1, 64, dtype=torch.float64), 1)
+        pack_topk([torch.zeros(1, 64, dtype=torch.float64)], 1)
     x = torch.zeros(1, 64)
     with pytest.raises(ValueError, match="float32"):
         grid_quant(x, x.double(), torch.ones(1), 16)
     with pytest.raises(ValueError, match="float32"):
         qsgd(x, x, torch.ones(1, dtype=torch.float64), 16, 1.0)
+
+
+# --------------------------------------------------------------------------
+# The CUDA tile's selection (csrc/pack_tile.cuh: kth_magnitude, then the
+# replayed bisection in bisect_block), transcribed in numpy, against the
+# plain version's 40 counted passes (bisection_bounds)
+# --------------------------------------------------------------------------
+
+def _kth_magnitude(mag, k):
+    """Step (a): the k-th largest of each row's magnitudes by an MSB-first
+    search on its bits, bit b kept when at least k magnitudes are >= the
+    candidate as f32 (a NaN never counts, a candidate past inf is NaN); a
+    row stops when exactly k reach the candidate, with v_k their least."""
+    bits = np.zeros(mag.shape[0], np.uint32)
+    done = np.zeros(mag.shape[0], bool)
+    least = np.full(mag.shape[0], np.inf, np.float32)
+    for b in range(30, -1, -1):
+        cand = bits | np.uint32(1 << b)
+        with np.errstate(invalid="ignore"):
+            above = mag >= cand.view(np.float32)[:, None]
+        cnt = above.sum(axis=1)
+        take = ~done & (cnt >= k)
+        stop = take & (cnt == k)
+        least[stop] = np.where(above[stop], mag[stop], np.inf).min(axis=1)
+        bits = np.where(take, cand, bits)
+        done |= stop
+    return np.where(done, least, bits.view(np.float32))
+
+
+def _replayed_bounds(mag, k):
+    """Step (b): the reference's 40 f32 bisection steps with each count
+    replaced by ``v_k >= mid``; ``m`` propagates NaN as jnp.max does."""
+    vk = _kth_magnitude(mag, k)
+    lo = np.zeros(mag.shape[0], np.float32)
+    hi = mag.max(axis=1) + np.float32(1.0)
+    for _ in range(BISECT_ITERS):
+        mid = np.float32(0.5) * (lo + hi)
+        with np.errstate(invalid="ignore"):
+            up = vk >= mid
+        lo, hi = np.where(up, mid, lo), np.where(up, hi, mid)
+    return lo, hi
+
+
+def _selection_blocks(seed=0):
+    """(rows, 1024) f32 blocks of every kind the selection must survive."""
+    rng = np.random.default_rng(seed)
+
+    def normal(rows):
+        return rng.standard_normal((rows, 1024)).astype(np.float32)
+
+    ragged = normal(3)
+    ragged[0, 300:] = 0.0            # a leaf's ragged last block
+    ragged[1, 1:] = 0.0
+    ragged[2, 1000:] = 0.0
+    half_zero = normal(2)
+    half_zero[:, ::2] = 0.0
+    nan = normal(4)
+    nan[0, 5] = np.nan
+    nan[1, :] = np.nan               # NaN but for 5 values
+    nan[1, [10, 20, 30, 40, 50]] = [1, -2, 3, -4, 5]
+    nan[2, ::7] = np.nan
+    nan[3, 100] = np.nan
+    nan[3, 200] = np.inf
+    inf = normal(4)
+    inf[0, 77] = -np.inf
+    inf[1, [3, 100, 700]] = [np.inf, -np.inf, np.inf]
+    inf[2, ::50] = np.inf            # 21 infinities
+    inf[3, :] = np.inf
+    return np.concatenate([
+        normal(6),
+        np.round(normal(4) * 4) / 4,                  # ties at quarters
+        np.zeros((2, 1024), np.float32),
+        np.full((2, 1024), 0.75, np.float32),         # all equal
+        normal(3) * np.float32(1e-30),                # tiny
+        ragged, half_zero, nan, inf]).astype(np.float32)
+
+
+@pytest.mark.parametrize("k", [1, 11, 39, 1024])
+def test_replayed_bisection_equals_counted_bisection(k):
+    """lo and hi of the tile's selection (exact v_k, then the replay) equal
+    the 40 counted passes' bit for bit, on every kind of block, NaN and
+    ±inf included; v_k is the k-th largest non-NaN magnitude."""
+    mag = np.abs(_selection_blocks())
+    lo, hi = _replayed_bounds(mag, k)
+    want_lo, want_hi = bisection_bounds(torch.from_numpy(mag), k)
+    np.testing.assert_array_equal(lo.view(np.int32),
+                                  want_lo.numpy().ravel().view(np.int32))
+    np.testing.assert_array_equal(hi.view(np.int32),
+                                  want_hi.numpy().ravel().view(np.int32))
+    vk = _kth_magnitude(mag, k)
+    for row, got in zip(mag, vk):
+        finite = np.sort(row[~np.isnan(row)])[::-1]
+        assert got == (finite[k - 1] if finite.size >= k else 0.0)
+
+
+# --------------------------------------------------------------------------
+# Non-finite blocks (ROADMAP C6) against the interpret-mode Pallas kernels
+# --------------------------------------------------------------------------
+
+def _nonfinite_leaf(kind, seed=11):
+    """(ROWS, 4097) leaves: four full blocks and a ragged one a row."""
+    x = np.random.default_rng(seed).standard_normal(
+        (ROWS, 4097)).astype(np.float32)
+    if kind == "nan":
+        x[0, 5] = np.nan                              # one NaN
+        x[0, 1024:2048] = np.nan                      # NaN but for 5 values
+        x[0, [1030, 1040, 1050, 1060, 1070]] = [1, -2, 3, -4, 5]
+        x[1, 2048::3] = np.nan                        # many, ragged block too
+        x[1, 100] = np.nan
+        x[1, 200] = np.inf                            # NaN beside an inf
+    else:
+        x[0, 77] = -np.inf                            # a lone -inf
+        x[0, [1027, 1124, 1724]] = [np.inf, -np.inf, np.inf]  # fewer than k
+        x[0, 2048:3072:50] = np.inf                   # more than k
+        x[0, 4096] = np.inf                           # the ragged block's
+        x[1, 3072:4096] = -np.inf                     # a whole block
+        x[1, 10] = np.inf
+    return x
+
+
+def _assert_exact_nan(got, want):
+    """:func:`_assert_exact` with every NaN read as one bit pattern. A
+    NaN's payload and sign are not part of the contract: the reference's
+    follow x86's rules (a NaN operand's payload propagates, 0·inf gives the
+    negative default NaN), the port writes torch's ``float('nan')``."""
+    got, want = np.array(got), np.array(want)
+    if got.dtype == np.float32 and want.dtype == np.float32:
+        got[np.isnan(got)] = np.nan
+        want[np.isnan(want)] = np.nan
+    _assert_exact(got, want)
+
+
+@pytest.mark.parametrize("kind", ["nan", "inf"])
+def test_pack_and_delta_pack_of_nonfinite_blocks_match_reference(kind):
+    """Every slot of a block with a non-finite element is NaN but the slot
+    of a lone ±inf; a block holding a NaN keeps its first k non-NaN
+    elements, its empty slots NaN at index 0."""
+    x = _nonfinite_leaf(kind)
+    v = (np.random.default_rng(12).standard_normal(x.shape) * 0.1).astype(
+        np.float32)
+    v[1, 10] = np.inf                                 # inf - inf = NaN
+    vals, idx = ops.block_topk_pack(torch.from_numpy(x))
+    dvals, didx = ops.fused_delta_pack(torch.from_numpy(x),
+                                       torch.from_numpy(v))
+    for r in range(ROWS):
+        want_v, want_i = jops.block_topk_pack(jnp.asarray(x[r]))
+        _assert_exact_nan(vals[r].numpy(), want_v)
+        _assert_exact(idx[r].numpy(), want_i)
+        want_v, want_i = jops.fused_delta_pack(jnp.asarray(x[r]),
+                                               jnp.asarray(v[r]))
+        _assert_exact_nan(dvals[r].numpy(), want_v)
+        _assert_exact(didx[r].numpy(), want_i)
+    if kind == "inf":            # the lone -inf keeps its slot
+        assert vals[0, 0, 0] == -np.inf and vals[0, 0, 1:].isnan().all()
+
+
+@pytest.mark.parametrize("kind", ["nan", "inf"])
+def test_block_topk_of_nonfinite_blocks_matches_reference(kind):
+    """The first k non-NaN elements of a block holding a NaN are kept and
+    the NaN becomes 0; k or more ±inf are all kept."""
+    x = _nonfinite_leaf(kind, seed=13)
+    got = ops.block_topk(torch.from_numpy(x))
+    for r in range(ROWS):
+        _assert_exact(got[r].numpy(), jops.block_topk(jnp.asarray(x[r])))
+
+
+def _crafted_payloads(seed=14):
+    """(name, vals (8, k), idx int32 (8, k)) payloads for unpack: block 0
+    holds the case, the other blocks finite."""
+    rng = np.random.default_rng(seed)
+    k = 11
+    idx = np.stack([rng.choice(1024, k, replace=False)
+                    for _ in range(8)]).astype(np.int32)
+    base = rng.standard_normal((8, k)).astype(np.float32)
+    cases = []
+    for name, slot_vals in [("one inf", {2: np.inf}),
+                            ("one -inf", {0: -np.inf}),
+                            ("one nan", {5: np.nan}),
+                            ("inf and nan", {1: np.inf, 3: np.nan}),
+                            ("two infs", {1: np.inf, 4: -np.inf}),
+                            ("-0.0", {0: -0.0})]:
+        vals = base.copy()
+        for s, val in slot_vals.items():
+            vals[0, s] = val
+        cases.append((name, vals, idx))
+    cases.append(("all negative", -np.abs(base), idx))
+    return cases
+
+
+@pytest.mark.parametrize("kind", ["nan", "inf"])
+def test_unpack_of_nonfinite_payloads_matches_reference(kind):
+    """The reference's payloads of non-finite leaves, decoded: a block whose
+    values hold a non-finite is NaN but at a lone non-finite value's index."""
+    x = _nonfinite_leaf(kind, seed=15)
+    packed = [jops.block_topk_pack(jnp.asarray(x[r])) for r in range(ROWS)]
+    vals = torch.from_numpy(np.stack([np.asarray(p[0]) for p in packed]))
+    idx = torch.from_numpy(np.stack([np.asarray(p[1]) for p in packed]))
+    got = ops.block_topk_unpack(vals, idx, (4097,))
+    for r in range(ROWS):
+        want = jops.block_topk_unpack(packed[r][0], packed[r][1], 4097,
+                                      (4097,))
+        _assert_exact_nan(got[r].numpy(), want)
+
+
+@pytest.mark.parametrize("case", range(7))
+def test_unpack_follows_the_one_hot_contraction(case):
+    """Crafted payloads against ``unpack_topk_pallas``: a lone ±inf keeps
+    its index and NaNs the rest of its block, a -0.0 value and the unpicked
+    positions of an all-negative block decode to +0.0."""
+    name, vals, idx = _crafted_payloads()[case]
+    want = unpack_topk_pallas(jnp.asarray(vals), jnp.asarray(idx), 1024)
+    got = unpack_topk_plain(torch.from_numpy(vals).reshape(1, 8, -1),
+                            torch.from_numpy(idx.astype(np.uint16))
+                            .reshape(1, 8, -1), 8 * 1024)
+    _assert_exact_nan(got.numpy().reshape(8, 1024), want)
+
+
+def test_list_form_equals_per_leaf_calls():
+    """pack and delta-pack over a list of leaves equal the reference's
+    per-leaf pack, leaf by leaf, in the order given."""
+    leaves = [_leaf(s, "normal", seed=i).reshape(ROWS, -1)
+              for i, s in enumerate(SHAPES)] + [_nonfinite_leaf("inf")]
+    vs = [np.full_like(x, 0.25) for x in leaves]
+    packed = pack_topk([torch.from_numpy(x) for x in leaves], 11)
+    dpacked = delta_pack([torch.from_numpy(x) for x in leaves],
+                         [torch.from_numpy(v) for v in vs], 11)
+    assert len(packed) == len(dpacked) == len(leaves)
+    for x, v, (vals, idx), (dvals, didx) in zip(leaves, vs, packed, dpacked):
+        for r in range(ROWS):
+            want_v, want_i = jops.block_topk_pack(jnp.asarray(x[r]))
+            _assert_exact_nan(vals[r].numpy(), want_v)
+            _assert_exact(idx[r].numpy(), want_i)
+            want_v, want_i = jops.fused_delta_pack(jnp.asarray(x[r]),
+                                                   jnp.asarray(v[r]))
+            _assert_exact_nan(dvals[r].numpy(), want_v)
+            _assert_exact(didx[r].numpy(), want_i)
+    with pytest.raises(TypeError, match="list"):
+        pack_topk(torch.from_numpy(leaves[0]), 11)
+    with pytest.raises(ValueError, match="thetas"):
+        delta_pack([torch.from_numpy(leaves[0])], [], 11)
