@@ -14,13 +14,16 @@ Phases, each of which fails the run by raising:
              11) carriers) and at edge cases (a ragged leaf, leaves shorter
              than a block, an all-zero leaf, a leaf of exact ties, a leaf
              with -0.0 entries; and, for pack, delta-pack, unpack and
-             block_topk, leaves with NaN and ±inf blocks); pack and
-             delta-pack also as one table launch over all those leaves
-             mixed together. Time each beside its bound and its plain
-             version, by CUDA events (host time per call included) and by
-             the device time in a profiler trace (the kernels alone); pack
-             and delta-pack as the round runs delta-pack, one table launch
-             over the 10 leaves.
+             block_topk, leaves with NaN and ±inf blocks); pack,
+             delta-pack and unpack also as one table launch over all those
+             leaves mixed together, and qsgd as one over the finite ones,
+             each exactly one launch. Time each beside its bound and its
+             plain version, by CUDA events (host time per call included) and
+             by the device time in a profiler trace (the kernels alone,
+             after a profiled warm-up call whose events are dropped, each
+             kernel's launches in the trace checked against its count);
+             pack, delta-pack, unpack and qsgd as the round runs them, one
+             table launch over the 10 leaves.
 3. slice   — FedTrainer(device="cuda") on full-width lenet-radar (256x63,
              K=10, L=8, minibatch 10, ratio 1%, block 1024, η=1e-4, ζ=0.03,
              T=1) in four configurations, each run with the launch counts
@@ -31,12 +34,14 @@ Phases, each of which fails the run by raising:
              qsgd_pallas (2 rounds, 1,949,174 bytes) and block_topk_pallas
              (2 rounds, 155,934 bytes) compressors. Every value finite, the
              bytes exact, every kernel of each path launched, and
-             delta-pack once a round.
+             delta-pack and unpack (the fused runs) and qsgd (qsgd_pallas)
+             once a round.
 4. oracle  — one round of each pipeline from its run's state through
              FusedCodec(fused=False), which runs the pack kernel (and QSGD's
-             own torch arithmetic): its payload and params equal the fused
-             round's bit for bit. The card's decode of the block_topk|qsgd
-             payload equals the plain CPU decode of the same payload.
+             own torch arithmetic) and unpacks with one launch: its payload
+             and params equal the fused round's bit for bit. The card's
+             decode of the block_topk|qsgd payload equals the plain CPU
+             decode of the same payload.
 5. profile — traced rounds (block_topk fused, its oracle, block_topk|qsgd,
              qsgd_pallas, block_topk_pallas): the device's busy share, the
              top kernels, and each ported kernel's device time in a round.
@@ -58,7 +63,7 @@ from pathlib import Path
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, schedule
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -104,6 +109,8 @@ RUNS = {
     "block_topk_pallas": (dict(compressor="block_topk_pallas"), 2, 155_934,
                           ("block_topk", "fused_update")),
 }
+# the kernels that launch once a round over a table of all the leaves
+ONCE_A_ROUND = ("delta_pack", "unpack", "qsgd")
 # H100 SXM peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -163,33 +170,58 @@ def device_ms(fn, reps: int = 5, per_rep: int = 10) -> float:
     return statistics.median(times)
 
 
-def traced_ms(fns, reps: int = 3, attempts: int = 3):
+def profiled(fn):
+    """{device kernel name: (summed µs, count)} of one call of ``fn``
+    (which ends in a device sync) under torch.profiler. A profiled warm-up
+    call comes first and its events are dropped: a profile's first launch
+    is often missing from its trace."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        prof.step()
+        fn()
+    return device_time_by_name(prof)
+
+
+def traced_ms(fns, kernel=None, reps: int = 3, attempts: int = 5):
     """Device time of one pass over ``fns`` from a torch.profiler trace:
     the summed intervals of the device kernels, fills and copies they ran,
-    with no host time in it. A trace that comes back without device events
-    (it happens now and then on one kernel of a run) is taken again, up to
-    ``attempts`` times; None if every trace was empty."""
-    for fn in fns:
-        fn()
-    torch.cuda.synchronize()
+    with no host time in it. A trace that comes back without device events,
+    or, for a ported ``kernel``, with another number of its launches than
+    its wrapper counted in the traced call, is taken again, up to
+    ``attempts`` times; None if no trace was whole."""
+    def passes():
+        for _ in range(reps):
+            for fn in fns:
+                fn()
+        torch.cuda.synchronize()
+
     for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                for fn in fns:
-                    fn()
-            torch.cuda.synchronize()
-        us = sum(t for t, _ in device_time_by_name(prof).values())
+        launched = kernels.launch_counts()
+        by_name = profiled(passes)
+        if kernel is not None:             # the warm-up call launched half
+            want = (kernels.launch_counts()[kernel] - launched[kernel]) // 2
+            seen = sum(c for name, (_, c) in by_name.items()
+                       if TRACE_NAMES[kernel] in name)
+            if seen != want:
+                log("kernels", f"{kernel}: the trace holds {seen} of its "
+                               f"{want} launches; traced again")
+                continue
+        us = sum(t for t, _ in by_name.values())
         if us:
             return us / 1e3 / reps
     return None
 
 
 def device_time_by_name(prof):
-    """{device kernel name: (summed µs, count)} of a torch.profiler trace."""
+    """{device kernel name: (summed µs, count)} of a torch.profiler trace;
+    the profiler's own step annotations, which span each step on the
+    device's timeline, are left out."""
     by_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and \
+                not e.name.startswith("ProfilerStep"):
             tot, cnt = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
     return by_name
@@ -243,13 +275,14 @@ def leaf_cases(shapes):
     signed[:, ::3] = -0.0
     yield "signed zeros 4097", signed, torch.zeros_like(signed)
     # ROADMAP C6: a lone NaN, a block that is NaN but for 5 values, NaNs in
-    # the ragged block; a lone ±inf, fewer and more than k infs, a whole
-    # block of -inf, and inf - inf
+    # the ragged block, a block of NaN; a lone ±inf, fewer and more than k
+    # infs, a whole block of -inf, and inf - inf
     nan = normal(4097)
     nan[0, 5] = nan[1, 1024:2048] = float("nan")
     nan[1, 1030:1080:10] = 1.5
     nan[2:, 4096] = nan[3, 100] = float("nan")
     nan[3, 200] = float("inf")
+    nan[4, 2048:3072] = float("nan")      # nothing to keep: NaN slots at 0
     yield "nan 4097", nan, normal(4097) * 0.1
     inf = normal(4097)
     inf[0, 77] = -float("inf")
@@ -266,13 +299,15 @@ def check_kernels(shapes):
     errs = {name: 0.0 for name in KERNELS}
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     cases = list(leaf_cases(shapes))
-    for name, theta, v in cases:
+    payloads, quant = [], []      # every case's payload; the finite cases'
+    for name, theta, v in cases:  # (name, x, u, norm, recip)
         n = theta.shape[1]
         (vals, idx), = pack_topk([theta], SURVIVORS)
         want = pack_topk_plain(theta, SURVIVORS)
         (dvals, didx), = delta_pack([theta], [v], SURVIVORS)
         dwant = delta_pack_plain(theta, v, SURVIVORS)
-        dense = unpack_topk(dvals, didx, n)
+        payloads.append((dvals, didx))
+        dense, = unpack_topk([(dvals, didx)], [n])
         dense_want = unpack_topk_plain(dvals, didx, n)
         checks = {"pack": [(vals, want[0]), (idx, want[1])],
                   "delta_pack": [(dvals, dwant[0]), (didx, dwant[1])],
@@ -292,13 +327,14 @@ def check_kernels(shapes):
             carrier = dvals.reshape(K, -1)
             uc = torch.rand(carrier.shape, generator=gen, device=DEVICE)
             nc = row_norm(carrier)
+            quant.append((name, theta, u, norm, recip))
             checks.update({
                 "fused_update": [(fused_update(theta, vb, v, xi, 0.03, 1.0),
                                   fused_update_plain(theta, vb, v, xi, 0.03,
                                                      1.0))],
                 "grid_quant": [(grid_quant(carrier, uc, nc, LEVELS),
                                 grid_quant_plain(carrier, uc, nc, LEVELS))],
-                "qsgd": [(qsgd(theta, u, norm, LEVELS, recip),
+                "qsgd": [(qsgd([theta], [u], [norm], LEVELS, [recip])[0],
                           qsgd_plain(theta, u, norm, LEVELS, recip))]})
         for kname, pairs in checks.items():
             for got, ref in pairs:
@@ -312,23 +348,33 @@ def check_kernels(shapes):
             raise AssertionError(f"delta_pack != pack(θ − v) on {name}")
         log("kernels", f"{name}: K={K} n={n}: {', '.join(checks)} bit-exact "
                        f"to their plain versions")
-    # one table launch over every case's leaf, each against its leaf's
-    # plain version
-    launched = pack_topk.launches, delta_pack.launches
+    # one table launch over every case's leaf (qsgd: every finite case's),
+    # each against its leaf's plain version
+    wrappers = (pack_topk, delta_pack, unpack_topk, qsgd)
+    launched = [w.launches for w in wrappers]
     thetas, vs = [c[1] for c in cases], [c[2] for c in cases]
     packed = pack_topk(thetas, SURVIVORS)
     dpacked = delta_pack(thetas, vs, SURVIVORS)
-    if (pack_topk.launches - launched[0], delta_pack.launches - launched[1]) \
-            != (1, 1):
-        raise AssertionError("the mixed table took more than one launch")
-    for (name, theta, v), got, dgot in zip(cases, packed, dpacked):
-        for a, b in zip(got + dgot, pack_topk_plain(theta, SURVIVORS)
-                        + delta_pack_plain(theta, v, SURVIVORS)):
+    dense = unpack_topk(payloads, [t.shape[1] for t in thetas])
+    _, xs, us, norms, recips = zip(*quant)
+    quantized = qsgd(xs, us, norms, LEVELS, recips)
+    if [w.launches - n for w, n in zip(wrappers, launched)] != [1] * 4:
+        raise AssertionError("a mixed table took other than one launch")
+    for (name, theta, v), got, dgot, (dvals, didx), d in zip(
+            cases, packed, dpacked, payloads, dense):
+        for a, b in zip(got + dgot + (d,), pack_topk_plain(theta, SURVIVORS)
+                        + delta_pack_plain(theta, v, SURVIVORS)
+                        + (unpack_topk_plain(dvals, didx, theta.shape[1]),)):
             if not bitwise_equal(a, b):
                 raise AssertionError(f"the table launch differs from the "
                                      f"plain version on {name}")
-    log("kernels", f"one table launch each of pack and delta-pack over the "
-                   f"{len(cases)} leaves above: bit-exact to every leaf's "
+    for (name, x, u, norm, recip), got in zip(quant, quantized):
+        if not bitwise_equal(got, qsgd_plain(x, u, norm, LEVELS, recip)):
+            raise AssertionError(f"the qsgd table launch differs from the "
+                                 f"plain version on {name}")
+    log("kernels", f"one table launch each of pack, delta-pack and unpack "
+                   f"over the {len(cases)} leaves above, and of qsgd over the "
+                   f"{len(quant)} finite ones: bit-exact to every leaf's "
                    f"plain version")
     return errs
 
@@ -351,7 +397,7 @@ def leaf_runs(th, v, vb, xi, vals, idx, u, uc):
         "delta_pack": (lambda: delta_pack([th], [v], SURVIVORS),
                        lambda: delta_pack_plain(th, v, SURVIVORS),
                        2 * K * n * 4 + wire, DELTA_PACK_OPS * padded),
-        "unpack": (lambda: unpack_topk(vals, idx, n),
+        "unpack": (lambda: unpack_topk([(vals, idx)], [n]),
                    lambda: unpack_topk_plain(vals, idx, n),
                    wire + K * n * 4, 0),
         "fused_update": (lambda: fused_update(th, vb, v, xi, 0.03, 1.0),
@@ -360,7 +406,7 @@ def leaf_runs(th, v, vb, xi, vals, idx, u, uc):
         "grid_quant": (lambda: grid_quant(carrier, uc, nc, LEVELS),
                        lambda: grid_quant_plain(carrier, uc, nc, LEVELS),
                        K * m * (4 + 4 + 1) + K * 4, GRID_QUANT_OPS * K * m),
-        "qsgd": (lambda: qsgd(th, u, norm, LEVELS, recip),
+        "qsgd": (lambda: qsgd([th], [u], [norm], LEVELS, [recip]),
                  lambda: qsgd_plain(th, u, norm, LEVELS, recip),
                  K * n * (4 + 4 + 4) + K * 4, QSGD_OPS * K * n),
         "block_topk": (lambda: block_topk(th, SURVIVORS),
@@ -376,25 +422,27 @@ def fmt_ms(ms) -> str:
 def time_kernels(shapes):
     """Per-round time of each kernel over the main path's leaves (K=10
     rows), its plain version's, and its bound: one launch a leaf, but for
-    pack and delta-pack one table launch over the 10 leaves, as the round's
-    codec runs delta-pack. Two clocks: CUDA events around back-to-back
-    calls (``ms``, ``plain_ms``: what a caller pays, host time per call
-    included wherever it exceeds the device work) and the device time in a
-    profiler trace (``device_ms``, ``plain_device_ms``: the kernels alone,
-    None where the profiler saw no device events)."""
+    pack, delta-pack, unpack and qsgd one table launch over the 10 leaves,
+    as the round runs delta-pack, unpack and qsgd. Two clocks: CUDA events
+    around back-to-back calls (``ms``, ``plain_ms``: what a caller pays,
+    host time per call included wherever it exceeds the device work) and
+    the device time in a profiler trace (``device_ms``, ``plain_device_ms``: the kernels alone,
+    None where no trace was whole)."""
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     rows = {name: dict(ms=0.0, plain_ms=0.0, nbytes=0.0, ops=0.0, fns=[],
                        plain_fns=[]) for name in KERNELS}
     largest = max(int(np.prod(s)) for _, s in shapes)
-    ths, vs = [], []
+    ths, vs, payloads, us = [], [], [], []
     for _, shape in shapes:
         n = int(np.prod(shape))
         th = torch.randn((K, n), generator=gen, device=DEVICE)
         v, vb, xi = th * 0.1, th * 0.05, th * 0.01
-        ths.append(th)
-        vs.append(v)
         (vals, idx), = delta_pack([th], [v], SURVIVORS)
         u = torch.rand(th.shape, generator=gen, device=DEVICE)
+        ths.append(th)
+        vs.append(v)
+        payloads.append((vals, idx))
+        us.append(u)
         uc = torch.rand((K, vals.shape[1] * SURVIVORS), generator=gen,
                         device=DEVICE)
         runs = leaf_runs(th, v, vb, xi, vals, idx, u, uc)
@@ -410,15 +458,26 @@ def time_kernels(shapes):
             if n == largest:
                 b_ms, b_by = bound(nbytes, ops)
                 log("kernels", f"{name} on the largest leaf {shape} (K={K}): "
-                               f"{ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
-                               f"{b_ms:.4f} ms ({b_by})")
-    # pack and delta-pack as the round runs delta-pack, one table launch
-    # over the 10 leaves, in place of their sums of one launch a leaf
+                               f"device {fmt_ms(traced_ms([kern], name))}, "
+                               f"event-timed {ms:.4f} ms; plain {plain_ms:.4f}"
+                               f" ms; bound {b_ms:.4f} ms ({b_by})")
+    # pack, delta-pack, unpack and qsgd as the round runs the last three, one
+    # table launch over the 10 leaves, in place of their sums of one launch
+    # a leaf
+    ns = [t.shape[1] for t in ths]
+    norms = [row_norm(t) for t in ths]
+    recips = [inv_one_plus(qsgd_omega(n, LEVELS)) for n in ns]
     table = {"pack": (lambda: pack_topk(ths, SURVIVORS),
                       lambda: [pack_topk_plain(t, SURVIVORS) for t in ths]),
              "delta_pack": (lambda: delta_pack(ths, vs, SURVIVORS),
                             lambda: [delta_pack_plain(t, v, SURVIVORS)
-                                     for t, v in zip(ths, vs)])}
+                                     for t, v in zip(ths, vs)]),
+             "unpack": (lambda: unpack_topk(payloads, ns),
+                        lambda: [unpack_topk_plain(*p, n)
+                                 for p, n in zip(payloads, ns)]),
+             "qsgd": (lambda: qsgd(ths, us, norms, LEVELS, recips),
+                      lambda: [qsgd_plain(*a, LEVELS, r) for a, r in
+                               zip(zip(ths, us, norms), recips)])}
     for name, (kern, plain) in table.items():
         r = rows[name]
         r["ms"], r["plain_ms"] = device_ms(kern), device_ms(plain, reps=3,
@@ -426,11 +485,11 @@ def time_kernels(shapes):
         r["fns"], r["plain_fns"] = [kern], [plain]
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound(r["nbytes"], r["ops"])
-        r["device_ms"] = traced_ms(r.pop("fns"))
+        r["device_ms"] = traced_ms(r.pop("fns"), name)
         r["plain_device_ms"] = traced_ms(r.pop("plain_fns"))
         if r["device_ms"] is None or r["plain_device_ms"] is None:
-            log("kernels", f"{name}: the profiler saw no device events; "
-                           f"device time not measured")
+            log("kernels", f"{name}: no whole trace; device time not "
+                           f"measured")
     return rows
 
 
@@ -482,10 +541,11 @@ def run_slice(name: str, train, test):
     for kname in launched:
         if launches[kname] <= 0:
             raise AssertionError(f"{name}: the run never launched {kname}")
-    if "delta_pack" in launched and launches["delta_pack"] != rounds:
-        raise AssertionError(f"{name}: delta_pack launched "
-                             f"{launches['delta_pack']} times in {rounds} "
-                             f"rounds, not once a round")
+    for kname in set(launched) & set(ONCE_A_ROUND):
+        if launches[kname] != rounds:
+            raise AssertionError(f"{name}: {kname} launched "
+                                 f"{launches[kname]} times in {rounds} "
+                                 f"rounds, not once a round")
     if len(trainer.bank) != max(0, rounds - BURN_IN):
         raise AssertionError(f"{name}: bank holds {len(trainer.bank)} samples")
     return trainer, launches
@@ -521,7 +581,7 @@ def oracle_round(name: str, trainer):
     s_two, m_two = oracle_fn(state, *inputs)
     launches = kernels.launch_counts()
     if (launches["pack"] <= 0 or launches["delta_pack"] != 0
-            or launches["grid_quant"] != 0):
+            or launches["grid_quant"] != 0 or launches["unpack"] != 1):
         raise AssertionError(f"{name} oracle round launches {launches}")
     for (path, _), a, b in zip(tree_leaves_with_path(state.params),
                                m_fused.payload.entries, m_two.payload.entries):
@@ -583,9 +643,7 @@ def trace_round(trainer, round_fn):
     t0 = time.perf_counter()
     one_round()
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        one_round()
-    return wall_ms, device_time_by_name(prof)
+    return wall_ms, profiled(one_round)
 
 
 def profile_rounds(trainers, oracle_fns, timing):

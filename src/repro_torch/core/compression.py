@@ -75,8 +75,14 @@ class BlockTopKCodec:
         return vals, {"idx": idx}, self._meta(x, vals)
 
     def decode(self, carrier, aux, meta):
-        return kops.block_topk_unpack(carrier, aux["idx"], meta.shape,
-                                      block_size=self.block_size)
+        return self.decode_leaves([(carrier, aux, meta)])[0]
+
+    def decode_leaves(self, items):
+        """:meth:`decode` of every ``(carrier, aux, meta)`` of a list, one
+        unpack launch a table of leaves."""
+        return kops.block_topk_unpack_leaves(
+            [(carrier, aux["idx"]) for carrier, aux, _ in items],
+            [meta.shape for _, _, meta in items], block_size=self.block_size)
 
 
 class _QuantMeta(NamedTuple):
@@ -124,6 +130,9 @@ class QSGDCodec:
         norm = aux["scale"].reshape((-1,) + (1,) * len(meta.shape))
         out = carrier.float() * norm / meta.levels * inv_one_plus(meta.omega)
         return out.to(getattr(torch, meta.in_dtype))
+
+    def decode_leaves(self, items):
+        return [self.decode(*item) for item in items]
 
 
 def _qsgd_encode_kernel(stage: QSGDCodec, x, u):
@@ -258,14 +267,18 @@ class CompressionPipeline:
         return self._encode_impl(theta, v, uniforms)
 
     def decode(self, payload: WirePayload):
-        leaves = []
-        for entry, spec in zip(payload.entries, payload.specs):
-            carrier = entry.wire
-            if not spec.passthrough:
-                for stage, aux, meta in reversed(list(zip(
-                        payload.stages, entry.aux, spec.metas))):
-                    carrier = stage.decode(carrier, aux, meta)
-            leaves.append(carrier)
+        """Stage-major: the last stage decodes every compressed leaf, then
+        the stage before it, so one block-top-k decode (one unpack launch a
+        table of leaves) covers them all; passthrough leaves are kept."""
+        leaves = [entry.wire for entry in payload.entries]
+        packed = [i for i, spec in enumerate(payload.specs)
+                  if not spec.passthrough]
+        for s in reversed(range(len(payload.stages))):
+            decoded = payload.stages[s].decode_leaves(
+                [(leaves[i], payload.entries[i].aux[s],
+                  payload.specs[i].metas[s]) for i in packed])
+            for i, leaf in zip(packed, decoded):
+                leaves[i] = leaf
         return tree_unflatten(list(payload.paths), leaves)
 
     def wire_bytes(self, tree) -> int:
@@ -337,18 +350,22 @@ class Compressor:
                 if not _rides_dense(x, self.min_dense_size)}
 
     def __call__(self, tree, uniforms=None):
-        leaves = []
-        for path, x in tree_leaves_with_path(tree):
-            if _rides_dense(x, self.min_dense_size):
-                leaves.append(x)
-            elif self.name == "block_topk_pallas":
-                leaves.append(kops.block_topk(x, ratio=self.ratio,
-                                              block_size=self.block_size))
-            else:
-                leaves.append(kops.qsgd(x, _uniforms_for(uniforms, path),
-                                        levels=self.qsgd_levels))
-        return tree_unflatten([p for p, _ in tree_leaves_with_path(tree)],
-                              leaves)
+        items = tree_leaves_with_path(tree)
+        paths, leaves = [p for p, _ in items], [x for _, x in items]
+        packed = [i for i, x in enumerate(leaves)
+                  if not _rides_dense(x, self.min_dense_size)]
+        if self.name == "block_topk_pallas":
+            out = [kops.block_topk(leaves[i], ratio=self.ratio,
+                                   block_size=self.block_size)
+                   for i in packed]
+        else:                    # one qsgd launch a table of leaves
+            out = kops.qsgd_leaves(
+                [leaves[i] for i in packed],
+                [_uniforms_for(uniforms, paths[i]) for i in packed],
+                levels=self.qsgd_levels)
+        for i, leaf in zip(packed, out):
+            leaves[i] = leaf
+        return tree_unflatten(paths, leaves)
 
     def wire_bytes(self, tree) -> int:
         """Closed-form bytes one node sends for a single-model ``tree``."""

@@ -31,16 +31,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
 _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-# leaf tables: host arrays of pointers and of sizes
+# leaf tables: host arrays of pointers, sizes and f32 scalars
 _PP, _PL = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong)
+_PF = ctypes.POINTER(ctypes.c_float)
 _SIGNATURES = {
     "repro_pack_topk": [_PP, _PL, _PL, _PL, _I, _L, _P, _P, _I, _P],
     "repro_delta_pack": [_PP, _PP, _PL, _PL, _PL, _I, _L, _P, _P, _I, _P],
-    "repro_unpack_topk": [_P, _P, _P, _L, _L, _L, _I, _P],
+    "repro_unpack_topk": [_PP, _PP, _PP, _PL, _PL, _I, _L, _I, _P],
     "repro_fused_update": [_P, _P, _P, _P, _P, _L, _F, _F, _P],
     "repro_block_topk": [_P, _P, _L, _L, _L, _I, _P],
     "repro_grid_quant": [_P, _P, _P, _P, _L, _L, _F, _P],
-    "repro_qsgd": [_P, _P, _P, _P, _L, _L, _F, _F, _P],
+    "repro_qsgd": [_PP, _PP, _PP, _PP, _PL, _PL, _PF, _I, _F, _P],
 }
 
 _lib = None

@@ -23,48 +23,95 @@
 //            the k-th magnitude in scalar registers. One launch covers every
 //            leaf of a table (up to kMaxLeaves): the small leaves' few blocks
 //            run beside fc1.w's, not as launches of 1-24 CTAs of their own.
-//   unpack — one CTA per block: coalesced fill of the block, a CTA
-//            barrier, then k scattered stores. Block-local indices are
-//            distinct, so the stores never conflict.
+//   unpack — one warp per block, 8 blocks a CTA, one launch over a table of
+//            leaves: the C6 rule's count of non-finite values is a ballot
+//            and a popcount (no CTA barrier), the fill is 8 float4 stores a
+//            lane (512 contiguous bytes a warp a store), then __syncwarp()
+//            orders the warp's writes and the k survivors are scattered.
+//            Block-local indices are distinct, so the stores never
+//            conflict.
 #include "pack_tile.cuh"
 
 namespace repro_torch {
 
-constexpr int kUnpackThreads = 256;
+// A table of node-stacked payloads unpacked by one launch. Leaf l's
+// (rows, nb, k) values and indices are vals and idx (one pointer each a
+// leaf: the values may come from QSGD's decode, one tensor a leaf), its
+// dense (rows, n) output is out, and its blocks are the launch's warps
+// begin .. begin + rows·nb − 1. vec: out's rows start 16-byte aligned
+// (n % 4 == 0 and an aligned out), so the fill is float4 stores; uniform
+// per leaf, so it never diverges within a warp.
+struct UnpackLeaf {
+  const float* vals;
+  const uint16_t* idx;
+  float* out;
+  long long n, nb, begin;
+  int vec;
+};
 
-// vals/idx (rows, nb, k) -> out (rows, n); positions at or past n (the
-// ragged last block's zero padding) are dropped, as the reference's [:n].
+struct UnpackTable {
+  UnpackLeaf leaf[kMaxLeaves];
+  long long total;                                // Σ rows·nb
+  int count;
+};
+
+// Warp w unpacks block w of the table into its leaf's (rows, n) output;
+// positions at or past n (the ragged last block's zero padding) are
+// dropped, as the reference's [:n].
 //
 // Values follow the reference's one-hot contraction (pack.py:95-96),
 // out[b] = 0 + Σ_s vals[s]·[idx[s] == b]: a -0.0 value decodes to +0.0, and
 // since 0·inf and 0·NaN are NaN, a block whose values hold a non-finite
 // decodes to NaN everywhere but at the index of a lone non-finite value,
 // which keeps it (ROADMAP C6).
-__global__ void __launch_bounds__(kUnpackThreads)
-unpack_kernel(const float* __restrict__ vals, const uint16_t* __restrict__ idx,
-              float* __restrict__ out, long long n, long long nb, int k) {
-  const long long blk = blockIdx.x;
-  const long long row = blk / nb;
-  const long long start = (blk - row * nb) * kBlock;
-  const float* vb = vals + blk * k;
-  const uint16_t* ib = idx + blk * k;
-  int bad = 0;                        // this thread's non-finite values
-  for (int s = threadIdx.x; s < k; s += kUnpackThreads)
-    bad += !is_finite(vb[s]);
-  const int bad_threads = __syncthreads_count(bad > 0);
-  const int multi = __syncthreads_or(bad > 1);
-  const bool lone = bad_threads == 1 && !multi;   // one non-finite value
-  const float fill = bad_threads ? quiet_nan() : 0.0f;
-  float* orow = out + row * n;
-  for (int e = threadIdx.x; e < kBlock; e += kUnpackThreads)
-    if (start + e < n) orow[start + e] = fill;
-  __syncthreads();
-  for (int s = threadIdx.x; s < k; s += kUnpackThreads) {
-    const float v = vb[s];
-    const long long e = start + ib[s];
-    if (e < n && (!bad_threads || (lone && !is_finite(v))))
-      orow[e] = __fadd_rn(v, 0.0f);
+__global__ void __launch_bounds__(kWarpsPerCta * 32)
+unpack_kernel(const __grid_constant__ UnpackTable table, int k) {
+  const int lane = threadIdx.x & 31;
+  const long long warp =
+      (long long)blockIdx.x * kWarpsPerCta + (threadIdx.x >> 5);
+  if (warp >= table.total) return;                // uniform within a warp
+  int l = 0;
+  while (l + 1 < table.count && warp >= table.leaf[l + 1].begin) ++l;
+  const UnpackLeaf& leaf = table.leaf[l];
+  const long long local = warp - leaf.begin;
+  const long long row = local / leaf.nb;
+  const long long start = (local - row * leaf.nb) * kBlock;
+  const long long n = leaf.n;
+  const float* vb = leaf.vals + local * k;
+  const uint16_t* ib = leaf.idx + local * k;
+
+  // the block's non-finite values: slots 0..31 stay in registers
+  const float v0 = lane < k ? vb[lane] : 0.0f;
+  const int i0 = lane < k ? ib[lane] : 0;
+  int bad = __popc(__ballot_sync(kFull, !is_finite(v0)));
+  for (int s0 = 32; s0 < k; s0 += 32) {           // k > 32: the rest
+    const bool nf = s0 + lane < k && !is_finite(vb[s0 + lane]);
+    bad += __popc(__ballot_sync(kFull, nf));
   }
+  const float fill = bad ? quiet_nan() : 0.0f;
+
+  float* ob = leaf.out + row * n + start;
+  if (leaf.vec) {
+    const float4 f4 = make_float4(fill, fill, fill, fill);
+#pragma unroll
+    for (int j = 0; j < kBlock / 128; ++j) {
+      const int e = 4 * lane + 128 * j;
+      if (start + e < n) *reinterpret_cast<float4*>(ob + e) = f4;
+    }
+  } else {
+    for (int e = lane; e < kBlock; e += 32)
+      if (start + e < n) ob[e] = fill;
+  }
+  __syncwarp();                       // the fill lands before the survivors
+
+  // a survivor is stored when its block is finite, or when it is the
+  // block's lone non-finite value
+  const auto put = [&](float v, int i) {
+    if (start + i < n && (!bad || (bad == 1 && !is_finite(v))))
+      ob[i] = __fadd_rn(v, 0.0f);
+  };
+  if (lane < k) put(v0, i0);
+  for (int s = 32 + lane; s < k; s += 32) put(vb[s], ib[s]);
 }
 
 }  // namespace repro_torch
@@ -80,14 +127,33 @@ extern "C" int repro_pack_topk(const float* const* xs, const long long* ns,
                                          rows, vals, idx, k, stream);
 }
 
-extern "C" int repro_unpack_topk(const float* vals, const uint16_t* idx,
-                                 float* out, long long rows, long long n,
-                                 long long nb, int k, void* stream) {
-  const long long ctas = rows * nb;
-  if (ctas > 0 && n > 0)
-    repro_torch::unpack_kernel<<<(unsigned)ctas, repro_torch::kUnpackThreads,
-                                 0, (cudaStream_t)stream>>>(vals, idx, out, n,
-                                                            nb, k);
+// One launch unpacks `count` <= kMaxLeaves payloads of `rows` rows each:
+// leaf l's values and indices are vals[l] and idx[l], (rows, nbs[l], k),
+// and its dense (rows, ns[l]) output is outs[l].
+extern "C" int repro_unpack_topk(const float* const* vals,
+                                 const uint16_t* const* idx,
+                                 float* const* outs, const long long* ns,
+                                 const long long* nbs, int count,
+                                 long long rows, int k, void* stream) {
+  using namespace repro_torch;
+  if (count < 1 || count > kMaxLeaves || rows < 0 || k < 1 || k > kBlock)
+    return (int)cudaErrorInvalidValue;
+  UnpackTable table{};
+  long long total = 0;
+  for (int l = 0; l < count; ++l) {
+    const bool vec = ns[l] % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(outs[l]) % 16 == 0;
+    table.leaf[l] = UnpackLeaf{vals[l], idx[l], outs[l], ns[l], nbs[l],
+                               total, vec};
+    total += rows * nbs[l];
+  }
+  table.total = total;
+  table.count = count;
+  if (total > 0) {
+    const long long ctas = (total + kWarpsPerCta - 1) / kWarpsPerCta;
+    unpack_kernel<<<(unsigned)ctas, kWarpsPerCta * 32, 0,
+                    (cudaStream_t)stream>>>(table, k);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 // QSGD stochastic rounding, shared by grid_quant (fused_compress.cu) and
-// qsgd (qsgd.cu): one thread per element of a (rows, cols) operand, each
-// row with its own norm.
+// qsgd (qsgd.cu), on (rows, cols) operands whose rows each have their own
+// norm.
 //
 // The level of an element is the reference's
 //     scaled = |x| / norm · s;  lower = ⌊scaled⌋;  q = lower + [u < scaled − lower]
@@ -24,7 +24,7 @@ __device__ __forceinline__ float qsgd_level(float x, float u, float norm,
   return __fadd_rn(lower, u < __fsub_rn(scaled, lower) ? 1.0f : 0.0f);
 }
 
-// Grid of a (rows, cols) pass: blockIdx.y walks the rows (a row's norm is
+// Grid of grid_quant's (rows, cols) pass, one thread an element: blockIdx.y walks the rows (a row's norm is
 // then one load a thread), blockIdx.x strides over the columns.
 inline dim3 rows_grid(long long rows, long long cols) {
   long long x = (cols + kQuantThreads - 1) / kQuantThreads;

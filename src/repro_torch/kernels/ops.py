@@ -61,10 +61,17 @@ def fused_delta_pack_leaves(thetas, vs, ratio: float = 0.01,
 
 def block_topk_unpack(vals: torch.Tensor, idx: torch.Tensor, shape,
                       block_size: int = 1024) -> torch.Tensor:
-    """Scatter a packed payload back to dense ``(K, *shape)`` leaves."""
-    n = int(np.prod(shape))
-    return unpack_topk(vals, idx, n, block_size).reshape(
-        (vals.shape[0],) + tuple(shape))
+    """Scatter a packed payload back to a dense ``(K, *shape)`` leaf."""
+    return block_topk_unpack_leaves([(vals, idx)], [shape], block_size)[0]
+
+
+def block_topk_unpack_leaves(payloads, shapes, block_size: int = 1024):
+    """:func:`block_topk_unpack` of every ``(vals, idx)`` payload of a list,
+    leaf ``i`` to ``(K, *shapes[i])``, in one launch a table of up to
+    ``MAX_TABLE_LEAVES`` leaves."""
+    dense = unpack_topk(payloads, [int(np.prod(s)) for s in shapes],
+                        block_size)
+    return [d.reshape((d.shape[0],) + tuple(s)) for d, s in zip(dense, shapes)]
 
 
 def leaf_fused_update(theta, vbar, v, noise, zeta: float,
@@ -78,12 +85,23 @@ def qsgd(x: torch.Tensor, u: torch.Tensor, levels: int = 16) -> torch.Tensor:
     norm, with uniforms ``u`` of the leaf's shape; ω counts one node's
     elements. A zero-size leaf comes back as it is (the reference's
     ``ops.py:122``)."""
-    if x.numel() == 0:
-        return x
-    rows = _rows(x)
-    recip = inv_one_plus(qsgd_omega(rows.shape[1], levels))
-    return qsgd_rows(rows, _rows(u), row_norm(rows), levels,
-                     recip).reshape(x.shape)
+    return qsgd_leaves([x], [u], levels)[0]
+
+
+def qsgd_leaves(xs, us, levels: int = 16):
+    """:func:`qsgd` of every leaf of a list, with its uniforms, in one
+    launch a table of up to ``MAX_TABLE_LEAVES`` leaves; the per-node
+    norms are one torch reduction a leaf."""
+    out = list(xs)
+    live = [i for i, x in enumerate(xs) if x.numel()]
+    rows = [_rows(xs[i]) for i in live]
+    got = qsgd_rows(rows, [_rows(us[i]) for i in live],
+                    [row_norm(r) for r in rows], levels,
+                    [inv_one_plus(qsgd_omega(r.shape[1], levels))
+                     for r in rows])
+    for i, q in zip(live, got):
+        out[i] = q.reshape(xs[i].shape)
+    return out
 
 
 def qsgd_quantize_carrier(carrier: torch.Tensor, u: torch.Tensor,

@@ -3,9 +3,9 @@
 Each leaf is handled as a ``(rows, n)`` tensor, one row per node, cut into
 ``nb = ceil(n / block_size)`` blocks; the ragged last block is padded with
 zeros. Pack keeps ``k`` survivors per block as ``(rows, nb, k)`` f32 values
-and uint16 block-local indices; unpack scatters them back. Pack takes a
-list of leaves with the same ``rows`` and packs them with one launch a
-table of up to ``MAX_TABLE_LEAVES``; a single leaf is a table of one.
+and uint16 block-local indices; unpack scatters them back. Pack and unpack
+take lists of leaves with the same ``rows`` and handle them with one launch
+a table of up to ``MAX_TABLE_LEAVES``; a single leaf is a table of one.
 
 Beside each kernel wrapper is its plain PyTorch version, which transcribes
 the reference's arithmetic (``_pack_tile``: 40-step bisection, definite and
@@ -115,15 +115,31 @@ def c_array(ctype, values):
     return (ctype * len(values))(*values)
 
 
+def aligned_offsets(sizes):
+    """Offsets of buffers of ``sizes`` elements laid one after another in
+    one allocation, each starting ``PAYLOAD_ALIGN``-aligned as an
+    allocation of its own would (torch's reductions sum a misaligned view
+    in another order); and the allocation's length."""
+    outs, end = [], 0
+    for size in sizes:
+        outs.append(-(-end // PAYLOAD_ALIGN) * PAYLOAD_ALIGN)
+        end = outs[-1] + size
+    return outs, end
+
+
+def tables(count: int):
+    """The slices of a list of ``count`` leaves that one launch takes."""
+    return [slice(c, c + MAX_TABLE_LEAVES)
+            for c in range(0, count, MAX_TABLE_LEAVES)]
+
+
 def pack_table(wrapper, entry, operands, k: int, block_size: int):
     """Launch a pack kernel over leaf tables: ``operands`` is ``[xs]`` or
     ``[thetas, vs]``, lists of ``(rows, n)`` CUDA tensors with the same
     ``rows``. One launch packs up to ``MAX_TABLE_LEAVES`` leaves into one
     allocation, leaf after leaf; returns each leaf's ``(vals, idx)``
-    ``(rows, nb, k)`` views of it. Each leaf's payload starts
-    ``PAYLOAD_ALIGN``-aligned, as an allocation of its own would: torch's
-    reductions (the QSGD norm of a packed carrier) sum a misaligned view in
-    another order."""
+    ``(rows, nb, k)`` views of it, each starting ``PAYLOAD_ALIGN``-aligned
+    (the QSGD norm of a packed carrier is a torch reduction)."""
     name = wrapper.__name__
     check_kernel_shape(name, k, block_size)
     leaves = operands[0]
@@ -135,17 +151,13 @@ def pack_table(wrapper, entry, operands, k: int, block_size: int):
                              f"{[tuple(op[i].shape) for op in operands]}; "
                              f"every leaf must be (rows={rows}, n)")
     nbs = [num_blocks(x.shape[1], block_size) for x in leaves]
-    outs, end = [], 0
-    for nb in nbs:
-        outs.append(-(-end // PAYLOAD_ALIGN) * PAYLOAD_ALIGN)
-        end = outs[-1] + rows * nb * k
+    outs, end = aligned_offsets([rows * nb * k for nb in nbs])
     dev = leaves[0].device
     vals = torch.empty(end, dtype=torch.float32, device=dev)
     idx = torch.empty(end, dtype=torch.uint16, device=dev)
     if rows:
         with torch.cuda.device(dev):
-            for c in range(0, len(leaves), MAX_TABLE_LEAVES):
-                part = slice(c, c + MAX_TABLE_LEAVES)
+            for part in tables(len(leaves)):
                 rc = entry(*(c_array(ctypes.c_void_p,
                                      [t.data_ptr() for t in op[part]])
                              for op in operands),
@@ -186,32 +198,67 @@ def unpack_topk_plain(vals: torch.Tensor, idx: torch.Tensor, n: int,
     dense = vals.new_zeros((rows * nb, block_size)).scatter_(1, i, v + 0.0)
     # the reference's one-hot contraction, 0 + sum_s vals[s]·[idx[s] == b]:
     # 0·inf and 0·NaN make a block whose values hold a non-finite NaN
-    # everywhere but at the index of a lone non-finite value (ROADMAP C6)
+    # everywhere but at the index of a lone non-finite value (ROADMAP C6).
+    # Non-finite values that share an index (a NaN block's empty slots, all
+    # at index 0) are not lone: their sum is NaN too, and the fill's NaN is
+    # the one written there.
     bad = ~torch.isfinite(v)
+    n_bad = bad.sum(dim=1, keepdim=True)
     here = torch.zeros_like(dense, dtype=torch.int64).scatter_add_(
         1, i, bad.long())
-    dense = torch.where(bad.sum(dim=1, keepdim=True) > here, NAN, dense)
+    dense = torch.where((n_bad > here) | (n_bad > 1), NAN, dense)
     return dense.reshape(rows, nb * block_size)[:, :n].contiguous()
 
 
-def unpack_topk(vals: torch.Tensor, idx: torch.Tensor, n: int,
-                block_size: int = 1024) -> torch.Tensor:
-    """(vals (rows, nb, k), idx uint16) -> dense (rows, n) f32."""
-    if not on_card("unpack_topk", [(vals, torch.float32), (idx, torch.uint16)]):
-        return unpack_topk_plain(vals, idx, n, block_size)
-    rows, nb, k = vals.shape
+def unpack_topk(payloads, ns, block_size: int = 1024):
+    """A list of ``(vals (rows, nb, k) f32, idx (rows, nb, k) uint16)``
+    payloads and a list of their leaves' ``n`` -> a list of dense ``(rows,
+    n)`` f32 leaves. On the card one launch unpacks a table of up to
+    ``MAX_TABLE_LEAVES`` leaves into one allocation, each leaf a
+    ``PAYLOAD_ALIGN``-aligned view of it (mixing and the round's norms
+    reduce it as they would an allocation of its own)."""
+    if isinstance(payloads, torch.Tensor) or isinstance(ns, int):
+        raise TypeError("unpack_topk takes a list of payloads and of sizes")
+    if len(payloads) != len(ns):
+        raise ValueError(f"unpack_topk: {len(payloads)} payloads, "
+                         f"{len(ns)} sizes")
+    if not payloads:
+        return []
+    ns = [int(n) for n in ns]
+    if not on_card("unpack_topk", [op for vals, idx in payloads for op in
+                                   ((vals, torch.float32),
+                                    (idx, torch.uint16))]):
+        return [unpack_topk_plain(vals, idx, n, block_size)
+                for (vals, idx), n in zip(payloads, ns)]
+    rows, _, k = payloads[0][0].shape
     check_kernel_shape("unpack_topk", k, block_size)
-    if idx.shape != vals.shape or nb != num_blocks(n, block_size):
-        raise ValueError(f"unpack_topk: vals {tuple(vals.shape)}, idx "
-                         f"{tuple(idx.shape)} do not fit n={n}")
-    out = torch.empty((rows, n), dtype=torch.float32, device=vals.device)
-    with torch.cuda.device(vals.device):
-        rc = library().repro_unpack_topk(
-            vals.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, n, nb, k,
-            stream_of(vals))
-    check(rc, "unpack_topk")
-    unpack_topk.launches += 1
-    return out
+    for i, ((vals, idx), n) in enumerate(zip(payloads, ns)):
+        if vals.shape != (rows, num_blocks(n, block_size), k) or \
+                idx.shape != vals.shape:
+            raise ValueError(f"unpack_topk: leaf {i}: vals "
+                             f"{tuple(vals.shape)}, idx {tuple(idx.shape)} "
+                             f"do not fit rows={rows}, n={n}, k={k}")
+    offs, end = aligned_offsets([rows * n for n in ns])
+    dev = payloads[0][0].device
+    out = torch.empty(end, dtype=torch.float32, device=dev)
+    dense = [out[o:o + rows * n].view(rows, n) for o, n in zip(offs, ns)]
+    if rows:
+        with torch.cuda.device(dev):
+            for part in tables(len(payloads)):
+                rc = library().repro_unpack_topk(
+                    c_array(ctypes.c_void_p,
+                            [v.data_ptr() for v, _ in payloads[part]]),
+                    c_array(ctypes.c_void_p,
+                            [i.data_ptr() for _, i in payloads[part]]),
+                    c_array(ctypes.c_void_p,
+                            [d.data_ptr() for d in dense[part]]),
+                    c_array(ctypes.c_longlong, ns[part]),
+                    c_array(ctypes.c_longlong,
+                            [v.shape[1] for v, _ in payloads[part]]),
+                    len(ns[part]), rows, k, stream_of(payloads[0][0]))
+                check(rc, "unpack_topk")
+                unpack_topk.launches += 1
+    return dense
 
 
 unpack_topk.launches = 0

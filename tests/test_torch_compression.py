@@ -404,3 +404,37 @@ def test_fused_encode_packs_every_leaf_in_one_call(trees, monkeypatch, pipe,
         else:
             np.testing.assert_array_equal(_bits(g.wire).numpy(),
                                           np.asarray(w.wire).view(np.int32))
+
+
+@pytest.mark.parametrize("pipe,min_dense", [("block_topk", 0),
+                                            ("block_topk", 200),
+                                            (PIPE, 0), (PIPE, 200)])
+def test_decode_unpacks_every_leaf_in_one_call(trees, monkeypatch, pipe,
+                                               min_dense):
+    """The stage-major decode hands every compressed leaf to one
+    ``block_topk_unpack_leaves`` call (the leaves that ride dense stay out
+    of it) and equals the leaf-by-leaf decode, each leaf through its stages
+    in reverse, bit for bit."""
+    from repro_torch.kernels import ops as kops
+    theta, v = trees
+    uniforms = (_torch_uniforms(reference_uniforms(
+        "pipeline", theta, jax.random.PRNGKey(6))) if pipe == PIPE else None)
+    stages = (BlockTopKCodec(),) + ((QSGDCodec(),) if pipe == PIPE else ())
+    codec = FusedCodec.wrap(CompressionPipeline(stages,
+                                                min_dense_size=min_dense))
+    payload = codec.encode_pair(_torch_tree(theta), _torch_tree(v), uniforms)
+    calls = []
+    one_call = kops.block_topk_unpack_leaves
+    monkeypatch.setattr(kops, "block_topk_unpack_leaves", lambda p, s, **kw: (
+        calls.append(len(p)) or one_call(p, s, **kw)))
+    got = codec.decode(payload)
+    packed = [not s.passthrough for s in payload.specs]
+    assert calls == [sum(packed)] and (min_dense > 0) == (not all(packed))
+    for (path, leaf), entry, spec in zip(tree_leaves_with_path(got),
+                                         payload.entries, payload.specs):
+        want = entry.wire
+        for stage, aux, meta in reversed(list(zip(payload.stages, entry.aux,
+                                                  spec.metas))):
+            want = stage.decode(want, aux, meta)
+        assert leaf.shape == want.shape and torch.equal(_bits(leaf),
+                                                        _bits(want)), path

@@ -43,7 +43,7 @@ def test_kernels_match_plain_versions(card, n):
     dvals, didx = kernels.delta_pack([theta], [v], 11)[0]
     dwant = delta_pack_plain(theta, v, 11)
     assert _same_bits(dvals, dwant[0]) and _same_bits(didx, dwant[1])
-    dense = kernels.unpack_topk(dvals, didx, n)
+    dense, = kernels.unpack_topk([(dvals, didx)], [n])
     assert _same_bits(dense, unpack_topk_plain(dvals, didx, n))
     xi = torch.randn((4, n), generator=gen, device=card)
     out = kernels.fused_update(theta, v * 0.5, v, xi, 0.03, 1.0)
@@ -66,7 +66,7 @@ def test_qsgd_and_dense_kernels_match_plain_versions(card, n):
     recip = inv_one_plus(qsgd_omega(n, 16))
     kernels.reset_launch_counts()
     assert _same_bits(kernels.block_topk(x, 11), block_topk_plain(x, 11))
-    assert _same_bits(kernels.qsgd(x, u, norm, 16, recip),
+    assert _same_bits(kernels.qsgd([x], [u], [norm], 16, [recip])[0],
                       qsgd_plain(x, u, norm, 16, recip))
     carrier = kernels.pack_topk([x], 11)[0][0].reshape(4, -1)
     uc = torch.rand(carrier.shape, generator=gen, device=card)
@@ -88,7 +88,7 @@ def test_ties_and_zeros(card):
         assert _same_bits(kernels.block_topk(x, 11), block_topk_plain(x, 11))
         u = torch.rand(x.shape, device=card)
         norm = row_norm(x)      # eps alone for the all-zero leaf
-        assert _same_bits(kernels.qsgd(x, u, norm, 16, 0.5),
+        assert _same_bits(kernels.qsgd([x], [u], [norm], 16, [0.5])[0],
                           qsgd_plain(x, u, norm, 16, 0.5))
 
 
@@ -135,7 +135,7 @@ def test_nonfinite_blocks_match_plain_versions(card, kind):
     dwant = delta_pack_plain(x, v, 11)
     assert _same_bits(dvals, dwant[0]) and _same_bits(didx, dwant[1])
     for p in ((vals, idx), (dvals, didx)):
-        assert _same_bits(kernels.unpack_topk(*p, 4097),
+        assert _same_bits(kernels.unpack_topk([p], [4097])[0],
                           unpack_topk_plain(*p, 4097))
     assert _same_bits(kernels.block_topk(x, 11), block_topk_plain(x, 11))
 
@@ -169,3 +169,77 @@ def test_table_launch_matches_per_leaf_plain_versions(card):
         assert _same_bits(vals, want[0]) and _same_bits(idx, want[1])
     torch.cuda.synchronize()
     assert kernels.launch_counts()["pack"] == 3
+
+
+def test_unpack_and_qsgd_tables_match_plain_versions(card):
+    """One launch unpacks a table of mixed payloads (short, ragged,
+    full-block, NaN, ±inf and -0.0 leaves: float4 and scalar fills mixed)
+    and one quantizes a table of mixed leaves (a zero-size leaf left out),
+    each leaf against its plain version; a list longer than a table takes
+    one launch a table."""
+    gen = torch.Generator(device=card).manual_seed(4)
+    xs = [torch.randn((3, n), generator=gen, device=card)
+          for n in (6, 150, 1024, 4097, 21000)]
+    signed = torch.randn((3, 4097), generator=gen, device=card)
+    signed[:, ::3] = -0.0
+    xs += [signed, _nonfinite(card, "nan"), _nonfinite(card, "inf")]
+    payloads = kernels.delta_pack(xs, [x * 0.5 for x in xs], 11)
+    ns = [x.shape[1] for x in xs]
+    kernels.reset_launch_counts()
+    dense = kernels.unpack_topk(payloads, ns)
+    assert kernels.launch_counts()["unpack"] == 1
+    for (vals, idx), n, d in zip(payloads, ns, dense):
+        assert _same_bits(d, unpack_topk_plain(vals, idx, n))
+        assert d.data_ptr() % 512 == 0
+    finite = xs[:6] + [torch.empty((3, 0), device=card)]
+    us = [torch.rand(x.shape, generator=gen, device=card) for x in finite]
+    norms = [row_norm(x) for x in finite]
+    recips = [inv_one_plus(qsgd_omega(max(x.shape[1], 1), 16)) for x in finite]
+    out = kernels.qsgd(finite, us, norms, 16, recips)
+    assert kernels.launch_counts()["qsgd"] == 1
+    for x, u, norm, r, q in zip(finite, us, norms, recips, out):
+        assert _same_bits(q, qsgd_plain(x, u, norm, 16, r))
+    many = [torch.randn((2, 100 + 4 * i), generator=gen, device=card)
+            for i in range(40)]
+    mpay = kernels.pack_topk(many, 7)
+    mns = [x.shape[1] for x in many]
+    mus = [torch.rand(x.shape, generator=gen, device=card) for x in many]
+    mnorms = [row_norm(x) for x in many]
+    kernels.reset_launch_counts()
+    for (vals, idx), n, d in zip(mpay, mns, kernels.unpack_topk(mpay, mns)):
+        assert _same_bits(d, unpack_topk_plain(vals, idx, n))
+    for x, u, norm, q in zip(many, mus, mnorms, kernels.qsgd(
+            many, mus, mnorms, 4, [0.5] * len(many))):
+        assert _same_bits(q, qsgd_plain(x, u, norm, 4, 0.5))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["unpack"], counts["qsgd"]) == (2, 2)
+
+
+@pytest.mark.parametrize("overrides,once", [
+    (dict(compressor="block_topk", fused_compress=True),
+     ("delta_pack", "unpack")),
+    (dict(pipeline="block_topk|qsgd", fused_compress=True),
+     ("delta_pack", "unpack")),
+    (dict(compressor="qsgd_pallas"), ("qsgd",))])
+def test_a_round_launches_its_table_kernels_once(card, overrides, once):
+    """One reduced round of each configuration: delta-pack and unpack (the
+    fused rounds) and qsgd (the legacy dense round) launch once over the
+    table of the model's leaves."""
+    from repro_torch.config import FedConfig, get_arch
+    from repro_torch.data.partition import partition_iid
+    from repro_torch.data.radar import make_dataset
+    from repro_torch.models import get_model
+    from repro_torch.train import FedTrainer
+    cfg = get_arch("lenet-radar", reduced=True)
+    fed = FedConfig(num_nodes=3, local_steps=2, eta=1e-3, zeta=0.3,
+                    temperature=0.2, burn_in=0, rounds=1, topology="full",
+                    **overrides)
+    data = make_dataset(30, hw=cfg.input_hw, day=1, seed=0)
+    trainer = FedTrainer(get_model(cfg), fed, partition_iid(data, 3),
+                         minibatch=5, device=card)
+    kernels.reset_launch_counts()
+    trainer.run(rounds=1)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert {name: counts[name] for name in once} == dict.fromkeys(once, 1)

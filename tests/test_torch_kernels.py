@@ -143,10 +143,10 @@ def test_qsgd_matches_reference(shape, kind, levels):
         want = jops.qsgd(jnp.asarray(x[r]), key, levels=levels)
         u = np.array(jax.random.uniform(key, x[r].shape, jnp.float32))
         n = x[r].size
-        got = qsgd(torch.from_numpy(x[r].reshape(1, -1)),
-                   torch.from_numpy(u.reshape(1, -1)),
-                   torch.from_numpy(_ref_norm(x[r])), levels,
-                   inv_one_plus(qsgd_omega(n, levels)))
+        got, = qsgd([torch.from_numpy(x[r].reshape(1, -1))],
+                    [torch.from_numpy(u.reshape(1, -1))],
+                    [torch.from_numpy(_ref_norm(x[r]))], levels,
+                    [inv_one_plus(qsgd_omega(n, levels))])
         _assert_exact(got.numpy().reshape(x[r].shape), want)
 
 
@@ -154,7 +154,7 @@ def test_qsgd_keeps_the_sign_of_zero():
     """jnp.sign(-0.0) is -0.0 and torch.sign(-0.0) is +0.0; the port
     gives the reference's -0.0."""
     x = torch.tensor([[-0.0, 0.0, 1.0, -2.0]])
-    out = qsgd(x, torch.zeros_like(x), torch.ones(1), 16, 1.0)
+    out, = qsgd([x], [torch.zeros_like(x)], [torch.ones(1)], 16, [1.0])
     assert torch.signbit(out[0, :2]).tolist() == [True, False]
     assert torch.signbit(ops.qsgd(x, torch.zeros_like(x))[0, :2]).tolist() \
         == [True, False]
@@ -271,7 +271,7 @@ def test_wrappers_check_dtypes():
     with pytest.raises(ValueError, match="float32"):
         grid_quant(x, x.double(), torch.ones(1), 16)
     with pytest.raises(ValueError, match="float32"):
-        qsgd(x, x, torch.ones(1, dtype=torch.float64), 16, 1.0)
+        qsgd([x], [x], [torch.ones(1, dtype=torch.float64)], 16, [1.0])
 
 
 # --------------------------------------------------------------------------
@@ -458,6 +458,12 @@ def _crafted_payloads(seed=14):
             vals[0, s] = val
         cases.append((name, vals, idx))
     cases.append(("all negative", -np.abs(base), idx))
+    # a NaN block with nothing to keep: every slot NaN at index 0
+    empty = idx.copy()
+    empty[0] = 0
+    nan_block = base.copy()
+    nan_block[0] = np.nan
+    cases.append(("empty nan slots", nan_block, empty))
     return cases
 
 
@@ -476,11 +482,12 @@ def test_unpack_of_nonfinite_payloads_matches_reference(kind):
         _assert_exact_nan(got[r].numpy(), want)
 
 
-@pytest.mark.parametrize("case", range(7))
+@pytest.mark.parametrize("case", range(8))
 def test_unpack_follows_the_one_hot_contraction(case):
     """Crafted payloads against ``unpack_topk_pallas``: a lone ±inf keeps
     its index and NaNs the rest of its block, a -0.0 value and the unpicked
-    positions of an all-negative block decode to +0.0."""
+    positions of an all-negative block decode to +0.0, and NaN slots that
+    share an index decode to a block of NaN."""
     name, vals, idx = _crafted_payloads()[case]
     want = unpack_topk_pallas(jnp.asarray(vals), jnp.asarray(idx), 1024)
     got = unpack_topk_plain(torch.from_numpy(vals).reshape(1, 8, -1),
@@ -512,3 +519,67 @@ def test_list_form_equals_per_leaf_calls():
         pack_topk(torch.from_numpy(leaves[0]), 11)
     with pytest.raises(ValueError, match="thetas"):
         delta_pack([torch.from_numpy(leaves[0])], [], 11)
+
+
+TABLE_NS = (6, 150, 1024, 4097, 21000, 0)
+
+
+@pytest.mark.parametrize("levels", [16, 4])
+def test_qsgd_table_equals_reference_leaf_by_leaf(levels):
+    """The table wrapper over mixed leaves (a zero-size one included),
+    each row handed the reference's uniforms and norm, against
+    ``jops.qsgd`` row by row, exactly."""
+    rng = np.random.default_rng(16)
+    xs, us, norms, recips, wants = [], [], [], [], []
+    for i, n in enumerate(TABLE_NS):
+        x = rng.standard_normal((ROWS, n)).astype(np.float32)
+        x[:, ::7] = -0.0
+        keys = [jax.random.PRNGKey(100 * i + r) for r in range(ROWS)]
+        wants.append([np.asarray(jops.qsgd(jnp.asarray(x[r]), keys[r],
+                                           levels=levels))
+                      for r in range(ROWS)])
+        xs.append(torch.from_numpy(x))
+        us.append(torch.from_numpy(np.stack([np.array(jax.random.uniform(
+            k, (n,), jnp.float32)) for k in keys])))
+        norms.append(torch.from_numpy(np.concatenate(
+            [_ref_norm(x[r]) for r in range(ROWS)])))
+        recips.append(inv_one_plus(qsgd_omega(n, levels)) if n else 1.0)
+    got = qsgd(xs, us, norms, levels, recips)
+    assert len(got) == len(TABLE_NS)
+    for q, want in zip(got, wants):
+        for r in range(ROWS):
+            _assert_exact(q[r].numpy(), want[r])
+    with pytest.raises(TypeError, match="list"):
+        qsgd(xs[0], us[0], norms[0], levels, recips[0])
+
+
+def test_unpack_table_equals_reference_leaf_by_leaf():
+    """The table wrapper over the reference's payloads of mixed leaves
+    (short, ragged, full-block, NaN and ±inf) against
+    ``jops.block_topk_unpack`` and the interpret-mode
+    ``unpack_topk_pallas``, row by row; every NaN read as one pattern."""
+    leaves = [_leaf((n,), "normal", seed=17).reshape(ROWS, n)
+              for n in TABLE_NS[:-1]]
+    leaves += [_nonfinite_leaf("nan"), _nonfinite_leaf("inf")]
+    packed = [[jops.block_topk_pack(jnp.asarray(x[r])) for r in range(ROWS)]
+              for x in leaves]
+    payloads = [tuple(torch.from_numpy(np.stack([np.asarray(p[j])
+                                                 for p in rows]))
+                      for j in range(2)) for rows in packed]
+    ns = [x.shape[1] for x in leaves]
+    got = kernels.unpack_topk(payloads, ns)
+    assert len(got) == len(leaves)
+    for dense, rows, n in zip(got, packed, ns):
+        for r, (vals, idx) in enumerate(rows):
+            want = jops.block_topk_unpack(vals, idx, n, (n,))
+            _assert_exact_nan(dense[r].numpy(), want)
+            pad = ((0, -vals.shape[0] % 8), (0, 0))    # its 8-row tiles
+            tile = unpack_topk_pallas(jnp.pad(vals, pad),
+                                      jnp.pad(idx.astype(jnp.int32), pad),
+                                      1024)
+            _assert_exact_nan(dense[r].numpy(),
+                              np.asarray(tile).reshape(-1)[:n])
+    with pytest.raises(TypeError, match="list"):
+        kernels.unpack_topk(payloads[0], ns[0])
+    with pytest.raises(ValueError, match="sizes"):
+        kernels.unpack_topk(payloads, ns[:-1])
