@@ -11,19 +11,22 @@ Phases, each of which fails the run by raising:
              grid_quant, qsgd, block_topk) against their plain PyTorch
              versions on the card, exactly, at the main paths' full-width
              shapes (K=10: the 10 leaves; grid_quant the 10 packed (K, nb,
-             11) carriers) and at edge cases (a ragged leaf, leaves shorter
-             than a block, an all-zero leaf, a leaf of exact ties, a leaf
-             with -0.0 entries; and, for pack, delta-pack, unpack and
-             block_topk, leaves with NaN and ±inf blocks); pack,
-             delta-pack and unpack also as one table launch over all those
-             leaves mixed together, and qsgd as one over the finite ones,
-             each exactly one launch. Time each beside its bound and its
-             plain version, by CUDA events (host time per call included) and
-             by the device time in a profiler trace (the kernels alone,
-             after a profiled warm-up call whose events are dropped, each
-             kernel's launches in the trace checked against its count);
-             pack, delta-pack, unpack and qsgd as the round runs them, one
-             table launch over the 10 leaves.
+             11) carriers, grids and norms) and at edge cases (a ragged
+             leaf, leaves shorter than a block, an all-zero leaf, a leaf of
+             exact ties, a leaf with -0.0 entries; and, for pack,
+             delta-pack, unpack and block_topk, leaves with NaN and ±inf
+             blocks); pack, delta-pack and unpack also as one table launch
+             over all those leaves mixed together (unpack with payloads
+             that repeat indices, ROADMAP C7, added; k = 40 ones in a
+             launch of their own), and qsgd and grid_quant as one over the
+             finite ones, each exactly one launch. Time each beside its
+             bound and its plain
+             version, by CUDA events (host time per call included) and by
+             the device time in a profiler trace (the kernels alone, after a
+             profiled warm-up call whose events are dropped, each kernel's
+             launches in the trace checked against its count); pack,
+             delta-pack, unpack, qsgd and grid_quant as the round runs
+             them, one table launch over the 10 leaves.
 3. slice   — FedTrainer(device="cuda") on full-width lenet-radar (256x63,
              K=10, L=8, minibatch 10, ratio 1%, block 1024, η=1e-4, ζ=0.03,
              T=1) in four configurations, each run with the launch counts
@@ -34,8 +37,8 @@ Phases, each of which fails the run by raising:
              qsgd_pallas (2 rounds, 1,949,174 bytes) and block_topk_pallas
              (2 rounds, 155,934 bytes) compressors. Every value finite, the
              bytes exact, every kernel of each path launched, and
-             delta-pack and unpack (the fused runs) and qsgd (qsgd_pallas)
-             once a round.
+             delta-pack and unpack (the fused runs), grid_quant
+             (block_topk|qsgd) and qsgd (qsgd_pallas) once a round.
 4. oracle  — one round of each pipeline from its run's state through
              FusedCodec(fused=False), which runs the pack kernel (and QSGD's
              own torch arithmetic) and unpacks with one launch: its payload
@@ -44,7 +47,9 @@ Phases, each of which fails the run by raising:
              decode of the same payload.
 5. profile — traced rounds (block_topk fused, its oracle, block_topk|qsgd,
              qsgd_pallas, block_topk_pallas): the device's busy share, the
-             top kernels, and each ported kernel's device time in a round.
+             top kernels, each ported kernel's device time in a round, and
+             torch's norm reductions (none in the block_topk|qsgd round:
+             its norms are grid_quant's).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository, it exits non-zero and prints no
@@ -71,16 +76,15 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch import kernels  # noqa: E402
 from repro_torch.config import FedConfig, get_arch  # noqa: E402
 from repro_torch.core.algorithms import langevin_noise, make_cdbfl_round  # noqa: E402
-from repro_torch.core.compression import (BlockTopKCodec,  # noqa: E402
-                                          CompressionPipeline, FusedCodec,
-                                          LeafPayload, QSGDCodec, WirePayload)
+from repro_torch.core.compression import (  # noqa: E402
+    CompressionPipeline, FusedCodec, LeafPayload, WirePayload)
 from repro_torch.data.partition import partition_iid  # noqa: E402
 from repro_torch.data.radar import make_dataset  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.block_topk import block_topk, block_topk_plain  # noqa: E402
-from repro_torch.kernels.fused_compress import (delta_pack,  # noqa: E402
-                                                delta_pack_plain, grid_quant,
-                                                grid_quant_plain)
+from repro_torch.kernels.fused_compress import (  # noqa: E402
+    carrier_norms_plain, delta_pack, delta_pack_plain, grid_quant_leaves,
+    grid_quant_plain)
 from repro_torch.kernels.fused_update import fused_update, fused_update_plain  # noqa: E402
 from repro_torch.kernels.pack import (from_uint16, num_blocks,  # noqa: E402
                                       pack_topk, pack_topk_plain, unpack_topk,
@@ -110,16 +114,17 @@ RUNS = {
                           ("block_topk", "fused_update")),
 }
 # the kernels that launch once a round over a table of all the leaves
-ONCE_A_ROUND = ("delta_pack", "unpack", "qsgd")
+ONCE_A_ROUND = ("delta_pack", "unpack", "qsgd", "grid_quant")
 # H100 SXM peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # f32 operations per element: |d|, the max, 40 bisection compares, 2 mask
 # compares (delta-pack adds the subtraction; block_topk is pack's); Eq. 9:
 # sub + 2 fma; QSGD's level: |x|, div, mul, floor, sub, compare (grid_quant
-# adds the sign; qsgd the sign and its three products)
+# adds the sign and the norm's square and add; qsgd the sign and its three
+# products)
 PACK_OPS, DELTA_PACK_OPS, UPDATE_OPS = 44, 45, 5
-GRID_QUANT_OPS, QSGD_OPS, BLOCK_TOPK_OPS = 6, 8, 44
+GRID_QUANT_OPS, QSGD_OPS, BLOCK_TOPK_OPS = 8, 8, 44
 
 KERNELS = {
     "pack": ("src/repro_torch/kernels/csrc/pack.cu",
@@ -295,12 +300,39 @@ def leaf_cases(shapes):
     yield "inf 4097", inf, v_inf
 
 
+def repeated_payloads(k: int):
+    """(K, 4, k) payloads whose blocks repeat indices (ROADMAP C7): a pair,
+    the order-sensitive triple (1e8, 1, -1e8), -0.0 beside +0.0, an inf
+    beside a finite value, inf beside inf and inf beside -inf, and for
+    k > 32 repeats across the 32-slot chunks; the other blocks' indices
+    distinct. Made on the card."""
+    gen = torch.Generator(device=DEVICE).manual_seed(k)
+    idx = torch.argsort(torch.rand((K, 4, 1024), generator=gen,
+                                   device=DEVICE), dim=2)[:, :, :k]
+    vals = torch.randn((K, 4, k), generator=gen, device=DEVICE)
+    inf = float("inf")
+    groups = [(0, 0, (0, 1, 2), (1e8, 1.0, -1e8)),
+              (0, 0, (3, k - 1), (1.5, 2.25)),
+              (1, 1, (4, 5), (-0.0, 0.0)),
+              (2, 3, (1, k - 2), (inf, 2.0)),
+              (4, 0, (2, k - 1), (inf, inf)),
+              (5, 1, (0, 7), (inf, -inf))]
+    if k > 32:
+        groups += [(3, 2, (6, 31, 32, k - 1), (1e8, 1.0, -1e8, 1.0)),
+                   (6, 3, (3, 35), (inf, inf))]
+    for row, block, slots, slot_vals in groups:
+        vals[row, block, list(slots)] = torch.tensor(slot_vals, device=DEVICE)
+        idx[row, block, list(slots)] = int(idx[row, block, slots[0]])
+    return vals, idx.to(torch.int16).view(torch.uint16)
+
+
 def check_kernels(shapes):
     errs = {name: 0.0 for name in KERNELS}
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     cases = list(leaf_cases(shapes))
     payloads, quant = [], []      # every case's payload; the finite cases'
-    for name, theta, v in cases:  # (name, x, u, norm, recip)
+    carriers = []                 # (name, x, u, norm, recip), (carrier, u)
+    for name, theta, v in cases:
         n = theta.shape[1]
         (vals, idx), = pack_topk([theta], SURVIVORS)
         want = pack_topk_plain(theta, SURVIVORS)
@@ -326,14 +358,17 @@ def check_kernels(shapes):
             recip = inv_one_plus(qsgd_omega(n, LEVELS))
             carrier = dvals.reshape(K, -1)
             uc = torch.rand(carrier.shape, generator=gen, device=DEVICE)
-            nc = row_norm(carrier)
+            (grid,), (nc,) = grid_quant_leaves([carrier], [uc], LEVELS)
+            nc_want = carrier_norms_plain(carrier)
             quant.append((name, theta, u, norm, recip))
+            carriers.append((carrier, uc))
             checks.update({
                 "fused_update": [(fused_update(theta, vb, v, xi, 0.03, 1.0),
                                   fused_update_plain(theta, vb, v, xi, 0.03,
                                                      1.0))],
-                "grid_quant": [(grid_quant(carrier, uc, nc, LEVELS),
-                                grid_quant_plain(carrier, uc, nc, LEVELS))],
+                "grid_quant": [(nc, nc_want),
+                               (grid, grid_quant_plain(carrier, uc, nc_want,
+                                                       LEVELS))],
                 "qsgd": [(qsgd([theta], [u], [norm], LEVELS, [recip])[0],
                           qsgd_plain(theta, u, norm, LEVELS, recip))]})
         for kname, pairs in checks.items():
@@ -348,34 +383,56 @@ def check_kernels(shapes):
             raise AssertionError(f"delta_pack != pack(θ − v) on {name}")
         log("kernels", f"{name}: K={K} n={n}: {', '.join(checks)} bit-exact "
                        f"to their plain versions")
-    # one table launch over every case's leaf (qsgd: every finite case's),
-    # each against its leaf's plain version
-    wrappers = (pack_topk, delta_pack, unpack_topk, qsgd)
+    # one table launch over every case's leaf (unpack: and the payloads that
+    # repeat indices; qsgd and grid_quant: every finite case's), each
+    # against its leaf's plain version
+    repeats = repeated_payloads(SURVIVORS)
+    wrappers = (pack_topk, delta_pack, unpack_topk, qsgd, grid_quant_leaves)
     launched = [w.launches for w in wrappers]
     thetas, vs = [c[1] for c in cases], [c[2] for c in cases]
     packed = pack_topk(thetas, SURVIVORS)
     dpacked = delta_pack(thetas, vs, SURVIVORS)
-    dense = unpack_topk(payloads, [t.shape[1] for t in thetas])
+    unpacked = payloads + [repeats]
+    ns = [t.shape[1] for t in thetas] + [4 * 1024 - 5]
+    dense = unpack_topk(unpacked, ns)
     _, xs, us, norms, recips = zip(*quant)
     quantized = qsgd(xs, us, norms, LEVELS, recips)
-    if [w.launches - n for w, n in zip(wrappers, launched)] != [1] * 4:
+    grids, gnorms = grid_quant_leaves(*zip(*carriers), LEVELS)
+    if [w.launches - n for w, n in zip(wrappers, launched)] != [1] * 5:
         raise AssertionError("a mixed table took other than one launch")
-    for (name, theta, v), got, dgot, (dvals, didx), d in zip(
-            cases, packed, dpacked, payloads, dense):
-        for a, b in zip(got + dgot + (d,), pack_topk_plain(theta, SURVIVORS)
-                        + delta_pack_plain(theta, v, SURVIVORS)
-                        + (unpack_topk_plain(dvals, didx, theta.shape[1]),)):
+    for (name, theta, v), got, dgot in zip(cases, packed, dpacked):
+        for a, b in zip(got + dgot, pack_topk_plain(theta, SURVIVORS)
+                        + delta_pack_plain(theta, v, SURVIVORS)):
             if not bitwise_equal(a, b):
                 raise AssertionError(f"the table launch differs from the "
                                      f"plain version on {name}")
+    for (vals, idx), n, d in zip(unpacked, ns, dense):
+        if not bitwise_equal(d, unpack_topk_plain(vals, idx, n)):
+            raise AssertionError(f"the unpack table launch differs from the "
+                                 f"plain version (n={n})")
+        errs["unpack"] = max(errs["unpack"],
+                             max_abs_err(d, unpack_topk_plain(vals, idx, n)))
+    wide = repeated_payloads(40)              # k > 32, a launch of its own
+    if not bitwise_equal(unpack_topk([wide], [4 * 1024])[0],
+                         unpack_topk_plain(*wide, 4 * 1024)):
+        raise AssertionError("unpack differs from its plain version on k=40 "
+                             "payloads that repeat indices")
     for (name, x, u, norm, recip), got in zip(quant, quantized):
         if not bitwise_equal(got, qsgd_plain(x, u, norm, LEVELS, recip)):
             raise AssertionError(f"the qsgd table launch differs from the "
                                  f"plain version on {name}")
+    for (name, *_), (x, u), g, nrm in zip(quant, carriers, grids, gnorms):
+        want = carrier_norms_plain(x)
+        if not (bitwise_equal(nrm, want)
+                and bitwise_equal(g, grid_quant_plain(x, u, want, LEVELS))):
+            raise AssertionError(f"the grid_quant table launch differs from "
+                                 f"the plain version on {name}")
     log("kernels", f"one table launch each of pack, delta-pack and unpack "
-                   f"over the {len(cases)} leaves above, and of qsgd over the "
-                   f"{len(quant)} finite ones: bit-exact to every leaf's "
-                   f"plain version")
+                   f"over the {len(cases)} leaves above (unpack: and {K} rows "
+                   f"of payloads that repeat indices, ROADMAP C7; k=40 ones "
+                   f"in a launch of their own), and of qsgd and grid_quant "
+                   f"over the {len(quant)} finite ones (grid_quant's grids and "
+                   f"norms): bit-exact to every leaf's plain version")
     return errs
 
 
@@ -388,7 +445,7 @@ def leaf_runs(th, v, vb, xi, vals, idx, u, uc):
     padded = K * nb * BLOCK
     carrier = vals.reshape(K, -1)
     m = carrier.shape[1]
-    norm, nc = row_norm(th), row_norm(carrier)
+    norm = row_norm(th)
     recip = inv_one_plus(qsgd_omega(n, LEVELS))
     return {
         "pack": (lambda: pack_topk([th], SURVIVORS),
@@ -403,8 +460,8 @@ def leaf_runs(th, v, vb, xi, vals, idx, u, uc):
         "fused_update": (lambda: fused_update(th, vb, v, xi, 0.03, 1.0),
                          lambda: fused_update_plain(th, vb, v, xi, 0.03, 1.0),
                          5 * K * n * 4, UPDATE_OPS * K * n),
-        "grid_quant": (lambda: grid_quant(carrier, uc, nc, LEVELS),
-                       lambda: grid_quant_plain(carrier, uc, nc, LEVELS),
+        "grid_quant": (lambda: grid_quant_leaves([carrier], [uc], LEVELS),
+                       lambda: grid_quant_pair_plain(carrier, uc),
                        K * m * (4 + 4 + 1) + K * 4, GRID_QUANT_OPS * K * m),
         "qsgd": (lambda: qsgd([th], [u], [norm], LEVELS, [recip]),
                  lambda: qsgd_plain(th, u, norm, LEVELS, recip),
@@ -415,6 +472,12 @@ def leaf_runs(th, v, vb, xi, vals, idx, u, uc):
     }
 
 
+def grid_quant_pair_plain(carrier, u):
+    """grid_quant's plain version: the norms, then the grid."""
+    norm = carrier_norms_plain(carrier)
+    return grid_quant_plain(carrier, u, norm, LEVELS), norm
+
+
 def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
@@ -422,17 +485,18 @@ def fmt_ms(ms) -> str:
 def time_kernels(shapes):
     """Per-round time of each kernel over the main path's leaves (K=10
     rows), its plain version's, and its bound: one launch a leaf, but for
-    pack, delta-pack, unpack and qsgd one table launch over the 10 leaves,
-    as the round runs delta-pack, unpack and qsgd. Two clocks: CUDA events
+    pack, delta-pack, unpack, qsgd and grid_quant one table launch over the
+    10 leaves, as the round runs the last four. Two clocks: CUDA events
     around back-to-back calls (``ms``, ``plain_ms``: what a caller pays,
     host time per call included wherever it exceeds the device work) and
-    the device time in a profiler trace (``device_ms``, ``plain_device_ms``: the kernels alone,
-    None where no trace was whole)."""
+    the device time in a profiler trace (``device_ms``,
+    ``plain_device_ms``: the kernels alone, None where no trace was
+    whole)."""
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     rows = {name: dict(ms=0.0, plain_ms=0.0, nbytes=0.0, ops=0.0, fns=[],
                        plain_fns=[]) for name in KERNELS}
     largest = max(int(np.prod(s)) for _, s in shapes)
-    ths, vs, payloads, us = [], [], [], []
+    ths, vs, payloads, us, carriers, ucs = [], [], [], [], [], []
     for _, shape in shapes:
         n = int(np.prod(shape))
         th = torch.randn((K, n), generator=gen, device=DEVICE)
@@ -445,6 +509,8 @@ def time_kernels(shapes):
         us.append(u)
         uc = torch.rand((K, vals.shape[1] * SURVIVORS), generator=gen,
                         device=DEVICE)
+        carriers.append(vals.reshape(K, -1))
+        ucs.append(uc)
         runs = leaf_runs(th, v, vb, xi, vals, idx, u, uc)
         for name, (kern, plain, nbytes, ops) in runs.items():
             r = rows[name]
@@ -461,9 +527,9 @@ def time_kernels(shapes):
                                f"device {fmt_ms(traced_ms([kern], name))}, "
                                f"event-timed {ms:.4f} ms; plain {plain_ms:.4f}"
                                f" ms; bound {b_ms:.4f} ms ({b_by})")
-    # pack, delta-pack, unpack and qsgd as the round runs the last three, one
-    # table launch over the 10 leaves, in place of their sums of one launch
-    # a leaf
+    # pack, delta-pack, unpack, qsgd and grid_quant as the round runs the
+    # last four, one table launch over the 10 leaves, in place of their sums
+    # of one launch a leaf
     ns = [t.shape[1] for t in ths]
     norms = [row_norm(t) for t in ths]
     recips = [inv_one_plus(qsgd_omega(n, LEVELS)) for n in ns]
@@ -477,7 +543,11 @@ def time_kernels(shapes):
                                  for p, n in zip(payloads, ns)]),
              "qsgd": (lambda: qsgd(ths, us, norms, LEVELS, recips),
                       lambda: [qsgd_plain(*a, LEVELS, r) for a, r in
-                               zip(zip(ths, us, norms), recips)])}
+                               zip(zip(ths, us, norms), recips)]),
+             "grid_quant": (lambda: grid_quant_leaves(carriers, ucs,
+                                                      LEVELS),
+                            lambda: [grid_quant_pair_plain(c, u)
+                                     for c, u in zip(carriers, ucs)])}
     for name, (kern, plain) in table.items():
         r = rows[name]
         r["ms"], r["plain_ms"] = device_ms(kern), device_ms(plain, reps=3,
@@ -630,6 +700,16 @@ TRACE_ROUND = {"pack": "block_topk oracle", "delta_pack": "block_topk",
                "block_topk": "block_topk_pallas"}
 
 
+# torch.linalg.vector_norm's reduction kernels in a profiler trace
+NORM_REDUCTION = "Norm"
+
+
+def norm_reductions(by_name):
+    """(launches, device ms) of torch's norm reductions in a trace."""
+    hits = [(t, c) for n, (t, c) in by_name.items() if NORM_REDUCTION in n]
+    return sum(c for _, c in hits), sum(t for t, _ in hits) / 1e3
+
+
 def trace_round(trainer, round_fn):
     """(wall ms of an untraced round, {device kernel: (µs, count)} of a
     traced one), from the trainer's state, after a warm-up round."""
@@ -676,6 +756,12 @@ def profile_rounds(trainers, oracle_fns, timing):
                 log("profile", f"  {label}: {kname} "
                                f"{sum(t for t, _ in hits) / 1e3:.4f} ms device "
                                f"time, {sum(c for _, c in hits)} launches")
+        count, ms = norm_reductions(by_name)
+        log("profile", f"  {label}: torch norm reductions: {count} launches, "
+                       f"{ms:.4f} ms device time")
+        if label == PIPE and count:
+            raise AssertionError(f"{PIPE} round ran {count} torch norm "
+                                 f"reductions; its norms are grid_quant's")
     for kname, pattern in TRACE_NAMES.items():
         label = TRACE_ROUND[kname]
         hits = [(t, c) for n, (t, c) in traces[label].items() if pattern in n]

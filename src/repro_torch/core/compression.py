@@ -30,8 +30,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.fused_compress import grid_quant_plain
-from repro_torch.kernels.qsgd import inv_one_plus, row_norm
+from repro_torch.kernels.fused_compress import (carrier_norms_plain,
+                                                grid_quant_plain)
+from repro_torch.kernels.qsgd import inv_one_plus
 from repro_torch.kernels.qsgd import qsgd_omega as _qsgd_omega
 from repro_torch.utils.tree import (tree_count, tree_leaves_with_path,
                                    tree_map, tree_unflatten)
@@ -102,10 +103,12 @@ class QSGDCodec:
     node-stacked encode gives ``(K, *shape)`` int8 and a ``(K, 1)`` scale.
 
     ``encode`` is the codec's own arithmetic in torch ops (the two-pass
-    oracle's); the fused path runs the grid_quant kernel instead
-    (:func:`_qsgd_encode_kernel`). Decode is ``q·norm/s·r`` with ``r`` the
-    f32 reciprocal of ``1 + ω``: the reference's jit-compiled decode, which
-    XLA folds from ``/ s / (1 + ω)``.
+    oracle's), the norm in the grid_quant kernel's summation order
+    (:func:`carrier_norms_plain`); the fused path runs the kernel instead
+    (``FusedCodec``), with the same carrier and scale bit for bit. Decode
+    is ``q·norm/s·r`` with ``r`` the f32 reciprocal of ``1 + ω``: the
+    reference's jit-compiled decode, which XLA folds from ``/ s / (1 +
+    ω)``.
     """
     levels: int = 16
     stochastic = True
@@ -121,7 +124,7 @@ class QSGDCodec:
 
     def encode(self, x, u):
         rows = x.float().reshape(x.shape[0], -1)
-        norm = row_norm(rows)
+        norm = carrier_norms_plain(rows)
         grid = grid_quant_plain(rows, u.reshape(rows.shape), norm, self.levels)
         return (grid.reshape(x.shape), {"scale": norm.reshape(-1, 1)},
                 self._meta(x))
@@ -133,13 +136,6 @@ class QSGDCodec:
 
     def decode_leaves(self, items):
         return [self.decode(*item) for item in items]
-
-
-def _qsgd_encode_kernel(stage: QSGDCodec, x, u):
-    """:meth:`QSGDCodec.encode` with the grid arithmetic in the grid_quant
-    kernel; the same carrier and scale bit for bit."""
-    grid, norm = kops.qsgd_quantize_carrier(x, u, levels=stage.levels)
-    return grid, {"scale": norm.reshape(-1, 1)}, stage._meta(x)
 
 
 def _rides_dense(x, min_dense_size: int) -> bool:
@@ -297,7 +293,8 @@ class FusedCodec(CompressionPipeline):
     """Compress-in-update lowering: ``encode_pair`` runs the delta-pack
     kernel once over every compressed leaf (one launch a table of leaves),
     so the dense residual never reaches device memory, and a trailing QSGD
-    stage quantizes each packed carrier in the grid_quant kernel. With
+    stage quantizes every packed carrier, norms included, in one grid_quant
+    launch a table of leaves. With
     ``fused=False`` the same object is the two-pass oracle: residual
     materialized, the pack kernel leaf by leaf, then the QSGD codec's own
     arithmetic. Both give the same payload bit for bit."""
@@ -316,15 +313,17 @@ class FusedCodec(CompressionPipeline):
         s0, *rest = self.stages          # parse_pipeline: block_topk first
         packed = kops.fused_delta_pack_leaves(xs, vs, ratio=s0.ratio,
                                               block_size=s0.block_size)
-        out = []
-        for x, u, (vals, idx) in zip(xs, us, packed):
-            carrier, auxes, metas = vals, [{"idx": idx}], [s0._meta(x, vals)]
-            for stage in rest:           # QSGD, the one stage that follows
-                carrier, aux, meta = _qsgd_encode_kernel(stage, carrier, u)
-                auxes.append(aux)
-                metas.append(meta)
-            out.append((carrier, tuple(auxes), tuple(metas)))
-        return out
+        out = [(vals, ({"idx": idx},), (s0._meta(x, vals),))
+               for x, (vals, idx) in zip(xs, packed)]
+        if not rest:
+            return out
+        stage, = rest                    # QSGD, the one stage that follows
+        quantized = kops.qsgd_quantize_carriers([vals for vals, _ in packed],
+                                                us, levels=stage.levels)
+        return [(grid, auxes + ({"scale": norm.reshape(-1, 1)},),
+                 metas + (stage._meta(carrier),))
+                for (carrier, auxes, metas), (grid, norm) in zip(out,
+                                                                 quantized)]
 
 
 @dataclass(frozen=True)

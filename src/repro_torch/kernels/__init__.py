@@ -4,14 +4,15 @@ Importing this package builds nothing: the CUDA library is compiled on the
 first launch (``_build.library``).
 """
 from repro_torch.kernels.block_topk import block_topk
-from repro_torch.kernels.fused_compress import delta_pack, grid_quant
+from repro_torch.kernels.fused_compress import delta_pack, grid_quant_leaves
 from repro_torch.kernels.fused_update import fused_update
 from repro_torch.kernels.pack import pack_topk, unpack_topk
 from repro_torch.kernels.qsgd import qsgd
 
 WRAPPERS = {"pack": pack_topk, "delta_pack": delta_pack,
             "unpack": unpack_topk, "fused_update": fused_update,
-            "grid_quant": grid_quant, "qsgd": qsgd, "block_topk": block_topk}
+            "grid_quant": grid_quant_leaves, "qsgd": qsgd,
+            "block_topk": block_topk}
 
 
 def launch_counts() -> dict:

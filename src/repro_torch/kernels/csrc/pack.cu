@@ -28,8 +28,12 @@
 //            and a popcount (no CTA barrier), the fill is 8 float4 stores a
 //            lane (512 contiguous bytes a warp a store), then __syncwarp()
 //            orders the warp's writes and the k survivors are scattered.
-//            Block-local indices are distinct, so the stores never
-//            conflict.
+//            Pack never repeats an index, but a payload rebuilt from frames
+//            may (ROADMAP C7): the repeats are found without a load (one
+//            __match_any_sync on the slots held in registers, or a 1024-bit
+//            shared-memory set for k > 32), and only a block that holds one
+//            takes the slower path in which one slot sums each index's
+//            values in slot order.
 #include "pack_tile.cuh"
 
 namespace repro_torch {
@@ -62,10 +66,13 @@ struct UnpackTable {
 // Values follow the reference's one-hot contraction (pack.py:95-96),
 // out[b] = 0 + Σ_s vals[s]·[idx[s] == b]: a -0.0 value decodes to +0.0, and
 // since 0·inf and 0·NaN are NaN, a block whose values hold a non-finite
-// decodes to NaN everywhere but at the index of a lone non-finite value,
-// which keeps it (ROADMAP C6).
+// decodes to NaN everywhere but at an index that holds all of the block's
+// non-finite values, which keeps its sum (ROADMAP C6). Values that share an
+// index add up, from +0.0 in slot order (ROADMAP C7).
 __global__ void __launch_bounds__(kWarpsPerCta * 32)
 unpack_kernel(const __grid_constant__ UnpackTable table, int k) {
+  __shared__ unsigned seen[kWarpsPerCta][kBlock / 32];   // k > 32: the set
+
   const int lane = threadIdx.x & 31;
   const long long warp =
       (long long)blockIdx.x * kWarpsPerCta + (threadIdx.x >> 5);
@@ -80,15 +87,37 @@ unpack_kernel(const __grid_constant__ UnpackTable table, int k) {
   const float* vb = leaf.vals + local * k;
   const uint16_t* ib = leaf.idx + local * k;
 
-  // the block's non-finite values: slots 0..31 stay in registers
+  // the block's non-finite values: slots 0..31 stay in registers (a lane
+  // past k holds an index no slot has)
   const float v0 = lane < k ? vb[lane] : 0.0f;
-  const int i0 = lane < k ? ib[lane] : 0;
-  int bad = __popc(__ballot_sync(kFull, !is_finite(v0)));
+  const int i0 = lane < k ? ib[lane] : -1 - lane;
+  const unsigned bad0 = __ballot_sync(kFull, !is_finite(v0));
+  int bad = __popc(bad0);
   for (int s0 = 32; s0 < k; s0 += 32) {           // k > 32: the rest
     const bool nf = s0 + lane < k && !is_finite(vb[s0 + lane]);
     bad += __popc(__ballot_sync(kFull, nf));
   }
   const float fill = bad ? quiet_nan() : 0.0f;
+
+  // repeated indices: the lanes whose slot shares lane's index (k <= 32),
+  // or a set of the block's indices in shared memory (k > 32)
+  unsigned group = 1u << lane;
+  bool repeats;
+  if (k <= 32) {
+    group = __match_any_sync(kFull, i0);
+    repeats = __any_sync(kFull, group != 1u << lane);
+  } else {
+    unsigned* set = seen[threadIdx.x >> 5];
+    set[lane] = 0u;
+    __syncwarp();
+    bool dup = false;
+    for (int s = lane; s < k; s += 32) {
+      const int i = s == lane ? i0 : ib[s];
+      const unsigned bit = 1u << (i & 31);
+      dup |= (atomicOr(set + ((i >> 5) & 31), bit) & bit) != 0u;
+    }
+    repeats = __any_sync(kFull, dup);
+  }
 
   float* ob = leaf.out + row * n + start;
   if (leaf.vec) {
@@ -104,14 +133,46 @@ unpack_kernel(const __grid_constant__ UnpackTable table, int k) {
   }
   __syncwarp();                       // the fill lands before the survivors
 
-  // a survivor is stored when its block is finite, or when it is the
-  // block's lone non-finite value
-  const auto put = [&](float v, int i) {
-    if (start + i < n && (!bad || (bad == 1 && !is_finite(v))))
-      ob[i] = __fadd_rn(v, 0.0f);
+  // an index's sum is stored when the index holds all of its block's
+  // non-finite values (`nonfinite` of them), none in a finite block; a NaN
+  // sum is stored as the fill's NaN
+  const auto put = [&](float sum, int i, int nonfinite) {
+    if (start + i < n && nonfinite == bad)
+      ob[i] = sum == sum ? sum : quiet_nan();
   };
-  if (lane < k) put(v0, i0);
-  for (int s = 32 + lane; s < k; s += 32) put(vb[s], ib[s]);
+  if (!repeats) {                     // every payload that pack produces
+    if (lane < k) put(__fadd_rn(0.0f, v0), i0, !is_finite(v0));
+    for (int s = 32 + lane; s < k; s += 32) {
+      const float v = vb[s];
+      put(__fadd_rn(0.0f, v), ib[s], !is_finite(v));
+    }
+  } else if (k <= 32) {
+    // the group's lowest slot sums it in slot order
+    if (lane < k && (group & ((1u << lane) - 1u)) == 0u) {
+      float sum = 0.0f;
+      for (unsigned g = group; g; g &= g - 1u)
+        sum = __fadd_rn(sum, vb[__ffs(g) - 1]);
+      put(sum, i0, __popc(group & bad0));
+    }
+  } else {
+    // slot s stores when no earlier slot has its index: the sum of the
+    // index's values from slot s on, in slot order (L1-resident loads)
+    for (int s = lane; s < k; s += 32) {
+      const int i = ib[s];
+      bool first = true;
+      for (int t = 0; t < s && first; ++t) first = ib[t] != i;
+      if (!first) continue;
+      float sum = 0.0f;
+      int nonfinite = 0;
+      for (int t = s; t < k; ++t) {
+        if (ib[t] != i) continue;
+        const float v = vb[t];
+        sum = __fadd_rn(sum, v);
+        nonfinite += !is_finite(v);
+      }
+      put(sum, i, nonfinite);
+    }
+  }
 }
 
 }  // namespace repro_torch

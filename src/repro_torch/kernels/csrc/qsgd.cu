@@ -36,6 +36,7 @@
 
 namespace repro_torch {
 
+constexpr int kQuantThreads = 256;
 constexpr int kQsgdVecs = 4;                              // float4 a thread
 constexpr int kQsgdTile = kQuantThreads * kQsgdVecs * 4;  // 4096 elements
 constexpr int kQsgdMaxLeaves = 32;                        // MAX_TABLE_LEAVES

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.block_topk import block_topk as block_topk_rows
-from repro_torch.kernels.fused_compress import delta_pack, grid_quant
+from repro_torch.kernels.fused_compress import delta_pack, grid_quant_leaves
 from repro_torch.kernels.fused_update import fused_update
 from repro_torch.kernels.pack import num_blocks, pack_topk, unpack_topk
 from repro_torch.kernels.qsgd import inv_one_plus, qsgd_omega, row_norm
@@ -104,13 +104,12 @@ def qsgd_leaves(xs, us, levels: int = 16):
     return out
 
 
-def qsgd_quantize_carrier(carrier: torch.Tensor, u: torch.Tensor,
-                          levels: int = 16):
-    """QSGD grid of a packed ``(K, nb, k)`` carrier: ``(grid (K, nb, k)
-    int8, norm (K,) f32)``. The per-node norm is a torch reduction here,
-    between the delta-pack and grid_quant kernels (the reference's
-    ``ops.py:177-196`` computes it in jnp outside its kernel)."""
-    rows = _rows(carrier)
-    norm = row_norm(rows)
-    grid = grid_quant(rows, _rows(u), norm, levels)
-    return grid.reshape(carrier.shape), norm
+def qsgd_quantize_carriers(carriers, us, levels: int = 16):
+    """QSGD grids of packed ``(K, nb, k)`` carriers and their uniforms: a
+    list of ``(grid (K, nb, k) int8, norm (K,) f32)``, one per leaf, in one
+    grid_quant launch a table of up to ``MAX_TABLE_LEAVES`` leaves, each
+    per-node norm computed in it (the reference's ``ops.py:177-196``
+    computes it in jnp outside its kernel)."""
+    grids, norms = grid_quant_leaves([_rows(c) for c in carriers],
+                                     [_rows(u) for u in us], levels)
+    return [(g.reshape(c.shape), n) for g, n, c in zip(grids, norms, carriers)]

@@ -9,8 +9,8 @@ a table of up to ``MAX_TABLE_LEAVES``; a single leaf is a table of one.
 
 Beside each kernel wrapper is its plain PyTorch version, which transcribes
 the reference's arithmetic (``_pack_tile``: 40-step bisection, definite and
-tie masks, cumulative-sum ranks, and the one-hot contraction's values,
-ROADMAP C6). A CPU tensor goes to the plain version, a CUDA tensor to the
+tie masks, cumulative-sum ranks, and the one-hot contractions' values,
+ROADMAP C6, C7). A CPU tensor goes to the plain version, a CUDA tensor to the
 kernel (``csrc/pack.cu``) or to an exception. Each wrapper counts its
 kernel launches in ``.launches``.
 """
@@ -195,18 +195,22 @@ def unpack_topk_plain(vals: torch.Tensor, idx: torch.Tensor, n: int,
     rows, nb, k = vals.shape
     v = vals.reshape(rows * nb, k)
     i = from_uint16(idx).reshape(rows * nb, k)
-    dense = vals.new_zeros((rows * nb, block_size)).scatter_(1, i, v + 0.0)
-    # the reference's one-hot contraction, 0 + sum_s vals[s]·[idx[s] == b]:
+    # the reference's one-hot contraction, 0 + sum_s vals[s]·[idx[s] == b],
+    # summed from +0.0 in slot order (ROADMAP C7): values that share an
+    # index add up, and -0.0 decodes to +0.0. One slot column an add, so
+    # every add is one f32 rounding in that order.
+    dense = vals.new_zeros((rows * nb, block_size))
+    for s in range(k):
+        dense.scatter_add_(1, i[:, s:s + 1], v[:, s:s + 1])
     # 0·inf and 0·NaN make a block whose values hold a non-finite NaN
-    # everywhere but at the index of a lone non-finite value (ROADMAP C6).
-    # Non-finite values that share an index (a NaN block's empty slots, all
-    # at index 0) are not lone: their sum is NaN too, and the fill's NaN is
-    # the one written there.
+    # everywhere but at an index that holds all of its non-finite values,
+    # which keeps their sum (ROADMAP C6): inf + inf is inf there. Every NaN
+    # is written as NAN, whatever the payload the sum came to.
     bad = ~torch.isfinite(v)
     n_bad = bad.sum(dim=1, keepdim=True)
     here = torch.zeros_like(dense, dtype=torch.int64).scatter_add_(
         1, i, bad.long())
-    dense = torch.where((n_bad > here) | (n_bad > 1), NAN, dense)
+    dense = torch.where((n_bad > here) | dense.isnan(), NAN, dense)
     return dense.reshape(rows, nb * block_size)[:, :n].contiguous()
 
 

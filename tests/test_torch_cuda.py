@@ -9,7 +9,9 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels.block_topk import block_topk_plain
-from repro_torch.kernels.fused_compress import delta_pack_plain, grid_quant_plain
+from repro_torch.kernels.fused_compress import (carrier_norms_plain,
+                                                delta_pack_plain,
+                                                grid_quant_plain)
 from repro_torch.kernels.fused_update import fused_update_plain
 from repro_torch.kernels.pack import pack_topk_plain, unpack_topk_plain
 from repro_torch.kernels.qsgd import (inv_one_plus, qsgd_omega, qsgd_plain,
@@ -70,9 +72,9 @@ def test_qsgd_and_dense_kernels_match_plain_versions(card, n):
                       qsgd_plain(x, u, norm, 16, recip))
     carrier = kernels.pack_topk([x], 11)[0][0].reshape(4, -1)
     uc = torch.rand(carrier.shape, generator=gen, device=card)
-    nc = row_norm(carrier)
-    assert _same_bits(kernels.grid_quant(carrier, uc, nc, 16),
-                      grid_quant_plain(carrier, uc, nc, 16))
+    (grid,), (nc,) = kernels.grid_quant_leaves([carrier], [uc], 16)
+    assert _same_bits(nc, carrier_norms_plain(carrier))
+    assert _same_bits(grid, grid_quant_plain(carrier, uc, nc, 16))
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     assert (counts["block_topk"], counts["qsgd"], counts["grid_quant"]) == \
@@ -216,16 +218,108 @@ def test_unpack_and_qsgd_tables_match_plain_versions(card):
     assert (counts["unpack"], counts["qsgd"]) == (2, 2)
 
 
+def _misaligned(x, offset):
+    """``x`` copied into a contiguous view ``offset`` floats into a buffer:
+    its rows start off the 16-byte grid."""
+    buf = torch.empty(x.numel() + offset, device=x.device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def test_grid_quant_table_matches_plain_versions(card):
+    """One grid_quant launch over a table of carriers (an all-zero one,
+    ties, -0.0 entries, one-block leaves, misaligned views, fc1.w's
+    full-width (10, 27687) carrier, and a row too long for registers, read
+    twice): grids and norms bit for bit against carrier_norms_plain and
+    grid_quant_plain; a list longer than a table takes one launch a
+    table."""
+    from repro_torch.kernels.fused_compress import grid_quant_leaves
+    gen = torch.Generator(device=card).manual_seed(5)
+
+    def normal(rows, m):
+        return torch.randn((rows, m), generator=gen, device=card)
+
+    ties = torch.randint(-3, 4, (10, 5000), generator=gen,
+                         device=card).float()
+    signed = normal(10, 4097)
+    signed[:, ::3] = -0.0
+    xs = [normal(10, 27687), torch.zeros((10, 3000), device=card), ties,
+          signed, normal(10, 11), normal(10, 1), normal(10, 253),
+          _misaligned(normal(10, 1001), 1), _misaligned(normal(10, 6), 3),
+          normal(10, 40000) * 1e-3]
+    us = [torch.rand(x.shape, generator=gen, device=card) for x in xs]
+    us[7] = _misaligned(us[7], 2)
+    kernels.reset_launch_counts()
+    grids, norms = grid_quant_leaves(xs, us, 16)
+    assert kernels.launch_counts()["grid_quant"] == 1
+    for x, u, g, n in zip(xs, us, grids, norms):
+        assert _same_bits(n, carrier_norms_plain(x))
+        assert _same_bits(g, grid_quant_plain(x, u, n, 16))
+        assert g.data_ptr() % 128 == 0
+    assert _same_bits(norms[1], torch.full((10,), 1e-12, device=card))
+    many = [normal(3, 11 * (1 + i)) for i in range(40)]
+    mus = [torch.rand(x.shape, generator=gen, device=card) for x in many]
+    grids, norms = grid_quant_leaves(many, mus, 4)
+    for x, u, g, n in zip(many, mus, grids, norms):
+        assert _same_bits(n, carrier_norms_plain(x))
+        assert _same_bits(g, grid_quant_plain(x, u, n, 4))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["grid_quant"] == 3
+
+
+def _repeated_payloads(card, k):
+    """(2, 8, k) payloads whose first block repeats indices (ROADMAP C7):
+    pairs, order-sensitive triples (1e8, 1, -1e8), -0.0 beside +0.0, an
+    inf beside a finite value in the second row; inf beside inf and inf
+    beside -inf in blocks of their own; k > 32 across chunks."""
+    gen = torch.Generator().manual_seed(k)
+    idx = torch.stack([torch.randperm(1024, generator=gen)[:k]
+                       for _ in range(16)]).reshape(2, 8, k)
+    vals = torch.randn((2, 8, k), generator=gen)
+    inf = float("inf")
+    groups = [(0, 0, (0, 1, 2), (1e8, 1.0, -1e8)),
+              (0, 0, (3, k - 1), (1.5, 2.25)), (0, 0, (4, 5), (-0.0, 0.0)),
+              (1, 0, (1, k - 2), (inf, 2.0)), (1, 2, (2, k - 1), (inf, inf)),
+              (1, 4, (0, 7), (inf, -inf))]
+    if k > 32:
+        groups += [(0, 3, (6, 31, 32, k - 1), (1e8, 1.0, -1e8, 1.0)),
+                   (1, 5, (3, 35), (inf, inf))]
+    for row, block, slots, slot_vals in groups:
+        vals[row, block, list(slots)] = torch.tensor(slot_vals)
+        idx[row, block, list(slots)] = int(idx[row, block, slots[0]])
+    return (vals.to(card), idx.to(torch.int32).to(torch.int16)
+            .view(torch.uint16).to(card))
+
+
+@pytest.mark.parametrize("k", [11, 32, 40, 1024])
+def test_unpack_of_repeated_indices_matches_plain_version(card, k):
+    """Values that share an index add up from +0.0 in slot order, in the
+    kernel (one launch over the table) as in the plain version."""
+    payloads = [_repeated_payloads(card, k), _repeated_payloads(card, k)]
+    payloads[1][0][:, 1:] = 0.5                 # repeats in one block only
+    ns = [8 * 1024, 8 * 1024 - 100]
+    kernels.reset_launch_counts()
+    dense = kernels.unpack_topk(payloads, ns)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["unpack"] == 1
+    for (vals, idx), n, d in zip(payloads, ns, dense):
+        assert _same_bits(d, unpack_topk_plain(vals, idx, n))
+    vals, idx = payloads[0]
+    assert float(dense[0][0, int(idx[0, 0, 0].view(torch.int16))]) == 0.0
+
+
 @pytest.mark.parametrize("overrides,once", [
     (dict(compressor="block_topk", fused_compress=True),
      ("delta_pack", "unpack")),
     (dict(pipeline="block_topk|qsgd", fused_compress=True),
-     ("delta_pack", "unpack")),
+     ("delta_pack", "grid_quant", "unpack")),
     (dict(compressor="qsgd_pallas"), ("qsgd",))])
 def test_a_round_launches_its_table_kernels_once(card, overrides, once):
     """One reduced round of each configuration: delta-pack and unpack (the
-    fused rounds) and qsgd (the legacy dense round) launch once over the
-    table of the model's leaves."""
+    fused rounds), grid_quant (the block_topk|qsgd round) and qsgd (the
+    legacy dense round) launch once over the table of the model's
+    leaves."""
     from repro_torch.config import FedConfig, get_arch
     from repro_torch.data.partition import partition_iid
     from repro_torch.data.radar import make_dataset

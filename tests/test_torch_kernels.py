@@ -2,9 +2,9 @@
 reference's Pallas kernels run in interpret mode, as tests/test_kernels.py
 runs them. Inputs are made with numpy from a seed. Values, indices and
 grids are compared exactly: both sides run the same f32 arithmetic. The
-QSGD kernels are handed the reference's norm and uniforms: the port
-computes the norm with a torch reduction, whose summation order differs
-from XLA's in the last bit (the codec and round tests bound that).
+QSGD kernels are handed the reference's norm and uniforms: the port's
+norms sum in another order than XLA's and may differ in the last bit
+(rtol 1e-6 here; the codec and round tests bound the effect).
 """
 import jax
 import jax.numpy as jnp
@@ -18,7 +18,9 @@ from repro.kernels.fused_compress import grid_quant_pallas
 from repro.kernels.pack import unpack_topk_pallas
 from repro_torch import kernels
 from repro_torch.kernels import ops
-from repro_torch.kernels.fused_compress import delta_pack, grid_quant
+from repro_torch.kernels.fused_compress import (carrier_norms_plain, delta_pack,
+                                                grid_quant_leaves,
+                                                grid_quant_plain)
 from repro_torch.kernels.fused_update import fma_f32
 from repro_torch.kernels.pack import (BISECT_ITERS, bisection_bounds,
                                       pack_topk, unpack_topk_plain)
@@ -110,26 +112,82 @@ def test_block_topk_matches_reference(shape, kind):
                       jops.block_topk(jnp.asarray(x[r]), ratio=0.01))
 
 
+def _grid_quant_ref(carrier, u, norm, levels=16):
+    """``grid_quant_pallas`` on an ``(nb, k)`` carrier, its rows padded to
+    the 8-row tile as ``ops.py:191-195`` does."""
+    nb = carrier.shape[0]
+    pad = ((0, -(-nb // 8) * 8 - nb), (0, 0))
+    return np.asarray(grid_quant_pallas(
+        jnp.pad(carrier, pad), jnp.pad(u, pad),
+        jnp.asarray(norm, jnp.float32).reshape(1, 1), levels, jnp.int8)[:nb])
+
+
+def _packed_carriers(shape, kind, seed):
+    """(ROWS, nb, k) reference payload values of a case's leaf, and
+    uniforms drawn by the reference's key for each row."""
+    x = _leaf(shape, kind, seed=seed)
+    carrier = np.stack([np.array(jops.block_topk_pack(jnp.asarray(x[r]),
+                                                      ratio=0.01)[0])
+                        for r in range(ROWS)])
+    u = np.stack([np.array(jax.random.uniform(jax.random.PRNGKey(r),
+                                              carrier.shape[1:]))
+                  for r in range(ROWS)])
+    return carrier, u
+
+
 @pytest.mark.parametrize("shape,kind", CASES)
 def test_grid_quant_matches_reference(shape, kind):
-    """On the packed carrier of each case, with the reference's uniforms
-    and norm; the reference pads the rows to its 8-row tile, as
-    ``ops.py:191-195`` does."""
-    x = _leaf(shape, kind, seed=9)
+    """The plain grid on the packed carrier of each case, with the
+    reference's uniforms and norm."""
+    carrier, u = _packed_carriers(shape, kind, seed=9)
     for r in range(ROWS):
-        carrier = np.array(jops.block_topk_pack(jnp.asarray(x[r]),
-                                                ratio=0.01)[0])
-        nb, k = carrier.shape
-        u = np.array(jax.random.uniform(jax.random.PRNGKey(r), (nb, k)))
-        norm = _ref_norm(carrier)
-        pad = ((0, -(-nb // 8) * 8 - nb), (0, 0))
-        want = grid_quant_pallas(jnp.pad(carrier, pad), jnp.pad(u, pad),
-                                 jnp.asarray(norm).reshape(1, 1), 16,
-                                 jnp.int8)[:nb]
-        got = grid_quant(torch.from_numpy(carrier.reshape(1, -1)),
-                         torch.from_numpy(u.reshape(1, -1)),
-                         torch.from_numpy(norm), 16)
-        _assert_exact(got.numpy().reshape(nb, k), want)
+        norm = _ref_norm(carrier[r])
+        got = grid_quant_plain(torch.from_numpy(carrier[r].reshape(1, -1)),
+                               torch.from_numpy(u[r].reshape(1, -1)),
+                               torch.from_numpy(norm), 16)
+        _assert_exact(got.numpy().reshape(carrier.shape[1:]),
+                      _grid_quant_ref(carrier[r], u[r], norm))
+
+
+@pytest.mark.parametrize("shape,kind", CASES + [((0,), "zeros")])
+def test_carrier_norms_match_reference(shape, kind):
+    """The port's norm (the kernel's summation order) against the
+    reference's ``jnp.linalg.norm(x) + 1e-12``, within rtol 1e-6 (a few
+    ulps: the two sum in different orders), on each case's leaf rows and
+    on its packed carrier; an all-zero or empty row is 1e-12 exactly."""
+    x = _leaf(shape, kind, seed=18).reshape(ROWS, -1)
+    carrier = (_packed_carriers(shape, kind, seed=18)[0].reshape(ROWS, -1)
+               if x.shape[1] else x)
+    for rows in (x, carrier):
+        got = carrier_norms_plain(torch.from_numpy(rows)).numpy()
+        want = np.concatenate([_ref_norm(r) for r in rows])
+        assert got.dtype == np.float32
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+        if not rows.any():
+            _assert_exact(got, np.full(ROWS, 1e-12, np.float32))
+
+
+@pytest.mark.parametrize("levels", [16, 4])
+def test_grid_quant_leaves_matches_reference(levels):
+    """One table call over every case's packed carrier: each leaf's grid
+    equals ``grid_quant_pallas`` handed the port's norm, row by row,
+    exactly, and the norms are the plain norms."""
+    cases = [_packed_carriers(shape, kind, seed=19) for shape, kind in CASES]
+    carriers = [torch.from_numpy(c.reshape(ROWS, -1)) for c, _ in cases]
+    grids, norms = grid_quant_leaves(
+        carriers, [torch.from_numpy(u.reshape(ROWS, -1)) for _, u in cases],
+        levels)
+    assert len(grids) == len(norms) == len(cases)
+    for (carrier, u), x, grid, norm in zip(cases, carriers, grids, norms):
+        _assert_exact(norm.numpy(), carrier_norms_plain(x).numpy())
+        for r in range(ROWS):
+            _assert_exact(grid[r].numpy().reshape(carrier.shape[1:]),
+                          _grid_quant_ref(carrier[r], u[r], norm[r].numpy(),
+                                          levels))
+    with pytest.raises(TypeError, match="list"):
+        grid_quant_leaves(carriers[0], carriers[0], levels)
+    with pytest.raises(ValueError, match="uniforms"):
+        grid_quant_leaves(carriers, carriers[:1], levels)
 
 
 @pytest.mark.parametrize("shape,kind", CASES)
@@ -241,7 +299,7 @@ def test_cpu_tensors_run_the_plain_versions():
     ops.leaf_fused_update(x, x, x, x, 0.03, 1.0)
     ops.block_topk(x)
     ops.qsgd(x, torch.rand(2, 3000))
-    ops.qsgd_quantize_carrier(vals, torch.rand(vals.shape))
+    ops.qsgd_quantize_carriers([vals], [torch.rand(vals.shape)])
     assert kernels.launch_counts() == {
         "pack": 0, "delta_pack": 0, "unpack": 0, "fused_update": 0,
         "grid_quant": 0, "qsgd": 0, "block_topk": 0}
@@ -257,9 +315,9 @@ def test_meta_tensors_give_payload_shapes():
 def test_meta_tensors_give_dense_and_grid_shapes():
     x = torch.empty((10, 11712 * 220), device="meta")
     assert ops.block_topk(x).shape == x.shape
-    grid, norm = ops.qsgd_quantize_carrier(
-        torch.empty((10, 2517, 11), device="meta"),
-        torch.empty((10, 2517, 11), device="meta"))
+    (grid, norm), = ops.qsgd_quantize_carriers(
+        [torch.empty((10, 2517, 11), device="meta")],
+        [torch.empty((10, 2517, 11), device="meta")])
     assert grid.shape == (10, 2517, 11) and grid.dtype == torch.int8
     assert norm.shape == (10,)
 
@@ -269,7 +327,7 @@ def test_wrappers_check_dtypes():
         pack_topk([torch.zeros(1, 64, dtype=torch.float64)], 1)
     x = torch.zeros(1, 64)
     with pytest.raises(ValueError, match="float32"):
-        grid_quant(x, x.double(), torch.ones(1), 16)
+        grid_quant_leaves([x], [x.double()], 16)
     with pytest.raises(ValueError, match="float32"):
         qsgd([x], [x], [torch.ones(1, dtype=torch.float64)], 16, [1.0])
 
@@ -464,6 +522,37 @@ def _crafted_payloads(seed=14):
     nan_block = base.copy()
     nan_block[0] = np.nan
     cases.append(("empty nan slots", nan_block, empty))
+    # ROADMAP C7: values that share an index add up, from +0.0 in slot
+    # order (the triples tell the orders apart)
+    for name, slots, slot_vals in [
+            ("two at one index", (2, 6), (1.5, 2.25)),
+            ("1e8, 1, -1e8", (0, 1, 2), (1e8, 1.0, -1e8)),
+            ("1, 1e8, -1e8", (0, 1, 2), (1.0, 1e8, -1e8)),
+            ("1e8, -1e8, 1", (0, 1, 2), (1e8, -1e8, 1.0)),
+            ("1e8, 1, -1e8 in slots 0, 5, 10", (0, 5, 10), (1e8, 1.0, -1e8)),
+            ("-0.0 and +0.0 at one index", (3, 4), (-0.0, 0.0)),
+            ("inf and 2 at one index", (1, 7), (np.inf, 2.0)),
+            ("inf and inf at one index", (2, 9), (np.inf, np.inf)),
+            ("inf and -inf at one index", (2, 9), (np.inf, -np.inf))]:
+        vals, rep = base.copy(), idx.copy()
+        vals[0, list(slots)] = slot_vals
+        rep[0, list(slots)] = idx[0, slots[0]]
+        cases.append((name, vals, rep))
+    # k > 32: repeats within and across the 32-slot chunks
+    k = 40
+    wide_idx = np.stack([rng.choice(1024, k, replace=False)
+                         for _ in range(8)]).astype(np.int32)
+    wide = rng.standard_normal((8, k)).astype(np.float32)
+    wide[0, [1, 31, 33, 39]] = (1e8, 1.0, -1e8, 1.0)
+    wide_idx[0, [1, 31, 33, 39]] = wide_idx[0, 1]
+    wide[0, [4, 5]] = (1.5, 2.25)
+    wide_idx[0, 5] = wide_idx[0, 4]
+    wide_idx[3, 36] = wide_idx[3, 2]
+    cases.append(("k=40 repeats", wide, wide_idx))
+    wide, wide_idx = wide.copy(), wide_idx.copy()
+    wide[2, [3, 35]] = np.inf                   # one index, both chunks
+    wide_idx[2, 35] = wide_idx[2, 3]
+    cases.append(("k=40 inf and inf at one index", wide, wide_idx))
     return cases
 
 
@@ -482,18 +571,28 @@ def test_unpack_of_nonfinite_payloads_matches_reference(kind):
         _assert_exact_nan(got[r].numpy(), want)
 
 
-@pytest.mark.parametrize("case", range(8))
+@pytest.mark.parametrize("case", range(len(_crafted_payloads())))
 def test_unpack_follows_the_one_hot_contraction(case):
     """Crafted payloads against ``unpack_topk_pallas``: a lone ±inf keeps
     its index and NaNs the rest of its block, a -0.0 value and the unpicked
-    positions of an all-negative block decode to +0.0, and NaN slots that
-    share an index decode to a block of NaN."""
+    positions of an all-negative block decode to +0.0, NaN slots that
+    share an index decode to a block of NaN, and values that share an index
+    add up from +0.0 in slot order (1.5 + 2.25 = 3.75; the three orders of
+    1e8, 1 and -1e8 give 0, 0 and 1; inf + inf keeps inf at its index, the
+    rest of its block NaN), k = 40 included."""
     name, vals, idx = _crafted_payloads()[case]
     want = unpack_topk_pallas(jnp.asarray(vals), jnp.asarray(idx), 1024)
     got = unpack_topk_plain(torch.from_numpy(vals).reshape(1, 8, -1),
                             torch.from_numpy(idx.astype(np.uint16))
                             .reshape(1, 8, -1), 8 * 1024)
     _assert_exact_nan(got.numpy().reshape(8, 1024), want)
+    expect = {"two at one index": (2, 3.75), "1e8, 1, -1e8": (0, 0.0),
+              "1, 1e8, -1e8": (0, 0.0), "1e8, -1e8, 1": (0, 1.0),
+              "inf and inf at one index": (2, np.inf)}
+    if name in expect:
+        slot, value = expect[name]
+        assert got[0, idx[0, slot]] == value
+
 
 
 def test_list_form_equals_per_leaf_calls():
