@@ -7,7 +7,12 @@ Phases, each of which fails the run by raising:
 
 1. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
              with nvcc for sm_90a; print the card's name and power limit.
-2. kernels — the seven kernels (pack, delta-pack, unpack, fused_update,
+2. kernels — the threefry draw kernel against its plain version, exactly:
+             the full-width table of K x 10 Langevin noise streams and
+             every transform at edge sizes (n = 1, 7, 4099), one launch a
+             table, and the known answers of ``jax.random`` in
+             ``tests/golden/threefry_draws.npz``. Then the seven ported
+             TPU kernels (pack, delta-pack, unpack, fused_update,
              grid_quant, qsgd, block_topk) against their plain PyTorch
              versions on the card, exactly, at the main paths' full-width
              shapes (K=10: the 10 leaves; grid_quant the 10 packed (K, nb,
@@ -27,10 +32,12 @@ Phases, each of which fails the run by raising:
              launches in the trace checked against its count); pack,
              delta-pack, unpack, qsgd and grid_quant as the round runs
              them, one table launch over the 10 leaves.
-3. slice   — FedTrainer(device="cuda") on full-width lenet-radar (256x63,
-             K=10, L=8, minibatch 10, ratio 1%, block 1024, η=1e-4, ζ=0.03,
-             T=1) in four configurations, each run with the launch counts
-             set to 0 just before it and read just after: block_topk with
+3. slice   — FedTrainer(device="cuda", seed=0) on full-width lenet-radar
+             (256x63, K=10, L=8, minibatch 10, ratio 1%, block 1024,
+             η=1e-4, ζ=0.03, T=1) in four configurations, each run with the
+             launch counts set to 0 just before it and read just after, its
+             draws from the reference's keys (at most 6 threefry launches a
+             round): block_topk with
              fused compression (4 rounds, BMA evaluation, 168,036 wire
              bytes per node per round), the block_topk|qsgd pipeline (4
              rounds, BMA evaluation, 84,058 bytes), and the legacy dense
@@ -38,7 +45,14 @@ Phases, each of which fails the run by raising:
              (2 rounds, 155,934 bytes) compressors. Every value finite, the
              bytes exact, every kernel of each path launched, and
              delta-pack and unpack (the fused runs), grid_quant
-             (block_topk|qsgd) and qsgd (qsgd_pallas) once a round.
+             (block_topk|qsgd) and qsgd (qsgd_pallas) once a round. The
+             block_topk run's first two rounds against the reference's
+             seeded run recorded on the CPU
+             (``tests/golden/seeded_rounds_lenet_radar.json``): bytes exact,
+             loss and consensus error within rtol 1e-3. Then one round's
+             draws timed: the threefry launches of its key derivation and
+             draws, against their plain version and their bound, and the
+             host time of the derivation.
 4. oracle  — one round of each pipeline from its run's state through
              FusedCodec(fused=False), which runs the pack kernel (and QSGD's
              own torch arithmetic) and unpacks with one launch: its payload
@@ -46,10 +60,11 @@ Phases, each of which fails the run by raising:
              decode of the block_topk|qsgd payload equals the plain CPU
              decode of the same payload.
 5. profile — traced rounds (block_topk fused, its oracle, block_topk|qsgd,
-             qsgd_pallas, block_topk_pallas): the device's busy share, the
-             top kernels, each ported kernel's device time in a round, and
-             torch's norm reductions (none in the block_topk|qsgd round:
-             its norms are grid_quant's).
+             qsgd_pallas, block_topk_pallas), each with its draws: the
+             device's busy share, the top kernels, each ported kernel's and
+             the draw kernel's device time in a round, and torch's norm
+             reductions (none in the block_topk|qsgd round: its norms are
+             grid_quant's).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository, it exits non-zero and prints no
@@ -72,10 +87,12 @@ from torch.profiler import ProfilerActivity, profile, schedule
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(1, str(ROOT / "tests"))
 
-from repro_torch import kernels  # noqa: E402
+from repro_torch import kernels, random  # noqa: E402
 from repro_torch.config import FedConfig, get_arch  # noqa: E402
-from repro_torch.core.algorithms import langevin_noise, make_cdbfl_round  # noqa: E402
+from repro_torch.core.algorithms import (langevin_noise,  # noqa: E402
+                                         langevin_scale, make_cdbfl_round)
 from repro_torch.core.compression import (  # noqa: E402
     CompressionPipeline, FusedCodec, LeafPayload, WirePayload)
 from repro_torch.data.partition import partition_iid  # noqa: E402
@@ -91,9 +108,15 @@ from repro_torch.kernels.pack import (from_uint16, num_blocks,  # noqa: E402
                                       unpack_topk_plain)
 from repro_torch.kernels.qsgd import (inv_one_plus, qsgd, qsgd_omega,  # noqa: E402
                                       qsgd_plain, row_norm)
+from repro_torch.kernels.threefry import (BITS, MAX_TABLE_REQUESTS,  # noqa: E402
+                                          NORMAL, PAIR, UNIFORM, draw,
+                                          draw_plain)
 from repro_torch.models import get_model  # noqa: E402
+from repro_torch.train.engine import round_indices  # noqa: E402
 from repro_torch.utils.tree import (tree_count, tree_leaves,  # noqa: E402
                                     tree_leaves_with_path)
+from torch_golden import (SEEDED_CONFIG, SEEDED_ROUNDS_FILE,  # noqa: E402
+                          THREEFRY_FILE, port_draw)
 
 DEVICE = "cuda"
 REDUCED = False                                    # full lenet-radar width
@@ -105,19 +128,26 @@ PIPE = "block_topk|qsgd"
 # node per round (the reference's wire_bytes), the kernels each launches
 RUNS = {
     "block_topk": (dict(compressor="block_topk", fused_compress=True), 4,
-                   168_036, ("delta_pack", "unpack", "fused_update")),
+                   168_036, ("delta_pack", "unpack", "fused_update",
+                             "threefry")),
     PIPE: (dict(pipeline=PIPE, fused_compress=True), 4, 84_058,
-           ("delta_pack", "grid_quant", "unpack", "fused_update")),
+           ("delta_pack", "grid_quant", "unpack", "fused_update",
+            "threefry")),
     "qsgd_pallas": (dict(compressor="qsgd_pallas"), 2, 1_949_174,
-                    ("qsgd", "fused_update")),
+                    ("qsgd", "fused_update", "threefry")),
     "block_topk_pallas": (dict(compressor="block_topk_pallas"), 2, 155_934,
-                          ("block_topk", "fused_update")),
+                          ("block_topk", "fused_update", "threefry")),
 }
+# the engine's split, three levels of key derivation and one table launch
+# of draws (two if the table outgrows MAX_TABLE_REQUESTS)
+MAX_DRAW_LAUNCHES_A_ROUND = 6
 # the kernels that launch once a round over a table of all the leaves
 ONCE_A_ROUND = ("delta_pack", "unpack", "qsgd", "grid_quant")
-# H100 SXM peaks (NVIDIA data sheet)
+# H100 SXM peaks (NVIDIA data sheet); INT32: 64 lanes an SM (Hopper white
+# paper) x 132 SMs x 1.98 GHz
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 16.7e12
 # f32 operations per element: |d|, the max, 40 bisection compares, 2 mask
 # compares (delta-pack adds the subtraction; block_topk is pack's); Eq. 9:
 # sub + 2 fma; QSGD's level: |x|, div, mul, floor, sub, compare (grid_quant
@@ -125,6 +155,14 @@ F32_OPS_PER_S = 67e12
 # products)
 PACK_OPS, DELTA_PACK_OPS, UPDATE_OPS = 44, 45, 5
 GRID_QUANT_OPS, QSGD_OPS, BLOCK_TOPK_OPS = 8, 8, 44
+# threefry (csrc/threefry.cu): INT32 operations an element (2 key adds,
+# the key parity, 20 rounds of add, funnel shift and xor, 10 injection
+# adds; a pair with a fold hashes twice) and each transform's extra
+# INT32 and f32 operations (an fma is 2): bits' xor; the uniform's shift,
+# or, add, subtract, fma and max; the normal's log1p bit fields, both
+# log1p branches, the erfinv polynomial, the products and the clip
+THREEFRY_INT_OPS = 74
+TRANSFORM_OPS = {PAIR: (0, 0), BITS: (1, 0), UNIFORM: (3, 5), NORMAL: (7, 97)}
 
 KERNELS = {
     "pack": ("src/repro_torch/kernels/csrc/pack.cu",
@@ -141,6 +179,10 @@ KERNELS = {
              "src/repro/kernels/qsgd.py:50"),
     "block_topk": ("src/repro_torch/kernels/csrc/block_topk.cu",
                    "src/repro/kernels/block_topk.py:61"),
+    # no pl.pallas_call draws: the reference's jax.random calls run on XLA
+    "threefry": ("src/repro_torch/kernels/csrc/threefry.cu",
+                 "none (no pl.pallas_call): jax.random threefry draws, "
+                 "src/repro/core/algorithms.py:133"),
 }
 
 
@@ -232,14 +274,17 @@ def device_time_by_name(prof):
     return by_name
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, int_ops: float = 0.0):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over their type's peak (f32 and INT32
+    run on separate lanes, so the larger of the two)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = max(ops / F32_OPS_PER_S, int_ops / INT32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 _AS_INT = {torch.float32: torch.int32, torch.uint16: torch.int16,
-           torch.int8: torch.int8}
+           torch.int8: torch.int8, torch.int64: torch.int64}
 
 
 def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -436,6 +481,101 @@ def check_kernels(shapes):
     return errs
 
 
+def levels_of(gen):
+    """The threefry requests of each level of the draw program ``gen``,
+    drawn level by level as the port runs it (each level's keys feed the
+    next)."""
+    levels = []
+    try:
+        requests = gen.send(None)
+        while True:
+            levels.append(requests)
+            requests = gen.send(draw(requests))
+    except StopIteration:
+        return levels
+
+
+def edge_draws(keys):
+    """Every transform at edge sizes (n = 1, 7 and the odd 4099) over the
+    rows of ``keys``, as the port's random functions ask for them: splits,
+    a fold-in of the largest counter, splits folded in, bits, uniforms in
+    [0, 1) and in a range, Langevin-scaled normals and scaled truncated
+    normals."""
+    programs = []
+    for n in (1, 7, 4099):
+        programs += [
+            random.split.program(keys, n),
+            random.fold_in.program(keys, 2**32 - 1),
+            random.split_fold_in.program(keys, n, 1),
+            random.bits.program(keys, (n,)),
+            random.uniform.program(keys, (n,)),
+            random.uniform.program(keys, (n,), -3.5, 11.25),
+            random.normal.program(keys, (n,),
+                                  scale=langevin_scale(1e-4, 1.0)),
+            random.truncated_normal.program(keys, -2.0, 2.0, (n,),
+                                            scale=1 / math.sqrt(n))]
+    return levels_of(random.together(*programs))[0]
+
+
+def noise_draws(shapes, key):
+    """The full-width round's Langevin noise table as the round draws it
+    (``langevin_noise``, η = 1e-4, T = 1): K x 10 streams, one request a
+    leaf."""
+    like = {path: torch.empty((K,) + shape, device="meta")
+            for path, shape in shapes}
+    return levels_of(langevin_noise.program(key, like, 1e-4, 1.0))[-1]
+
+
+def same_draws(table, got) -> float:
+    """Assert the kernel's outputs of ``table`` equal the plain version's
+    (run on the card) bit for bit; the largest absolute difference."""
+    err = 0.0
+    for i, (req, g, w) in enumerate(zip(table, got, draw_plain(table))):
+        if not bitwise_equal(g, w):
+            raise AssertionError(f"threefry differs from its plain version "
+                                 f"on request {i} (kind {req.kind}, rows "
+                                 f"{req.keys.shape[0]}, n={req.n})")
+        err = max(err, max_abs_err(g, w))
+    return err
+
+
+def check_draws(shapes) -> float:
+    """Phase 2's draw-kernel checks; returns the largest absolute error."""
+    err = 0.0
+    key = random.PRNGKey(0, DEVICE)
+    tables = {"the full-width noise table": noise_draws(shapes, key),
+              "every transform at n = 1, 7, 4099 (keys a strided view)":
+                  edge_draws(random.split(random.split(key, K), 3)[:, 1])}
+    for label, table in tables.items():
+        before = draw.launches
+        got = draw(table)
+        torch.cuda.synchronize()
+        want = -(-len(table) // MAX_TABLE_REQUESTS)
+        if draw.launches - before != want:
+            raise AssertionError(f"threefry: {label} took "
+                                 f"{draw.launches - before} launches, not "
+                                 f"{want}")
+        err = max(err, same_draws(table, got))
+        streams = sum(r.keys.shape[0] for r in table)
+        log("kernels", f"threefry: {label} ({len(table)} requests, {streams} "
+                       f"streams, {sum(r.keys.shape[0] * r.n for r in table):,}"
+                       f" elements, one launch): bit-exact to its plain "
+                       f"version")
+    golden = np.load(THREEFRY_FILE)
+    cases = json.loads(str(golden["cases"]))
+    for name, fn, seed, args in cases:
+        got = port_draw(fn, seed, args, DEVICE).cpu().numpy()
+        want = golden[name]
+        if got.shape != want.shape or got.dtype != want.dtype or \
+                got.tobytes() != want.tobytes():
+            raise AssertionError(f"threefry: the card's {name} differs from "
+                                 f"jax.random's ({THREEFRY_FILE.name})")
+    log("kernels", f"threefry: the {len(cases)} cases of {THREEFRY_FILE.name} "
+                   f"(jax.random on the CPU) reproduced bit for bit on the "
+                   f"card")
+    return err
+
+
 def leaf_runs(th, v, vb, xi, vals, idx, u, uc):
     """{kernel: (kernel call, plain call, bytes, operations)} on one leaf's
     (K, n) operands; a function of its own so each call binds its leaf."""
@@ -494,7 +634,7 @@ def time_kernels(shapes):
     whole)."""
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     rows = {name: dict(ms=0.0, plain_ms=0.0, nbytes=0.0, ops=0.0, fns=[],
-                       plain_fns=[]) for name in KERNELS}
+                       plain_fns=[]) for name in KERNELS if name != "threefry"}
     largest = max(int(np.prod(s)) for _, s in shapes)
     ths, vs, payloads, us, carriers, ucs = [], [], [], [], [], []
     for _, shape in shapes:
@@ -616,22 +756,135 @@ def run_slice(name: str, train, test):
             raise AssertionError(f"{name}: {kname} launched "
                                  f"{launches[kname]} times in {rounds} "
                                  f"rounds, not once a round")
+    if launches["threefry"] > MAX_DRAW_LAUNCHES_A_ROUND * rounds:
+        raise AssertionError(f"{name}: {launches['threefry']} threefry "
+                             f"launches in {rounds} rounds, more than "
+                             f"{MAX_DRAW_LAUNCHES_A_ROUND} a round")
+    log("slice", f"{name}: threefry {launches['threefry'] / rounds:g} "
+                 f"launches a round")
+    if name == "block_topk":
+        check_seeded(res)
     if len(trainer.bank) != max(0, rounds - BURN_IN):
         raise AssertionError(f"{name}: bank holds {len(trainer.bank)} samples")
     return trainer, launches
 
 
-def round_inputs(trainer, gen):
-    """One round's draws from ``gen``, in the engine's order: minibatches,
-    noise, then the QSGD uniforms the compressor names."""
-    fed, state, shards = trainer.fed_cfg, trainer.state, trainer.device_shards
-    batches = shards.gather(shards.sample_indices(gen, fed.local_steps,
-                                                  MINIBATCH))
-    noise = langevin_noise(gen, state.params, fed.eta, fed.temperature)
-    uniforms = {p: torch.rand(shape, generator=gen, device=DEVICE)
-                for p, shape in
-                trainer.compressor.uniform_shapes(state.params).items()}
-    return batches, noise, uniforms
+def check_seeded(res) -> None:
+    """The block_topk run's first rounds against the reference's seeded run
+    of the same configuration, recorded on the CPU: bytes exact, loss and
+    consensus error within rtol 1e-3 (the card's convolutions and
+    reductions sum in other orders than XLA's CPU code)."""
+    want = json.loads(SEEDED_ROUNDS_FILE.read_text())
+    fed = fed_config("block_topk")
+    mine = dict(SEEDED_CONFIG, reduced=REDUCED, train_maps=K * 50,
+                minibatch=MINIBATCH,
+                fed={k: getattr(fed, k) for k in SEEDED_CONFIG["fed"]})
+    if want["config"] != mine:
+        raise AssertionError(f"{SEEDED_ROUNDS_FILE.name} ran {want['config']}"
+                             f", this run is {mine}")
+    n = len(want["loss"])
+    if res.wire_history[:n] != want["wire_bytes"]:
+        raise AssertionError(f"seeded bytes {res.wire_history[:n]} != "
+                             f"{want['wire_bytes']}")
+    for metric, got in (("loss", res.loss_history),
+                        ("consensus", res.consensus_history)):
+        if not np.allclose(got[:n], want[metric], rtol=1e-3, atol=0):
+            raise AssertionError(f"seeded {metric} {got[:n]} differs from "
+                                 f"the reference's {want[metric]}")
+    log("slice", f"block_topk, seed 0, rounds 1-{n} against the reference's "
+                 f"seeded CPU run: loss {res.loss_history[:n]} vs "
+                 f"{want['loss']}, consensus {res.consensus_history[:n]} vs "
+                 f"{want['consensus']}, bytes exact (rtol 1e-3 held)")
+
+
+def round_inputs(trainer, key):
+    """One round's inputs from the round key ``key``, as the engine draws
+    them: the minibatches, the key, and the round's noise and uniforms."""
+    idx, draws = random.run(random.together(
+        round_indices.program(trainer.device_shards, key,
+                              trainer.fed_cfg.local_steps, MINIBATCH),
+        trainer.round_fn.draws.program(key, trainer.state.params)))
+    return trainer.device_shards.gather(idx), key, draws
+
+
+def draw_levels(trainer, key):
+    """The threefry requests of one round from the engine's ``key``, level
+    by level as the engine launches them: its split, then the round's
+    minibatch indices and draws side by side."""
+    split = levels_of(random.split.program(key))
+    kround = draw(split[0])[0][0, 1]
+    return split + levels_of(random.together(
+        round_indices.program(trainer.device_shards, kround,
+                              trainer.fed_cfg.local_steps, MINIBATCH),
+        trainer.round_fn.draws.program(kround, trainer.state.params)))
+
+
+def draw_work(levels):
+    """(bytes, f32 operations, INT32 operations) of the requests: each key
+    read once, each output written once."""
+    nbytes = ops = int_ops = 0
+    for req in (r for level in levels for r in level):
+        rows = req.keys.shape[0]
+        elems = rows * req.n
+        nbytes += 16 * rows + elems * {PAIR: 16, BITS: 8}.get(req.kind, 4)
+        extra_int, extra_f32 = TRANSFORM_OPS[req.kind]
+        hashes = 2 if req.fold is not None else 1
+        int_ops += elems * (hashes * THREEFRY_INT_OPS + extra_int)
+        ops += elems * extra_f32
+    return nbytes, ops, int_ops
+
+
+def time_draws(trainer):
+    """One full-width round's draws (the engine's split, three levels of
+    key derivation, one table of minibatch bits, noise and uniforms) of the
+    ``block_topk|qsgd`` configuration: kernel against plain version, event
+    and device time, bound, launches, the host time of the derivation, and
+    ``torch.randn`` of the round's normals as context."""
+    key = random.PRNGKey(11, DEVICE)
+    levels = draw_levels(trainer, key)
+    err = 0.0
+    for level in levels:
+        err = max(err, same_draws(level, draw(level)))
+    before = draw.launches
+    run = lambda: [draw(level) for level in levels]  # noqa: E731
+    run()
+    launches = draw.launches - before
+    plain = lambda: [draw_plain(level) for level in levels]  # noqa: E731
+    nbytes, ops, int_ops = draw_work(levels)
+    b_ms, b_by = bound(nbytes, ops, int_ops)
+    row = dict(ms=device_ms(run), plain_ms=device_ms(plain, reps=3,
+                                                      per_rep=2),
+               device_ms=traced_ms([run], "threefry"),
+               plain_device_ms=traced_ms([plain]), bound_ms=b_ms,
+               bound_by=b_by, nbytes=nbytes, ops=ops, int_ops=int_ops,
+               launches=launches, err=err)
+    host = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        _, kround = random.split(key)
+        round_inputs(trainer, kround)
+        host.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    row["host_ms"] = statistics.median(host)
+    normals = sum(r.keys.shape[0] * r.n for level in levels for r in level
+                  if r.kind == NORMAL)
+    row["randn_ms"] = device_ms(lambda: torch.randn(normals, device=DEVICE))
+    log("draws", f"one {PIPE} round's draws: {len(levels)} levels, "
+                 f"{launches} launches, "
+                 f"{sum(r.keys.shape[0] * r.n for lv in levels for r in lv):,}"
+                 f" elements ({normals:,} normals), bit-exact to the plain "
+                 f"version; device {fmt_ms(row['device_ms'])}, event-timed "
+                 f"{row['ms']:.4f} ms; plain: device "
+                 f"{fmt_ms(row['plain_device_ms'])}, event-timed "
+                 f"{row['plain_ms']:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
+                 f"{nbytes:.0f} B, {ops:.0f} f32 ops, {int_ops:.0f} INT32 "
+                 f"ops)")
+    log("draws", f"host ms of a round's key derivation and draws (the "
+                 f"engine's split, then its round_indices and round_fn.draws "
+                 f"side by side, no sync): median {row['host_ms']:.3f} ms of "
+                 f"20; torch.randn({normals:,}) on the card (another "
+                 f"generator, context only) {row['randn_ms']:.4f} ms")
+    return row
 
 
 def oracle_round(name: str, trainer):
@@ -643,9 +896,8 @@ def oracle_round(name: str, trainer):
                              fused=False)
     oracle_fn = make_cdbfl_round(trainer.model.nll, fed, trainer.omega, oracle,
                                  trainer.data_scale, trainer.device)
-    gen = torch.Generator(device=DEVICE).manual_seed(123)
     state = trainer.state
-    inputs = round_inputs(trainer, gen)
+    inputs = round_inputs(trainer, random.PRNGKey(123, DEVICE))
     s_fused, m_fused = trainer.round_fn(state, *inputs)
     kernels.reset_launch_counts()
     s_two, m_two = oracle_fn(state, *inputs)
@@ -692,12 +944,13 @@ def check_cpu_decode(compressor, payload):
 TRACE_NAMES = {"pack": "pack_kernel<false>", "delta_pack": "pack_kernel<true>",
                "unpack": "unpack_kernel", "fused_update": "fused_update_",
                "grid_quant": "grid_quant_kernel", "qsgd": "qsgd_kernel",
-               "block_topk": "block_topk_kernel"}
+               "block_topk": "block_topk_kernel",
+               "threefry": "threefry_kernel"}
 # the traced round each kernel's in-round device time is read from
 TRACE_ROUND = {"pack": "block_topk oracle", "delta_pack": "block_topk",
                "unpack": "block_topk", "fused_update": "block_topk",
                "grid_quant": PIPE, "qsgd": "qsgd_pallas",
-               "block_topk": "block_topk_pallas"}
+               "block_topk": "block_topk_pallas", "threefry": PIPE}
 
 
 # torch.linalg.vector_norm's reduction kernels in a profiler trace
@@ -712,11 +965,14 @@ def norm_reductions(by_name):
 
 def trace_round(trainer, round_fn):
     """(wall ms of an untraced round, {device kernel: (µs, count)} of a
-    traced one), from the trainer's state, after a warm-up round."""
-    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    traced one), from the trainer's state, after a warm-up round. Each
+    round draws its inputs from the next round key, as the engine does."""
+    key = random.PRNGKey(7, DEVICE)
 
     def one_round():
-        round_fn(trainer.state, *round_inputs(trainer, gen))
+        nonlocal key
+        key, kround = random.split(key)
+        round_fn(trainer.state, *round_inputs(trainer, kround))
         torch.cuda.synchronize()
 
     one_round()
@@ -793,10 +1049,11 @@ def main() -> int:
     print(card_line(), flush=True)
 
     cfg = get_arch("lenet-radar", reduced=REDUCED)
-    params = get_model(cfg).init(torch.Generator().manual_seed(0), "meta")
+    params = get_model(cfg).init(random.PRNGKey(0, "meta"), "meta")
     shapes = [(p, tuple(x.shape)) for p, x in tree_leaves_with_path(params)]
     log("kernels", f"{cfg.name}: {tree_count(params):,} parameters in "
                    f"{len(shapes)} leaves, K={K} nodes")
+    draw_err = check_draws(shapes)
     errs = check_kernels(shapes)
     timing = time_kernels(shapes)
     for kname, r in timing.items():
@@ -816,6 +1073,8 @@ def main() -> int:
     trainers, runs = {}, {}
     for name in RUNS:
         trainers[name], runs[name] = run_slice(name, train, test)
+    timing["threefry"] = time_draws(trainers[PIPE])
+    errs["threefry"] = max(draw_err, timing["threefry"]["err"])
     oracles = {name: oracle_round(name, trainers[name])
                for name in ("block_topk", PIPE)}
     check_cpu_decode(trainers[PIPE].compressor, oracles[PIPE][2])

@@ -5,20 +5,28 @@ links: no transport, no participation model, one device. Every leaf leads
 with the node axis K, and the K nodes run batched (grouped convolutions,
 batched matmuls), not in a Python loop.
 
-Random draws are inputs: ``round_fn(state, batches, noise, uniforms)``
-takes the round's minibatches, the Langevin noise already scaled by
-√(2ηT), and the QSGD uniforms of the leaves the compressor names
-(``compressor.uniform_shapes``; none for block-top-k alone). The engine
-draws them from its ``torch.Generator``; the parity tests hand in the
-reference's own draws instead.
+``round_fn(state, batches, key)`` takes the reference's round key and
+draws as the reference's round does (``algorithms.py:374-381``): ``kql,
+knoise = split(key)``; node k's Langevin noise for leaf i from
+``split(fold_in(knoise, k), n_leaves)[i]``, scaled by √(2ηT); node k's
+QSGD uniforms from ``fold_in(kql, k)`` (:func:`draw_uniforms`). The draws
+cost three table launches of the threefry kernel (the split, the node
+keys, the leaf keys) and one for the draws themselves; ``round_fn.draws``
+is that derivation as a program, so the engine can run it beside the
+minibatch sampling's (``draws=`` then hands the result in). The
+reference's ``kmix = fold_in(key, 2)`` and its per-node ``state.key``
+stream feed only time-varying mixers and models with dropout, neither of
+which the port runs yet (ROADMAP A7), so neither is derived.
 """
 from __future__ import annotations
 
-import math
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
+from repro_torch import random
+from repro_torch.core.compression import draw_uniforms
 from repro_torch.core.fed_state import FedState
 from repro_torch.core.gossip import make_mixer
 from repro_torch.kernels import ops as kops
@@ -58,13 +66,26 @@ def _local_sgd(nll_fn, params, batches, eta: float, prior_weight: float,
     return tree_unflatten(paths, leaves), torch.stack(losses, dim=1)
 
 
-def langevin_noise(generator: torch.Generator, like, eta: float,
-                   temperature: float):
-    """N(0, 2ηT) noise shaped like ``like``, drawn from ``generator``."""
-    scale = math.sqrt(2.0 * eta * temperature)
-    return tree_map(
-        lambda x: torch.randn(x.shape, generator=generator, device=x.device,
-                              dtype=torch.float32) * scale, like)
+def langevin_scale(eta: float, temperature: float) -> float:
+    """``jnp.sqrt(2.0 * eta * temperature)``: the product in float64, its
+    square root in f32 (``algorithms.py:139``)."""
+    return float(np.sqrt(np.float32(2.0 * eta * temperature)))
+
+
+@random.program
+def langevin_noise(key: torch.Tensor, like, eta: float, temperature: float):
+    """N(0, 2ηT) f32 noise shaped like the node-stacked tree ``like``
+    (``algorithms.py:133-143``): node k draws from ``fold_in(key, k)``,
+    its leaf i from ``split(node_key, n_leaves)[i]``
+    (``utils/tree.py:70-83``), ``scale · normal``."""
+    items = tree_leaves_with_path(like)
+    node_keys = yield from random.split.program(key, items[0][1].shape[0])
+    leaf_keys = yield from random.split.program(node_keys, len(items))
+    scale = langevin_scale(eta, temperature)
+    drawn = yield from random.together(*(
+        random.normal.program(leaf_keys[:, i], x.shape[1:], scale=scale)
+        for i, (_, x) in enumerate(items)))
+    return tree_unflatten([p for p, _ in items], drawn)
 
 
 def _consensus_error(params) -> torch.Tensor:
@@ -105,7 +126,20 @@ def make_cdbfl_round(nll_fn, fed_cfg, omega, compressor, data_scale: float = 1.0
     mix = make_mixer(omega, device)
     prior_weight = 1.0 / num_nodes
 
-    def round_fn(state: FedState, batches, noise, uniforms=None):
+    @random.program
+    def draws(key: torch.Tensor, params):
+        """``(noise, uniforms)`` of the round keyed ``key``: ``kql, knoise
+        = split(key)``, then the noise and the uniforms side by side."""
+        kql, knoise = yield from random.split.program(key)
+        return tuple((yield from random.together(
+            langevin_noise.program(knoise, params, eta, fed_cfg.temperature),
+            draw_uniforms.program(compressor, kql, params))))
+
+    def round_fn(state: FedState, batches, key: torch.Tensor, draws=None):
+        """One round keyed ``key``; ``draws``, when given, is
+        ``round_fn.draws(key, state.params)`` drawn already."""
+        noise, uniforms = draws if draws is not None else \
+            round_fn.draws(key, state.params)
         # Eq. 5
         theta_l, losses = _local_sgd(nll_fn, state.params, batches, eta,
                                      prior_weight, data_scale,
@@ -131,4 +165,5 @@ def make_cdbfl_round(nll_fn, fed_cfg, omega, compressor, data_scale: float = 1.0
         return state._replace(params=params_new, v=v_new, v_bar=v_bar_new,
                               round=state.round + 1), metrics
 
+    round_fn.draws = draws
     return round_fn

@@ -13,13 +13,16 @@ the reference's ``vmap(encode_pair)`` does, and each payload buffer leads
 with K. The per-leaf metadata describes one node's leaf, so the byte
 counts and the metadata equal the reference's.
 
-Random draws are inputs. A compressor's ``uniform_shapes(tree)`` names the
-leaves whose encode draws QSGD uniforms, ``{path: node-stacked shape}`` in
-leaf order; encode takes them as ``uniforms`` (``{path: tensor}``) and
-raises if one is missing. The reference draws them from per-node, per-leaf
-keys (``repro/core/compression.py:674-677, 719-723``); the port's engine
-draws them from its generator, and the parity tests hand in the
-reference's own.
+The QSGD uniforms are an input of encode. A compressor's
+``uniform_shapes(tree)`` names the leaves whose encode draws them,
+``{path: node-stacked shape}`` in leaf order; encode takes them as
+``uniforms`` (``{path: tensor}``) and raises if one is missing.
+:func:`draw_uniforms` draws them from the reference's keys: node k's from
+``fold_in(key, k)`` (``algorithms.py:182-184, 221``), leaf i's from
+``split(node_key, n_leaves)[i]`` over every leaf, the dense-riding ones
+included (``compression.py:722``; the legacy compressor's
+``split_key_like``, ``:194-197``), and a pipeline's stochastic stage s > 0
+from ``fold_in(leaf_key, s)`` (``_stage_key``, ``:674-677``).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from typing import Any, Dict, List, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from repro_torch import random
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.fused_compress import (carrier_norms_plain,
                                                 grid_quant_plain)
@@ -202,6 +206,12 @@ class CompressionPipeline:
     stages: Tuple[Any, ...] = (BlockTopKCodec(),)
     min_dense_size: int = 0
 
+    @property
+    def uniform_stage(self) -> int:
+        """Index of the stage that draws uniforms (its key is
+        ``fold_in(leaf_key, index)`` past stage 0)."""
+        return next((i for i, s in enumerate(self.stages) if s.stochastic), 0)
+
     def uniform_shapes(self, tree) -> Dict[str, Tuple[int, ...]]:
         """``{path: (K, *carrier shape)}`` of the leaves whose stochastic
         stage draws uniforms, in leaf order; ``tree`` is node-stacked."""
@@ -341,6 +351,7 @@ class Compressor:
     block_size: int = 1024
     qsgd_levels: int = 16
     min_dense_size: int = 0
+    uniform_stage = 0           # the leaf key itself (``ops.py:127``)
 
     def uniform_shapes(self, tree) -> Dict[str, Tuple[int, ...]]:
         if self.name != "qsgd_pallas":
@@ -374,6 +385,27 @@ class Compressor:
             return int(np.ceil(self.ratio * n)) * (4 + 2)
         bits = max(1, int(np.ceil(np.log2(self.qsgd_levels + 1))) + 1)
         return n * bits // 8 + 4 * len(tree_leaves_with_path(tree))
+
+
+@random.program
+def draw_uniforms(compressor, key: torch.Tensor, tree):
+    """The QSGD uniforms ``{path: (K, *carrier shape)}`` that the
+    reference's encode of the node-stacked ``tree`` draws under ``key``
+    (the round's ``kql``); none for a compressor that names no leaf."""
+    shapes = compressor.uniform_shapes(tree)
+    if not shapes:
+        return {}
+    paths = [p for p, _ in tree_leaves_with_path(tree)]
+    node_keys = yield from random.split.program(key, shapes[next(iter(
+        shapes))][0])
+    stage = compressor.uniform_stage
+    leaf_keys = yield from (
+        random.split.program(node_keys, len(paths)) if stage == 0 else
+        random.split_fold_in.program(node_keys, len(paths), stage))
+    drawn = yield from random.together(*(
+        random.uniform.program(leaf_keys[:, paths.index(p)], shape[1:])
+        for p, shape in shapes.items()))
+    return dict(zip(shapes, drawn))
 
 
 _PIPELINES = {

@@ -4,8 +4,8 @@
 :class:`DeviceShards` is the counterpart of the reference class of the same
 name: every node's shard is zero-padded to the longest one and stacked, so
 each field lives on the device as one ``(K, N_max, ...)`` tensor, and a
-round's ``(K, L, M)`` minibatch indices are drawn from a ``torch.Generator``
-(or handed in, which is how the parity tests feed the reference's draws).
+round's ``(K, L, M)`` minibatch indices are drawn on the device with the
+reference's keys and arithmetic (``repro_torch.random``).
 """
 from __future__ import annotations
 
@@ -14,6 +14,8 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+
+from repro_torch import random
 
 
 def partition_iid(ds: Dict[str, np.ndarray], k: int, seed: int = 0
@@ -35,6 +37,7 @@ class DeviceShards:
 
     data: Dict[str, torch.Tensor]          # (K, N_max, ...) per field
     sizes: tuple                           # (K,) true shard lengths
+    size_tensor: torch.Tensor              # the same, (K,) int64 on device
 
     @classmethod
     def from_shards(cls, shards: List[Dict[str, np.ndarray]],
@@ -49,7 +52,8 @@ class DeviceShards:
                              [(0, n_max - len(s[f]))] + [(0, 0)] * (s[f].ndim - 1))
                       for s in shards]
             data[f] = torch.from_numpy(np.stack(padded)).to(device)
-        return cls(data=data, sizes=sizes)
+        return cls(data=data, sizes=sizes,
+                   size_tensor=torch.tensor(sizes, device=device))
 
     @property
     def num_nodes(self) -> int:
@@ -59,13 +63,14 @@ class DeviceShards:
     def device(self) -> torch.device:
         return next(iter(self.data.values())).device
 
-    def sample_indices(self, generator: torch.Generator, l: int, m: int
-                       ) -> torch.Tensor:
-        """(K, L, M) int64 indices, node k uniform over its shard length."""
-        return torch.stack([
-            torch.randint(0, n, (l, m), generator=generator,
-                          device=generator.device).to(self.device)
-            for n in self.sizes])
+    @random.program
+    def sample_indices(self, key: torch.Tensor, l: int, m: int):
+        """(K, L, M) int32 indices: node k draws ``randint(fold_in(key, k),
+        (l, m), 0, n_k)`` (``repro/data/partition.py:105-119``);
+        ``fold_in(key, k)`` for ``k < K`` is ``split(key, K)[k]``."""
+        node_keys = yield from random.split.program(key, self.num_nodes)
+        return (yield from random.randint.program(node_keys, (l, m), 0,
+                                                  self.size_tensor))
 
     def gather(self, idx) -> Dict[str, torch.Tensor]:
         """(K, L, M, ...) round batches from (K, L, M) indices (a tensor or

@@ -80,9 +80,10 @@ def _blob(h: int, w: int, r_bin: float, a_bin: float, sr: float, sa: float):
     return np.exp(-0.5 * (((rr - r_bin) / sr) ** 2 + ((aa - a_bin) / sa) ** 2))
 
 
-def synth_map(rng: np.random.Generator, label: int, hw: Tuple[int, int],
-              day: int = 1, shift: Optional[ShiftSpec] = None) -> np.ndarray:
-    """One range-azimuth magnitude map (H, W) in [0, ~1.5].
+def synth_map(rng, label: int, hw: Tuple[int, int], day: int = 1,
+              shift: Optional[ShiftSpec] = None) -> np.ndarray:
+    """One range-azimuth magnitude map (H, W) in [0, ~1.5], drawn from the
+    numpy ``rng`` (``np.random.default_rng``) as the reference draws it.
 
     ``shift=None`` keeps the legacy day-based branch (bit-exact with the
     pre-scenario code, including its PRNG draw order); an explicit

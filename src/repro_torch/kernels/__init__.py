@@ -8,11 +8,12 @@ from repro_torch.kernels.fused_compress import delta_pack, grid_quant_leaves
 from repro_torch.kernels.fused_update import fused_update
 from repro_torch.kernels.pack import pack_topk, unpack_topk
 from repro_torch.kernels.qsgd import qsgd
+from repro_torch.kernels.threefry import draw
 
 WRAPPERS = {"pack": pack_topk, "delta_pack": delta_pack,
             "unpack": unpack_topk, "fused_update": fused_update,
             "grid_quant": grid_quant_leaves, "qsgd": qsgd,
-            "block_topk": block_topk}
+            "block_topk": block_topk, "threefry": draw}
 
 
 def launch_counts() -> dict:

@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 SOURCES = ("pack.cu", "fused_compress.cu", "fused_update.cu", "block_topk.cu",
-           "qsgd.cu")
+           "qsgd.cu", "threefry.cu")
 HEADERS = ("pack_tile.cuh", "qsgd_round.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
@@ -33,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 # leaf tables: host arrays of pointers, sizes and f32 scalars
 _PP, _PL = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong)
-_PF = ctypes.POINTER(ctypes.c_float)
+_PF, _PI = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "repro_pack_topk": [_PP, _PL, _PL, _PL, _I, _L, _P, _P, _I, _P],
     "repro_delta_pack": [_PP, _PP, _PL, _PL, _PL, _I, _L, _P, _P, _I, _P],
@@ -42,6 +42,7 @@ _SIGNATURES = {
     "repro_block_topk": [_P, _P, _L, _L, _L, _I, _P],
     "repro_grid_quant": [_PP, _PP, _PP, _PP, _PL, _I, _L, _F, _P],
     "repro_qsgd": [_PP, _PP, _PP, _PP, _PL, _PL, _PF, _I, _F, _P],
+    "repro_threefry": [_PP, _PL, _PL, _PP, _PL, _PI, _PL, _PL, _PF, _I, _P],
 }
 
 _lib = None
@@ -131,19 +132,20 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def on_card(kernel: str, operands) -> bool:
+def on_card(kernel: str, operands, strided: bool = False) -> bool:
     """The dispatch rule of every wrapper, given ``(tensor, dtype)`` pairs:
     True (launch the kernel) for CUDA tensors; False (run the plain version)
     for CPU tensors, and for ``meta`` tensors, where the plain version only
     infers shapes. There is no fallback: a CUDA tensor launches its kernel
-    or the wrapper raises."""
+    or the wrapper raises. ``strided``: the kernel reads its operands
+    through their strides, so they need not be contiguous."""
     dev = operands[0][0].device
     for t, dtype in operands:
         if t.device != dev:
             raise ValueError(f"{kernel}: operands on {dev} and {t.device}")
         if t.dtype != dtype:
             raise ValueError(f"{kernel}: got {t.dtype}, the kernel takes {dtype}")
-        if dev.type == "cuda" and not t.is_contiguous():
+        if dev.type == "cuda" and not strided and not t.is_contiguous():
             raise ValueError(f"{kernel}: operands must be contiguous")
     if dev.type == "cuda":
         return True

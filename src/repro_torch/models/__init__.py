@@ -5,14 +5,14 @@ from repro_torch.models import lenet as _lenet
 
 
 def get_model(cfg) -> SimpleNamespace:
-    """``init(generator, device)`` -> params of one model; ``logits`` and
+    """``init(key, device)`` -> params of one model; ``logits`` and
     ``nll`` take params with a leading group axis (see ``models/lenet.py``)."""
     if cfg.family != "lenet":
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet; ROADMAP A12")
     return SimpleNamespace(
         cfg=cfg,
-        init=lambda generator, device: _lenet.init_lenet(cfg, generator, device),
+        init=lambda key, device: _lenet.init_lenet(cfg, key, device),
         logits=_lenet.lenet_logits,
         nll=_lenet.lenet_nll,
     )

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import random
 from repro_torch.utils.tree import tree_map
 
 
@@ -33,30 +34,38 @@ def _flat_dim(hw):
     return 16 * h * w
 
 
-def dense_init(generator: torch.Generator, in_dim: int, out_shape, device,
-               scale: float = 1.0) -> torch.Tensor:
-    """Truncated-normal fan-in init, as ``models/layers.py:dense_init``."""
-    w = torch.empty((in_dim,) + tuple(out_shape), device=device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return w * (scale / math.sqrt(in_dim))
+@random.program
+def dense_init(key: torch.Tensor, in_dim: int, out_shape, scale: float = 1.0):
+    """Truncated-normal fan-in init, as ``models/layers.py:dense_init``:
+    ``std · truncated_normal(key, −2, 2, (in_dim, *out_shape))``."""
+    return (yield from random.truncated_normal.program(
+        key, -2.0, 2.0, (in_dim,) + tuple(out_shape),
+        scale=scale / math.sqrt(in_dim)))
 
 
-def init_lenet(cfg, generator: torch.Generator, device) -> Dict:
+def init_lenet(cfg, key: torch.Tensor, device) -> Dict:
+    """The reference's ``init_lenet(key, cfg)`` on ``device``: one key of
+    ``split(key, 5)`` a layer (two launches: the split, then the five
+    draws)."""
     fdim = _flat_dim(cfg.input_hw)
     fc1 = max(32, min(220, fdim // 4)) if fdim < 2048 else 220
+    ks = random.split(key.to(device), 5)
+    w1, w2, w3, w4, w5 = random.run(random.together(
+        dense_init.program(ks[0], 25, (6,)),
+        dense_init.program(ks[1], 150, (16,)),
+        dense_init.program(ks[2], fdim, (fc1,)),
+        dense_init.program(ks[3], fc1, (84,)),
+        dense_init.program(ks[4], 84, (cfg.num_classes,))))
 
     def zeros(n):
         return torch.zeros((n,), device=device)
 
     return {
-        "conv1": {"w": dense_init(generator, 25, (6,), device).reshape(5, 5, 1, 6),
-                  "b": zeros(6)},
-        "conv2": {"w": dense_init(generator, 150, (16,), device).reshape(5, 5, 6, 16),
-                  "b": zeros(16)},
-        "fc1": {"w": dense_init(generator, fdim, (fc1,), device), "b": zeros(fc1)},
-        "fc2": {"w": dense_init(generator, fc1, (84,), device), "b": zeros(84)},
-        "fc3": {"w": dense_init(generator, 84, (cfg.num_classes,), device),
-                "b": zeros(cfg.num_classes)},
+        "conv1": {"w": w1.reshape(5, 5, 1, 6), "b": zeros(6)},
+        "conv2": {"w": w2.reshape(5, 5, 6, 16), "b": zeros(16)},
+        "fc1": {"w": w3, "b": zeros(fc1)},
+        "fc2": {"w": w4, "b": zeros(84)},
+        "fc3": {"w": w5, "b": zeros(cfg.num_classes)},
     }
 
 

@@ -12,11 +12,12 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import random
 from repro_torch.core.algorithms import make_cdbfl_round
 from repro_torch.core.compression import make_compressor
 from repro_torch.core.fed_state import FedState, init_fed_state
@@ -62,17 +63,18 @@ def resolve_device(device) -> torch.device:
 class FedTrainer:
     """Host-side orchestration of the decentralized protocol.
 
-    ``params`` (one model's params, e.g. the reference's through
-    ``params_from_jax``) replaces the port's own init; ``draws`` (see
-    :class:`HostRoundEngine`) replaces its generator's per-round draws.
+    Seeded as the reference's ``FedTrainer``: the model is initialized
+    from ``PRNGKey(seed)`` and the engine's stream is ``PRNGKey(seed + 1)``
+    (``repro/train/trainer.py:152-161``), so a run equals the reference's
+    run of the same seed. ``params`` (one model's params, e.g. the
+    reference's through ``params_from_jax``) replaces the init.
     """
 
     def __init__(self, model, fed_cfg, shards: List[Dict[str, np.ndarray]],
                  minibatch: int = 10, data_scale: Optional[float] = None,
                  seed: int = 0, engine: str = "host", bank_capacity: int = 40,
                  bank_thin: int = 2, eval_batch_size: int = 64,
-                 device="cuda", params: Optional[Dict] = None,
-                 draws: Optional[Callable] = None):
+                 device="cuda", params: Optional[Dict] = None):
         if engine != "host":
             raise NotImplementedError(
                 f"engine={engine!r} is not ported yet (runs: 'host'); "
@@ -91,22 +93,17 @@ class FedTrainer:
             data_scale = float(np.mean([len(s[next(iter(s))]) for s in shards]))
         self.data_scale = data_scale
 
-        if self.device.type == "cuda":
-            gen = torch.Generator(device=self.device)
-        else:
-            gen = torch.Generator()
-        gen.manual_seed(seed)
         if params is None:
-            params = model.init(gen, self.device)
+            params = model.init(random.PRNGKey(seed, self.device), self.device)
         params0 = tree_map(lambda x: x.to(self.device), params)
         self.state: FedState = init_fed_state(params0, fed_cfg)
         self.round_fn = make_cdbfl_round(model.nll, fed_cfg, self.omega,
                                          self.compressor, self.data_scale,
                                          self.device)
         self.device_shards = DeviceShards.from_shards(shards, self.device)
-        self._engine = HostRoundEngine(self.round_fn, self.compressor,
-                                       self.device_shards, fed_cfg, minibatch,
-                                       gen, draws)
+        self._engine = HostRoundEngine(self.round_fn, self.device_shards,
+                                       fed_cfg, minibatch)
+        self.key = random.PRNGKey(seed + 1, self.device)
         self.bank = SampleBank(burn_in=fed_cfg.burn_in,
                                max_samples=bank_capacity, thin=bank_thin)
         self._eval = HostEvalEngine(model.logits, batch_size=eval_batch_size)
@@ -126,8 +123,8 @@ class FedTrainer:
             log_cb = lambda t, l, c: print(
                 f"  round {t:4d}  loss={l:.4f} consensus={c:.3e}")
         t0 = time.time()
-        self.state, self.bank, losses, cons = self._engine.run(
-            self.state, self.bank, rounds, t0=self.state.round,
+        self.state, self.key, self.bank, losses, cons = self._engine.run(
+            self.state, self.key, self.bank, rounds, t0=self.state.round,
             log_every=log_every, log_cb=log_cb)
         wire = list(self._engine.last_wire_history)
         res = TrainResult(

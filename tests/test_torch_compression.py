@@ -28,11 +28,12 @@ from repro.core.compression import FusedCodec as JaxFusedCodec
 from repro.core.compression import make_compressor as jax_make_compressor
 from repro.core.compression import parse_pipeline
 from repro.models import get_model as jax_get_model
+from repro_torch import random
 from repro_torch.config import FedConfig, get_arch
 from repro_torch.core.compression import (BlockTopKCodec, CompressionPipeline,
                                           Compressor, FusedCodec, LeafPayload,
                                           QSGDCodec, WirePayload,
-                                          make_compressor)
+                                          draw_uniforms, make_compressor)
 from repro_torch.models import get_model
 from repro_torch.utils.tree import tree_leaves_with_path, tree_map
 
@@ -150,7 +151,7 @@ def test_wire_bytes_match_reference(reduced, want):
     """Shape-only: per-node bytes of one model. Full width is the slice's
     2,546 blocks x 11 survivors x (4 + 2) bytes = 168,036."""
     cfg = get_arch("lenet-radar", reduced=reduced)
-    params = get_model(cfg).init(torch.Generator().manual_seed(0), "meta")
+    params = get_model(cfg).init(random.PRNGKey(0, "meta"), "meta")
     got = make_compressor(FedConfig(fused_compress=True)).wire_bytes(params)
     jcfg = jax_get_arch("lenet-radar")
     jcfg = jcfg.reduced if reduced else jcfg.config
@@ -179,6 +180,28 @@ def test_min_dense_size_leaves_ride_dense(trees):
 
 def _torch_uniforms(np_uniforms):
     return {p: torch.from_numpy(u) for p, u in np_uniforms.items()}
+
+
+@pytest.mark.parametrize("min_dense_size", [0, 200])
+@pytest.mark.parametrize("kind", ["pipeline", "qsgd_pallas"])
+def test_draw_uniforms_equal_reference(trees, kind, min_dense_size):
+    """``draw_uniforms`` from a key gives the reference's uniforms exactly,
+    for every leaf the compressor names. A leaf that rides dense draws none
+    but still takes its place in the per-leaf split."""
+    theta = _torch_tree(trees[0])
+    key = jax.random.PRNGKey(3)
+    comp = (FusedCodec.wrap(CompressionPipeline(
+        (BlockTopKCodec(), QSGDCodec()), min_dense_size=min_dense_size))
+        if kind == "pipeline" else
+        Compressor("qsgd_pallas", min_dense_size=min_dense_size))
+    got = draw_uniforms(comp, torch.from_numpy(
+        np.asarray(key).astype(np.int64)), theta)
+    want = reference_uniforms(kind, trees[0], key)
+    assert list(got) == list(comp.uniform_shapes(theta))
+    assert (len(got) < len(want)) == bool(min_dense_size)
+    for path, u in got.items():
+        np.testing.assert_array_equal(u.numpy().view(np.int32),
+                                      want[path].view(np.int32), err_msg=path)
 
 
 @pytest.mark.parametrize("fused", [True, False])
@@ -307,7 +330,7 @@ def test_wire_bytes_of_qsgd_and_dense_configs(reduced, fed, full_width):
     2,546 blocks x 11 survivors x (1 + 2) bytes + a 4-byte scale a leaf;
     the legacy names the reference's closed-form table."""
     cfg = get_arch("lenet-radar", reduced=reduced)
-    params = get_model(cfg).init(torch.Generator().manual_seed(0), "meta")
+    params = get_model(cfg).init(random.PRNGKey(0, "meta"), "meta")
     got = make_compressor(FedConfig(**fed)).wire_bytes(params)
     jcfg = jax_get_arch("lenet-radar")
     jcfg = jcfg.reduced if reduced else jcfg.config

@@ -53,7 +53,7 @@ def test_kernels_match_plain_versions(card, n):
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {
         "pack": 1, "delta_pack": 1, "unpack": 1, "fused_update": 1,
-        "grid_quant": 0, "qsgd": 0, "block_topk": 0}
+        "grid_quant": 0, "qsgd": 0, "block_topk": 0, "threefry": 0}
 
 
 @pytest.mark.parametrize("n", [6, 150, 1024, 4097, 21000])
@@ -337,3 +337,80 @@ def test_a_round_launches_its_table_kernels_once(card, overrides, once):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     assert {name: counts[name] for name in once} == dict.fromkeys(once, 1)
+
+
+def _every_draw(keys, n):
+    """One draw of every transform over the rows of ``keys``, ``n``
+    elements a row, as one program: one table launch on the card."""
+    from repro_torch import random
+    return random.together(
+        random.split.program(keys, 8),
+        random.fold_in.program(keys, 2**32 - 1),
+        random.split_fold_in.program(keys, 8, 1),
+        random.bits.program(keys, (n,)),
+        random.uniform.program(keys, (n,)),
+        random.uniform.program(keys, (n,), -3.5, 11.25),
+        random.normal.program(keys, (n,), scale=0.0346410162),
+        random.truncated_normal.program(keys, -2.0, 2.0, (n,), scale=0.07))
+
+
+@pytest.mark.parametrize("n", [1, 7, 1023, 4099, 1_000_003])
+def test_threefry_table_matches_plain_version(card, n):
+    """Every transform, one table launch, bit-exact to the plain version
+    on the CPU: keys of a (3, 5, 2) tensor read through a strided view."""
+    from repro_torch import random
+    keys = random.split(random.PRNGKey(n, card), 15).view(3, 5, 2)[:, 2]
+    kernels.reset_launch_counts()
+    got = random.run(_every_draw(keys, n))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["threefry"] == 1
+    want = random.run(_every_draw(keys.cpu(), n))
+    for g, w in zip(got, want):
+        g = g.cpu()
+        assert g.shape == w.shape and g.dtype == w.dtype
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+
+
+def test_threefry_reproduces_the_golden_file(card):
+    """``tests/golden/threefry_draws.npz``, made from JAX, on the card."""
+    import json
+    from torch_golden import THREEFRY_FILE, port_draw
+    stored = np.load(THREEFRY_FILE)
+    for name, fn, seed, args in json.loads(str(stored["cases"])):
+        got = port_draw(fn, seed, args, card).cpu().numpy()
+        want = stored[name]
+        if want.dtype == np.float32:
+            got, want = got.view(np.int32), want.view(np.int32)
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+def test_seeded_round_on_the_card_draws_what_the_cpu_draws(card):
+    """A seeded reduced trainer: the card's init equals the CPU's bit for
+    bit, a round's draws take at most 6 threefry launches, and one round
+    tracks the CPU's (rtol 1e-4: cuDNN sums in another order)."""
+    from repro_torch.config import FedConfig, get_arch
+    from repro_torch.data.partition import partition_iid
+    from repro_torch.data.radar import make_dataset
+    from repro_torch.models import get_model
+    from repro_torch.train import FedTrainer
+    cfg = get_arch("lenet-radar", reduced=True)
+    fed = FedConfig(num_nodes=3, local_steps=2, eta=1e-3, zeta=0.3,
+                    temperature=0.2, burn_in=0, rounds=1, topology="full",
+                    pipeline="block_topk|qsgd", fused_compress=True)
+    shards = partition_iid(make_dataset(30, hw=cfg.input_hw, day=1, seed=0),
+                           3)
+    runs = {dev: FedTrainer(get_model(cfg), fed, shards, minibatch=5,
+                            seed=3, device=dev) for dev in (card, "cpu")}
+    for a, b in zip(runs[card].state.params.values(),
+                    runs["cpu"].state.params.values()):
+        for x, y in zip(a.values(), b.values()):
+            assert torch.equal(x.cpu().view(torch.int32), y.view(torch.int32))
+    kernels.reset_launch_counts()
+    got = runs[card].run(rounds=1)
+    torch.cuda.synchronize()
+    assert 1 <= kernels.launch_counts()["threefry"] <= 6
+    want = runs["cpu"].run(rounds=1)
+    np.testing.assert_allclose(got.loss_history, want.loss_history, rtol=1e-4)
+    assert got.wire_history == want.wire_history

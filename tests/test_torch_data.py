@@ -1,10 +1,12 @@
-"""The port's copied data path is byte-equal to the reference's."""
+"""The port's copied data path is byte-equal to the reference's, and its
+device shards draw the reference's minibatch indices from the same key."""
 import numpy as np
 import pytest
 import torch
 
 from repro.data import partition as jpartition
 from repro.data import radar as jradar
+from repro_torch import random
 from repro_torch.data import radar
 from repro_torch.data.partition import DeviceShards, partition_iid
 
@@ -42,6 +44,23 @@ def test_device_shards_gather_handed_indices():
     got = dev.gather(idx)
     for f in ("x", "y"):
         np.testing.assert_array_equal(got[f].numpy(), np.asarray(want[f]))
-    drawn = dev.sample_indices(torch.Generator().manual_seed(0), 2, 4)
+    drawn = dev.sample_indices(random.PRNGKey(0), 2, 4)
     assert drawn.shape == (3, 2, 4)
+    np.testing.assert_array_equal(drawn.numpy(), idx)
     assert all(int(drawn[k].max()) < n for k, n in enumerate(dev.sizes))
+
+
+@pytest.mark.parametrize("seed,k,l,m", [(0, 3, 2, 4), (5, 10, 8, 10),
+                                        (2**31 - 1, 4, 3, 7)])
+def test_sample_indices_equal_reference(seed, k, l, m):
+    """``DeviceShards.sample_indices`` from a key equals the reference's
+    from the same key exactly, shards of unequal lengths included."""
+    import jax
+    ds = radar.make_dataset(9 * k + 2, hw=(32, 16), seed=seed % 7)
+    shards = partition_iid(ds, k)
+    want = jpartition.DeviceShards.from_shards(shards).sample_indices(
+        jax.random.PRNGKey(seed), l, m)
+    got = DeviceShards.from_shards(shards, "cpu").sample_indices(
+        random.PRNGKey(seed), l, m)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

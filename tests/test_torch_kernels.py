@@ -16,7 +16,7 @@ from repro.core.compression import _qsgd_omega
 from repro.kernels import ops as jops
 from repro.kernels.fused_compress import grid_quant_pallas
 from repro.kernels.pack import unpack_topk_pallas
-from repro_torch import kernels
+from repro_torch import kernels, random
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_compress import (carrier_norms_plain, delta_pack,
                                                 grid_quant_leaves,
@@ -300,9 +300,10 @@ def test_cpu_tensors_run_the_plain_versions():
     ops.block_topk(x)
     ops.qsgd(x, torch.rand(2, 3000))
     ops.qsgd_quantize_carriers([vals], [torch.rand(vals.shape)])
+    random.normal(random.split(random.PRNGKey(0), 3), (7,))
     assert kernels.launch_counts() == {
         "pack": 0, "delta_pack": 0, "unpack": 0, "fused_update": 0,
-        "grid_quant": 0, "qsgd": 0, "block_topk": 0}
+        "grid_quant": 0, "qsgd": 0, "block_topk": 0, "threefry": 0}
 
 
 def test_meta_tensors_give_payload_shapes():

@@ -1,8 +1,10 @@
 """The port's LeNet against the reference's: the same parameters (carried
-across with ``params_from_jax``), the same inputs made with numpy.
+across with ``params_from_jax``), the same inputs made with numpy; and the
+port's init from a key against the reference's from the same key.
 
 Tolerance rtol 1e-5 / atol 1e-6 in f32: the convolutions and matmuls sum
 their products in another order than XLA does, which moves the last bits.
+The init is exact: its truncated normals transcribe XLA's arithmetic.
 """
 import jax
 import jax.numpy as jnp
@@ -12,6 +14,7 @@ import torch
 
 from repro.config import get_arch as jax_get_arch
 from repro.models import lenet as jlenet
+from repro_torch import random
 from repro_torch.config import get_arch
 from repro_torch.models import get_model
 from repro_torch.models.lenet import (lenet_logits, lenet_nll, params_from_jax,
@@ -85,7 +88,7 @@ def test_full_width_model_size():
     """lenet-radar at the paper's 256x63: 2,598,846 parameters, fc1.w is
     (11712, 220) — the reference's shapes, leaf for leaf."""
     cfg = get_arch("lenet-radar")
-    p = get_model(cfg).init(torch.Generator().manual_seed(0), "meta")
+    p = get_model(cfg).init(random.PRNGKey(0, "meta"), "meta")
     shapes = {k: tuple(v.shape) for k, v in tree_leaves_with_path(p)}
     ref = jax.eval_shape(lambda k: jlenet.init_lenet(
         k, jax_get_arch("lenet-radar").config), jax.random.PRNGKey(0))
@@ -94,3 +97,20 @@ def test_full_width_model_size():
     assert shapes == want
     assert sum(int(np.prod(s)) for s in shapes.values()) == 2_598_846
     assert shapes["fc1.w"] == (11712, 220)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2**31 - 1])
+def test_init_equals_reference(seed):
+    """``init_lenet(cfg, PRNGKey(seed))`` equals the reference's
+    ``init_lenet(PRNGKey(seed), cfg)`` bit for bit, leaf for leaf (reduced
+    width; the full width's shapes are held above)."""
+    cfg = get_arch("lenet-radar", reduced=True)
+    want = jlenet.init_lenet(jax.random.PRNGKey(seed),
+                             jax_get_arch("lenet-radar").reduced)
+    got = get_model(cfg).init(random.PRNGKey(seed), "cpu")
+    for (path, g), w in zip(tree_leaves_with_path(got),
+                            jax.tree.leaves(want)):
+        assert g.dtype == torch.float32 and g.shape == w.shape, path
+        np.testing.assert_array_equal(g.numpy().view(np.int32),
+                                      np.asarray(w).view(np.int32),
+                                      err_msg=path)

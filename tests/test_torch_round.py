@@ -1,12 +1,14 @@
 """One round, then five, of the port's ``make_cdbfl_round`` against the
-reference's, on the reduced LeNet with K=3 and the reference's own draws:
-the minibatch indices of ``DeviceShards.sample_indices(round_data_key(
-kround), L, M)``, the noise of ``algorithms._langevin_noise(knoise, ...)``
-and, for the QSGD configurations, the uniforms the reference draws from
-``kql`` (``test_torch_compression.reference_uniforms``), from the keys the
-reference's host engine derives. ``block_topk`` runs 1 and 5 rounds; the
+reference's, on the reduced LeNet with K=3: each round gets the
+reference's minibatches (``DeviceShards.sample_indices(round_data_key(
+kround), L, M)``) and the reference's round key ``kround``, from which the
+port's round draws its own Langevin noise and QSGD uniforms, as the
+reference's does. ``block_topk`` runs 1 and 5 rounds; the
 ``block_topk|qsgd`` pipeline and the legacy ``qsgd_pallas`` and
-``block_topk_pallas`` compressors 1 and 3.
+``block_topk_pallas`` compressors 1 and 3. Beside them, the draws alone:
+the port's noise and uniforms of a round against the reference's
+(``algorithms._langevin_noise`` and
+``test_torch_compression.reference_uniforms``), exactly.
 
 Tolerances and why:
 - wire bytes: exact (a function of shapes).
@@ -53,6 +55,7 @@ from repro_torch.core.compression import make_compressor as port_compressor
 from repro_torch.data.partition import DeviceShards
 from repro_torch.models import get_model
 from repro_torch.models.lenet import params_from_jax
+from repro_torch.train.engine import round_indices
 from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path
 from test_torch_compression import assert_grid_close, reference_uniforms
 
@@ -73,8 +76,8 @@ QSGD_CONFIGS = {
 
 
 def _reference_rounds(num_rounds, overrides=None, uniforms_kind=None):
-    """Run the reference round; yield per round (idx, noise, theta_L's
-    payload, state after the round, wire bytes, uniforms, decoded delta)."""
+    """Run the reference round; per round (idx, noise, theta_L's payload,
+    state after the round, wire bytes, uniforms, grid steps, round key)."""
     fed = JaxFedConfig(**dict(FED, **(overrides or {})))
     model = jax_get_model(jax_get_arch("lenet-radar").reduced)
     shards = partition_iid(make_dataset(K * 20, hw=(32, 16), seed=0), K)
@@ -116,7 +119,7 @@ def _reference_rounds(num_rounds, overrides=None, uniforms_kind=None):
         state, metrics = round_fn(state, batches, kround)
         out.append((np.asarray(idx), jax.tree.map(np.asarray, noise),
                     payload, state, float(metrics.wire_bytes), uniforms,
-                    steps))
+                    steps, _key(kround)))
     return shards, data_scale, jax.tree.map(np.asarray, params0), out
 
 
@@ -139,6 +142,11 @@ def _grid_steps(kind, payload, residual, levels):
             norm.reshape(K) / levels / (1 + omega)).reshape(
                 (K,) + (1,) * (leaf.ndim - 1))
     return steps
+
+
+def _key(key) -> torch.Tensor:
+    """A reference key as the port's ``(2,)`` int64 key."""
+    return torch.from_numpy(np.asarray(key).astype(np.int64))
 
 
 @pytest.fixture(scope="module")
@@ -178,11 +186,9 @@ def test_rounds_track_reference(reference, num_rounds):
     shards, data_scale, params0, rounds = reference
     round_fn, dshards, fed = _port_round(shards, data_scale)
     state = port_state.init_fed_state(params_from_jax(params0), fed)
-    for idx, noise, ref_payload, ref_state, ref_wire, _, _ in \
+    for idx, _, ref_payload, ref_state, ref_wire, _, _, kround in \
             rounds[:num_rounds]:
-        noise_t = {k: {kk: torch.tensor(vv) for kk, vv in v.items()}
-                   for k, v in noise.items()}
-        state, metrics = round_fn(state, dshards.gather(idx), noise_t)
+        state, metrics = round_fn(state, dshards.gather(idx), kround)
         assert metrics.wire_bytes == ref_wire == 1056.0
         assert metrics.payload.measured_bytes() == ref_payload.measured_bytes()
         assert _block_agreement(metrics.payload, ref_payload) >= MIN_BLOCK_AGREEMENT
@@ -249,14 +255,10 @@ def test_qsgd_and_dense_rounds_track_reference(qsgd_references, name,
     ref_v = jax.tree.map(np.zeros_like, state.v)
     flipped = {p: np.zeros(tuple(x.shape), bool)
                for p, x in tree_leaves_with_path(state.params)}
-    for (idx, noise, ref_payload, ref_state, ref_wire, uniforms,
-         steps) in rounds[:num_rounds]:
-        noise_t = {k: {kk: torch.tensor(vv) for kk, vv in v.items()}
-                   for k, v in noise.items()}
-        uniforms_t = {p: torch.from_numpy(u) for p, u in uniforms.items()}
+    for (idx, _, ref_payload, ref_state, ref_wire, _, steps,
+         kround) in rounds[:num_rounds]:
         old_v = state.v
-        state, metrics = round_fn(state, dshards.gather(idx), noise_t,
-                                  uniforms_t)
+        state, metrics = round_fn(state, dshards.gather(idx), kround)
         assert metrics.wire_bytes == ref_wire == wire
         if ref_payload is not None:
             assert metrics.payload.measured_bytes() == \
@@ -271,3 +273,31 @@ def test_qsgd_and_dense_rounds_track_reference(qsgd_references, name,
         _assert_state_close_but(state, ref_state, flipped)
         assert all(torch.isfinite(x).all() for x in tree_leaves(state.params))
     assert state.round == num_rounds
+
+
+@pytest.mark.parametrize("name", ["block_topk"] + list(QSGD_CONFIGS))
+def test_round_draws_equal_reference(reference, qsgd_references, name):
+    """From the reference's round keys, the port's minibatch indices
+    (``round_indices``), Langevin noise and QSGD uniforms (the pipeline's
+    ``fold_in(leaf_key, 1)`` streams, the legacy ``qsgd_pallas``'s leaf
+    keys; none for block-top-k alone) equal the reference's bit for bit:
+    the noise's erfinv and log1p transcribe XLA's."""
+    overrides = None if name == "block_topk" else QSGD_CONFIGS[name][0]
+    shards, data_scale, params0, rounds = (
+        reference if name == "block_topk" else qsgd_references(name))
+    round_fn, dshards, fed = _port_round(shards, data_scale, overrides)
+    params = port_state.init_fed_state(params_from_jax(params0), fed).params
+    for idx, noise, _, _, _, uniforms, _, kround in rounds:
+        np.testing.assert_array_equal(
+            round_indices(dshards, kround, L, M).numpy(), idx)
+        got_noise, got_uniforms = round_fn.draws(kround, params)
+        for (path, g), w in zip(tree_leaves_with_path(got_noise),
+                                jax.tree.leaves(noise)):
+            np.testing.assert_array_equal(g.numpy().view(np.int32),
+                                          np.asarray(w).view(np.int32),
+                                          err_msg=path)
+        assert list(got_uniforms) == list(uniforms)
+        for path, u in uniforms.items():
+            np.testing.assert_array_equal(
+                got_uniforms[path].numpy().view(np.int32),
+                u.view(np.int32), err_msg=path)

@@ -1,0 +1,153 @@
+"""Known answers of the reference, recorded from JAX on the CPU for the
+PyTorch port's tests and for ``chip_smoke.py``, which reads them on the card.
+
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py threefry
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py seeded-rounds
+
+``threefry`` writes ``tests/golden/threefry_draws.npz``: ``jax.random``'s
+keys, bits, uniforms, normals, truncated normals and randints for the cases
+of :data:`THREEFRY_CASES` (each array under its case name, the cases as
+JSON under ``cases``). ``tests/test_torch_random.py`` holds the file to what
+JAX gives now, so it cannot go stale, and the port to the file
+(:func:`port_draw`, which the card tests and ``chip_smoke.py`` run on the
+card too). This module imports JAX only inside the writers.
+
+``seeded-rounds`` writes ``tests/golden/seeded_rounds_lenet_radar.json``:
+the reference's first two rounds of full-width ``lenet-radar`` (256x63,
+K=10, L=8, minibatch 10, compressor ``block_topk`` with fused compression,
+seed 0), their mean loss, consensus error and wire bytes a node, beside the
+configuration they ran. ``chip_smoke.py`` runs the same configuration on the
+card and compares (bytes exact; loss and consensus within rtol 1e-3).
+"""
+from __future__ import annotations
+
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+GOLDEN = Path(__file__).resolve().parent / "golden"
+THREEFRY_FILE = GOLDEN / "threefry_draws.npz"
+SEEDED_ROUNDS_FILE = GOLDEN / "seeded_rounds_lenet_radar.json"
+
+# (name, function, seed, arguments): one ``jax.random`` call each
+THREEFRY_CASES = [
+    ("key_0", "PRNGKey", 0, {}),
+    ("key_1", "PRNGKey", 1, {}),
+    ("key_max", "PRNGKey", 2**31 - 1, {}),
+    ("split_10", "split", 42, {"num": 10}),
+    ("fold_in_7", "fold_in", 42, {"data": 7}),
+    ("fold_in_max", "fold_in", 42, {"data": 2**32 - 1}),
+    ("bits_1", "bits", 3, {"shape": [1]}),
+    ("bits_7", "bits", 3, {"shape": [7]}),
+    ("bits_3x1031", "bits", 4, {"shape": [3, 1031]}),
+    ("uniform_7", "uniform", 5, {"shape": [7]}),
+    ("uniform_4099", "uniform", 5, {"shape": [4099]}),
+    ("uniform_range", "uniform", 6, {"shape": [2, 513], "minval": -3.5,
+                                     "maxval": 11.25}),
+    ("normal_1", "normal", 7, {"shape": [1]}),
+    ("normal_4099", "normal", 7, {"shape": [4099]}),
+    ("truncated_normal_4099", "truncated_normal", 8,
+     {"lower": -2.0, "upper": 2.0, "shape": [4099]}),
+    ("randint_50", "randint", 9, {"shape": [5, 7], "minval": 0,
+                                  "maxval": 50}),
+    ("randint_empty_span", "randint", 9, {"shape": [6], "minval": 4,
+                                          "maxval": 4}),
+]
+
+
+def jax_draw(fn: str, seed: int, args: dict) -> np.ndarray:
+    """One case from ``jax.random``, as numpy (keys as int64)."""
+    import jax
+    key = jax.random.PRNGKey(seed)
+    if fn == "PRNGKey":
+        out = key
+    elif fn in ("split", "fold_in"):
+        out = getattr(jax.random, fn)(key, *args.values())
+    elif fn == "truncated_normal":
+        out = jax.random.truncated_normal(key, args["lower"], args["upper"],
+                                          tuple(args["shape"]))
+    else:
+        out = getattr(jax.random, fn)(key, tuple(args["shape"]), **{
+            k: v for k, v in args.items() if k != "shape"})
+    out = np.asarray(out)
+    return out.astype(np.int64) if out.dtype == np.uint32 else out
+
+
+def port_draw(fn: str, seed: int, args: dict, device="cpu"):
+    """One case through ``repro_torch.random``, on ``device``."""
+    from repro_torch import random
+    key = random.PRNGKey(seed, device)
+    if fn == "PRNGKey":
+        return key
+    if fn in ("split", "fold_in"):
+        return getattr(random, fn)(key, *args.values())
+    if fn == "truncated_normal":
+        return random.truncated_normal(key, args["lower"], args["upper"],
+                                       args["shape"])
+    return getattr(random, fn)(key, args["shape"], **{
+        k: v for k, v in args.items() if k != "shape"})
+
+
+def threefry_golden() -> dict:
+    arrays = {name: jax_draw(fn, seed, args)
+              for name, fn, seed, args in THREEFRY_CASES}
+    arrays["cases"] = np.array(json.dumps(THREEFRY_CASES))
+    return arrays
+
+
+def write_threefry() -> None:
+    np.savez_compressed(THREEFRY_FILE, **threefry_golden())
+    print(f"wrote {THREEFRY_FILE}")
+
+
+# chip_smoke.py's block_topk configuration (its K, L, MINIBATCH, BURN_IN,
+# RATIO, BLOCK, LEVELS and fed_config), which it checks against this record
+SEEDED_CONFIG = dict(
+    arch="lenet-radar", reduced=False, train_maps=500, data_seed=0,
+    minibatch=10, seed=0, rounds=2,
+    fed=dict(num_nodes=10, local_steps=8, eta=1e-4, zeta=0.03,
+             temperature=1.0, burn_in=2, compress_ratio=0.01,
+             block_size=1024, qsgd_levels=16, topology="full",
+             compressor="block_topk", fused_compress=True))
+
+
+def write_seeded_rounds() -> None:
+    from repro.config import FedConfig, get_arch
+    from repro.data.partition import partition_iid
+    from repro.data.radar import make_dataset
+    from repro.models import get_model
+    from repro.train import FedTrainer
+    c = SEEDED_CONFIG
+    arch = get_arch(c["arch"])
+    cfg = arch.reduced if c["reduced"] else arch.config
+    fed = FedConfig(rounds=c["rounds"], **c["fed"])
+    train = make_dataset(c["train_maps"], hw=cfg.input_hw, day=1,
+                         seed=c["data_seed"])
+    t0 = time.time()
+    trainer = FedTrainer(get_model(cfg), fed,
+                         partition_iid(train, fed.num_nodes),
+                         minibatch=c["minibatch"], seed=c["seed"],
+                         engine="host")
+    res = trainer.run(rounds=c["rounds"])
+    record = {
+        "command": "JAX_PLATFORMS=cpu PYTHONPATH=src python "
+                   "tests/torch_golden.py seeded-rounds",
+        "reference": "repro.train.FedTrainer(engine='host') on the CPU",
+        "config": c,
+        "loss": [float(x) for x in res.loss_history],
+        "consensus": [float(x) for x in res.consensus_history],
+        "wire_bytes": [float(x) for x in res.wire_history],
+        "seconds": time.time() - t0,
+    }
+    SEEDED_ROUNDS_FILE.write_text(json.dumps(record, indent=1) + "\n")
+    print(f"wrote {SEEDED_ROUNDS_FILE}: {record}")
+
+
+if __name__ == "__main__":
+    which = sys.argv[1:] or ["threefry"]
+    for name in which:
+        {"threefry": write_threefry,
+         "seeded-rounds": write_seeded_rounds}[name]()
