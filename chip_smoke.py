@@ -32,7 +32,8 @@ Phases, each of which fails the run by raising:
              launches in the trace checked against its count); pack,
              delta-pack, unpack, qsgd and grid_quant as the round runs
              them, one table launch over the 10 leaves.
-3. slice   — FedTrainer(device="cuda", seed=0) on full-width lenet-radar
+3. slice   — FedTrainer(engine="host", device="cuda", seed=0) on
+             full-width lenet-radar
              (256x63, K=10, L=8, minibatch 10, ratio 1%, block 1024,
              η=1e-4, ζ=0.03, T=1) in four configurations, each run with the
              launch counts set to 0 just before it and read just after, its
@@ -59,7 +60,23 @@ Phases, each of which fails the run by raising:
              and params equal the fused round's bit for bit. The card's
              decode of the block_topk|qsgd payload equals the plain CPU
              decode of the same payload.
-5. profile — traced rounds (block_topk fused, its oracle, block_topk|qsgd,
+5. graph   — each configuration's phase-3 run again with engine="scan"
+             (same seed, rounds and bank_thin; chunks of rounds / 2, so
+             the second chunk replays the first's CUDA graph), its launch
+             counts set to 0 just before and read just after (the warm-up
+             round and the capture count them): params, v, v̄, key, bank,
+             per-round loss and consensus error, bytes and BMA
+             probabilities equal to the host run's bit for bit, ECE within
+             1e-6 (the eval's reliability bins sum by float atomics). Then
+             the replayed chunk: ms a round (the metrics read included), its
+             device time by CUDA events around graph.replay() and the idle
+             share, the capture time, the host time of graph.replay(), and
+             from a trace of a replay each ported kernel's launches and
+             device ms a round inside it (delta-pack, unpack, grid_quant and
+             qsgd once a round, fused_update and block_topk ten times,
+             threefry at most 6). Last, block_topk with FedTrainer's
+             defaults (chunks of 64, a bank of 40): 128 rounds, two runs.
+6. profile — traced rounds (block_topk fused, its oracle, block_topk|qsgd,
              qsgd_pallas, block_topk_pallas), each with its draws: the
              device's busy share, the top kernels, each ported kernel's and
              the draw kernel's device time in a round, and torch's norm
@@ -724,7 +741,7 @@ def run_slice(name: str, train, test):
     _, rounds, wire, launched = RUNS[name]
     trainer = FedTrainer(get_model(cfg), fed_config(name),
                          partition_iid(train, K), minibatch=MINIBATCH, seed=0,
-                         bank_thin=1, device=DEVICE)
+                         engine="host", bank_thin=1, device=DEVICE)
     kernels.reset_launch_counts()
     res = trainer.run(rounds=rounds, eval_batch=test)
     launches = kernels.launch_counts()
@@ -766,7 +783,7 @@ def run_slice(name: str, train, test):
         check_seeded(res)
     if len(trainer.bank) != max(0, rounds - BURN_IN):
         raise AssertionError(f"{name}: bank holds {len(trainer.bank)} samples")
-    return trainer, launches
+    return trainer, launches, res
 
 
 def check_seeded(res) -> None:
@@ -940,6 +957,191 @@ def check_cpu_decode(compressor, payload):
                   f"plain CPU decode bit for bit ({len(payload.entries)} leaves)")
 
 
+# --------------------------------------------------------------------------
+# phase 5: the chunked engine, a CUDA graph a chunk
+# --------------------------------------------------------------------------
+
+# the BMA evaluation's ECE, graph run against host run (see run_graph)
+ECE_ATOL = 1e-6
+# the ported kernels' launches a round inside a replayed chunk, from its
+# trace (threefry: at most)
+REPLAY_LAUNCHES = {"delta_pack": 1, "unpack": 1, "grid_quant": 1, "qsgd": 1,
+                   "fused_update": 10, "block_topk": 10,
+                   "threefry": MAX_DRAW_LAUNCHES_A_ROUND}
+
+
+def same_tensors(label: str, got, want) -> None:
+    """Assert two lists of tensors equal bit for bit."""
+    got, want = list(got), list(want)
+    if len(got) != len(want) or not all(
+            bitwise_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{label}: the graph run differs from the host "
+                             f"run")
+
+
+def run_graph(name: str, host, host_res, train, test) -> None:
+    """Phase 3's run of ``name`` again with ``engine="scan"``: same seed,
+    rounds and ``bank_thin``, ``chunk = rounds / 2``, so the second chunk
+    is a replay of the first's graph. Params, v, v̄, key, bank, per-round
+    loss and consensus error, bytes and the BMA evaluation against the host
+    run, bit for bit. Then the replayed chunk timed and traced: ms per
+    round, the device's idle share, each kernel's launches and device ms a
+    round inside it."""
+    from repro_torch.train import FedTrainer
+    cfg = get_arch("lenet-radar", reduced=REDUCED)
+    _, rounds, wire, launched = RUNS[name]
+    n = rounds // 2
+    trainer = FedTrainer(get_model(cfg), fed_config(name),
+                         partition_iid(train, K), minibatch=MINIBATCH, seed=0,
+                         engine="scan", chunk=n, bank_thin=1, device=DEVICE)
+    kernels.reset_launch_counts()
+    res = trainer.run(rounds=rounds, eval_batch=test)
+    launches = kernels.launch_counts()
+    engine = trainer._engine
+    log("graph", f"{name}: chunks of {n}: capture {engine.capture_ms[n]:.1f} "
+                 f"ms; ms/round by chunk {res.round_ms}; launches counted "
+                 f"(the warm-up round and the capture) {launches}")
+    for kname in launched:
+        if launches[kname] <= 0:
+            raise AssertionError(f"{name}: the graph run never launched "
+                                 f"{kname}")
+    if res.wire_history != [float(wire)] * rounds:
+        raise AssertionError(f"{name}: graph run bytes {res.wire_history}")
+    if (res.loss_history != host_res.loss_history
+            or res.consensus_history != host_res.consensus_history):
+        raise AssertionError(f"{name}: graph run losses {res.loss_history} "
+                             f"consensus {res.consensus_history}, host run "
+                             f"{host_res.loss_history} "
+                             f"{host_res.consensus_history}")
+    for part in ("params", "v", "v_bar"):
+        same_tensors(f"{name} {part}", tree_leaves(getattr(trainer.state,
+                                                           part)),
+                     tree_leaves(getattr(host.state, part)))
+    same_tensors(f"{name} key", [trainer.key], [host.key])
+    samples = trainer.bank.samples
+    if len(samples) != len(host.bank.samples) or \
+            list(trainer.bank_cfg.rounds_list(trainer._bank_state)) != \
+            host.bank.rounds:
+        raise AssertionError(f"{name}: graph bank holds {len(samples)}")
+    for got, want in zip(samples, host.bank.samples):
+        same_tensors(f"{name} bank", tree_leaves(got), tree_leaves(want))
+    # the BMA probabilities bit for bit; ECE within ECE_ATOL: the eval's
+    # reliability bins sum on the card by index_add's float atomics, in an
+    # order that changes from run to run
+    if not (np.array_equal(res.probs.view(np.int32),
+                           host_res.probs.view(np.int32))
+            and res.accuracy == host_res.accuracy
+            and abs(res.ece - host_res.ece) <= ECE_ATOL):
+        raise AssertionError(f"{name}: graph run BMA accuracy {res.accuracy} "
+                             f"ECE {res.ece}, host {host_res.accuracy} "
+                             f"{host_res.ece}")
+    log("graph", f"{name}: {rounds} rounds in chunks of {n} (one capture, "
+                 f"{rounds // n - 1} replay): params, v, v̄, key, the bank "
+                 f"({len(samples)} samples), losses, consensus, bytes "
+                 f"({wire:,}), BMA probabilities and accuracy "
+                 f"{res.accuracy:.4f} equal to the host run's bit for bit; "
+                 f"ECE {res.ece!r} vs {host_res.ece!r} (within {ECE_ATOL})")
+
+    # the replayed chunk, timed and traced (the carry runs on from here)
+    t = rounds
+    graph, _, _ = engine.graph(n)
+    enqueue, walls = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.run_chunk(t, n)
+        walls.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        graph.replay()
+        enqueue.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        t += 2 * n
+    wall = statistics.median(walls) / n
+    busy = device_ms(graph.replay, reps=5, per_rep=1) / n
+    host_ms = statistics.median(host_res.round_ms[1:])
+    carry_bytes = 4 * 3 * tree_count(trainer.state.params) + 16   # + key
+    copy_ms = 2 * carry_bytes / HBM_BYTES_PER_S * 1e3
+    log("graph", f"{name}: a replayed chunk of {n}: {wall:.3f} ms a round "
+                 f"(median of 5 run_chunk calls, the metrics read included), "
+                 f"{busy:.3f} ms of it on the device (CUDA events around "
+                 f"graph.replay(), median of 5): idle "
+                 f"{100 * (1 - busy / wall):.1f}%; host engine (phase 3) "
+                 f"{host_ms:.3f} ms a round, idle about "
+                 f"{100 * (1 - busy / host_ms):.1f}% against the same device "
+                 f"time; host time of graph.replay() "
+                 f"{statistics.median(enqueue):.3f} ms; capture "
+                 f"{engine.capture_ms[n]:.1f} ms; the carry copy at the "
+                 f"chunk's end {2 * carry_bytes / 1e6:.0f} MB, bound "
+                 f"{copy_ms:.4f} ms")
+    span = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def traced_chunk():
+        span[0].record()
+        engine.run_chunk(t, n)
+        span[1].record()
+    by_name = profiled(traced_chunk)
+    if not by_name:
+        log("graph", f"{name}: the profiler saw no device events in the "
+                     f"replay: launches inside the graph not measured")
+        return
+    traced = sum(tm for tm, _ in by_name.values()) / 1e3 / n
+    log("graph", f"{name}: traced replay: its device events sum to "
+                 f"{traced:.3f} ms a round, and it spans "
+                 f"{span[0].elapsed_time(span[1]) / n:.3f} ms a round on "
+                 f"CUDA events, against {busy:.3f} ms untraced")
+    for kname in launched:
+        hits = [(tm, c) for nm, (tm, c) in by_name.items()
+                if TRACE_NAMES[kname] in nm]
+        per_round = sum(c for _, c in hits) / n
+        log("graph", f"  {name}: {kname} "
+                     f"{sum(tm for tm, _ in hits) / 1e3 / n:.4f} ms device "
+                     f"time and {per_round:g} launches a round inside the "
+                     f"replay")
+        want = REPLAY_LAUNCHES[kname]
+        if not 1 <= per_round <= want or (kname != "threefry"
+                                           and per_round != want):
+            raise AssertionError(f"{name}: {kname} launched {per_round:g} "
+                                 f"times a round in the replay, want {want}")
+    count, ms = norm_reductions(by_name)
+    log("graph", f"  {name}: torch norm reductions: {count / n:g} launches, "
+                 f"{ms / n:.4f} ms device time a round")
+    del trainer, engine, graph
+    torch.cuda.empty_cache()
+
+
+def run_default_chunk(train) -> None:
+    """The scan engine as a user gets it: ``FedTrainer`` with its default
+    engine, chunk (64 rounds) and bank (40 samples, thin 2) on the
+    ``block_topk`` configuration, 128 rounds in two runs: the first
+    captures the 64-round graph and replays it, the second only replays.
+    Every loss finite, the bank full, the bytes exact; capture time, ms a
+    round of the second run and the peak device memory logged."""
+    from repro_torch.train import FedTrainer
+    cfg = get_arch("lenet-radar", reduced=REDUCED)
+    _, _, wire, _ = RUNS["block_topk"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = FedTrainer(get_model(cfg), fed_config("block_topk"),
+                         partition_iid(train, K), minibatch=MINIBATCH, seed=0,
+                         device=DEVICE)
+    first = trainer.run(rounds=64)
+    second = trainer.run(rounds=64)
+    losses = first.loss_history + second.loss_history
+    if not (all(math.isfinite(x) for x in losses)
+            and first.wire_history + second.wire_history == [float(wire)] * 128
+            and len(trainer.bank) == 40 and trainer.state.round == 128):
+        raise AssertionError(f"default chunk: losses {losses[-3:]}, bank "
+                             f"{len(trainer.bank)}, round {trainer.state.round}")
+    log("graph", f"block_topk, FedTrainer's defaults (chunks of 64, bank of "
+                 f"40): capture {trainer._engine.capture_ms[64]:.1f} ms; first "
+                 f"run {first.round_ms[0]:.3f} ms a round (warm-up, capture, "
+                 f"replay), second {second.round_ms[0]:.3f} ms a round (one "
+                 f"replay); bank {len(trainer.bank)} samples; peak device "
+                 f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del trainer
+    torch.cuda.empty_cache()
+
+
 # device kernel names of the ported kernels in a profiler trace
 TRACE_NAMES = {"pack": "pack_kernel<false>", "delta_pack": "pack_kernel<true>",
                "unpack": "unpack_kernel", "fused_update": "fused_update_",
@@ -1070,14 +1272,18 @@ def main() -> int:
     test = make_dataset(200, hw=cfg.input_hw, day=1, seed=99)
     log("slice", f"data: {len(train['y'])} train / {len(test['y'])} test maps "
                  f"at {cfg.input_hw} in {time.perf_counter() - t0:.1f} s")
-    trainers, runs = {}, {}
+    trainers, runs, results = {}, {}, {}
     for name in RUNS:
-        trainers[name], runs[name] = run_slice(name, train, test)
+        trainers[name], runs[name], results[name] = run_slice(name, train,
+                                                              test)
     timing["threefry"] = time_draws(trainers[PIPE])
     errs["threefry"] = max(draw_err, timing["threefry"]["err"])
     oracles = {name: oracle_round(name, trainers[name])
                for name in ("block_topk", PIPE)}
     check_cpu_decode(trainers[PIPE].compressor, oracles[PIPE][2])
+    for name in RUNS:
+        run_graph(name, trainers[name], results[name], train, test)
+    run_default_chunk(train)
     profile_rounds(trainers, {n: o[1] for n, o in oracles.items()}, timing)
 
     # each kernel's launches in the run of the path that reaches it

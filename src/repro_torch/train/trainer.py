@@ -1,12 +1,15 @@
 """Federated training harness (``repro/train/trainer.py:FedTrainer``): the
-host round loop of the paper's protocol, a posterior bank filled after
+paper's protocol run by a round engine, a posterior bank filled after
 burn-in, and BMA evaluation of accuracy and ECE.
 
     trainer = FedTrainer(model, fed_cfg, shards)          # device="cuda"
     result = trainer.run(rounds=T, eval_batch=test)
 
-The card is the default device. ``device="cpu"`` runs every kernel's plain
-version on the CPU; a ``cuda`` device without a card raises.
+The default ``engine="scan"`` runs chunks of rounds (a CUDA graph a chunk
+on the card) with the on-device posterior bank; ``engine="host"`` is the
+per-round oracle with the host bank. The card is the default device.
+``device="cpu"`` runs every kernel's plain version on the CPU; a ``cuda``
+device without a card raises.
 """
 from __future__ import annotations
 
@@ -21,11 +24,11 @@ from repro_torch import random
 from repro_torch.core.algorithms import make_cdbfl_round
 from repro_torch.core.compression import make_compressor
 from repro_torch.core.fed_state import FedState, init_fed_state
-from repro_torch.core.posterior import SampleBank
+from repro_torch.core.posterior import DeviceSampleBank, SampleBank
 from repro_torch.core.topology import build_topology, resolve_topology
 from repro_torch.data.partition import DeviceShards
 from repro_torch.eval.engine import EvalReport, HostEvalEngine
-from repro_torch.train.engine import HostRoundEngine
+from repro_torch.train.engine import make_engine
 from repro_torch.utils.tree import tree_map
 
 
@@ -51,6 +54,23 @@ class TrainResult:
     wall_s: float = 0.0
 
 
+class _BankView:
+    """``len()`` and ``.samples`` over a :class:`DeviceBankState`
+    (``repro/train/trainer.py:93-107``); reads the device on access."""
+
+    def __init__(self, cfg: DeviceSampleBank, state):
+        self._cfg = cfg
+        self._state = state
+
+    def __len__(self):
+        return 0 if self._state is None else self._cfg.length(self._state)
+
+    @property
+    def samples(self):
+        return ([] if self._state is None
+                else self._cfg.samples_list(self._state))
+
+
 def resolve_device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -72,13 +92,11 @@ class FedTrainer:
 
     def __init__(self, model, fed_cfg, shards: List[Dict[str, np.ndarray]],
                  minibatch: int = 10, data_scale: Optional[float] = None,
-                 seed: int = 0, engine: str = "host", bank_capacity: int = 40,
-                 bank_thin: int = 2, eval_batch_size: int = 64,
-                 device="cuda", params: Optional[Dict] = None):
-        if engine != "host":
-            raise NotImplementedError(
-                f"engine={engine!r} is not ported yet (runs: 'host'); "
-                f"ROADMAP A5 (scan-style chunked engine), A10 (shard engine)")
+                 seed: int = 0, engine: str = "scan",
+                 chunk: Optional[int] = None, bank_capacity: int = 40,
+                 bank_thin: int = 2, bank_dtype: str = "float32",
+                 eval_batch_size: int = 64, device="cuda",
+                 params: Optional[Dict] = None):
         fed_cfg.check_supported()
         assert len(shards) == fed_cfg.num_nodes, "one shard per node"
         self.device = resolve_device(device)
@@ -101,11 +119,15 @@ class FedTrainer:
                                          self.compressor, self.data_scale,
                                          self.device)
         self.device_shards = DeviceShards.from_shards(shards, self.device)
-        self._engine = HostRoundEngine(self.round_fn, self.device_shards,
-                                       fed_cfg, minibatch)
+        self.bank_cfg = DeviceSampleBank(
+            burn_in=fed_cfg.burn_in, capacity=bank_capacity, thin=bank_thin,
+            store_dtype=bank_dtype)
+        self._engine = make_engine(engine, self.round_fn, self.device_shards,
+                                   fed_cfg.local_steps, minibatch,
+                                   bank=self.bank_cfg, chunk=chunk or 64)
         self.key = random.PRNGKey(seed + 1, self.device)
-        self.bank = SampleBank(burn_in=fed_cfg.burn_in,
-                               max_samples=bank_capacity, thin=bank_thin)
+        self._bank_state = (self._engine.make_bank() if engine == "host"
+                            else self.bank_cfg.init(self.state.params))
         self._eval = HostEvalEngine(model.logits, batch_size=eval_batch_size)
 
         n_edges = float(self.topology.adjacency.sum())
@@ -115,6 +137,14 @@ class FedTrainer:
         self.bytes_per_round = float(self.compressor.wire_bytes(params0)
                                      * n_edges)
 
+    @property
+    def bank(self):
+        """The posterior bank: the host engine's :class:`SampleBank`, or a
+        view with its ``len()`` and ``.samples`` of the device bank."""
+        if isinstance(self._bank_state, SampleBank):
+            return self._bank_state
+        return _BankView(self.bank_cfg, self._bank_state)
+
     def run(self, rounds: Optional[int] = None, log_every: int = 0,
             eval_batch: Optional[Dict[str, np.ndarray]] = None) -> TrainResult:
         rounds = rounds if rounds is not None else self.fed_cfg.rounds
@@ -123,9 +153,10 @@ class FedTrainer:
             log_cb = lambda t, l, c: print(
                 f"  round {t:4d}  loss={l:.4f} consensus={c:.3e}")
         t0 = time.time()
-        self.state, self.key, self.bank, losses, cons = self._engine.run(
-            self.state, self.key, self.bank, rounds, t0=self.state.round,
-            log_every=log_every, log_cb=log_cb)
+        self.state, self.key, self._bank_state, losses, cons = \
+            self._engine.run(self.state, self.key, self._bank_state, rounds,
+                             t0=self.state.round, log_every=log_every,
+                             log_cb=log_cb)
         wire = list(self._engine.last_wire_history)
         res = TrainResult(
             accuracy=float("nan"), ece=float("nan"), nll=float("nan"),
@@ -142,9 +173,15 @@ class FedTrainer:
         return res
 
     def _stacked_bank(self):
-        """(S, K, ...) posterior samples; the current params (S = 1) while
-        the bank is empty."""
-        stacked = self.bank.stacked()
+        """(S, K, ...) posterior samples, whichever bank holds them (the
+        device bank read outside any graph, its count once); the current
+        params (S = 1) while the bank is empty."""
+        if isinstance(self._bank_state, SampleBank):
+            stacked = self._bank_state.stacked()
+        else:
+            order = self.bank_cfg.order(self._bank_state)
+            stacked = (self.bank_cfg.stacked(self._bank_state, order)
+                       if len(order) else None)
         if stacked is None:
             stacked = tree_map(lambda x: x[None], self.state.params)
         return stacked

@@ -331,7 +331,7 @@ def test_a_round_launches_its_table_kernels_once(card, overrides, once):
                     **overrides)
     data = make_dataset(30, hw=cfg.input_hw, day=1, seed=0)
     trainer = FedTrainer(get_model(cfg), fed, partition_iid(data, 3),
-                         minibatch=5, device=card)
+                         minibatch=5, engine="host", device=card)
     kernels.reset_launch_counts()
     trainer.run(rounds=1)
     torch.cuda.synchronize()
@@ -402,7 +402,8 @@ def test_seeded_round_on_the_card_draws_what_the_cpu_draws(card):
     shards = partition_iid(make_dataset(30, hw=cfg.input_hw, day=1, seed=0),
                            3)
     runs = {dev: FedTrainer(get_model(cfg), fed, shards, minibatch=5,
-                            seed=3, device=dev) for dev in (card, "cpu")}
+                            seed=3, engine="host", device=dev)
+            for dev in (card, "cpu")}
     for a, b in zip(runs[card].state.params.values(),
                     runs["cpu"].state.params.values()):
         for x, y in zip(a.values(), b.values()):
@@ -414,3 +415,79 @@ def test_seeded_round_on_the_card_draws_what_the_cpu_draws(card):
     want = runs["cpu"].run(rounds=1)
     np.testing.assert_allclose(got.loss_history, want.loss_history, rtol=1e-4)
     assert got.wire_history == want.wire_history
+
+
+GRAPH_CONFIGS = [dict(compressor="block_topk", fused_compress=True),
+                 dict(pipeline="block_topk|qsgd", fused_compress=True),
+                 dict(compressor="qsgd_pallas"),
+                 dict(compressor="block_topk_pallas")]
+
+
+def _reduced_trainer(card, overrides, engine, **kw):
+    from repro_torch.config import FedConfig, get_arch
+    from repro_torch.data.partition import partition_iid
+    from repro_torch.data.radar import make_dataset
+    from repro_torch.models import get_model
+    from repro_torch.train import FedTrainer
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cfg = get_arch("lenet-radar", reduced=True)
+    fed = FedConfig(num_nodes=3, local_steps=2, eta=1e-3, zeta=0.3,
+                    temperature=0.2, burn_in=1, rounds=6, topology="full",
+                    **overrides)
+    shards = partition_iid(make_dataset(30, hw=cfg.input_hw, day=1, seed=0),
+                           3)
+    return FedTrainer(get_model(cfg), fed, shards, minibatch=5, seed=2,
+                      engine=engine, bank_thin=1, bank_capacity=3,
+                      device=card, **kw)
+
+
+@pytest.mark.parametrize("overrides", GRAPH_CONFIGS)
+def test_graph_chunks_equal_the_host_rounds(card, overrides):
+    """Six reduced rounds in chunks of two, one capture and two replays of
+    the chunk's CUDA graph, against the host engine's eager rounds: params,
+    v, v̄, key, losses, consensus and the bank (capacity 3 < 5 admits, so
+    it evicts) equal bit for bit."""
+    from repro_torch.utils.tree import tree_leaves
+    host = _reduced_trainer(card, overrides, "host")
+    scan = _reduced_trainer(card, overrides, "scan", chunk=2)
+    want, got = host.run(rounds=6), scan.run(rounds=6)
+    assert list(scan._engine.capture_ms) == [2]
+    assert got.loss_history == want.loss_history
+    assert got.consensus_history == want.consensus_history
+    assert got.wire_history == want.wire_history
+    for part in ("params", "v", "v_bar"):
+        for a, b in zip(tree_leaves(getattr(scan.state, part)),
+                        tree_leaves(getattr(host.state, part))):
+            assert _same_bits(a, b), part
+    assert torch.equal(scan.key, host.key)
+    assert len(scan.bank) == len(host.bank) == 3
+    for s, h in zip(scan.bank.samples, host.bank.samples):
+        for a, b in zip(tree_leaves(s), tree_leaves(h)):
+            assert _same_bits(a, b)
+
+
+def test_a_sync_inside_the_chunk_fails_its_capture(card):
+    """A round that reads a value to the host (``.item()``) cannot be
+    captured: the capture raises, and nothing runs eagerly in its place
+    (the bank and the state stay as they were)."""
+    from repro_torch.train.engine import ScanRoundEngine
+    trainer = _reduced_trainer(card, GRAPH_CONFIGS[0], "scan", chunk=2)
+
+    def syncing(state, batches, key, draws=None):
+        state, metrics = trainer.round_fn(state, batches, key, draws)
+        metrics.loss.mean().item()
+        return state, metrics
+    syncing.draws = trainer.round_fn.draws
+    engine = ScanRoundEngine(syncing, trainer.device_shards, 2, 5,
+                             bank=trainer.bank_cfg)
+    params = {k: {n: x.clone() for n, x in v.items()}
+              for k, v in trainer.state.params.items()}
+    with pytest.raises(RuntimeError):
+        engine.run(trainer.state, trainer.key, trainer._bank_state, 2)
+    torch.cuda.synchronize()
+    assert engine.last_round_ms == [] and len(trainer.bank) == 0
+    assert int(trainer._bank_state.count) == 0
+    for a, b in zip(trainer.state.params.values(), params.values()):
+        for x, y in zip(a.values(), b.values()):
+            assert _same_bits(x, y)
