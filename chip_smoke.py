@@ -27,9 +27,11 @@ Phases, each of which fails the run by raising:
              finite ones, each exactly one launch. Time each beside its
              bound and its plain
              version, by CUDA events (host time per call included) and by
-             the device time in a profiler trace (the kernels alone, after a
-             profiled warm-up call whose events are dropped, each kernel's
-             launches in the trace checked against its count); pack,
+             the device time in profiler traces (the kernels alone, the
+             median of three traces, each after profiled warm-up calls of
+             at least 32 launches whose events are dropped, and each whole:
+             it holds every launch the wrappers counted, or it is taken
+             again); pack,
              delta-pack, unpack, qsgd and grid_quant as the round runs
              them, one table launch over the 10 leaves.
 3. slice   — FedTrainer(engine="host", device="cuda", seed=0) on
@@ -82,6 +84,30 @@ Phases, each of which fails the run by raising:
              the draw kernel's device time in a round, and torch's norm
              reductions (none in the block_topk|qsgd round: its norms are
              grid_quant's).
+7. default — the paper's default run and its two baselines: FedConfig's
+             default fused_compress=False (the lax.top_k-order block_topk
+             codec) under algorithm cdbfl, dsgld and cffl, at phase 3's
+             configuration, 4 rounds each (burn-in 2): bytes exact (167,682,
+             10,395,384 and 167,682), each kernel of the path launched
+             (topk_select and unpack_set once a round), the bank for cdbfl
+             and dsgld only, rounds 1-2 against the reference's seeded CPU
+             runs (``tests/golden/baseline_rounds_lenet_radar.json``: bytes
+             exact, loss and consensus error within rtol 1e-3); again on the
+             scan engine (chunks of 2), bit for bit; accuracy and ECE on the
+             day-1 test maps and on the days-2/3 critical_subset shift set,
+             printed. Then one cdbfl round of each other codec with its
+             bytes exact: topk 207,498, randk 104,056, sign 649,756, qsgd
+             2,598,886, identity 10,395,384, unfused block_topk|qsgd 83,881.
+
+Phase 2 also holds the kernels of phase 7's path to their plain versions,
+exactly: topk_select (the lax.top_k-order selection, with and without v),
+unpack_set (its decode) and fused_update's CF-FL and DSGLD variants, at
+the full-width leaf shapes (each leaf with its own k), at edge leaves (NaN
+payloads, ±inf, ties, -0.0, ragged, short leaves, a k-th magnitude 2^30
+below its block's maximum) and as one table launch; each timed beside its
+bound, its plain version and, for topk_select, one stable torch.sort of
+the same blocks' keys (the library call; unpack_set has none: scatter_
+alone does not zero the fresh dense leaf).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository, it exits non-zero and prints no
@@ -91,6 +117,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -113,15 +140,20 @@ from repro_torch.core.algorithms import (langevin_noise,  # noqa: E402
 from repro_torch.core.compression import (  # noqa: E402
     CompressionPipeline, FusedCodec, LeafPayload, WirePayload)
 from repro_torch.data.partition import partition_iid  # noqa: E402
-from repro_torch.data.radar import make_dataset  # noqa: E402
+from repro_torch.data.radar import critical_subset, make_dataset  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.block_topk import block_topk, block_topk_plain  # noqa: E402
 from repro_torch.kernels.fused_compress import (  # noqa: E402
     carrier_norms_plain, delta_pack, delta_pack_plain, grid_quant_leaves,
     grid_quant_plain)
-from repro_torch.kernels.fused_update import fused_update, fused_update_plain  # noqa: E402
-from repro_torch.kernels.pack import (from_uint16, num_blocks,  # noqa: E402
-                                      pack_topk, pack_topk_plain, unpack_topk,
+from repro_torch.kernels.fused_update import (  # noqa: E402
+    cffl_update, cffl_update_plain, dsgld_update, dsgld_update_plain,
+    fused_update, fused_update_plain)
+from repro_torch.kernels.pack import (from_uint16, magnitude_keys,  # noqa: E402
+                                      num_blocks, pack_topk, pack_topk_plain,
+                                      to_blocks, topk_select,
+                                      topk_select_plain, unpack_set,
+                                      unpack_set_plain, unpack_topk,
                                       unpack_topk_plain)
 from repro_torch.kernels.qsgd import (inv_one_plus, qsgd, qsgd_omega,  # noqa: E402
                                       qsgd_plain, row_norm)
@@ -132,8 +164,9 @@ from repro_torch.models import get_model  # noqa: E402
 from repro_torch.train.engine import round_indices  # noqa: E402
 from repro_torch.utils.tree import (tree_count, tree_leaves,  # noqa: E402
                                     tree_leaves_with_path)
-from torch_golden import (SEEDED_CONFIG, SEEDED_ROUNDS_FILE,  # noqa: E402
-                          THREEFRY_FILE, port_draw)
+from torch_golden import (BASELINE_ROUNDS_FILE,  # noqa: E402
+                          SEEDED_CONFIG, SEEDED_ROUNDS_FILE, THREEFRY_FILE,
+                          baseline_config, port_draw)
 
 DEVICE = "cuda"
 REDUCED = False                                    # full lenet-radar width
@@ -200,7 +233,27 @@ KERNELS = {
     "threefry": ("src/repro_torch/kernels/csrc/threefry.cu",
                  "none (no pl.pallas_call): jax.random threefry draws, "
                  "src/repro/core/algorithms.py:133"),
+    # the paper's default codec and the baselines' updates: jnp in the
+    # reference, no pl.pallas_call
+    "topk_select": ("src/repro_torch/kernels/csrc/pack.cu",
+                    "none (no pl.pallas_call): jnp lax.top_k block "
+                    "selection, src/repro/core/compression.py:426"),
+    "unpack_set": ("src/repro_torch/kernels/csrc/pack.cu",
+                   "none (no pl.pallas_call): jnp .at[].set decode, "
+                   "src/repro/core/compression.py:445"),
+    "cffl_update": ("src/repro_torch/kernels/csrc/fused_update.cu",
+                    "none (no pl.pallas_call): jnp CF-FL update, "
+                    "src/repro/core/algorithms.py:602"),
+    "dsgld_update": ("src/repro_torch/kernels/csrc/fused_update.cu",
+                     "none (no pl.pallas_call): jnp DSGLD update, "
+                     "src/repro/core/algorithms.py:515"),
 }
+# the seven kernels that replace a pl.pallas_call
+TPU_KERNELS = ("pack", "delta_pack", "unpack", "fused_update", "grid_quant",
+               "qsgd", "block_topk")
+# f32 operations an element: the residual, its key and one compare
+# (topk_select); sub and fma (cffl_update); fma and add (dsgld_update)
+TOPK_SELECT_OPS, VARIANT_OPS = 3, 3
 
 
 def log(phase: str, msg: str) -> None:
@@ -234,48 +287,75 @@ def device_ms(fn, reps: int = 5, per_rep: int = 10) -> float:
     return statistics.median(times)
 
 
-def profiled(fn):
+def trace_hits(by_name, kname):
+    """(summed µs, launches) of the ported kernel ``kname`` in a trace."""
+    hits = [(t, c) for name, (t, c) in by_name.items()
+            if TRACE_NAMES[kname].search(name)]
+    return sum(t for t, _ in hits), sum(c for _, c in hits)
+
+
+def profiled(fn, expect=None):
     """{device kernel name: (summed µs, count)} of one call of ``fn``
-    (which ends in a device sync) under torch.profiler. A profiled warm-up
-    call comes first and its events are dropped: a profile's first launch
-    is often missing from its trace."""
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        fn()
-        prof.step()
-        fn()
-    return device_time_by_name(prof)
+    (which ends in a device sync) under torch.profiler, after profiled
+    warm-up calls whose events are dropped. Late in a long process the
+    profiler loses the records of about the first ten kernel launches after
+    it is enabled, whatever its schedule (PERF.md §7), so the warm-up is at
+    least two calls and at least WARM_LAUNCHES launches of the ported
+    kernels where ``fn`` makes any. A trace counts only when it is whole:
+    it holds some device event and at least as many launches of each ported
+    kernel as ``expect`` ({kernel: launches}) says, by default as many as
+    the kernels' wrappers counted in the traced call. Otherwise it is taken
+    again with twice the warm-up launches, up to TRACE_ATTEMPTS times; None
+    if none was whole."""
+    for attempt in range(TRACE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            start, calls = sum(kernels.launch_counts().values()), 0
+            while calls < 2 or 0 < sum(kernels.launch_counts().values()) - \
+                    start < WARM_LAUNCHES << attempt:
+                fn()
+                calls += 1
+            prof.step()
+            before = kernels.launch_counts()
+            fn()
+            after = kernels.launch_counts()
+        want = expect if expect is not None else {
+            k: after[k] - before[k] for k in after if after[k] > before[k]}
+        by_name = device_time_by_name(prof)
+        short = {k: f"{trace_hits(by_name, k)[1]} of {n}"
+                 for k, n in want.items() if trace_hits(by_name, k)[1] < n}
+        if by_name and not short:
+            return by_name
+        log("trace", f"a trace after {calls} warm-up calls lacks launches "
+                     f"({short or 'no device event'}); traced again")
+    return None
 
 
-def traced_ms(fns, kernel=None, reps: int = 3, attempts: int = 5):
-    """Device time of one pass over ``fns`` from a torch.profiler trace:
-    the summed intervals of the device kernels, fills and copies they ran,
-    with no host time in it. A trace that comes back without device events,
-    or, for a ported ``kernel``, with another number of its launches than
-    its wrapper counted in the traced call, is taken again, up to
-    ``attempts`` times; None if no trace was whole."""
+def traced_readings(fns, reps: int = 3, takes: int = 3):
+    """Device times of one pass over ``fns``, each from its own whole trace
+    (``profiled``): the summed intervals of the device kernels, fills and
+    copies they ran, with no host time in it; None if a trace could not be
+    made whole."""
     def passes():
         for _ in range(reps):
             for fn in fns:
                 fn()
         torch.cuda.synchronize()
 
-    for _ in range(attempts):
-        launched = kernels.launch_counts()
+    readings = []
+    for _ in range(takes):
         by_name = profiled(passes)
-        if kernel is not None:             # the warm-up call launched half
-            want = (kernels.launch_counts()[kernel] - launched[kernel]) // 2
-            seen = sum(c for name, (_, c) in by_name.items()
-                       if TRACE_NAMES[kernel] in name)
-            if seen != want:
-                log("kernels", f"{kernel}: the trace holds {seen} of its "
-                               f"{want} launches; traced again")
-                continue
-        us = sum(t for t, _ in by_name.values())
-        if us:
-            return us / 1e3 / reps
-    return None
+        if by_name is None:
+            return None
+        readings.append(sum(t for t, _ in by_name.values()) / 1e3 / reps)
+    return readings
+
+
+def traced_ms(fns):
+    """The median of ``traced_readings``; None where it has none."""
+    readings = traced_readings(fns)
+    return None if readings is None else statistics.median(readings)
 
 
 def device_time_by_name(prof):
@@ -651,7 +731,7 @@ def time_kernels(shapes):
     whole)."""
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     rows = {name: dict(ms=0.0, plain_ms=0.0, nbytes=0.0, ops=0.0, fns=[],
-                       plain_fns=[]) for name in KERNELS if name != "threefry"}
+                       plain_fns=[]) for name in TPU_KERNELS}
     largest = max(int(np.prod(s)) for _, s in shapes)
     ths, vs, payloads, us, carriers, ucs = [], [], [], [], [], []
     for _, shape in shapes:
@@ -681,7 +761,7 @@ def time_kernels(shapes):
             if n == largest:
                 b_ms, b_by = bound(nbytes, ops)
                 log("kernels", f"{name} on the largest leaf {shape} (K={K}): "
-                               f"device {fmt_ms(traced_ms([kern], name))}, "
+                               f"device {fmt_ms(traced_ms([kern]))}, "
                                f"event-timed {ms:.4f} ms; plain {plain_ms:.4f}"
                                f" ms; bound {b_ms:.4f} ms ({b_by})")
     # pack, delta-pack, unpack, qsgd and grid_quant as the round runs the
@@ -712,12 +792,167 @@ def time_kernels(shapes):
         r["fns"], r["plain_fns"] = [kern], [plain]
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound(r["nbytes"], r["ops"])
-        r["device_ms"] = traced_ms(r.pop("fns"), name)
+        r["device_ms"] = traced_ms(r.pop("fns"))
         r["plain_device_ms"] = traced_ms(r.pop("plain_fns"))
         if r["device_ms"] is None or r["plain_device_ms"] is None:
             log("kernels", f"{name}: no whole trace; device time not "
                            f"measured")
     return rows
+
+
+# --------------------------------------------------------------------------
+# phase 2, the default codec's kernels: topk_select, unpack_set, and the
+# CF-FL and DSGLD variants of fused_update
+# --------------------------------------------------------------------------
+
+def leaf_k(n: int) -> int:
+    """Survivors a block of the default codec: a leaf of at most one block
+    keeps its own ceil(ratio·n) (TopKCodec's global top-k)."""
+    return SURVIVORS if n > BLOCK else max(1, math.ceil(RATIO * n))
+
+
+def far_below_case():
+    """A leaf whose second block holds one value 2^30 above the rest: its
+    k-th magnitude lies far below its maximum (ROADMAP C3)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    x = torch.randn((K, 3000), generator=gen, device=DEVICE)
+    x[:, 1024:2048] = torch.rand((K, 1024), generator=gen,
+                                 device=DEVICE) * 1e-9 + 1e-9
+    x[:, 1500] = 2.0 ** 30
+    return "far below 3000", x, torch.zeros_like(x)
+
+
+def check_default_kernels(shapes):
+    """topk_select (with and without v), unpack_set and the two update
+    variants against their plain versions on the card, exactly: every
+    full-width and edge leaf, then one table launch over all of them (a k
+    a leaf); k = 40 on its own. Returns the largest absolute errors."""
+    errs = dict.fromkeys(("topk_select", "unpack_set", "cffl_update",
+                          "dsgld_update"), 0.0)
+    cases = [c for c in leaf_cases(shapes) if c[1].shape[1] > 1]
+    cases.append(far_below_case())
+
+    def same(kname, got, want, label):
+        if not bitwise_equal(got, want):
+            raise AssertionError(f"{kname} differs from its plain version on "
+                                 f"{label}")
+        errs[kname] = max(errs[kname], max_abs_err(got, want))
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    for name, theta, v in cases:
+        n, k = theta.shape[1], leaf_k(theta.shape[1])
+        for with_v in (False, True):
+            (vals, idx), = topk_select([theta], [k], [v] if with_v else None)
+            want = topk_select_plain(theta, k, v=v if with_v else None)
+            same("topk_select", vals, want[0], name)
+            same("topk_select", idx, want[1], name)
+            dense, = unpack_set([(vals, idx)], [n])
+            same("unpack_set", dense, unpack_set_plain(vals, idx, n), name)
+        if bool(torch.isfinite(theta).all() and torch.isfinite(v).all()):
+            vb = v * 0.5 + 0.01
+            g = torch.randn(theta.shape, generator=gen, device=DEVICE) * 30
+            xi = torch.randn(theta.shape, generator=gen, device=DEVICE) * 1e-2
+            same("cffl_update", cffl_update(theta, vb, v, 0.03),
+                 cffl_update_plain(theta, vb, v, 0.03), name)
+            same("dsgld_update", dsgld_update(theta, g, xi, 1e-4),
+                 dsgld_update_plain(theta, g, xi, 1e-4), name)
+        log("kernels", f"{name}: K={K} n={n} k={k}: topk_select (with and "
+                       f"without v), unpack_set and the update variants "
+                       f"bit-exact to their plain versions")
+    before = (topk_select.launches, unpack_set.launches)
+    thetas, vs = [c[1] for c in cases], [c[2] for c in cases]
+    ks = [leaf_k(t.shape[1]) for t in thetas]
+    got = topk_select(thetas, ks, vs)
+    dense = unpack_set(got, [t.shape[1] for t in thetas])
+    if (topk_select.launches - before[0], unpack_set.launches - before[1]) \
+            != (1, 1):
+        raise AssertionError("a mixed topk_select or unpack_set table took "
+                             "other than one launch")
+    for (name, theta, v), k, (vals, idx), d in zip(cases, ks, got, dense):
+        want = topk_select_plain(theta, k, v=v)
+        same("topk_select", vals, want[0], f"the table's {name}")
+        same("topk_select", idx, want[1], f"the table's {name}")
+        same("unpack_set", d, unpack_set_plain(vals, idx, theta.shape[1]),
+             f"the table's {name}")
+    wide = cases[0][1]
+    (vals, idx), = topk_select([wide], [40])
+    same("topk_select", vals, topk_select_plain(wide, 40)[0], "k=40")
+    same("topk_select", idx, topk_select_plain(wide, 40)[1], "k=40")
+    log("kernels", f"one table launch each of topk_select (with v) and "
+                   f"unpack_set over the {len(cases)} leaves above, a k a "
+                   f"leaf, and topk_select at k=40 (its k > 32 path): "
+                   f"bit-exact to every leaf's plain version")
+    return errs
+
+
+def time_default_kernels(shapes):
+    """Per-round time of the default codec's kernels over the 10 full-width
+    leaves (K=10): topk_select with v and unpack_set as one table launch
+    each, as the round runs them; the update variants one launch a leaf.
+    Beside each its plain version, its bound and, for topk_select, one
+    stable ``torch.sort`` of all the round's block keys (the full order,
+    keys formed outside the timing); no single torch call decodes a
+    payload into a fresh dense leaf (``scatter_`` alone leaves the zeros
+    to another call) or computes an update variant. Each device time is
+    the median of three whole traces, all three logged."""
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    ths = [torch.randn((K, int(np.prod(s))), generator=gen, device=DEVICE)
+           for _, s in shapes]
+    vs = [t * 0.1 for t in ths]
+    ns = [t.shape[1] for t in ths]
+    ks = [leaf_k(n) for n in ns]
+    payloads = topk_select(ths, ks, vs)
+    keys = torch.cat([magnitude_keys(to_blocks(t - v, BLOCK))
+                      for t, v in zip(ths, vs)])
+    vbs = [v * 0.5 for v in vs]
+    xis = [v * 0.3 for v in vs]
+    wire = sum(vals.numel() * 6 for vals, _ in payloads)
+    padded = sum(vals.shape[1] * K * BLOCK for vals, _ in payloads)
+    total = sum(K * n for n in ns)
+    rows = {
+        "topk_select": (lambda: topk_select(ths, ks, vs),
+                        lambda: [topk_select_plain(t, k, v=v)
+                                 for t, k, v in zip(ths, ks, vs)],
+                        lambda: torch.sort(keys, dim=1, descending=True,
+                                           stable=True),
+                        2 * total * 4 + wire, TOPK_SELECT_OPS * padded),
+        "unpack_set": (lambda: unpack_set(payloads, ns),
+                       lambda: [unpack_set_plain(*p, n)
+                                for p, n in zip(payloads, ns)],
+                       None, wire + total * 4, 0),
+        "cffl_update": (lambda: [cffl_update(t, b, v, 0.03)
+                                 for t, b, v in zip(ths, vbs, vs)],
+                        lambda: [cffl_update_plain(t, b, v, 0.03)
+                                 for t, b, v in zip(ths, vbs, vs)],
+                        None, 4 * total * 4, VARIANT_OPS * total),
+        "dsgld_update": (lambda: [dsgld_update(t, v, x, 1e-4)
+                                  for t, v, x in zip(ths, vs, xis)],
+                         lambda: [dsgld_update_plain(t, v, x, 1e-4)
+                                  for t, v, x in zip(ths, vs, xis)],
+                         None, 4 * total * 4, VARIANT_OPS * total),
+    }
+    out = {}
+    for name, (kern, plain, lib, nbytes, ops) in rows.items():
+        b_ms, b_by = bound(nbytes, ops)
+        readings = traced_readings([kern])
+        r = dict(ms=device_ms(kern), plain_ms=device_ms(plain, reps=3,
+                                                         per_rep=2),
+                 device_ms=readings and statistics.median(readings),
+                 plain_device_ms=traced_ms([plain]), bound_ms=b_ms,
+                 bound_by=b_by, nbytes=nbytes, ops=ops,
+                 library_ms=None if lib is None else traced_ms([lib]))
+        out[name] = r
+        log("kernels", f"{name} per round (10 leaves, K={K}): device "
+                       f"{fmt_ms(r['device_ms'])} (median of the traces' "
+                       f"{readings and [round(x, 4) for x in readings]}), "
+                       f"event-timed "
+                       f"{r['ms']:.4f} ms; plain: device "
+                       f"{fmt_ms(r['plain_device_ms'])}, event-timed "
+                       f"{r['plain_ms']:.4f} ms; library "
+                       f"{fmt_ms(r['library_ms']) if lib else 'none'}; "
+                       f"bound {b_ms:.4f} ms ({b_by}: {nbytes:.0f} B, "
+                       f"{ops:.0f} ops)")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -871,7 +1106,7 @@ def time_draws(trainer):
     b_ms, b_by = bound(nbytes, ops, int_ops)
     row = dict(ms=device_ms(run), plain_ms=device_ms(plain, reps=3,
                                                       per_rep=2),
-               device_ms=traced_ms([run], "threefry"),
+               device_ms=traced_ms([run]),
                plain_device_ms=traced_ms([plain]), bound_ms=b_ms,
                bound_by=b_by, nbytes=nbytes, ops=ops, int_ops=int_ops,
                launches=launches, err=err)
@@ -1079,29 +1314,33 @@ def run_graph(name: str, host, host_res, train, test) -> None:
         span[0].record()
         engine.run_chunk(t, n)
         span[1].record()
-    by_name = profiled(traced_chunk)
-    if not by_name:
-        log("graph", f"{name}: the profiler saw no device events in the "
-                     f"replay: launches inside the graph not measured")
-        return
+    def per_round(by_name, kname):
+        us, count = trace_hits(by_name, kname)
+        return us / 1e3 / n, count / n
+
+    def whole(by_name, kname):
+        got, want = per_round(by_name, kname)[1], REPLAY_LAUNCHES[kname]
+        return 1 <= got <= want and (kname == "threefry" or got == want)
+
+    # a replay launches through no wrapper: each kernel of the path at
+    # least once a round
+    by_name = profiled(traced_chunk, expect=dict.fromkeys(launched, n))
+    if by_name is None:
+        raise AssertionError(f"{name}: no whole trace of the replay in "
+                             f"{TRACE_ATTEMPTS} tries")
     traced = sum(tm for tm, _ in by_name.values()) / 1e3 / n
     log("graph", f"{name}: traced replay: its device events sum to "
                  f"{traced:.3f} ms a round, and it spans "
                  f"{span[0].elapsed_time(span[1]) / n:.3f} ms a round on "
                  f"CUDA events, against {busy:.3f} ms untraced")
     for kname in launched:
-        hits = [(tm, c) for nm, (tm, c) in by_name.items()
-                if TRACE_NAMES[kname] in nm]
-        per_round = sum(c for _, c in hits) / n
-        log("graph", f"  {name}: {kname} "
-                     f"{sum(tm for tm, _ in hits) / 1e3 / n:.4f} ms device "
-                     f"time and {per_round:g} launches a round inside the "
-                     f"replay")
-        want = REPLAY_LAUNCHES[kname]
-        if not 1 <= per_round <= want or (kname != "threefry"
-                                           and per_round != want):
-            raise AssertionError(f"{name}: {kname} launched {per_round:g} "
-                                 f"times a round in the replay, want {want}")
+        ms, count = per_round(by_name, kname)
+        log("graph", f"  {name}: {kname} {ms:.4f} ms device time and "
+                     f"{count:g} launches a round inside the replay")
+        if not whole(by_name, kname):
+            raise AssertionError(f"{name}: {kname} launched {count:g} "
+                                 f"times a round in the replay, want "
+                                 f"{REPLAY_LAUNCHES[kname]}")
     count, ms = norm_reductions(by_name)
     log("graph", f"  {name}: torch norm reductions: {count / n:g} launches, "
                  f"{ms / n:.4f} ms device time a round")
@@ -1142,12 +1381,18 @@ def run_default_chunk(train) -> None:
     torch.cuda.empty_cache()
 
 
-# device kernel names of the ported kernels in a profiler trace
-TRACE_NAMES = {"pack": "pack_kernel<false>", "delta_pack": "pack_kernel<true>",
-               "unpack": "unpack_kernel", "fused_update": "fused_update_",
-               "grid_quant": "grid_quant_kernel", "qsgd": "qsgd_kernel",
-               "block_topk": "block_topk_kernel",
-               "threefry": "threefry_kernel"}
+# device kernel names of the ported kernels in a profiler trace; an update
+# variant's float4 launch and its scalar tail both count
+TRACE_NAMES = {kname: re.compile(pattern) for kname, pattern in {
+    "pack": r"pack_kernel<false>", "delta_pack": r"pack_kernel<true>",
+    "unpack": r"\bunpack_kernel", "fused_update": r"fused_update_\w+<0>",
+    "grid_quant": r"grid_quant_kernel", "qsgd": r"qsgd_kernel",
+    "block_topk": r"block_topk_kernel", "threefry": r"threefry_kernel",
+    "topk_select": r"topk_select_kernel", "unpack_set": r"unpack_set_kernel",
+    "cffl_update": r"fused_update_\w+<1>",
+    "dsgld_update": r"fused_update_\w+<2>"}.items()}
+# tries at a whole trace, and the least launches of its warm-up (profiled)
+TRACE_ATTEMPTS, WARM_LAUNCHES = 4, 32
 # the traced round each kernel's in-round device time is read from
 TRACE_ROUND = {"pack": "block_topk oracle", "delta_pack": "block_topk",
                "unpack": "block_topk", "fused_update": "block_topk",
@@ -1208,25 +1453,206 @@ def profile_rounds(trainers, oracle_fns, timing):
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
         for kname, (tot, cnt) in top[:10 if label == PIPE else 5]:
             log("profile", f"  {tot / 1e3:8.3f} ms x{cnt:<4d} {kname[:90]}")
-        for kname, pattern in TRACE_NAMES.items():
-            hits = [(t, c) for n, (t, c) in by_name.items() if pattern in n]
-            if hits:
-                log("profile", f"  {label}: {kname} "
-                               f"{sum(t for t, _ in hits) / 1e3:.4f} ms device "
-                               f"time, {sum(c for _, c in hits)} launches")
+        for kname in TRACE_NAMES:
+            us, cnt = trace_hits(by_name, kname)
+            if cnt:
+                log("profile", f"  {label}: {kname} {us / 1e3:.4f} ms device "
+                               f"time, {cnt} launches")
         count, ms = norm_reductions(by_name)
         log("profile", f"  {label}: torch norm reductions: {count} launches, "
                        f"{ms:.4f} ms device time")
         if label == PIPE and count:
             raise AssertionError(f"{PIPE} round ran {count} torch norm "
                                  f"reductions; its norms are grid_quant's")
-    for kname, pattern in TRACE_NAMES.items():
-        label = TRACE_ROUND[kname]
-        hits = [(t, c) for n, (t, c) in traces[label].items() if pattern in n]
-        us, cnt = sum(t for t, _ in hits), sum(c for _, c in hits)
+    for kname, label in TRACE_ROUND.items():
+        us, cnt = trace_hits(traces[label], kname)
         log("profile", f"{kname}: {us / 1e3:.4f} ms device time in the traced "
                        f"{label} round, {cnt} launches; event-timed "
                        f"{timing[kname]['ms']:.4f} ms a round (phase 2)")
+
+
+# --------------------------------------------------------------------------
+# phase 7: the paper's default run and its two baselines, and the codecs
+# --------------------------------------------------------------------------
+
+# algorithm: (rounds, wire bytes per node per round, the kernels it
+# launches, those it launches once a round)
+DEFAULT_RUNS = {
+    "cdbfl": (4, 167_682, ("topk_select", "unpack_set", "fused_update",
+                           "threefry"), ("topk_select", "unpack_set")),
+    "dsgld": (4, 10_395_384, ("dsgld_update", "threefry"), ()),
+    "cffl": (4, 167_682, ("topk_select", "unpack_set", "cffl_update",
+                          "threefry"), ("topk_select", "unpack_set")),
+}
+# one cdbfl round of each other codec: FedConfig overrides, bytes, kernels
+CODEC_ROUNDS = {
+    "topk": (dict(compressor="topk"), 207_498,
+             ("topk_select", "unpack_set", "fused_update", "threefry")),
+    "randk": (dict(compressor="randk"), 104_056,
+              ("fused_update", "threefry")),
+    "sign": (dict(compressor="sign"), 649_756, ("fused_update", "threefry")),
+    "qsgd": (dict(compressor="qsgd"), 2_598_886,
+             ("grid_quant", "fused_update", "threefry")),
+    "identity": (dict(compressor="identity"), 10_395_384,
+                 ("fused_update", "threefry")),
+    PIPE + " (unfused)": (dict(pipeline=PIPE), 83_881,
+                          ("topk_select", "grid_quant", "unpack_set",
+                           "fused_update", "threefry")),
+}
+
+
+def default_config(algorithm: str, rounds: int, **overrides) -> FedConfig:
+    """Phase 3's configuration at FedConfig's default fused_compress=False
+    (the field is left at its default), under ``algorithm``."""
+    return FedConfig(**dict(
+        dict(num_nodes=K, local_steps=L, eta=1e-4, zeta=0.03, temperature=1.0,
+             burn_in=BURN_IN, rounds=rounds, compress_ratio=RATIO,
+             block_size=BLOCK, qsgd_levels=LEVELS, topology="full",
+             algorithm=algorithm), **overrides))
+
+
+def shift_set(hw):
+    """The days-2/3 safety-critical shift set (examples/radar_hrc.py:43-49)."""
+    parts = [critical_subset(make_dataset(250, hw=hw, day=d, seed=90 + d))
+             for d in (2, 3)]
+    return {k: np.concatenate([p[k] for p in parts]) for k in ("x", "y")}
+
+
+def check_baseline_seeded(algorithm: str, fed: FedConfig, res) -> None:
+    """Rounds 1-2 against the reference's seeded CPU run of the same
+    configuration: bytes exact, loss and consensus within rtol 1e-3."""
+    want = json.loads(BASELINE_ROUNDS_FILE.read_text())[algorithm]
+    mine = dict(baseline_config(algorithm), reduced=REDUCED,
+                train_maps=K * 50, minibatch=MINIBATCH,
+                fed={k: getattr(fed, k) for k in want["config"]["fed"]})
+    if want["config"] != mine:
+        raise AssertionError(f"{BASELINE_ROUNDS_FILE.name} ran "
+                             f"{want['config']}, this run is {mine}")
+    n = len(want["loss"])
+    if res.wire_history[:n] != want["wire_bytes"]:
+        raise AssertionError(f"{algorithm}: seeded bytes "
+                             f"{res.wire_history[:n]} != {want['wire_bytes']}")
+    for metric, got in (("loss", res.loss_history),
+                        ("consensus", res.consensus_history)):
+        if not np.allclose(got[:n], want[metric], rtol=1e-3, atol=0):
+            raise AssertionError(f"{algorithm}: seeded {metric} {got[:n]} "
+                                 f"differs from the reference's "
+                                 f"{want[metric]}")
+    log("default", f"{algorithm}, seed 0, rounds 1-{n} against the "
+                   f"reference's seeded CPU run: loss {res.loss_history[:n]} "
+                   f"vs {want['loss']}, consensus {res.consensus_history[:n]}"
+                   f" vs {want['consensus']}, bytes exact (rtol 1e-3 held)")
+
+
+def run_default(algorithm: str, train, test, shift):
+    """The paper's default configuration under ``algorithm`` on the host
+    engine, then on the scan engine (chunks of 2) against it bit for bit;
+    each evaluated on the day-1 test maps and on the shift set. Returns
+    the host run's launches and its evaluations."""
+    from repro_torch.train import FedTrainer
+    cfg = get_arch("lenet-radar", reduced=REDUCED)
+    rounds, wire, launched, once = DEFAULT_RUNS[algorithm]
+    fed = default_config(algorithm, rounds)
+    if fed.fused_compress:
+        raise AssertionError("FedConfig's default fused_compress changed")
+    runs = {}
+    for engine in ("host", "scan"):
+        trainer = FedTrainer(get_model(cfg), fed, partition_iid(train, K),
+                             minibatch=MINIBATCH, seed=0, engine=engine,
+                             chunk=2, bank_thin=1, device=DEVICE)
+        kernels.reset_launch_counts()
+        res = trainer.run(rounds=rounds, eval_batch=test)
+        launches = kernels.launch_counts()
+        shifted = trainer.evaluate(shift)
+        runs[engine] = (trainer, res, launches, shifted)
+        log("default", f"{algorithm} ({engine} engine): ms/round "
+                       f"{[round(x, 2) for x in res.round_ms]}; losses "
+                       f"{res.loss_history}; consensus "
+                       f"{res.consensus_history}; bank {len(trainer.bank)}; "
+                       f"day-1 accuracy {res.accuracy:.4f} ECE "
+                       f"{res.ece:.4f}; shift set ({len(shift['y'])} maps) "
+                       f"accuracy {shifted.accuracy:.4f} ECE "
+                       f"{shifted.ece:.4f}; launches {launches}")
+        values = (res.loss_history + res.consensus_history
+                  + [res.accuracy, res.ece, shifted.accuracy, shifted.ece])
+        if not all(math.isfinite(x) for x in values):
+            raise AssertionError(f"{algorithm}: non-finite metric {values}")
+        if res.wire_history != [float(wire)] * rounds:
+            raise AssertionError(f"{algorithm}: wire bytes/node/round "
+                                 f"{res.wire_history}, want {wire}")
+        for kname in launched:
+            if launches[kname] <= 0:
+                raise AssertionError(f"{algorithm}: the {engine} run never "
+                                     f"launched {kname}")
+        want_bank = 0 if algorithm == "cffl" else rounds - BURN_IN
+        if len(trainer.bank) != want_bank:
+            raise AssertionError(f"{algorithm}: bank holds "
+                                 f"{len(trainer.bank)}, want {want_bank}")
+    host, res, launches, shifted = runs["host"]
+    for kname in once:
+        if launches[kname] != rounds:
+            raise AssertionError(f"{algorithm}: {kname} launched "
+                                 f"{launches[kname]} times in {rounds} "
+                                 f"rounds, not once a round")
+    check_baseline_seeded(algorithm, host.fed_cfg, res)
+    scan, sres, _, sshift = runs["scan"]
+    if (sres.loss_history != res.loss_history
+            or sres.consensus_history != res.consensus_history
+            or sres.wire_history != res.wire_history):
+        raise AssertionError(f"{algorithm}: scan run's metrics differ from "
+                             f"the host run's")
+    for part in ("params", "v", "v_bar"):
+        same_tensors(f"{algorithm} {part}",
+                     tree_leaves(getattr(scan.state, part)),
+                     tree_leaves(getattr(host.state, part)))
+    same_tensors(f"{algorithm} key", [scan.key], [host.key])
+    for got, want in zip(scan.bank.samples, host.bank.samples):
+        same_tensors(f"{algorithm} bank", tree_leaves(got), tree_leaves(want))
+    if not (np.array_equal(sres.probs.view(np.int32),
+                           res.probs.view(np.int32))
+            and np.array_equal(sshift.probs.view(np.int32),
+                               shifted.probs.view(np.int32))):
+        raise AssertionError(f"{algorithm}: scan run's evaluation differs")
+    log("default", f"{algorithm}: scan engine (chunks of 2) equal to the host "
+                   f"engine bit for bit: params, v, v̄, key, bank "
+                   f"({len(scan.bank)} samples), losses, consensus, bytes "
+                   f"({wire:,}), BMA probabilities on both test sets")
+    evals = dict(accuracy=res.accuracy, ece=res.ece,
+                 shift_accuracy=shifted.accuracy, shift_ece=shifted.ece)
+    del runs, host, scan
+    torch.cuda.empty_cache()
+    return launches, evals
+
+
+def run_codec_round(name: str, train) -> None:
+    """One full-width cdbfl round of a codec on the host engine: its bytes
+    exact, every value finite, each kernel of its path launched."""
+    from repro_torch.train import FedTrainer
+    cfg = get_arch("lenet-radar", reduced=REDUCED)
+    overrides, wire, launched = CODEC_ROUNDS[name]
+    trainer = FedTrainer(get_model(cfg), default_config("cdbfl", 1,
+                                                        **overrides),
+                         partition_iid(train, K), minibatch=MINIBATCH,
+                         seed=0, engine="host", device=DEVICE)
+    kernels.reset_launch_counts()
+    res = trainer.run(rounds=1)
+    launches = kernels.launch_counts()
+    if res.wire_history != [float(wire)]:
+        raise AssertionError(f"{name}: wire bytes {res.wire_history}, want "
+                             f"{wire}")
+    if not (math.isfinite(res.loss_history[0]) and all(
+            torch.isfinite(x).all() for x in tree_leaves(
+                trainer.state.params))):
+        raise AssertionError(f"{name}: non-finite round")
+    for kname in launched:
+        if launches[kname] <= 0:
+            raise AssertionError(f"{name}: the round never launched {kname}")
+    log("default", f"codec {name}: one round, {res.round_ms[0]:.2f} ms, loss "
+                   f"{res.loss_history[0]:.4f}, wire bytes/node {wire:,} "
+                   f"(exact); launches "
+                   f"{ {k: v for k, v in launches.items() if v} }")
+    del trainer
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1257,6 +1683,7 @@ def main() -> int:
                    f"{len(shapes)} leaves, K={K} nodes")
     draw_err = check_draws(shapes)
     errs = check_kernels(shapes)
+    errs.update(check_default_kernels(shapes))
     timing = time_kernels(shapes)
     for kname, r in timing.items():
         log("kernels", f"{kname} per round (10 leaves, K={K}): device "
@@ -1286,18 +1713,38 @@ def main() -> int:
     run_default_chunk(train)
     profile_rounds(trainers, {n: o[1] for n, o in oracles.items()}, timing)
 
+    # phase 7: the paper's default run and its baselines, then the codecs
+    timing.update(time_default_kernels(shapes))
+    shift = shift_set(cfg.input_hw)
+    default_launches, evals = {}, {}
+    for algorithm in DEFAULT_RUNS:
+        default_launches[algorithm], evals[algorithm] = run_default(
+            algorithm, train, test, shift)
+    for name in CODEC_ROUNDS:
+        run_codec_round(name, train)
+    log("default", "accuracy / ECE, day-1 test maps and days-2/3 shift set: "
+                   + "; ".join(f"{a}: {e['accuracy']:.4f} / {e['ece']:.4f}, "
+                               f"{e['shift_accuracy']:.4f} / "
+                               f"{e['shift_ece']:.4f}"
+                               for a, e in evals.items()))
+
     # each kernel's launches in the run of the path that reaches it
     launches = dict(runs["block_topk"], pack=oracles["block_topk"][0]["pack"],
                     grid_quant=runs[PIPE]["grid_quant"],
                     qsgd=runs["qsgd_pallas"]["qsgd"],
-                    block_topk=runs["block_topk_pallas"]["block_topk"])
+                    block_topk=runs["block_topk_pallas"]["block_topk"],
+                    topk_select=default_launches["cdbfl"]["topk_select"],
+                    unpack_set=default_launches["cdbfl"]["unpack_set"],
+                    cffl_update=default_launches["cffl"]["cffl_update"],
+                    dsgld_update=default_launches["dsgld"]["dsgld_update"])
     record = {"kernels": [
         {"name": kname, "route": "cuda", "source": KERNELS[kname][0],
          "replaces": KERNELS[kname][1], "launches": launches[kname],
          "max_abs_err": errs[kname], "ms": timing[kname]["device_ms"],
          "plain_ms": timing[kname]["plain_device_ms"],
          "bound_ms": timing[kname]["bound_ms"],
-         "bound_by": timing[kname]["bound_by"], "library_ms": None}
+         "bound_by": timing[kname]["bound_by"],
+         "library_ms": timing[kname].get("library_ms")}
         for kname in KERNELS]}
     print(card_line())
     print(json.dumps(record))

@@ -1,4 +1,4 @@
-"""Configuration for the PyTorch port: the fields the CD-BFL host round reads.
+"""Configuration for the PyTorch port: the fields its round functions read.
 
 A copy of the subset of ``repro/config.py`` this package runs, with the same
 defaults (``FedConfig``: ``config.py:288-312`` of the reference). Values the
@@ -27,15 +27,14 @@ class ModelConfig:
 
 
 # values of each FedConfig field the port runs, and where the rest go
+_CODECS = ("identity", "topk", "block_topk", "randk", "sign", "qsgd")
 _SUPPORTED = {
-    "compressor": (("block_topk", "qsgd_pallas", "block_topk_pallas"),
-                   "A6 (the other codecs)"),
-    "pipeline": (("", "block_topk|qsgd"), "A6 (the other codecs)"),
+    "compressor": (_CODECS + ("qsgd_pallas", "block_topk_pallas"),
+                   "A6 (the reference's codec names)"),
     # powers of two: XLA folds the reference's `/ s / (1 + ω)` differently
     # in its qsgd kernel and in its decode for any other s (ROADMAP C5)
     "qsgd_levels": ((1, 2, 4, 8, 16, 32, 64), "C5 (QSGD levels)"),
     "control_dtype": (("float32",), "A3 (bfloat16 control variates)"),
-    "algorithm": (("cdbfl",), "A6 (dsgld, cffl and sgld baselines)"),
     "topology": (("full", "ring"), "A4 (the other graph families)"),
 }
 
@@ -52,7 +51,8 @@ class FedConfig:
     temperature: float = 1.0        # posterior tempering
     burn_in: int = 700              # T_b
     rounds: int = 800               # T
-    compressor: str = "block_topk"  # block_topk | qsgd_pallas | block_topk_pallas
+    compressor: str = "block_topk"  # identity | topk | block_topk | randk |
+    #                                 sign | qsgd | qsgd_pallas | block_topk_pallas
     # codec pipeline DSL, e.g. "block_topk|qsgd" (sparsify, then quantize
     # the survivors); takes precedence over ``compressor`` when set
     pipeline: str = ""
@@ -61,7 +61,9 @@ class FedConfig:
     block_size: int = 1024          # block-local top-k granularity
     min_dense_size: int = 0         # leaves this small are sent dense
     fused_compress: bool = False
-    algorithm: str = "cdbfl"
+    # per-layer pipeline overrides, (path substring, pipeline) pairs
+    layer_pipelines: Tuple[Tuple[str, str], ...] = ()
+    algorithm: str = "cdbfl"        # cdbfl | dsgld | cffl
     control_dtype: str = "float32"  # v / v̄ storage
     seed: int = 0
 
@@ -73,14 +75,10 @@ class FedConfig:
                 raise NotImplementedError(
                     f"FedConfig.{name}={value!r} is not ported yet "
                     f"(runs: {ok}); ROADMAP {item}")
-        # a legacy dense *_pallas name with no pipeline ignores
-        # fused_compress, as the reference's make_compressor does
-        legacy = not self.pipeline and self.compressor.endswith("_pallas")
-        if not (legacy or self.fused_compress):
+        if self.layer_pipelines:
             raise NotImplementedError(
-                "FedConfig.fused_compress=False is not ported yet (runs: "
-                "True, or a *_pallas compressor with no pipeline); ROADMAP "
-                "A4 (the top_k-order BlockTopKCodec path)")
+                "FedConfig.layer_pipelines is not ported yet; ROADMAP A6 "
+                "(PerLayerPipeline)")
 
 
 # the paper's radar ROI classifier (reference: configs/lenet_radar.py)

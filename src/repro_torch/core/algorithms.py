@@ -1,6 +1,10 @@
-"""The CD-BFL round, the paper's Algorithm 1 (``repro/core/algorithms.py``).
+"""The round functions (``repro/core/algorithms.py``): CD-BFL, the paper's
+Algorithm 1, and its two baselines, DSGLD and CF-FL; and the centralized
+SGLD step.
 
-Counterpart of ``make_cdbfl_round`` (reference lines 335-453) with ideal
+Counterparts of ``make_cdbfl_round`` (reference lines 335-453),
+``make_dsgld_round`` (:460-553), ``make_cffl_round`` (:560-635),
+``make_sgld_step`` (:642-672) and ``make_round_fn`` (:675-694), with ideal
 links: no transport, no participation model, one device. Every leaf leads
 with the node axis K, and the K nodes run batched (grouped convolutions,
 batched matmuls), not in a Python loop.
@@ -17,6 +21,11 @@ minibatch sampling's (``draws=`` then hands the result in). The
 reference's ``kmix = fold_in(key, 2)`` and its per-node ``state.key``
 stream feed only time-varying mixers and models with dropout, neither of
 which the port runs yet (ROADMAP A7), so neither is derived.
+
+DSGLD draws ``knoise, kmix = split(key)`` and its noise from ``knoise``
+(``kmix`` feeds no static mixer); CF-FL keys its codec by ``kq, _ =
+split(key)``, CD-BFL's codec stream, and draws nothing else. Their
+updates are the fused_update kernel's two variants (ROADMAP C10).
 """
 from __future__ import annotations
 
@@ -30,8 +39,9 @@ from repro_torch.core.compression import draw_uniforms
 from repro_torch.core.fed_state import FedState
 from repro_torch.core.gossip import make_mixer
 from repro_torch.kernels import ops as kops
-from repro_torch.utils.tree import (tree_leaves, tree_leaves_with_path,
-                                    tree_map, tree_unflatten)
+from repro_torch.utils.tree import (tree_count, tree_leaves,
+                                    tree_leaves_with_path, tree_map,
+                                    tree_unflatten)
 
 
 class RoundMetrics(NamedTuple):
@@ -44,24 +54,32 @@ class RoundMetrics(NamedTuple):
                                    # for the legacy dense Compressor
 
 
+def _value_and_grad(nll_fn, paths, leaves, batch, prior_weight: float,
+                    data_scale: float):
+    """``(f (K,), grads)`` of ``data_scale·NLL + ½·prior_weight·Σθ²`` on
+    every node. Node k's objective depends on node k's params only, so one
+    backward of the sum gives every node's gradient."""
+    leaves = [x.detach().requires_grad_(True) for x in leaves]
+    with torch.enable_grad():
+        nll = nll_fn(tree_unflatten(paths, leaves), batch)            # (K,)
+        prior = sum(x.float().square().flatten(1).sum(1) for x in leaves)
+        f = data_scale * nll + 0.5 * prior_weight * prior
+        grads = torch.autograd.grad(f.sum(), leaves)
+    return f.detach(), grads
+
+
 def _local_sgd(nll_fn, params, batches, eta: float, prior_weight: float,
                data_scale: float, num_steps: int):
     """L plain SGD steps on every node (paper Eq. 5) on
-    ``data_scale·NLL + ½·prior_weight·Σθ²``. Node k's objective depends on
-    node k's params only, so one backward of the sum gives every node's
-    gradient."""
+    ``data_scale·NLL + ½·prior_weight·Σθ²``."""
     paths = [p for p, _ in tree_leaves_with_path(params)]
     leaves = tree_leaves(params)
     losses = []
     for step in range(num_steps):
-        leaves = [x.detach().requires_grad_(True) for x in leaves]
         batch = {f: v[:, step] for f, v in batches.items()}
-        with torch.enable_grad():
-            nll = nll_fn(tree_unflatten(paths, leaves), batch)        # (K,)
-            prior = sum(x.float().square().flatten(1).sum(1) for x in leaves)
-            f = data_scale * nll + 0.5 * prior_weight * prior
-            grads = torch.autograd.grad(f.sum(), leaves)
-        losses.append(f.detach())
+        f, grads = _value_and_grad(nll_fn, paths, leaves, batch,
+                                   prior_weight, data_scale)
+        losses.append(f)
         leaves = [x.detach() - eta * g.to(x.dtype) for x, g in zip(leaves, grads)]
     return tree_unflatten(paths, leaves), torch.stack(losses, dim=1)
 
@@ -167,3 +185,130 @@ def make_cdbfl_round(nll_fn, fed_cfg, omega, compressor, data_scale: float = 1.0
 
     round_fn.draws = draws
     return round_fn
+
+
+def make_dsgld_round(nll_fn, fed_cfg, omega, data_scale: float = 1.0,
+                     device="cuda"):
+    """One DSGLD iteration (paper Eq. 4): ``θ' = Σ_j ω_kj θ_j − η∇f_k +
+    √(2ηT)ξ`` on the first of the round's L minibatches, the dense θ
+    exchanged uncompressed (the dsgld_update kernel)."""
+    eta = fed_cfg.eta
+    num_nodes = fed_cfg.num_nodes
+    mix = make_mixer(omega, device)
+    prior_weight = 1.0 / num_nodes
+
+    @random.program
+    def draws(key: torch.Tensor, params):
+        """The noise of the round keyed ``key``: ``knoise, kmix =
+        split(key)``."""
+        knoise, _ = yield from random.split.program(key)
+        return (yield from langevin_noise.program(knoise, params, eta,
+                                                  fed_cfg.temperature))
+
+    def round_fn(state: FedState, batches, key: torch.Tensor, draws=None):
+        noise = draws if draws is not None else round_fn.draws(key,
+                                                               state.params)
+        paths = [p for p, _ in tree_leaves_with_path(state.params)]
+        batch0 = {f: v[:, 0] for f, v in batches.items()}
+        losses, grads = _value_and_grad(nll_fn, paths,
+                                        tree_leaves(state.params), batch0,
+                                        prior_weight, data_scale)
+        mixed = mix(state.params)
+        params_new = tree_map(
+            lambda m, g, n: kops.leaf_dsgld_update(m, g, n, eta), mixed,
+            tree_unflatten(paths, list(grads)), noise)
+        dense_bytes = tree_count(state.params) // num_nodes * 4
+        metrics = RoundMetrics(
+            loss=losses[:, None],
+            consensus_error=_consensus_error(params_new) / num_nodes,
+            delta_norm=_sq_norm(state.params) / num_nodes,
+            wire_bytes=float(dense_bytes),
+        )
+        return state._replace(params=params_new,
+                              round=state.round + 1), metrics
+
+    round_fn.draws = draws
+    return round_fn
+
+
+def make_cffl_round(nll_fn, fed_cfg, omega, compressor,
+                    data_scale: float = 1.0, device="cuda"):
+    """CF-FL (CHOCO-SGD, the compressed frequentist baseline): CD-BFL's
+    round without the Langevin noise and the prior (the cffl_update
+    kernel)."""
+    eta, zeta = fed_cfg.eta, fed_cfg.zeta
+    num_nodes = fed_cfg.num_nodes
+    mix = make_mixer(omega, device)
+
+    @random.program
+    def draws(key: torch.Tensor, params):
+        """The codec's draws of the round keyed ``key``: ``kq, _ =
+        split(key)``, CD-BFL's codec stream."""
+        kq, _ = yield from random.split.program(key)
+        return (yield from draw_uniforms.program(compressor, kq, params))
+
+    def round_fn(state: FedState, batches, key: torch.Tensor, draws=None):
+        uniforms = draws if draws is not None else round_fn.draws(
+            key, state.params)
+        theta_l, losses = _local_sgd(nll_fn, state.params, batches, eta, 0.0,
+                                     data_scale, fed_cfg.local_steps)
+        delta, wire, payload = _compress_exchange(compressor, theta_l,
+                                                  state.v, uniforms)
+        v_new = tree_map(lambda v, d: v + d.to(v.dtype), state.v, delta)
+        v_bar_new = tree_map(lambda vb, m: vb + m.to(vb.dtype), state.v_bar,
+                             mix(delta))
+        params_new = tree_map(
+            lambda t, vb, v: kops.leaf_cffl_update(t, vb, v, zeta), theta_l,
+            v_bar_new, v_new)
+        metrics = RoundMetrics(
+            loss=losses,
+            consensus_error=_consensus_error(params_new) / num_nodes,
+            delta_norm=_sq_norm(delta) / num_nodes,
+            wire_bytes=wire,
+            payload=payload,
+        )
+        return state._replace(params=params_new, v=v_new, v_bar=v_bar_new,
+                              round=state.round + 1), metrics
+
+    round_fn.draws = draws
+    return round_fn
+
+
+def make_sgld_step(nll_fn, eta: float, temperature: float = 1.0,
+                   data_scale: float = 1.0):
+    """The centralized SGLD oracle (paper Eq. 2) on one model's params, no
+    node axis: ``step(params, batch, key) -> (params', loss)``, ``kgrad,
+    knoise = split(key)``, the noise leaf i from ``split(knoise,
+    n_leaves)[i]`` times ``√(2ηT)`` (the dsgld_update kernel)."""
+
+    def step(params, batch, key: torch.Tensor):
+        paths = [p for p, _ in tree_leaves_with_path(params)]
+        _, knoise = random.split(key)
+        leaf_keys = random.split(knoise, len(paths))
+        scale = langevin_scale(eta, temperature)
+        noise = random.run(random.together(*(
+            random.normal.program(leaf_keys[i], x.shape, scale=scale)
+            for i, (_, x) in enumerate(tree_leaves_with_path(params)))))
+        stacked = [x[None] for x in tree_leaves(params)]
+        loss, grads = _value_and_grad(
+            nll_fn, paths, stacked,
+            {f: v[None] for f, v in batch.items()}, 1.0, data_scale)
+        new = [kops.leaf_dsgld_update(x, g[0], n, eta)
+               for x, g, n in zip(tree_leaves(params), grads, noise)]
+        return tree_unflatten(paths, new), loss[0]
+
+    return step
+
+
+def make_round_fn(algorithm: str, nll_fn, fed_cfg, omega, compressor=None,
+                  data_scale: float = 1.0, device="cuda"):
+    """The round function of ``algorithm`` (``algorithms.py:675-694``)."""
+    if algorithm == "cdbfl":
+        return make_cdbfl_round(nll_fn, fed_cfg, omega, compressor,
+                                data_scale, device)
+    if algorithm == "dsgld":
+        return make_dsgld_round(nll_fn, fed_cfg, omega, data_scale, device)
+    if algorithm == "cffl":
+        return make_cffl_round(nll_fn, fed_cfg, omega, compressor,
+                               data_scale, device)
+    raise ValueError(f"unknown algorithm {algorithm!r}")

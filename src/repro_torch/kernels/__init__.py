@@ -5,15 +5,19 @@ first launch (``_build.library``).
 """
 from repro_torch.kernels.block_topk import block_topk
 from repro_torch.kernels.fused_compress import delta_pack, grid_quant_leaves
-from repro_torch.kernels.fused_update import fused_update
-from repro_torch.kernels.pack import pack_topk, unpack_topk
+from repro_torch.kernels.fused_update import (cffl_update, dsgld_update,
+                                              fused_update)
+from repro_torch.kernels.pack import (pack_topk, topk_select, unpack_set,
+                                      unpack_topk)
 from repro_torch.kernels.qsgd import qsgd
 from repro_torch.kernels.threefry import draw
 
 WRAPPERS = {"pack": pack_topk, "delta_pack": delta_pack,
             "unpack": unpack_topk, "fused_update": fused_update,
             "grid_quant": grid_quant_leaves, "qsgd": qsgd,
-            "block_topk": block_topk, "threefry": draw}
+            "block_topk": block_topk, "threefry": draw,
+            "topk_select": topk_select, "unpack_set": unpack_set,
+            "cffl_update": cffl_update, "dsgld_update": dsgld_update}
 
 
 def launch_counts() -> dict:

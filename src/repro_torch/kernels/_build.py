@@ -39,6 +39,10 @@ _SIGNATURES = {
     "repro_delta_pack": [_PP, _PP, _PL, _PL, _PL, _I, _L, _P, _P, _I, _P],
     "repro_unpack_topk": [_PP, _PP, _PP, _PL, _PL, _I, _L, _I, _P],
     "repro_fused_update": [_P, _P, _P, _P, _P, _L, _F, _F, _P],
+    "repro_cffl_update": [_P, _P, _P, _P, _L, _F, _P],
+    "repro_dsgld_update": [_P, _P, _P, _P, _L, _F, _P],
+    "repro_topk_select": [_PP, _PP, _PL, _PL, _PI, _PL, _I, _L, _P, _P, _P],
+    "repro_unpack_set": [_PP, _PP, _PP, _PL, _PL, _PI, _I, _L, _P],
     "repro_block_topk": [_P, _P, _L, _L, _L, _I, _P],
     "repro_grid_quant": [_PP, _PP, _PP, _PP, _PL, _I, _L, _F, _P],
     "repro_qsgd": [_PP, _PP, _PP, _PP, _PL, _PL, _PF, _I, _F, _P],

@@ -4,6 +4,13 @@
 //   repro_pack_topk   <- pack_topk_pallas   (pl.pallas_call at pack.py:104,
 //                        body _pack_tile at pack.py:39-80)
 //   repro_unpack_topk <- unpack_topk_pallas (pl.pallas_call at pack.py:122)
+// and the two kernels of the top_k-order wire format, which the reference
+// computes in jnp (no pl.pallas_call): the default, unfused
+// BlockTopKCodec's encode and decode (src/repro/core/compression.py:413-448)
+//   repro_topk_select <- lax.top_k of each block's |d| and take_along_axis
+//                        (:426-435; a leaf of at most one block, TopKCodec's
+//                        global top-k, :374-383)
+//   repro_unpack_set  <- the .at[].set scatter of its decode (:445-448, :355-357)
 //
 // What bounds them on an H100:
 //   pack   — the function's own bound is the read of the block: per
@@ -15,6 +22,11 @@
 //            the rank adds ~160 popcounts a lane, at 16 a clock per SM.
 //   unpack — bytes: the dense (rows, n) f32 output is written once at
 //            3.35 TB/s; the (rows, nb, k) input is wire-sized.
+//   topk_select — the function's bound is the read of the block (4 bytes an
+//            element, 8 with v); the design is bound by instruction issue,
+//            as pack's: the k-th-key search (up to 31 passes of 32 integer
+//            compares and adds a lane), then k shuffles a lane for the slots.
+//   unpack_set — bytes, as unpack.
 // What the design does about that:
 //   pack   — one warp per block, the block held in registers (32 values a
 //            lane), so the search never touches memory; it counts per lane
@@ -175,6 +187,111 @@ unpack_kernel(const __grid_constant__ UnpackTable table, int k) {
   }
 }
 
+// A table of node-stacked leaves selected in top_k order by one launch:
+// PackLeaf's fields and the leaf's own k (a leaf of at most one block keeps
+// ceil(ratio·n) of its n, a longer leaf ceil(ratio·block) a block).
+struct TopkLeaf {
+  const float* x;
+  const float* v;
+  long long n, nb, begin, out;
+  int k;
+};
+
+struct TopkTable {
+  TopkLeaf leaf[kMaxLeaves];
+  long long total;                                // Σ rows·nb
+  int count;
+};
+
+// Warp w selects block w of the table (as pack_kernel walks it) in top_k
+// order: its (k) values as they are and their block-local indices, d = x − v
+// formed in registers when HAS_V. Zero padding past the leaf's end may be
+// picked as a tie in a ragged last block, as the reference's jnp.pad zeros
+// are; in a leaf of at most one block it never is.
+template <bool HAS_V>
+__global__ void __launch_bounds__(kWarpsPerCta * 32)
+topk_select_kernel(const __grid_constant__ TopkTable table,
+                   float* __restrict__ vals, uint16_t* __restrict__ idx) {
+  __shared__ unsigned scratch[kWarpsPerCta][kBlock];
+
+  const int lane = threadIdx.x & 31;
+  const long long warp =
+      (long long)blockIdx.x * kWarpsPerCta + (threadIdx.x >> 5);
+  if (warp >= table.total) return;                // uniform within a warp
+  int l = 0;
+  while (l + 1 < table.count && warp >= table.leaf[l + 1].begin) ++l;
+  const TopkLeaf& leaf = table.leaf[l];
+  const long long local = warp - leaf.begin;
+  const long long row = local / leaf.nb;
+  const long long start = (local - row * leaf.nb) * kBlock;
+
+  float d[kPerLane];
+  load_block<HAS_V>(leaf.x + row * leaf.n,
+                    HAS_V ? leaf.v + row * leaf.n : nullptr, start, leaf.n,
+                    lane, d);
+  float* vrow = vals + leaf.out + local * leaf.k;
+  uint16_t* irow = idx + leaf.out + local * leaf.k;
+  topk_order_block(d, leaf.k, lane, scratch[threadIdx.x >> 5],
+                   [&](int slot, float value, int e) {
+                     vrow[slot] = value;
+                     irow[slot] = (uint16_t)e;
+                   });
+}
+
+// A table of top_k-order payloads decoded by one launch: UnpackLeaf's
+// fields and the leaf's own k.
+struct SetLeaf {
+  const float* vals;
+  const uint16_t* idx;
+  float* out;
+  long long n, nb, begin;
+  int k, vec;
+};
+
+struct SetTable {
+  SetLeaf leaf[kMaxLeaves];
+  long long total;                                // Σ rows·nb
+  int count;
+};
+
+// Warp w decodes block w of the table: zeros, then each value stored as it
+// is at its index (the reference's .at[].set: -0.0 and NaN payloads kept,
+// no contraction). Top_k never repeats an index; a payload that does is a
+// caller error, and which of its values lands is not defined.
+__global__ void __launch_bounds__(kWarpsPerCta * 32)
+unpack_set_kernel(const __grid_constant__ SetTable table) {
+  const int lane = threadIdx.x & 31;
+  const long long warp =
+      (long long)blockIdx.x * kWarpsPerCta + (threadIdx.x >> 5);
+  if (warp >= table.total) return;                // uniform within a warp
+  int l = 0;
+  while (l + 1 < table.count && warp >= table.leaf[l + 1].begin) ++l;
+  const SetLeaf& leaf = table.leaf[l];
+  const long long local = warp - leaf.begin;
+  const long long row = local / leaf.nb;
+  const long long start = (local - row * leaf.nb) * kBlock;
+  const long long n = leaf.n;
+  const float* vb = leaf.vals + local * leaf.k;
+  const uint16_t* ib = leaf.idx + local * leaf.k;
+  float* ob = leaf.out + row * n + start;
+  if (leaf.vec) {
+    const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int j = 0; j < kBlock / 128; ++j) {
+      const int e = 4 * lane + 128 * j;
+      if (start + e < n) *reinterpret_cast<float4*>(ob + e) = z;
+    }
+  } else {
+    for (int e = lane; e < kBlock; e += 32)
+      if (start + e < n) ob[e] = 0.0f;
+  }
+  __syncwarp();                       // the zeros land before the values
+  for (int s = lane; s < leaf.k; s += 32) {
+    const int i = ib[s];
+    if (start + i < n) ob[i] = vb[s];
+  }
+}
+
 }  // namespace repro_torch
 
 // One launch packs `count` <= kMaxLeaves leaves of `rows` rows each: leaf l
@@ -214,6 +331,73 @@ extern "C" int repro_unpack_topk(const float* const* vals,
     const long long ctas = (total + kWarpsPerCta - 1) / kWarpsPerCta;
     unpack_kernel<<<(unsigned)ctas, kWarpsPerCta * 32, 0,
                     (cudaStream_t)stream>>>(table, k);
+  }
+  return (int)cudaGetLastError();
+}
+
+// One launch selects `count` <= kMaxLeaves leaves of `rows` rows each in
+// top_k order: leaf l is xs[l] (minus vs[l] when vs is not null), (rows,
+// ns[l]) with nbs[l] blocks a row of ks[l] survivors, and its payload starts
+// at element outs[l] of vals and idx.
+extern "C" int repro_topk_select(const float* const* xs,
+                                 const float* const* vs, const long long* ns,
+                                 const long long* nbs, const int* ks,
+                                 const long long* outs, int count,
+                                 long long rows, float* vals, uint16_t* idx,
+                                 void* stream) {
+  using namespace repro_torch;
+  if (count < 1 || count > kMaxLeaves || rows < 0)
+    return (int)cudaErrorInvalidValue;
+  TopkTable table{};
+  long long total = 0;
+  for (int l = 0; l < count; ++l) {
+    if (ks[l] < 1 || ks[l] > kBlock) return (int)cudaErrorInvalidValue;
+    table.leaf[l] = TopkLeaf{xs[l], vs ? vs[l] : nullptr, ns[l], nbs[l],
+                             total, outs[l], ks[l]};
+    total += rows * nbs[l];
+  }
+  table.total = total;
+  table.count = count;
+  if (total > 0) {
+    const unsigned ctas =
+        (unsigned)((total + kWarpsPerCta - 1) / kWarpsPerCta);
+    if (vs)
+      topk_select_kernel<true><<<ctas, kWarpsPerCta * 32, 0,
+                                 (cudaStream_t)stream>>>(table, vals, idx);
+    else
+      topk_select_kernel<false><<<ctas, kWarpsPerCta * 32, 0,
+                                  (cudaStream_t)stream>>>(table, vals, idx);
+  }
+  return (int)cudaGetLastError();
+}
+
+// One launch decodes `count` <= kMaxLeaves top_k-order payloads of `rows`
+// rows each: leaf l's values and indices are vals[l] and idx[l], (rows,
+// nbs[l], ks[l]), and its dense (rows, ns[l]) output is outs[l].
+extern "C" int repro_unpack_set(const float* const* vals,
+                                const uint16_t* const* idx,
+                                float* const* outs, const long long* ns,
+                                const long long* nbs, const int* ks,
+                                int count, long long rows, void* stream) {
+  using namespace repro_torch;
+  if (count < 1 || count > kMaxLeaves || rows < 0)
+    return (int)cudaErrorInvalidValue;
+  SetTable table{};
+  long long total = 0;
+  for (int l = 0; l < count; ++l) {
+    if (ks[l] < 1 || ks[l] > kBlock) return (int)cudaErrorInvalidValue;
+    const int vec = ns[l] % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(outs[l]) % 16 == 0;
+    table.leaf[l] = SetLeaf{vals[l], idx[l], outs[l], ns[l], nbs[l], total,
+                            ks[l], vec};
+    total += rows * nbs[l];
+  }
+  table.total = total;
+  table.count = count;
+  if (total > 0) {
+    const long long ctas = (total + kWarpsPerCta - 1) / kWarpsPerCta;
+    unpack_set_kernel<<<(unsigned)ctas, kWarpsPerCta * 32, 0,
+                        (cudaStream_t)stream>>>(table);
   }
   return (int)cudaGetLastError();
 }

@@ -285,3 +285,126 @@ inline int launch_pack(const float* const* xs, const float* const* vs,
 }
 
 }  // namespace repro_torch
+
+// ---------------------------------------------------------------------------
+// The top_k-order selection of pack.cu's topk_select_kernel: what the
+// reference's jnp BlockTopKCodec.encode computes for a block
+// (src/repro/core/compression.py:426-435, lax.top_k of |d|), and its
+// TopKCodec.encode for a leaf of at most one block (:374-383). lax.top_k as
+// XLA runs it on the CPU (ROADMAP C9) orders |d| by its bit pattern: NaN
+// above ±inf above finite, NaNs by payload, equal keys to the lower index;
+// slots go in that order, and values are kept as they are (-0.0 and NaN
+// payloads included).
+namespace repro_torch {
+
+// the order key of an element: the bits of |d|
+__device__ __forceinline__ unsigned mag_key(float a) {
+  return __float_as_uint(a) & 0x7fffffffu;
+}
+
+// The k-th largest key of the block, counted with multiplicity: the
+// MSB-first search of kth_magnitude on the keys' bits, so NaN keys take
+// part (there a NaN magnitude counts nothing). Bit 31 of a key is 0.
+__device__ __forceinline__ unsigned kth_key(const float (&d)[kPerLane],
+                                            int k) {
+  unsigned bits = 0u;
+#pragma unroll 1
+  for (int b = 30; b >= 0; --b) {
+    const unsigned cand = bits | (1u << b);
+    unsigned cnt = 0u;
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) cnt += mag_key(d[j]) >= cand ? 1u : 0u;
+    const int count = (int)__reduce_add_sync(kFull, cnt);
+    if (count < k) continue;
+    bits = cand;
+    if (count == k) {                  // the k largest: v_k is their least
+      unsigned least = 0xffffffffu;
+#pragma unroll
+      for (int j = 0; j < kPerLane; ++j) {
+        const unsigned key = mag_key(d[j]);
+        if (key >= cand) least = min(least, key);
+      }
+      return __reduce_min_sync(kFull, least);
+    }
+  }
+  return bits;
+}
+
+// The k survivors of a block in top_k order. A survivor is every element
+// whose key exceeds v_k, then the first k − count(key > v_k) elements whose
+// key is v_k, in element order (so zero padding past a leaf's end is never
+// kept while k valid elements exist). A survivor's slot is the count of
+// survivors ranked before it: every element with a larger key (all of them
+// survive) and every element with its key at a lower index. Calls
+// emit(slot, value, element) once per survivor, from some lane.
+//
+// k <= 32: the survivors are gathered in element order into lanes 0..k-1
+// through `scratch` and each lane finds its slot with k shuffles. k > 32:
+// the block's keys go to `scratch` and each survivor counts over all 1,024
+// of them. `scratch`: the warp's kBlock words of shared memory.
+template <class Emit>
+__device__ __forceinline__ void topk_order_block(const float (&d)[kPerLane],
+                                                 int k, int lane,
+                                                 unsigned* scratch,
+                                                 Emit emit) {
+  const unsigned vk = kth_key(d, k);
+  int n_gt = 0;
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j)
+    n_gt += __popc(__ballot_sync(kFull, mag_key(d[j]) > vk));
+  const int ties = k - n_gt;             // elements at v_k that survive
+  const unsigned below = (1u << lane) - 1u;
+  int c_eq = 0;
+  if (k <= 32) {
+    int c_keep = 0;
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) {
+      const unsigned key = mag_key(d[j]);
+      const unsigned b_eq = __ballot_sync(kFull, key == vk);
+      const bool keep = key > vk ||
+                        (key == vk && c_eq + __popc(b_eq & below) < ties);
+      const unsigned b_keep = __ballot_sync(kFull, keep);
+      if (keep) {
+        const int p = c_keep + __popc(b_keep & below);
+        scratch[p] = key;
+        scratch[32 + p] = (unsigned)(j * 32 + lane);
+        scratch[64 + p] = __float_as_uint(d[j]);
+      }
+      c_eq += __popc(b_eq);
+      c_keep += __popc(b_keep);
+    }
+    __syncwarp();
+    const unsigned key = lane < k ? scratch[lane] : 0u;
+    int slot = 0;
+    for (int t = 0; t < k; ++t) {
+      const unsigned other = __shfl_sync(kFull, key, t);
+      slot += (other > key || (other == key && t < lane)) ? 1 : 0;
+    }
+    if (lane < k)
+      emit(slot, __uint_as_float(scratch[64 + lane]), (int)scratch[32 + lane]);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j) scratch[j * 32 + lane] = mag_key(d[j]);
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j) {
+    const unsigned key = mag_key(d[j]);
+    const unsigned b_eq = __ballot_sync(kFull, key == vk);
+    const bool keep = key > vk ||
+                      (key == vk && c_eq + __popc(b_eq & below) < ties);
+    c_eq += __popc(b_eq);
+    if (__any_sync(kFull, keep)) {
+      const int e = j * 32 + lane;
+      int slot = 0;
+#pragma unroll 4
+      for (int i = 0; i < kBlock; ++i) {
+        const unsigned other = scratch[i];
+        slot += (other > key || (other == key && i < e)) ? 1 : 0;
+      }
+      if (keep) emit(slot, d[j], e);
+    }
+  }
+}
+
+}  // namespace repro_torch

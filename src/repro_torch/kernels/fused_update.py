@@ -9,6 +9,13 @@ outer fma is a plain add). The CUDA kernel (``csrc/fused_update.cu``) calls
 ``__fmaf_rn``; the plain version computes the same single-rounding fma
 exactly in float64 (:func:`fma_f32`). Both are therefore bit-exact to the
 reference's ``ops.fused_update`` and to its round's Eq. 9 ``tree_map``.
+
+Two variants of the same kernel compute the baselines' updates, each as
+XLA's CPU code contracts the reference's jitted ``tree_map`` (ROADMAP C10):
+:func:`cffl_update`, CF-FL's ``θ + ζ·(v̄ − v)`` as ``fma(ζ, v̄ − v, θ)``
+(``algorithms.py:602-608``), and :func:`dsgld_update`, DSGLD's ``m − η·g +
+ξ`` as ``fma(−η, g, m) + ξ`` (``algorithms.py:515-520``; the SGLD step's
+too). The reference has no ``pl.pallas_call`` for them.
 """
 from __future__ import annotations
 
@@ -64,3 +71,44 @@ def fused_update(theta, vbar, v, noise, zeta: float,
 
 
 fused_update.launches = 0
+
+
+def cffl_update_plain(theta, vbar, v, zeta: float) -> torch.Tensor:
+    return fma_f32(zeta, vbar - v, theta)
+
+
+def dsgld_update_plain(mixed, grad, noise, eta: float) -> torch.Tensor:
+    return fma_f32(-eta, grad, mixed) + noise
+
+
+def _variant(name: str, entry: str, wrapper, operands, scalar: float):
+    if not on_card(name, [(t, torch.float32) for t in operands]):
+        return None
+    if any(t.shape != operands[0].shape for t in operands):
+        raise ValueError(f"{name}: operands differ in shape")
+    out = torch.empty_like(operands[0])
+    with torch.cuda.device(out.device):
+        rc = getattr(library(), entry)(
+            *(t.data_ptr() for t in operands), out.data_ptr(), out.numel(),
+            scalar, stream_of(out))
+    check(rc, name)
+    wrapper.launches += 1
+    return out
+
+
+def cffl_update(theta, vbar, v, zeta: float) -> torch.Tensor:
+    """CF-FL's update ``θ + ζ·(v̄ − v)`` over same-shape f32 tensors."""
+    out = _variant("cffl_update", "repro_cffl_update", cffl_update,
+                   (theta, vbar, v), zeta)
+    return cffl_update_plain(theta, vbar, v, zeta) if out is None else out
+
+
+def dsgld_update(mixed, grad, noise, eta: float) -> torch.Tensor:
+    """DSGLD's update ``m − η·g + ξ`` over same-shape f32 tensors."""
+    out = _variant("dsgld_update", "repro_dsgld_update", dsgld_update,
+                   (mixed, grad, noise), eta)
+    return dsgld_update_plain(mixed, grad, noise, eta) if out is None else out
+
+
+cffl_update.launches = 0
+dsgld_update.launches = 0

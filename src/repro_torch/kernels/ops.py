@@ -12,8 +12,12 @@ import torch
 
 from repro_torch.kernels.block_topk import block_topk as block_topk_rows
 from repro_torch.kernels.fused_compress import delta_pack, grid_quant_leaves
-from repro_torch.kernels.fused_update import fused_update
-from repro_torch.kernels.pack import num_blocks, pack_topk, unpack_topk
+from repro_torch.kernels.fused_update import (cffl_update, dsgld_update,
+                                              fused_update)
+from repro_torch.kernels.pack import (KERNEL_BLOCK, from_uint16,
+                                      magnitude_keys, num_blocks, pack_topk,
+                                      to_uint16, topk_select, unpack_set,
+                                      unpack_topk)
 from repro_torch.kernels.qsgd import inv_one_plus, qsgd_omega, row_norm
 from repro_torch.kernels.qsgd import qsgd as qsgd_rows
 
@@ -37,9 +41,33 @@ def block_topk(x: torch.Tensor, ratio: float = 0.01,
 def block_topk_pack(x: torch.Tensor, ratio: float = 0.01,
                     block_size: int = 1024):
     """(K, *shape) -> (vals (K, nb, k) f32, idx (K, nb, k) uint16)."""
+    return pack_leaves([x], ratio, block_size)[0]
+
+
+def pack_leaves(xs, ratio: float = 0.01, block_size: int = 1024):
+    """:func:`block_topk_pack` of every ``(K, *shape)`` leaf of a list, in
+    one launch a table."""
     assert block_size <= 65536, "uint16 block-local indices"
-    return pack_topk([_rows(x)], survivors_per_block(ratio, block_size),
-                     block_size)[0]
+    return pack_topk([_rows(x) for x in xs],
+                     survivors_per_block(ratio, block_size), block_size)
+
+
+def topk_select_leaves(xs, ks, vs=None, block_size: int = 1024):
+    """Each ``(K, *shape)`` leaf's blocks (of ``x − v`` when ``vs`` is
+    given) in ``lax.top_k`` order, ``ks[i]`` survivors a block: a list of
+    ``(vals (K, nb, k), idx (K, nb, k) uint16)``, one launch a table."""
+    return topk_select([_rows(x) for x in xs], list(ks),
+                       None if vs is None else
+                       [_rows(v.to(x.dtype)) for x, v in zip(xs, vs)],
+                       block_size)
+
+
+def unpack_set_leaves(payloads, shapes, block_size: int = 1024):
+    """Top_k-order ``(vals, idx)`` payloads back to dense ``(K,
+    *shapes[i])`` leaves, one launch a table."""
+    dense = unpack_set(payloads, [int(np.prod(s)) for s in shapes],
+                       block_size)
+    return [d.reshape((d.shape[0],) + tuple(s)) for d, s in zip(dense, shapes)]
 
 
 def fused_delta_pack(theta: torch.Tensor, v: torch.Tensor, ratio: float = 0.01,
@@ -78,6 +106,14 @@ def leaf_fused_update(theta, vbar, v, noise, zeta: float,
                       noise_scale: float) -> torch.Tensor:
     return fused_update(theta, vbar.to(theta.dtype), v.to(theta.dtype),
                         noise, zeta, noise_scale)
+
+
+def leaf_cffl_update(theta, vbar, v, zeta: float) -> torch.Tensor:
+    return cffl_update(theta, vbar.to(theta.dtype), v.to(theta.dtype), zeta)
+
+
+def leaf_dsgld_update(mixed, grad, noise, eta: float) -> torch.Tensor:
+    return dsgld_update(mixed, grad.to(mixed.dtype), noise, eta)
 
 
 def qsgd(x: torch.Tensor, u: torch.Tensor, levels: int = 16) -> torch.Tensor:

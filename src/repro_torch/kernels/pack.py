@@ -13,6 +13,14 @@ tie masks, cumulative-sum ranks, and the one-hot contractions' values,
 ROADMAP C6, C7). A CPU tensor goes to the plain version, a CUDA tensor to the
 kernel (``csrc/pack.cu``) or to an exception. Each wrapper counts its
 kernel launches in ``.launches``.
+
+The top_k-order wire format of the reference's default, unfused
+``BlockTopKCodec`` has a kernel pair of its own: ``topk_select`` keeps each
+block's k largest ``|d|`` in ``lax.top_k``'s order (ROADMAP C9), with a k a
+leaf (a leaf of at most one block is ``TopKCodec``'s global top-k), and
+``unpack_set`` decodes it as the reference's ``.at[].set`` scatter. Their
+plain versions are a stable descending sort of each block's keys and
+``scatter_``.
 """
 from __future__ import annotations
 
@@ -266,3 +274,154 @@ def unpack_topk(payloads, ns, block_size: int = 1024):
 
 
 unpack_topk.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the top_k-order wire format (ROADMAP C9)
+# --------------------------------------------------------------------------
+
+def magnitude_keys(x: torch.Tensor) -> torch.Tensor:
+    """``lax.top_k``'s order of ``|x|`` as int32 keys: the bits of ``|x|``,
+    so NaN ranks above ±inf and NaNs by payload (ROADMAP C9)."""
+    return x.view(torch.int32) & 0x7FFFFFFF
+
+
+def topk_select_plain(x: torch.Tensor, k: int, block_size: int = 1024,
+                      v: torch.Tensor = None):
+    """``(rows, n)`` -> ``(vals (rows, nb, k) f32, idx (rows, nb, k)
+    uint16)``: each zero-padded block's k largest ``|d|`` (``d = x − v``
+    when ``v`` is given), slots by descending key, equal keys by index,
+    values as they are: a stable descending sort of the block's keys."""
+    rows, n = x.shape
+    d = x if v is None else x - v.to(x.dtype)
+    blocks = to_blocks(d, block_size)
+    order = torch.sort(magnitude_keys(blocks), dim=1, descending=True,
+                       stable=True).indices[:, :k]
+    nb = num_blocks(n, block_size)
+    vals = torch.gather(blocks, 1, order)
+    return vals.reshape(rows, nb, k), to_uint16(order).reshape(rows, nb, k)
+
+
+def topk_select(xs, ks, vs=None, block_size: int = 1024):
+    """Lists of ``(rows, n)`` f32 leaves, their survivors a block ``ks``
+    and optionally their ``vs`` -> a list of ``(vals (rows, nb, k) f32, idx
+    (rows, nb, k) uint16)``, one per leaf, in ``lax.top_k`` order of each
+    block of ``x − v``. On the card one launch a table of up to
+    ``MAX_TABLE_LEAVES`` leaves, ``x − v`` formed in registers; each
+    payload a ``PAYLOAD_ALIGN``-aligned view of one allocation."""
+    if isinstance(xs, torch.Tensor):
+        raise TypeError("topk_select takes a list of leaves")
+    if len(ks) != len(xs) or (vs is not None and len(vs) != len(xs)):
+        raise ValueError(f"topk_select: {len(xs)} leaves, {len(ks)} ks"
+                         + ("" if vs is None else f", {len(vs)} vs"))
+    if not xs:
+        return []
+    operands = [xs] if vs is None else [xs, vs]
+    if not on_card("topk_select", [(t, torch.float32) for op in operands
+                                   for t in op]):
+        return [topk_select_plain(x, k, block_size,
+                                  None if vs is None else vs[i])
+                for i, (x, k) in enumerate(zip(xs, ks))]
+    for k in ks:
+        check_kernel_shape("topk_select", k, block_size)
+    rows = xs[0].shape[0]
+    for i, x in enumerate(xs):
+        if x.dim() != 2 or x.shape[0] != rows or \
+                any(op[i].shape != x.shape for op in operands):
+            raise ValueError(f"topk_select: leaf {i} has shapes "
+                             f"{[tuple(op[i].shape) for op in operands]}; "
+                             f"every leaf must be (rows={rows}, n)")
+    nbs = [num_blocks(x.shape[1], block_size) for x in xs]
+    outs, end = aligned_offsets([rows * nb * k for nb, k in zip(nbs, ks)])
+    dev = xs[0].device
+    vals = torch.empty(end, dtype=torch.float32, device=dev)
+    idx = torch.empty(end, dtype=torch.uint16, device=dev)
+    if rows:
+        with torch.cuda.device(dev):
+            for part in tables(len(xs)):
+                rc = library().repro_topk_select(
+                    c_array(ctypes.c_void_p,
+                            [t.data_ptr() for t in xs[part]]),
+                    None if vs is None else c_array(
+                        ctypes.c_void_p, [t.data_ptr() for t in vs[part]]),
+                    c_array(ctypes.c_longlong,
+                            [x.shape[1] for x in xs[part]]),
+                    c_array(ctypes.c_longlong, nbs[part]),
+                    c_array(ctypes.c_int, ks[part]),
+                    c_array(ctypes.c_longlong, outs[part]), len(xs[part]),
+                    rows, vals.data_ptr(), idx.data_ptr(),
+                    stream_of(xs[0]))
+                check(rc, "topk_select")
+                topk_select.launches += 1
+    return [(vals[o:o + rows * nb * k].view(rows, nb, k),
+             idx[o:o + rows * nb * k].view(rows, nb, k))
+            for nb, k, o in zip(nbs, ks, outs)]
+
+
+topk_select.launches = 0
+
+
+def unpack_set_plain(vals: torch.Tensor, idx: torch.Tensor, n: int,
+                     block_size: int = 1024) -> torch.Tensor:
+    """The reference's ``.at[].set`` decode of a ``(rows, nb, k)`` payload:
+    zeros, each value stored as it is at its index."""
+    rows, nb, k = vals.shape
+    dense = vals.new_zeros((rows * nb, block_size)).scatter_(
+        1, from_uint16(idx).reshape(rows * nb, k), vals.reshape(rows * nb, k))
+    return dense.reshape(rows, nb * block_size)[:, :n].contiguous()
+
+
+def unpack_set(payloads, ns, block_size: int = 1024):
+    """A list of top_k-order ``(vals (rows, nb, k) f32, idx uint16)``
+    payloads, k a leaf, and their leaves' ``n`` -> a list of dense ``(rows,
+    n)`` f32 leaves; on the card one launch a table of up to
+    ``MAX_TABLE_LEAVES`` leaves into one allocation, each leaf a
+    ``PAYLOAD_ALIGN``-aligned view of it. An index repeated in a payload
+    is a caller error (top_k never repeats one)."""
+    if isinstance(payloads, torch.Tensor) or isinstance(ns, int):
+        raise TypeError("unpack_set takes a list of payloads and of sizes")
+    if len(payloads) != len(ns):
+        raise ValueError(f"unpack_set: {len(payloads)} payloads, "
+                         f"{len(ns)} sizes")
+    if not payloads:
+        return []
+    ns = [int(n) for n in ns]
+    if not on_card("unpack_set", [op for vals, idx in payloads for op in
+                                  ((vals, torch.float32),
+                                   (idx, torch.uint16))]):
+        return [unpack_set_plain(vals, idx, n, block_size)
+                for (vals, idx), n in zip(payloads, ns)]
+    rows = payloads[0][0].shape[0]
+    ks = [vals.shape[2] for vals, _ in payloads]
+    for i, ((vals, idx), n) in enumerate(zip(payloads, ns)):
+        check_kernel_shape("unpack_set", ks[i], block_size)
+        if vals.shape != (rows, num_blocks(n, block_size), ks[i]) or \
+                idx.shape != vals.shape:
+            raise ValueError(f"unpack_set: leaf {i}: vals "
+                             f"{tuple(vals.shape)}, idx {tuple(idx.shape)} "
+                             f"do not fit rows={rows}, n={n}")
+    offs, end = aligned_offsets([rows * n for n in ns])
+    dev = payloads[0][0].device
+    out = torch.empty(end, dtype=torch.float32, device=dev)
+    dense = [out[o:o + rows * n].view(rows, n) for o, n in zip(offs, ns)]
+    if rows:
+        with torch.cuda.device(dev):
+            for part in tables(len(payloads)):
+                rc = library().repro_unpack_set(
+                    c_array(ctypes.c_void_p,
+                            [v.data_ptr() for v, _ in payloads[part]]),
+                    c_array(ctypes.c_void_p,
+                            [i.data_ptr() for _, i in payloads[part]]),
+                    c_array(ctypes.c_void_p,
+                            [d.data_ptr() for d in dense[part]]),
+                    c_array(ctypes.c_longlong, ns[part]),
+                    c_array(ctypes.c_longlong,
+                            [v.shape[1] for v, _ in payloads[part]]),
+                    c_array(ctypes.c_int, ks[part]), len(ns[part]), rows,
+                    stream_of(payloads[0][0]))
+                check(rc, "unpack_set")
+                unpack_set.launches += 1
+    return dense
+
+
+unpack_set.launches = 0

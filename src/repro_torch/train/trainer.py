@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch import random
-from repro_torch.core.algorithms import make_cdbfl_round
+from repro_torch.core.algorithms import make_round_fn
 from repro_torch.core.compression import make_compressor
 from repro_torch.core.fed_state import FedState, init_fed_state
 from repro_torch.core.posterior import DeviceSampleBank, SampleBank
@@ -29,7 +29,7 @@ from repro_torch.core.topology import build_topology, resolve_topology
 from repro_torch.data.partition import DeviceShards
 from repro_torch.eval.engine import EvalReport, HostEvalEngine
 from repro_torch.train.engine import make_engine
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_count, tree_map
 
 
 @dataclass
@@ -115,27 +115,36 @@ class FedTrainer:
             params = model.init(random.PRNGKey(seed, self.device), self.device)
         params0 = tree_map(lambda x: x.to(self.device), params)
         self.state: FedState = init_fed_state(params0, fed_cfg)
-        self.round_fn = make_cdbfl_round(model.nll, fed_cfg, self.omega,
-                                         self.compressor, self.data_scale,
-                                         self.device)
+        self.round_fn = make_round_fn(fed_cfg.algorithm, model.nll, fed_cfg,
+                                      self.omega, self.compressor,
+                                      self.data_scale, self.device)
         self.device_shards = DeviceShards.from_shards(shards, self.device)
         self.bank_cfg = DeviceSampleBank(
             burn_in=fed_cfg.burn_in, capacity=bank_capacity, thin=bank_thin,
             store_dtype=bank_dtype)
+        # the posterior bank: the Bayesian algorithms only (cffl is a point
+        # learner, evaluated on its nodes' current params)
+        bank_enabled = fed_cfg.algorithm in ("cdbfl", "dsgld")
         self._engine = make_engine(engine, self.round_fn, self.device_shards,
                                    fed_cfg.local_steps, minibatch,
-                                   bank=self.bank_cfg, chunk=chunk or 64)
+                                   bank=self.bank_cfg if bank_enabled
+                                   else None, chunk=chunk or 64)
         self.key = random.PRNGKey(seed + 1, self.device)
-        self._bank_state = (self._engine.make_bank() if engine == "host"
-                            else self.bank_cfg.init(self.state.params))
+        if engine == "host":
+            self._bank_state = self._engine.make_bank()
+        else:
+            self._bank_state = (self.bank_cfg.init(self.state.params)
+                                if bank_enabled else None)
         self._eval = HostEvalEngine(model.logits, batch_size=eval_batch_size)
 
         n_edges = float(self.topology.adjacency.sum())
         self._n_edges = n_edges
         # a pipeline's measured payload of meta leaves, or the legacy
-        # Compressor's closed-form table
-        self.bytes_per_round = float(self.compressor.wire_bytes(params0)
-                                     * n_edges)
+        # Compressor's closed-form table; DSGLD sends the dense θ
+        per_node = self.compressor.wire_bytes(params0)
+        if fed_cfg.algorithm == "dsgld":
+            per_node = tree_count(params0) * 4
+        self.bytes_per_round = float(per_node * n_edges)
 
     @property
     def bank(self):
@@ -175,9 +184,12 @@ class FedTrainer:
     def _stacked_bank(self):
         """(S, K, ...) posterior samples, whichever bank holds them (the
         device bank read outside any graph, its count once); the current
-        params (S = 1) while the bank is empty."""
+        params (S = 1) while the bank is empty, and for cffl, which keeps
+        none."""
         if isinstance(self._bank_state, SampleBank):
             stacked = self._bank_state.stacked()
+        elif self._bank_state is None:                 # cffl: no bank
+            stacked = None
         else:
             order = self.bank_cfg.order(self._bank_state)
             stacked = (self.bank_cfg.stacked(self._bank_state, order)

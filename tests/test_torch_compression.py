@@ -162,9 +162,9 @@ def test_wire_bytes_match_reference(reduced, want):
 
 def test_make_compressor_refuses_unported_values():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_compressor(FedConfig(fused_compress=False))
+        make_compressor(FedConfig(layer_pipelines=(("fc", "qsgd"),)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_compressor(FedConfig(fused_compress=True, compressor="qsgd"))
+        make_compressor(FedConfig(fused_compress=True, qsgd_levels=10))
 
 
 def test_min_dense_size_leaves_ride_dense(trees):
@@ -353,10 +353,14 @@ def test_make_compressor_routes_and_refuses():
     assert isinstance(make_compressor(FedConfig(
         compressor="qsgd_pallas", pipeline=PIPE, fused_compress=True)),
         FusedCodec)
-    for bad in (dict(pipeline=PIPE), dict(pipeline="qsgd", fused_compress=True),
-                dict(pipeline="block_topk|sign", fused_compress=True),
-                dict(compressor="sign_pallas"),
-                dict(pipeline=PIPE, fused_compress=True, qsgd_levels=10)):
+    # every codec name and composition runs; what is left refuses
+    for ok in (dict(pipeline=PIPE), dict(pipeline="qsgd", fused_compress=True),
+               dict(pipeline="block_topk|sign", fused_compress=True)):
+        assert isinstance(make_compressor(FedConfig(**ok)),
+                          CompressionPipeline)
+    for bad in (dict(compressor="sign_pallas"),
+                dict(pipeline=PIPE, fused_compress=True, qsgd_levels=10),
+                dict(layer_pipelines=(("*", PIPE),))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_compressor(FedConfig(**bad))
 

@@ -12,8 +12,11 @@ from repro_torch.kernels.block_topk import block_topk_plain
 from repro_torch.kernels.fused_compress import (carrier_norms_plain,
                                                 delta_pack_plain,
                                                 grid_quant_plain)
-from repro_torch.kernels.fused_update import fused_update_plain
-from repro_torch.kernels.pack import pack_topk_plain, unpack_topk_plain
+from repro_torch.kernels.fused_update import (cffl_update_plain,
+                                              dsgld_update_plain,
+                                              fused_update_plain)
+from repro_torch.kernels.pack import (pack_topk_plain, topk_select_plain,
+                                      unpack_set_plain, unpack_topk_plain)
 from repro_torch.kernels.qsgd import (inv_one_plus, qsgd_omega, qsgd_plain,
                                       row_norm)
 
@@ -53,7 +56,9 @@ def test_kernels_match_plain_versions(card, n):
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {
         "pack": 1, "delta_pack": 1, "unpack": 1, "fused_update": 1,
-        "grid_quant": 0, "qsgd": 0, "block_topk": 0, "threefry": 0}
+        "grid_quant": 0, "qsgd": 0, "block_topk": 0, "threefry": 0,
+        "topk_select": 0, "unpack_set": 0, "cffl_update": 0,
+        "dsgld_update": 0}
 
 
 @pytest.mark.parametrize("n", [6, 150, 1024, 4097, 21000])
@@ -314,7 +319,12 @@ def test_unpack_of_repeated_indices_matches_plain_version(card, k):
      ("delta_pack", "unpack")),
     (dict(pipeline="block_topk|qsgd", fused_compress=True),
      ("delta_pack", "grid_quant", "unpack")),
-    (dict(compressor="qsgd_pallas"), ("qsgd",))])
+    (dict(compressor="qsgd_pallas"), ("qsgd",)),
+    (dict(), ("topk_select", "unpack_set")),
+    (dict(pipeline="block_topk|qsgd"), ("topk_select", "grid_quant",
+                                        "unpack_set")),
+    (dict(compressor="qsgd"), ("grid_quant",)),
+    (dict(algorithm="cffl"), ("topk_select", "unpack_set"))])
 def test_a_round_launches_its_table_kernels_once(card, overrides, once):
     """One reduced round of each configuration: delta-pack and unpack (the
     fused rounds), grid_quant (the block_topk|qsgd round) and qsgd (the
@@ -491,3 +501,95 @@ def test_a_sync_inside_the_chunk_fails_its_capture(card):
     for a, b in zip(trainer.state.params.values(), params.values()):
         for x, y in zip(a.values(), b.values()):
             assert _same_bits(x, y)
+
+
+def _edge_leaf(card, n):
+    """(4, n) rows made on the card: NaNs of several payloads against ±inf,
+    a block of signed zeros with two nonzeros, a block whose k-th magnitude
+    lies 2^30 below its maximum, and normals."""
+    gen = torch.Generator(device=card).manual_seed(n)
+    x = torch.randn((4, n), generator=gen, device=card)
+    nans = torch.tensor([0x7fc00001, 0x7fc00000, -0x3ffffe, 0x7f800001],
+                        dtype=torch.int32, device=card).view(torch.float32)
+    m = min(n, 1024)
+    x[0, [i % m for i in (5, 900, 17, 33)]] = nans
+    x[0, [i % m for i in (6, 7)]] = torch.tensor([float("inf"),
+                                                  -float("inf")], device=card)
+    x[1, :m] = 0.0
+    x[1, :m:3] = -0.0
+    x[1, [10 % m, 500 % m]] = torch.tensor([1.5, -2.5], device=card)
+    x[2, :m] = torch.rand(m, generator=gen, device=card) * 1e-9 + 1e-9
+    x[2, m // 2] = 2.0 ** 30
+    return x
+
+
+@pytest.mark.parametrize("k", [1, 11, 32, 40, 1024])
+def test_topk_select_matches_plain_version(card, k):
+    """The top_k-order selection against its stable-sort plain version on
+    normal and edge leaves (NaN payloads, ±inf, -0.0, a ragged block, a
+    k-th magnitude far below the maximum), with and without v, and as one
+    table launch with a k a leaf; unpack_set decodes each as its plain
+    version does."""
+    ns = [1024, 4097, 21000] if k > 32 else [6, 150, 1024, 4097, 21000]
+    xs = [_edge_leaf(card, n) for n in ns]
+    gen = torch.Generator(device=card).manual_seed(k)
+    vs = [torch.randn(x.shape, generator=gen, device=card) * 0.1 for x in xs]
+    ks = [min(k, n) if n <= 1024 else k for n in ns]
+    kernels.reset_launch_counts()
+    for with_v in (False, True):
+        got = kernels.topk_select(xs, ks, vs if with_v else None)
+        for x, v, kk, (vals, idx) in zip(xs, vs, ks, got):
+            want = topk_select_plain(x, kk, v=v if with_v else None)
+            assert _same_bits(vals, want[0]) and _same_bits(idx, want[1])
+        dense = kernels.unpack_set(got, ns)
+        for (vals, idx), n, d in zip(got, ns, dense):
+            assert _same_bits(d, unpack_set_plain(vals, idx, n))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["topk_select"], counts["unpack_set"]) == (2, 2)
+
+
+def test_update_variants_match_plain_versions(card):
+    """CF-FL's and DSGLD's updates, aligned (float4) and offset views
+    (the scalar path), bit-exact to their plain versions."""
+    gen = torch.Generator(device=card).manual_seed(9)
+    base = torch.randn((4, 5, 1001), generator=gen, device=card)
+    kernels.reset_launch_counts()
+    for a, b, c in ((base[0], base[1], base[2]),
+                    (base[0, :, 1:], base[1, :, :-1], base[3, :, 1:])):
+        a, b, c = (t.contiguous() if t.is_contiguous() else t.clone()
+                   for t in (a, b, c))
+        assert _same_bits(kernels.cffl_update(a, b, c, 0.03),
+                          cffl_update_plain(a, b, c, 0.03))
+        assert _same_bits(kernels.dsgld_update(a, b * 30, c, 1e-4),
+                          dsgld_update_plain(a, b * 30, c, 1e-4))
+    flat = torch.randn(4 * 1001 + 1, generator=gen, device=card)
+    a, b, c = flat[1:1002], flat[1002:2003], flat[2003:3004]
+    assert _same_bits(kernels.cffl_update(a, b, c, 0.03),
+                      cffl_update_plain(a, b, c, 0.03))
+    assert _same_bits(kernels.dsgld_update(a, b, c, 1e-4),
+                      dsgld_update_plain(a, b, c, 1e-4))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["cffl_update"], counts["dsgld_update"]) == (3, 3)
+
+
+@pytest.mark.parametrize("algorithm", ["cdbfl", "dsgld", "cffl"])
+def test_graph_chunks_equal_the_host_rounds_for_each_algorithm(card,
+                                                               algorithm):
+    """The paper's default codec (``fused_compress=False``) under each
+    algorithm: six reduced rounds in chunks of two against the host
+    engine, bit for bit; cffl keeps no bank."""
+    from repro_torch.utils.tree import tree_leaves
+    host = _reduced_trainer(card, dict(algorithm=algorithm), "host")
+    scan = _reduced_trainer(card, dict(algorithm=algorithm), "scan", chunk=2)
+    want, got = host.run(rounds=6), scan.run(rounds=6)
+    assert got.loss_history == want.loss_history
+    assert got.consensus_history == want.consensus_history
+    assert got.wire_history == want.wire_history
+    for part in ("params", "v", "v_bar"):
+        for a, b in zip(tree_leaves(getattr(scan.state, part)),
+                        tree_leaves(getattr(host.state, part))):
+            assert _same_bits(a, b), part
+    assert len(scan.bank) == len(host.bank) == (0 if algorithm == "cffl"
+                                                else 3)

@@ -12,6 +12,9 @@
   CPU carry runs the chunk function eagerly, the same code a CUDA graph
   captures): params, v, v̄, key, losses, consensus, bytes and the bank,
   whose capacity is below the admits, so it evicts.
+- The same for the paper's default run and its baselines
+  (``fused_compress=False``, ``algorithm`` cdbfl, dsgld and cffl; cffl
+  with no bank on either engine).
 - Chunk lengths 1, 5 and 12 give the same run, bit for bit.
 - The port's scan trainer against the reference's scan trainer, both
   ``chunk=5`` and seeded alike, with ``tests/test_torch_trainer.py``'s
@@ -160,6 +163,24 @@ def test_scan_engine_equals_host_engine(name):
     assert len(scan.bank) == len(host.bank) == 3
     assert scan.bank_cfg.rounds_list(scan._bank_state).tolist() == \
         host.bank.rounds == [2, 3, 4]
+    for s, h in zip(scan.bank.samples, host.bank.samples):
+        for x, y in zip(tree_leaves(s), tree_leaves(h)):
+            assert _same(x, y)
+
+
+@pytest.mark.parametrize("algorithm", ["cdbfl", "dsgld", "cffl"])
+def test_scan_engine_equals_host_engine_for_each_algorithm(algorithm):
+    """Three rounds, chunks of 2, at ``FedConfig``'s default codec."""
+    fed = dict(algorithm=algorithm)
+    host = _trainer(fed, "host", 3)
+    scan = _trainer(fed, "scan", 3, chunk=2)
+    want, got = host.run(), scan.run()
+    _assert_same_run(scan, got, host, want)
+    if algorithm == "cffl":
+        assert host._bank_state is None and scan._bank_state is None
+        assert len(scan.bank) == len(host.bank) == 0
+        return
+    assert len(scan.bank) == len(host.bank) == 2
     for s, h in zip(scan.bank.samples, host.bank.samples):
         for x, y in zip(tree_leaves(s), tree_leaves(h)):
             assert _same(x, y)

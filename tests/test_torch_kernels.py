@@ -301,9 +301,15 @@ def test_cpu_tensors_run_the_plain_versions():
     ops.qsgd(x, torch.rand(2, 3000))
     ops.qsgd_quantize_carriers([vals], [torch.rand(vals.shape)])
     random.normal(random.split(random.PRNGKey(0), 3), (7,))
+    (tvals, tidx), = ops.topk_select_leaves([x], [11], [x])
+    ops.unpack_set_leaves([(tvals, tidx)], [(3000,)])
+    ops.leaf_cffl_update(x, x, x, 0.03)
+    ops.leaf_dsgld_update(x, x, x, 1e-4)
     assert kernels.launch_counts() == {
         "pack": 0, "delta_pack": 0, "unpack": 0, "fused_update": 0,
-        "grid_quant": 0, "qsgd": 0, "block_topk": 0, "threefry": 0}
+        "grid_quant": 0, "qsgd": 0, "block_topk": 0, "threefry": 0,
+        "topk_select": 0, "unpack_set": 0, "cffl_update": 0,
+        "dsgld_update": 0}
 
 
 def test_meta_tensors_give_payload_shapes():

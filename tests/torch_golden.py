@@ -3,6 +3,7 @@ PyTorch port's tests and for ``chip_smoke.py``, which reads them on the card.
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py threefry
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py seeded-rounds
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py baseline-rounds
 
 ``threefry`` writes ``tests/golden/threefry_draws.npz``: ``jax.random``'s
 keys, bits, uniforms, normals, truncated normals and randints for the cases
@@ -18,6 +19,12 @@ K=10, L=8, minibatch 10, compressor ``block_topk`` with fused compression,
 seed 0), their mean loss, consensus error and wire bytes a node, beside the
 configuration they ran. ``chip_smoke.py`` runs the same configuration on the
 card and compares (bytes exact; loss and consensus within rtol 1e-3).
+
+``baseline-rounds`` writes ``tests/golden/baseline_rounds_lenet_radar.json``:
+the same record for the paper's default run and its two baselines, the
+same configuration at ``FedConfig``'s default ``fused_compress=False``
+(the ``lax.top_k``-order ``block_topk`` codec) under ``algorithm`` cdbfl,
+dsgld and cffl, one record each under its algorithm's name.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ import numpy as np
 GOLDEN = Path(__file__).resolve().parent / "golden"
 THREEFRY_FILE = GOLDEN / "threefry_draws.npz"
 SEEDED_ROUNDS_FILE = GOLDEN / "seeded_rounds_lenet_radar.json"
+BASELINE_ROUNDS_FILE = GOLDEN / "baseline_rounds_lenet_radar.json"
 
 # (name, function, seed, arguments): one ``jax.random`` call each
 THREEFRY_CASES = [
@@ -114,13 +122,23 @@ SEEDED_CONFIG = dict(
              compressor="block_topk", fused_compress=True))
 
 
-def write_seeded_rounds() -> None:
+# chip_smoke.py's paper-default runs: SEEDED_CONFIG unfused, one an algorithm
+BASELINE_ALGORITHMS = ("cdbfl", "dsgld", "cffl")
+
+
+def baseline_config(algorithm: str) -> dict:
+    return dict(SEEDED_CONFIG, fed=dict(SEEDED_CONFIG["fed"],
+                                        fused_compress=False,
+                                        algorithm=algorithm))
+
+
+def seeded_rounds(c: dict, command: str) -> dict:
+    """The reference's host-engine run of configuration ``c``."""
     from repro.config import FedConfig, get_arch
     from repro.data.partition import partition_iid
     from repro.data.radar import make_dataset
     from repro.models import get_model
     from repro.train import FedTrainer
-    c = SEEDED_CONFIG
     arch = get_arch(c["arch"])
     cfg = arch.reduced if c["reduced"] else arch.config
     fed = FedConfig(rounds=c["rounds"], **c["fed"])
@@ -132,9 +150,9 @@ def write_seeded_rounds() -> None:
                          minibatch=c["minibatch"], seed=c["seed"],
                          engine="host")
     res = trainer.run(rounds=c["rounds"])
-    record = {
+    return {
         "command": "JAX_PLATFORMS=cpu PYTHONPATH=src python "
-                   "tests/torch_golden.py seeded-rounds",
+                   f"tests/torch_golden.py {command}",
         "reference": "repro.train.FedTrainer(engine='host') on the CPU",
         "config": c,
         "loss": [float(x) for x in res.loss_history],
@@ -142,12 +160,24 @@ def write_seeded_rounds() -> None:
         "wire_bytes": [float(x) for x in res.wire_history],
         "seconds": time.time() - t0,
     }
+
+
+def write_seeded_rounds() -> None:
+    record = seeded_rounds(SEEDED_CONFIG, "seeded-rounds")
     SEEDED_ROUNDS_FILE.write_text(json.dumps(record, indent=1) + "\n")
     print(f"wrote {SEEDED_ROUNDS_FILE}: {record}")
+
+
+def write_baseline_rounds() -> None:
+    records = {alg: seeded_rounds(baseline_config(alg), "baseline-rounds")
+               for alg in BASELINE_ALGORITHMS}
+    BASELINE_ROUNDS_FILE.write_text(json.dumps(records, indent=1) + "\n")
+    print(f"wrote {BASELINE_ROUNDS_FILE}: {records}")
 
 
 if __name__ == "__main__":
     which = sys.argv[1:] or ["threefry"]
     for name in which:
         {"threefry": write_threefry,
-         "seeded-rounds": write_seeded_rounds}[name]()
+         "seeded-rounds": write_seeded_rounds,
+         "baseline-rounds": write_baseline_rounds}[name]()
