@@ -95,19 +95,27 @@ Phases, each of which fails the run by raising:
              exact, loss and consensus error within rtol 1e-3); again on the
              scan engine (chunks of 2), bit for bit; accuracy and ECE on the
              day-1 test maps and on the days-2/3 critical_subset shift set,
-             printed. Then one cdbfl round of each other codec with its
-             bytes exact: topk 207,498, randk 104,056, sign 649,756, qsgd
-             2,598,886, identity 10,395,384, unfused block_topk|qsgd 83,881.
+             printed; the replayed chunk's ms a round, device ms and idle
+             share, as phase 5 times them; for cdbfl, the share of blocks
+             of params − v that leave topk_select's fast path. Then one
+             cdbfl round of each other codec with its bytes exact: topk
+             207,498, randk 104,056, sign 649,756, qsgd 2,598,886,
+             identity 10,395,384, unfused block_topk|qsgd 83,881.
 
 Phase 2 also holds the kernels of phase 7's path to their plain versions,
 exactly: topk_select (the lax.top_k-order selection, with and without v),
 unpack_set (its decode) and fused_update's CF-FL and DSGLD variants, at
 the full-width leaf shapes (each leaf with its own k), at edge leaves (NaN
 payloads, ±inf, ties, -0.0, ragged, short leaves, a k-th magnitude 2^30
-below its block's maximum) and as one table launch; each timed beside its
-bound, its plain version and, for topk_select, one stable torch.sort of
-the same blocks' keys (the library call; unpack_set has none: scatter_
-alone does not zero the fresh dense leaf).
+below its block's maximum), at topk_select's fast-path boundary blocks
+(``tests/torch_golden.py``: 32 and 33 candidates at k = 11, the 20
+largest keys in one lane, all equal, all zero; each alone) and as one
+table launch with v and one without; each timed beside its bound, its
+plain version and, for topk_select, one stable torch.sort of the same
+blocks' keys (the library call; unpack_set has none: scatter_ alone does
+not zero the fresh dense leaf). It logs the share of blocks that leave
+topk_select's fast path for its k-th-key search on the timed leaves, as
+the rule's transcription ``topk_candidates_plain`` counts them.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository, it exits non-zero and prints no
@@ -151,7 +159,8 @@ from repro_torch.kernels.fused_update import (  # noqa: E402
     fused_update, fused_update_plain)
 from repro_torch.kernels.pack import (from_uint16, magnitude_keys,  # noqa: E402
                                       num_blocks, pack_topk, pack_topk_plain,
-                                      to_blocks, topk_select,
+                                      to_blocks, topk_candidates_plain,
+                                      topk_select,
                                       topk_select_plain, unpack_set,
                                       unpack_set_plain, unpack_topk,
                                       unpack_topk_plain)
@@ -164,9 +173,9 @@ from repro_torch.models import get_model  # noqa: E402
 from repro_torch.train.engine import round_indices  # noqa: E402
 from repro_torch.utils.tree import (tree_count, tree_leaves,  # noqa: E402
                                     tree_leaves_with_path)
-from torch_golden import (BASELINE_ROUNDS_FILE,  # noqa: E402
+from torch_golden import (BASELINE_ROUNDS_FILE, BOUNDARY_K,  # noqa: E402
                           SEEDED_CONFIG, SEEDED_ROUNDS_FILE, THREEFRY_FILE,
-                          baseline_config, port_draw)
+                          baseline_config, boundary_blocks, port_draw)
 
 DEVICE = "cuda"
 REDUCED = False                                    # full lenet-radar width
@@ -267,6 +276,24 @@ def card_line() -> str:
     if out.returncode:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(text: str):
+    """nvcc's -Xptxas -v report, one line a kernel: its (mangled) name, its
+    registers and shared memory, and its stack and spills; each source's
+    name on a line of its own."""
+    name, spill = None, ""
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("["):
+            yield line
+        elif "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill" in line:
+            spill = line
+        elif "Used" in line and name:
+            yield f"{name}: {line.split(':', 1)[1].strip()}; {spill}"
+            name, spill = None, ""
 
 
 def device_ms(fn, reps: int = 5, per_rep: int = 10) -> float:
@@ -822,11 +849,34 @@ def far_below_case():
     return "far below 3000", x, torch.zeros_like(x)
 
 
+def boundary_cases():
+    """(name, d, v) of torch_golden's fast-path boundary blocks at k =
+    BOUNDARY_K, K rows each, on the card."""
+    return [(name, torch.from_numpy(d).to(DEVICE),
+             torch.from_numpy(v).to(DEVICE))
+            for name, d, v in boundary_blocks(K)]
+
+
+def fallback_share(ds, ks):
+    """(blocks, blocks that take the k-th-key search, mean candidates) of
+    topk_select's fast-path rule (``topk_candidates_plain``) over ``(K,
+    n)`` residuals, each with its k (all <= 32). The rule's Python
+    transcription counts them, not the kernel, which keeps no counter."""
+    blocks = fallen = cands = 0
+    for d, k in zip(ds, ks):
+        _, count = topk_candidates_plain(to_blocks(d, BLOCK), k)
+        blocks += count.numel()
+        fallen += int((count > 32).sum())
+        cands += int(count.sum())
+    return blocks, fallen, cands / blocks
+
+
 def check_default_kernels(shapes):
     """topk_select (with and without v), unpack_set and the two update
     variants against their plain versions on the card, exactly: every
-    full-width and edge leaf, then one table launch over all of them (a k
-    a leaf); k = 40 on its own. Returns the largest absolute errors."""
+    full-width and edge leaf, the fast path's boundary blocks (each alone),
+    then one table launch over all of them (a k a leaf) with v and one
+    without; k = 40 on its own. Returns the largest absolute errors."""
     errs = dict.fromkeys(("topk_select", "unpack_set", "cffl_update",
                           "dsgld_update"), 0.0)
     cases = [c for c in leaf_cases(shapes) if c[1].shape[1] > 1]
@@ -838,16 +888,21 @@ def check_default_kernels(shapes):
                                  f"{label}")
         errs[kname] = max(errs[kname], max_abs_err(got, want))
 
+    def select(label, x, k, v):
+        """topk_select and unpack_set of one leaf against the plain."""
+        (vals, idx), = topk_select([x], [k], None if v is None else [v])
+        want = topk_select_plain(x, k, v=v)
+        same("topk_select", vals, want[0], label)
+        same("topk_select", idx, want[1], label)
+        dense, = unpack_set([(vals, idx)], [x.shape[1]])
+        same("unpack_set", dense, unpack_set_plain(vals, idx, x.shape[1]),
+             label)
+
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     for name, theta, v in cases:
         n, k = theta.shape[1], leaf_k(theta.shape[1])
         for with_v in (False, True):
-            (vals, idx), = topk_select([theta], [k], [v] if with_v else None)
-            want = topk_select_plain(theta, k, v=v if with_v else None)
-            same("topk_select", vals, want[0], name)
-            same("topk_select", idx, want[1], name)
-            dense, = unpack_set([(vals, idx)], [n])
-            same("unpack_set", dense, unpack_set_plain(vals, idx, n), name)
+            select(name, theta, k, v if with_v else None)
         if bool(torch.isfinite(theta).all() and torch.isfinite(v).all()):
             vb = v * 0.5 + 0.01
             g = torch.randn(theta.shape, generator=gen, device=DEVICE) * 30
@@ -859,29 +914,44 @@ def check_default_kernels(shapes):
         log("kernels", f"{name}: K={K} n={n} k={k}: topk_select (with and "
                        f"without v), unpack_set and the update variants "
                        f"bit-exact to their plain versions")
-    before = (topk_select.launches, unpack_set.launches)
-    thetas, vs = [c[1] for c in cases], [c[2] for c in cases]
-    ks = [leaf_k(t.shape[1]) for t in thetas]
-    got = topk_select(thetas, ks, vs)
-    dense = unpack_set(got, [t.shape[1] for t in thetas])
-    if (topk_select.launches - before[0], unpack_set.launches - before[1]) \
-            != (1, 1):
-        raise AssertionError("a mixed topk_select or unpack_set table took "
-                             "other than one launch")
-    for (name, theta, v), k, (vals, idx), d in zip(cases, ks, got, dense):
-        want = topk_select_plain(theta, k, v=v)
-        same("topk_select", vals, want[0], f"the table's {name}")
-        same("topk_select", idx, want[1], f"the table's {name}")
-        same("unpack_set", d, unpack_set_plain(vals, idx, theta.shape[1]),
-             f"the table's {name}")
+    # without v the selection sees d, with v it forms (d + v) − v = d
+    boundary = boundary_cases()
+    for name, d, v in boundary:
+        select(name, d, BOUNDARY_K, None)
+        select(f"{name} (with v)", d + v, BOUNDARY_K, v)
+        _, count = topk_candidates_plain(d, BOUNDARY_K)
+        log("kernels", f"{name}: K={K} n={BLOCK} k={BOUNDARY_K}: candidates "
+                       f"a row {count.tolist()} (more than 32 take the k-th-"
+                       f"key search): topk_select alone (with and without "
+                       f"v) and unpack_set bit-exact")
+    ks = [leaf_k(c[1].shape[1]) for c in cases] + [BOUNDARY_K] * len(boundary)
+    names = [c[0] for c in cases] + [c[0] for c in boundary]
+    for with_v in (True, False):
+        xs = [c[1] for c in cases] + [d + v if with_v else d
+                                      for _, d, v in boundary]
+        vs = [c[2] for c in cases] + [v for _, _, v in boundary]
+        before = (topk_select.launches, unpack_set.launches)
+        got = topk_select(xs, ks, vs if with_v else None)
+        dense = unpack_set(got, [x.shape[1] for x in xs])
+        if (topk_select.launches - before[0],
+                unpack_set.launches - before[1]) != (1, 1):
+            raise AssertionError("a mixed topk_select or unpack_set table "
+                                 "took other than one launch")
+        for name, x, v, k, (vals, idx), dd in zip(names, xs, vs, ks, got,
+                                                  dense):
+            want = topk_select_plain(x, k, v=v if with_v else None)
+            same("topk_select", vals, want[0], f"the table's {name}")
+            same("topk_select", idx, want[1], f"the table's {name}")
+            same("unpack_set", dd, unpack_set_plain(vals, idx, x.shape[1]),
+                 f"the table's {name}")
     wide = cases[0][1]
     (vals, idx), = topk_select([wide], [40])
     same("topk_select", vals, topk_select_plain(wide, 40)[0], "k=40")
     same("topk_select", idx, topk_select_plain(wide, 40)[1], "k=40")
-    log("kernels", f"one table launch each of topk_select (with v) and "
-                   f"unpack_set over the {len(cases)} leaves above, a k a "
-                   f"leaf, and topk_select at k=40 (its k > 32 path): "
-                   f"bit-exact to every leaf's plain version")
+    log("kernels", f"one table launch each of topk_select and unpack_set "
+                   f"over the {len(xs)} leaves above, a k a leaf, with v and "
+                   f"again without, and topk_select at k=40 (its k > 32 "
+                   f"path): bit-exact to every leaf's plain version")
     return errs
 
 
@@ -902,6 +972,13 @@ def time_default_kernels(shapes):
     ns = [t.shape[1] for t in ths]
     ks = [leaf_k(n) for n in ns]
     payloads = topk_select(ths, ks, vs)
+    blocks, fallen, mean = fallback_share([t - v for t, v in zip(ths, vs)],
+                                          ks)
+    log("kernels", f"topk_select's fast-path rule (topk_candidates_plain) "
+                   f"on these leaves: {fallen} of "
+                   f"{blocks} blocks take the k-th-key search "
+                   f"({100 * fallen / blocks:.4f}%); {mean:.2f} candidates a "
+                   f"block on average")
     keys = torch.cat([magnitude_keys(to_blocks(t - v, BLOCK))
                       for t, v in zip(ths, vs)])
     vbs = [v * 0.5 for v in vs]
@@ -1214,6 +1291,27 @@ def same_tensors(label: str, got, want) -> None:
                              f"run")
 
 
+def time_replay(engine, t: int, n: int):
+    """A replayed chunk of ``n`` rounds from round ``t`` on: (wall ms a
+    round, the median of 5 ``run_chunk`` calls with the metrics read;
+    device ms a round, CUDA events around ``graph.replay()``, median of 5;
+    the host ms of ``graph.replay()``, median of 5; the next round)."""
+    graph, _, _ = engine.graph(n)
+    enqueue, walls = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.run_chunk(t, n)
+        walls.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        graph.replay()
+        enqueue.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        t += 2 * n
+    busy = device_ms(graph.replay, reps=5, per_rep=1) / n
+    return statistics.median(walls) / n, busy, statistics.median(enqueue), t
+
+
 def run_graph(name: str, host, host_res, train, test) -> None:
     """Phase 3's run of ``name`` again with ``engine="scan"``: same seed,
     rounds and ``bank_thin``, ``chunk = rounds / 2``, so the second chunk
@@ -1278,21 +1376,7 @@ def run_graph(name: str, host, host_res, train, test) -> None:
                  f"ECE {res.ece!r} vs {host_res.ece!r} (within {ECE_ATOL})")
 
     # the replayed chunk, timed and traced (the carry runs on from here)
-    t = rounds
-    graph, _, _ = engine.graph(n)
-    enqueue, walls = [], []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        engine.run_chunk(t, n)
-        walls.append(1e3 * (time.perf_counter() - t0))
-        t0 = time.perf_counter()
-        graph.replay()
-        enqueue.append(1e3 * (time.perf_counter() - t0))
-        torch.cuda.synchronize()
-        t += 2 * n
-    wall = statistics.median(walls) / n
-    busy = device_ms(graph.replay, reps=5, per_rep=1) / n
+    wall, busy, enqueue, t = time_replay(engine, rounds, n)
     host_ms = statistics.median(host_res.round_ms[1:])
     carry_bytes = 4 * 3 * tree_count(trainer.state.params) + 16   # + key
     copy_ms = 2 * carry_bytes / HBM_BYTES_PER_S * 1e3
@@ -1304,7 +1388,7 @@ def run_graph(name: str, host, host_res, train, test) -> None:
                  f"{host_ms:.3f} ms a round, idle about "
                  f"{100 * (1 - busy / host_ms):.1f}% against the same device "
                  f"time; host time of graph.replay() "
-                 f"{statistics.median(enqueue):.3f} ms; capture "
+                 f"{enqueue:.3f} ms; capture "
                  f"{engine.capture_ms[n]:.1f} ms; the carry copy at the "
                  f"chunk's end {2 * carry_bytes / 1e6:.0f} MB, bound "
                  f"{copy_ms:.4f} ms")
@@ -1344,7 +1428,7 @@ def run_graph(name: str, host, host_res, train, test) -> None:
     count, ms = norm_reductions(by_name)
     log("graph", f"  {name}: torch norm reductions: {count / n:g} launches, "
                  f"{ms / n:.4f} ms device time a round")
-    del trainer, engine, graph
+    del trainer, engine
     torch.cuda.empty_cache()
 
 
@@ -1617,9 +1701,32 @@ def run_default(algorithm: str, train, test, shift):
                    f"engine bit for bit: params, v, v̄, key, bank "
                    f"({len(scan.bank)} samples), losses, consensus, bytes "
                    f"({wire:,}), BMA probabilities on both test sets")
+    if "topk_select" in once:
+        ds = [(p - v).reshape(K, -1) for p, v in zip(
+            tree_leaves(host.state.params), tree_leaves(host.state.v))]
+        blocks, fallen, mean = fallback_share(
+            ds, [leaf_k(d.shape[1]) for d in ds])
+        log("default", f"{algorithm}: topk_select's fast-path rule "
+                       f"(topk_candidates_plain) on params − v "
+                       f"after {rounds} rounds: {fallen} of {blocks} blocks "
+                       f"take the k-th-key search "
+                       f"({100 * fallen / blocks:.4f}%); {mean:.2f} "
+                       f"candidates a block on average")
+    engine = scan._engine
+    wall, busy, enqueue, _ = time_replay(engine, rounds, 2)
+    host_ms = statistics.median(res.round_ms[1:])
+    log("default", f"{algorithm}: a replayed chunk of 2: {wall:.3f} ms a "
+                   f"round (median of 5 run_chunk calls, the metrics read "
+                   f"included), {busy:.3f} ms of it on the device (CUDA "
+                   f"events around graph.replay(), median of 5): idle "
+                   f"{100 * (1 - busy / wall):.1f}%; host engine "
+                   f"{host_ms:.3f} ms a round, idle about "
+                   f"{100 * (1 - busy / host_ms):.1f}% against the same "
+                   f"device time; host time of graph.replay() "
+                   f"{enqueue:.3f} ms; capture {engine.capture_ms[2]:.1f} ms")
     evals = dict(accuracy=res.accuracy, ece=res.ece,
                  shift_accuracy=shifted.accuracy, shift_ece=shifted.ece)
-    del runs, host, scan
+    del runs, host, scan, engine
     torch.cuda.empty_cache()
     return launches, evals
 
@@ -1671,9 +1778,8 @@ def main() -> int:
     lib = _build.build()
     _build.library()
     log("build", f"{lib.name} in {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("["):
-            log("build", line.strip())
+    for line in ptxas_report(_build.build_log):
+        log("build", line)
     print(card_line(), flush=True)
 
     cfg = get_arch("lenet-radar", reduced=REDUCED)

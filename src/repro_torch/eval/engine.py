@@ -14,6 +14,7 @@ import torch
 from repro_torch.core.calibration import (ReliabilityBins, bin_index,
                                           predictive_entropy)
 from repro_torch.core.posterior import bma_predict_stacked
+from repro_torch.utils.tree import tree_leaves
 
 
 class EvalAccum(NamedTuple):
@@ -132,7 +133,7 @@ def stack_eval_batches(data: Dict[str, np.ndarray], batch_size: int, device):
 
 class HostEvalEngine:
     """Per-batch loop: BMA probabilities of each batch folded into the
-    accumulators in batch order."""
+    accumulators in batch order, on the device of the ``stacked`` leaves."""
 
     def __init__(self, logits_fn: Callable, num_bins: int = 10,
                  batch_size: int = 64):
@@ -142,9 +143,9 @@ class HostEvalEngine:
 
     @torch.no_grad()
     def evaluate(self, stacked, data: Dict[str, np.ndarray],
-                 node_axis: Optional[int] = None, return_probs: bool = False,
-                 device="cpu"):
+                 node_axis: Optional[int] = None, return_probs: bool = False):
         n = len(data["y"])
+        device = tree_leaves(stacked)[0].device
         batches, masks = stack_eval_batches(data, self.batch_size, device)
         acc = init_accum(self.num_bins, device)
         all_probs = []

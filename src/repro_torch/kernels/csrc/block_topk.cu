@@ -16,7 +16,7 @@
 // 31-pass search for the block's k-th magnitude, then the rank), and on
 // the small leaves by launch latency: it keeps one launch a leaf.
 // What the design does about that: it is pack's warp-per-block tile
-// (pack_tile.cuh: load_block, bisect_block, rank_block, shared, not
+// (pack_tile.cuh: load_block, block_max, bisect_block, rank_block, not
 // copied), so it runs the same selection, with a dense epilogue: every
 // lane writes its 32 elements, the survivor's value or 0, as coalesced
 // 128-byte rows.
@@ -36,7 +36,8 @@ block_topk_kernel(const float* __restrict__ x, float* __restrict__ out,
   const long long start = (warp - row * nb) * kBlock;
 
   float d[kPerLane];
-  const float m = load_block<false>(x + row * n, nullptr, start, n, lane, d);
+  load_block<false>(x + row * n, nullptr, start, n, lane, d);
+  const float m = block_max(d);
   float lo, hi;
   bisect_block(d, m, k, lo, hi);
 

@@ -23,9 +23,9 @@
 //   unpack — bytes: the dense (rows, n) f32 output is written once at
 //            3.35 TB/s; the (rows, nb, k) input is wire-sized.
 //   topk_select — the function's bound is the read of the block (4 bytes an
-//            element, 8 with v); the design is bound by instruction issue,
-//            as pack's: the k-th-key search (up to 31 passes of 32 integer
-//            compares and adds a lane), then k shuffles a lane for the slots.
+//            element, 8 with v): 0.0626 ms for the round's 10 leaves at
+//            K = 10. The first design (up to 31 passes of a k-th-key search
+//            a block) was bound by instruction issue at 39% of it.
 //   unpack_set — bytes, as unpack.
 // What the design does about that:
 //   pack   — one warp per block, the block held in registers (32 values a
@@ -46,6 +46,20 @@
 //            shared-memory set for k > 32), and only a block that holds one
 //            takes the slower path in which one slot sums each index's
 //            values in slot order.
+//   topk_select — one warp a block, 32 values a lane in registers, d = x − v
+//            formed there, one launch over the leaf table. For k <= 32 the
+//            lanes' largest |d| bound the block's k-th key from below
+//            (pack_tile.cuh, topk_from_candidates): about 13 candidates on
+//            continuous data at k = 11, gathered with a ballot a row and
+//            ranked with a shuffle a candidate, a few hundred warp
+//            instructions a block by count in place of 1,000-3,000. A block
+//            with more than 32 (ties at the top, zeros, k near 32) takes the
+//            k-th-key search in the same launch. Shared memory is sized by
+//            the launch (96 words a warp, 1,024 only when some k > 32), and
+//            128 registers a thread keep a warp's 64 loads in flight: on the
+//            card 2 CTAs an SM beat 3 (80 registers), and one warp a block
+//            beat persistent warps that prefetched blocks with
+//            cp.async.bulk (PERF.md §6).
 #include "pack_tile.cuh"
 
 namespace repro_torch {
@@ -201,19 +215,23 @@ struct TopkTable {
   TopkLeaf leaf[kMaxLeaves];
   long long total;                                // Σ rows·nb
   int count;
+  int words;              // scratch words a warp: kFewWords, or kBlock if
+                          // some k > 32
 };
 
 // Warp w selects block w of the table (as pack_kernel walks it) in top_k
 // order: its (k) values as they are and their block-local indices, d = x − v
 // formed in registers when HAS_V. Zero padding past the leaf's end may be
 // picked as a tie in a ragged last block, as the reference's jnp.pad zeros
-// are; in a leaf of at most one block it never is.
+// are; in a leaf of at most one block it never is. Dynamic shared memory:
+// table.words a warp. 2 CTAs an SM allow 128 registers a thread, enough for
+// a warp's 64 loads in flight (3 allow 80 and spill, and ran 3.8% slower:
+// PERF.md §6).
 template <bool HAS_V>
-__global__ void __launch_bounds__(kWarpsPerCta * 32)
+__global__ void __launch_bounds__(kWarpsPerCta * 32, 2)
 topk_select_kernel(const __grid_constant__ TopkTable table,
                    float* __restrict__ vals, uint16_t* __restrict__ idx) {
-  __shared__ unsigned scratch[kWarpsPerCta][kBlock];
-
+  extern __shared__ __align__(16) unsigned smem[];
   const int lane = threadIdx.x & 31;
   const long long warp =
       (long long)blockIdx.x * kWarpsPerCta + (threadIdx.x >> 5);
@@ -224,14 +242,13 @@ topk_select_kernel(const __grid_constant__ TopkTable table,
   const long long local = warp - leaf.begin;
   const long long row = local / leaf.nb;
   const long long start = (local - row * leaf.nb) * kBlock;
-
   float d[kPerLane];
   load_block<HAS_V>(leaf.x + row * leaf.n,
                     HAS_V ? leaf.v + row * leaf.n : nullptr, start, leaf.n,
                     lane, d);
   float* vrow = vals + leaf.out + local * leaf.k;
   uint16_t* irow = idx + leaf.out + local * leaf.k;
-  topk_order_block(d, leaf.k, lane, scratch[threadIdx.x >> 5],
+  topk_order_block(d, leaf.k, lane, smem + (threadIdx.x >> 5) * table.words,
                    [&](int slot, float value, int e) {
                      vrow[slot] = value;
                      irow[slot] = (uint16_t)e;
@@ -338,7 +355,8 @@ extern "C" int repro_unpack_topk(const float* const* vals,
 // One launch selects `count` <= kMaxLeaves leaves of `rows` rows each in
 // top_k order: leaf l is xs[l] (minus vs[l] when vs is not null), (rows,
 // ns[l]) with nbs[l] blocks a row of ks[l] survivors, and its payload starts
-// at element outs[l] of vals and idx.
+// at element outs[l] of vals and idx. Shared memory a warp: kFewWords, or
+// kBlock words when some k exceeds 32.
 extern "C" int repro_topk_select(const float* const* xs,
                                  const float* const* vs, const long long* ns,
                                  const long long* nbs, const int* ks,
@@ -350,22 +368,26 @@ extern "C" int repro_topk_select(const float* const* xs,
     return (int)cudaErrorInvalidValue;
   TopkTable table{};
   long long total = 0;
+  int kmax = 1;
   for (int l = 0; l < count; ++l) {
     if (ks[l] < 1 || ks[l] > kBlock) return (int)cudaErrorInvalidValue;
     table.leaf[l] = TopkLeaf{xs[l], vs ? vs[l] : nullptr, ns[l], nbs[l],
                              total, outs[l], ks[l]};
     total += rows * nbs[l];
+    kmax = ks[l] > kmax ? ks[l] : kmax;
   }
   table.total = total;
   table.count = count;
+  table.words = kmax > 32 ? kBlock : kFewWords;
   if (total > 0) {
     const unsigned ctas =
         (unsigned)((total + kWarpsPerCta - 1) / kWarpsPerCta);
+    const size_t bytes = 4 * (size_t)kWarpsPerCta * table.words;
     if (vs)
-      topk_select_kernel<true><<<ctas, kWarpsPerCta * 32, 0,
+      topk_select_kernel<true><<<ctas, kWarpsPerCta * 32, bytes,
                                  (cudaStream_t)stream>>>(table, vals, idx);
     else
-      topk_select_kernel<false><<<ctas, kWarpsPerCta * 32, 0,
+      topk_select_kernel<false><<<ctas, kWarpsPerCta * 32, bytes,
                                   (cudaStream_t)stream>>>(table, vals, idx);
   }
   return (int)cudaGetLastError();

@@ -69,25 +69,37 @@ __device__ __forceinline__ float max_keep_nan(float a, float b) {
 // HAS_V: the residual is formed here and lives only in registers, which is
 // fused_compress.py's point). Elements at or past n read as 0, as the
 // reference's zero padding of the ragged last block: such zeros can be
-// picked as ties. Returns the block's largest magnitude, NaN if it holds
-// one.
+// picked as ties. A whole block takes its loads unpredicated.
 template <bool HAS_V>
-__device__ __forceinline__ float load_block(const float* __restrict__ xr,
-                                            const float* __restrict__ vr,
-                                            long long start, long long n,
-                                            int lane, float (&d)[kPerLane]) {
-  float m = 0.0f;
+__device__ __forceinline__ void load_block(const float* __restrict__ xr,
+                                           const float* __restrict__ vr,
+                                           long long start, long long n,
+                                           int lane, float (&d)[kPerLane]) {
+  const float* xb = xr + start + lane;
+  const float* vb = HAS_V ? vr + start + lane : nullptr;
+  if (start + kBlock <= n) {                      // uniform within a warp
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j)
+      d[j] = HAS_V ? __fsub_rn(xb[j * 32], vb[j * 32]) : xb[j * 32];
+    return;
+  }
+  const long long left = n - start - lane;
 #pragma unroll
   for (int j = 0; j < kPerLane; ++j) {
-    const long long e = start + j * 32 + lane;
     float t = 0.0f;
-    if (e < n) {
-      t = xr[e];
-      if (HAS_V) t = __fsub_rn(t, vr[e]);
+    if (j * 32 < left) {
+      t = xb[j * 32];
+      if (HAS_V) t = __fsub_rn(t, vb[j * 32]);
     }
     d[j] = t;
-    m = max_keep_nan(m, fabsf(t));
   }
+}
+
+// The block's largest magnitude, NaN if it holds one, in every lane.
+__device__ __forceinline__ float block_max(const float (&d)[kPerLane]) {
+  float m = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j) m = max_keep_nan(m, fabsf(d[j]));
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     m = max_keep_nan(m, __shfl_xor_sync(kFull, m, off));
@@ -229,9 +241,10 @@ pack_kernel(const __grid_constant__ PackTable table, float* __restrict__ vals,
   const long long start = (local - row * leaf.nb) * kBlock;
 
   float d[kPerLane];
-  const float m = load_block<HAS_V>(leaf.x + row * leaf.n,
-                                    HAS_V ? leaf.v + row * leaf.n : nullptr,
-                                    start, leaf.n, lane, d);
+  load_block<HAS_V>(leaf.x + row * leaf.n,
+                    HAS_V ? leaf.v + row * leaf.n : nullptr, start, leaf.n,
+                    lane, d);
+  const float m = block_max(d);
   float lo, hi;
   bisect_block(d, m, k, lo, hi);
 
@@ -294,7 +307,10 @@ inline int launch_pack(const float* const* xs, const float* const* vs,
 // XLA runs it on the CPU (ROADMAP C9) orders |d| by its bit pattern: NaN
 // above ±inf above finite, NaNs by payload, equal keys to the lower index;
 // slots go in that order, and values are kept as they are (-0.0 and NaN
-// payloads included).
+// payloads included). For k <= 32 a block's survivors come from the
+// candidates its lanes' maxima admit (topk_from_candidates); the k-th-key
+// search below is the path of a block with more than 32 of them, and of
+// k > 32.
 namespace repro_torch {
 
 // the order key of an element: the bits of |d|
@@ -330,6 +346,74 @@ __device__ __forceinline__ unsigned kth_key(const float (&d)[kPerLane],
   return bits;
 }
 
+// The lane-maxima bound of a block, k <= 32: L, the k-th largest of the 32
+// lanes' largest |d| (as fmaxf takes them, so a NaN counts as nothing and
+// L is never NaN). Each of the k lanes whose maximum is >= L holds an
+// element whose key is >= L's bits, so the block's k-th largest key v_k is
+// >= L, and every survivor, each tie at v_k included, is a candidate: an
+// element with !(|d| < L), as every NaN key is. The maxima are sorted
+// across the warp, descending, by a bitonic network (15 steps of one
+// shuffle and one min or max).
+__device__ __forceinline__ float lane_max_bound(const float (&d)[kPerLane],
+                                                int k, int lane) {
+  float m = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j) m = fmaxf(m, fabsf(d[j]));
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const float other = __shfl_xor_sync(kFull, m, stride);
+      // the lower lane of a descending run keeps the larger
+      const bool larger = ((lane & stride) == 0) == ((lane & size) == 0);
+      m = larger ? fmaxf(m, other) : fminf(m, other);
+    }
+  }
+  return __shfl_sync(kFull, m, k - 1);
+}
+
+// The fast path of k <= 32: the candidates of lane_max_bound (about 13 of
+// 1,024 on continuous data at k = 11) gathered in element order into
+// lanes 0..count-1 through `scratch` (one ballot a row, rows without a
+// candidate skipped), then each finds its slot among them with `count`
+// shuffles: larger keys first, equal keys by element order, which is lane
+// order. False, with nothing emitted, when more than 32 are candidates
+// (ties at the top, blocks of zeros, k near 32): the caller then takes the
+// k-th-key search. The decision is uniform within the warp.
+template <class Emit>
+__device__ __forceinline__ bool topk_from_candidates(
+    const float (&d)[kPerLane], int k, int lane, unsigned* scratch,
+    Emit emit) {
+  const float bound = lane_max_bound(d, k, lane);
+  const unsigned below = (1u << lane) - 1u;
+  int count = 0;
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j) {
+    const bool cand = !(fabsf(d[j]) < bound);
+    const unsigned b = __ballot_sync(kFull, cand);
+    if (b != 0u) {                                // uniform within a warp
+      const int p = count + __popc(b & below);
+      if (cand && p < 32) {
+        scratch[p] = __float_as_uint(d[j]);
+        scratch[32 + p] = (unsigned)(j * 32 + lane);
+      }
+      count += __popc(b);
+    }
+  }
+  if (count > 32) return false;
+  __syncwarp();
+  const unsigned bits = lane < count ? scratch[lane] : 0u;
+  const unsigned key = bits & 0x7fffffffu;
+  int slot = 0;
+  for (int t = 0; t < count; ++t) {
+    const unsigned other = __shfl_sync(kFull, key, t);
+    slot += (other > key || (other == key && t < lane)) ? 1 : 0;
+  }
+  if (lane < count && slot < k)
+    emit(slot, __uint_as_float(bits), (int)scratch[32 + lane]);
+  return true;
+}
+
 // The k survivors of a block in top_k order. A survivor is every element
 // whose key exceeds v_k, then the first k − count(key > v_k) elements whose
 // key is v_k, in element order (so zero padding past a leaf's end is never
@@ -338,15 +422,21 @@ __device__ __forceinline__ unsigned kth_key(const float (&d)[kPerLane],
 // survive) and every element with its key at a lower index. Calls
 // emit(slot, value, element) once per survivor, from some lane.
 //
-// k <= 32: the survivors are gathered in element order into lanes 0..k-1
-// through `scratch` and each lane finds its slot with k shuffles. k > 32:
-// the block's keys go to `scratch` and each survivor counts over all 1,024
-// of them. `scratch`: the warp's kBlock words of shared memory.
+// k <= 32: topk_from_candidates, or where it declines, v_k by kth_key, the
+// survivors gathered in element order into lanes 0..k-1 through `scratch`
+// and each lane's slot found with k shuffles. k > 32: the block's keys go
+// to `scratch` and each survivor counts over all 1,024 of them.
+// `scratch`: the warp's kFewWords words of shared memory for k <= 32,
+// kBlock for k > 32.
+constexpr int kFewWords = 96;
+
 template <class Emit>
 __device__ __forceinline__ void topk_order_block(const float (&d)[kPerLane],
                                                  int k, int lane,
                                                  unsigned* scratch,
                                                  Emit emit) {
+  if (k <= 32 && topk_from_candidates(d, k, lane, scratch, emit)) return;
+  __syncwarp();                       // scratch may hold declined candidates
   const unsigned vk = kth_key(d, k);
   int n_gt = 0;
 #pragma unroll

@@ -20,7 +20,8 @@ block's k largest ``|d|`` in ``lax.top_k``'s order (ROADMAP C9), with a k a
 leaf (a leaf of at most one block is ``TopKCodec``'s global top-k), and
 ``unpack_set`` decodes it as the reference's ``.at[].set`` scatter. Their
 plain versions are a stable descending sort of each block's keys and
-``scatter_``.
+``scatter_``; ``topk_candidates_plain`` transcribes the rule by which the
+selection kernel's fast path bounds a block's survivors.
 """
 from __future__ import annotations
 
@@ -300,6 +301,26 @@ def topk_select_plain(x: torch.Tensor, k: int, block_size: int = 1024,
     nb = num_blocks(n, block_size)
     vals = torch.gather(blocks, 1, order)
     return vals.reshape(rows, nb, k), to_uint16(order).reshape(rows, nb, k)
+
+
+def topk_candidates_plain(blocks: torch.Tensor, k: int):
+    """The rule of the selection kernel's fast path on ``(rows, 1024)``
+    blocks of ``d``, 1 <= k <= 32, as its tile holds them (lane l keeps
+    elements ``j·32 + l``): ``(L (rows,) int32, count (rows,) int64)``. L
+    is the k-th largest of the 32 lanes' largest keys (``magnitude_keys``),
+    a NaN key counting as 0 there as ``fmaxf`` drops it; count is the
+    number of the block's keys >= L, NaN keys included. Every survivor's
+    key is >= L, so count >= k; a block whose count exceeds 32 takes the
+    kernel's k-th-key search instead. The kernel does not call this."""
+    if not 1 <= k <= 32 or blocks.shape[-1] != KERNEL_BLOCK:
+        raise ValueError(f"topk_candidates_plain: the fast path takes "
+                         f"(rows, {KERNEL_BLOCK}) blocks and 1 <= k <= 32, "
+                         f"got {tuple(blocks.shape)}, k={k}")
+    keys = magnitude_keys(blocks)
+    finite = torch.where(keys > 0x7F800000, 0, keys)
+    lane_max = finite.reshape(-1, 32, 32).amax(dim=1)      # (rows, lane)
+    bound = lane_max.sort(dim=1, descending=True).values[:, k - 1]
+    return bound, (keys >= bound[:, None]).sum(dim=1)
 
 
 def topk_select(xs, ks, vs=None, block_size: int = 1024):

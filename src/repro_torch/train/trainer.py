@@ -201,8 +201,7 @@ class FedTrainer:
     def eval_report(self, batch: Dict[str, np.ndarray],
                     return_probs: bool = False):
         return self._eval.evaluate(self._stacked_bank(), batch, node_axis=1,
-                                   return_probs=return_probs,
-                                   device=self.device)
+                                   return_probs=return_probs)
 
     def evaluate(self, batch: Dict[str, np.ndarray],
                  res: Optional[TrainResult] = None) -> TrainResult:

@@ -45,12 +45,14 @@ from repro_torch.core.compression import (BlockTopKCodec, CompressionPipeline,
 from repro_torch.kernels.fused_update import (cffl_update, cffl_update_plain,
                                               dsgld_update,
                                               dsgld_update_plain)
-from repro_torch.kernels.pack import (from_uint16, topk_select,
+from repro_torch.kernels.pack import (from_uint16, magnitude_keys, to_blocks,
+                                      topk_candidates_plain, topk_select,
                                       topk_select_plain, unpack_set,
                                       unpack_set_plain)
 from repro_torch.models import get_model
 from repro_torch.utils.tree import tree_leaves_with_path
 from test_torch_compression import SCALE_RTOL, assert_grid_close
+from torch_golden import boundary_blocks
 
 K = 3
 KEY = 5
@@ -224,6 +226,33 @@ def test_unpack_set_matches_reference_decode():
     assert torch.equal(unpack_set_plain(*payload, x.shape[1]).view(
         torch.int32), got.view(torch.int32))
     assert topk_select_plain(torch.from_numpy(x), 11)[0].shape == (K, 3, 11)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 9, 11, 32])
+@pytest.mark.parametrize("rows", ["edge", "normal", "boundary"])
+def test_lane_maxima_bound_admits_every_lax_top_k_survivor(rows, k):
+    """The selection kernel's fast-path rule (``topk_candidates_plain``):
+    every survivor of the reference's ``lax.top_k`` has a key >= the
+    block's L, so a block has at least k candidates; on the C9 edge rows
+    (NaN payloads, ±inf, ±0.0, ties, a ragged block), seeded normal blocks
+    and the boundary blocks (32 and 33 candidates at k = 11 exactly)."""
+    if rows == "edge":
+        x = _edge_rows()
+    elif rows == "normal":
+        x = np.random.default_rng(k).standard_normal((K, 4096)).astype(
+            np.float32)
+    else:
+        x = np.concatenate([d for _, d, _ in boundary_blocks(K)], axis=1)
+    _, aux, _ = _reference_encode(JaxBlockTopKCodec(ratio=k / 1024), x)
+    blocks = to_blocks(torch.from_numpy(x), 1024)
+    bound, count = topk_candidates_plain(blocks, k)
+    keys = torch.gather(magnitude_keys(blocks), 1, torch.from_numpy(
+        np.asarray(aux["idx"], np.int64)).reshape(blocks.shape[0], k))
+    assert keys.shape == (blocks.shape[0], k)
+    assert bool((keys >= bound[:, None]).all())
+    assert bool((count >= k).all())
+    if rows == "boundary" and k == 11:
+        assert count.reshape(K, 5)[:, :2].tolist() == [[32, 33]] * K
 
 
 # -- every codec and composition against the reference ---------------------

@@ -146,3 +146,39 @@ def test_bma_and_host_eval_engine_match_reference():
     np.testing.assert_allclose(probs_t, probs_j, rtol=1e-5, atol=1e-6)
     assert rep_t.accuracy == rep_j.accuracy and rep_t.count == rep_j.count == 70
     np.testing.assert_allclose(rep_t.ece, rep_j.ece, atol=1e-5)
+
+
+def test_host_eval_engine_takes_its_device_from_the_parameters():
+    """``evaluate`` has no device argument: on CPU-stacked parameters the
+    batches go to the CPU, and the report and probabilities are exactly
+    those of the same loop with every batch placed on the CPU by hand."""
+    cfg = LENET_RADAR_REDUCED
+    stacked = params_from_jax(jax.tree.map(np.asarray, jax.tree.map(
+        lambda *xs: jnp.stack(xs)[:, None],
+        *[jlenet.init_lenet(jax.random.PRNGKey(s), cfg) for s in range(2)])))
+    rng = np.random.default_rng(5)
+    data = {"x": rng.standard_normal((41, 32, 16, 1)).astype(np.float32),
+            "y": rng.integers(0, 10, 41).astype(np.int32)}
+    engine = peval.HostEvalEngine(lenet_logits, batch_size=16)
+    with pytest.raises(TypeError):
+        engine.evaluate(stacked, data, node_axis=1, device="cpu")
+    report, probs = engine.evaluate(stacked, data, node_axis=1,
+                                    return_probs=True)
+    batches, masks = peval.stack_eval_batches(data, 16, "cpu")
+    acc, want = peval.init_accum(10, "cpu"), []
+    for i in range(masks.shape[0]):
+        p = bma_predict_stacked(lenet_logits, stacked, batches["x"][i],
+                                node_axis=1)
+        acc = peval.update_accum(acc, p, batches["y"][i], masks[i], 10)
+        want.append(p)
+    expected = peval.finalize(acc)
+    assert probs.dtype == np.float32 and probs.shape == (41, 10)
+    np.testing.assert_array_equal(
+        probs.view(np.int32), torch.cat(want)[:41].numpy().view(np.int32))
+    for field in expected._fields:
+        got, exp = getattr(report, field), getattr(expected, field)
+        if field == "bins":
+            for a, b in zip(got, exp):
+                np.testing.assert_array_equal(a, b)
+        else:
+            assert got == exp or (np.isnan(got) and np.isnan(exp)), field

@@ -19,6 +19,7 @@ from repro_torch.kernels.pack import (pack_topk_plain, topk_select_plain,
                                       unpack_set_plain, unpack_topk_plain)
 from repro_torch.kernels.qsgd import (inv_one_plus, qsgd_omega, qsgd_plain,
                                       row_norm)
+from torch_golden import boundary_blocks
 
 pytestmark = pytest.mark.cuda
 
@@ -527,26 +528,41 @@ def _edge_leaf(card, n):
 def test_topk_select_matches_plain_version(card, k):
     """The top_k-order selection against its stable-sort plain version on
     normal and edge leaves (NaN payloads, ±inf, -0.0, a ragged block, a
-    k-th magnitude far below the maximum), with and without v, and as one
-    table launch with a k a leaf; unpack_set decodes each as its plain
-    version does."""
+    k-th magnitude far below the maximum) and on the fast path's boundary
+    blocks (32 and 33 candidates at k = 11, the 20 largest keys in one
+    lane, all equal, all zero), with and without v, each boundary block in
+    a launch of its own and every leaf in one table launch with a k a
+    leaf; unpack_set decodes each as its plain version does."""
     ns = [1024, 4097, 21000] if k > 32 else [6, 150, 1024, 4097, 21000]
     xs = [_edge_leaf(card, n) for n in ns]
     gen = torch.Generator(device=card).manual_seed(k)
     vs = [torch.randn(x.shape, generator=gen, device=card) * 0.1 for x in xs]
+    # without v the selection sees d itself, with v it forms (d + v) − v
+    ds = list(xs)
+    for _, d, v in boundary_blocks(4, seed=k):
+        d, v = torch.from_numpy(d).to(card), torch.from_numpy(v).to(card)
+        ds.append(d)
+        xs.append(d + v)
+        vs.append(v)
+        ns.append(1024)
     ks = [min(k, n) if n <= 1024 else k for n in ns]
     kernels.reset_launch_counts()
     for with_v in (False, True):
-        got = kernels.topk_select(xs, ks, vs if with_v else None)
-        for x, v, kk, (vals, idx) in zip(xs, vs, ks, got):
+        sel = xs if with_v else ds
+        alone = [kernels.topk_select([x], [kk], [v] if with_v else None)[0]
+                 for x, kk, v in zip(sel[-5:], ks[-5:], vs[-5:])]
+        got = kernels.topk_select(sel, ks, vs if with_v else None)
+        for x, v, kk, (vals, idx) in zip(sel, vs, ks, got):
             want = topk_select_plain(x, kk, v=v if with_v else None)
             assert _same_bits(vals, want[0]) and _same_bits(idx, want[1])
+        for (vals, idx), (avals, aidx) in zip(got[-5:], alone):
+            assert _same_bits(avals, vals) and _same_bits(aidx, idx)
         dense = kernels.unpack_set(got, ns)
         for (vals, idx), n, d in zip(got, ns, dense):
             assert _same_bits(d, unpack_set_plain(vals, idx, n))
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    assert (counts["topk_select"], counts["unpack_set"]) == (2, 2)
+    assert (counts["topk_select"], counts["unpack_set"]) == (12, 2)
 
 
 def test_update_variants_match_plain_versions(card):

@@ -25,6 +25,11 @@ the same record for the paper's default run and its two baselines, the
 same configuration at ``FedConfig``'s default ``fused_compress=False``
 (the ``lax.top_k``-order ``block_topk`` codec) under ``algorithm`` cdbfl,
 dsgld and cffl, one record each under its algorithm's name.
+
+:func:`boundary_blocks` is not a record of the reference but test data
+shared the same way: one-block leaves at the edge of the top_k-order
+selection kernel's fast path, which the card tests, ``chip_smoke.py`` and
+the CPU tests of its rule hold to the plain version.
 """
 from __future__ import annotations
 
@@ -64,6 +69,49 @@ THREEFRY_CASES = [
     ("randint_empty_span", "randint", 9, {"shape": [6], "minval": 4,
                                           "maxval": 4}),
 ]
+
+
+# the survivors a block of the selection kernel's fast-path boundary blocks
+BOUNDARY_K = 11
+
+
+def boundary_blocks(rows: int, seed: int = 0):
+    """``(name, d, v)`` one-block leaves, ``(rows, 1024)`` f32 each, at the
+    edge of the selection kernel's fast path at k = ``BOUNDARY_K``
+    (``topk_candidates_plain``): exactly 32 and exactly 33 candidates (11
+    lane maxima 10 + l and 21 or 22 more keys of 10 to 15.25 in one lane,
+    signs alternating, ties at 15 included), the 20 largest keys all in one
+    lane, every element 0.75, every element 0; elsewhere keys below 0.5.
+    Lanes rotate by 3 a row. ``v`` lies on a grid of 1/4, so ``(d + v) − v``
+    is ``d`` on every key that reaches the candidates."""
+    rng = np.random.default_rng(seed)
+    at = lambda j, lane: 32 * (j % 32) + lane % 32        # noqa: E731
+
+    def small():
+        return (rng.random((rows, 1024), dtype=np.float32)
+                - np.float32(0.5)).astype(np.float32)
+
+    def candidates(count):
+        d = small()
+        for r in range(rows):
+            lanes = [(l + 3 * r) % 32 for l in range(11)]
+            for l, lane in enumerate(lanes):
+                d[r, at(l + r, lane)] = 10.0 + l
+            js = [j for j in range(32) if j != (10 + r) % 32]
+            for i in range(count - 11):
+                d[r, at(js[i], lanes[10])] = (10.0 + 0.25 * i) * (-1) ** i
+        return d
+
+    one_lane = small()
+    for r in range(rows):
+        for j in range(20):
+            one_lane[r, at(j, 7 + 3 * r)] = (50.0 + j) * (-1) ** j
+    v = rng.integers(-8, 9, (rows, 1024)).astype(np.float32) / 4
+    return [(name, d, v) for name, d in (
+        ("32 candidates", candidates(32)), ("33 candidates", candidates(33)),
+        ("20 largest in one lane", one_lane),
+        ("all equal", np.full((rows, 1024), 0.75, np.float32)),
+        ("all zero", np.zeros((rows, 1024), np.float32)))]
 
 
 def jax_draw(fn: str, seed: int, args: dict) -> np.ndarray:
