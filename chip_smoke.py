@@ -67,9 +67,11 @@ Phases, each of which fails the run by raising:
              the second chunk replays the first's CUDA graph), its launch
              counts set to 0 just before and read just after (the warm-up
              round and the capture count them): params, v, v̄, key, bank,
-             per-round loss and consensus error, bytes and BMA
-             probabilities equal to the host run's bit for bit, ECE within
-             1e-6 (the eval's reliability bins sum by float atomics). Then
+             per-round loss and consensus error, bytes, BMA probabilities
+             and every field of the evaluation's report (ECE, MCE and
+             overconf_gap included) equal to the host run's bit for bit.
+             Each trainer evaluates through the scan eval engine, a CUDA
+             graph of the whole eval. Then
              the replayed chunk: ms a round (the metrics read included), its
              device time by CUDA events around graph.replay() and the idle
              share, the capture time, the host time of graph.replay(), and
@@ -93,14 +95,38 @@ Phases, each of which fails the run by raising:
              and dsgld only, rounds 1-2 against the reference's seeded CPU
              runs (``tests/golden/baseline_rounds_lenet_radar.json``: bytes
              exact, loss and consensus error within rtol 1e-3); again on the
-             scan engine (chunks of 2), bit for bit; accuracy and ECE on the
-             day-1 test maps and on the days-2/3 critical_subset shift set,
-             printed; the replayed chunk's ms a round, device ms and idle
+             scan engine (chunks of 2), bit for bit, the evaluations' reports
+             field for field; accuracy and ECE on the day-1 test maps and
+             on the days-2/3 critical_subset shift set, printed; the
+             replayed chunk's ms a round, device ms and idle
              share, as phase 5 times them; for cdbfl, the share of blocks
              of params − v that leave topk_select's fast path. Then one
              cdbfl round of each other codec with its bytes exact: topk
              207,498, randk 104,056, sign 649,756, qsgd 2,598,886,
              identity 10,395,384, unfused block_topk|qsgd 83,881.
+8. serve   — the posterior served on the card, from a cdbfl run of phase
+             7's configuration on the scan engine (a bank of 2 samples x
+             K=10), its launch counts set to 0 just before the run and read
+             after the CLI: the ScanEvalEngine (one CUDA graph of the whole
+             eval) against the HostEvalEngine on the 200 day-1 maps and the
+             303 shift maps, probabilities and every report field bit for
+             bit, each engine timed; FedTrainer.predictor().predict against
+             eval_report(return_probs=True), bit for bit; a ClassifyEngine
+             with 64 slots over the 200 day-1 maps, bit-equal to the scan
+             eval, its entropies predictive_entropy's within rtol 1e-6;
+             one with 8 slots, 32 requests and entropy_threshold 1.2
+             (requests/s, p50 and p99 ms, the abstain rate, the device ms
+             of one predict replay), no recapture after the warm-up at full,
+             partial and single occupancy; 8 same-size hot swaps with
+             torch.cuda.memory_allocated flat, no recapture, bank_version
+             counted; save_bank and load_bank of the bank, bit for bit, its
+             probabilities unchanged; the serving CLI in-process, on a
+             synthetic full-width bank (its first 8 answers against the
+             reference's, tests/golden/serve_bma_lenet_radar.npz, within
+             rtol 1e-4, the argmax exact) and on a directory of two
+             snapshots with --follow-snapshots (a swap mid-stream). Last,
+             whether the eval and serve contracts hold with cuDNN's and
+             TF32's defaults, logged.
 
 Phase 2 also holds the kernels of phase 7's path to their plain versions,
 exactly: topk_select (the lax.top_k-order selection, with and without v),
@@ -123,12 +149,14 @@ result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -142,13 +170,16 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(1, str(ROOT / "tests"))
 
 from repro_torch import kernels, random  # noqa: E402
-from repro_torch.config import FedConfig, get_arch  # noqa: E402
+from repro_torch.checkpoint import load_bank, save_bank  # noqa: E402
+from repro_torch.config import FedConfig, ServeConfig, get_arch  # noqa: E402
+from repro_torch.core.posterior import predictive_entropy  # noqa: E402
 from repro_torch.core.algorithms import (langevin_noise,  # noqa: E402
                                          langevin_scale, make_cdbfl_round)
 from repro_torch.core.compression import (  # noqa: E402
     CompressionPipeline, FusedCodec, LeafPayload, WirePayload)
 from repro_torch.data.partition import partition_iid  # noqa: E402
 from repro_torch.data.radar import critical_subset, make_dataset  # noqa: E402
+from repro_torch.eval.engine import HostEvalEngine, ScanEvalEngine  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.block_topk import block_topk, block_topk_plain  # noqa: E402
 from repro_torch.kernels.fused_compress import (  # noqa: E402
@@ -169,13 +200,17 @@ from repro_torch.kernels.qsgd import (inv_one_plus, qsgd, qsgd_omega,  # noqa: E
 from repro_torch.kernels.threefry import (BITS, MAX_TABLE_REQUESTS,  # noqa: E402
                                           NORMAL, PAIR, UNIFORM, draw,
                                           draw_plain)
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
+from repro_torch.serve import (ClassifyEngine, ServeRequest,  # noqa: E402
+                               live_device_bytes)
 from repro_torch.train.engine import round_indices  # noqa: E402
 from repro_torch.utils.tree import (tree_count, tree_leaves,  # noqa: E402
-                                    tree_leaves_with_path)
+                                    tree_leaves_with_path, tree_map)
 from torch_golden import (BASELINE_ROUNDS_FILE, BOUNDARY_K,  # noqa: E402
-                          SEEDED_CONFIG, SEEDED_ROUNDS_FILE, THREEFRY_FILE,
-                          baseline_config, boundary_blocks, port_draw)
+                          SEEDED_CONFIG, SEEDED_ROUNDS_FILE, SERVE_BMA_FILE,
+                          SERVE_CONFIG, THREEFRY_FILE, baseline_config,
+                          boundary_blocks, port_draw)
 
 DEVICE = "cuda"
 REDUCED = False                                    # full lenet-radar width
@@ -1273,8 +1308,6 @@ def check_cpu_decode(compressor, payload):
 # phase 5: the chunked engine, a CUDA graph a chunk
 # --------------------------------------------------------------------------
 
-# the BMA evaluation's ECE, graph run against host run (see run_graph)
-ECE_ATOL = 1e-6
 # the ported kernels' launches a round inside a replayed chunk, from its
 # trace (threefry: at most)
 REPLAY_LAUNCHES = {"delta_pack": 1, "unpack": 1, "grid_quant": 1, "qsgd": 1,
@@ -1289,6 +1322,19 @@ def same_tensors(label: str, got, want) -> None:
             bitwise_equal(a, b) for a, b in zip(got, want)):
         raise AssertionError(f"{label}: the graph run differs from the host "
                              f"run")
+
+
+def same_report(label: str, got, want) -> None:
+    """Assert two EvalReports equal field for field, the reliability bins
+    bit for bit (NaN equal to NaN: kept_accuracy with nothing kept)."""
+    for f in want._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if f == "bins":
+            ok = all(np.array_equal(x, y) for x, y in zip(a, b))
+        else:
+            ok = a == b or (math.isnan(a) and math.isnan(b))
+        if not ok:
+            raise AssertionError(f"{label}: EvalReport.{f} {a!r} != {b!r}")
 
 
 def time_replay(engine, t: int, n: int):
@@ -1358,22 +1404,20 @@ def run_graph(name: str, host, host_res, train, test) -> None:
         raise AssertionError(f"{name}: graph bank holds {len(samples)}")
     for got, want in zip(samples, host.bank.samples):
         same_tensors(f"{name} bank", tree_leaves(got), tree_leaves(want))
-    # the BMA probabilities bit for bit; ECE within ECE_ATOL: the eval's
-    # reliability bins sum on the card by index_add's float atomics, in an
-    # order that changes from run to run
-    if not (np.array_equal(res.probs.view(np.int32),
-                           host_res.probs.view(np.int32))
-            and res.accuracy == host_res.accuracy
-            and abs(res.ece - host_res.ece) <= ECE_ATOL):
-        raise AssertionError(f"{name}: graph run BMA accuracy {res.accuracy} "
-                             f"ECE {res.ece}, host {host_res.accuracy} "
-                             f"{host_res.ece}")
+    # the BMA probabilities and every field of the report, ECE, MCE and
+    # overconf_gap included, bit for bit (the bins sum in a fixed order)
+    if not np.array_equal(res.probs.view(np.int32),
+                          host_res.probs.view(np.int32)):
+        raise AssertionError(f"{name}: graph run's BMA probabilities differ")
+    same_report(f"{name} graph run's evaluation", res.report, host_res.report)
     log("graph", f"{name}: {rounds} rounds in chunks of {n} (one capture, "
                  f"{rounds // n - 1} replay): params, v, v̄, key, the bank "
                  f"({len(samples)} samples), losses, consensus, bytes "
-                 f"({wire:,}), BMA probabilities and accuracy "
-                 f"{res.accuracy:.4f} equal to the host run's bit for bit; "
-                 f"ECE {res.ece!r} vs {host_res.ece!r} (within {ECE_ATOL})")
+                 f"({wire:,}), BMA probabilities and the whole report "
+                 f"(accuracy {res.accuracy:.4f}, ECE {res.ece!r}, MCE "
+                 f"{res.report.mce!r}, overconf_gap "
+                 f"{res.report.overconf_gap!r}) equal to the host run's bit "
+                 f"for bit")
 
     # the replayed chunk, timed and traced (the carry runs on from here)
     wall, busy, enqueue, t = time_replay(engine, rounds, n)
@@ -1697,10 +1741,14 @@ def run_default(algorithm: str, train, test, shift):
             and np.array_equal(sshift.probs.view(np.int32),
                                shifted.probs.view(np.int32))):
         raise AssertionError(f"{algorithm}: scan run's evaluation differs")
+    same_report(f"{algorithm} day-1 evaluation", sres.report, res.report)
+    same_report(f"{algorithm} shift-set evaluation", sshift.report,
+                shifted.report)
     log("default", f"{algorithm}: scan engine (chunks of 2) equal to the host "
                    f"engine bit for bit: params, v, v̄, key, bank "
                    f"({len(scan.bank)} samples), losses, consensus, bytes "
-                   f"({wire:,}), BMA probabilities on both test sets")
+                   f"({wire:,}), BMA probabilities and every report field "
+                   f"(ECE, MCE, overconf_gap included) on both test sets")
     if "topk_select" in once:
         ds = [(p - v).reshape(K, -1) for p, v in zip(
             tree_leaves(host.state.params), tree_leaves(host.state.v))]
@@ -1760,6 +1808,327 @@ def run_codec_round(name: str, train) -> None:
                    f"{ {k: v for k, v in launches.items() if v} }")
     del trainer
     torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+# phase 8: the posterior served on the card
+# --------------------------------------------------------------------------
+
+# the kernels the phase's path launches: the cdbfl run's and the CLI's
+# synthetic bank init (threefry)
+SERVE_LAUNCHED = ("topk_select", "unpack_set", "fused_update", "threefry")
+EVAL_BATCH = 64          # FedTrainer's and the eval engines' default
+SWAPS = 8
+
+
+def same_probs(label: str, got, want) -> None:
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    if got.shape != want.shape or not np.array_equal(got.view(np.int32),
+                                                     want.view(np.int32)):
+        raise AssertionError(f"{label}: probabilities differ")
+
+
+def replay_ms(graphs) -> float:
+    """Device ms of one replay of the only graph in ``graphs`` (an engine's
+    captured graphs): CUDA events, the median of 5."""
+    (g,) = graphs.values()
+    return device_ms(g.graph.replay, reps=5, per_rep=1)
+
+
+def wall_ms(fn, reps: int = 5) -> float:
+    """Median host ms of ``fn`` ending in a device sync, after one call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def check_eval(model, bank, name: str, data):
+    """The scan eval engine against the host eval engine on ``data``: the
+    probabilities and every report field bit for bit; each engine's ms.
+    Returns the scan engine's probabilities."""
+    scan = ScanEvalEngine(model.logits, batch_size=EVAL_BATCH)
+    host = HostEvalEngine(model.logits, batch_size=EVAL_BATCH)
+    srep, sprobs = scan.evaluate(bank, data, node_axis=1, return_probs=True)
+    hrep, hprobs = host.evaluate(bank, data, node_axis=1, return_probs=True)
+    same_probs(f"{name}: scan eval against host eval", sprobs, hprobs)
+    same_report(f"{name}: scan eval against host eval", srep, hrep)
+    replay = replay_ms(scan._graphs)
+    scan_ms = wall_ms(lambda: scan.evaluate(bank, data, node_axis=1,
+                                            return_probs=True))
+    host_ms = wall_ms(lambda: host.evaluate(bank, data, node_axis=1,
+                                            return_probs=True))
+    nb = -(-len(data["y"]) // EVAL_BATCH)
+    log("serve", f"eval, {name} ({len(data['y'])} maps, {nb} batches of "
+                 f"{EVAL_BATCH}): scan graph equal to the host loop bit for "
+                 f"bit (probabilities; accuracy {srep.accuracy:.4f}, ECE "
+                 f"{srep.ece!r}, MCE {srep.mce!r}, overconf_gap "
+                 f"{srep.overconf_gap!r}); scan: capture "
+                 f"{sum(scan.capture_ms.values()):.1f} ms, one replay "
+                 f"{replay:.3f} "
+                 f"device ms (CUDA events, median of 5), evaluate "
+                 f"{scan_ms:.3f} ms wall (copies in, replay, report and "
+                 f"probabilities read; median of 5); host loop evaluate "
+                 f"{host_ms:.3f} ms wall (median of 5)")
+    return sprobs
+
+
+def serve_all(eng, xs, threshold=None):
+    """``eng.run`` over ``xs`` timed: (responses, requests/s, p50 ms, p99 ms
+    of their latencies)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resps = eng.run([ServeRequest(x=x) for x in xs])
+    dt = time.perf_counter() - t0
+    lat = np.asarray([r.latency_s for r in resps]) * 1e3
+    return (resps, len(resps) / dt, float(np.percentile(lat, 50)),
+            float(np.percentile(lat, 99)))
+
+
+def check_classify(model, pred, test, eval_probs):
+    """ClassifyEngine at 64 slots (the eval batch: bit-equal to the scan
+    eval) and at 8 slots with the README's entropy gate; no recapture after
+    the warm-up at any occupancy. Returns the 8-slot engine."""
+    shape = test["x"].shape[1:]
+    eng = ClassifyEngine(model.logits, ServeConfig(slots=EVAL_BATCH),
+                         input_shape=shape, stacked=pred.stacked, node_axis=1)
+    eng.run([ServeRequest(x=test["x"][0])])
+    c0 = eng.compile_count()
+    resps, rate, p50, p99 = serve_all(eng, test["x"])
+    probs = np.stack([r.probs for r in resps])
+    same_probs("classify (64 slots) against the scan eval", probs,
+               eval_probs)
+    ent = np.asarray([r.entropy for r in resps], np.float32)
+    want = predictive_entropy(torch.from_numpy(probs)).numpy()
+    if not np.allclose(ent, want, rtol=1e-6, atol=0):
+        raise AssertionError("classify entropies differ from "
+                             "predictive_entropy of its probabilities")
+    if eng.compile_count() != c0 or c0 != 1:
+        raise AssertionError(f"64 slots: {c0} captures at warm-up, "
+                             f"{eng.compile_count()} after")
+    log("serve", f"classify, 64 slots, {len(resps)} day-1 maps: equal to the "
+                 f"scan eval bit for bit, entropies within rtol 1e-6 of "
+                 f"predictive_entropy; {rate:.1f} requests/s, p50 {p50:.3f} "
+                 f"ms, p99 {p99:.3f} ms; captures {c0} at warm-up, "
+                 f"{eng.compile_count()} after")
+    del eng
+
+    eng = ClassifyEngine(model.logits, ServeConfig(slots=8,
+                                                   entropy_threshold=1.2),
+                         input_shape=shape, stacked=pred.stacked, node_axis=1)
+    eng.run([ServeRequest(x=test["x"][0])])
+    c0 = eng.compile_count()
+    resps, rate, p50, p99 = serve_all(eng, test["x"][:32])
+    abstain = float(np.mean([r.abstain for r in resps]))
+    partial = eng.run([ServeRequest(x=x) for x in test["x"][32:35]])
+    single = eng.run([ServeRequest(x=test["x"][3])])
+    if not (eng.compile_count() == c0 == 1 and len(partial) == 3):
+        raise AssertionError(f"8 slots: {c0} captures at warm-up, "
+                             f"{eng.compile_count()} after full, partial and "
+                             f"single occupancy")
+    alone = bool(np.array_equal(single[0].probs.view(np.int32),
+                                resps[3].probs.view(np.int32)))
+    replay = replay_ms(eng.predictor._graphs)
+    log("serve", f"classify, 8 slots, 32 requests, entropy_threshold 1.2: "
+                 f"{rate:.1f} requests/s, p50 {p50:.3f} ms, p99 {p99:.3f} "
+                 f"ms, abstain rate {abstain:.4f}; predict graph capture "
+                 f"{sum(eng.predictor.capture_ms.values()):.1f} ms, one "
+                 f"replay {replay:.3f} device ms (CUDA events, median of 5); "
+                 f"captures {c0} at warm-up, {eng.compile_count()} after "
+                 f"full, partial (3) and single occupancy; a request alone "
+                 f"in slot 0 equal to the same in slot 3 of a full table: "
+                 f"{alone}")
+    return eng
+
+
+def check_swaps(eng, bank, test):
+    """SWAPS same-size hot swaps between ``bank`` and a perturbed copy:
+    memory_allocated flat, no recapture, bank_version counted; the last
+    swap back to ``bank`` answers as before."""
+    x = test["x"][:8]
+    before = np.stack([r.probs for r in eng.run(
+        [ServeRequest(x=v) for v in x])])
+    other = tree_map(lambda t: t * 1.01, bank)
+    eng.install_bank(other)                       # reach steady state
+    eng.run([ServeRequest(x=x[0])])
+    gc.collect()
+    torch.cuda.synchronize()
+    m0, c0, v0 = live_device_bytes(), eng.compile_count(), eng.bank_version
+    install = []
+    for i in range(SWAPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.install_bank(bank if i % 2 == 0 else other)
+        torch.cuda.synchronize()
+        install.append(1e3 * (time.perf_counter() - t0))
+        eng.run([ServeRequest(x=x[0])])
+    eng.install_bank(bank)
+    after = np.stack([r.probs for r in eng.run(
+        [ServeRequest(x=v) for v in x])])
+    gc.collect()
+    torch.cuda.synchronize()
+    m1 = live_device_bytes()
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(bank))
+    one = statistics.median(install)
+    if not (m1 == m0 and eng.compile_count() == c0
+            and eng.bank_version == v0 + SWAPS + 1):
+        raise AssertionError(f"hot swaps: memory {m0} -> {m1} B, captures "
+                             f"{c0} -> {eng.compile_count()}, version {v0} "
+                             f"-> {eng.bank_version}")
+    same_probs("the bank swapped back in", after, before)
+    log("serve", f"hot swap: {SWAPS} same-size swaps of a {nbytes:,} B bank "
+                 f"(2 x K={K}): torch.cuda.memory_allocated {m0:,} B before "
+                 f"and {m1:,} B after, captures {c0} -> "
+                 f"{eng.compile_count()}, bank_version {v0} -> "
+                 f"{eng.bank_version}; one install {one:.3f} ms (median of "
+                 f"{SWAPS}, synchronized), bound "
+                 f"{2 * nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; the bank "
+                 f"swapped back answers as before, bit for bit")
+
+
+def check_checkpoint(eng, bank, test):
+    """save_bank and load_bank of the full-width bank: equal bit for bit,
+    and the engine's answers unchanged after installing it."""
+    x = [ServeRequest(x=v) for v in test["x"][:8]]
+    before = np.stack([r.probs for r in eng.run(x)])
+    like = tree_map(lambda t: t[0, 0], bank)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        save_bank(d, 4, bank)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_bank(d, like=like)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    same_tensors("the bank through save_bank and load_bank",
+                 tree_leaves(loaded), tree_leaves(bank))
+    eng.install_bank(loaded)
+    same_probs("answers after installing the loaded bank",
+               np.stack([r.probs for r in eng.run(x)]), before)
+    log("serve", f"checkpoint: save_bank {save_s:.2f} s, load_bank to the "
+                 f"card {load_s:.2f} s; the loaded bank equals the saved one "
+                 f"bit for bit and answers as before")
+
+
+def check_cli(bank) -> None:
+    """The serving CLI in-process on the card: a synthetic full-width bank
+    against the reference's answers, then two snapshots with a swap
+    mid-stream."""
+    c = SERVE_CONFIG
+    golden = np.load(SERVE_BMA_FILE)
+    if json.loads(str(golden["config"])) != c or c["reduced"] != REDUCED:
+        raise AssertionError(f"{SERVE_BMA_FILE.name} ran {golden['config']}")
+    resps = serve_cli.main(["--seed", str(c["seed"]), "--samples",
+                            str(c["samples"]), "--requests",
+                            str(c["requests"]), "--entropy-threshold", "1.2",
+                            "--smoke"])
+    probs = np.stack([r.probs for r in resps[:c["maps"]]])
+    err = float(np.max(np.abs(probs / golden["probs"] - 1)))
+    if not (err <= 1e-4 and np.array_equal(probs.argmax(-1),
+                                           golden["probs"].argmax(-1))):
+        raise AssertionError(f"CLI bank against the reference: rel err {err}")
+    log("serve", f"CLI, synthetic bank ({c['samples']} inits, seed "
+                 f"{c['seed']}): its first {c['maps']} answers within "
+                 f"{err:.3g} relative of the reference's (rtol 1e-4), argmax "
+                 f"{probs.argmax(-1).tolist()} exact")
+    with tempfile.TemporaryDirectory() as d:
+        save_bank(d, 1, bank)
+        save_bank(d, 2, tree_map(lambda t: t * 1.01, bank))
+        resps = serve_cli.main(["--ckpt-dir", d, "--follow-snapshots",
+                                "--requests", "32", "--smoke"])
+    versions = sorted({r.bank_version for r in resps})
+    if versions != [1, 2]:
+        raise AssertionError(f"--follow-snapshots: bank versions {versions}")
+    log("serve", "CLI, two snapshots with --follow-snapshots: a swap "
+                 "mid-stream (answers from bank versions 1 and 2)")
+
+
+def check_default_flags(model, bank, test, eval_probs) -> None:
+    """Whether the scan eval, host eval and classify contracts hold with
+    cuDNN's defaults (TF32 allowed, nondeterministic algorithms allowed),
+    and with cudnn.benchmark on too; logged, not gated (main() sets
+    deterministic cuDNN with TF32 off for the rest of the run)."""
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark)
+    try:
+        for benchmark in (False, True):
+            cudnn.allow_tf32 = True
+            cudnn.deterministic = False
+            cudnn.benchmark = benchmark
+            srep, sprobs = ScanEvalEngine(
+                model.logits, batch_size=EVAL_BATCH).evaluate(
+                bank, test, node_axis=1, return_probs=True)
+            hrep, hprobs = HostEvalEngine(
+                model.logits, batch_size=EVAL_BATCH).evaluate(
+                bank, test, node_axis=1, return_probs=True)
+            eng = ClassifyEngine(model.logits, ServeConfig(slots=EVAL_BATCH),
+                                 input_shape=test["x"].shape[1:],
+                                 stacked=bank, node_axis=1)
+            cprobs = np.stack([r.probs for r in eng.run(
+                [ServeRequest(x=x) for x in test["x"]])])
+            same = lambda a, b: bool(np.array_equal(  # noqa: E731
+                a.view(np.int32), b.view(np.int32)))
+            err = float(np.max(np.abs(sprobs - eval_probs)))
+            log("serve", f"cuDNN's defaults (allow_tf32 True, deterministic "
+                         f"False, benchmark {benchmark}): scan eval equal to "
+                         f"host eval: {same(sprobs, hprobs)} (ECE "
+                         f"{srep.ece == hrep.ece}); classify equal to scan "
+                         f"eval: {same(cprobs, sprobs)}; largest difference "
+                         f"from the TF32-off probabilities {err:.3g}")
+            del eng
+    finally:
+        cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark = flags
+
+
+def run_serve(train, test, shift) -> dict:
+    """Phase 8. Returns the launch counts of its path."""
+    from repro_torch.train import FedTrainer
+    log("serve", f"on {card_line()}")
+    cfg = get_arch("lenet-radar", reduced=REDUCED)
+    model = get_model(cfg)
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    trainer = FedTrainer(model, default_config("cdbfl", 4),
+                         partition_iid(train, K), minibatch=MINIBATCH, seed=0,
+                         chunk=2, bank_thin=1, device=DEVICE)
+    trainer.run(rounds=4)
+    m0 = torch.cuda.memory_allocated()
+    pred = trainer.predictor()
+    copy = torch.cuda.memory_allocated() - m0
+    bank = pred.stacked
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(bank))
+    log("serve", f"cdbfl, 4 rounds (scan engine, chunks of 2): a bank of "
+                 f"{pred.num_samples()} samples x K={K}, {nbytes:,} B; the "
+                 f"predictor's copy took {copy:,} B of device memory")
+    probs, _ = pred.predict({"x": test["x"][:EVAL_BATCH]})
+    _, want = trainer.eval_report({f: v[:EVAL_BATCH] for f, v in test.items()},
+                                  return_probs=True)
+    same_probs("FedTrainer.predictor().predict against eval_report",
+               probs.cpu().numpy(), want)
+    log("serve", "FedTrainer.predictor().predict equals "
+                 "eval_report(return_probs=True) bit for bit "
+                 f"({EVAL_BATCH} maps)")
+    eval_probs = check_eval(model, bank, "day-1", test)
+    check_eval(model, bank, "shift set", shift)
+    eng = check_classify(model, pred, test, eval_probs)
+    check_swaps(eng, bank, test)
+    check_checkpoint(eng, bank, test)
+    check_cli(bank)
+    launches = kernels.launch_counts()
+    log("serve", f"launches in the phase: "
+                 f"{ {k: v for k, v in launches.items() if v} }")
+    for kname in SERVE_LAUNCHED:
+        if launches[kname] <= 0:
+            raise AssertionError(f"serve: the phase never launched {kname}")
+    check_default_flags(model, bank, test, eval_probs)
+    del trainer, pred, eng
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -1828,6 +2197,7 @@ def main() -> int:
             algorithm, train, test, shift)
     for name in CODEC_ROUNDS:
         run_codec_round(name, train)
+    run_serve(train, test, shift)
     log("default", "accuracy / ECE, day-1 test maps and days-2/3 shift set: "
                    + "; ".join(f"{a}: {e['accuracy']:.4f} / {e['ece']:.4f}, "
                                f"{e['shift_accuracy']:.4f} / "

@@ -1,16 +1,16 @@
 """Configuration for the PyTorch port: the fields its round functions read.
 
 A copy of the subset of ``repro/config.py`` this package runs, with the same
-defaults (``FedConfig``: ``config.py:288-312`` of the reference). Values the
-port does not run yet raise :class:`NotImplementedError` naming the ROADMAP
-item that ports them, so a config can never silently select a path that is
-missing here.
+defaults (``FedConfig``: ``config.py:285-327`` of the reference, every
+field; ``ServeConfig``: ``:255-282``). Values the port does not run yet
+raise :class:`NotImplementedError` naming the ROADMAP item that ports them,
+so a config can never silently select a path that is missing here.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Any, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -37,6 +37,13 @@ _SUPPORTED = {
     "control_dtype": (("float32",), "A3 (bfloat16 control variates)"),
     "topology": (("full", "ring"), "A4 (the other graph families)"),
 }
+# fields the port runs only at None, and the item that ports the rest
+_UNSET_ONLY = {
+    "topology_cfg": "A4 (TopologyConfig and the other graph families)",
+    "transport": "A8 (lossy transport)",
+    "participation": "A7 (barrier-free participation)",
+    "continual": "A9 (drift and continual learning)",
+}
 
 
 @dataclass(frozen=True)
@@ -45,6 +52,8 @@ class FedConfig:
     reference ``FedConfig``."""
     num_nodes: int = 10             # K
     topology: str = "full"          # full | ring
+    topology_cfg: Optional[Any] = None   # a TopologyConfig (A4)
+    mixing: str = "metropolis"      # metropolis | max_degree | uniform
     local_steps: int = 8            # L
     zeta: float = 0.03              # consensus mixing weight
     eta: float = 1e-4               # SGLD learning rate
@@ -65,6 +74,9 @@ class FedConfig:
     layer_pipelines: Tuple[Tuple[str, str], ...] = ()
     algorithm: str = "cdbfl"        # cdbfl | dsgld | cffl
     control_dtype: str = "float32"  # v / v̄ storage
+    transport: Optional[Any] = None       # a TransportConfig (A8)
+    participation: Optional[Any] = None   # a ParticipationConfig (A7)
+    continual: Optional[Any] = None       # a ContinualConfig (A9)
     seed: int = 0
 
     def check_supported(self) -> None:
@@ -75,10 +87,37 @@ class FedConfig:
                 raise NotImplementedError(
                     f"FedConfig.{name}={value!r} is not ported yet "
                     f"(runs: {ok}); ROADMAP {item}")
+        for name, item in _UNSET_ONLY.items():
+            if getattr(self, name) is not None:
+                raise NotImplementedError(
+                    f"FedConfig.{name} is not ported yet (runs: None); "
+                    f"ROADMAP {item}")
         if self.layer_pipelines:
             raise NotImplementedError(
                 "FedConfig.layer_pipelines is not ported yet; ROADMAP A6 "
                 "(PerLayerPipeline)")
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    """The serving plane (``repro/serve``). The slot table is the fixed
+    shape a predict graph is captured at: requests are admitted into and
+    retired from ``slots`` rows each step with no recapture."""
+    slots: int = 8                  # the slot table's rows
+    max_len: int = 128              # decode KV-cache length (ROADMAP A12)
+    max_new_tokens: int = 16        # decode budget a request (A12)
+    temperature: float = 1.0        # decode softmax temperature (A12)
+    # abstain (route to a human) above this predictive entropy in nats; inf
+    # answers always. The eval accumulators use the same rule.
+    entropy_threshold: float = float("inf")
+    # > 0: the serving CLI polls its checkpoint directory at this period
+    # and hot-swaps the posterior banks that land there
+    hot_swap_poll_s: float = 0.0
+    # mesh axis of the bank's sample axis ("" replicated; A10)
+    ensemble_axis: str = ""
+
+    def replace(self, **kw) -> "ServeConfig":
+        return dataclasses.replace(self, **kw)
 
 
 # the paper's radar ROI classifier (reference: configs/lenet_radar.py)

@@ -1,8 +1,9 @@
 """Device graphs and their mixing matrices Ω (numpy, copied).
 
 A copy of the part of ``repro/core/topology.py`` the port runs: the
-``full`` and ``ring`` families a ``FedConfig`` names, Metropolis-Hastings
-weights (Xiao & Boyd '04). Same arithmetic, so Ω is bit-identical to the
+``full`` and ``ring`` families a ``FedConfig`` names and the three mixing
+rules of ``FedConfig.mixing`` (Metropolis-Hastings weights, Xiao & Boyd
+'04, by default). Same arithmetic, so Ω is bit-identical to the
 reference's.
 """
 from __future__ import annotations
@@ -65,5 +66,6 @@ def build_topology(graph: str, k: int, rule: str = "metropolis") -> Topology:
 
 
 def resolve_topology(fed_cfg) -> str:
-    """The graph family a FedConfig names."""
+    """The graph family a FedConfig names; its rule is ``fed_cfg.mixing``
+    (``FedConfig.topology_cfg`` is ROADMAP A4)."""
     return fed_cfg.topology

@@ -1,20 +1,36 @@
-"""Evaluation: streaming metric accumulators and the host eval engine
-(``repro/eval/engine.py:60-190`` and ``HostEvalEngine``, ``:308-362``).
+"""Evaluation engines (``repro/eval/engine.py``): streaming metric
+accumulators, the :class:`ScanEvalEngine` and its oracle, the per-batch
+:class:`HostEvalEngine`.
 
 Metrics are defined through sufficient statistics (:class:`EvalAccum`),
-accumulated batch by batch on the device and finalized on the host.
+accumulated batch by batch on the device in a fixed order and finalized on
+the host, so every engine is deterministic in ``(stacked, data,
+weights)``. On a CUDA bank the scan engine is one CUDA graph of the whole
+batch loop, equal to the host engine's loop bit for bit, given that cuDNN
+picks the same algorithm for the same shapes (``torch.backends.cudnn``
+with ``benchmark`` off); no engine sets a global flag. The SPMD
+``ShardEvalEngine`` is ROADMAP A10.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.calibration import (ReliabilityBins, bin_index,
-                                          predictive_entropy)
-from repro_torch.core.posterior import bma_predict_stacked
-from repro_torch.utils.tree import tree_leaves
+                                          bin_sums)
+from repro_torch.core.posterior import bma_predict_stacked, predictive_entropy
+from repro_torch.utils.graphs import capture
+from repro_torch.utils.tree import tree_layout, tree_leaves, tree_map
+
+
+def abstain_mask(entropy, threshold: float):
+    """Entropy-gated selective prediction, True = abstain (route to a
+    human): the one abstain rule of the eval accumulators and the serving
+    engine, so a threshold tuned on an :class:`EvalReport` transfers to
+    serving unchanged."""
+    return entropy > threshold
 
 
 class EvalAccum(NamedTuple):
@@ -52,7 +68,8 @@ def init_accum(num_bins: int, device="cpu") -> EvalAccum:
 
 def update_accum(accum: EvalAccum, probs, labels, mask, num_bins: int,
                  entropy_threshold: float = float("inf")) -> EvalAccum:
-    """Fold one ``(B, C)`` probability batch in; ``mask`` zeroes padding."""
+    """Fold one ``(B, C)`` probability batch in; ``mask`` zeroes padding.
+    ``entropy_threshold`` feeds the selective-prediction sums only."""
     probs = probs.float()
     mask = mask.float()
     labels = labels.long()
@@ -63,17 +80,19 @@ def update_accum(accum: EvalAccum, probs, labels, mask, num_bins: int,
     onehot = torch.nn.functional.one_hot(labels, probs.shape[-1]).float()
     brier = ((probs - onehot) ** 2).sum(dim=-1) * mask
     ent_raw = predictive_entropy(probs)
-    abstain = (ent_raw > entropy_threshold).float()
-    idx = bin_index(conf, num_bins)
+    abstain = abstain_mask(ent_raw, entropy_threshold).float()
+    counts, conf_sum, acc_sum = bin_sums(
+        bin_index(conf, num_bins), torch.stack([mask, conf * mask, correct]),
+        num_bins)
     return EvalAccum(
         n=accum.n + mask.sum(),
         correct=accum.correct + correct.sum(),
         nll_sum=accum.nll_sum + nll.sum(),
         brier_sum=accum.brier_sum + brier.sum(),
         ent_sum=accum.ent_sum + (ent_raw * mask).sum(),
-        bin_counts=accum.bin_counts.index_add(0, idx, mask),
-        bin_conf=accum.bin_conf.index_add(0, idx, conf * mask),
-        bin_acc=accum.bin_acc.index_add(0, idx, correct),
+        bin_counts=accum.bin_counts + counts,
+        bin_conf=accum.bin_conf + conf_sum,
+        bin_acc=accum.bin_acc + acc_sum,
         abstained=accum.abstained + (abstain * mask).sum(),
         kept_correct=accum.kept_correct + (correct * (1.0 - abstain)).sum(),
     )
@@ -131,32 +150,168 @@ def stack_eval_batches(data: Dict[str, np.ndarray], batch_size: int, device):
     return out, torch.from_numpy(mask.reshape(nb, batch_size)).to(device)
 
 
+def eval_pass(logits_fn: Callable, stacked, weights, batches, masks,
+              node_axis: Optional[int], num_bins: int,
+              entropy_threshold: float, with_probs: bool):
+    """One pass over ``(nb, B, ...)`` batches: zeroed accumulators, then
+    each batch's BMA probabilities folded in, in batch order. Returns the
+    accumulators and, ``with_probs``, the ``(nb * B, C)`` probabilities.
+    The host engine runs it eagerly; the scan engine captures it."""
+    acc = init_accum(num_bins, masks.device)
+    probs_all = []
+    for i in range(masks.shape[0]):
+        probs = bma_predict_stacked(logits_fn, stacked, batches["x"][i],
+                                    node_axis=node_axis, weights=weights)
+        acc = update_accum(acc, probs, batches["y"][i], masks[i], num_bins,
+                           entropy_threshold)
+        if with_probs:
+            probs_all.append(probs)
+    return acc, (torch.cat(probs_all) if with_probs else None)
+
+
+def as_stacked(params: Any) -> Any:
+    """Point params as a bank of one sample (S = 1)."""
+    return tree_map(lambda x: torch.as_tensor(x)[None], params)
+
+
+class _EvalGraph(NamedTuple):
+    graph: Any                    # torch.cuda.CUDAGraph
+    batches: Dict[str, torch.Tensor]   # static (nb, B, ...) inputs
+    masks: torch.Tensor
+    accum: EvalAccum              # outputs, rewritten by every replay
+    probs: Optional[torch.Tensor]  # (nb * B, C) with return_probs
+
+
 class HostEvalEngine:
-    """Per-batch loop: BMA probabilities of each batch folded into the
-    accumulators in batch order, on the device of the ``stacked`` leaves."""
+    """The oracle: :func:`eval_pass` run eagerly, one batch after another,
+    on the device of the ``stacked`` leaves. Deterministic in ``(stacked,
+    data, weights)``."""
+
+    name = "host"
 
     def __init__(self, logits_fn: Callable, num_bins: int = 10,
-                 batch_size: int = 64):
+                 batch_size: int = 64,
+                 entropy_threshold: float = float("inf")):
         self.logits_fn = logits_fn
         self.num_bins = int(num_bins)
         self.batch_size = int(batch_size)
+        self.entropy_threshold = float(entropy_threshold)
+
+    def _run(self, stacked, weights, batches, masks, node_axis,
+             with_probs: bool):
+        return eval_pass(self.logits_fn, stacked, weights, batches, masks,
+                         node_axis, self.num_bins, self.entropy_threshold,
+                         with_probs)
 
     @torch.no_grad()
     def evaluate(self, stacked, data: Dict[str, np.ndarray],
-                 node_axis: Optional[int] = None, return_probs: bool = False):
+                 node_axis: Optional[int] = None, return_probs: bool = False,
+                 weights=None):
+        """One pass -> :class:`EvalReport`, and with ``return_probs`` the
+        unpadded ``(N, C)`` BMA probabilities. ``weights`` ``(S,)``
+        switches the BMA mean to that mixture."""
         n = len(data["y"])
         device = tree_leaves(stacked)[0].device
         batches, masks = stack_eval_batches(data, self.batch_size, device)
-        acc = init_accum(self.num_bins, device)
-        all_probs = []
-        for i in range(masks.shape[0]):
-            probs = bma_predict_stacked(self.logits_fn, stacked,
-                                        batches["x"][i], node_axis=node_axis)
-            acc = update_accum(acc, probs, batches["y"][i], masks[i],
-                               self.num_bins)
-            if return_probs:
-                all_probs.append(probs)
+        if weights is not None:
+            weights = torch.as_tensor(weights, dtype=torch.float32,
+                                      device=device)
+        acc, probs = self._run(stacked, weights, batches, masks, node_axis,
+                               return_probs)
         report = finalize(acc)
         if return_probs:
-            return report, torch.cat(all_probs)[:n].cpu().numpy()
+            return report, probs[:n].cpu().numpy()
         return report
+
+
+class ScanEvalEngine(HostEvalEngine):
+    """The whole evaluation as one pass over fixed-size batches
+    (``repro/eval/engine.py:ScanEvalEngine``, :func:`eval_pass`): per batch
+    the BMA over the stacked bank, folded into the accumulators, which the
+    pass zeroes first.
+
+    ``logits_fn(params, x)`` takes params with a leading group axis;
+    ``stacked`` is ``(S, ...)``, or ``(S, K, ...)`` with ``node_axis=1``.
+    On a CUDA bank the pass is one CUDA graph a shape key (the bank's
+    layout, the number and size of batches, ``node_axis``, weighted or
+    not, ``return_probs``), captured at first use after a warm-up on the
+    capture stream and replayed after it: each call copies the bank, the
+    weights and the batches into the static buffers the graph reads. The
+    engine keeps one copy of the bank for its graphs; a bank of another
+    layout replaces it, and its graphs with it. A failed capture raises;
+    a CUDA bank never runs eagerly. On a CPU bank the pass runs eagerly,
+    as the host engine's. Equal to :class:`HostEvalEngine` bit for bit.
+    """
+
+    name = "scan"
+
+    def __init__(self, logits_fn: Callable, num_bins: int = 10,
+                 batch_size: int = 64,
+                 entropy_threshold: float = float("inf")):
+        super().__init__(logits_fn, num_bins, batch_size, entropy_threshold)
+        self._bank = None           # the bank the graphs read
+        self._weights = None        # (S,) f32, beside it
+        self._graphs: Dict[tuple, _EvalGraph] = {}
+        self._stream = None
+        self.capture_ms: Dict[tuple, float] = {}
+
+    def _graph(self, stacked, batches, masks, node_axis, weighted: bool,
+               with_probs: bool) -> _EvalGraph:
+        if self._bank is None or tree_layout(stacked) != tree_layout(
+                self._bank):
+            self._graphs = {}       # they read the bank dropped here
+            self._bank = tree_map(torch.empty_like, stacked)
+            self._weights = torch.zeros((tree_leaves(stacked)[0].shape[0],),
+                                        device=masks.device)
+        key = (tuple((f, tuple(v.shape), v.dtype)
+                     for f, v in sorted(batches.items())),
+               node_axis, weighted, with_probs)
+        if key not in self._graphs:
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(masks.device)
+            bs = {f: torch.zeros_like(v) for f, v in batches.items()}
+            ms = torch.zeros_like(masks)
+            bank, w = self._bank, self._weights if weighted else None
+            graph, (acc, probs), took = capture(
+                lambda: eval_pass(self.logits_fn, bank, w, bs, ms, node_axis,
+                                  self.num_bins, self.entropy_threshold,
+                                  with_probs), self._stream)
+            self._graphs[key] = _EvalGraph(graph, bs, ms, acc, probs)
+            self.capture_ms[key] = took
+        return self._graphs[key]
+
+    def _run(self, stacked, weights, batches, masks, node_axis,
+             with_probs: bool):
+        if masks.device.type != "cuda":
+            return super()._run(stacked, weights, batches, masks, node_axis,
+                                with_probs)
+        g = self._graph(stacked, batches, masks, node_axis,
+                        weights is not None, with_probs)
+        for d, s in zip(tree_leaves(self._bank), tree_leaves(stacked)):
+            d.copy_(s)
+        if weights is not None:
+            self._weights.copy_(weights)
+        for f, v in batches.items():
+            g.batches[f].copy_(v)
+        g.masks.copy_(masks)
+        g.graph.replay()
+        return g.accum, g.probs
+
+
+def make_eval_engine(name: str, logits_fn: Callable, num_bins: int = 10,
+                     batch_size: int = 64, mesh=None, fed_axis: str = "fed",
+                     entropy_threshold: float = float("inf")):
+    """``"scan"`` or ``"host"``; the SPMD ``"shard"`` engine is ROADMAP
+    A10."""
+    if name == "scan":
+        return ScanEvalEngine(logits_fn, num_bins, batch_size,
+                              entropy_threshold)
+    if name == "host":
+        return HostEvalEngine(logits_fn, num_bins, batch_size,
+                              entropy_threshold)
+    if name == "shard":
+        raise NotImplementedError(
+            "make_eval_engine('shard') is not ported yet; ROADMAP A10 "
+            "(multi-GPU shard engine, ShardEvalEngine)")
+    raise ValueError(f"unknown eval engine {name!r}; use 'scan', 'host' or "
+                     f"'shard'")

@@ -10,6 +10,11 @@ on the card) with the on-device posterior bank; ``engine="host"`` is the
 per-round oracle with the host bank. The card is the default device.
 ``device="cpu"`` runs every kernel's plain version on the CPU; a ``cuda``
 device without a card raises.
+
+Evaluation runs through the :class:`ScanEvalEngine` (a CUDA graph of the
+whole eval on the card), ``run(eval_every=N)`` takes in-training
+snapshots through it, and :meth:`FedTrainer.predictor` hands the
+posterior to serving as a :class:`BankPredictor`.
 """
 from __future__ import annotations
 
@@ -18,17 +23,18 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
-import torch
 
 from repro_torch import random
 from repro_torch.core.algorithms import make_round_fn
 from repro_torch.core.compression import make_compressor
 from repro_torch.core.fed_state import FedState, init_fed_state
-from repro_torch.core.posterior import DeviceSampleBank, SampleBank
+from repro_torch.core.posterior import (BankPredictor, DeviceSampleBank,
+                                        SampleBank)
 from repro_torch.core.topology import build_topology, resolve_topology
 from repro_torch.data.partition import DeviceShards
-from repro_torch.eval.engine import EvalReport, HostEvalEngine
+from repro_torch.eval.engine import EvalReport, ScanEvalEngine
 from repro_torch.train.engine import make_engine
+from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_count, tree_map
 
 
@@ -41,6 +47,9 @@ class TrainResult:
     bytes_sent_per_round: float
     total_bytes: float
     overconf_gap: float = float("nan")
+    # in-training snapshots (run(eval_every=N)) and the final evaluation:
+    # [{"round", "accuracy", "ece", "nll", "brier", "overconf_gap"}, ...]
+    eval_history: List[Dict[str, float]] = field(default_factory=list)
     report: Optional[EvalReport] = None
     # measured from the packed WirePayload buffers, scaled by the directed
     # edge count like bytes_sent_per_round
@@ -52,6 +61,13 @@ class TrainResult:
     probs: Optional[np.ndarray] = None
     labels: Optional[np.ndarray] = None
     wall_s: float = 0.0
+
+
+def _snapshot(round_idx: int, rep: EvalReport) -> Dict[str, float]:
+    """One entry of ``TrainResult.eval_history``."""
+    return {"round": float(round_idx), "accuracy": rep.accuracy,
+            "ece": rep.ece, "nll": rep.nll, "brier": rep.brier,
+            "overconf_gap": rep.overconf_gap}
 
 
 class _BankView:
@@ -69,15 +85,6 @@ class _BankView:
     def samples(self):
         return ([] if self._state is None
                 else self._cfg.samples_list(self._state))
-
-
-def resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={device!r} but no CUDA device is available; pass "
-            f"device='cpu' to run the kernels' plain versions on the CPU")
-    return dev
 
 
 class FedTrainer:
@@ -104,7 +111,7 @@ class FedTrainer:
         self.fed_cfg = fed_cfg
         self.minibatch = minibatch
         self.topology = build_topology(resolve_topology(fed_cfg),
-                                       fed_cfg.num_nodes)
+                                       fed_cfg.num_nodes, fed_cfg.mixing)
         self.omega = self.topology.omega
         self.compressor = make_compressor(fed_cfg)
         if data_scale is None:
@@ -135,7 +142,7 @@ class FedTrainer:
         else:
             self._bank_state = (self.bank_cfg.init(self.state.params)
                                 if bank_enabled else None)
-        self._eval = HostEvalEngine(model.logits, batch_size=eval_batch_size)
+        self._eval = ScanEvalEngine(model.logits, batch_size=eval_batch_size)
 
         n_edges = float(self.topology.adjacency.sum())
         self._n_edges = n_edges
@@ -155,18 +162,39 @@ class FedTrainer:
         return _BankView(self.bank_cfg, self._bank_state)
 
     def run(self, rounds: Optional[int] = None, log_every: int = 0,
-            eval_batch: Optional[Dict[str, np.ndarray]] = None) -> TrainResult:
+            eval_batch: Optional[Dict[str, np.ndarray]] = None,
+            eval_every: int = 0) -> TrainResult:
+        """Train ``rounds`` rounds, then evaluate on ``eval_batch``; with
+        ``eval_every=N`` the eval engine also scores the current posterior
+        every N rounds, and the snapshots land in ``eval_history``."""
         rounds = rounds if rounds is not None else self.fed_cfg.rounds
         log_cb = None
         if log_every:
             log_cb = lambda t, l, c: print(
                 f"  round {t:4d}  loss={l:.4f} consensus={c:.3e}")
+        segment = (eval_every if eval_every and eval_batch is not None
+                   else rounds)
+        losses: List[float] = []
+        cons: List[float] = []
+        wire: List[float] = []
+        round_ms: List[float] = []
+        eval_history: List[Dict[str, float]] = []
         t0 = time.time()
-        self.state, self.key, self._bank_state, losses, cons = \
-            self._engine.run(self.state, self.key, self._bank_state, rounds,
-                             t0=self.state.round, log_every=log_every,
-                             log_cb=log_cb)
-        wire = list(self._engine.last_wire_history)
+        done = 0
+        while done < rounds:
+            n = min(segment, rounds - done)
+            self.state, self.key, self._bank_state, seg_losses, seg_cons = \
+                self._engine.run(self.state, self.key, self._bank_state, n,
+                                 t0=self.state.round, log_every=log_every,
+                                 log_cb=log_cb)
+            losses += seg_losses
+            cons += seg_cons
+            wire += self._engine.last_wire_history
+            round_ms += self._engine.last_round_ms
+            done += n
+            if done < rounds:
+                eval_history.append(
+                    _snapshot(self.state.round, self.eval_report(eval_batch)))
         res = TrainResult(
             accuracy=float("nan"), ece=float("nan"), nll=float("nan"),
             brier=float("nan"),
@@ -175,10 +203,11 @@ class FedTrainer:
             measured_bytes_per_round=(float(np.mean(wire)) * self._n_edges
                                       if wire else self.bytes_per_round),
             wire_history=wire, loss_history=losses, consensus_history=cons,
-            round_ms=list(self._engine.last_round_ms),
-            wall_s=time.time() - t0)
+            round_ms=round_ms, wall_s=time.time() - t0)
         if eval_batch is not None:
             res = self.evaluate(eval_batch, res)
+            res.eval_history = eval_history + [
+                _snapshot(self.state.round, res.report)]
         return res
 
     def _stacked_bank(self):
@@ -198,8 +227,19 @@ class FedTrainer:
             stacked = tree_map(lambda x: x[None], self.state.params)
         return stacked
 
+    def predictor(self) -> BankPredictor:
+        """A :class:`BankPredictor` over the current posterior bank (the
+        current params while it is empty; for cffl, always), node chains
+        averaged: hand it to ``ClassifyEngine`` or call ``predict(batch)``.
+        The unlearn filter and the age weights are ROADMAP A9."""
+        return BankPredictor(self.model.logits, stacked=self._stacked_bank(),
+                             node_axis=1)
+
     def eval_report(self, batch: Dict[str, np.ndarray],
                     return_probs: bool = False):
+        """BMA evaluation of the current posterior through the scan eval
+        engine (the reference's unlearn filter and age weights are ROADMAP
+        A9)."""
         return self._eval.evaluate(self._stacked_bank(), batch, node_axis=1,
                                    return_probs=return_probs)
 

@@ -53,3 +53,10 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
 def tree_count(tree: Tree) -> int:
     """Total number of elements across leaves."""
     return int(sum(int(np.prod(tuple(x.shape))) for x in tree_leaves(tree)))
+
+
+def tree_layout(tree: Tree) -> List[Tuple[str, tuple, Any]]:
+    """``[(path, shape, dtype), ...]``: what a buffer must match to take the
+    tree's values by ``copy_``."""
+    return [(p, tuple(x.shape), x.dtype)
+            for p, x in tree_leaves_with_path(tree)]

@@ -182,3 +182,46 @@ def test_host_eval_engine_takes_its_device_from_the_parameters():
                 np.testing.assert_array_equal(a, b)
         else:
             assert got == exp or (np.isnan(got) and np.isnan(exp)), field
+
+
+def test_fed_config_has_every_reference_field_at_its_default():
+    """ROADMAP C13: code written for the reference's FedConfig runs on the
+    port's, and every reference field's default is accepted."""
+    import dataclasses
+    ref = {f.name: f.default for f in dataclasses.fields(JaxFedConfig)}
+    port = {f.name: f.default for f in dataclasses.fields(FedConfig)}
+    assert set(ref) <= set(port)
+    for name, default in ref.items():
+        assert port[name] == default, name
+    FedConfig(**ref).check_supported()
+
+
+@pytest.mark.parametrize("rule", ["metropolis", "max_degree", "uniform"])
+@pytest.mark.parametrize("graph,k", [("ring", 5), ("full", 4)])
+def test_mixing_rule_gives_the_reference_omega(rule, graph, k):
+    """``FedConfig.mixing`` reaches Ω through the trainer, as the reference's
+    ``resolve_topology`` carries it."""
+    from repro_torch.data.radar import make_dataset
+    from repro_torch.data.partition import partition_iid
+    from repro_torch.models import get_model
+    from repro_torch.config import get_arch
+    from repro_torch.train import FedTrainer
+    want = jbuild_topology(jresolve_topology(
+        JaxFedConfig(topology=graph, mixing=rule)), k).omega
+    cfg = get_arch("lenet-radar", reduced=True)
+    trainer = FedTrainer(get_model(cfg), FedConfig(num_nodes=k,
+                                                   topology=graph,
+                                                   mixing=rule),
+                         partition_iid(make_dataset(2 * k, hw=cfg.input_hw),
+                                       k), minibatch=2, device="cpu")
+    np.testing.assert_array_equal(trainer.omega, want)
+    np.testing.assert_array_equal(
+        build_topology(graph, k, rule).omega, want)
+
+
+@pytest.mark.parametrize("field,item", [
+    ("topology_cfg", "A4"), ("transport", "A8"), ("participation", "A7"),
+    ("continual", "A9")])
+def test_unported_fed_config_fields_name_their_item(field, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        FedConfig(**{field: object()}).check_supported()

@@ -609,3 +609,129 @@ def test_graph_chunks_equal_the_host_rounds_for_each_algorithm(card,
             assert _same_bits(a, b), part
     assert len(scan.bank) == len(host.bank) == (0 if algorithm == "cffl"
                                                 else 3)
+
+
+# -- serving the posterior: the scan eval graph, the predict graph, swaps --
+
+def _served(card):
+    """A reduced cdbfl trainer after 6 rounds (a bank of 3 samples x K=3)
+    and 70 test maps."""
+    from repro_torch.data.radar import make_dataset
+    trainer = _reduced_trainer(card, dict(algorithm="cdbfl"), "scan",
+                               chunk=2)
+    trainer.run(rounds=6)
+    test = make_dataset(70, hw=(32, 16), day=2, seed=9)
+    return trainer, trainer.predictor().stacked, test
+
+
+def _same_report(a, b):
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if f == "bins":
+            assert all(np.array_equal(u, v) for u, v in zip(x, y))
+        else:
+            assert x == y or (np.isnan(x) and np.isnan(y)), f
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_scan_eval_equals_host_eval_on_the_card(card, weighted):
+    """One CUDA graph of the whole eval against the eager batch loop: the
+    probabilities and every report field, ECE included, bit for bit, with
+    and without weights and an entropy gate; a second call replays."""
+    from repro_torch.eval.engine import HostEvalEngine, ScanEvalEngine
+    trainer, bank, test = _served(card)
+    w = np.asarray([0.2, 0.3, 0.5]) if weighted else None
+    kw = dict(batch_size=32, entropy_threshold=2.2)
+    scan = ScanEvalEngine(trainer.model.logits, **kw)
+    rep, probs = scan.evaluate(bank, test, node_axis=1, return_probs=True,
+                               weights=w)
+    hrep, hprobs = HostEvalEngine(trainer.model.logits, **kw).evaluate(
+        bank, test, node_axis=1, return_probs=True, weights=w)
+    assert np.array_equal(probs.view(np.int32), hprobs.view(np.int32))
+    _same_report(rep, hrep)
+    again = scan.evaluate(bank, test, node_axis=1, return_probs=True,
+                          weights=w)
+    _same_report(again[0], hrep)
+    assert len(scan.capture_ms) == 1
+
+
+def test_classify_equals_scan_eval_on_the_card(card):
+    from repro_torch.config import ServeConfig
+    from repro_torch.core.posterior import predictive_entropy
+    from repro_torch.eval.engine import ScanEvalEngine
+    from repro_torch.serve import ClassifyEngine, ServeRequest
+    trainer, bank, test = _served(card)
+    eng = ClassifyEngine(trainer.model.logits, ServeConfig(slots=8),
+                         input_shape=test["x"].shape[1:], stacked=bank,
+                         node_axis=1)
+    resps = eng.run([ServeRequest(x=x) for x in test["x"][:24]])
+    probs = np.stack([r.probs for r in resps])
+    _, want = ScanEvalEngine(trainer.model.logits, batch_size=8).evaluate(
+        bank, {f: v[:24] for f, v in test.items()}, node_axis=1,
+        return_probs=True)
+    assert np.array_equal(probs.view(np.int32), want.view(np.int32))
+    ent = predictive_entropy(torch.from_numpy(probs)).numpy()
+    np.testing.assert_allclose([r.entropy for r in resps], ent, rtol=1e-6,
+                               atol=0)
+    assert eng.compile_count() == 1
+    pred, _ = trainer.predictor().predict({"x": test["x"][:8]})
+    _, rep = trainer.eval_report({f: v[:8] for f, v in test.items()},
+                                 return_probs=True)
+    assert np.array_equal(pred.cpu().numpy().view(np.int32),
+                          rep.view(np.int32))
+
+
+def test_no_recapture_across_occupancy_and_swaps_and_memory_flat(card):
+    """One capture at the warm-up; none at full, partial and single
+    occupancy nor across same-size hot swaps; memory_allocated flat over 8
+    swaps after the first; a bank of another sample count is one more
+    capture."""
+    import gc
+    from repro_torch.config import ServeConfig
+    from repro_torch.serve import ClassifyEngine, ServeRequest
+    from repro_torch.utils.tree import tree_map
+    trainer, bank, test = _served(card)
+    eng = ClassifyEngine(trainer.model.logits, ServeConfig(slots=8),
+                         input_shape=test["x"].shape[1:], stacked=bank,
+                         node_axis=1)
+    xs = [ServeRequest(x=x) for x in test["x"]]
+    first = eng.run(xs[:1])
+    assert eng.compile_count() == 1
+    eng.run(xs[:17])
+    eng.run(xs[3:4])
+    assert eng.compile_count() == 1
+    other = tree_map(lambda t: t + 0.01, bank)
+    eng.install_bank(other)
+    eng.run(xs[:1])
+    gc.collect()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    for i in range(8):
+        eng.install_bank(bank if i % 2 == 0 else other)
+        eng.run(xs[:1])
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == m0
+    assert eng.compile_count() == 1 and eng.bank_version == 10
+    eng.install_bank(bank)
+    again = eng.run(xs[:1])
+    assert np.array_equal(again[0].probs.view(np.int32),
+                          first[0].probs.view(np.int32))
+    eng.install_bank(tree_map(lambda t: t[:2], bank))
+    eng.run(xs[:1])
+    assert eng.compile_count() == 2 and eng.num_samples() == 2
+
+
+def test_a_sync_inside_the_eval_fails_its_capture(card):
+    """An eval whose forward reads a value to the host cannot be captured:
+    the scan engine raises rather than run eagerly."""
+    from repro_torch.eval.engine import ScanEvalEngine
+    trainer, bank, test = _served(card)
+
+    def syncing(params, x):
+        out = trainer.model.logits(params, x)
+        out.sum().item()
+        return out
+    with pytest.raises(RuntimeError):
+        ScanEvalEngine(syncing, batch_size=32).evaluate(bank, test,
+                                                        node_axis=1)

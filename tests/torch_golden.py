@@ -4,6 +4,7 @@ PyTorch port's tests and for ``chip_smoke.py``, which reads them on the card.
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py threefry
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py seeded-rounds
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py baseline-rounds
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py serve-bma
 
 ``threefry`` writes ``tests/golden/threefry_draws.npz``: ``jax.random``'s
 keys, bits, uniforms, normals, truncated normals and randints for the cases
@@ -26,6 +27,15 @@ same configuration at ``FedConfig``'s default ``fused_compress=False``
 (the ``lax.top_k``-order ``block_topk`` codec) under ``algorithm`` cdbfl,
 dsgld and cffl, one record each under its algorithm's name.
 
+``serve-bma`` writes ``tests/golden/serve_bma_lenet_radar.npz``: the
+reference's BMA probabilities and predictive entropies
+(``repro.core.posterior.BankPredictor``) for the serving CLI's synthetic
+bank at full ``lenet-radar`` width (:data:`SERVE_CONFIG`: the inits from
+``fold_in(PRNGKey(seed), i)``, i < samples) on the first maps of the CLI's
+requests (``make_dataset(requests, seed=seed + 7)``), beside the
+configuration as JSON under ``config``. A CPU test holds the port to it
+within rtol 1e-5, ``chip_smoke.py`` the card within rtol 1e-4.
+
 :func:`boundary_blocks` is not a record of the reference but test data
 shared the same way: one-block leaves at the edge of the top_k-order
 selection kernel's fast path, which the card tests, ``chip_smoke.py`` and
@@ -44,6 +54,7 @@ GOLDEN = Path(__file__).resolve().parent / "golden"
 THREEFRY_FILE = GOLDEN / "threefry_draws.npz"
 SEEDED_ROUNDS_FILE = GOLDEN / "seeded_rounds_lenet_radar.json"
 BASELINE_ROUNDS_FILE = GOLDEN / "baseline_rounds_lenet_radar.json"
+SERVE_BMA_FILE = GOLDEN / "serve_bma_lenet_radar.npz"
 
 # (name, function, seed, arguments): one ``jax.random`` call each
 THREEFRY_CASES = [
@@ -223,9 +234,40 @@ def write_baseline_rounds() -> None:
     print(f"wrote {BASELINE_ROUNDS_FILE}: {records}")
 
 
+# the serving CLI's synthetic bank and requests (launch/serve.py defaults)
+SERVE_CONFIG = dict(arch="lenet-radar", reduced=False, seed=0, samples=4,
+                    requests=32, maps=8)
+
+
+def write_serve_bma() -> None:
+    import jax
+    import jax.numpy as jnp
+    from repro.config import get_arch
+    from repro.core.posterior import BankPredictor
+    from repro.data.radar import make_dataset
+    from repro.models import get_model
+    c = SERVE_CONFIG
+    arch = get_arch(c["arch"])
+    cfg = arch.reduced if c["reduced"] else arch.config
+    model = get_model(cfg)
+    key = jax.random.PRNGKey(c["seed"])
+    stacked = jax.tree.map(lambda *xs: jnp.stack(xs), *[
+        model.init(jax.random.fold_in(key, i)) for i in range(c["samples"])])
+    ds = make_dataset(c["requests"], hw=cfg.input_hw, seed=c["seed"] + 7)
+    probs, ent = BankPredictor(lambda p, b: model.logits(p, b),
+                               stacked=stacked).predict(
+        {"x": jnp.asarray(ds["x"][:c["maps"]])})
+    np.savez_compressed(SERVE_BMA_FILE, probs=np.asarray(probs, np.float32),
+                        entropy=np.asarray(ent, np.float32),
+                        config=np.array(json.dumps(c)))
+    print(f"wrote {SERVE_BMA_FILE}: argmax "
+          f"{np.asarray(probs).argmax(-1).tolist()}")
+
+
 if __name__ == "__main__":
     which = sys.argv[1:] or ["threefry"]
     for name in which:
         {"threefry": write_threefry,
          "seeded-rounds": write_seeded_rounds,
-         "baseline-rounds": write_baseline_rounds}[name]()
+         "baseline-rounds": write_baseline_rounds,
+         "serve-bma": write_serve_bma}[name]()
