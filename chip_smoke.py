@@ -127,8 +127,37 @@ Phases, each of which fails the run by raising:
              snapshots with --follow-snapshots (a swap mid-stream). Last,
              whether the eval and serve contracts hold with cuDNN's and
              TF32's defaults, logged.
+9. train   — the graph families and the training CLI at phase 3's
+             configuration: the reference's recorded rounds 1-2
+             (``tests/golden/topology_rounds_lenet_radar.json``) of
+             FedConfig()'s cdbfl on the ring (the roll lowering, ROADMAP
+             C14) and of cdbfl and dsgld on the geometric graph of radius
+             0.5 with link dropout 0.1 and 2 gossip pairs (7 matchings),
+             each on the host engine: bytes and each round's (M, K) masks
+             (those the engine hands the round) exact, loss and consensus
+             within rtol 1e-3, gossip_mix
+             launched, at most 6 threefry launches a round; the cdbfl
+             geometric run on the scan engine (chunks of 2) against its
+             host run bit for bit; then ``repro_torch.launch.train`` with
+             the recorded flags (--fused-compress, per-layer
+             fc1=block_topk|qsgd, a bank of 2, evals at 2 and 4), its
+             launch counts set to 0 just before and read just after: its
+             arch=, wire accounting: and topology= lines equal to the
+             reference CLI's, delta-pack, unpack, grid_quant,
+             fused_update, threefry and gossip_mix launched, and
+             ``repro_torch.launch.serve`` serving its snapshot; last, the
+             default cdbfl run on the full graph, the ring and the
+             geometric graph static and time-varying: a replayed chunk's
+             ms a round, device ms and idle, the mixer's ms a round (a
+             trace's device time and CUDA events), and
+             threefry's and gossip_mix's launches a round.
 
-Phase 2 also holds the kernels of phase 7's path to their plain versions,
+Phase 2 also holds gossip_mix, the sparse mixers' fma chain (ROADMAP
+C16), to its plain version on the card at the 10 full-width leaves under
+both of phase 9's lowerings (7 masked matchings, 2 ring shifts) and on
+edge leaves (±inf, a NaN, signed zeros; a NaN equals any NaN), and times
+one round's mix beside its bound, its plain version and one einsum of
+the realized Ω_t. It holds the kernels of phase 7's path to their plain versions,
 exactly: topk_select (the lax.top_k-order selection, with and without v),
 unpack_set (its decode) and fused_update's CF-FL and DSGLD variants, at
 the full-width leaf shapes (each leaf with its own k), at edge leaves (NaN
@@ -149,7 +178,9 @@ result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import math
 import re
@@ -171,7 +202,8 @@ sys.path.insert(1, str(ROOT / "tests"))
 
 from repro_torch import kernels, random  # noqa: E402
 from repro_torch.checkpoint import load_bank, save_bank  # noqa: E402
-from repro_torch.config import FedConfig, ServeConfig, get_arch  # noqa: E402
+from repro_torch.config import (FedConfig, ServeConfig,  # noqa: E402
+                                TopologyConfig, get_arch)
 from repro_torch.core.posterior import predictive_entropy  # noqa: E402
 from repro_torch.core.algorithms import (langevin_noise,  # noqa: E402
                                          langevin_scale, make_cdbfl_round)
@@ -187,7 +219,7 @@ from repro_torch.kernels.fused_compress import (  # noqa: E402
     grid_quant_plain)
 from repro_torch.kernels.fused_update import (  # noqa: E402
     cffl_update, cffl_update_plain, dsgld_update, dsgld_update_plain,
-    fused_update, fused_update_plain)
+    fused_update, fused_update_plain, gossip_mix, gossip_mix_plain)
 from repro_torch.kernels.pack import (from_uint16, magnitude_keys,  # noqa: E402
                                       num_blocks, pack_topk, pack_topk_plain,
                                       to_blocks, topk_candidates_plain,
@@ -201,6 +233,7 @@ from repro_torch.kernels.threefry import (BITS, MAX_TABLE_REQUESTS,  # noqa: E40
                                           NORMAL, PAIR, UNIFORM, draw,
                                           draw_plain)
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.serve import (ClassifyEngine, ServeRequest,  # noqa: E402
                                live_device_bytes)
@@ -208,9 +241,10 @@ from repro_torch.train.engine import round_indices  # noqa: E402
 from repro_torch.utils.tree import (tree_count, tree_leaves,  # noqa: E402
                                     tree_leaves_with_path, tree_map)
 from torch_golden import (BASELINE_ROUNDS_FILE, BOUNDARY_K,  # noqa: E402
-                          SEEDED_CONFIG, SEEDED_ROUNDS_FILE, SERVE_BMA_FILE,
-                          SERVE_CONFIG, THREEFRY_FILE, baseline_config,
-                          boundary_blocks, port_draw)
+                          CLI_HEADS, GEOMETRIC_TV, SEEDED_CONFIG,
+                          SEEDED_ROUNDS_FILE, SERVE_BMA_FILE, SERVE_CONFIG,
+                          THREEFRY_FILE, TOPOLOGY_ROUNDS_FILE, TOPOLOGY_RUNS,
+                          baseline_config, boundary_blocks, port_draw)
 
 DEVICE = "cuda"
 REDUCED = False                                    # full lenet-radar width
@@ -291,6 +325,11 @@ KERNELS = {
     "dsgld_update": ("src/repro_torch/kernels/csrc/fused_update.cu",
                      "none (no pl.pallas_call): jnp DSGLD update, "
                      "src/repro/core/algorithms.py:515"),
+    # the sparse gossip mixers' fma chain (ROADMAP C16): jnp in the
+    # reference, no pl.pallas_call
+    "gossip_mix": ("src/repro_torch/kernels/csrc/fused_update.cu",
+                   "none (no pl.pallas_call): jnp schedule and roll "
+                   "mixers, src/repro/core/gossip.py:158 and :80"),
 }
 # the seven kernels that replace a pl.pallas_call
 TPU_KERNELS = ("pack", "delta_pack", "unpack", "fused_update", "grid_quant",
@@ -1067,6 +1106,116 @@ def time_default_kernels(shapes):
     return out
 
 
+# phase 2, the gossip mixers' kernel (ROADMAP C16): gossip_mix
+# --------------------------------------------------------------------------
+
+def mix_terms():
+    """The two lowerings phase 9 runs at K=10, as ``(label, src, w, c0,
+    laplacian, Ω)``: the time-varying geometric graph's 7 matchings under
+    one round's masks (Laplacian form) and the ring's two shifts (roll
+    form), each with the dense Ω_t it computes, for the library call."""
+    from repro_torch.core import gossip
+    from repro_torch.core.topology import build_topology
+    tv = TopologyConfig(**GEOMETRIC_TV)
+    mix = gossip.make_mixer(build_topology(tv, K).omega, DEVICE, config=tv)
+    sched = mix.schedule
+    masks = mix.masks(random.fold_in(random.PRNGKey(0, DEVICE), 2))
+    w = torch.as_tensor(sched.weights, device=DEVICE) * masks
+    src = torch.as_tensor(sched.perms, dtype=torch.int32, device=DEVICE)
+    om = np.eye(K)
+    for perm, wm in zip(sched.perms, w.cpu().numpy()):
+        for k in range(K):
+            om[k, perm[k]] += wm[k]
+            om[k, k] -= wm[k]
+    out = [("geometric-tv", src, w, 0.0, True, om)]
+    ring = TopologyConfig(graph="ring")
+    sched = gossip.make_mixer(build_topology(ring, K).omega, DEVICE,
+                              config=ring).schedule
+    terms = gossip._roll_terms(sched, DEVICE)
+    om = np.zeros((K, K))
+    for shift, c in zip(sched.shifts, sched.coeffs):
+        for k in range(K):
+            om[k, (k + shift) % K] += c
+    out.append(("ring", terms.src, terms.w, terms.c0, False, om))
+    return out
+
+
+def same_or_both_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit, but a NaN equals any NaN: the card's arithmetic gives
+    0x7fffffff where the plain version keeps an operand's payload, and a
+    NaN's payload is not part of the contract (ROADMAP C6)."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))) and bitwise_equal(
+        torch.where(nan, 0.0, a), torch.where(nan, 0.0, b))
+
+
+def check_gossip_mix(shapes):
+    """gossip_mix against its plain version on the card, bit for bit, on the
+    10 full-width leaves (K=10) under both lowerings of phase 9, and on edge
+    leaves (signed zeros, a NaN, ±inf; n = 4099 and 1), where a NaN equals
+    any NaN."""
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    leaves = [torch.randn((K, int(np.prod(s))), generator=gen, device=DEVICE)
+              for _, s in shapes]
+    edge = torch.randn((K, 4099), generator=gen, device=DEVICE)
+    edge[:, :3] = -0.0
+    edge[1, 5], edge[2, 6], edge[3, 7] = float("nan"), float("inf"), \
+        -float("inf")
+    leaves += [edge, edge[:, :1].contiguous()]
+    err = 0.0
+    for label, src, w, c0, lap, _ in mix_terms():
+        for x in leaves:
+            got = gossip_mix(x, src, w, c0, lap)
+            want = gossip_mix_plain(x, src, w, c0, lap)
+            if not same_or_both_nan(got, want):
+                raise AssertionError(f"gossip_mix ({label}) differs from its "
+                                     f"plain version at {tuple(x.shape)}")
+            # ±inf - ±inf is NaN: the error is read off the finite outputs
+            fin = torch.isfinite(got) & torch.isfinite(want)
+            err = max(err, max_abs_err(torch.where(fin, got, 0.0),
+                                       torch.where(fin, want, 0.0)))
+        log("kernels", f"gossip_mix ({label}, {src.shape[0]} terms): "
+                       f"bit-exact to its plain version on the 10 "
+                       f"full-width leaves and the edge leaves "
+                       f"(max abs err {err:g} on the finite outputs)")
+    return {"gossip_mix": err}
+
+
+def time_gossip_mix(shapes):
+    """A round's mix of the 10 full-width leaves (K=10) on the time-varying
+    geometric graph: one gossip_mix launch a leaf (7 matchings), beside its
+    plain version, its bound and one ``torch.einsum`` of the realized Ω_t
+    over all the leaves at once (the dense lowering C14 replaced)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(10)
+    xs = [torch.randn((K, int(np.prod(s))), generator=gen, device=DEVICE)
+          for _, s in shapes]
+    _, src, w, c0, lap, om = mix_terms()[0]
+    flat = torch.cat(xs, dim=1)
+    om_t = torch.as_tensor(om, dtype=torch.float32, device=DEVICE)
+    total = flat.numel()
+    nbytes = 2 * total * 4 + src.numel() * 8
+    ops = 3 * src.shape[0] * total
+    b_ms, b_by = bound(nbytes, ops)
+    kern = lambda: [gossip_mix(x, src, w, c0, lap) for x in xs]  # noqa: E731
+    plain = lambda: [gossip_mix_plain(x, src, w, c0, lap)  # noqa: E731
+                     for x in xs]
+    lib = lambda: torch.einsum("kj,jn->kn", om_t, flat)  # noqa: E731
+    readings = traced_readings([kern])
+    r = dict(ms=device_ms(kern), plain_ms=device_ms(plain, reps=3, per_rep=2),
+             device_ms=readings and statistics.median(readings),
+             plain_device_ms=traced_ms([plain]), bound_ms=b_ms, bound_by=b_by,
+             nbytes=nbytes, ops=ops, library_ms=traced_ms([lib]))
+    log("kernels", f"gossip_mix per round (10 leaves, K={K}, 7 matchings): "
+                   f"device {fmt_ms(r['device_ms'])} (median of the traces' "
+                   f"{readings and [round(x, 4) for x in readings]}), "
+                   f"event-timed {r['ms']:.4f} ms; plain: device "
+                   f"{fmt_ms(r['plain_device_ms'])}, event-timed "
+                   f"{r['plain_ms']:.4f} ms; library (einsum of Ω_t) "
+                   f"{fmt_ms(r['library_ms'])}; bound {b_ms:.4f} ms "
+                   f"({b_by}: {nbytes:.0f} B, {ops:.0f} ops)")
+    return {"gossip_mix": r}
+
+
 # --------------------------------------------------------------------------
 # phases 3 and 4: the slice's runs, and the two-pass oracle rounds
 # --------------------------------------------------------------------------
@@ -1518,7 +1667,8 @@ TRACE_NAMES = {kname: re.compile(pattern) for kname, pattern in {
     "block_topk": r"block_topk_kernel", "threefry": r"threefry_kernel",
     "topk_select": r"topk_select_kernel", "unpack_set": r"unpack_set_kernel",
     "cffl_update": r"fused_update_\w+<1>",
-    "dsgld_update": r"fused_update_\w+<2>"}.items()}
+    "dsgld_update": r"fused_update_\w+<2>",
+    "gossip_mix": r"gossip_mix_kernel"}.items()}
 # tries at a whole trace, and the least launches of its warm-up (profiled)
 TRACE_ATTEMPTS, WARM_LAUNCHES = 4, 32
 # the traced round each kernel's in-round device time is read from
@@ -2131,6 +2281,241 @@ def run_serve(train, test, shift) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 9: the training CLI on the graph families' lowerings
+# --------------------------------------------------------------------------
+
+# the kernels the CLI run launches (per-layer fc1=block_topk|qsgd over the
+# kernel order, the rest block_topk, on the time-varying geometric graph)
+TRAIN_LAUNCHED = ("delta_pack", "unpack", "grid_quant", "fused_update",
+                  "threefry", "gossip_mix")
+# phase 9's timed graphs: overrides of the paper-default cdbfl run
+GRAPH_TIMINGS = {
+    "full": dict(topology="full"), "ring": dict(topology="ring"),
+    "geometric": dict(topology_cfg=TopologyConfig(
+        graph="geometric", radius=GEOMETRIC_TV["radius"])),
+    "geometric-tv": dict(topology_cfg=TopologyConfig(**GEOMETRIC_TV))}
+
+
+def topology_config(name: str) -> FedConfig:
+    """The FedConfig of the recorded run ``name`` (``TOPOLOGY_RUNS``)."""
+    c = TOPOLOGY_RUNS[name]
+    if (c["reduced"] != REDUCED or c["train_maps"] != K * 50
+            or c["minibatch"] != MINIBATCH):
+        raise AssertionError(f"{name}: the record ran {c}")
+    tc = c.get("topology_cfg")
+    return FedConfig(rounds=c["rounds"], **c["fed"], **(
+        {"topology_cfg": TopologyConfig(**tc)} if tc else {}))
+
+
+def record_masks(trainer) -> list:
+    """Hook the trainer's host engine so that each round's ``(M, K)`` masks
+    are kept as the round applies them: the masks among the draws the
+    engine hands ``round_fn`` (None on a static graph). Returns the list
+    they are appended to, one a round."""
+    from repro_torch.core.algorithms import _split_masks
+    eng, out = trainer._engine, []
+    inner = eng.round_fn
+
+    def hooked(state, batches, key, draws=None):
+        masks = _split_masks(inner.mixer, draws)[1]
+        out.append(None if masks is None else masks.cpu().numpy())
+        return inner(state, batches, key, draws)
+
+    hooked.draws, hooked.mixer = inner.draws, inner.mixer
+    eng.round_fn = hooked
+    return out
+
+
+def check_topology_rounds(train) -> None:
+    """Phase 9 (a) and (b). The reference's recorded runs on the ring and
+    the time-varying geometric graph on the card (host engine): bytes and
+    masks exact, loss and consensus within rtol 1e-3; then the cdbfl
+    geometric run on the scan engine (chunks of 2) against its host run,
+    bit for bit."""
+    from repro_torch.train import FedTrainer
+    cfg = get_arch("lenet-radar", reduced=REDUCED)
+    records = json.loads(TOPOLOGY_ROUNDS_FILE.read_text())
+    for name in TOPOLOGY_RUNS:
+        want = records[name]
+        if want["config"] != TOPOLOGY_RUNS[name]:
+            raise AssertionError(f"{TOPOLOGY_ROUNDS_FILE.name}: {name} ran "
+                                 f"{want['config']}")
+        n = len(want["loss"])
+        trainer = FedTrainer(get_model(cfg), topology_config(name),
+                             partition_iid(train, K), minibatch=MINIBATCH,
+                             seed=0, engine="host", device=DEVICE)
+        applied = record_masks(trainer)
+        kernels.reset_launch_counts()
+        res = trainer.run(rounds=n)
+        launches = kernels.launch_counts()
+        mixer = trainer.round_fn.mixer
+        if res.wire_history != want["wire_bytes"]:
+            raise AssertionError(f"{name}: bytes {res.wire_history}")
+        for metric, got in (("loss", res.loss_history),
+                            ("consensus", res.consensus_history)):
+            if not np.allclose(got, want[metric], rtol=1e-3, atol=0):
+                raise AssertionError(f"{name}: {metric} {got} differs from "
+                                     f"the reference's {want[metric]}")
+        masks = None
+        if want.get("masks") is not None:
+            masks = applied
+            if len(masks) != n or any(m is None for m in masks) or \
+                    [m.tolist() for m in masks] != want["masks"]:
+                raise AssertionError(f"{name}: masks differ from the "
+                                     f"reference's")
+        if mixer.mode not in ("schedule", "schedule_tv") or \
+                launches["gossip_mix"] <= 0:
+            raise AssertionError(f"{name}: mixer {mixer.mode}, gossip_mix "
+                                 f"launched {launches['gossip_mix']} times")
+        if launches["threefry"] > MAX_DRAW_LAUNCHES_A_ROUND * n:
+            raise AssertionError(f"{name}: {launches['threefry']} threefry "
+                                 f"launches in {n} rounds")
+        log("train", f"{name} ({mixer.mode}, {mixer.schedule.num_perms} "
+                     f"matchings), seed 0, rounds 1-{n} against the "
+                     f"reference's CPU run: loss {res.loss_history} vs "
+                     f"{want['loss']}, consensus {res.consensus_history} vs "
+                     f"{want['consensus']} (rtol 1e-3 held), bytes exact"
+                     + ("" if masks is None else
+                        f", masks exact (active edges a round "
+                        f"{[int(m.sum()) for m in masks]})")
+                     + f"; launches { {k: v for k, v in launches.items() if v} }")
+        del trainer
+    # (b) the scan engine against the host engine on the time-varying graph
+    fed = topology_config("cdbfl-geometric-tv")
+    runs = {}
+    for engine in ("host", "scan"):
+        trainer = FedTrainer(get_model(cfg), fed, partition_iid(train, K),
+                             minibatch=MINIBATCH, seed=0, engine=engine,
+                             chunk=2, bank_thin=1, device=DEVICE)
+        runs[engine] = (trainer, trainer.run(rounds=4))
+    (host, hres), (scan, sres) = runs["host"], runs["scan"]
+    if (sres.loss_history != hres.loss_history
+            or sres.consensus_history != hres.consensus_history
+            or sres.wire_history != hres.wire_history):
+        raise AssertionError("geometric-tv: the scan run's metrics differ "
+                             "from the host run's")
+    for part in ("params", "v", "v_bar"):
+        same_tensors(f"geometric-tv {part}",
+                     tree_leaves(getattr(scan.state, part)),
+                     tree_leaves(getattr(host.state, part)))
+    same_tensors("geometric-tv key", [scan.key], [host.key])
+    if not len(scan.bank) == len(host.bank) == 4 - BURN_IN:
+        raise AssertionError(f"geometric-tv: banks {len(scan.bank)}, "
+                             f"{len(host.bank)}")
+    for got, want in zip(scan.bank.samples, host.bank.samples):
+        same_tensors("geometric-tv bank", tree_leaves(got), tree_leaves(want))
+    log("train", f"cdbfl-geometric-tv: scan engine (chunks of 2, the masks "
+                 f"drawn and applied inside the graph) equal to the host "
+                 f"engine bit for bit over 4 rounds: params, v, v̄, key, bank "
+                 f"({len(scan.bank)} samples), losses, consensus, bytes")
+    del runs, host, scan
+    torch.cuda.empty_cache()
+
+
+def run_train_cli() -> dict:
+    """Phase 9 (c): ``repro_torch.launch.train`` with the recorded flags,
+    ``--rounds 4`` and a checkpoint directory, in-process as ``python -m``
+    runs it, its launch counts set to 0 just before and read just after;
+    its header lines against the reference CLI's, its snapshot written,
+    then ``repro_torch.launch.serve`` on that directory. Returns the
+    counts."""
+    cli = json.loads(TOPOLOGY_ROUNDS_FILE.read_text())["cli"]
+    with tempfile.TemporaryDirectory() as d:
+        argv = cli["argv"] + ["--rounds", "4", "--ckpt-dir", d]
+        log("train", "python -m repro_torch.launch.train " + " ".join(
+            f"'{a}'" if "|" in a else a for a in argv))
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(buf):
+            train_cli.main(argv)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        wall = time.perf_counter() - t0
+        lines = buf.getvalue().splitlines()
+        for ln in lines:
+            log("train", "| " + ln)
+        heads = [ln for ln in lines if ln.startswith(CLI_HEADS)]
+        if heads != cli["lines"]:
+            raise AssertionError(f"CLI header lines {heads} differ from the "
+                                 f"reference CLI's {cli['lines']}")
+        evals = [ln for ln in lines if ln.startswith("eval  round")]
+        snaps = [ln for ln in lines if ln.startswith("bank snapshot:")]
+        if len(evals) != 2 or len(snaps) != 1 or not \
+                lines[-1].startswith("saved "):
+            raise AssertionError(f"CLI output: {lines}")
+        missing = [k for k in TRAIN_LAUNCHED if launches[k] <= 0]
+        log("train", f"CLI: {wall:.1f} s in-process; header lines equal the "
+                     f"reference CLI's; launches "
+                     f"{ {k: v for k, v in launches.items() if v} }")
+        if missing:
+            raise AssertionError(f"the CLI never launched {missing}")
+        resps = serve_cli.main(["--ckpt-dir", d, "--requests", "16",
+                                "--smoke"])
+        if len(resps) != 16:
+            raise AssertionError(f"serve CLI answered {len(resps)} of 16")
+        log("train", "python -m repro_torch.launch.serve --ckpt-dir <the "
+                     "CLI's> served its snapshot (16 requests, SMOKE OK)")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def time_graphs(train) -> None:
+    """Phase 9 (d): the paper-default cdbfl run on the full graph, the
+    ring, and the geometric graph static and time-varying: a replayed
+    chunk of 2 (ms a round, device ms, idle, as phase 5 times it), the
+    mixer's ms a round (its 10 leaves: the trace's device time, and CUDA
+    events around the calls, host launches included), threefry's and
+    gossip_mix's launches a round (two host-engine rounds)."""
+    from repro_torch.train import FedTrainer
+    cfg = get_arch("lenet-radar", reduced=REDUCED)
+    log("train", f"timings on {card_line()}")
+    for name, overrides in GRAPH_TIMINGS.items():
+        fed = default_config("cdbfl", 4, **overrides)
+        host = FedTrainer(get_model(cfg), fed, partition_iid(train, K),
+                          minibatch=MINIBATCH, seed=0, engine="host",
+                          device=DEVICE)
+        kernels.reset_launch_counts()
+        host.run(rounds=2)
+        counts = kernels.launch_counts()
+        mixer = host.round_fn.mixer
+        masks = (mixer.masks(random.fold_in(host.key, 2))
+                 if mixer.masks is not None else None)
+        delta = host.state.v
+        mix_ms = device_ms(lambda: mixer(delta, masks=masks))
+        mix_dev = traced_ms([lambda: mixer(delta, masks=masks)])
+        del host
+        scan = FedTrainer(get_model(cfg), fed, partition_iid(train, K),
+                          minibatch=MINIBATCH, seed=0, engine="scan",
+                          chunk=2, bank_thin=1, device=DEVICE)
+        res = scan.run(rounds=4)
+        if not all(math.isfinite(x) for x in res.loss_history):
+            raise AssertionError(f"{name}: non-finite loss")
+        wall, busy, _, _ = time_replay(scan._engine, 4, 2)
+        log("train", f"{name} ({mixer.mode}"
+                     + (f", {mixer.schedule.num_perms} matchings"
+                        if mixer.schedule is not None else "")
+                     + f"): replayed chunk of 2 {wall:.3f} ms a round, "
+                     f"{busy:.3f} ms on the device, idle "
+                     f"{100 * (1 - busy / wall):.1f}%; mixer "
+                     f"{fmt_ms(mix_dev)} a round on the device (trace), "
+                     f"{mix_ms:.4f} ms event-timed; threefry "
+                     f"{counts['threefry'] / 2:g} and gossip_mix "
+                     f"{counts['gossip_mix'] / 2:g} launches a round")
+        del scan
+        torch.cuda.empty_cache()
+
+
+def run_train(train) -> dict:
+    """Phase 9. Returns the CLI run's launch counts."""
+    log("train", f"on {card_line()}")
+    check_topology_rounds(train)
+    launches = run_train_cli()
+    time_graphs(train)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2159,6 +2544,7 @@ def main() -> int:
     draw_err = check_draws(shapes)
     errs = check_kernels(shapes)
     errs.update(check_default_kernels(shapes))
+    errs.update(check_gossip_mix(shapes))
     timing = time_kernels(shapes)
     for kname, r in timing.items():
         log("kernels", f"{kname} per round (10 leaves, K={K}): device "
@@ -2190,6 +2576,7 @@ def main() -> int:
 
     # phase 7: the paper's default run and its baselines, then the codecs
     timing.update(time_default_kernels(shapes))
+    timing.update(time_gossip_mix(shapes))
     shift = shift_set(cfg.input_hw)
     default_launches, evals = {}, {}
     for algorithm in DEFAULT_RUNS:
@@ -2198,6 +2585,7 @@ def main() -> int:
     for name in CODEC_ROUNDS:
         run_codec_round(name, train)
     run_serve(train, test, shift)
+    train_launches = run_train(train)
     log("default", "accuracy / ECE, day-1 test maps and days-2/3 shift set: "
                    + "; ".join(f"{a}: {e['accuracy']:.4f} / {e['ece']:.4f}, "
                                f"{e['shift_accuracy']:.4f} / "
@@ -2212,7 +2600,8 @@ def main() -> int:
                     topk_select=default_launches["cdbfl"]["topk_select"],
                     unpack_set=default_launches["cdbfl"]["unpack_set"],
                     cffl_update=default_launches["cffl"]["cffl_update"],
-                    dsgld_update=default_launches["dsgld"]["dsgld_update"])
+                    dsgld_update=default_launches["dsgld"]["dsgld_update"],
+                    gossip_mix=train_launches["gossip_mix"])
     record = {"kernels": [
         {"name": kname, "route": "cuda", "source": KERNELS[kname][0],
          "replaces": KERNELS[kname][1], "launches": launches[kname],

@@ -14,6 +14,26 @@ from typing import Any, Optional, Tuple
 
 
 @dataclass(frozen=True)
+class TopologyConfig:
+    """Device graph of the D2D deployment: the family and its parameters,
+    and the two knobs that make Ω time-varying (per-round realizations
+    drawn inside the round from its key)."""
+    graph: str = "full"             # full | ring | chain | star | grid |
+    #                                 torus | k_regular | erdos_renyi | geometric
+    degree: int = 4                 # k_regular: even neighbor count
+    edge_prob: float = 0.3          # erdos_renyi: iid link probability
+    radius: float = 0.45            # geometric: radio range in the unit square
+    rule: str = "metropolis"        # metropolis | max_degree | uniform
+    seed: int = 0                   # graph-sampling seed (ER / geometric)
+    # time-varying schedule (0/0 = static graph)
+    link_failure_prob: float = 0.0  # per-round, per-link Bernoulli dropout
+    gossip_pairs: int = 0           # >0: activate only this many matchings/round
+
+    def replace(self, **kw) -> "TopologyConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     """The LeNet fields of the reference ``ModelConfig``."""
     name: str = "model"
@@ -35,11 +55,12 @@ _SUPPORTED = {
     # in its qsgd kernel and in its decode for any other s (ROADMAP C5)
     "qsgd_levels": ((1, 2, 4, 8, 16, 32, 64), "C5 (QSGD levels)"),
     "control_dtype": (("float32",), "A3 (bfloat16 control variates)"),
-    "topology": (("full", "ring"), "A4 (the other graph families)"),
+    "topology": (("full", "ring", "chain", "star", "grid", "torus",
+                  "k_regular", "erdos_renyi", "geometric"),
+                 "A4 (graph families)"),
 }
 # fields the port runs only at None, and the item that ports the rest
 _UNSET_ONLY = {
-    "topology_cfg": "A4 (TopologyConfig and the other graph families)",
     "transport": "A8 (lossy transport)",
     "participation": "A7 (barrier-free participation)",
     "continual": "A9 (drift and continual learning)",
@@ -51,8 +72,9 @@ class FedConfig:
     """The federated run's knobs (paper notation); same defaults as the
     reference ``FedConfig``."""
     num_nodes: int = 10             # K
-    topology: str = "full"          # full | ring
-    topology_cfg: Optional[Any] = None   # a TopologyConfig (A4)
+    topology: str = "full"          # a graph family of TopologyConfig
+    # full graph spec; when set it overrides the ``topology`` string
+    topology_cfg: Optional[TopologyConfig] = None
     mixing: str = "metropolis"      # metropolis | max_degree | uniform
     local_steps: int = 8            # L
     zeta: float = 0.03              # consensus mixing weight
@@ -92,10 +114,6 @@ class FedConfig:
                 raise NotImplementedError(
                     f"FedConfig.{name} is not ported yet (runs: None); "
                     f"ROADMAP {item}")
-        if self.layer_pipelines:
-            raise NotImplementedError(
-                "FedConfig.layer_pipelines is not ported yet; ROADMAP A6 "
-                "(PerLayerPipeline)")
 
 
 @dataclass(frozen=True)

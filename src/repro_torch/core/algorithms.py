@@ -17,14 +17,18 @@ QSGD uniforms from ``fold_in(kql, k)`` (:func:`draw_uniforms`). The draws
 cost three table launches of the threefry kernel (the split, the node
 keys, the leaf keys) and one for the draws themselves; ``round_fn.draws``
 is that derivation as a program, so the engine can run it beside the
-minibatch sampling's (``draws=`` then hands the result in). The
-reference's ``kmix = fold_in(key, 2)`` and its per-node ``state.key``
-stream feed only time-varying mixers and models with dropout, neither of
-which the port runs yet (ROADMAP A7), so neither is derived.
+minibatch sampling's (``draws=`` then hands the result in). The mixer is
+the reference's default, ``make_mixer(Ω, config=resolve_topology(fed_cfg))``
+(``algorithms.py:60-65``). On a time-varying graph the round also derives
+``kmix = fold_in(key, 2)``, as ``split(key, 3)[2]`` in the same launch, and
+draws the mixer's ``(M, K)`` masks from it beside the other draws
+(``round_fn.draws`` then returns ``(draws, masks)``); a static graph draws
+nothing more. The reference's per-node ``state.key`` stream feeds only
+models with dropout, which the port does not run, so it is not derived.
 
-DSGLD draws ``knoise, kmix = split(key)`` and its noise from ``knoise``
-(``kmix`` feeds no static mixer); CF-FL keys its codec by ``kq, _ =
-split(key)``, CD-BFL's codec stream, and draws nothing else. Their
+DSGLD draws ``knoise, kmix = split(key)`` and its noise from ``knoise``,
+its masks from ``kmix``; CF-FL keys its codec by ``kq, _ = split(key)``,
+CD-BFL's codec stream, and its masks by ``kmix = fold_in(key, 2)``. Their
 updates are the fused_update kernel's two variants (ROADMAP C10).
 """
 from __future__ import annotations
@@ -38,6 +42,7 @@ from repro_torch import random
 from repro_torch.core.compression import draw_uniforms
 from repro_torch.core.fed_state import FedState
 from repro_torch.core.gossip import make_mixer
+from repro_torch.core.topology import resolve_topology
 from repro_torch.kernels import ops as kops
 from repro_torch.utils.tree import (tree_count, tree_leaves,
                                     tree_leaves_with_path, tree_map,
@@ -133,6 +138,32 @@ def _compress_exchange(compressor, theta, v, uniforms):
     return compressor(residual, uniforms), float(wire), None
 
 
+def _default_mixer(omega, fed_cfg, device):
+    """The reference's default mixer (``algorithms.py:60-65``): the
+    lowering ``plan_mixer`` picks for Ω under the run's TopologyConfig."""
+    return make_mixer(omega, device, config=resolve_topology(fed_cfg))
+
+
+def _with_masks(mix, key: torch.Tensor, num: int, draw):
+    """A round's draws program: ``split(key, num)`` (one more key, ``kmix
+    = fold_in(key, num)``, when the mixer is time-varying), then
+    ``draw(keys)``'s programs and the masks side by side. Returns the
+    draws, or ``(draws, masks)`` on a time-varying graph."""
+    tv = mix.masks is not None
+    keys = yield from random.split.program(key, num + tv)
+    progs = draw(keys)
+    got = yield from random.together(*progs, *(
+        [mix.masks.program(keys[num])] if tv else []))
+    base = tuple(got[:len(progs)]) if len(progs) > 1 else got[0]
+    return (base, got[-1]) if tv else base
+
+
+def _split_masks(mix, draws):
+    """``(draws, masks)`` of a round's draws (masks None on a static
+    graph)."""
+    return draws if mix.masks is not None else (draws, None)
+
+
 def make_cdbfl_round(nll_fn, fed_cfg, omega, compressor, data_scale: float = 1.0,
                      device="cuda"):
     """One round = L local SGD steps per node (Eq. 5), compressed residual
@@ -141,23 +172,24 @@ def make_cdbfl_round(nll_fn, fed_cfg, omega, compressor, data_scale: float = 1.0
     kernel)."""
     eta, zeta = fed_cfg.eta, fed_cfg.zeta
     num_nodes = fed_cfg.num_nodes
-    mix = make_mixer(omega, device)
+    mix = _default_mixer(omega, fed_cfg, device)
     prior_weight = 1.0 / num_nodes
 
     @random.program
     def draws(key: torch.Tensor, params):
         """``(noise, uniforms)`` of the round keyed ``key``: ``kql, knoise
-        = split(key)``, then the noise and the uniforms side by side."""
-        kql, knoise = yield from random.split.program(key)
-        return tuple((yield from random.together(
-            langevin_noise.program(knoise, params, eta, fed_cfg.temperature),
-            draw_uniforms.program(compressor, kql, params))))
+        = split(key)``, then the noise and the uniforms side by side (and
+        the masks from ``kmix``)."""
+        return (yield from _with_masks(mix, key, 2, lambda k: (
+            langevin_noise.program(k[1], params, eta, fed_cfg.temperature),
+            draw_uniforms.program(compressor, k[0], params))))
 
     def round_fn(state: FedState, batches, key: torch.Tensor, draws=None):
         """One round keyed ``key``; ``draws``, when given, is
         ``round_fn.draws(key, state.params)`` drawn already."""
-        noise, uniforms = draws if draws is not None else \
-            round_fn.draws(key, state.params)
+        (noise, uniforms), masks = _split_masks(
+            mix, draws if draws is not None else
+            round_fn.draws(key, state.params))
         # Eq. 5
         theta_l, losses = _local_sgd(nll_fn, state.params, batches, eta,
                                      prior_weight, data_scale,
@@ -168,7 +200,7 @@ def make_cdbfl_round(nll_fn, fed_cfg, omega, compressor, data_scale: float = 1.0
         # Eqs. 7-8, control sequences stored in control_dtype
         v_new = tree_map(lambda v, d: v + d.to(v.dtype), state.v, delta)
         v_bar_new = tree_map(lambda vb, m: vb + m.to(vb.dtype), state.v_bar,
-                             mix(delta))
+                             mix(delta, masks=masks))
         # Eq. 9, noise pre-scaled: s = 1
         params_new = tree_map(
             lambda t, vb, v, n: kops.leaf_fused_update(t, vb, v, n, zeta, 1.0),
@@ -183,7 +215,7 @@ def make_cdbfl_round(nll_fn, fed_cfg, omega, compressor, data_scale: float = 1.0
         return state._replace(params=params_new, v=v_new, v_bar=v_bar_new,
                               round=state.round + 1), metrics
 
-    round_fn.draws = draws
+    round_fn.draws, round_fn.mixer = draws, mix
     return round_fn
 
 
@@ -194,26 +226,30 @@ def make_dsgld_round(nll_fn, fed_cfg, omega, data_scale: float = 1.0,
     exchanged uncompressed (the dsgld_update kernel)."""
     eta = fed_cfg.eta
     num_nodes = fed_cfg.num_nodes
-    mix = make_mixer(omega, device)
+    mix = _default_mixer(omega, fed_cfg, device)
     prior_weight = 1.0 / num_nodes
 
     @random.program
     def draws(key: torch.Tensor, params):
         """The noise of the round keyed ``key``: ``knoise, kmix =
-        split(key)``."""
-        knoise, _ = yield from random.split.program(key)
-        return (yield from langevin_noise.program(knoise, params, eta,
-                                                  fed_cfg.temperature))
+        split(key)`` (the masks from ``kmix``)."""
+        knoise, kmix = yield from random.split.program(key)
+        tv = mix.masks is not None
+        got = yield from random.together(
+            langevin_noise.program(knoise, params, eta, fed_cfg.temperature),
+            *([mix.masks.program(kmix)] if tv else []))
+        return tuple(got) if tv else got[0]
 
     def round_fn(state: FedState, batches, key: torch.Tensor, draws=None):
-        noise = draws if draws is not None else round_fn.draws(key,
-                                                               state.params)
+        noise, masks = _split_masks(
+            mix, draws if draws is not None else
+            round_fn.draws(key, state.params))
         paths = [p for p, _ in tree_leaves_with_path(state.params)]
         batch0 = {f: v[:, 0] for f, v in batches.items()}
         losses, grads = _value_and_grad(nll_fn, paths,
                                         tree_leaves(state.params), batch0,
                                         prior_weight, data_scale)
-        mixed = mix(state.params)
+        mixed = mix(state.params, masks=masks)
         params_new = tree_map(
             lambda m, g, n: kops.leaf_dsgld_update(m, g, n, eta), mixed,
             tree_unflatten(paths, list(grads)), noise)
@@ -227,7 +263,7 @@ def make_dsgld_round(nll_fn, fed_cfg, omega, data_scale: float = 1.0,
         return state._replace(params=params_new,
                               round=state.round + 1), metrics
 
-    round_fn.draws = draws
+    round_fn.draws, round_fn.mixer = draws, mix
     return round_fn
 
 
@@ -238,25 +274,27 @@ def make_cffl_round(nll_fn, fed_cfg, omega, compressor,
     kernel)."""
     eta, zeta = fed_cfg.eta, fed_cfg.zeta
     num_nodes = fed_cfg.num_nodes
-    mix = make_mixer(omega, device)
+    mix = _default_mixer(omega, fed_cfg, device)
 
     @random.program
     def draws(key: torch.Tensor, params):
         """The codec's draws of the round keyed ``key``: ``kq, _ =
-        split(key)``, CD-BFL's codec stream."""
-        kq, _ = yield from random.split.program(key)
-        return (yield from draw_uniforms.program(compressor, kq, params))
+        split(key)``, CD-BFL's codec stream (the masks from ``kmix =
+        fold_in(key, 2)``)."""
+        return (yield from _with_masks(mix, key, 2, lambda k: (
+            draw_uniforms.program(compressor, k[0], params),)))
 
     def round_fn(state: FedState, batches, key: torch.Tensor, draws=None):
-        uniforms = draws if draws is not None else round_fn.draws(
-            key, state.params)
+        uniforms, masks = _split_masks(
+            mix, draws if draws is not None else
+            round_fn.draws(key, state.params))
         theta_l, losses = _local_sgd(nll_fn, state.params, batches, eta, 0.0,
                                      data_scale, fed_cfg.local_steps)
         delta, wire, payload = _compress_exchange(compressor, theta_l,
                                                   state.v, uniforms)
         v_new = tree_map(lambda v, d: v + d.to(v.dtype), state.v, delta)
         v_bar_new = tree_map(lambda vb, m: vb + m.to(vb.dtype), state.v_bar,
-                             mix(delta))
+                             mix(delta, masks=masks))
         params_new = tree_map(
             lambda t, vb, v: kops.leaf_cffl_update(t, vb, v, zeta), theta_l,
             v_bar_new, v_new)
@@ -270,7 +308,7 @@ def make_cffl_round(nll_fn, fed_cfg, omega, compressor,
         return state._replace(params=params_new, v=v_new, v_bar=v_bar_new,
                               round=state.round + 1), metrics
 
-    round_fn.draws = draws
+    round_fn.draws, round_fn.mixer = draws, mix
     return round_fn
 
 

@@ -6,8 +6,9 @@ Counterpart of ``repro/core/compression.py``: the six codec stages
 ``"stage|stage"`` DSL (:func:`parse_pipeline`), the materialized
 :class:`WirePayload`, the compress-in-update lowering :class:`FusedCodec`,
 and the legacy dense :class:`Compressor` under every name the reference
-gives it. ``FedConfig.layer_pipelines`` (``PerLayerPipeline``) and the
-``encode_hbm_bytes`` ledger are ROADMAP A6.
+gives it, and ``FedConfig.layer_pipelines`` (:class:`PerLayerPipeline`,
+routing each leaf by its path). The ``encode_hbm_bytes`` ledger is ROADMAP
+A6.
 
 :class:`BlockTopKCodec` has the reference's two survivor orders. The
 default, ``use_pallas=False``, is ``lax.top_k``'s (ROADMAP C9): each block's
@@ -151,6 +152,17 @@ class _Codec:
         ``shape`` (one node's), or None."""
         return None
 
+    # the reference's closed-form byte table (``compression.py:331-338``),
+    # the cross-check of the measured bytes
+    def out_size(self, n: int) -> int:
+        return n
+
+    def sidecar_formula_bytes(self, n: int) -> int:
+        return 0
+
+    def carrier_formula_bytes(self, n: int, elem_bytes: int = 4) -> int:
+        return self.out_size(n) * elem_bytes
+
 
 @dataclass(frozen=True)
 class IdentityCodec(_Codec):
@@ -180,6 +192,14 @@ class TopKCodec(_Codec):
         n = int(np.prod(shape))
         k = _survivors(self.ratio, n)
         return tuple(shape) if k >= n else (k,)
+
+    def out_size(self, n):
+        return min(_survivors(self.ratio, n), n)
+
+    def sidecar_formula_bytes(self, n):
+        if self.out_size(n) >= n:
+            return 0
+        return self.out_size(n) * (2 if n <= UINT16_MAX else 4)
 
     def encode(self, x, u=None):
         return self.encode_leaves([x], [None])[0]
@@ -263,6 +283,16 @@ class BlockTopKCodec(_Codec):
         if self._global(n):
             return TopKCodec(ratio=self.ratio).out_shape(shape)
         return (kops.num_blocks(n, self.block_size), self._k())
+
+    def out_size(self, n):
+        if self._global(n):
+            return TopKCodec(ratio=self.ratio).out_size(n)
+        return kops.num_blocks(n, self.block_size) * self._k()
+
+    def sidecar_formula_bytes(self, n):
+        if self._global(n):
+            return TopKCodec(ratio=self.ratio).sidecar_formula_bytes(n)
+        return self.out_size(n) * 2     # uint16 block-local indices
 
     def _meta(self, x, vals) -> _SparseMeta:
         shape = _node_shape(x)
@@ -382,6 +412,12 @@ class RandKCodec(_Codec):
         n = int(np.prod(shape))
         return (n,) if _survivors(self.ratio, n) < n else None
 
+    def out_size(self, n):
+        return min(_survivors(self.ratio, n), n)
+
+    def sidecar_formula_bytes(self, n):
+        return 0 if self.out_size(n) >= n else 8    # the key
+
     def encode(self, x, u=None):
         shape = _node_shape(x)
         n = int(np.prod(shape))
@@ -434,6 +470,13 @@ class QSGDCodec(_Codec):
 
     def draw_shape(self, shape):
         return tuple(shape)
+
+    def sidecar_formula_bytes(self, n):
+        return 4                        # the f32 norm
+
+    def carrier_formula_bytes(self, n, elem_bytes: int = 4):
+        bits = max(1, int(np.ceil(np.log2(self.levels + 1))) + 1)
+        return -(-n * bits // 8)
 
     def _meta(self, x) -> _QuantMeta:
         shape = _node_shape(x)
@@ -501,6 +544,12 @@ class SignCodec(_Codec):
     def out_shape(self, shape):
         return (-(-int(np.prod(shape)) // 8),)
 
+    def sidecar_formula_bytes(self, n):
+        return 4 + -(-n // 8)           # scale + nonzero plane
+
+    def carrier_formula_bytes(self, n, elem_bytes: int = 4):
+        return -(-n // 8)               # sign plane
+
     def encode(self, x, u=None):
         flat = x.reshape(x.shape[0], -1)
         shape = _node_shape(x)
@@ -544,6 +593,27 @@ class LeafSpec(NamedTuple):
     dtype: str
     passthrough: bool                 # min_dense_size leaves ride dense
     metas: Tuple[Any, ...] = ()
+    stages: Tuple[Any, ...] = ()      # the leaf's own stages when a
+    #                                   PerLayerPipeline routed it; ()
+    #                                   -> the payload's
+
+
+def keystr(path: str) -> str:
+    """``jax.tree_util.keystr`` of a dotted path of dict keys, the form the
+    reference's layer rules match: ``"fc1.w"`` -> ``"['fc1']['w']"``."""
+    return "".join(f"[{p!r}]" for p in path.split("."))
+
+
+def _grouped(items, stage_of):
+    """``[(stage, [i, ...]), ...]``: the indices of ``items`` grouped by
+    ``stage_of(i)`` (equal stages together, in first-seen order), the
+    ``None`` ones left out."""
+    groups: Dict[Any, List[int]] = {}
+    for i in items:
+        stage = stage_of(i)
+        if stage is not None:
+            groups.setdefault(stage, []).append(i)
+    return list(groups.items())
 
 
 def _buffer_bytes(buf) -> int:
@@ -561,6 +631,11 @@ class WirePayload:
         self.paths = tuple(paths)
         self.specs = tuple(specs)
         self.stages = tuple(stages)
+
+    def leaf_stages(self, i: int) -> Tuple[Any, ...]:
+        """The stages that encoded leaf ``i``: its own when a
+        :class:`PerLayerPipeline` routed it, else the payload's."""
+        return self.specs[i].stages or self.stages
 
     def per_leaf_bytes(self) -> List[int]:
         out = []
@@ -580,23 +655,32 @@ class WirePayload:
 class CompressionPipeline:
     """Chainable codec stages with a materialized wire format. Encode is
     stage-major: each stage encodes every leaf's carrier at once (one
-    table launch where it has a kernel), stage 0 from ``θ`` and ``v``."""
+    table launch where it has a kernel), stage 0 from ``θ`` and ``v``.
+    Under a :class:`PerLayerPipeline` leaves may take different stages:
+    stage ``s`` then encodes, in one table launch, the leaves whose stage
+    ``s`` is the same codec."""
 
     stages: Tuple[Any, ...] = (BlockTopKCodec(),)
     min_dense_size: int = 0
 
+    def leaf_stages(self, path: str) -> Tuple[Any, ...]:
+        """The stages of the leaf at the dotted ``path``."""
+        return self.stages
+
     def draw_sites(self, tree):
         """``{site: (path, stage, (K, *draw shape), keyed)}`` of every draw
         the encode of the node-stacked ``tree`` takes, in leaf order; a site
-        is the path, or ``(path, stage)`` when more than one stage draws;
-        ``keyed``: the stage takes its key with its draws (rand-k)."""
-        many = sum(s.stochastic for s in self.stages) > 1
+        is the path, or ``(path, stage)`` when more than one of the leaf's
+        stages draws; ``keyed``: the stage takes its key with its draws
+        (rand-k)."""
         out = {}
         for path, x in tree_leaves_with_path(tree):
             if _rides_dense(x, self.min_dense_size):
                 continue
+            stages = self.leaf_stages(path)
+            many = sum(s.stochastic for s in stages) > 1
             shape = _node_shape(x)
-            for s, stage in enumerate(self.stages):
+            for s, stage in enumerate(stages):
                 drawn = stage.draw_shape(shape)
                 if drawn is not None:
                     out[(path, s) if many else path] = (
@@ -616,28 +700,34 @@ class CompressionPipeline:
         return {s: _uniforms_for(uniforms, site)
                 for site, (p, s, _, _) in sites.items() if p == path}
 
-    def _encode_leaf(self, x, v, draws):
+    def _encode_leaf(self, stages, x, v, draws):
         """The two-pass encode of one leaf: the residual materialized, each
         stage's own ``encode``."""
         carrier = x if v is None else x - v.to(x.dtype)
         auxes, metas = [], []
-        for s, stage in enumerate(self.stages):
+        for s, stage in enumerate(stages):
             carrier, aux, meta = stage.encode(carrier, draws.get(s))
             auxes.append(aux)
             metas.append(meta)
         return carrier, tuple(auxes), tuple(metas)
 
-    def _encode_leaves(self, xs, vs, draws):
+    def _encode_leaves(self, stage_lists, xs, vs, draws):
         """``(carrier, auxes, metas)`` of every compressed leaf, in order,
-        stage-major."""
+        stage-major: stage ``s`` encodes each group of leaves that share it
+        at once."""
         items = [(x, (), ()) for x in xs]
-        for s, stage in enumerate(self.stages):
-            got = stage.encode_leaves([c for c, _, _ in items],
-                                      [d.get(s) for d in draws],
-                                      vs if s == 0 and vs[0] is not None
-                                      else None)
-            items = [(c, auxes + (aux,), metas + (meta,))
-                     for (_, auxes, metas), (c, aux, meta) in zip(items, got)]
+        depth = max(len(st) for st in stage_lists)
+        for s in range(depth):
+            for stage, group in _grouped(range(len(xs)), lambda i: (
+                    stage_lists[i][s] if s < len(stage_lists[i]) else None)):
+                got = stage.encode_leaves(
+                    [items[i][0] for i in group], [draws[i].get(s)
+                                                   for i in group],
+                    [vs[i] for i in group] if s == 0 and vs[0] is not None
+                    else None)
+                for i, (c, aux, meta) in zip(group, got):
+                    _, auxes, metas = items[i]
+                    items[i] = (c, auxes + (aux,), metas + (meta,))
         return items
 
     def _encode_impl(self, tree, vtree, uniforms) -> WirePayload:
@@ -647,8 +737,10 @@ class CompressionPipeline:
         sites = self.draw_sites(tree)
         packed = [i for i, (_, x) in enumerate(leaves)
                   if not _rides_dense(x, self.min_dense_size)]
+        stage_lists = {i: self.leaf_stages(leaves[i][0]) for i in packed}
         encoded = dict(zip(packed, self._encode_leaves(
-            [leaves[i][1] for i in packed], [vleaves[i] for i in packed],
+            [stage_lists[i] for i in packed], [leaves[i][1] for i in packed],
+            [vleaves[i] for i in packed],
             [self._leaf_draws(sites, uniforms, leaves[i][0])
              for i in packed]) if packed else []))
         entries, specs = [], []
@@ -662,7 +754,9 @@ class CompressionPipeline:
                 continue
             carrier, auxes, metas = encoded[i]
             entries.append(LeafPayload(wire=carrier, aux=auxes))
-            specs.append(LeafSpec(shape, dtype, False, metas))
+            own = stage_lists[i]
+            specs.append(LeafSpec(shape, dtype, False, metas,
+                                  () if own is self.stages else tuple(own)))
         return WirePayload(entries, [p for p, _ in leaves], specs, self.stages)
 
     def encode(self, tree, uniforms=None) -> WirePayload:
@@ -674,17 +768,22 @@ class CompressionPipeline:
 
     def decode(self, payload: WirePayload):
         """Stage-major: the last stage decodes every compressed leaf, then
-        the stage before it, so one decode launch a stage covers them all;
-        passthrough leaves are kept."""
+        the stage before it, so one decode launch a stage (and a group of
+        leaves that share it) covers them all; passthrough leaves are
+        kept."""
         leaves = [entry.wire for entry in payload.entries]
         packed = [i for i, spec in enumerate(payload.specs)
                   if not spec.passthrough]
-        for s in reversed(range(len(payload.stages))):
-            decoded = payload.stages[s].decode_leaves(
-                [(leaves[i], payload.entries[i].aux[s],
-                  payload.specs[i].metas[s]) for i in packed])
-            for i, leaf in zip(packed, decoded):
-                leaves[i] = leaf
+        stage_lists = {i: payload.leaf_stages(i) for i in packed}
+        depth = max((len(st) for st in stage_lists.values()), default=0)
+        for s in reversed(range(depth)):
+            for stage, group in _grouped(packed, lambda i: (
+                    stage_lists[i][s] if s < len(stage_lists[i]) else None)):
+                decoded = stage.decode_leaves(
+                    [(leaves[i], payload.entries[i].aux[s],
+                      payload.specs[i].metas[s]) for i in group])
+                for i, leaf in zip(group, decoded):
+                    leaves[i] = leaf
         return tree_unflatten(list(payload.paths), leaves)
 
     def wire_bytes(self, tree) -> int:
@@ -699,6 +798,24 @@ class CompressionPipeline:
             draws[site] = (torch.empty((shape[0], 2), dtype=torch.int64,
                                        device="meta"), u) if keyed else u
         return self.encode(specs, draws).measured_bytes()
+
+    def formula_bytes(self, tree, elem_bytes: int = 4) -> int:
+        """The reference's closed-form byte table (``compression.py:
+        813-829``), the cross-check of :meth:`wire_bytes`: each stage's
+        sidecars plus the last stage's carrier."""
+        total = 0
+        for path, x in tree_leaves_with_path(tree):
+            n = int(np.prod(tuple(x.shape)))
+            if self.min_dense_size and n <= self.min_dense_size:
+                total += n * elem_bytes
+                continue
+            carrier_bytes = n * elem_bytes
+            for stage in self.leaf_stages(path):
+                total += stage.sidecar_formula_bytes(n)
+                carrier_bytes = stage.carrier_formula_bytes(n, elem_bytes)
+                n = stage.out_size(n)
+            total += carrier_bytes
+        return total
 
 
 def _lower_stage0(stages):
@@ -734,10 +851,53 @@ class FusedCodec(CompressionPipeline):
         return cls(stages=_lower_stage0(pipeline.stages),
                    min_dense_size=pipeline.min_dense_size, fused=fused)
 
-    def _encode_leaves(self, xs, vs, draws):
+    def _encode_leaves(self, stage_lists, xs, vs, draws):
         if self.fused:
-            return super()._encode_leaves(xs, vs, draws)
-        return [self._encode_leaf(x, v, d) for x, v, d in zip(xs, vs, draws)]
+            return super()._encode_leaves(stage_lists, xs, vs, draws)
+        return [self._encode_leaf(st, x, v, d)
+                for st, x, v, d in zip(stage_lists, xs, vs, draws)]
+
+
+@dataclass(frozen=True)
+class PerLayerPipeline(CompressionPipeline):
+    """Per-layer pipelines (``FedConfig.layer_pipelines``,
+    ``compression.py:917-939``): ``rules`` is an ordered tuple of
+    ``(pattern, pipeline)``; the first pattern that is a substring of the
+    leaf's path in ``jax.tree_util.keystr`` form (``['fc1']['w']``, so a
+    pattern like ``1']['w`` routes the same leaves in both packages)
+    routes the leaf through that pipeline's stages; ``"*"`` or ``""``
+    matches everything; an unmatched leaf takes the base ``stages``. Each
+    leaf's stages are recorded in its :class:`LeafSpec`, so decode reads
+    them from the payload. Under ``fused_compress`` :func:`make_compressor`
+    lowers the base's and each rule's leading block-top-k to the kernel
+    order (``stages[0].use_pallas``), and stage 0 encodes from ``θ`` and
+    ``v`` in the delta-pack launch; either way the leaves encode
+    stage-major, as the plain pipeline's do."""
+
+    rules: Tuple[Tuple[str, CompressionPipeline], ...] = ()
+
+    def leaf_stages(self, path: str) -> Tuple[Any, ...]:
+        path_str = keystr(path)
+        for pat, pipe in self.rules:
+            if pat in ("*", "") or pat in path_str:
+                return pipe.stages
+        return self.stages
+
+
+def parse_layer_rules(spec: str) -> Tuple[Tuple[str, str], ...]:
+    """The ``"pattern=pipeline;pattern=pipeline"`` CLI DSL
+    (``compression.py:942-954``) as ``(pattern, spec)`` pairs."""
+    rules = []
+    for part in spec.split(";"):
+        part = part.strip()
+        if not part:
+            continue
+        pat, eq, sub = part.partition("=")
+        if not eq or not sub.strip():
+            raise ValueError(
+                f"layer rule {part!r} is not 'pattern=pipeline'")
+        rules.append((pat.strip(), sub.strip()))
+    return tuple(rules)
 
 
 _CODEC_FACTORIES = {
@@ -933,11 +1093,21 @@ def make_compressor(fed_cfg):
                           block_size=fed_cfg.block_size,
                           qsgd_levels=fed_cfg.qsgd_levels,
                           min_dense_size=fed_cfg.min_dense_size)
-    base = parse_pipeline(fed_cfg.pipeline or fed_cfg.compressor,
-                          ratio=fed_cfg.compress_ratio,
-                          block_size=fed_cfg.block_size,
-                          qsgd_levels=fed_cfg.qsgd_levels,
-                          min_dense_size=fed_cfg.min_dense_size)
-    if fed_cfg.fused_compress:
+    kw = dict(ratio=fed_cfg.compress_ratio, block_size=fed_cfg.block_size,
+              qsgd_levels=fed_cfg.qsgd_levels,
+              min_dense_size=fed_cfg.min_dense_size)
+    base = parse_pipeline(fed_cfg.pipeline or fed_cfg.compressor, **kw)
+    fused = bool(fed_cfg.fused_compress)
+    if fed_cfg.layer_pipelines:
+        rules = tuple((pat, parse_pipeline(sub, **kw))
+                      for pat, sub in fed_cfg.layer_pipelines)
+        if fused:
+            rules = tuple((pat, replace(p, stages=_lower_stage0(p.stages)))
+                          for pat, p in rules)
+        return PerLayerPipeline(stages=_lower_stage0(base.stages) if fused
+                                else base.stages,
+                                min_dense_size=base.min_dense_size,
+                                rules=rules)
+    if fused:
         return FusedCodec.wrap(base, fused=True)
     return base

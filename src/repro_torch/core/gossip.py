@@ -1,17 +1,38 @@
-"""Gossip: Ω-mixing over the node axis (Eq. 8's neighbor aggregate).
+"""Gossip communicators: how Ω-mixing executes (``repro/core/gossip.py``).
 
-Counterpart of ``repro/core/gossip.py:dense_mix`` and a static
-``make_mixer``. Static graphs only: no link dropout, no gossip pairs, no
-participation masks (ROADMAP A7).
+* :func:`dense_mix` — ``einsum`` with the full Ω, the oracle for any graph.
+* :func:`schedule_mix` — a :class:`~repro_torch.core.topology.MixSchedule`:
+  ``Ω x = x + Σ_m w_m ⊙ (x[perm_m] − x)`` over the graph's edge matchings;
+  a circulant Ω (ring, k-regular) takes the roll path ``Σ_s c_s·roll(x,
+  −s)``. With per-round ``(M, K)`` masks the schedule is time-varying: link
+  dropout and gossip-pair sampling, still symmetric doubly stochastic per
+  realization.
+* :func:`make_mixer` — the lowering :func:`plan_mixer` picks for Ω, as the
+  reference's ``make_mixer`` runs it: identity, dense, roll or schedule.
+
+Both sparse paths run the gossip_mix kernel a leaf (its plain version on
+the CPU): XLA's CPU code contracts each matching's ``out + w·(x[perm] −
+x)`` and each shift's ``+ c·roll(x, −s)`` into an fma (ROADMAP C16), so
+the port's chain of single-rounding fmas is bit-exact to the jitted
+reference mixer. The masks are drawn as a :func:`random.program`
+(:func:`matching_masks`), so a round draws them beside its other draws and
+they never leave the device. The reference's ``link_probs`` (the
+transport's SNR outage model) is ROADMAP A8; participation masks
+(``node_mask``) and the shard mixers are A7 and A10.
 """
 from __future__ import annotations
 
-from typing import Callable
+import inspect
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.utils.tree import tree_map
+from repro_torch import random
+from repro_torch.config import TopologyConfig
+from repro_torch.core.topology import MixSchedule, build_schedule
+from repro_torch.kernels.fused_update import fma_f32, gossip_mix
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 def dense_mix(omega: torch.Tensor, tree):
@@ -21,9 +42,276 @@ def dense_mix(omega: torch.Tensor, tree):
         tree)
 
 
-def make_mixer(omega: np.ndarray, device) -> Callable:
-    """mix(tree) -> tree for the static Ω (identity for one node)."""
-    if omega.shape[0] == 1:
-        return lambda tree: tree
-    om = torch.as_tensor(np.asarray(omega, np.float32), device=device)
-    return lambda tree: dense_mix(om, tree)
+class _Terms:
+    """A lowering's ``(M, K)`` source rows and weights on the device: the
+    matchings' perms and weights (Laplacian form), or the shifts' rows
+    ``(k + s) mod K`` and coefficients after the shift-0 one (roll form)."""
+
+    def __init__(self, src: np.ndarray, w: np.ndarray, device,
+                 laplacian: bool, c0: float = 0.0):
+        self.src = torch.as_tensor(np.asarray(src, np.int32), device=device)
+        self.w = torch.as_tensor(np.asarray(w, np.float32), device=device)
+        self.laplacian = laplacian
+        self.c0 = c0
+
+    def mix(self, tree, w: Optional[torch.Tensor] = None):
+        w = self.w if w is None else w
+        return tree_map(lambda d: gossip_mix(
+            d.float().contiguous(), self.src, w, self.c0,
+            self.laplacian).to(d.dtype), tree)
+
+
+def _roll_terms(schedule: MixSchedule, device) -> _Terms:
+    """``_roll_mix``'s ``Σ_s c_s·roll(x, −s)``: row k of ``roll(x, −s)`` is
+    row ``(k + s) mod K`` of x."""
+    k = schedule.k
+    rows = np.arange(k)
+    pairs = [(s, c) for s, c in zip(schedule.shifts, schedule.coeffs)
+             if s != 0]
+    c0 = dict(zip(schedule.shifts, schedule.coeffs)).get(0, 0.0)
+    src = np.array([(rows + s) % k for s, _ in pairs]).reshape(-1, k)
+    w = np.array([np.full(k, c, np.float32) for _, c in pairs]).reshape(-1, k)
+    return _Terms(src, w, device, laplacian=False, c0=c0)
+
+
+def ring_mix(omega: np.ndarray, tree):
+    """The circulant ring by rolls (the reference's back-compat alias):
+    ``ω₀₀·x + ω₀₁·(roll(x, 1) + roll(x, −1))``, which XLA contracts into
+    ``fma(ω₀₀, x, ω₀₁·(roll(x, 1) + roll(x, −1)))`` (the first product,
+    where ``_roll_mix``'s sums fuse the later ones: ROADMAP C16); dense
+    below K = 3, on the leaves' device. Not on the port's main path, and
+    CPU leaves only from K = 3 on: no kernel computes this contraction, so
+    a card's leaves raise, naming :func:`make_mixer`, whose roll path runs
+    the gossip_mix kernel."""
+    k = omega.shape[0]
+    leaves = tree_leaves(tree)
+    if k < 3:
+        device = leaves[0].device if leaves else "cpu"
+        return dense_mix(torch.as_tensor(np.asarray(omega, np.float32),
+                                         device=device), tree)
+    if any(d.device.type != "cpu" for d in leaves):
+        raise ValueError("ring_mix runs on CPU leaves only; on the card "
+                         "mix a ring with make_mixer(omega, device, "
+                         "config=TopologyConfig(graph='ring')), whose roll "
+                         "path runs the gossip_mix kernel")
+    w_self, w_side = float(np.float32(omega[0, 0])), \
+        float(np.float32(omega[0, 1]))
+
+    def leaf(d):
+        x = d.float()
+        return fma_f32(w_self, x, w_side * (torch.roll(x, 1, 0)
+                                            + torch.roll(x, -1, 0))
+                       ).to(d.dtype)
+    return tree_map(leaf, tree)
+
+
+def _p_active(link_failure_prob) -> bool:
+    """Does this dropout probability ever fire (a host-side check)?"""
+    return bool(np.any(np.asarray(link_failure_prob, np.float64) > 0.0))
+
+
+class _MaskPlan:
+    """The device tensors of a schedule's mask draws: the perms and the
+    dropout probability, made once, so a captured round copies nothing to
+    the device."""
+
+    def __init__(self, schedule: MixSchedule, link_failure_prob,
+                 gossip_pairs: int, device):
+        self.m, self.k = schedule.perms.shape
+        self.drop = _p_active(link_failure_prob)
+        self.pairs = int(gossip_pairs)
+        self.sample = 0 < self.pairs < self.m
+        self.perms = torch.as_tensor(schedule.perms, dtype=torch.int64,
+                                     device=device)
+        self.p = torch.as_tensor(np.asarray(link_failure_prob, np.float32),
+                                 device=device)
+
+    @random.program
+    def masks(self, key: torch.Tensor):
+        """``_matching_masks`` (``gossip.py:121-155``): the round's ``(M,
+        K)`` f32 activation mask, symmetric per edge, from ``key`` (the
+        round's ``kmix``). ``kdrop, kpair = split(key)``; link dropout keeps
+        edge (i, j) of matching m when ``mod(u_i + u_j, 1) >= p``, ``u =
+        uniform(kdrop, (M, K))``; gossip-pair sampling keeps the
+        ``gossip_pairs`` matchings ``choice(kpair, M, (pairs,),
+        replace=False)``. Exact: the coin's sum of two f32 uniforms below 2
+        and its ``fmod`` by 1 round the same way on both sides."""
+        pair = yield from random.split.program(key)
+        kdrop, kpair = pair[0], pair[1]
+        progs = []
+        if self.drop:
+            progs.append(random.uniform.program(kdrop, (self.m, self.k)))
+        if self.sample:
+            progs.append(random.choice.program(kpair, self.m, (self.pairs,),
+                                               replace=False))
+        got = list((yield from random.together(*progs)))
+        mask = torch.ones((self.m, self.k), dtype=torch.float32,
+                          device=key.device)
+        if self.drop:
+            u = got.pop(0)
+            coin = torch.fmod(u + torch.gather(u, 1, self.perms), 1.0)
+            mask = mask * (coin >= self.p).float()
+        if self.sample:
+            sel = torch.zeros((self.m,), dtype=torch.float32,
+                              device=key.device)
+            mask = mask * sel.index_fill(0, got.pop(0), 1.0)[:, None]
+        return mask
+
+
+def matching_masks(schedule: MixSchedule, key: torch.Tensor,
+                   link_failure_prob, gossip_pairs: int) -> torch.Tensor:
+    """The reference's ``_matching_masks(schedule, key, p, pairs)``: the
+    ``(M, K)`` mask of one round (see :meth:`_MaskPlan.masks`)."""
+    return _MaskPlan(schedule, link_failure_prob, gossip_pairs,
+                     key.device).masks(key)
+
+
+def schedule_mix(schedule: MixSchedule, tree, key=None, *,
+                 link_failure_prob=0.0, gossip_pairs: int = 0,
+                 node_mask=None):
+    """Sparse Ω-mixing as a sum of matching permutations (Laplacian form),
+    ``x + Σ_m mask_m·w_m·(x[perm_m] − x)``; without a key (or with both
+    knobs at 0) exactly Ω x, by rolls when Ω is circulant. Builds its
+    device tensors on every call: :func:`make_mixer` builds them once."""
+    if node_mask is not None:
+        raise NotImplementedError("participation masks are not ported yet; "
+                                  "ROADMAP A7 (ParticipationSchedule)")
+    m = schedule.num_perms
+    if m == 0:
+        return tree
+    device = tree_leaves(tree)[0].device
+    time_varying = key is not None and (_p_active(link_failure_prob)
+                                        or 0 < gossip_pairs < m)
+    if not time_varying and schedule.shifts is not None:
+        return _roll_terms(schedule, device).mix(tree)
+    terms = _Terms(schedule.perms, schedule.weights, device, laplacian=True)
+    w = None
+    if time_varying:
+        w = terms.w * matching_masks(schedule, key, link_failure_prob,
+                                     gossip_pairs)
+    return terms.mix(tree, w)
+
+
+def plan_mixer(omega: np.ndarray, config: Optional[TopologyConfig] = None,
+               use_ring: bool = True, force_tv: bool = False):
+    """The lowering for Ω, ``(mode, schedule)``, as the reference decides it
+    (``gossip.py:200-235``): ``"identity"`` (K = 1), ``"dense"`` (deg ≥ K −
+    1 or K ≤ 2), ``"schedule"`` (the static sparse mixer) or
+    ``"schedule_tv"`` (per-round masks from the config's
+    ``link_failure_prob`` / ``gossip_pairs``)."""
+    om = np.asarray(omega, np.float64)
+    k = om.shape[0]
+    p_drop = float(config.link_failure_prob) if config is not None else 0.0
+    pairs = int(config.gossip_pairs) if config is not None else 0
+    if k == 1:
+        return "identity", None
+    adj = (np.abs(om) > 1e-12) & ~np.eye(k, dtype=bool)
+    max_deg = int(adj.sum(axis=1).max())
+    if (p_drop == 0.0 and pairs == 0 and not force_tv
+            and (k <= 2 or max_deg >= k - 1)):
+        return "dense", None
+    schedule = build_schedule(om)
+    if schedule.num_perms == 0:
+        return "dense", schedule
+    if p_drop > 0.0 or force_tv or 0 < pairs < schedule.num_perms:
+        return "schedule_tv", schedule
+    if k <= 2 or schedule.num_perms >= k - 1 or not use_ring:
+        return "dense", schedule
+    return "schedule", schedule
+
+
+def _tv_probs(schedule: MixSchedule, config: Optional[TopologyConfig],
+              link_probs: Optional[Callable]):
+    """The dropout probability of a time-varying mixer: the config's. The
+    reference composes it with the transport's per-edge SNR outage
+    (``link_probs``), which is ROADMAP A8."""
+    if link_probs is not None:
+        raise NotImplementedError("link_probs (the transport's SNR outage "
+                                  "model) is not ported yet; ROADMAP A8")
+    return float(config.link_failure_prob) if config is not None else 0.0
+
+
+def make_mixer(omega: np.ndarray, device="cuda",
+               config: Optional[TopologyConfig] = None,
+               use_ring: bool = True,
+               link_probs: Optional[Callable] = None) -> Callable:
+    """``mix(tree, key=None, node_mask=None, *, masks=None)`` for any graph
+    (leaves lead with K), executing :func:`plan_mixer`'s lowering. A
+    time-varying mixer draws its masks from ``key`` (the round's ``kmix``),
+    or takes them drawn already as ``masks`` (``mix.masks(kmix)``, a
+    program, so a round draws them with its other draws); without either it
+    mixes the static Ω, as the reference's does without a key.
+
+    The mixer carries its plan: ``mix.mode``, ``mix.schedule`` and
+    ``mix.masks`` (None unless time-varying)."""
+    om = np.asarray(omega, np.float64)
+    mode, schedule = plan_mixer(om, config, use_ring,
+                                force_tv=link_probs is not None)
+    masks = None
+
+    def refuse(node_mask):
+        if node_mask is not None:
+            raise NotImplementedError(
+                "participation masks are not ported yet; ROADMAP A7 "
+                "(ParticipationSchedule)")
+
+    if mode == "identity":
+        def mix(tree, key=None, node_mask=None, *, masks=None):
+            refuse(node_mask)
+            return tree
+    elif mode == "dense":
+        om_t = torch.as_tensor(np.asarray(om, np.float32), device=device)
+
+        def mix(tree, key=None, node_mask=None, *, masks=None):
+            refuse(node_mask)
+            return dense_mix(om_t, tree)
+    else:
+        static = (_roll_terms(schedule, device) if schedule.shifts
+                  is not None else _Terms(schedule.perms, schedule.weights,
+                                          device, laplacian=True))
+        if mode == "schedule_tv":
+            p_drop = _tv_probs(schedule, config, link_probs)
+            pairs = int(config.gossip_pairs) if config is not None else 0
+            laplace = _Terms(schedule.perms, schedule.weights, device,
+                             laplacian=True)
+            masks = _MaskPlan(schedule, p_drop, pairs, device).masks
+
+            def mix(tree, key=None, node_mask=None, *, masks=None):
+                refuse(node_mask)
+                if masks is None and key is not None:
+                    masks = mix.masks(key)
+                if masks is None:
+                    return static.mix(tree)
+                return laplace.mix(tree, laplace.w * masks)
+        else:
+            def mix(tree, key=None, node_mask=None, *, masks=None):
+                refuse(node_mask)
+                return static.mix(tree)
+    mix.mode, mix.schedule, mix.masks = mode, schedule, masks
+    return mix
+
+
+def as_keyed_mixer(mixer: Callable) -> Callable:
+    """Adapt a legacy ``mix(tree)`` / ``mix(tree, key)`` callable to the
+    ``mix(tree, key, node_mask)`` convention (``gossip.py:603-633``); a
+    participation mask handed to a legacy mixer is an error."""
+    try:
+        params = inspect.signature(mixer).parameters
+        n = len([p for p in params.values()
+                 if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD,
+                               p.VAR_POSITIONAL)])
+        if any(p.kind == p.VAR_POSITIONAL for p in params.values()):
+            n = 3
+    except (TypeError, ValueError):
+        n = 3
+    if n >= 3:
+        return mixer
+
+    def adapted(tree, key=None, node_mask=None):
+        if node_mask is not None:
+            raise ValueError(
+                "this mixer predates participation masks; build it with "
+                "make_mixer to run barrier-free rounds")
+        return mixer(tree, key) if n >= 2 else mixer(tree)
+
+    return adapted

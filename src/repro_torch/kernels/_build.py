@@ -41,6 +41,7 @@ _SIGNATURES = {
     "repro_fused_update": [_P, _P, _P, _P, _P, _L, _F, _F, _P],
     "repro_cffl_update": [_P, _P, _P, _P, _L, _F, _P],
     "repro_dsgld_update": [_P, _P, _P, _P, _L, _F, _P],
+    "repro_gossip_mix": [_P, _P, _L, _L, _P, _P, _I, _I, _F, _P],
     "repro_topk_select": [_PP, _PP, _PL, _PL, _PI, _PL, _I, _L, _P, _P, _P],
     "repro_unpack_set": [_PP, _PP, _PP, _PL, _PL, _PI, _I, _L, _P],
     "repro_block_topk": [_P, _P, _L, _L, _L, _I, _P],

@@ -16,9 +16,15 @@ XLA's CPU code contracts the reference's jitted ``tree_map`` (ROADMAP C10):
 (``algorithms.py:602-608``), and :func:`dsgld_update`, DSGLD's ``m − η·g +
 ξ`` as ``fma(−η, g, m) + ξ`` (``algorithms.py:515-520``; the SGLD step's
 too). The reference has no ``pl.pallas_call`` for them.
+
+:func:`gossip_mix` is the gossip mixers' chain of those fmas over the node
+axis (ROADMAP C16): ``fma(w, x[perm] − x, a)`` a matching, or ``fma(c,
+roll(x, −s), a)`` a shift, as XLA's CPU code contracts the reference's
+``schedule_mix`` and ``_roll_mix``; no ``pl.pallas_call`` either.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels._build import check, library, on_card, stream_of
@@ -32,6 +38,8 @@ def fma_f32(a, b, c: torch.Tensor) -> torch.Tensor:
     toward the exact value when it is inexact and its last bit is even
     (the error comes exactly from TwoSum). Rounding a round-to-odd float64
     to f32 is then correctly rounded (53 >= 24 + 2; Boldo & Melquiond).
+    A non-finite sum (an infinite or NaN operand) is the float64 sum as it
+    is: ±inf or NaN, as ``fmaf`` gives it.
     """
     p = torch.as_tensor(a, dtype=torch.float32, device=c.device).double() * \
         torch.as_tensor(b, dtype=torch.float32, device=c.device).double()
@@ -42,7 +50,8 @@ def fma_f32(a, b, c: torch.Tensor) -> torch.Tensor:
     even = (s.view(torch.int64) & 1) == 0
     toward = torch.where(err > 0, torch.full_like(s, float("inf")),
                          torch.full_like(s, float("-inf")))
-    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    s = torch.where((err != 0) & even & torch.isfinite(s),
+                    torch.nextafter(s, toward), s)
     return s.float()
 
 
@@ -112,3 +121,41 @@ def dsgld_update(mixed, grad, noise, eta: float) -> torch.Tensor:
 
 cffl_update.launches = 0
 dsgld_update.launches = 0
+
+
+def gossip_mix_plain(x, src, w, c0: float, laplacian: bool) -> torch.Tensor:
+    """The mixers' fma chain over the node axis of ``x`` (K, ...): ``a =
+    x`` (Laplacian) or ``c0·x``, then ``a = fma(w[m], x[src[m]] − x, a)``
+    (Laplacian) or ``fma(w[m], x[src[m]], a)`` for each row m of the
+    ``(M, K)`` sources and weights (ROADMAP C16)."""
+    flat = x.reshape(x.shape[0], -1)
+    out = flat if laplacian else flat * float(np.float32(c0))
+    for m in range(src.shape[0]):
+        peer = flat.index_select(0, src[m].long())
+        out = fma_f32(w[m][:, None], peer - flat if laplacian else peer, out)
+    return out.reshape(x.shape)
+
+
+def gossip_mix(x, src, w, c0: float, laplacian: bool) -> torch.Tensor:
+    """One mix of the leaf ``x`` (K, ...) f32 over ``M`` matchings or
+    shifts: ``src`` (M, K) int32 source rows, ``w`` (M, K) f32 weights, on
+    the leaf's device; see :func:`gossip_mix_plain`."""
+    if not on_card("gossip_mix", [(x, torch.float32), (src, torch.int32),
+                                  (w, torch.float32)]):
+        return gossip_mix_plain(x, src, w, c0, laplacian)
+    rows = x.shape[0]
+    if src.shape != w.shape or src.dim() != 2 or src.shape[1] != rows:
+        raise ValueError(f"gossip_mix: sources {tuple(src.shape)} and "
+                         f"weights {tuple(w.shape)} for {rows} rows")
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = library().repro_gossip_mix(
+            x.data_ptr(), out.data_ptr(), rows, x.numel() // max(rows, 1),
+            src.data_ptr(), w.data_ptr(), src.shape[0], int(laplacian),
+            float(np.float32(c0)), stream_of(x))
+    check(rc, "gossip_mix")
+    gossip_mix.launches += 1
+    return out
+
+
+gossip_mix.launches = 0

@@ -1,0 +1,333 @@
+"""The CD-BFL training CLI of the port (``repro/launch/train.py``).
+
+The reference's flags with its defaults, for the ``lenet`` family, on one
+device: the card unless ``--device cpu``. Each round gathers its minibatch
+indices from the round key inside the engine (``--engine scan``: chunks of
+rounds as CUDA graphs on the card; ``host``: the per-round oracle), mixes
+over the graph of ``--topology`` by the lowering the reference's
+``plan_mixer`` picks (static, or time-varying under ``--link-failure`` /
+``--gossip-pairs``), and routes each layer through its codec pipeline
+under ``--layer-pipelines``. It prints the reference's lines (``arch=…``,
+``wire accounting:``, ``topology=…``, ``round …``, ``eval round …``,
+``bank snapshot: …``, ``saved …``) and writes the bank snapshots and the
+final checkpoint in the reference's format, which both packages'
+``launch.serve`` read.
+
+    # the CPU, reduced width
+    PYTHONPATH=src python -m repro_torch.launch.train --arch lenet-radar \\
+        --trim --device cpu --nodes 5 --rounds 4 --local-steps 2 --batch 4 \\
+        --topology geometric --radius 0.5 --link-failure 0.1 \\
+        --gossip-pairs 2 --log-every 2
+    # the card, full width
+    PYTHONPATH=src python -m repro_torch.launch.train --arch lenet-radar \\
+        --nodes 10 --rounds 4 --local-steps 8 --batch 10 --zeta 0.03 \\
+        --topology geometric --radius 0.5 --link-failure 0.1 \\
+        --gossip-pairs 2 --fused-compress \\
+        --layer-pipelines 'fc1=block_topk|qsgd;*=block_topk' \\
+        --bank-capacity 2 --burn-in 2 --eval-every 2 --ckpt-dir /tmp/ckpt
+
+Flags of paths the port does not run yet exit naming their ROADMAP item:
+the transport's (A8), the participation model's (A7), the drift's (A9),
+``--mesh > 1`` and ``--engine shard`` (A10), and any ``--arch`` but
+``lenet-radar`` (A12).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import List, Optional
+
+# the flags of paths not ported yet, by the ROADMAP item that ports them
+_UNPORTED = {
+    "A8 (lossy transport)": (
+        "transport", "mtu", "erasure", "loss_model", "snr_db",
+        "snr_spread_db", "no_error_feedback", "arq", "max_retries",
+        "arq_backoff", "toa", "sf", "duty_cycle", "round_period_s"),
+    "A7 (barrier-free participation)": ("straggler_prob", "dead_node"),
+    "A9 (drift and continual learning)": (
+        "drift", "drift_kind", "drift_severity", "drift_base", "drift_onset",
+        "drift_ramp_rounds", "drift_period", "drift_seed", "refresh_every",
+        "refresh_window", "refresh_decay"),
+    "A10 (multi-GPU shard engine)": ("mesh", "fed_axis"),
+}
+
+
+def _parse_args(argv: Optional[List[str]] = None):
+    from repro_torch.core.topology import GRAPHS
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--trim", action="store_true", help="use reduced config")
+    ap.add_argument("--algorithm", default="cdbfl",
+                    choices=["cdbfl", "dsgld", "cffl"])
+    ap.add_argument("--nodes", type=int, default=4)
+    ap.add_argument("--rounds", type=int, default=20)
+    ap.add_argument("--local-steps", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=4, help="per-node minibatch")
+    ap.add_argument("--seq", type=int, default=128,
+                    help="LM sequence length (the LM archs: ROADMAP A12)")
+    ap.add_argument("--eta", type=float, default=1e-4)
+    ap.add_argument("--zeta", type=float, default=0.3)
+    ap.add_argument("--topology", default="ring", choices=list(GRAPHS))
+    ap.add_argument("--degree", type=int, default=4,
+                    help="k_regular neighbor count")
+    ap.add_argument("--edge-prob", type=float, default=0.3,
+                    help="erdos_renyi link probability")
+    ap.add_argument("--radius", type=float, default=0.45,
+                    help="geometric radio range (unit square)")
+    ap.add_argument("--link-failure", type=float, default=0.0,
+                    help="per-round per-link dropout probability")
+    ap.add_argument("--gossip-pairs", type=int, default=0,
+                    help=">0: activate only this many matchings per round")
+    ap.add_argument("--topo-seed", type=int, default=0,
+                    help="graph-sampling seed (erdos_renyi/geometric)")
+    # the transport (ROADMAP A8)
+    ap.add_argument("--transport", action="store_true")
+    ap.add_argument("--mtu", type=int, default=256)
+    ap.add_argument("--erasure", type=float, default=0.0)
+    ap.add_argument("--loss-model", default="bernoulli",
+                    choices=["bernoulli", "gilbert"])
+    ap.add_argument("--snr-db", type=float, default=None)
+    ap.add_argument("--snr-spread-db", type=float, default=0.0)
+    ap.add_argument("--no-error-feedback", action="store_true")
+    ap.add_argument("--arq", action="store_true")
+    ap.add_argument("--max-retries", type=int, default=2)
+    ap.add_argument("--arq-backoff", type=float, default=0.0)
+    ap.add_argument("--toa", action="store_true")
+    ap.add_argument("--sf", type=int, default=7)
+    ap.add_argument("--duty-cycle", type=float, default=1.0)
+    ap.add_argument("--round-period-s", type=float, default=0.0)
+    # barrier-free participation (ROADMAP A7)
+    ap.add_argument("--straggler-prob", type=float, default=0.0)
+    ap.add_argument("--dead-node", action="append", default=[],
+                    metavar="NODE:DIE[:REJOIN]")
+    ap.add_argument("--compressor", default="block_topk")
+    ap.add_argument("--pipeline", default="",
+                    help="codec pipeline DSL, e.g. 'block_topk|qsgd' "
+                         "(overrides --compressor)")
+    ap.add_argument("--ratio", type=float, default=0.01)
+    ap.add_argument("--fused-compress", action="store_true",
+                    help="encode Q(θ−v) straight from (θ, v) in the "
+                         "delta-pack kernel: the dense residual never "
+                         "reaches device memory")
+    ap.add_argument("--layer-pipelines", default="",
+                    help="per-layer codec overrides, "
+                         "'pattern=pipeline;pattern=pipeline': the first "
+                         "substring match on the param path (keystr form, "
+                         "['fc1']['w']) wins, '*' matches all")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--bank-capacity", type=int, default=0,
+                    help=">0: keep a posterior sample bank of this capacity "
+                         "(cdbfl/dsgld) and snapshot it to --ckpt-dir at "
+                         "every --eval-every boundary")
+    ap.add_argument("--burn-in", type=int, default=-1,
+                    help="rounds before bank admission (-1: rounds // 2)")
+    ap.add_argument("--thin", type=int, default=1,
+                    help="bank admission stride after burn-in")
+    ap.add_argument("--log-every", type=int, default=5)
+    ap.add_argument("--engine", default="scan",
+                    choices=["scan", "host", "shard"],
+                    help="scan: chunks of rounds, a CUDA graph each on the "
+                         "card; host: the per-round oracle; shard: ROADMAP "
+                         "A10")
+    ap.add_argument("--mesh", type=int, default=1,
+                    help="cards on the federated axis (ROADMAP A10)")
+    ap.add_argument("--fed-axis", default="fed")
+    ap.add_argument("--pool", type=int, default=64,
+                    help="per-node synthetic training pool size")
+    # streaming drift (ROADMAP A9)
+    ap.add_argument("--drift", default="")
+    ap.add_argument("--drift-kind", default="step",
+                    choices=["constant", "step", "ramp", "cyclic"])
+    ap.add_argument("--drift-severity", type=float, default=0.8)
+    ap.add_argument("--drift-base", type=float, default=0.0)
+    ap.add_argument("--drift-onset", type=int, default=0)
+    ap.add_argument("--drift-ramp-rounds", type=int, default=0)
+    ap.add_argument("--drift-period", type=int, default=0)
+    ap.add_argument("--drift-seed", type=int, default=0)
+    ap.add_argument("--refresh-every", type=int, default=5)
+    ap.add_argument("--refresh-window", type=int, default=0)
+    ap.add_argument("--refresh-decay", type=float, default=1.0)
+    ap.add_argument("--eval-every", type=int, default=0,
+                    help=">0: score the posterior every N rounds through "
+                         "the scan eval engine")
+    ap.add_argument("--eval-scenario", default="clean",
+                    help="shift family of the in-training eval set "
+                         "(repro_torch.data.scenarios)")
+    ap.add_argument("--eval-severity", type=float, default=1.0)
+    ap.add_argument("--eval-examples", type=int, default=128)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+    for item, dests in _UNPORTED.items():
+        changed = [d for d in dests if getattr(args, d) != ap.get_default(d)]
+        if changed:
+            flags = ", ".join("--" + d.replace("_", "-") for d in changed)
+            raise SystemExit(f"{flags}: not ported yet; ROADMAP {item}")
+    if args.engine == "shard":
+        raise SystemExit("--engine shard: not ported yet; ROADMAP A10 "
+                         "(multi-GPU shard engine)")
+    return args
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    args = _parse_args(argv)
+
+    import numpy as np
+
+    from repro_torch import random
+    from repro_torch.checkpoint import save_bank, save_checkpoint
+    from repro_torch.config import FedConfig, TopologyConfig, get_arch
+    from repro_torch.core.algorithms import make_round_fn
+    from repro_torch.core.compression import (make_compressor,
+                                              parse_layer_rules)
+    from repro_torch.core.fed_state import init_fed_state
+    from repro_torch.core.gossip import plan_mixer
+    from repro_torch.core.posterior import DeviceSampleBank
+    from repro_torch.core.topology import build_topology, dense_wire_bytes
+    from repro_torch.data.partition import DeviceShards, partition_iid
+    from repro_torch.data.radar import make_dataset
+    from repro_torch.eval.engine import ScanEvalEngine, as_stacked
+    from repro_torch.models import get_model
+    from repro_torch.train.engine import make_engine
+    from repro_torch.utils.device import resolve_device
+    from repro_torch.utils.tree import tree_leaves
+
+    try:
+        cfg = get_arch(args.arch, reduced=args.trim)
+    except NotImplementedError as err:
+        raise SystemExit(f"--arch {args.arch}: {err}")
+    device = resolve_device(args.device)
+    model = get_model(cfg)
+    topo_cfg = TopologyConfig(
+        graph=args.topology, degree=args.degree, edge_prob=args.edge_prob,
+        radius=args.radius, seed=args.topo_seed,
+        link_failure_prob=args.link_failure, gossip_pairs=args.gossip_pairs)
+    fed = FedConfig(
+        num_nodes=args.nodes, local_steps=args.local_steps,
+        eta=args.eta, zeta=args.zeta, topology=args.topology,
+        topology_cfg=topo_cfg,
+        compressor=args.compressor, pipeline=args.pipeline,
+        compress_ratio=args.ratio,
+        fused_compress=args.fused_compress,
+        layer_pipelines=parse_layer_rules(args.layer_pipelines),
+        algorithm=args.algorithm)
+    topo = build_topology(topo_cfg, fed.num_nodes)
+    omega = topo.omega
+    comp = make_compressor(fed)
+    round_fn = make_round_fn(args.algorithm, model.nll, fed, omega, comp,
+                             data_scale=1.0, device=device)
+
+    key = random.PRNGKey(fed.seed, device)
+    params0 = model.init(key, device)
+    n_params = sum(int(np.prod(tuple(x.shape))) for x in tree_leaves(params0))
+    state = init_fed_state(params0, fed)
+    # dsgld gossips uncompressed θ; the compressed algorithms ship Q(Δθ)
+    wire = (n_params * 4 if args.algorithm == "dsgld"
+            else comp.wire_bytes(params0))
+    # the lowering make_mixer runs (the same decision function)
+    mode, sched = plan_mixer(omega, topo_cfg)
+    n_perms = sched.num_perms if sched else 0
+    if mode.startswith("schedule"):
+        active = (args.gossip_pairs if 0 < args.gossip_pairs < n_perms
+                  else n_perms)
+        gossip_wire = active * wire * (1.0 - args.link_failure)
+    else:
+        gossip_wire = dense_wire_bytes(fed.num_nodes, wire)
+    q_name = fed.pipeline or fed.compressor
+    print(f"arch={cfg.name} params={n_params/1e6:.2f}M nodes={fed.num_nodes} "
+          f"L={fed.local_steps} Q={q_name}@{fed.compress_ratio} "
+          f"wire={wire/1e6:.3f}MB/node/round "
+          f"(dense {n_params*4/1e6:.1f}MB, saving "
+          f"{100*(1-wire/(n_params*4)):.1f}%)")
+    if hasattr(comp, "formula_bytes") and args.algorithm != "dsgld":
+        formula = comp.formula_bytes(params0)
+        print(f"wire accounting: measured={wire} B/node (packed payload) "
+              f"formula={formula} B/node "
+              f"(x{wire/max(formula, 1):.3f} byte-alignment)")
+    print(f"topology={topo.describe()} |λ2|={topo.lambda2:.4f} "
+          f"mixer={mode} matchings={n_perms} "
+          f"gossip_wire={gossip_wire/1e6:.3f}MB/node/round "
+          f"(dense all-gather "
+          f"{dense_wire_bytes(fed.num_nodes, wire)/1e6:.3f}MB)"
+          + (f" link_failure={args.link_failure}" if args.link_failure else "")
+          + (f" gossip_pairs={args.gossip_pairs}" if args.gossip_pairs else ""))
+
+    # per-node synthetic pool on the device; rounds gather their minibatch
+    # indices from the round key inside the engine
+    ds = make_dataset(fed.num_nodes * args.pool, hw=cfg.input_hw, day=1,
+                      seed=fed.seed)
+    dshards = DeviceShards.from_shards(
+        partition_iid(ds, fed.num_nodes, seed=fed.seed), device)
+    bank_cfg = bank_state = None
+    if args.bank_capacity > 0 and args.algorithm in ("cdbfl", "dsgld"):
+        burn = args.burn_in if args.burn_in >= 0 else args.rounds // 2
+        bank_cfg = DeviceSampleBank(burn_in=burn, capacity=args.bank_capacity,
+                                    thin=args.thin)
+    engine = make_engine(args.engine, round_fn, dshards, fed.local_steps,
+                         args.batch, bank=bank_cfg,
+                         chunk=args.log_every or 64)
+    if bank_cfg is not None:
+        bank_state = (engine.make_bank() if args.engine == "host"
+                      else bank_cfg.init(state.params))
+        print(f"posterior bank: capacity={args.bank_capacity} "
+              f"burn_in={bank_cfg.burn_in} thin={bank_cfg.thin}"
+              + (f" snapshots -> {args.ckpt_dir}" if args.ckpt_dir else ""))
+
+    eval_engine = eval_ds = None
+    if args.eval_every > 0:
+        from repro_torch.data.scenarios import make_scenario_dataset
+        eval_ds = make_scenario_dataset(
+            args.eval_scenario, args.eval_severity, args.eval_examples,
+            hw=cfg.input_hw, seed=fed.seed + 90)
+        eval_engine = ScanEvalEngine(model.logits)
+
+    t0 = time.time()
+    log_cb = lambda t, loss, cons: print(
+        f"round {t:4d} loss={loss:.4f} consensus={cons:.3e} "
+        f"({(time.time()-t0)/max(t, 1):.2f}s/round)")
+    key = random.fold_in(key, 1)
+
+    def bank_stacked():
+        """(S, K, ...) posterior samples, or None while still empty."""
+        if bank_cfg is None or bank_state is None:
+            return None
+        if hasattr(bank_state, "samples"):          # host SampleBank
+            return bank_state.stacked()
+        if not bank_cfg.length(bank_state):
+            return None
+        return bank_cfg.stacked(bank_state)
+
+    segment = args.eval_every if args.eval_every > 0 else args.rounds
+    done = 0
+    while done < args.rounds:
+        n = min(segment, args.rounds - done)
+        state, key, bank_state, _, _ = engine.run(
+            state, key, bank_state, n, t0=done, log_every=args.log_every,
+            log_cb=log_cb)
+        done += n
+        stacked_bank = bank_stacked()
+        if eval_engine is not None:
+            # BMA over the bank once it has samples; the nodes' current
+            # params before burn-in
+            stacked = (stacked_bank if stacked_bank is not None
+                       else as_stacked(state.params))
+            rep = eval_engine.evaluate(stacked, eval_ds, node_axis=1)
+            s = tree_leaves(stacked)[0].shape[0]
+            print(f"eval  round {done:4d} [{args.eval_scenario}"
+                  f"@{args.eval_severity:g}] S={s} acc={rep.accuracy:.4f} "
+                  f"ece={rep.ece:.4f} nll={rep.nll:.4f} "
+                  f"gap={rep.overconf_gap:+.4f}")
+        if args.ckpt_dir and stacked_bank is not None:
+            path = save_bank(args.ckpt_dir, done, stacked_bank,
+                             metadata={"arch": cfg.name, "round": done})
+            print(f"bank snapshot: {path} "
+                  f"(S={tree_leaves(stacked_bank)[0].shape[0]})")
+    if args.ckpt_dir:
+        path = save_checkpoint(args.ckpt_dir, args.rounds, state.params,
+                               metadata={"arch": cfg.name, "fed": vars(args)})
+        print("saved", path)
+
+
+if __name__ == "__main__":
+    main()

@@ -2,12 +2,12 @@
 
 JAX's default PRNG (threefry2x32, ``jax_threefry_partitionable``) as the
 reference's main path uses it: ``PRNGKey``, ``split``, ``fold_in``,
-``bits``, ``uniform``, ``normal``, ``truncated_normal`` and ``randint``.
+``bits``, ``uniform``, ``normal``, ``truncated_normal``, ``randint``,
+``permutation`` and ``choice`` (without ``p``).
 A key is a ``(..., 2)`` int64 tensor of two uint32 words, on the device of
 the run; a function of keys with leading batch dimensions draws one stream
 a key, as ``jax.vmap`` over keys does, and its output leads with those
-dimensions. ``choice`` and ``categorical`` have no caller in the port yet
-(ROADMAP A7, A11).
+dimensions. ``categorical`` has no caller in the port yet (ROADMAP A11).
 
 Exact against ``jax.random`` on the CPU: keys, bits, uniforms and randint
 by construction; ``normal`` and ``truncated_normal`` because the kernel and
@@ -234,3 +234,44 @@ def randint(key: torch.Tensor, shape: Sequence[int], minval, maxval):
     return randint_from_bits(high.reshape(batch + shape),
                              low.reshape(batch + shape), bound(minval),
                              bound(maxval))
+
+
+def shuffle_rounds(n: int) -> int:
+    """The sorts of ``jax.random``'s ``_shuffle`` for ``n`` elements:
+    ``ceil(3·ln n / ln(2³² − 1))``, so 0 for one element, 1 up to 1,625."""
+    return int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+
+
+@program
+def permutation(key: torch.Tensor, n: int):
+    """``jax.random.permutation(key, n)`` for an int ``n``: int64 indices.
+    Each of :func:`shuffle_rounds` rounds splits the key, ``key, sub =
+    split(key)``, draws 32 bits an element from ``sub`` and sorts by them
+    with ``lax.sort_key_val``, which is stable (its ``is_stable=True``);
+    here ``torch.sort(stable=True)`` of the bits as unsigned values
+    (ROADMAP C15)."""
+    x = torch.arange(n, device=key.device).expand(key.shape[:-1] + (n,))
+    for _ in range(shuffle_rounds(n)):
+        pair = yield from split.program(key)
+        key, sub = pair[..., 0, :], pair[..., 1, :]
+        sort_keys = yield from bits.program(sub, (n,))
+        x = torch.gather(x, -1, torch.sort(sort_keys, dim=-1,
+                                           stable=True).indices)
+    return x
+
+
+@program
+def choice(key: torch.Tensor, n: int, shape: Sequence[int] = (),
+           replace: bool = True):
+    """``jax.random.choice(key, n, shape, replace)`` without ``p``:
+    ``randint(key, shape, 0, n)`` with replacement, else
+    ``permutation(key, n)[:prod(shape)]``."""
+    shape = tuple(shape)
+    draws = _size(shape)
+    if not replace and draws > n:
+        raise ValueError(f"Cannot take a larger sample (size {draws}) than "
+                         f"population (size {n}) when 'replace=False'")
+    if replace:
+        return (yield from randint.program(key, shape, 0, n)).long()
+    perm = yield from permutation.program(key, n)
+    return perm[..., :draws].reshape(key.shape[:-1] + shape)

@@ -5,9 +5,11 @@ oracle.
 Both consume the reference's streams. Per round, ``key, kround =
 split(key)``; the minibatch indices come from ``fold_in(kround,
 DATA_STREAM_SALT)`` (:func:`round_indices`), the round's noise and QSGD
-uniforms from ``kround`` itself (``round_fn.draws``). Both derivations run
-side by side, one threefry table launch a level: with the split of the
-engine's key, five launches a round. Then the batches are gathered on the
+uniforms, and on a time-varying graph its mixing masks, from ``kround``
+itself (``round_fn.draws``). Both derivations run side by side, one
+threefry table launch a level: with the split of the engine's key, five
+launches a round. The masks are formed on the device, so a captured
+chunk draws and applies each round's own. Then the batches are gathered on the
 device, the round runs, and its params are offered to the posterior bank.
 
 The scan engine runs a chunk of rounds as the reference's ``jit(lax.scan)``

@@ -11,6 +11,10 @@ per-round oracle with the host bank. The card is the default device.
 ``device="cpu"`` runs every kernel's plain version on the CPU; a ``cuda``
 device without a card raises.
 
+The graph is ``build_topology(resolve_topology(fed_cfg), K)``: any family,
+static or time-varying (``FedConfig.topology_cfg``), mixed by the lowering
+the reference's ``plan_mixer`` picks (``core/gossip.py``).
+
 Evaluation runs through the :class:`ScanEvalEngine` (a CUDA graph of the
 whole eval on the card), ``run(eval_every=N)`` takes in-training
 snapshots through it, and :meth:`FedTrainer.predictor` hands the
@@ -111,7 +115,7 @@ class FedTrainer:
         self.fed_cfg = fed_cfg
         self.minibatch = minibatch
         self.topology = build_topology(resolve_topology(fed_cfg),
-                                       fed_cfg.num_nodes, fed_cfg.mixing)
+                                       fed_cfg.num_nodes)
         self.omega = self.topology.omega
         self.compressor = make_compressor(fed_cfg)
         if data_scale is None:

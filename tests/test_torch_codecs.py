@@ -39,9 +39,10 @@ from repro_torch import random
 from repro_torch.config import FedConfig, get_arch
 from repro_torch.core.compression import (BlockTopKCodec, CompressionPipeline,
                                           Compressor, FusedCodec, LeafPayload,
-                                          RandKCodec, WirePayload,
-                                          draw_uniforms, make_compressor,
-                                          parse_pipeline)
+                                          PerLayerPipeline, RandKCodec,
+                                          WirePayload,
+                                          draw_uniforms, keystr,
+                                          make_compressor, parse_pipeline)
 from repro_torch.kernels.fused_update import (cffl_update, cffl_update_plain,
                                               dsgld_update,
                                               dsgld_update_plain)
@@ -275,11 +276,50 @@ def test_codec_payloads_match_reference(trees, spec, fused):
     norm's tolerance; the reference's payload decodes exactly to the
     reference's jitted decode, and the port's own payload decodes to its
     stages' decode."""
-    theta, v = trees
-    ref = jax_make_compressor(JaxFedConfig(pipeline=spec,
-                                           fused_compress=fused))
     port = make_compressor(FedConfig(pipeline=spec, fused_compress=fused))
     assert isinstance(port, FusedCodec) == fused
+    _assert_payloads_match(trees, port, jax_make_compressor(
+        JaxFedConfig(pipeline=spec, fused_compress=fused)))
+
+
+# per-layer rules on the keystr paths (['fc1']['w']): the CLI's, a
+# pattern inside a key pair, unmatched leaves on the base, and a
+# stochastic stage behind another
+LAYER_RULES = [
+    (("fc1", "block_topk|qsgd"), ("*", "block_topk")),
+    (("conv", "qsgd"), ("1']['w", "topk")),
+    (("b']", "identity"), ("*", "randk|qsgd")),
+    (("fc", "block_topk|sign"), ("conv2", "sign")),
+]
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("rules", LAYER_RULES, ids=str)
+def test_layer_pipeline_payloads_match_reference(trees, rules, fused):
+    """``FedConfig.layer_pipelines`` (ROADMAP A6's ``PerLayerPipeline``):
+    every leaf routed as the reference routes it, its payload (each stage's
+    carrier, indices, keys and scales, under its own stage keys) and the
+    measured bytes exact as in :func:`test_codec_payloads_match_reference`,
+    fused and unfused; the decodes too."""
+    port = make_compressor(FedConfig(layer_pipelines=rules,
+                                     fused_compress=fused))
+    ref = jax_make_compressor(JaxFedConfig(layer_pipelines=rules,
+                                           fused_compress=fused))
+    assert isinstance(port, PerLayerPipeline)
+    assert port.stages[0].use_pallas == fused
+    got = _assert_payloads_match(trees, port, ref)
+    want_paths = [jax.tree_util.keystr(p) for p, _ in
+                  jax.tree_util.tree_flatten_with_path(trees[0])[0]]
+    for i, (path, spec) in enumerate(zip(got.paths, got.specs)):
+        assert keystr(path) == want_paths[i]
+        assert [s.name for s in got.leaf_stages(i)] == \
+            [s.name for s in ref._resolve_stages(want_paths[i])], path
+
+
+def _assert_payloads_match(trees, port, ref):
+    """The comparison of :func:`test_codec_payloads_match_reference`, each
+    leaf through its own stages; returns the port's payload."""
+    theta, v = trees
     key = jax.random.PRNGKey(KEY)
     want = jax.jit(jax.vmap(ref.encode_pair))(theta, v, _node_keys(key))
     tt, tv = _torch_tree(theta), _torch_tree(v)
@@ -287,12 +327,12 @@ def test_codec_payloads_match_reference(trees, spec, fused):
     assert got.measured_bytes() == want.measured_bytes()
     paths = [p for p, _ in tree_leaves_with_path(tt)]
     assert list(got.paths) == paths
-    quant = port.stages[-1].name == "qsgd"
-    for path, g, w, gs, ws in zip(paths, got.entries, want.entries,
-                                  got.specs, want.specs):
+    quants = [got.leaf_stages(i)[-1].name == "qsgd"
+              for i in range(len(paths))]
+    for path, g, w, gs, ws, quant in zip(paths, got.entries, want.entries,
+                                         got.specs, want.specs, quants):
         assert [m.mode for m in gs.metas if hasattr(m, "mode")] == \
             [m.mode for m in ws.metas if hasattr(m, "mode")], path
-        last = len(g.aux) - 1
         for s, (ga, wa) in enumerate(zip(g.aux, w.aux)):
             assert sorted(ga) == sorted(wa), path
             for name in wa:
@@ -311,15 +351,16 @@ def test_codec_payloads_match_reference(trees, spec, fused):
     for (path, g), w in zip(tree_leaves_with_path(mine),
                             jax.tree.leaves(decoded)):
         _assert_leaf_equal(g, w, f"{path} decode")
-    sign = port.stages[-1].name == "sign"
-    for (path, g), (_, w) in zip(tree_leaves_with_path(port.decode(got)),
-                                 tree_leaves_with_path(mine)):
+    for i, ((path, g), (_, w)) in enumerate(zip(
+            tree_leaves_with_path(port.decode(got)),
+            tree_leaves_with_path(mine))):
         assert g.shape == w.shape and torch.isfinite(g).all(), path
-        if sign:
+        if got.leaf_stages(i)[-1].name == "sign":
             np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=SIGN_RTOL,
                                        atol=0, err_msg=path)
-        elif not quant:
+        elif not quants[i]:
             _assert_leaf_equal(g, w.numpy(), f"{path} own decode")
+    return got
 
 
 def test_compressors_name_their_draw_sites(trees):
@@ -361,7 +402,9 @@ def test_dsl_errors_match_reference(spec):
     dict(compressor="topk"), dict(compressor="randk"),
     dict(compressor="sign"), dict(compressor="qsgd"),
     dict(compressor="identity"), dict(pipeline="randk|qsgd"),
-    dict(pipeline="topk|sign", fused_compress=True)])
+    dict(pipeline="topk|sign", fused_compress=True),
+    dict(layer_pipelines=LAYER_RULES[0]),
+    dict(layer_pipelines=LAYER_RULES[2], fused_compress=True)])
 def test_wire_bytes_of_every_codec(reduced, fed):
     """Shape-only bytes a node of one model, exact against the
     reference's; at full width the default sends 167,682 bytes, its seven
@@ -424,8 +467,14 @@ def test_make_compressor_routes_both_orders():
     other = make_compressor(FedConfig(pipeline="randk|qsgd",
                                       fused_compress=True))
     assert isinstance(other.stages[0], RandKCodec)
-    with pytest.raises(NotImplementedError, match="A6"):
-        make_compressor(FedConfig(layer_pipelines=(("*", "qsgd"),)))
+    # layer_pipelines: a PerLayerPipeline, its rules lowered as the base
+    routed = make_compressor(FedConfig(layer_pipelines=(("*", "qsgd"),)))
+    assert isinstance(routed, PerLayerPipeline)
+    assert not routed.stages[0].use_pallas
+    lowered = make_compressor(FedConfig(
+        fused_compress=True, layer_pipelines=(("fc1", "block_topk|qsgd"),)))
+    assert lowered.stages[0].use_pallas
+    assert lowered.rules[0][1].stages[0].use_pallas
 
 
 # -- the update variants (ROADMAP C10) ------------------------------------

@@ -161,8 +161,12 @@ def test_wire_bytes_match_reference(reduced, want):
 
 
 def test_make_compressor_refuses_unported_values():
+    """``layer_pipelines`` runs (ROADMAP A6's PerLayerPipeline); a level
+    count that is not a power of two still refuses (C5)."""
+    assert make_compressor(FedConfig(layer_pipelines=(("fc", "qsgd"),))
+                           ).rules[0][0] == "fc"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_compressor(FedConfig(layer_pipelines=(("fc", "qsgd"),)))
+        make_compressor(FedConfig(control_dtype="bfloat16"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_compressor(FedConfig(fused_compress=True, qsgd_levels=10))
 
@@ -355,12 +359,13 @@ def test_make_compressor_routes_and_refuses():
         FusedCodec)
     # every codec name and composition runs; what is left refuses
     for ok in (dict(pipeline=PIPE), dict(pipeline="qsgd", fused_compress=True),
-               dict(pipeline="block_topk|sign", fused_compress=True)):
+               dict(pipeline="block_topk|sign", fused_compress=True),
+               dict(layer_pipelines=(("*", PIPE),))):
         assert isinstance(make_compressor(FedConfig(**ok)),
                           CompressionPipeline)
     for bad in (dict(compressor="sign_pallas"),
                 dict(pipeline=PIPE, fused_compress=True, qsgd_levels=10),
-                dict(layer_pipelines=(("*", PIPE),))):
+                dict(transport=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_compressor(FedConfig(**bad))
 

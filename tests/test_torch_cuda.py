@@ -59,7 +59,7 @@ def test_kernels_match_plain_versions(card, n):
         "pack": 1, "delta_pack": 1, "unpack": 1, "fused_update": 1,
         "grid_quant": 0, "qsgd": 0, "block_topk": 0, "threefry": 0,
         "topk_select": 0, "unpack_set": 0, "cffl_update": 0,
-        "dsgld_update": 0}
+        "dsgld_update": 0, "gossip_mix": 0}
 
 
 @pytest.mark.parametrize("n", [6, 150, 1024, 4097, 21000])
@@ -735,3 +735,154 @@ def test_a_sync_inside_the_eval_fails_its_capture(card):
     with pytest.raises(RuntimeError):
         ScanEvalEngine(syncing, batch_size=32).evaluate(bank, test,
                                                         node_axis=1)
+
+
+# -- the gossip mixers and a time-varying graph (ROADMAP C16) --------------
+
+@pytest.mark.parametrize("n", [1, 7, 1024, 4099, 65_536])
+@pytest.mark.parametrize("laplacian", [True, False])
+def test_gossip_mix_matches_plain_version(card, n, laplacian):
+    """The fma chain over the node axis: K=10 rows, 7 terms with random
+    sources and weights (zeros among them), on the card bit for bit
+    against the plain version on the card and on the CPU."""
+    from repro_torch.kernels.fused_update import gossip_mix_plain
+    gen = torch.Generator(device=card).manual_seed(n)
+    x = torch.randn((10, n), generator=gen, device=card)
+    x[:, :1] = -0.0
+    src = torch.randint(0, 10, (7, 10), generator=gen, device=card,
+                        dtype=torch.int32)
+    w = torch.rand((7, 10), generator=gen, device=card)
+    w[2] = 0.0
+    kernels.reset_launch_counts()
+    got = kernels.gossip_mix(x, src, w, 0.3, laplacian)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["gossip_mix"] == 1
+    want = gossip_mix_plain(x, src, w, 0.3, laplacian)
+    assert _same_bits(got, want)
+    cpu = gossip_mix_plain(x.cpu(), src.cpu(), w.cpu(), 0.3, laplacian)
+    assert _same_bits(got.cpu(), cpu)
+
+
+def _tv_fed(algorithm="cdbfl"):
+    from repro_torch.config import FedConfig, TopologyConfig
+    return FedConfig(num_nodes=5, local_steps=2, eta=1e-3, zeta=0.3,
+                     temperature=0.2, burn_in=1, rounds=4,
+                     algorithm=algorithm, topology_cfg=TopologyConfig(
+                         graph="geometric", radius=0.5,
+                         link_failure_prob=0.1, gossip_pairs=2))
+
+
+def _tv_trainer(device, algorithm, engine, **kw):
+    from repro_torch.config import get_arch
+    from repro_torch.data.partition import partition_iid
+    from repro_torch.data.radar import make_dataset
+    from repro_torch.models import get_model
+    from repro_torch.train import FedTrainer
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cfg = get_arch("lenet-radar", reduced=True)
+    shards = partition_iid(make_dataset(50, hw=cfg.input_hw, day=1, seed=0),
+                           5)
+    return FedTrainer(get_model(cfg), _tv_fed(algorithm), shards, minibatch=5,
+                      seed=2, engine=engine, bank_thin=1, bank_capacity=3,
+                      device=device, **kw)
+
+
+@pytest.mark.parametrize("algorithm", ["cdbfl", "dsgld", "cffl"])
+def test_time_varying_round_on_the_card_tracks_the_cpu(card, algorithm):
+    """On the time-varying geometric graph: each round's masks on the card
+    equal the CPU's exactly, its draws cost at most 6 threefry launches and
+    its mix launches gossip_mix; two rounds track the CPU's (rtol 1e-4:
+    cuDNN sums in another order), bytes exact."""
+    from repro_torch import random
+    runs = {dev: _tv_trainer(dev, algorithm, "host") for dev in (card, "cpu")}
+    for seed in range(4):
+        keys = {dev: random.fold_in(random.PRNGKey(seed, dev), 9)
+                for dev in runs}
+        masks = {dev: runs[dev].round_fn.draws(keys[dev],
+                                               runs[dev].state.params)[1]
+                 for dev in runs}
+        assert torch.equal(masks[card].cpu(), masks["cpu"])
+    kernels.reset_launch_counts()
+    got = runs[card].run(rounds=2)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert 1 <= counts["threefry"] <= 12 and counts["gossip_mix"] > 0
+    want = runs["cpu"].run(rounds=2)
+    np.testing.assert_allclose(got.loss_history, want.loss_history, rtol=1e-4)
+    assert got.wire_history == want.wire_history
+
+
+@pytest.mark.parametrize("algorithm", ["cdbfl", "dsgld", "cffl"])
+def test_graph_chunks_equal_the_host_rounds_on_a_time_varying_graph(
+        card, algorithm):
+    """Four rounds in chunks of two on the time-varying graph: the masks are
+    drawn and applied inside the captured chunk; params, v, v̄, key,
+    losses, consensus and the bank equal the host engine's bit for bit."""
+    from repro_torch.utils.tree import tree_leaves
+    host = _tv_trainer(card, algorithm, "host")
+    scan = _tv_trainer(card, algorithm, "scan", chunk=2)
+    want, got = host.run(rounds=4), scan.run(rounds=4)
+    assert list(scan._engine.capture_ms) == [2]
+    assert got.loss_history == want.loss_history
+    assert got.consensus_history == want.consensus_history
+    assert got.wire_history == want.wire_history
+    for part in ("params", "v", "v_bar"):
+        for a, b in zip(tree_leaves(getattr(scan.state, part)),
+                        tree_leaves(getattr(host.state, part))):
+            assert _same_bits(a, b), part
+    assert torch.equal(scan.key, host.key)
+    assert len(scan.bank) == len(host.bank)
+    for s, h in zip(scan.bank.samples, host.bank.samples):
+        for a, b in zip(tree_leaves(s), tree_leaves(h)):
+            assert _same_bits(a, b)
+
+
+def test_gossip_mix_of_non_finite_rows_matches_plain_version(card):
+    """±inf and NaN rows through both forms: ±inf where the plain version
+    has it, NaN where it has NaN (the payload is not part of the
+    contract), every other element bit for bit."""
+    from repro_torch.kernels.fused_update import gossip_mix_plain
+    gen = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn((10, 4099), generator=gen, device=card)
+    x[1, 5], x[2, 6], x[3, 7] = float("nan"), float("inf"), -float("inf")
+    src = torch.randint(0, 10, (7, 10), generator=gen, device=card,
+                        dtype=torch.int32)
+    w = torch.rand((7, 10), generator=gen, device=card)
+    for lap in (True, False):
+        got = kernels.gossip_mix(x, src, w, 0.3, lap)
+        want = gossip_mix_plain(x, src, w, 0.3, lap)
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan) and nan.any()
+        assert _same_bits(torch.where(nan, 0.0, got),
+                          torch.where(nan, 0.0, want))
+
+
+def test_ring_mix_on_the_card_is_dense_below_three_nodes_else_refused(card):
+    """The back-compat ``ring_mix``: below K = 3 the dense einsum with Ω on
+    the leaves' device (within rtol 1e-6 of the CPU's: a matmul's summation
+    order); from K = 3 on a card's leaves raise, naming ``make_mixer``,
+    whose roll path launches gossip_mix and equals its own CPU run bit for
+    bit."""
+    from repro_torch.config import TopologyConfig
+    from repro_torch.core import gossip
+    from repro_torch.core.topology import build_topology
+    gen = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn((2, 4099), generator=gen, device=card)
+    omega = build_topology(TopologyConfig(graph="ring"), 2).omega
+    got = gossip.ring_mix(omega, {"a": x})["a"]
+    assert got.device.type == "cuda"
+    want = gossip.ring_mix(omega, {"a": x.cpu()})["a"]
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-6,
+                               atol=0)
+    ring = TopologyConfig(graph="ring")
+    omega = build_topology(ring, 10).omega
+    x = torch.randn((10, 4099), generator=gen, device=card)
+    with pytest.raises(ValueError, match="make_mixer"):
+        gossip.ring_mix(omega, {"a": x})
+    kernels.reset_launch_counts()
+    got = gossip.make_mixer(omega, card, config=ring)({"a": x})["a"]
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["gossip_mix"] == 1
+    want = gossip.make_mixer(omega, "cpu", config=ring)({"a": x.cpu()})["a"]
+    assert _same_bits(got.cpu(), want)

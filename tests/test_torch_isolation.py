@@ -73,8 +73,8 @@ def test_trainer_defaults_to_the_card():
 
 def test_unported_options_name_their_roadmap_item():
     from repro_torch.config import FedConfig
-    for bad in (dict(layer_pipelines=(("*", "qsgd"),)),
-                dict(topology="geometric"), dict(control_dtype="bfloat16"),
+    for bad in (dict(transport=object()), dict(participation=object()),
+                dict(control_dtype="bfloat16"),
                 dict(compressor="sign_pallas")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             FedConfig(**{"fused_compress": True, **bad}).check_supported()

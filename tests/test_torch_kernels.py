@@ -305,11 +305,13 @@ def test_cpu_tensors_run_the_plain_versions():
     ops.unpack_set_leaves([(tvals, tidx)], [(3000,)])
     ops.leaf_cffl_update(x, x, x, 0.03)
     ops.leaf_dsgld_update(x, x, x, 1e-4)
+    kernels.gossip_mix(x, torch.tensor([[1, 0]], dtype=torch.int32),
+                       torch.full((1, 2), 0.5), 0.0, True)
     assert kernels.launch_counts() == {
         "pack": 0, "delta_pack": 0, "unpack": 0, "fused_update": 0,
         "grid_quant": 0, "qsgd": 0, "block_topk": 0, "threefry": 0,
         "topk_select": 0, "unpack_set": 0, "cffl_update": 0,
-        "dsgld_update": 0}
+        "dsgld_update": 0, "gossip_mix": 0}
 
 
 def test_meta_tensors_give_payload_shapes():

@@ -221,3 +221,48 @@ def test_round_keys_cost_one_launch_a_level(monkeypatch):
     # per-leaf splits; 2 bit streams, 10 noise leaves, 10 uniform leaves
     assert calls == [1, 2, 3, 3, 2 + 10 + 10]
     assert idx.shape == (3, 2, 5) and len(uniforms) == 10
+
+
+# -- permutation and choice (ROADMAP C15) ----------------------------------
+
+@pytest.mark.parametrize("n", list(range(1, 33)))
+def test_permutation_and_choice_equal_reference(n):
+    """``jax.random.permutation(key, n)`` and ``choice(key, n, (d,),
+    replace=False)`` for every d <= n, over 12 keys: exact (one stable sort
+    of 32-bit keys below 1,626 elements, none for one element)."""
+    for seed in range(12):
+        jkey = jax.random.fold_in(jax.random.PRNGKey(seed), n)
+        key = _key(jkey)
+        got = random.permutation(key, n)
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jax.random.permutation(jkey, n)))
+        for d in sorted({1, (n + 1) // 2, n}):
+            np.testing.assert_array_equal(
+                random.choice(key, n, (d,), replace=False).numpy(),
+                np.asarray(jax.random.choice(jkey, n, (d,), replace=False)))
+    assert random.shuffle_rounds(n) == (0 if n == 1 else 1)
+
+
+@pytest.mark.parametrize("n", [1626, 4099])
+def test_permutation_of_two_sorts_equals_reference(n):
+    """Past 1,625 elements ``_shuffle`` sorts twice, each under a fresh
+    split of the key."""
+    assert random.shuffle_rounds(n) == 2
+    jkey = jax.random.PRNGKey(n)
+    np.testing.assert_array_equal(random.permutation(_key(jkey), n).numpy(),
+                                  np.asarray(jax.random.permutation(jkey, n)))
+
+
+def test_choice_with_replacement_and_batched_keys_equal_reference():
+    """``replace=True`` is ``randint(key, shape, 0, n)``; a batch of keys
+    draws one stream a key, as ``vmap`` does; too large a sample raises."""
+    jkeys = jax.random.split(jax.random.PRNGKey(3), 4)
+    got = random.choice(_key(jkeys), 9, (2, 5))
+    want = jax.vmap(lambda k: jax.random.choice(k, 9, (2, 5)))(jkeys)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    got = random.choice(_key(jkeys), 9, (4,), replace=False)
+    want = jax.vmap(lambda k: jax.random.choice(k, 9, (4,),
+                                                replace=False))(jkeys)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(ValueError, match="larger sample"):
+        random.choice(_key(jkeys[0]), 3, (4,), replace=False)

@@ -5,6 +5,7 @@ PyTorch port's tests and for ``chip_smoke.py``, which reads them on the card.
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py seeded-rounds
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py baseline-rounds
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py serve-bma
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py topology-rounds
 
 ``threefry`` writes ``tests/golden/threefry_draws.npz``: ``jax.random``'s
 keys, bits, uniforms, normals, truncated normals and randints for the cases
@@ -26,6 +27,17 @@ the same record for the paper's default run and its two baselines, the
 same configuration at ``FedConfig``'s default ``fused_compress=False``
 (the ``lax.top_k``-order ``block_topk`` codec) under ``algorithm`` cdbfl,
 dsgld and cffl, one record each under its algorithm's name.
+
+``topology-rounds`` writes ``tests/golden/topology_rounds_lenet_radar.json``:
+the same record for three runs off the default configuration
+(:data:`TOPOLOGY_RUNS`): ``FedConfig()``'s cdbfl on the ``ring`` (the
+roll lowering of ROADMAP C14), and cdbfl and dsgld on the geometric graph
+of radius 0.5 with link dropout 0.1 and 2 gossip pairs a round (7
+matchings at K=10), each round's realized ``(M, K)`` mask included
+(``_matching_masks`` on the round's ``kmix``, as its round draws it);
+and, under ``cli``, the ``arch=``, ``wire accounting:`` and ``topology=``
+lines the reference's training CLI prints for :data:`TOPOLOGY_CLI_ARGV`
+(run with ``--rounds 0``: the lines are functions of shapes and numpy).
 
 ``serve-bma`` writes ``tests/golden/serve_bma_lenet_radar.npz``: the
 reference's BMA probabilities and predictive entropies
@@ -55,6 +67,7 @@ THREEFRY_FILE = GOLDEN / "threefry_draws.npz"
 SEEDED_ROUNDS_FILE = GOLDEN / "seeded_rounds_lenet_radar.json"
 BASELINE_ROUNDS_FILE = GOLDEN / "baseline_rounds_lenet_radar.json"
 SERVE_BMA_FILE = GOLDEN / "serve_bma_lenet_radar.npz"
+TOPOLOGY_ROUNDS_FILE = GOLDEN / "topology_rounds_lenet_radar.json"
 
 # (name, function, seed, arguments): one ``jax.random`` call each
 THREEFRY_CASES = [
@@ -191,16 +204,88 @@ def baseline_config(algorithm: str) -> dict:
                                         algorithm=algorithm))
 
 
+# the geometric graph of the topology runs: 7 matchings at K=10, 2 a round
+GEOMETRIC_TV = dict(graph="geometric", radius=0.5, link_failure_prob=0.1,
+                    gossip_pairs=2)
+# chip_smoke.py's phase-9 runs: the paper-default configuration on another
+# graph (``topology`` or a TopologyConfig's fields), one an algorithm
+TOPOLOGY_RUNS = {
+    "cdbfl-ring": dict(baseline_config("cdbfl"),
+                       fed=dict(baseline_config("cdbfl")["fed"],
+                                topology="ring")),
+    "cdbfl-geometric-tv": dict(baseline_config("cdbfl"),
+                               topology_cfg=GEOMETRIC_TV),
+    "dsgld-geometric-tv": dict(baseline_config("dsgld"),
+                               topology_cfg=GEOMETRIC_TV),
+}
+
+
+# chip_smoke.py's phase-9 CLI run (it adds --rounds 4 and --ckpt-dir)
+TOPOLOGY_CLI_ARGV = [
+    "--arch", "lenet-radar", "--nodes", "10", "--local-steps", "8",
+    "--batch", "10", "--zeta", "0.03", "--topology", "geometric",
+    "--radius", "0.5", "--link-failure", "0.1", "--gossip-pairs", "2",
+    "--fused-compress", "--layer-pipelines",
+    "fc1=block_topk|qsgd;*=block_topk", "--bank-capacity", "2",
+    "--burn-in", "2", "--eval-every", "2"]
+CLI_HEADS = ("arch=", "wire accounting:", "topology=")
+
+
+def reference_cli_lines(argv) -> list:
+    """The header lines (:data:`CLI_HEADS`) the reference's training CLI
+    prints for ``argv``, run in-process with ``--rounds 0``."""
+    import contextlib
+    import io
+    from repro.launch import train
+    out, saved = io.StringIO(), sys.argv
+    sys.argv = ["train"] + list(argv) + ["--rounds", "0"]
+    try:
+        with contextlib.redirect_stdout(out):
+            train.main()
+    finally:
+        sys.argv = saved
+    return [ln for ln in out.getvalue().splitlines()
+            if ln.startswith(CLI_HEADS)]
+
+
+def round_masks(fed, omega, key, rounds: int):
+    """The ``(M, K)`` masks the reference's time-varying mixer draws in the
+    first ``rounds`` rounds of a host-engine run whose key is ``key``: round
+    key ``kround`` from ``key, kround = split(key)``, ``kmix`` as the round
+    derives it (``fold_in(kround, 2)``; DSGLD's ``split(kround)[1]``).
+    ``tests/test_torch_gossip.py`` holds this derivation to the masks the
+    reference's jitted rounds apply
+    (``test_recorded_masks_are_the_masks_the_rounds_apply``)."""
+    import jax
+    from repro.core.gossip import _matching_masks, plan_mixer
+    from repro.core.topology import resolve_topology
+    tc = resolve_topology(fed)
+    mode, sched = plan_mixer(omega, tc)
+    if mode != "schedule_tv":
+        return None
+    out = []
+    for _ in range(rounds):
+        key, kround = jax.random.split(key)
+        kmix = (jax.random.split(kround)[1] if fed.algorithm == "dsgld"
+                else jax.random.fold_in(kround, 2))
+        out.append(np.asarray(_matching_masks(
+            sched, kmix, tc.link_failure_prob, tc.gossip_pairs)).tolist())
+    return out
+
+
 def seeded_rounds(c: dict, command: str) -> dict:
     """The reference's host-engine run of configuration ``c``."""
-    from repro.config import FedConfig, get_arch
+    import jax
+    from repro.config import FedConfig, TopologyConfig, get_arch
     from repro.data.partition import partition_iid
     from repro.data.radar import make_dataset
     from repro.models import get_model
     from repro.train import FedTrainer
     arch = get_arch(c["arch"])
     cfg = arch.reduced if c["reduced"] else arch.config
-    fed = FedConfig(rounds=c["rounds"], **c["fed"])
+    tc = c.get("topology_cfg")
+    fed = FedConfig(rounds=c["rounds"], **c["fed"], **(
+        {"topology_cfg": TopologyConfig(**tc)} if tc else {}))
     train = make_dataset(c["train_maps"], hw=cfg.input_hw, day=1,
                          seed=c["data_seed"])
     t0 = time.time()
@@ -209,7 +294,7 @@ def seeded_rounds(c: dict, command: str) -> dict:
                          minibatch=c["minibatch"], seed=c["seed"],
                          engine="host")
     res = trainer.run(rounds=c["rounds"])
-    return {
+    record = {
         "command": "JAX_PLATFORMS=cpu PYTHONPATH=src python "
                    f"tests/torch_golden.py {command}",
         "reference": "repro.train.FedTrainer(engine='host') on the CPU",
@@ -219,6 +304,11 @@ def seeded_rounds(c: dict, command: str) -> dict:
         "wire_bytes": [float(x) for x in res.wire_history],
         "seconds": time.time() - t0,
     }
+    if tc or c["fed"].get("topology", "full") != "full":
+        record["masks"] = round_masks(fed, trainer.omega,
+                                      jax.random.PRNGKey(c["seed"] + 1),
+                                      c["rounds"])
+    return record
 
 
 def write_seeded_rounds() -> None:
@@ -232,6 +322,17 @@ def write_baseline_rounds() -> None:
                for alg in BASELINE_ALGORITHMS}
     BASELINE_ROUNDS_FILE.write_text(json.dumps(records, indent=1) + "\n")
     print(f"wrote {BASELINE_ROUNDS_FILE}: {records}")
+
+
+def write_topology_rounds() -> None:
+    records = {name: seeded_rounds(c, "topology-rounds")
+               for name, c in TOPOLOGY_RUNS.items()}
+    records["cli"] = {"argv": TOPOLOGY_CLI_ARGV,
+                      "lines": reference_cli_lines(TOPOLOGY_CLI_ARGV)}
+    TOPOLOGY_ROUNDS_FILE.write_text(json.dumps(records, indent=1) + "\n")
+    print(f"wrote {TOPOLOGY_ROUNDS_FILE}: "
+          f"{ {n: (r['loss'], r['wire_bytes']) for n, r in records.items() if n != 'cli'} }; "
+          f"{records['cli']['lines']}")
 
 
 # the serving CLI's synthetic bank and requests (launch/serve.py defaults)
@@ -270,4 +371,5 @@ if __name__ == "__main__":
         {"threefry": write_threefry,
          "seeded-rounds": write_seeded_rounds,
          "baseline-rounds": write_baseline_rounds,
-         "serve-bma": write_serve_bma}[name]()
+         "serve-bma": write_serve_bma,
+         "topology-rounds": write_topology_rounds}[name]()
