@@ -135,30 +135,33 @@ Phases, each of which fails the run by raising:
              0.5 with link dropout 0.1 and 2 gossip pairs (7 matchings),
              each on the host engine: bytes and each round's (M, K) masks
              (those the engine hands the round) exact, loss and consensus
-             within rtol 1e-3, gossip_mix
-             launched, at most 6 threefry launches a round; the cdbfl
-             geometric run on the scan engine (chunks of 2) against its
-             host run bit for bit; then ``repro_torch.launch.train`` with
+             within rtol 1e-3, gossip_mix launched once a round, at
+             most 6 threefry launches a round; the cdbfl geometric run
+             on the scan engine (chunks of 2) against its host run bit
+             for bit; then ``repro_torch.launch.train`` with
              the recorded flags (--fused-compress, per-layer
              fc1=block_topk|qsgd, a bank of 2, evals at 2 and 4), its
              launch counts set to 0 just before and read just after: its
              arch=, wire accounting: and topology= lines equal to the
              reference CLI's, delta-pack, unpack, grid_quant,
-             fused_update, threefry and gossip_mix launched, and
+             fused_update, threefry and gossip_mix launched (gossip_mix
+             once a mix: 3), and
              ``repro_torch.launch.serve`` serving its snapshot; last, the
              default cdbfl run on the full graph, the ring and the
              geometric graph static and time-varying: a replayed chunk's
              ms a round, device ms and idle, the mixer's ms a round (a
              trace's device time and CUDA events), and
-             threefry's and gossip_mix's launches a round.
+             threefry's and gossip_mix's launches a round (gossip_mix
+             once a round on the sparse graphs, never on the full one).
 
 Phase 2 also holds gossip_mix, the sparse mixers' fma chain (ROADMAP
-C16), to its plain version on the card at the 10 full-width leaves under
-both of phase 9's lowerings (7 masked matchings, 2 ring shifts) and on
-edge leaves (±inf, a NaN, signed zeros; a NaN equals any NaN), and times
-one round's mix beside its bound, its plain version and one einsum of
-the realized Ω_t. It holds the kernels of phase 7's path to their plain versions,
-exactly: topk_select (the lax.top_k-order selection, with and without v),
+C16), to its plain version on the card as one table launch over the 10
+full-width leaves and edge leaves (±inf, a NaN, signed zeros, an
+unaligned leaf; a NaN equals any NaN) under both of phase 9's lowerings
+(7 masked matchings, 2 ring shifts) and ``ring_mix``'s ring form, and
+times one round's mix on each lowering, one launch, beside its bound,
+its plain version and one einsum of its Ω. It holds the kernels of phase
+7's path to their plain versions, exactly: topk_select (the lax.top_k-order selection, with and without v),
 unpack_set (its decode) and fused_update's CF-FL and DSGLD variants, at
 the full-width leaf shapes (each leaf with its own k), at edge leaves (NaN
 payloads, ±inf, ties, -0.0, ragged, short leaves, a k-th magnitude 2^30
@@ -327,9 +330,9 @@ KERNELS = {
                      "src/repro/core/algorithms.py:515"),
     # the sparse gossip mixers' fma chain (ROADMAP C16): jnp in the
     # reference, no pl.pallas_call
-    "gossip_mix": ("src/repro_torch/kernels/csrc/fused_update.cu",
-                   "none (no pl.pallas_call): jnp schedule and roll "
-                   "mixers, src/repro/core/gossip.py:158 and :80"),
+    "gossip_mix": ("src/repro_torch/kernels/csrc/gossip_mix.cu",
+                   "none (no pl.pallas_call): jnp schedule, roll and "
+                   "ring mixers, src/repro/core/gossip.py:158 and :80"),
 }
 # the seven kernels that replace a pl.pallas_call
 TPU_KERNELS = ("pack", "delta_pack", "unpack", "fused_update", "grid_quant",
@@ -1110,10 +1113,12 @@ def time_default_kernels(shapes):
 # --------------------------------------------------------------------------
 
 def mix_terms():
-    """The two lowerings phase 9 runs at K=10, as ``(label, src, w, c0,
-    laplacian, Ω)``: the time-varying geometric graph's 7 matchings under
-    one round's masks (Laplacian form) and the ring's two shifts (roll
-    form), each with the dense Ω_t it computes, for the library call."""
+    """The two lowerings phase 9 runs at K=10 and ``ring_mix``'s form, as
+    ``(label, src, w, c0, form, Ω)``: the time-varying geometric graph's 7
+    matchings under one round's masks (Laplacian form), the ring's two
+    shifts (circulant form, the roll lowering) and the ring's ``fma(ω₀₀, x,
+    ω₀₁·(x[k−1] + x[k+1]))`` (ring form), each with the dense Ω_t it
+    computes, for the library call."""
     from repro_torch.core import gossip
     from repro_torch.core.topology import build_topology
     tv = TopologyConfig(**GEOMETRIC_TV)
@@ -1127,16 +1132,21 @@ def mix_terms():
         for k in range(K):
             om[k, perm[k]] += wm[k]
             om[k, k] -= wm[k]
-    out = [("geometric-tv", src, w, 0.0, True, om)]
+    out = [("geometric-tv", src, w, 0.0, "laplacian", om)]
     ring = TopologyConfig(graph="ring")
-    sched = gossip.make_mixer(build_topology(ring, K).omega, DEVICE,
-                              config=ring).schedule
+    ring_omega = build_topology(ring, K).omega
+    sched = gossip.make_mixer(ring_omega, DEVICE, config=ring).schedule
     terms = gossip._roll_terms(sched, DEVICE)
     om = np.zeros((K, K))
     for shift, c in zip(sched.shifts, sched.coeffs):
         for k in range(K):
             om[k, (k + shift) % K] += c
-    out.append(("ring", terms.src, terms.w, terms.c0, False, om))
+    out.append(("ring", terms.src, terms.w, terms.c0, terms.form, om))
+    rows = torch.arange(K, dtype=torch.int32, device=DEVICE)
+    out.append(("ring_mix", torch.stack([(rows - 1) % K, (rows + 1) % K]),
+                torch.full((2, K), float(np.float32(ring_omega[0, 1])),
+                           device=DEVICE),
+                float(np.float32(ring_omega[0, 0])), "ring", ring_omega))
     return out
 
 
@@ -1150,10 +1160,11 @@ def same_or_both_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def check_gossip_mix(shapes):
-    """gossip_mix against its plain version on the card, bit for bit, on the
-    10 full-width leaves (K=10) under both lowerings of phase 9, and on edge
-    leaves (signed zeros, a NaN, ±inf; n = 4099 and 1), where a NaN equals
-    any NaN."""
+    """gossip_mix against its plain version on the card, bit for bit: one
+    table launch over the 10 full-width leaves (K=10) and the edge leaves
+    (signed zeros, a NaN, ±inf; n = 4099, an unaligned 4096 and 1), under
+    both lowerings of phase 9 and ``ring_mix``'s form; a NaN equals any
+    NaN."""
     gen = torch.Generator(device=DEVICE).manual_seed(9)
     leaves = [torch.randn((K, int(np.prod(s))), generator=gen, device=DEVICE)
               for _, s in shapes]
@@ -1161,12 +1172,18 @@ def check_gossip_mix(shapes):
     edge[:, :3] = -0.0
     edge[1, 5], edge[2, 6], edge[3, 7] = float("nan"), float("inf"), \
         -float("inf")
-    leaves += [edge, edge[:, :1].contiguous()]
+    unaligned = edge.reshape(-1)[1:1 + K * 4096].view(K, 4096)
+    leaves += [edge, unaligned, edge[:, :1].contiguous()]
     err = 0.0
-    for label, src, w, c0, lap, _ in mix_terms():
-        for x in leaves:
-            got = gossip_mix(x, src, w, c0, lap)
-            want = gossip_mix_plain(x, src, w, c0, lap)
+    for label, src, w, c0, form, _ in mix_terms():
+        before = gossip_mix.launches
+        mixed = gossip_mix(leaves, src, w, c0, form)
+        if gossip_mix.launches - before != 1:
+            raise AssertionError(f"gossip_mix ({label}): "
+                                 f"{gossip_mix.launches - before} launches "
+                                 f"for a table of {len(leaves)} leaves")
+        for x, got in zip(leaves, mixed):
+            want = gossip_mix_plain(x, src, w, c0, form)
             if not same_or_both_nan(got, want):
                 raise AssertionError(f"gossip_mix ({label}) differs from its "
                                      f"plain version at {tuple(x.shape)}")
@@ -1174,46 +1191,61 @@ def check_gossip_mix(shapes):
             fin = torch.isfinite(got) & torch.isfinite(want)
             err = max(err, max_abs_err(torch.where(fin, got, 0.0),
                                        torch.where(fin, want, 0.0)))
-        log("kernels", f"gossip_mix ({label}, {src.shape[0]} terms): "
-                       f"bit-exact to its plain version on the 10 "
-                       f"full-width leaves and the edge leaves "
-                       f"(max abs err {err:g} on the finite outputs)")
+        log("kernels", f"gossip_mix ({label}, {form} form, {src.shape[0]} "
+                       f"terms): one launch over the 10 full-width leaves "
+                       f"and the {len(leaves) - len(shapes)} edge leaves, "
+                       f"bit-exact to its plain version (max abs err "
+                       f"{err:g} on the finite outputs)")
     return {"gossip_mix": err}
 
 
+# f32 operations an element of each form: M subtractions and fmas (an fma
+# is 2); a product and M fmas; an add, a product and an fma
+MIX_OPS = {"laplacian": lambda m: 3 * m, "circulant": lambda m: 2 * m + 1,
+           "ring": lambda m: 4}
+
+
 def time_gossip_mix(shapes):
-    """A round's mix of the 10 full-width leaves (K=10) on the time-varying
-    geometric graph: one gossip_mix launch a leaf (7 matchings), beside its
-    plain version, its bound and one ``torch.einsum`` of the realized Ω_t
-    over all the leaves at once (the dense lowering C14 replaced)."""
+    """A round's mix of the 10 full-width leaves (K=10), one table launch,
+    on the time-varying geometric graph (7 matchings) and on the ring (2
+    shifts), each beside its plain version, its bound and one
+    ``torch.einsum`` of its own Ω over all the leaves at once (the dense
+    lowering C14 replaced). The kernels line takes the geometric graph's."""
     gen = torch.Generator(device=DEVICE).manual_seed(10)
     xs = [torch.randn((K, int(np.prod(s))), generator=gen, device=DEVICE)
           for _, s in shapes]
-    _, src, w, c0, lap, om = mix_terms()[0]
     flat = torch.cat(xs, dim=1)
-    om_t = torch.as_tensor(om, dtype=torch.float32, device=DEVICE)
     total = flat.numel()
-    nbytes = 2 * total * 4 + src.numel() * 8
-    ops = 3 * src.shape[0] * total
-    b_ms, b_by = bound(nbytes, ops)
-    kern = lambda: [gossip_mix(x, src, w, c0, lap) for x in xs]  # noqa: E731
-    plain = lambda: [gossip_mix_plain(x, src, w, c0, lap)  # noqa: E731
-                     for x in xs]
-    lib = lambda: torch.einsum("kj,jn->kn", om_t, flat)  # noqa: E731
-    readings = traced_readings([kern])
-    r = dict(ms=device_ms(kern), plain_ms=device_ms(plain, reps=3, per_rep=2),
-             device_ms=readings and statistics.median(readings),
-             plain_device_ms=traced_ms([plain]), bound_ms=b_ms, bound_by=b_by,
-             nbytes=nbytes, ops=ops, library_ms=traced_ms([lib]))
-    log("kernels", f"gossip_mix per round (10 leaves, K={K}, 7 matchings): "
-                   f"device {fmt_ms(r['device_ms'])} (median of the traces' "
-                   f"{readings and [round(x, 4) for x in readings]}), "
-                   f"event-timed {r['ms']:.4f} ms; plain: device "
-                   f"{fmt_ms(r['plain_device_ms'])}, event-timed "
-                   f"{r['plain_ms']:.4f} ms; library (einsum of Ω_t) "
-                   f"{fmt_ms(r['library_ms'])}; bound {b_ms:.4f} ms "
-                   f"({b_by}: {nbytes:.0f} B, {ops:.0f} ops)")
-    return {"gossip_mix": r}
+    out = {}
+    for label, src, w, c0, form, om in mix_terms()[:2]:
+        om_t = torch.as_tensor(om, dtype=torch.float32, device=DEVICE)
+        nbytes = 2 * total * 4 + src.numel() * 8
+        ops = MIX_OPS[form](src.shape[0]) * total
+        b_ms, b_by = bound(nbytes, ops)
+        kern = lambda: gossip_mix(xs, src, w, c0, form)  # noqa: E731
+        plain = lambda: [gossip_mix_plain(x, src, w, c0, form)  # noqa: E731
+                         for x in xs]
+        lib = lambda: torch.einsum("kj,jn->kn", om_t, flat)  # noqa: E731
+        readings = traced_readings([kern])
+        r = dict(ms=device_ms(kern),
+                 plain_ms=device_ms(plain, reps=3, per_rep=2),
+                 device_ms=readings and statistics.median(readings),
+                 plain_device_ms=traced_ms([plain]), bound_ms=b_ms,
+                 bound_by=b_by, nbytes=nbytes, ops=ops,
+                 library_ms=traced_ms([lib]))
+        log("kernels", f"gossip_mix per round ({label}: 10 leaves, K={K}, "
+                       f"{src.shape[0]} terms, one launch): device "
+                       f"{fmt_ms(r['device_ms'])} (median of the traces' "
+                       f"{readings and [round(x, 4) for x in readings]}), "
+                       f"event-timed {r['ms']:.4f} ms; plain: device "
+                       f"{fmt_ms(r['plain_device_ms'])}, event-timed "
+                       f"{r['plain_ms']:.4f} ms; library (einsum of its Ω) "
+                       f"{fmt_ms(r['library_ms'])}; bound {b_ms:.4f} ms "
+                       f"({b_by}: {nbytes:.0f} B, {ops:.0f} ops)"
+                       + (f", {100 * b_ms / r['device_ms']:.0f}% of it"
+                          if r['device_ms'] else ""))
+        out.setdefault("gossip_mix", r)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1668,7 +1700,7 @@ TRACE_NAMES = {kname: re.compile(pattern) for kname, pattern in {
     "topk_select": r"topk_select_kernel", "unpack_set": r"unpack_set_kernel",
     "cffl_update": r"fused_update_\w+<1>",
     "dsgld_update": r"fused_update_\w+<2>",
-    "gossip_mix": r"gossip_mix_kernel"}.items()}
+    "gossip_mix": r"gossip_mix_(tiles|rows)"}.items()}
 # tries at a whole trace, and the least launches of its warm-up (profiled)
 TRACE_ATTEMPTS, WARM_LAUNCHES = 4, 32
 # the traced round each kernel's in-round device time is read from
@@ -2289,6 +2321,9 @@ def run_serve(train, test, shift) -> dict:
 # kernel order, the rest block_topk, on the time-varying geometric graph)
 TRAIN_LAUNCHED = ("delta_pack", "unpack", "grid_quant", "fused_update",
                   "threefry", "gossip_mix")
+# the CLI's mixes that launch: its warm-up round and a capture of 2 rounds
+# (the replays count none), one gossip_mix table launch each
+CLI_MIX_LAUNCHES = 3
 # phase 9's timed graphs: overrides of the paper-default cdbfl run
 GRAPH_TIMINGS = {
     "full": dict(topology="full"), "ring": dict(topology="ring"),
@@ -2365,9 +2400,10 @@ def check_topology_rounds(train) -> None:
                 raise AssertionError(f"{name}: masks differ from the "
                                      f"reference's")
         if mixer.mode not in ("schedule", "schedule_tv") or \
-                launches["gossip_mix"] <= 0:
+                launches["gossip_mix"] != n:
             raise AssertionError(f"{name}: mixer {mixer.mode}, gossip_mix "
-                                 f"launched {launches['gossip_mix']} times")
+                                 f"launched {launches['gossip_mix']} times "
+                                 f"in {n} rounds (one table launch a round)")
         if launches["threefry"] > MAX_DRAW_LAUNCHES_A_ROUND * n:
             raise AssertionError(f"{name}: {launches['threefry']} threefry "
                                  f"launches in {n} rounds")
@@ -2451,6 +2487,10 @@ def run_train_cli() -> dict:
                      f"{ {k: v for k, v in launches.items() if v} }")
         if missing:
             raise AssertionError(f"the CLI never launched {missing}")
+        if launches["gossip_mix"] != CLI_MIX_LAUNCHES:
+            raise AssertionError(f"the CLI launched gossip_mix "
+                                 f"{launches['gossip_mix']} times, not once "
+                                 f"a mix ({CLI_MIX_LAUNCHES})")
         resps = serve_cli.main(["--ckpt-dir", d, "--requests", "16",
                                 "--smoke"])
         if len(resps) != 16:
@@ -2467,7 +2507,8 @@ def time_graphs(train) -> None:
     chunk of 2 (ms a round, device ms, idle, as phase 5 times it), the
     mixer's ms a round (its 10 leaves: the trace's device time, and CUDA
     events around the calls, host launches included), threefry's and
-    gossip_mix's launches a round (two host-engine rounds)."""
+    gossip_mix's launches a round (two host-engine rounds: one table
+    launch a round on the sparse graphs, none on the full graph)."""
     from repro_torch.train import FedTrainer
     cfg = get_arch("lenet-radar", reduced=REDUCED)
     log("train", f"timings on {card_line()}")
@@ -2480,6 +2521,10 @@ def time_graphs(train) -> None:
         host.run(rounds=2)
         counts = kernels.launch_counts()
         mixer = host.round_fn.mixer
+        if counts["gossip_mix"] != (0 if mixer.mode == "dense" else 2):
+            raise AssertionError(f"{name} ({mixer.mode}): gossip_mix "
+                                 f"launched {counts['gossip_mix']} times in "
+                                 f"2 rounds")
         masks = (mixer.masks(random.fold_in(host.key, 2))
                  if mixer.masks is not None else None)
         delta = host.state.v

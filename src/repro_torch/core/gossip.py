@@ -10,7 +10,8 @@
 * :func:`make_mixer` — the lowering :func:`plan_mixer` picks for Ω, as the
   reference's ``make_mixer`` runs it: identity, dense, roll or schedule.
 
-Both sparse paths run the gossip_mix kernel a leaf (its plain version on
+Both sparse paths, and the back-compat :func:`ring_mix`, run the
+gossip_mix kernel, one launch over the tree's leaves (its plain version on
 the CPU): XLA's CPU code contracts each matching's ``out + w·(x[perm] −
 x)`` and each shift's ``+ c·roll(x, −s)`` into an fma (ROADMAP C16), so
 the port's chain of single-rounding fmas is bit-exact to the jitted
@@ -31,7 +32,8 @@ import torch
 from repro_torch import random
 from repro_torch.config import TopologyConfig
 from repro_torch.core.topology import MixSchedule, build_schedule
-from repro_torch.kernels.fused_update import fma_f32, gossip_mix
+from repro_torch.kernels.fused_update import (CIRCULANT, LAPLACIAN, RING,
+                                              gossip_mix)
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -43,22 +45,27 @@ def dense_mix(omega: torch.Tensor, tree):
 
 
 class _Terms:
-    """A lowering's ``(M, K)`` source rows and weights on the device: the
-    matchings' perms and weights (Laplacian form), or the shifts' rows
-    ``(k + s) mod K`` and coefficients after the shift-0 one (roll form)."""
+    """A lowering's ``(M, K)`` source rows and weights on the device, in a
+    form of the gossip_mix kernel: the matchings' perms and weights
+    (Laplacian), the shifts' rows ``(k + s) mod K`` and coefficients after
+    the shift-0 one (circulant), or the ring's rows ``k ∓ 1`` (ring)."""
 
-    def __init__(self, src: np.ndarray, w: np.ndarray, device,
-                 laplacian: bool, c0: float = 0.0):
+    def __init__(self, src: np.ndarray, w: np.ndarray, device, form: str,
+                 c0: float = 0.0):
         self.src = torch.as_tensor(np.asarray(src, np.int32), device=device)
         self.w = torch.as_tensor(np.asarray(w, np.float32), device=device)
-        self.laplacian = laplacian
+        self.form = form
         self.c0 = c0
 
     def mix(self, tree, w: Optional[torch.Tensor] = None):
+        """Every leaf of ``tree`` in one gossip_mix call, each cast to f32
+        and back."""
         w = self.w if w is None else w
-        return tree_map(lambda d: gossip_mix(
-            d.float().contiguous(), self.src, w, self.c0,
-            self.laplacian).to(d.dtype), tree)
+        leaves = []
+        tree_map(leaves.append, tree)           # tree_map's order, twice
+        mixed = iter(gossip_mix([d.float().contiguous() for d in leaves],
+                                self.src, w, self.c0, self.form))
+        return tree_map(lambda d: next(mixed).to(d.dtype), tree)
 
 
 def _roll_terms(schedule: MixSchedule, device) -> _Terms:
@@ -71,38 +78,26 @@ def _roll_terms(schedule: MixSchedule, device) -> _Terms:
     c0 = dict(zip(schedule.shifts, schedule.coeffs)).get(0, 0.0)
     src = np.array([(rows + s) % k for s, _ in pairs]).reshape(-1, k)
     w = np.array([np.full(k, c, np.float32) for _, c in pairs]).reshape(-1, k)
-    return _Terms(src, w, device, laplacian=False, c0=c0)
+    return _Terms(src, w, device, CIRCULANT, c0=c0)
 
 
 def ring_mix(omega: np.ndarray, tree):
     """The circulant ring by rolls (the reference's back-compat alias):
     ``ω₀₀·x + ω₀₁·(roll(x, 1) + roll(x, −1))``, which XLA contracts into
     ``fma(ω₀₀, x, ω₀₁·(roll(x, 1) + roll(x, −1)))`` (the first product,
-    where ``_roll_mix``'s sums fuse the later ones: ROADMAP C16); dense
-    below K = 3, on the leaves' device. Not on the port's main path, and
-    CPU leaves only from K = 3 on: no kernel computes this contraction, so
-    a card's leaves raise, naming :func:`make_mixer`, whose roll path runs
-    the gossip_mix kernel."""
+    where ``_roll_mix``'s sums fuse the later ones: ROADMAP C16), the
+    gossip_mix kernel's ring form; dense below K = 3. On the leaves'
+    device; not on the port's main path."""
     k = omega.shape[0]
     leaves = tree_leaves(tree)
+    device = leaves[0].device if leaves else "cpu"
     if k < 3:
-        device = leaves[0].device if leaves else "cpu"
         return dense_mix(torch.as_tensor(np.asarray(omega, np.float32),
                                          device=device), tree)
-    if any(d.device.type != "cpu" for d in leaves):
-        raise ValueError("ring_mix runs on CPU leaves only; on the card "
-                         "mix a ring with make_mixer(omega, device, "
-                         "config=TopologyConfig(graph='ring')), whose roll "
-                         "path runs the gossip_mix kernel")
-    w_self, w_side = float(np.float32(omega[0, 0])), \
-        float(np.float32(omega[0, 1]))
-
-    def leaf(d):
-        x = d.float()
-        return fma_f32(w_self, x, w_side * (torch.roll(x, 1, 0)
-                                            + torch.roll(x, -1, 0))
-                       ).to(d.dtype)
-    return tree_map(leaf, tree)
+    rows = np.arange(k)
+    side = np.full((2, k), omega[0, 1], np.float32)
+    return _Terms(np.stack([(rows - 1) % k, (rows + 1) % k]), side, device,
+                  RING, c0=float(np.float32(omega[0, 0]))).mix(tree)
 
 
 def _p_active(link_failure_prob) -> bool:
@@ -184,7 +179,7 @@ def schedule_mix(schedule: MixSchedule, tree, key=None, *,
                                         or 0 < gossip_pairs < m)
     if not time_varying and schedule.shifts is not None:
         return _roll_terms(schedule, device).mix(tree)
-    terms = _Terms(schedule.perms, schedule.weights, device, laplacian=True)
+    terms = _Terms(schedule.perms, schedule.weights, device, LAPLACIAN)
     w = None
     if time_varying:
         w = terms.w * matching_masks(schedule, key, link_failure_prob,
@@ -268,12 +263,12 @@ def make_mixer(omega: np.ndarray, device="cuda",
     else:
         static = (_roll_terms(schedule, device) if schedule.shifts
                   is not None else _Terms(schedule.perms, schedule.weights,
-                                          device, laplacian=True))
+                                          device, LAPLACIAN))
         if mode == "schedule_tv":
             p_drop = _tv_probs(schedule, config, link_probs)
             pairs = int(config.gossip_pairs) if config is not None else 0
             laplace = _Terms(schedule.perms, schedule.weights, device,
-                             laplacian=True)
+                             LAPLACIAN)
             masks = _MaskPlan(schedule, p_drop, pairs, device).masks
 
             def mix(tree, key=None, node_mask=None, *, masks=None):

@@ -24,8 +24,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).with_name("csrc")
-SOURCES = ("pack.cu", "fused_compress.cu", "fused_update.cu", "block_topk.cu",
-           "qsgd.cu", "threefry.cu")
+SOURCES = ("pack.cu", "fused_compress.cu", "fused_update.cu", "gossip_mix.cu",
+           "block_topk.cu", "qsgd.cu", "threefry.cu")
 HEADERS = ("pack_tile.cuh", "qsgd_round.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
@@ -41,7 +41,7 @@ _SIGNATURES = {
     "repro_fused_update": [_P, _P, _P, _P, _P, _L, _F, _F, _P],
     "repro_cffl_update": [_P, _P, _P, _P, _L, _F, _P],
     "repro_dsgld_update": [_P, _P, _P, _P, _L, _F, _P],
-    "repro_gossip_mix": [_P, _P, _L, _L, _P, _P, _I, _I, _F, _P],
+    "repro_gossip_mix": [_PP, _PP, _PL, _I, _L, _P, _P, _I, _I, _F, _P],
     "repro_topk_select": [_PP, _PP, _PL, _PL, _PI, _PL, _I, _L, _P, _P, _P],
     "repro_unpack_set": [_PP, _PP, _PP, _PL, _PL, _PI, _I, _L, _P],
     "repro_block_topk": [_P, _P, _L, _L, _L, _I, _P],

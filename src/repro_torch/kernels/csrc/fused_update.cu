@@ -24,17 +24,6 @@
 //            ξ the scaled noise: fma(−η, g, m) + ξ; the SGLD step (:662-668)
 //            is the same expression.
 //
-// gossip_mix is the gossip mixers' fma chain over the node axis (ROADMAP
-// C16), with no pl.pallas_call behind it either (the reference mixes in
-// jnp, src/repro/core/gossip.py:80-90 and :158-197). Row k of a (K, n)
-// leaf x becomes, over M terms m with source row src[m][k] and weight
-// w[m][k]:
-//   Laplacian (the schedule mixer): a = x[k];       a = fma(w, x[src] − x[k], a)
-//   circulant (the roll mixer):     a = c0 · x[k];  a = fma(w, x[src], a)
-// which is how XLA's CPU code contracts `out + w·(x[perm] − x)` and
-// `Σ_s c_s·roll(x, −s)`. The weights are read from device memory, so a
-// time-varying round's masked weights never leave the card.
-//
 // What bounds it on an H100: bytes. Four f32 reads and one f32 write per
 // element at 3.35 TB/s (three and one for the variants); 3 flops an element
 // are nothing beside them.
@@ -129,47 +118,7 @@ int launch_update(const float* a, const float* b, const float* c,
   return (int)cudaGetLastError();
 }
 
-template <bool kLaplacian>
-__global__ void __launch_bounds__(kThreads)
-gossip_mix_kernel(const float* __restrict__ x, float* __restrict__ out,
-                  long long n, int rows, const int* __restrict__ src,
-                  const float* __restrict__ w, int terms, float c0) {
-  const int k = blockIdx.y;
-  const float* xk = x + (long long)k * n;
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += stride) {
-    const float xi = xk[i];
-    float a = kLaplacian ? xi : __fmul_rn(c0, xi);
-    for (int m = 0; m < terms; ++m) {
-      const float peer = x[(long long)__ldg(src + m * rows + k) * n + i];
-      a = __fmaf_rn(__ldg(w + m * rows + k),
-                    kLaplacian ? __fsub_rn(peer, xi) : peer, a);
-    }
-    out[(long long)k * n + i] = a;
-  }
-}
-
 }  // namespace
-
-extern "C" int repro_gossip_mix(const float* x, float* out, long long rows,
-                                long long n, const int* src, const float* w,
-                                int terms, int laplacian, float c0,
-                                void* stream) {
-  if (rows <= 0 || n <= 0) return 0;
-  if (rows > 65535) return (int)cudaErrorInvalidValue;
-  long long c = (n + kThreads - 1) / kThreads;
-  const long long cap = (kMaxCtas + rows - 1) / rows;
-  dim3 grid((unsigned)(c < cap ? c : cap), (unsigned)rows);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (laplacian)
-    gossip_mix_kernel<true><<<grid, kThreads, 0, st>>>(
-        x, out, n, (int)rows, src, w, terms, c0);
-  else
-    gossip_mix_kernel<false><<<grid, kThreads, 0, st>>>(
-        x, out, n, (int)rows, src, w, terms, c0);
-  return (int)cudaGetLastError();
-}
 
 extern "C" int repro_fused_update(const float* th, const float* vb,
                                   const float* v, const float* xi, float* out,

@@ -18,16 +18,22 @@ XLA's CPU code contracts the reference's jitted ``tree_map`` (ROADMAP C10):
 too). The reference has no ``pl.pallas_call`` for them.
 
 :func:`gossip_mix` is the gossip mixers' chain of those fmas over the node
-axis (ROADMAP C16): ``fma(w, x[perm] − x, a)`` a matching, or ``fma(c,
-roll(x, −s), a)`` a shift, as XLA's CPU code contracts the reference's
-``schedule_mix`` and ``_roll_mix``; no ``pl.pallas_call`` either.
+axis (ROADMAP C16): ``fma(w, x[perm] − x, a)`` a matching, ``fma(c,
+roll(x, −s), a)`` a shift, or the ring's ``fma(ω₀₀, x, ω₀₁·(roll(x, 1) +
+roll(x, −1)))``, as XLA's CPU code contracts the reference's
+``schedule_mix``, ``_roll_mix`` and ``ring_mix``; no ``pl.pallas_call``
+either. Its kernel (``csrc/gossip_mix.cu``) mixes a table of leaves in one
+launch.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from repro_torch.kernels._build import check, library, on_card, stream_of
+from repro_torch.kernels.pack import c_array, tables
 
 
 def fma_f32(a, b, c: torch.Tensor) -> torch.Tensor:
@@ -123,39 +129,78 @@ cffl_update.launches = 0
 dsgld_update.launches = 0
 
 
-def gossip_mix_plain(x, src, w, c0: float, laplacian: bool) -> torch.Tensor:
-    """The mixers' fma chain over the node axis of ``x`` (K, ...): ``a =
-    x`` (Laplacian) or ``c0·x``, then ``a = fma(w[m], x[src[m]] − x, a)``
-    (Laplacian) or ``fma(w[m], x[src[m]], a)`` for each row m of the
-    ``(M, K)`` sources and weights (ROADMAP C16)."""
+LAPLACIAN, CIRCULANT, RING = "laplacian", "circulant", "ring"
+FORMS = (LAPLACIAN, CIRCULANT, RING)      # csrc/gossip_mix.cu: kLaplacian..
+
+
+def gossip_mix_plain(x, src, w, c0: float, form: str) -> torch.Tensor:
+    """The mixers' fma chain over the node axis of ``x`` (K, ...), for each
+    row m of the ``(M, K)`` sources and weights (ROADMAP C16): Laplacian,
+    ``a = x``, then ``a = fma(w[m], x[src[m]] − x, a)``; circulant, ``a =
+    c0·x``, then ``a = fma(w[m], x[src[m]], a)``; ring (M = 2), ``fma(c0,
+    x, w[0]·(x[src[0]] + x[src[1]]))``."""
     flat = x.reshape(x.shape[0], -1)
-    out = flat if laplacian else flat * float(np.float32(c0))
+    c0 = float(np.float32(c0))
+    if form == RING:
+        pair = flat.index_select(0, src[0].long()) + \
+            flat.index_select(0, src[1].long())
+        return fma_f32(c0, flat, w[0][:, None] * pair).reshape(x.shape)
+    laplacian = form == LAPLACIAN
+    out = flat if laplacian else flat * c0
     for m in range(src.shape[0]):
         peer = flat.index_select(0, src[m].long())
         out = fma_f32(w[m][:, None], peer - flat if laplacian else peer, out)
     return out.reshape(x.shape)
 
 
-def gossip_mix(x, src, w, c0: float, laplacian: bool) -> torch.Tensor:
-    """One mix of the leaf ``x`` (K, ...) f32 over ``M`` matchings or
-    shifts: ``src`` (M, K) int32 source rows, ``w`` (M, K) f32 weights, on
-    the leaf's device; see :func:`gossip_mix_plain`."""
-    if not on_card("gossip_mix", [(x, torch.float32), (src, torch.int32),
-                                  (w, torch.float32)]):
-        return gossip_mix_plain(x, src, w, c0, laplacian)
-    rows = x.shape[0]
-    if src.shape != w.shape or src.dim() != 2 or src.shape[1] != rows:
+def _check_mix(xs, src, w, form: str) -> None:
+    if form not in FORMS:
+        raise ValueError(f"gossip_mix: form {form!r} is none of {FORMS}")
+    rows = xs[0].shape[0] if xs[0].dim() else None
+    for i, x in enumerate(xs):
+        if x.dim() == 0 or x.shape[0] != rows:
+            raise ValueError(f"gossip_mix: leaf {i} has shape "
+                             f"{tuple(x.shape)}; every leaf must lead with "
+                             f"the K={rows} rows of leaf 0")
+    if src.dim() != 2 or src.shape != w.shape or src.shape[1] != rows \
+            or (form == RING and src.shape[0] != 2):
         raise ValueError(f"gossip_mix: sources {tuple(src.shape)} and "
-                         f"weights {tuple(w.shape)} for {rows} rows")
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = library().repro_gossip_mix(
-            x.data_ptr(), out.data_ptr(), rows, x.numel() // max(rows, 1),
-            src.data_ptr(), w.data_ptr(), src.shape[0], int(laplacian),
-            float(np.float32(c0)), stream_of(x))
-    check(rc, "gossip_mix")
-    gossip_mix.launches += 1
-    return out
+                         f"weights {tuple(w.shape)} for the {rows} rows of "
+                         f"leaves 0-{len(xs) - 1}: both must be (M, {rows})"
+                         + (", M = 2 in the ring form" if form == RING
+                            else ""))
+
+
+def gossip_mix(xs, src, w, c0: float, form: str):
+    """One mix of a list of leaves ``(K, ...)`` f32 with the same K over
+    ``M`` matchings or shifts: ``src`` (M, K) int32 source rows, ``w`` (M,
+    K) f32 weights, on the leaves' device, in ``form`` (see
+    :func:`gossip_mix_plain`). Returns a list, each output a tensor of its
+    own. On the card one launch mixes a table of up to
+    ``MAX_TABLE_LEAVES`` leaves."""
+    if isinstance(xs, torch.Tensor):
+        raise TypeError("gossip_mix takes a list of leaves")
+    if not xs:
+        return []
+    _check_mix(xs, src, w, form)
+    if not on_card("gossip_mix", [(x, torch.float32) for x in xs]
+                   + [(src, torch.int32), (w, torch.float32)]):
+        return [gossip_mix_plain(x, src, w, c0, form) for x in xs]
+    rows = xs[0].shape[0]
+    outs = [torch.empty_like(x) for x in xs]
+    with torch.cuda.device(xs[0].device):
+        for part in tables(len(xs)):
+            rc = library().repro_gossip_mix(
+                c_array(ctypes.c_void_p, [x.data_ptr() for x in xs[part]]),
+                c_array(ctypes.c_void_p, [o.data_ptr() for o in outs[part]]),
+                c_array(ctypes.c_longlong,
+                        [x.numel() // max(rows, 1) for x in xs[part]]),
+                len(xs[part]), rows, src.data_ptr(), w.data_ptr(),
+                src.shape[0], FORMS.index(form), float(np.float32(c0)),
+                stream_of(xs[0]))
+            check(rc, "gossip_mix")
+            gossip_mix.launches += 1
+    return outs
 
 
 gossip_mix.launches = 0

@@ -739,28 +739,55 @@ def test_a_sync_inside_the_eval_fails_its_capture(card):
 
 # -- the gossip mixers and a time-varying graph (ROADMAP C16) --------------
 
-@pytest.mark.parametrize("n", [1, 7, 1024, 4099, 65_536])
-@pytest.mark.parametrize("laplacian", [True, False])
-def test_gossip_mix_matches_plain_version(card, n, laplacian):
-    """The fma chain over the node axis: K=10 rows, 7 terms with random
-    sources and weights (zeros among them), on the card bit for bit
-    against the plain version on the card and on the CPU."""
-    from repro_torch.kernels.fused_update import gossip_mix_plain
-    gen = torch.Generator(device=card).manual_seed(n)
-    x = torch.randn((10, n), generator=gen, device=card)
-    x[:, :1] = -0.0
-    src = torch.randint(0, 10, (7, 10), generator=gen, device=card,
+def _mix_leaves(card, rows, count, seed):
+    """``count`` (rows, n) leaves for one gossip_mix call: n = 65,536 for
+    leaf 0 (4,099 above K = 64) and 1, 7, 1,024, 4,099 after it, leaf 2 a
+    contiguous view 4 bytes past an aligned allocation (scalar staging
+    though n % 4 == 0), every leaf's first column -0.0."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    xs = []
+    for i in range(count):
+        n = (65_536 if rows <= 64 else 4099) if i == 0 else \
+            (1, 7, 1024, 4099)[i % 4]
+        x = torch.randn((rows * n + 1,), generator=gen, device=card)
+        x = x[1:].view(rows, n) if i == 2 else x[:rows * n].view(rows, n)
+        x[:, :1] = -0.0
+        xs.append(x)
+    return xs, gen
+
+
+def _mix_terms(card, rows, form, gen):
+    """7 random terms, zero weights among them, or the ring's rows k ∓ 1."""
+    if form == "ring":
+        k = torch.arange(rows, device=card, dtype=torch.int32)
+        src = torch.stack([(k - 1) % rows, (k + 1) % rows])
+        return src, torch.full((2, rows), 0.25, device=card), 0.5
+    src = torch.randint(0, rows, (7, rows), generator=gen, device=card,
                         dtype=torch.int32)
-    w = torch.rand((7, 10), generator=gen, device=card)
+    w = torch.rand((7, rows), generator=gen, device=card)
     w[2] = 0.0
+    return src, w, 0.3
+
+
+@pytest.mark.parametrize("count", [1, 10, 33])
+@pytest.mark.parametrize("rows", [3, 10, 64, 512])
+@pytest.mark.parametrize("form", ["laplacian", "circulant", "ring"])
+def test_gossip_mix_matches_plain_version(card, form, rows, count):
+    """The fma chain over the node axis in each form, one launch a table of
+    up to 32 leaves (33 take two), each leaf on the card bit for bit
+    against the plain version on the card and on the CPU. K = 512 has no
+    32-column tile within 48 KB: it takes the row kernel."""
+    from repro_torch.kernels.fused_update import gossip_mix_plain
+    xs, gen = _mix_leaves(card, rows, count, seed=rows * 100 + count)
+    src, w, c0 = _mix_terms(card, rows, form, gen)
     kernels.reset_launch_counts()
-    got = kernels.gossip_mix(x, src, w, 0.3, laplacian)
+    got = kernels.gossip_mix(xs, src, w, c0, form)
     torch.cuda.synchronize()
-    assert kernels.launch_counts()["gossip_mix"] == 1
-    want = gossip_mix_plain(x, src, w, 0.3, laplacian)
-    assert _same_bits(got, want)
-    cpu = gossip_mix_plain(x.cpu(), src.cpu(), w.cpu(), 0.3, laplacian)
-    assert _same_bits(got.cpu(), cpu)
+    assert kernels.launch_counts()["gossip_mix"] == -(-count // 32)
+    for x, g in zip(xs, got):
+        assert _same_bits(g, gossip_mix_plain(x, src, w, c0, form))
+        cpu = gossip_mix_plain(x.cpu(), src.cpu(), w.cpu(), c0, form)
+        assert _same_bits(g.cpu(), cpu)
 
 
 def _tv_fed(algorithm="cdbfl"):
@@ -792,7 +819,7 @@ def _tv_trainer(device, algorithm, engine, **kw):
 def test_time_varying_round_on_the_card_tracks_the_cpu(card, algorithm):
     """On the time-varying geometric graph: each round's masks on the card
     equal the CPU's exactly, its draws cost at most 6 threefry launches and
-    its mix launches gossip_mix; two rounds track the CPU's (rtol 1e-4:
+    its mix launches gossip_mix once; two rounds track the CPU's (rtol 1e-4:
     cuDNN sums in another order), bytes exact."""
     from repro_torch import random
     runs = {dev: _tv_trainer(dev, algorithm, "host") for dev in (card, "cpu")}
@@ -807,7 +834,7 @@ def test_time_varying_round_on_the_card_tracks_the_cpu(card, algorithm):
     got = runs[card].run(rounds=2)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    assert 1 <= counts["threefry"] <= 12 and counts["gossip_mix"] > 0
+    assert 1 <= counts["threefry"] <= 12 and counts["gossip_mix"] == 2
     want = runs["cpu"].run(rounds=2)
     np.testing.assert_allclose(got.loss_history, want.loss_history, rtol=1e-4)
     assert got.wire_history == want.wire_history
@@ -839,31 +866,35 @@ def test_graph_chunks_equal_the_host_rounds_on_a_time_varying_graph(
 
 
 def test_gossip_mix_of_non_finite_rows_matches_plain_version(card):
-    """±inf and NaN rows through both forms: ±inf where the plain version
-    has it, NaN where it has NaN (the payload is not part of the
-    contract), every other element bit for bit."""
+    """±inf and NaN rows through each form, as one table of leaves of
+    n = 4,099, 1,024, 7 and an unaligned 1,024: ±inf where the plain version
+    has it, NaN where it has NaN (the payload is not part of the contract),
+    every other element bit for bit."""
     from repro_torch.kernels.fused_update import gossip_mix_plain
     gen = torch.Generator(device=card).manual_seed(5)
-    x = torch.randn((10, 4099), generator=gen, device=card)
-    x[1, 5], x[2, 6], x[3, 7] = float("nan"), float("inf"), -float("inf")
-    src = torch.randint(0, 10, (7, 10), generator=gen, device=card,
-                        dtype=torch.int32)
-    w = torch.rand((7, 10), generator=gen, device=card)
-    for lap in (True, False):
-        got = kernels.gossip_mix(x, src, w, 0.3, lap)
-        want = gossip_mix_plain(x, src, w, 0.3, lap)
-        nan = torch.isnan(want)
-        assert torch.equal(torch.isnan(got), nan) and nan.any()
-        assert _same_bits(torch.where(nan, 0.0, got),
-                          torch.where(nan, 0.0, want))
+    xs = [torch.randn((10, n), generator=gen, device=card)
+          for n in (4099, 1024, 7)]
+    xs.append(torch.randn((10 * 1024 + 1,), generator=gen,
+                          device=card)[1:].view(10, 1024))
+    for x in xs:
+        x[1, 5], x[2, 6], x[3, 0] = float("nan"), float("inf"), -float("inf")
+    for form in ("laplacian", "circulant", "ring"):
+        src, w, c0 = _mix_terms(card, 10, form, gen)
+        for got, x in zip(kernels.gossip_mix(xs, src, w, c0, form), xs):
+            want = gossip_mix_plain(x, src, w, c0, form)
+            nan = torch.isnan(want)
+            assert torch.equal(torch.isnan(got), nan) and nan.any()
+            assert _same_bits(torch.where(nan, 0.0, got),
+                              torch.where(nan, 0.0, want))
 
 
 def test_ring_mix_on_the_card_is_dense_below_three_nodes_else_refused(card):
     """The back-compat ``ring_mix``: below K = 3 the dense einsum with Ω on
     the leaves' device (within rtol 1e-6 of the CPU's: a matmul's summation
-    order); from K = 3 on a card's leaves raise, naming ``make_mixer``,
-    whose roll path launches gossip_mix and equals its own CPU run bit for
-    bit."""
+    order); from K = 3 on, a card's leaves are no longer refused: the
+    gossip_mix kernel's ring form, one launch over the tree, bit for bit
+    the CPU's ``ring_mix``. ``make_mixer``'s roll path launches gossip_mix
+    once too and equals its own CPU run bit for bit."""
     from repro_torch.config import TopologyConfig
     from repro_torch.core import gossip
     from repro_torch.core.topology import build_topology
@@ -876,10 +907,20 @@ def test_ring_mix_on_the_card_is_dense_below_three_nodes_else_refused(card):
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-6,
                                atol=0)
     ring = TopologyConfig(graph="ring")
-    omega = build_topology(ring, 10).omega
-    x = torch.randn((10, 4099), generator=gen, device=card)
-    with pytest.raises(ValueError, match="make_mixer"):
-        gossip.ring_mix(omega, {"a": x})
+    for k in (3, 10):
+        omega = build_topology(ring, k).omega
+        tree = {"a": torch.randn((k, 4099), generator=gen, device=card),
+                "b": {"c": torch.randn((k, 7, 3), generator=gen,
+                                       device=card).bfloat16()}}
+        kernels.reset_launch_counts()
+        got = gossip.ring_mix(omega, tree)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["gossip_mix"] == 1
+        want = gossip.ring_mix(omega, {"a": tree["a"].cpu(),
+                                       "b": {"c": tree["b"]["c"].cpu()}})
+        assert _same_bits(got["a"].cpu(), want["a"])
+        assert torch.equal(got["b"]["c"].cpu(), want["b"]["c"])
+    x = tree["a"]
     kernels.reset_launch_counts()
     got = gossip.make_mixer(omega, card, config=ring)({"a": x})["a"]
     torch.cuda.synchronize()

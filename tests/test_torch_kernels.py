@@ -21,7 +21,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.fused_compress import (carrier_norms_plain, delta_pack,
                                                 grid_quant_leaves,
                                                 grid_quant_plain)
-from repro_torch.kernels.fused_update import fma_f32
+from repro_torch.kernels.fused_update import FORMS, fma_f32, gossip_mix_plain
 from repro_torch.kernels.pack import (BISECT_ITERS, bisection_bounds,
                                       pack_topk, unpack_topk_plain)
 from repro_torch.kernels.qsgd import inv_one_plus, qsgd, qsgd_omega
@@ -305,13 +305,92 @@ def test_cpu_tensors_run_the_plain_versions():
     ops.unpack_set_leaves([(tvals, tidx)], [(3000,)])
     ops.leaf_cffl_update(x, x, x, 0.03)
     ops.leaf_dsgld_update(x, x, x, 1e-4)
-    kernels.gossip_mix(x, torch.tensor([[1, 0]], dtype=torch.int32),
-                       torch.full((1, 2), 0.5), 0.0, True)
+    kernels.gossip_mix([x], torch.tensor([[1, 0]], dtype=torch.int32),
+                       torch.full((1, 2), 0.5), 0.0, "laplacian")
     assert kernels.launch_counts() == {
         "pack": 0, "delta_pack": 0, "unpack": 0, "fused_update": 0,
         "grid_quant": 0, "qsgd": 0, "block_topk": 0, "threefry": 0,
         "topk_select": 0, "unpack_set": 0, "cffl_update": 0,
         "dsgld_update": 0, "gossip_mix": 0}
+
+
+def _mix_terms(form, k=10, seed=0):
+    """``(src, w, c0)`` for ``form`` at K=k: 7 random terms with zero
+    weights among them, or the ring's rows k ∓ 1."""
+    rng = np.random.default_rng(seed)
+    if form == "ring":
+        rows = np.arange(k)
+        src = np.stack([(rows - 1) % k, (rows + 1) % k])
+        w = np.full((2, k), 0.25, np.float32)
+    else:
+        src = rng.integers(0, k, (7, k))
+        w = rng.random((7, k)).astype(np.float32)
+        w[2] = 0.0
+    return (torch.from_numpy(src.astype(np.int32)), torch.from_numpy(w),
+            0.3 if form != "ring" else 0.5)
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_gossip_mix_list_equals_per_leaf_plain_version(form):
+    """33 leaves of mixed shapes (more than one table) in one call, on the
+    CPU: each the plain version of its leaf, bit for bit, and no launch;
+    through a mixer's ``_Terms.mix``, a tree of bf16 and f32 leaves is
+    each leaf's plain mix in f32, cast back."""
+    from repro_torch.core.gossip import _Terms
+    rng = np.random.default_rng(3)
+    src, w, c0 = _mix_terms(form)
+    xs = [torch.from_numpy(rng.standard_normal((10,) + s).astype(np.float32))
+          for s in [(1,), (7,), (4, 3), (1024,), (4099,)] * 6 + [(5,)] * 3]
+    kernels.reset_launch_counts()
+    got = kernels.gossip_mix(xs, src, w, c0, form)
+    assert kernels.launch_counts()["gossip_mix"] == 0
+    assert len(got) == len(xs) == 33
+    for x, g in zip(xs, got):
+        want = gossip_mix_plain(x, src, w, c0, form)
+        assert g.shape == x.shape
+        np.testing.assert_array_equal(g.numpy().view(np.int32),
+                                      want.numpy().view(np.int32))
+    tree = {f"l{i:02d}": x.bfloat16() if i % 2 else x
+            for i, x in enumerate(xs)}
+    tree["sub"] = {"b": xs[3].bfloat16(), "a": xs[4]}
+    mixed = _Terms(src.numpy(), w.numpy(), "cpu", form, c0).mix(tree)
+    assert list(mixed) == list(tree) and list(mixed["sub"]) == ["b", "a"]
+    for leaf, out in [(tree[k], mixed[k]) for k in tree if k != "sub"] + [
+            (tree["sub"][k], mixed["sub"][k]) for k in ("a", "b")]:
+        want = gossip_mix_plain(leaf.float(), src, w, c0, form).to(leaf.dtype)
+        assert out.dtype == leaf.dtype and torch.equal(out, want)
+    assert kernels.launch_counts()["gossip_mix"] == 0
+
+
+@pytest.mark.parametrize("case,match", [
+    ("rows", "leaf 2 has shape \\(9, 4\\)"),
+    ("src", "sources \\(7, 9\\)"),
+    ("w", "weights \\(6, 10\\)"),
+    ("ring", "M = 2 in the ring form"),
+    ("form", "form 'roll' is none of"),
+    ("tensor", "takes a list of leaves")])
+def test_gossip_mix_rejects_what_the_kernel_does_not_take(case, match):
+    """Leaves whose K differs from leaf 0's, sources and weights of the
+    wrong shape, the ring form without its 2 terms, an unknown form, a bare
+    tensor: each refused on the CPU as on the card, naming what is wrong."""
+    src, w, c0 = _mix_terms("laplacian")
+    xs = [torch.zeros(10, 4), torch.zeros(10, 3), torch.zeros(10, 4)]
+    form = "laplacian"
+    if case == "rows":
+        xs[2] = torch.zeros(9, 4)
+    elif case == "src":
+        src = src[:, :9]
+    elif case == "w":
+        w = w[:6]
+    elif case == "ring":
+        form = "ring"
+    elif case == "form":
+        form = "roll"
+    elif case == "tensor":
+        xs = xs[0]
+    error = TypeError if case == "tensor" else ValueError
+    with pytest.raises(error, match=match):
+        kernels.gossip_mix(xs, src, w, c0, form)
 
 
 def test_meta_tensors_give_payload_shapes():
