@@ -153,6 +153,38 @@ Phases, each of which fails the run by raising:
              trace's device time and CUDA events), and
              threefry's and gossip_mix's launches a round (gossip_mix
              once a round on the sparse graphs, never on the full one).
+10. link   — the lossy D2D transport and barrier-free rounds at phase
+             3's configuration on phase 9's time-varying geometric graph
+             (``tests/golden/transport_rounds_lenet_radar.json``, the
+             reference's recorded rounds 1-2): (a) FedConfig()'s cdbfl
+             under Bernoulli erasure 0.1 at MTU 256; (b) the fused
+             block_topk|qsgd pipeline under the Gilbert-Elliott channel
+             with ARQ (2 retries), SF7 time-on-air and a 165 s airtime
+             budget that cuts the last attempt; (c) cdbfl and dsgld under
+             the SNR outage model (10 ± 4 dB) with stragglers 0.2 and
+             deaths ((3, 2, -1), (7, 1, 3)). Each on the host engine, 4
+             rounds, its launch counts set to 0 just before and read
+             just after: offered, delivered and abandoned bytes,
+             retransmits, each round's participation vector and (M, K)
+             masks exact; loss and consensus within rtol 1e-3; airtime
+             and energy within rtol 1e-6 (exactness logged); every kernel
+             of its path launched, gossip_mix once a mix, gilbert_keep
+             once a round in (b), the keep records' decode and threefry
+             at their stated counts (5, 6, 5, 5 a round). Then each on
+             the scan engine (chunks of 2) bit for bit against its host
+             run, its replayed chunk timed beside the same run without
+             transport and participation, a traced host round beside
+             one of that run; last the training CLI with the transport
+             and participation flags (two rounds), its header, link and
+             accounting lines equal to the reference CLI's.
+
+Phase 2 also holds gilbert_keep, the burst channel's frame recurrence,
+to its plain version, bit for bit, one launch a table: phase 10 (b)'s
+ragged frame counts (1 to 335 frames, K nodes x 3 ARQ attempts a leaf)
+and one-frame chains, under three channels (the defaults, p_enter = 0
+with loss in the good state, a symmetric one), start and frame uniforms
+set to the thresholds; and times one round's keep masks beside its plain
+version, its byte bound and its longest chain's dependent steps.
 
 Phase 2 also holds gossip_mix, the sparse mixers' fma chain (ROADMAP
 C16), to its plain version on the card as one table launch over the 10
@@ -205,8 +237,9 @@ sys.path.insert(1, str(ROOT / "tests"))
 
 from repro_torch import kernels, random  # noqa: E402
 from repro_torch.checkpoint import load_bank, save_bank  # noqa: E402
-from repro_torch.config import (FedConfig, ServeConfig,  # noqa: E402
-                                TopologyConfig, get_arch)
+from repro_torch.config import (FedConfig, ParticipationConfig,  # noqa: E402
+                                ServeConfig, TopologyConfig,
+                                TransportConfig, get_arch)
 from repro_torch.core.posterior import predictive_entropy  # noqa: E402
 from repro_torch.core.algorithms import (langevin_noise,  # noqa: E402
                                          langevin_scale, make_cdbfl_round)
@@ -230,6 +263,8 @@ from repro_torch.kernels.pack import (from_uint16, magnitude_keys,  # noqa: E402
                                       topk_select_plain, unpack_set,
                                       unpack_set_plain, unpack_topk,
                                       unpack_topk_plain)
+from repro_torch.kernels.gilbert import (channel_params,  # noqa: E402
+                                         gilbert_keep, gilbert_keep_plain)
 from repro_torch.kernels.qsgd import (inv_one_plus, qsgd, qsgd_omega,  # noqa: E402
                                       qsgd_plain, row_norm)
 from repro_torch.kernels.threefry import (BITS, MAX_TABLE_REQUESTS,  # noqa: E402
@@ -247,6 +282,8 @@ from torch_golden import (BASELINE_ROUNDS_FILE, BOUNDARY_K,  # noqa: E402
                           CLI_HEADS, GEOMETRIC_TV, SEEDED_CONFIG,
                           SEEDED_ROUNDS_FILE, SERVE_BMA_FILE, SERVE_CONFIG,
                           THREEFRY_FILE, TOPOLOGY_ROUNDS_FILE, TOPOLOGY_RUNS,
+                          TRANSPORT_CLI_LINES, TRANSPORT_COLUMNS,
+                          TRANSPORT_ROUNDS_FILE, TRANSPORT_RUNS,
                           baseline_config, boundary_blocks, port_draw)
 
 DEVICE = "cuda"
@@ -333,6 +370,10 @@ KERNELS = {
     "gossip_mix": ("src/repro_torch/kernels/csrc/gossip_mix.cu",
                    "none (no pl.pallas_call): jnp schedule, roll and "
                    "ring mixers, src/repro/core/gossip.py:158 and :80"),
+    # the burst channel's frame recurrence: a lax.scan in the reference
+    "gilbert_keep": ("src/repro_torch/kernels/csrc/gilbert.cu",
+                     "none (no pl.pallas_call): lax.scan Gilbert-Elliott "
+                     "keep masks, src/repro/core/transport.py:255"),
 }
 # the seven kernels that replace a pl.pallas_call
 TPU_KERNELS = ("pack", "delta_pack", "unpack", "fused_update", "grid_quant",
@@ -1700,7 +1741,8 @@ TRACE_NAMES = {kname: re.compile(pattern) for kname, pattern in {
     "topk_select": r"topk_select_kernel", "unpack_set": r"unpack_set_kernel",
     "cffl_update": r"fused_update_\w+<1>",
     "dsgld_update": r"fused_update_\w+<2>",
-    "gossip_mix": r"gossip_mix_(tiles|rows)"}.items()}
+    "gossip_mix": r"gossip_mix_(tiles|rows)",
+    "gilbert_keep": r"gilbert_keep_kernel"}.items()}
 # tries at a whole trace, and the least launches of its warm-up (profiled)
 TRACE_ATTEMPTS, WARM_LAUNCHES = 4, 32
 # the traced round each kernel's in-round device time is read from
@@ -2561,6 +2603,362 @@ def run_train(train) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 2, the burst channel's kernel: gilbert_keep
+# --------------------------------------------------------------------------
+
+# the burst channels phase 2 holds the kernel to: the defaults, p_enter = 0
+# with loss in the good state, and a symmetric channel
+GILBERT_CASES = ((0.05, 0.3, 0.0, 1.0), (0.0, 0.3, 0.2, 1.0),
+                 (0.5, 0.5, 0.1, 0.9))
+ARQ_ATTEMPTS = 3
+# f32/INT32 operations a frame: two threshold selects, two compares, the
+# state's xor and the keep's select
+GILBERT_OPS = 6
+# the dependent chain of a frame: the threshold select, the compare with
+# u_t and the state flip, some 4 cycles each on the SM's ALUs, at the
+# 1.98 GHz boost clock (a latency model, not a published peak)
+GILBERT_STEP_CYCLES, SM_CLOCK_HZ = 12, 1.98e9
+
+
+def link_frames(name: str):
+    """The frame counts a node's payload takes in run ``name`` (its plan,
+    from the payload of shape-only params)."""
+    fed = link_config(name)
+    from repro_torch.core.compression import make_compressor
+    from repro_torch.core.transport import resolve_transport
+    cfg = get_arch("lenet-radar", reduced=REDUCED)
+    params = get_model(cfg).init(random.PRNGKey(0, "meta"), "meta")
+    stacked = tree_map(lambda x: torch.empty((K,) + tuple(x.shape)), params)
+    return resolve_transport(fed).layout(make_compressor(fed), stacked).frames
+
+
+def gilbert_inputs(frames, params, gen, rows: int = K * ARQ_ATTEMPTS):
+    """Start, transition and loss uniforms of ``rows`` chains a leaf, the
+    first row's start and the last row's uniforms set to the thresholds."""
+    consts = channel_params(*params)
+    u0 = torch.rand((rows, len(frames)), generator=gen, device=DEVICE)
+    u0[0] = consts[0]
+    ut = [torch.rand((rows, f), generator=gen, device=DEVICE) for f in frames]
+    ul = [torch.rand((rows, f), generator=gen, device=DEVICE) for f in frames]
+    for a, b in zip(ut, ul):
+        a[-1, ::2], a[-1, 1::2] = consts[1], consts[2]
+        b[-1, ::2], b[-1, 1::2] = consts[3], consts[4]
+    return u0, ut, ul, consts
+
+
+def check_gilbert() -> float:
+    """gilbert_keep against its plain version, bit for bit, one launch a
+    table: the (b) run's ragged frame counts (K nodes x 3 ARQ attempts a
+    leaf) under each channel of GILBERT_CASES, and chains of one frame.
+    Returns the largest absolute difference (0)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    frames = link_frames("fused-gilbert-arq")
+    err = 0.0
+    for params in GILBERT_CASES:
+        for fr in (frames, [1] * len(frames)):
+            u0, ut, ul, consts = gilbert_inputs(fr, params, gen)
+            before = gilbert_keep.launches
+            got = gilbert_keep(u0, ut, ul, consts)
+            torch.cuda.synchronize()
+            if gilbert_keep.launches != before + 1:
+                raise AssertionError("gilbert_keep: not one launch a table")
+            want = gilbert_keep_plain(u0, ut, ul, consts)
+            for g, w in zip(got, want):
+                if not bitwise_equal(g, w.contiguous()):
+                    raise AssertionError(f"gilbert_keep differs from its "
+                                         f"plain version ({params}, frames "
+                                         f"{fr})")
+                err = max(err, max_abs_err(g, w))
+    log("kernels", f"gilbert_keep: bit-exact to its plain version on the "
+                   f"(b) run's frames {frames} x {K * ARQ_ATTEMPTS} chains "
+                   f"(nodes x ARQ attempts) and on one-frame chains, "
+                   f"channels {GILBERT_CASES}, threshold uniforms included, "
+                   f"one launch a table")
+    return err
+
+
+def time_gilbert():
+    """One round's keep masks of the (b) run, one launch: device and
+    event-timed ms beside the plain version's, the byte bound (two uniforms
+    read and a keep written a frame, a start uniform a chain) and the
+    dependent chain of the longest row."""
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    frames = link_frames("fused-gilbert-arq")
+    u0, ut, ul, consts = gilbert_inputs(frames, GILBERT_CASES[0], gen)
+    rows = u0.shape[0]
+    nbytes = 12 * rows * sum(frames) + 4 * u0.numel()
+    ops = GILBERT_OPS * rows * sum(frames)
+    b_ms, b_by = bound(nbytes, 0.0, ops)
+    chain_ms = max(frames) * GILBERT_STEP_CYCLES / SM_CLOCK_HZ * 1e3
+    kern = lambda: gilbert_keep(u0, ut, ul, consts)  # noqa: E731
+    plain = lambda: gilbert_keep_plain(u0, ut, ul, consts)  # noqa: E731
+    r = dict(ms=device_ms(kern), plain_ms=device_ms(plain, reps=3,
+                                                     per_rep=1),
+             device_ms=traced_ms([kern]), plain_device_ms=traced_ms([plain]),
+             bound_ms=b_ms, bound_by=b_by, chain_ms=chain_ms, nbytes=nbytes,
+             ops=ops, library_ms=None)
+    log("kernels", f"gilbert_keep per round ({len(frames)} leaves, {rows} "
+                   f"chains a leaf, {sum(frames)} frames a chain set, the "
+                   f"longest {max(frames)}): device {fmt_ms(r['device_ms'])},"
+                   f" event-timed {r['ms']:.4f} ms; plain: device "
+                   f"{fmt_ms(r['plain_device_ms'])}, event-timed "
+                   f"{r['plain_ms']:.4f} ms; bound {b_ms:.5f} ms ({b_by}: "
+                   f"{nbytes} B, {ops} ops), dependent chain of the longest "
+                   f"row {chain_ms:.5f} ms ({GILBERT_STEP_CYCLES} cycles a "
+                   f"frame at {SM_CLOCK_HZ / 1e9:g} GHz); library: none")
+    return r
+
+
+# --------------------------------------------------------------------------
+# phase 10: the radio under the gossip (lossy transport, barrier-free rounds)
+# --------------------------------------------------------------------------
+
+LINK_ROUNDS = 4
+# the kernels each run launches, and the decode of the delta and, under
+# frame loss, of the keep records: launches a round
+LINK_LAUNCHED = {
+    "cdbfl-bernoulli": ("topk_select", "unpack_set", "fused_update",
+                        "threefry", "gossip_mix"),
+    "fused-gilbert-arq": ("delta_pack", "grid_quant", "unpack",
+                          "fused_update", "threefry", "gossip_mix",
+                          "gilbert_keep"),
+    "cdbfl-snr-participation": ("topk_select", "unpack_set", "fused_update",
+                                "threefry", "gossip_mix"),
+    "dsgld-snr-participation": ("dsgld_update", "threefry", "gossip_mix")}
+LINK_DECODES = {"cdbfl-bernoulli": ("unpack_set", 2),
+                "fused-gilbert-arq": ("unpack", 2),
+                "cdbfl-snr-participation": ("unpack_set", 1)}
+# threefry launches a round: the engine's split and one a level of the
+# round's draws; the transport's salt, node and leaf-attempt keys ride the
+# first three levels, its Bernoulli uniforms the draws' level; the burst
+# channel adds a level (its split, then its uniforms)
+LINK_DRAW_LAUNCHES = {"cdbfl-bernoulli": 5, "fused-gilbert-arq": 6,
+                      "cdbfl-snr-participation": 5,
+                      "dsgld-snr-participation": 5}
+
+
+def link_config(name: str, link: bool = True) -> FedConfig:
+    """The FedConfig of the recorded run ``name`` (``TRANSPORT_RUNS``);
+    ``link=False``: the same run without transport and participation."""
+    c = TRANSPORT_RUNS[name]
+    if (c["reduced"] != REDUCED or c["train_maps"] != K * 50
+            or c["minibatch"] != MINIBATCH):
+        raise AssertionError(f"{name}: the record ran {c}")
+    t, p = c.get("transport"), c.get("participation")
+    return FedConfig(
+        rounds=c["rounds"], **c["fed"],
+        topology_cfg=TopologyConfig(**c["topology_cfg"]),
+        transport=TransportConfig(**t) if t and link else None,
+        participation=(ParticipationConfig(**dict(p, dead=tuple(
+            tuple(d) for d in p["dead"]))) if p and link else None))
+
+
+def link_columns(trainer) -> dict:
+    """The run's per-round transport and participation columns, as the
+    record holds them."""
+    eng = trainer._engine
+    return {col: [np.asarray(x, np.float64).tolist()
+                  for x in getattr(eng, attr)]
+            for col, attr in TRANSPORT_COLUMNS.items()}
+
+
+def check_link_run(name: str, train):
+    """The recorded run ``name`` on the host engine, LINK_ROUNDS rounds, its
+    launch counts set to 0 just before and read just after: rounds 1-2
+    against the reference's record (bytes, retransmits, participation and
+    masks exact; loss and consensus within rtol 1e-3; airtime and energy
+    within rtol 1e-6, exactness logged); every kernel of its path launched,
+    gossip_mix once a mix, gilbert_keep once a round where the channel
+    bursts, the decodes and threefry at their stated counts. Returns
+    ``(trainer, result, columns, launches)``."""
+    from repro_torch.train import FedTrainer
+    cfg = get_arch("lenet-radar", reduced=REDUCED)
+    want = json.loads(TRANSPORT_ROUNDS_FILE.read_text())[name]
+    if want["config"] != TRANSPORT_RUNS[name]:
+        raise AssertionError(f"{TRANSPORT_ROUNDS_FILE.name}: {name} ran "
+                             f"{want['config']}")
+    n = len(want["loss"])
+    trainer = FedTrainer(get_model(cfg), link_config(name),
+                         partition_iid(train, K), minibatch=MINIBATCH,
+                         seed=0, engine="host", device=DEVICE)
+    applied = record_masks(trainer)
+    kernels.reset_launch_counts()
+    res = trainer.run(rounds=LINK_ROUNDS)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    cols = link_columns(trainer)
+    if res.wire_history[:n] != want["wire_bytes"]:
+        raise AssertionError(f"{name}: wire bytes {res.wire_history}")
+    for col in ("offered", "delivered", "abandoned", "retransmits",
+                "participation"):
+        if cols[col][:n] != want[col]:
+            raise AssertionError(f"{name}: {col} {cols[col][:n]} differs "
+                                 f"from the reference's {want[col]}")
+    if [m.tolist() for m in applied[:n]] != want["masks"]:
+        raise AssertionError(f"{name}: masks differ from the reference's")
+    for metric, got in (("loss", res.loss_history[:n]),
+                        ("consensus", res.consensus_history[:n])):
+        if not np.allclose(got, want[metric], rtol=1e-3, atol=0):
+            raise AssertionError(f"{name}: {metric} {got} differs from the "
+                                 f"reference's {want[metric]}")
+    exact = {}
+    for col in ("airtime", "energy"):
+        if not np.allclose(cols[col][:n], want[col], rtol=1e-6, atol=0):
+            raise AssertionError(f"{name}: {col} {cols[col][:n]} vs the "
+                                 f"reference's {want[col]}")
+        exact[col] = cols[col][:n] == want[col]
+    if not all(math.isfinite(x) for x in res.loss_history):
+        raise AssertionError(f"{name}: non-finite loss")
+    missing = [k for k in LINK_LAUNCHED[name] if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{name}: never launched {missing}")
+    counts = {"gossip_mix": LINK_ROUNDS,
+              "gilbert_keep": LINK_ROUNDS if "gilbert_keep" in
+              LINK_LAUNCHED[name] else 0,
+              "threefry": LINK_DRAW_LAUNCHES[name] * LINK_ROUNDS}
+    if name in LINK_DECODES:
+        decode, per_round = LINK_DECODES[name]
+        counts[decode] = per_round * LINK_ROUNDS
+    wrong = {k: launches[k] for k, v in counts.items() if launches[k] != v}
+    if wrong:
+        raise AssertionError(f"{name}: launches {wrong}, expected "
+                             f"{ {k: counts[k] for k in wrong} }")
+    part = cols["participation"]
+    if name.endswith("participation") and part[2:] == part[:2]:
+        raise AssertionError(f"{name}: rounds 2-3 have rounds 0-1's "
+                             f"participation")
+    log("link", f"{name}: rounds 1-{n} against the reference's CPU run: "
+                f"offered {cols['offered'][:n]}, delivered "
+                f"{cols['delivered'][:n]}, abandoned {cols['abandoned'][:n]}"
+                f", retransmits {cols['retransmits'][:n]} exact; "
+                f"participation and (M, K) masks exact; loss "
+                f"{res.loss_history[:n]} vs {want['loss']}, consensus "
+                f"{res.consensus_history[:n]} vs {want['consensus']} (rtol "
+                f"1e-3 held); airtime {cols['airtime'][:n]} "
+                f"({'exact' if exact['airtime'] else 'within rtol 1e-6'}), "
+                f"energy {'exact' if exact['energy'] else 'within rtol 1e-6'}"
+                f"; rounds 3-4: delivered {cols['delivered'][n:]}, "
+                f"participation {part[n:]}; launches in "
+                f"{LINK_ROUNDS} rounds "
+                f"{ {k: v for k, v in launches.items() if v} }")
+    return trainer, res, cols, launches
+
+
+def check_link_scan(name: str, train, host, host_res, host_cols):
+    """The run again on the scan engine (chunks of 2: the second a replay
+    with the round index 2, past (c)'s deaths and rejoin), bit for bit
+    against its host run; then its replayed chunk timed beside the same
+    run without transport and participation."""
+    from repro_torch.train import FedTrainer
+    cfg = get_arch("lenet-radar", reduced=REDUCED)
+    timing = {}
+    for link in (True, False):
+        scan = FedTrainer(get_model(cfg), link_config(name, link),
+                          partition_iid(train, K), minibatch=MINIBATCH,
+                          seed=0, engine="scan", chunk=2, bank_thin=1,
+                          device=DEVICE)
+        res = scan.run(rounds=LINK_ROUNDS)
+        if link:
+            if (res.loss_history != host_res.loss_history
+                    or res.consensus_history != host_res.consensus_history
+                    or res.wire_history != host_res.wire_history
+                    or link_columns(scan) != host_cols):
+                raise AssertionError(f"{name}: the scan run's metrics "
+                                     f"differ from the host run's")
+            for part in ("params", "v", "v_bar"):
+                same_tensors(f"{name} {part}",
+                             tree_leaves(getattr(scan.state, part)),
+                             tree_leaves(getattr(host.state, part)))
+            same_tensors(f"{name} key", [scan.key], [host.key])
+        wall, busy, _, _ = time_replay(scan._engine, LINK_ROUNDS, 2)
+        timing[link] = (wall, busy)
+        del scan
+        torch.cuda.empty_cache()
+    (wall, busy), (wall0, busy0) = timing[True], timing[False]
+    log("link", f"{name}: scan engine (chunks of 2) equal to the host "
+                f"engine bit for bit over {LINK_ROUNDS} rounds: params, v, "
+                f"v̄, key, losses, consensus and every transport and "
+                f"participation column; replayed chunk {wall:.3f} ms a "
+                f"round, {busy:.3f} ms on the device (idle "
+                f"{100 * (1 - busy / wall):.1f}%); without transport and "
+                f"participation {wall0:.3f} ms, {busy0:.3f} ms on the "
+                f"device: the link's share {busy - busy0:+.3f} ms a round "
+                f"on the device")
+    return wall, busy, wall0, busy0
+
+
+def link_trace_ms(name: str, train, trainer):
+    """The transport's and participation's device ms in one round: a traced
+    host round of the run beside one of the same run without them."""
+    from repro_torch.train import FedTrainer
+    cfg = get_arch("lenet-radar", reduced=REDUCED)
+    plain = FedTrainer(get_model(cfg), link_config(name, link=False),
+                       partition_iid(train, K), minibatch=MINIBATCH, seed=0,
+                       engine="host", device=DEVICE)
+    out = []
+    for t in (trainer, plain):
+        _, by_name = trace_round(t, t.round_fn)
+        out.append(None if by_name is None else
+                   sum(us for us, _ in by_name.values()) / 1e3)
+    del plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_link_cli() -> dict:
+    """``repro_torch.launch.train`` in-process with the recorded transport
+    and participation flags (two rounds), its launch counts set to 0 just
+    before and read just after: its header, link and accounting lines equal
+    to the reference CLI's. Returns the counts."""
+    cli = json.loads(TRANSPORT_ROUNDS_FILE.read_text())["cli"]
+    log("link", "python -m repro_torch.launch.train " + " ".join(
+        cli["argv"]))
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        train_cli.main(cli["argv"])
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        log("link", "| " + ln)
+    got = [ln for ln in lines if ln.startswith(TRANSPORT_CLI_LINES)]
+    if got != cli["lines"]:
+        raise AssertionError(f"CLI lines {got} differ from the reference "
+                             f"CLI's {cli['lines']}")
+    log("link", f"CLI: {time.perf_counter() - t0:.1f} s in-process; its "
+                f"{len(got)} header, link and accounting lines equal the "
+                f"reference CLI's; launches "
+                f"{ {k: v for k, v in launches.items() if v} }")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_link(train) -> dict:
+    """Phase 10. Returns the launch counts of the (b) run, the path of the
+    burst channel's kernel."""
+    log("link", f"on {card_line()}")
+    launches = {}
+    for name in TRANSPORT_RUNS:
+        trainer, res, cols, counts = check_link_run(name, train)
+        launches[name] = counts
+        wall, busy, wall0, busy0 = check_link_scan(name, train, trainer, res,
+                                                  cols)
+        dev, dev0 = link_trace_ms(name, train, trainer)
+        log("link", f"{name}: a traced host round {fmt_ms(dev)} on the "
+                    f"device, {fmt_ms(dev0)} without transport and "
+                    f"participation"
+                    + (f": the link's {dev - dev0:+.4f} ms a round"
+                       if dev is not None and dev0 is not None else ""))
+        del trainer
+        torch.cuda.empty_cache()
+    run_link_cli()
+    return launches["fused-gilbert-arq"]
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2590,6 +2988,7 @@ def main() -> int:
     errs = check_kernels(shapes)
     errs.update(check_default_kernels(shapes))
     errs.update(check_gossip_mix(shapes))
+    errs["gilbert_keep"] = check_gilbert()
     timing = time_kernels(shapes)
     for kname, r in timing.items():
         log("kernels", f"{kname} per round (10 leaves, K={K}): device "
@@ -2622,6 +3021,7 @@ def main() -> int:
     # phase 7: the paper's default run and its baselines, then the codecs
     timing.update(time_default_kernels(shapes))
     timing.update(time_gossip_mix(shapes))
+    timing["gilbert_keep"] = time_gilbert()
     shift = shift_set(cfg.input_hw)
     default_launches, evals = {}, {}
     for algorithm in DEFAULT_RUNS:
@@ -2631,6 +3031,7 @@ def main() -> int:
         run_codec_round(name, train)
     run_serve(train, test, shift)
     train_launches = run_train(train)
+    link_launches = run_link(train)
     log("default", "accuracy / ECE, day-1 test maps and days-2/3 shift set: "
                    + "; ".join(f"{a}: {e['accuracy']:.4f} / {e['ece']:.4f}, "
                                f"{e['shift_accuracy']:.4f} / "
@@ -2646,7 +3047,8 @@ def main() -> int:
                     unpack_set=default_launches["cdbfl"]["unpack_set"],
                     cffl_update=default_launches["cffl"]["cffl_update"],
                     dsgld_update=default_launches["dsgld"]["dsgld_update"],
-                    gossip_mix=train_launches["gossip_mix"])
+                    gossip_mix=train_launches["gossip_mix"],
+                    gilbert_keep=link_launches["gilbert_keep"])
     record = {"kernels": [
         {"name": kname, "route": "cuda", "source": KERNELS[kname][0],
          "replaces": KERNELS[kname][1], "launches": launches[kname],

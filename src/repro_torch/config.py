@@ -2,7 +2,8 @@
 
 A copy of the subset of ``repro/config.py`` this package runs, with the same
 defaults (``FedConfig``: ``config.py:285-327`` of the reference, every
-field; ``ServeConfig``: ``:255-282``). Values the port does not run yet
+field; ``TransportConfig`` and ``ParticipationConfig``: ``:120-210``;
+``ServeConfig``: ``:255-282``). Values the port does not run yet
 raise :class:`NotImplementedError` naming the ROADMAP item that ports them,
 so a config can never silently select a path that is missing here.
 """
@@ -34,6 +35,99 @@ class TopologyConfig:
 
 
 @dataclass(frozen=True)
+class TransportConfig:
+    """Lossy D2D frame transport under the gossip layer (DESIGN.md §11).
+
+    Payloads are fragmented into ``mtu``-bounded frames (8-byte LEN/SEQ/CRC
+    header each); frames erase per the named loss model, and whole links
+    drop for a round per the SNR-derived Rayleigh outage (reusing the
+    gossip layer's ``link_failure_prob`` seam). Pure data so config stays
+    dependency-free; ``repro_torch.core.transport`` interprets it.
+    """
+    mtu: int = 256                  # on-air frame size cap, header included
+    # per-frame erasure: scalar rate, or a per-node tuple (asymmetric loss;
+    # 1.0 = dead transmitter). Interpreted by the ``loss_model`` below.
+    erasure: Any = 0.0
+    loss_model: str = "bernoulli"   # bernoulli | gilbert
+    # Gilbert-Elliott burst channel (loss_model="gilbert")
+    gilbert_p_enter: float = 0.05   # good -> bad episode start, per frame
+    gilbert_p_exit: float = 0.3     # bad -> good recovery, per frame
+    gilbert_loss_good: float = 0.0
+    gilbert_loss_bad: float = 1.0
+    # SNR-parameterized per-link outage (None disables): per-node mean SNR
+    # snr_db ± lognormal shadowing, edge outage 1 - exp(-γ_th/γ̄) at the
+    # weaker endpoint, fed into the gossip link-dropout seam.
+    snr_db: Optional[float] = None
+    snr_spread_db: float = 0.0
+    snr_threshold_db: float = 0.0
+    # radio cost model (802.15.4-class defaults) for airtime/energy columns
+    phy_rate_bps: float = 250_000.0
+    tx_power_w: float = 0.1
+    # selective-repeat ARQ (DESIGN.md §12): lost frames are retransmitted
+    # up to ``max_retries`` extra attempts, each attempt drawing a fresh
+    # PRNG-pure keep mask (fold_in of the per-leaf transport key by the
+    # attempt index). ``arq_backoff_s`` is the wait before retransmit
+    # attempt a (doubling per attempt), charged against the round's
+    # airtime budget but not TX energy. arq=False keeps the single-shot
+    # path bitwise identical to the pre-ARQ transport.
+    arq: bool = False
+    max_retries: int = 2
+    arq_backoff_s: float = 0.0
+    # LoRa-style time-on-air accounting (DESIGN.md §12): per-frame airtime
+    # from the SX127x symbol-count formula at spreading factor ``sf`` over
+    # ``bw_hz`` with coding rate 4/(4+coding_rate), instead of the flat
+    # phy_rate_bps division. toa=False keeps the flat accounting (and the
+    # committed byte/airtime baselines) unchanged.
+    toa: bool = False
+    sf: int = 7                     # LoRa spreading factor (7..12)
+    bw_hz: float = 125_000.0        # LoRa channel bandwidth
+    coding_rate: int = 1            # CR index: 1..4 -> 4/5..4/8
+    preamble_syms: int = 8
+    # per-round airtime budget: duty_cycle × round_period_s seconds of
+    # airtime (plus ARQ backoff waits) per node per round; 0 period = no
+    # budget (∞). Frames that exhaust the budget are abandoned and their
+    # mass falls back to the CHOCO residual via error feedback.
+    duty_cycle: float = 1.0
+    round_period_s: float = 0.0
+    # CHOCO error feedback: update the control sequence v with the
+    # *delivered* delta only, so lost frames stay in the next residual
+    error_feedback: bool = True
+    seed: int = 0                   # SNR shadowing draw seed
+
+    def replace(self, **kw) -> "TransportConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ParticipationConfig:
+    """Barrier-free round model (DESIGN.md §12): which nodes show up.
+
+    A node that does not participate in a round performs no local steps,
+    transmits nothing, and integrates nothing — its params/v/v̄ freeze
+    and the Metropolis-Hastings mixing row of every neighbor renormalizes
+    over the delivered neighbor set (the missing weight folds into the
+    self-loop, so the realized Ω stays doubly stochastic). Pure data;
+    ``repro_torch.core.gossip.ParticipationSchedule`` interprets it.
+    """
+    # iid per-round straggler skips: each subject node misses a round
+    # with this probability (PRNG-pure from the round key)
+    straggler_prob: float = 0.0
+    # nodes subject to straggling; empty = every node
+    stragglers: Tuple[int, ...] = ()
+    # deterministic death/rejoin timelines: (node, die_round, rejoin_round)
+    # — the node is out for die_round <= t < rejoin_round; rejoin < 0
+    # means it never comes back
+    dead: Tuple[Tuple[int, int, int], ...] = ()
+
+    @property
+    def active(self) -> bool:
+        return self.straggler_prob > 0.0 or len(self.dead) > 0
+
+    def replace(self, **kw) -> "ParticipationConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     """The LeNet fields of the reference ``ModelConfig``."""
     name: str = "model"
@@ -61,8 +155,6 @@ _SUPPORTED = {
 }
 # fields the port runs only at None, and the item that ports the rest
 _UNSET_ONLY = {
-    "transport": "A8 (lossy transport)",
-    "participation": "A7 (barrier-free participation)",
     "continual": "A9 (drift and continual learning)",
 }
 
@@ -96,8 +188,8 @@ class FedConfig:
     layer_pipelines: Tuple[Tuple[str, str], ...] = ()
     algorithm: str = "cdbfl"        # cdbfl | dsgld | cffl
     control_dtype: str = "float32"  # v / v̄ storage
-    transport: Optional[Any] = None       # a TransportConfig (A8)
-    participation: Optional[Any] = None   # a ParticipationConfig (A7)
+    transport: Optional["TransportConfig"] = None
+    participation: Optional["ParticipationConfig"] = None
     continual: Optional[Any] = None       # a ContinualConfig (A9)
     seed: int = 0
 

@@ -4,10 +4,9 @@ SGLD step.
 
 Counterparts of ``make_cdbfl_round`` (reference lines 335-453),
 ``make_dsgld_round`` (:460-553), ``make_cffl_round`` (:560-635),
-``make_sgld_step`` (:642-672) and ``make_round_fn`` (:675-694), with ideal
-links: no transport, no participation model, one device. Every leaf leads
-with the node axis K, and the K nodes run batched (grouped convolutions,
-batched matmuls), not in a Python loop.
+``make_sgld_step`` (:642-672) and ``make_round_fn`` (:675-694), on one
+device. Every leaf leads with the node axis K, and the K nodes run batched
+(grouped convolutions, batched matmuls), not in a Python loop.
 
 ``round_fn(state, batches, key)`` takes the reference's round key and
 draws as the reference's round does (``algorithms.py:374-381``): ``kql,
@@ -30,6 +29,19 @@ DSGLD draws ``knoise, kmix = split(key)`` and its noise from ``knoise``,
 its masks from ``kmix``; CF-FL keys its codec by ``kq, _ = split(key)``,
 CD-BFL's codec stream, and its masks by ``kmix = fold_in(key, 2)``. Their
 updates are the fused_update kernel's two variants (ROADMAP C10).
+
+A lossy transport (``fed_cfg.transport`` or ``transport=``) masks the
+decoded delta frame by frame (``algorithms.py:187-238``): its keep masks
+are drawn from ``fold_in(kql, TRANSPORT_SALT)`` beside the round's other
+draws (three key levels, then the loss model's), the neighbors mix the
+delivered delta, and under error feedback ``v`` absorbs only that; its
+SNR outage joins the mixer's dropout. A participation model
+(``fed_cfg.participation``) draws its stragglers from ``fold_in(key,
+11)`` and reads its death timelines off ``state.round`` (a device int
+tensor on both engines): the mixer drops the absent nodes' edges, and a
+node that sits the round out keeps its params, v and v̄ (the freeze,
+``:269-277``). Both add their columns to :class:`RoundMetrics`, means
+over the nodes as the reference reduces them.
 """
 from __future__ import annotations
 
@@ -41,8 +53,10 @@ import torch
 from repro_torch import random
 from repro_torch.core.compression import draw_uniforms
 from repro_torch.core.fed_state import FedState
-from repro_torch.core.gossip import make_mixer
+from repro_torch.core.gossip import make_mixer, resolve_participation
 from repro_torch.core.topology import resolve_topology
+from repro_torch.core.transport import (TransportMetrics, resolve_transport,
+                                        sum_nodes)
 from repro_torch.kernels import ops as kops
 from repro_torch.utils.tree import (tree_count, tree_leaves,
                                     tree_leaves_with_path, tree_map,
@@ -57,6 +71,18 @@ class RoundMetrics(NamedTuple):
                                    # the legacy Compressor's closed form
     payload: Any = None            # the round's WirePayload (Eq. 6); None
                                    # for the legacy dense Compressor
+    # the transport's accounting, means over nodes (0 without a transport):
+    # f32 scalar tensors, or Python floats where static
+    offered_bytes: Any = 0.0       # on-air bytes offered, headers and
+                                   # ARQ re-sends included
+    delivered_bytes: Any = 0.0     # bytes whose frames survived
+    airtime_s: Any = 0.0           # TX airtime (LoRa ToA under cfg.toa)
+    energy_j: Any = 0.0            # TX energy at tx_power
+    retransmits: Any = 0.0         # ARQ frame re-sends
+    abandoned_bytes: Any = 0.0     # bytes never delivered after every
+                                   # ARQ attempt
+    participation: Any = 1.0       # (K,) {0,1} vector of the round; 1.0
+                                   # without a participation model
 
 
 def _value_and_grad(nll_fn, paths, leaves, batch, prior_weight: float,
@@ -120,141 +146,320 @@ def _sq_norm(tree) -> torch.Tensor:
     return sum((x.float() ** 2).sum() for x in tree_leaves(tree))
 
 
-def _compress_exchange(compressor, theta, v, uniforms):
-    """Q over the residual ``theta - v`` of every node: ``(delta, wire
-    bytes per node, payload)``. A pipeline encodes the pair (a
+def _compress_exchange(compressor, theta, v, uniforms, transport=None,
+                       keeps=None):
+    """Q over the residual ``theta - v`` of every node: ``(delta_v, delta,
+    wire bytes per node, payload, tx)``. A pipeline encodes the pair (a
     :class:`FusedCodec` never materializes the residual) into a measured
     :class:`WirePayload` and decodes it; the legacy dense
     :class:`Compressor` is applied to the materialized residual, and its
     bytes are the closed-form table on one node's tree
-    (``algorithms.py:235-238`` of the reference)."""
+    (``algorithms.py:187-238`` of the reference). With a transport, the
+    decoded delta is masked by the frames' ``keeps``: ``delta`` is the
+    delivered delta, ``delta_v`` what the sender's control sequence
+    absorbs (the delivered one under error feedback, else the full
+    decode), ``tx`` the per-node :class:`TransportMetrics`."""
     if hasattr(compressor, "encode_pair"):
         payload = compressor.encode_pair(theta, v, uniforms)
         num_nodes = tree_leaves(theta)[0].shape[0]
-        return (compressor.decode(payload),
-                payload.measured_bytes() / num_nodes, payload)
+        wire = payload.measured_bytes() / num_nodes
+        if transport is None:
+            delta = compressor.decode(payload)
+            return delta, delta, wire, payload, None
+        full, delivered, tx = transport.deliver(compressor, payload, keeps)
+        return (delivered if transport.error_feedback else full, delivered,
+                wire, payload, tx)
     residual = tree_map(lambda t, vv: t - vv.to(t.dtype), theta, v)
     wire = compressor.wire_bytes(tree_map(lambda x: x[0], residual))
-    return compressor(residual, uniforms), float(wire), None
+    delta = compressor(residual, uniforms)
+    return delta, delta, float(wire), None, None
 
 
-def _default_mixer(omega, fed_cfg, device):
-    """The reference's default mixer (``algorithms.py:60-65``): the
-    lowering ``plan_mixer`` picks for Ω under the run's TopologyConfig."""
-    return make_mixer(omega, device, config=resolve_topology(fed_cfg))
+def _inverse(num_nodes: int) -> float:
+    """``fl32(1/K)``: XLA's CPU code divides by the constant K as a product
+    with its f32 reciprocal."""
+    return float(np.float32(1.0) / np.float32(num_nodes))
 
 
-def _with_masks(mix, key: torch.Tensor, num: int, draw):
+def _reduce_transport(tx, num_nodes: int) -> TransportMetrics:
+    """Means over the nodes of the per-node metrics (``algorithms.py:
+    241-258``): each summed in node order and times ``fl32(1/K)``, as XLA's
+    CPU code computes the reference's ``sum / K``. A static value (every
+    node's the same) is a Python float, reduced on the host alike."""
+    if tx is None:
+        return TransportMetrics.zero()
+    inv = _inverse(num_nodes)
+
+    def mean(x):
+        if torch.is_tensor(x):
+            return sum_nodes(x) * inv
+        acc = np.float32(x)
+        for _ in range(num_nodes - 1):
+            acc = np.float32(acc + np.float32(x))
+        return float(np.float32(acc * np.float32(inv)))
+    return TransportMetrics(*(mean(f) for f in tx))
+
+
+def _mask_transport(tx, p):
+    """A node that sits the round out transmits nothing: its rows of the
+    per-node metrics zeroed (``algorithms.py:261-266``)."""
+    if tx is None or p is None:
+        return tx
+    return TransportMetrics(*(f * p for f in tx))
+
+
+def _participation_freeze(p, new_tree, old_tree):
+    """Barrier-free rounds (``algorithms.py:269-277``): a node that skipped
+    the round keeps its old state."""
+    def leaf(n, o):
+        m = p.reshape((p.shape[0],) + (1,) * (n.dim() - 1))
+        return torch.where(m > 0.5, n, o.to(n.dtype))
+    return tree_map(leaf, new_tree, old_tree)
+
+
+def _check_transport(transport, compressor) -> None:
+    """Frame-level loss needs the materialized wire format
+    (``algorithms.py:280-287``)."""
+    if (transport is not None and transport.lossy
+            and not hasattr(compressor, "encode")):
+        raise ValueError(
+            "frame-level transport loss requires a codec pipeline "
+            "(CompressionPipeline); the legacy dense-masked Compressor has "
+            "no wire payload to fragment — use fed_cfg.pipeline")
+
+
+def _round_metrics(txm: TransportMetrics, p_full, **kw) -> RoundMetrics:
+    return RoundMetrics(
+        offered_bytes=txm.offered, delivered_bytes=txm.delivered,
+        airtime_s=txm.airtime_s, energy_j=txm.energy_j,
+        retransmits=txm.retransmits, abandoned_bytes=txm.abandoned,
+        participation=p_full if p_full is not None else 1.0, **kw)
+
+
+def _default_mixer(omega, fed_cfg, device, transport=None):
+    """The reference's default mixer (``algorithms.py:52-65``): the
+    lowering ``plan_mixer`` picks for Ω under the run's TopologyConfig,
+    with the transport's SNR outage as ``link_probs`` when it models
+    one."""
+    link_probs = (transport.outage_probs if transport is not None
+                  and transport.has_link_outage else None)
+    return make_mixer(omega, device, config=resolve_topology(fed_cfg),
+                      link_probs=link_probs)
+
+
+class _Draws(NamedTuple):
+    """A round's draws when a transport or a participation model draws
+    too: the codec's and the noise's (``base``), the mixer's masks, the
+    frames' keep masks and the straggler uniforms."""
+    base: Any
+    masks: Any
+    keeps: Any = None
+    straggle: Any = None
+
+
+def _with_masks(mix, key: torch.Tensor, num: int, draw, extra=()):
     """A round's draws program: ``split(key, num)`` (one more key, ``kmix
     = fold_in(key, num)``, when the mixer is time-varying), then
-    ``draw(keys)``'s programs and the masks side by side. Returns the
-    draws, or ``(draws, masks)`` on a time-varying graph."""
+    ``draw(keys)``'s programs and the masks side by side; the ``extra``
+    programs of ``key`` itself (the transport's keeps, the stragglers) run
+    beside them from the first level on. Returns the draws, ``(draws,
+    masks)`` on a time-varying graph, or a :class:`_Draws` when ``extra``
+    is given."""
     tv = mix.masks is not None
-    keys = yield from random.split.program(key, num + tv)
-    progs = draw(keys)
-    got = yield from random.together(*progs, *(
-        [mix.masks.program(keys[num])] if tv else []))
-    base = tuple(got[:len(progs)]) if len(progs) > 1 else got[0]
-    return (base, got[-1]) if tv else base
+
+    def core():
+        keys = yield from random.split.program(key, num + tv)
+        progs = draw(keys)
+        got = yield from random.together(*progs, *(
+            [mix.masks.program(keys[num])] if tv else []))
+        base = tuple(got[:len(progs)]) if len(progs) > 1 else got[0]
+        return base, (got[len(progs)] if tv else None)
+
+    extra = list(extra)
+    (base, masks), *rest = yield from random.together(core(), *extra)
+    if extra:
+        return _Draws(base, masks, *rest)
+    return (base, masks) if tv else base
 
 
 def _split_masks(mix, draws):
     """``(draws, masks)`` of a round's draws (masks None on a static
     graph)."""
+    if isinstance(draws, _Draws):
+        return draws.base, draws.masks
     return draws if mix.masks is not None else (draws, None)
 
 
+class _Links:
+    """What a round adds for the transport and the participation model:
+    their draw programs and the round's participation vector."""
+
+    def __init__(self, fed_cfg, compressor, transport):
+        self.transport = transport
+        self.participation = resolve_participation(fed_cfg)
+        self.compressor = compressor
+        self.num_nodes = fed_cfg.num_nodes
+        self._layouts = {}
+
+    @property
+    def draws_keeps(self) -> bool:
+        return (self.transport is not None and self.transport.lossy
+                and self.compressor is not None
+                and hasattr(self.compressor, "encode"))
+
+    def programs(self, key, params):
+        """The programs of ``key`` a round adds, in order: the frames'
+        keeps, the straggler uniforms (each present or None)."""
+        out = []
+        if self.draws_keeps:
+            shapes = tuple((p, tuple(x.shape), x.dtype, x.device) for p, x
+                           in tree_leaves_with_path(params))
+            if shapes not in self._layouts:
+                self._layouts[shapes] = self.transport.layout(
+                    self.compressor, params)
+            out.append(self.transport.frame_keeps.program(
+                key, self._layouts[shapes].frames, self.num_nodes))
+        if self.participation is not None:
+            out.append(self.participation.draws.program(key))
+        return out
+
+    def unpack(self, draws):
+        """``(keeps, straggler uniforms)`` of a round's draws."""
+        if not isinstance(draws, _Draws):
+            return None, None
+        if self.draws_keeps:
+            return draws.keeps, draws.straggle
+        return None, draws.keeps
+
+    def mask(self, straggle, round_idx, device):
+        """The round's participation vector (None without a model)."""
+        if self.participation is None:
+            return None
+        return self.participation.mask(straggle, round_idx, device)
+
+
 def make_cdbfl_round(nll_fn, fed_cfg, omega, compressor, data_scale: float = 1.0,
-                     device="cuda"):
+                     device="cuda", transport=None):
     """One round = L local SGD steps per node (Eq. 5), compressed residual
-    exchange (Eq. 6), the CHOCO control variates (Eqs. 7-8), and the
-    consensus correction with Langevin noise (Eq. 9, the fused_update
-    kernel)."""
+    exchange (Eq. 6) through the transport when one is configured, the
+    CHOCO control variates (Eqs. 7-8), and the consensus correction with
+    Langevin noise (Eq. 9, the fused_update kernel); under a participation
+    model a node that sits the round out keeps its state
+    (``algorithms.py:335-453``)."""
     eta, zeta = fed_cfg.eta, fed_cfg.zeta
     num_nodes = fed_cfg.num_nodes
-    mix = _default_mixer(omega, fed_cfg, device)
+    transport = resolve_transport(fed_cfg, transport)
+    _check_transport(transport, compressor)
+    mix = _default_mixer(omega, fed_cfg, device, transport)
+    links = _Links(fed_cfg, compressor, transport)
     prior_weight = 1.0 / num_nodes
 
     @random.program
     def draws(key: torch.Tensor, params):
         """``(noise, uniforms)`` of the round keyed ``key``: ``kql, knoise
         = split(key)``, then the noise and the uniforms side by side (and
-        the masks from ``kmix``)."""
+        the masks from ``kmix``, the frames' keeps from ``kql`` and the
+        straggler uniforms from ``key``)."""
         return (yield from _with_masks(mix, key, 2, lambda k: (
             langevin_noise.program(k[1], params, eta, fed_cfg.temperature),
-            draw_uniforms.program(compressor, k[0], params))))
+            draw_uniforms.program(compressor, k[0], params)),
+            links.programs(key, params)))
 
     def round_fn(state: FedState, batches, key: torch.Tensor, draws=None):
         """One round keyed ``key``; ``draws``, when given, is
-        ``round_fn.draws(key, state.params)`` drawn already."""
-        (noise, uniforms), masks = _split_masks(
-            mix, draws if draws is not None else
-            round_fn.draws(key, state.params))
+        ``round_fn.draws(key, state.params)`` drawn already. The round
+        index is ``state.round`` (the engines hand it in as a device int
+        tensor)."""
+        drawn = draws if draws is not None else round_fn.draws(
+            key, state.params)
+        (noise, uniforms), masks = _split_masks(mix, drawn)
+        keeps, straggle = links.unpack(drawn)
+        p = links.mask(straggle, state.round, key.device)
         # Eq. 5
         theta_l, losses = _local_sgd(nll_fn, state.params, batches, eta,
                                      prior_weight, data_scale,
                                      fed_cfg.local_steps)
-        # Eq. 6: encode -> wire payload -> decode
-        delta, wire, payload = _compress_exchange(compressor, theta_l,
-                                                  state.v, uniforms)
+        # Eq. 6: encode -> wire payload -> (frames) -> decode
+        delta_v, delta, wire, payload, tx = _compress_exchange(
+            compressor, theta_l, state.v, uniforms, transport, keeps)
         # Eqs. 7-8, control sequences stored in control_dtype
-        v_new = tree_map(lambda v, d: v + d.to(v.dtype), state.v, delta)
+        v_new = tree_map(lambda v, d: v + d.to(v.dtype), state.v, delta_v)
         v_bar_new = tree_map(lambda vb, m: vb + m.to(vb.dtype), state.v_bar,
-                             mix(delta, masks=masks))
+                             mix(delta, masks=masks, node_mask=p))
         # Eq. 9, noise pre-scaled: s = 1
         params_new = tree_map(
-            lambda t, vb, v, n: kops.leaf_fused_update(t, vb, v, n, zeta, 1.0),
+            lambda t_, vb, v, n: kops.leaf_fused_update(t_, vb, v, n, zeta,
+                                                        1.0),
             theta_l, v_bar_new, v_new, noise)
-        metrics = RoundMetrics(
+        if p is not None:
+            v_new = _participation_freeze(p, v_new, state.v)
+            v_bar_new = _participation_freeze(p, v_bar_new, state.v_bar)
+            params_new = _participation_freeze(p, params_new, state.params)
+        metrics = _round_metrics(
+            _reduce_transport(_mask_transport(tx, p), num_nodes), p,
             loss=losses,
             consensus_error=_consensus_error(params_new) / num_nodes,
             delta_norm=_sq_norm(delta) / num_nodes,
             wire_bytes=wire,
-            payload=payload,
-        )
+            payload=payload)
         return state._replace(params=params_new, v=v_new, v_bar=v_bar_new,
                               round=state.round + 1), metrics
 
     round_fn.draws, round_fn.mixer = draws, mix
+    round_fn.transport = transport
     return round_fn
 
 
 def make_dsgld_round(nll_fn, fed_cfg, omega, data_scale: float = 1.0,
-                     device="cuda"):
+                     device="cuda", transport=None):
     """One DSGLD iteration (paper Eq. 4): ``θ' = Σ_j ω_kj θ_j − η∇f_k +
     √(2ηT)ξ`` on the first of the round's L minibatches, the dense θ
-    exchanged uncompressed (the dsgld_update kernel)."""
+    exchanged uncompressed (the dsgld_update kernel). A transport adds its
+    link outage to the mixer and its static accounting of the dense
+    frames, nothing erased (``algorithms.py:460-553``)."""
     eta = fed_cfg.eta
     num_nodes = fed_cfg.num_nodes
-    mix = _default_mixer(omega, fed_cfg, device)
+    transport = resolve_transport(fed_cfg, transport)
+    mix = _default_mixer(omega, fed_cfg, device, transport)
+    links = _Links(fed_cfg, None, transport)
     prior_weight = 1.0 / num_nodes
 
     @random.program
     def draws(key: torch.Tensor, params):
         """The noise of the round keyed ``key``: ``knoise, kmix =
-        split(key)`` (the masks from ``kmix``)."""
-        knoise, kmix = yield from random.split.program(key)
-        tv = mix.masks is not None
-        got = yield from random.together(
-            langevin_noise.program(knoise, params, eta, fed_cfg.temperature),
-            *([mix.masks.program(kmix)] if tv else []))
-        return tuple(got) if tv else got[0]
+        split(key)`` (the masks from ``kmix``, the straggler uniforms from
+        ``key``)."""
+        return (yield from _with_masks(
+            mix, key, 1, lambda k: (langevin_noise.program(
+                k[0], params, eta, fed_cfg.temperature),),
+            links.programs(key, params)))
 
     def round_fn(state: FedState, batches, key: torch.Tensor, draws=None):
-        noise, masks = _split_masks(
-            mix, draws if draws is not None else
-            round_fn.draws(key, state.params))
-        paths = [p for p, _ in tree_leaves_with_path(state.params)]
+        drawn = draws if draws is not None else round_fn.draws(
+            key, state.params)
+        noise, masks = _split_masks(mix, drawn)
+        _, straggle = links.unpack(drawn)
+        p = links.mask(straggle, state.round, key.device)
+        paths = [p_ for p_, _ in tree_leaves_with_path(state.params)]
         batch0 = {f: v[:, 0] for f, v in batches.items()}
         losses, grads = _value_and_grad(nll_fn, paths,
                                         tree_leaves(state.params), batch0,
                                         prior_weight, data_scale)
-        mixed = mix(state.params, masks=masks)
+        mixed = mix(state.params, masks=masks, node_mask=p)
         params_new = tree_map(
             lambda m, g, n: kops.leaf_dsgld_update(m, g, n, eta), mixed,
             tree_unflatten(paths, list(grads)), noise)
+        if p is not None:
+            params_new = _participation_freeze(p, params_new, state.params)
         dense_bytes = tree_count(state.params) // num_nodes * 4
-        metrics = RoundMetrics(
+        txm = (transport.account_dense(dense_bytes)
+               if transport is not None else TransportMetrics.zero())
+        if p is not None:
+            # a node that skipped the round never offered its dense θ
+            rate = sum_nodes(p) * _inverse(num_nodes)
+            txm = TransportMetrics(*(rate * f for f in txm))
+        metrics = _round_metrics(
+            txm, p,
             loss=losses[:, None],
             consensus_error=_consensus_error(params_new) / num_nodes,
             delta_norm=_sq_norm(state.params) / num_nodes,
@@ -264,51 +469,64 @@ def make_dsgld_round(nll_fn, fed_cfg, omega, data_scale: float = 1.0,
                               round=state.round + 1), metrics
 
     round_fn.draws, round_fn.mixer = draws, mix
+    round_fn.transport = transport
     return round_fn
 
 
 def make_cffl_round(nll_fn, fed_cfg, omega, compressor,
-                    data_scale: float = 1.0, device="cuda"):
+                    data_scale: float = 1.0, device="cuda", transport=None):
     """CF-FL (CHOCO-SGD, the compressed frequentist baseline): CD-BFL's
     round without the Langevin noise and the prior (the cffl_update
-    kernel)."""
+    kernel), through the transport and the participation model as
+    CD-BFL's (``algorithms.py:560-635``)."""
     eta, zeta = fed_cfg.eta, fed_cfg.zeta
     num_nodes = fed_cfg.num_nodes
-    mix = _default_mixer(omega, fed_cfg, device)
+    transport = resolve_transport(fed_cfg, transport)
+    _check_transport(transport, compressor)
+    mix = _default_mixer(omega, fed_cfg, device, transport)
+    links = _Links(fed_cfg, compressor, transport)
 
     @random.program
     def draws(key: torch.Tensor, params):
         """The codec's draws of the round keyed ``key``: ``kq, _ =
         split(key)``, CD-BFL's codec stream (the masks from ``kmix =
-        fold_in(key, 2)``)."""
+        fold_in(key, 2)``, the keeps from ``kq``)."""
         return (yield from _with_masks(mix, key, 2, lambda k: (
-            draw_uniforms.program(compressor, k[0], params),)))
+            draw_uniforms.program(compressor, k[0], params),),
+            links.programs(key, params)))
 
     def round_fn(state: FedState, batches, key: torch.Tensor, draws=None):
-        uniforms, masks = _split_masks(
-            mix, draws if draws is not None else
-            round_fn.draws(key, state.params))
+        drawn = draws if draws is not None else round_fn.draws(
+            key, state.params)
+        uniforms, masks = _split_masks(mix, drawn)
+        keeps, straggle = links.unpack(drawn)
+        p = links.mask(straggle, state.round, key.device)
         theta_l, losses = _local_sgd(nll_fn, state.params, batches, eta, 0.0,
                                      data_scale, fed_cfg.local_steps)
-        delta, wire, payload = _compress_exchange(compressor, theta_l,
-                                                  state.v, uniforms)
-        v_new = tree_map(lambda v, d: v + d.to(v.dtype), state.v, delta)
+        delta_v, delta, wire, payload, tx = _compress_exchange(
+            compressor, theta_l, state.v, uniforms, transport, keeps)
+        v_new = tree_map(lambda v, d: v + d.to(v.dtype), state.v, delta_v)
         v_bar_new = tree_map(lambda vb, m: vb + m.to(vb.dtype), state.v_bar,
-                             mix(delta, masks=masks))
+                             mix(delta, masks=masks, node_mask=p))
         params_new = tree_map(
-            lambda t, vb, v: kops.leaf_cffl_update(t, vb, v, zeta), theta_l,
-            v_bar_new, v_new)
-        metrics = RoundMetrics(
+            lambda t_, vb, v: kops.leaf_cffl_update(t_, vb, v, zeta),
+            theta_l, v_bar_new, v_new)
+        if p is not None:
+            v_new = _participation_freeze(p, v_new, state.v)
+            v_bar_new = _participation_freeze(p, v_bar_new, state.v_bar)
+            params_new = _participation_freeze(p, params_new, state.params)
+        metrics = _round_metrics(
+            _reduce_transport(_mask_transport(tx, p), num_nodes), p,
             loss=losses,
             consensus_error=_consensus_error(params_new) / num_nodes,
             delta_norm=_sq_norm(delta) / num_nodes,
             wire_bytes=wire,
-            payload=payload,
-        )
+            payload=payload)
         return state._replace(params=params_new, v=v_new, v_bar=v_bar_new,
                               round=state.round + 1), metrics
 
     round_fn.draws, round_fn.mixer = draws, mix
+    round_fn.transport = transport
     return round_fn
 
 
@@ -339,14 +557,16 @@ def make_sgld_step(nll_fn, eta: float, temperature: float = 1.0,
 
 
 def make_round_fn(algorithm: str, nll_fn, fed_cfg, omega, compressor=None,
-                  data_scale: float = 1.0, device="cuda"):
-    """The round function of ``algorithm`` (``algorithms.py:675-694``)."""
+                  data_scale: float = 1.0, device="cuda", transport=None):
+    """The round function of ``algorithm`` (``algorithms.py:678-694``);
+    ``transport`` overrides the one ``fed_cfg.transport`` builds."""
     if algorithm == "cdbfl":
         return make_cdbfl_round(nll_fn, fed_cfg, omega, compressor,
-                                data_scale, device)
+                                data_scale, device, transport)
     if algorithm == "dsgld":
-        return make_dsgld_round(nll_fn, fed_cfg, omega, data_scale, device)
+        return make_dsgld_round(nll_fn, fed_cfg, omega, data_scale, device,
+                                transport)
     if algorithm == "cffl":
         return make_cffl_round(nll_fn, fed_cfg, omega, compressor,
-                               data_scale, device)
+                               data_scale, device, transport)
     raise ValueError(f"unknown algorithm {algorithm!r}")

@@ -506,13 +506,24 @@ class QSGDCodec(_Codec):
 _BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
 
 
+# row lengths XLA's CPU code sums in order (ROADMAP C19)
+SEQUENTIAL_SUM_MAX = 32
+
+
 def mean_magnitude(flat: torch.Tensor) -> torch.Tensor:
     """``jnp.mean(jnp.abs(x))`` of each row as the reference's jitted code
     computes it: the sum times the f32 reciprocal of the count (XLA folds
-    the division by a constant, ROADMAP C5)."""
+    the division by a constant, ROADMAP C5); a row of at most 32 elements
+    summed in order, as XLA's CPU code sums it (C19)."""
     n = flat.shape[1]
-    return flat.abs().float().sum(dim=1) * float(np.float32(1.0) /
-                                                 np.float32(n))
+    mag = flat.abs().float()
+    if n <= SEQUENTIAL_SUM_MAX:
+        total = mag[:, 0]
+        for j in range(1, n):
+            total = total + mag[:, j]
+    else:
+        total = mag.sum(dim=1)
+    return total * float(np.float32(1.0) / np.float32(n))
 
 
 def packbits(bits: torch.Tensor) -> torch.Tensor:

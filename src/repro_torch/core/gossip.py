@@ -17,9 +17,17 @@ x)`` and each shift's ``+ c·roll(x, −s)`` into an fma (ROADMAP C16), so
 the port's chain of single-rounding fmas is bit-exact to the jitted
 reference mixer. The masks are drawn as a :func:`random.program`
 (:func:`matching_masks`), so a round draws them beside its other draws and
-they never leave the device. The reference's ``link_probs`` (the
-transport's SNR outage model) is ROADMAP A8; participation masks
-(``node_mask``) and the shard mixers are A7 and A10.
+they never leave the device.
+
+Barrier-free rounds (``gossip.py:93-118``, ``:635-702``): a per-node
+participation vector ``node_mask`` reaches every lowering, the dense one
+as the stale-weighted :func:`participation_omega`, the schedule ones (the
+roll lowering too, as the reference's) as the Laplacian form with the
+edge mask ``p_k·p_perm(k)`` on the weights; :class:`ParticipationSchedule`
+draws the vector from the round key and the round index. The transport's
+SNR outage (``link_probs``) composes with the config's link dropout into
+per-edge probabilities (:func:`_tv_probs`). The shard mixers are ROADMAP
+A10.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ from repro_torch.config import TopologyConfig
 from repro_torch.core.topology import MixSchedule, build_schedule
 from repro_torch.kernels.fused_update import (CIRCULANT, LAPLACIAN, RING,
                                               gossip_mix)
+from repro_torch.utils.device import device_const
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -98,6 +107,28 @@ def ring_mix(omega: np.ndarray, tree):
     side = np.full((2, k), omega[0, 1], np.float32)
     return _Terms(np.stack([(rows - 1) % k, (rows + 1) % k]), side, device,
                   RING, c0=float(np.float32(omega[0, 0]))).mix(tree)
+
+
+def participation_omega(omega, node_mask) -> torch.Tensor:
+    """The stale-weighted Ω of a participation vector (``gossip.py:93-108``):
+    ``off = Ω·(p pᵀ)·(1 − I)``, the diagonal ``1 − Σ_j off`` summed in
+    column order, as XLA's CPU code sums the reference's rows."""
+    om = torch.as_tensor(omega, dtype=torch.float32, device=node_mask.device)
+    p = node_mask.float()
+    k = om.shape[0]
+    eye = torch.eye(k, dtype=torch.float32, device=om.device)
+    off = om * (p[:, None] * p[None, :]) * (1.0 - eye)
+    row = off[:, 0]
+    for j in range(1, k):
+        row = row + off[:, j]
+    return off + torch.diag(1.0 - row)
+
+
+def participation_edge_mask(perms: torch.Tensor, node_mask) -> torch.Tensor:
+    """``(M, K)`` survival of matching edge (k, perm_m[k]): both endpoints
+    participate (``gossip.py:111-118``)."""
+    p = node_mask.float()
+    return p[None, :] * p[perms]
 
 
 def _p_active(link_failure_prob) -> bool:
@@ -168,22 +199,21 @@ def schedule_mix(schedule: MixSchedule, tree, key=None, *,
     ``x + Σ_m mask_m·w_m·(x[perm_m] − x)``; without a key (or with both
     knobs at 0) exactly Ω x, by rolls when Ω is circulant. Builds its
     device tensors on every call: :func:`make_mixer` builds them once."""
-    if node_mask is not None:
-        raise NotImplementedError("participation masks are not ported yet; "
-                                  "ROADMAP A7 (ParticipationSchedule)")
     m = schedule.num_perms
     if m == 0:
         return tree
     device = tree_leaves(tree)[0].device
     time_varying = key is not None and (_p_active(link_failure_prob)
                                         or 0 < gossip_pairs < m)
-    if not time_varying and schedule.shifts is not None:
+    if node_mask is None and not time_varying and schedule.shifts is not None:
         return _roll_terms(schedule, device).mix(tree)
     terms = _Terms(schedule.perms, schedule.weights, device, LAPLACIAN)
-    w = None
+    w = terms.w
     if time_varying:
-        w = terms.w * matching_masks(schedule, key, link_failure_prob,
-                                     gossip_pairs)
+        w = w * matching_masks(schedule, key, link_failure_prob, gossip_pairs)
+    if node_mask is not None:
+        w = w * participation_edge_mask(torch.as_tensor(
+            schedule.perms, dtype=torch.int64, device=device), node_mask)
     return terms.mix(tree, w)
 
 
@@ -217,13 +247,18 @@ def plan_mixer(omega: np.ndarray, config: Optional[TopologyConfig] = None,
 
 def _tv_probs(schedule: MixSchedule, config: Optional[TopologyConfig],
               link_probs: Optional[Callable]):
-    """The dropout probability of a time-varying mixer: the config's. The
-    reference composes it with the transport's per-edge SNR outage
-    (``link_probs``), which is ROADMAP A8."""
-    if link_probs is not None:
-        raise NotImplementedError("link_probs (the transport's SNR outage "
-                                  "model) is not ported yet; ROADMAP A8")
-    return float(config.link_failure_prob) if config is not None else 0.0
+    """The dropout probability of a time-varying mixer
+    (``gossip.py:238-255``): the config's scalar ``p1``, composed with the
+    transport's per-edge outage ``p2 = link_probs(schedule)`` (M, K) as
+    ``1 − (1 − p1)(1 − p2)`` in float64, then f32."""
+    p_cfg = float(config.link_failure_prob) if config is not None else 0.0
+    if link_probs is None:
+        return p_cfg
+    p_link = np.asarray(link_probs(schedule), np.float64)
+    if p_link.shape != schedule.perms.shape:
+        raise ValueError(f"link_probs returned shape {p_link.shape}, "
+                         f"schedule needs {schedule.perms.shape}")
+    return np.asarray(1.0 - (1.0 - p_cfg) * (1.0 - p_link), np.float32)
 
 
 def make_mixer(omega: np.ndarray, device="cuda",
@@ -236,6 +271,10 @@ def make_mixer(omega: np.ndarray, device="cuda",
     or takes them drawn already as ``masks`` (``mix.masks(kmix)``, a
     program, so a round draws them with its other draws); without either it
     mixes the static Ω, as the reference's does without a key.
+    ``node_mask`` (K,) is the round's participation vector: the dense
+    lowering mixes :func:`participation_omega`, every schedule lowering
+    the Laplacian form with the edge mask on its weights. ``link_probs``
+    (the transport's SNR outage) forces the time-varying schedule.
 
     The mixer carries its plan: ``mix.mode``, ``mix.schedule`` and
     ``mix.masks`` (None unless time-varying)."""
@@ -244,44 +283,42 @@ def make_mixer(omega: np.ndarray, device="cuda",
                                 force_tv=link_probs is not None)
     masks = None
 
-    def refuse(node_mask):
-        if node_mask is not None:
-            raise NotImplementedError(
-                "participation masks are not ported yet; ROADMAP A7 "
-                "(ParticipationSchedule)")
-
     if mode == "identity":
         def mix(tree, key=None, node_mask=None, *, masks=None):
-            refuse(node_mask)
             return tree
     elif mode == "dense":
         om_t = torch.as_tensor(np.asarray(om, np.float32), device=device)
 
         def mix(tree, key=None, node_mask=None, *, masks=None):
-            refuse(node_mask)
-            return dense_mix(om_t, tree)
+            if node_mask is None:
+                return dense_mix(om_t, tree)
+            return dense_mix(participation_omega(om_t, node_mask), tree)
     else:
         static = (_roll_terms(schedule, device) if schedule.shifts
                   is not None else _Terms(schedule.perms, schedule.weights,
                                           device, LAPLACIAN))
-        if mode == "schedule_tv":
+        laplace = _Terms(schedule.perms, schedule.weights, device, LAPLACIAN)
+        perms = torch.as_tensor(schedule.perms, dtype=torch.int64,
+                                device=device)
+        tv = mode == "schedule_tv"
+        if tv:
             p_drop = _tv_probs(schedule, config, link_probs)
             pairs = int(config.gossip_pairs) if config is not None else 0
-            laplace = _Terms(schedule.perms, schedule.weights, device,
-                             LAPLACIAN)
             masks = _MaskPlan(schedule, p_drop, pairs, device).masks
 
-            def mix(tree, key=None, node_mask=None, *, masks=None):
-                refuse(node_mask)
-                if masks is None and key is not None:
-                    masks = mix.masks(key)
-                if masks is None:
-                    return static.mix(tree)
-                return laplace.mix(tree, laplace.w * masks)
-        else:
-            def mix(tree, key=None, node_mask=None, *, masks=None):
-                refuse(node_mask)
+        def mix(tree, key=None, node_mask=None, *, masks=None):
+            if tv and masks is None and key is not None:
+                masks = mix.masks(key)
+            if not tv:
+                masks = None
+            if masks is None and node_mask is None:
                 return static.mix(tree)
+            w = laplace.w
+            if masks is not None:
+                w = w * masks
+            if node_mask is not None:
+                w = w * participation_edge_mask(perms, node_mask)
+            return laplace.mix(tree, w)
     mix.mode, mix.schedule, mix.masks = mode, schedule, masks
     return mix
 
@@ -310,3 +347,89 @@ def as_keyed_mixer(mixer: Callable) -> Callable:
         return mixer(tree, key) if n >= 2 else mixer(tree)
 
     return adapted
+
+
+# --------------------------------------------------------------------------
+# Barrier-free rounds: per-node participation (gossip.py:635-702)
+# --------------------------------------------------------------------------
+
+# the salt folding the round key into the straggler stream (gossip.py:50)
+PARTICIPATION_SALT = 11
+
+
+class ParticipationSchedule:
+    """Per-round node participation: stragglers skip a round with
+    ``straggler_prob`` (``u < p`` on ``uniform(fold_in(key, 11), (K,))``),
+    restricted to ``cfg.stragglers`` when that is non-empty; ``cfg.dead``
+    entries ``(node, die, rejoin)`` take the node out for rounds ``die <=
+    t < rejoin`` (``rejoin < 0``: for good). The uniforms are a draw
+    program of the round key (:meth:`draws`); :meth:`mask` combines them
+    with the round index, a device int tensor inside a captured chunk."""
+
+    def __init__(self, cfg, num_nodes: int):
+        self.cfg = cfg
+        self.num_nodes = int(num_nodes)
+        elig = np.ones(self.num_nodes, np.float32)
+        if cfg.stragglers:
+            elig = np.zeros(self.num_nodes, np.float32)
+            for n in cfg.stragglers:
+                if not 0 <= int(n) < self.num_nodes:
+                    raise ValueError(f"straggler node {n} outside "
+                                     f"0..{self.num_nodes - 1}")
+                elig[int(n)] = 1.0
+        for (n, die, rejoin) in cfg.dead:
+            if not 0 <= int(n) < self.num_nodes:
+                raise ValueError(f"dead node {n} outside "
+                                 f"0..{self.num_nodes - 1}")
+            if int(rejoin) >= 0 and int(rejoin) <= int(die):
+                raise ValueError(f"node {n}: rejoin round {rejoin} not "
+                                 f"after death round {die}")
+        self._eligible = elig
+
+    @property
+    def active(self) -> bool:
+        return bool(self.cfg.active)
+
+    @random.program
+    def draws(self, key: torch.Tensor):
+        """The straggler uniforms of the round keyed ``key`` (None without
+        stragglers): ``fold_in(key, 11)``, then ``(K,)`` uniforms."""
+        if float(self.cfg.straggler_prob) <= 0.0:
+            return None
+        kp = yield from random.fold_in.program(key, PARTICIPATION_SALT)
+        return (yield from random.uniform.program(kp, (self.num_nodes,)))
+
+    def mask(self, u, round_idx, device) -> torch.Tensor:
+        """The (K,) f32 {0,1} participation vector of round ``round_idx``
+        (an int, or a device int tensor), ``u`` :meth:`draws`' uniforms."""
+        p = torch.ones((self.num_nodes,), dtype=torch.float32, device=device)
+        if u is not None:
+            elig = device_const(("eligible", self._eligible.tobytes()),
+                                device, lambda: self._eligible)
+            straggle = (u < float(np.float32(self.cfg.straggler_prob))
+                        ).float() * elig
+            p = p * (1.0 - straggle)
+        for (n, die, rejoin) in self.cfg.dead:
+            onehot = np.zeros(self.num_nodes, np.float32)
+            onehot[int(n)] = 1.0
+            hot = device_const(("onehot", onehot.tobytes()), device,
+                               lambda: onehot)
+            if torch.is_tensor(round_idx):
+                dead_now = round_idx >= int(die)
+                if int(rejoin) >= 0:
+                    dead_now = dead_now & (round_idx < int(rejoin))
+                dead_now = dead_now.float()
+            else:
+                dead_now = float(int(die) <= int(round_idx) and (
+                    int(rejoin) < 0 or int(round_idx) < int(rejoin)))
+            p = p * (1.0 - hot * dead_now)
+        return p
+
+
+def resolve_participation(fed_cfg) -> Optional[ParticipationSchedule]:
+    """The schedule of ``fed_cfg.participation`` (None, or inactive: every
+    node in every round)."""
+    pcfg = getattr(fed_cfg, "participation", None)
+    if pcfg is None or not pcfg.active:
+        return None
+    return ParticipationSchedule(pcfg, num_nodes=fed_cfg.num_nodes)

@@ -7,6 +7,7 @@ from repro_torch.kernels.block_topk import block_topk
 from repro_torch.kernels.fused_compress import delta_pack, grid_quant_leaves
 from repro_torch.kernels.fused_update import (cffl_update, dsgld_update,
                                               fused_update, gossip_mix)
+from repro_torch.kernels.gilbert import gilbert_keep
 from repro_torch.kernels.pack import (pack_topk, topk_select, unpack_set,
                                       unpack_topk)
 from repro_torch.kernels.qsgd import qsgd
@@ -18,7 +19,7 @@ WRAPPERS = {"pack": pack_topk, "delta_pack": delta_pack,
             "block_topk": block_topk, "threefry": draw,
             "topk_select": topk_select, "unpack_set": unpack_set,
             "cffl_update": cffl_update, "dsgld_update": dsgld_update,
-            "gossip_mix": gossip_mix}
+            "gossip_mix": gossip_mix, "gilbert_keep": gilbert_keep}
 
 
 def launch_counts() -> dict:

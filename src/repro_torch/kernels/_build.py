@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 SOURCES = ("pack.cu", "fused_compress.cu", "fused_update.cu", "gossip_mix.cu",
-           "block_topk.cu", "qsgd.cu", "threefry.cu")
+           "block_topk.cu", "qsgd.cu", "threefry.cu", "gilbert.cu")
 HEADERS = ("pack_tile.cuh", "qsgd_round.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
@@ -48,6 +48,7 @@ _SIGNATURES = {
     "repro_grid_quant": [_PP, _PP, _PP, _PP, _PL, _I, _L, _F, _P],
     "repro_qsgd": [_PP, _PP, _PP, _PP, _PL, _PL, _PF, _I, _F, _P],
     "repro_threefry": [_PP, _PL, _PL, _PP, _PL, _PI, _PL, _PL, _PF, _I, _P],
+    "repro_gilbert_keep": [_PP, _PP, _PP, _PL, _I, _L, _P, _PF, _P],
 }
 
 _lib = None

@@ -7,17 +7,22 @@ rounds as CUDA graphs on the card; ``host``: the per-round oracle), mixes
 over the graph of ``--topology`` by the lowering the reference's
 ``plan_mixer`` picks (static, or time-varying under ``--link-failure`` /
 ``--gossip-pairs``), and routes each layer through its codec pipeline
-under ``--layer-pipelines``. It prints the reference's lines (``arch=…``,
-``wire accounting:``, ``topology=…``, ``round …``, ``eval round …``,
-``bank snapshot: …``, ``saved …``) and writes the bank snapshots and the
-final checkpoint in the reference's format, which both packages'
-``launch.serve`` read.
+under ``--layer-pipelines``, sends the payloads through the lossy D2D
+transport under ``--transport``/``--erasure``/``--arq``/``--toa``/
+``--snr-db`` and runs barrier-free rounds under ``--straggler-prob``/
+``--dead-node``. It prints the reference's lines (``arch=…``, ``wire
+accounting:``, ``topology=…``, ``transport:``, ``airtime budget:``,
+``participation:``, ``round …``, ``eval round …``, ``bank snapshot: …``,
+``transport accounting:``, ``arq accounting:``, ``participation rates:``,
+``saved …``) and writes the bank snapshots and the final checkpoint in the
+reference's format, which both packages' ``launch.serve`` read.
 
     # the CPU, reduced width
     PYTHONPATH=src python -m repro_torch.launch.train --arch lenet-radar \\
         --trim --device cpu --nodes 5 --rounds 4 --local-steps 2 --batch 4 \\
         --topology geometric --radius 0.5 --link-failure 0.1 \\
-        --gossip-pairs 2 --log-every 2
+        --gossip-pairs 2 --log-every 2 --transport --erasure 0.1 --arq \\
+        --toa --straggler-prob 0.2 --dead-node 3:2
     # the card, full width
     PYTHONPATH=src python -m repro_torch.launch.train --arch lenet-radar \\
         --nodes 10 --rounds 4 --local-steps 8 --batch 10 --zeta 0.03 \\
@@ -27,9 +32,8 @@ final checkpoint in the reference's format, which both packages'
         --bank-capacity 2 --burn-in 2 --eval-every 2 --ckpt-dir /tmp/ckpt
 
 Flags of paths the port does not run yet exit naming their ROADMAP item:
-the transport's (A8), the participation model's (A7), the drift's (A9),
-``--mesh > 1`` and ``--engine shard`` (A10), and any ``--arch`` but
-``lenet-radar`` (A12).
+the drift's (A9), ``--mesh > 1`` and ``--engine shard`` (A10), and any
+``--arch`` but ``lenet-radar`` (A12).
 """
 from __future__ import annotations
 
@@ -39,11 +43,6 @@ from typing import List, Optional
 
 # the flags of paths not ported yet, by the ROADMAP item that ports them
 _UNPORTED = {
-    "A8 (lossy transport)": (
-        "transport", "mtu", "erasure", "loss_model", "snr_db",
-        "snr_spread_db", "no_error_feedback", "arq", "max_retries",
-        "arq_backoff", "toa", "sf", "duty_cycle", "round_period_s"),
-    "A7 (barrier-free participation)": ("straggler_prob", "dead_node"),
     "A9 (drift and continual learning)": (
         "drift", "drift_kind", "drift_severity", "drift_base", "drift_onset",
         "drift_ramp_rounds", "drift_period", "drift_seed", "refresh_every",
@@ -81,26 +80,54 @@ def _parse_args(argv: Optional[List[str]] = None):
                     help=">0: activate only this many matchings per round")
     ap.add_argument("--topo-seed", type=int, default=0,
                     help="graph-sampling seed (erdos_renyi/geometric)")
-    # the transport (ROADMAP A8)
-    ap.add_argument("--transport", action="store_true")
-    ap.add_argument("--mtu", type=int, default=256)
-    ap.add_argument("--erasure", type=float, default=0.0)
+    ap.add_argument("--transport", action="store_true",
+                    help="frame the wire payloads (MTU fragmentation + "
+                         "header/airtime accounting) even at zero loss")
+    ap.add_argument("--mtu", type=int, default=256,
+                    help="transport frame MTU in bytes (8-byte header)")
+    ap.add_argument("--erasure", type=float, default=0.0,
+                    help=">0: per-frame Bernoulli erasure rate (implies "
+                         "--transport; error feedback re-offers lost mass)")
     ap.add_argument("--loss-model", default="bernoulli",
-                    choices=["bernoulli", "gilbert"])
-    ap.add_argument("--snr-db", type=float, default=None)
-    ap.add_argument("--snr-spread-db", type=float, default=0.0)
-    ap.add_argument("--no-error-feedback", action="store_true")
-    ap.add_argument("--arq", action="store_true")
-    ap.add_argument("--max-retries", type=int, default=2)
-    ap.add_argument("--arq-backoff", type=float, default=0.0)
-    ap.add_argument("--toa", action="store_true")
-    ap.add_argument("--sf", type=int, default=7)
-    ap.add_argument("--duty-cycle", type=float, default=1.0)
-    ap.add_argument("--round-period-s", type=float, default=0.0)
-    # barrier-free participation (ROADMAP A7)
-    ap.add_argument("--straggler-prob", type=float, default=0.0)
+                    choices=["bernoulli", "gilbert"],
+                    help="frame-loss process (gilbert: bursty episodes)")
+    ap.add_argument("--snr-db", type=float, default=None,
+                    help="mean link SNR: enables the Rayleigh per-link "
+                         "outage model on the gossip schedule")
+    ap.add_argument("--snr-spread-db", type=float, default=0.0,
+                    help="per-node lognormal shadowing std dev (dB)")
+    ap.add_argument("--no-error-feedback", action="store_true",
+                    help="ablation: sender's control sequence absorbs the "
+                         "full delta even when frames were lost")
+    ap.add_argument("--arq", action="store_true",
+                    help="selective-repeat retransmission of lost frames "
+                         "(implies --transport; see --max-retries)")
+    ap.add_argument("--max-retries", type=int, default=2,
+                    help="ARQ retransmit attempts per frame per round")
+    ap.add_argument("--arq-backoff", type=float, default=0.0,
+                    help="base retransmit backoff in seconds (doubles per "
+                         "attempt; charged against the airtime budget)")
+    ap.add_argument("--toa", action="store_true",
+                    help="LoRa time-on-air airtime accounting (SX127x "
+                         "formula) instead of the flat PHY rate "
+                         "(implies --transport)")
+    ap.add_argument("--sf", type=int, default=7,
+                    help="LoRa spreading factor 6-12 (with --toa)")
+    ap.add_argument("--duty-cycle", type=float, default=1.0,
+                    help="fraction of the round period the radio may "
+                         "transmit (budget = duty-cycle x round period)")
+    ap.add_argument("--round-period-s", type=float, default=0.0,
+                    help=">0: wall-clock round period bounding the ARQ "
+                         "airtime budget; frames over budget are abandoned "
+                         "to the CHOCO residual")
+    ap.add_argument("--straggler-prob", type=float, default=0.0,
+                    help=">0: barrier-free rounds; each node skips a "
+                         "round with this probability (stale-weighted "
+                         "mixing carries its last state)")
     ap.add_argument("--dead-node", action="append", default=[],
-                    metavar="NODE:DIE[:REJOIN]")
+                    metavar="NODE:DIE[:REJOIN]",
+                    help="node death timeline, e.g. '2:30' (node 2 dies at "
+                         "round 30) or '2:30:60' (rejoins at 60); repeatable")
     ap.add_argument("--compressor", default="block_topk")
     ap.add_argument("--pipeline", default="",
                     help="codec pipeline DSL, e.g. 'block_topk|qsgd' "
@@ -170,6 +197,102 @@ def _parse_args(argv: Optional[List[str]] = None):
     return args
 
 
+def _transport_config(args):
+    """The TransportConfig the flags name, or None (``repro/launch/
+    train.py:231-242``)."""
+    if not (args.transport or args.erasure > 0 or args.snr_db is not None
+            or args.arq or args.toa):
+        return None
+    from repro_torch.config import TransportConfig
+    return TransportConfig(
+        mtu=args.mtu, erasure=args.erasure, loss_model=args.loss_model,
+        snr_db=args.snr_db, snr_spread_db=args.snr_spread_db,
+        error_feedback=not args.no_error_feedback,
+        arq=args.arq, max_retries=args.max_retries,
+        arq_backoff_s=args.arq_backoff,
+        toa=args.toa, sf=args.sf, duty_cycle=args.duty_cycle,
+        round_period_s=args.round_period_s)
+
+
+def _participation_config(args):
+    """The ParticipationConfig of ``--straggler-prob``/``--dead-node``, or
+    None (``repro/launch/train.py:243-256``)."""
+    if not (args.straggler_prob > 0 or args.dead_node):
+        return None
+    from repro_torch.config import ParticipationConfig
+    dead = []
+    for spec in args.dead_node:
+        parts = [int(p) for p in spec.split(":")]
+        if len(parts) == 2:
+            parts.append(-1)
+        if len(parts) != 3:
+            raise SystemExit(f"--dead-node {spec!r}: want NODE:DIE[:REJOIN]")
+        dead.append(tuple(parts))
+    return ParticipationConfig(straggler_prob=args.straggler_prob,
+                               dead=tuple(dead))
+
+
+def _link_lines(tcfg, pcfg) -> List[str]:
+    """The header's ``transport:``, ``airtime budget:`` and
+    ``participation:`` lines, character for character the reference's."""
+    out = []
+    if tcfg is not None:
+        out.append(
+            f"transport: mtu={tcfg.mtu}B (+8B header/frame) "
+            f"loss={tcfg.loss_model}@{tcfg.erasure:g} "
+            + (f"snr={tcfg.snr_db:g}±{tcfg.snr_spread_db:g}dB "
+               if tcfg.snr_db is not None else "")
+            + f"error_feedback={'on' if tcfg.error_feedback else 'OFF'}"
+            + (f" arq=selective-repeat x{tcfg.max_retries}"
+               + (f" backoff={tcfg.arq_backoff_s:g}s"
+                  if tcfg.arq_backoff_s else "")
+               if tcfg.arq else "")
+            + (f" toa=SF{tcfg.sf}/{tcfg.bw_hz/1e3:g}kHz" if tcfg.toa
+               else ""))
+        if tcfg.round_period_s > 0:
+            out.append(f"airtime budget: {tcfg.duty_cycle:g} duty x "
+                       f"{tcfg.round_period_s:g}s round = "
+                       f"{tcfg.duty_cycle * tcfg.round_period_s:g}"
+                       f"s/node/round (over-budget frames abandoned to the "
+                       f"residual)")
+    if pcfg is not None:
+        out.append(f"participation: straggler_prob={pcfg.straggler_prob:g} "
+                   f"dead={list(pcfg.dead) or 'none'} "
+                   f"(barrier-free rounds, stale-weighted mixing)")
+    return out
+
+
+def _accounting_lines(engine, tcfg, pcfg) -> List[str]:
+    """The closing ``transport accounting:``, ``arq accounting:`` and
+    ``participation rates:`` lines of the last round, as the reference
+    prints them."""
+    import numpy as np
+    out = []
+    offered = engine.last_offered_history
+    if offered and float(offered[-1]) > 0:
+        delivered = float(engine.last_delivered_history[-1])
+        frac = delivered / float(offered[-1])
+        out.append(
+            f"transport accounting: offered "
+            f"{float(offered[-1]):.0f}B/node/round, delivered "
+            f"{delivered:.0f}B ({100 * frac:.1f}%), airtime "
+            f"{1e3 * float(engine.last_airtime_history[-1]):.2f}ms, "
+            f"energy {1e3 * float(engine.last_energy_history[-1]):.2f}mJ")
+        retrans = engine.last_retransmit_history
+        if retrans and (tcfg is not None and tcfg.arq):
+            out.append(f"arq accounting: {float(retrans[-1]):.2f} "
+                       f"retransmits/node/round, "
+                       f"{float(engine.last_abandoned_history[-1]):.0f}B "
+                       f"abandoned at budget exhaustion")
+    part = engine.last_participation_history
+    if pcfg is not None and len(part):
+        rates = np.asarray(part, np.float64).mean(axis=0)
+        out.append("participation rates: "
+                   + " ".join(f"n{i}={r:.2f}" for i, r in enumerate(rates))
+                   + f" (mean {rates.mean():.2f})")
+    return out
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     args = _parse_args(argv)
 
@@ -203,6 +326,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         graph=args.topology, degree=args.degree, edge_prob=args.edge_prob,
         radius=args.radius, seed=args.topo_seed,
         link_failure_prob=args.link_failure, gossip_pairs=args.gossip_pairs)
+    tcfg, pcfg = _transport_config(args), _participation_config(args)
     fed = FedConfig(
         num_nodes=args.nodes, local_steps=args.local_steps,
         eta=args.eta, zeta=args.zeta, topology=args.topology,
@@ -211,7 +335,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         compress_ratio=args.ratio,
         fused_compress=args.fused_compress,
         layer_pipelines=parse_layer_rules(args.layer_pipelines),
-        algorithm=args.algorithm)
+        algorithm=args.algorithm, transport=tcfg, participation=pcfg)
     topo = build_topology(topo_cfg, fed.num_nodes)
     omega = topo.omega
     comp = make_compressor(fed)
@@ -225,8 +349,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     # dsgld gossips uncompressed θ; the compressed algorithms ship Q(Δθ)
     wire = (n_params * 4 if args.algorithm == "dsgld"
             else comp.wire_bytes(params0))
-    # the lowering make_mixer runs (the same decision function)
-    mode, sched = plan_mixer(omega, topo_cfg)
+    # the lowering make_mixer runs (the same decision function; an SNR
+    # outage model forces the time-varying schedule)
+    mode, sched = plan_mixer(omega, topo_cfg,
+                             force_tv=tcfg is not None
+                             and tcfg.snr_db is not None)
     n_perms = sched.num_perms if sched else 0
     if mode.startswith("schedule"):
         active = (args.gossip_pairs if 0 < args.gossip_pairs < n_perms
@@ -252,6 +379,8 @@ def main(argv: Optional[List[str]] = None) -> None:
           f"{dense_wire_bytes(fed.num_nodes, wire)/1e6:.3f}MB)"
           + (f" link_failure={args.link_failure}" if args.link_failure else "")
           + (f" gossip_pairs={args.gossip_pairs}" if args.gossip_pairs else ""))
+    for line in _link_lines(tcfg, pcfg):
+        print(line)
 
     # per-node synthetic pool on the device; rounds gather their minibatch
     # indices from the round key inside the engine
@@ -323,6 +452,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                              metadata={"arch": cfg.name, "round": done})
             print(f"bank snapshot: {path} "
                   f"(S={tree_leaves(stacked_bank)[0].shape[0]})")
+    for line in _accounting_lines(engine, tcfg, pcfg):
+        print(line)
     if args.ckpt_dir:
         path = save_checkpoint(args.ckpt_dir, args.rounds, state.params,
                                metadata={"arch": cfg.name, "fed": vars(args)})

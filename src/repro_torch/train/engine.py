@@ -47,15 +47,34 @@ def round_indices(shards: DeviceShards, kround: torch.Tensor, l: int, m: int):
 
 
 def one_round(round_fn, shards: DeviceShards, local_steps: int,
-              minibatch: int, state, key: torch.Tensor):
-    """The engines' round from the engine's ``key``: ``(state, key,
-    metrics)`` after it."""
+              minibatch: int, state, key: torch.Tensor, t: torch.Tensor):
+    """The engines' round ``t`` (a device int32 index, the round function's
+    ``state.round``) from the engine's ``key``: ``(state, key, metrics)``
+    after it; the state's round is the caller's to set."""
     key, kround = random.split(key)
     idx, draws = random.run(random.together(
         round_indices.program(shards, kround, local_steps, minibatch),
         round_fn.draws.program(kround, state.params)))
-    state, metrics = round_fn(state, shards.gather(idx), kround, draws)
+    state, metrics = round_fn(state._replace(round=t), shards.gather(idx),
+                              kround, draws)
     return state, key, metrics
+
+
+# the per-round scalars every engine records, (history attribute, its
+# RoundMetrics field); the participation vector comes last
+_SCALARS = (("last_offered_history", "offered_bytes"),
+            ("last_delivered_history", "delivered_bytes"),
+            ("last_airtime_history", "airtime_s"),
+            ("last_energy_history", "energy_j"),
+            ("last_retransmit_history", "retransmits"),
+            ("last_abandoned_history", "abandoned_bytes"))
+HISTORIES = ("last_wire_history",) + tuple(a for a, _ in _SCALARS) + (
+    "last_participation_history",)
+
+
+def _reset_histories(engine) -> None:
+    for attr in HISTORIES + ("last_round_ms",):
+        setattr(engine, attr, [])
 
 
 class EngineCarry(NamedTuple):
@@ -66,12 +85,21 @@ class EngineCarry(NamedTuple):
 
 
 class ChunkMetrics(NamedTuple):
-    """Per-round scalars of a chunk, after its one device-to-host read.
-    The transport and participation columns come with ROADMAP A8 and A7."""
+    """Per-round scalars of a chunk, after its one device-to-host read
+    (``repro/train/engine.py:65-80``)."""
     loss: np.ndarray              # (chunk,) mean over (K, L)
     consensus: np.ndarray         # (chunk,)
     delta_norm: np.ndarray        # (chunk,)
     wire: np.ndarray              # (chunk,) measured bytes/node/round
+    # the transport's columns (0 without a transport)
+    offered: np.ndarray           # (chunk,) on-air bytes/node/round offered
+    delivered: np.ndarray         # (chunk,) bytes/node/round delivered
+    airtime: np.ndarray           # (chunk,) TX airtime s/node/round
+    energy: np.ndarray            # (chunk,) TX energy J/node/round
+    retransmits: np.ndarray       # (chunk,) ARQ frame re-sends/node/round
+    abandoned: np.ndarray         # (chunk,) bytes/node/round abandoned
+    participation: np.ndarray     # (chunk, K) per-node participation
+    #                               ((chunk,) ones without a model)
 
 
 def _check_same_layout(old: DeviceShards, new: DeviceShards) -> None:
@@ -110,6 +138,65 @@ def _copy_into(dst: List[torch.Tensor], src: List[torch.Tensor]) -> None:
         d.copy_(s)
 
 
+class _Row:
+    """How a round's metrics become a row of the chunk's buffer: each
+    column a tensor written by the round, or a static value read once at
+    capture (the wire bytes, and a transport's static accounting)."""
+
+    def __init__(self, metrics):
+        self.static = {"wire": float(metrics.wire_bytes)}
+        self.cols = ["loss", "consensus", "delta_norm"]
+        for _, field in _SCALARS:
+            value = getattr(metrics, field)
+            if torch.is_tensor(value):
+                self.cols.append(field)
+            else:
+                self.static[field] = float(value)
+        part = metrics.participation
+        self.k = part.shape[0] if torch.is_tensor(part) else 0
+        if not self.k:
+            self.static["participation"] = float(part)
+
+    @staticmethod
+    def values(metrics) -> torch.Tensor:
+        """The round's row: the tensor columns, then the participation
+        vector when there is one."""
+        out = [metrics.loss.mean(), metrics.consensus_error,
+               metrics.delta_norm]
+        out += [getattr(metrics, f) for _, f in _SCALARS
+                if torch.is_tensor(getattr(metrics, f))]
+        row = torch.stack([x.float().reshape(()) for x in out])
+        if torch.is_tensor(metrics.participation):
+            row = torch.cat([row, metrics.participation.float()])
+        return row
+
+    def chunk_metrics(self, vals: np.ndarray) -> ChunkMetrics:
+        n = vals.shape[0]
+        col = {name: vals[:, j] for j, name in enumerate(self.cols)}
+        get = lambda f: col[f] if f in col else np.full((n,), self.static[f])
+        return ChunkMetrics(
+            loss=col["loss"], consensus=col["consensus"],
+            delta_norm=col["delta_norm"], wire=get("wire"),
+            offered=get("offered_bytes"), delivered=get("delivered_bytes"),
+            airtime=get("airtime_s"), energy=get("energy_j"),
+            retransmits=get("retransmits"),
+            abandoned=get("abandoned_bytes"),
+            participation=(vals[:, len(self.cols):] if self.k
+                           else get("participation")))
+
+
+def _extend_histories(engine, ms: ChunkMetrics) -> None:
+    """One entry a round: floats, and a K-list a round for the
+    participation vector (``repro/train/engine.py:118-121``)."""
+    engine.last_wire_history += ms.wire.tolist()
+    for (attr, _), field in zip(_SCALARS, ("offered", "delivered", "airtime",
+                                           "energy", "retransmits",
+                                           "abandoned")):
+        getattr(engine, attr).extend(getattr(ms, field).tolist())
+    engine.last_participation_history.extend(
+        np.asarray(ms.participation, np.float64).tolist())
+
+
 class ScanRoundEngine:
     """R rounds as chunks (``repro/train/engine.py:148-248``).
 
@@ -119,14 +206,16 @@ class ScanRoundEngine:
     once as a CUDA graph that reads that carry, the shards' data and a
     device round index ``t0``; a replay runs the chunk's rounds back to
     back (round ``i`` feeds round ``i + 1`` through the graph's private
-    pool), writes each round's mean loss, consensus error and delta norm
-    into a static ``(n, 3)`` buffer, and last copies the final params, v,
-    v̄ and key back into the carry. A CPU carry runs the same chunk
-    function eagerly. A CUDA chunk never runs eagerly: a failed capture or
-    replay raises.
+    pool, and sees ``t0 + i`` as its ``state.round``), writes each round's
+    metrics row (mean loss, consensus error, delta norm, the transport's
+    per-round columns and the participation vector) into a static ``(n,
+    W)`` buffer, and last copies the final params, v, v̄ and key back into
+    the carry. A CPU carry runs the same chunk function eagerly. A CUDA
+    chunk never runs eagerly: a failed capture or replay raises.
 
     Round ``i``'s wire bytes are a function of the buffers' shapes, read
-    once at capture, so the graph's value stands for every round of it.
+    once at capture, so the graph's value stands for every round of it; so
+    are a lossless transport's static byte and airtime columns.
     """
 
     name = "scan"
@@ -143,11 +232,10 @@ class ScanRoundEngine:
         self._carry: Optional[EngineCarry] = None
         self._t0: Optional[torch.Tensor] = None
         self._stream = None
-        # chunk length -> (graph, its metrics buffer, wire bytes a round)
+        # chunk length -> (graph, its metrics buffer, its row layout)
         self._graphs: Dict[int, tuple] = {}
         self.capture_ms: Dict[int, float] = {}  # host ms of each capture
-        self.last_wire_history: List[float] = []
-        self.last_round_ms: List[float] = []
+        _reset_histories(self)
 
     def set_shards(self, shards: DeviceShards) -> None:
         """Swap the training data between chunks: copied into the tensors
@@ -160,27 +248,24 @@ class ScanRoundEngine:
                                    size_tensor=self.shards.size_tensor)
 
     # -- one chunk -----------------------------------------------------------
-    def _chunk(self, carry: EngineCarry, t0: torch.Tensor, n: int,
-               out: torch.Tensor) -> float:
+    def _chunk(self, carry: EngineCarry, t0: torch.Tensor, n: int):
         """``n`` rounds from ``carry``, round ``i`` numbered ``t0 + i`` (a
-        device int32); round ``i``'s mean loss, consensus error and delta
-        norm go to ``out[i]``, and last the final params, v, v̄ and key to
-        ``carry``'s own tensors. Returns the wire bytes a node a round."""
+        device int32); returns the ``(n, W)`` metrics rows and their
+        :class:`_Row` layout, and last copies the final params, v, v̄ and
+        key to ``carry``'s own tensors."""
         state, key, bank = carry
-        wire = 0.0
+        rows, layout = [], None
         for i in range(n):
             state, key, metrics = one_round(self.round_fn, self.shards,
                                             self.local_steps, self.minibatch,
-                                            state, key)
+                                            state, key, t0 + i)
             if bank is not None:
                 self.bank.update(bank, t0 + i, state.params)
-            out[i] = torch.stack([metrics.loss.mean(),
-                                  metrics.consensus_error,
-                                  metrics.delta_norm])
-            wire = metrics.wire_bytes
+            rows.append(_Row.values(metrics))
+            layout = _Row(metrics)
         _copy_into(_state_tensors(carry.state, carry.key),
                    _state_tensors(state, key))
-        return wire
+        return torch.stack(rows), layout
 
     def graph(self, n: int):
         """The chunk of length ``n`` as a CUDA graph over the carry, captured
@@ -198,33 +283,27 @@ class ScanRoundEngine:
                 type(carry.bank)(*map(_clone, carry.bank)))
             self._stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(self._stream):
-                self._chunk(scratch, self._t0.clone(), 1,
-                            torch.empty((1, 3), device=dev))
+                self._chunk(scratch, self._t0.clone(), 1)
             torch.cuda.current_stream(dev).wait_stream(self._stream)
             del scratch
-        out = torch.empty((n, 3), device=dev)
         graph = torch.cuda.CUDAGraph()
         start = time.perf_counter()
         with torch.cuda.graph(graph, stream=self._stream):
-            wire = self._chunk(carry, self._t0, n, out)
+            out, layout = self._chunk(carry, self._t0, n)
         self.capture_ms[n] = 1e3 * (time.perf_counter() - start)
-        self._graphs[n] = (graph, out, wire)
+        self._graphs[n] = (graph, out, layout)
         return self._graphs[n]
 
     def run_chunk(self, t0: int, n: int) -> ChunkMetrics:
         """Rounds ``t0 .. t0 + n - 1`` on the engine's carry."""
+        self._t0.fill_(t0)
         if self._carry.key.device.type == "cuda":
-            graph, out, wire = self.graph(n)
-            self._t0.fill_(t0)
+            graph, out, layout = self.graph(n)
             graph.replay()
         else:
-            out = torch.empty((n, 3))
-            self._t0.fill_(t0)
-            wire = self._chunk(self._carry, self._t0, n, out)
+            out, layout = self._chunk(self._carry, self._t0, n)
         vals = out.cpu().double().numpy()      # the chunk's one read
-        return ChunkMetrics(loss=vals[:, 0], consensus=vals[:, 1],
-                            delta_norm=vals[:, 2],
-                            wire=np.full((n,), float(wire)))
+        return layout.chunk_metrics(vals)
 
     def _adopt(self, state, key, bank) -> None:
         """Bring ``(state, key, bank)`` into the engine's carry: copies of
@@ -245,13 +324,13 @@ class ScanRoundEngine:
         with ``log_every``; without logging they are ``default_chunk``
         rounds long. Returns ``(state, key, bank_state, losses,
         consensus)``: the state and key are copies of the carry, the bank
-        the engine's own (written in place)."""
+        the engine's own (written in place); the per-round columns land in
+        the ``last_*_history`` lists."""
         self._adopt(state, key, bank_state)
         chunk = log_every if log_every > 0 else min(rounds, self.default_chunk)
         losses: List[float] = []
         cons: List[float] = []
-        self.last_wire_history = []
-        self.last_round_ms = []
+        _reset_histories(self)
         done = 0
         while done < rounds:
             n = min(chunk, rounds - done)
@@ -260,7 +339,7 @@ class ScanRoundEngine:
             self.last_round_ms += [1e3 * (time.perf_counter() - start) / n] * n
             losses += ms.loss.tolist()
             cons += ms.consensus.tolist()
-            self.last_wire_history += ms.wire.tolist()
+            _extend_histories(self, ms)
             done += n
             # the host loop's cadence: only exact multiples of log_every
             if log_cb is not None and log_every and done % log_every == 0:
@@ -297,8 +376,7 @@ class HostRoundEngine:
         self.local_steps = int(local_steps)
         self.minibatch = int(minibatch)
         self.bank = bank                  # config only: burn_in/thin/capacity
-        self.last_wire_history: List[float] = []
-        self.last_round_ms: List[float] = []
+        _reset_histories(self)
 
     def set_shards(self, shards: DeviceShards) -> None:
         """Swap the training data; the layout must match."""
@@ -315,22 +393,26 @@ class HostRoundEngine:
             rounds: int, t0: int = 0, log_every: int = 0,
             log_cb: Optional[LogCb] = None):
         """``rounds`` rounds from ``(state, key)``; returns ``(state, key,
-        bank, losses, consensus)``."""
+        bank, losses, consensus)``. Round ``t`` sees ``t`` as a device int32
+        ``state.round``, as on the scan engine."""
         losses: List[float] = []
         cons: List[float] = []
-        self.last_wire_history = []
-        self.last_round_ms = []
+        _reset_histories(self)
+        base = torch.full((), t0, dtype=torch.int32, device=key.device)
         for i in range(rounds):
             t = t0 + i
             start = time.perf_counter()
             state, key, metrics = one_round(self.round_fn, self.shards,
                                             self.local_steps, self.minibatch,
-                                            state, key)
+                                            state, key, base + i)
+            state = state._replace(round=t + 1)
             # float() waits for the device: the round's wall time ends here
             losses.append(float(metrics.loss.mean()))
             cons.append(float(metrics.consensus_error))
             self.last_round_ms.append(1e3 * (time.perf_counter() - start))
-            self.last_wire_history.append(float(metrics.wire_bytes))
+            layout = _Row(metrics)
+            _extend_histories(self, layout.chunk_metrics(
+                _Row.values(metrics)[None].cpu().double().numpy()))
             if bank is not None:
                 bank.maybe_add(t, state.params)
             if log_cb is not None and log_every and (i + 1) % log_every == 0:

@@ -13,7 +13,10 @@ device without a card raises.
 
 The graph is ``build_topology(resolve_topology(fed_cfg), K)``: any family,
 static or time-varying (``FedConfig.topology_cfg``), mixed by the lowering
-the reference's ``plan_mixer`` picks (``core/gossip.py``).
+the reference's ``plan_mixer`` picks (``core/gossip.py``). A
+``FedConfig.transport`` sends the payloads through the lossy D2D transport
+(``core/transport.py``), a ``FedConfig.participation`` makes the rounds
+barrier-free; their per-round columns land in the ``TrainResult``.
 
 Evaluation runs through the :class:`ScanEvalEngine` (a CUDA graph of the
 whole eval on the card), ``run(eval_every=N)`` takes in-training
@@ -24,7 +27,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -37,7 +40,8 @@ from repro_torch.core.posterior import (BankPredictor, DeviceSampleBank,
 from repro_torch.core.topology import build_topology, resolve_topology
 from repro_torch.data.partition import DeviceShards
 from repro_torch.eval.engine import EvalReport, ScanEvalEngine
-from repro_torch.train.engine import make_engine
+from repro_torch.core.transport import resolve_transport
+from repro_torch.train.engine import HISTORIES, make_engine
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_count, tree_map
 
@@ -58,7 +62,20 @@ class TrainResult:
     # measured from the packed WirePayload buffers, scaled by the directed
     # edge count like bytes_sent_per_round
     measured_bytes_per_round: float = 0.0
+    # the transport's accounting, means a node a round (0 without one)
+    offered_bytes_per_round: float = 0.0
+    delivered_bytes_per_round: float = 0.0
+    airtime_s_per_round: float = 0.0
+    energy_j_per_round: float = 0.0
+    retransmits_per_round: float = 0.0
+    abandoned_bytes_per_round: float = 0.0
+    # (K,) share of rounds each node took part in (None without a model)
+    participation_rates: Optional[np.ndarray] = None
     wire_history: List[float] = field(default_factory=list)   # bytes/node
+    offered_history: List[float] = field(default_factory=list)
+    delivered_history: List[float] = field(default_factory=list)
+    # per-round (K,) participation vectors (empty without a model)
+    participation_history: List[Any] = field(default_factory=list)
     loss_history: List[float] = field(default_factory=list)
     consensus_history: List[float] = field(default_factory=list)
     round_ms: List[float] = field(default_factory=list)       # wall, per round
@@ -99,6 +116,9 @@ class FedTrainer:
     (``repro/train/trainer.py:152-161``), so a run equals the reference's
     run of the same seed. ``params`` (one model's params, e.g. the
     reference's through ``params_from_jax``) replaces the init.
+    ``transport`` (a :class:`LossyTransport`, the fault harness's way to
+    inject a loss model) overrides the one ``fed_cfg.transport`` builds;
+    ``fed_cfg.participation`` makes the rounds barrier-free.
     """
 
     def __init__(self, model, fed_cfg, shards: List[Dict[str, np.ndarray]],
@@ -107,7 +127,7 @@ class FedTrainer:
                  chunk: Optional[int] = None, bank_capacity: int = 40,
                  bank_thin: int = 2, bank_dtype: str = "float32",
                  eval_batch_size: int = 64, device="cuda",
-                 params: Optional[Dict] = None):
+                 params: Optional[Dict] = None, transport=None):
         fed_cfg.check_supported()
         assert len(shards) == fed_cfg.num_nodes, "one shard per node"
         self.device = resolve_device(device)
@@ -126,9 +146,13 @@ class FedTrainer:
             params = model.init(random.PRNGKey(seed, self.device), self.device)
         params0 = tree_map(lambda x: x.to(self.device), params)
         self.state: FedState = init_fed_state(params0, fed_cfg)
+        self.transport = resolve_transport(fed_cfg, transport)
+        pcfg = fed_cfg.participation
+        self._participation_active = bool(pcfg is not None and pcfg.active)
         self.round_fn = make_round_fn(fed_cfg.algorithm, model.nll, fed_cfg,
                                       self.omega, self.compressor,
-                                      self.data_scale, self.device)
+                                      self.data_scale, self.device,
+                                      self.transport)
         self.device_shards = DeviceShards.from_shards(shards, self.device)
         self.bank_cfg = DeviceSampleBank(
             burn_in=fed_cfg.burn_in, capacity=bank_capacity, thin=bank_thin,
@@ -180,8 +204,8 @@ class FedTrainer:
                    else rounds)
         losses: List[float] = []
         cons: List[float] = []
-        wire: List[float] = []
         round_ms: List[float] = []
+        hist: Dict[str, List[Any]] = {}
         eval_history: List[Dict[str, float]] = []
         t0 = time.time()
         done = 0
@@ -193,12 +217,18 @@ class FedTrainer:
                                  log_cb=log_cb)
             losses += seg_losses
             cons += seg_cons
-            wire += self._engine.last_wire_history
             round_ms += self._engine.last_round_ms
+            for name in HISTORIES:
+                hist.setdefault(name, []).extend(getattr(self._engine,
+                                                         name))
             done += n
             if done < rounds:
                 eval_history.append(
                     _snapshot(self.state.round, self.eval_report(eval_batch)))
+        wire = hist.get("last_wire_history", [])
+        mean = lambda name: (float(np.mean(hist[name])) if hist.get(name)
+                             else 0.0)
+        part = hist.get("last_participation_history", [])
         res = TrainResult(
             accuracy=float("nan"), ece=float("nan"), nll=float("nan"),
             brier=float("nan"),
@@ -206,7 +236,21 @@ class FedTrainer:
             total_bytes=self.bytes_per_round * rounds,
             measured_bytes_per_round=(float(np.mean(wire)) * self._n_edges
                                       if wire else self.bytes_per_round),
-            wire_history=wire, loss_history=losses, consensus_history=cons,
+            offered_bytes_per_round=mean("last_offered_history"),
+            delivered_bytes_per_round=mean("last_delivered_history"),
+            airtime_s_per_round=mean("last_airtime_history"),
+            energy_j_per_round=mean("last_energy_history"),
+            retransmits_per_round=mean("last_retransmit_history"),
+            abandoned_bytes_per_round=mean("last_abandoned_history"),
+            participation_rates=(np.mean(np.asarray(part, np.float64), axis=0)
+                                 if self._participation_active and part
+                                 else None),
+            wire_history=wire,
+            offered_history=hist.get("last_offered_history", []),
+            delivered_history=hist.get("last_delivered_history", []),
+            participation_history=(part if self._participation_active
+                                   else []),
+            loss_history=losses, consensus_history=cons,
             round_ms=round_ms, wall_s=time.time() - t0)
         if eval_batch is not None:
             res = self.evaluate(eval_batch, res)

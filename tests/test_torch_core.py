@@ -19,7 +19,9 @@ from repro.core.posterior import SampleBank as JaxSampleBank
 from repro.core.posterior import bma_predict_stacked as jbma
 from repro.eval import engine as jeval
 from repro.models import lenet as jlenet
-from repro_torch.config import FedConfig, LENET_RADAR_REDUCED, TopologyConfig
+from repro_torch.config import (LENET_RADAR_REDUCED, FedConfig,
+                                ParticipationConfig, TopologyConfig,
+                                TransportConfig)
 from repro_torch.core import calibration as cal
 from repro_torch.core.fed_state import init_fed_state
 from repro_torch.core.gossip import dense_mix, make_mixer
@@ -230,12 +232,17 @@ def test_mixing_rule_gives_the_reference_omega(rule, graph, k):
     ("topology_cfg", None), ("transport", "A8"), ("participation", "A7"),
     ("continual", "A9")])
 def test_unported_fed_config_fields_name_their_item(field, item):
-    """``topology_cfg`` runs since ROADMAP A4's topology was ported; the
-    three others still name their item."""
-    if item is None:
-        FedConfig(topology_cfg=TopologyConfig(
-            graph="geometric", link_failure_prob=0.1,
-            gossip_pairs=2)).check_supported()
+    """``topology_cfg`` runs since ROADMAP A4's topology was ported,
+    ``transport`` and ``participation`` since A8 and A7 were; ``continual``
+    still names its item."""
+    runs = {"topology_cfg": TopologyConfig(graph="geometric",
+                                           link_failure_prob=0.1,
+                                           gossip_pairs=2),
+            "transport": TransportConfig(erasure=0.1, arq=True, toa=True),
+            "participation": ParticipationConfig(straggler_prob=0.2,
+                                                 dead=((1, 2, 4),))}
+    if field in runs:
+        FedConfig(**{field: runs[field]}).check_supported()
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         FedConfig(**{field: object()}).check_supported()

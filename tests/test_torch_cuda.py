@@ -59,7 +59,7 @@ def test_kernels_match_plain_versions(card, n):
         "pack": 1, "delta_pack": 1, "unpack": 1, "fused_update": 1,
         "grid_quant": 0, "qsgd": 0, "block_topk": 0, "threefry": 0,
         "topk_select": 0, "unpack_set": 0, "cffl_update": 0,
-        "dsgld_update": 0, "gossip_mix": 0}
+        "dsgld_update": 0, "gossip_mix": 0, "gilbert_keep": 0}
 
 
 @pytest.mark.parametrize("n", [6, 150, 1024, 4097, 21000])
@@ -927,3 +927,85 @@ def test_ring_mix_on_the_card_is_dense_below_three_nodes_else_refused(card):
     assert kernels.launch_counts()["gossip_mix"] == 1
     want = gossip.make_mixer(omega, "cpu", config=ring)({"a": x.cpu()})["a"]
     assert _same_bits(got.cpu(), want)
+
+
+@pytest.mark.parametrize("rows", [1, 10, 30])
+@pytest.mark.parametrize("params", [(0.05, 0.3, 0.0, 1.0), (0.0, 0.3, 0.2,
+                                                             1.0),
+                                    (0.5, 0.5, 0.1, 0.9)])
+def test_gilbert_keep_matches_plain_version(card, params, rows):
+    """The burst-channel kernel against its plain version, bit for bit:
+    ragged chains (1, 3, 8, 9, 690 frames) in one launch, start uniforms
+    and transition and loss uniforms set to the thresholds themselves."""
+    from repro_torch.kernels.gilbert import channel_params, gilbert_keep_plain
+    consts = channel_params(*params)
+    gen = torch.Generator(device=card).manual_seed(rows)
+    lengths = (1, 3, 8, 9, 690)
+    u0 = torch.rand((rows, len(lengths)), generator=gen, device=card)
+    u0[0] = consts[0]
+    ut = [torch.rand((rows, n), generator=gen, device=card) for n in lengths]
+    ul = [torch.rand((rows, n), generator=gen, device=card) for n in lengths]
+    for a, b in zip(ut, ul):
+        a[-1, ::2], a[-1, 1::2] = consts[1], consts[2]
+        b[0, ::2], b[0, 1::2] = consts[3], consts[4]
+    kernels.reset_launch_counts()
+    got = kernels.gilbert_keep(u0, ut, ul, consts)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["gilbert_keep"] == 1
+    want = gilbert_keep_plain(u0, ut, ul, consts)
+    for g, w in zip(got, want):
+        assert _same_bits(g, w.contiguous())
+
+
+TRANSPORT_CONFIGS = [
+    dict(transport="bernoulli"), dict(transport="gilbert-arq-budget"),
+    dict(participation=True), dict(transport="bernoulli",
+                                   participation=True)]
+
+
+def _transport_trainer(card, case, engine, **kw):
+    from repro_torch.config import (ParticipationConfig, TopologyConfig,
+                                    TransportConfig)
+    transports = {
+        "bernoulli": TransportConfig(erasure=0.2, mtu=64),
+        "gilbert-arq-budget": TransportConfig(
+            loss_model="gilbert", arq=True, toa=True, mtu=64,
+            duty_cycle=0.5, round_period_s=4.0)}
+    overrides = dict(topology_cfg=TopologyConfig(
+        graph="ring", link_failure_prob=0.1),
+        pipeline="block_topk|qsgd", fused_compress=True)
+    if "transport" in case:
+        overrides["transport"] = transports[case["transport"]]
+    if case.get("participation"):
+        overrides["participation"] = ParticipationConfig(
+            straggler_prob=0.3, dead=((1, 2, 5),))
+    return _reduced_trainer(card, overrides, engine, **kw)
+
+
+@pytest.mark.parametrize("case", TRANSPORT_CONFIGS)
+def test_graph_chunks_equal_the_host_rounds_under_transport(card, case):
+    """Six reduced rounds in chunks of two under the lossy transport and the
+    participation model (a death from round 2 to 5 crossing the chunks),
+    the scan engine's CUDA graph against the host engine: state, losses
+    and every transport and participation column bit for bit."""
+    from repro_torch.utils.tree import tree_leaves
+    host = _transport_trainer(card, case, "host")
+    scan = _transport_trainer(card, case, "scan", chunk=2)
+    kernels.reset_launch_counts()
+    want = host.run(rounds=6)
+    launched = kernels.launch_counts()
+    got = scan.run(rounds=6)
+    assert got.loss_history == want.loss_history
+    for name in ("offered_history", "delivered_history",
+                 "participation_history"):
+        assert getattr(got, name) == getattr(want, name), name
+    for name in ("airtime_s_per_round", "energy_j_per_round",
+                 "retransmits_per_round", "abandoned_bytes_per_round"):
+        assert getattr(got, name) == getattr(want, name), name
+    for part in ("params", "v", "v_bar"):
+        for a, b in zip(tree_leaves(getattr(scan.state, part)),
+                        tree_leaves(getattr(host.state, part))):
+            assert _same_bits(a, b), part
+    assert torch.equal(scan.key, host.key)
+    if case.get("transport") == "gilbert-arq-budget":
+        assert launched["gilbert_keep"] == 6

@@ -184,13 +184,25 @@ def test_ring_mix_below_three_nodes_is_the_references(k):
 
 
 def test_unported_mixer_options_name_their_item():
-    omega, _, pcfg = _omega("ring", 5)
-    with pytest.raises(NotImplementedError, match="A8"):
-        gossip.make_mixer(omega, "cpu", config=pcfg,
-                          link_probs=lambda s: np.zeros(s.perms.shape))
-    mix = gossip.make_mixer(omega, "cpu", config=pcfg)
-    with pytest.raises(NotImplementedError, match="A7"):
-        mix({"a": torch.zeros(5, 3)}, None, torch.ones(5))
+    """``link_probs`` (ROADMAP A8) and ``node_mask`` (A7) used to raise;
+    they run now, as the jitted reference mixer does on the ring: a
+    ``link_probs`` forces the time-varying schedule, and a node mask
+    mixes by the Laplacian form with its edge mask, bit for bit."""
+    omega, jcfg, pcfg = _omega("ring", 5)
+    outage = lambda s: np.where(s.perms != np.arange(s.k), 0.4, 0.0)
+    x = np.random.default_rng(5).standard_normal((5, 3)).astype(np.float32)
+    p = np.array([1, 0, 1, 1, 0], np.float32)
+    key = jax.random.PRNGKey(3)
+    for probs, mask in ((outage, None), (None, p), (outage, p)):
+        want = jax.jit(lambda t, k, m: jgossip.make_mixer(
+            omega, config=jcfg, link_probs=probs)(t, k, m))(
+                {"a": jnp.asarray(x)}, key,
+                None if mask is None else jnp.asarray(mask))["a"]
+        mix = gossip.make_mixer(omega, "cpu", config=pcfg, link_probs=probs)
+        assert mix.mode == ("schedule_tv" if probs else "schedule")
+        got = mix({"a": torch.from_numpy(x)}, _port_key(key),
+                  None if mask is None else torch.from_numpy(mask))["a"]
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
 
 
 def test_as_keyed_mixer_adapts_legacy_mixers():

@@ -307,11 +307,13 @@ def test_cpu_tensors_run_the_plain_versions():
     ops.leaf_dsgld_update(x, x, x, 1e-4)
     kernels.gossip_mix([x], torch.tensor([[1, 0]], dtype=torch.int32),
                        torch.full((1, 2), 0.5), 0.0, "laplacian")
+    kernels.gilbert_keep(torch.rand(2, 1), [torch.rand(2, 5)],
+                         [torch.rand(2, 5)], (0.1, 0.05, 0.3, 0.0, 1.0))
     assert kernels.launch_counts() == {
         "pack": 0, "delta_pack": 0, "unpack": 0, "fused_update": 0,
         "grid_quant": 0, "qsgd": 0, "block_topk": 0, "threefry": 0,
         "topk_select": 0, "unpack_set": 0, "cffl_update": 0,
-        "dsgld_update": 0, "gossip_mix": 0}
+        "dsgld_update": 0, "gossip_mix": 0, "gilbert_keep": 0}
 
 
 def _mix_terms(form, k=10, seed=0):

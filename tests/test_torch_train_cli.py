@@ -12,7 +12,10 @@ at reduced width (``--trim --device cpu``).
   snapshots that the port's ``launch.serve`` serves and the reference's
   ``load_bank`` reads, and a final checkpoint.
 - Each flag of a path the port does not run yet exits naming its ROADMAP
-  item.
+  item; the transport's and the participation model's flags run, their
+  ``transport:``, ``airtime budget:``, ``participation:``, ``transport
+  accounting:``, ``arq accounting:`` and ``participation rates:`` lines
+  equal to the reference CLI's.
 """
 import sys
 
@@ -45,6 +48,9 @@ RUNS = {
     "full": ["--topology", "full", "--compressor", "topk"],
 }
 HEADS = ("arch=", "wire accounting:", "topology=")
+LINK_HEADS = ("transport:", "airtime budget:", "participation:")
+ACCOUNTING = ("transport accounting:", "arq accounting:",
+              "participation rates:")
 
 
 def _lines(capsys, fn):
@@ -103,8 +109,25 @@ def test_cli_snapshots_are_served(tmp_path, capsys):
     (["--drift", "gain_drift"], "A9"), (["--refresh-window", "4"], "A9"),
     (["--mesh", "2"], "A10"), (["--engine", "shard"], "A10"),
     (["--arch", "smollm-135m"], "A12")])
-def test_unported_flags_exit_naming_their_item(flags, item):
+def test_unported_flags_exit_naming_their_item(flags, item, capsys,
+                                               monkeypatch):
+    """The flags of a path the port does not run yet exit naming its
+    ROADMAP item (A9, A10, A12). The transport's (A8) and the participation
+    model's (A7) flags run since those items were ported: one round, whose
+    header, link and accounting lines equal the reference CLI's."""
     argv = [a for a in BASE if a != "--trim"] + ["--trim", "--device", "cpu"]
+    if item in ("A8", "A7"):
+        run = BASE + flags
+        monkeypatch.setattr(sys, "argv", ["train"] + run)
+        want = _lines(capsys, jax_train.main)
+        got = _lines(capsys, lambda: port_train.main(run + ["--device",
+                                                            "cpu"]))
+        keep = lambda lines: [ln for ln in lines if ln.startswith(
+            HEADS + LINK_HEADS + ACCOUNTING)]
+        assert keep(got) == keep(want)
+        assert len(keep(want)) >= 3
+        assert any(ln.startswith("round    1 loss=") for ln in got)
+        return
     if flags[0] == "--arch":
         argv = argv[2:]
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):

@@ -6,6 +6,7 @@ PyTorch port's tests and for ``chip_smoke.py``, which reads them on the card.
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py baseline-rounds
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py serve-bma
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py topology-rounds
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py transport-rounds
 
 ``threefry`` writes ``tests/golden/threefry_draws.npz``: ``jax.random``'s
 keys, bits, uniforms, normals, truncated normals and randints for the cases
@@ -39,6 +40,19 @@ and, under ``cli``, the ``arch=``, ``wire accounting:`` and ``topology=``
 lines the reference's training CLI prints for :data:`TOPOLOGY_CLI_ARGV`
 (run with ``--rounds 0``: the lines are functions of shapes and numpy).
 
+``transport-rounds`` writes ``tests/golden/transport_rounds_lenet_radar.json``:
+the same record for :data:`TRANSPORT_RUNS`, the runs of ``chip_smoke.py``'s
+phase 10 on the geometric graph of the topology runs: (a) ``FedConfig()``'s
+cdbfl under Bernoulli erasure 0.1; (b) the fused ``block_topk|qsgd``
+pipeline under the Gilbert–Elliott channel with ARQ, LoRa time-on-air and
+an airtime budget that cuts the last attempt; (c) cdbfl and dsgld under the
+SNR outage model with stragglers and two death timelines. Beside the loss,
+consensus and wire bytes, each round's offered, delivered and abandoned
+bytes, retransmits, airtime and energy a node, its participation vector
+and its ``(M, K)`` mixer masks (the SNR outage composed in); and, under
+``cli``, the header and accounting lines the reference's training CLI
+prints for :data:`TRANSPORT_CLI_ARGV` over two rounds.
+
 ``serve-bma`` writes ``tests/golden/serve_bma_lenet_radar.npz``: the
 reference's BMA probabilities and predictive entropies
 (``repro.core.posterior.BankPredictor``) for the serving CLI's synthetic
@@ -68,6 +82,7 @@ SEEDED_ROUNDS_FILE = GOLDEN / "seeded_rounds_lenet_radar.json"
 BASELINE_ROUNDS_FILE = GOLDEN / "baseline_rounds_lenet_radar.json"
 SERVE_BMA_FILE = GOLDEN / "serve_bma_lenet_radar.npz"
 TOPOLOGY_ROUNDS_FILE = GOLDEN / "topology_rounds_lenet_radar.json"
+TRANSPORT_ROUNDS_FILE = GOLDEN / "transport_rounds_lenet_radar.json"
 
 # (name, function, seed, arguments): one ``jax.random`` call each
 THREEFRY_CASES = [
@@ -248,6 +263,72 @@ def reference_cli_lines(argv) -> list:
             if ln.startswith(CLI_HEADS)]
 
 
+# chip_smoke.py's phase-10 runs: the topology runs' geometric graph under
+# the transport and the participation model
+PIPE_CONFIG = dict(SEEDED_CONFIG, fed=dict(SEEDED_CONFIG["fed"],
+                                           pipeline="block_topk|qsgd"))
+TRANSPORT_RUNS = {
+    "cdbfl-bernoulli": dict(baseline_config("cdbfl"),
+                            topology_cfg=GEOMETRIC_TV,
+                            transport=dict(erasure=0.1, mtu=256)),
+    # 346 frames a node, 135.7 s of SF7 time-on-air a first attempt: a
+    # budget of 165 s lets most nodes resend and cuts the last attempt
+    "fused-gilbert-arq": dict(PIPE_CONFIG, topology_cfg=GEOMETRIC_TV,
+                              transport=dict(loss_model="gilbert", arq=True,
+                                             max_retries=2, toa=True, sf=7,
+                                             duty_cycle=0.5,
+                                             round_period_s=330.0)),
+    "cdbfl-snr-participation": dict(
+        baseline_config("cdbfl"), topology_cfg=GEOMETRIC_TV,
+        transport=dict(snr_db=10.0, snr_spread_db=4.0),
+        participation=dict(straggler_prob=0.2, dead=[[3, 2, -1], [7, 1, 3]])),
+    "dsgld-snr-participation": dict(
+        baseline_config("dsgld"), topology_cfg=GEOMETRIC_TV,
+        transport=dict(snr_db=10.0, snr_spread_db=4.0),
+        participation=dict(straggler_prob=0.2, dead=[[3, 2, -1], [7, 1, 3]])),
+}
+# chip_smoke.py's phase-10 CLI run: phase 9's graph with the transport's
+# and the participation model's flags, two rounds
+TRANSPORT_CLI_ARGV = [
+    "--arch", "lenet-radar", "--nodes", "10", "--local-steps", "8",
+    "--batch", "10", "--zeta", "0.03", "--topology", "geometric",
+    "--radius", "0.5", "--link-failure", "0.1", "--gossip-pairs", "2",
+    "--transport", "--erasure", "0.1", "--arq", "--toa",
+    "--straggler-prob", "0.2", "--dead-node", "3:2", "--rounds", "2",
+    "--log-every", "2"]
+TRANSPORT_CLI_LINES = ("arch=", "wire accounting:", "topology=",
+                       "transport:", "airtime budget:", "participation:",
+                       "transport accounting:", "arq accounting:",
+                       "participation rates:")
+
+
+def transport_configs(c: dict):
+    """The reference's TransportConfig and ParticipationConfig of a run
+    (None where the run has none)."""
+    from repro.config import ParticipationConfig, TransportConfig
+    t, p = c.get("transport"), c.get("participation")
+    return (TransportConfig(**t) if t else None,
+            ParticipationConfig(**dict(p, dead=tuple(
+                tuple(d) for d in p.get("dead", ())))) if p else None)
+
+
+def reference_cli_run(argv) -> list:
+    """The lines of :data:`TRANSPORT_CLI_LINES` the reference's training
+    CLI prints for ``argv``, run in-process."""
+    import contextlib
+    import io
+    from repro.launch import train
+    out, saved = io.StringIO(), sys.argv
+    sys.argv = ["train"] + list(argv)
+    try:
+        with contextlib.redirect_stdout(out):
+            train.main()
+    finally:
+        sys.argv = saved
+    return [ln for ln in out.getvalue().splitlines()
+            if ln.startswith(TRANSPORT_CLI_LINES)]
+
+
 def round_masks(fed, omega, key, rounds: int):
     """The ``(M, K)`` masks the reference's time-varying mixer draws in the
     first ``rounds`` rounds of a host-engine run whose key is ``key``: round
@@ -257,19 +338,24 @@ def round_masks(fed, omega, key, rounds: int):
     reference's jitted rounds apply
     (``test_recorded_masks_are_the_masks_the_rounds_apply``)."""
     import jax
-    from repro.core.gossip import _matching_masks, plan_mixer
+    from repro.core.gossip import _matching_masks, _tv_probs, plan_mixer
     from repro.core.topology import resolve_topology
+    from repro.core.transport import resolve_transport
     tc = resolve_topology(fed)
-    mode, sched = plan_mixer(omega, tc)
+    transport = resolve_transport(fed)
+    link = (transport.outage_probs if transport is not None
+            and transport.has_link_outage else None)
+    mode, sched = plan_mixer(omega, tc, force_tv=link is not None)
     if mode != "schedule_tv":
         return None
+    p_drop = _tv_probs(sched, tc, link)
     out = []
     for _ in range(rounds):
         key, kround = jax.random.split(key)
         kmix = (jax.random.split(kround)[1] if fed.algorithm == "dsgld"
                 else jax.random.fold_in(kround, 2))
         out.append(np.asarray(_matching_masks(
-            sched, kmix, tc.link_failure_prob, tc.gossip_pairs)).tolist())
+            sched, kmix, p_drop, tc.gossip_pairs)).tolist())
     return out
 
 
@@ -284,8 +370,10 @@ def seeded_rounds(c: dict, command: str) -> dict:
     arch = get_arch(c["arch"])
     cfg = arch.reduced if c["reduced"] else arch.config
     tc = c.get("topology_cfg")
+    tcfg, pcfg = transport_configs(c)
     fed = FedConfig(rounds=c["rounds"], **c["fed"], **(
-        {"topology_cfg": TopologyConfig(**tc)} if tc else {}))
+        {"topology_cfg": TopologyConfig(**tc)} if tc else {}),
+        transport=tcfg, participation=pcfg)
     train = make_dataset(c["train_maps"], hw=cfg.input_hw, day=1,
                          seed=c["data_seed"])
     t0 = time.time()
@@ -308,7 +396,22 @@ def seeded_rounds(c: dict, command: str) -> dict:
         record["masks"] = round_masks(fed, trainer.omega,
                                       jax.random.PRNGKey(c["seed"] + 1),
                                       c["rounds"])
+    if tcfg is not None or pcfg is not None:
+        eng = trainer._engine
+        for name, attr in TRANSPORT_COLUMNS.items():
+            record[name] = [np.asarray(x, np.float64).tolist()
+                            for x in getattr(eng, attr)]
     return record
+
+
+# the transport's and the participation model's per-round columns of a
+# record, and the reference engine's history each is read from
+TRANSPORT_COLUMNS = {
+    "offered": "last_offered_history", "delivered": "last_delivered_history",
+    "abandoned": "last_abandoned_history",
+    "retransmits": "last_retransmit_history",
+    "airtime": "last_airtime_history", "energy": "last_energy_history",
+    "participation": "last_participation_history"}
 
 
 def write_seeded_rounds() -> None:
@@ -332,6 +435,17 @@ def write_topology_rounds() -> None:
     TOPOLOGY_ROUNDS_FILE.write_text(json.dumps(records, indent=1) + "\n")
     print(f"wrote {TOPOLOGY_ROUNDS_FILE}: "
           f"{ {n: (r['loss'], r['wire_bytes']) for n, r in records.items() if n != 'cli'} }; "
+          f"{records['cli']['lines']}")
+
+
+def write_transport_rounds() -> None:
+    records = {name: seeded_rounds(c, "transport-rounds")
+               for name, c in TRANSPORT_RUNS.items()}
+    records["cli"] = {"argv": TRANSPORT_CLI_ARGV,
+                      "lines": reference_cli_run(TRANSPORT_CLI_ARGV)}
+    TRANSPORT_ROUNDS_FILE.write_text(json.dumps(records, indent=1) + "\n")
+    print(f"wrote {TRANSPORT_ROUNDS_FILE}: "
+          f"{ {n: (r['loss'], r['delivered']) for n, r in records.items() if n != 'cli'} }; "
           f"{records['cli']['lines']}")
 
 
@@ -372,4 +486,5 @@ if __name__ == "__main__":
          "seeded-rounds": write_seeded_rounds,
          "baseline-rounds": write_baseline_rounds,
          "serve-bma": write_serve_bma,
-         "topology-rounds": write_topology_rounds}[name]()
+         "topology-rounds": write_topology_rounds,
+         "transport-rounds": write_transport_rounds}[name]()
