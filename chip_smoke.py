@@ -178,13 +178,18 @@ Phases, each of which fails the run by raising:
              and participation flags (two rounds), its header, link and
              accounting lines equal to the reference CLI's.
 
-Phase 2 also holds gilbert_keep, the burst channel's frame recurrence,
-to its plain version, bit for bit, one launch a table: phase 10 (b)'s
-ragged frame counts (1 to 335 frames, K nodes x 3 ARQ attempts a leaf)
-and one-frame chains, under three channels (the defaults, p_enter = 0
-with loss in the good state, a symmetric one), start and frame uniforms
+Phase 2 also holds gilbert_keep, the burst channel's frame recurrence
+as a warp scan of 2-bit state maps, to its plain version, bit for bit,
+one launch a table: phase 10 (b)'s ragged frame counts (1 to 335 frames,
+K nodes x 3 ARQ attempts a leaf), one-frame chains, and chains at and
+around the scan's 32-frame tiles (1 to 690 frames) in 7 rows, which fill
+no whole CTA of 4 warps, under six channels (the defaults, p_enter = 0
+with loss in the good state, a symmetric one, always enter and never
+leave, every frame flips, flip beside set-bad), start and frame uniforms
 set to the thresholds; and times one round's keep masks beside its plain
-version, its byte bound and its longest chain's dependent steps.
+version, its byte bound, the card's launch floor (a one-element fill,
+traced the same way), and the time and serial model of the
+one-thread-a-chain design it replaced.
 
 Phase 2 also holds gossip_mix, the sparse mixers' fma chain (ROADMAP
 C16), to its plain version on the card as one table launch over the 10
@@ -860,8 +865,8 @@ def grid_quant_pair_plain(carrier, u):
     return grid_quant_plain(carrier, u, norm, LEVELS), norm
 
 
-def fmt_ms(ms) -> str:
-    return "not measured" if ms is None else f"{ms:.4f} ms"
+def fmt_ms(ms, digits: int = 4) -> str:
+    return "not measured" if ms is None else f"{ms:.{digits}f} ms"
 
 
 def time_kernels(shapes):
@@ -2608,17 +2613,32 @@ def run_train(train) -> dict:
 # --------------------------------------------------------------------------
 
 # the burst channels phase 2 holds the kernel to: the defaults, p_enter = 0
-# with loss in the good state, and a symmetric channel
+# with loss in the good state, a symmetric channel, always enter and never
+# leave (every frame sets bad), every frame flips, and flip beside set-bad;
+# between them every 2-bit frame map of the scan, and two channels whose
+# maps do not commute
 GILBERT_CASES = ((0.05, 0.3, 0.0, 1.0), (0.0, 0.3, 0.2, 1.0),
-                 (0.5, 0.5, 0.1, 0.9))
+                 (0.5, 0.5, 0.1, 0.9), (1.0, 0.0, 0.0, 1.0),
+                 (1.0, 1.0, 0.3, 0.6), (0.6, 0.3, 0.1, 0.9))
+# chains at and around the warp scan's 32-frame tiles and its groups of
+# 8 tiles in flight, in a row count that fills no whole CTA of 4 warps
+GILBERT_TILE_FRAMES = (1, 2, 31, 32, 33, 64, 65, 255, 256, 257, 335, 511,
+                       512, 513, 690)
+GILBERT_TILE_ROWS = 7
 ARQ_ATTEMPTS = 3
-# f32/INT32 operations a frame: two threshold selects, two compares, the
-# state's xor and the keep's select
+# f32/INT32 operations a frame of the serial recurrence: two threshold
+# selects, two compares, the state's xor and the keep's select
 GILBERT_OPS = 6
-# the dependent chain of a frame: the threshold select, the compare with
-# u_t and the state flip, some 4 cycles each on the SM's ALUs, at the
-# 1.98 GHz boost clock (a latency model, not a published peak)
+# the one-thread-a-chain design the warp scan replaced, kept as a
+# yardstick: its serial model (the dependent chain of a frame: the
+# threshold select, the compare with u_t and the state flip, some 4 cycles
+# each, at the 1.98 GHz boost clock; a latency model, not a published
+# peak) and its trace device ms a round on phase 10 (b)'s chains, as this
+# script measured it on an NVIDIA H100 80GB HBM3 at 700.00 W
 GILBERT_STEP_CYCLES, SM_CLOCK_HZ = 12, 1.98e9
+GILBERT_SERIAL_MS = 0.0223
+# one-element fills a traced pass times for the launch floor
+FLOOR_FILLS = 16
 
 
 def link_frames(name: str):
@@ -2650,14 +2670,18 @@ def gilbert_inputs(frames, params, gen, rows: int = K * ARQ_ATTEMPTS):
 def check_gilbert() -> float:
     """gilbert_keep against its plain version, bit for bit, one launch a
     table: the (b) run's ragged frame counts (K nodes x 3 ARQ attempts a
-    leaf) under each channel of GILBERT_CASES, and chains of one frame.
-    Returns the largest absolute difference (0)."""
+    leaf) under each channel of GILBERT_CASES, chains of one frame, and
+    GILBERT_TILE_FRAMES in GILBERT_TILE_ROWS rows. Returns the largest
+    absolute difference (0)."""
     gen = torch.Generator(device=DEVICE).manual_seed(13)
     frames = link_frames("fused-gilbert-arq")
+    chains = K * ARQ_ATTEMPTS
+    tables = ((frames, chains), ([1] * len(frames), chains),
+              (GILBERT_TILE_FRAMES, GILBERT_TILE_ROWS))
     err = 0.0
     for params in GILBERT_CASES:
-        for fr in (frames, [1] * len(frames)):
-            u0, ut, ul, consts = gilbert_inputs(fr, params, gen)
+        for fr, rows in tables:
+            u0, ut, ul, consts = gilbert_inputs(fr, params, gen, rows)
             before = gilbert_keep.launches
             got = gilbert_keep(u0, ut, ul, consts)
             torch.cuda.synchronize()
@@ -2672,17 +2696,33 @@ def check_gilbert() -> float:
                 err = max(err, max_abs_err(g, w))
     log("kernels", f"gilbert_keep: bit-exact to its plain version on the "
                    f"(b) run's frames {frames} x {K * ARQ_ATTEMPTS} chains "
-                   f"(nodes x ARQ attempts) and on one-frame chains, "
-                   f"channels {GILBERT_CASES}, threshold uniforms included, "
-                   f"one launch a table")
+                   f"(nodes x ARQ attempts), on one-frame chains and on the "
+                   f"tile boundaries {GILBERT_TILE_FRAMES} x "
+                   f"{GILBERT_TILE_ROWS} chains, channels {GILBERT_CASES}, "
+                   f"threshold uniforms included, one launch a table")
     return err
+
+
+def launch_floor_ms() -> float:
+    """The card's launch floor: the trace device time of one one-element
+    fill kernel, traced as a kernel is (``traced_ms``, FLOOR_FILLS fills a
+    pass so that the profiled warm-up is long enough)."""
+    x = torch.zeros(1, device=DEVICE)
+
+    def fills():
+        for _ in range(FLOOR_FILLS):
+            x.fill_(1.0)
+    ms = traced_ms([fills])
+    return None if ms is None else ms / FLOOR_FILLS
 
 
 def time_gilbert():
     """One round's keep masks of the (b) run, one launch: device and
     event-timed ms beside the plain version's, the byte bound (two uniforms
-    read and a keep written a frame, a start uniform a chain) and the
-    dependent chain of the longest row."""
+    read and a keep written a frame, a start uniform a chain), the card's
+    launch floor, and the one-thread-a-chain design the warp scan replaced:
+    its measured time and its serial model, the longest row's dependent
+    steps."""
     gen = torch.Generator(device=DEVICE).manual_seed(14)
     frames = link_frames("fused-gilbert-arq")
     u0, ut, ul, consts = gilbert_inputs(frames, GILBERT_CASES[0], gen)
@@ -2690,23 +2730,28 @@ def time_gilbert():
     nbytes = 12 * rows * sum(frames) + 4 * u0.numel()
     ops = GILBERT_OPS * rows * sum(frames)
     b_ms, b_by = bound(nbytes, 0.0, ops)
-    chain_ms = max(frames) * GILBERT_STEP_CYCLES / SM_CLOCK_HZ * 1e3
+    serial_ms = max(frames) * GILBERT_STEP_CYCLES / SM_CLOCK_HZ * 1e3
     kern = lambda: gilbert_keep(u0, ut, ul, consts)  # noqa: E731
     plain = lambda: gilbert_keep_plain(u0, ut, ul, consts)  # noqa: E731
     r = dict(ms=device_ms(kern), plain_ms=device_ms(plain, reps=3,
                                                      per_rep=1),
              device_ms=traced_ms([kern]), plain_device_ms=traced_ms([plain]),
-             bound_ms=b_ms, bound_by=b_by, chain_ms=chain_ms, nbytes=nbytes,
-             ops=ops, library_ms=None)
+             floor_ms=launch_floor_ms(), bound_ms=b_ms, bound_by=b_by,
+             nbytes=nbytes, ops=ops, library_ms=None)
     log("kernels", f"gilbert_keep per round ({len(frames)} leaves, {rows} "
                    f"chains a leaf, {sum(frames)} frames a chain set, the "
-                   f"longest {max(frames)}): device {fmt_ms(r['device_ms'])},"
-                   f" event-timed {r['ms']:.4f} ms; plain: device "
-                   f"{fmt_ms(r['plain_device_ms'])}, event-timed "
-                   f"{r['plain_ms']:.4f} ms; bound {b_ms:.5f} ms ({b_by}: "
-                   f"{nbytes} B, {ops} ops), dependent chain of the longest "
-                   f"row {chain_ms:.5f} ms ({GILBERT_STEP_CYCLES} cycles a "
-                   f"frame at {SM_CLOCK_HZ / 1e9:g} GHz); library: none")
+                   f"longest {max(frames)}; a warp a chain, "
+                   f"{-(-max(frames) // 32)} tiles of its scan): device "
+                   f"{fmt_ms(r['device_ms'], 5)} (a thread a chain before: "
+                   f"{GILBERT_SERIAL_MS} ms), event-timed {r['ms']:.4f} ms; "
+                   f"plain: device {fmt_ms(r['plain_device_ms'])}, "
+                   f"event-timed {r['plain_ms']:.4f} ms; bound {b_ms:.7f} ms "
+                   f"({b_by}: {nbytes} B, {ops} ops); launch floor (a "
+                   f"one-element fill, traced) {fmt_ms(r['floor_ms'], 5)}; "
+                   f"the thread-a-chain design's serial model of the longest "
+                   f"row "
+                   f"{serial_ms:.5f} ms ({GILBERT_STEP_CYCLES} cycles a frame "
+                   f"at {SM_CLOCK_HZ / 1e9:g} GHz); library: none")
     return r
 
 

@@ -5,11 +5,16 @@ The reference draws a burst channel's per-frame keep mask as a
 ``repro/core/transport.py:255-273``): a chain of one (node, leaf, ARQ
 attempt) starts bad when its start uniform ``u0 < fl32(π_bad)``, then each
 frame keeps when ``u_l >= (bad ? loss_bad : loss_good)`` and flips the state
-when ``u_t < (bad ? p_exit : p_enter)``. The recurrence is sequential, so
-on the card it is a kernel (``csrc/gilbert.cu``), one thread a chain, over
-a table of leaves: each leaf's ``rows`` chains (the nodes times the ARQ
-attempts) run its own frame count. The comparisons are exact: kernel,
-plain version and reference agree bit for bit.
+when ``u_t < (bad ? p_exit : p_enter)``. On the card it is a kernel
+(``csrc/gilbert.cu``) over a table of leaves, each leaf's ``rows`` chains
+(the nodes times the ARQ attempts) of its own frame count: a warp a chain,
+32 frames a tile, one a lane. A frame maps the 2-state chain by one of four
+maps (keep, flip, set-bad, clear), and the maps compose associatively, so
+the state before each frame is a warp scan of the tile's 2-bit maps applied
+to the state carried from the tile before; the loads run ahead of the
+scan, so the longest chain takes about one memory latency and its tiles'
+scans. The comparisons are exact: kernel, plain version (the frame loop)
+and reference agree bit for bit.
 
 No ``pl.pallas_call`` of the reference computes it: on the TPU the scan is
 XLA's. The plain version runs for CPU tensors; a CUDA tensor launches the

@@ -929,18 +929,26 @@ def test_ring_mix_on_the_card_is_dense_below_three_nodes_else_refused(card):
     assert _same_bits(got.cpu(), want)
 
 
-@pytest.mark.parametrize("rows", [1, 10, 30])
+@pytest.mark.parametrize("rows", [1, 7, 10, 30])
 @pytest.mark.parametrize("params", [(0.05, 0.3, 0.0, 1.0), (0.0, 0.3, 0.2,
                                                              1.0),
-                                    (0.5, 0.5, 0.1, 0.9)])
+                                    (0.5, 0.5, 0.1, 0.9), (1.0, 0.0, 0.0,
+                                                           1.0),
+                                    (1.0, 1.0, 0.3, 0.6), (0.6, 0.3, 0.1,
+                                                           0.9)])
 def test_gilbert_keep_matches_plain_version(card, params, rows):
     """The burst-channel kernel against its plain version, bit for bit:
-    ragged chains (1, 3, 8, 9, 690 frames) in one launch, start uniforms
-    and transition and loss uniforms set to the thresholds themselves."""
+    ragged chains in one launch, at and around the 32-frame tiles of its
+    warp scan and its groups of 8 tiles (1 to 690 frames), rows that fill
+    no whole CTA of 4 warps, channels whose frames take every map (keep,
+    flip, set-bad, clear; always enter and never leave; every frame flips;
+    flip beside set-bad), start uniforms and transition and loss uniforms
+    set to the thresholds themselves."""
     from repro_torch.kernels.gilbert import channel_params, gilbert_keep_plain
     consts = channel_params(*params)
     gen = torch.Generator(device=card).manual_seed(rows)
-    lengths = (1, 3, 8, 9, 690)
+    lengths = (1, 3, 8, 9, 31, 32, 33, 64, 65, 255, 256, 257, 335, 512, 513,
+               690)
     u0 = torch.rand((rows, len(lengths)), generator=gen, device=card)
     u0[0] = consts[0]
     ut = [torch.rand((rows, n), generator=gen, device=card) for n in lengths]

@@ -13,7 +13,9 @@ the reference's (``repro.core.transport``), on the CPU at small sizes.
   attempt, drawn as one program (``frame_keeps``): exact against the
   reference's ``keep`` under the reference's key chain; the gilbert_keep
   plain version against the reference's scan on edge chains (length 1,
-  p_enter = 0, loss_good > 0, uniforms equal to a threshold).
+  p_enter = 0, loss_good > 0, uniforms equal to a threshold); a numpy
+  transcription of the card kernel's warp scan of 2-bit state maps
+  against both, at and around its 32-frame tiles.
 - ``keep_masks``, ``arq_masks`` (a budget that ends inside the frame
   stream included) and ``deliver``'s delivered delta against the jitted,
   node-vmapped reference: masks, bytes and retransmits exact; airtime
@@ -342,6 +344,106 @@ def test_gilbert_plain_version_is_the_references_scan(params):
         for r in range(rows):
             want = _scan_reference(u0[r, i], ut[i][r], ul[i][r], *params)
             np.testing.assert_array_equal(got[i][r].numpy(), want)
+
+
+# -- the card kernel's warp scan, transcribed (csrc/gilbert.cu) -------------
+
+_LANES, _IDENTITY = 32, 2     # a warp; the map good -> good, bad -> bad
+
+
+def _compose(g, f):
+    """The 2-bit map "g after f" (bit s is the image of state s)."""
+    return ((g >> (f & 1)) & 1) | (((g >> (f >> 1)) & 1) << 1)
+
+
+def _warp_scan_keep(u0, ut, ul, consts):
+    """gilbert_keep_kernel's arithmetic on one chain: tiles of 32 frames,
+    one a lane; each frame's map ``(u_t < p_enter) | (!(u_t < p_exit) <<
+    1)``, identity past n; a Hillis–Steele inclusive scan (``__shfl_up_sync``
+    returns a lane below d its own value, which it does not compose); the
+    exclusive prefix applied to the tile's incoming state; lane 31's
+    inclusive map carries the state."""
+    pi_bad, p_enter, p_exit, loss_good, loss_bad = np.float32(consts)
+    n = len(ut)
+    lane = np.arange(_LANES)
+    bad = int(np.float32(u0) < pi_bad)
+    keep = np.empty(n, np.float32)
+    for t0 in range(0, n, _LANES):
+        t = t0 + lane
+        live = t < n
+        a = np.where(live, ut[np.minimum(t, n - 1)], np.float32(0))
+        b = ul[np.minimum(t, n - 1)]
+        inc = np.where(live, (a < p_enter).astype(np.int64)
+                       | (~(a < p_exit)).astype(np.int64) << 1, _IDENTITY)
+        d = 1
+        while d < _LANES:
+            earlier = np.where(lane >= d, np.roll(inc, d), inc)
+            inc = np.where(lane >= d, _compose(inc, earlier), inc)
+            d <<= 1
+        excl = np.where(lane == 0, _IDENTITY, np.roll(inc, 1))
+        before = (excl >> bad) & 1
+        k = (b >= np.where(before == 1, loss_bad, loss_good)).astype(
+            np.float32)
+        keep[t[live]] = k[live]
+        bad = int((inc[-1] >> bad) & 1)
+    return keep
+
+
+GILBERT_CHANNELS = [(0.05, 0.3, 0.0, 1.0), (0.0, 0.3, 0.2, 1.0),
+                    (0.5, 0.5, 0.1, 0.9), (1.0, 0.0, 0.0, 1.0),
+                    (1.0, 1.0, 0.3, 0.6), (0.6, 0.3, 0.1, 0.9)]
+TILE_LENGTHS = (1, 2, 31, 32, 33, 64, 65, 335, 690)
+
+
+@pytest.mark.parametrize("params", GILBERT_CHANNELS)
+def test_warp_scan_is_the_plain_version_and_the_references_scan(params):
+    """The kernel's tile scan, transcribed, against the frame loop and the
+    reference's ``lax.scan``, bit for bit: chains at and around the tile
+    boundaries, both start states (the first row's start uniform is π_bad
+    itself), and the thresholds among the uniforms. The maps of the first
+    and last channels do not commute (flip and clear, flip and set-bad), so
+    a scan that composes in the wrong order fails there."""
+    rng = np.random.default_rng(int(sum(params) * 1000) + 7)
+    consts = channel_params(*params)
+    rows = 3
+    u0 = rng.random((rows, len(TILE_LENGTHS))).astype(np.float32)
+    u0[0] = consts[0]
+    ut, ul = [], []
+    for n in TILE_LENGTHS:
+        a = rng.random((rows, n)).astype(np.float32)
+        b = rng.random((rows, n)).astype(np.float32)
+        a[1, ::3], a[1, 1::3] = consts[1], consts[2]
+        b[2, ::2], b[2, 1::2] = consts[3], consts[4]
+        ut.append(a)
+        ul.append(b)
+    plain = gilbert_keep_plain(torch.from_numpy(u0),
+                               [torch.from_numpy(a) for a in ut],
+                               [torch.from_numpy(b) for b in ul], consts)
+    for i, n in enumerate(TILE_LENGTHS):
+        for r in range(rows):
+            got = _warp_scan_keep(u0[r, i], ut[i][r], ul[i][r], consts)
+            np.testing.assert_array_equal(got, plain[i][r].numpy())
+            np.testing.assert_array_equal(
+                got, _scan_reference(u0[r, i], ut[i][r], ul[i][r], *params))
+
+
+def test_the_channels_reach_the_four_maps():
+    """Between them the channels give every frame map, keep (0b10), flip
+    (0b01), set-bad (0b11) and clear (0b00), and the composition is
+    associative with 0b10 its identity."""
+    u = np.linspace(0, 1, 1001, dtype=np.float32)
+    seen = set()
+    for params in GILBERT_CHANNELS:
+        _, p_enter, p_exit, _, _ = np.float32(channel_params(*params))
+        seen |= set(((u < p_enter).astype(int)
+                     | (~(u < p_exit)).astype(int) << 1).tolist())
+    assert seen == {0, 1, 2, 3}
+    for f in range(4):
+        assert _compose(f, _IDENTITY) == f == _compose(_IDENTITY, f)
+        for g in range(4):
+            for h in range(4):
+                assert _compose(h, _compose(g, f)) == \
+                    _compose(_compose(h, g), f)
 
 
 # -- keep masks, ARQ and the delivered delta ---------------------------------------
