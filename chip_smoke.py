@@ -177,6 +177,40 @@ Phases, each of which fails the run by raising:
              one of that run; last the training CLI with the transport
              and participation flags (two rounds), its header, link and
              accounting lines equal to the reference CLI's.
+11. bf16   — control variates in bfloat16 (FedConfig.control_dtype),
+             the scenario matrix, the evaluate CLI and the quickstart:
+             (a) the bf16 forms of topk_select, delta-pack (v read as
+             bf16) and fused_update, cffl_update (Eqs. 7-9 from the bf16
+             v, v̄ and the round's f32 deltas, ROADMAP C23) against their
+             plain versions, bit for bit, on the 10 full-width leaves at
+             K=10 and phase 2's edge leaves, with NaN and ±inf in the
+             bf16 v, then one table launch each of topk_select and
+             delta-pack; each timed over the round's leaves beside its
+             f32 twin's phase-2 time and its bound; (b) the paper-default
+             cdbfl, the fused block_topk and cffl with bf16 control
+             variates at full width, 4 rounds on the host engine and on
+             the scan engine (chunks of 2), bit for bit; rounds 1-2
+             against the reference's CPU run
+             (``tests/golden/bf16_rounds_lenet_radar.json``, a 2-round
+             run: bytes exact; loss and consensus within rtol 2e-6, ‖v‖
+             and ‖v̄‖ after round 2 within 5e-7 (cffl: 3e-6), limits
+             which the same run with f32 control variates exceeds); each
+             run's launch
+             counts set to 0 just before and read just after: every bf16
+             form of its path launched and its f32 twin never; the
+             control state's bytes and a replayed round beside phase 7's
+             f32 run; (c) the reference's claims gate
+             (``run_claims_smoke(CLAIMS_SPEC)``: reduced LeNet, 60 rounds
+             of cdbfl and cffl) on the card at seeds 0 and 1, the shifted
+             cell re-scored bit for bit and every ECE finite, its cells,
+             claims and per-round loss beside the reference's
+             (``tests/golden/claims_smoke_lenet_radar.json``);
+             (d) the evaluate CLI in-process (``--quick --scenarios
+             clean,day23_critical --severities 1.0``) and on a full-width
+             checkpoint of (b)'s cdbfl run, scored at full width; (e)
+             ``examples/quickstart.py``'s program on the port
+             (``tests/torch_quickstart.py``, K=8, 400 rounds): relative
+             error below 0.1 and the reference's 336 bytes a round.
 
 Phase 2 also holds gilbert_keep, the burst channel's frame recurrence
 as a warp scan of 2-bit state maps, to its plain version, bit for bit,
@@ -241,7 +275,8 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(1, str(ROOT / "tests"))
 
 from repro_torch import kernels, random  # noqa: E402
-from repro_torch.checkpoint import load_bank, save_bank  # noqa: E402
+from repro_torch.checkpoint import (load_bank, save_bank,  # noqa: E402
+                                    save_checkpoint)
 from repro_torch.config import (FedConfig, ParticipationConfig,  # noqa: E402
                                 ServeConfig, TopologyConfig,
                                 TransportConfig, get_arch)
@@ -256,15 +291,17 @@ from repro_torch.eval.engine import HostEvalEngine, ScanEvalEngine  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.block_topk import block_topk, block_topk_plain  # noqa: E402
 from repro_torch.kernels.fused_compress import (  # noqa: E402
-    carrier_norms_plain, delta_pack, delta_pack_plain, grid_quant_leaves,
-    grid_quant_plain)
+    carrier_norms_plain, delta_pack, delta_pack_bf16, delta_pack_plain,
+    grid_quant_leaves, grid_quant_plain)
 from repro_torch.kernels.fused_update import (  # noqa: E402
-    cffl_update, cffl_update_plain, dsgld_update, dsgld_update_plain,
-    fused_update, fused_update_plain, gossip_mix, gossip_mix_plain)
+    cffl_update, cffl_update_bf16, cffl_update_bf16_plain, cffl_update_plain,
+    dsgld_update, dsgld_update_plain, fused_update, fused_update_bf16,
+    fused_update_bf16_plain, fused_update_plain, gossip_mix,
+    gossip_mix_plain)
 from repro_torch.kernels.pack import (from_uint16, magnitude_keys,  # noqa: E402
                                       num_blocks, pack_topk, pack_topk_plain,
                                       to_blocks, topk_candidates_plain,
-                                      topk_select,
+                                      topk_select, topk_select_bf16,
                                       topk_select_plain, unpack_set,
                                       unpack_set_plain, unpack_topk,
                                       unpack_topk_plain)
@@ -289,7 +326,9 @@ from torch_golden import (BASELINE_ROUNDS_FILE, BOUNDARY_K,  # noqa: E402
                           THREEFRY_FILE, TOPOLOGY_ROUNDS_FILE, TOPOLOGY_RUNS,
                           TRANSPORT_CLI_LINES, TRANSPORT_COLUMNS,
                           TRANSPORT_ROUNDS_FILE, TRANSPORT_RUNS,
-                          baseline_config, boundary_blocks, port_draw)
+                          CLAIMS_SEEDS, baseline_config, boundary_blocks,
+                          claims_departure, claims_golden, claims_record,
+                          control_norms, port_draw)
 
 DEVICE = "cuda"
 REDUCED = False                                    # full lenet-radar width
@@ -379,6 +418,20 @@ KERNELS = {
     "gilbert_keep": ("src/repro_torch/kernels/csrc/gilbert.cu",
                      "none (no pl.pallas_call): lax.scan Gilbert-Elliott "
                      "keep masks, src/repro/core/transport.py:255"),
+    # the forms that read bfloat16 control variates (FedConfig.
+    # control_dtype, ROADMAP A3): v (and v̄) at control dtype in the
+    # reference's kernel or jnp
+    "topk_select_bf16": ("src/repro_torch/kernels/csrc/pack.cu",
+                         "none (no pl.pallas_call): jnp lax.top_k block "
+                         "selection of θ − v, v bf16, "
+                         "src/repro/core/compression.py:426"),
+    "delta_pack_bf16": ("src/repro_torch/kernels/csrc/fused_compress.cu",
+                        "src/repro/kernels/fused_compress.py:58"),
+    "fused_update_bf16": ("src/repro_torch/kernels/csrc/fused_update.cu",
+                          "src/repro/kernels/fused_update.py:43"),
+    "cffl_update_bf16": ("src/repro_torch/kernels/csrc/fused_update.cu",
+                         "none (no pl.pallas_call): jnp CF-FL update with "
+                         "bf16 v, v̄, src/repro/core/algorithms.py:602"),
 }
 # the seven kernels that replace a pl.pallas_call
 TPU_KERNELS = ("pack", "delta_pack", "unpack", "fused_update", "grid_quant",
@@ -386,6 +439,12 @@ TPU_KERNELS = ("pack", "delta_pack", "unpack", "fused_update", "grid_quant",
 # f32 operations an element: the residual, its key and one compare
 # (topk_select); sub and fma (cffl_update); fma and add (dsgld_update)
 TOPK_SELECT_OPS, VARIANT_OPS = 3, 3
+
+
+def lenet_config():
+    """The lenet-radar config the script runs: full width unless REDUCED."""
+    spec = get_arch("lenet-radar")
+    return spec.reduced if REDUCED else spec.config
 
 
 def log(phase: str, msg: str) -> None:
@@ -531,6 +590,7 @@ def bound(nbytes: float, ops: float, int_ops: float = 0.0):
 
 
 _AS_INT = {torch.float32: torch.int32, torch.uint16: torch.int16,
+           torch.bfloat16: torch.int16,
            torch.int8: torch.int8, torch.int64: torch.int64}
 
 
@@ -745,7 +805,8 @@ def levels_of(gen):
 def edge_draws(keys):
     """Every transform at edge sizes (n = 1, 7 and the odd 4099) over the
     rows of ``keys``, as the port's random functions ask for them: splits,
-    a fold-in of the largest counter, splits folded in, bits, uniforms in
+    a fold-in of the largest counter and one by a device int32 (the
+    engines' round index), splits folded in, bits, uniforms in
     [0, 1) and in a range, Langevin-scaled normals and scaled truncated
     normals."""
     programs = []
@@ -753,6 +814,8 @@ def edge_draws(keys):
         programs += [
             random.split.program(keys, n),
             random.fold_in.program(keys, 2**32 - 1),
+            random.fold_in.program(keys, torch.tensor(
+                2**31 - n, dtype=torch.int32, device=keys.device)),
             random.split_fold_in.program(keys, n, 1),
             random.bits.program(keys, (n,)),
             random.uniform.program(keys, (n,)),
@@ -1311,7 +1374,7 @@ def run_slice(name: str, train, test):
     """FedTrainer(device="cuda") for the configuration's rounds, then BMA
     evaluation; the launch counts set to 0 just before, read just after."""
     from repro_torch.train import FedTrainer
-    cfg = get_arch("lenet-radar", reduced=REDUCED)
+    cfg = lenet_config()
     _, rounds, wire, launched = RUNS[name]
     trainer = FedTrainer(get_model(cfg), fed_config(name),
                          partition_iid(train, K), minibatch=MINIBATCH, seed=0,
@@ -1594,7 +1657,7 @@ def run_graph(name: str, host, host_res, train, test) -> None:
     round, the device's idle share, each kernel's launches and device ms a
     round inside it."""
     from repro_torch.train import FedTrainer
-    cfg = get_arch("lenet-radar", reduced=REDUCED)
+    cfg = lenet_config()
     _, rounds, wire, launched = RUNS[name]
     n = rounds // 2
     trainer = FedTrainer(get_model(cfg), fed_config(name),
@@ -1711,7 +1774,7 @@ def run_default_chunk(train) -> None:
     Every loss finite, the bank full, the bytes exact; capture time, ms a
     round of the second run and the peak device memory logged."""
     from repro_torch.train import FedTrainer
-    cfg = get_arch("lenet-radar", reduced=REDUCED)
+    cfg = lenet_config()
     _, _, wire, _ = RUNS["block_topk"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1739,15 +1802,20 @@ def run_default_chunk(train) -> None:
 # device kernel names of the ported kernels in a profiler trace; an update
 # variant's float4 launch and its scalar tail both count
 TRACE_NAMES = {kname: re.compile(pattern) for kname, pattern in {
-    "pack": r"pack_kernel<false>", "delta_pack": r"pack_kernel<true>",
+    "pack": r"pack_kernel<false\b", "delta_pack": r"pack_kernel<true, float>",
     "unpack": r"\bunpack_kernel", "fused_update": r"fused_update_\w+<0>",
     "grid_quant": r"grid_quant_kernel", "qsgd": r"qsgd_kernel",
     "block_topk": r"block_topk_kernel", "threefry": r"threefry_kernel",
-    "topk_select": r"topk_select_kernel", "unpack_set": r"unpack_set_kernel",
+    "topk_select": r"topk_select_kernel<\w+, float>",
+    "unpack_set": r"unpack_set_kernel",
     "cffl_update": r"fused_update_\w+<1>",
     "dsgld_update": r"fused_update_\w+<2>",
     "gossip_mix": r"gossip_mix_(tiles|rows)",
-    "gilbert_keep": r"gilbert_keep_kernel"}.items()}
+    "gilbert_keep": r"gilbert_keep_kernel",
+    "topk_select_bf16": r"topk_select_kernel<true, (?!float>)",
+    "delta_pack_bf16": r"pack_kernel<true, (?!float>)",
+    "fused_update_bf16": r"control_update_bf16_\w+<0>",
+    "cffl_update_bf16": r"control_update_bf16_\w+<1>"}.items()}
 # tries at a whole trace, and the least launches of its warm-up (profiled)
 TRACE_ATTEMPTS, WARM_LAUNCHES = 4, 32
 # the traced round each kernel's in-round device time is read from
@@ -1907,7 +1975,7 @@ def run_default(algorithm: str, train, test, shift):
     each evaluated on the day-1 test maps and on the shift set. Returns
     the host run's launches and its evaluations."""
     from repro_torch.train import FedTrainer
-    cfg = get_arch("lenet-radar", reduced=REDUCED)
+    cfg = lenet_config()
     rounds, wire, launched, once = DEFAULT_RUNS[algorithm]
     fed = default_config(algorithm, rounds)
     if fed.fused_compress:
@@ -2002,7 +2070,8 @@ def run_default(algorithm: str, train, test, shift):
                    f"device time; host time of graph.replay() "
                    f"{enqueue:.3f} ms; capture {engine.capture_ms[2]:.1f} ms")
     evals = dict(accuracy=res.accuracy, ece=res.ece,
-                 shift_accuracy=shifted.accuracy, shift_ece=shifted.ece)
+                 shift_accuracy=shifted.accuracy, shift_ece=shifted.ece,
+                 replay_ms=(wall, busy))
     del runs, host, scan, engine
     torch.cuda.empty_cache()
     return launches, evals
@@ -2012,7 +2081,7 @@ def run_codec_round(name: str, train) -> None:
     """One full-width cdbfl round of a codec on the host engine: its bytes
     exact, every value finite, each kernel of its path launched."""
     from repro_torch.train import FedTrainer
-    cfg = get_arch("lenet-radar", reduced=REDUCED)
+    cfg = lenet_config()
     overrides, wire, launched = CODEC_ROUNDS[name]
     trainer = FedTrainer(get_model(cfg), default_config("cdbfl", 1,
                                                         **overrides),
@@ -2318,7 +2387,7 @@ def run_serve(train, test, shift) -> dict:
     """Phase 8. Returns the launch counts of its path."""
     from repro_torch.train import FedTrainer
     log("serve", f"on {card_line()}")
-    cfg = get_arch("lenet-radar", reduced=REDUCED)
+    cfg = lenet_config()
     model = get_model(cfg)
     torch.cuda.empty_cache()
     kernels.reset_launch_counts()
@@ -2416,7 +2485,7 @@ def check_topology_rounds(train) -> None:
     geometric run on the scan engine (chunks of 2) against its host run,
     bit for bit."""
     from repro_torch.train import FedTrainer
-    cfg = get_arch("lenet-radar", reduced=REDUCED)
+    cfg = lenet_config()
     records = json.loads(TOPOLOGY_ROUNDS_FILE.read_text())
     for name in TOPOLOGY_RUNS:
         want = records[name]
@@ -2557,7 +2626,7 @@ def time_graphs(train) -> None:
     gossip_mix's launches a round (two host-engine rounds: one table
     launch a round on the sparse graphs, none on the full graph)."""
     from repro_torch.train import FedTrainer
-    cfg = get_arch("lenet-radar", reduced=REDUCED)
+    cfg = lenet_config()
     log("train", f"timings on {card_line()}")
     for name, overrides in GRAPH_TIMINGS.items():
         fed = default_config("cdbfl", 4, **overrides)
@@ -2647,7 +2716,7 @@ def link_frames(name: str):
     fed = link_config(name)
     from repro_torch.core.compression import make_compressor
     from repro_torch.core.transport import resolve_transport
-    cfg = get_arch("lenet-radar", reduced=REDUCED)
+    cfg = lenet_config()
     params = get_model(cfg).init(random.PRNGKey(0, "meta"), "meta")
     stacked = tree_map(lambda x: torch.empty((K,) + tuple(x.shape)), params)
     return resolve_transport(fed).layout(make_compressor(fed), stacked).frames
@@ -2818,7 +2887,7 @@ def check_link_run(name: str, train):
     bursts, the decodes and threefry at their stated counts. Returns
     ``(trainer, result, columns, launches)``."""
     from repro_torch.train import FedTrainer
-    cfg = get_arch("lenet-radar", reduced=REDUCED)
+    cfg = lenet_config()
     want = json.loads(TRANSPORT_ROUNDS_FILE.read_text())[name]
     if want["config"] != TRANSPORT_RUNS[name]:
         raise AssertionError(f"{TRANSPORT_ROUNDS_FILE.name}: {name} ran "
@@ -2896,7 +2965,7 @@ def check_link_scan(name: str, train, host, host_res, host_cols):
     against its host run; then its replayed chunk timed beside the same
     run without transport and participation."""
     from repro_torch.train import FedTrainer
-    cfg = get_arch("lenet-radar", reduced=REDUCED)
+    cfg = lenet_config()
     timing = {}
     for link in (True, False):
         scan = FedTrainer(get_model(cfg), link_config(name, link),
@@ -2937,7 +3006,7 @@ def link_trace_ms(name: str, train, trainer):
     """The transport's and participation's device ms in one round: a traced
     host round of the run beside one of the same run without them."""
     from repro_torch.train import FedTrainer
-    cfg = get_arch("lenet-radar", reduced=REDUCED)
+    cfg = lenet_config()
     plain = FedTrainer(get_model(cfg), link_config(name, link=False),
                        partition_iid(train, K), minibatch=MINIBATCH, seed=0,
                        engine="host", device=DEVICE)
@@ -3004,6 +3073,449 @@ def run_link(train) -> dict:
 
 
 
+# --------------------------------------------------------------------------
+# phase 11: bfloat16 control variates, the scenario matrix, the evaluate
+# CLI and the quickstart
+# --------------------------------------------------------------------------
+
+BF16_KERNELS = ("topk_select_bf16", "delta_pack_bf16", "fused_update_bf16",
+                "cffl_update_bf16")
+# each bf16 form's f32 twin, whose phase-2 time it is logged beside
+F32_TWIN = {"topk_select_bf16": "topk_select", "delta_pack_bf16": "delta_pack",
+            "fused_update_bf16": "fused_update",
+            "cffl_update_bf16": "cffl_update"}
+# f32 operations an element of the bf16 updates: two roundings of the
+# deltas to bf16, two adds, the subtraction, the fma (2) and two roundings
+# of the sums (cdbfl adds the noise's fma, 2)
+BF16_UPDATE_OPS = {"fused_update_bf16": 11, "cffl_update_bf16": 9}
+# phase 11 (b)'s runs: overrides of phase 7's configuration, the kernels
+# each launches, and the f32 twins it must not launch
+BF16_RUNS = {
+    "cdbfl": (dict(), ("topk_select_bf16", "unpack_set", "fused_update_bf16",
+                       "threefry"), ("topk_select", "fused_update")),
+    "fused": (dict(fused_compress=True), ("delta_pack_bf16", "unpack",
+                                          "fused_update_bf16", "threefry"),
+              ("delta_pack", "fused_update")),
+    "cffl": (dict(algorithm="cffl"), ("topk_select_bf16", "unpack_set",
+                                      "cffl_update_bf16", "threefry"),
+             ("topk_select", "cffl_update")),
+}
+BF16_ROUNDS, BF16_GOLDEN = 4, ROOT / "tests" / "golden" / \
+    "bf16_rounds_lenet_radar.json"
+EVAL_CLI_ARGV = ["--quick", "--scenarios", "clean,day23_critical",
+                 "--severities", "1.0", "--device", DEVICE]
+
+
+def bf16_cases(shapes):
+    """Phase 2's leaves with v (and v̄) rounded to bf16, and C6/C9's
+    non-finite values in the bf16 v itself: a NaN, ±inf, a block of NaN,
+    a NaN in the ragged block."""
+    out = [(name, th, v.to(torch.bfloat16)) for name, th, v in
+           leaf_cases(shapes)]
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    th = torch.randn((K, 4097), generator=gen, device=DEVICE)
+    v = torch.randn((K, 4097), generator=gen, device=DEVICE) * 0.1
+    v[0, 5] = v[1, 1024:2048] = float("nan")
+    v[2, 4096] = float("nan")
+    v[3, 100] = float("inf")
+    v[4, 2048:2060] = -float("inf")
+    out.append(("non-finite bf16 v 4097", th, v.to(torch.bfloat16)))
+    return out
+
+
+def check_bf16_kernels(shapes):
+    """Phase 11 (a): the four bf16 forms against their plain versions on
+    the card, bit for bit (a NaN of an update's output equals any NaN, as
+    phase 2's): every full-width and edge leaf, then one table launch each
+    of topk_select and delta-pack over all of them. Returns the largest
+    absolute errors."""
+    errs = dict.fromkeys(BF16_KERNELS, 0.0)
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    cases = [c for c in bf16_cases(shapes) if c[1].shape[1] > 1]
+
+    def same(kname, got, want, label, nan_any=False):
+        ok = (same_or_both_nan(got, want) if nan_any
+              else bitwise_equal(got, want))
+        if not ok:
+            raise AssertionError(f"{kname} differs from its plain version on "
+                                 f"{label}")
+        if got.dtype != torch.uint16 and bool(torch.isfinite(
+                got.float()).all() and torch.isfinite(want.float()).all()):
+            errs[kname] = max(errs[kname], max_abs_err(got, want))
+
+    for name, th, v in cases:
+        n, k = th.shape[1], leaf_k(th.shape[1])
+        (vals, idx), = topk_select([th], [k], [v])
+        want = topk_select_plain(th, k, v=v)
+        same("topk_select_bf16", vals, want[0], name)
+        same("topk_select_bf16", idx, want[1], name)
+        (vals, idx), = delta_pack([th], [v], SURVIVORS)
+        want = delta_pack_plain(th, v, SURVIVORS)
+        same("delta_pack_bf16", vals, want[0], name)
+        same("delta_pack_bf16", idx, want[1], name)
+        vb = (v.float() * 0.5 + 0.01).to(torch.bfloat16)
+        dvb = torch.randn(th.shape, generator=gen, device=DEVICE) * 1e-2
+        dv = torch.randn(th.shape, generator=gen, device=DEVICE) * 1e-2
+        xi = torch.randn(th.shape, generator=gen, device=DEVICE) * 1e-3
+        finite = bool(torch.isfinite(th).all() and torch.isfinite(
+            v.float()).all())
+        for kname, got, want in (
+                ("fused_update_bf16",
+                 fused_update_bf16(th, vb, v, dvb, dv, xi, 0.03, 1.0),
+                 fused_update_bf16_plain(th, vb, v, dvb, dv, xi, 0.03, 1.0)),
+                ("cffl_update_bf16",
+                 cffl_update_bf16(th, vb, v, dvb, dv, 0.03),
+                 cffl_update_bf16_plain(th, vb, v, dvb, dv, 0.03))):
+            for part, g, w in zip(("θ'", "v̄'", "v'"), got, want):
+                same(kname, g, w, f"{name} ({part})", nan_any=not finite)
+        log("bf16", f"{name}: K={K} n={n}: topk_select, delta-pack, "
+                    f"fused_update and cffl_update with bf16 v (and v̄) "
+                    f"bit-exact to their plain versions")
+    ks = [leaf_k(c[1].shape[1]) for c in cases]
+    xs, vs = [c[1] for c in cases], [c[2] for c in cases]
+    before = (topk_select_bf16.launches, delta_pack_bf16.launches)
+    got = topk_select(xs, ks, vs)
+    packed = delta_pack(xs, vs, SURVIVORS)
+    if (topk_select_bf16.launches - before[0],
+            delta_pack_bf16.launches - before[1]) != (1, 1):
+        raise AssertionError("a mixed bf16 topk_select or delta-pack table "
+                             "took other than one launch")
+    for (name, x, v), k, sel, pk in zip(cases, ks, got, packed):
+        want = topk_select_plain(x, k, v=v)
+        same("topk_select_bf16", sel[0], want[0], f"the table's {name}")
+        same("topk_select_bf16", sel[1], want[1], f"the table's {name}")
+        want = delta_pack_plain(x, v, SURVIVORS)
+        same("delta_pack_bf16", pk[0], want[0], f"the table's {name}")
+        same("delta_pack_bf16", pk[1], want[1], f"the table's {name}")
+    log("bf16", f"one table launch each of topk_select and delta-pack with "
+                f"bf16 v over the {len(xs)} leaves above: bit-exact")
+    return errs
+
+
+def time_bf16_kernels(shapes, timing):
+    """Phase 11 (a)'s times: each bf16 form over the 10 full-width leaves
+    (K=10) as the round runs it (topk_select and delta-pack one table
+    launch, the updates one launch a leaf), beside its plain version, its
+    bound and its f32 twin's phase-2 device time; for topk_select the
+    library call of its f32 twin (one stable torch.sort of the blocks'
+    keys)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    ths = [torch.randn((K, int(np.prod(s))), generator=gen, device=DEVICE)
+           for _, s in shapes]
+    vs = [(t * 0.1).to(torch.bfloat16) for t in ths]
+    vbs = [(t * 0.05).to(torch.bfloat16) for t in ths]
+    dvs = [t * 0.01 for t in ths]
+    dvbs = [t * 0.02 for t in ths]
+    xis = [t * 0.001 for t in ths]
+    ns = [t.shape[1] for t in ths]
+    ks = [leaf_k(n) for n in ns]
+    total = sum(K * n for n in ns)
+    sel = topk_select(ths, ks, vs)
+    packed = delta_pack(ths, vs, SURVIVORS)
+    sel_wire = sum(vals.numel() * 6 for vals, _ in sel)
+    pack_wire = sum(vals.numel() * 6 for vals, _ in packed)
+    padded = sum(vals.shape[1] * K * BLOCK for vals, _ in packed)
+    sel_padded = sum(vals.shape[1] * K * BLOCK for vals, _ in sel)
+    keys = torch.cat([magnitude_keys(to_blocks(t - v.float(), BLOCK))
+                      for t, v in zip(ths, vs)])
+    rows = {
+        "topk_select_bf16": (
+            lambda: topk_select(ths, ks, vs),
+            lambda: [topk_select_plain(t, k, v=v)
+                     for t, k, v in zip(ths, ks, vs)],
+            lambda: torch.sort(keys, dim=1, descending=True, stable=True),
+            total * 6 + sel_wire, TOPK_SELECT_OPS * sel_padded),
+        "delta_pack_bf16": (
+            lambda: delta_pack(ths, vs, SURVIVORS),
+            lambda: [delta_pack_plain(t, v, SURVIVORS)
+                     for t, v in zip(ths, vs)],
+            None, total * 6 + pack_wire, DELTA_PACK_OPS * padded),
+        "fused_update_bf16": (
+            lambda: [fused_update_bf16(*a, 0.03, 1.0) for a in
+                     zip(ths, vbs, vs, dvbs, dvs, xis)],
+            lambda: [fused_update_bf16_plain(*a, 0.03, 1.0) for a in
+                     zip(ths, vbs, vs, dvbs, dvs, xis)],
+            None, total * 28, BF16_UPDATE_OPS["fused_update_bf16"] * total),
+        "cffl_update_bf16": (
+            lambda: [cffl_update_bf16(*a, 0.03) for a in
+                     zip(ths, vbs, vs, dvbs, dvs)],
+            lambda: [cffl_update_bf16_plain(*a, 0.03) for a in
+                     zip(ths, vbs, vs, dvbs, dvs)],
+            None, total * 24, BF16_UPDATE_OPS["cffl_update_bf16"] * total),
+    }
+    out = {}
+    for name, (kern, plain, lib, nbytes, ops) in rows.items():
+        b_ms, b_by = bound(nbytes, ops)
+        readings = traced_readings([kern])
+        r = dict(ms=device_ms(kern), plain_ms=device_ms(plain, reps=3,
+                                                         per_rep=2),
+                 device_ms=readings and statistics.median(readings),
+                 plain_device_ms=traced_ms([plain]), bound_ms=b_ms,
+                 bound_by=b_by, nbytes=nbytes, ops=ops,
+                 library_ms=None if lib is None else traced_ms([lib]))
+        out[name] = r
+        twin = timing.get(F32_TWIN[name], {})
+        log("bf16", f"{name} per round (10 leaves, K={K}): device "
+                    f"{fmt_ms(r['device_ms'])} (median of the traces' "
+                    f"{readings and [round(x, 4) for x in readings]}), "
+                    f"event-timed {r['ms']:.4f} ms; its f32 twin "
+                    f"{F32_TWIN[name]} {fmt_ms(twin.get('device_ms'))} "
+                    f"(phase 2); plain: device "
+                    f"{fmt_ms(r['plain_device_ms'])}, event-timed "
+                    f"{r['plain_ms']:.4f} ms; library "
+                    f"{fmt_ms(r['library_ms']) if lib else 'none'}; bound "
+                    f"{b_ms:.4f} ms ({b_by}: {nbytes:.0f} B, {ops:.0f} ops)")
+    return out
+
+
+# phase 11 (b)'s limits against the reference's bf16 run, relative, set
+# from the readings (PERF.md, PR 26) between the card's and those of the
+# same run with float32 control variates (the golden's f32_control). The
+# card reads loss and consensus within 5.9e-7, ‖v‖ and ‖v̄‖ within 3.7e-8
+# (cdbfl, fused) and 5.8e-7 (cffl's ‖v‖); the f32 control moves cffl's
+# consensus by 4.4e-6 and the norms by 7.0e-6 (cdbfl), 2.2e-6 (fused)
+# and 1.45e-5 (cffl) at least. Rounds 1-2's loss of cdbfl and fused moves
+# by at most 5.1e-7 either way: there only the norms tell bf16 from f32.
+BF16_METRIC_RTOL = 2e-6
+BF16_NORM_RTOL = {"cdbfl": 5e-7, "fused": 5e-7, "cffl": 3e-6}
+
+
+def check_bf16_golden(name: str, fed: FedConfig, res, norms) -> None:
+    """Rounds 1-2 against the reference's CPU run of the same bf16
+    configuration: bytes exact; loss, consensus and the control state's
+    ‖v‖₂, ‖v̄‖₂ after round 2 (``norms``) within the limits above. The
+    limits sit between the card's readings (its convolutions sum in
+    another order than XLA's CPU code, which moves the local steps' last
+    bits) and the same run's with float32 control variates, which the
+    check also asserts lie beyond them."""
+    want = json.loads(BF16_GOLDEN.read_text())[name]
+    mine = {k: getattr(fed, k) for k in want["config"]["fed"]}
+    if want["config"]["fed"] != mine or want["config"]["reduced"] != REDUCED:
+        raise AssertionError(f"{BF16_GOLDEN.name} ran {want['config']}, "
+                             f"this run is {mine}")
+    n = len(want["loss"])
+    if res.wire_history[:n] != want["wire_bytes"]:
+        raise AssertionError(f"bf16 {name}: bytes {res.wire_history[:n]} "
+                             f"!= {want['wire_bytes']}")
+    f32 = want["f32_control"]
+    readings, control = {}, {}
+    for metric, got in (("loss", res.loss_history),
+                        ("consensus", res.consensus_history)):
+        readings[metric] = max(abs(g - w) / abs(w)
+                               for g, w in zip(got[:n], want[metric]))
+        control[metric] = max(abs(g - w) / abs(w)
+                              for g, w in zip(f32[metric], want[metric]))
+    for metric in ("v_norm", "v_bar_norm"):
+        readings[metric] = abs(norms[metric] - want[metric]) / want[metric]
+        control[metric] = abs(f32[metric] - want[metric]) / want[metric]
+    limit = {m: BF16_NORM_RTOL[name] if m.endswith("norm")
+             else BF16_METRIC_RTOL for m in readings}
+    log("bf16", f"{name}, seed 0, rounds 1-{n} against the reference's CPU "
+                f"run: loss {res.loss_history[:n]} vs {want['loss']}, "
+                f"consensus {res.consensus_history[:n]} vs "
+                f"{want['consensus']}, ‖v‖ {norms['v_norm']!r} vs "
+                f"{want['v_norm']!r}, ‖v̄‖ {norms['v_bar_norm']!r} vs "
+                f"{want['v_bar_norm']!r}, bytes exact; relative readings "
+                f"{ {m: float(f'{r:.3g}') for m, r in readings.items()} } "
+                f"(limits {limit}); the f32 control's "
+                f"{ {m: float(f'{r:.3g}') for m, r in control.items()} }")
+    over = {m: r for m, r in readings.items() if r > limit[m]}
+    if over:
+        raise AssertionError(f"bf16 {name}: {over} over the limits {limit} "
+                             f"against the reference's bf16 run")
+    if not any(control[m] > limit[m] for m in control):
+        raise AssertionError(f"bf16 {name}: the f32 control's readings "
+                             f"{control} lie within the limits {limit}")
+
+
+def run_bf16(name: str, train, test, evals):
+    """Phase 11 (b): one configuration with control_dtype="bfloat16" at
+    full width, 4 rounds on the host engine and on the scan engine (chunks
+    of 2), the two bit for bit; rounds 1-2 against the reference's; the
+    control state's bytes; a replayed chunk timed beside phase 7's f32
+    run of the same algorithm (``evals``). Returns the host run's trainer
+    and launches."""
+    from repro_torch.train import FedTrainer
+    overrides, launched, twins = BF16_RUNS[name]
+    algorithm = overrides.get("algorithm", "cdbfl")
+    fed = default_config(algorithm, BF16_ROUNDS, control_dtype="bfloat16",
+                         **{k: v for k, v in overrides.items()
+                            if k != "algorithm"})
+    runs = {}
+    for engine in ("host", "scan"):
+        trainer = FedTrainer(get_model(lenet_config()), fed,
+                             partition_iid(train, K), minibatch=MINIBATCH,
+                             seed=0, engine=engine, chunk=2, bank_thin=1,
+                             device=DEVICE)
+        kernels.reset_launch_counts()
+        res = trainer.run(rounds=BF16_ROUNDS, eval_batch=test)
+        launches = kernels.launch_counts()
+        runs[engine] = (trainer, res, launches)
+        values = res.loss_history + res.consensus_history + [res.accuracy,
+                                                              res.ece]
+        if not all(math.isfinite(x) for x in values):
+            raise AssertionError(f"bf16 {name}: non-finite metric {values}")
+        missing = [k for k in launched if launches[k] <= 0]
+        twin = {k: launches[k] for k in twins if launches[k]}
+        if missing or twin:
+            raise AssertionError(f"bf16 {name} ({engine}): never launched "
+                                 f"{missing}; launched the f32 forms {twin}")
+        for part in ("v", "v_bar"):
+            if any(x.dtype != torch.bfloat16
+                   for x in tree_leaves(getattr(trainer.state, part))):
+                raise AssertionError(f"bf16 {name}: {part} is not bf16")
+        log("bf16", f"{name} ({engine} engine): ms/round "
+                    f"{[round(x, 2) for x in res.round_ms]}; losses "
+                    f"{res.loss_history}; consensus {res.consensus_history}; "
+                    f"day-1 accuracy {res.accuracy:.4f} ECE {res.ece:.4f}; "
+                    f"launches { {k: v for k, v in launches.items() if v} }")
+    host, res, launches = runs["host"]
+    scan, sres, _ = runs["scan"]
+    short = FedTrainer(get_model(lenet_config()), fed, partition_iid(train, K),
+                       minibatch=MINIBATCH, seed=0, engine="host",
+                       bank_thin=1, device=DEVICE)
+    short_res = short.run(rounds=2)
+    if (short_res.loss_history != res.loss_history[:2]
+            or short_res.consensus_history != res.consensus_history[:2]):
+        raise AssertionError(f"bf16 {name}: a 2-round run differs from the "
+                             f"4-round run's first two rounds")
+    check_bf16_golden(name, fed, short_res, control_norms(short.state))
+    del short
+    if (sres.loss_history != res.loss_history
+            or sres.consensus_history != res.consensus_history
+            or sres.wire_history != res.wire_history):
+        raise AssertionError(f"bf16 {name}: the scan run's metrics differ "
+                             f"from the host run's")
+    for part in ("params", "v", "v_bar"):
+        same_tensors(f"bf16 {name} {part}",
+                     tree_leaves(getattr(scan.state, part)),
+                     tree_leaves(getattr(host.state, part)))
+    same_tensors(f"bf16 {name} key", [scan.key], [host.key])
+    control = sum(x.numel() * x.element_size() for part in ("v", "v_bar")
+                  for x in tree_leaves(getattr(host.state, part)))
+    f32 = sum(x.numel() * 4 for part in ("v", "v_bar")
+              for x in tree_leaves(getattr(host.state, part)))
+    wall, busy, _, _ = time_replay(scan._engine, BF16_ROUNDS, 2)
+    f32_wall, f32_busy = evals[algorithm]["replay_ms"]
+    log("bf16", f"{name}: scan engine equal to the host engine bit for bit "
+                f"(params, v, v̄, key, losses, consensus, bytes); control "
+                f"state v + v̄ {control:,} B against {f32:,} B in f32; a "
+                f"replayed chunk of 2: {wall:.3f} ms a round, {busy:.3f} ms "
+                f"on the device; phase 7's f32 {algorithm} run "
+                f"{f32_wall:.3f} ms, {f32_busy:.3f} ms on the device")
+    del runs, scan
+    torch.cuda.empty_cache()
+    return host, launches
+
+
+def run_claims() -> None:
+    """Phase 11 (c): the reference's claims gate on the card at each seed
+    the reference recorded (``CLAIMS_SPEC``'s 0, and 1): the shifted cell
+    re-scored bit for bit and every ECE finite (asserted); each cell, the
+    claims, failures and warnings beside the reference's CPU run, and the
+    first round where each algorithm's loss leaves the reference's."""
+    import repro_torch.eval.matrix as matrix
+    from repro_torch.train import FedTrainer
+    for seed in CLAIMS_SEEDS:
+        out = claims_record(matrix, FedTrainer, seed, device=DEVICE)
+        bad = [f for f in out["failures"]
+               if "not reproducible" in f or "not finite" in f]
+        if bad:
+            raise AssertionError(f"claims, seed {seed}: {bad}")
+        want = claims_golden(seed)
+        for g, w in zip(out["cells"], want["cells"]):
+            log("claims", f"seed {seed} [{g['algorithm']}] {g['scenario']}@"
+                          f"{g['severity']:g}: acc {g['accuracy']:.4f} ECE "
+                          f"{g['ece']:.4f} (reference {w['accuracy']:.4f}, "
+                          f"{w['ece']:.4f})")
+        for key, value in out["claims"].items():
+            ref = want["claims"][key]
+            log("claims", f"seed {seed} {key}: {value if isinstance(value, str) else round(float(value), 4)}"
+                          f" (reference {ref if isinstance(ref, str) else round(ref, 4)})")
+        for alg, hist in out["loss_history"].items():
+            log("claims", f"seed {seed} {alg} loss leaves the reference's: "
+                          f"{claims_departure(hist, want['loss_history'][alg])}")
+        log("claims", f"seed {seed}: failures {out['failures']} (reference "
+                      f"{want['failures']}); warnings {len(out['warnings'])} "
+                      f"(reference {len(want['warnings'])}); the shifted ECE "
+                      f"re-scored bit for bit; {out['seconds']:.1f} s")
+
+
+def run_eval_cli(trainer) -> None:
+    """Phase 11 (d): the evaluate CLI in-process on the card, then on a
+    full-width checkpoint of ``trainer`` (the bf16 cdbfl run), which it
+    must score at full width."""
+    from repro_torch.eval.matrix import _looks_reduced
+    from repro_torch.launch import evaluate as eval_cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cells = eval_cli.main(EVAL_CLI_ARGV)
+    if len(cells) != 4 or not all(math.isfinite(c.report.ece)
+                                  for c in cells):
+        raise AssertionError(f"evaluate CLI: {len(cells)} cells")
+    for line in buf.getvalue().splitlines():
+        if line.startswith("|"):
+            log("eval", line)
+    with tempfile.TemporaryDirectory() as d:
+        save_checkpoint(d, BF16_ROUNDS, trainer.state.params)
+        if _looks_reduced(trainer.state.params, "lenet-radar"):
+            raise AssertionError("_looks_reduced took the full-width "
+                                 "checkpoint for the reduced config")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cells = eval_cli.main(["--ckpt", d, "--scenarios",
+                                   "clean,day23_critical", "--severities",
+                                   "1.0", "--device", DEVICE])
+    if len(cells) != 2 or not all(c.report.count == 200 and
+                                  math.isfinite(c.report.ece)
+                                  for c in cells):
+        raise AssertionError(f"evaluate CLI --ckpt: {cells}")
+    for line in buf.getvalue().splitlines():
+        if line.startswith("|"):
+            log("eval", f"--ckpt (full width {lenet_config().input_hw}): "
+                        f"{line}")
+
+
+def run_quickstart() -> dict:
+    """Phase 11 (e): examples/quickstart.py's program on the port, on the
+    card (tests/torch_quickstart.py): relative error below 0.1 and the
+    reference's wire bytes. Returns its launch counts."""
+    import torch_quickstart
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = torch_quickstart.run(DEVICE, log=lambda m: log("quickstart", m))
+    secs = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    if not out["err"] < 0.1 or out["wire"] != 336:
+        raise AssertionError(f"quickstart: rel-err {out['err']}, bytes "
+                             f"{out['wire']} (want < 0.1 and 336)")
+    log("quickstart", f"400 rounds in {secs:.1f} s: rel-err {out['err']:.4f}"
+                      f", bytes/round {out['wire']} (the reference's 336); "
+                      f"launches { {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def run_phase11(shapes, timing, train, test, evals):
+    """Phase 11 (``evals``: phase 7's, for its f32 replay times). Returns
+    the bf16 forms' errors, timings and launches."""
+    log("bf16", f"on {card_line()}")
+    errs = check_bf16_kernels(shapes)
+    bf16_timing = time_bf16_kernels(shapes, timing)
+    launches, trainers = {}, {}
+    for name in BF16_RUNS:
+        trainers[name], launches[name] = run_bf16(name, train, test, evals)
+    run_claims()
+    run_eval_cli(trainers["cdbfl"])
+    del trainers
+    torch.cuda.empty_cache()
+    run_quickstart()
+    counts = dict(topk_select_bf16=launches["cdbfl"]["topk_select_bf16"],
+                  fused_update_bf16=launches["cdbfl"]["fused_update_bf16"],
+                  delta_pack_bf16=launches["fused"]["delta_pack_bf16"],
+                  cffl_update_bf16=launches["cffl"]["cffl_update_bf16"])
+    return errs, bf16_timing, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3024,7 +3536,7 @@ def main() -> int:
         log("build", line)
     print(card_line(), flush=True)
 
-    cfg = get_arch("lenet-radar", reduced=REDUCED)
+    cfg = lenet_config()
     params = get_model(cfg).init(random.PRNGKey(0, "meta"), "meta")
     shapes = [(p, tuple(x.shape)) for p, x in tree_leaves_with_path(params)]
     log("kernels", f"{cfg.name}: {tree_count(params):,} parameters in "
@@ -3077,6 +3589,10 @@ def main() -> int:
     run_serve(train, test, shift)
     train_launches = run_train(train)
     link_launches = run_link(train)
+    bf16_errs, bf16_timing, bf16_launches = run_phase11(shapes, timing,
+                                                        train, test, evals)
+    errs.update(bf16_errs)
+    timing.update(bf16_timing)
     log("default", "accuracy / ECE, day-1 test maps and days-2/3 shift set: "
                    + "; ".join(f"{a}: {e['accuracy']:.4f} / {e['ece']:.4f}, "
                                f"{e['shift_accuracy']:.4f} / "
@@ -3093,7 +3609,8 @@ def main() -> int:
                     cffl_update=default_launches["cffl"]["cffl_update"],
                     dsgld_update=default_launches["dsgld"]["dsgld_update"],
                     gossip_mix=train_launches["gossip_mix"],
-                    gilbert_keep=link_launches["gilbert_keep"])
+                    gilbert_keep=link_launches["gilbert_keep"],
+                    **bf16_launches)
     record = {"kernels": [
         {"name": kname, "route": "cuda", "source": KERNELS[kname][0],
          "replaces": KERNELS[kname][1], "launches": launches[kname],

@@ -10,8 +10,8 @@ so a config can never silently select a path that is missing here.
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -148,7 +148,8 @@ _SUPPORTED = {
     # powers of two: XLA folds the reference's `/ s / (1 + ω)` differently
     # in its qsgd kernel and in its decode for any other s (ROADMAP C5)
     "qsgd_levels": ((1, 2, 4, 8, 16, 32, 64), "C5 (QSGD levels)"),
-    "control_dtype": (("float32",), "A3 (bfloat16 control variates)"),
+    "control_dtype": (("float32", "bfloat16"),
+                      "A3 (float16 control variates)"),
     "topology": (("full", "ring", "chain", "star", "grid", "torus",
                   "k_regular", "erdos_renyi", "geometric"),
                  "A4 (graph families)"),
@@ -230,19 +231,68 @@ class ServeConfig:
         return dataclasses.replace(self, **kw)
 
 
-# the paper's radar ROI classifier (reference: configs/lenet_radar.py)
-LENET_RADAR = ModelConfig(name="lenet-radar", family="lenet",
-                          input_hw=(256, 63), num_classes=10)
-LENET_RADAR_REDUCED = LENET_RADAR.replace(name="lenet-radar-reduced",
-                                          input_hw=(32, 16))
+@dataclass(frozen=True)
+class ArchSpec:
+    """A registry entry (``repro/config.py:372-381``): the full and the
+    reduced (``--trim``) configs of one arch id, the citation, and the
+    input shapes the arch skips with the reason."""
+    arch_id: str
+    config: ModelConfig
+    reduced: ModelConfig
+    source: str
+    notes: str = ""
+    skips: Dict[str, str] = field(default_factory=dict)
 
-_ARCHS = {"lenet-radar": (LENET_RADAR, LENET_RADAR_REDUCED)}
+
+_ARCHS: Dict[str, ArchSpec] = {}
+# the reference's registry (``repro/configs``): the ids the port does not
+# run yet, which come with the LM model zoo
+_UNPORTED_ARCHS = ("deepseek-v2-236b", "grok-1-314b", "llava-next-mistral-7b",
+                   "mistral-large-123b", "qwen2.5-14b", "recurrentgemma-9b",
+                   "smollm-135m", "whisper-tiny", "xlstm-1.3b", "yi-9b")
 
 
-def get_arch(arch_id: str, reduced: bool = False) -> ModelConfig:
-    if arch_id not in _ARCHS:
+def register_arch(spec: ArchSpec) -> ArchSpec:
+    _ARCHS[spec.arch_id] = spec
+    return spec
+
+
+def get_arch(arch_id: str) -> ArchSpec:
+    """The registry entry of ``arch_id``: ``KeyError`` for an id the
+    reference does not know, ``NotImplementedError`` for one it knows and
+    the port does not run yet."""
+    if arch_id in _ARCHS:
+        return _ARCHS[arch_id]
+    if arch_id in _UNPORTED_ARCHS:
         raise NotImplementedError(
             f"arch {arch_id!r} is not ported yet (ported: {sorted(_ARCHS)}); "
             f"ROADMAP A12 (LM model zoo)")
-    full, small = _ARCHS[arch_id]
-    return small if reduced else full
+    raise KeyError(f"unknown arch {arch_id!r}; known: "
+                   f"{sorted(set(_ARCHS) | set(_UNPORTED_ARCHS))}")
+
+
+def list_archs():
+    """The ids the port runs."""
+    return sorted(_ARCHS)
+
+
+# the paper's radar ROI classifier (reference: configs/lenet_radar.py)
+LENET_RADAR = ModelConfig(name="lenet-radar", family="lenet",
+                          input_hw=(256, 63), num_classes=10,
+                          dtype="float32")
+LENET_RADAR_REDUCED = LENET_RADAR.replace(name="lenet-radar-reduced",
+                                          input_hw=(32, 16))
+
+register_arch(ArchSpec(
+    arch_id="lenet-radar",
+    config=LENET_RADAR,
+    reduced=LENET_RADAR_REDUCED,
+    source="Barbieri et al. 2024 §IV; LeCun et al. 1998 [32]",
+    notes="Paper's radar ROI classifier; the CD-BFL case-study model.",
+    skips={
+        "train_4k": "classifier, not an LM — trained via the radar pipeline",
+        "prefill_32k": "no sequence dimension",
+        "decode_32k": "no decode step",
+        "long_500k": "no decode step",
+    },
+))

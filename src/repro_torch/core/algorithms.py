@@ -22,8 +22,26 @@ the reference's default, ``make_mixer(Ω, config=resolve_topology(fed_cfg))``
 ``kmix = fold_in(key, 2)``, as ``split(key, 3)[2]`` in the same launch, and
 draws the mixer's ``(M, K)`` masks from it beside the other draws
 (``round_fn.draws`` then returns ``(draws, masks)``); a static graph draws
-nothing more. The reference's per-node ``state.key`` stream feeds only
-models with dropout, which the port does not run, so it is not derived.
+nothing more.
+
+The loss is either a node-batched ``nll_fn(params, batch) -> (K,)`` over a
+dict of ``(K, L, M, ...)`` batches (the model's, LeNet's fast path: one
+grouped forward and one backward a step for all K nodes), or the
+reference's per-node ``loss_fn(params, batch, key) -> (nll, aux)`` over
+any tree of ``(K, L, ...)`` batches (a dict, a tuple, a tensor), told
+apart by their positional arity as ``as_keyed_mixer`` tells mixers apart.
+A per-node loss runs K calls a step, one backward of their sum, and
+receives the reference's per-node key stream (``algorithms.py:102-116``,
+``:381-383``): node k's key ``fold_in(state.key[k], state.round)``, split
+once a step, the second half handed to the loss. The node-batched path
+reads no key, so its rounds derive none.
+
+With ``control_dtype="bfloat16"`` the stored v and v̄ are bf16; the
+codec's kernels read them as they are, and Eqs. 7–9 run as one launch a
+leaf (``fused_update_bf16``, ``cffl_update_bf16``) that takes the round's
+f32 deltas: Eq. 9 reads the f32 sums and the new v, v̄ are those sums
+rounded to bf16, as the reference's jitted round executes them on the CPU
+(ROADMAP C23).
 
 DSGLD draws ``knoise, kmix = split(key)`` and its noise from ``knoise``,
 its masks from ``kmix``; CF-FL keys its codec by ``kq, _ = split(key)``,
@@ -45,6 +63,7 @@ over the nodes as the reference reduces them.
 """
 from __future__ import annotations
 
+import inspect
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -58,6 +77,7 @@ from repro_torch.core.topology import resolve_topology
 from repro_torch.core.transport import (TransportMetrics, resolve_transport,
                                         sum_nodes)
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.fused_update import cffl_update_bf16, fused_update_bf16
 from repro_torch.utils.tree import (tree_count, tree_leaves,
                                     tree_leaves_with_path, tree_map,
                                     tree_unflatten)
@@ -85,34 +105,115 @@ class RoundMetrics(NamedTuple):
                                    # without a participation model
 
 
+def per_node_loss(fn) -> bool:
+    """True for the reference's ``loss_fn(params, batch, key)`` (three or
+    more positional parameters), False for a node-batched ``nll_fn(params,
+    batch)``."""
+    try:
+        params = inspect.signature(fn).parameters.values()
+    except (TypeError, ValueError):
+        return True
+    if any(p.kind == p.VAR_POSITIONAL for p in params):
+        return True
+    return len([p for p in params if p.kind in (
+        p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]) >= 3
+
+
+def _map_batch(fn, tree):
+    """``fn`` over every tensor of a batch tree (dicts, tuples, lists)."""
+    if isinstance(tree, dict):
+        return {k: _map_batch(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_batch(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _objective(nll, leaves, prior_weight: float, data_scale: float):
+    prior = sum(x.float().square().flatten(1).sum(1) for x in leaves)
+    return data_scale * nll + 0.5 * prior_weight * prior
+
+
 def _value_and_grad(nll_fn, paths, leaves, batch, prior_weight: float,
-                    data_scale: float):
+                    data_scale: float, keys=None):
     """``(f (K,), grads)`` of ``data_scale·NLL + ½·prior_weight·Σθ²`` on
     every node. Node k's objective depends on node k's params only, so one
-    backward of the sum gives every node's gradient."""
+    backward of the sum gives every node's gradient. With ``keys`` (K, 2),
+    ``nll_fn`` is a per-node ``loss_fn(params, batch, key)``, called once a
+    node on its slices."""
     leaves = [x.detach().requires_grad_(True) for x in leaves]
     with torch.enable_grad():
-        nll = nll_fn(tree_unflatten(paths, leaves), batch)            # (K,)
-        prior = sum(x.float().square().flatten(1).sum(1) for x in leaves)
-        f = data_scale * nll + 0.5 * prior_weight * prior
+        if keys is None:
+            nll = nll_fn(tree_unflatten(paths, leaves), batch)        # (K,)
+        else:
+            nll = torch.stack([torch.as_tensor(nll_fn(
+                tree_unflatten(paths, [x[k] for x in leaves]),
+                _map_batch(lambda b: b[k], batch), keys[k])[0],
+                dtype=torch.float32) for k in range(keys.shape[0])])
+        f = _objective(nll, leaves, prior_weight, data_scale)
         grads = torch.autograd.grad(f.sum(), leaves)
     return f.detach(), grads
 
 
+def node_keys(state) -> torch.Tensor:
+    """The round's per-node keys ``fold_in(state.key[k], state.round)``
+    (``algorithms.py:381-383``). The engines' round index is a device int32
+    that the draw reads on the device: nothing syncs, and a captured round
+    folds each replay's own index."""
+    return random.fold_in(state.key, state.round)
+
+
 def _local_sgd(nll_fn, params, batches, eta: float, prior_weight: float,
-               data_scale: float, num_steps: int):
+               data_scale: float, num_steps: int, keys=None):
     """L plain SGD steps on every node (paper Eq. 5) on
-    ``data_scale·NLL + ½·prior_weight·Σθ²``."""
+    ``data_scale·NLL + ½·prior_weight·Σθ²``; with ``keys`` (a per-node
+    loss), ``keys, ksub = split(keys)`` each step and the loss gets
+    ``ksub`` (``algorithms.py:102-116``)."""
     paths = [p for p, _ in tree_leaves_with_path(params)]
     leaves = tree_leaves(params)
     losses = []
     for step in range(num_steps):
-        batch = {f: v[:, step] for f, v in batches.items()}
+        batch = _map_batch(lambda b: b[:, step], batches)
+        ksub = None
+        if keys is not None:
+            pair = random.split(keys)
+            keys, ksub = pair[:, 0], pair[:, 1]
         f, grads = _value_and_grad(nll_fn, paths, leaves, batch,
-                                   prior_weight, data_scale)
+                                   prior_weight, data_scale, ksub)
         losses.append(f)
         leaves = [x.detach() - eta * g.to(x.dtype) for x, g in zip(leaves, grads)]
     return tree_unflatten(paths, leaves), torch.stack(losses, dim=1)
+
+
+def _control_update(theta_l, state, delta_v, mixed, zeta: float, noise=None):
+    """Eqs. 7–9: ``(params, v, v̄)`` after the round. f32 control variates
+    take the adds in torch and Eq. 9's kernel (fused_update, or
+    cffl_update without ``noise``); bf16 ones the one launch a leaf of
+    ``fused_update_bf16`` / ``cffl_update_bf16`` (ROADMAP C23)."""
+    if tree_leaves(state.v)[0].dtype == torch.bfloat16:
+        if noise is None:
+            outs = tree_map(lambda t_, vb, v, m, d: cffl_update_bf16(
+                t_, vb, v, m, d, zeta), theta_l, state.v_bar, state.v, mixed,
+                delta_v)
+        else:
+            outs = tree_map(lambda t_, vb, v, m, d, n: fused_update_bf16(
+                                t_, vb, v, m, d, n, zeta, 1.0),
+                            theta_l, state.v_bar, state.v, mixed, delta_v,
+                            noise)
+        return tuple(tree_map(lambda o: o[i], outs) for i in (0, 2, 1))
+    v_new = tree_map(lambda v, d: v + d.to(v.dtype), state.v, delta_v)
+    v_bar_new = tree_map(lambda vb, m: vb + m.to(vb.dtype), state.v_bar,
+                         mixed)
+    if noise is None:
+        params_new = tree_map(
+            lambda t_, vb, v: kops.leaf_cffl_update(t_, vb, v, zeta),
+            theta_l, v_bar_new, v_new)
+    else:
+        # Eq. 9, noise pre-scaled: s = 1
+        params_new = tree_map(
+            lambda t_, vb, v, n: kops.leaf_fused_update(t_, vb, v, n, zeta,
+                                                        1.0),
+            theta_l, v_bar_new, v_new, noise)
+    return params_new, v_new, v_bar_new
 
 
 def langevin_scale(eta: float, temperature: float) -> float:
@@ -240,11 +341,40 @@ def _default_mixer(omega, fed_cfg, device, transport=None):
     """The reference's default mixer (``algorithms.py:52-65``): the
     lowering ``plan_mixer`` picks for Ω under the run's TopologyConfig,
     with the transport's SNR outage as ``link_probs`` when it models
-    one."""
+    one. ``device=None``: a :class:`_DeviceMixer`."""
     link_probs = (transport.outage_probs if transport is not None
                   and transport.has_link_outage else None)
-    return make_mixer(omega, device, config=resolve_topology(fed_cfg),
-                      link_probs=link_probs)
+
+    def build(dev):
+        return make_mixer(omega, dev, config=resolve_topology(fed_cfg),
+                          link_probs=link_probs)
+    return _DeviceMixer(build) if device is None else build(device)
+
+
+class _DeviceMixer:
+    """A mixer whose constants are made for the device of what it is given
+    (the tree it mixes, the key its masks come from), once a device: a
+    round built without ``device=`` follows its caller's tensors."""
+
+    def __init__(self, build):
+        self._build, self._built = build, {}
+        plan = build("meta")
+        self.mode, self.schedule = plan.mode, plan.schedule
+        self.masks = None if plan.masks is None else self._masks
+
+    def on(self, device):
+        key = str(device)
+        if key not in self._built:
+            self._built[key] = self._build(device)
+        return self._built[key]
+
+    def __call__(self, tree, key=None, node_mask=None, *, masks=None):
+        return self.on(tree_leaves(tree)[0].device)(
+            tree, key, node_mask, masks=masks)
+
+    @random.program
+    def _masks(self, key: torch.Tensor):
+        return (yield from self.on(key.device).masks.program(key))
 
 
 class _Draws(NamedTuple):
@@ -339,13 +469,16 @@ class _Links:
 
 
 def make_cdbfl_round(nll_fn, fed_cfg, omega, compressor, data_scale: float = 1.0,
-                     device="cuda", transport=None):
+                     device=None, transport=None):
     """One round = L local SGD steps per node (Eq. 5), compressed residual
     exchange (Eq. 6) through the transport when one is configured, the
     CHOCO control variates (Eqs. 7-8), and the consensus correction with
     Langevin noise (Eq. 9, the fused_update kernel); under a participation
     model a node that sits the round out keeps its state
-    (``algorithms.py:335-453``)."""
+    (``algorithms.py:335-453``). ``nll_fn`` is node-batched or the
+    reference's per-node ``loss_fn(params, batch, key)`` (see the module
+    docstring). ``device``: where the mixer's constants are made; None
+    makes them for the device of the tensors the round is given."""
     eta, zeta = fed_cfg.eta, fed_cfg.zeta
     num_nodes = fed_cfg.num_nodes
     transport = resolve_transport(fed_cfg, transport)
@@ -353,6 +486,7 @@ def make_cdbfl_round(nll_fn, fed_cfg, omega, compressor, data_scale: float = 1.0
     mix = _default_mixer(omega, fed_cfg, device, transport)
     links = _Links(fed_cfg, compressor, transport)
     prior_weight = 1.0 / num_nodes
+    keyed = per_node_loss(nll_fn)
 
     @random.program
     def draws(key: torch.Tensor, params):
@@ -378,19 +512,15 @@ def make_cdbfl_round(nll_fn, fed_cfg, omega, compressor, data_scale: float = 1.0
         # Eq. 5
         theta_l, losses = _local_sgd(nll_fn, state.params, batches, eta,
                                      prior_weight, data_scale,
-                                     fed_cfg.local_steps)
+                                     fed_cfg.local_steps,
+                                     node_keys(state) if keyed else None)
         # Eq. 6: encode -> wire payload -> (frames) -> decode
         delta_v, delta, wire, payload, tx = _compress_exchange(
             compressor, theta_l, state.v, uniforms, transport, keeps)
-        # Eqs. 7-8, control sequences stored in control_dtype
-        v_new = tree_map(lambda v, d: v + d.to(v.dtype), state.v, delta_v)
-        v_bar_new = tree_map(lambda vb, m: vb + m.to(vb.dtype), state.v_bar,
-                             mix(delta, masks=masks, node_mask=p))
-        # Eq. 9, noise pre-scaled: s = 1
-        params_new = tree_map(
-            lambda t_, vb, v, n: kops.leaf_fused_update(t_, vb, v, n, zeta,
-                                                        1.0),
-            theta_l, v_bar_new, v_new, noise)
+        # Eqs. 7-9, control sequences stored in control_dtype
+        params_new, v_new, v_bar_new = _control_update(
+            theta_l, state, delta_v, mix(delta, masks=masks, node_mask=p),
+            zeta, noise)
         if p is not None:
             v_new = _participation_freeze(p, v_new, state.v)
             v_bar_new = _participation_freeze(p, v_bar_new, state.v_bar)
@@ -411,7 +541,7 @@ def make_cdbfl_round(nll_fn, fed_cfg, omega, compressor, data_scale: float = 1.0
 
 
 def make_dsgld_round(nll_fn, fed_cfg, omega, data_scale: float = 1.0,
-                     device="cuda", transport=None):
+                     device=None, transport=None):
     """One DSGLD iteration (paper Eq. 4): ``θ' = Σ_j ω_kj θ_j − η∇f_k +
     √(2ηT)ξ`` on the first of the round's L minibatches, the dense θ
     exchanged uncompressed (the dsgld_update kernel). A transport adds its
@@ -423,6 +553,7 @@ def make_dsgld_round(nll_fn, fed_cfg, omega, data_scale: float = 1.0,
     mix = _default_mixer(omega, fed_cfg, device, transport)
     links = _Links(fed_cfg, None, transport)
     prior_weight = 1.0 / num_nodes
+    keyed = per_node_loss(nll_fn)
 
     @random.program
     def draws(key: torch.Tensor, params):
@@ -441,10 +572,11 @@ def make_dsgld_round(nll_fn, fed_cfg, omega, data_scale: float = 1.0,
         _, straggle = links.unpack(drawn)
         p = links.mask(straggle, state.round, key.device)
         paths = [p_ for p_, _ in tree_leaves_with_path(state.params)]
-        batch0 = {f: v[:, 0] for f, v in batches.items()}
+        batch0 = _map_batch(lambda b: b[:, 0], batches)
         losses, grads = _value_and_grad(nll_fn, paths,
                                         tree_leaves(state.params), batch0,
-                                        prior_weight, data_scale)
+                                        prior_weight, data_scale,
+                                        node_keys(state) if keyed else None)
         mixed = mix(state.params, masks=masks, node_mask=p)
         params_new = tree_map(
             lambda m, g, n: kops.leaf_dsgld_update(m, g, n, eta), mixed,
@@ -474,7 +606,7 @@ def make_dsgld_round(nll_fn, fed_cfg, omega, data_scale: float = 1.0,
 
 
 def make_cffl_round(nll_fn, fed_cfg, omega, compressor,
-                    data_scale: float = 1.0, device="cuda", transport=None):
+                    data_scale: float = 1.0, device=None, transport=None):
     """CF-FL (CHOCO-SGD, the compressed frequentist baseline): CD-BFL's
     round without the Langevin noise and the prior (the cffl_update
     kernel), through the transport and the participation model as
@@ -485,6 +617,7 @@ def make_cffl_round(nll_fn, fed_cfg, omega, compressor,
     _check_transport(transport, compressor)
     mix = _default_mixer(omega, fed_cfg, device, transport)
     links = _Links(fed_cfg, compressor, transport)
+    keyed = per_node_loss(nll_fn)
 
     @random.program
     def draws(key: torch.Tensor, params):
@@ -502,15 +635,13 @@ def make_cffl_round(nll_fn, fed_cfg, omega, compressor,
         keeps, straggle = links.unpack(drawn)
         p = links.mask(straggle, state.round, key.device)
         theta_l, losses = _local_sgd(nll_fn, state.params, batches, eta, 0.0,
-                                     data_scale, fed_cfg.local_steps)
+                                     data_scale, fed_cfg.local_steps,
+                                     node_keys(state) if keyed else None)
         delta_v, delta, wire, payload, tx = _compress_exchange(
             compressor, theta_l, state.v, uniforms, transport, keeps)
-        v_new = tree_map(lambda v, d: v + d.to(v.dtype), state.v, delta_v)
-        v_bar_new = tree_map(lambda vb, m: vb + m.to(vb.dtype), state.v_bar,
-                             mix(delta, masks=masks, node_mask=p))
-        params_new = tree_map(
-            lambda t_, vb, v: kops.leaf_cffl_update(t_, vb, v, zeta),
-            theta_l, v_bar_new, v_new)
+        params_new, v_new, v_bar_new = _control_update(
+            theta_l, state, delta_v, mix(delta, masks=masks, node_mask=p),
+            zeta)
         if p is not None:
             v_new = _participation_freeze(p, v_new, state.v)
             v_bar_new = _participation_freeze(p, v_bar_new, state.v_bar)
@@ -557,7 +688,7 @@ def make_sgld_step(nll_fn, eta: float, temperature: float = 1.0,
 
 
 def make_round_fn(algorithm: str, nll_fn, fed_cfg, omega, compressor=None,
-                  data_scale: float = 1.0, device="cuda", transport=None):
+                  data_scale: float = 1.0, device=None, transport=None):
     """The round function of ``algorithm`` (``algorithms.py:678-694``);
     ``transport`` overrides the one ``fed_cfg.transport`` builds."""
     if algorithm == "cdbfl":

@@ -1,15 +1,17 @@
-"""Calibration metrics: ECE (paper Eq. 10), reliability bins, NLL, Brier
+"""Calibration metrics: ECE (paper Eq. 10), MCE, reliability bins and
+their ASCII diagram, NLL, Brier and the mean predictive entropy
 (``repro/core/calibration.py``). Probabilities ``(N, C)``, labels ``(N,)``.
 
 Bins are summed in a fixed order (:func:`bin_sums`), so every statistic is
-deterministic on the card as on the CPU."""
+deterministic on the card as on the CPU. The per-example entropy is
+``core.posterior.predictive_entropy``; this module's is its batch mean, as
+the reference's (``calibration.py:67-69``)."""
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
-
-from repro_torch.core.posterior import predictive_entropy  # noqa: F401
 
 
 class ReliabilityBins(NamedTuple):
@@ -54,6 +56,13 @@ def ece(probs, labels, num_bins: int = 10) -> torch.Tensor:
     return (w * (bins.bin_accuracy - bins.bin_confidence).abs()).sum()
 
 
+def mce(probs, labels, num_bins: int = 10) -> torch.Tensor:
+    """Maximum Calibration Error: the worst gap over the occupied bins."""
+    bins = reliability_bins(probs, labels, num_bins)
+    gaps = (bins.bin_accuracy - bins.bin_confidence).abs()
+    return torch.where(bins.bin_counts > 0, gaps, 0.0).max()
+
+
 def accuracy(probs, labels) -> torch.Tensor:
     return (probs.argmax(dim=-1) == labels).float().mean()
 
@@ -66,3 +75,25 @@ def nll(probs, labels) -> torch.Tensor:
 def brier(probs, labels) -> torch.Tensor:
     onehot = torch.nn.functional.one_hot(labels.long(), probs.shape[-1]).float()
     return ((probs - onehot) ** 2).sum(dim=-1).mean()
+
+
+def predictive_entropy(probs) -> torch.Tensor:
+    """Mean predictive entropy over the batch, in nats."""
+    p = torch.as_tensor(probs, dtype=torch.float32)
+    return -(p * torch.log(torch.clamp(p, min=1e-12))).sum(dim=-1).mean()
+
+
+def render_reliability(bins: ReliabilityBins, title: str = "") -> str:
+    """ASCII reliability diagram (paper Fig. 4): one line an occupied bin,
+    character for character the reference's."""
+    conf = np.asarray(torch.as_tensor(bins.bin_confidence).cpu())
+    acc = np.asarray(torch.as_tensor(bins.bin_accuracy).cpu())
+    cnt = np.asarray(torch.as_tensor(bins.bin_counts).cpu())
+    lines = [f"reliability: {title}", "bin    conf    acc     gap     n"]
+    for i in range(len(cnt)):
+        if cnt[i] == 0:
+            continue
+        lines.append(
+            f"{i:3d}  {conf[i]:6.3f}  {acc[i]:6.3f}  {acc[i]-conf[i]:+6.3f}  "
+            f"{int(cnt[i]):5d}")
+    return "\n".join(lines)

@@ -7,8 +7,8 @@ Counterpart of ``repro/core/compression.py``: the six codec stages
 :class:`WirePayload`, the compress-in-update lowering :class:`FusedCodec`,
 and the legacy dense :class:`Compressor` under every name the reference
 gives it, and ``FedConfig.layer_pipelines`` (:class:`PerLayerPipeline`,
-routing each leaf by its path). The ``encode_hbm_bytes`` ledger is ROADMAP
-A6.
+routing each leaf by its path), and the static ``encode_hbm_bytes``
+ledger of the reference's lowering.
 
 :class:`BlockTopKCodec` has the reference's two survivor orders. The
 default, ``use_pallas=False``, is ``lax.top_k``'s (ROADMAP C9): each block's
@@ -886,6 +886,9 @@ class PerLayerPipeline(CompressionPipeline):
     stage-major, as the plain pipeline's do."""
 
     rules: Tuple[Tuple[str, CompressionPipeline], ...] = ()
+    # the rules were lowered under fused_compress (read by the ledger,
+    # encode_hbm_bytes, as the reference's FusedCodec field)
+    fused: bool = False
 
     def leaf_stages(self, path: str) -> Tuple[Any, ...]:
         path_str = keystr(path)
@@ -1090,6 +1093,133 @@ def draw_uniforms(compressor, key: torch.Tensor, tree):
                                                       drawn)}
 
 
+def leaf_stages(payload: WirePayload, i: int) -> Tuple[Any, ...]:
+    """The codec stages that encoded leaf ``i`` of ``payload``
+    (``compression.py:617-620``)."""
+    return payload.leaf_stages(i)
+
+
+# the reference's TPU tile rows (repro/kernels/pack.py: ROWS_PER_TILE),
+# which its lowering pads the packed leaves to
+ROWS_PER_TILE = 8
+
+
+def _pad_rows(nb: int, mult: int = 8) -> int:
+    return -(-nb // mult) * mult
+
+
+def _qsgd_stage_traffic(nb: int, k: int, esize: int, wbytes: int):
+    """(reads, writes) of one carrier-level QSGD stage of the reference's
+    lowering (``compression.py:1017-1030``)."""
+    c = nb * k
+    pr = _pad_rows(nb)
+    r = c * esize                       # norm reduction over the carrier
+    w = c * 4                           # materialized uniforms (f32)
+    r += c * (esize + 4)                # row-pad reads carrier + uniforms
+    w += pr * k * (esize + 4)           # padded tiles
+    r += pr * k * (esize + 4) + 4       # kernel reads tiles + the norm
+    w += pr * k * wbytes                # integer grid out
+    r += c * wbytes                     # [:nb] slice
+    w += c * wbytes + 4                 # sliced grid + the f32 scale
+    return r, w
+
+
+def encode_hbm_bytes(pipeline: CompressionPipeline, theta, v=None) -> dict:
+    """The reference's static per-encode HBM-byte ledger of
+    ``encode_pair(theta, v)`` (``compression.py:1033-1126``) for one
+    node's trees (no K axis), concrete or shape-only (``meta``) tensors.
+
+    It counts the traffic of the *reference's* lowering on its TPU tiles
+    from the leaves' shapes and dtypes alone: every materialized
+    intermediate one write and one read a consumer, its Pallas kernels
+    their inputs and outputs, the fused path's register-tile residual
+    nothing. It is not a measurement of the port's kernels (those are in
+    PERF.md, from chip_smoke.py). Returns reads, writes, their total, and
+    the ``2p reads + wire writes`` lower bound: one read of θ and v, the
+    payload's measured bytes written."""
+    fused = bool(getattr(pipeline, "fused", False))
+    tleaves = tree_leaves_with_path(theta)
+    vleaves = ([x for _, x in tree_leaves_with_path(v)] if v is not None
+               else [x for _, x in tleaves])
+    reads = writes = lb_reads = lb_writes = 0
+    for (path, x), vx in zip(tleaves, vleaves):
+        n = int(np.prod(tuple(x.shape)))
+        esize, vsize = x.dtype.itemsize, vx.dtype.itemsize
+        stages = pipeline.leaf_stages(path)
+        s0 = stages[0] if stages else None
+        lb_reads += n * (esize + vsize)
+        if pipeline.min_dense_size and n <= pipeline.min_dense_size:
+            # passthrough: delta materializes at wire size either way (the
+            # reference's bound counts its write here and again in the
+            # measured payload below)
+            reads += n * (esize + vsize)
+            writes += n * esize
+            lb_writes += n * esize
+            continue
+        eligible = isinstance(s0, BlockTopKCodec) and s0.use_pallas
+        bs = s0.block_size if eligible else 0
+        k = max(1, int(np.ceil(s0.ratio * bs))) if eligible else 0
+        nb = max(1, -(-n // bs)) if eligible else 0
+        if eligible and fused:
+            tile = ROWS_PER_TILE * bs
+            n_head = (n // tile) * tile
+            # aligned prefix: the kernel's read of theta and v is the only
+            # O(p) traffic
+            reads += n_head * (esize + vsize)
+            writes += (n_head // bs) * k * (esize + 4)
+            if n_head < n or n_head == 0:
+                tail = n - n_head
+                reads += tail * (esize + vsize)      # build padded tiles
+                writes += tile * (esize + vsize)
+                reads += tile * (esize + vsize)      # kernel reads them
+                writes += ROWS_PER_TILE * k * (esize + 4)
+            rows = (n_head // bs) + (ROWS_PER_TILE if (n_head < n or
+                                                       n_head == 0) else 0)
+            reads += rows * k * (esize + 4)          # concat + [:nb] slice
+            writes += nb * k * (esize + 2)           # vals + uint16 idx
+        elif eligible:
+            # two-pass: materialize delta, pad-copy, pack kernel
+            reads += n * (esize + vsize)             # delta read
+            writes += n * esize                      # delta write
+            pr = _pad_rows(-(-n // bs), ROWS_PER_TILE)
+            pp = pr * bs
+            reads += n * esize                       # pad copy
+            writes += pp * esize
+            reads += pp * esize                      # pack kernel read
+            writes += pr * k * (esize + 4)           # vals + int32 idx
+            reads += nb * k * (esize + 4)            # slice + narrow
+            writes += nb * k * (esize + 2)
+        else:
+            # ineligible stage 0: delta, then one read and write a stage
+            # at its carrier size
+            reads += n * (esize + vsize)
+            writes += n * esize
+            cn, ce = n, esize
+            for stage in stages:
+                reads += cn * ce
+                cn = stage.out_size(cn)
+                ce = ce if stage.kind != "quantize" else 1
+                writes += cn * ce + stage.sidecar_formula_bytes(n)
+            stages = ()
+        for stage in stages[1:] if eligible else ():
+            if isinstance(stage, QSGDCodec):
+                wb = 1 if stage.levels <= 127 else 2
+                r, w = _qsgd_stage_traffic(nb, k, esize, wb)
+            else:   # e.g. sign: one pass over the carrier, packed out
+                r = nb * k * esize
+                w = stage.carrier_formula_bytes(nb * k) + \
+                    stage.sidecar_formula_bytes(nb * k)
+            reads += r
+            writes += w
+    lb_writes += pipeline.wire_bytes(theta)
+    return {
+        "read_bytes": int(reads),
+        "write_bytes": int(writes),
+        "hbm_bytes": int(reads + writes),
+        "lower_bound_bytes": int(lb_reads + lb_writes),
+    }
+
+
 def make_compressor(fed_cfg):
     """The compression object a FedConfig names, routed as the reference's
     ``make_compressor`` (``compression.py:1129-1173``): a legacy
@@ -1118,7 +1248,7 @@ def make_compressor(fed_cfg):
         return PerLayerPipeline(stages=_lower_stage0(base.stages) if fused
                                 else base.stages,
                                 min_dense_size=base.min_dense_size,
-                                rules=rules)
+                                rules=rules, fused=fused)
     if fused:
         return FusedCodec.wrap(base, fused=True)
     return base

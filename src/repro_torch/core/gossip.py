@@ -323,6 +323,24 @@ def make_mixer(omega: np.ndarray, device="cuda",
     return mix
 
 
+def _unported_a10(name: str) -> Callable:
+    """A callable standing for a name of the reference's SPMD shard path,
+    which raises naming ROADMAP A10."""
+    def unported(*args, **kwargs):
+        raise NotImplementedError(
+            f"{name} is not ported yet; ROADMAP A10 (multi-GPU shard "
+            f"engine)")
+    unported.__name__ = unported.__qualname__ = name
+    return unported
+
+
+# the reference's shard mixer (gossip.py:369-600): ppermute over a mesh
+ShardContext = _unported_a10("ShardContext")
+ShardMixStats = _unported_a10("ShardMixStats")
+make_shard_mixer = _unported_a10("make_shard_mixer")
+plan_shard_mix = _unported_a10("plan_shard_mix")
+
+
 def as_keyed_mixer(mixer: Callable) -> Callable:
     """Adapt a legacy ``mix(tree)`` / ``mix(tree, key)`` callable to the
     ``mix(tree, key, node_mask)`` convention (``gossip.py:603-633``); a

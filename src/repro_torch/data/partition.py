@@ -1,6 +1,9 @@
 """Federated data partitioner and the device-resident shards.
 
-``partition_iid`` is a copy of the reference (numpy, byte-equal output).
+``partition_iid``, ``partition_dirichlet`` (label skew, per-class device
+proportions ~ Dir(α)) and ``minibatch_stack`` (host sampling of one
+round's ``(K, L, M, ...)`` stack) are copies of the reference's numpy code,
+byte-equal output for the same seed or generator.
 :class:`DeviceShards` is the counterpart of the reference class of the same
 name: every node's shard is zero-padded to the longest one and stacked, so
 each field lives on the device as one ``(K, N_max, ...)`` tensor, and a
@@ -25,6 +28,41 @@ def partition_iid(ds: Dict[str, np.ndarray], k: int, seed: int = 0
     perm = rng.permutation(n)
     shards = np.array_split(perm, k)
     return [{key: val[idx] for key, val in ds.items()} for idx in shards]
+
+
+def partition_dirichlet(ds: Dict[str, np.ndarray], k: int, alpha: float = 0.5,
+                        seed: int = 0) -> List[Dict[str, np.ndarray]]:
+    """Label-skewed split: per-class device proportions ~ Dir(alpha); an
+    empty shard gets one random example."""
+    rng = np.random.default_rng(seed)
+    y = ds["y"]
+    device_idx: List[List[int]] = [[] for _ in range(k)]
+    for c in np.unique(y):
+        idx = np.where(y == c)[0]
+        rng.shuffle(idx)
+        props = rng.dirichlet(alpha * np.ones(k))
+        cuts = (np.cumsum(props) * len(idx)).astype(int)[:-1]
+        for dev, part in enumerate(np.split(idx, cuts)):
+            device_idx[dev].extend(part.tolist())
+    out = []
+    for dev in range(k):
+        idx = np.array(sorted(device_idx[dev]), dtype=int)
+        if len(idx) == 0:
+            idx = rng.integers(0, len(y), size=1)
+        out.append({key: val[idx] for key, val in ds.items()})
+    return out
+
+
+def minibatch_stack(shards: List[Dict[str, np.ndarray]], l: int, m: int,
+                    rng: np.random.Generator) -> Dict[str, np.ndarray]:
+    """One round's ``(K, L, M, ...)`` minibatch stacks, sampled on the
+    host."""
+    out: Dict[str, List] = {key: [] for key in shards[0]}
+    for shard in shards:
+        idx = rng.integers(0, len(shard["y"]), size=(l, m))
+        for key in shard:
+            out[key].append(shard[key][idx])
+    return {key: np.stack(val) for key, val in out.items()}
 
 
 @dataclass(frozen=True)

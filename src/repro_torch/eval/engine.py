@@ -298,6 +298,14 @@ class ScanEvalEngine(HostEvalEngine):
         return g.accum, g.probs
 
 
+def ShardEvalEngine(*args, **kwargs):
+    """The reference's SPMD eval engine (``eval/engine.py:364``) is
+    ROADMAP A10."""
+    raise NotImplementedError(
+        "ShardEvalEngine is not ported yet; ROADMAP A10 (multi-GPU shard "
+        "engine)")
+
+
 def make_eval_engine(name: str, logits_fn: Callable, num_bins: int = 10,
                      batch_size: int = 64, mesh=None, fed_axis: str = "fed",
                      entropy_threshold: float = float("inf")):

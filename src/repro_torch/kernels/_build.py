@@ -47,8 +47,17 @@ _SIGNATURES = {
     "repro_block_topk": [_P, _P, _L, _L, _L, _I, _P],
     "repro_grid_quant": [_PP, _PP, _PP, _PP, _PL, _I, _L, _F, _P],
     "repro_qsgd": [_PP, _PP, _PP, _PP, _PL, _PL, _PF, _I, _F, _P],
-    "repro_threefry": [_PP, _PL, _PL, _PP, _PL, _PI, _PL, _PL, _PF, _I, _P],
+    "repro_threefry": [_PP, _PL, _PL, _PP, _PL, _PI, _PL, _PP, _PL, _PF,
+                       _I, _P],
     "repro_gilbert_keep": [_PP, _PP, _PP, _PL, _I, _L, _P, _PF, _P],
+    # v (and v̄) stored in bfloat16
+    "repro_delta_pack_bf16": [_PP, _PP, _PL, _PL, _PL, _I, _L, _P, _P, _I,
+                              _P],
+    "repro_topk_select_bf16": [_PP, _PP, _PL, _PL, _PI, _PL, _I, _L, _P, _P,
+                               _P],
+    "repro_fused_update_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _F,
+                                _F, _P],
+    "repro_cffl_update_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _F, _P],
 }
 
 _lib = None

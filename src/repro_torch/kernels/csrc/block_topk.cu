@@ -36,7 +36,7 @@ block_topk_kernel(const float* __restrict__ x, float* __restrict__ out,
   const long long start = (warp - row * nb) * kBlock;
 
   float d[kPerLane];
-  load_block<false>(x + row * n, nullptr, start, n, lane, d);
+  load_block<false, float>(x + row * n, nullptr, start, n, lane, d);
   const float m = block_max(d);
   float lo, hi;
   bisect_block(d, m, k, lo, hi);

@@ -271,8 +271,22 @@ extern "C" int repro_delta_pack(const float* const* thetas,
                                 const long long* nbs, const long long* outs,
                                 int count, long long rows, float* vals,
                                 uint16_t* idx, int k, void* stream) {
-  return repro_torch::launch_pack<true>(thetas, vs, ns, nbs, outs, count,
-                                        rows, vals, idx, k, stream);
+  return repro_torch::launch_pack<true>(
+      thetas, reinterpret_cast<const void* const*>(vs), ns, nbs, outs, count,
+      rows, vals, idx, k, stream);
+}
+
+// The same with v stored in bfloat16 (FedConfig.control_dtype): each
+// element of v widened to f32 in registers before the subtraction.
+extern "C" int repro_delta_pack_bf16(const float* const* thetas,
+                                     const __nv_bfloat16* const* vs,
+                                     const long long* ns, const long long* nbs,
+                                     const long long* outs, int count,
+                                     long long rows, float* vals,
+                                     uint16_t* idx, int k, void* stream) {
+  return repro_torch::launch_pack<true, __nv_bfloat16>(
+      thetas, reinterpret_cast<const void* const*>(vs), ns, nbs, outs, count,
+      rows, vals, idx, k, stream);
 }
 
 // One launch quantizes `count` <= kMaxLeaves carriers of `rows` rows each:

@@ -206,7 +206,7 @@ unpack_kernel(const __grid_constant__ UnpackTable table, int k) {
 // ceil(ratio·n) of its n, a longer leaf ceil(ratio·block) a block).
 struct TopkLeaf {
   const float* x;
-  const float* v;
+  const void* v;                                  // float or bfloat16
   long long n, nb, begin, out;
   int k;
 };
@@ -227,7 +227,7 @@ struct TopkTable {
 // table.words a warp. 2 CTAs an SM allow 128 registers a thread, enough for
 // a warp's 64 loads in flight (3 allow 80 and spill, and ran 3.8% slower:
 // PERF.md §6).
-template <bool HAS_V>
+template <bool HAS_V, typename VT>
 __global__ void __launch_bounds__(kWarpsPerCta * 32, 2)
 topk_select_kernel(const __grid_constant__ TopkTable table,
                    float* __restrict__ vals, uint16_t* __restrict__ idx) {
@@ -243,9 +243,10 @@ topk_select_kernel(const __grid_constant__ TopkTable table,
   const long long row = local / leaf.nb;
   const long long start = (local - row * leaf.nb) * kBlock;
   float d[kPerLane];
-  load_block<HAS_V>(leaf.x + row * leaf.n,
-                    HAS_V ? leaf.v + row * leaf.n : nullptr, start, leaf.n,
-                    lane, d);
+  load_block<HAS_V, VT>(
+      leaf.x + row * leaf.n,
+      HAS_V ? static_cast<const VT*>(leaf.v) + row * leaf.n : nullptr, start,
+      leaf.n, lane, d);
   float* vrow = vals + leaf.out + local * leaf.k;
   uint16_t* irow = idx + leaf.out + local * leaf.k;
   topk_order_block(d, leaf.k, lane, smem + (threadIdx.x >> 5) * table.words,
@@ -352,18 +353,16 @@ extern "C" int repro_unpack_topk(const float* const* vals,
   return (int)cudaGetLastError();
 }
 
-// One launch selects `count` <= kMaxLeaves leaves of `rows` rows each in
-// top_k order: leaf l is xs[l] (minus vs[l] when vs is not null), (rows,
-// ns[l]) with nbs[l] blocks a row of ks[l] survivors, and its payload starts
-// at element outs[l] of vals and idx. Shared memory a warp: kFewWords, or
-// kBlock words when some k exceeds 32.
-extern "C" int repro_topk_select(const float* const* xs,
-                                 const float* const* vs, const long long* ns,
-                                 const long long* nbs, const int* ks,
-                                 const long long* outs, int count,
-                                 long long rows, float* vals, uint16_t* idx,
-                                 void* stream) {
-  using namespace repro_torch;
+namespace repro_torch {
+
+// Fill a top_k table from the host arrays and launch once; v's elements
+// are VT.
+template <typename VT>
+inline int launch_topk_select(const float* const* xs, const void* const* vs,
+                              const long long* ns, const long long* nbs,
+                              const int* ks, const long long* outs, int count,
+                              long long rows, float* vals, uint16_t* idx,
+                              void* stream) {
   if (count < 1 || count > kMaxLeaves || rows < 0)
     return (int)cudaErrorInvalidValue;
   TopkTable table{};
@@ -384,13 +383,48 @@ extern "C" int repro_topk_select(const float* const* xs,
         (unsigned)((total + kWarpsPerCta - 1) / kWarpsPerCta);
     const size_t bytes = 4 * (size_t)kWarpsPerCta * table.words;
     if (vs)
-      topk_select_kernel<true><<<ctas, kWarpsPerCta * 32, bytes,
-                                 (cudaStream_t)stream>>>(table, vals, idx);
+      topk_select_kernel<true, VT><<<ctas, kWarpsPerCta * 32, bytes,
+                                     (cudaStream_t)stream>>>(table, vals,
+                                                             idx);
     else
-      topk_select_kernel<false><<<ctas, kWarpsPerCta * 32, bytes,
-                                  (cudaStream_t)stream>>>(table, vals, idx);
+      topk_select_kernel<false, VT><<<ctas, kWarpsPerCta * 32, bytes,
+                                      (cudaStream_t)stream>>>(table, vals,
+                                                              idx);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace repro_torch
+
+// One launch selects `count` <= kMaxLeaves leaves of `rows` rows each in
+// top_k order: leaf l is xs[l] (minus vs[l] when vs is not null), (rows,
+// ns[l]) with nbs[l] blocks a row of ks[l] survivors, and its payload starts
+// at element outs[l] of vals and idx. Shared memory a warp: kFewWords, or
+// kBlock words when some k exceeds 32.
+extern "C" int repro_topk_select(const float* const* xs,
+                                 const float* const* vs, const long long* ns,
+                                 const long long* nbs, const int* ks,
+                                 const long long* outs, int count,
+                                 long long rows, float* vals, uint16_t* idx,
+                                 void* stream) {
+  return repro_torch::launch_topk_select<float>(
+      xs, reinterpret_cast<const void* const*>(vs), ns, nbs, ks, outs, count,
+      rows, vals, idx, stream);
+}
+
+// The same with v stored in bfloat16 (FedConfig.control_dtype; vs not
+// null): each element of v widened to f32 in registers before x − v.
+extern "C" int repro_topk_select_bf16(const float* const* xs,
+                                      const __nv_bfloat16* const* vs,
+                                      const long long* ns,
+                                      const long long* nbs, const int* ks,
+                                      const long long* outs, int count,
+                                      long long rows, float* vals,
+                                      uint16_t* idx, void* stream) {
+  if (!vs) return (int)cudaErrorInvalidValue;
+  return repro_torch::launch_topk_select<__nv_bfloat16>(
+      xs, reinterpret_cast<const void* const*>(vs), ns, nbs, ks, outs, count,
+      rows, vals, idx, stream);
 }
 
 // One launch decodes `count` <= kMaxLeaves top_k-order payloads of `rows`

@@ -34,9 +34,16 @@
 // in registers, so every load is one coalesced 128-byte row and element
 // order is (j, lane). The rank of an element is a prefix popcount of its
 // ballot row plus a running total that every lane holds.
+//
+// v may be stored in bfloat16 (FedConfig.control_dtype, ROADMAP A3): the
+// tile then reads the 2-byte elements and widens each in registers, which
+// is exact, so d = θ − v is the f32 subtraction the reference computes
+// after its v.astype(f32). A lane's loads keep their pattern: element
+// j*32 + lane, a warp's 32 loads one coalesced 64-byte row.
 #pragma once
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace repro_torch {
@@ -65,22 +72,29 @@ __device__ __forceinline__ float max_keep_nan(float a, float b) {
   return r;
 }
 
+// a stored control-variate element as f32 (exact for bfloat16)
+__device__ __forceinline__ float widen(float a) { return a; }
+__device__ __forceinline__ float widen(__nv_bfloat16 a) {
+  return __bfloat162float(a);
+}
+
 // Load the block that starts at element `start` of a row (d = x − v when
 // HAS_V: the residual is formed here and lives only in registers, which is
-// fused_compress.py's point). Elements at or past n read as 0, as the
-// reference's zero padding of the ragged last block: such zeros can be
-// picked as ties. A whole block takes its loads unpredicated.
-template <bool HAS_V>
+// fused_compress.py's point; v's elements are VT, float or bfloat16).
+// Elements at or past n read as 0, as the reference's zero padding of the
+// ragged last block: such zeros can be picked as ties. A whole block takes
+// its loads unpredicated.
+template <bool HAS_V, typename VT = float>
 __device__ __forceinline__ void load_block(const float* __restrict__ xr,
-                                           const float* __restrict__ vr,
+                                           const VT* __restrict__ vr,
                                            long long start, long long n,
                                            int lane, float (&d)[kPerLane]) {
   const float* xb = xr + start + lane;
-  const float* vb = HAS_V ? vr + start + lane : nullptr;
+  const VT* vb = HAS_V ? vr + start + lane : nullptr;
   if (start + kBlock <= n) {                      // uniform within a warp
 #pragma unroll
     for (int j = 0; j < kPerLane; ++j)
-      d[j] = HAS_V ? __fsub_rn(xb[j * 32], vb[j * 32]) : xb[j * 32];
+      d[j] = HAS_V ? __fsub_rn(xb[j * 32], widen(vb[j * 32])) : xb[j * 32];
     return;
   }
   const long long left = n - start - lane;
@@ -89,7 +103,7 @@ __device__ __forceinline__ void load_block(const float* __restrict__ xr,
     float t = 0.0f;
     if (j * 32 < left) {
       t = xb[j * 32];
-      if (HAS_V) t = __fsub_rn(t, vb[j * 32]);
+      if (HAS_V) t = __fsub_rn(t, widen(vb[j * 32]));
     }
     d[j] = t;
   }
@@ -199,7 +213,7 @@ __device__ __forceinline__ void rank_block(const float (&d)[kPerLane],
 // copied).
 struct PackLeaf {
   const float* x;
-  const float* v;
+  const void* v;                                  // float or bfloat16
   long long n, nb, begin, out;
 };
 
@@ -225,7 +239,7 @@ __device__ __forceinline__ float quiet_nan() {
 // a non-finite element is NaN except the slot of a lone ±inf, which keeps
 // it (ROADMAP C6). A block holding a NaN may keep fewer than k elements;
 // its empty slots are NaN at index 0, the contraction's zero index.
-template <bool HAS_V>
+template <bool HAS_V, typename VT>
 __global__ void __launch_bounds__(kWarpsPerCta * 32)
 pack_kernel(const __grid_constant__ PackTable table, float* __restrict__ vals,
             uint16_t* __restrict__ idx, int k) {
@@ -241,9 +255,10 @@ pack_kernel(const __grid_constant__ PackTable table, float* __restrict__ vals,
   const long long start = (local - row * leaf.nb) * kBlock;
 
   float d[kPerLane];
-  load_block<HAS_V>(leaf.x + row * leaf.n,
-                    HAS_V ? leaf.v + row * leaf.n : nullptr, start, leaf.n,
-                    lane, d);
+  load_block<HAS_V, VT>(
+      leaf.x + row * leaf.n,
+      HAS_V ? static_cast<const VT*>(leaf.v) + row * leaf.n : nullptr, start,
+      leaf.n, lane, d);
   const float m = block_max(d);
   float lo, hi;
   bisect_block(d, m, k, lo, hi);
@@ -272,9 +287,10 @@ pack_kernel(const __grid_constant__ PackTable table, float* __restrict__ vals,
 }
 
 // Fill a table from the host arrays of `count` <= kMaxLeaves leaves and
-// launch once; leaf l's payload goes to vals and idx from element outs[l].
-template <bool HAS_V>
-inline int launch_pack(const float* const* xs, const float* const* vs,
+// launch once; leaf l's payload goes to vals and idx from element outs[l];
+// v's elements are VT.
+template <bool HAS_V, typename VT = float>
+inline int launch_pack(const float* const* xs, const void* const* vs,
                        const long long* ns, const long long* nbs,
                        const long long* outs, int count, long long rows,
                        float* vals, uint16_t* idx, int k, void* stream) {
@@ -291,7 +307,7 @@ inline int launch_pack(const float* const* xs, const float* const* vs,
   table.count = count;
   if (total > 0) {
     const long long ctas = (total + kWarpsPerCta - 1) / kWarpsPerCta;
-    pack_kernel<HAS_V><<<(unsigned)ctas, kWarpsPerCta * 32, 0,
+    pack_kernel<HAS_V, VT><<<(unsigned)ctas, kWarpsPerCta * 32, 0,
                          (cudaStream_t)stream>>>(table, vals, idx, k);
   }
   return (int)cudaGetLastError();

@@ -62,6 +62,7 @@ enum DrawKind : int { kPair = 0, kBits = 1, kUniform = 2, kNormal = 3 };
 struct DrawRequest {
   const long long* key;
   void* out;
+  const int* counter_at;  // PAIR: a device int added to counter, or null
   long long key_stride, n, tiles, begin;
   unsigned counter, fold;
   int kind, has_fold;
@@ -214,7 +215,9 @@ threefry_kernel(const __grid_constant__ DrawTable table) {
     const long long i = col + threadIdx.x + j * kDrawThreads;
     if (i >= n) break;
     if (rq.kind == kPair) {
-      uint2 y = threefry2x32(k0, k1, 0u, rq.counter + (uint32_t)i);
+      const uint32_t c0 = rq.counter +
+          (rq.counter_at ? (uint32_t)__ldg(rq.counter_at) : 0u);
+      uint2 y = threefry2x32(k0, k1, 0u, c0 + (uint32_t)i);
       if (rq.has_fold) y = threefry2x32(y.x, y.y, 0u, rq.fold);
       reinterpret_cast<longlong2*>(rq.out)[base + i] =
           make_longlong2((long long)y.x, (long long)y.y);
@@ -239,7 +242,9 @@ threefry_kernel(const __grid_constant__ DrawTable table) {
 
 // One launch draws `count` <= kMaxRequests requests. Request q: rows[q]
 // keys at keys[q] (row stride key_strides[q] int64s), ns[q] elements a row
-// into outs[q], transform kinds[q], first counter counters[q] and second
+// into outs[q], transform kinds[q], first counter counters[q] plus, where
+// counter_ats[q] is not null, the int it points to on the device (PAIR: a
+// round index that a CUDA graph reads at replay, wrapping mod 2^32), second
 // counter folds[q] (PAIR; -1 for none), and params[6q .. 6q + 5] = lo, hi,
 // mult, clip_lo, clip_hi, scale (UNIFORM reads the first two). Counters and
 // folds are uint32; every request has rows >= 1 and n >= 1.
@@ -248,6 +253,7 @@ extern "C" int repro_threefry(const long long* const* keys,
                               const long long* rows, void* const* outs,
                               const long long* ns, const int* kinds,
                               const long long* counters,
+                              const int* const* counter_ats,
                               const long long* folds, const float* params,
                               int count, void* stream) {
   using namespace repro_torch;
@@ -261,7 +267,8 @@ extern "C" int repro_threefry(const long long* const* keys,
       return (int)cudaErrorInvalidValue;
     const long long tiles = (ns[q] + kDrawTile - 1) / kDrawTile;
     const float* p = params + 6 * q;
-    table.req[q] = DrawRequest{keys[q], outs[q], key_strides[q], ns[q], tiles,
+    table.req[q] = DrawRequest{keys[q], outs[q], counter_ats[q],
+                               key_strides[q], ns[q], tiles,
                                total, (unsigned)counters[q],
                                folds[q] < 0 ? 0u : (unsigned)folds[q],
                                kinds[q], folds[q] >= 0 ? 1 : 0,

@@ -10,6 +10,10 @@ its packed leaves with one call). The plain version forms the same f32
 residual and runs the same plain tile, leaf by leaf, so the two paths agree
 bit for bit.
 
+With ``v`` stored in bfloat16 (``FedConfig.control_dtype``) the same
+kernel reads the 2-byte elements and widens them in registers
+(:func:`delta_pack_bf16`, counted apart).
+
 ``grid_quant_leaves(carriers, us, levels)`` rounds each packed ``(rows,
 m)`` carrier onto the signed QSGD grid, ``sign(x)·q`` as int8, under each
 row's norm ``‖row‖₂ + 1e-12``, which it computes too (the reference's
@@ -47,6 +51,8 @@ def delta_pack(thetas, vs, k: int, block_size: int = 1024):
         raise ValueError(f"delta_pack: {len(thetas)} thetas, {len(vs)} vs")
     if not thetas:
         return []
+    if vs[0].dtype == torch.bfloat16:
+        return delta_pack_bf16(thetas, vs, k, block_size)
     if not on_card("delta_pack", [(t, torch.float32) for t in thetas]
                    + [(v, torch.float32) for v in vs]):
         return [delta_pack_plain(t, v, k, block_size)
@@ -55,7 +61,20 @@ def delta_pack(thetas, vs, k: int, block_size: int = 1024):
                       k, block_size)
 
 
+def delta_pack_bf16(thetas, vs, k: int, block_size: int = 1024):
+    """:func:`delta_pack` with the ``vs`` stored in bfloat16
+    (``FedConfig.control_dtype``): the kernel widens each element of v in
+    registers, exactly; the plain version computes ``theta − v.float()``."""
+    if not on_card("delta_pack_bf16", [(t, torch.float32) for t in thetas]
+                   + [(v, torch.bfloat16) for v in vs]):
+        return [delta_pack_plain(t, v, k, block_size)
+                for t, v in zip(thetas, vs)]
+    return pack_table(delta_pack_bf16, library().repro_delta_pack_bf16,
+                      [thetas, vs], k, block_size)
+
+
 delta_pack.launches = 0
+delta_pack_bf16.launches = 0
 
 
 # the norm's summation order (csrc/fused_compress.cu): SEGMENT_LANES lane

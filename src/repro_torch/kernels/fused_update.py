@@ -10,6 +10,13 @@ outer fma is a plain add). The CUDA kernel (``csrc/fused_update.cu``) calls
 exactly in float64 (:func:`fma_f32`). Both are therefore bit-exact to the
 reference's ``ops.fused_update`` and to its round's Eq. 9 ``tree_map``.
 
+With bfloat16 control variates (``FedConfig.control_dtype``, ROADMAP A3)
+:func:`fused_update_bf16` and :func:`cffl_update_bf16` take the round's
+f32 deltas beside the stored bf16 v and v̄ and compute Eqs. 7–9 in one
+launch, as the reference's jitted round executes them (ROADMAP C23): Eq. 9
+reads the f32 sums ``v + bf16(Δ)``, the new v and v̄ are those sums rounded
+to bf16.
+
 Two variants of the same kernel compute the baselines' updates, each as
 XLA's CPU code contracts the reference's jitted ``tree_map`` (ROADMAP C10):
 :func:`cffl_update`, CF-FL's ``θ + ζ·(v̄ − v)`` as ``fma(ζ, v̄ − v, θ)``
@@ -127,6 +134,78 @@ def dsgld_update(mixed, grad, noise, eta: float) -> torch.Tensor:
 
 cffl_update.launches = 0
 dsgld_update.launches = 0
+
+
+def _control_sum(c: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """Eq. 7's or Eq. 8's sum as the reference's round executes it with
+    bf16 control variates (ROADMAP C23): the delta rounded to bf16, the
+    add in f32, unrounded."""
+    return c.float() + delta.to(c.dtype).float()
+
+
+def fused_update_bf16_plain(theta, vbar, v, dvbar, dv, noise, zeta: float,
+                            noise_scale: float):
+    svb, sv = _control_sum(vbar, dvbar), _control_sum(v, dv)
+    return (fused_update_plain(theta, svb, sv, noise, zeta, noise_scale),
+            svb.to(vbar.dtype), sv.to(v.dtype))
+
+
+def cffl_update_bf16_plain(theta, vbar, v, dvbar, dv, zeta: float):
+    svb, sv = _control_sum(vbar, dvbar), _control_sum(v, dv)
+    return (cffl_update_plain(theta, svb, sv, zeta), svb.to(vbar.dtype),
+            sv.to(v.dtype))
+
+
+def _control_bf16(name: str, entry: str, wrapper, theta, vbar, v, dvbar, dv,
+                  noise, scalars):
+    """Launch the bf16 form of an update (``noise`` None for CF-FL);
+    ``None`` when the operands are not on the card."""
+    ops = [(theta, torch.float32), (vbar, torch.bfloat16),
+           (v, torch.bfloat16), (dvbar, torch.float32), (dv, torch.float32)]
+    if noise is not None:
+        ops.append((noise, torch.float32))
+    if not on_card(name, ops):
+        return None
+    if any(t.shape != theta.shape for t, _ in ops):
+        raise ValueError(f"{name}: operands differ in shape")
+    out = torch.empty_like(theta)
+    vb_out, v_out = torch.empty_like(vbar), torch.empty_like(v)
+    with torch.cuda.device(theta.device):
+        rc = getattr(library(), entry)(
+            *(t.data_ptr() for t, _ in ops), out.data_ptr(),
+            vb_out.data_ptr(), v_out.data_ptr(), theta.numel(), *scalars,
+            stream_of(theta))
+    check(rc, name)
+    wrapper.launches += 1
+    return out, vb_out, v_out
+
+
+def fused_update_bf16(theta, vbar, v, dvbar, dv, noise, zeta: float,
+                      noise_scale: float):
+    """Eqs. 7–9 of CD-BFL with ``v``, ``v̄`` stored in bfloat16: from the
+    stored bf16 ``vbar``, ``v``, the round's f32 deltas ``dvbar`` (the mixed
+    Δ of Eq. 8) and ``dv`` (Eq. 7's), θ and the noise, returns ``(θ', v̄',
+    v')``; Eq. 9 reads the f32 sums, the new v̄ and v are those sums rounded
+    to bf16 (ROADMAP C23). One launch; the bf16 operands are widened in
+    registers."""
+    out = _control_bf16("fused_update_bf16", "repro_fused_update_bf16",
+                        fused_update_bf16, theta, vbar, v, dvbar, dv, noise,
+                        (zeta, noise_scale))
+    return (fused_update_bf16_plain(theta, vbar, v, dvbar, dv, noise, zeta,
+                                    noise_scale) if out is None else out)
+
+
+def cffl_update_bf16(theta, vbar, v, dvbar, dv, zeta: float):
+    """CF-FL's :func:`fused_update_bf16`: ``θ' = fma(ζ, S̄ − S, θ)``."""
+    out = _control_bf16("cffl_update_bf16", "repro_cffl_update_bf16",
+                        cffl_update_bf16, theta, vbar, v, dvbar, dv, None,
+                        (zeta,))
+    return (cffl_update_bf16_plain(theta, vbar, v, dvbar, dv, zeta)
+            if out is None else out)
+
+
+fused_update_bf16.launches = 0
+cffl_update_bf16.launches = 0
 
 
 LAPLACIAN, CIRCULANT, RING = "laplacian", "circulant", "ring"

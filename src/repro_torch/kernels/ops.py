@@ -57,8 +57,7 @@ def topk_select_leaves(xs, ks, vs=None, block_size: int = 1024):
     given) in ``lax.top_k`` order, ``ks[i]`` survivors a block: a list of
     ``(vals (K, nb, k), idx (K, nb, k) uint16)``, one launch a table."""
     return topk_select([_rows(x) for x in xs], list(ks),
-                       None if vs is None else
-                       [_rows(v.to(x.dtype)) for x, v in zip(xs, vs)],
+                       None if vs is None else [_rows(v) for v in vs],
                        block_size)
 
 
@@ -82,8 +81,7 @@ def fused_delta_pack_leaves(thetas, vs, ratio: float = 0.01,
     in one launch a table of up to ``MAX_TABLE_LEAVES`` leaves; each
     leaf's ``(vals, idx)`` is a view of one allocation."""
     assert block_size <= 65536, "uint16 block-local indices"
-    return delta_pack([_rows(t) for t in thetas],
-                      [_rows(v.to(t.dtype)) for t, v in zip(thetas, vs)],
+    return delta_pack([_rows(t) for t in thetas], [_rows(v) for v in vs],
                       survivors_per_block(ratio, block_size), block_size)
 
 

@@ -338,11 +338,34 @@ def topk_select(xs, ks, vs=None, block_size: int = 1024):
     if not xs:
         return []
     operands = [xs] if vs is None else [xs, vs]
+    if vs is not None and vs[0].dtype == torch.bfloat16:
+        return topk_select_bf16(xs, ks, vs, block_size)
     if not on_card("topk_select", [(t, torch.float32) for op in operands
                                    for t in op]):
         return [topk_select_plain(x, k, block_size,
                                   None if vs is None else vs[i])
                 for i, (x, k) in enumerate(zip(xs, ks))]
+    return _topk_select_table(topk_select, library().repro_topk_select, xs,
+                              ks, vs, block_size)
+
+
+def topk_select_bf16(xs, ks, vs, block_size: int = 1024):
+    """:func:`topk_select` of ``x − v`` with the ``vs`` stored in bfloat16
+    (``FedConfig.control_dtype``): the kernel widens each element of v in
+    registers, exactly; the plain version computes ``x − v.float()``."""
+    if not on_card("topk_select_bf16", [(x, torch.float32) for x in xs]
+                   + [(v, torch.bfloat16) for v in vs]):
+        return [topk_select_plain(x, k, block_size, v)
+                for x, k, v in zip(xs, ks, vs)]
+    return _topk_select_table(topk_select_bf16,
+                              library().repro_topk_select_bf16, xs, ks, vs,
+                              block_size)
+
+
+def _topk_select_table(wrapper, entry, xs, ks, vs, block_size: int):
+    """Launch a top_k-order selection over leaf tables (see
+    :func:`topk_select`); ``wrapper`` counts the launches."""
+    operands = [xs] if vs is None else [xs, vs]
     for k in ks:
         check_kernel_shape("topk_select", k, block_size)
     rows = xs[0].shape[0]
@@ -360,7 +383,7 @@ def topk_select(xs, ks, vs=None, block_size: int = 1024):
     if rows:
         with torch.cuda.device(dev):
             for part in tables(len(xs)):
-                rc = library().repro_topk_select(
+                rc = entry(
                     c_array(ctypes.c_void_p,
                             [t.data_ptr() for t in xs[part]]),
                     None if vs is None else c_array(
@@ -372,14 +395,15 @@ def topk_select(xs, ks, vs=None, block_size: int = 1024):
                     c_array(ctypes.c_longlong, outs[part]), len(xs[part]),
                     rows, vals.data_ptr(), idx.data_ptr(),
                     stream_of(xs[0]))
-                check(rc, "topk_select")
-                topk_select.launches += 1
+                check(rc, wrapper.__name__)
+                wrapper.launches += 1
     return [(vals[o:o + rows * nb * k].view(rows, nb, k),
              idx[o:o + rows * nb * k].view(rows, nb, k))
             for nb, k, o in zip(nbs, ks, outs)]
 
 
 topk_select.launches = 0
+topk_select_bf16.launches = 0
 
 
 def unpack_set_plain(vals: torch.Tensor, idx: torch.Tensor, n: int,

@@ -14,6 +14,10 @@ under one transform:
 - ``PAIR``: both output words on counters ``(0, counter + i)``, a key an
   element: ``split`` and ``fold_in`` for a whole level of keys. With
   ``fold`` set, each key is then folded in with ``fold`` (a second hash).
+  ``counter`` may be a one-element int32 tensor on the keys' device (a
+  round index): the kernel reads it when it runs, so a CUDA graph that
+  captured the launch draws each replay's own keys, and the host never
+  reads it.
 - ``BITS``: ``b1 ^ b2``, the 32 random bits of ``jax.random.bits``.
 - ``UNIFORM``: ``max(lo, fma(f − 1, hi − lo, lo))``, ``f`` the float in
   ``[1, 2)`` whose mantissa is the bits' top 23 (``random.py:435``).
@@ -45,7 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import struct
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -106,11 +110,12 @@ class Draw(NamedTuple):
     elements, one a key row. Output ``(R, n, 2)`` int64 keys for ``PAIR``,
     ``(R, n)`` int64 bits for ``BITS``, ``(R, n)`` f32 otherwise.
     ``params``: ``(lo, hi)`` for ``UNIFORM``; ``(lo, hi, mult, clip_lo,
-    clip_hi, scale)`` for ``NORMAL``; f32 values."""
+    clip_hi, scale)`` for ``NORMAL``; f32 values. ``counter``: an int, or
+    for ``PAIR`` a one-element int32 tensor on the keys' device."""
     keys: torch.Tensor
     n: int
     kind: int = BITS
-    counter: int = 0
+    counter: Union[int, torch.Tensor] = 0
     fold: Optional[int] = None
     params: Tuple[float, ...] = ()
 
@@ -237,8 +242,11 @@ def draw_one_plain(req: Draw) -> torch.Tensor:
     k0, k1 = keys[:, :1], keys[:, 1:]
     j = torch.arange(req.n, dtype=torch.int64, device=keys.device)[None]
     if req.kind == PAIR:
+        counter = req.counter
+        if torch.is_tensor(counter):
+            counter = counter.reshape(()).to(torch.int64) & M32
         x0, x1 = threefry2x32_plain(k0, k1, torch.zeros_like(j),
-                                    j + req.counter)
+                                    (j + counter) & M32)
         if req.fold is not None:
             x0, x1 = threefry2x32_plain(x0, x1, torch.zeros_like(x0),
                                         torch.full_like(x0, req.fold))
@@ -268,7 +276,15 @@ def _check(req: Draw, i: int) -> None:
                          f"strides {keys.stride()}")
     if req.kind not in (PAIR, BITS, UNIFORM, NORMAL):
         raise ValueError(f"threefry: request {i}: unknown kind {req.kind}")
-    if not 0 <= req.n or req.counter + req.n > M32 + 1 or req.counter < 0:
+    if torch.is_tensor(req.counter):
+        c = req.counter
+        if (req.kind != PAIR or c.numel() != 1 or c.dtype != torch.int32
+                or c.device != keys.device):
+            raise ValueError(f"threefry: request {i}: a tensor counter is a "
+                             f"one-element int32 on the keys' device, of a "
+                             f"PAIR request; got {tuple(c.shape)} {c.dtype} "
+                             f"on {c.device}, kind {req.kind}")
+    elif not 0 <= req.n or req.counter + req.n > M32 + 1 or req.counter < 0:
         raise ValueError(f"threefry: request {i}: counters {req.counter} + "
                          f"{req.n} exceed 32 bits")
     if req.fold is not None and not 0 <= req.fold <= M32:
@@ -318,7 +334,11 @@ def draw(requests):
                 c_array(ctypes.c_void_p, [o.data_ptr() for o in pouts]),
                 c_array(ctypes.c_longlong, [r.n for r in part]),
                 c_array(ctypes.c_int, [r.kind for r in part]),
-                c_array(ctypes.c_longlong, [r.counter for r in part]),
+                c_array(ctypes.c_longlong, [0 if torch.is_tensor(r.counter)
+                                            else r.counter for r in part]),
+                c_array(ctypes.c_void_p, [r.counter.data_ptr()
+                                          if torch.is_tensor(r.counter)
+                                          else None for r in part]),
                 c_array(ctypes.c_longlong,
                         [-1 if r.fold is None else r.fold for r in part]),
                 c_array(ctypes.c_float, params), len(part), stream_of(

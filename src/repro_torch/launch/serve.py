@@ -104,7 +104,8 @@ def main(argv: Optional[List[str]] = None):
         raise NotImplementedError(
             "--mesh > 1 is not ported yet; ROADMAP A10 (multi-GPU shard "
             "engine, place_ensemble)")
-    cfg = get_arch(args.arch, reduced=args.trim)
+    spec = get_arch(args.arch)
+    cfg = spec.reduced if args.trim else spec.config
     if args.mode == "decode":
         raise NotImplementedError(
             "--mode decode is not ported yet; ROADMAP A12 (LM model zoo, "

@@ -317,7 +317,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     from repro_torch.utils.tree import tree_leaves
 
     try:
-        cfg = get_arch(args.arch, reduced=args.trim)
+        spec = get_arch(args.arch)
+        cfg = spec.reduced if args.trim else spec.config
     except NotImplementedError as err:
         raise SystemExit(f"--arch {args.arch}: {err}")
     device = resolve_device(args.device)

@@ -122,9 +122,12 @@ def split_fold_in(key: torch.Tensor, num: int, data: int):
 
 
 @program
-def fold_in(key: torch.Tensor, data: int):
-    """``jax.random.fold_in``: threefry on the counters ``(0, data)``."""
-    out, = yield [Draw(_rows(key), 1, PAIR, counter=int(data) & M32)]
+def fold_in(key: torch.Tensor, data):
+    """``jax.random.fold_in``: threefry on the counters ``(0, data)``.
+    ``data`` is an int, or a one-element int32 tensor on the key's device
+    that the draw reads on the device (a round index inside a CUDA graph)."""
+    counter = data if torch.is_tensor(data) else int(data) & M32
+    out, = yield [Draw(_rows(key), 1, PAIR, counter=counter)]
     return out.reshape(key.shape)
 
 

@@ -39,10 +39,17 @@ DATA_STREAM_SALT = 7
 
 
 @random.program
+def round_data_key(kround: torch.Tensor):
+    """Data-sampling key for one round, derived from the round key
+    (``engine.py:53-55``)."""
+    return (yield from random.fold_in.program(kround, DATA_STREAM_SALT))
+
+
+@random.program
 def round_indices(shards: DeviceShards, kround: torch.Tensor, l: int, m: int):
     """The round's ``(K, L, M)`` minibatch indices
     (``round_data_key``, ``engine.py:53-55``)."""
-    kdata = yield from random.fold_in.program(kround, DATA_STREAM_SALT)
+    kdata = yield from round_data_key.program(kround)
     return (yield from shards.sample_indices.program(kdata, l, m))
 
 
@@ -113,7 +120,7 @@ def _check_same_layout(old: DeviceShards, new: DeviceShards) -> None:
 
 def _state_tensors(state, key: torch.Tensor) -> List[torch.Tensor]:
     return tree_leaves(state.params) + tree_leaves(state.v) + \
-        tree_leaves(state.v_bar) + [key]
+        tree_leaves(state.v_bar) + [state.key, key]
 
 
 def _carry_tensors(carry: EngineCarry) -> List[torch.Tensor]:

@@ -102,7 +102,7 @@ def _assert_state_close(port, ref):
 def test_rounds_track_reference(references, algorithm, num_rounds):
     shards, data_scale, params0, rounds = references(algorithm)
     fed = FedConfig(algorithm=algorithm, **FED)
-    model = get_model(get_arch("lenet-radar", reduced=True))
+    model = get_model(get_arch("lenet-radar").reduced)
     omega = build_topology(resolve_topology(JaxFedConfig(**FED)), K).omega
     round_fn = port_alg.make_round_fn(algorithm, model.nll, fed, omega,
                                       port_compressor(fed), data_scale, "cpu")
@@ -124,7 +124,7 @@ def test_rounds_track_reference(references, algorithm, num_rounds):
 def test_round_draws_follow_reference_keys():
     """DSGLD's noise comes from ``knoise, kmix = split(key)``; CF-FL's codec
     keys are CD-BFL's ``kq``, so with QSGD its uniforms are CD-BFL's."""
-    model = get_model(get_arch("lenet-radar", reduced=True))
+    model = get_model(get_arch("lenet-radar").reduced)
     fed = FedConfig(**FED)
     params = port_state.init_fed_state(model.init(
         _key(jax.random.PRNGKey(0)), "cpu"), fed).params
@@ -158,7 +158,7 @@ def test_sgld_step_matches_reference():
     want, want_loss = jax.jit(make_sgld_step(jmodel.loss, 3e-3, 0.2, 20.0))(
         params, {k: np.asarray(v) for k, v in batch.items()}, key)
     step = port_alg.make_sgld_step(
-        get_model(get_arch("lenet-radar", reduced=True)).nll, 3e-3, 0.2,
+        get_model(get_arch("lenet-radar").reduced).nll, 3e-3, 0.2,
         20.0)
     got, loss = step(params_from_jax(jax.tree.map(np.asarray, params)),
                      {k: torch.from_numpy(np.asarray(v))

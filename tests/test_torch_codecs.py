@@ -413,7 +413,8 @@ def test_wire_bytes_of_every_codec(reduced, fed):
     params = jax_get_model(arch.reduced if reduced else arch.config).init(
         jax.random.PRNGKey(0))
     want = jax_make_compressor(JaxFedConfig(**fed)).wire_bytes(params)
-    mine = get_model(get_arch("lenet-radar", reduced=reduced)).init(
+    spec = get_arch("lenet-radar")
+    mine = get_model(spec.reduced if reduced else spec.config).init(
         random.PRNGKey(0, "meta"), "meta")
     assert make_compressor(FedConfig(**fed)).wire_bytes(mine) == want
     if not reduced and not fed:

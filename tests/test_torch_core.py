@@ -217,7 +217,7 @@ def test_mixing_rule_gives_the_reference_omega(rule, graph, k):
     from repro_torch.train import FedTrainer
     want = jbuild_topology(jresolve_topology(
         JaxFedConfig(topology=graph, mixing=rule)), k).omega
-    cfg = get_arch("lenet-radar", reduced=True)
+    cfg = get_arch("lenet-radar").reduced
     trainer = FedTrainer(get_model(cfg), FedConfig(num_nodes=k,
                                                    topology=graph,
                                                    mixing=rule),

@@ -12,8 +12,10 @@ from repro_torch.kernels.block_topk import block_topk_plain
 from repro_torch.kernels.fused_compress import (carrier_norms_plain,
                                                 delta_pack_plain,
                                                 grid_quant_plain)
-from repro_torch.kernels.fused_update import (cffl_update_plain,
+from repro_torch.kernels.fused_update import (cffl_update_bf16_plain,
+                                              cffl_update_plain,
                                               dsgld_update_plain,
+                                              fused_update_bf16_plain,
                                               fused_update_plain)
 from repro_torch.kernels.pack import (pack_topk_plain, topk_select_plain,
                                       unpack_set_plain, unpack_topk_plain)
@@ -33,7 +35,7 @@ def card():
 
 def _same_bits(a, b):
     view = {torch.float32: torch.int32, torch.uint16: torch.int16,
-            torch.int8: torch.int8}[a.dtype]
+            torch.int8: torch.int8, torch.bfloat16: torch.int16}[a.dtype]
     return a.shape == b.shape and torch.equal(a.view(view), b.view(view))
 
 
@@ -59,7 +61,9 @@ def test_kernels_match_plain_versions(card, n):
         "pack": 1, "delta_pack": 1, "unpack": 1, "fused_update": 1,
         "grid_quant": 0, "qsgd": 0, "block_topk": 0, "threefry": 0,
         "topk_select": 0, "unpack_set": 0, "cffl_update": 0,
-        "dsgld_update": 0, "gossip_mix": 0, "gilbert_keep": 0}
+        "dsgld_update": 0, "gossip_mix": 0, "gilbert_keep": 0,
+        "topk_select_bf16": 0, "delta_pack_bf16": 0,
+        "fused_update_bf16": 0, "cffl_update_bf16": 0}
 
 
 @pytest.mark.parametrize("n", [6, 150, 1024, 4097, 21000])
@@ -336,7 +340,7 @@ def test_a_round_launches_its_table_kernels_once(card, overrides, once):
     from repro_torch.data.radar import make_dataset
     from repro_torch.models import get_model
     from repro_torch.train import FedTrainer
-    cfg = get_arch("lenet-radar", reduced=True)
+    cfg = get_arch("lenet-radar").reduced
     fed = FedConfig(num_nodes=3, local_steps=2, eta=1e-3, zeta=0.3,
                     temperature=0.2, burn_in=0, rounds=1, topology="full",
                     **overrides)
@@ -357,6 +361,9 @@ def _every_draw(keys, n):
     return random.together(
         random.split.program(keys, 8),
         random.fold_in.program(keys, 2**32 - 1),
+        random.fold_in.program(keys, torch.tensor(2**31 - 1,
+                                                  dtype=torch.int32,
+                                                  device=keys.device)),
         random.split_fold_in.program(keys, 8, 1),
         random.bits.program(keys, (n,)),
         random.uniform.program(keys, (n,)),
@@ -406,7 +413,7 @@ def test_seeded_round_on_the_card_draws_what_the_cpu_draws(card):
     from repro_torch.data.radar import make_dataset
     from repro_torch.models import get_model
     from repro_torch.train import FedTrainer
-    cfg = get_arch("lenet-radar", reduced=True)
+    cfg = get_arch("lenet-radar").reduced
     fed = FedConfig(num_nodes=3, local_steps=2, eta=1e-3, zeta=0.3,
                     temperature=0.2, burn_in=0, rounds=1, topology="full",
                     pipeline="block_topk|qsgd", fused_compress=True)
@@ -442,7 +449,7 @@ def _reduced_trainer(card, overrides, engine, **kw):
     from repro_torch.train import FedTrainer
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
-    cfg = get_arch("lenet-radar", reduced=True)
+    cfg = get_arch("lenet-radar").reduced
     fed = FedConfig(num_nodes=3, local_steps=2, eta=1e-3, zeta=0.3,
                     temperature=0.2, burn_in=1, rounds=6, topology="full",
                     **overrides)
@@ -807,7 +814,7 @@ def _tv_trainer(device, algorithm, engine, **kw):
     from repro_torch.train import FedTrainer
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
-    cfg = get_arch("lenet-radar", reduced=True)
+    cfg = get_arch("lenet-radar").reduced
     shards = partition_iid(make_dataset(50, hw=cfg.input_hw, day=1, seed=0),
                            5)
     return FedTrainer(get_model(cfg), _tv_fed(algorithm), shards, minibatch=5,
@@ -1017,3 +1024,117 @@ def test_graph_chunks_equal_the_host_rounds_under_transport(card, case):
     assert torch.equal(scan.key, host.key)
     if case.get("transport") == "gilbert-arq-budget":
         assert launched["gilbert_keep"] == 6
+
+
+def _bf16_operands(card, n, seed, nonfinite=False):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    theta = torch.randn((4, n), generator=gen, device=card)
+    v = torch.randn((4, n), generator=gen, device=card) * 0.1
+    if nonfinite:
+        v[0, n // 2] = float("nan")
+        v[1, :min(n, 1024)] = float("nan")
+        v[2, n - 1] = float("inf")
+        v[3, 0] = -float("inf")
+    return theta, v.to(torch.bfloat16), gen
+
+
+@pytest.mark.parametrize("n", [6, 150, 1024, 4097, 21000])
+@pytest.mark.parametrize("nonfinite", [False, True])
+def test_bf16_selection_and_pack_match_plain_versions(card, n, nonfinite):
+    """topk_select and delta-pack with v in bf16: the kernel widens v in
+    registers; bit for bit, NaN and ±inf in v included, one launch each of
+    the bf16 forms and none of the f32 ones."""
+    theta, v, _ = _bf16_operands(card, n, n, nonfinite)
+    kernels.reset_launch_counts()
+    k = max(1, -(-n // 100)) if n <= 1024 else 11
+    (vals, idx), = kernels.topk_select([theta], [k], [v])
+    want = topk_select_plain(theta, k, v=v)
+    assert _same_bits(vals, want[0]) and _same_bits(idx, want[1])
+    (vals, idx), = kernels.delta_pack([theta], [v], 11)
+    want = delta_pack_plain(theta, v, 11)
+    assert _same_bits(vals, want[0]) and _same_bits(idx, want[1])
+    counts = kernels.launch_counts()
+    assert counts["topk_select_bf16"] == counts["delta_pack_bf16"] == 1
+    assert counts["topk_select"] == counts["delta_pack"] == 0
+
+
+def _same_or_nan(a, b):
+    nan = torch.isnan(a.float())
+    return torch.equal(nan, torch.isnan(b.float())) and _same_bits(
+        torch.where(nan, 0, a), torch.where(nan, 0, b))
+
+
+@pytest.mark.parametrize("n", [1, 7, 4097, 1_000_003])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("nonfinite", [False, True])
+def test_bf16_updates_match_plain_versions(card, n, offset, nonfinite):
+    """fused_update and cffl_update with v and v̄ in bf16 (ROADMAP C23:
+    Eq. 9 reads the f32 sums, the new v, v̄ are those sums in bf16), on
+    aligned and unaligned operands: θ', v̄' and v' bit for bit (a NaN equals
+    any NaN where v holds one)."""
+    if n <= offset:
+        pytest.skip("no element past the offset")
+    theta, v, gen = _bf16_operands(card, n, n + 7, nonfinite)
+    vb = (v.float() * 0.5 + 0.01).to(torch.bfloat16)
+    dvb, dv, xi = (torch.randn((4, n), generator=gen, device=card) * s
+                   for s in (1e-2, 1e-2, 1e-3))
+    ops = [x.reshape(-1)[offset:] for x in (theta, vb, v, dvb, dv, xi)]
+    kernels.reset_launch_counts()
+    got = kernels.fused_update_bf16(*ops, 0.03, 1.0)
+    want = fused_update_bf16_plain(*ops, 0.03, 1.0)
+    assert all(_same_or_nan(g, w) for g, w in zip(got, want))
+    got = kernels.cffl_update_bf16(*ops[:5], 0.03)
+    want = cffl_update_bf16_plain(*ops[:5], 0.03)
+    assert all(_same_or_nan(g, w) for g, w in zip(got, want))
+    counts = kernels.launch_counts()
+    assert counts["fused_update_bf16"] == counts["cffl_update_bf16"] == 1
+    assert counts["fused_update"] == counts["cffl_update"] == 0
+
+
+def _keyed_loss(params, batch, key):
+    from repro_torch import random
+    y = batch["y"] + random.normal(key, tuple(batch["y"].shape))
+    return 0.5 * torch.mean((batch["x"] @ params["w"] - y) ** 2) * 10, ()
+
+
+@pytest.mark.parametrize("algorithm", ["cdbfl", "cffl"])
+def test_user_loss_in_the_graph_chunks_folds_each_rounds_index(card,
+                                                               algorithm):
+    """A per-node ``loss_fn(params, batch, key)`` on the scan engine: the
+    captured chunk folds the node keys by the device round index at each
+    replay (threefry's device counter), so two chunks of two rounds equal
+    the host engine and the rounds run with Python int indices, bit for
+    bit."""
+    from repro_torch import random
+    from repro_torch.config import FedConfig
+    from repro_torch.core import init_fed_state, make_compressor, \
+        make_round_fn, mixing_matrix
+    from repro_torch.data.partition import DeviceShards
+    from repro_torch.train import make_engine
+    from repro_torch.train.engine import one_round
+    k, l, m, dim = 4, 2, 8, 6
+    fed = FedConfig(num_nodes=k, local_steps=l, eta=2e-3, zeta=0.3,
+                    topology="ring", compressor="block_topk",
+                    compress_ratio=0.5, burn_in=1, algorithm=algorithm)
+    rng = np.random.default_rng(1)
+    shards = DeviceShards.from_shards(
+        [{"x": rng.standard_normal((20, dim)).astype(np.float32),
+          "y": rng.standard_normal(20).astype(np.float32)}
+         for _ in range(k)], card)
+    round_fn = make_round_fn(algorithm, _keyed_loss, fed,
+                             mixing_matrix("ring", k), make_compressor(fed))
+    state0 = init_fed_state({"w": torch.zeros(dim, device=card)}, fed)
+    want, key = state0, random.PRNGKey(5, card)
+    for t in range(4):
+        want, key, _ = one_round(round_fn, shards, l, m, want, key, t)
+        want = want._replace(round=t + 1)
+    for name in ("host", "scan"):
+        got, got_key, *_ = make_engine(name, round_fn, shards, l, m,
+                                       chunk=2).run(state0,
+                                                    random.PRNGKey(5, card),
+                                                    None, 4)
+        assert torch.equal(got_key, key) and got.round == 4
+        for part in ("params", "v", "v_bar"):
+            for a, b in zip(getattr(got, part).values(),
+                            getattr(want, part).values()):
+                assert _same_bits(a, b), (name, part)

@@ -64,3 +64,30 @@ def test_sample_indices_equal_reference(seed, k, l, m):
         random.PRNGKey(seed), l, m)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("alpha,seed,k", [(0.5, 0, 5), (0.1, 3, 7),
+                                          (10.0, 1, 3), (0.01, 2, 10)])
+def test_partition_dirichlet_is_byte_equal(alpha, seed, k):
+    """Label-skewed shards, the empty-shard guarantee included (alpha
+    0.01 over 10 nodes leaves some node no example)."""
+    from repro_torch.data.partition import partition_dirichlet
+    ds = jradar.make_dataset(61, hw=(32, 16), seed=seed)
+    got = partition_dirichlet(ds, k, alpha=alpha, seed=seed)
+    want = jpartition.partition_dirichlet(ds, k, alpha=alpha, seed=seed)
+    assert len(got) == len(want) == k
+    for g, w in zip(got, want):
+        for f in ("x", "y"):
+            assert g[f].dtype == w[f].dtype
+            assert g[f].tobytes() == w[f].tobytes()
+
+
+@pytest.mark.parametrize("l,m", [(1, 1), (4, 5), (8, 10)])
+def test_minibatch_stack_is_byte_equal(l, m):
+    from repro_torch.data.partition import minibatch_stack
+    shards = partition_iid(jradar.make_dataset(37, hw=(32, 16), seed=1), 4)
+    got = minibatch_stack(shards, l, m, np.random.default_rng(5))
+    want = jpartition.minibatch_stack(shards, l, m, np.random.default_rng(5))
+    for f in ("x", "y"):
+        assert got[f].shape == (4, l, m) + want[f].shape[3:]
+        assert got[f].tobytes() == want[f].tobytes()

@@ -125,7 +125,7 @@ def test_device_bank_admits_on_a_device_round_index():
 
 
 def _world():
-    cfg = get_arch("lenet-radar", reduced=True)
+    cfg = get_arch("lenet-radar").reduced
     shards = partition_iid(make_dataset(K * 20, hw=cfg.input_hw, seed=0), K)
     return cfg, shards
 
@@ -213,7 +213,7 @@ def test_scan_trainer_matches_reference_scan_trainer():
                         JaxFedConfig(**fed), shards, minibatch=M, seed=SEED,
                         engine="scan", chunk=5)
     want = ref.run(eval_batch=test)
-    port = FedTrainer(get_model(get_arch("lenet-radar", reduced=True)),
+    port = FedTrainer(get_model(get_arch("lenet-radar").reduced),
                       FedConfig(**fed), shards, minibatch=M, seed=SEED,
                       chunk=5, device="cpu")
     got = port.run(eval_batch=test)

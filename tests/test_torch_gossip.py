@@ -266,7 +266,7 @@ def test_two_rounds_on_the_graph_track_the_reference(graph, algorithm):
     shards, data_scale, params0, omega, rounds = _reference_rounds(
         graph, algorithm)
     _, fed = _feds(graph, algorithm)
-    model = get_model(get_arch("lenet-radar", reduced=True))
+    model = get_model(get_arch("lenet-radar").reduced)
     round_fn = port_alg.make_round_fn(algorithm, model.nll, fed, omega,
                                       port_compressor(fed), data_scale, "cpu")
     assert round_fn.mixer.mode == ("schedule" if graph == "ring"
@@ -290,7 +290,7 @@ def test_time_varying_draws_join_the_round_draws():
     the masks those of ``kmix`` (cdbfl and cffl: ``fold_in(key, 2)``;
     dsgld: ``split(key)[1]``), and the noise and uniforms those of the
     static graph's round; a static graph's draws are unchanged."""
-    model = get_model(get_arch("lenet-radar", reduced=True))
+    model = get_model(get_arch("lenet-radar").reduced)
     key = _port_key(jax.random.PRNGKey(4))
     for algorithm in ("cdbfl", "dsgld", "cffl"):
         _, tv = _feds("geometric-tv", algorithm)
@@ -322,7 +322,7 @@ def test_scan_engine_equals_host_engine_on_a_time_varying_graph(algorithm):
     masks are drawn inside the chunk; params, v, v̄, key, losses,
     consensus, bytes and the bank bit for bit."""
     _, fed = _feds("geometric-tv", algorithm)
-    cfg = get_arch("lenet-radar", reduced=True)
+    cfg = get_arch("lenet-radar").reduced
     shards = partition_iid(make_dataset(K * 20, hw=cfg.input_hw, seed=0), K)
     runs = []
     for engine in ("host", "scan"):
@@ -355,7 +355,7 @@ def test_time_varying_masks_add_no_draw_level(monkeypatch):
     _, fed = _feds("geometric-tv", "cdbfl")
     fed = fed.__class__(**{**vars(fed), "pipeline": "block_topk|qsgd",
                            "fused_compress": True})
-    model = get_model(get_arch("lenet-radar", reduced=True))
+    model = get_model(get_arch("lenet-radar").reduced)
     params = port_state.init_fed_state(model.init(random.PRNGKey(0), "cpu"),
                                        fed).params
     omega = build_topology(fed.topology_cfg, K).omega
@@ -388,7 +388,7 @@ def test_recorded_masks_are_the_masks_the_rounds_apply(algorithm,
     from repro.train import FedTrainer as JaxFedTrainer
     from torch_golden import round_masks
     jfed, fed = _feds("geometric-tv", algorithm)
-    cfg = get_arch("lenet-radar", reduced=True)
+    cfg = get_arch("lenet-radar").reduced
     shards = partition_iid(make_dataset(K * 20, hw=cfg.input_hw, seed=0), K)
     applied, inner_masks = [], jgossip._matching_masks
 

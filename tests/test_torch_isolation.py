@@ -59,7 +59,7 @@ def test_trainer_defaults_to_the_card():
     from repro_torch.data.radar import make_dataset
     from repro_torch.models import get_model
     from repro_torch.train import FedTrainer
-    cfg = get_arch("lenet-radar", reduced=True)
+    cfg = get_arch("lenet-radar").reduced
     fed = FedConfig(num_nodes=2, local_steps=1, burn_in=0, rounds=1,
                     fused_compress=True)
     shards = partition_iid(make_dataset(8, hw=cfg.input_hw), 2)
@@ -75,7 +75,7 @@ def test_unported_options_name_their_roadmap_item():
     from repro_torch.config import FedConfig
     # transport and participation run since ROADMAP A8 and A7 were ported
     for bad in (dict(continual=object()), dict(qsgd_levels=3),
-                dict(control_dtype="bfloat16"),
+                dict(control_dtype="float16"),
                 dict(compressor="sign_pallas")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             FedConfig(**{"fused_compress": True, **bad}).check_supported()

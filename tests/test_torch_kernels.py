@@ -21,7 +21,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.fused_compress import (carrier_norms_plain, delta_pack,
                                                 grid_quant_leaves,
                                                 grid_quant_plain)
-from repro_torch.kernels.fused_update import FORMS, fma_f32, gossip_mix_plain
+from repro_torch.kernels.fused_update import (FORMS, cffl_update_bf16,
+                                              fma_f32, fused_update_bf16,
+                                              gossip_mix_plain)
 from repro_torch.kernels.pack import (BISECT_ITERS, bisection_bounds,
                                       pack_topk, unpack_topk_plain)
 from repro_torch.kernels.qsgd import inv_one_plus, qsgd, qsgd_omega
@@ -309,11 +311,18 @@ def test_cpu_tensors_run_the_plain_versions():
                        torch.full((1, 2), 0.5), 0.0, "laplacian")
     kernels.gilbert_keep(torch.rand(2, 1), [torch.rand(2, 5)],
                          [torch.rand(2, 5)], (0.1, 0.05, 0.3, 0.0, 1.0))
+    vb = x.to(torch.bfloat16)
+    ops.topk_select_leaves([x], [11], [vb])
+    ops.fused_delta_pack_leaves([x], [vb])
+    fused_update_bf16(x, vb, vb, x, x, x, 0.03, 1.0)
+    cffl_update_bf16(x, vb, vb, x, x, 0.03)
     assert kernels.launch_counts() == {
         "pack": 0, "delta_pack": 0, "unpack": 0, "fused_update": 0,
         "grid_quant": 0, "qsgd": 0, "block_topk": 0, "threefry": 0,
         "topk_select": 0, "unpack_set": 0, "cffl_update": 0,
-        "dsgld_update": 0, "gossip_mix": 0, "gilbert_keep": 0}
+        "dsgld_update": 0, "gossip_mix": 0, "gilbert_keep": 0,
+        "topk_select_bf16": 0, "delta_pack_bf16": 0,
+        "fused_update_bf16": 0, "cffl_update_bf16": 0}
 
 
 def _mix_terms(form, k=10, seed=0):

@@ -87,7 +87,7 @@ def test_gradients_match_reference():
 def test_full_width_model_size():
     """lenet-radar at the paper's 256x63: 2,598,846 parameters, fc1.w is
     (11712, 220) — the reference's shapes, leaf for leaf."""
-    cfg = get_arch("lenet-radar")
+    cfg = get_arch("lenet-radar").config
     p = get_model(cfg).init(random.PRNGKey(0, "meta"), "meta")
     shapes = {k: tuple(v.shape) for k, v in tree_leaves_with_path(p)}
     ref = jax.eval_shape(lambda k: jlenet.init_lenet(
@@ -104,7 +104,7 @@ def test_init_equals_reference(seed):
     """``init_lenet(cfg, PRNGKey(seed))`` equals the reference's
     ``init_lenet(PRNGKey(seed), cfg)`` bit for bit, leaf for leaf (reduced
     width; the full width's shapes are held above)."""
-    cfg = get_arch("lenet-radar", reduced=True)
+    cfg = get_arch("lenet-radar").reduced
     want = jlenet.init_lenet(jax.random.PRNGKey(seed),
                              jax_get_arch("lenet-radar").reduced)
     got = get_model(cfg).init(random.PRNGKey(seed), "cpu")

@@ -244,17 +244,26 @@ def test_participation_draws_join_the_round_levels(monkeypatch):
     """Stragglers and a lossy transport add no launch to a round: the
     straggler key and uniforms ride the levels of the round's split and
     node keys, the transport's salt, node, leaf and attempt keys the first
-    three levels, its Bernoulli uniforms the draws' level."""
+    three levels, its Bernoulli uniforms the draws' level. The set-up's
+    draws (``init_fed_state``'s node keys, before the round) are not the
+    round's and are left out."""
+    from repro_torch.config import FedConfig
+    from repro_torch.core import init_fed_state
     from repro_torch.kernels import threefry
     transport, participation = WORLDS["stragglers"]()
     calls = []
     draw = threefry.draw
     monkeypatch.setattr(threefry, "draw",
                         lambda reqs: calls.append(len(reqs)) or draw(reqs))
-    torch_faults.run_port_world("host", "cdbfl", rounds=1)
-    plain = list(calls)
-    calls.clear()
-    torch_faults.run_port_world("host", "cdbfl", transport=transport,
-                                rounds=1, participation=participation)
-    assert len(calls) == len(plain) == 5
-    assert sum(calls) > sum(plain)
+    init_fed_state({"w": torch.zeros(1)}, FedConfig(num_nodes=torch_faults.K))
+    setup = len(calls)
+
+    def round_draws(**kw):
+        calls.clear()
+        torch_faults.run_port_world("host", "cdbfl", rounds=1, **kw)
+        return calls[setup:]
+
+    plain = round_draws()
+    lossy = round_draws(transport=transport, participation=participation)
+    assert len(lossy) == len(plain) == 5
+    assert sum(lossy) > sum(plain)

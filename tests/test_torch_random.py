@@ -72,6 +72,18 @@ def test_fold_in_equals_reference(data):
                    jax.random.fold_in(key, data))
 
 
+@pytest.mark.parametrize("data", [0, 7, 2**31 - 1])
+def test_fold_in_by_a_tensor_index_equals_reference(data):
+    """A one-element int32 tensor as ``fold_in``'s data (the engines' device
+    round index) folds as the int does, for one key and for a batch."""
+    key = jax.random.PRNGKey(42)
+    index = torch.tensor(data, dtype=torch.int32)
+    _same_bits(random.fold_in(_key(key), index), jax.random.fold_in(key, data))
+    keys = jax.random.split(key, 4)
+    _same_bits(random.fold_in(_key(keys), index),
+               jax.vmap(lambda k: jax.random.fold_in(k, data))(keys))
+
+
 @pytest.mark.parametrize("shape", SIZES)
 def test_bits_and_uniform_equal_reference(shape):
     key = jax.random.PRNGKey(sum(shape))
@@ -201,7 +213,7 @@ def test_round_keys_cost_one_launch_a_level(monkeypatch):
     node keys, the leaf keys, the draws) plus the engine's own split."""
     fed = FedConfig(num_nodes=3, local_steps=2, pipeline="block_topk|qsgd",
                     fused_compress=True)
-    model = get_model(get_arch("lenet-radar", reduced=True))
+    model = get_model(get_arch("lenet-radar").reduced)
     params = init_fed_state(model.init(random.PRNGKey(0), "cpu"), fed).params
     omega = np.full((3, 3), 1 / 3, np.float32)
     round_fn = make_cdbfl_round(model.nll, fed, omega, make_compressor(fed),

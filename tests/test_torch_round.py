@@ -156,7 +156,7 @@ def reference():
 
 def _port_round(shards, data_scale, overrides=None):
     fed = FedConfig(**dict(FED, **(overrides or {})))
-    model = get_model(get_arch("lenet-radar", reduced=True))
+    model = get_model(get_arch("lenet-radar").reduced)
     omega = build_topology(resolve_topology(JaxFedConfig(**FED)), K).omega
     return (port_alg.make_cdbfl_round(model.nll, fed, omega,
                                       port_compressor(fed), data_scale, "cpu"),

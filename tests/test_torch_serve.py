@@ -374,7 +374,7 @@ def _trainers(rounds, eval_every=0, burn_in=2):
     ref = JaxFedTrainer(jax_get_model(model_cfg), JaxFedConfig(**fed), shards,
                         minibatch=6, eval_batch_size=8, engine="host")
     want = ref.run(rounds=rounds, eval_batch=test, eval_every=eval_every)
-    port = FedTrainer(get_model(get_arch("lenet-radar", reduced=True).replace(
+    port = FedTrainer(get_model(get_arch("lenet-radar").reduced.replace(
         input_hw=HW)), FedConfig(**fed), shards, minibatch=6,
         eval_batch_size=8, device="cpu")
     got = port.run(rounds=rounds, eval_batch=test, eval_every=eval_every)
@@ -419,7 +419,7 @@ def test_trainer_predictor_falls_back_to_the_params_before_burn_in():
     shards = partition_iid(make_dataset(3 * 12, hw=HW, day=1, seed=0), 3,
                            seed=0)
     test = make_dataset(24, hw=HW, day=2, seed=5)
-    tr = FedTrainer(get_model(get_arch("lenet-radar", reduced=True).replace(
+    tr = FedTrainer(get_model(get_arch("lenet-radar").reduced.replace(
         input_hw=HW)), FedConfig(**dict(TRAIN_FED, burn_in=100)), shards,
         minibatch=6, eval_batch_size=8, device="cpu")
     tr.run(rounds=2)
@@ -449,7 +449,7 @@ def test_cli_follows_snapshots_with_a_swap_mid_stream(tmp_path, capsys):
     from repro_torch import random
     from repro_torch.checkpoint import save_bank
     from repro_torch.launch.serve import main
-    model = get_model(get_arch("lenet-radar", reduced=True))
+    model = get_model(get_arch("lenet-radar").reduced)
     p = model.init(random.PRNGKey(3, "cpu"), "cpu")
     bank = tree_map(lambda x: torch.stack([torch.stack([x, x + 0.01])] * 2),
                     p)
@@ -501,7 +501,8 @@ def _check_serve_golden():
     golden = np.load(SERVE_BMA_FILE)
     c = json.loads(str(golden["config"]))
     assert c == SERVE_CONFIG
-    cfg = get_arch(c["arch"], reduced=c["reduced"])
+    spec = get_arch(c["arch"])
+    cfg = spec.reduced if c["reduced"] else spec.config
     model = get_model(cfg)
     bank = synthetic_bank(model, c["seed"], c["samples"], "cpu")
     ds = port_dataset(c["requests"], hw=cfg.input_hw, seed=c["seed"] + 7)

@@ -46,7 +46,7 @@ def _check_trainer_against_reference(pipeline, wire):
                         minibatch=M, seed=SEED, engine="host")
     want = ref.run(eval_batch=test)
 
-    port = FedTrainer(get_model(get_arch("lenet-radar", reduced=True)),
+    port = FedTrainer(get_model(get_arch("lenet-radar").reduced),
                       FedConfig(**fed), shards, minibatch=M, seed=SEED,
                       device="cpu")
     got = port.run(eval_batch=test)
@@ -78,7 +78,7 @@ def test_baseline_trainers_match_reference(algorithm):
     ref = JaxFedTrainer(jax_get_model(model_cfg), JaxFedConfig(**fed), shards,
                         minibatch=M, seed=SEED, engine="host")
     want = ref.run(eval_batch=test)
-    port = FedTrainer(get_model(get_arch("lenet-radar", reduced=True)),
+    port = FedTrainer(get_model(get_arch("lenet-radar").reduced),
                       FedConfig(**fed), shards, minibatch=M, seed=SEED,
                       engine="host", device="cpu")
     got = port.run(eval_batch=test)

@@ -7,6 +7,10 @@ PyTorch port's tests and for ``chip_smoke.py``, which reads them on the card.
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py serve-bma
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py topology-rounds
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py transport-rounds
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py bf16-rounds
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py claims-smoke
+    PYTHONPATH=src python tests/torch_golden.py claims-port
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py claims-nudged
 
 ``threefry`` writes ``tests/golden/threefry_draws.npz``: ``jax.random``'s
 keys, bits, uniforms, normals, truncated normals and randints for the cases
@@ -52,6 +56,25 @@ bytes, retransmits, airtime and energy a node, its participation vector
 and its ``(M, K)`` mixer masks (the SNR outage composed in); and, under
 ``cli``, the header and accounting lines the reference's training CLI
 prints for :data:`TRANSPORT_CLI_ARGV` over two rounds.
+
+``bf16-rounds`` writes ``tests/golden/bf16_rounds_lenet_radar.json``: the
+same record for :data:`BF16_RUNS`, the runs of ``chip_smoke.py``'s phase
+11 (b) with ``control_dtype="bfloat16"``: the paper's default cdbfl, the
+fused ``block_topk`` (the seeded-rounds configuration) and cffl; with the
+control state's ‖v‖₂ and ‖v̄‖₂ after the last round, and under
+``f32_control`` the loss, consensus and norms of the same run with
+float32 control variates.
+
+``claims-smoke`` writes ``tests/golden/claims_smoke_lenet_radar.json``: the
+reference's ``repro.eval.matrix.run_claims_smoke(CLAIMS_SPEC)`` (reduced
+LeNet, 60 rounds of cdbfl and cffl, the clean and days-2/3 critical cells)
+on the CPU at its seed 0 and re-seeded to 1 (under ``other_seeds``): its
+claims, failures, warnings, each cell's row and each algorithm's per-round
+loss, which ``chip_smoke.py`` prints beside the port's run on the card.
+``claims-port`` runs the port's slice on the CPU at both seeds and prints
+it beside that record, with the first round where each loss departs;
+``claims-nudged`` runs the reference's own slice with its training maps
+one ulp up, beside the same record: the second witness.
 
 ``serve-bma`` writes ``tests/golden/serve_bma_lenet_radar.npz``: the
 reference's BMA probabilities and predictive entropies
@@ -359,8 +382,27 @@ def round_masks(fed, omega, key, rounds: int):
     return out
 
 
-def seeded_rounds(c: dict, command: str) -> dict:
-    """The reference's host-engine run of configuration ``c``."""
+def control_norms(state) -> dict:
+    """‖v‖₂ and ‖v̄‖₂ of a ``FedState`` (the reference's or the port's), over
+    every node and leaf, summed in float64 from the stored values."""
+    def norm(tree):
+        leaves = tree.values() if isinstance(tree, dict) else tree
+        total = 0.0
+        for x in leaves:
+            if isinstance(x, dict):
+                total += norm(x) ** 2
+                continue
+            if hasattr(x, "detach"):        # a torch tensor
+                x = x.detach().cpu().double().numpy()
+            x = np.asarray(x, np.float64)
+            total += float(np.dot(x.ravel(), x.ravel()))
+        return total ** 0.5
+    return {"v_norm": norm(state.v), "v_bar_norm": norm(state.v_bar)}
+
+
+def seeded_rounds(c: dict, command: str, norms: bool = False) -> dict:
+    """The reference's host-engine run of configuration ``c``; with
+    ``norms``, the control state's :func:`control_norms` after it."""
     import jax
     from repro.config import FedConfig, TopologyConfig, get_arch
     from repro.data.partition import partition_iid
@@ -392,6 +434,8 @@ def seeded_rounds(c: dict, command: str) -> dict:
         "wire_bytes": [float(x) for x in res.wire_history],
         "seconds": time.time() - t0,
     }
+    if norms:
+        record.update(control_norms(trainer.state))
     if tc or c["fed"].get("topology", "full") != "full":
         record["masks"] = round_masks(fed, trainer.omega,
                                       jax.random.PRNGKey(c["seed"] + 1),
@@ -449,6 +493,165 @@ def write_transport_rounds() -> None:
           f"{records['cli']['lines']}")
 
 
+# chip_smoke.py's phase-11 runs: the paper-default cdbfl, the fused
+# block_topk and cffl, each with bfloat16 control variates
+BF16_ROUNDS_FILE = GOLDEN / "bf16_rounds_lenet_radar.json"
+BF16_RUNS = {
+    "cdbfl": dict(baseline_config("cdbfl"), fed=dict(
+        baseline_config("cdbfl")["fed"], control_dtype="bfloat16")),
+    "fused": dict(SEEDED_CONFIG, fed=dict(SEEDED_CONFIG["fed"],
+                                          control_dtype="bfloat16")),
+    "cffl": dict(baseline_config("cffl"), fed=dict(
+        baseline_config("cffl")["fed"], control_dtype="bfloat16")),
+}
+
+
+def write_bf16_rounds() -> None:
+    """Each bf16 run with its control norms, and under ``f32_control`` the
+    same run with float32 control variates: what a run that lost the bf16
+    rounding would read."""
+    records = {}
+    for name, c in BF16_RUNS.items():
+        records[name] = seeded_rounds(c, "bf16-rounds", norms=True)
+        f32 = seeded_rounds(dict(c, fed=dict(c["fed"],
+                                             control_dtype="float32")),
+                            "bf16-rounds", norms=True)
+        records[name]["f32_control"] = {
+            k: f32[k] for k in ("loss", "consensus", "v_norm", "v_bar_norm")}
+    BF16_ROUNDS_FILE.write_text(json.dumps(records, indent=1) + "\n")
+    print(f"wrote {BF16_ROUNDS_FILE}: "
+          f"{ {n: (r['loss'], r['wire_bytes']) for n, r in records.items()} }")
+
+
+CLAIMS_FILE = GOLDEN / "claims_smoke_lenet_radar.json"
+# CLAIMS_SPEC's own seed, then a second witness: the same slice re-seeded
+CLAIMS_SEEDS = (0, 1)
+
+
+def claims_record(matrix, trainer_cls, seed: int, **kw) -> dict:
+    """``matrix.run_claims_smoke(CLAIMS_SPEC re-seeded to seed)`` (the
+    reference's or the port's ``eval.matrix``; ``kw`` goes to the call):
+    its claims, failures, warnings, each cell's row and each algorithm's
+    per-round mean loss, kept by wrapping ``trainer_cls.run``."""
+    import dataclasses
+    losses = {}
+    run = trainer_cls.run
+
+    def recording_run(self, *args, **kwargs):
+        res = run(self, *args, **kwargs)
+        losses[self.fed_cfg.algorithm] = [float(x) for x in res.loss_history]
+        return res
+
+    trainer_cls.run = recording_run
+    try:
+        t0 = time.time()
+        out = matrix.run_claims_smoke(
+            dataclasses.replace(matrix.CLAIMS_SPEC, seed=seed), log=None,
+            **kw)
+    finally:
+        trainer_cls.run = run
+    return {
+        "claims": {k: (float(v) if not isinstance(v, str) else v)
+                   for k, v in out["claims"].items()},
+        "failures": out["failures"], "warnings": out["warnings"],
+        "cells": [{k: (float(v) if not isinstance(v, str) else v)
+                   for k, v in c.row().items()} for c in out["cells"]],
+        "loss_history": losses,
+        "seconds": time.time() - t0,
+    }
+
+
+def claims_departure(got: list, want: list) -> dict:
+    """The first round (1-based; None if none) where the per-round mean
+    loss ``got`` leaves ``want`` at all, and beyond rtol 1e-6 and 1e-3."""
+    rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    return {f"first_{name}": next((i + 1 for i, r in enumerate(rel)
+                                   if r > tol), None)
+            for name, tol in (("bit", 0.0), ("1e-6", 1e-6),
+                              ("1e-3", 1e-3))}
+
+
+def write_claims_smoke() -> None:
+    import repro.eval.matrix as matrix
+    from repro.train import FedTrainer
+    seeds = {seed: claims_record(matrix, FedTrainer, seed)
+             for seed in CLAIMS_SEEDS}
+    record = {
+        "command": "JAX_PLATFORMS=cpu PYTHONPATH=src python "
+                   "tests/torch_golden.py claims-smoke",
+        "reference": "repro.eval.matrix.run_claims_smoke(CLAIMS_SPEC) on "
+                     "the CPU",
+        **seeds[CLAIMS_SEEDS[0]],
+        "other_seeds": {str(s): seeds[s] for s in CLAIMS_SEEDS[1:]},
+    }
+    CLAIMS_FILE.write_text(json.dumps(record, indent=1) + "\n")
+    print(f"wrote {CLAIMS_FILE}: "
+          f"{ {s: r['claims'] for s, r in seeds.items()} }")
+
+
+def claims_golden(seed: int) -> dict:
+    """The reference's record of the claims slice at ``seed``."""
+    want = json.loads(CLAIMS_FILE.read_text())
+    return want if seed == CLAIMS_SEEDS[0] else want["other_seeds"][str(seed)]
+
+
+def compare_claims_port() -> None:
+    """The port's claims slice on the CPU at every recorded seed, beside
+    the reference's record: each cell's accuracy and ECE, the claims, and
+    where each algorithm's per-round loss first leaves the reference's.
+    Runs without JAX."""
+    import repro_torch.eval.matrix as matrix
+    from repro_torch.train import FedTrainer
+    for seed in CLAIMS_SEEDS:
+        want = claims_golden(seed)
+        got = claims_record(matrix, FedTrainer, seed, device="cpu")
+        print(f"seed {seed}: port on the CPU {got['seconds']:.1f} s; "
+              f"failures {got['failures']} (reference {want['failures']}); "
+              f"warnings {len(got['warnings'])} (reference "
+              f"{len(want['warnings'])})")
+        for g, w in zip(got["cells"], want["cells"]):
+            print(f"  {g['algorithm']} {g['scenario']}@{g['severity']}: "
+                  f"accuracy {g['accuracy']!r} (reference "
+                  f"{w['accuracy']!r}), ECE {g['ece']!r} (reference "
+                  f"{w['ece']!r})")
+        for alg, hist in got["loss_history"].items():
+            print(f"  {alg} loss by round: "
+                  f"{claims_departure(hist, want['loss_history'][alg])}; "
+                  f"round 60 {hist[-1]!r} (reference "
+                  f"{want['loss_history'][alg][-1]!r})")
+
+
+def compare_claims_nudged() -> None:
+    """The reference's claims slice at every recorded seed with its training
+    maps nudged by one ulp (every element of ``x`` to the next float32 up),
+    beside its own record: how far a last-bit difference in the local steps,
+    the kind the port's convolutions make, carries over 60 rounds."""
+    import repro.eval.matrix as matrix
+    from repro.train import FedTrainer
+    make_dataset = matrix.make_dataset
+
+    def nudged(*args, **kwargs):
+        ds = dict(make_dataset(*args, **kwargs))
+        ds["x"] = np.nextafter(ds["x"], np.float32(np.inf))
+        return ds
+
+    matrix.make_dataset = nudged
+    try:
+        for seed in CLAIMS_SEEDS:
+            want = claims_golden(seed)
+            got = claims_record(matrix, FedTrainer, seed)
+            for g, w in zip(got["cells"], want["cells"]):
+                print(f"seed {seed} {g['algorithm']} {g['scenario']}@"
+                      f"{g['severity']}: nudged accuracy {g['accuracy']!r} "
+                      f"(recorded {w['accuracy']!r}), ECE {g['ece']!r} "
+                      f"(recorded {w['ece']!r})")
+            for alg, hist in got["loss_history"].items():
+                print(f"seed {seed} {alg} loss by round: "
+                      f"{claims_departure(hist, want['loss_history'][alg])}")
+    finally:
+        matrix.make_dataset = make_dataset
+
+
 # the serving CLI's synthetic bank and requests (launch/serve.py defaults)
 SERVE_CONFIG = dict(arch="lenet-radar", reduced=False, seed=0, samples=4,
                     requests=32, maps=8)
@@ -487,4 +690,8 @@ if __name__ == "__main__":
          "baseline-rounds": write_baseline_rounds,
          "serve-bma": write_serve_bma,
          "topology-rounds": write_topology_rounds,
-         "transport-rounds": write_transport_rounds}[name]()
+         "transport-rounds": write_transport_rounds,
+         "bf16-rounds": write_bf16_rounds,
+         "claims-smoke": write_claims_smoke,
+         "claims-port": compare_claims_port,
+         "claims-nudged": compare_claims_nudged}[name]()
