@@ -211,6 +211,39 @@ Phases, each of which fails the run by raising:
              ``examples/quickstart.py``'s program on the port
              (``tests/torch_quickstart.py``, K=8, 400 rounds): relative
              error below 0.1 and the reference's 336 bytes a round.
+12. drift  — drift, continual posteriors and unlearning (ROADMAP A9):
+             phase 7's cdbfl with burn-in 1 and bank thin 1 under a
+             days-2/3 critical drift at full severity in round 1 only
+             (a piecewise schedule back to its base pool in round 2; a
+             2-round bank window, age decay 0.9). (a) The host engine, 4
+             rounds, its launch counts set to 0 just before and read just
+             after: rounds 1-3 against the reference's CPU run
+             (``tests/golden/drift_rounds_lenet_radar.json``: bytes
+             exact, loss and consensus within rtol 1e-3, each round's
+             severity exact), the caller's pool untouched. (b) The scan
+             engine, chunks split at the segments (lengths 1, 1, 2: the
+             chunk of 1 captured and replayed), bit for bit the host run
+             (params, v, v̄, key, bank slots and rounds, loss, consensus,
+             bytes); its own pool equal to the base pool from round 2 on
+             (ROADMAP C26); the aged scan eval against the host eval on
+             the day-1 and shift sets and the weighted predictor against
+             the eval, bit for bit. (c) ``unlearn(9)`` on the host, the
+             scan (f32 bank) and an int8-bank scan run: the node's rows
+             zero (int8 scales 1.0), the reports moved and equal across
+             the f32 engines, 2 more rounds bit for bit, no chunk length
+             captured again. (d) A replayed chunk on the drifted pool
+             beside the run without ``continual``, in turns; a phase
+             refresh's synthesis, upload and ``set_shards`` times; the
+             ``set_shards`` copy against its byte bound; ``unlearn``'s
+             ms. (e) The README's two drift commands through the train
+             CLI at full width, 4 rounds: header, drift and bank lines
+             equal to the reference CLI's, eval lines' fields equal and
+             numbers within one example and 1e-3. (f) The drift-recovery
+             gate and the unlearn oracle on the card beside the
+             reference's record (``tests/golden/drift_claims_lenet_radar
+             .json``): probes finite, the drift biting, no claim broken
+             that the reference keeps (it breaks the recovery claim
+             itself: ROADMAP C27), the oracle within tolerance.
 
 Phase 2 also holds gilbert_keep, the burst channel's frame recurrence
 as a warp scan of 2-bit state maps, to its plain version, bit for bit,
@@ -326,9 +359,11 @@ from torch_golden import (BASELINE_ROUNDS_FILE, BOUNDARY_K,  # noqa: E402
                           THREEFRY_FILE, TOPOLOGY_ROUNDS_FILE, TOPOLOGY_RUNS,
                           TRANSPORT_CLI_LINES, TRANSPORT_COLUMNS,
                           TRANSPORT_ROUNDS_FILE, TRANSPORT_RUNS,
-                          CLAIMS_SEEDS, baseline_config, boundary_blocks,
-                          claims_departure, claims_golden, claims_record,
-                          control_norms, port_draw)
+                          CLAIMS_SEEDS, DRIFT_CLAIMS_FILE, DRIFT_CLI_LINES,
+                          DRIFT_CONFIG, DRIFT_ROUNDS_FILE, baseline_config,
+                          boundary_blocks, claims_departure, claims_golden,
+                          claims_record, control_norms, drift_claims_record,
+                          port_draw)
 
 DEVICE = "cuda"
 REDUCED = False                                    # full lenet-radar width
@@ -3516,6 +3551,472 @@ def run_phase11(shapes, timing, train, test, evals):
     return errs, bf16_timing, counts
 
 
+# --------------------------------------------------------------------------
+# phase 12: drift, continual posteriors and unlearning (ROADMAP A9)
+# --------------------------------------------------------------------------
+
+# the kernels the drift run's path launches (phase 7's cdbfl path)
+DRIFT_LAUNCHED = ("topk_select", "unpack_set", "fused_update", "threefry")
+# rounds the drift run's scan engine takes a chunk: its segments (1, 1, 2)
+# give chunks of 1, 1 and 2, so the chunk of 1 is captured and replayed
+DRIFT_CHUNK = 2
+UNLEARN_NODE = 9
+UNLEARN_MORE_ROUNDS = 2
+# the eval lines' numbers of the CLI against the reference CLI's: accuracy
+# within one of its 128 examples, the rest within 1e-3 (the card sums the
+# convolutions in other orders, phase 7)
+CLI_EVAL_EXAMPLES = 128
+CLI_EVAL_ATOL = 1e-3
+
+
+def drift_continual():
+    from repro_torch.config import ContinualConfig
+    c = DRIFT_CONFIG["continual"]
+    return ContinualConfig(**dict(c, breakpoints=tuple(
+        tuple(b) for b in c["breakpoints"])))
+
+
+def drift_config(continual: bool = True) -> FedConfig:
+    """Phase 7's cdbfl configuration with the recorded run's burn-in and,
+    with ``continual``, its drift and bank aging."""
+    return default_config("cdbfl", DRIFT_CONFIG["rounds"],
+                          burn_in=DRIFT_CONFIG["fed"]["burn_in"],
+                          continual=drift_continual() if continual else None)
+
+
+def drift_trainer(train, engine: str, continual: bool = True,
+                  bank_dtype: str = "float32"):
+    from repro_torch.train import FedTrainer
+    return FedTrainer(get_model(lenet_config()), drift_config(continual),
+                      partition_iid(train, K), minibatch=MINIBATCH, seed=0,
+                      engine=engine, chunk=DRIFT_CHUNK,
+                      bank_thin=DRIFT_CONFIG["bank_thin"],
+                      bank_dtype=bank_dtype, device=DEVICE)
+
+
+def pool_copy(shards) -> dict:
+    return {f: v.clone() for f, v in shards.data.items()}
+
+
+def same_pool(label: str, data: dict, want: dict) -> None:
+    """Two pools equal byte for byte, compared on the card."""
+    if set(data) != set(want) or not all(
+            data[f].dtype == want[f].dtype and torch.equal(data[f], want[f])
+            for f in want):
+        raise AssertionError(f"{label}: the pool differs from the base pool")
+
+
+def same_runs(label: str, got, want) -> None:
+    """Two trainers' params, v, v̄, key and banks (samples and admission
+    rounds) bit for bit."""
+    for part in ("params", "v", "v_bar"):
+        same_tensors(f"{label} {part}", tree_leaves(getattr(got.state, part)),
+                     tree_leaves(getattr(want.state, part)))
+    same_tensors(f"{label} key", [got.key], [want.key])
+    gs, ws = got.bank.samples, want.bank.samples
+    if len(gs) != len(ws):
+        raise AssertionError(f"{label}: banks of {len(gs)} and {len(ws)}")
+    for a, b in zip(gs, ws):
+        same_tensors(f"{label} bank", tree_leaves(a), tree_leaves(b))
+    rounds = [list(map(int, t.bank_cfg.rounds_list(t._bank_state)))
+              if not hasattr(t._bank_state, "samples")
+              else list(t._bank_state.rounds) for t in (got, want)]
+    if rounds[0] != rounds[1]:
+        raise AssertionError(f"{label}: bank rounds {rounds}")
+
+
+def check_drift_host(train):
+    """Phase 12 (a): the host engine, 4 rounds, its launch counts set to 0
+    just before and read just after; rounds 1-3 against the reference's
+    (``tests/golden/drift_rounds_lenet_radar.json``): bytes exact, loss and
+    consensus within rtol 1e-3, each round's severity exact; the caller's
+    pool untouched and the engine back on it (C26)."""
+    want = json.loads(DRIFT_ROUNDS_FILE.read_text())
+    fed = drift_config()
+    mine = dict(DRIFT_CONFIG, reduced=REDUCED, train_maps=K * 50,
+                minibatch=MINIBATCH,
+                fed={k: getattr(fed, k) for k in want["config"]["fed"]})
+    if want["config"] != json.loads(json.dumps(mine)):
+        raise AssertionError(f"{DRIFT_ROUNDS_FILE.name} ran "
+                             f"{want['config']}, this run is {mine}")
+    trainer = drift_trainer(train, "host")
+    base = pool_copy(trainer.device_shards)
+    kernels.reset_launch_counts()
+    res = trainer.run(rounds=fed.rounds)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    missing = [k for k in DRIFT_LAUNCHED if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"drift: the host run never launched {missing}")
+    sched = trainer._refresher.schedule
+    sev = [float(sched.severity_at(t)) for t in range(fed.rounds)]
+    if sev != want["severity"]:
+        raise AssertionError(f"drift: severities {sev}, the reference's "
+                             f"{want['severity']}")
+    n = 3
+    if res.wire_history != want["wire_bytes"]:
+        raise AssertionError(f"drift: bytes {res.wire_history}, the "
+                             f"reference's {want['wire_bytes']}")
+    for metric, got in (("loss", res.loss_history),
+                        ("consensus", res.consensus_history)):
+        if not np.allclose(got[:n], want[metric][:n], rtol=1e-3, atol=0):
+            raise AssertionError(f"drift: {metric} {got} differs from the "
+                                 f"reference's {want[metric]}")
+    same_pool("drift host: the caller's pool", trainer.device_shards.data,
+              base)
+    if trainer._engine.shards is not trainer.device_shards:
+        raise AssertionError("drift host: the engine is not back on the "
+                             "base pool after the schedule's return")
+    rel = lambda a, b: [abs(x - y) / abs(y) for x, y in zip(a, b)]  # noqa
+    log("drift", f"(a) host engine, 4 rounds: severities {sev} (the "
+                 f"reference's, exact); losses {res.loss_history} vs "
+                 f"{want['loss']} (rel. {rel(res.loss_history, want['loss'])})"
+                 f"; consensus {res.consensus_history} vs {want['consensus']} "
+                 f"(rel. {rel(res.consensus_history, want['consensus'])}); "
+                 f"rounds 1-{n} within rtol 1e-3; bytes "
+                 f"{res.wire_history[0]:,.0f} a node a round (exact); bank "
+                 f"rounds {trainer._bank_state.rounds}; launches "
+                 f"{ {k: v for k, v in launches.items() if v} }")
+    return trainer, res, base, launches
+
+
+def check_drift_scan(train, host, hres, base, test, shift):
+    """Phase 12 (b): the scan engine on the same run, chunks split at the
+    segments: bit for bit the host run; the aged scan eval against the
+    host eval on both test sets; the weighted predictor against the eval;
+    a chunk length's graph captured once."""
+    want = json.loads(DRIFT_ROUNDS_FILE.read_text())
+    scan = drift_trainer(train, "scan")
+    kernels.reset_launch_counts()
+    res = scan.run(rounds=DRIFT_CONFIG["rounds"])
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    engine = scan._engine
+    if sorted(engine._graphs) != [1, 2]:
+        raise AssertionError(f"drift scan: graphs of chunk lengths "
+                             f"{sorted(engine._graphs)}, want [1, 2]")
+    if (res.loss_history != hres.loss_history
+            or res.consensus_history != hres.consensus_history
+            or res.wire_history != hres.wire_history):
+        raise AssertionError("drift scan: metrics differ from the host "
+                             "run's")
+    same_runs("drift scan", scan, host)
+    same_pool("drift scan: the caller's pool", scan.device_shards.data, base)
+    same_pool("drift scan: the engine's pool at round 2 on",
+              engine.shards.data, base)
+    stacked, weights = scan._posterior()
+    hstacked, hweights = host._posterior()
+    if weights is None or not np.array_equal(weights, hweights) or \
+            weights.tolist() != want["weights"]:
+        raise AssertionError(f"drift: age weights {weights}, host "
+                             f"{hweights}, reference {want['weights']}")
+    model = scan.model
+    reports = {}
+    for name, data in (("day-1", test), ("days-2/3 shift", shift)):
+        srep, sprobs = ScanEvalEngine(model.logits).evaluate(
+            stacked, data, node_axis=1, return_probs=True, weights=weights)
+        hrep, hprobs = HostEvalEngine(model.logits).evaluate(
+            hstacked, data, node_axis=1, return_probs=True, weights=hweights)
+        same_probs(f"drift aged eval {name}", sprobs, hprobs)
+        same_report(f"drift aged eval {name}", srep, hrep)
+        trep, tprobs = scan.eval_report(data, return_probs=True)
+        same_probs(f"drift eval_report {name}", tprobs, sprobs)
+        same_report(f"drift eval_report {name}", trep, srep)
+        reports[name] = srep
+    head = {f: v[:EVAL_BATCH] for f, v in test.items()}
+    pred = scan.predictor()
+    probs, _ = pred.predict({"x": head["x"]})
+    _, eprobs = scan.eval_report(head, return_probs=True)
+    same_probs("drift weighted predictor", probs.cpu().numpy(), eprobs)
+    if not pred._weighted:
+        raise AssertionError("drift: the predictor took no weights")
+    r1, r2 = reports["day-1"], reports["days-2/3 shift"]
+    log("drift", f"(b) scan engine, chunks {list(engine.capture_ms)} "
+                 f"captured (capture ms "
+                 f"{ {k: round(v, 1) for k, v in engine.capture_ms.items()} }"
+                 f"), the chunk of 1 replayed: params, v, v̄, key, bank "
+                 f"slots and rounds, losses, consensus and bytes equal to "
+                 f"the host run bit for bit; the caller's pool untouched "
+                 f"and the engine's own pool equal to it byte for byte from "
+                 f"round 2 on (C26); age weights {weights.tolist()} (the "
+                 f"reference's); aged scan eval equal to the host eval bit "
+                 f"for bit, every report field: day-1 accuracy "
+                 f"{r1.accuracy:.4f} ECE {r1.ece:.4f} (reference "
+                 f"{want['eval_day1']['accuracy']:.4f}, "
+                 f"{want['eval_day1']['ece']:.4f}), shift accuracy "
+                 f"{r2.accuracy:.4f} ECE {r2.ece:.4f} (reference "
+                 f"{want['eval_shift']['accuracy']:.4f}, "
+                 f"{want['eval_shift']['ece']:.4f}); the weighted predictor "
+                 f"equal to eval_report on {EVAL_BATCH} maps; launches "
+                 f"{ {k: v for k, v in launches.items() if v} }")
+    return scan, reports
+
+
+def check_unlearn(train, host, scan, test):
+    """Phase 12 (c): ``unlearn(9)`` on the host run, the scan run (f32
+    bank) and a scan run with an int8 bank: node 9's rows of v and v̄ and
+    of the bank zero (int8 scales 1.0), the reports equal across the f32
+    engines and changed by the unlearn; then 2 more rounds on each, bit for
+    bit across the f32 engines, no chunk length captured again. Returns the
+    ms of each unlearn."""
+    int8 = drift_trainer(train, "scan", bank_dtype="int8")
+    int8.run(rounds=DRIFT_CONFIG["rounds"])
+    ms, before, after = {}, {}, {}
+    trainers = {"host": host, "scan": scan, "scan int8": int8}
+    for name, tr in trainers.items():
+        before[name] = tr.eval_report(test)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.unlearn(UNLEARN_NODE)
+        torch.cuda.synchronize()
+        ms[name] = 1e3 * (time.perf_counter() - t0)
+        for part in ("v", "v_bar"):
+            if any(bool(x[UNLEARN_NODE].any())
+                   for x in tree_leaves(getattr(tr.state, part))):
+                raise AssertionError(f"unlearn {name}: {part} row kept")
+        bs = tr._bank_state
+        if hasattr(bs, "samples"):
+            rows = [x[UNLEARN_NODE] for s in bs.samples
+                    for x in tree_leaves(s)]
+        else:
+            rows = [x[:, UNLEARN_NODE] for x in tree_leaves(bs.slots)]
+            if bs.scales is not None and not all(
+                    bool((x[:, UNLEARN_NODE] == 1.0).all())
+                    for x in tree_leaves(bs.scales)):
+                raise AssertionError(f"unlearn {name}: scales not 1.0")
+        if any(bool(r.any()) for r in rows):
+            raise AssertionError(f"unlearn {name}: bank rows kept")
+        after[name] = tr.eval_report(test, return_probs=True)
+        if after[name][0].ece == before[name].ece or not math.isfinite(
+                after[name][0].ece):
+            raise AssertionError(f"unlearn {name}: the report did not move")
+    same_probs("unlearn: scan eval_report", after["scan"][1],
+               after["host"][1])
+    same_report("unlearn: scan eval_report", after["scan"][0],
+                after["host"][0])
+    captures = {n: sorted(trainers[n]._engine.capture_ms)
+                for n in ("scan", "scan int8")}
+    for tr in trainers.values():
+        tr.run(rounds=UNLEARN_MORE_ROUNDS)
+    same_runs("unlearn, 2 more rounds: scan", scan, host)
+    for name in ("scan", "scan int8"):
+        got = sorted(trainers[name]._engine.capture_ms)
+        if got != captures[name]:
+            raise AssertionError(f"unlearn {name}: captured {got} after "
+                                 f"{captures[name]}")
+    for part in ("params", "v", "v_bar"):
+        same_tensors(f"unlearn int8 {part}",
+                     tree_leaves(getattr(int8.state, part)),
+                     tree_leaves(getattr(host.state, part)))
+    log("drift", f"(c) unlearn({UNLEARN_NODE}) on the host engine, the scan "
+                 f"engine (f32 bank) and the scan engine with an int8 bank: "
+                 f"node {UNLEARN_NODE}'s rows of v, v̄ and the bank zero "
+                 f"(int8 scales 1.0); day-1 ECE "
+                 + ", ".join(f"{n} {before[n].ece:.4f} -> "
+                             f"{after[n][0].ece:.4f}" for n in trainers)
+                 + "; the f32 engines' reports equal bit for bit; "
+                 f"{UNLEARN_MORE_ROUNDS} more rounds: scan equal to host "
+                 f"bit for bit (params, v, v̄, key, bank), the int8 run's "
+                 f"params, v, v̄ too, no chunk length captured again "
+                 f"({captures}); unlearn ms "
+                 f"{ {n: round(v, 3) for n, v in ms.items()} }")
+    del int8
+    torch.cuda.empty_cache()
+    return ms
+
+
+def time_drift(train, scan, unlearn_ms) -> dict:
+    """Phase 12 (d): a replayed chunk of 2 on the drifted pool beside the
+    same run without ``continual``; one phase refresh's host ms (synthesis,
+    upload, ``set_shards``); the device ms of the ``set_shards`` copy
+    against its byte bound."""
+    from repro_torch.train.drift import make_refresher
+    from repro_torch.data.scenarios import make_drift_shards
+    from repro_torch.data.partition import DeviceShards
+    engine = scan._engine
+    fresh = make_refresher(scan.continual, scan.device_shards)
+    sched = fresh.schedule
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    maps = make_drift_shards(sched, 1, fresh.sizes, fresh.hw)
+    t1 = time.perf_counter()
+    pool = DeviceShards.from_shards(maps, scan.device)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    fresh._cache[float(sched.severity_at(1))] = pool
+    fresh.refresh(engine, 1)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    same_pool("drift refresh", engine.shards.data, pool.data)
+    nbytes = sum(2 * v.numel() * v.element_size()
+                 for v in list(pool.data.values()) + [pool.size_tensor])
+    copy_ms = device_ms(lambda: engine.set_shards(pool), reps=5, per_rep=10)
+    bound_ms, _ = bound(nbytes, 0)
+    plain = drift_trainer(train, "scan", continual=False)
+    plain.run(rounds=2)
+    # in turns: drifted, plain, drifted, plain
+    t, pt, turns = scan._round, 2, []
+    for _ in range(2):
+        wall, busy, _, t = time_replay(engine, t, 2)
+        pwall, pbusy, _, pt = time_replay(plain._engine, pt, 2)
+        turns.append((wall, busy, pwall, pbusy))
+    out = dict(synth_ms=1e3 * (t1 - t0), upload_ms=1e3 * (t2 - t1),
+               install_ms=1e3 * (t3 - t2), copy_ms=copy_ms,
+               copy_bound_ms=bound_ms, nbytes=nbytes, turns=turns)
+    log("drift", f"(d) on {card_line()}: a replayed chunk of 2, ms a round "
+                 f"(device ms), in turns: "
+                 + "; ".join(f"drifted pool {w:.3f} ({b:.3f}), the same run "
+                             f"without continual {pw:.3f} ({pb:.3f})"
+                             for w, b, pw, pb in turns)
+                 + "; one phase refresh on the host: synthesis "
+                 f"of {K} x {fresh.sizes[0]} maps at {fresh.hw} "
+                 f"{out['synth_ms']:.1f} ms, upload {out['upload_ms']:.1f} "
+                 f"ms, set_shards {out['install_ms']:.3f} ms; the "
+                 f"set_shards copy {copy_ms:.4f} device ms (CUDA events, "
+                 f"median of 5 x 10) against its byte bound "
+                 f"{bound_ms:.4f} ms ({nbytes:,} B read and written at "
+                 f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, "
+                 f"{100 * bound_ms / copy_ms:.0f}%); unlearn "
+                 f"{ {n: round(v, 3) for n, v in unlearn_ms.items()} } ms")
+    del plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def cli_eval_fields(line: str):
+    """An eval line's fixed part (through ``S=``, and whether it ends in
+    `` aged``) and its four numbers."""
+    head, rest = line.split(" acc=")
+    aged = rest.endswith(" aged")
+    nums = [float(p.split("=")[1]) for p in ("acc=" + rest).split()[:4]]
+    return (head, aged), nums
+
+
+def run_drift_cli() -> dict:
+    """Phase 12 (e): the README's two drift commands at full width
+    (``DRIFT_CLI_RUNS``), each in-process, its launch counts set to 0 just
+    before and read just after: the header, drift and bank lines equal to
+    the reference CLI's, each eval line's round, scenario, severity,
+    sample count and aged suffix equal, its numbers within one example
+    (accuracy) and 1e-3 of the reference's."""
+    cli = json.loads(DRIFT_ROUNDS_FILE.read_text())["cli"]
+    counts = {}
+    for name, rec in cli.items():
+        log("drift", "python -m repro_torch.launch.train "
+                     + " ".join(rec["argv"]))
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(buf):
+            train_cli.main(rec["argv"])
+        torch.cuda.synchronize()
+        counts[name] = kernels.launch_counts()
+        lines = buf.getvalue().splitlines()
+        for ln in lines:
+            log("drift", "| " + ln)
+        got = [ln for ln in lines if ln.startswith(DRIFT_CLI_LINES)]
+        fixed = lambda ls: [ln for ln in ls  # noqa: E731
+                            if not ln.startswith("eval  round")]
+        if fixed(got) != fixed(rec["lines"]):
+            raise AssertionError(f"CLI {name}: {fixed(got)} differ from the "
+                                 f"reference CLI's {fixed(rec['lines'])}")
+        evals = [ln for ln in got if ln.startswith("eval  round")]
+        wevals = [ln for ln in rec["lines"] if ln.startswith("eval  round")]
+        if len(evals) != len(wevals) or not evals:
+            raise AssertionError(f"CLI {name}: eval lines {evals}")
+        for g, w in zip(evals, wevals):
+            (gh, gn), (wh, wn) = cli_eval_fields(g), cli_eval_fields(w)
+            if gh != wh or abs(gn[0] - wn[0]) > 1 / CLI_EVAL_EXAMPLES + 1e-4 \
+                    or any(abs(a - b) > CLI_EVAL_ATOL
+                           for a, b in zip(gn[1:], wn[1:])):
+                raise AssertionError(f"CLI {name}: {g!r} against the "
+                                     f"reference's {w!r}")
+            log("drift", f"reference: {w}")
+        if not any(ln.endswith(" aged") for ln in evals):
+            raise AssertionError(f"CLI {name}: no aged eval")
+        missing = [k for k in DRIFT_LAUNCHED if counts[name][k] <= 0]
+        if missing:
+            raise AssertionError(f"CLI {name}: never launched {missing}")
+        log("drift", f"(e) CLI {name}: {time.perf_counter() - t0:.1f} s "
+                     f"in-process; header, drift and bank lines equal the "
+                     f"reference CLI's; eval lines' fields equal, numbers "
+                     f"within bounds; launches "
+                     f"{ {k: v for k, v in counts[name].items() if v} }")
+        torch.cuda.empty_cache()
+    return counts
+
+
+def claim_kind(failure: str) -> str:
+    """A drift-claims failure without its numbers: which claim broke and
+    how."""
+    return "never returned" if "never returned" in failure else "too slow"
+
+
+def run_drift_claims_on_card() -> None:
+    """Phase 12 (f): ``run_drift_claims(DRIFT_CLAIMS_SPEC)`` and
+    ``run_unlearn_oracle(CLAIMS_SPEC)`` on the card, beside the reference's
+    record: every probe finite, cdbfl's calibration leaving its band after
+    onset (the drift bites), no claim broken that the reference's own CPU
+    run keeps (its record breaks the recovery claim: ROADMAP C27), and the
+    unlearn oracle within tolerance."""
+    import repro_torch.eval.matrix as matrix
+    want = json.loads(DRIFT_CLAIMS_FILE.read_text())
+    got = drift_claims_record(matrix, device=DEVICE)
+    for alg, curve in got["curves"].items():
+        ref = want["curves"][alg]
+        for p, q in zip(curve["probes"], ref["probes"]):
+            log("claims", f"drift {alg} round {p['round']:.0f} sev "
+                          f"{p['severity']:g}: acc {p['accuracy']:.4f} ECE "
+                          f"{p['ece']:.4f} (reference {q['accuracy']:.4f}, "
+                          f"{q['ece']:.4f})")
+        log("claims", f"drift {alg}: pre-drift ECE {curve['pre_ece']:.4f}, "
+                      f"excursion {curve['excursion_round']}, recovery "
+                      f"{curve['recovery_round']}, rounds to recovery "
+                      f"{curve['rounds_to_recovery']} (reference "
+                      f"{ref['pre_ece']:.4f}, {ref['excursion_round']}, "
+                      f"{ref['recovery_round']}, {ref['rounds_to_recovery']})")
+    u, w = got["unlearn"], want["unlearn"]
+    log("claims", f"unlearn(node {u['target']}): acc "
+                  f"{u['unlearn']['accuracy']:.4f} ECE "
+                  f"{u['unlearn']['ece']:.4f}, retrain oracle acc "
+                  f"{u['oracle']['accuracy']:.4f} ECE {u['oracle']['ece']:.4f}"
+                  f"; |Δacc| {u['delta_accuracy']:.4f} |ΔECE| "
+                  f"{u['delta_ece']:.4f} (reference {w['delta_accuracy']:.4f}"
+                  f", {w['delta_ece']:.4f}; tolerances "
+                  f"{matrix.UNLEARN_ACC_TOL}, {matrix.UNLEARN_ECE_TOL})")
+    log("claims", f"drift claims: failures {got['failures']} (reference "
+                  f"{want['failures']}), {got['drift_seconds']:.1f} s; "
+                  f"unlearn oracle {got['unlearn_seconds']:.1f} s")
+    probes = [p for c in got["curves"].values() for p in c["probes"]]
+    if not all(math.isfinite(p["ece"]) and math.isfinite(p["accuracy"])
+               for p in probes):
+        raise AssertionError("drift claims: a probe is not finite")
+    if got["curves"]["cdbfl"]["excursion_round"] is None:
+        raise AssertionError("drift claims: cdbfl's calibration never left "
+                             "its band: the drift did not bite")
+    kept = ({claim_kind(f) for f in got["failures"]}
+            - {claim_kind(f) for f in want["failures"]})
+    if kept:
+        raise AssertionError(f"drift claims: {got['failures']}, claims the "
+                             f"reference keeps")
+    if not u["within_tolerance"]:
+        raise AssertionError(f"unlearn oracle out of tolerance: {u}")
+
+
+def run_phase12(train, test, shift) -> dict:
+    """Phase 12. Returns the drift host run's launch counts."""
+    log("drift", f"on {card_line()}")
+    host, hres, base, launches = check_drift_host(train)
+    scan, _ = check_drift_scan(train, host, hres, base, test, shift)
+    unlearn_ms = check_unlearn(train, host, scan, test)
+    time_drift(train, scan, unlearn_ms)
+    del host, scan
+    torch.cuda.empty_cache()
+    run_drift_cli()
+    run_drift_claims_on_card()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3593,6 +4094,7 @@ def main() -> int:
                                                         train, test, evals)
     errs.update(bf16_errs)
     timing.update(bf16_timing)
+    run_phase12(train, test, shift)
     log("default", "accuracy / ECE, day-1 test maps and days-2/3 shift set: "
                    + "; ".join(f"{a}: {e['accuracy']:.4f} / {e['ece']:.4f}, "
                                f"{e['shift_accuracy']:.4f} / "

@@ -3,9 +3,10 @@
 A copy of the subset of ``repro/config.py`` this package runs, with the same
 defaults (``FedConfig``: ``config.py:285-327`` of the reference, every
 field; ``TransportConfig`` and ``ParticipationConfig``: ``:120-210``;
-``ServeConfig``: ``:255-282``). Values the port does not run yet
-raise :class:`NotImplementedError` naming the ROADMAP item that ports them,
-so a config can never silently select a path that is missing here.
+``ContinualConfig``: ``:212-252``; ``ServeConfig``: ``:255-282``). Values
+the port does not run yet raise :class:`NotImplementedError` naming the
+ROADMAP item that ports them, so a config can never silently select a path
+that is missing here.
 """
 from __future__ import annotations
 
@@ -128,6 +129,49 @@ class ParticipationConfig:
 
 
 @dataclass(frozen=True)
+class ContinualConfig:
+    """Streaming drift and continual posterior refresh (DESIGN.md §15).
+
+    Pure data: the drift half is interpreted by
+    ``repro_torch.data.scenarios.DriftSchedule`` (severity trajectories
+    pure in ``(seed, round)``), the refresh half by the bank's age weights
+    (window eviction and age-discounted BMA weights).
+    ``FedTrainer(continual=...)`` and ``launch/train.py
+    --drift/--refresh-*`` read it.
+    """
+    # -- drift schedule over the node-local training distribution --------
+    scenario: str = "clean"       # shift family (repro_torch.data.scenarios);
+    #                               "clean" = no drift, bitwise unchanged
+    schedule: str = "step"        # constant | step | ramp | cyclic | piecewise
+    severity: float = 0.0         # plateau / peak severity in [0, 1]
+    base_severity: float = 0.0    # pre-onset severity (keeps caller shards)
+    onset: int = 0                # first drifted round
+    ramp_rounds: int = 0          # ramp duration (0 degenerates to step)
+    period: int = 0               # cyclic period in rounds
+    breakpoints: Tuple[Tuple[int, float], ...] = ()   # piecewise knots
+    refresh_every: int = 1        # rounds per drift phase (pool re-draw)
+    drift_seed: int = 0           # drift-synthesis stream seed
+    # -- continual posterior refresh (bank aging) ------------------------
+    # >0: posterior samples older than this many rounds are evicted from
+    # the BMA (their weight masks to zero): the moving-window posterior
+    window: int = 0
+    # <1: BMA weight decay**age (age in rounds since admission),
+    # renormalized over the surviving window
+    decay: float = 1.0
+
+    @property
+    def drifts(self) -> bool:
+        return self.scenario not in ("", "clean")
+
+    @property
+    def ages(self) -> bool:
+        return self.window > 0 or self.decay < 1.0
+
+    def replace(self, **kw) -> "ContinualConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     """The LeNet fields of the reference ``ModelConfig``."""
     name: str = "model"
@@ -154,11 +198,6 @@ _SUPPORTED = {
                   "k_regular", "erdos_renyi", "geometric"),
                  "A4 (graph families)"),
 }
-# fields the port runs only at None, and the item that ports the rest
-_UNSET_ONLY = {
-    "continual": "A9 (drift and continual learning)",
-}
-
 
 @dataclass(frozen=True)
 class FedConfig:
@@ -191,7 +230,7 @@ class FedConfig:
     control_dtype: str = "float32"  # v / v̄ storage
     transport: Optional["TransportConfig"] = None
     participation: Optional["ParticipationConfig"] = None
-    continual: Optional[Any] = None       # a ContinualConfig (A9)
+    continual: Optional[ContinualConfig] = None
     seed: int = 0
 
     def check_supported(self) -> None:
@@ -202,11 +241,6 @@ class FedConfig:
                 raise NotImplementedError(
                     f"FedConfig.{name}={value!r} is not ported yet "
                     f"(runs: {ok}); ROADMAP {item}")
-        for name, item in _UNSET_ONLY.items():
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"FedConfig.{name} is not ported yet (runs: None); "
-                    f"ROADMAP {item}")
 
 
 @dataclass(frozen=True)

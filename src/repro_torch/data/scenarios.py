@@ -6,7 +6,10 @@ family, each a pure function of ``(seed, severity)`` over the port's
 ``make_scenario_dataset`` returns arrays byte-equal to the reference's.
 ``severity`` is a scalar in [0, 1]: 0 is (close to) the clean day-1
 distribution, 1 the strongest configured corruption. The streaming drift
-schedules (``DriftSchedule``, ``make_drift_shards``) are ROADMAP A9.
+part (``:260-392``): :class:`DriftSchedule`, a severity trajectory over
+training rounds pure in ``(seed, round)``, and :func:`make_drift_shards`,
+each node's pool at a round's scheduled severity, byte-equal to the
+reference's.
 
     from repro_torch.data.scenarios import make_scenario_dataset
     ds = make_scenario_dataset("gain_drift", severity=0.7, num_examples=200,
@@ -244,3 +247,140 @@ register_scenario(Scenario(
     spec_fn=lambda rng, s: ShiftSpec(),   # unused (group_fn covers all)
     group_fn=_hetero_groups,
 ))
+
+
+# --------------------------------------------------------------------------
+# Streaming drift: time-varying severity schedules (DESIGN.md §15)
+# --------------------------------------------------------------------------
+
+# per-node offset into the drift synthesis stream: each node draws its
+# phase dataset from an independent, stable seed (documented in §15 so
+# the purity tests can reconstruct the exact streams)
+_DRIFT_NODE_STRIDE = 7919
+
+
+@dataclass(frozen=True)
+class DriftSchedule:
+    """Severity trajectory s(t) over training rounds — pure in (seed, round).
+
+    ``severity_at(t)`` is a deterministic function of the static schedule
+    fields and the integer round, quantized to ``refresh_every``-round
+    phases (the super-round granularity at which the engines re-draw the
+    training pool). It composes with every registered shift family: the
+    scheduled severity feeds :func:`make_scenario_dataset`, which is
+    itself pure in (scenario, severity, seed), so the whole drifting data
+    stream is bitwise-reproducible from ``(seed, round)``.
+
+    Kinds:
+
+    * ``constant`` — ``severity`` everywhere (degenerate schedule).
+    * ``step``     — ``base`` before ``onset``, ``severity`` after (the
+      paper's day-boundary re-configuration, made abrupt).
+    * ``ramp``     — linear ``base``→``severity`` over ``ramp_rounds``
+      starting at ``onset`` (slow sensor drift).
+    * ``cyclic``   — raised-cosine oscillation ``base``↔``severity`` with
+      period ``period`` from ``onset`` (diurnal factory cycles).
+    * ``piecewise``— explicit ``breakpoints`` ((round, severity), sorted);
+      ``base`` before the first breakpoint.
+
+    A phase whose severity equals ``base`` keeps the caller's original
+    training shards untouched (bitwise — the no-drift trajectory), so a
+    schedule is a strict extension of static training until onset.
+    """
+    scenario: str = "clean"
+    kind: str = "step"            # constant | step | ramp | cyclic | piecewise
+    severity: float = 0.0         # plateau / peak severity
+    base: float = 0.0             # pre-onset severity
+    onset: int = 0                # first drifted round (step/ramp/cyclic)
+    ramp_rounds: int = 0          # ramp duration; 0 degenerates to step
+    period: int = 0               # cyclic period in rounds
+    breakpoints: Tuple[Tuple[int, float], ...] = ()
+    refresh_every: int = 1        # phase quantization in rounds
+    seed: int = 0                 # drift-synthesis stream seed
+
+    def __post_init__(self):
+        if self.kind not in ("constant", "step", "ramp", "cyclic",
+                             "piecewise"):
+            raise ValueError(f"unknown drift kind {self.kind!r}")
+        if self.kind == "cyclic" and self.period <= 0:
+            raise ValueError("cyclic drift needs period > 0")
+        if self.kind == "piecewise" and not self.breakpoints:
+            raise ValueError("piecewise drift needs breakpoints")
+        get_scenario(self.scenario)   # fail fast on unknown families
+
+    # -- the pure trajectory ------------------------------------------------
+    def phase(self, t: int) -> int:
+        """Phase index of round ``t`` (severity is constant per phase)."""
+        return int(t) // max(1, int(self.refresh_every))
+
+    def severity_at(self, t: int) -> float:
+        """Scheduled severity for round ``t`` (phase-quantized, pure)."""
+        tq = self.phase(t) * max(1, int(self.refresh_every))
+        if self.kind == "constant":
+            return float(self.severity)
+        if self.kind == "piecewise":
+            s = float(self.base)
+            for r, sev in sorted(self.breakpoints):
+                if tq >= r:
+                    s = float(sev)
+            return s
+        if tq < self.onset:
+            return float(self.base)
+        if self.kind == "step":
+            return float(self.severity)
+        if self.kind == "ramp":
+            if self.ramp_rounds <= 0:
+                return float(self.severity)
+            frac = min(1.0, (tq - self.onset) / float(self.ramp_rounds))
+            return _lerp(self.base, self.severity, frac)
+        # cyclic: raised cosine base -> severity -> base over `period`
+        frac = 0.5 - 0.5 * np.cos(2.0 * np.pi * (tq - self.onset)
+                                  / float(self.period))
+        return _lerp(self.base, self.severity, float(frac))
+
+    def onset_round(self) -> int:
+        """First round whose scheduled severity differs from ``base``
+        (the drift-onset marker the recovery gate measures from)."""
+        if self.kind == "constant":
+            return 0 if self.severity != self.base else 1 << 30
+        if self.kind == "piecewise":
+            for r, sev in sorted(self.breakpoints):
+                if float(sev) != float(self.base):
+                    return int(r)
+            return 1 << 30
+        return int(self.onset)
+
+
+def make_drift_schedule(cfg) -> Optional[DriftSchedule]:
+    """Build a :class:`DriftSchedule` from a
+    :class:`repro_torch.config.ContinualConfig` (None when no drift is
+    configured — scenario "clean" or an identically-``base`` schedule)."""
+    if cfg is None or cfg.scenario in ("", "clean"):
+        return None
+    return DriftSchedule(
+        scenario=cfg.scenario, kind=cfg.schedule, severity=cfg.severity,
+        base=cfg.base_severity, onset=cfg.onset,
+        ramp_rounds=cfg.ramp_rounds, period=cfg.period,
+        breakpoints=tuple(tuple(bp) for bp in cfg.breakpoints),
+        refresh_every=cfg.refresh_every, seed=cfg.drift_seed)
+
+
+def make_drift_shards(schedule: DriftSchedule, t: int,
+                      sizes: List[int], hw: Tuple[int, int]
+                      ) -> List[Dict[str, np.ndarray]]:
+    """Per-node training shards for round ``t``'s scheduled severity.
+
+    Node ``k`` synthesizes its own ``sizes[k]``-example cell from the
+    stable stream ``seed + _DRIFT_NODE_STRIDE * (k + 1)`` — independent
+    across nodes, bitwise-reproducible in ``(schedule, t, sizes, hw)``,
+    and identical whenever two rounds share a severity (cyclic schedules
+    revisit the same dataset, the continual-training setting of arXiv
+    2504.15328).
+    """
+    sev = schedule.severity_at(t)
+    return [
+        make_scenario_dataset(
+            schedule.scenario, sev, int(n), hw=hw,
+            seed=schedule.seed + _DRIFT_NODE_STRIDE * (k + 1))
+        for k, n in enumerate(sizes)
+    ]

@@ -1,5 +1,5 @@
 """Scenario × algorithm × pipeline calibration matrix
-(``repro/eval/matrix.py:1-356``).
+(``repro/eval/matrix.py``).
 
 Evaluates trained models (fresh training runs or checkpointed params)
 across the shift-family registry (``repro_torch.data.scenarios``) through
@@ -12,8 +12,13 @@ when the paper's transferable calibration-under-shift claims break.
 Every cell trains on the reduced LeNet with the reference's seeds, so a
 cell is the reference's cell within the port's last-bit differences.
 Trainers run on ``device`` (the card by default; ``"cpu"`` runs every
-kernel's plain version). The drift-recovery and unlearning gates
-(``matrix.py:360-610``) are ROADMAP A9.
+kernel's plain version).
+
+The drift-recovery gate and the unlearning oracle (``matrix.py:356-610``,
+DESIGN.md §15): :func:`run_drift_recovery` probes a continual run's
+calibration through a step drift, :func:`run_drift_claims` gates cdbfl's
+recovery, and :func:`run_unlearn_oracle` holds ``FedTrainer.unlearn``
+to a retrain without the node.
 """
 from __future__ import annotations
 
@@ -25,8 +30,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch import random
-from repro_torch.config import (FedConfig, ParticipationConfig,
-                                TransportConfig, get_arch)
+from repro_torch.config import (ContinualConfig, FedConfig,
+                                ParticipationConfig, TransportConfig,
+                                get_arch)
 from repro_torch.data.partition import partition_iid
 from repro_torch.data.radar import make_dataset
 from repro_torch.data.scenarios import make_scenario_dataset
@@ -337,4 +343,245 @@ def run_claims_smoke(spec: MatrixSpec = CLAIMS_SPEC, log=print,
             "cdbfl_acc_drop": cd0.accuracy - cd.accuracy,
             "cffl_acc_drop": cf0.accuracy - cf.accuracy,
         },
+    }
+
+
+# --------------------------------------------------------------------------
+# the drift-recovery gate and the unlearning oracle (matrix.py:356-610)
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class DriftRecoverySpec:
+    """A continual-training run probed for calibration recovery.
+
+    A step drift of ``severity`` hits at ``onset`` (after the bank holds
+    pre-drift samples), training goes on on the drifted pool, and every
+    ``probe_every`` rounds the current distribution's held-out cell is
+    scored. The pre-drift steady state is the mean ECE of the
+    post-burn-in, pre-onset probes; an excursion is the first post-onset
+    probe whose ECE leaves the ``pre_ece + recover_eps`` band, and recovery
+    the first probe after it back inside. A run whose calibration never
+    leaves the band recovers in zero rounds. A run is a function of the
+    spec."""
+    scenario: str = "day23_critical"
+    severity: float = 1.0
+    schedule: str = "step"        # step | ramp (the drift-rate knob)
+    ramp_rounds: int = 0          # ramp duration; 0 = abrupt step
+    rounds: int = 90
+    onset: int = 45
+    probe_every: int = 5
+    refresh_every: int = 5
+    burn_in: int = 20
+    # bank aging so the moving posterior sheds pre-drift samples: window
+    # eviction after `window` rounds and an exponential age discount
+    window: int = 25
+    decay: float = 0.9
+    nodes: int = 5
+    per_node: int = 24
+    local_steps: int = 8
+    minibatch: int = 10
+    eta: float = 3e-3
+    zeta: float = 0.3
+    temperature: float = 0.2
+    compressor: str = "topk"
+    compress_ratio: float = 0.01
+    topology: str = "full"
+    eval_examples: int = 200
+    eval_batch_size: int = 64
+    seed: int = 0
+    arch: str = "lenet-radar"
+    recover_eps: float = 0.05
+
+
+#: the claims gate's bound: cdbfl's calibration back within ``recover_eps``
+#: of its pre-drift steady state no later than this many rounds after
+#: onset (DRIFT_CLAIMS_SPEC scale; the reference records 25 rounds at the
+#: claims seed, 40 for the uncompressed dsgld baseline)
+DRIFT_RECOVERY_MAX_ROUNDS = 30
+
+DRIFT_CLAIMS_SPEC = DriftRecoverySpec()
+
+
+def run_drift_recovery(spec: DriftRecoverySpec, algorithm: str = "cdbfl",
+                       log=print, device="cuda") -> Dict[str, object]:
+    """Train ``algorithm`` through the spec's drift on ``device``; return
+    the probe curve and the recovery summary: ``{"algorithm", "probes",
+    "pre_ece", "onset", "excursion_round", "recovery_round",
+    "rounds_to_recovery"}``. ``excursion_round`` is None when the drift
+    never leaves the band (``rounds_to_recovery`` is then 0);
+    ``recovery_round`` is None when calibration never comes back (and
+    ``rounds_to_recovery`` None). ``rounds_to_recovery`` counts from
+    ``onset``."""
+    from repro_torch.train import FedTrainer   # the trainer imports eval
+    cfg = get_arch(spec.arch).reduced
+    model = get_model(cfg)
+    train = make_dataset(spec.nodes * spec.per_node, hw=cfg.input_hw,
+                         day=1, seed=spec.seed)
+    shards = partition_iid(train, spec.nodes, seed=spec.seed)
+    cont = ContinualConfig(
+        scenario=spec.scenario, schedule=spec.schedule,
+        severity=spec.severity, onset=spec.onset,
+        ramp_rounds=spec.ramp_rounds, refresh_every=spec.refresh_every,
+        window=spec.window, decay=spec.decay, drift_seed=spec.seed)
+    fed = FedConfig(
+        num_nodes=spec.nodes, local_steps=spec.local_steps, eta=spec.eta,
+        zeta=spec.zeta, rounds=spec.rounds, burn_in=spec.burn_in,
+        compressor=spec.compressor, compress_ratio=spec.compress_ratio,
+        topology=spec.topology, temperature=spec.temperature,
+        algorithm=algorithm, seed=spec.seed,
+    )
+    tr = FedTrainer(model, fed, shards, minibatch=spec.minibatch,
+                    seed=spec.seed, eval_batch_size=spec.eval_batch_size,
+                    continual=cont, device=device)
+    sched = tr._refresher.schedule
+    probes: List[Dict[str, float]] = []
+    done = 0
+    while done < spec.rounds:
+        n = min(spec.probe_every, spec.rounds - done)
+        tr.run(rounds=n)
+        done += n
+        now = int(tr.state.round)
+        sev = float(sched.severity_at(now - 1))
+        ds = make_scenario_dataset(spec.scenario, sev, spec.eval_examples,
+                                   hw=cfg.input_hw, seed=spec.seed + 90)
+        rep = tr.eval_report(ds)
+        probes.append({"round": float(now), "severity": sev,
+                       "accuracy": rep.accuracy, "ece": rep.ece,
+                       "entropy": rep.entropy})
+        if log:
+            log(f"  [{algorithm}] round {now:3d} sev={sev:.2f} "
+                f"acc={rep.accuracy:.4f} ece={rep.ece:.4f}")
+    pre = [p["ece"] for p in probes
+           if spec.burn_in < p["round"] <= spec.onset]
+    pre_ece = float(np.mean(pre)) if pre else float("nan")
+    band = pre_ece + spec.recover_eps
+    excursion_round = None
+    recovery_round = None
+    for p in probes:
+        if p["round"] <= spec.onset or p["severity"] == 0.0:
+            continue
+        if excursion_round is None:
+            if p["ece"] > band:
+                excursion_round = int(p["round"])
+        elif p["ece"] <= band:
+            recovery_round = int(p["round"])
+            break
+    if excursion_round is None:
+        rounds_to_recovery = 0        # calibration never left the band
+    elif recovery_round is None:
+        rounds_to_recovery = None     # left the band and never came back
+    else:
+        rounds_to_recovery = recovery_round - spec.onset
+    return {
+        "algorithm": algorithm,
+        "probes": probes,
+        "pre_ece": pre_ece,
+        "onset": spec.onset,
+        "excursion_round": excursion_round,
+        "recovery_round": recovery_round,
+        "rounds_to_recovery": rounds_to_recovery,
+    }
+
+
+def run_drift_claims(spec: DriftRecoverySpec = DRIFT_CLAIMS_SPEC,
+                     max_rounds: int = DRIFT_RECOVERY_MAX_ROUNDS,
+                     log=print, device="cuda") -> Dict[str, object]:
+    """The drift-recovery claims gate: cdbfl must recover calibration
+    within ``max_rounds`` of onset; the uncompressed dsgld baseline runs
+    beside it, reported and not gated."""
+    failures: List[str] = []
+    out: Dict[str, object] = {"curves": {}}
+    for algorithm in ("cdbfl", "dsgld"):
+        res = run_drift_recovery(spec, algorithm=algorithm, log=log,
+                                 device=device)
+        out["curves"][algorithm] = res
+        if algorithm == "cdbfl":
+            if res["rounds_to_recovery"] is None:
+                failures.append(
+                    f"drift-recovery claim broke: cdbfl ECE never returned "
+                    f"within {spec.recover_eps} of the pre-drift steady "
+                    f"state {res['pre_ece']:.4f} after onset at round "
+                    f"{spec.onset}")
+            elif res["rounds_to_recovery"] > max_rounds:
+                failures.append(
+                    f"drift-recovery claim broke: cdbfl took "
+                    f"{res['rounds_to_recovery']} rounds to recover "
+                    f"calibration (> {max_rounds})")
+    out["failures"] = failures
+    out["claims"] = {
+        "drift_scenario": spec.scenario,
+        "drift_severity": spec.severity,
+        "drift_onset": spec.onset,
+        "cdbfl_pre_ece": out["curves"]["cdbfl"]["pre_ece"],
+        "cdbfl_rounds_to_recovery":
+            out["curves"]["cdbfl"]["rounds_to_recovery"],
+        "dsgld_rounds_to_recovery":
+            out["curves"]["dsgld"]["rounds_to_recovery"],
+    }
+    return out
+
+
+#: unlearn-against-retrain tolerances (DESIGN.md §15): unlearning drops the
+#: node's chain and zeroes its control variates but cannot rewind what its
+#: past gossip did to the other chains (the reference records about 0.05
+#: accuracy and 0.022 ECE at the oracle's seed)
+UNLEARN_ACC_TOL = 0.10
+UNLEARN_ECE_TOL = 0.06
+
+
+def run_unlearn_oracle(spec: MatrixSpec = CLAIMS_SPEC,
+                       scenario: str = "clean", severity: float = 0.0,
+                       log=print, device="cuda") -> Dict[str, object]:
+    """Unlearn the last node and compare with the retrain oracle: cdbfl on
+    K nodes, node K-1 unlearned, against a run from scratch on the same
+    first K-1 shards with ``num_nodes=K-1``. Every surviving node keeps its
+    global id, and with it its draws and shard."""
+    from repro_torch.train import FedTrainer   # the trainer imports eval
+    cfg = get_arch(spec.arch).reduced
+    model = get_model(cfg)
+    train = make_dataset(spec.nodes * spec.per_node, hw=cfg.input_hw,
+                         day=1, seed=spec.seed)
+    shards = partition_iid(train, spec.nodes, seed=spec.seed)
+    ds = make_scenario_dataset(scenario, severity, spec.eval_examples,
+                               hw=cfg.input_hw, seed=spec.seed + 90)
+
+    def build(num_nodes: int, node_shards):
+        fed = FedConfig(
+            num_nodes=num_nodes, local_steps=spec.local_steps, eta=spec.eta,
+            zeta=spec.zeta, rounds=spec.rounds,
+            burn_in=int(spec.rounds * spec.burn_in_frac),
+            compressor=spec.compressor, compress_ratio=spec.compress_ratio,
+            topology=spec.topology, temperature=spec.temperature,
+            algorithm="cdbfl", seed=spec.seed,
+        )
+        return FedTrainer(model, fed, node_shards, minibatch=spec.minibatch,
+                          seed=spec.seed,
+                          eval_batch_size=spec.eval_batch_size,
+                          device=device)
+
+    target = spec.nodes - 1
+    tr = build(spec.nodes, shards)
+    tr.run(rounds=spec.rounds)
+    tr.unlearn(target)
+    rep_unlearn = tr.eval_report(ds)
+
+    oracle = build(spec.nodes - 1, shards[:target])
+    oracle.run(rounds=spec.rounds)
+    rep_oracle = oracle.eval_report(ds)
+
+    d_acc = abs(rep_unlearn.accuracy - rep_oracle.accuracy)
+    d_ece = abs(rep_unlearn.ece - rep_oracle.ece)
+    if log:
+        log(f"  unlearn(node {target}): acc={rep_unlearn.accuracy:.4f} "
+            f"ece={rep_unlearn.ece:.4f} | retrain oracle: "
+            f"acc={rep_oracle.accuracy:.4f} ece={rep_oracle.ece:.4f} | "
+            f"|Δacc|={d_acc:.4f} |Δece|={d_ece:.4f}")
+    return {
+        "target": target,
+        "unlearn": rep_unlearn,
+        "oracle": rep_oracle,
+        "delta_accuracy": d_acc,
+        "delta_ece": d_ece,
+        "within_tolerance": bool(d_acc <= UNLEARN_ACC_TOL
+                                 and d_ece <= UNLEARN_ECE_TOL),
     }

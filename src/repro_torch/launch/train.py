@@ -9,10 +9,14 @@ over the graph of ``--topology`` by the lowering the reference's
 ``--gossip-pairs``), and routes each layer through its codec pipeline
 under ``--layer-pipelines``, sends the payloads through the lossy D2D
 transport under ``--transport``/``--erasure``/``--arq``/``--toa``/
-``--snr-db`` and runs barrier-free rounds under ``--straggler-prob``/
-``--dead-node``. It prints the reference's lines (``arch=…``, ``wire
-accounting:``, ``topology=…``, ``transport:``, ``airtime budget:``,
-``participation:``, ``round …``, ``eval round …``, ``bank snapshot: …``,
+``--snr-db``, runs barrier-free rounds under ``--straggler-prob``/
+``--dead-node``, and drifts the training pool on a schedule under
+``--drift``/``--drift-*`` (refreshed at phase boundaries; the in-training
+eval scores the current distribution) with the bank aged under
+``--refresh-window``/``--refresh-decay``. It prints the reference's lines
+(``arch=…``, ``wire accounting:``, ``topology=…``, ``transport:``,
+``airtime budget:``, ``participation:``, ``drift:``, ``round …``, ``eval
+round …``, ``bank snapshot: …``,
 ``transport accounting:``, ``arq accounting:``, ``participation rates:``,
 ``saved …``) and writes the bank snapshots and the final checkpoint in the
 reference's format, which both packages' ``launch.serve`` read.
@@ -23,6 +27,11 @@ reference's format, which both packages' ``launch.serve`` read.
         --topology geometric --radius 0.5 --link-failure 0.1 \\
         --gossip-pairs 2 --log-every 2 --transport --erasure 0.1 --arq \\
         --toa --straggler-prob 0.2 --dead-node 3:2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch lenet-radar \
+        --trim --device cpu --nodes 5 --rounds 6 --bank-capacity 16 \
+        --drift day23_critical --drift-severity 1.0 --drift-onset 2 \
+        --refresh-every 2 --refresh-window 3 --refresh-decay 0.9 \
+        --eval-every 2
     # the card, full width
     PYTHONPATH=src python -m repro_torch.launch.train --arch lenet-radar \\
         --nodes 10 --rounds 4 --local-steps 8 --batch 10 --zeta 0.03 \\
@@ -32,8 +41,8 @@ reference's format, which both packages' ``launch.serve`` read.
         --bank-capacity 2 --burn-in 2 --eval-every 2 --ckpt-dir /tmp/ckpt
 
 Flags of paths the port does not run yet exit naming their ROADMAP item:
-the drift's (A9), ``--mesh > 1`` and ``--engine shard`` (A10), and any
-``--arch`` but ``lenet-radar`` (A12).
+``--mesh > 1`` and ``--engine shard`` (A10), and any ``--arch`` but
+``lenet-radar`` (A12).
 """
 from __future__ import annotations
 
@@ -43,10 +52,6 @@ from typing import List, Optional
 
 # the flags of paths not ported yet, by the ROADMAP item that ports them
 _UNPORTED = {
-    "A9 (drift and continual learning)": (
-        "drift", "drift_kind", "drift_severity", "drift_base", "drift_onset",
-        "drift_ramp_rounds", "drift_period", "drift_seed", "refresh_every",
-        "refresh_window", "refresh_decay"),
     "A10 (multi-GPU shard engine)": ("mesh", "fed_axis"),
 }
 
@@ -162,19 +167,33 @@ def _parse_args(argv: Optional[List[str]] = None):
     ap.add_argument("--fed-axis", default="fed")
     ap.add_argument("--pool", type=int, default=64,
                     help="per-node synthetic training pool size")
-    # streaming drift (ROADMAP A9)
-    ap.add_argument("--drift", default="")
+    # streaming drift and bank aging (DESIGN.md §15)
+    ap.add_argument("--drift", default="",
+                    help="shift family whose severity drifts over training "
+                         "(repro_torch.data.scenarios; empty: static data)")
     ap.add_argument("--drift-kind", default="step",
-                    choices=["constant", "step", "ramp", "cyclic"])
-    ap.add_argument("--drift-severity", type=float, default=0.8)
-    ap.add_argument("--drift-base", type=float, default=0.0)
-    ap.add_argument("--drift-onset", type=int, default=0)
-    ap.add_argument("--drift-ramp-rounds", type=int, default=0)
-    ap.add_argument("--drift-period", type=int, default=0)
-    ap.add_argument("--drift-seed", type=int, default=0)
-    ap.add_argument("--refresh-every", type=int, default=5)
-    ap.add_argument("--refresh-window", type=int, default=0)
-    ap.add_argument("--refresh-decay", type=float, default=1.0)
+                    choices=["constant", "step", "ramp", "cyclic"],
+                    help="severity trajectory shape")
+    ap.add_argument("--drift-severity", type=float, default=0.8,
+                    help="plateau/peak severity of the drift")
+    ap.add_argument("--drift-base", type=float, default=0.0,
+                    help="pre-onset severity (keeps the original pool)")
+    ap.add_argument("--drift-onset", type=int, default=0,
+                    help="first drifted round (step/ramp/cyclic)")
+    ap.add_argument("--drift-ramp-rounds", type=int, default=0,
+                    help="ramp duration in rounds (kind=ramp)")
+    ap.add_argument("--drift-period", type=int, default=0,
+                    help="cycle period in rounds (kind=cyclic)")
+    ap.add_argument("--drift-seed", type=int, default=0,
+                    help="drift-synthesis stream seed")
+    ap.add_argument("--refresh-every", type=int, default=5,
+                    help="rounds between training-pool refreshes")
+    ap.add_argument("--refresh-window", type=int, default=0,
+                    help=">0: evict bank samples older than this many "
+                         "rounds from the BMA mixture")
+    ap.add_argument("--refresh-decay", type=float, default=1.0,
+                    help="<1: exponential age discount on the bank "
+                         "samples' BMA weights")
     ap.add_argument("--eval-every", type=int, default=0,
                     help=">0: score the posterior every N rounds through "
                          "the scan eval engine")
@@ -306,7 +325,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                                               parse_layer_rules)
     from repro_torch.core.fed_state import init_fed_state
     from repro_torch.core.gossip import plan_mixer
-    from repro_torch.core.posterior import DeviceSampleBank
+    from repro_torch.core.posterior import DeviceSampleBank, bank_age_weights
     from repro_torch.core.topology import build_topology, dense_wire_bytes
     from repro_torch.data.partition import DeviceShards, partition_iid
     from repro_torch.data.radar import make_dataset
@@ -389,6 +408,27 @@ def main(argv: Optional[List[str]] = None) -> None:
                       seed=fed.seed)
     dshards = DeviceShards.from_shards(
         partition_iid(ds, fed.num_nodes, seed=fed.seed), device)
+    # streaming drift: the training pool follows a severity schedule,
+    # installed in the engine at phase boundaries (DESIGN.md §15)
+    refresher = cont = None
+    if args.drift:
+        from repro_torch.config import ContinualConfig
+        from repro_torch.train.drift import make_refresher
+        cont = ContinualConfig(
+            scenario=args.drift, schedule=args.drift_kind,
+            severity=args.drift_severity, base_severity=args.drift_base,
+            onset=args.drift_onset, ramp_rounds=args.drift_ramp_rounds,
+            period=args.drift_period, refresh_every=args.refresh_every,
+            drift_seed=args.drift_seed, window=args.refresh_window,
+            decay=args.refresh_decay)
+        refresher = make_refresher(cont, dshards)
+        print(f"drift: {args.drift} kind={args.drift_kind} "
+              f"severity={args.drift_base:g}->{args.drift_severity:g} "
+              f"onset={args.drift_onset} refresh_every={args.refresh_every}"
+              + (f" window={args.refresh_window}" if args.refresh_window
+                 else "")
+              + (f" decay={args.refresh_decay:g}"
+                 if args.refresh_decay < 1.0 else ""))
     bank_cfg = bank_state = None
     if args.bank_capacity > 0 and args.algorithm in ("cdbfl", "dsgld"):
         burn = args.burn_in if args.burn_in >= 0 else args.rounds // 2
@@ -428,13 +468,31 @@ def main(argv: Optional[List[str]] = None) -> None:
             return None
         return bank_cfg.stacked(bank_state)
 
+    def bank_weights(now: int):
+        """The bank's age weights under --refresh-window/--refresh-decay
+        (None: the uniform mean)."""
+        if cont is None or not cont.ages or bank_cfg is None \
+                or bank_state is None:
+            return None
+        rounds_seen = (bank_state.rounds if hasattr(bank_state, "samples")
+                       else bank_cfg.rounds_list(bank_state))
+        if not len(rounds_seen):
+            return None
+        return bank_age_weights(rounds_seen, now, window=cont.window,
+                                decay=cont.decay)
+
     segment = args.eval_every if args.eval_every > 0 else args.rounds
     done = 0
     while done < args.rounds:
         n = min(segment, args.rounds - done)
-        state, key, bank_state, _, _ = engine.run(
-            state, key, bank_state, n, t0=done, log_every=args.log_every,
-            log_cb=log_cb)
+        subsegs = (list(refresher.segments(done, n))
+                   if refresher is not None else [(done, n)])
+        for s0, m in subsegs:
+            if refresher is not None:
+                refresher.refresh(engine, s0)
+            state, key, bank_state, _, _ = engine.run(
+                state, key, bank_state, m, t0=s0, log_every=args.log_every,
+                log_cb=log_cb)
         done += n
         stacked_bank = bank_stacked()
         if eval_engine is not None:
@@ -442,12 +500,23 @@ def main(argv: Optional[List[str]] = None) -> None:
             # params before burn-in
             stacked = (stacked_bank if stacked_bank is not None
                        else as_stacked(state.params))
-            rep = eval_engine.evaluate(stacked, eval_ds, node_axis=1)
+            # under drift, the current distribution's held-out cell
+            eval_name, eval_sev, ds_now = (args.eval_scenario,
+                                           args.eval_severity, eval_ds)
+            if refresher is not None:
+                eval_name = args.drift
+                eval_sev = float(refresher.schedule.severity_at(done - 1))
+                ds_now = refresher.eval_dataset(done - 1, args.eval_examples,
+                                                seed=fed.seed + 90)
+            w = bank_weights(done) if stacked_bank is not None else None
+            rep = eval_engine.evaluate(stacked, ds_now, node_axis=1,
+                                       weights=w)
             s = tree_leaves(stacked)[0].shape[0]
-            print(f"eval  round {done:4d} [{args.eval_scenario}"
-                  f"@{args.eval_severity:g}] S={s} acc={rep.accuracy:.4f} "
+            print(f"eval  round {done:4d} [{eval_name}"
+                  f"@{eval_sev:g}] S={s} acc={rep.accuracy:.4f} "
                   f"ece={rep.ece:.4f} nll={rep.nll:.4f} "
-                  f"gap={rep.overconf_gap:+.4f}")
+                  f"gap={rep.overconf_gap:+.4f}"
+                  + (" aged" if w is not None else ""))
         if args.ckpt_dir and stacked_bank is not None:
             path = save_bank(args.ckpt_dir, done, stacked_bank,
                              metadata={"arch": cfg.name, "round": done})

@@ -209,10 +209,14 @@ class ScanRoundEngine:
 
     The engine keeps its own carry: copies of the params, v, v̄ and key it
     is handed, and the bank it is handed, which it writes in place (the
-    reference donates it). On a CUDA carry each chunk length is captured
-    once as a CUDA graph that reads that carry, the shards' data and a
-    device round index ``t0``; a replay runs the chunk's rounds back to
-    back (round ``i`` feeds round ``i + 1`` through the graph's private
+    reference donates it). It also keeps its own copy of the pool it is
+    handed, which the graphs read and :meth:`set_shards` overwrites: a
+    caller's pool is never written, so a drift schedule that returns to
+    its base pool trains on the base maps (ROADMAP C26). On a CUDA carry
+    each chunk length is captured once as a CUDA graph that reads that
+    carry, the engine's pool and a device round index ``t0``; a replay
+    runs the chunk's rounds back to back (round ``i`` feeds round ``i +
+    1`` through the graph's private
     pool, and sees ``t0 + i`` as its ``state.round``), writes each round's
     metrics row (mean loss, consensus error, delta norm, the transport's
     per-round columns and the participation vector) into a static ``(n,
@@ -231,7 +235,9 @@ class ScanRoundEngine:
                  minibatch: int, bank: Optional[DeviceSampleBank] = None,
                  default_chunk: int = 64):
         self.round_fn = round_fn
-        self.shards = shards
+        self.shards = DeviceShards(
+            data={f: v.clone() for f, v in shards.data.items()},
+            sizes=shards.sizes, size_tensor=shards.size_tensor.clone())
         self.local_steps = int(local_steps)
         self.minibatch = int(minibatch)
         self.bank = bank
@@ -245,8 +251,9 @@ class ScanRoundEngine:
         _reset_histories(self)
 
     def set_shards(self, shards: DeviceShards) -> None:
-        """Swap the training data between chunks: copied into the tensors
-        the captured graphs read, so the layout must match."""
+        """Swap the training data between chunks: copied into the engine's
+        own pool, the tensors the captured graphs read, so the layout must
+        match; ``shards`` is not written, then or later."""
         _check_same_layout(self.shards, shards)
         for f, v in self.shards.data.items():
             v.copy_(shards.data[f])

@@ -22,6 +22,12 @@ Evaluation runs through the :class:`ScanEvalEngine` (a CUDA graph of the
 whole eval on the card), ``run(eval_every=N)`` takes in-training
 snapshots through it, and :meth:`FedTrainer.predictor` hands the
 posterior to serving as a :class:`BankPredictor`.
+
+Continual learning (DESIGN.md §15): ``continual`` (or
+``FedConfig.continual``) drifts the training pool on a schedule, refreshed
+between chunks at phase boundaries (``train/drift.py``), and ages the bank
+(window eviction, age-discounted BMA weights in every eval and predictor).
+:meth:`FedTrainer.unlearn` removes a node's chain from the posterior.
 """
 from __future__ import annotations
 
@@ -30,20 +36,22 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch import random
 from repro_torch.core.algorithms import make_round_fn
 from repro_torch.core.compression import make_compressor
 from repro_torch.core.fed_state import FedState, init_fed_state
 from repro_torch.core.posterior import (BankPredictor, DeviceSampleBank,
-                                        SampleBank)
+                                        SampleBank, bank_age_weights)
 from repro_torch.core.topology import build_topology, resolve_topology
 from repro_torch.data.partition import DeviceShards
 from repro_torch.eval.engine import EvalReport, ScanEvalEngine
 from repro_torch.core.transport import resolve_transport
+from repro_torch.train.drift import make_refresher
 from repro_torch.train.engine import HISTORIES, make_engine
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.tree import tree_count, tree_map
+from repro_torch.utils.tree import tree_count, tree_leaves, tree_map
 
 
 @dataclass
@@ -119,6 +127,9 @@ class FedTrainer:
     ``transport`` (a :class:`LossyTransport`, the fault harness's way to
     inject a loss model) overrides the one ``fed_cfg.transport`` builds;
     ``fed_cfg.participation`` makes the rounds barrier-free.
+    ``continual`` (a :class:`~repro_torch.config.ContinualConfig`; default
+    ``fed_cfg.continual``) drifts the pool and ages the bank; ``None``
+    leaves every path as it is without it.
     """
 
     def __init__(self, model, fed_cfg, shards: List[Dict[str, np.ndarray]],
@@ -127,7 +138,8 @@ class FedTrainer:
                  chunk: Optional[int] = None, bank_capacity: int = 40,
                  bank_thin: int = 2, bank_dtype: str = "float32",
                  eval_batch_size: int = 64, device="cuda",
-                 params: Optional[Dict] = None, transport=None):
+                 params: Optional[Dict] = None, transport=None,
+                 continual=None):
         fed_cfg.check_supported()
         assert len(shards) == fed_cfg.num_nodes, "one shard per node"
         self.device = resolve_device(device)
@@ -171,6 +183,16 @@ class FedTrainer:
             self._bank_state = (self.bank_cfg.init(self.state.params)
                                 if bank_enabled else None)
         self._eval = ScanEvalEngine(model.logits, batch_size=eval_batch_size)
+        # continual learning: the drift schedule over the caller's pool
+        # (which the engines never write) and the bank's aging
+        self.continual = (continual if continual is not None
+                          else fed_cfg.continual)
+        self._refresher = make_refresher(self.continual, self.device_shards)
+        # node ids removed by unlearn(): dropped from every posterior view
+        self._unlearned: set = set()
+        # the round index on the host, advanced by each engine.run: the
+        # refresher and the age weights read it without touching the card
+        self._round = 0
 
         n_edges = float(self.topology.adjacency.sum())
         self._n_edges = n_edges
@@ -188,6 +210,54 @@ class FedTrainer:
         if isinstance(self._bank_state, SampleBank):
             return self._bank_state
         return _BankView(self.bank_cfg, self._bank_state)
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def unlearn(self, node_id: int) -> None:
+        """Remove node ``node_id``'s contribution from the posterior
+        (``repro/train/trainer.py:228-270``): its chain is zeroed in every
+        bank slot and dropped from every stacked view, predictor and
+        evaluation (axis 1), and its control variates ``v``, ``v̄`` are
+        zeroed. The influence its past gossip had on the other chains
+        stays, which :func:`~repro_torch.eval.matrix.run_unlearn_oracle`
+        bounds against a retrain without the node. Continued training
+        re-admits the node. Idempotent.
+
+        The device bank is written in place: the scan engine's carry holds
+        that bank, so its captured chunk graphs read the erased rows and
+        none is captured again."""
+        k = int(node_id)
+        if not 0 <= k < self.fed_cfg.num_nodes:
+            raise ValueError(f"node_id {k} out of range "
+                             f"[0, {self.fed_cfg.num_nodes})")
+        if k in self._unlearned:
+            return
+        if len(self._unlearned) + 1 >= self.fed_cfg.num_nodes:
+            raise ValueError("cannot unlearn every node")
+        self._unlearned.add(k)
+        row = torch.tensor([k], device=self.device)
+
+        def zero_row(x):
+            return x.index_fill(0, row, 0)
+
+        self.state = self.state._replace(v=tree_map(zero_row, self.state.v),
+                                         v_bar=tree_map(zero_row,
+                                                        self.state.v_bar))
+        bank = self._bank_state
+        if isinstance(bank, SampleBank):
+            bank.samples = [tree_map(zero_row, s) for s in bank.samples]
+        elif bank is not None:
+            for x in tree_leaves(bank.slots):
+                x[:, k] = 0
+            if bank.scales is not None:
+                for x in tree_leaves(bank.scales):
+                    if x.dim() > 1:
+                        x[:, k] = 1.0
+
+    @property
+    def unlearned(self) -> frozenset:
+        """Node ids removed by :meth:`unlearn`."""
+        return frozenset(self._unlearned)
 
     def run(self, rounds: Optional[int] = None, log_every: int = 0,
             eval_batch: Optional[Dict[str, np.ndarray]] = None,
@@ -211,20 +281,29 @@ class FedTrainer:
         done = 0
         while done < rounds:
             n = min(segment, rounds - done)
-            self.state, self.key, self._bank_state, seg_losses, seg_cons = \
-                self._engine.run(self.state, self.key, self._bank_state, n,
-                                 t0=self.state.round, log_every=log_every,
-                                 log_cb=log_cb)
-            losses += seg_losses
-            cons += seg_cons
-            round_ms += self._engine.last_round_ms
-            for name in HISTORIES:
-                hist.setdefault(name, []).extend(getattr(self._engine,
-                                                         name))
+            # drift: split at the schedule's phase boundaries and refresh
+            # the engine's pool once a constant-severity run
+            subsegs = (list(self._refresher.segments(self._round, n))
+                       if self._refresher is not None
+                       else [(self._round, n)])
+            for s, m in subsegs:
+                if self._refresher is not None:
+                    self._refresher.refresh(self._engine, s)
+                (self.state, self.key, self._bank_state, seg_losses,
+                 seg_cons) = self._engine.run(
+                     self.state, self.key, self._bank_state, m, t0=s,
+                     log_every=log_every, log_cb=log_cb)
+                self._round = s + m
+                losses += seg_losses
+                cons += seg_cons
+                round_ms += self._engine.last_round_ms
+                for name in HISTORIES:
+                    hist.setdefault(name, []).extend(getattr(self._engine,
+                                                             name))
             done += n
             if done < rounds:
                 eval_history.append(
-                    _snapshot(self.state.round, self.eval_report(eval_batch)))
+                    _snapshot(self._round, self.eval_report(eval_batch)))
         wire = hist.get("last_wire_history", [])
         mean = lambda name: (float(np.mean(hist[name])) if hist.get(name)
                              else 0.0)
@@ -255,7 +334,7 @@ class FedTrainer:
         if eval_batch is not None:
             res = self.evaluate(eval_batch, res)
             res.eval_history = eval_history + [
-                _snapshot(self.state.round, res.report)]
+                _snapshot(self._round, res.report)]
         return res
 
     def _stacked_bank(self):
@@ -275,21 +354,58 @@ class FedTrainer:
             stacked = tree_map(lambda x: x[None], self.state.params)
         return stacked
 
+    def _filter_nodes(self, stacked):
+        """Drop the unlearned nodes' chains (axis 1) from a stacked view."""
+        if not self._unlearned:
+            return stacked
+        keep = torch.tensor([i for i in range(self.fed_cfg.num_nodes)
+                             if i not in self._unlearned],
+                            device=tree_leaves(stacked)[0].device)
+        return tree_map(lambda x: x.index_select(1, keep), stacked)
+
+    def _bank_weights(self, stacked):
+        """Age-discounted BMA weights over the bank behind ``stacked``
+        (float64, ``bank_age_weights``), or None: no aging configured, no
+        bank, or a view that is not the bank's samples (the current params
+        while it is empty)."""
+        c = self.continual
+        if c is None or not c.ages or self._bank_state is None:
+            return None
+        if isinstance(self._bank_state, SampleBank):
+            rounds = self._bank_state.rounds
+        else:
+            rounds = self.bank_cfg.rounds_list(self._bank_state)
+        if len(rounds) != int(tree_leaves(stacked)[0].shape[0]):
+            return None
+        return bank_age_weights(rounds, self._round, window=c.window,
+                                decay=c.decay)
+
+    def _posterior(self):
+        """What every evaluation reads: the stacked view without the
+        unlearned chains, and its age weights (None: the uniform mean)."""
+        stacked = self._stacked_bank()
+        return self._filter_nodes(stacked), self._bank_weights(stacked)
+
     def predictor(self) -> BankPredictor:
         """A :class:`BankPredictor` over the current posterior bank (the
         current params while it is empty; for cffl, always), node chains
-        averaged: hand it to ``ClassifyEngine`` or call ``predict(batch)``.
-        The unlearn filter and the age weights are ROADMAP A9."""
-        return BankPredictor(self.model.logits, stacked=self._stacked_bank(),
-                             node_axis=1)
+        averaged, the unlearned ones left out, the bank's age weights
+        installed: hand it to ``ClassifyEngine`` or call
+        ``predict(batch)``."""
+        stacked, weights = self._posterior()
+        bp = BankPredictor(self.model.logits, node_axis=1)
+        bp.install(stacked, weights=weights)
+        return bp
 
     def eval_report(self, batch: Dict[str, np.ndarray],
                     return_probs: bool = False):
         """BMA evaluation of the current posterior through the scan eval
-        engine (the reference's unlearn filter and age weights are ROADMAP
-        A9)."""
-        return self._eval.evaluate(self._stacked_bank(), batch, node_axis=1,
-                                   return_probs=return_probs)
+        engine, the unlearned chains left out and the bank's age weights
+        applied."""
+        stacked, weights = self._posterior()
+        return self._eval.evaluate(stacked, batch, node_axis=1,
+                                   return_probs=return_probs,
+                                   weights=weights)
 
     def evaluate(self, batch: Dict[str, np.ndarray],
                  res: Optional[TrainResult] = None) -> TrainResult:

@@ -367,7 +367,7 @@ def test_make_compressor_routes_and_refuses():
                           CompressionPipeline)
     for bad in (dict(compressor="sign_pallas"),
                 dict(pipeline=PIPE, fused_compress=True, qsgd_levels=10),
-                dict(continual=object())):
+                dict(control_dtype="float16")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_compressor(FedConfig(**bad))
 

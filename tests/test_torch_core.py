@@ -19,7 +19,8 @@ from repro.core.posterior import SampleBank as JaxSampleBank
 from repro.core.posterior import bma_predict_stacked as jbma
 from repro.eval import engine as jeval
 from repro.models import lenet as jlenet
-from repro_torch.config import (LENET_RADAR_REDUCED, FedConfig,
+from repro_torch.config import (LENET_RADAR_REDUCED, ContinualConfig,
+                                FedConfig,
                                 ParticipationConfig, TopologyConfig,
                                 TransportConfig)
 from repro_torch.core import calibration as cal
@@ -233,16 +234,14 @@ def test_mixing_rule_gives_the_reference_omega(rule, graph, k):
     ("continual", "A9")])
 def test_unported_fed_config_fields_name_their_item(field, item):
     """``topology_cfg`` runs since ROADMAP A4's topology was ported,
-    ``transport`` and ``participation`` since A8 and A7 were; ``continual``
-    still names its item."""
+    ``transport``, ``participation`` and ``continual`` since A8, A7 and A9
+    were."""
     runs = {"topology_cfg": TopologyConfig(graph="geometric",
                                            link_failure_prob=0.1,
                                            gossip_pairs=2),
             "transport": TransportConfig(erasure=0.1, arq=True, toa=True),
             "participation": ParticipationConfig(straggler_prob=0.2,
-                                                 dead=((1, 2, 4),))}
-    if field in runs:
-        FedConfig(**{field: runs[field]}).check_supported()
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        FedConfig(**{field: object()}).check_supported()
+                                                 dead=((1, 2, 4),)),
+            "continual": ContinualConfig(scenario="gain_drift", severity=0.5,
+                                         onset=3, window=4, decay=0.9)}
+    FedConfig(**{field: runs[field]}).check_supported()

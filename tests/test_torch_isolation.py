@@ -72,10 +72,12 @@ def test_trainer_defaults_to_the_card():
 
 
 def test_unported_options_name_their_roadmap_item():
-    from repro_torch.config import FedConfig
-    # transport and participation run since ROADMAP A8 and A7 were ported
-    for bad in (dict(continual=object()), dict(qsgd_levels=3),
-                dict(control_dtype="float16"),
+    from repro_torch.config import ContinualConfig, FedConfig
+    # transport, participation and continual run since ROADMAP A8, A7 and
+    # A9 were ported
+    FedConfig(continual=ContinualConfig(scenario="gain_drift",
+                                        window=4)).check_supported()
+    for bad in (dict(qsgd_levels=3), dict(control_dtype="float16"),
                 dict(compressor="sign_pallas")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             FedConfig(**{"fused_compress": True, **bad}).check_supported()

@@ -12,10 +12,10 @@ at reduced width (``--trim --device cpu``).
   snapshots that the port's ``launch.serve`` serves and the reference's
   ``load_bank`` reads, and a final checkpoint.
 - Each flag of a path the port does not run yet exits naming its ROADMAP
-  item; the transport's and the participation model's flags run, their
-  ``transport:``, ``airtime budget:``, ``participation:``, ``transport
-  accounting:``, ``arq accounting:`` and ``participation rates:`` lines
-  equal to the reference CLI's.
+  item; the transport's, the participation model's and the drift's flags
+  run, their ``transport:``, ``airtime budget:``, ``participation:``,
+  ``drift:``, ``transport accounting:``, ``arq accounting:`` and
+  ``participation rates:`` lines equal to the reference CLI's.
 """
 import sys
 
@@ -48,7 +48,7 @@ RUNS = {
     "full": ["--topology", "full", "--compressor", "topk"],
 }
 HEADS = ("arch=", "wire accounting:", "topology=")
-LINK_HEADS = ("transport:", "airtime budget:", "participation:")
+LINK_HEADS = ("transport:", "airtime budget:", "participation:", "drift:")
 ACCOUNTING = ("transport accounting:", "arq accounting:",
               "participation rates:")
 
@@ -112,11 +112,12 @@ def test_cli_snapshots_are_served(tmp_path, capsys):
 def test_unported_flags_exit_naming_their_item(flags, item, capsys,
                                                monkeypatch):
     """The flags of a path the port does not run yet exit naming its
-    ROADMAP item (A9, A10, A12). The transport's (A8) and the participation
-    model's (A7) flags run since those items were ported: one round, whose
-    header, link and accounting lines equal the reference CLI's."""
+    ROADMAP item (A10, A12). The transport's (A8), the participation
+    model's (A7) and the drift's (A9) flags run since those items were
+    ported: one round, whose header, link, drift and accounting lines
+    equal the reference CLI's."""
     argv = [a for a in BASE if a != "--trim"] + ["--trim", "--device", "cpu"]
-    if item in ("A8", "A7"):
+    if item in ("A8", "A7", "A9"):
         run = BASE + flags
         monkeypatch.setattr(sys, "argv", ["train"] + run)
         want = _lines(capsys, jax_train.main)

@@ -11,6 +11,8 @@ PyTorch port's tests and for ``chip_smoke.py``, which reads them on the card.
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py claims-smoke
     PYTHONPATH=src python tests/torch_golden.py claims-port
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py claims-nudged
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py drift
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py drift-claims
 
 ``threefry`` writes ``tests/golden/threefry_draws.npz``: ``jax.random``'s
 keys, bits, uniforms, normals, truncated normals and randints for the cases
@@ -75,6 +77,23 @@ loss, which ``chip_smoke.py`` prints beside the port's run on the card.
 it beside that record, with the first round where each loss departs;
 ``claims-nudged`` runs the reference's own slice with its training maps
 one ulp up, beside the same record: the second witness.
+
+``drift`` writes ``tests/golden/drift_rounds_lenet_radar.json``: the same
+record for :data:`DRIFT_CONFIG`, ``chip_smoke.py``'s phase-12 run: the
+paper-default cdbfl with a days-2/3 critical drift at full severity in
+round 1 only (a piecewise schedule that returns to its base pool), a
+2-round bank window and a 0.9 age decay; with each round's scheduled
+severity, the bank's admission rounds and age weights, and the aged
+evaluation on the day-1 test maps and the days-2/3 shift set; and, under
+``cli``, the lines the reference's training CLI prints for the README's
+two drift commands at full width (:data:`DRIFT_CLI_RUNS`).
+
+``drift-claims`` writes ``tests/golden/drift_claims_lenet_radar.json``:
+the reference's ``run_drift_claims(DRIFT_CLAIMS_SPEC)`` (reduced LeNet,
+K=5, 90 rounds of cdbfl and dsgld through a step drift at round 45) with
+its probe curves, and ``run_unlearn_oracle(CLAIMS_SPEC)`` (|Δacc|, |ΔECE|
+and both reports' accuracy and ECE), which ``chip_smoke.py`` prints beside
+the port's run on the card (:func:`drift_claims_record`).
 
 ``serve-bma`` writes ``tests/golden/serve_bma_lenet_radar.npz``: the
 reference's BMA probabilities and predictive entropies
@@ -335,9 +354,9 @@ def transport_configs(c: dict):
                 tuple(d) for d in p.get("dead", ())))) if p else None)
 
 
-def reference_cli_run(argv) -> list:
-    """The lines of :data:`TRANSPORT_CLI_LINES` the reference's training
-    CLI prints for ``argv``, run in-process."""
+def reference_cli_run(argv, heads=TRANSPORT_CLI_LINES) -> list:
+    """The lines starting with one of ``heads`` that the reference's
+    training CLI prints for ``argv``, run in-process."""
     import contextlib
     import io
     from repro.launch import train
@@ -349,7 +368,7 @@ def reference_cli_run(argv) -> list:
     finally:
         sys.argv = saved
     return [ln for ln in out.getvalue().splitlines()
-            if ln.startswith(TRANSPORT_CLI_LINES)]
+            if ln.startswith(heads)]
 
 
 def round_masks(fed, omega, key, rounds: int):
@@ -400,11 +419,33 @@ def control_norms(state) -> dict:
     return {"v_norm": norm(state.v), "v_bar_norm": norm(state.v_bar)}
 
 
+def continual_config(c: dict, config_cls):
+    """``c``'s continual block as ``config_cls`` (the reference's or the
+    port's ``ContinualConfig``), or None."""
+    cont = c.get("continual")
+    if not cont:
+        return None
+    return config_cls(**dict(cont, breakpoints=tuple(
+        tuple(b) for b in cont.get("breakpoints", ()))))
+
+
+def shift_maps(make_dataset, critical_subset, hw) -> dict:
+    """The days-2/3 safety-critical shift set (examples/radar_hrc.py:43-49)
+    from either package's radar module."""
+    parts = [critical_subset(make_dataset(250, hw=hw, day=d, seed=90 + d))
+             for d in (2, 3)]
+    return {k: np.concatenate([p[k] for p in parts]) for k in ("x", "y")}
+
+
 def seeded_rounds(c: dict, command: str, norms: bool = False) -> dict:
     """The reference's host-engine run of configuration ``c``; with
-    ``norms``, the control state's :func:`control_norms` after it."""
+    ``norms``, the control state's :func:`control_norms` after it; with a
+    ``continual`` block, each round's scheduled severity, the bank's
+    admission rounds and age weights, and the aged evaluation on the
+    day-1 test maps and the shift set after it."""
     import jax
-    from repro.config import FedConfig, TopologyConfig, get_arch
+    from repro.config import (ContinualConfig, FedConfig, TopologyConfig,
+                              get_arch)
     from repro.data.partition import partition_iid
     from repro.data.radar import make_dataset
     from repro.models import get_model
@@ -419,10 +460,12 @@ def seeded_rounds(c: dict, command: str, norms: bool = False) -> dict:
     train = make_dataset(c["train_maps"], hw=cfg.input_hw, day=1,
                          seed=c["data_seed"])
     t0 = time.time()
+    cont = continual_config(c, ContinualConfig)
     trainer = FedTrainer(get_model(cfg), fed,
                          partition_iid(train, fed.num_nodes),
                          minibatch=c["minibatch"], seed=c["seed"],
-                         engine="host")
+                         engine="host", bank_thin=c.get("bank_thin", 2),
+                         continual=cont)
     res = trainer.run(rounds=c["rounds"])
     record = {
         "command": "JAX_PLATFORMS=cpu PYTHONPATH=src python "
@@ -436,6 +479,22 @@ def seeded_rounds(c: dict, command: str, norms: bool = False) -> dict:
     }
     if norms:
         record.update(control_norms(trainer.state))
+    if cont is not None:
+        from repro.data.radar import critical_subset
+        sched = trainer._refresher.schedule
+        record["severity"] = [float(sched.severity_at(t))
+                              for t in range(c["rounds"])]
+        record["bank_rounds"] = [int(r) for r in trainer._bank_state.rounds]
+        record["weights"] = np.asarray(trainer._bank_weights(
+            trainer._stacked_bank()), np.float64).tolist()
+        for name, data in (
+                ("day1", make_dataset(200, hw=cfg.input_hw, day=1, seed=99)),
+                ("shift", shift_maps(make_dataset, critical_subset,
+                                     cfg.input_hw))):
+            rep = trainer.eval_report(data)
+            record[f"eval_{name}"] = {"accuracy": float(rep.accuracy),
+                                      "ece": float(rep.ece),
+                                      "count": float(rep.count)}
     if tc or c["fed"].get("topology", "full") != "full":
         record["masks"] = round_masks(fed, trainer.omega,
                                       jax.random.PRNGKey(c["seed"] + 1),
@@ -521,6 +580,102 @@ def write_bf16_rounds() -> None:
     BF16_ROUNDS_FILE.write_text(json.dumps(records, indent=1) + "\n")
     print(f"wrote {BF16_ROUNDS_FILE}: "
           f"{ {n: (r['loss'], r['wire_bytes']) for n, r in records.items()} }")
+
+
+# chip_smoke.py's phase-12 run: the paper-default cdbfl (phase 7's) under a
+# days-2/3 critical drift that comes in round 1 and goes in round 2, the
+# bank aged by a 2-round window and a 0.9 decay, bank thin 1
+DRIFT_ROUNDS_FILE = GOLDEN / "drift_rounds_lenet_radar.json"
+DRIFT_CONTINUAL = dict(scenario="day23_critical", schedule="piecewise",
+                       breakpoints=[[1, 1.0], [2, 0.0]], refresh_every=1,
+                       window=2, decay=0.9)
+DRIFT_CONFIG = dict(baseline_config("cdbfl"), rounds=4, bank_thin=1,
+                    fed=dict(baseline_config("cdbfl")["fed"], burn_in=1),
+                    continual=DRIFT_CONTINUAL)
+# the README's two drift commands at full width on 10 nodes, cut to 4
+# rounds with their onset, period, refresh and window scaled so the drift
+# fires inside them, and an eval every 2 rounds
+DRIFT_CLI_RUNS = {
+    "step": ["--arch", "lenet-radar", "--nodes", "10", "--rounds", "4",
+             "--bank-capacity", "16", "--drift", "day23_critical",
+             "--drift-severity", "1.0", "--drift-onset", "2",
+             "--refresh-every", "2", "--refresh-window", "3",
+             "--refresh-decay", "0.9", "--eval-every", "2",
+             "--eval-scenario", "day23_critical", "--eval-severity", "1.0",
+             "--log-every", "2"],
+    "cyclic": ["--arch", "lenet-radar", "--nodes", "10", "--rounds", "4",
+               "--bank-capacity", "16", "--drift", "gain_drift",
+               "--drift-kind", "cyclic", "--drift-period", "4",
+               "--drift-severity", "0.8", "--drift-onset", "1",
+               "--refresh-every", "1", "--refresh-window", "12",
+               "--eval-every", "2", "--log-every", "2"],
+}
+DRIFT_CLI_LINES = CLI_HEADS + ("drift:", "posterior bank:", "eval  round")
+
+
+def write_drift_rounds() -> None:
+    record = seeded_rounds(DRIFT_CONFIG, "drift")
+    record["cli"] = {name: {"argv": argv,
+                            "lines": reference_cli_run(argv, DRIFT_CLI_LINES)}
+                     for name, argv in DRIFT_CLI_RUNS.items()}
+    DRIFT_ROUNDS_FILE.write_text(json.dumps(record, indent=1) + "\n")
+    print(f"wrote {DRIFT_ROUNDS_FILE}: loss {record['loss']}, severity "
+          f"{record['severity']}, {record['eval_day1']}; "
+          f"{ {n: r['lines'] for n, r in record['cli'].items()} }")
+
+
+DRIFT_CLAIMS_FILE = GOLDEN / "drift_claims_lenet_radar.json"
+
+
+def _floats(x):
+    """``x`` with numpy scalars as Python floats (JSON)."""
+    if isinstance(x, dict):
+        return {k: _floats(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_floats(v) for v in x]
+    if isinstance(x, (np.floating, np.integer)):
+        return x.item()
+    return x
+
+
+def drift_claims_record(matrix, **kw) -> dict:
+    """``matrix.run_drift_claims(DRIFT_CLAIMS_SPEC)`` and
+    ``matrix.run_unlearn_oracle(CLAIMS_SPEC)`` (the reference's or the
+    port's ``eval.matrix``; ``kw`` goes to both calls): the claims,
+    failures and probe curves, and the oracle's deltas and reports."""
+    t0 = time.time()
+    drift = matrix.run_drift_claims(matrix.DRIFT_CLAIMS_SPEC, log=None, **kw)
+    t1 = time.time()
+    un = matrix.run_unlearn_oracle(matrix.CLAIMS_SPEC, log=None, **kw)
+    t2 = time.time()
+    report = lambda r: {"accuracy": float(r.accuracy),      # noqa: E731
+                        "ece": float(r.ece)}
+    return _floats({
+        "claims": drift["claims"], "failures": drift["failures"],
+        "curves": drift["curves"], "drift_seconds": t1 - t0,
+        "unlearn": {"target": un["target"],
+                    "delta_accuracy": un["delta_accuracy"],
+                    "delta_ece": un["delta_ece"],
+                    "within_tolerance": un["within_tolerance"],
+                    "unlearn": report(un["unlearn"]),
+                    "oracle": report(un["oracle"])},
+        "unlearn_seconds": t2 - t1,
+    })
+
+
+def write_drift_claims() -> None:
+    import repro.eval.matrix as matrix
+    record = {
+        "command": "JAX_PLATFORMS=cpu PYTHONPATH=src python "
+                   "tests/torch_golden.py drift-claims",
+        "reference": "repro.eval.matrix.run_drift_claims("
+                     "DRIFT_CLAIMS_SPEC) and run_unlearn_oracle(CLAIMS_SPEC)"
+                     " on the CPU",
+        **drift_claims_record(matrix),
+    }
+    DRIFT_CLAIMS_FILE.write_text(json.dumps(record, indent=1) + "\n")
+    print(f"wrote {DRIFT_CLAIMS_FILE}: {record['claims']}, failures "
+          f"{record['failures']}, unlearn {record['unlearn']}")
 
 
 CLAIMS_FILE = GOLDEN / "claims_smoke_lenet_radar.json"
@@ -694,4 +849,6 @@ if __name__ == "__main__":
          "bf16-rounds": write_bf16_rounds,
          "claims-smoke": write_claims_smoke,
          "claims-port": compare_claims_port,
-         "claims-nudged": compare_claims_nudged}[name]()
+         "claims-nudged": compare_claims_nudged,
+         "drift": write_drift_rounds,
+         "drift-claims": write_drift_claims}[name]()
