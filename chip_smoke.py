@@ -244,6 +244,50 @@ Phases, each of which fails the run by raising:
              .json``): probes finite, the drift biting, no claim broken
              that the reference keeps (it breaks the recovery claim
              itself: ROADMAP C27), the oracle within tolerance.
+13. decode — BMA decode serving of smollm-135m at full width (ROADMAP
+             A12, part 1), its launch counts set to 0 just before each
+             engine run and read just after, the whole phase with TF32
+             and reduced-precision bf16 reductions allowed for the
+             process (the model sums its own products in f32): (a) the
+             serving CLI's bank of
+             4 inits from fold_in(PRNGKey(0), i) made on the card, each
+             leaf's bit sum and sampled elements equal to the reference's
+             (``tests/golden/decode_smollm_135m.json``, its CPU run), the
+             float64 sum within 1e-12; (b) DecodeEngine at 8 and 64 slots,
+             max_len 128, 16 new tokens, over the CLI's 16 requests, in
+             bf16 and f32: the first step (eager, then captured) alone,
+             its BMA log p at the record's top-8 within 5e-3 (f32: the
+             bf16 KV caches, ROADMAP C29) or 5e-2 (bf16), then the rest:
+             tokens equal to the record's up to each request's first step
+             whose recorded top-two margin is at or under the tolerance
+             (1e-4 f32, 5e-2 bf16), entropies within rtol 1e-5 / 1e-3,
+             one capture in all through partial occupancy and lengths 1-5,
+             decode_attention and bma_sample launched; a replayed step's
+             device ms (CUDA events) and trace (its kernels by name), the
+             median wall ms a step, tokens/s, request p50 / p99, against
+             the weight-byte bound; 8 hot swaps with memory_allocated
+             flat to the byte; a witness, the port's first step on the
+             host CPU at 8 slots in each dtype, its log p against the
+             record's (the same limits) and the card's, and its cached
+             position-0 keys and values counted against the card's; (c)
+             ``repro_torch.launch.serve --arch smollm-135m --mode decode
+             --requests 16 --smoke`` in-process, its resp lines equal to
+             the record's but for latency wherever the request has no
+             low-margin step; (d) the LM eval on markov
+             tokens, the scan engine's CUDA graph against the host engine
+             bit for bit.
+
+Phase 2 also holds the decode step's kernels to their plain versions at
+smollm-135m's full-width shapes (4 samples x 8 and x 64 slots, 128 cache
+slots, 9 heads over 3 KV heads of 64): decode_attention in bf16 and f32
+with positions over and past the cache's end (the clamp), reset lanes at
+position 0 and a window-8 ring buffer wrapping around (the caches and
+slot_pos equal, the output within one ulp of the compute dtype),
+bma_sample at V = 49,152 in bf16 and f32, with ties, -inf rows and V =
+1031 (tokens bit for bit, probabilities and entropies within one f32
+ulp), and threefry's GUMBEL form bit for bit; it times each beside its
+bound, its plain version and, for the attention,
+scaled_dot_product_attention over the same lanes.
 
 Phase 2 also holds gilbert_keep, the burst channel's frame recurrence
 as a warp scan of 2-bit state maps, to its plain version, bit for bit,
@@ -342,14 +386,19 @@ from repro_torch.kernels.gilbert import (channel_params,  # noqa: E402
                                          gilbert_keep, gilbert_keep_plain)
 from repro_torch.kernels.qsgd import (inv_one_plus, qsgd, qsgd_omega,  # noqa: E402
                                       qsgd_plain, row_norm)
-from repro_torch.kernels.threefry import (BITS, MAX_TABLE_REQUESTS,  # noqa: E402
-                                          NORMAL, PAIR, UNIFORM, draw,
+from repro_torch.kernels.threefry import (BITS, GUMBEL,  # noqa: E402
+                                          MAX_TABLE_REQUESTS, NORMAL, PAIR,
+                                          TINY, UNIFORM, Draw, draw,
                                           draw_plain)
+from repro_torch.kernels.bma_sample import (bma_sample,  # noqa: E402
+                                            bma_sample_plain)
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention, decode_attention_plain)
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
-from repro_torch.serve import (ClassifyEngine, ServeRequest,  # noqa: E402
-                               live_device_bytes)
+from repro_torch.serve import (ClassifyEngine, DecodeEngine,  # noqa: E402
+                               ServeRequest, live_device_bytes)
 from repro_torch.train.engine import round_indices  # noqa: E402
 from repro_torch.utils.tree import (tree_count, tree_leaves,  # noqa: E402
                                     tree_leaves_with_path, tree_map)
@@ -364,6 +413,8 @@ from torch_golden import (BASELINE_ROUNDS_FILE, BOUNDARY_K,  # noqa: E402
                           boundary_blocks, claims_departure, claims_golden,
                           claims_record, control_norms, drift_claims_record,
                           port_draw)
+from torch_golden import (DECODE_CONFIG, DECODE_FILE,  # noqa: E402
+                          decode_requests)
 
 DEVICE = "cuda"
 REDUCED = False                                    # full lenet-radar width
@@ -467,6 +518,16 @@ KERNELS = {
     "cffl_update_bf16": ("src/repro_torch/kernels/csrc/fused_update.cu",
                          "none (no pl.pallas_call): jnp CF-FL update with "
                          "bf16 v, v̄, src/repro/core/algorithms.py:602"),
+    # the BMA decode step of the dense LMs (ROADMAP A12): jnp in the
+    # reference, no pl.pallas_call
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "none (no pl.pallas_call): jnp decode attention "
+                         "over the KV cache, src/repro/models/"
+                         "attention.py:120"),
+    "bma_sample": ("src/repro_torch/kernels/csrc/bma_sample.cu",
+                   "none (no pl.pallas_call): jnp BMA mean, entropy and "
+                   "jax.random.categorical of the decode step, "
+                   "src/repro/serve/engine.py:356"),
 }
 # the seven kernels that replace a pl.pallas_call
 TPU_KERNELS = ("pack", "delta_pack", "unpack", "fused_update", "grid_quant",
@@ -1850,7 +1911,9 @@ TRACE_NAMES = {kname: re.compile(pattern) for kname, pattern in {
     "topk_select_bf16": r"topk_select_kernel<true, (?!float>)",
     "delta_pack_bf16": r"pack_kernel<true, (?!float>)",
     "fused_update_bf16": r"control_update_bf16_\w+<0>",
-    "cffl_update_bf16": r"control_update_bf16_\w+<1>"}.items()}
+    "cffl_update_bf16": r"control_update_bf16_\w+<1>",
+    "decode_attention": r"decode_attention_kernel",
+    "bma_sample": r"bma_sample_kernel"}.items()}
 # tries at a whole trace, and the least launches of its warm-up (profiled)
 TRACE_ATTEMPTS, WARM_LAUNCHES = 4, 32
 # the traced round each kernel's in-round device time is read from
@@ -4017,6 +4080,648 @@ def run_phase12(train, test, shift) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 2, the decode step's kernels (ROADMAP A12): decode_attention and
+# bma_sample at smollm-135m's full-width shapes, and threefry's GUMBEL form
+# --------------------------------------------------------------------------
+
+DECODE_ARCH = "smollm-135m"
+DECODE_M, DECODE_MAX_LEN, DECODE_NEW, DECODE_REQUESTS = 4, 128, 16, 16
+DECODE_SLOTS = (8, 64)                     # lanes M x slots: 32 and 256
+DECODE_WINDOW = 8                          # the ring-buffer case
+# f32 operations: an element of each of the decode attention's two dot
+# products (a multiply and an add); an element of the sampler: a sample's
+# scale, subtraction, exp, division and add, then the mean's product, the
+# max, XLA's log (22), the entropy's product and add, the Gumbel noise (its
+# uniform and two logs: 49) and the score's add and compare
+ATTN_OPS = 4
+
+
+def sample_ops(m: int) -> int:
+    return 5 * m + 78
+
+
+# INT32 operations an element of the sampler's noise: the hash, its xor and
+# the uniform's shift and or
+SAMPLE_INT_OPS = THREEFRY_INT_OPS + 3
+# the token tolerance against the reference's record: a token must equal
+# the reference's wherever the reference's top two perturbed scores are
+# further apart than this. f32: 1e-4, a logit difference an f32
+# computation stays within. bf16: the reference's own bf16 and f32 runs
+# differ by up to 0.0155 in log p at the first step's top-8, and any two
+# bf16 computations by rounding noise of that size, so 5e-2.
+DECODE_TOL = {"float32": dict(margin=1e-4, ent=1e-5),
+              "bfloat16": dict(margin=5e-2, ent=1e-3)}
+# the first step's log p at the record's top-8, against the record's. At
+# position 0 a lane's attention output is its own value row, exactly, so
+# no key enters; but the values are cached in bf16 in f32 serving too
+# (ROADMAP C29), and a value row whose f32 product sums in another order
+# than XLA's can round to the other bf16 neighbour, a 2^-8 step that 30
+# layers carry to the logits. Readings, this script on an NVIDIA H100
+# 80GB HBM3 at 700 W: f32 1.16e-3 at 8 slots and 1.52e-3 at 64 (cuBLAS
+# picks another product kernel, so another order, at each), bf16 2.33e-2
+# at both; the port on the CPU reads beside them (the witness of (b)).
+# So 5e-3 in f32 and 5e-2 in bf16.
+DECODE_DLOGP = {"float32": 5e-3, "bfloat16": 5e-2}
+# the step's kernels named in a trace of a replay: the five longest
+DECODE_TOP_KERNELS = 5
+
+
+def decode_model_cfg(dtype=None):
+    cfg = get_arch(DECODE_ARCH).config
+    return cfg if dtype is None else cfg.replace(dtype=dtype)
+
+
+def slot_positions(pos: torch.Tensor, slots: int, window: int):
+    """``slot_pos`` as a lane at each position ``pos`` leaves it: the slots
+    of the positions before it (in a ring buffer the last ``window``; past
+    the full cache's end its last slot holds the previous position)."""
+    t = torch.arange(slots, device=pos.device)[None]
+    p = pos[:, None]
+    if window:
+        q = p - 1 - torch.remainder(p - 1 - t, slots)
+        return torch.where(q >= 0, q, -1).to(torch.int32)
+    sp = torch.where(t < p, t, -1)
+    sp[:, -1] = torch.where(p[:, 0] >= slots, p[:, 0] - 1, sp[:, -1])
+    return sp.to(torch.int32)
+
+
+def attention_case(cfg, b: int, dtype, pos, window: int = 0, seed: int = 0,
+                   reset: int = 0):
+    """Full-width inputs of one layer's launch: M x b lanes at positions
+    ``pos``, the first ``reset`` lanes reset (slot_pos -1, as an admit
+    leaves them)."""
+    g, h, kv, hd = DECODE_M, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.resolved_head_dim
+    slots = window or DECODE_MAX_LEN
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=DEVICE)  # noqa
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=DEVICE)
+    sp = slot_positions(pos, slots, window).expand(g, b, slots).contiguous()
+    sp[:, :reset] = -1
+    return (rnd(g, b, h, hd).to(dtype), rnd(g, b, kv, hd).to(dtype),
+            rnd(g, b, kv, hd).to(dtype),
+            rnd(g, b, slots, kv, hd).to(torch.bfloat16),
+            rnd(g, b, slots, kv, hd).to(torch.bfloat16), sp, pos, window)
+
+
+def dtype_ulp_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest difference in units of the compute dtype's last place at
+    the value's magnitude."""
+    eps = torch.finfo(want.dtype).eps
+    d = (got.float() - want.float()).abs()
+    return float((d / (eps * want.float().abs().clamp(min=1e-30))).max())
+
+
+def check_decode_attention() -> float:
+    """decode_attention against its plain version at the main path's
+    shapes (32 and 256 lanes, bf16 and f32, positions spread over and past
+    the 128 slots, reset lanes decoding from position 0) and a window-8
+    ring buffer wrapping around: the caches and slot_pos equal, the output
+    within one ulp of the compute dtype. Returns the largest absolute
+    error."""
+    cfg = decode_model_cfg()
+    err, worst = 0.0, 0.0
+    cases = []
+    for b in DECODE_SLOTS:
+        pos = [(37 * i) % 200 for i in range(b)]
+        pos[0] = 0
+        for dtype in (torch.bfloat16, torch.float32):
+            cases.append((f"{DECODE_M}x{b} lanes {dtype}", attention_case(
+                cfg, b, dtype, pos, seed=b, reset=2)))
+    cases.append(("window 8, positions 0-30", attention_case(
+        cfg, 8, torch.bfloat16, [0, 3, 7, 8, 9, 15, 16, 30],
+        window=DECODE_WINDOW, seed=3, reset=1)))
+    for label, (q, kn, vn, kc, vc, sp, pos, window) in cases:
+        mine = [kc.clone(), vc.clone(), sp.clone()]
+        theirs = [kc.clone(), vc.clone(), sp.clone()]
+        got = decode_attention(q, kn, vn, *mine, pos, window)
+        want = decode_attention_plain(q, kn, vn, *theirs, pos, window)
+        torch.cuda.synchronize()
+        if not all(bitwise_equal(a, b_) if a.dtype != torch.int32 else
+                   torch.equal(a, b_) for a, b_ in zip(mine, theirs)):
+            raise AssertionError(f"decode_attention ({label}): the cache "
+                                 f"writes differ from the plain version's")
+        ulps = dtype_ulp_err(got, want)
+        if ulps > 1.0:
+            raise AssertionError(f"decode_attention ({label}): {ulps:.2f} "
+                                 f"ulps from its plain version")
+        worst = max(worst, ulps)
+        err = max(err, max_abs_err(got.float(), want.float()))
+        log("kernels", f"decode_attention, {label}: caches and slot_pos "
+                       f"equal, output {'bit for bit' if bitwise_equal(got, want) else f'within {ulps:.2f} ulp'} "
+                       f"of its plain version")
+    return err
+
+
+def sample_case(s: int, dtype, vocab: int = 49152, seed: int = 0,
+                edges: bool = False):
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    lg = torch.randn((DECODE_M, s, vocab), generator=gen, device=DEVICE)
+    if edges:
+        lg[:, 0] = 0.5                                 # every logit tied
+        lg[:, 1, 100:] = float("-inf")                 # 100 finite
+        lg[1, 2] = float("-inf")                       # a sample's -inf row
+    keys = random.split(random.PRNGKey(seed, DEVICE), s)
+    pos = torch.arange(s, dtype=torch.int64, device=DEVICE) * 9
+    return lg.to(dtype), keys, pos
+
+
+def check_bma_sample() -> float:
+    """bma_sample against its plain version: 8 and 64 slots of M=4 at
+    V=49,152 (bf16 and f32), and ties, -inf and V = 1031 (not a multiple of
+    the CTA's 1024 threads): tokens bit for bit, probabilities and
+    entropies within one f32 ulp. Returns the largest absolute error."""
+    err = 0.0
+    cases = [(f"{s} slots {dt}", sample_case(s, dt, seed=s))
+             for s in DECODE_SLOTS for dt in (torch.bfloat16, torch.float32)]
+    cases.append(("ties, -inf, V=1031", sample_case(8, torch.bfloat16, 1031,
+                                                     seed=5, edges=True)))
+    cases.append(("ties, -inf, V=49152 f32", sample_case(
+        8, torch.float32, seed=6, edges=True)))
+    for label, (lg, keys, pos) in cases:
+        got = bma_sample(lg, keys, pos)
+        want = bma_sample_plain(lg, keys, pos)
+        torch.cuda.synchronize()
+        if not torch.equal(got[0], want[0]):
+            raise AssertionError(f"bma_sample ({label}): tokens {got[0]} "
+                                 f"against {want[0]}")
+        ulps = max(dtype_ulp_err(got[1], want[1]),
+                   dtype_ulp_err(got[2], want[2]))
+        if ulps > 1.0:
+            raise AssertionError(f"bma_sample ({label}): {ulps:.2f} f32 ulps")
+        err = max(err, max_abs_err(got[1], want[1]),
+                  max_abs_err(got[2], want[2]))
+        exact = bitwise_equal(got[1], want[1]) and bitwise_equal(got[2],
+                                                                   want[2])
+        log("kernels", f"bma_sample, {label}: tokens bit for bit, "
+                       f"probabilities and entropies "
+                       f"{'bit for bit' if exact else f'within {ulps:.2f} ulp'}")
+    return err
+
+
+def sdpa_yardstick(q, kc, vc, sp, pos):
+    """One ``scaled_dot_product_attention`` call over the same lanes (GQA,
+    the validity mask as a boolean mask): the library yardstick."""
+    g, b, h, hd = q.shape
+    slots, kv = kc.shape[2], kc.shape[3]
+    lanes = g * b
+    qq = q.reshape(lanes, h, 1, hd)
+    kk = kc.reshape(lanes, slots, kv, hd).transpose(1, 2).to(q.dtype)
+    vv = vc.reshape(lanes, slots, kv, hd).transpose(1, 2).to(q.dtype)
+    mask = ((sp >= 0) & (sp.long() <= pos[None, :, None])).reshape(
+        lanes, 1, 1, slots)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=mask, enable_gqa=True)
+
+
+def time_decode_kernels() -> dict:
+    """decode_attention (one layer of the 8-slot step: 32 lanes, bf16) and
+    bma_sample (the 8-slot step's sampler) beside their bounds, plain
+    versions and, for the attention, SDPA; both also at 64 slots, logged;
+    and threefry's GUMBEL form drawing the sampler's noise."""
+    cfg = decode_model_cfg()
+    out = {}
+    for b in DECODE_SLOTS:
+        pos = [(37 * i) % DECODE_MAX_LEN for i in range(b)]
+        q, kn, vn, kc, vc, sp, posv, _ = attention_case(cfg, b, torch.bfloat16,
+                                                        pos, seed=b)
+        lanes = DECODE_M * b
+        slots, kv, hd, h = kc.shape[2], kc.shape[3], kc.shape[4], q.shape[2]
+        nbytes = (2 * lanes * slots * kv * hd * 2 + 2 * lanes * h * hd * 2
+                  + 2 * lanes * kv * hd * 2 + lanes * slots * 4 + b * 8)
+        ops = ATTN_OPS * lanes * h * slots * hd
+        b_ms, b_by = bound(nbytes, ops)
+        kern = lambda: decode_attention(q, kn, vn, kc, vc, sp, posv)  # noqa
+        plain = lambda: decode_attention_plain(q, kn, vn, kc, vc, sp,  # noqa
+                                               posv)
+        lib = sdpa_yardstick(q, kc, vc, sp, posv)
+        r = dict(ms=device_ms(kern), plain_ms=device_ms(plain, reps=3),
+                 device_ms=traced_ms([kern]),
+                 plain_device_ms=traced_ms([plain]), library_ms=traced_ms([lib]),
+                 bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, ops=ops)
+        log("kernels", f"decode_attention, one layer of the {b}-slot step "
+                       f"({lanes} lanes x {slots} slots, bf16): device "
+                       f"{fmt_ms(r['device_ms'], 5)}, event-timed "
+                       f"{r['ms']:.5f} ms; plain: device "
+                       f"{fmt_ms(r['plain_device_ms'])}; SDPA (library): "
+                       f"{fmt_ms(r['library_ms'], 5)}; bound {b_ms:.6f} ms "
+                       f"({b_by}: {nbytes} B, {ops} ops)")
+        if b == DECODE_SLOTS[0]:
+            out["decode_attention"] = r
+        lg, keys, spos = sample_case(b, torch.bfloat16, seed=b)
+        v = lg.shape[-1]
+        nbytes = lg.numel() * 2 + b * v * 4 + b * (16 + 8 + 8 + 4)
+        b_ms, b_by = bound(nbytes, sample_ops(DECODE_M) * b * v,
+                           SAMPLE_INT_OPS * b * v)
+        kern = lambda: bma_sample(lg, keys, spos)  # noqa: E731
+        plain = lambda: bma_sample_plain(lg, keys, spos)  # noqa: E731
+        r = dict(ms=device_ms(kern), plain_ms=device_ms(plain, reps=3),
+                 device_ms=traced_ms([kern]),
+                 plain_device_ms=traced_ms([plain]), library_ms=None,
+                 bound_ms=b_ms, bound_by=b_by, nbytes=nbytes)
+        log("kernels", f"bma_sample, the {b}-slot step's sampler (M="
+                       f"{DECODE_M}, V={v}, bf16): device "
+                       f"{fmt_ms(r['device_ms'], 5)}, event-timed "
+                       f"{r['ms']:.5f} ms; plain: device "
+                       f"{fmt_ms(r['plain_device_ms'])}; bound {b_ms:.6f} ms "
+                       f"({b_by}: {nbytes} B); library: none")
+        if b == DECODE_SLOTS[0]:
+            out["bma_sample"] = r
+    keys = random.split(random.PRNGKey(1, DEVICE), DECODE_SLOTS[0])
+    gum = lambda: random.gumbel(keys, (49152,))  # noqa: E731
+    n = DECODE_SLOTS[0] * 49152
+    plain = lambda: draw_plain([Draw(keys, 49152, GUMBEL,  # noqa: E731
+                                     params=(TINY, 1.0))])
+    g_ms, g_by = bound(4 * n, 49 * n, SAMPLE_INT_OPS * n)
+    if not bitwise_equal(gum(), plain()[0]):
+        raise AssertionError("threefry GUMBEL differs from its plain version")
+    log("kernels", f"threefry GUMBEL form, the 8-slot step's noise ({n} "
+                   f"draws): device {fmt_ms(traced_ms([gum]), 5)}; plain: "
+                   f"device {fmt_ms(traced_ms([plain]))}; bound "
+                   f"{g_ms:.6f} ms ({g_by}); bit for bit its plain version")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 13: BMA decode serving of smollm-135m at full width (ROADMAP A12)
+# --------------------------------------------------------------------------
+
+DECODE_LAUNCHED = ("decode_attention", "bma_sample")
+
+
+def decode_golden() -> dict:
+    rec = json.loads(DECODE_FILE.read_text())
+    c = rec["config"]
+    if c != DECODE_CONFIG or c["samples"] != DECODE_M or \
+            c["max_len"] != DECODE_MAX_LEN or c["requests"] != \
+            DECODE_REQUESTS or c["max_new_tokens"] != DECODE_NEW:
+        raise AssertionError(f"{DECODE_FILE.name} ran {c}")
+    return rec
+
+
+def check_decode_bank(rec):
+    """(a) The CLI's synthetic bank of M=4 inits on the card, each leaf's
+    bit sum and sampled elements the reference's exactly, its float64 sum
+    within 1e-12 relative (summed in another order)."""
+    model = get_model(decode_model_cfg())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bank = serve_cli.synthetic_bank(model, 0, DECODE_M, DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves_with_path(bank)
+    if len(leaves) != len(rec["leaves"]):
+        raise AssertionError(f"bank: {len(leaves)} leaves against "
+                             f"{len(rec['leaves'])}")
+    for path, x in leaves:
+        want = rec["leaves"][path.replace(".", "/")]
+        flat = x.reshape(-1)
+        bits = int((flat.view(torch.int32).long() & 0xFFFFFFFF).sum())
+        vals = flat[torch.tensor(want["idx"], device=DEVICE)].tolist()
+        total = float(flat.double().sum())
+        if list(x.shape) != want["shape"] or bits != want["bits_sum"] or \
+                vals != want["values"] or \
+                abs(total - want["sum"]) > 1e-12 * max(abs(want["sum"]), 1):
+            raise AssertionError(f"bank leaf {path}: not the reference's "
+                                 f"(sum {total!r} against {want['sum']!r})")
+    n = tree_count(bank) // DECODE_M
+    log("decode", f"(a) {DECODE_ARCH}: {n:,} parameters a sample in "
+                  f"{len(leaves)} leaves, a bank of {DECODE_M} inits from "
+                  f"fold_in(PRNGKey(0), i) made on the card in "
+                  f"{init_s:.2f} s: every leaf's bit sum and "
+                  f"{len(rec['leaves']['embed/tok']['idx'])} sampled "
+                  f"elements equal the reference's ({DECODE_FILE.name})")
+    return bank, n
+
+
+def compare_decode(label, resps, run, dtype) -> None:
+    """Tokens equal the record's up to each request's first step whose
+    recorded top-two margin is at or under the tolerance; token entropies
+    within the tolerance through that step."""
+    tol = DECODE_TOL[dtype]
+    low, same, compared = 0, 0, 0
+    for r, toks, ents, margins in zip(resps, run["tokens"],
+                                      run["token_entropy"], run["margins"]):
+        first = next((i for i, m in enumerate(margins) if m <= tol["margin"]),
+                     len(margins))
+        low += sum(m <= tol["margin"] for m in margins)
+        if r.tokens[:first].tolist() != toks[:first]:
+            raise AssertionError(f"{label}: request {r.request_id}'s tokens "
+                                 f"{r.tokens.tolist()} against {toks}")
+        upto = min(first + 1, len(ents))
+        e = np.abs(r.token_entropy[:upto] - np.asarray(ents[:upto]))
+        if (e > tol["ent"] * np.abs(ents[:upto])).any():
+            raise AssertionError(f"{label}: request {r.request_id}'s "
+                                 f"entropies off by {e.max():.3g}")
+        compared += first
+        same += int(r.tokens.tolist() == toks)
+    log("decode", f"{label}: tokens equal the reference's at all {compared} "
+                  f"steps above the margin {tol['margin']:g} (steps at or "
+                  f"under it: {low}); whole sequences equal: {same} of "
+                  f"{len(resps)}; entropies within rtol {tol['ent']:g}")
+
+
+def first_step_state(eng, n: int) -> dict:
+    """The first step's BMA probabilities of slots 0..n-1 and the keys and
+    values it cached at position 0, on the host."""
+    c = eng._caches["groups"]["u0"]
+    return dict(probs=eng._out[1][:n].double().cpu(),
+                k=c["k"][:, :, :n, 0].cpu(), v=c["v"][:, :, :n, 0].cpu())
+
+
+def top_dlogp(probs, top, other=None) -> float:
+    """The largest |log p - log q| at the record's top-8 of each slot: q the
+    record's probabilities, or ``other``'s at the same indices."""
+    idx = torch.tensor(top["idx"])
+    want = (torch.tensor(top["probs"], dtype=torch.float64) if other is None
+            else other.gather(1, idx))
+    return float((probs.gather(1, idx).log() - want.log()).abs().max())
+
+
+def check_cpu_witness(bank, rec, card: dict) -> None:
+    """(b) The witness: the port's first step on the CPU at full width, 8
+    slots (the record's), in each dtype: torch's CPU products in place of
+    cuBLAS's, the kernels' plain versions. Its log p at the record's top-8
+    against the record's (held to the same limit as the card's) and the
+    card's, and the bf16 keys and values both cached at position 0,
+    counted where they differ."""
+    cpu_bank = tree_map(lambda t: t.cpu(), bank)
+    for dtype in ("float32", "bfloat16"):
+        model = get_model(decode_model_cfg(dtype))
+        top = rec["runs"][dtype]["first_step_top"]
+        n = len(top["idx"])
+        eng = DecodeEngine(model, ServeConfig(
+            slots=n, max_len=DECODE_MAX_LEN, max_new_tokens=DECODE_NEW),
+            stacked=cpu_bank)
+        for t, sd in decode_requests(model.cfg.vocab_size, n,
+                                     DECODE_CONFIG["seed"]):
+            eng.submit(ServeRequest(prompt_token=t, seed=sd))
+        t0 = time.perf_counter()
+        eng.step()
+        secs = time.perf_counter() - t0
+        mine, theirs = first_step_state(eng, n), card[dtype]
+        ref = top_dlogp(mine["probs"], top)
+        cross = top_dlogp(mine["probs"], top, theirs["probs"])
+        differ = {x: (int((mine[x] != theirs[x]).sum()), mine[x].numel())
+                  for x in ("k", "v")}
+        if ref > DECODE_DLOGP[dtype]:
+            raise AssertionError(f"the CPU witness, {dtype}: the first "
+                                 f"step's log p off the record's top-8 by "
+                                 f"{ref:.3g}")
+        log("decode", f"(b) the witness, {dtype}: the port's first step on "
+                      f"the CPU at full width ({n} slots, {secs:.1f} s): "
+                      f"log p within {ref:.3g} of the record's top-8 (the "
+                      f"card's: {top_dlogp(theirs['probs'], top):.3g}), "
+                      f"{cross:.3g} of the card's; position-0 keys "
+                      f"differing from the card's in {differ['k'][0]} of "
+                      f"{differ['k'][1]} bf16 values, values in "
+                      f"{differ['v'][0]} of {differ['v'][1]}")
+        del eng
+
+
+def run_decode_engine(bank, rec, dtype: str, slots: int) -> dict:
+    """(b) DecodeEngine at ``slots`` slots over the record's 16 requests:
+    the first step (the capture) alone, then the rest timed; the first
+    step's BMA probabilities at the record's top-8; tokens and entropies
+    against the record; no capture after the first step at partial
+    occupancy and mixed lengths."""
+    model = get_model(decode_model_cfg(dtype))
+    run = rec["runs"][dtype]
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    eng = DecodeEngine(model, ServeConfig(slots=slots, max_len=DECODE_MAX_LEN,
+                                          max_new_tokens=DECODE_NEW),
+                       stacked=bank)
+    resident = torch.cuda.memory_allocated() - m0
+    reqs = [ServeRequest(prompt_token=t, seed=s) for t, s in decode_requests(
+        model.cfg.vocab_size, DECODE_REQUESTS, DECODE_CONFIG["seed"])]
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    resps = eng.step()                   # the first step, then its capture
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    first = first_step_state(eng, len(run["first_step_top"]["idx"]))
+    dlogp = top_dlogp(first["probs"], run["first_step_top"])
+    captures = eng.compile_count()
+    walls = []
+    while eng.pending():
+        t = time.perf_counter()
+        resps.extend(eng.step())
+        walls.append(1e3 * (time.perf_counter() - t))
+    launches = kernels.launch_counts()
+    resps.sort(key=lambda r: r.request_id)
+    label = f"{dtype}, {slots} slots"
+    if dlogp > DECODE_DLOGP[dtype]:
+        raise AssertionError(f"{label}: the first step's log p off the "
+                             f"record's top-8 by {dlogp:.3g}")
+    compare_decode(label, resps, run, dtype)
+    eng.run([ServeRequest(prompt_token=9, seed=77 + i,
+                          max_new_tokens=1 + i % 5) for i in range(slots // 2
+                                                                   + 3)])
+    if eng.compile_count() != captures or captures != 1:
+        raise AssertionError(f"{label}: {eng.compile_count()} captures")
+    for kname in DECODE_LAUNCHED:
+        if launches[kname] <= 0:
+            raise AssertionError(f"{label}: never launched {kname}")
+    dev_ms = device_ms(lambda: eng._graph.replay())
+    by_name = profiled(lambda: (eng._graph.replay(),
+                                torch.cuda.synchronize()))
+    if by_name:
+        total = sum(t for t, _ in by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+        named = {k: trace_hits(by_name, k) for k in DECODE_LAUNCHED}
+        log("decode", f"(b) {dtype}, {slots} slots, a traced replay: "
+                      f"{sum(c for _, c in by_name.values())} kernels, "
+                      f"{total / 1e3:.4f} device ms summed; "
+                      + "; ".join(f"{k}: {t / 1e3:.4f} ms in {c}"
+                                  for k, (t, c) in named.items())
+                      + "; the longest: " + "; ".join(
+                          f"{n[:60]} {t / 1e3:.4f} ms x{c}"
+                          for n, (t, c) in top[:DECODE_TOP_KERNELS]))
+    # the tokens of the timed steps (all but the first) over their wall time
+    tokens = sum(len(r.tokens) for r in resps) - min(slots, DECODE_REQUESTS)
+    lat = np.asarray([r.latency_s for r in resps], np.float64) * 1e3
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(eng._bank))
+    b_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    wall = statistics.median(walls)
+    res = dict(device_ms=dev_ms, wall_ms=wall, first_ms=first_ms,
+               capture_ms=eng.capture_ms,
+               tokens_per_s=1e3 * tokens / sum(walls),
+               p50_ms=float(np.percentile(lat, 50)),
+               p99_ms=float(np.percentile(lat, 99)), bound_ms=b_ms,
+               weight_bytes=weight_bytes, resident=resident,
+               launches={k: launches[k] for k in DECODE_LAUNCHED}, eng=eng,
+               first=first)
+    log("decode", f"(b) {label}: the first step {first_ms:.1f} ms "
+                  f"(eager, then the capture {eng.capture_ms:.1f} ms), 1 "
+                  f"capture in all (partial occupancy and lengths 1-5 "
+                  f"after); first-step log p within {dlogp:.3g} of the "
+                  f"record's top-8; a replayed step {dev_ms:.4f} device ms, "
+                  f"{wall:.4f} wall ms (median of {len(walls)} steps); "
+                  f"{res['tokens_per_s']:.1f} tokens/s over them "
+                  f"({tokens} tokens); request p50 {res['p50_ms']:.2f} ms, "
+                  f"p99 "
+                  f"{res['p99_ms']:.2f} ms; weight-byte bound {b_ms:.4f} ms "
+                  f"({weight_bytes:,} B of {dtype} weights a step, "
+                  f"{100 * b_ms / dev_ms:.1f}% of the device time); "
+                  f"resident tables {resident:,} B; launches "
+                  f"{res['launches']} (the eager step and the capture)")
+    return res
+
+
+def check_decode_swaps(eng, bank) -> None:
+    """8 same-M hot swaps between requests: memory_allocated flat to the
+    byte, no capture, the swapped bank answering."""
+    other = tree_map(lambda t: t * 1.01, bank)
+    req = lambda i: ServeRequest(prompt_token=3, seed=500 + i)  # noqa: E731
+    eng.run([req(0)])
+    gc.collect()
+    torch.cuda.synchronize()
+    before, c0 = torch.cuda.memory_allocated(), eng.compile_count()
+    ents = []
+    for i in range(8):
+        eng.install_bank(other if i % 2 == 0 else bank)
+        ents.append(eng.run([req(1)])[0].entropy)
+        torch.cuda.synchronize()
+        now = torch.cuda.memory_allocated()
+        if now != before:
+            raise AssertionError(f"swap {i + 1}: memory_allocated {now} "
+                                 f"against {before}")
+    if eng.compile_count() != c0 or len(set(ents)) != 2:
+        raise AssertionError(f"swaps: captures {eng.compile_count()}, "
+                             f"entropies {ents}")
+    log("decode", f"(b) 8 hot swaps ({DECODE_M} samples each): "
+                  f"memory_allocated flat at {before:,} B to the byte, no "
+                  f"capture, the two banks' answers alternating")
+
+
+def run_decode_cli(rec) -> None:
+    """(c) The serving CLI's decode mode at full width in-process: its
+    tokens against the reference's record up to the first low-margin step,
+    and its resp lines equal the reference's but for latency_ms wherever
+    the request has no step at or under the margin; SMOKE OK."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        resps = serve_cli.main(["--arch", DECODE_ARCH, "--mode", "decode",
+                                "--requests", str(DECODE_REQUESTS),
+                                "--smoke"])
+    wall = time.perf_counter() - t0
+    text = out.getvalue()
+    if "SMOKE OK" not in text:
+        raise AssertionError(f"decode CLI: {text}")
+    run = rec["runs"]["bfloat16"]
+    compare_decode("(c) the CLI", resps, run, "bfloat16")
+    lines = [ln for ln in text.splitlines() if ln.startswith("resp ")]
+    full, low = 0, 0
+    for ln, r in zip(lines, resps):
+        i = r.request_id
+        want = (f"resp id={i} pred={run['pred'][i]} entropy="
+                f"{run['entropy'][i]:.3f} abstain=False bank_version=1 "
+                f"tokens={run['tokens'][i]}")
+        same = re.sub(r" latency_ms=[0-9.]+", "", ln) == want
+        if min(run["margins"][i]) <= DECODE_TOL["bfloat16"]["margin"]:
+            low += 1                 # a low-margin step may part the tokens
+        elif not same:
+            raise AssertionError(f"decode CLI: {ln!r} against {want!r}")
+        full += int(same)
+    for ln in text.splitlines():
+        if ln.startswith("serve[decode]") and ln != (
+                f"serve[decode]: arch={DECODE_ARCH} samples={DECODE_M} "
+                f"slots=8 requests={DECODE_REQUESTS}"):
+            raise AssertionError(f"decode CLI: {ln}")
+    log("decode", f"(c) python -m repro_torch.launch.serve --arch "
+                  f"{DECODE_ARCH} --mode decode --requests {DECODE_REQUESTS} "
+                  f"--smoke at full width: {wall:.1f} s, SMOKE OK; "
+                  f"{full} of its {len(lines)} resp lines equal the "
+                  f"reference's but for latency_ms (held for the "
+                  f"{len(lines) - low} without a step at or under the "
+                  f"margin); "
+                  + " | ".join(ln for ln in text.splitlines()
+                               if ln.startswith("serve")))
+
+
+def check_lm_eval(bank) -> None:
+    """(d) The LM eval at full width on markov tokens: the scan eval engine
+    (one CUDA graph) against the host engine, bit for bit."""
+    from repro_torch.data.synthetic_lm import markov_tokens
+    from repro_torch.eval.engine import lm_apply_fn
+    model = get_model(decode_model_cfg())
+    toks = markov_tokens(16, 33, model.cfg.vocab_size, seed=0)
+    data = {"tokens": toks, "y": toks[:, 1:]}
+    apply = lm_apply_fn(model)
+    scan, sp = ScanEvalEngine(apply, batch_size=8).evaluate(
+        bank, data, return_probs=True)
+    host, hp = HostEvalEngine(apply, batch_size=8).evaluate(
+        bank, data, return_probs=True)
+    same_report("LM eval: scan against host", scan, host)
+    same_probs("LM eval: scan against host", sp, hp)
+    log("decode", f"(d) LM eval, {DECODE_M} samples on 16 markov sequences "
+                  f"of 33 tokens ({int(scan.count)} scored positions): the "
+                  f"scan engine's CUDA graph equals the host engine bit for "
+                  f"bit (accuracy {scan.accuracy:.4f}, NLL {scan.nll:.4f}, "
+                  f"ECE {scan.ece:.4f}, entropy {scan.entropy:.4f})")
+
+
+@contextlib.contextmanager
+def permissive_matmuls():
+    """TF32 and cuBLAS's reduced-precision bf16 and f16 reductions allowed
+    for the process (torch's default for the reductions; main() turned
+    TF32 off): the model's entry points turn them off for their own
+    products (``layers.f32_sums``), so the decode path must read the
+    reference's arithmetic all the same."""
+    m = torch.backends.cuda.matmul
+    names = ("allow_tf32", "allow_bf16_reduced_precision_reduction",
+             "allow_fp16_reduced_precision_reduction")
+    saved = [getattr(m, x) for x in names]
+    for x in names:
+        setattr(m, x, True)
+    try:
+        yield
+    finally:
+        for x, v in zip(names, saved):
+            setattr(m, x, v)
+
+
+@permissive_matmuls()
+def run_phase13() -> dict:
+    """Phase 13. Returns the launch counts of the main path's run (bf16,
+    8 slots: the CLI's defaults)."""
+    log("decode", f"on {card_line()}; the process allows TF32 and "
+                  f"reduced-precision bf16 reductions throughout (the model "
+                  f"sums its own products in f32)")
+    torch.cuda.empty_cache()
+    rec = decode_golden()
+    bank, n = check_decode_bank(rec)
+    timings, launches = {}, None
+    for dtype in ("bfloat16", "float32"):
+        for slots in DECODE_SLOTS:
+            r = run_decode_engine(bank, rec, dtype, slots)
+            eng = r.pop("eng")
+            if dtype == "bfloat16" and slots == DECODE_SLOTS[0]:
+                launches = r["launches"]
+                check_decode_swaps(eng, bank)
+            timings[(dtype, slots)] = r
+            del eng
+            torch.cuda.empty_cache()
+    check_cpu_witness(bank, rec, {d: timings[(d, DECODE_SLOTS[0])]["first"]
+                                  for d in ("bfloat16", "float32")})
+    for (dtype, slots), r in timings.items():
+        log("decode", f"step table: {dtype}, {slots} slots: device "
+                      f"{r['device_ms']:.4f} ms, wall {r['wall_ms']:.4f} ms, "
+                      f"{r['tokens_per_s']:.1f} tokens/s, p50 "
+                      f"{r['p50_ms']:.2f} ms, p99 {r['p99_ms']:.2f} ms, "
+                      f"bound {r['bound_ms']:.4f} ms")
+    run_decode_cli(rec)
+    check_lm_eval(bank)
+    del bank
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4047,6 +4752,8 @@ def main() -> int:
     errs.update(check_default_kernels(shapes))
     errs.update(check_gossip_mix(shapes))
     errs["gilbert_keep"] = check_gilbert()
+    errs["decode_attention"] = check_decode_attention()
+    errs["bma_sample"] = check_bma_sample()
     timing = time_kernels(shapes)
     for kname, r in timing.items():
         log("kernels", f"{kname} per round (10 leaves, K={K}): device "
@@ -4080,6 +4787,7 @@ def main() -> int:
     timing.update(time_default_kernels(shapes))
     timing.update(time_gossip_mix(shapes))
     timing["gilbert_keep"] = time_gilbert()
+    timing.update(time_decode_kernels())
     shift = shift_set(cfg.input_hw)
     default_launches, evals = {}, {}
     for algorithm in DEFAULT_RUNS:
@@ -4095,6 +4803,7 @@ def main() -> int:
     errs.update(bf16_errs)
     timing.update(bf16_timing)
     run_phase12(train, test, shift)
+    decode_launches = run_phase13()
     log("default", "accuracy / ECE, day-1 test maps and days-2/3 shift set: "
                    + "; ".join(f"{a}: {e['accuracy']:.4f} / {e['ece']:.4f}, "
                                f"{e['shift_accuracy']:.4f} / "
@@ -4112,7 +4821,7 @@ def main() -> int:
                     dsgld_update=default_launches["dsgld"]["dsgld_update"],
                     gossip_mix=train_launches["gossip_mix"],
                     gilbert_keep=link_launches["gilbert_keep"],
-                    **bf16_launches)
+                    **bf16_launches, **decode_launches)
     record = {"kernels": [
         {"name": kname, "route": "cuda", "source": KERNELS[kname][0],
          "replaces": KERNELS[kname][1], "launches": launches[kname],

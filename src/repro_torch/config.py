@@ -172,13 +172,70 @@ class ContinualConfig:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    """The reference's MoE knobs (``repro/config.py:19-32``); the port runs
+    no MoE family yet (ROADMAP A12)."""
+    num_experts: int = 0            # routed experts (0 = dense MLP)
+    num_shared_experts: int = 0     # always-on experts (DeepSeek style)
+    top_k: int = 2
+    aux_loss_weight: float = 0.01   # router load-balance loss
+    impl: str = "ragged"            # ragged | gshard
+    capacity_factor: float = 1.25
+
+
+@dataclass(frozen=True)
 class ModelConfig:
-    """The LeNet fields of the reference ``ModelConfig``."""
+    """One architecture: every field of the reference ``ModelConfig``
+    (``repro/config.py:35-93``) with its default. The port runs the
+    ``lenet`` and ``dense`` families (``repro_torch.models``)."""
     name: str = "model"
-    family: str = "lenet"
+    family: str = "dense"           # dense | moe | hybrid | ssm | vlm | audio | lenet
+    num_layers: int = 2
+    d_model: int = 256
+    num_heads: int = 4
+    num_kv_heads: int = 4
+    head_dim: int = 0               # 0 -> d_model // num_heads
+    d_ff: int = 1024
+    vocab_size: int = 1024
+    max_seq_len: int = 8192
+    # attention
+    qkv_bias: bool = False          # Qwen2-style
+    sliding_window: int = 0         # 0 = full attention
+    rope_theta: float = 10000.0
+    # MoE
+    moe: MoEConfig = field(default_factory=MoEConfig)
+    # MLA (DeepSeek-V2): 0 disables, >0 is the KV LoRA/latent rank
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    rope_head_dim: int = 64
+    # hybrid (RecurrentGemma / Griffin): block pattern, e.g. ("rec","rec","attn")
+    block_pattern: Tuple[str, ...] = ()
+    rglru_dim: int = 0              # 0 -> d_model
+    local_attn_window: int = 2048
+    # xLSTM
+    mlstm_ratio: int = 7            # mLSTM blocks per sLSTM block
+    # enc-dec (whisper)
+    encoder_layers: int = 0
+    encoder_seq_len: int = 1500
+    # VLM stub frontend
+    num_image_patches: int = 0
+    # training-path memory control
+    attn_impl: str = "auto"         # naive | chunked | auto (chunked iff S >= 2 chunk)
+    chunk_size: int = 512
+    # norms / activations
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    act: str = "silu"
+    dtype: Any = "bfloat16"
+    # LeNet (radar) specific
     input_hw: Tuple[int, int] = (0, 0)
     num_classes: int = 0
-    dtype: str = "float32"
+    # layer scanning for deep stacks: one stacked leaf a weight
+    scan_layers: bool = True
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.num_heads)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -280,10 +337,15 @@ class ArchSpec:
 
 _ARCHS: Dict[str, ArchSpec] = {}
 # the reference's registry (``repro/configs``): the ids the port does not
-# run yet, which come with the LM model zoo
-_UNPORTED_ARCHS = ("deepseek-v2-236b", "grok-1-314b", "llava-next-mistral-7b",
-                   "mistral-large-123b", "qwen2.5-14b", "recurrentgemma-9b",
-                   "smollm-135m", "whisper-tiny", "xlstm-1.3b", "yi-9b")
+# run yet, each with the part of the LM model zoo (ROADMAP A12) that ports it
+_UNPORTED_ARCHS = {
+    "deepseek-v2-236b": "A12 part 4 (moe and MLA)",
+    "grok-1-314b": "A12 part 4 (moe)",
+    "llava-next-mistral-7b": "A12 part 3 (vlm)",
+    "recurrentgemma-9b": "A12 part 5 (hybrid, RG-LRU)",
+    "xlstm-1.3b": "A12 part 6 (ssm, xLSTM)",
+    "whisper-tiny": "A12 part 7 (audio)",
+}
 
 
 def register_arch(spec: ArchSpec) -> ArchSpec:
@@ -300,7 +362,7 @@ def get_arch(arch_id: str) -> ArchSpec:
     if arch_id in _UNPORTED_ARCHS:
         raise NotImplementedError(
             f"arch {arch_id!r} is not ported yet (ported: {sorted(_ARCHS)}); "
-            f"ROADMAP A12 (LM model zoo)")
+            f"ROADMAP {_UNPORTED_ARCHS[arch_id]}")
     raise KeyError(f"unknown arch {arch_id!r}; known: "
                    f"{sorted(set(_ARCHS) | set(_UNPORTED_ARCHS))}")
 
@@ -330,3 +392,46 @@ register_arch(ArchSpec(
         "long_500k": "no decode step",
     },
 ))
+
+
+# the dense decoders of the reference's registry (``repro/configs``):
+# (arch id, config, the reduced config's overrides, source, notes)
+_GQA_REDUCED = dict(num_layers=2, d_model=128, num_heads=4, num_kv_heads=2,
+                    head_dim=32, d_ff=256, vocab_size=512)
+_DENSE = (
+    ("smollm-135m",
+     ModelConfig(name="smollm-135m", family="dense", num_layers=30,
+                 d_model=576, num_heads=9, num_kv_heads=3, d_ff=1536,
+                 vocab_size=49152, tie_embeddings=True),
+     dict(name="smollm-reduced", num_layers=2, d_model=96, num_heads=3,
+          num_kv_heads=3, d_ff=256, vocab_size=512),
+     "hf:HuggingFaceTB/SmolLM-135M",
+     "~135M params: the end-to-end CPU-trainable arch (examples use a "
+     "trimmed variant). long_500k via sliding_window variant."),
+    ("yi-9b",
+     ModelConfig(name="yi-9b", family="dense", num_layers=48, d_model=4096,
+                 num_heads=32, num_kv_heads=4, head_dim=128, d_ff=11008,
+                 vocab_size=64000),
+     dict(_GQA_REDUCED, name="yi-reduced"),
+     "arXiv:2403.04652 (Yi)",
+     "Llama-style dense GQA. long_500k via sliding_window variant."),
+    ("qwen2.5-14b",
+     ModelConfig(name="qwen2.5-14b", family="dense", num_layers=48,
+                 d_model=5120, num_heads=40, num_kv_heads=8, head_dim=128,
+                 d_ff=13824, vocab_size=152064, qkv_bias=True),
+     dict(_GQA_REDUCED, name="qwen2.5-reduced"),
+     "hf:Qwen/Qwen2.5-0.5B (family card)",
+     "Dense GQA with QKV bias. long_500k via sliding_window variant."),
+    ("mistral-large-123b",
+     ModelConfig(name="mistral-large-123b", family="dense", num_layers=88,
+                 d_model=12288, num_heads=96, num_kv_heads=8, head_dim=128,
+                 d_ff=28672, vocab_size=32768, sliding_window=0),
+     dict(_GQA_REDUCED, name="mistral-large-reduced"),
+     "hf:mistralai/Mistral-Large-Instruct-2407",
+     "Dense GQA. long_500k uses the sliding_window=4096 variant "
+     "(ring-buffer cache) per the assignment's sub-quadratic carve-out."),
+)
+for _arch_id, _cfg, _reduced, _source, _notes in _DENSE:
+    register_arch(ArchSpec(arch_id=_arch_id, config=_cfg,
+                           reduced=_cfg.replace(**_reduced), source=_source,
+                           notes=_notes))

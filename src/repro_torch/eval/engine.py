@@ -69,10 +69,17 @@ def init_accum(num_bins: int, device="cpu") -> EvalAccum:
 def update_accum(accum: EvalAccum, probs, labels, mask, num_bins: int,
                  entropy_threshold: float = float("inf")) -> EvalAccum:
     """Fold one ``(B, C)`` probability batch in; ``mask`` zeroes padding.
-    ``entropy_threshold`` feeds the selective-prediction sums only."""
+    ``entropy_threshold`` feeds the selective-prediction sums only. A
+    token-level batch (probs ``(B, T, C)``, labels ``(B, T)``) scores every
+    label position as one example, the batch mask broadcast over them."""
     probs = probs.float()
     mask = mask.float()
     labels = labels.long()
+    if labels.dim() > 1:
+        mask = mask.reshape(mask.shape + (1,) * (labels.dim() - mask.dim())
+                            ).expand(labels.shape).reshape(-1)
+        probs = probs.reshape(-1, probs.shape[-1])
+        labels = labels.reshape(-1)
     conf, pred = probs.max(dim=-1)
     correct = (pred == labels).float() * mask
     p_label = torch.gather(probs, -1, labels[:, None])[:, 0]
@@ -150,23 +157,43 @@ def stack_eval_batches(data: Dict[str, np.ndarray], batch_size: int, device):
     return out, torch.from_numpy(mask.reshape(nb, batch_size)).to(device)
 
 
+def model_input(batches) -> str:
+    """The field a model reads: ``x`` (the classifiers') or ``tokens``
+    (the LMs')."""
+    return "x" if "x" in batches else "tokens"
+
+
 def eval_pass(logits_fn: Callable, stacked, weights, batches, masks,
               node_axis: Optional[int], num_bins: int,
               entropy_threshold: float, with_probs: bool):
     """One pass over ``(nb, B, ...)`` batches: zeroed accumulators, then
     each batch's BMA probabilities folded in, in batch order. Returns the
-    accumulators and, ``with_probs``, the ``(nb * B, C)`` probabilities.
-    The host engine runs it eagerly; the scan engine captures it."""
+    accumulators and, ``with_probs``, the ``(nb * B, C)`` probabilities
+    (``(nb * B, T, C)`` for token batches). The host engine runs it
+    eagerly; the scan engine captures it."""
     acc = init_accum(num_bins, masks.device)
     probs_all = []
+    field = model_input(batches)
     for i in range(masks.shape[0]):
-        probs = bma_predict_stacked(logits_fn, stacked, batches["x"][i],
+        probs = bma_predict_stacked(logits_fn, stacked, batches[field][i],
                                     node_axis=node_axis, weights=weights)
         acc = update_accum(acc, probs, batches["y"][i], masks[i], num_bins,
                            entropy_threshold)
         if with_probs:
             probs_all.append(probs)
     return acc, (torch.cat(probs_all) if with_probs else None)
+
+
+def lm_apply_fn(model) -> Callable:
+    """Next-token prediction over token batches: the model's logits with
+    any non-text prefix trimmed and the last position dropped; the labels
+    are ``tokens[:, 1:]`` (the reference's one LM evaluation contract).
+    ``apply(params, tokens)`` -> ``(G, B, T - 1, V)``."""
+    def apply(params, tokens):
+        lg = model.logits(params, {"tokens": tokens})
+        t = tokens.shape[1]
+        return lg[:, :, lg.shape[2] - t:][:, :, :-1]
+    return apply
 
 
 def as_stacked(params: Any) -> Any:

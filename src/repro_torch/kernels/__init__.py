@@ -3,7 +3,9 @@
 Importing this package builds nothing: the CUDA library is compiled on the
 first launch (``_build.library``).
 """
+from repro_torch.kernels.bma_sample import bma_sample
 from repro_torch.kernels.block_topk import block_topk
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.fused_compress import (delta_pack, delta_pack_bf16,
                                                 grid_quant_leaves)
 from repro_torch.kernels.fused_update import (cffl_update, cffl_update_bf16,
@@ -27,7 +29,9 @@ WRAPPERS = {"pack": pack_topk, "delta_pack": delta_pack,
             "topk_select_bf16": topk_select_bf16,
             "delta_pack_bf16": delta_pack_bf16,
             "fused_update_bf16": fused_update_bf16,
-            "cffl_update_bf16": cffl_update_bf16}
+            "cffl_update_bf16": cffl_update_bf16,
+            # the decode step's (ROADMAP A12)
+            "decode_attention": decode_attention, "bma_sample": bma_sample}
 
 
 def launch_counts() -> dict:

@@ -25,8 +25,9 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 SOURCES = ("pack.cu", "fused_compress.cu", "fused_update.cu", "gossip_mix.cu",
-           "block_topk.cu", "qsgd.cu", "threefry.cu", "gilbert.cu")
-HEADERS = ("pack_tile.cuh", "qsgd_round.cuh")
+           "block_topk.cu", "qsgd.cu", "threefry.cu", "gilbert.cu",
+           "decode_attention.cu", "bma_sample.cu")
+HEADERS = ("pack_tile.cuh", "qsgd_round.cuh", "threefry.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
@@ -50,6 +51,11 @@ _SIGNATURES = {
     "repro_threefry": [_PP, _PL, _PL, _PP, _PL, _PI, _PL, _PP, _PL, _PF,
                        _I, _P],
     "repro_gilbert_keep": [_PP, _PP, _PP, _PL, _I, _L, _P, _PF, _P],
+    # the decode step's kernels (ROADMAP A12)
+    "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I,
+                               _I, _I, _I, _I, _F, _I, _I, _P],
+    "repro_bma_sample": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I,
+                         _P],
     # v (and v̄) stored in bfloat16
     "repro_delta_pack_bf16": [_PP, _PP, _PL, _PL, _PL, _I, _L, _P, _P, _I,
                               _P],

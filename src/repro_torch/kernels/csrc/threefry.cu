@@ -16,6 +16,9 @@
 //            `fold` afterwards (a second hash), int64 pairs out.
 //   BITS     b1 ^ b2 (jax.random.bits), int64 out.
 //   UNIFORM  max(lo, fma(f - 1, hi - lo, lo)), f = bits >> 9 | 1.0f.
+//   GUMBEL   -log(-log(u)) of that uniform (lo = the smallest normal
+//            f32, hi = 1): jax.random.gumbel in its "low" mode, by
+//            XLA's log (threefry.cuh: log_xla), for categorical draws.
 //   NORMAL   erfinv of that uniform, times mult, clipped to
 //            [clip_lo, clip_hi], times scale (normal and the Langevin noise:
 //            mult = fl32(sqrt 2 * scale), as XLA folds the constants inside
@@ -43,8 +46,7 @@
 // 256 apart, so every store is coalesced), the rotations are single
 // funnel shifts, the request's kind is uniform in a CTA, and the grid is
 // the tiles of the whole table, so small requests run beside large ones.
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "threefry.cuh"
 
 namespace repro_torch {
 
@@ -53,7 +55,9 @@ constexpr int kDrawPerThread = 4;
 constexpr int kDrawTile = kDrawThreads * kDrawPerThread;   // 1024 elements
 constexpr int kMaxRequests = 40;          // threefry.py: MAX_TABLE_REQUESTS
 
-enum DrawKind : int { kPair = 0, kBits = 1, kUniform = 2, kNormal = 3 };
+enum DrawKind : int {
+  kPair = 0, kBits = 1, kUniform = 2, kNormal = 3, kGumbel = 4
+};
 
 // Request q: its rows' keys at key[r * key_stride + {0, 1}] (uint32 values
 // in int64), its (rows, n) output (rows, n, 2 for PAIR) at out; its tiles
@@ -75,80 +79,11 @@ struct DrawTable {
 };
 static_assert(sizeof(DrawTable) <= 4096, "the table is a kernel parameter");
 
-// ---------------------------------------------------------------- threefry
-
-template <int R>
-__device__ __forceinline__ void mix(uint32_t& x0, uint32_t& x1) {
-  x0 += x1;
-  x1 = __funnelshift_l(x1, x1, R);       // rotate left by R
-  x1 ^= x0;
-}
-
-template <int A, int B, int C, int D>
-__device__ __forceinline__ void four_rounds(uint32_t& x0, uint32_t& x1) {
-  mix<A>(x0, x1);
-  mix<B>(x0, x1);
-  mix<C>(x0, x1);
-  mix<D>(x0, x1);
-}
-
-__device__ __forceinline__ uint2 threefry2x32(uint32_t k0, uint32_t k1,
-                                              uint32_t c0, uint32_t c1) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  uint32_t x0 = c0 + k0, x1 = c1 + k1;
-  four_rounds<13, 15, 26, 6>(x0, x1);
-  x0 += k1;
-  x1 += k2 + 1u;
-  four_rounds<17, 29, 16, 24>(x0, x1);
-  x0 += k2;
-  x1 += k0 + 2u;
-  four_rounds<13, 15, 26, 6>(x0, x1);
-  x0 += k0;
-  x1 += k1 + 3u;
-  four_rounds<17, 29, 16, 24>(x0, x1);
-  x0 += k1;
-  x1 += k2 + 4u;
-  four_rounds<13, 15, 26, 6>(x0, x1);
-  x0 += k2;
-  x1 += k0 + 5u;
-  return make_uint2(x0, x1);
-}
-
 // ------------------------------------------------- XLA's CPU f32 arithmetic
 
-__device__ __forceinline__ float bits_f(uint32_t b) {
-  return __uint_as_float(b);
-}
-
-// log1p as XLA's CPU backend runs it (threefry.py: log1p_plain).
+// log1p as XLA's CPU backend runs it (threefry.py: log1p_plain): above
+// |z| >= sqrt 2 - 1, log(1 + z) by log_xla.
 __device__ __forceinline__ float log1p_xla(float z) {
-  // |z| >= sqrt 2 - 1: log(1 + z) by XLA's Cephes-style f32 log
-  const float a = __fadd_rn(z, 1.0f);
-  const float c = a > bits_f(0x00800000u) ? a : bits_f(0x00800000u);
-  const int cb = __float_as_int(c);
-  float e = __fadd_rn(__int2float_rn((cb >> 23) - 127), 1.0f);
-  const float m = __int_as_float((cb & 0x7FFFFF) | 0x3F000000);
-  const bool below = m < bits_f(0x3f3504f3u);            // sqrt(1/2)
-  const float t = __fadd_rn(__fadd_rn(m, -1.0f), below ? m : 0.0f);
-  if (below) e = __fsub_rn(e, 1.0f);
-  const float t2 = __fmul_rn(t, t);
-  const float t3 = __fmul_rn(t2, t);
-  const float y0 = __fmaf_rn(__fmaf_rn(t, bits_f(0x3d9021bbu),
-                                       bits_f(0xbdebd1b8u)),
-                             t, bits_f(0x3def251au));
-  const float y1 = __fmaf_rn(__fmaf_rn(t, bits_f(0xbdfe5d4fu),
-                                       bits_f(0x3e11e9bfu)),
-                             t, bits_f(0xbe2aae50u));
-  const float y2 = __fmaf_rn(__fmaf_rn(t, bits_f(0x3e4cceacu),
-                                       bits_f(0xbe7ffffcu)),
-                             t, bits_f(0x3eaaaaaau));
-  const float r = __fmaf_rn(t3, __fmaf_rn(t3, y0, y1), y2);
-  const float s = __fadd_rn(__fmaf_rn(t3, r, __fmul_rn(e, bits_f(0xb95e8083u))),
-                            __fmaf_rn(-0.5f, t2, t));
-  float large = __fmaf_rn(e, bits_f(0x3f318000u), s);
-  if (!(a > 0.0f)) large = bits_f(0x7fc00000u);   // a <= 0 or NaN
-  if (a == 0.0f) large = bits_f(0xff800000u);     // -inf
-  if (a == bits_f(0x7f800000u)) large = a;        // +inf
   // |z| < sqrt 2 - 1: z - z^2/2 + z^3 P(z) / Q(z)
   const float zz = __fmul_rn(z, z);
   float den = __fadd_rn(__fmul_rn(z, 0.0f), 1.0f);
@@ -168,7 +103,8 @@ __device__ __forceinline__ float log1p_xla(float z) {
   const float small = __fadd_rn(
       z, __fmaf_rn(-0.5f, zz,
                    __fmul_rn(__fmul_rn(z, zz), __fdiv_rn(num, den))));
-  return fabsf(z) < bits_f(0x3ed413cdu) ? small : large;
+  return fabsf(z) < bits_f(0x3ed413cdu) ? small
+                                        : log_xla(__fadd_rn(z, 1.0f));
 }
 
 // XLA's ErfInv32 (threefry.py: erfinv_plain).
@@ -188,11 +124,6 @@ __device__ __forceinline__ float erfinv_xla(float x) {
   for (int i = 1; i < 9; ++i) p = __fmaf_rn(w, p, bits_f(lt ? kLt5[i] : kGe5[i]));
   if (fabsf(x) == 1.0f) p = bits_f(0x7f800000u);   // +inf
   return __fmul_rn(x, p);
-}
-
-__device__ __forceinline__ float uniform_of(uint32_t b, float lo, float hi) {
-  const float f = __uint_as_float((b >> 9) | 0x3F800000u);
-  return fmaxf(__fmaf_rn(__fadd_rn(f, -1.0f), __fsub_rn(hi, lo), lo), lo);
 }
 
 // ------------------------------------------------------------------ kernel
@@ -229,6 +160,8 @@ threefry_kernel(const __grid_constant__ DrawTable table) {
       static_cast<long long*>(rq.out)[base + i] = (long long)b;
     } else if (rq.kind == kUniform) {
       static_cast<float*>(rq.out)[base + i] = uniform_of(b, rq.lo, rq.hi);
+    } else if (rq.kind == kGumbel) {
+      static_cast<float*>(rq.out)[base + i] = gumbel_of(b, rq.lo, rq.hi);
     } else {
       const float v = __fmul_rn(erfinv_xla(uniform_of(b, rq.lo, rq.hi)),
                                 rq.mult);
@@ -246,7 +179,7 @@ threefry_kernel(const __grid_constant__ DrawTable table) {
 // counter_ats[q] is not null, the int it points to on the device (PAIR: a
 // round index that a CUDA graph reads at replay, wrapping mod 2^32), second
 // counter folds[q] (PAIR; -1 for none), and params[6q .. 6q + 5] = lo, hi,
-// mult, clip_lo, clip_hi, scale (UNIFORM reads the first two). Counters and
+// mult, clip_lo, clip_hi, scale (UNIFORM and GUMBEL read the first two). Counters and
 // folds are uint32; every request has rows >= 1 and n >= 1.
 extern "C" int repro_threefry(const long long* const* keys,
                               const long long* key_strides,
@@ -261,7 +194,7 @@ extern "C" int repro_threefry(const long long* const* keys,
   DrawTable table{};
   long long total = 0;
   for (int q = 0; q < count; ++q) {
-    if (rows[q] < 1 || ns[q] < 1 || kinds[q] < kPair || kinds[q] > kNormal ||
+    if (rows[q] < 1 || ns[q] < 1 || kinds[q] < kPair || kinds[q] > kGumbel ||
         counters[q] < 0 || counters[q] + ns[q] > 0x100000000LL ||
         folds[q] > 0xffffffffLL)
       return (int)cudaErrorInvalidValue;

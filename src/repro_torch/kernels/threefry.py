@@ -21,6 +21,9 @@ under one transform:
 - ``BITS``: ``b1 ^ b2``, the 32 random bits of ``jax.random.bits``.
 - ``UNIFORM``: ``max(lo, fma(f − 1, hi − lo, lo))``, ``f`` the float in
   ``[1, 2)`` whose mantissa is the bits' top 23 (``random.py:435``).
+- ``GUMBEL``: ``−log(−log(u))`` of that uniform over ``[lo, hi)`` =
+  ``[tiny, 1)``, by XLA's f32 log: ``jax.random.gumbel`` in its ``"low"``
+  mode, the noise of ``categorical`` (the decode sampler's).
 - ``NORMAL``: ``erfinv`` of that uniform, times ``mult``, clipped to
   ``[clip_lo, clip_hi]``, times ``scale``: ``normal`` (``lo`` =
   nextafter(−1, 0), ``hi`` = 1, ``mult`` = √2, no clip) and
@@ -35,10 +38,14 @@ Rounding follows the reference as it executes on the CPU. XLA contracts
 ``w = −log1p(−x²)``, two 9-coefficient polynomials split at ``w = 5``, fma
 Horner steps) with its own log1p: a rational Cephes form below
 ``|z| < √2 − 1`` and, above it, ``log(1 + z)`` by its Cephes-style f32
-log, every multiply-add contracted as XLA's compiled code contracts it.
+log (:func:`log_plain`, which is ``jax.jit(jnp.log)`` bit for bit: XLA's
+CPU log is not correctly rounded, so ``torch.log`` is not it), every
+multiply-add contracted as XLA's compiled code contracts it.
 :func:`erfinv_plain` transcribes that sequence op for op (single-rounding
-fma by :func:`fma_f32`), and the CUDA kernel (``csrc/threefry.cu``) spells
-out the same sequence with ``__fmaf_rn`` and IEEE ``__f*_rn`` operations.
+fma by :func:`fma_f32`), and the CUDA kernel (``csrc/threefry.cu``, with
+the hash and the log in ``csrc/threefry.cuh``, which ``bma_sample.cu``
+shares) spells out the same sequence with ``__fmaf_rn`` and IEEE
+``__f*_rn`` operations.
 
 The plain version runs for CPU tensors (and ``meta`` ones, for shapes). A
 CUDA tensor launches the kernel or raises; ``draw.launches`` counts
@@ -51,19 +58,21 @@ import ctypes
 import struct
 from typing import NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.kernels._build import check, library, on_card, stream_of
 from repro_torch.kernels.fused_update import fma_f32
 from repro_torch.kernels.pack import c_array
 
-PAIR, BITS, UNIFORM, NORMAL = 0, 1, 2, 3
+PAIR, BITS, UNIFORM, NORMAL, GUMBEL = 0, 1, 2, 3, 4
 M32 = 0xFFFFFFFF
 KS_PARITY = 0x1BD11BDA
 ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 MAX_TABLE_REQUESTS = 40            # csrc/threefry.cu: kMaxRequests
 NUM_PARAMS = 6                     # f32 parameters a request
 NO_CLIP = (float("-inf"), float("inf"))
+TINY = float(np.finfo(np.float32).tiny)    # gumbel's minval, an f32
 
 
 def f32(bits: int) -> float:
@@ -109,7 +118,7 @@ class Draw(NamedTuple):
     """A request of a table launch: ``keys.shape[0]`` streams of ``n``
     elements, one a key row. Output ``(R, n, 2)`` int64 keys for ``PAIR``,
     ``(R, n)`` int64 bits for ``BITS``, ``(R, n)`` f32 otherwise.
-    ``params``: ``(lo, hi)`` for ``UNIFORM``; ``(lo, hi, mult, clip_lo,
+    ``params``: ``(lo, hi)`` for ``UNIFORM`` and ``GUMBEL``; ``(lo, hi, mult, clip_lo,
     clip_hi, scale)`` for ``NORMAL``; f32 values. ``counter``: an int, or
     for ``PAIR`` a one-element int32 tensor on the keys' device."""
     keys: torch.Tensor
@@ -159,10 +168,10 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     return x.double().sqrt().float()
 
 
-def log1p_plain(z: torch.Tensor) -> torch.Tensor:
-    """XLA's CPU f32 log1p, op for op as its compiled code runs it."""
-    # |z| >= √2 − 1: log(1 + z), XLA's Cephes-style f32 log
-    a = z + 1.0
+def log_plain(a: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU f32 log (its Cephes-style polynomial), op for op as its
+    compiled code runs it: ``jax.jit(jnp.log)`` bit for bit (a NaN's sign
+    bit aside). XLA's CPU code treats a subnormal input as zero: −inf."""
     c = torch.where(a > MIN_NORMAL, a, torch.full_like(a, MIN_NORMAL))
     bits = c.view(torch.int32)
     e = ((bits >> 23) - 127).float() + 1.0
@@ -178,11 +187,17 @@ def log1p_plain(z: torch.Tensor) -> torch.Tensor:
     y2 = _fma(_fma(t, p[6], p[7]), t, p[8])
     r = _fma(t3, _fma(t3, y0, y1), y2)
     s = _fma(t3, r, e * LOG_Q1) + _fma(-0.5, t2, t)
-    large = _fma(e, LOG_Q2, s)
-    large = torch.where(a <= 0, float("nan"), large)     # NaN a falls here too
-    large = torch.where(torch.isnan(a), float("nan"), large)
-    large = torch.where(a == 0, float("-inf"), large)
-    large = torch.where(a == float("inf"), float("inf"), large)
+    out = _fma(e, LOG_Q2, s)
+    out = torch.where(a <= 0, float("nan"), out)         # NaN a falls here too
+    out = torch.where(torch.isnan(a), float("nan"), out)
+    out = torch.where(a.abs() < MIN_NORMAL, float("-inf"), out)
+    return torch.where(a == float("inf"), float("inf"), out)
+
+
+def log1p_plain(z: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU f32 log1p, op for op as its compiled code runs it."""
+    # |z| >= √2 − 1: log(1 + z), XLA's Cephes-style f32 log
+    large = log_plain(z + 1.0)
     # |z| < √2 − 1: z − z²/2 + z³·P(z)/Q(z)
     zz = z * z
     den = z * 0.0 + 1.0
@@ -231,6 +246,11 @@ def uniform_plain(b: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
                                          device=b.device))
 
 
+def gumbel_plain(b: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``−log(−log(u))``, ``u`` the uniform in ``[lo, hi)`` of the bits."""
+    return -log_plain(-log_plain(uniform_plain(b, lo, hi)))
+
+
 def normal_plain(b: torch.Tensor, params) -> torch.Tensor:
     lo, hi, mult, clip_lo, clip_hi, scale = map(to_f32, params)
     z = erfinv_plain(uniform_plain(b, lo, hi)) * mult
@@ -257,6 +277,8 @@ def draw_one_plain(req: Draw) -> torch.Tensor:
         return b
     if req.kind == UNIFORM:
         return uniform_plain(b, *req.params)
+    if req.kind == GUMBEL:
+        return gumbel_plain(b, *req.params)
     return normal_plain(b, req.params)
 
 
@@ -274,7 +296,7 @@ def _check(req: Draw, i: int) -> None:
         raise ValueError(f"threefry: request {i}: keys must be (R, 2) with "
                          f"unit column stride, got {tuple(keys.shape)} "
                          f"strides {keys.stride()}")
-    if req.kind not in (PAIR, BITS, UNIFORM, NORMAL):
+    if req.kind not in (PAIR, BITS, UNIFORM, NORMAL, GUMBEL):
         raise ValueError(f"threefry: request {i}: unknown kind {req.kind}")
     if torch.is_tensor(req.counter):
         c = req.counter
@@ -290,7 +312,8 @@ def _check(req: Draw, i: int) -> None:
     if req.fold is not None and not 0 <= req.fold <= M32:
         raise ValueError(f"threefry: request {i}: fold {req.fold} is not a "
                          f"uint32")
-    want = {PAIR: 0, BITS: 0, UNIFORM: 2, NORMAL: NUM_PARAMS}[req.kind]
+    want = {PAIR: 0, BITS: 0, UNIFORM: 2, NORMAL: NUM_PARAMS,
+            GUMBEL: 2}[req.kind]
     if len(req.params) != want:
         raise ValueError(f"threefry: request {i}: {len(req.params)} params, "
                          f"the transform takes {want}")

@@ -1,5 +1,6 @@
-"""Uncertainty-aware serving CLI over ``repro_torch.serve``, classify mode
-(``repro/launch/serve.py``).
+"""Uncertainty-aware serving CLI over ``repro_torch.serve``
+(``repro/launch/serve.py``): classify for the radar LeNet, BMA decode for
+the dense LMs.
 
 A thin argparse shim over :class:`repro_torch.config.ServeConfig`: one flag
 a field, every behaviour in the engine. Loads the posterior bank snapshots
@@ -7,8 +8,11 @@ of ``--ckpt-dir`` (``bank_*.npz``, written by
 :func:`repro_torch.checkpoint.save_bank` or the reference's), or makes a
 synthetic bank of ``--samples`` models initialized from
 ``fold_in(PRNGKey(seed), i)``; serves ``--requests`` radar maps through
-the :class:`ClassifyEngine` and reports throughput, tail latency and the
-abstain rate. With ``--follow-snapshots`` it starts from the oldest
+the :class:`ClassifyEngine`, or (``--mode decode``, the default for an LM
+arch) ``--requests`` prompts ``1 + i mod (V − 1)`` with seeds ``seed + i``
+through the :class:`DecodeEngine` (a trainer's ``(S, K, ...)`` snapshots
+flattened to ``S·K`` samples), and reports throughput, tail latency and
+the abstain rate. With ``--follow-snapshots`` it starts from the oldest
 snapshot and hot-swaps through the rest while requests are in flight;
 ``--poll-s`` also polls for snapshots that land while it runs.
 
@@ -18,9 +22,11 @@ snapshot and hot-swaps through the rest while requests are in flight;
     # the CPU, reduced width, with the smoke assertions
     PYTHONPATH=src python -m repro_torch.launch.serve --trim --device cpu \\
         --smoke
+    # BMA decode of smollm-135m at full width on the card, 4 samples
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
+        --mode decode --requests 16 --smoke
 
-Decode mode and the LM archs are ROADMAP A12; ``--mesh > 1`` (the sample
-axis over several cards) is A10.
+``--mesh > 1`` (the sample axis over several cards) is ROADMAP A10.
 """
 from __future__ import annotations
 
@@ -39,7 +45,7 @@ def _parse_args(argv: Optional[List[str]]):
     ap.add_argument("--mode", default="auto",
                     choices=["auto", "classify", "decode"],
                     help="auto: classify for classifier families, decode "
-                         "for LM families (decode: ROADMAP A12)")
+                         "for LM families")
     ap.add_argument("--ckpt-dir", default=None,
                     help="load the posterior bank snapshots (bank_*.npz); "
                          "no dir -> synthetic bank")
@@ -96,9 +102,9 @@ def main(argv: Optional[List[str]] = None):
     from repro_torch.config import ServeConfig, get_arch
     from repro_torch.data.radar import make_dataset
     from repro_torch.models import get_model
-    from repro_torch.serve import ClassifyEngine, ServeRequest
+    from repro_torch.serve import ClassifyEngine, DecodeEngine, ServeRequest
     from repro_torch.utils.device import resolve_device
-    from repro_torch.utils.tree import tree_leaves
+    from repro_torch.utils.tree import tree_leaves, tree_map
 
     if args.mesh > 1:
         raise NotImplementedError(
@@ -106,12 +112,11 @@ def main(argv: Optional[List[str]] = None):
             "engine, place_ensemble)")
     spec = get_arch(args.arch)
     cfg = spec.reduced if args.trim else spec.config
-    if args.mode == "decode":
-        raise NotImplementedError(
-            "--mode decode is not ported yet; ROADMAP A12 (LM model zoo, "
-            "DecodeEngine)")
     device = resolve_device(args.device)
     model = get_model(cfg)
+    mode = args.mode
+    if mode == "auto":
+        mode = "classify" if model.decode_step is None else "decode"
     scfg = ServeConfig(
         slots=args.slots, max_len=args.max_len,
         max_new_tokens=args.max_new_tokens, temperature=args.temperature,
@@ -134,10 +139,20 @@ def main(argv: Optional[List[str]] = None):
     lead = tree_leaves(stacked)[0].dim() - tree_leaves(params0)[0].dim()
     node_axis = 1 if lead == 2 else None        # (S, K, ...) trainer banks
 
-    ds = make_dataset(args.requests, hw=cfg.input_hw, seed=args.seed + 7)
-    eng = ClassifyEngine(model.logits, scfg, input_shape=ds["x"].shape[1:],
-                         stacked=stacked, node_axis=node_axis)
-    reqs = [ServeRequest(x=ds["x"][i]) for i in range(args.requests)]
+    if mode == "classify":
+        ds = make_dataset(args.requests, hw=cfg.input_hw, seed=args.seed + 7)
+        eng = ClassifyEngine(model.logits, scfg,
+                             input_shape=ds["x"].shape[1:], stacked=stacked,
+                             node_axis=node_axis)
+        reqs = [ServeRequest(x=ds["x"][i]) for i in range(args.requests)]
+    else:
+        flat = (lambda bank: tree_map(
+            lambda x: x.reshape((-1,) + tuple(x.shape[2:])), bank)) \
+            if node_axis is not None else (lambda bank: bank)
+        eng = DecodeEngine(model, scfg, stacked=flat(stacked))
+        reqs = [ServeRequest(prompt_token=1 + (i % max(cfg.vocab_size - 1, 1)),
+                             seed=args.seed + i)
+                for i in range(args.requests)]
 
     # warm-up: one request through the whole path, then the count is frozen
     warm = eng.run([reqs[0]])
@@ -150,8 +165,9 @@ def main(argv: Optional[List[str]] = None):
             pending_steps.extend(new)
         if pending_steps:
             s = pending_steps.pop(0)
-            eng.install_bank(load_bank(args.ckpt_dir, step=s, like=params0,
-                                       device=device))
+            bank = load_bank(args.ckpt_dir, step=s, like=params0,
+                             device=device)
+            eng.install_bank(bank if mode == "classify" else flat(bank))
             print(f"hot-swap: installed bank_{s:08d} (version "
                   f"{eng.bank_version}, in-flight {eng.pending()})")
 
@@ -171,16 +187,22 @@ def main(argv: Optional[List[str]] = None):
     resps.sort(key=lambda r: r.request_id)
 
     for r in resps[:4]:
+        extra = (f" tokens={r.tokens.tolist()}"
+                 if r.tokens is not None else "")
         print(f"resp id={r.request_id} pred={int(np.argmax(r.probs))} "
               f"entropy={r.entropy:.3f} abstain={r.abstain} "
               f"bank_version={r.bank_version} "
-              f"latency_ms={1e3 * r.latency_s:.2f}")
+              f"latency_ms={1e3 * r.latency_s:.2f}{extra}")
     st = eng.stats()
     served = len(resps)
     recompiles = eng.compile_count() - compiles0
-    print(f"serve[classify]: arch={cfg.name} device={device} "
-          f"samples={eng.num_samples()} slots={scfg.slots} "
-          f"requests={served}")
+    if mode == "classify":
+        print(f"serve[classify]: arch={cfg.name} device={device} "
+              f"samples={eng.num_samples()} slots={scfg.slots} "
+              f"requests={served}")
+    else:
+        print(f"serve[decode]: arch={cfg.name} samples={eng.num_samples()} "
+              f"slots={scfg.slots} requests={served}")
     print(f"serve: requests_per_s={(served - 1) / dt:.2f} "
           f"p50_ms={st['p50_ms']:.2f} p99_ms={st['p99_ms']:.2f} "
           f"abstain_rate={st['abstain_rate']:.3f} "

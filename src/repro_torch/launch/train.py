@@ -340,6 +340,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         cfg = spec.reduced if args.trim else spec.config
     except NotImplementedError as err:
         raise SystemExit(f"--arch {args.arch}: {err}")
+    if cfg.family != "lenet":
+        raise SystemExit(f"--arch {args.arch}: federated training of the "
+                         f"{cfg.family} LMs is not ported yet; ROADMAP A12 "
+                         f"part 2 (LM training)")
     device = resolve_device(args.device)
     model = get_model(cfg)
     topo_cfg = TopologyConfig(

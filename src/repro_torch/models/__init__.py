@@ -1,18 +1,23 @@
-"""Model factory: the radar LeNet (the only model ported so far)."""
+"""Model factory: the radar LeNet and the dense decoders."""
 from types import SimpleNamespace
 
 from repro_torch.models import lenet as _lenet
+from repro_torch.models.transformer import make_model as _make_decoder
 
 
 def get_model(cfg) -> SimpleNamespace:
-    """``init(key, device)`` -> params of one model; ``logits`` and
-    ``nll`` take params with a leading group axis (see ``models/lenet.py``)."""
-    if cfg.family != "lenet":
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet; ROADMAP A12")
-    return SimpleNamespace(
-        cfg=cfg,
-        init=lambda key, device: _lenet.init_lenet(cfg, key, device),
-        logits=_lenet.lenet_logits,
-        nll=_lenet.lenet_nll,
-    )
+    """``init(key, device)`` -> params of one model; the apply functions
+    take params with a leading group axis (``models/lenet.py``,
+    ``models/transformer.py``). LeNet has ``logits`` and ``nll`` and no
+    decode step; a decoder has ``logits``, ``loss``, ``init_decode_state``
+    and ``decode_step``. A family the port does not run yet raises, naming
+    its part of ROADMAP A12."""
+    if cfg.family == "lenet":
+        return SimpleNamespace(
+            cfg=cfg,
+            init=lambda key, device: _lenet.init_lenet(cfg, key, device),
+            logits=_lenet.lenet_logits,
+            nll=_lenet.lenet_nll,
+            init_decode_state=None, decode_step=None,
+        )
+    return _make_decoder(cfg)

@@ -3,16 +3,17 @@
 JAX's default PRNG (threefry2x32, ``jax_threefry_partitionable``) as the
 reference's main path uses it: ``PRNGKey``, ``split``, ``fold_in``,
 ``bits``, ``uniform``, ``normal``, ``truncated_normal``, ``randint``,
-``permutation`` and ``choice`` (without ``p``).
+``permutation``, ``choice`` (without ``p``), ``gumbel`` (mode ``"low"``)
+and ``categorical`` (with replacement).
 A key is a ``(..., 2)`` int64 tensor of two uint32 words, on the device of
 the run; a function of keys with leading batch dimensions draws one stream
 a key, as ``jax.vmap`` over keys does, and its output leads with those
-dimensions. ``categorical`` has no caller in the port yet (ROADMAP A11).
+dimensions.
 
 Exact against ``jax.random`` on the CPU: keys, bits, uniforms and randint
-by construction; ``normal`` and ``truncated_normal`` because the kernel and
-its plain version transcribe XLA's CPU erfinv, log1p and erf op for op
-(``kernels/threefry.py``).
+by construction; ``normal``, ``truncated_normal`` and ``gumbel`` because
+the kernel and its plain version transcribe XLA's CPU erfinv, log1p, log
+and erf op for op (``kernels/threefry.py``).
 
 Every draw is a table launch of the threefry kernel (``kernels/threefry.py``)
 on the card, or its plain version on the CPU. A function decorated with
@@ -33,8 +34,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import threefry
-from repro_torch.kernels.threefry import (BITS, NO_CLIP, NORMAL, PAIR,
-                                          UNIFORM, Draw, to_f32)
+from repro_torch.kernels.bma_sample import argmax_first
+from repro_torch.kernels.threefry import (BITS, GUMBEL, NO_CLIP, NORMAL,
+                                          PAIR, TINY, UNIFORM, Draw, to_f32)
 
 M32 = threefry.M32
 
@@ -278,3 +280,30 @@ def choice(key: torch.Tensor, n: int, shape: Sequence[int] = (),
         return (yield from randint.program(key, shape, 0, n)).long()
     perm = yield from permutation.program(key, n)
     return perm[..., :draws].reshape(key.shape[:-1] + shape)
+
+
+@program
+def gumbel(key: torch.Tensor, shape: Sequence[int], minval: float = TINY):
+    """f32 standard Gumbel noise, ``jax.random.gumbel`` in its ``"low"``
+    mode: ``−log(−log(u))``, ``u`` uniform in ``[minval, 1)`` (``minval``
+    the smallest normal f32), by XLA's f32 log."""
+    shape = tuple(shape)
+    out, = yield [Draw(_rows(key), _size(shape), GUMBEL,
+                       params=(to_f32(minval), 1.0))]
+    return out.reshape(key.shape[:-1] + shape)
+
+
+@program
+def categorical(key: torch.Tensor, logits: torch.Tensor, axis: int = -1):
+    """``jax.random.categorical(key, logits, axis)`` with replacement:
+    ``argmax(logits + gumbel(key, logits.shape))`` over ``axis``, the first
+    index on ties, as ``jnp.argmax`` (a NaN counts as the largest). A key
+    with leading batch dimensions draws one stream a key, over the rest of
+    the logits' shape, as ``jax.vmap`` over keys does; the logits' leading
+    dimensions must then be the keys'."""
+    batch = key.shape[:-1]
+    if tuple(logits.shape[:len(batch)]) != tuple(batch):
+        raise ValueError(f"keys {tuple(key.shape)} do not lead the logits "
+                         f"{tuple(logits.shape)}")
+    g = yield from gumbel.program(key, logits.shape[len(batch):])
+    return argmax_first(g + logits.float(), dim=axis)

@@ -154,6 +154,10 @@ class FedTrainer:
             data_scale = float(np.mean([len(s[next(iter(s))]) for s in shards]))
         self.data_scale = data_scale
 
+        if getattr(model, "nll", None) is None:
+            raise NotImplementedError(
+                f"FedTrainer of the {model.cfg.family} LMs is not ported yet; "
+                f"ROADMAP A12 part 2 (LM training)")
         if params is None:
             params = model.init(random.PRNGKey(seed, self.device), self.device)
         params0 = tree_map(lambda x: x.to(self.device), params)

@@ -1,6 +1,7 @@
-"""Helpers over parameter trees: nested dicts of tensors.
+"""Helpers over parameter trees: nested dicts (and lists) of tensors.
 
-The order of the leaves is JAX's (dict keys sorted at every level), so the
+The order of the leaves is JAX's (dict keys sorted at every level, a list
+in its order), so the
 port walks ``conv1.b, conv1.w, conv2.b, ..., fc3.w`` exactly as the
 reference does. The wire payload, its bytes and the per-leaf metadata all
 follow that order.
@@ -17,10 +18,11 @@ Tree = Dict[str, Any]
 def tree_leaves_with_path(tree: Tree, prefix: str = "") -> List[Tuple[str, Any]]:
     """``[(dotted_path, leaf), ...]`` in sorted-key order."""
     out = []
-    for key in sorted(tree):
-        path = f"{prefix}.{key}" if prefix else key
+    keys = range(len(tree)) if isinstance(tree, list) else sorted(tree)
+    for key in keys:
+        path = f"{prefix}.{key}" if prefix else str(key)
         val = tree[key]
-        if isinstance(val, dict):
+        if isinstance(val, (dict, list)):
             out.extend(tree_leaves_with_path(val, path))
         else:
             out.append((path, val))
@@ -45,9 +47,23 @@ def tree_unflatten(paths: List[str], leaves: List[Any]) -> Tree:
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     """Apply ``fn`` leafwise over trees of the same structure."""
-    return {k: (tree_map(fn, v, *(r[k] for r in rest)) if isinstance(v, dict)
-                else fn(v, *(r[k] for r in rest)))
-            for k, v in tree.items()}
+    def node(v, *rs):
+        return (tree_map(fn, v, *rs) if isinstance(v, (dict, list))
+                else fn(v, *rs))
+    if isinstance(tree, list):
+        return [node(v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return {k: node(v, *(r[k] for r in rest)) for k, v in tree.items()}
+
+
+def tree_map_with_path(fn: Callable, tree: Tree, prefix: str = "") -> Tree:
+    """``fn(dotted_path, leaf)`` leafwise, keeping the tree's structure."""
+    def node(key, v):
+        path = f"{prefix}.{key}" if prefix else str(key)
+        return (tree_map_with_path(fn, v, path)
+                if isinstance(v, (dict, list)) else fn(path, v))
+    if isinstance(tree, list):
+        return [node(i, v) for i, v in enumerate(tree)]
+    return {k: node(k, v) for k, v in tree.items()}
 
 
 def tree_count(tree: Tree) -> int:

@@ -4,7 +4,7 @@
   ``source``, ``notes``, ``skips``) equal field for field to the
   reference's registry entry; an unknown id raises ``KeyError``, an id the
   reference knows and the port does not runs into ``NotImplementedError``
-  naming A12.
+  naming its part of A12 (the dense LMs run since A12's part 1).
 - C21: ``core.calibration.predictive_entropy`` is the batch mean, the
   per-example entropy is ``core.posterior``'s, each within rtol 1e-6.
 - C22: every subpackage exports the reference's public names (``__all__``
@@ -34,6 +34,15 @@ A10_STANDINS = (("repro_torch.core", "ShardContext"),
                 ("repro_torch.eval", "ShardEvalEngine"))
 
 
+def _same_config(mine, ref):
+    """Field for field; a nested config (``moe``) by its fields."""
+    for f in dataclasses.fields(mine):
+        a, b = getattr(mine, f.name), getattr(ref, f.name)
+        if dataclasses.is_dataclass(a):
+            a, b = dataclasses.asdict(a), dataclasses.asdict(b)
+        assert a == b, (mine.name, f.name)
+
+
 def test_c20_get_arch_returns_the_reference_arch_spec():
     got, want = config.get_arch("lenet-radar"), jconfig.get_arch("lenet-radar")
     assert type(got).__name__ == type(want).__name__ == "ArchSpec"
@@ -42,11 +51,10 @@ def test_c20_get_arch_returns_the_reference_arch_spec():
     for name in ("arch_id", "source", "notes", "skips"):
         assert getattr(got, name) == getattr(want, name)
     for name in ("config", "reduced"):
-        mine, ref = getattr(got, name), getattr(want, name)
-        for f in dataclasses.fields(mine):
-            assert getattr(mine, f.name) == getattr(ref, f.name), f.name
+        _same_config(getattr(got, name), getattr(want, name))
     assert got.reduced.input_hw == (32, 16) and got.config.input_hw == (256, 63)
-    assert config.list_archs() == ["lenet-radar"]
+    assert config.list_archs() == ["lenet-radar", "mistral-large-123b",
+                                   "qwen2.5-14b", "smollm-135m", "yi-9b"]
 
 
 def test_c20_unknown_and_unported_archs():
@@ -55,7 +63,9 @@ def test_c20_unknown_and_unported_archs():
     with pytest.raises(KeyError):
         config.get_arch("no-such-arch")
     for arch in jconfig.list_archs():
-        if arch == "lenet-radar":
+        if arch in config.list_archs():
+            _same_config(config.get_arch(arch).config,
+                         jconfig.get_arch(arch).config)
             continue
         with pytest.raises(NotImplementedError, match="A12"):
             config.get_arch(arch)

@@ -63,7 +63,8 @@ def test_kernels_match_plain_versions(card, n):
         "topk_select": 0, "unpack_set": 0, "cffl_update": 0,
         "dsgld_update": 0, "gossip_mix": 0, "gilbert_keep": 0,
         "topk_select_bf16": 0, "delta_pack_bf16": 0,
-        "fused_update_bf16": 0, "cffl_update_bf16": 0}
+        "fused_update_bf16": 0, "cffl_update_bf16": 0,
+        "decode_attention": 0, "bma_sample": 0}
 
 
 @pytest.mark.parametrize("n", [6, 150, 1024, 4097, 21000])
@@ -1138,3 +1139,110 @@ def test_user_loss_in_the_graph_chunks_folds_each_rounds_index(card,
             for a, b in zip(getattr(got, part).values(),
                             getattr(want, part).values()):
                 assert _same_bits(a, b), (name, part)
+
+
+@pytest.mark.parametrize("window", [0, 8])
+@pytest.mark.parametrize("dtype,cache", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+    (torch.float32, torch.float32)])
+def test_decode_attention_matches_plain_version(card, dtype, cache, window):
+    """smollm-135m's heads (9 over 3 KV heads, hd 64) over 2 x 5 lanes at
+    positions 0 (one valid slot), 3, 19 (past the 16 slots: the clamp, or
+    a ring buffer wrapped) and a reset lane; the caches and slot_pos
+    updated alike, the output within one ulp of the compute dtype."""
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    gen = torch.Generator(device=card).manual_seed(window)
+    g, b, h, kv, hd, slots = 2, 5, 9, 3, 64, 16
+    q = torch.randn((g, b, h, hd), generator=gen, device=card).to(dtype)
+    kn = torch.randn((g, b, kv, hd), generator=gen, device=card).to(dtype)
+    vn = torch.randn((g, b, kv, hd), generator=gen, device=card).to(dtype)
+    kc = torch.randn((g, b, slots, kv, hd), generator=gen,
+                     device=card).to(cache)
+    vc = torch.randn((g, b, slots, kv, hd), generator=gen,
+                     device=card).to(cache)
+    pos = torch.tensor([0, 3, 19, 40, 2], device=card)
+    sp = torch.arange(slots, device=card, dtype=torch.int32).expand(
+        g, b, slots).contiguous()
+    sp[:, 4] = -1                                    # a reset lane
+    args = [kc, vc, sp]
+    want_args = [t.clone() for t in args]
+    got = kernels.decode_attention(q, kn, vn, *args, pos, window)
+    want = decode_attention_plain(q, kn, vn, *want_args, pos, window)
+    for a, b_ in zip(args, want_args):
+        assert torch.equal(a, b_)
+    ulp = torch.finfo(dtype).eps * want.float().abs().clamp(min=1e-3)
+    assert ((got.float() - want.float()).abs() <= ulp).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bma_sample_matches_plain_version(card, dtype):
+    """4 samples, 3 slots, V = 49,152 and one not a multiple of the block,
+    with -inf and tied logits: tokens bit for bit, probabilities and
+    entropies equal."""
+    from repro_torch import random
+    from repro_torch.kernels.bma_sample import bma_sample_plain
+    for vocab in (49152, 1031):
+        gen = torch.Generator(device=card).manual_seed(vocab)
+        lg = torch.randn((4, 3, vocab), generator=gen, device=card) * 4
+        lg[:, 1, 100:] = float("-inf")
+        lg[:, 2] = 0.5
+        lg = lg.to(dtype)
+        keys = random.split(random.PRNGKey(3, card), 3)
+        pos = torch.tensor([0, 7, 127], device=card)
+        got = kernels.bma_sample(lg, keys, pos)
+        want = bma_sample_plain(lg, keys, pos)
+        assert torch.equal(got[0], want[0])
+        assert _same_bits(got[1], want[1]) and _same_bits(got[2], want[2])
+
+
+def test_gumbel_draws_match_the_golden_and_the_plain_version(card):
+    from repro_torch import random
+    from repro_torch.kernels.threefry import GUMBEL, TINY, Draw, draw_plain
+    keys = random.split(random.PRNGKey(4, card), 5)
+    got, = kernels.draw([Draw(keys, 49153, GUMBEL, params=(TINY, 1.0))])
+    want, = draw_plain([Draw(keys.cpu(), 49153, GUMBEL, params=(TINY, 1.0))])
+    assert _same_bits(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_decode_engine_is_the_same_under_permissive_matmuls(card, dtype):
+    """DecodeEngine end to end on the card (smollm-135m reduced, 4 samples,
+    8 slots, 12 requests of mixed lengths): one capture, both kernels
+    launched, and the same tokens, entropies and probabilities, bit for
+    bit, whether the process allows TF32 and reduced-precision reductions
+    or not: the model sums its own products in f32."""
+    from repro_torch.config import ServeConfig, get_arch
+    from repro_torch.launch.serve import synthetic_bank
+    from repro_torch.models import get_model
+    from repro_torch.serve import DecodeEngine, ServeRequest
+    m = torch.backends.cuda.matmul
+    names = ("allow_tf32", "allow_bf16_reduced_precision_reduction",
+             "allow_fp16_reduced_precision_reduction")
+    model = get_model(get_arch("smollm-135m").reduced.replace(dtype=dtype))
+    bank = synthetic_bank(model, 0, 4, card)
+
+    def serve(allow):
+        saved = [getattr(m, x) for x in names]
+        for x in names:
+            setattr(m, x, allow)
+        try:
+            kernels.reset_launch_counts()
+            eng = DecodeEngine(model, ServeConfig(slots=8, max_len=32,
+                                                  max_new_tokens=6),
+                               stacked=bank)
+            resps = eng.run([ServeRequest(prompt_token=1 + i, seed=i,
+                                          max_new_tokens=1 + i % 6)
+                             for i in range(12)])
+            counts = kernels.launch_counts()
+        finally:
+            for x, v in zip(names, saved):
+                setattr(m, x, v)
+        assert eng.compile_count() == 1
+        assert counts["decode_attention"] > 0 and counts["bma_sample"] > 0
+        return sorted(resps, key=lambda r: r.request_id)
+
+    for a, b in zip(serve(False), serve(True)):
+        assert np.array_equal(a.tokens, b.tokens)
+        assert np.array_equal(a.token_entropy.view(np.int32),
+                              b.token_entropy.view(np.int32))
+        assert np.array_equal(a.probs.view(np.int32), b.probs.view(np.int32))

@@ -316,13 +316,22 @@ def test_cpu_tensors_run_the_plain_versions():
     ops.fused_delta_pack_leaves([x], [vb])
     fused_update_bf16(x, vb, vb, x, x, x, 0.03, 1.0)
     cffl_update_bf16(x, vb, vb, x, x, 0.03)
+    q = torch.randn(1, 2, 3, 8)
+    kv = torch.randn(1, 2, 3, 8)
+    kernels.decode_attention(q, kv, kv, torch.zeros(1, 2, 4, 3, 8),
+                             torch.zeros(1, 2, 4, 3, 8),
+                             torch.full((1, 2, 4), -1, dtype=torch.int32),
+                             torch.tensor([0, 5]))
+    kernels.bma_sample(torch.randn(2, 3, 50), random.split(
+        random.PRNGKey(0), 3), torch.tensor([0, 1, 2]))
     assert kernels.launch_counts() == {
         "pack": 0, "delta_pack": 0, "unpack": 0, "fused_update": 0,
         "grid_quant": 0, "qsgd": 0, "block_topk": 0, "threefry": 0,
         "topk_select": 0, "unpack_set": 0, "cffl_update": 0,
         "dsgld_update": 0, "gossip_mix": 0, "gilbert_keep": 0,
         "topk_select_bf16": 0, "delta_pack_bf16": 0,
-        "fused_update_bf16": 0, "cffl_update_bf16": 0}
+        "fused_update_bf16": 0, "cffl_update_bf16": 0,
+        "decode_attention": 0, "bma_sample": 0}
 
 
 def _mix_terms(form, k=10, seed=0):

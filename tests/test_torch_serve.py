@@ -207,7 +207,7 @@ def test_unported_serving_paths_name_their_roadmap_item(radar):
         ClassifyEngine(lenet_logits, ServeConfig(ensemble_axis="ens"),
                        input_shape=(16, 16, 1))
     with pytest.raises(NotImplementedError, match="A12"):
-        DecodeEngine(None, ServeConfig())
+        get_arch("deepseek-v2-236b")
     assert isinstance(peval.make_eval_engine("scan", lenet_logits),
                       peval.ScanEvalEngine)
     assert isinstance(peval.make_eval_engine("host", lenet_logits),
@@ -472,8 +472,8 @@ def test_cli_polling_without_a_directory_serves_the_synthetic_bank():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--mode", "decode"], "A12"), (["--mesh", "2"], "A10"),
-    (["--arch", "smollm-135m"], "A12")])
+    (["--arch", "grok-1-314b"], "A12"), (["--mesh", "2"], "A10"),
+    (["--arch", "xlstm-1.3b"], "A12")])
 def test_cli_unported_modes_name_their_roadmap_item(argv, item):
     from repro_torch.launch.serve import main
     with pytest.raises(NotImplementedError, match=item):

@@ -13,6 +13,7 @@ PyTorch port's tests and for ``chip_smoke.py``, which reads them on the card.
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py claims-nudged
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py drift
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py drift-claims
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py decode
 
 ``threefry`` writes ``tests/golden/threefry_draws.npz``: ``jax.random``'s
 keys, bits, uniforms, normals, truncated normals and randints for the cases
@@ -95,6 +96,19 @@ its probe curves, and ``run_unlearn_oracle(CLAIMS_SPEC)`` (|Δacc|, |ΔECE|
 and both reports' accuracy and ECE), which ``chip_smoke.py`` prints beside
 the port's run on the card (:func:`drift_claims_record`).
 
+``decode`` writes ``tests/golden/decode_smollm_135m.json``: the reference's
+BMA decode at full ``smollm-135m`` width (:data:`DECODE_CONFIG`): the bank
+of ``init(fold_in(PRNGKey(seed), i))``, i < samples, with each leaf's
+shape, float64 sum, the sum of its f32 bit patterns and its elements at
+:func:`leaf_picks`; then ``DecodeEngine`` at 8 slots, ``max_len`` 128, 16
+new tokens, over the serving CLI's 16 requests (``prompt_token = 1 + i mod
+(V − 1)``, seed ``seed + i``), in ``dtype="float32"`` and in the arch's
+bfloat16: per request its tokens, token entropies, the argmax of its last
+BMA distribution (the CLI's ``pred``) and, at each step, the margin
+between the two highest perturbed scores ``log max(p, 1e-12) + g`` (``g``
+the step's ``gumbel(fold_in(key, pos))``); and each slot's top-8 BMA
+probabilities at the first step. About 10 minutes on one CPU core.
+
 ``serve-bma`` writes ``tests/golden/serve_bma_lenet_radar.npz``: the
 reference's BMA probabilities and predictive entropies
 (``repro.core.posterior.BankPredictor``) for the serving CLI's synthetic
@@ -149,6 +163,10 @@ THREEFRY_CASES = [
                                   "maxval": 50}),
     ("randint_empty_span", "randint", 9, {"shape": [6], "minval": 4,
                                           "maxval": 4}),
+    # the decode sampler's noise: gumbel in mode "low" at the vocabulary of
+    # smollm-135m, and at an edge size
+    ("gumbel_7", "gumbel", 10, {"shape": [7]}),
+    ("gumbel_49152", "gumbel", 11, {"shape": [49152]}),
 ]
 
 
@@ -836,6 +854,100 @@ def write_serve_bma() -> None:
     print(f"wrote {SERVE_BMA_FILE}: argmax "
           f"{np.asarray(probs).argmax(-1).tolist()}")
 
+# chip_smoke's phase 13: the serving CLI's decode defaults at full width
+DECODE_FILE = GOLDEN / "decode_smollm_135m.json"
+DECODE_CONFIG = dict(arch="smollm-135m", seed=0, samples=4, slots=8,
+                     max_len=128, max_new_tokens=16, requests=16, top=8,
+                     dtypes=["float32", "bfloat16"])
+
+
+def leaf_picks(n: int) -> list:
+    """The flat indices of a leaf of ``n`` elements whose values the decode
+    record keeps: both ends and five points between."""
+    return sorted({0, n // 7, n // 3, n // 2, (5 * n) // 7, n - 2, n - 1}
+                  & set(range(n)))
+
+
+def decode_requests(vocab: int, requests: int, seed: int) -> list:
+    """The serving CLI's decode requests: ``(prompt_token, seed)``."""
+    return [(1 + (i % max(vocab - 1, 1)), seed + i) for i in range(requests)]
+
+
+def leaf_record(a: np.ndarray) -> dict:
+    flat = np.ascontiguousarray(a, np.float32).reshape(-1)
+    idx = leaf_picks(flat.size)
+    return {"shape": list(a.shape), "sum": float(flat.astype(np.float64).sum()),
+            "bits_sum": int(flat.view(np.uint32).astype(np.int64).sum()),
+            "idx": idx, "values": [float(flat[i]) for i in idx]}
+
+
+def write_decode() -> None:
+    import jax
+    import jax.numpy as jnp
+    from repro.config import ServeConfig, get_arch
+    from repro.models import get_model
+    from repro.serve import DecodeEngine, ServeRequest
+    c = DECODE_CONFIG
+    cfg = get_arch(c["arch"]).config
+    key = jax.random.PRNGKey(c["seed"])
+    t0 = time.perf_counter()
+    model = get_model(cfg)
+    stacked = jax.tree.map(lambda *xs: jnp.stack(xs), *[
+        model.init(jax.random.fold_in(key, i)) for i in range(c["samples"])])
+    leaves = {"/".join(str(getattr(k, "key", k)) for k in path):
+              leaf_record(np.asarray(x))
+              for path, x in jax.tree_util.tree_leaves_with_path(stacked)}
+    print(f"bank: {len(leaves)} leaves in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    scores = jax.jit(lambda p, g: jnp.log(jnp.maximum(p, 1e-12)) + g)
+    runs = {}
+    for dtype in c["dtypes"]:
+        t0 = time.perf_counter()
+        eng = DecodeEngine(get_model(cfg.replace(dtype=dtype)), ServeConfig(
+            slots=c["slots"], max_len=c["max_len"],
+            max_new_tokens=c["max_new_tokens"]), stacked=stacked)
+        step_fn, margins, first, mismatch = eng._step_fn, {}, [], [0]
+
+        def hooked(bank, caches, tokens, pos, keys):
+            out = step_fn(bank, caches, tokens, pos, keys)
+            probs, nxt = np.asarray(out[3]), np.asarray(out[1][:, 0])
+            pos_h, keys_h = np.asarray(pos), np.asarray(keys)
+            for i, rid in enumerate(eng.slot_req):
+                if rid is None:
+                    continue
+                g = jax.random.gumbel(jax.random.fold_in(
+                    jnp.asarray(keys_h[i]), int(pos_h[i])), probs.shape[-1:])
+                s = np.asarray(scores(jnp.asarray(probs[i]), g))
+                top = np.argsort(-s, kind="stable")[:2]
+                mismatch[0] += int(top[0] != nxt[i])
+                margins.setdefault(rid, []).append(
+                    float(s[top[0]] - s[top[1]]))
+            if not first:
+                order = np.argsort(-probs, axis=-1, kind="stable")[:, :c["top"]]
+                first.append({"idx": order.tolist(), "probs": np.take_along_axis(
+                    probs, order, -1).tolist()})
+            return out
+
+        eng._step_fn = hooked
+        reqs = [ServeRequest(prompt_token=t, seed=s) for t, s in
+                decode_requests(cfg.vocab_size, c["requests"], c["seed"])]
+        resps = eng.run(reqs)
+        runs[dtype] = {
+            "tokens": [r.tokens.tolist() for r in resps],
+            "token_entropy": [r.token_entropy.tolist() for r in resps],
+            "entropy": [r.entropy for r in resps],
+            "pred": [int(np.argmax(r.probs)) for r in resps],
+            "margins": [margins[r.request_id] for r in resps],
+            "first_step_top": first[0], "argmax_mismatches": mismatch[0]}
+        print(f"{dtype}: {len(resps)} requests in "
+              f"{time.perf_counter() - t0:.1f} s; smallest margin "
+              f"{min(min(m) for m in margins.values()):.3g}; recomputed "
+              f"argmax off the engine's token {mismatch[0]} times; first "
+              f"tokens {runs[dtype]['tokens'][0][:6]}", flush=True)
+    DECODE_FILE.write_text(json.dumps(
+        {"config": c, "leaves": leaves, "runs": runs}, indent=1) + "\n")
+    print(f"wrote {DECODE_FILE}")
+
 
 if __name__ == "__main__":
     which = sys.argv[1:] or ["threefry"]
@@ -851,4 +963,5 @@ if __name__ == "__main__":
          "claims-port": compare_claims_port,
          "claims-nudged": compare_claims_nudged,
          "drift": write_drift_rounds,
-         "drift-claims": write_drift_claims}[name]()
+         "drift-claims": write_drift_claims,
+         "decode": write_decode}[name]()
