@@ -14,46 +14,65 @@
 //      rounded to it, then divided by sqrt(head_dim) in it;
 //   3. masks rows whose slot_pos is < 0, > p or, in a ring buffer, <= p -
 //      window to -1e30 in the compute dtype;
-//   4. takes the f32 softmax over the rows and rounds the probabilities to
-//      the compute dtype;
-//   5. sums the probability-weighted value rows and rounds to the compute
-//      dtype.
+//   4. takes the f32 softmax over the rows with XLA's exp (threefry.cuh:
+//      exp_xla) and rounds the probabilities to the compute dtype;
+//   5. sums the probability-weighted value rows in f32 and rounds to the
+//      compute dtype.
 //
-// That is the reference's rounding order. Its two dot products sum exact
-// products: a product of two bfloat16 values, or of two f32 values, is
-// exact in double, so the kernel sums them in double and rounds the sum to
-// f32, then to the compute dtype. The plain version
-// (decode_attention.py) sums the same exact products in double in another
-// order; the two round to the same f32 unless a double rounding error of
-// the sum lands on an f32 tie, about 2^-29 a value. exp is taken in double
-// and rounded to f32, the probabilities' sum in double likewise.
+// That is the reference's rounding order; no online-softmax rescaling. All
+// arithmetic is f32, every operation an explicit IEEE intrinsic. The
+// summation order, which the plain version (decode_attention.py:
+// decode_attention_plain) follows op for op so that the two agree bit for
+// bit: a row of head_dim elements is cut into TPR segments of 16 bytes of
+// the cache dtype (E = 8 bfloat16 or 4 f32 elements; TPR = head_dim / E
+// threads a row), and the CTA's 256 threads into RPP = 256 / TPR row
+// groups, thread (g, c) = (tid / TPR, tid % TPR) taking rows g, g + RPP,
+// g + 2 RPP, ... at segment c.
 //
-// Design: 8 warps a CTA, the group's queries in shared memory as doubles.
-// The cache rows pass through shared memory in tiles of 64 (read
-// coalesced, cast to the compute dtype and to double once, rows padded to
-// head_dim + 1 so that threads on consecutive rows take distinct banks): a
-// thread scores one (head, row) pair of a tile, one warp a head takes the
-// softmax over the row scores, then each thread sums its (head, dim)
-// outputs over the value tiles in row order. Its first form, a warp a row
-// reading the cache from global memory and a thread an output looping over
-// 128 dependent global loads, took 0.082 ms a layer at 32 lanes; a second,
-// tiles of floats converted to double in the inner loops with 4 warps a
-// CTA, 0.025 ms; this one 0.0156 ms, and splitting each dot product over
-// 4 lanes joined by shuffles made it slower, 0.0234 ms (chip_smoke.py on
-// an NVIDIA H100 80GB HBM3 at 700 W). What bounds it: the lanes' K and V
-// bytes, about 3.3 MB a layer at 32 lanes of smollm-135m, so about 1 µs,
-// the launch floor.
+//   score: a thread's segment as an fma chain over its E elements in
+//     order from +0, then a halving tree over the row's TPR threads (the
+//     sum of segments c and c + TPR/2 first, by shuffles xor TPR/2, ..., 1);
+//   softmax: each head's max (order-free), then thread tid's terms
+//     exp_xla(s_t - max) for t = tid, tid + 256, ... added in order from +0,
+//     a halving tree over the warp's 32 lanes (xor 16, ..., 1), then the 8
+//     warps' sums added in index order from +0; p_t = round(e_t / sum);
+//   P.V: thread (g, c) sums p_t v_t[c E + e] over its rows in order, an fma
+//     chain from +0; then a halving tree over the warp's 32 / TPR row
+//     groups (shuffles xor 16, ..., TPR), then the 8 warps' sums added in
+//     index order from +0 through shared memory.
+//
+// Design: one CTA of 8 warps a (lane, KV head). Before any arithmetic each
+// thread copies the K and V rows it takes (up to row_tile<TPR> of each, 16
+// bytes a row) into shared memory with cp.async, two groups, so the CTA
+// waits about one memory latency for K and none for V; it reads back only
+// the rows it copied. The group's query heads are staged as f32 and padded
+// to chunks of kHeadChunk, and each K row is dotted with a chunk's heads
+// at once: four independent fma chains and shuffle trees a row, no branch
+// between them. Each head's max is taken with the scores (a thread's rows,
+// then a warp); the softmax's exps and divisions run on all threads, a
+// chunk's heads at once; the division is Markstein's correction of a
+// product by the reciprocal (threefry.cuh: div_rn), correctly rounded. A
+// cache value is converted only where the cache (f32) is wider than the
+// compute dtype (bf16). What bounds it: the lanes' K and V bytes, about
+// 3.3 MB a layer at 32 lanes of smollm-135m, so about 1 us; at that size
+// the launch and one memory latency dominate. Its first form, a thread a
+// (head, row) pair summing exact products in float64 over rows staged as
+// doubles, took 0.0155 ms a layer at 32 lanes; phase timings with clock64
+// (chip_smoke.py's card, an NVIDIA H100 80GB HBM3 at 700 W) showed a
+// phase per head, each a chain of dependent shared-memory loads,
+// shuffles and conversions, which this form interleaves.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "threefry.cuh"
 
 namespace repro_torch {
 
 constexpr int kAttnThreads = 256;
 constexpr int kAttnWarps = kAttnThreads / 32;
 constexpr int kMaxGroup = 16;        // decode_attention.py: MAX_GROUP
-constexpr int kTile = 64;            // cache rows staged a pass
-constexpr int kMaxOut = 8;           // outputs a thread: r * hd <= 2048
+constexpr int kHeadChunk = 4;        // query heads a thread holds
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -80,6 +99,51 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
 }
 
+// the n values of T packed in 32-bit words, as f32
+__device__ __forceinline__ void unpack(const uint32_t* w, float* f, int n,
+                                       float) {
+  for (int k = 0; k < n; ++k) f[k] = __uint_as_float(w[k]);
+}
+__device__ __forceinline__ void unpack(const uint32_t* w, float* f, int n,
+                                       __nv_bfloat16) {
+  for (int k = 0; k < n / 2; ++k) {
+    f[2 * k] = __uint_as_float(w[k] << 16);
+    f[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+
+// E values of T at p (E * sizeof(T) a multiple of 8 bytes, p so aligned)
+template <typename T, int E>
+__device__ __forceinline__ void load_f32(const T* p, float (&f)[E]) {
+  constexpr int kWords = E * (int)sizeof(T) / 4;
+  uint32_t w[kWords];
+  const uint2* src = reinterpret_cast<const uint2*>(p);
+#pragma unroll
+  for (int k = 0; k < kWords / 2; ++k) {
+    const uint2 u = src[k];
+    w[2 * k] = u.x;
+    w[2 * k + 1] = u.y;
+  }
+  unpack(w, f, E, T());
+}
+
+// 16 bytes of the cache dtype C from E f32 values, each rounded to C
+template <typename C, int E>
+__device__ __forceinline__ uint4 pack16(const float (&f)[E]) {
+  uint32_t w[4];
+  if constexpr (sizeof(C) == 4) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) w[k] = __float_as_uint(f[k]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      w[k] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(f[2 * k])) |
+             ((uint32_t)__bfloat16_as_ushort(
+                  __float2bfloat16_rn(f[2 * k + 1])) << 16);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 struct DecodeArgs {
   const void* q;          // (lanes, heads, hd) compute dtype
   const void* k_new;      // (lanes, kv, hd) compute dtype
@@ -91,143 +155,372 @@ struct DecodeArgs {
   void* out;              // (lanes, heads, hd) compute dtype
   int batch, heads, kv, hd, slots, window;
   float scale;            // sqrt(hd) rounded to the compute dtype
+  float inv_scale;        // RN(1 / scale)
 };
 
+// rows of K (and of V) a thread stages at once: the rows of a 128-slot
+// cache, at most 8
+template <int TPR>
+__host__ __device__ constexpr int row_tile() {
+  return TPR / 2 < 1 ? 1 : (TPR / 2 > 8 ? 8 : TPR / 2);
+}
+
+// 16 bytes from global to shared memory, asynchronously (cp.async)
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void copies_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void copies_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a cache value as the compute dtype rounds it: an identity unless the
+// cache is f32 and the compute dtype bfloat16
 template <typename T, typename C>
-__global__ void __launch_bounds__(kAttnThreads)
-decode_attention_kernel(const __grid_constant__ DecodeArgs a) {
-  extern __shared__ double smem[];
-  const long long lane = blockIdx.x / a.kv;
-  const int kvh = blockIdx.x % a.kv;
-  const int r = a.heads / a.kv, hd = a.hd, slots = a.slots, kv = a.kv;
-  const int tid = threadIdx.x, warp = tid / 32, ln = tid % 32;
-  const int pitch = hd + 1;             // a tile row, padded: no conflicts
-  const long long p = a.pos[lane % a.batch];
-  const int slot = a.window > 0 ? (int)(p % slots)
-                                : (int)(p < slots - 1 ? p : slots - 1);
-  double* qs = smem;                    // (r, hd)
-  double* tile = qs + r * hd;           // (kTile, hd + 1): K, then V rows
-  float* ss = reinterpret_cast<float*>(tile + kTile * pitch);  // (r, slots)
-
-  const T* q = static_cast<const T*>(a.q) + (lane * a.heads + kvh * r) * hd;
-  for (int i = tid; i < r * hd; i += kAttnThreads)
-    qs[i] = (double)to_f(q[i]);
-  C* kc = static_cast<C*>(a.k_cache) + lane * slots * kv * hd + kvh * hd;
-  C* vc = static_cast<C*>(a.v_cache) + lane * slots * kv * hd + kvh * hd;
-  const long long row = (long long)kv * hd;     // a cache row's stride
-  const T* kn = static_cast<const T*>(a.k_new) + (lane * kv + kvh) * hd;
-  const T* vn = static_cast<const T*>(a.v_new) + (lane * kv + kvh) * hd;
-  for (int i = tid; i < hd; i += kAttnThreads) {
-    kc[slot * row + i] = from_f<C>(to_f(kn[i]));
-    vc[slot * row + i] = from_f<C>(to_f(vn[i]));
-  }
-  int* sp = a.slot_pos + lane * slots;
-  if (kvh == 0 && tid == 0) sp[slot] = (int)p;
-  __syncthreads();     // the new rows are visible to the whole CTA
-
-  // 2-3: the scores, a tile of rows at a time: the rows (cast to the
-  // compute dtype, held as doubles) staged in shared memory, then a
-  // (head, row) pair a thread
-  const float neg_inf = round_to<T>(-1e30f);
-  for (int t0 = 0; t0 < slots; t0 += kTile) {
-    const int rows = min(kTile, slots - t0);
-    for (int i = tid; i < rows * hd; i += kAttnThreads) {
-      const int t = i / hd, k = i - t * hd;
-      tile[t * pitch + k] =
-          (double)round_to<T>(to_f(kc[(t0 + t) * row + k]));
-    }
-    __syncthreads();
-    for (int w = tid; w < r * rows; w += kAttnThreads) {
-      const int j = w / rows, t = w - j * rows;
-      const double* qj = qs + j * hd;
-      const double* kt = tile + t * pitch;
-      double acc = 0.0;
-#pragma unroll 8
-      for (int k = 0; k < hd; ++k) acc = fma(qj[k], kt[k], acc);
-      // the slot written above holds p; the other CTAs of this lane may
-      // be writing slot_pos[slot] now, so it is not read
-      const long long tp = t0 + t == slot ? p : (long long)sp[t0 + t];
-      const bool valid = tp >= 0 && tp <= p && (a.window <= 0 ||
-                                                tp > p - a.window);
-      const float s = round_to<T>(__fdiv_rn(round_to<T>((float)acc),
-                                            a.scale));
-      ss[j * slots + t0 + t] = valid ? s : neg_inf;
-    }
-    __syncthreads();
-  }
-
-  // 4: the f32 softmax of each head's row scores, one warp a head
-  for (int j = warp; j < r; j += kAttnWarps) {
-    float* sj = ss + j * slots;
-    float m = -__int_as_float(0x7f800000);
-    for (int t = ln; t < slots; t += 32) m = nan_max(m, sj[t]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
-    double sum = 0.0;
-    for (int t = ln; t < slots; t += 32) {
-      const float e = (float)exp((double)__fsub_rn(sj[t], m));
-      sj[t] = e;
-      sum += (double)e;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    const float tot = (float)sum;
-    for (int t = ln; t < slots; t += 32)
-      sj[t] = round_to<T>(__fdiv_rn(sj[t], tot));
-  }
-  __syncthreads();
-
-  // 5: the probability-weighted value rows, a tile of rows at a time, each
-  // thread summing its (head, dim) outputs over the rows in order
-  double acc[kMaxOut];
-#pragma unroll
-  for (int o = 0; o < kMaxOut; ++o) acc[o] = 0.0;
-  for (int t0 = 0; t0 < slots; t0 += kTile) {
-    const int rows = min(kTile, slots - t0);
-    for (int i = tid; i < rows * hd; i += kAttnThreads) {
-      const int t = i / hd, k = i - t * hd;
-      tile[t * pitch + k] =
-          (double)round_to<T>(to_f(vc[(t0 + t) * row + k]));
-    }
-    __syncthreads();
-#pragma unroll
-    for (int o = 0; o < kMaxOut; ++o) {
-      const int i = tid + o * kAttnThreads;
-      if (i < r * hd) {
-        const int j = i / hd, k = i - j * hd;
-        const float* pj = ss + j * slots + t0;
-#pragma unroll 8
-        for (int t = 0; t < rows; ++t)
-          acc[o] = fma((double)pj[t], tile[t * pitch + k], acc[o]);
-      }
-    }
-    __syncthreads();
-  }
-  T* out = static_cast<T*>(a.out) + (lane * a.heads + kvh * r) * hd;
-#pragma unroll
-  for (int o = 0; o < kMaxOut; ++o) {
-    const int i = tid + o * kAttnThreads;
-    if (i < r * hd) out[i] = from_f<T>((float)acc[o]);
+__device__ __forceinline__ float as_compute(float x) {
+  if constexpr (sizeof(C) == 4 && sizeof(T) == 2) {
+    return round_to<T>(x);
+  } else {
+    return x;
   }
 }
 
-template <typename T, typename C>
+// four CTAs an SM where a thread holds up to 4 rows of K and V (head dims
+// of 64 and below in bf16): at 256 lanes of smollm-135m 0.0223 ms a layer
+// against 0.0254 with two, at 32 lanes 0.0076 against 0.0073 (an NVIDIA
+// H100 80GB HBM3 at 700 W)
+template <typename T, typename C, int TPR>
+__global__ void __launch_bounds__(kAttnThreads, TPR <= 8 ? 4 : 2)
+decode_attention_kernel(const __grid_constant__ DecodeArgs a) {
+  constexpr int E = 16 / (int)sizeof(C);      // elements a 16-byte segment
+  constexpr int RPP = kAttnThreads / TPR;     // row groups
+  constexpr int NR = row_tile<TPR>();
+  constexpr int KH = kHeadChunk;
+  extern __shared__ uint4 stage[];            // (2, NR, threads): K, V rows
+  __shared__ float red[2][kAttnWarps * kMaxGroup];
+  const int lane = blockIdx.x / a.kv;           // lanes * kv < 2^31
+  const int kvh = blockIdx.x - lane * a.kv;
+  const int r = a.heads / a.kv, hd = a.hd, T_ = a.slots, kv = a.kv;
+  const int rp = (r + KH - 1) / KH * KH;       // heads padded to chunks
+  const int tid = threadIdx.x, warp = tid / 32, ln = tid % 32;
+  const int g = tid / TPR, c = tid % TPR;
+  uint4* kst = stage;                   // a thread's K rows: kst[i * 256 + tid]
+  uint4* vst = stage + NR * kAttnThreads;
+  float* qs = reinterpret_cast<float*>(stage + 2 * NR * kAttnThreads);
+  float* ss = qs + rp * hd;             // (rp, slots): scores, then probs
+  float* pv = ss + rp * T_;             // (warps, rp, hd): P.V partials
+
+  const long long row = (long long)kv * hd;     // a cache row's stride
+  const long long row16 = row / E;              // the same in 16 bytes
+  const long long base = (long long)lane * T_ * row + kvh * hd + c * E;
+  const uint4* kc = reinterpret_cast<const uint4*>(
+      static_cast<const C*>(a.k_cache) + base);
+  const uint4* vc = reinterpret_cast<const uint4*>(
+      static_cast<const C*>(a.v_cache) + base);
+  const int* sp = a.slot_pos + (long long)lane * T_;
+  const int nrows = (T_ + RPP - 1) / RPP;       // rows of the busiest thread
+  const int ntiles = (nrows + NR - 1) / NR;
+
+  // the first tile's K and V rows copied to shared memory asynchronously
+  // before any arithmetic (two groups: K, then V), so the CTA waits about
+  // one memory latency; each thread reads back only the rows it copied
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    const int t = g + RPP * i;
+    if (t < T_) copy16(kst + i * kAttnThreads + tid, kc + t * row16);
+  }
+  copies_commit();
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    const int t = g + RPP * i;
+    if (t < T_) copy16(vst + i * kAttnThreads + tid, vc + t * row16);
+  }
+  copies_commit();
+  const long long p = a.pos[lane % a.batch];
+  const int slot = a.window > 0 ? (int)(p % T_)
+                                : (int)(p < T_ - 1 ? p : T_ - 1);
+  const T* q = static_cast<const T*>(a.q) +
+               ((long long)lane * a.heads + kvh * r) * hd;
+  for (int i = tid; i < rp * hd; i += kAttnThreads)
+    qs[i] = i < r * hd ? to_f(q[i]) : 0.0f;     // padded heads score 0
+  // 1: the new rows in the cache dtype, written by the threads that own
+  // the slot's row and read back from registers
+  const bool owner = slot % RPP == g;
+  uint4 knew = make_uint4(0u, 0u, 0u, 0u), vnew = knew;
+  if (owner) {
+    float f[E];
+    const long long at = ((long long)lane * kv + kvh) * hd + c * E;
+    load_f32<T, E>(static_cast<const T*>(a.k_new) + at, f);
+    knew = pack16<C, E>(f);
+    load_f32<T, E>(static_cast<const T*>(a.v_new) + at, f);
+    vnew = pack16<C, E>(f);
+    uint4* kw = reinterpret_cast<uint4*>(static_cast<C*>(a.k_cache) + base);
+    uint4* vw = reinterpret_cast<uint4*>(static_cast<C*>(a.v_cache) + base);
+    kw[slot * row16] = knew;
+    vw[slot * row16] = vnew;
+  }
+  if (kvh == 0 && tid == 0)
+    a.slot_pos[(long long)lane * T_ + slot] = (int)p;
+  __syncthreads();                      // qs
+
+  // 2-3: the scores, KH query heads at a time against a tile of a thread's
+  // rows; each thread's max over its rows, then the warp's, for each head
+  const float neg_inf = round_to<T>(-1e30f);
+  for (int h0 = 0; h0 < rp; h0 += KH) {
+    float rmax[KH];
+#pragma unroll
+    for (int j = 0; j < KH; ++j) rmax[j] = -__int_as_float(0x7f800000);
+    for (int tile = 0; tile < ntiles; ++tile) {
+      if (ntiles > 1) {
+        if (h0 > 0 || tile > 0) {
+#pragma unroll
+          for (int i = 0; i < NR; ++i) {
+            const int t = g + RPP * (tile * NR + i);
+            if (t < T_) copy16(kst + i * kAttnThreads + tid, kc + t * row16);
+          }
+          copies_commit();
+        }
+        copies_wait<0>();
+      } else {
+        copies_wait<1>();               // the K group
+      }
+      float qf[KH][E];
+#pragma unroll
+      for (int j = 0; j < KH; ++j)
+#pragma unroll
+        for (int e = 0; e < E; e += 4) {
+          const float4 v4 = *reinterpret_cast<const float4*>(
+              qs + (h0 + j) * hd + c * E + e);
+          qf[j][e] = v4.x;
+          qf[j][e + 1] = v4.y;
+          qf[j][e + 2] = v4.z;
+          qf[j][e + 3] = v4.w;
+        }
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        const int t = g + RPP * (tile * NR + i);
+        // the slot's row from registers; the row's validity (the slot
+        // written above holds p; the other CTAs of this lane may be
+        // writing slot_pos[slot] now, so it is not read)
+        const uint4 kr = t == slot ? knew : kst[i * kAttnThreads + tid];
+        const long long tpos = t == slot ? p : t < T_ ? (long long)sp[t] : -1;
+        const bool valid = tpos >= 0 && tpos <= p &&
+                           (a.window <= 0 || tpos > p - a.window);
+        const uint32_t w[4] = {kr.x, kr.y, kr.z, kr.w};
+        float kf[E];
+        unpack(w, kf, E, C());
+        float acc[KH], num[KH], sc[KH];
+        bool slow = false;
+#pragma unroll
+        for (int j = 0; j < KH; ++j) {
+          acc[j] = 0.0f;
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            acc[j] = __fmaf_rn(qf[j][e], as_compute<T, C>(kf[e]), acc[j]);
+        }
+#pragma unroll
+        for (int off = TPR / 2; off > 0; off >>= 1)
+#pragma unroll
+          for (int j = 0; j < KH; ++j)
+            acc[j] = __fadd_rn(acc[j],
+                               __shfl_xor_sync(0xffffffffu, acc[j], off));
+#pragma unroll
+        for (int j = 0; j < KH; ++j) {
+          num[j] = round_to<T>(acc[j]);
+          sc[j] = div_rn(num[j], a.scale, a.inv_scale, slow);
+        }
+        if (slow) {
+#pragma unroll
+          for (int j = 0; j < KH; ++j) sc[j] = __fdiv_rn(num[j], a.scale);
+        }
+        if (t < T_) {
+#pragma unroll
+          for (int j = 0; j < KH; ++j) {
+            const float v = valid ? round_to<T>(sc[j]) : neg_inf;
+            rmax[j] = nan_max(rmax[j], v);
+            if (c == 0) ss[(h0 + j) * T_ + t] = v;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int j = 0; j < KH; ++j)
+        rmax[j] = nan_max(rmax[j], __shfl_xor_sync(0xffffffffu, rmax[j], off));
+    if (ln == 0) {
+#pragma unroll
+      for (int j = 0; j < KH; ++j) red[0][warp * kMaxGroup + h0 + j] = rmax[j];
+    }
+  }
+  __syncthreads();                      // ss, the warps' maxima
+
+  // 4: the f32 softmax over all warps, KH heads at a time: thread tid's
+  // terms exp_xla(s - max) for t = tid, tid + 256, ... in order, the warp's
+  // tree, the warps in order; then the probabilities rounded to the
+  // compute dtype into ss, each thread its own terms
+  for (int h0 = 0; h0 < rp; h0 += KH) {
+    float m[KH], sum[KH];
+#pragma unroll
+    for (int j = 0; j < KH; ++j) {
+      m[j] = red[0][h0 + j];
+      sum[j] = 0.0f;
+    }
+#pragma unroll
+    for (int w = 1; w < kAttnWarps; ++w)
+#pragma unroll
+      for (int j = 0; j < KH; ++j)
+        m[j] = nan_max(m[j], red[0][w * kMaxGroup + h0 + j]);
+    for (int t = tid; t < T_; t += kAttnThreads) {
+#pragma unroll
+      for (int j = 0; j < KH; ++j) {
+        const float e = exp_xla(__fsub_rn(ss[(h0 + j) * T_ + t], m[j]));
+        ss[(h0 + j) * T_ + t] = e;
+        sum[j] = __fadd_rn(sum[j], e);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int j = 0; j < KH; ++j)
+        sum[j] = __fadd_rn(sum[j], __shfl_xor_sync(0xffffffffu, sum[j], off));
+    if (ln == 0) {
+#pragma unroll
+      for (int j = 0; j < KH; ++j) red[1][warp * kMaxGroup + h0 + j] = sum[j];
+    }
+  }
+  __syncthreads();                      // the warps' sums
+  for (int h0 = 0; h0 < rp; h0 += KH) {
+    float tot[KH], rtot[KH];
+#pragma unroll
+    for (int j = 0; j < KH; ++j) tot[j] = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kAttnWarps; ++w)
+#pragma unroll
+      for (int j = 0; j < KH; ++j)
+        tot[j] = __fadd_rn(tot[j], red[1][w * kMaxGroup + h0 + j]);
+#pragma unroll
+    for (int j = 0; j < KH; ++j) rtot[j] = __frcp_rn(tot[j]);
+    for (int t = tid; t < T_; t += kAttnThreads) {
+      float e[KH], pt[KH];
+      bool slow = false;
+#pragma unroll
+      for (int j = 0; j < KH; ++j) {
+        e[j] = ss[(h0 + j) * T_ + t];
+        pt[j] = div_rn(e[j], tot[j], rtot[j], slow);
+      }
+      if (slow) {
+#pragma unroll
+        for (int j = 0; j < KH; ++j) pt[j] = __fdiv_rn(e[j], tot[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < KH; ++j) ss[(h0 + j) * T_ + t] = round_to<T>(pt[j]);
+    }
+  }
+  __syncthreads();                      // the probabilities
+
+  // 5: the probability-weighted value rows, KH heads at a time; the V rows
+  // come from the staged tile when a thread's rows fit one
+  for (int h0 = 0; h0 < rp; h0 += KH) {
+    float acc[KH][E];
+#pragma unroll
+    for (int j = 0; j < KH; ++j)
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[j][e] = 0.0f;
+    for (int tile = 0; tile < ntiles; ++tile) {
+      if (ntiles > 1) {
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          const int t = g + RPP * (tile * NR + i);
+          if (t < T_) copy16(vst + i * kAttnThreads + tid, vc + t * row16);
+        }
+        copies_commit();
+      }
+      copies_wait<0>();
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        const int t = g + RPP * (tile * NR + i);
+        if (t < T_) {
+          const uint4 vr = t == slot ? vnew : vst[i * kAttnThreads + tid];
+          const uint32_t w[4] = {vr.x, vr.y, vr.z, vr.w};
+          float vf[E], pt[KH];
+          unpack(w, vf, E, C());
+#pragma unroll
+          for (int j = 0; j < KH; ++j) pt[j] = ss[(h0 + j) * T_ + t];
+#pragma unroll
+          for (int j = 0; j < KH; ++j)
+#pragma unroll
+            for (int e = 0; e < E; ++e)
+              acc[j][e] = __fmaf_rn(pt[j], as_compute<T, C>(vf[e]),
+                                    acc[j][e]);
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off >= TPR; off >>= 1)
+#pragma unroll
+      for (int j = 0; j < KH; ++j)
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          acc[j][e] = __fadd_rn(acc[j][e],
+                                __shfl_xor_sync(0xffffffffu, acc[j][e], off));
+    if (ln < TPR) {
+#pragma unroll
+      for (int j = 0; j < KH; ++j)
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          pv[(warp * rp + h0 + j) * hd + c * E + e] = acc[j][e];
+    }
+  }
+  __syncthreads();                      // pv
+  T* out = static_cast<T*>(a.out) +
+           ((long long)lane * a.heads + kvh * r) * hd;
+  for (int i = tid; i < r * hd; i += kAttnThreads) {
+    float v = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kAttnWarps; ++w)
+      v = __fadd_rn(v, pv[w * rp * hd + i]);
+    out[i] = from_f<T>(v);
+  }
+}
+
+template <typename T, typename C, int TPR>
 int launch(const DecodeArgs& a, long long lanes, cudaStream_t stream) {
   const int r = a.heads / a.kv;
-  const size_t smem = sizeof(double) * ((size_t)r * a.hd +
-                                        (size_t)kTile * (a.hd + 1)) +
-                      sizeof(float) * (size_t)r * a.slots;
-  if (smem > 48 * 1024) {
+  const int rp = (r + kHeadChunk - 1) / kHeadChunk * kHeadChunk;
+  const size_t smem = sizeof(uint4) * 2 * row_tile<TPR>() * kAttnThreads +
+                      sizeof(float) * ((size_t)rp * a.hd +
+                                       (size_t)rp * a.slots +
+                                       (size_t)kAttnWarps * rp * a.hd);
+  static size_t allowed = 48 * 1024;   // raised once a size (not in a capture)
+  if (smem > allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_attention_kernel<T, C>,
+        decode_attention_kernel<T, C, TPR>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
+    allowed = smem;
   }
-  decode_attention_kernel<T, C><<<(unsigned)(lanes * a.kv), kAttnThreads,
-                                  smem, stream>>>(a);
+  decode_attention_kernel<T, C, TPR><<<(unsigned)(lanes * a.kv),
+                                       kAttnThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// the instantiations: TPR = hd / E of head dims 32, 64 and 128
+template <typename T, typename C>
+int launch_tpr(const DecodeArgs& a, long long lanes, cudaStream_t stream) {
+  switch (a.hd / (16 / (int)sizeof(C))) {
+    case 4: return launch<T, C, 4>(a, lanes, stream);
+    case 8: return launch<T, C, 8>(a, lanes, stream);
+    case 16: return launch<T, C, 16>(a, lanes, stream);
+    case 32: return launch<T, C, 32>(a, lanes, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace repro_torch
@@ -237,26 +530,30 @@ int launch(const DecodeArgs& a, long long lanes, cudaStream_t stream) {
 // (lanes, slots, kv, hd) in the cache dtype (bf16 if cache_bf16, else f32)
 // and slot_pos (lanes, slots) int32, updated in place; pos (batch,) int64,
 // lane l at pos[l % batch]; out (lanes, heads, hd) in the compute dtype.
-// heads is a multiple of kv, heads / kv <= 16; scale is sqrt(hd) in the
-// compute dtype.
+// heads is a multiple of kv, heads / kv <= 16; hd is 16 bytes of the cache
+// dtype times 4, 8, 16 or 32 (head dims 32, 64 and 128); the caches and
+// the new rows are 16-byte aligned; scale is sqrt(hd) in the compute dtype
+// and inv_scale RN(1 / scale).
 extern "C" int repro_decode_attention(
     const void* q, const void* k_new, const void* v_new, void* k_cache,
     void* v_cache, int* slot_pos, const long long* pos, void* out,
     long long lanes, int batch, int heads, int kv, int hd, int slots,
-    int window, float scale, int compute_bf16, int cache_bf16, void* stream) {
+    int window, float scale, float inv_scale, int compute_bf16,
+    int cache_bf16, void* stream) {
   using namespace repro_torch;
+  const int e = cache_bf16 ? 8 : 4, tpr = hd / e;
   if (lanes < 1 || batch < 1 || lanes % batch || kv < 1 || heads % kv ||
-      heads / kv > kMaxGroup || hd < 1 || (heads / kv) * hd >
-      kMaxOut * kAttnThreads || slots < 1 || window < 0 ||
+      heads / kv > kMaxGroup || hd < 1 || hd % e || tpr < 4 || tpr > 32 ||
+      (tpr & (tpr - 1)) || slots < 1 || window < 0 ||
       lanes * kv > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const DecodeArgs a{q, k_new, v_new, k_cache, v_cache, slot_pos, pos, out,
-                     batch, heads, kv, hd, slots, window, scale};
+                     batch, heads, kv, hd, slots, window, scale, inv_scale};
   cudaStream_t st = (cudaStream_t)stream;
   if (compute_bf16) {
-    return cache_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(a, lanes, st)
-                      : launch<__nv_bfloat16, float>(a, lanes, st);
+    return cache_bf16 ? launch_tpr<__nv_bfloat16, __nv_bfloat16>(a, lanes, st)
+                      : launch_tpr<__nv_bfloat16, float>(a, lanes, st);
   }
-  return cache_bf16 ? launch<float, __nv_bfloat16>(a, lanes, st)
-                    : launch<float, float>(a, lanes, st);
+  return cache_bf16 ? launch_tpr<float, __nv_bfloat16>(a, lanes, st)
+                    : launch_tpr<float, float>(a, lanes, st);
 }

@@ -214,3 +214,25 @@ extern "C" int repro_threefry(const long long* const* keys,
                     (cudaStream_t)stream>>>(table);
   return (int)cudaGetLastError();
 }
+
+namespace repro_torch {
+
+__global__ void exp_xla_kernel(const float* x, float* y, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = exp_xla(x[i]);
+}
+
+}  // namespace repro_torch
+
+// y = exp_xla(x) elementwise over n f32 values: XLA's exp as the decode
+// kernels take it (threefry.cuh), launched alone so that a check can hold
+// it against threefry.py's exp_plain.
+extern "C" int repro_exp_xla(const float* x, float* y, long long n,
+                             void* stream) {
+  using namespace repro_torch;
+  if (n < 1 || (n + 255) / 256 > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  exp_xla_kernel<<<(unsigned)((n + 255) / 256), 256, 0,
+                   (cudaStream_t)stream>>>(x, y, n);
+  return (int)cudaGetLastError();
+}

@@ -10,12 +10,15 @@ the compute dtype ``dt``, divided by ``sqrt(hd)`` in ``dt``; rows whose
 to ``−1e30``; the f32 softmax rounded to ``dt``; the weighted values
 rounded to ``dt``.
 
-The kernel sums each dot product's exact products (a product of two
-bfloat16, or of two f32, values is exact in float64) in float64 and rounds
-the sum to f32, then to ``dt``; the plain version computes the same sums in
-float64 in torch's order. So the two agree bit for bit unless a float64
-sum's rounding error meets an f32 tie (about 2^-29 a value): the stated
-tolerance is one ``dt`` ulp of the output. The reference sums in f32 in
+Kernel and plain version compute in f32 with XLA's exp (``exp_plain``, the
+reference's own softmax numerators) and add in one fixed order, which the
+kernel's source comment states: each dot product as fma chains over a
+thread's 16 bytes of the cache row and a halving tree over the row's
+threads; the softmax's sum thread by thread, then a warp's tree, then the
+warps in order; the weighted values as fma chains over a thread's rows,
+then a tree over a warp's row groups, then the warps in order. The plain
+version follows that order op for op (single-rounding ``_fma`` and
+``_div``), so the two agree bit for bit. The reference sums in f32 in
 XLA's order, so against it the port is within f32 summation error before
 the ``dt`` rounding.
 
@@ -30,10 +33,16 @@ import math
 import torch
 
 from repro_torch.kernels._build import check, library, on_card, stream_of
+from repro_torch.kernels.threefry import (_div, _fma, exp_plain, fold_sum,
+                                          seq_sum, to_f32)
 
 NEG_INF = -1e30
-MAX_GROUP = 16                     # csrc/decode_attention.cu: kMaxGroup
-MAX_GROUP_DIMS = 2048              # kMaxOut x kAttnThreads: r * hd
+THREADS = 256                      # csrc/decode_attention.cu: kAttnThreads
+WARPS = THREADS // 32
+MAX_GROUP = 16                     # kMaxGroup
+MAX_SMEM = 232448 - 2 * WARPS * MAX_GROUP * 4   # the dynamic shared memory
+CARD_TPR = (4, 8, 16, 32)          # the kernel's instantiations of TPR
+HEAD_CHUNK = 4                     # kHeadChunk
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -48,34 +57,112 @@ def cache_slots(pos: torch.Tensor, slots: int, window: int) -> torch.Tensor:
     return pos % slots if window > 0 else torch.clamp(pos, max=slots - 1)
 
 
+def segment(hd: int, cache_dtype) -> tuple:
+    """``(E, TPR)``: the elements in 16 bytes of the cache dtype, and the
+    threads that share a row of ``hd``."""
+    e = 128 // torch.finfo(cache_dtype).bits
+    return e, hd // e
+
+
+def _pad(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``x`` with zeros appended along ``dim`` to length ``n``."""
+    if x.shape[dim] == n:
+        return x
+    shape = list(x.shape)
+    shape[dim] = n - x.shape[dim]
+    return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+
+def dot_plain(qf: torch.Tensor, kf: torch.Tensor, e: int) -> torch.Tensor:
+    """The scores' f32 sums, in the kernel's order: ``qf`` ``(..., r, hd)``
+    and ``kf`` ``(..., slots, hd)`` f32 -> ``(..., r, slots)``: an fma
+    chain over each segment of ``e`` elements from +0, then the halving
+    tree over a row's segments."""
+    tpr = qf.shape[-1] // e
+    qs = qf.reshape(qf.shape[:-1] + (1, tpr, e))
+    ks = kf.reshape(kf.shape[:-2] + (1,) + kf.shape[-2:-1] + (tpr, e))
+    acc = torch.zeros(torch.broadcast_shapes(qs.shape, ks.shape)[:-1],
+                      device=qf.device)
+    for i in range(e):
+        acc = _fma(qs[..., i], ks[..., i], acc)
+    return fold_sum(acc)
+
+
+def softmax_sum_plain(ex: torch.Tensor) -> torch.Tensor:
+    """The softmax's f32 sum over the last axis (the slots), in the
+    kernel's order: thread ``tid``'s terms ``t = tid, tid + THREADS, ...``
+    from +0, a warp's halving tree, the warps in order from +0."""
+    lead, slots = ex.shape[:-1], ex.shape[-1]
+    n = -(-slots // THREADS)
+    terms = _pad(ex, -1, n * THREADS).reshape(lead + (n, THREADS))
+    part = fold_sum(seq_sum(terms.transpose(-1, -2)).reshape(
+        lead + (WARPS, 32)))
+    return seq_sum(part)
+
+
+def weighted_plain(probs: torch.Tensor, vf: torch.Tensor,
+                   tpr: int) -> torch.Tensor:
+    """The weighted values' f32 sums, in the kernel's order: ``probs``
+    ``(..., r, slots)`` and ``vf`` ``(..., slots, hd)`` -> ``(..., r,
+    hd)``: thread (row group ``g``, segment) over its rows ``g, g + RPP,
+    ...`` as an fma chain from +0, a halving tree over a warp's row groups,
+    the warps in order from +0."""
+    lead, slots, hd = vf.shape[:-2], vf.shape[-2], vf.shape[-1]
+    r, rpp = probs.shape[-2], THREADS // tpr
+    n = -(-slots // rpp)
+    pr = _pad(probs, -1, n * rpp).reshape(lead + (r, n, rpp, 1))
+    vv = _pad(vf, -2, n * rpp).reshape(lead + (1, n, rpp, hd))
+    acc = torch.zeros(lead + (r, rpp, hd), device=vf.device)
+    for i in range(n):
+        acc = _fma(pr[..., i, :, :], vv[..., i, :, :], acc)
+    acc = acc.reshape(lead + (r, WARPS, 32 // tpr, hd)).transpose(-1, -2)
+    return seq_sum(fold_sum(acc).transpose(-1, -2))
+
+
 def decode_attention_plain(q, k_new, v_new, k_cache, v_cache, slot_pos, pos,
                            window: int = 0) -> torch.Tensor:
-    """The kernel's arithmetic in torch ops (see the module docstring)."""
+    """The kernel's arithmetic in torch ops, in its order
+    (``csrc/decode_attention.cu``, its head comment)."""
     g, b, h, hd = q.shape
     slots, kv = k_cache.shape[2], k_cache.shape[3]
-    dt = q.dtype
+    r, dt = h // kv, q.dtype
+    e, tpr = segment(hd, k_cache.dtype)
     pos = pos.to(torch.int64)
     slot = cache_slots(pos, slots, window)
     rows = torch.arange(b, device=q.device)
     k_cache[:, rows, slot] = k_new.to(k_cache.dtype)
     v_cache[:, rows, slot] = v_new.to(v_cache.dtype)
     slot_pos[:, rows, slot] = pos.to(torch.int32)
-    qg = q.reshape(g, b, kv, h // kv, hd).double()
-    s = torch.einsum("gbvrk,gbtvk->gbvrt", qg, k_cache.to(dt).double())
-    s = s.float().to(dt).float()
-    s = (s / torch.full_like(s, head_scale(hd, dt))).to(dt)
+    # the scores (g, b, kv, r, slots), rounded to dt, over sqrt(hd) in dt
+    s = dot_plain(q.float().reshape(g, b, kv, r, hd),
+                  k_cache.to(dt).float().transpose(2, 3), e)
+    s = _div(s.to(dt).float(), torch.full_like(s, head_scale(hd, dt)))
+    s = s.to(dt).float()
     sp = slot_pos.to(torch.int64)[:, :, None, None, :]
     p = pos[None, :, None, None, None]
     valid = (sp >= 0) & (sp <= p)
     if window > 0:
         valid = valid & (sp > p - window)
-    sf = s.masked_fill(~valid, NEG_INF).float()
-    e = torch.exp((sf - sf.amax(dim=-1, keepdim=True)).double()).float()
-    tot = e.double().sum(dim=-1, keepdim=True).float()
-    probs = (e / tot).to(dt)
-    ctx = torch.einsum("gbvrt,gbtvk->gbvrk", probs.double(),
-                       v_cache.to(dt).double())
-    return ctx.float().to(dt).reshape(g, b, h, hd)
+    s = s.masked_fill(~valid, float(torch.tensor(NEG_INF).to(dt)))
+    ex = exp_plain(s - s.amax(dim=-1, keepdim=True))
+    probs = _div(ex, softmax_sum_plain(ex)[..., None]).to(dt).float()
+    out = weighted_plain(probs, v_cache.to(dt).float().transpose(2, 3), tpr)
+    return out.to(dt).reshape(g, b, h, hd)
+
+
+def row_tile(tpr: int) -> int:
+    """``row_tile`` of ``csrc/decode_attention.cu``: the rows of K (and of
+    V) a kernel thread stages at once."""
+    return min(8, max(1, tpr // 2))
+
+
+def smem_bytes(r: int, hd: int, slots: int, tpr: int) -> int:
+    """The kernel's dynamic shared memory: the staged K and V rows, then
+    the queries, the scores and the warps' P·V sums in f32, the heads
+    padded to chunks of ``HEAD_CHUNK``."""
+    rp = -(-r // HEAD_CHUNK) * HEAD_CHUNK
+    return 2 * 16 * row_tile(tpr) * THREADS + \
+        4 * (rp * hd + rp * slots + WARPS * rp * hd)
 
 
 def _check(q, k_new, v_new, k_cache, v_cache, slot_pos, pos, window):
@@ -85,10 +172,9 @@ def _check(q, k_new, v_new, k_cache, v_cache, slot_pos, pos, window):
         raise ValueError(f"decode_attention: caches {tuple(k_cache.shape)}, "
                          f"{tuple(v_cache.shape)} for q {tuple(q.shape)}")
     slots, kv = k_cache.shape[2], k_cache.shape[3]
-    if h % kv or h // kv > MAX_GROUP or (h // kv) * hd > MAX_GROUP_DIMS:
-        raise ValueError(f"decode_attention: {h} heads of {hd} over {kv} "
-                         f"KV heads (groups of at most {MAX_GROUP} heads, "
-                         f"{MAX_GROUP_DIMS} dims)")
+    if h % kv or h // kv > MAX_GROUP:
+        raise ValueError(f"decode_attention: {h} heads over {kv} KV heads "
+                         f"(groups of at most {MAX_GROUP} heads)")
     if k_new.shape != (g, b, kv, hd) or v_new.shape != k_new.shape:
         raise ValueError(f"decode_attention: new rows {tuple(k_new.shape)}, "
                          f"{tuple(v_new.shape)}")
@@ -97,6 +183,33 @@ def _check(q, k_new, v_new, k_cache, v_cache, slot_pos, pos, window):
                          f", pos {tuple(pos.shape)}")
     if window < 0:
         raise ValueError(f"decode_attention: window {window}")
+    e, tpr = segment(hd, k_cache.dtype)
+    if hd % e or tpr > 32 or tpr & (tpr - 1):
+        raise ValueError(f"decode_attention: head_dim {hd} of "
+                         f"{k_cache.dtype} is not 16 bytes times a power of "
+                         f"two up to 32")
+
+
+def _check_card(q, k_new, v_new, k_cache, v_cache):
+    """What the kernel alone cannot take: a row of other than 4, 8, 16 or
+    32 segments (head dims 32, 64 and 128), shared memory beyond the
+    card's, rows off 16-byte alignment."""
+    g, b, h, hd = q.shape
+    slots, kv = k_cache.shape[2], k_cache.shape[3]
+    tpr = segment(hd, k_cache.dtype)[1]
+    if tpr not in CARD_TPR:
+        raise ValueError(f"decode_attention: the kernel takes head dims of "
+                         f"{CARD_TPR} segments of 16 bytes, not {hd} of "
+                         f"{k_cache.dtype}")
+    need = smem_bytes(h // kv, hd, slots, tpr)
+    if need > MAX_SMEM:
+        raise ValueError(f"decode_attention: {slots} slots of {h // kv} "
+                         f"heads of {hd} need {need} bytes of shared "
+                         f"memory, the kernel has {MAX_SMEM}")
+    for t in (k_new, v_new, k_cache, v_cache):
+        if t.data_ptr() % 16:
+            raise ValueError("decode_attention: the new rows and the caches "
+                             "must be 16-byte aligned")
 
 
 def decode_attention(q, k_new, v_new, k_cache, v_cache, slot_pos, pos,
@@ -116,15 +229,17 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, slot_pos, pos,
             (pos, torch.int64)]):
         return decode_attention_plain(q, k_new, v_new, k_cache, v_cache,
                                       slot_pos, pos, window)
+    _check_card(q, k_new, v_new, k_cache, v_cache)
     g, b, h, hd = q.shape
     slots, kv = k_cache.shape[2], k_cache.shape[3]
+    scale = head_scale(hd, dt)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = library().repro_decode_attention(
             q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_cache.data_ptr(), v_cache.data_ptr(), slot_pos.data_ptr(),
             pos.data_ptr(), out.data_ptr(), g * b, b, h, kv, hd, slots,
-            window, head_scale(hd, dt), int(dt == torch.bfloat16),
+            window, scale, to_f32(1.0 / scale), int(dt == torch.bfloat16),
             int(k_cache.dtype == torch.bfloat16), stream_of(q))
     check(rc, "decode_attention")
     decode_attention.launches += 1

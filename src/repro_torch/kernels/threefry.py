@@ -112,6 +112,12 @@ ERF_A = tuple(map(f32, (0x39702d51, 0x3b5f5da2, 0x3d50b6eb, 0x3e3da740,
                         0x3f906eba)))
 ERF_B = tuple(map(f32, (0xb3fd3906, 0x37c588df, 0x3a856d28, 0x3c6687d4,
                         0x3de34c21, 0x3efeb44a, 0x3f800000)))
+# XLA's f32 exp: the input clamp, log2(e), the split C1 + C2 of ln 2 and the
+# polynomial e0..e4 of its Horner chain (then 0.5, r², 1)
+EXP_LO, EXP_HI = f32(0xc2af999a), f32(0x42b1999a)
+EXP_LOG2E, EXP_C1, EXP_C2 = f32(0x3fb8aa3b), f32(0x3f318000), f32(0xb95e8083)
+EXP_P = tuple(map(f32, (0x39506967, 0x3ab743ce, 0x3c088908, 0x3d2aa9c1,
+                        0x3e2aaaaa)))
 
 
 class Draw(NamedTuple):
@@ -162,6 +168,25 @@ def _div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.double() / b.double()).float()
 
 
+def seq_sum(x: torch.Tensor) -> torch.Tensor:
+    """The f32 sum over the last axis added in order from +0, as a CUDA
+    thread adds its terms one after another."""
+    acc = torch.zeros_like(x[..., 0])
+    for i in range(x.shape[-1]):
+        acc = acc + x[..., i]
+    return acc
+
+
+def fold_sum(x: torch.Tensor) -> torch.Tensor:
+    """The f32 halving tree over the last axis (a power of two): element
+    ``i`` plus element ``i + n/2``, and again, as a shuffle tree ``xor n/2,
+    ..., 1`` adds a warp's lanes."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded f32 square root, as :func:`_div` (torch's
     vectorized f32 ``sqrt`` on the CPU is not always)."""
@@ -192,6 +217,49 @@ def log_plain(a: torch.Tensor) -> torch.Tensor:
     out = torch.where(torch.isnan(a), float("nan"), out)
     out = torch.where(a.abs() < MIN_NORMAL, float("-inf"), out)
     return torch.where(a == float("inf"), float("inf"), out)
+
+
+def exp_plain(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU f32 exp, op for op as its compiled code runs it (the
+    ``exp_xla`` of ``csrc/threefry.cuh``): ``jax.jit(jnp.exp)`` bit for bit.
+    ``x`` clamped to [-87.8, 88.8]; ``n = floor(fma(x, log2 e, 0.5))``
+    clamped to ±127; ``r = x − n·C1 − n·C2`` (two fmas); ``p = 1 +
+    fma(P(r), r², r)``, ``P`` a Horner chain of fmas; ``p · 2^n``. XLA's
+    code runs with denormals flushed, so a result below the smallest normal
+    (``n = −127``, or ``n = −126`` and ``p < 1``) is +0. Not correctly
+    rounded: up to one ulp from the true exp."""
+    c = x.clamp(EXP_LO, EXP_HI)
+    n = torch.floor(_fma(c, EXP_LOG2E, 0.5)).clamp(-127.0, 127.0)
+    r = _fma(-n, EXP_C2, _fma(-n, EXP_C1, c))
+    y = _fma(r, EXP_P[0], EXP_P[1])
+    for coef in EXP_P[2:] + (0.5,):
+        y = _fma(y, r, coef)
+    p = _fma(y, r * r, r) + 1.0
+    ni = torch.nan_to_num(n).to(torch.int32)
+    out = p * ((ni + 127) << 23).view(torch.float32)
+    out = torch.where((ni < -126) | ((ni == -126) & (p < 1.0)),
+                      torch.zeros_like(out), out)
+    return torch.where(torch.isnan(x), x, out)
+
+
+def exp_xla(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 exp of ``x``: the card's ``exp_xla`` (``csrc/threefry.cuh``,
+    launched alone by ``repro_exp_xla``) for a CUDA tensor, ``exp_plain``
+    for a CPU one. The decode kernels inline the same function; this entry
+    point lets a check hold it against ``exp_plain``."""
+    if not on_card("exp_xla", [(x, torch.float32)]):
+        return exp_plain(x)
+    y = torch.empty_like(x)
+    if x.numel():
+        with torch.cuda.device(x.device):
+            rc = library().repro_exp_xla(x.data_ptr(), y.data_ptr(),
+                                         x.numel(), stream_of(x))
+        check(rc, "exp_xla")
+        exp_xla.launches += 1
+    return y
+
+
+exp_xla.launches = 0
 
 
 def log1p_plain(z: torch.Tensor) -> torch.Tensor:

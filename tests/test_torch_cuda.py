@@ -1142,17 +1142,32 @@ def test_user_loss_in_the_graph_chunks_folds_each_rounds_index(card,
 
 
 @pytest.mark.parametrize("window", [0, 8])
-@pytest.mark.parametrize("dtype,cache", [
-    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
-    (torch.float32, torch.float32)])
-def test_decode_attention_matches_plain_version(card, dtype, cache, window):
-    """smollm-135m's heads (9 over 3 KV heads, hd 64) over 2 x 5 lanes at
-    positions 0 (one valid slot), 3, 19 (past the 16 slots: the clamp, or
-    a ring buffer wrapped) and a reset lane; the caches and slot_pos
-    updated alike, the output within one ulp of the compute dtype."""
+@pytest.mark.parametrize("dtype,cache,h,kv,hd,slots", [
+    (torch.bfloat16, torch.bfloat16, 9, 3, 64, 16),
+    (torch.float32, torch.bfloat16, 9, 3, 64, 16),
+    (torch.float32, torch.float32, 9, 3, 64, 16),
+    (torch.bfloat16, torch.bfloat16, 12, 1, 128, 16),
+    (torch.float32, torch.float32, 12, 1, 128, 16),
+    (torch.bfloat16, torch.bfloat16, 4, 2, 32, 16),
+    (torch.float32, torch.bfloat16, 4, 2, 32, 16),
+    (torch.bfloat16, torch.bfloat16, 3, 3, 32, 16),
+    (torch.bfloat16, torch.bfloat16, 9, 3, 64, 256),
+    (torch.float32, torch.bfloat16, 9, 3, 64, 256),
+    (torch.float32, torch.float32, 9, 3, 64, 256),
+    (torch.float32, torch.float32, 12, 1, 128, 256),
+    (torch.bfloat16, torch.bfloat16, 4, 2, 32, 256)])
+def test_decode_attention_matches_plain_version(card, dtype, cache, h, kv,
+                                                hd, slots, window):
+    """smollm-135m's heads (9 over 3 KV heads, hd 64), a group of 12 heads
+    of 128 (mistral-large-123b's) and the reduced configs' heads of 32 (4
+    over 2, smollm-reduced's 3 over 3) over 2 x 5 lanes of 16 slots, and of
+    256 (the kernel's rows taken in two or more tiles), at positions 0 (one
+    valid slot), 3, slots + 3 and 2 slots + 8 (past the end: the clamp, or
+    a ring buffer wrapped) and a reset lane; the caches, slot_pos and the
+    output bit for bit."""
     from repro_torch.kernels.decode_attention import decode_attention_plain
-    gen = torch.Generator(device=card).manual_seed(window)
-    g, b, h, kv, hd, slots = 2, 5, 9, 3, 64, 16
+    gen = torch.Generator(device=card).manual_seed(window + hd)
+    g, b = 2, 5
     q = torch.randn((g, b, h, hd), generator=gen, device=card).to(dtype)
     kn = torch.randn((g, b, kv, hd), generator=gen, device=card).to(dtype)
     vn = torch.randn((g, b, kv, hd), generator=gen, device=card).to(dtype)
@@ -1160,7 +1175,7 @@ def test_decode_attention_matches_plain_version(card, dtype, cache, window):
                      device=card).to(cache)
     vc = torch.randn((g, b, slots, kv, hd), generator=gen,
                      device=card).to(cache)
-    pos = torch.tensor([0, 3, 19, 40, 2], device=card)
+    pos = torch.tensor([0, 3, slots + 3, 2 * slots + 8, 2], device=card)
     sp = torch.arange(slots, device=card, dtype=torch.int32).expand(
         g, b, slots).contiguous()
     sp[:, 4] = -1                                    # a reset lane
@@ -1170,29 +1185,42 @@ def test_decode_attention_matches_plain_version(card, dtype, cache, window):
     want = decode_attention_plain(q, kn, vn, *want_args, pos, window)
     for a, b_ in zip(args, want_args):
         assert torch.equal(a, b_)
-    ulp = torch.finfo(dtype).eps * want.float().abs().clamp(min=1e-3)
-    assert ((got.float() - want.float()).abs() <= ulp).all()
+    assert _same_bits(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bma_sample_matches_plain_version(card, dtype):
-    """4 samples, 3 slots, V = 49,152 and one not a multiple of the block,
-    with -inf and tied logits: tokens bit for bit, probabilities and
-    entropies equal."""
+    """4 samples, 3 slots, V = 49,152, 152,064 (qwen2.5-14b's) and one not
+    a multiple of the 16-byte pack, with -inf and tied logits; and 64
+    slots at V = 49,152: tokens, probabilities and entropies bit for
+    bit."""
     from repro_torch import random
     from repro_torch.kernels.bma_sample import bma_sample_plain
-    for vocab in (49152, 1031):
-        gen = torch.Generator(device=card).manual_seed(vocab)
-        lg = torch.randn((4, 3, vocab), generator=gen, device=card) * 4
+    for slots, vocab in ((3, 49152), (3, 152064), (3, 1031), (64, 49152)):
+        gen = torch.Generator(device=card).manual_seed(vocab + slots)
+        lg = torch.randn((4, slots, vocab), generator=gen, device=card) * 4
         lg[:, 1, 100:] = float("-inf")
         lg[:, 2] = 0.5
         lg = lg.to(dtype)
-        keys = random.split(random.PRNGKey(3, card), 3)
-        pos = torch.tensor([0, 7, 127], device=card)
+        keys = random.split(random.PRNGKey(3, card), slots)
+        pos = torch.arange(slots, device=card) * 7
         got = kernels.bma_sample(lg, keys, pos)
         want = bma_sample_plain(lg, keys, pos)
         assert torch.equal(got[0], want[0])
         assert _same_bits(got[1], want[1]) and _same_bits(got[2], want[2])
+
+
+def test_exp_xla_is_its_plain_version(card):
+    """The decode kernels' exp (``exp_xla``, launched alone) against
+    ``exp_plain`` on the CPU, bit for bit: the CPU test's 10^6 inputs over
+    [-104, 89] and its edges (``torch_golden.exp_inputs``)."""
+    from repro_torch.kernels.threefry import exp_plain, exp_xla
+    from torch_golden import exp_inputs
+    x = torch.from_numpy(exp_inputs())
+    got, want = exp_xla(x.to(card)).cpu(), exp_plain(x)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert _same_bits(got[~nan], want[~nan])
 
 
 def test_gumbel_draws_match_the_golden_and_the_plain_version(card):

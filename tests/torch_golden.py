@@ -14,6 +14,7 @@ PyTorch port's tests and for ``chip_smoke.py``, which reads them on the card.
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py drift
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py drift-claims
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py decode
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py kv-flips
 
 ``threefry`` writes ``tests/golden/threefry_draws.npz``: ``jax.random``'s
 keys, bits, uniforms, normals, truncated normals and randints for the cases
@@ -109,6 +110,16 @@ between the two highest perturbed scores ``log max(p, 1e-12) + g`` (``g``
 the step's ``gumbel(fold_in(key, pos))``); and each slot's top-8 BMA
 probabilities at the first step. About 10 minutes on one CPU core.
 
+``kv-flips`` writes nothing: it prints the readings behind the limits of
+``tests/test_torch_lm_model.py::
+test_teacher_forced_f32_decode_through_bf16_caches`` (reduced qwen2.5, f32
+compute, the default bfloat16 caches): the cached entries in which the
+port's teacher-forced decode and the reference's differ, by how many
+bfloat16 ulps, and how far apart their logits lie; then how far the port's
+logits move when one cached entry, drawn at random (200 draws, seed 0,
+before the last step), is moved one bfloat16 ulp right after its write.
+About 40 seconds.
+
 ``serve-bma`` writes ``tests/golden/serve_bma_lenet_radar.npz``: the
 reference's BMA probabilities and predictive entropies
 (``repro.core.posterior.BankPredictor``) for the serving CLI's synthetic
@@ -168,6 +179,30 @@ THREEFRY_CASES = [
     ("gumbel_7", "gumbel", 10, {"shape": [7]}),
     ("gumbel_49152", "gumbel", 11, {"shape": [49152]}),
 ]
+
+
+# the decode kernels' exp (ROADMAP C30): the inputs on which the CPU test
+# holds exp_plain to jax.jit(jnp.exp) and the card holds exp_xla to
+# exp_plain, both bit for bit
+def exp_inputs() -> np.ndarray:
+    """10^6 f32 inputs spread over [-104, 89] and the edges of XLA's exp:
+    the clamp's ends and their neighbours, 64 inputs each side of
+    log(smallest normal), ±0, ±inf, NaN, subnormals and the extremes."""
+    x = np.random.default_rng(0).uniform(-104, 89, 1_000_000)
+    f32 = np.finfo(np.float32)
+    edge = [np.float32(v) for v in (-87.8, 88.8, 88.72, 88.7228, -87.3365)]
+    around = [np.float32(np.log(np.float64(f32.tiny)))]
+    for v in list(edge) + around[:1]:
+        up, down = v, v
+        for _ in range(64):
+            up, down = np.nextafter(up, np.float32(200)), \
+                np.nextafter(down, np.float32(-200))
+            around += [up, down]
+    edges = np.array(edge + around + [0.0, -0.0, np.inf, -np.inf, np.nan,
+                                      1e-45, -1e-45, 1e-40, f32.tiny, 1.0,
+                                      -1.0, f32.max, -f32.max],
+                     np.float32)
+    return np.concatenate([x.astype(np.float32), edges])
 
 
 # the survivors a block of the selection kernel's fast-path boundary blocks
@@ -949,6 +984,66 @@ def write_decode() -> None:
     print(f"wrote {DECODE_FILE}")
 
 
+def print_kv_flips(draws: int = 200) -> None:
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from repro_torch.config import get_arch
+    from repro_torch.models import get_model
+    from test_torch_lm_model import (_port_params, _rel, _tokens, bf16_bits,
+                                     port_teacher_forced, qwen_reference,
+                                     teacher_forced)
+    torch.set_num_threads(1)
+    jcfg, jm, jp = qwen_reference("float32")
+    toks = _tokens(jcfg, 2, 12, 3)
+    step = jax.jit(jm.decode_step)
+    ref_cache, want = teacher_forced(lambda c, t, p: step(jp, c, t, p),
+                                     jm.init_decode_state(2, 16), toks,
+                                     jnp.int32, jnp.asarray)
+    cache, got = port_teacher_forced(jp, "float32", toks)
+    for name in ("k", "v"):
+        d = np.abs(bf16_bits(cache["groups"]["u0"][name][:, 0])
+                   - bf16_bits(ref_cache["groups"]["u0"][name]))
+        print(f"{name}: {int((d > 0).sum())} of {d.size} cached entries "
+              f"differ, by at most {int(d.max())} bfloat16 ulps")
+    print(f"logits: {_rel(got[0], want):.6g} of the largest apart")
+    model = get_model(get_arch("qwen2.5-14b").reduced.replace(
+        dtype="float32"))
+    params = _port_params(jp)
+    toks_t = torch.from_numpy(toks)
+
+    def moved(at):
+        """The port's logits with one cached entry moved one ulp (away
+        from 0, or towards it) right after the step that wrote it."""
+        pos0, name, idx, up = at
+        c, out = model.init_decode_state(2, 16), []
+        for pos in range(toks.shape[1]):
+            c, lg = model.decode_step(params, c, toks_t[:, pos],
+                                      torch.full((2,), pos))
+            if pos == pos0:
+                layer, lane, kvh, e = idx
+                c["groups"]["u0"][name][layer, 0, lane, pos, kvh,
+                                        e:e + 1].view(torch.int16).add_(up)
+            out.append(lg[0, :, 0].numpy())
+        return np.stack(out, 1)
+
+    base = moved((-1, "k", (0, 0, 0, 0), 0))
+    shape = cache["groups"]["u0"]["k"].shape
+    rng = np.random.default_rng(0)
+    moves = []
+    for _ in range(draws):
+        idx = (int(rng.integers(shape[0])), int(rng.integers(2)),
+               int(rng.integers(shape[4])), int(rng.integers(shape[5])))
+        at = (int(rng.integers(toks.shape[1] - 1)),
+              ("k", "v")[rng.integers(2)], idx, (1, -1)[rng.integers(2)])
+        moves.append(_rel(moved(at), base))
+    moves = np.array(moves)
+    print(f"one entry one ulp off, {draws} draws: the logits move by a "
+          f"median {np.median(moves):.6g}, at most {moves.max():.6g}, "
+          f"at least {moves.min():.6g} of the largest; "
+          f"{int((moves > 1e-5).sum())} draws above 1e-5")
+
+
 if __name__ == "__main__":
     which = sys.argv[1:] or ["threefry"]
     for name in which:
@@ -964,4 +1059,5 @@ if __name__ == "__main__":
          "claims-nudged": compare_claims_nudged,
          "drift": write_drift_rounds,
          "drift-claims": write_drift_claims,
-         "decode": write_decode}[name]()
+         "decode": write_decode,
+         "kv-flips": print_kv_flips}[name]()
