@@ -415,6 +415,8 @@ from torch_golden import (BASELINE_ROUNDS_FILE, BOUNDARY_K,  # noqa: E402
                           port_draw)
 from torch_golden import (DECODE_CONFIG, DECODE_FILE,  # noqa: E402
                           decode_requests, exp_inputs)
+from torch_golden import (LM_CLI_ARGV, LM_ROUNDS_CONFIG,  # noqa: E402
+                          LM_ROUNDS_FILE, lm_nll_batch, lm_pools)
 
 DEVICE = "cuda"
 REDUCED = False                                    # full lenet-radar width
@@ -4761,6 +4763,630 @@ def run_phase13() -> dict:
     return launches
 
 
+
+# --------------------------------------------------------------------------
+# phase 14: federated LM training of smollm-135m at full width (ROADMAP A12
+# part 2): FedTrainer on both engines, the baselines, the training CLI
+# --------------------------------------------------------------------------
+
+LM_ARCH = "smollm-135m"
+# the reference train CLI's defaults for smollm-135m: K, L, minibatch,
+# sequence and pool; a ring, block_topk at 1%, ζ = 0.3, η = 1e-4, seed 0,
+# the data scale the CLI hands its round (1.0)
+LM_NODES, LM_STEPS, LM_BATCH, LM_SEQ, LM_POOL = 4, 4, 4, 128, 64
+LM_FED = dict(num_nodes=LM_NODES, local_steps=LM_STEPS, eta=1e-4, zeta=0.3,
+              topology="ring", compressor="block_topk", compress_ratio=0.01)
+LM_ROUNDS = 3                # (b)'s host and scan runs, one chunk of 3
+LM_HELD = 8                  # held-out sequences of node K scored in (b)
+# the kernels each of phase 14's runs must launch
+LM_LAUNCHED = {
+    "cdbfl": ("topk_select", "unpack_set", "fused_update", "threefry",
+              "gossip_mix"),
+    "fused": ("delta_pack", "unpack", "fused_update", "threefry",
+              "gossip_mix"),
+    "dsgld": ("dsgld_update", "threefry", "gossip_mix"),
+    "cffl": ("topk_select", "unpack_set", "cffl_update", "threefry",
+             "gossip_mix")}
+# (a)'s limits against the reference's f32 record (tests/golden/
+# lm_rounds_smollm_135m.json), set from the first card run's readings
+# (PR 30): losses 1.49e-5 and consensus 3.58e-5 relative (the loss is
+# dominated by the prior's f32 sum over 134.5 M squares, which XLA's CPU
+# code and the card add in other orders), θ 3.16e-6 at the picks (the
+# gradient's f32 sums over 49,152 logits and 64 tokens, times η), sums
+# 3.8 times (1e-3 + 1e-6·|sum|); survivors and wire bytes exact
+LM_REC_TOL = dict(loss=1e-4, consensus=1e-4, value=2e-5, sum_atol=1e-2,
+                  sum_rtol=1e-5)
+# (a)'s limits on what the loss and θ cannot show (the loss is dominated by
+# the prior, and η·∇NLL moves θ less than the rounds' noise): each node's
+# NLL on the record's NLL batch, relative, at the init and after each
+# round; the init's gradient of the summed NLL at each leaf's 16 largest
+# elements (over the leaf's largest |g|) and its norm (relative). A bf16
+# forward and backward on the same θ is the control each limit must fail.
+# Set from the first card readings (PR 30): the NLL 0, 2.6e-7 and 4.3e-7
+# (bf16 control 8.4e-6 at the init, where the NLL of random weights is
+# near log V whatever the rounding, 2.3e-4 and 1.7e-4 after the rounds);
+# the gradient 5.8e-6 (bf16 control 2.2e-2)
+LM_NLL_RTOL, LM_GRAD_TOL = 4e-6, 1e-4
+
+
+def lm_record() -> dict:
+    rec = json.loads(LM_ROUNDS_FILE.read_text())
+    if rec["config"] != LM_ROUNDS_CONFIG:
+        raise AssertionError(f"{LM_ROUNDS_FILE.name} ran {rec['config']}")
+    return rec
+
+
+def lm_trainer(pools, engine: str, algorithm: str = "cdbfl",
+               fused: bool = False, dtype=None, **kw):
+    """A full-width smollm-135m FedTrainer on the card: the CLI's
+    configuration, burn-in 1, a bank of 2 (f32, 2.15 GB a sample) and eval
+    batches of the held-out set's size (a padded batch of 64 would hold
+    6 GB of f32 logits a sample)."""
+    from repro_torch.train import FedTrainer
+    cfg = get_arch(LM_ARCH).config
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype)
+    fed = FedConfig(rounds=LM_ROUNDS, burn_in=1, algorithm=algorithm,
+                    fused_compress=fused, **LM_FED)
+    args = dict(minibatch=LM_BATCH, seed=0, engine=engine, chunk=LM_ROUNDS,
+                bank_capacity=2, bank_thin=1, data_scale=1.0,
+                eval_batch_size=LM_HELD, device=DEVICE)
+    args.update(kw)
+    return FedTrainer(get_model(cfg), fed, pools, **args)
+
+
+def leaf_reading(x: torch.Tensor, want: dict):
+    """(largest |Δ| at the record's picks, |Δ| of the float64 sum, whether
+    the sum of the f32 bit patterns is the record's) of one leaf."""
+    flat = x.detach().float().reshape(-1)
+    idx = torch.tensor(want["idx"], device=flat.device)
+    got = flat[idx].double().cpu().numpy()
+    bits = int(flat.view(torch.int32).to(torch.int64).remainder(
+        1 << 32).sum().item())
+    return (float(np.abs(got - np.asarray(want["values"])).max()),
+            abs(float(flat.double().sum().item()) - want["sum"]),
+            bits == want["bits_sum"])
+
+
+def lm_round_inputs(trainer, key):
+    """One round's inputs from the round key ``key``, as the engine draws
+    them (``round_inputs`` at the trainer's own minibatch)."""
+    idx, draws = random.run(random.together(
+        round_indices.program(trainer.device_shards, key,
+                              trainer.fed_cfg.local_steps, trainer.minibatch),
+        trainer.round_fn.draws.program(key, trainer.state.params)))
+    return trainer.device_shards.gather(idx), key, draws
+
+
+def nll_reading(model, params, batch, want) -> float:
+    """The largest relative |Δ| of the nodes' NLL on ``batch`` against
+    the record's."""
+    with torch.no_grad():
+        got = model.nll(params, batch).double().cpu().numpy()
+    return float(np.abs(got / np.asarray(want) - 1).max())
+
+
+def grad_reading(model, params, batch, want) -> tuple:
+    """The gradient of the nodes' summed NLL (``_value_and_grad``, no prior,
+    data scale 1) against the record's: (the largest |Δ| at a leaf's
+    recorded elements over its largest |g|, or of its norm relative, and
+    that leaf)."""
+    from repro_torch.core import algorithms as alg
+    paths = [p for p, _ in tree_leaves_with_path(params)]
+    _, grads = alg._value_and_grad(model.nll, paths, tree_leaves(params),
+                                   batch, 0.0, 1.0)
+    worst, where = 0.0, ""
+    for path, g in zip(paths, grads):
+        w = want[path.replace(".", "/")]
+        flat = g.reshape(-1)
+        got = flat[torch.tensor(w["idx"], device=flat.device)].double()
+        err = max(float(np.abs(got.cpu().numpy() - np.asarray(w["values"]))
+                        .max()) / w["absmax"],
+                  abs(float(flat.double().norm()) / w["norm"] - 1))
+        if err > worst:
+            worst, where = err, path
+    return worst, where
+
+
+def check_lm_record(rec) -> dict:
+    """(a) The reference's record in f32 (``LM_ROUNDS_CONFIG``: K = 2, L = 2,
+    minibatch 2, 32 tokens, 2 rounds): the init bit for bit, its nodes' NLL
+    and its gradient; each round's losses, consensus, wire bytes, θ and v
+    at the record's picks and sums, v's survivors per leaf, and the nodes'
+    NLL of θ. The NLL and the gradient are read in bf16 compute too, on
+    the same θ: the control that their limits must tell apart."""
+    from repro_torch.data.synthetic_lm import markov_tokens
+    from repro_torch.train import FedTrainer
+    c = rec["config"]
+    cfg = get_arch(c["arch"]).config.replace(dtype=c["dtype"])
+    model = get_model(cfg)
+    control = get_model(cfg.replace(dtype="bfloat16"))
+    t0 = time.perf_counter()
+    pools = lm_pools(markov_tokens, c["fed"]["num_nodes"], c["pool"],
+                     c["seq"], cfg.vocab_size, c["seed"])
+    batch = {"tokens": torch.from_numpy(lm_nll_batch(
+        pools, c["minibatch"])).to(DEVICE)}
+    trainer = FedTrainer(model, FedConfig(rounds=c["rounds"], **c["fed"]),
+                         pools, minibatch=c["minibatch"], seed=c["seed"],
+                         data_scale=c["data_scale"], engine="host",
+                         bank_capacity=1, device=DEVICE)
+    for path, x in tree_leaves_with_path(trainer.state.params):
+        err, _, bits = leaf_reading(x, rec["init"][path.replace(".", "/")])
+        if err != 0 or not bits:
+            raise AssertionError(f"(a) init of {path} is not the reference's")
+    params = trainer.state.params
+    nll = [nll_reading(model, params, batch, rec["init_nll"])]
+    nll_control = [nll_reading(control, params, batch, rec["init_nll"])]
+    grad, grad_at = grad_reading(model, params, batch, rec["init_grad"])
+    grad_control, _ = grad_reading(control, params, batch, rec["init_grad"])
+    eng, losses = trainer._engine, []
+    round_fn = eng.round_fn
+
+    def hooked(state, batches, key, draws=None):
+        out = round_fn(state, batches, key, draws)
+        losses.append(out[1].loss.double().cpu().numpy())
+        return out
+    hooked.draws = round_fn.draws
+    eng.round_fn = hooked
+    worst = dict(loss=0.0, consensus=0.0, theta=0.0, v=0.0, theta_sum=0.0,
+                 v_sum=0.0)
+    where = {}
+    for t, want in enumerate(rec["rounds"]):
+        res = trainer.run(rounds=1)
+        if res.wire_history != [want["wire_bytes"]]:
+            raise AssertionError(f"(a) round {t + 1}: wire bytes "
+                                 f"{res.wire_history}, want "
+                                 f"{want['wire_bytes']}")
+        worst["loss"] = max(worst["loss"], float(np.abs(
+            losses[-1] / np.asarray(want["loss"]) - 1).max()))
+        worst["consensus"] = max(worst["consensus"], abs(
+            res.consensus_history[-1] / want["consensus"] - 1))
+        for part, tree in (("theta", trainer.state.params),
+                           ("v", trainer.state.v)):
+            for path, x in tree_leaves_with_path(tree):
+                key = path.replace(".", "/")
+                w = want[part][key]
+                err, serr, _ = leaf_reading(x, w)
+                serr /= (LM_REC_TOL["sum_atol"]
+                         + LM_REC_TOL["sum_rtol"] * abs(w["sum"]))
+                if err > worst[part]:
+                    worst[part], where[part] = err, f"{path}@{t + 1}"
+                if serr > worst[f"{part}_sum"]:
+                    worst[f"{part}_sum"] = serr
+                    where[f"{part}_sum"] = f"{path}@{t + 1}"
+                if part == "v" and int(torch.count_nonzero(x)) != \
+                        want["v_survivors"][key]:
+                    raise AssertionError(
+                        f"(a) round {t + 1}: v.{path} holds "
+                        f"{int(torch.count_nonzero(x))} survivors, the "
+                        f"reference {want['v_survivors'][key]}")
+        nll.append(nll_reading(model, trainer.state.params, batch,
+                               want["nll"]))
+        nll_control.append(nll_reading(control, trainer.state.params, batch,
+                                       want["nll"]))
+    log("lm", f"(a) the reference's f32 record ({c['cuts']}): init bit for "
+              f"bit, {len(rec['rounds'])} rounds' wire bytes "
+              f"({rec['rounds'][0]['wire_bytes']:,.0f}) and v's survivors a "
+              f"leaf exact; largest readings: losses {worst['loss']:.3g} "
+              f"(rtol), consensus {worst['consensus']:.3g} (rtol), θ "
+              f"{worst['theta']:.3g} and v {worst['v']:.3g} at the picks "
+              f"(abs), sums {worst['theta_sum']:.3g} / {worst['v_sum']:.3g} "
+              f"of their limits (leaf@round: {where}); the nodes' NLL "
+              f"({rec['init_nll']} at the init) {max(nll):.3g} (rtol; init "
+              f"and rounds: {[float(f'{x:.3g}') for x in nll]}), bf16 "
+              f"control {min(nll_control):.3g}; the init's gradient "
+              f"{grad:.3g} ({grad_at}), bf16 control {grad_control:.3g}; "
+              f"{time.perf_counter() - t0:.1f} s")
+    if not max(nll) <= LM_NLL_RTOL < min(nll_control):
+        raise AssertionError(f"(a) NLL {nll}, bf16 control {nll_control}, "
+                             f"limit {LM_NLL_RTOL}")
+    if not grad <= LM_GRAD_TOL < grad_control:
+        raise AssertionError(f"(a) gradient {grad} at {grad_at}, bf16 "
+                             f"control {grad_control}, limit {LM_GRAD_TOL}")
+    worst.update(nll=max(nll), nll_control=min(nll_control), grad=grad,
+                 grad_control=grad_control)
+    for name in ("loss", "consensus"):
+        if not worst[name] <= LM_REC_TOL[name]:
+            raise AssertionError(f"(a) {name} {worst[name]} against the "
+                                 f"record, limit {LM_REC_TOL[name]}")
+    for part in ("theta", "v"):
+        if not (worst[part] <= LM_REC_TOL["value"]
+                and worst[f"{part}_sum"] <= 1.0):
+            raise AssertionError(f"(a) {part} off the record: {worst}")
+    return worst
+
+
+def same_lm_state(label: str, got, want) -> None:
+    """Params, v and v̄ (tensors kept from a run) bit for bit."""
+    for part in ("params", "v", "v_bar"):
+        same_tensors(f"{label} {part}", tree_leaves(getattr(got, part)),
+                     want[part])
+
+
+def lm_state_of(trainer) -> dict:
+    return {part: tree_leaves(getattr(trainer.state, part))
+            for part in ("params", "v", "v_bar")}
+
+
+def check_launched(label: str, launches: dict, names) -> None:
+    for kname in names:
+        if launches.get(kname, 0) <= 0:
+            raise AssertionError(f"{label}: never launched {kname} "
+                                 f"({launches})")
+
+
+def time_lm_parts(trainer) -> dict:
+    """(f) The replayed round split into its parts: each part of a round of
+    the host trainer's state captured in a CUDA graph of its own, as the
+    scan engine captures the whole round, and its replay timed by CUDA
+    events (device ms, median of 5): the round's inputs (minibatch indices,
+    noise and codec uniforms, the gather), the L local steps (Eq. 5), the
+    codec (encode and decode, Eq. 6), the mix (Eq. 8) and the update (Eqs.
+    7 and 9). What the replayed round spends beyond their sum is the
+    metrics, the bank and the copies of the carry."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.utils.graphs import capture
+    fed, state = trainer.fed_cfg, trainer.state
+    key = random.PRNGKey(9, DEVICE)
+    batches, _, (noise, uniforms) = lm_round_inputs(trainer, key)
+    theta_l, _ = alg._local_sgd(trainer.model.nll, state.params, batches,
+                                fed.eta, 1.0 / fed.num_nodes,
+                                trainer.data_scale, fed.local_steps)
+    delta = alg._compress_exchange(trainer.compressor, theta_l, state.v,
+                                   uniforms)[1]
+    mixed = trainer.round_fn.mixer(delta)
+    parts = {
+        "inputs": lambda: lm_round_inputs(trainer, key),
+        "local steps": lambda: alg._local_sgd(
+            trainer.model.nll, state.params, batches, fed.eta,
+            1.0 / fed.num_nodes, trainer.data_scale, fed.local_steps),
+        "codec": lambda: alg._compress_exchange(
+            trainer.compressor, theta_l, state.v, uniforms)[:2],
+        "mix": lambda: trainer.round_fn.mixer(delta),
+        "update": lambda: alg._control_update(theta_l, state, delta, mixed,
+                                              fed.zeta, noise)}
+    stream, out = torch.cuda.Stream(DEVICE), {}
+    for name, fn in parts.items():
+        graph, _, _ = capture(fn, stream)
+        torch.cuda.synchronize()
+        out[name] = device_ms(graph.replay, reps=5, per_rep=1)
+        del graph
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_lm_engines(pools, held) -> dict:
+    """(b) bf16 at full width: the host engine for 3 rounds, then the scan
+    engine twice (one chunk of 3, a CUDA graph), each bit for bit to the
+    host run, with the held-out evaluation; (f)'s timings and peak
+    memory. Returns the host run's launches and the timings."""
+    host = lm_trainer(pools, "host")
+    kernels.reset_launch_counts()
+    hres = host.run(rounds=LM_ROUNDS)
+    launches = kernels.launch_counts()
+    check_launched("(b) host run", launches, LM_LAUNCHED["cdbfl"])
+    wire = float(host.compressor.wire_bytes(tree_map(
+        lambda x: x[0], host.state.params)))
+    if hres.wire_history != [wire] * LM_ROUNDS or not all(
+            math.isfinite(x) for x in hres.loss_history
+            + hres.consensus_history):
+        raise AssertionError(f"(b) host run: {hres.wire_history} "
+                             f"{hres.loss_history} {hres.consensus_history}")
+    hrep, hprobs = host.eval_report(held, return_probs=True)
+    want = lm_state_of(host)
+    want_bank = [tree_leaves(s) for s in host.bank.samples]
+    parts = time_lm_parts(host)
+    by_name = profiled(lambda: (host.round_fn(
+        host.state, *lm_round_inputs(host, random.PRNGKey(11, DEVICE))),
+        torch.cuda.synchronize()))
+    kernel_ms = {k: trace_hits(by_name, k) for k in LM_LAUNCHED["cdbfl"]} \
+        if by_name else {}
+    traced_total = (sum(t for t, _ in by_name.values()) / 1e3
+                    if by_name else float("nan"))
+    top = sorted((by_name or {}).items(), key=lambda kv: -kv[1][0])[:8]
+    host_ms = statistics.median(hres.round_ms[1:])
+    model = host.model
+    del host
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = []
+    for i in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        scan = lm_trainer(pools, "scan")
+        sres = scan.run(rounds=LM_ROUNDS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        same_lm_state(f"(b) scan run {i + 1} against the host run", scan.state,
+                      want)
+        if (sres.loss_history != hres.loss_history
+                or sres.consensus_history != hres.consensus_history
+                or sres.wire_history != hres.wire_history):
+            raise AssertionError(f"(b) scan run {i + 1}: metrics differ")
+        for got, w in zip(scan.bank.samples, want_bank):
+            same_tensors(f"(b) scan run {i + 1} bank", tree_leaves(got), w)
+        srep, sprobs = scan.eval_report(held, return_probs=True)
+        same_report(f"(b) scan run {i + 1} eval", srep, hrep)
+        same_probs(f"(b) scan run {i + 1} eval", sprobs, hprobs)
+        engine = scan._engine
+        capture = engine.capture_ms.get(LM_ROUNDS, float("nan"))
+        if i == 0:
+            wall, busy, enqueue, _ = time_replay(engine, LM_ROUNDS, LM_ROUNDS)
+        runs.append(dict(peak_gib=peak, capture_ms=capture))
+        del scan, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    n = sum(x[0].numel() for x in want["params"])
+    log("lm", f"(b) {LM_ARCH} at full width ({n:,} parameters a node, "
+              f"{model.cfg.dtype} compute), K={LM_NODES}, L={LM_STEPS}, "
+              f"minibatch {LM_BATCH} of {LM_SEQ} tokens, ring: host engine "
+              f"{LM_ROUNDS} rounds (losses {hres.loss_history}, consensus "
+              f"{hres.consensus_history}), the scan engine (one chunk of "
+              f"{LM_ROUNDS}, a CUDA graph) twice, each equal to it bit for "
+              f"bit: params, v, v̄, losses, consensus, bytes, the bank "
+              f"({len(want_bank)} samples) and the held-out evaluation of "
+              f"{LM_HELD} sequences (NLL {hrep.nll:.4f}, accuracy "
+              f"{hrep.accuracy:.4f}, ECE {hrep.ece:.4f}); launches "
+              f"{ {k: launches[k] for k in LM_LAUNCHED['cdbfl']} }")
+    return dict(launches=launches, wire=wire, host_ms=host_ms, wall=wall,
+                busy=busy, enqueue=enqueue, runs=runs, parts=parts,
+                kernel_ms=kernel_ms, traced_total=traced_total, top=top)
+
+
+def check_lm_fused(pools) -> None:
+    """(c) ``fused_compress=True`` (delta-pack, unpack, fused_update) for a
+    round, then a round from its state fused and through the two-pass
+    ``FusedCodec(fused=False)`` oracle on the same draws: payload and params
+    bit for bit."""
+    trainer = lm_trainer(pools, "host", fused=True)
+    kernels.reset_launch_counts()
+    res = trainer.run(rounds=1)
+    launches = kernels.launch_counts()
+    check_launched("(c) fused run", launches, LM_LAUNCHED["fused"])
+    oracle = FusedCodec.wrap(CompressionPipeline(trainer.compressor.stages),
+                             fused=False)
+    oracle_fn = make_cdbfl_round(trainer.model.nll, trainer.fed_cfg,
+                                 trainer.omega, oracle, trainer.data_scale,
+                                 trainer.device)
+    inputs = lm_round_inputs(trainer, random.PRNGKey(123, DEVICE))
+    s_fused, m_fused = trainer.round_fn(trainer.state, *inputs)
+    kernels.reset_launch_counts()
+    s_two, m_two = oracle_fn(trainer.state, *inputs)
+    two = kernels.launch_counts()
+    traced = {}
+    for fn, names in ((trainer.round_fn, LM_LAUNCHED["fused"]),
+                      (oracle_fn, ("pack",))):
+        by_name = profiled(lambda: (fn(trainer.state, *inputs),
+                                    torch.cuda.synchronize()))
+        traced.update({k: trace_hits(by_name, k) for k in names}
+                      if by_name else {})
+    if two["pack"] <= 0 or two["delta_pack"] != 0 or two["unpack"] != 1:
+        raise AssertionError(f"(c) oracle round launches {two}")
+    for (path, _), a, b in zip(tree_leaves_with_path(trainer.state.params),
+                               m_fused.payload.entries,
+                               m_two.payload.entries):
+        if not (bitwise_equal(a.wire, b.wire) and all(
+                bitwise_equal(x[key], y[key])
+                for x, y in zip(a.aux, b.aux) for key in x)):
+            raise AssertionError(f"(c) two-pass payload differs on {path}")
+    for part in ("params", "v", "v_bar"):
+        same_tensors(f"(c) two-pass round {part}",
+                     tree_leaves(getattr(s_two, part)),
+                     tree_leaves(getattr(s_fused, part)))
+    log("lm", f"(c) fused_compress=True at full width: a round (loss "
+              f"{res.loss_history[0]:.4f}, {res.wire_history[0]:,.0f} bytes "
+              f"a node; launches "
+              f"{ {k: launches[k] for k in LM_LAUNCHED['fused']} }), then "
+              f"FusedCodec(fused=False)'s round from its state: payload "
+              f"({m_two.payload.measured_bytes():,} bytes, {LM_NODES} "
+              f"nodes), params, v and v̄ equal to the fused round's bit for "
+              f"bit; traced rounds: "
+              + ", ".join(f"{k} {t / 1e3:.4f} ms ({c} launches)"
+                          for k, (t, c) in traced.items()))
+    del trainer, s_fused, s_two, m_fused, m_two
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_lm_baselines(pools) -> None:
+    """(d) One DSGLD round and one CF-FL round at full width, on the host
+    engine and on the scan engine (a CUDA graph), bit for bit."""
+    for algorithm in ("dsgld", "cffl"):
+        trainer = lm_trainer(pools, "host", algorithm=algorithm)
+        kernels.reset_launch_counts()
+        res = trainer.run(rounds=1)
+        launches = kernels.launch_counts()
+        scan = lm_trainer(pools, "scan", algorithm=algorithm, chunk=1)
+        sres = scan.run(rounds=1)
+        same_lm_state(f"(d) {algorithm} scan against host", scan.state,
+                      lm_state_of(trainer))
+        if (sres.loss_history != res.loss_history
+                or sres.consensus_history != res.consensus_history):
+            raise AssertionError(f"(d) {algorithm}: scan metrics differ")
+        del scan
+        gc.collect()
+        torch.cuda.empty_cache()
+        check_launched(f"(d) {algorithm}", launches, LM_LAUNCHED[algorithm])
+        dense = tree_count(trainer.state.params) // LM_NODES * 4
+        want = float(dense) if algorithm == "dsgld" else float(
+            trainer.compressor.wire_bytes(tree_map(lambda x: x[0],
+                                                   trainer.state.params)))
+        if res.wire_history != [want] or not all(
+                math.isfinite(x) and x > 0 for x in res.loss_history
+                + res.consensus_history):
+            raise AssertionError(f"(d) {algorithm}: {res.wire_history} "
+                                 f"{res.loss_history}")
+        inputs = lm_round_inputs(trainer, random.PRNGKey(5, DEVICE))
+        by_name = profiled(lambda: (trainer.round_fn(trainer.state, *inputs),
+                                    torch.cuda.synchronize()))
+        update = f"{algorithm}_update"
+        t_us, n = trace_hits(by_name, update) if by_name else (float("nan"),
+                                                               0)
+        log("lm", f"(d) {algorithm} at full width, one round, the scan "
+                  f"engine equal to the host engine bit for bit: loss "
+                  f"{res.loss_history[0]:.4f}, consensus "
+                  f"{res.consensus_history[0]:.6g}, {want:,.0f} bytes a "
+                  f"node, {res.round_ms[0]:.1f} ms; launches "
+                  f"{ {k: launches[k] for k in LM_LAUNCHED[algorithm]} }; a "
+                  f"traced round: {update} {t_us / 1e3:.4f} ms ({n} "
+                  f"launches)")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def run_lm_cli(rec) -> None:
+    """(e) ``python -m repro_torch.launch.train --arch smollm-135m`` at full
+    width in-process (``LM_CLI_ARGV``: 2 rounds, each evaluated on the
+    held-out stream of node K, a bank of 2): its header lines equal the
+    reference CLI's (the record's ``cli``), its round, eval and bank lines
+    finite."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        train_cli.main(list(LM_CLI_ARGV))
+    wall = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    heads = [ln for ln in lines if ln.startswith(CLI_HEADS)]
+    if heads != rec["cli"]["lines"]:
+        raise AssertionError(f"(e) CLI header {heads} against "
+                             f"{rec['cli']['lines']}")
+    rounds = [ln for ln in lines if ln.startswith("round ")]
+    evals = [ln for ln in lines if ln.startswith("eval  round")]
+    if (len(rounds) != 2 or len(evals) != 2 or "nan" in " ".join(
+            rounds + evals) or not any(ln.startswith("posterior bank:")
+                                       for ln in lines)):
+        raise AssertionError(f"(e) CLI: {lines}")
+    log("lm", f"(e) python -m repro_torch.launch.train "
+              f"{' '.join(LM_CLI_ARGV)}: {wall:.1f} s, header lines equal "
+              f"the reference CLI's; " + " | ".join(rounds + evals))
+
+
+def check_backward_sums() -> None:
+    """The round's backward on the card runs with f32 sums (``f32_sums``
+    around ``torch.autograd.grad``): cuBLAS's TF32 and reduced-precision
+    flags read off inside the backward, though the process allows them."""
+    from repro_torch.core import algorithms as alg
+    m = torch.backends.cuda.matmul
+    names = ("allow_tf32", "allow_bf16_reduced_precision_reduction",
+             "allow_fp16_reduced_precision_reduction")
+    seen = []
+
+    class Probe(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            seen.append(tuple(getattr(m, n) for n in names))
+            return g
+
+    cfg = get_arch(LM_ARCH).reduced
+    model = get_model(cfg)
+    params = tree_map(lambda x: x[None].expand((2,) + tuple(x.shape)).clone(),
+                      model.init(random.PRNGKey(0, DEVICE), DEVICE))
+
+    def nll(p, batch):
+        return model.nll(dict(p, final_norm={"scale": Probe.apply(
+            p["final_norm"]["scale"])}), batch)
+
+    toks = torch.randint(0, cfg.vocab_size, (2, 2, 16), device=DEVICE,
+                         generator=torch.Generator(DEVICE).manual_seed(0))
+    before = tuple(getattr(m, n) for n in names)
+    alg._value_and_grad(nll, [p for p, _ in tree_leaves_with_path(params)],
+                        tree_leaves(params), {"tokens": toks}, 0.5, 1.0)
+    torch.cuda.synchronize()
+    if seen != [(False, False, False)] or before != (True, True, True) or \
+            tuple(getattr(m, n) for n in names) != before:
+        raise AssertionError(f"backward flags {seen}, process {before}")
+    log("lm", "the round's backward ran with TF32 and reduced-precision "
+              "reductions off (read inside it), the process allowing both")
+
+
+def check_gather_backward() -> None:
+    """The embedding gather's backward on the card (ROADMAP C31): a bf16
+    table's cotangents added into it by ``index_put_`` with accumulation
+    over 49,152 rows and repeated tokens, run twice (bit for bit: no float
+    atomics), and read against the two rules a sum of repeats may follow:
+    XLA's CPU code (and torch's on the CPU) rounds each add to bf16 in
+    token order; one rounding of the f32 sum is the other."""
+    gen = torch.Generator().manual_seed(3)
+    vocab, d, n = 49152, 576, 4 * 4 * 128
+    toks = torch.randint(0, 512, (n,), generator=gen)       # many repeats
+    w = torch.randn(n, d, generator=gen).to(torch.bfloat16)
+    grads = []
+    for _ in range(2):
+        tab = torch.zeros(vocab, d, device=DEVICE, requires_grad=True)
+        x = tab.to(torch.bfloat16)[toks.to(DEVICE)]
+        x.backward(w.to(DEVICE))
+        grads.append(tab.grad)
+    if not bitwise_equal(grads[0], grads[1]):
+        raise AssertionError("the gather's backward is not deterministic")
+    tab = torch.zeros(vocab, d, requires_grad=True)
+    tab.to(torch.bfloat16)[toks].backward(w)
+    seq = tab.grad
+    once = torch.zeros(vocab, d).index_add_(0, toks, w.float()).to(
+        torch.bfloat16).float()
+    card = grads[0].cpu()
+    log("lm", f"C31: the gather's backward on the card (index_put_, "
+              f"{n} tokens of 512 ids into {vocab} rows) is deterministic; "
+              f"its sums of repeats equal one rounding of the f32 sum in "
+              f"{float((card == once).float().mean()):.4f} of the entries, "
+              f"the token-order bf16 adds of XLA (and the port's CPU) in "
+              f"{float((card == seq).float().mean()):.4f}")
+
+
+@permissive_matmuls()
+def run_phase14() -> None:
+    """Phase 14, with TF32 and reduced-precision reductions allowed for the
+    process (the round pins its own products to f32 sums, backward
+    included). Each run checks the launches of its kernels
+    (``LM_LAUNCHED``)."""
+    log("lm", f"on {card_line()}")
+    check_backward_sums()
+    check_gather_backward()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec = lm_record()
+    check_lm_record(rec)
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.data.synthetic_lm import markov_tokens
+    vocab = get_arch(LM_ARCH).config.vocab_size
+    pools = lm_pools(markov_tokens, LM_NODES, LM_POOL, LM_SEQ, vocab)
+    held = lm_pools(markov_tokens, 1, LM_HELD, LM_SEQ, vocab,
+                    node0=LM_NODES)[0]
+    b = run_lm_engines(pools, held)
+    check_lm_fused(pools)
+    check_lm_baselines(pools)
+    run_lm_cli(rec)
+    parts = b["parts"]
+    log("lm", f"(f) on {card_line()}: a round of the bf16 default at full "
+              f"width (K={LM_NODES}, L={LM_STEPS}): host engine "
+              f"{b['host_ms']:.3f} ms wall; a replayed chunk of "
+              f"{LM_ROUNDS}: {b['wall']:.3f} ms a round wall, "
+              f"{b['busy']:.3f} ms on the device (CUDA events around "
+              f"graph.replay(), median of 5; idle "
+              f"{100 * (1 - b['busy'] / b['wall']):.1f}%), host "
+              f"{b['enqueue']:.3f} ms to enqueue the replay; capture "
+              f"{b['runs'][0]['capture_ms']:.1f} ms; peak allocated "
+              f"{b['runs'][0]['peak_gib']:.2f} GiB (the scan trainer); "
+              f"{b['wire']:,.0f} wire bytes a node a round. The round's "
+              f"parts, each a CUDA graph of its own (device ms of its "
+              f"replay, CUDA events, median of 5): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+              + f" (sum {sum(parts.values()):.3f}; the rest of the replayed "
+              f"round, metrics, bank and copies, "
+              f"{b['busy'] - sum(parts.values()):.3f}); a traced round "
+              f"{b['traced_total']:.3f} device ms, the ported kernels in it: "
+              + ", ".join(f"{k} {t / 1e3:.4f} ms ({c} launches)"
+                          for k, (t, c) in b["kernel_ms"].items())
+              + "; the trace's largest: "
+              + "; ".join(f"{name[:110]} {t / 1e3:.3f} ms ({c})"
+                          for name, (t, c) in b["top"]))
+    log("lm", f"phase 14 in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4844,6 +5470,7 @@ def main() -> int:
     timing.update(bf16_timing)
     run_phase12(train, test, shift)
     decode_launches = run_phase13()
+    run_phase14()
     log("default", "accuracy / ECE, day-1 test maps and days-2/3 shift set: "
                    + "; ".join(f"{a}: {e['accuracy']:.4f} / {e['ece']:.4f}, "
                                f"{e['shift_accuracy']:.4f} / "

@@ -3,10 +3,10 @@
 A copy of the subset of ``repro/config.py`` this package runs, with the same
 defaults (``FedConfig``: ``config.py:285-327`` of the reference, every
 field; ``TransportConfig`` and ``ParticipationConfig``: ``:120-210``;
-``ContinualConfig``: ``:212-252``; ``ServeConfig``: ``:255-282``). Values
-the port does not run yet raise :class:`NotImplementedError` naming the
-ROADMAP item that ports them, so a config can never silently select a path
-that is missing here.
+``ContinualConfig``: ``:212-252``; ``ServeConfig``: ``:255-282``;
+``TrainConfig``: ``:330-342``). Values the port does not run yet raise
+:class:`NotImplementedError` naming the ROADMAP item that ports them, so a
+config can never silently select a path that is missing here.
 """
 from __future__ import annotations
 
@@ -320,6 +320,23 @@ class ServeConfig:
 
     def replace(self, **kw) -> "ServeConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer and schedule scalars (``repro/config.py:330-342``), pure
+    data; ``repro_torch.optim`` builds the optimizers they name."""
+    global_batch: int = 256
+    seq_len: int = 4096
+    steps: int = 100
+    log_every: int = 10
+    optimizer: str = "sgld"         # sgld | sgd | adamw
+    lr: float = 1e-4
+    weight_decay: float = 0.0
+    grad_clip: float = 0.0
+    warmup_steps: int = 0
+    param_dtype: Any = "float32"
+    remat: bool = False
 
 
 @dataclass(frozen=True)

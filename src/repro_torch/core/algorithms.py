@@ -78,6 +78,7 @@ from repro_torch.core.transport import (TransportMetrics, resolve_transport,
                                         sum_nodes)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.fused_update import cffl_update_bf16, fused_update_bf16
+from repro_torch.models.layers import f32_sums
 from repro_torch.utils.tree import (tree_count, tree_leaves,
                                     tree_leaves_with_path, tree_map,
                                     tree_unflatten)
@@ -139,9 +140,12 @@ def _value_and_grad(nll_fn, paths, leaves, batch, prior_weight: float,
     every node. Node k's objective depends on node k's params only, so one
     backward of the sum gives every node's gradient. With ``keys`` (K, 2),
     ``nll_fn`` is a per-node ``loss_fn(params, batch, key)``, called once a
-    node on its slices."""
+    node on its slices. The forward and the backward both run inside
+    ``f32_sums``: the backward's matrix products sum in full f32 as XLA
+    sums the reference's, whatever the process set (torch's default lets
+    cuBLAS reduce bf16 products in reduced precision)."""
     leaves = [x.detach().requires_grad_(True) for x in leaves]
-    with torch.enable_grad():
+    with torch.enable_grad(), f32_sums():
         if keys is None:
             nll = nll_fn(tree_unflatten(paths, leaves), batch)        # (K,)
         else:

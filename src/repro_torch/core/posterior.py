@@ -253,13 +253,14 @@ def bank_age_weights(rounds, now: int, window: int = 0,
     return w / total
 
 
-def bma_predict_stacked(logits_fn: Callable, stacked, x,
+def bma_predict_stacked(logits_fn: Callable, stacked, batch,
                         node_axis: Optional[int] = None,
                         weights=None) -> torch.Tensor:
     """BMA predictive distribution over a stacked ``(S, [K,] ...)`` bank:
     the mean of the softmax probabilities over samples (and node chains).
-    ``logits_fn(params, x)`` takes params with a leading group axis; one
-    sample's K chains run as one group, so memory stays at one sample's.
+    ``logits_fn(params, batch)`` (a model's ``logits``) takes params with a
+    leading group axis; one sample's K chains run as one group, so memory
+    stays at one sample's.
 
     ``weights`` ``(S,)`` replaces the uniform sample mean by a mixture (for
     example :func:`bank_age_weights`): the nodes are averaged first, then
@@ -271,7 +272,8 @@ def bma_predict_stacked(logits_fn: Callable, stacked, x,
     for s in range(num_samples):
         params = tree_map(
             lambda a: a[s] if node_axis is not None else a[s:s + 1], stacked)
-        probs.append(torch.softmax(logits_fn(params, x).float(), dim=-1))
+        probs.append(torch.softmax(logits_fn(params, batch).float(),
+                                   dim=-1))
     probs = torch.stack(probs)                  # (S, K or 1, B, C)
     if weights is None:
         return probs.mean(dim=(0, 1))
@@ -298,17 +300,20 @@ class PosteriorPredictor:
 
 class _PredictGraph(NamedTuple):
     graph: Any                   # torch.cuda.CUDAGraph
-    x: torch.Tensor              # the static input the graph reads
+    batch: Dict[str, torch.Tensor]   # the static inputs the graph reads
     probs: torch.Tensor          # outputs, rewritten by every replay
     entropy: torch.Tensor
 
 
 class BankPredictor(PosteriorPredictor):
     """BMA over a resident stacked bank ``(S, ...)``, or ``(S, K, ...)``
-    with ``node_axis=1`` (the layout of :meth:`DeviceSampleBank.stacked`).
+    with ``node_axis=1`` (the layout of :meth:`DeviceSampleBank.stacked`),
+    through ``logits_fn(params, batch)`` (a model's ``logits``) on the
+    batch dict that :meth:`predict` is given, as the reference's.
 
-    The predictor keeps its own copy of the bank. On a CUDA bank each input
-    shape (and weighted or not) is one CUDA graph of the BMA forward and
+    The predictor keeps its own copy of the bank. On a CUDA bank each batch
+    layout (its fields' shapes and dtypes, and weighted or not) is one CUDA
+    graph of the BMA forward and
     its entropy, captured at its first ``predict`` and replayed after it;
     ``compile_count()`` counts captures. :meth:`install` with the layout of
     the bank in place (leaf paths, shapes and dtypes) copies the new bank,
@@ -381,38 +386,43 @@ class BankPredictor(PosteriorPredictor):
         return self._captures
 
     # -- prediction ----------------------------------------------------------
-    def _forward(self, x: torch.Tensor, weighted: bool):
-        probs = bma_predict_stacked(self.logits_fn, self._stacked, x,
+    def _forward(self, batch: Dict[str, torch.Tensor], weighted: bool):
+        probs = bma_predict_stacked(self.logits_fn, self._stacked, batch,
                                     node_axis=self.node_axis,
                                     weights=self._weights if weighted
                                     else None)
         return probs, predictive_entropy(probs)
 
-    def _graph(self, x: torch.Tensor) -> _PredictGraph:
-        key = (tuple(x.shape), x.dtype, self._weighted)
+    def _graph(self, batch: Dict[str, torch.Tensor]) -> _PredictGraph:
+        key = (tuple((f, tuple(v.shape), v.dtype)
+                     for f, v in sorted(batch.items())), self._weighted)
         if key not in self._graphs:
             if self._stream is None:
                 self._stream = torch.cuda.Stream(self.device)
-            xs = torch.zeros(x.shape, dtype=x.dtype, device=self.device)
+            bs = {f: torch.zeros(v.shape, dtype=v.dtype, device=self.device)
+                  for f, v in batch.items()}
             weighted = self._weighted
             graph, (probs, ent), ms = capture(
-                lambda: self._forward(xs, weighted), self._stream)
-            self._graphs[key] = _PredictGraph(graph, xs, probs, ent)
+                lambda: self._forward(bs, weighted), self._stream)
+            self._graphs[key] = _PredictGraph(graph, bs, probs, ent)
             self._captures += 1
             self.capture_ms[key] = ms
         return self._graphs[key]
 
     @torch.no_grad()
     def predict(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``batch["x"]`` ``(B, ...)`` -> the BMA probabilities ``(B, C)``
-        and their entropy ``(B,)``, on the bank's device."""
+        """A batch dict (a classifier's ``{"x": (B, ...)}``, an LM's
+        ``{"tokens": (B, S)}``) -> the BMA probabilities (``(B, C)``,
+        ``(B, S, V)``) and their entropy, on the bank's device."""
         if self._stacked is None:
             raise ValueError("no bank installed; call install(stacked)")
-        x = torch.as_tensor(batch["x"])
+        batch = {f: torch.as_tensor(v) for f, v in batch.items()}
         if self.device.type != "cuda":
-            return self._forward(x.to(self.device), self._weighted)
-        g = self._graph(x)
-        g.x.copy_(x)
+            return self._forward({f: v.to(self.device)
+                                  for f, v in batch.items()}, self._weighted)
+        g = self._graph(batch)
+        for f, v in batch.items():
+            g.batch[f].copy_(v)
         g.graph.replay()
         return g.probs.clone(), g.entropy.clone()
 
@@ -424,7 +434,7 @@ def place_ensemble(stacked, mesh, axis: str):
         "engine)")
 
 
-def bma_predict(logits_fn: Callable, samples: List[Any], x,
+def bma_predict(logits_fn: Callable, samples: List[Any], batch,
                 node_axis: Optional[int] = None) -> torch.Tensor:
     """Average softmax probabilities over a list of posterior samples, one
     forward a sample.
@@ -439,7 +449,7 @@ def bma_predict(logits_fn: Callable, samples: List[Any], x,
         DeprecationWarning, stacklevel=2)
     probs, n = None, 0
     for params in samples:
-        p_s = point_predict(logits_fn, params, x, node_axis=node_axis)
+        p_s = point_predict(logits_fn, params, batch, node_axis=node_axis)
         probs = p_s if probs is None else probs + p_s
         n += 1
     if probs is None:
@@ -447,10 +457,11 @@ def bma_predict(logits_fn: Callable, samples: List[Any], x,
     return probs / n
 
 
-def point_predict(logits_fn: Callable, params, x,
+def point_predict(logits_fn: Callable, params, batch,
                   node_axis: Optional[int] = None) -> torch.Tensor:
     """Frequentist prediction (the CF-FL baseline): one model's softmax, or
     the mean over the node axis of ``(K, ...)`` params."""
     if node_axis is None:
         params = tree_map(lambda a: a[None], params)
-    return torch.softmax(logits_fn(params, x).float(), dim=-1).mean(dim=0)
+    return torch.softmax(logits_fn(params, batch).float(),
+                         dim=-1).mean(dim=0)

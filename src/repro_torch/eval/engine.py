@@ -157,12 +157,6 @@ def stack_eval_batches(data: Dict[str, np.ndarray], batch_size: int, device):
     return out, torch.from_numpy(mask.reshape(nb, batch_size)).to(device)
 
 
-def model_input(batches) -> str:
-    """The field a model reads: ``x`` (the classifiers') or ``tokens``
-    (the LMs')."""
-    return "x" if "x" in batches else "tokens"
-
-
 def eval_pass(logits_fn: Callable, stacked, weights, batches, masks,
               node_axis: Optional[int], num_bins: int,
               entropy_threshold: float, with_probs: bool):
@@ -173,9 +167,9 @@ def eval_pass(logits_fn: Callable, stacked, weights, batches, masks,
     eagerly; the scan engine captures it."""
     acc = init_accum(num_bins, masks.device)
     probs_all = []
-    field = model_input(batches)
     for i in range(masks.shape[0]):
-        probs = bma_predict_stacked(logits_fn, stacked, batches[field][i],
+        batch = {f: v[i] for f, v in batches.items()}
+        probs = bma_predict_stacked(logits_fn, stacked, batch,
                                     node_axis=node_axis, weights=weights)
         acc = update_accum(acc, probs, batches["y"][i], masks[i], num_bins,
                            entropy_threshold)
@@ -188,10 +182,10 @@ def lm_apply_fn(model) -> Callable:
     """Next-token prediction over token batches: the model's logits with
     any non-text prefix trimmed and the last position dropped; the labels
     are ``tokens[:, 1:]`` (the reference's one LM evaluation contract).
-    ``apply(params, tokens)`` -> ``(G, B, T - 1, V)``."""
-    def apply(params, tokens):
-        lg = model.logits(params, {"tokens": tokens})
-        t = tokens.shape[1]
+    ``apply(params, batch)`` -> ``(G, B, T - 1, V)``."""
+    def apply(params, batch):
+        lg = model.logits(params, batch)
+        t = batch["tokens"].shape[1]
         return lg[:, :, lg.shape[2] - t:][:, :, :-1]
     return apply
 
@@ -257,7 +251,9 @@ class ScanEvalEngine(HostEvalEngine):
     the BMA over the stacked bank, folded into the accumulators, which the
     pass zeroes first.
 
-    ``logits_fn(params, x)`` takes params with a leading group axis;
+    ``logits_fn(params, batch)`` (a model's ``logits``, or
+    :func:`lm_apply_fn`) takes params with a leading group axis and one
+    batch's fields;
     ``stacked`` is ``(S, ...)``, or ``(S, K, ...)`` with ``node_axis=1``.
     On a CUDA bank the pass is one CUDA graph a shape key (the bank's
     layout, the number and size of batches, ``node_axis``, weighted or

@@ -43,6 +43,23 @@ from repro_torch.kernels._build import check, library, on_card, stream_of
 from repro_torch.kernels.pack import c_array, tables
 
 
+def _fma_odd(p: torch.Tensor, c64: torch.Tensor) -> torch.Tensor:
+    """The float64 sum ``p + c64`` rounded to odd (see :func:`fma_f32`)."""
+    s = p + c64
+    bb = s - p
+    err = (p - (s - bb)) + (c64 - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    return torch.where((err != 0) & even & torch.isfinite(s),
+                       torch.nextafter(s, toward), s)
+
+
+# the 29 low bits of a float64 that rounding to a normal f32 drops, and
+# their pattern at an f32 midpoint
+_F32_DROPPED, _F32_HALF = (1 << 29) - 1, 1 << 28
+
+
 def fma_f32(a, b, c: torch.Tensor) -> torch.Tensor:
     """Correctly rounded f32 ``a·b + c`` (one rounding, as ``fmaf``).
 
@@ -53,19 +70,32 @@ def fma_f32(a, b, c: torch.Tensor) -> torch.Tensor:
     to f32 is then correctly rounded (53 >= 24 + 2; Boldo & Melquiond).
     A non-finite sum (an infinite or NaN operand) is the float64 sum as it
     is: ±inf or NaN, as ``fmaf`` gives it.
-    """
+
+    On the CPU only the elements whose rounded float64 sum could round
+    wrongly to f32 take the round-to-odd path: the sum lies on an f32
+    midpoint (a float64 rounding is monotone and every f32 midpoint is a
+    float64, so the sum lands on one side of it or on it), or in f32's
+    subnormal range; every other sum rounds to f32 as its exact value
+    does. Same result, a fraction of the operations. Elsewhere (a CUDA
+    tensor, where the plain version is a kernel's oracle, and a meta
+    tensor, where only the shape is inferred) every element takes the
+    round-to-odd path: the filter needs ``risky.any()`` on the host, a
+    sync on the card and no value at all on the meta device."""
     p = torch.as_tensor(a, dtype=torch.float32, device=c.device).double() * \
         torch.as_tensor(b, dtype=torch.float32, device=c.device).double()
     c64 = c.double()
+    if p.shape != c64.shape:
+        p, c64 = torch.broadcast_tensors(p, c64)
+    if c.device.type != "cpu":
+        return _fma_odd(p, c64).float()
     s = p + c64
-    bb = s - p
-    err = (p - (s - bb)) + (c64 - bb)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
-                         torch.full_like(s, float("-inf")))
-    s = torch.where((err != 0) & even & torch.isfinite(s),
-                    torch.nextafter(s, toward), s)
-    return s.float()
+    out = s.float()
+    risky = (((s.view(torch.int64) & _F32_DROPPED) == _F32_HALF)
+             | ((s.abs() < 2.0 ** -126) & (s != 0)))
+    if bool(risky.any()):
+        at = risky.nonzero(as_tuple=True)
+        out[at] = _fma_odd(p[at], c64[at]).float()
+    return out
 
 
 def fused_update_plain(theta, vbar, v, noise, zeta: float,

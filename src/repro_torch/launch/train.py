@@ -1,7 +1,10 @@
 """The CD-BFL training CLI of the port (``repro/launch/train.py``).
 
-The reference's flags with its defaults, for the ``lenet`` family, on one
-device: the card unless ``--device cpu``. Each round gathers its minibatch
+The reference's flags with its defaults, for the ``lenet`` family and the
+dense LMs (``--arch smollm-135m``, the default, and the other dense archs:
+per-node Markov token pools, ``markov_tokens(pool, seq, V, seed, k)``, and
+in-training evals of the held-out stream of node K through
+``lm_apply_fn``), on one device: the card unless ``--device cpu``. Each round gathers its minibatch
 indices from the round key inside the engine (``--engine scan``: chunks of
 rounds as CUDA graphs on the card; ``host``: the per-round oracle), mixes
 over the graph of ``--topology`` by the lowering the reference's
@@ -32,7 +35,13 @@ reference's format, which both packages' ``launch.serve`` read.
         --drift day23_critical --drift-severity 1.0 --drift-onset 2 \
         --refresh-every 2 --refresh-window 3 --refresh-decay 0.9 \
         --eval-every 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+        --trim --device cpu --rounds 4 --local-steps 2 --seq 32 --batch 2 \\
+        --log-every 2 --eval-every 2 --bank-capacity 4 --burn-in 1
     # the card, full width
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+        --rounds 2 --log-every 1 --eval-every 1 --bank-capacity 2 \\
+        --burn-in 0
     PYTHONPATH=src python -m repro_torch.launch.train --arch lenet-radar \\
         --nodes 10 --rounds 4 --local-steps 8 --batch 10 --zeta 0.03 \\
         --topology geometric --radius 0.5 --link-failure 0.1 \\
@@ -41,8 +50,8 @@ reference's format, which both packages' ``launch.serve`` read.
         --bank-capacity 2 --burn-in 2 --eval-every 2 --ckpt-dir /tmp/ckpt
 
 Flags of paths the port does not run yet exit naming their ROADMAP item:
-``--mesh > 1`` and ``--engine shard`` (A10), and any ``--arch`` but
-``lenet-radar`` (A12).
+``--mesh > 1`` and ``--engine shard`` (A10), and the archs of the LM
+families the port does not run yet (A12 parts 3–7).
 """
 from __future__ import annotations
 
@@ -329,7 +338,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     from repro_torch.core.topology import build_topology, dense_wire_bytes
     from repro_torch.data.partition import DeviceShards, partition_iid
     from repro_torch.data.radar import make_dataset
-    from repro_torch.eval.engine import ScanEvalEngine, as_stacked
+    from repro_torch.data.synthetic_lm import markov_tokens
+    from repro_torch.eval.engine import (ScanEvalEngine, as_stacked,
+                                         lm_apply_fn)
     from repro_torch.models import get_model
     from repro_torch.train.engine import make_engine
     from repro_torch.utils.device import resolve_device
@@ -340,10 +351,6 @@ def main(argv: Optional[List[str]] = None) -> None:
         cfg = spec.reduced if args.trim else spec.config
     except NotImplementedError as err:
         raise SystemExit(f"--arch {args.arch}: {err}")
-    if cfg.family != "lenet":
-        raise SystemExit(f"--arch {args.arch}: federated training of the "
-                         f"{cfg.family} LMs is not ported yet; ROADMAP A12 "
-                         f"part 2 (LM training)")
     device = resolve_device(args.device)
     model = get_model(cfg)
     topo_cfg = TopologyConfig(
@@ -408,14 +415,22 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     # per-node synthetic pool on the device; rounds gather their minibatch
     # indices from the round key inside the engine
-    ds = make_dataset(fed.num_nodes * args.pool, hw=cfg.input_hw, day=1,
-                      seed=fed.seed)
-    dshards = DeviceShards.from_shards(
-        partition_iid(ds, fed.num_nodes, seed=fed.seed), device)
+    if cfg.family == "lenet":
+        ds = make_dataset(fed.num_nodes * args.pool, hw=cfg.input_hw, day=1,
+                          seed=fed.seed)
+        pool = partition_iid(ds, fed.num_nodes, seed=fed.seed)
+    else:
+        pool = [{"tokens": markov_tokens(args.pool, args.seq, cfg.vocab_size,
+                                         seed=fed.seed, node=k)}
+                for k in range(fed.num_nodes)]
+    dshards = DeviceShards.from_shards(pool, device)
     # streaming drift: the training pool follows a severity schedule,
     # installed in the engine at phase boundaries (DESIGN.md §15)
     refresher = cont = None
     if args.drift:
+        if cfg.family != "lenet":
+            raise SystemExit("--drift needs a lenet pool (the scenario "
+                             "registry synthesizes radar maps, not tokens)")
         from repro_torch.config import ContinualConfig
         from repro_torch.train.drift import make_refresher
         cont = ContinualConfig(
@@ -450,11 +465,22 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     eval_engine = eval_ds = None
     if args.eval_every > 0:
-        from repro_torch.data.scenarios import make_scenario_dataset
-        eval_ds = make_scenario_dataset(
-            args.eval_scenario, args.eval_severity, args.eval_examples,
-            hw=cfg.input_hw, seed=fed.seed + 90)
-        eval_engine = ScanEvalEngine(model.logits)
+        if cfg.family == "lenet":
+            from repro_torch.data.scenarios import make_scenario_dataset
+            eval_ds = make_scenario_dataset(
+                args.eval_scenario, args.eval_severity, args.eval_examples,
+                hw=cfg.input_hw, seed=fed.seed + 90)
+            eval_engine = ScanEvalEngine(model.logits)
+        else:
+            # the held-out stream of node K, which no node trains on
+            held = markov_tokens(args.eval_examples, args.seq,
+                                 cfg.vocab_size, seed=fed.seed,
+                                 node=fed.num_nodes)
+            eval_ds = {"tokens": held, "y": held[:, 1:]}
+            # batches no larger than the held-out set: a padded row of an
+            # LM batch costs its (T, V) f32 logits a sample, and is masked
+            eval_engine = ScanEvalEngine(
+                lm_apply_fn(model), batch_size=min(64, args.eval_examples))
 
     t0 = time.time()
     log_cb = lambda t, loss, cons: print(

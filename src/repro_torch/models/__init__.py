@@ -7,8 +7,10 @@ from repro_torch.models.transformer import make_model as _make_decoder
 
 def get_model(cfg) -> SimpleNamespace:
     """``init(key, device)`` -> params of one model; the apply functions
-    take params with a leading group axis (``models/lenet.py``,
-    ``models/transformer.py``). LeNet has ``logits`` and ``nll`` and no
+    take params with a leading group axis and a batch dict, as the
+    reference's (``models/lenet.py``, ``models/transformer.py``): LeNet
+    reads ``batch["x"]``, a decoder ``batch["tokens"]``. LeNet has
+    ``logits`` and ``nll`` and no
     decode step; a decoder has ``logits``, ``loss``, ``init_decode_state``
     and ``decode_step``. A family the port does not run yet raises, naming
     its part of ROADMAP A12."""
@@ -16,7 +18,8 @@ def get_model(cfg) -> SimpleNamespace:
         return SimpleNamespace(
             cfg=cfg,
             init=lambda key, device: _lenet.init_lenet(cfg, key, device),
-            logits=_lenet.lenet_logits,
+            logits=lambda params, batch: _lenet.lenet_logits(params,
+                                                              batch["x"]),
             nll=_lenet.lenet_nll,
             init_decode_state=None, decode_step=None,
         )

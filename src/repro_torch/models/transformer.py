@@ -12,14 +12,27 @@ are ``torch.bmm``.
     init(key, device)                            -> params of one model
     logits(params, batch)                        -> (G, B, S, V)
     loss(params, batch, key=None)                -> ((G,), {"nll", "aux"})
+    nll(params, batch)                           -> (G,)
     init_decode_state(batch, max_len, groups=1)  -> cache of G·B lanes
     decode_step(params, cache, tokens, pos)      -> (cache, (G, B, 1, V))
 
-``decode_step`` takes a position a lane (``pos`` ``(B,)``), so the lanes of
-an engine advance independently, and updates the cache in place.
-``logits``, ``loss`` and ``decode_step`` sum their products in full f32
-on the card whatever the process set (``layers.f32_sums``), so a served
-step and an eval read the reference's arithmetic under torch's defaults.
+``logits`` and ``loss`` read one ``(B, S)`` token batch for every group;
+``nll`` reads group g's own ``(G, B, S)`` tokens (and ``loss_mask``), as
+the reference's round vmaps ``loss`` over its nodes
+(``repro/models/transformer.py:150-163``): it is the node-batched loss of
+the federated round (``core/algorithms.py``). ``decode_step`` takes a
+position a lane (``pos`` ``(B,)``), so the lanes of an engine advance
+independently, and updates the cache in place. ``logits``, ``loss``,
+``nll`` and ``decode_step`` sum their products in full f32 on the card
+whatever the process set (``layers.f32_sums``), so a served step and an
+eval read the reference's arithmetic under torch's defaults; the round
+takes its backward inside the same context.
+
+The backward is autograd's. Every op of it is deterministic on the card:
+the embedding gather's backward is an ``index_put_`` with accumulation,
+which torch runs on a CUDA tensor by sorting the indices and adding each
+row's repeats in order (no float atomics); the NLL's ``gather`` has one
+index a row, so its scatter never adds two values into one place.
 """
 from __future__ import annotations
 
@@ -62,11 +75,15 @@ def scan_unit(cfg) -> Tuple[List[blk.BlockSpec], int, List[blk.BlockSpec]]:
     return unit, n_groups, pat[n_groups * len(unit):]
 
 
-def layer_params(params, i: int, use_scan: bool):
-    """Layer ``i``'s params, each leaf ``(G, ...)``."""
-    if use_scan:
-        return tree_map(lambda a: a[:, i], params["groups"]["u0"])
-    return params["layers"][i]
+def layers_of(params, n: int, use_scan: bool) -> List:
+    """Every layer's params, each leaf ``(G, ...)``: the scanned leaves
+    unbound once along their layer axis. Its backward stacks the layers'
+    gradients in one write, where ``n`` slices would each scatter theirs
+    into a zeroed leaf of the whole stack (``n`` times the leaf's bytes)."""
+    if not use_scan:
+        return params["layers"]
+    cols = tree_map(lambda a: a.unbind(1), params["groups"]["u0"])
+    return [tree_map(lambda c: c[i], cols) for i in range(n)]
 
 
 def make_model(cfg) -> SimpleNamespace:
@@ -107,8 +124,13 @@ def make_model(cfg) -> SimpleNamespace:
 
     # -- embedding and head --------------------------------------------------
     def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens ``(B, S)`` -> ``(G, B, S, D)`` in the compute dtype."""
-        return params["embed"]["tok"].to(dtype)[:, tokens.long()]
+        """tokens ``(B, S)`` (one batch for every group) or ``(G, B, S)``
+        (group g's own) -> ``(G, B, S, D)`` in the compute dtype."""
+        tok = params["embed"]["tok"].to(dtype)
+        if tokens.dim() == 2:
+            return tok[:, tokens.long()]
+        rows = torch.arange(tok.shape[0], device=tok.device)[:, None, None]
+        return tok[rows, tokens.long()]
 
     def _head(params, x: torch.Tensor) -> torch.Tensor:
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -123,9 +145,8 @@ def make_model(cfg) -> SimpleNamespace:
         positions = torch.arange(s, device=x.device).expand(b, s)
         angles = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
         aux = torch.zeros((), device=x.device)
-        for i, spec in enumerate(pat):
-            x, ai = blk.apply_block(layer_params(params, i, use_scan), x,
-                                    positions, spec, cfg, angles)
+        for spec, lp in zip(pat, layers_of(params, len(pat), use_scan)):
+            x, ai = blk.apply_block(lp, x, positions, spec, cfg, angles)
             aux = aux + ai
         return x, aux
 
@@ -134,6 +155,19 @@ def make_model(cfg) -> SimpleNamespace:
         x, _ = _trunk(params, _embed(params, batch["tokens"]))
         return _head(params, x)
 
+    def _mean_nll(lg, tokens, mask) -> torch.Tensor:
+        """The mean next-token NLL of each group, ``(G,)``: logits ``(G, B,
+        S, V)`` against tokens ``(G, B, S)``, over ``mask[..., 1:]`` (``(B,
+        S)`` or ``(G, B, S)``) where one is given."""
+        logp = torch.log_softmax(lg[:, :, :-1].float(), dim=-1)
+        nll = -torch.gather(logp, -1, tokens[:, :, 1:, None])[..., 0]
+        if mask is None:
+            return nll.mean(dim=(1, 2))
+        m = torch.as_tensor(mask, device=nll.device)[..., 1:].float()
+        m = m.expand_as(nll)
+        return ((nll * m).sum(dim=(1, 2))
+                / torch.clamp(m.sum(dim=(1, 2)), min=1.0))
+
     @f32_sums()
     def loss(params, batch, key=None):
         """The mean next-token NLL a model, over ``loss_mask[:, 1:]`` where
@@ -141,16 +175,20 @@ def make_model(cfg) -> SimpleNamespace:
         tokens = batch["tokens"].long()
         x, aux = _trunk(params, _embed(params, tokens))
         lg = _head(params, x)
-        logp = torch.log_softmax(lg[:, :, :-1].float(), dim=-1)
-        tgt = tokens[:, 1:].expand(lg.shape[0], -1, -1)
-        nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
-        mask = batch.get("loss_mask")
-        if mask is not None:
-            m = torch.as_tensor(mask, device=nll.device)[:, 1:].float()
-            mean_nll = (nll * m).sum(dim=(1, 2)) / torch.clamp(m.sum(), min=1.0)
-        else:
-            mean_nll = nll.mean(dim=(1, 2))
+        mean_nll = _mean_nll(lg, tokens.expand((lg.shape[0],) + tokens.shape),
+                             batch.get("loss_mask"))
         return mean_nll + aux, {"nll": mean_nll, "aux": aux.expand_as(mean_nll)}
+
+    @f32_sums()
+    def nll(params, batch) -> torch.Tensor:
+        """The federated round's node-batched loss: group g's mean
+        next-token NLL (plus its aux) on its own tokens ``batch["tokens"]``
+        ``(G, B, S)``, over its ``loss_mask[g, :, 1:]`` where the batch has
+        one, ``(G,)`` (the reference's ``vmap(loss)``)."""
+        tokens = batch["tokens"].long()
+        x, aux = _trunk(params, _embed(params, tokens))
+        return _mean_nll(_head(params, x), tokens,
+                         batch.get("loss_mask")) + aux
 
     # -- decode --------------------------------------------------------------
     def init_decode_state(batch_size: int, max_len: int, groups: int = 1,
@@ -179,15 +217,15 @@ def make_model(cfg) -> SimpleNamespace:
         x = _embed(params, tokens[:, None])
         angles = rope_angles(pos[:, None], cfg.resolved_head_dim,
                              cfg.rope_theta)
-        for i, spec in enumerate(pat):
+        for i, (spec, lp) in enumerate(zip(pat, layers_of(params, len(pat),
+                                                          use_scan))):
             lc = (tree_map(lambda c: c[i], cache["groups"]["u0"]) if use_scan
                   else cache["layers"][i])
-            _, x = blk.decode_block(layer_params(params, i, use_scan), lc, x,
-                                    pos, spec, cfg, angles)
+            _, x = blk.decode_block(lp, lc, x, pos, spec, cfg, angles)
         return cache, _head(params, x)
 
     return SimpleNamespace(
-        cfg=cfg, init=init, loss=loss, logits=logits,
+        cfg=cfg, init=init, loss=loss, logits=logits, nll=nll,
         init_decode_state=init_decode_state, decode_step=decode_step,
         pattern=pat, scan_unit=(unit, n_groups, tail), use_scan=use_scan,
         dtype=dtype)

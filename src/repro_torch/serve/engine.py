@@ -154,7 +154,7 @@ class ServingEngine:
 class ClassifyEngine(ServingEngine):
     """Serving for single-step classifier requests.
 
-    ``logits_fn(params, x)`` is the eval engines' contract (the model's
+    ``logits_fn(params, batch)`` is the eval engines' contract (the model's
     ``logits``). The slot table ``(slots, *input_shape)`` lives on the
     bank's device; an admit writes its row in place, and each step copies
     the table into the input of the :class:`BankPredictor`'s predict graph

@@ -46,7 +46,7 @@ from repro_torch.core.posterior import (BankPredictor, DeviceSampleBank,
                                         SampleBank, bank_age_weights)
 from repro_torch.core.topology import build_topology, resolve_topology
 from repro_torch.data.partition import DeviceShards
-from repro_torch.eval.engine import EvalReport, ScanEvalEngine
+from repro_torch.eval.engine import EvalReport, ScanEvalEngine, lm_apply_fn
 from repro_torch.core.transport import resolve_transport
 from repro_torch.train.drift import make_refresher
 from repro_torch.train.engine import HISTORIES, make_engine
@@ -154,10 +154,6 @@ class FedTrainer:
             data_scale = float(np.mean([len(s[next(iter(s))]) for s in shards]))
         self.data_scale = data_scale
 
-        if getattr(model, "nll", None) is None:
-            raise NotImplementedError(
-                f"FedTrainer of the {model.cfg.family} LMs is not ported yet; "
-                f"ROADMAP A12 part 2 (LM training)")
         if params is None:
             params = model.init(random.PRNGKey(seed, self.device), self.device)
         params0 = tree_map(lambda x: x.to(self.device), params)
@@ -186,7 +182,10 @@ class FedTrainer:
         else:
             self._bank_state = (self.bank_cfg.init(self.state.params)
                                 if bank_enabled else None)
-        self._eval = ScanEvalEngine(model.logits, batch_size=eval_batch_size)
+        self.eval_batch_size = int(eval_batch_size)
+        # one scan eval engine a kind of batch: a classifier's (``y``)
+        # through the logits, an LM's (tokens) through ``lm_apply_fn``
+        self._eval_engines: Dict[str, ScanEvalEngine] = {}
         # continual learning: the drift schedule over the caller's pool
         # (which the engines never write) and the bank's aging
         self.continual = (continual if continual is not None
@@ -395,21 +394,39 @@ class FedTrainer:
         current params while it is empty; for cffl, always), node chains
         averaged, the unlearned ones left out, the bank's age weights
         installed: hand it to ``ClassifyEngine`` or call
-        ``predict(batch)``."""
+        ``predict(batch)`` (an LM's: ``{"tokens": (B, S)}``)."""
         stacked, weights = self._posterior()
         bp = BankPredictor(self.model.logits, node_axis=1)
         bp.install(stacked, weights=weights)
         return bp
+
+    def _apply_fn(self, batch: Dict[str, np.ndarray]):
+        """The eval engine and the labels of ``batch``
+        (``repro/train/trainer.py:405-408``): a classifier's batch (``y``)
+        through the model's logits; an LM's token batch through
+        ``lm_apply_fn``, labelled ``tokens[:, 1:]``."""
+        kind = "clf" if "y" in batch else "lm"
+        eng = self._eval_engines.get(kind)
+        if eng is None:
+            eng = ScanEvalEngine(self.model.logits if kind == "clf"
+                                 else lm_apply_fn(self.model),
+                                 batch_size=self.eval_batch_size)
+            self._eval_engines[kind] = eng
+        if kind == "clf":
+            return eng, batch["y"]
+        return eng, np.asarray(batch["tokens"])[:, 1:]
 
     def eval_report(self, batch: Dict[str, np.ndarray],
                     return_probs: bool = False):
         """BMA evaluation of the current posterior through the scan eval
         engine, the unlearned chains left out and the bank's age weights
         applied."""
+        eng, labels = self._apply_fn(batch)
+        data = dict(batch)
+        data["y"] = np.asarray(labels)
         stacked, weights = self._posterior()
-        return self._eval.evaluate(stacked, batch, node_axis=1,
-                                   return_probs=return_probs,
-                                   weights=weights)
+        return eng.evaluate(stacked, data, node_axis=1,
+                            return_probs=return_probs, weights=weights)
 
     def evaluate(self, batch: Dict[str, np.ndarray],
                  res: Optional[TrainResult] = None) -> TrainResult:
@@ -423,5 +440,6 @@ class FedTrainer:
         res.overconf_gap = rep.overconf_gap
         res.report = rep
         res.probs = probs
-        res.labels = np.asarray(batch["y"])
+        res.labels = (np.asarray(batch["y"]) if "y" in batch
+                      else np.asarray(batch["tokens"])[:, 1:])
         return res

@@ -21,6 +21,8 @@ import torch
 import repro.config as jconfig
 from repro_torch import config
 
+import torch_threads  # noqa: F401  (one torch thread a process)
+
 # (reference module, port module): the packages whose names are compared
 SUBPACKAGES = (("repro.core", "repro_torch.core"),
                ("repro.train", "repro_torch.train"),

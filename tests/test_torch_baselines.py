@@ -39,6 +39,8 @@ from repro_torch.models import get_model
 from repro_torch.models.lenet import params_from_jax
 from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path
 
+import torch_threads  # noqa: F401  (one torch thread a process)
+
 K, L, M = 3, 2, 5
 FED = dict(num_nodes=K, local_steps=L, eta=3e-3, zeta=0.3, temperature=0.2,
            burn_in=2, rounds=3, topology="full")

@@ -15,6 +15,8 @@ import torch
 from repro.core import calibration as jcal
 from repro_torch.core import calibration as cal
 
+import torch_threads  # noqa: F401  (one torch thread a process)
+
 
 def _case(seed, n=300, c=10, temp=2.0):
     rng = np.random.default_rng(seed)

@@ -28,6 +28,8 @@ from repro_torch.kernels.bma_sample import (argmax_first, bma_sample,
 from repro_torch.kernels.threefry import (GUMBEL, TINY, Draw, draw,
                                           log_plain)
 
+import torch_threads  # noqa: F401  (one torch thread a process)
+
 V = 49152
 
 

@@ -14,6 +14,8 @@ import torch
 from repro import checkpoint as jckpt
 from repro_torch import checkpoint as ckpt
 
+import torch_threads  # noqa: F401  (one torch thread a process)
+
 
 def _trees():
     """The same tree for each package: f32, bfloat16 and int32 leaves,

@@ -55,6 +55,8 @@ from repro_torch.utils.tree import tree_leaves_with_path
 from test_torch_compression import SCALE_RTOL, assert_grid_close
 from torch_golden import boundary_blocks
 
+import torch_threads  # noqa: F401  (one torch thread a process)
+
 K = 3
 KEY = 5
 SIGN_RTOL = 1e-5

@@ -37,6 +37,8 @@ from repro_torch.core.compression import (BlockTopKCodec, CompressionPipeline,
 from repro_torch.models import get_model
 from repro_torch.utils.tree import tree_leaves_with_path, tree_map
 
+import torch_threads  # noqa: F401  (one torch thread a process)
+
 K = 3
 PIPE = "block_topk|qsgd"
 SCALE_RTOL = 1e-6           # a few ulps of f32
@@ -472,82 +474,3 @@ def test_decode_unpacks_every_leaf_in_one_call(trees, monkeypatch, pipe,
             want = stage.decode(want, aux, meta)
         assert leaf.shape == want.shape and torch.equal(_bits(leaf),
                                                         _bits(want)), path
-
-
-# the ledger's pipelines: every codec name alone and the compositions the
-# reference's benchmark and LLM example run
-LEDGER_SPECS = ("identity", "topk", "block_topk", "randk", "sign", "qsgd",
-                "block_topk|qsgd", "block_topk|sign", "topk|qsgd",
-                "randk|sign")
-
-
-def _ledger_trees(reduced, concrete):
-    """One node's lenet-radar tree in both packages, concrete or shape-only
-    (``ShapeDtypeStruct`` / ``meta``), and a bf16 v beside f32 ones."""
-    arch = jax_get_arch("lenet-radar")
-    jparams = jax_get_model(arch.reduced if reduced else arch.config).init(
-        jax.random.PRNGKey(0))
-    if not concrete:
-        jparams = jax.tree.map(
-            lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), jparams)
-    spec = get_arch("lenet-radar")
-    device = "cpu" if concrete else "meta"
-    params = get_model(spec.reduced if reduced else spec.config).init(
-        random.PRNGKey(0, device), device)
-    return jparams, params
-
-
-@pytest.mark.parametrize("spec", LEDGER_SPECS)
-@pytest.mark.parametrize("fused", [False, True])
-@pytest.mark.parametrize("reduced,concrete", [(True, True), (True, False),
-                                              (False, False)])
-def test_encode_hbm_bytes_equals_reference(spec, fused, reduced, concrete):
-    """The static encode ledger's four counts, exactly, for every codec and
-    both stage-0 lowerings (``FusedCodec`` fused and two-pass), on concrete
-    and shape-only trees, and with v in bfloat16."""
-    from repro.core.compression import encode_hbm_bytes as jax_ledger
-    from repro_torch.core.compression import encode_hbm_bytes
-    jparams, params = _ledger_trees(reduced, concrete)
-    jpipe = JaxFusedCodec.wrap(parse_pipeline(spec), fused=fused)
-    pipe = FusedCodec.wrap(make_compressor(FedConfig(pipeline=spec)),
-                           fused=fused)
-    assert encode_hbm_bytes(pipe, params) == jax_ledger(jpipe, jparams)
-    jv = jax.tree.map(lambda x: jax.ShapeDtypeStruct(x.shape, jnp.bfloat16),
-                      jparams)
-    v = tree_map(lambda x: torch.empty(x.shape, dtype=torch.bfloat16,
-                                       device="meta"), params)
-    assert encode_hbm_bytes(pipe, params, v) == jax_ledger(jpipe, jparams, jv)
-
-
-def test_encode_hbm_bytes_layer_pipelines_and_min_dense():
-    """Per-layer routing and dense-riding leaves in the ledger."""
-    from repro.core.compression import encode_hbm_bytes as jax_ledger
-    from repro.core.compression import make_compressor as jmake
-    from repro_torch.core.compression import encode_hbm_bytes
-    jparams, params = _ledger_trees(True, True)
-    fed = dict(layer_pipelines=(("fc1", "block_topk|qsgd"), ("*", "topk")),
-               min_dense_size=200, fused_compress=True)
-    assert encode_hbm_bytes(make_compressor(FedConfig(**fed)), params) == \
-        jax_ledger(jmake(JaxFedConfig(**fed)), jparams)
-
-
-@pytest.mark.parametrize("layered", [False, True])
-def test_leaf_stages_equals_reference(layered):
-    """The module-level ``leaf_stages(payload, i)``: each leaf's codec
-    names in order, the per-layer routing included."""
-    from repro.core.compression import leaf_stages as jax_leaf_stages
-    from repro_torch.core.compression import leaf_stages
-    fed = dict(pipeline="block_topk|qsgd")
-    if layered:
-        fed["layer_pipelines"] = (("conv", "topk"), ("fc3", "sign"))
-    jparams, params = _ledger_trees(True, True)
-    jcomp = jax_make_compressor(JaxFedConfig(**fed))
-    jpay = jcomp.encode(jparams, jax.random.PRNGKey(1))
-    comp = make_compressor(FedConfig(**fed))
-    stacked = tree_map(lambda x: x[None], params)
-    pay = comp.encode(stacked, draw_uniforms(comp, random.PRNGKey(1),
-                                             stacked))
-    assert len(pay.entries) == len(jpay.entries)
-    for i in range(len(pay.entries)):
-        assert [s.name for s in leaf_stages(pay, i)] == \
-            [s.name for s in jax_leaf_stages(jpay, i)]

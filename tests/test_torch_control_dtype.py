@@ -49,6 +49,8 @@ from repro_torch.train import FedTrainer, make_engine
 from repro_torch.train.engine import one_round
 from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path
 
+import torch_threads  # noqa: F401  (one torch thread a process)
+
 K, L, M = 4, 2, 5
 RTOL, ATOL = 1e-4, 1e-6
 # (algorithm, fused_compress, eta, compress_ratio, bit-exact params)

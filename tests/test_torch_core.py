@@ -33,7 +33,14 @@ from repro_torch.eval import engine as peval
 from repro_torch.models.lenet import lenet_logits, params_from_jax
 from repro_torch.utils.tree import tree_leaves, tree_map
 
+import torch_threads  # noqa: F401  (one torch thread a process)
+
 RTOL = 1e-6
+
+
+def lenet_apply(params, batch):
+    """The port's LeNet logits on a batch dict (``get_model``'s contract)."""
+    return lenet_logits(params, batch["x"])
 
 
 @pytest.mark.parametrize("graph,k", [("full", 10), ("full", 3), ("ring", 10),
@@ -144,14 +151,15 @@ def test_bma_and_host_eval_engine_match_reference():
             "y": rng.integers(0, 10, 70).astype(np.int32)}
     want = jbma(lambda p, b: jlenet.lenet_logits(p, b["x"]), stacked_j,
                 {"x": jnp.asarray(data["x"][:8])}, node_axis=1)
-    got = bma_predict_stacked(lenet_logits, stacked_t,
-                              torch.from_numpy(data["x"][:8]), node_axis=1)
+    got = bma_predict_stacked(lenet_apply, stacked_t,
+                              {"x": torch.from_numpy(data["x"][:8])},
+                              node_axis=1)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                rtol=1e-5, atol=1e-6)
     rep_j, probs_j = jeval.HostEvalEngine(
         lambda p, b: jlenet.lenet_logits(p, b["x"]), batch_size=32).evaluate(
         stacked_j, data, node_axis=1, return_probs=True)
-    rep_t, probs_t = peval.HostEvalEngine(lenet_logits, batch_size=32).evaluate(
+    rep_t, probs_t = peval.HostEvalEngine(lenet_apply, batch_size=32).evaluate(
         stacked_t, data, node_axis=1, return_probs=True)
     np.testing.assert_allclose(probs_t, probs_j, rtol=1e-5, atol=1e-6)
     assert rep_t.accuracy == rep_j.accuracy and rep_t.count == rep_j.count == 70
@@ -169,7 +177,7 @@ def test_host_eval_engine_takes_its_device_from_the_parameters():
     rng = np.random.default_rng(5)
     data = {"x": rng.standard_normal((41, 32, 16, 1)).astype(np.float32),
             "y": rng.integers(0, 10, 41).astype(np.int32)}
-    engine = peval.HostEvalEngine(lenet_logits, batch_size=16)
+    engine = peval.HostEvalEngine(lenet_apply, batch_size=16)
     with pytest.raises(TypeError):
         engine.evaluate(stacked, data, node_axis=1, device="cpu")
     report, probs = engine.evaluate(stacked, data, node_axis=1,
@@ -177,7 +185,8 @@ def test_host_eval_engine_takes_its_device_from_the_parameters():
     batches, masks = peval.stack_eval_batches(data, 16, "cpu")
     acc, want = peval.init_accum(10, "cpu"), []
     for i in range(masks.shape[0]):
-        p = bma_predict_stacked(lenet_logits, stacked, batches["x"][i],
+        p = bma_predict_stacked(lenet_apply, stacked,
+                                {f: v[i] for f, v in batches.items()},
                                 node_axis=1)
         acc = peval.update_accum(acc, p, batches["y"][i], masks[i], 10)
         want.append(p)

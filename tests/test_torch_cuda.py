@@ -736,8 +736,8 @@ def test_a_sync_inside_the_eval_fails_its_capture(card):
     from repro_torch.eval.engine import ScanEvalEngine
     trainer, bank, test = _served(card)
 
-    def syncing(params, x):
-        out = trainer.model.logits(params, x)
+    def syncing(params, batch):
+        out = trainer.model.logits(params, batch)
         out.sum().item()
         return out
     with pytest.raises(RuntimeError):

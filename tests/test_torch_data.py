@@ -10,6 +10,8 @@ from repro_torch import random
 from repro_torch.data import radar
 from repro_torch.data.partition import DeviceShards, partition_iid
 
+import torch_threads  # noqa: F401  (one torch thread a process)
+
 
 @pytest.mark.parametrize("day,hw", [(1, (32, 16)), (2, (32, 16)), (1, (256, 63))])
 def test_make_dataset_is_byte_equal(day, hw):

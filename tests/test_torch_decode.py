@@ -44,6 +44,8 @@ from repro_torch.serve import DecodeEngine, ServeRequest
 from repro_torch.utils.tree import tree_map
 from torch_golden import DECODE_CONFIG, DECODE_FILE, decode_requests
 
+import torch_threads  # noqa: F401  (one torch thread a process)
+
 ARCH = "smollm-135m"
 TOL = {"float32": dict(ent=1e-5, probs=1e-6),
        "bfloat16": dict(ent=1e-3, probs=1e-5)}

@@ -43,6 +43,8 @@ from repro_torch.models.transformer import params_from_jax
 from repro_torch.utils.tree import tree_map
 from torch_golden import exp_inputs
 
+import torch_threads  # noqa: F401  (one torch thread a process)
+
 F32_TOL, BF16_TOL = 1e-5, 3e-2          # test_torch_lm_model.py
 EPS = 2.0 ** -24
 

@@ -52,6 +52,8 @@ from repro_torch.train import FedTrainer
 from repro_torch.train.drift import DriftRefresher, make_refresher
 from repro_torch.utils.tree import tree_leaves
 
+import torch_threads  # noqa: F401  (one torch thread a process)
+
 HW = (32, 16)
 K = 4
 ECE_BOUND = 0.01

@@ -42,6 +42,8 @@ from repro_torch.train import FedTrainer
 from repro_torch.train.engine import make_engine
 from repro_torch.utils.tree import tree_leaves
 
+import torch_threads  # noqa: F401  (one torch thread a process)
+
 K, L, M, SEED = 3, 2, 5, 0
 CONFIGS = {"block_topk": dict(compressor="block_topk", fused_compress=True),
            "block_topk|qsgd": dict(pipeline="block_topk|qsgd",

@@ -56,6 +56,8 @@ from repro_torch.models.lenet import params_from_jax
 from repro_torch.train import FedTrainer
 from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path
 
+import torch_threads  # noqa: F401  (one torch thread a process)
+
 TV = {"static": {}, "drop": dict(link_failure_prob=0.3),
       "pairs": dict(gossip_pairs=2),
       "both": dict(link_failure_prob=0.1, gossip_pairs=2)}

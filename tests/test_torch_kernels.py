@@ -28,6 +28,8 @@ from repro_torch.kernels.pack import (BISECT_ITERS, bisection_bounds,
                                       pack_topk, unpack_topk_plain)
 from repro_torch.kernels.qsgd import inv_one_plus, qsgd, qsgd_omega
 
+import torch_threads  # noqa: F401  (one torch thread a process)
+
 SHAPES = [(1024,), (3, 1000, 7), (4097,), (6,), (150,)]
 ROWS = 2        # node-stacked: two nodes per leaf, one launch
 

@@ -37,6 +37,8 @@ from repro_torch.models.chunked import chunked_gqa
 from repro_torch.models.transformer import params_from_jax, params_to_numpy
 from repro_torch.utils.tree import tree_leaves_with_path, tree_map
 
+import torch_threads  # noqa: F401  (one torch thread a process)
+
 DENSE = ("smollm-135m", "yi-9b", "qwen2.5-14b", "mistral-large-123b")
 F32_TOL, BF16_TOL = 1e-5, 3e-2
 # f32 compute through bfloat16 caches: the cached entries one bfloat16 ulp

@@ -21,6 +21,8 @@ import torch
 from repro.eval import matrix as jmatrix
 from repro_torch.eval import matrix
 
+import torch_threads  # noqa: F401  (one torch thread a process)
+
 SPEC = dict(algorithms=("cdbfl", "cffl"), pipelines=("",),
             cells=(("clean", 0.0), ("day23_critical", 1.0)), nodes=3,
             per_node=8, rounds=6, eval_examples=40)

@@ -21,6 +21,8 @@ from repro_torch.models.lenet import (lenet_logits, lenet_nll, params_from_jax,
                                       params_to_numpy)
 from repro_torch.utils.tree import tree_leaves_with_path, tree_map
 
+import torch_threads  # noqa: F401  (one torch thread a process)
+
 RTOL, ATOL = 1e-5, 1e-6
 
 

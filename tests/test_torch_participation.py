@@ -40,6 +40,8 @@ from repro_torch.config import ParticipationConfig, TopologyConfig
 from repro_torch.core import gossip
 from repro_torch.utils.tree import tree_leaves
 
+import torch_threads  # noqa: F401  (one torch thread a process)
+
 RTOL, ATOL = 1e-4, 1e-6
 
 

@@ -18,8 +18,11 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import torch_quickstart
+
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -28,6 +28,8 @@ from repro_torch.models import get_model
 from repro_torch.train.engine import round_indices
 from torch_golden import THREEFRY_FILE, port_draw, threefry_golden
 
+import torch_threads  # noqa: F401  (one torch thread a process)
+
 SIZES = [(1,), (7,), (1024,), (1_000_003,), (3, 1031)]
 
 

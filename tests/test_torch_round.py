@@ -59,6 +59,8 @@ from repro_torch.train.engine import round_indices
 from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path
 from test_torch_compression import assert_grid_close, reference_uniforms
 
+import torch_threads  # noqa: F401  (one torch thread a process)
+
 K, L, M = 3, 2, 5
 FED = dict(num_nodes=K, local_steps=L, eta=3e-3, zeta=0.3, temperature=0.2,
            burn_in=2, rounds=5, compressor="block_topk", fused_compress=True,

@@ -40,9 +40,16 @@ from repro_torch.serve import (ClassifyEngine, DecodeEngine, ServeRequest,
 from repro_torch.train import FedTrainer
 from repro_torch.utils.tree import tree_map
 
+import torch_threads  # noqa: F401  (one torch thread a process)
+
 HW = (16, 16)
 S, K = 3, 2
 RTOL, ATOL = 1e-5, 1e-6
+
+
+def lenet_apply(params, batch):
+    """The port's LeNet logits on a batch dict (``get_model``'s contract)."""
+    return lenet_logits(params, batch["x"])
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -87,7 +94,7 @@ def _same(a, b):
 
 
 def _engine(stacked, ds, slots=8, **kw):
-    return ClassifyEngine(lenet_logits, ServeConfig(slots=slots, **kw),
+    return ClassifyEngine(lenet_apply, ServeConfig(slots=slots, **kw),
                           input_shape=ds["x"].shape[1:], stacked=stacked,
                           node_axis=1)
 
@@ -138,11 +145,12 @@ def test_bma_and_bank_predictor_match_reference(radar, weighted, node_axis):
     x = ds["x"][:8]
     want = jpost.bma_predict_stacked(apply, stacked, {"x": jnp.asarray(x)},
                                      node_axis=node_axis, weights=w)
-    got = post.bma_predict_stacked(lenet_logits, port, torch.from_numpy(x),
+    got = post.bma_predict_stacked(lenet_apply, port,
+                                   {"x": torch.from_numpy(x)},
                                    node_axis=node_axis, weights=w)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
-    pred = post.BankPredictor(lenet_logits, node_axis=node_axis)
+    pred = post.BankPredictor(lenet_apply, node_axis=node_axis)
     pred.install(port, weights=w)
     probs, ent = pred.predict({"x": x})
     assert _same(probs, got)
@@ -161,9 +169,9 @@ def test_bma_and_bank_predictor_match_reference(radar, weighted, node_axis):
 def test_uniform_weights_leave_the_mean_within_rounding(radar):
     """Equal weights give the uniform mean, by a separate reduction."""
     _, _, port, ds = radar
-    x = torch.from_numpy(ds["x"][:8])
-    base = post.bma_predict_stacked(lenet_logits, port, x, node_axis=1)
-    even = post.bma_predict_stacked(lenet_logits, port, x, node_axis=1,
+    x = {"x": torch.from_numpy(ds["x"][:8])}
+    base = post.bma_predict_stacked(lenet_apply, port, x, node_axis=1)
+    even = post.bma_predict_stacked(lenet_apply, port, x, node_axis=1,
                                     weights=np.ones(S))
     np.testing.assert_allclose(even.numpy(), base.numpy(), rtol=1e-6)
 
@@ -174,21 +182,23 @@ def test_legacy_predictors_match_reference(radar):
     samples = [tree_map(lambda a: a[s], port) for s in range(S)]
     jsamples = [jax.tree.map(lambda a: a[s], stacked) for s in range(S)]
     with pytest.warns(DeprecationWarning):
-        got = post.bma_predict(lenet_logits, samples, torch.from_numpy(x),
+        got = post.bma_predict(lenet_apply, samples,
+                               {"x": torch.from_numpy(x)},
                                node_axis=0)
     with pytest.warns(DeprecationWarning):
         want = jpost.bma_predict(apply, jsamples, {"x": jnp.asarray(x)},
                                  node_axis=0)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
-    point = post.point_predict(lenet_logits, samples[0], torch.from_numpy(x),
+    point = post.point_predict(lenet_apply, samples[0],
+                               {"x": torch.from_numpy(x)},
                                node_axis=0)
     np.testing.assert_allclose(point.numpy(), np.asarray(jpost.point_predict(
         apply, jsamples[0], {"x": jnp.asarray(x)}, node_axis=0)), rtol=RTOL,
         atol=ATOL)
-    one = post.point_predict(lenet_logits,
+    one = post.point_predict(lenet_apply,
                              tree_map(lambda a: a[0], samples[0]),
-                             torch.from_numpy(x))
+                             {"x": torch.from_numpy(x)})
     np.testing.assert_allclose(one.numpy(), np.asarray(jpost.point_predict(
         apply, jax.tree.map(lambda a: a[0], jsamples[0]),
         {"x": jnp.asarray(x)})), rtol=RTOL, atol=ATOL)
@@ -197,23 +207,23 @@ def test_legacy_predictors_match_reference(radar):
 def test_unported_serving_paths_name_their_roadmap_item(radar):
     _, _, port, ds = radar
     with pytest.raises(NotImplementedError, match="A10"):
-        post.BankPredictor(lenet_logits, port, node_axis=1,
+        post.BankPredictor(lenet_apply, port, node_axis=1,
                            ensemble_axis="ens")
     with pytest.raises(NotImplementedError, match="A10"):
         post.place_ensemble(port, None, "ens")
     with pytest.raises(NotImplementedError, match="A10"):
-        peval.make_eval_engine("shard", lenet_logits)
+        peval.make_eval_engine("shard", lenet_apply)
     with pytest.raises(NotImplementedError, match="A10"):
-        ClassifyEngine(lenet_logits, ServeConfig(ensemble_axis="ens"),
+        ClassifyEngine(lenet_apply, ServeConfig(ensemble_axis="ens"),
                        input_shape=(16, 16, 1))
     with pytest.raises(NotImplementedError, match="A12"):
         get_arch("deepseek-v2-236b")
-    assert isinstance(peval.make_eval_engine("scan", lenet_logits),
+    assert isinstance(peval.make_eval_engine("scan", lenet_apply),
                       peval.ScanEvalEngine)
-    assert isinstance(peval.make_eval_engine("host", lenet_logits),
+    assert isinstance(peval.make_eval_engine("host", lenet_apply),
                       peval.HostEvalEngine)
     with pytest.raises(ValueError):
-        peval.make_eval_engine("nope", lenet_logits)
+        peval.make_eval_engine("nope", lenet_apply)
     assert live_device_bytes() >= 0
 
 
@@ -253,12 +263,12 @@ def test_scan_eval_engine_matches_reference(radar, weighted, gated):
     rep_j, probs_j = jeval.ScanEvalEngine(
         apply, batch_size=32, entropy_threshold=thr).evaluate(
         stacked, data, node_axis=1, return_probs=True, weights=w)
-    scan = peval.ScanEvalEngine(lenet_logits, batch_size=32,
+    scan = peval.ScanEvalEngine(lenet_apply, batch_size=32,
                                 entropy_threshold=thr)
     rep, probs = scan.evaluate(port, data, node_axis=1, return_probs=True,
                                weights=w)
     host, hprobs = peval.HostEvalEngine(
-        lenet_logits, batch_size=32, entropy_threshold=thr).evaluate(
+        lenet_apply, batch_size=32, entropy_threshold=thr).evaluate(
         port, data, node_axis=1, return_probs=True, weights=w)
     assert _same(probs, hprobs)
     for f in rep._fields:
@@ -285,7 +295,7 @@ def test_classify_bitwise_equals_scan_eval(radar):
     apply, stacked, port, ds = radar
     resps = _serve(_engine(port, ds), ds["x"])
     serve_probs = np.stack([r.probs for r in resps])
-    _, eval_probs = peval.ScanEvalEngine(lenet_logits, batch_size=8).evaluate(
+    _, eval_probs = peval.ScanEvalEngine(lenet_apply, batch_size=8).evaluate(
         port, ds, node_axis=1, return_probs=True)
     assert _same(serve_probs, eval_probs)
     ent = post.predictive_entropy(torch.from_numpy(serve_probs)).numpy()
@@ -318,7 +328,7 @@ def test_classify_zero_recompiles_across_occupancy(radar):
 
 def test_classify_abstain_stable_under_batch_composition(radar):
     apply, stacked, port, ds = radar
-    _, ent = post.BankPredictor(lenet_logits, port, node_axis=1).predict(
+    _, ent = post.BankPredictor(lenet_apply, port, node_axis=1).predict(
         {"x": ds["x"][:16]})
     thr = float(np.median(ent.numpy()))
     together = _serve(_engine(port, ds, entropy_threshold=thr), ds["x"][:16])

@@ -14,6 +14,7 @@ import warnings
 
 import numpy as np
 import pytest
+import torch
 
 from repro.config import FedConfig as JaxFedConfig
 from repro.config import TopologyConfig as JaxTopologyConfig
@@ -22,6 +23,8 @@ from repro.core import mixing as jmixing
 from repro.core import topology as jtopo
 from repro_torch.config import FedConfig, TopologyConfig
 from repro_torch.core import gossip, mixing, topology
+
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 KS = [1, 2, 3, 5, 7, 10, 16]
 RULES = ["metropolis", "max_degree", "uniform"]

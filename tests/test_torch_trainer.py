@@ -20,6 +20,7 @@ side and is evaluated on its nodes' current params.
 """
 import numpy as np
 import pytest
+import torch
 
 from repro.config import FedConfig as JaxFedConfig, get_arch as jax_get_arch
 from repro.data.partition import partition_iid
@@ -29,6 +30,8 @@ from repro.train import FedTrainer as JaxFedTrainer
 from repro_torch.config import FedConfig, get_arch
 from repro_torch.models import get_model
 from repro_torch.train import FedTrainer
+
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 K, L, M, ROUNDS, SEED = 3, 2, 5, 6, 0
 FED = dict(num_nodes=K, local_steps=L, eta=3e-3, zeta=0.3, temperature=0.2,

@@ -53,6 +53,8 @@ from repro_torch.core.compression import parse_pipeline
 from repro_torch.kernels.gilbert import channel_params, gilbert_keep_plain
 from repro_torch.utils.tree import tree_leaves
 
+import torch_threads  # noqa: F401  (one torch thread a process)
+
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 EXAMPLES = settings(max_examples=30, deadline=None)
 

@@ -44,6 +44,8 @@ from repro_torch.models import get_model
 from repro_torch.train import FedTrainer
 from repro_torch.utils.tree import tree_leaves
 
+import torch_threads  # noqa: F401  (one torch thread a process)
+
 K, ROUNDS, TARGET = 4, 8, 1
 FED = dict(num_nodes=K, local_steps=2, eta=3e-3, zeta=0.3, temperature=0.2,
            rounds=ROUNDS, burn_in=4, compressor="topk", compress_ratio=0.05,

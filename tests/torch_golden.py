@@ -15,6 +15,7 @@ PyTorch port's tests and for ``chip_smoke.py``, which reads them on the card.
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py drift-claims
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py decode
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py kv-flips
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py lm-rounds
 
 ``threefry`` writes ``tests/golden/threefry_draws.npz``: ``jax.random``'s
 keys, bits, uniforms, normals, truncated normals and randints for the cases
@@ -119,6 +120,21 @@ bfloat16 ulps, and how far apart their logits lie; then how far the port's
 logits move when one cached entry, drawn at random (200 draws, seed 0,
 before the last step), is moved one bfloat16 ulp right after its write.
 About 40 seconds.
+
+``lm-rounds`` writes ``tests/golden/lm_rounds_smollm_135m.json``: the
+reference's first two rounds of federated smollm-135m at full width in
+f32 (:data:`LM_ROUNDS_CONFIG`: the train CLI's defaults, a ring of K
+nodes, ``block_topk`` at 1%, ζ = 0.3, η = 1e-4, the CLI's Markov pools,
+with the cuts it lists: K = 2, L = 2, minibatch 2, 32 tokens), through
+``FedTrainer(engine="host")``: each round's losses, consensus and wire
+bytes a node, and after it every leaf of θ and v as ``decode`` records
+the bank's, v's survivor count beside it, and each node's NLL of θ on
+its pool's first minibatch; the init's θ likewise, with its NLL and the
+gradient of the nodes' summed NLL (the |g| largest elements, the sum and
+the norm of each leaf); and,
+under ``cli``, the header lines the reference's training CLI prints for
+:data:`LM_CLI_ARGV` at full width. ``chip_smoke.py``'s phase 14 holds the
+card's f32 rounds (a) and the CLI's lines (e) to it.
 
 ``serve-bma`` writes ``tests/golden/serve_bma_lenet_radar.npz``: the
 reference's BMA probabilities and predictive entropies
@@ -984,6 +1000,147 @@ def write_decode() -> None:
     print(f"wrote {DECODE_FILE}")
 
 
+LM_ROUNDS_FILE = GOLDEN / "lm_rounds_smollm_135m.json"
+# the train CLI's defaults for smollm-135m (``repro/launch/train.py``),
+# each cut listed under ``cuts``: the CPU holds two nodes' f32 state at
+# full width
+LM_ROUNDS_CONFIG = dict(
+    arch="smollm-135m", dtype="float32", seed=0, rounds=2, pool=8,
+    minibatch=2, seq=32, data_scale=1.0,
+    fed=dict(num_nodes=2, local_steps=2, eta=1e-4, zeta=0.3,
+             topology="ring", compressor="block_topk", compress_ratio=0.01),
+    cuts={"num_nodes": "4 -> 2", "local_steps": "4 -> 2",
+          "batch": "4 -> 2", "seq": "128 -> 32", "rounds": "20 -> 2",
+          "pool": "64 -> 8", "dtype": "bfloat16 -> float32"})
+
+
+# the elements of largest |g| a gradient leaf keeps in the LM record
+LM_GRAD_TOP = 16
+
+
+# chip_smoke.py's phase-14 (e) run of the training CLI at full width: the
+# reference CLI's defaults for smollm-135m, two rounds, each evaluated
+LM_CLI_ARGV = ["--arch", "smollm-135m", "--rounds", "2", "--log-every", "1",
+               "--eval-every", "1", "--eval-examples", "16",
+               "--bank-capacity", "2", "--burn-in", "0"]
+
+
+def lm_pools(markov_tokens, nodes: int, pool: int, seq: int, vocab: int,
+             seed: int = 0, node0: int = 0) -> list:
+    """The train CLI's per-node pools, ``markov_tokens(pool, seq, V, seed,
+    k)`` for nodes ``node0 .. node0 + nodes - 1`` (node K's stream is its
+    held-out set)."""
+    return [{"tokens": markov_tokens(pool, seq, vocab, seed=seed, node=k)}
+            for k in range(node0, node0 + nodes)]
+
+
+def tree_record(tree) -> dict:
+    """:func:`leaf_record` of every leaf of a (numpy) tree, by path."""
+    import jax
+    return {"/".join(str(getattr(k, "key", k)) for k in path):
+            leaf_record(np.asarray(x))
+            for path, x in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+def lm_nll_batch(pools, minibatch: int) -> np.ndarray:
+    """The LM record's NLL batch ``(K, minibatch, S)``: the first
+    ``minibatch`` sequences of each node's pool."""
+    return np.stack([p["tokens"][:minibatch] for p in pools])
+
+
+def grad_record(g: np.ndarray, top: int = LM_GRAD_TOP) -> dict:
+    """A gradient leaf: shape, float64 sum and L2 norm, the largest |g|,
+    and the ``top`` elements of largest |g| (flat index and value; picks at
+    fixed places would mostly read the zero rows of an embedding that the
+    batch's tokens never reach)."""
+    flat = np.ascontiguousarray(g, np.float32).reshape(-1)
+    idx = np.sort(np.argsort(-np.abs(flat), kind="stable")[:top])
+    return {"shape": list(g.shape),
+            "sum": float(flat.astype(np.float64).sum()),
+            "norm": float(np.sqrt(np.square(flat.astype(np.float64)).sum())),
+            "absmax": float(np.abs(flat).max()),
+            "idx": [int(i) for i in idx],
+            "values": [float(flat[i]) for i in idx]}
+
+
+def write_lm_rounds() -> None:
+    """The reference's host-engine rounds of full-width smollm-135m in f32
+    (:data:`LM_ROUNDS_CONFIG`): each round's losses (K, L), consensus and
+    wire bytes a node, and after it each leaf of θ and v (shape, float64
+    sum, sum of the f32 bit patterns, elements at :func:`leaf_picks`)
+    with v's count of survivors and each node's NLL of θ on the record's
+    NLL batch (:func:`lm_nll_batch`); the init's θ under ``init``, its NLL
+    under ``init_nll`` and the gradient of the nodes' summed NLL there
+    under ``init_grad`` (:func:`grad_record`). The loss is data_scale·NLL
+    plus the prior's ½·(1/K)·Σθ², which dwarfs the NLL at full width, and
+    η·∇NLL moves θ by less than the rounds' noise: the NLL and its gradient
+    are recorded apart so that a wrong forward or backward shows."""
+    import jax
+    import jax.numpy as jnp
+    from repro.config import FedConfig, get_arch
+    from repro.data.synthetic_lm import markov_tokens
+    from repro.models import get_model
+    from repro.train import FedTrainer
+    c = LM_ROUNDS_CONFIG
+    cfg = get_arch(c["arch"]).config.replace(dtype=c["dtype"])
+    fed = FedConfig(rounds=c["rounds"], **c["fed"])
+    t0 = time.time()
+    model = get_model(cfg)
+    pools = lm_pools(markov_tokens, fed.num_nodes, c["pool"], c["seq"],
+                     cfg.vocab_size, c["seed"])
+    trainer = FedTrainer(model, fed, pools, minibatch=c["minibatch"],
+                         seed=c["seed"], data_scale=c["data_scale"],
+                         engine="host", bank_capacity=1)
+    batch = {"tokens": jnp.asarray(lm_nll_batch(pools, c["minibatch"]))}
+    nll_fn = jax.jit(jax.vmap(lambda p, b: model.loss(p, b)[0]))
+    grad_fn = jax.jit(jax.grad(lambda p, b: jnp.sum(jax.vmap(
+        lambda q, t: model.loss(q, t)[0])(p, b))))
+    nll = lambda p: np.asarray(nll_fn(p, batch), np.float64).tolist()
+    rec = {"command": "JAX_PLATFORMS=cpu PYTHONPATH=src python "
+                      "tests/torch_golden.py lm-rounds",
+           "reference": "repro.train.FedTrainer(engine='host') on the CPU",
+           "config": c, "init": tree_record(trainer.state.params),
+           "init_nll": nll(trainer.state.params),
+           "init_grad": {
+               "/".join(str(getattr(k, "key", k)) for k in path):
+               grad_record(np.asarray(g)) for path, g in
+               jax.tree_util.tree_leaves_with_path(
+                   grad_fn(trainer.state.params, batch))},
+           "rounds": []}
+    print(f"init in {time.time() - t0:.1f} s", flush=True)
+    eng, losses = trainer._engine, []
+    round_fn = eng.round_fn
+
+    def hooked(state, batches, key):
+        out = round_fn(state, batches, key)
+        losses.append(np.asarray(out[1].loss, np.float64).tolist())
+        return out
+    eng.round_fn = hooked
+    for t in range(c["rounds"]):
+        t1 = time.time()
+        res = trainer.run(rounds=1)
+        v = jax.tree.map(np.asarray, trainer.state.v)
+        rec["rounds"].append({
+            "loss": losses[-1],
+            "mean_loss": float(res.loss_history[-1]),
+            "consensus": float(res.consensus_history[-1]),
+            "wire_bytes": float(res.wire_history[-1]),
+            "theta": tree_record(trainer.state.params),
+            "v": tree_record(v),
+            "v_survivors": {"/".join(str(getattr(k, "key", k)) for k in path):
+                            int(np.count_nonzero(x)) for path, x in
+                            jax.tree_util.tree_leaves_with_path(v)},
+            "nll": nll(trainer.state.params),
+            "seconds": time.time() - t1})
+        print(f"round {t + 1}: loss {res.loss_history[-1]:.6f} consensus "
+              f"{res.consensus_history[-1]:.6e} in {time.time() - t1:.1f} s",
+              flush=True)
+    rec["cli"] = {"argv": LM_CLI_ARGV,
+                  "lines": reference_cli_lines(LM_CLI_ARGV)}
+    LM_ROUNDS_FILE.write_text(json.dumps(rec, indent=1) + "\n")
+    print(f"wrote {LM_ROUNDS_FILE}")
+
+
 def print_kv_flips(draws: int = 200) -> None:
     import jax
     import jax.numpy as jnp
@@ -1060,4 +1217,5 @@ if __name__ == "__main__":
          "drift": write_drift_rounds,
          "drift-claims": write_drift_claims,
          "decode": write_decode,
+         "lm-rounds": write_lm_rounds,
          "kv-flips": print_kv_flips}[name]()
