@@ -276,6 +276,45 @@ Phases, each of which fails the run by raising:
              low-margin step; (d) the LM eval on markov
              tokens, the scan engine's CUDA graph against the host engine
              bit for bit.
+15. vlm    — llava-next-mistral-7b (ROADMAP A12 part 3): (a) the
+             reference's reduced-width f32 rounds on {tokens, patches}
+             pools (``tests/golden/lm_families_reduced.json``): bytes and
+             v's survivors exact, losses and consensus within 1e-5, θ at
+             the record's picks within 5e-4, scan = host; (b) full width
+             at 2 layers against ``tests/golden/vlm_llava_next.json``:
+             init bit for bit, wire bytes exact, each node's NLL within
+             4e-6 and the gradient over img_proj and the first layer
+             within 1e-4, a bf16-compute control failing both, one f32
+             round; (c) two bf16 rounds at full width, one layer, L=1,
+             scan = host bit for bit, a replayed round's device ms; (d)
+             DecodeEngine text-only at full width on 8 layers (M=2, 8
+             slots, bf16): one capture, a replayed step's device ms.
+16. moe    — grok-1-314b and deepseek-v2-236b (ROADMAP A12 part 4): (a)
+             the reduced records' rounds (grok-1 ragged, deepseek-v2
+             gshard and ragged) as 15 (a), the aux term in the losses,
+             and DecodeEngine's tokens equal to the reference engine's;
+             (b) deepseek-v2 at full width, one layer, f32, against the
+             reference's record (tests/golden/moe_deepseek_v2.json): the
+             bank's init bit for bit; the ragged forward's top logits
+             within 1e-4 of the largest, NLL within rtol 4e-6 and aux
+             1e-5, a bf16-compute control failing the first two;
+             DecodeEngine M=1, 8 slots: tokens equal to the reference
+             engine's at every step above the 1e-4 margin; the absorbed
+             MLA decode through f32 latent caches equal to the forward
+             (atol 2e-3); then DecodeEngine M=2, 8 slots, bf16, the
+             ragged dispatch inside the captured step, timed; (c)
+             grok-1's decode at full width, one layer (M=1, 4 slots),
+             through decode_attention; (d) torch's grouped_mm probed at
+             deepseek-v2's expert shapes (dtypes, capture, backward).
+             Training at full width does not fit one card (ROADMAP A10).
+             Phase 2 holds decode_attention at grok-1's heads and
+             bma_sample at V = 131,072 and 102,400 at these banks.
+
+Phase 11 (a) and (b) run for float16 control variates too, after bf16:
+the f16 forms of topk_select, delta-pack, fused_update and cffl_update
+bit for bit against their plain versions (subnormal halves and ±0 in v
+and in the rounded deltas; ROADMAP C32), timed, and the three runs
+against ``tests/golden/f16_rounds_lenet_radar.json``.
 
 Phase 2 also holds the decode step's kernels to their plain versions at
 smollm-135m's full-width shapes (4 samples x 8 and x 64 slots, 128 cache
@@ -368,17 +407,18 @@ from repro_torch.eval.engine import HostEvalEngine, ScanEvalEngine  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.block_topk import block_topk, block_topk_plain  # noqa: E402
 from repro_torch.kernels.fused_compress import (  # noqa: E402
-    carrier_norms_plain, delta_pack, delta_pack_bf16, delta_pack_plain,
+    carrier_norms_plain, delta_pack, delta_pack_plain,
     grid_quant_leaves, grid_quant_plain)
 from repro_torch.kernels.fused_update import (  # noqa: E402
-    cffl_update, cffl_update_bf16, cffl_update_bf16_plain, cffl_update_plain,
-    dsgld_update, dsgld_update_plain, fused_update, fused_update_bf16,
-    fused_update_bf16_plain, fused_update_plain, gossip_mix,
+    cffl_update, cffl_update_control, cffl_update_control_plain,
+    cffl_update_plain, dsgld_update, dsgld_update_plain, fused_update,
+    fused_update_control, fused_update_control_plain, fused_update_plain,
+    gossip_mix,
     gossip_mix_plain)
 from repro_torch.kernels.pack import (from_uint16, magnitude_keys,  # noqa: E402
                                       num_blocks, pack_topk, pack_topk_plain,
                                       to_blocks, topk_candidates_plain,
-                                      topk_select, topk_select_bf16,
+                                      topk_select,
                                       topk_select_plain, unpack_set,
                                       unpack_set_plain, unpack_topk,
                                       unpack_topk_plain)
@@ -401,7 +441,8 @@ from repro_torch.serve import (ClassifyEngine, DecodeEngine,  # noqa: E402
                                ServeRequest, live_device_bytes)
 from repro_torch.train.engine import round_indices  # noqa: E402
 from repro_torch.utils.tree import (tree_count, tree_leaves,  # noqa: E402
-                                    tree_leaves_with_path, tree_map)
+                                    tree_leaves_with_path, tree_map,
+                                    tree_map_with_path)
 from torch_golden import (BASELINE_ROUNDS_FILE, BOUNDARY_K,  # noqa: E402
                           CLI_HEADS, GEOMETRIC_TV, SEEDED_CONFIG,
                           SEEDED_ROUNDS_FILE, SERVE_BMA_FILE, SERVE_CONFIG,
@@ -417,6 +458,10 @@ from torch_golden import (DECODE_CONFIG, DECODE_FILE,  # noqa: E402
                           decode_requests, exp_inputs)
 from torch_golden import (LM_CLI_ARGV, LM_ROUNDS_CONFIG,  # noqa: E402
                           LM_ROUNDS_FILE, lm_nll_batch, lm_pools)
+from torch_golden import (LM_FAMILIES_FILE, LM_FAMILY_CONFIG,  # noqa: E402
+                          LM_FAMILY_DECODE, LM_FAMILY_RUNS, MOE_FULL_CONFIG,
+                          MOE_FULL_FILE, VLM_FULL_CONFIG, VLM_FULL_FILE,
+                          family_cfg, family_pools)
 
 DEVICE = "cuda"
 REDUCED = False                                    # full lenet-radar width
@@ -520,6 +565,18 @@ KERNELS = {
     "cffl_update_bf16": ("src/repro_torch/kernels/csrc/fused_update.cu",
                          "none (no pl.pallas_call): jnp CF-FL update with "
                          "bf16 v, v̄, src/repro/core/algorithms.py:602"),
+    # and float16 ones (ROADMAP A3, C32)
+    "topk_select_f16": ("src/repro_torch/kernels/csrc/pack.cu",
+                        "none (no pl.pallas_call): jnp lax.top_k block "
+                        "selection of θ − v, v f16, "
+                        "src/repro/core/compression.py:426"),
+    "delta_pack_f16": ("src/repro_torch/kernels/csrc/fused_compress.cu",
+                       "src/repro/kernels/fused_compress.py:58"),
+    "fused_update_f16": ("src/repro_torch/kernels/csrc/fused_update.cu",
+                         "src/repro/kernels/fused_update.py:43"),
+    "cffl_update_f16": ("src/repro_torch/kernels/csrc/fused_update.cu",
+                        "none (no pl.pallas_call): jnp CF-FL update with "
+                        "f16 v, v̄, src/repro/core/algorithms.py:602"),
     # the BMA decode step of the dense LMs (ROADMAP A12): jnp in the
     # reference, no pl.pallas_call
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -688,7 +745,7 @@ def bound(nbytes: float, ops: float, int_ops: float = 0.0):
 
 
 _AS_INT = {torch.float32: torch.int32, torch.uint16: torch.int16,
-           torch.bfloat16: torch.int16,
+           torch.bfloat16: torch.int16, torch.float16: torch.int16,
            torch.int8: torch.int8, torch.int64: torch.int64}
 
 
@@ -1910,10 +1967,14 @@ TRACE_NAMES = {kname: re.compile(pattern) for kname, pattern in {
     "dsgld_update": r"fused_update_\w+<2>",
     "gossip_mix": r"gossip_mix_(tiles|rows)",
     "gilbert_keep": r"gilbert_keep_kernel",
-    "topk_select_bf16": r"topk_select_kernel<true, (?!float>)",
-    "delta_pack_bf16": r"pack_kernel<true, (?!float>)",
-    "fused_update_bf16": r"control_update_bf16_\w+<0>",
-    "cffl_update_bf16": r"control_update_bf16_\w+<1>",
+    "topk_select_bf16": r"topk_select_kernel<true, \w*bfloat16",
+    "delta_pack_bf16": r"pack_kernel<true, \w*bfloat16",
+    "fused_update_bf16": r"control_update_\w+<0, \w*bfloat16",
+    "cffl_update_bf16": r"control_update_\w+<1, \w*bfloat16",
+    "topk_select_f16": r"topk_select_kernel<true, \w*half",
+    "delta_pack_f16": r"pack_kernel<true, \w*half",
+    "fused_update_f16": r"control_update_\w+<0, \w*half",
+    "cffl_update_f16": r"control_update_\w+<1, \w*half",
     "decode_attention": r"decode_attention_kernel",
     "bma_sample": r"bma_sample_kernel"}.items()}
 # tries at a whole trace, and the least launches of its warm-up (profiled)
@@ -3178,40 +3239,41 @@ def run_link(train) -> dict:
 # CLI and the quickstart
 # --------------------------------------------------------------------------
 
-BF16_KERNELS = ("topk_select_bf16", "delta_pack_bf16", "fused_update_bf16",
-                "cffl_update_bf16")
-# each bf16 form's f32 twin, whose phase-2 time it is logged beside
-F32_TWIN = {"topk_select_bf16": "topk_select", "delta_pack_bf16": "delta_pack",
-            "fused_update_bf16": "fused_update",
-            "cffl_update_bf16": "cffl_update"}
-# f32 operations an element of the bf16 updates: two roundings of the
-# deltas to bf16, two adds, the subtraction, the fma (2) and two roundings
-# of the sums (cdbfl adds the noise's fma, 2)
-BF16_UPDATE_OPS = {"fused_update_bf16": 11, "cffl_update_bf16": 9}
+# the 2-byte control dtypes (FedConfig.control_dtype, ROADMAP A3): the tag
+# of their kernel forms' names, their dtype and FedConfig name
+CONTROL_DTYPES = {"bf16": (torch.bfloat16, "bfloat16"),
+                  "f16": (torch.float16, "float16")}
+FORMS = ("topk_select", "delta_pack", "fused_update", "cffl_update")
+# f32 operations an element of the 2-byte updates: two roundings of the
+# deltas, two adds, the subtraction, the fma (2) and two roundings of the
+# sums (cdbfl adds the noise's fma, 2; f16 widens the two rounded sums)
+UPDATE_FORM_OPS = {"bf16": {"fused_update": 11, "cffl_update": 9},
+                   "f16": {"fused_update": 13, "cffl_update": 11}}
 # phase 11 (b)'s runs: overrides of phase 7's configuration, the kernels
-# each launches, and the f32 twins it must not launch
-BF16_RUNS = {
-    "cdbfl": (dict(), ("topk_select_bf16", "unpack_set", "fused_update_bf16",
-                       "threefry"), ("topk_select", "fused_update")),
-    "fused": (dict(fused_compress=True), ("delta_pack_bf16", "unpack",
-                                          "fused_update_bf16", "threefry"),
-              ("delta_pack", "fused_update")),
-    "cffl": (dict(algorithm="cffl"), ("topk_select_bf16", "unpack_set",
-                                      "cffl_update_bf16", "threefry"),
-             ("topk_select", "cffl_update")),
+# each launches (by their f32 twins' names: the run must launch the
+# 2-byte form, and not the f32 twin)
+CONTROL_RUNS = {
+    "cdbfl": (dict(), ("topk_select", "fused_update"), ("unpack_set",
+                                                        "threefry")),
+    "fused": (dict(fused_compress=True), ("delta_pack", "fused_update"),
+              ("unpack", "threefry")),
+    "cffl": (dict(algorithm="cffl"), ("topk_select", "cffl_update"),
+             ("unpack_set", "threefry")),
 }
-BF16_ROUNDS, BF16_GOLDEN = 4, ROOT / "tests" / "golden" / \
-    "bf16_rounds_lenet_radar.json"
+CONTROL_ROUNDS = 4
+CONTROL_GOLDEN = {tag: ROOT / "tests" / "golden" /
+                  f"{tag}_rounds_lenet_radar.json" for tag in CONTROL_DTYPES}
 EVAL_CLI_ARGV = ["--quick", "--scenarios", "clean,day23_critical",
                  "--severities", "1.0", "--device", DEVICE]
 
 
-def bf16_cases(shapes):
-    """Phase 2's leaves with v (and v̄) rounded to bf16, and C6/C9's
-    non-finite values in the bf16 v itself: a NaN, ±inf, a block of NaN,
-    a NaN in the ragged block."""
-    out = [(name, th, v.to(torch.bfloat16)) for name, th, v in
-           leaf_cases(shapes)]
+def control_cases(shapes, tag: str = "bf16"):
+    """Phase 2's leaves with v (and v̄) rounded to the control dtype, and
+    C6/C9's non-finite values in v itself: a NaN, ±inf, a block of NaN, a
+    NaN in the ragged block. For f16, a leaf whose v holds subnormal halves
+    and ±0 (C32: f16 keeps its subnormals)."""
+    dt = CONTROL_DTYPES[tag][0]
+    out = [(name, th, v.to(dt)) for name, th, v in leaf_cases(shapes)]
     gen = torch.Generator(device=DEVICE).manual_seed(11)
     th = torch.randn((K, 4097), generator=gen, device=DEVICE)
     v = torch.randn((K, 4097), generator=gen, device=DEVICE) * 0.1
@@ -3219,19 +3281,30 @@ def bf16_cases(shapes):
     v[2, 4096] = float("nan")
     v[3, 100] = float("inf")
     v[4, 2048:2060] = -float("inf")
-    out.append(("non-finite bf16 v 4097", th, v.to(torch.bfloat16)))
+    out.append((f"non-finite {tag} v 4097", th, v.to(dt)))
+    if dt == torch.float16:
+        th = torch.randn((K, 3000), generator=gen, device=DEVICE) * 1e-6
+        v = torch.randint(-1023, 1024, (K, 3000), generator=gen,
+                          device=DEVICE).float() * 2.0 ** -24
+        v[:, ::7] = 0.0
+        v[:, 3::7] = -0.0
+        out.append(("subnormal and signed-zero f16 v 3000", th,
+                    v.to(dt)))
     return out
 
 
-def check_bf16_kernels(shapes):
-    """Phase 11 (a): the four bf16 forms against their plain versions on
-    the card, bit for bit (a NaN of an update's output equals any NaN, as
-    phase 2's): every full-width and edge leaf, then one table launch each
-    of topk_select and delta-pack over all of them. Returns the largest
-    absolute errors."""
-    errs = dict.fromkeys(BF16_KERNELS, 0.0)
+def check_control_kernels(shapes, tag: str = "bf16"):
+    """Phase 11 (a): the four 2-byte forms of ``tag`` against their plain
+    versions on the card, bit for bit (a NaN of an update's output equals
+    any NaN, as phase 2's): every full-width and edge leaf (for f16 the
+    update's deltas with subnormal halves and ±0 once rounded), then one
+    table launch each of topk_select and delta-pack over all of them.
+    Returns the largest absolute errors."""
+    dt = CONTROL_DTYPES[tag][0]
+    names = [f"{f}_{tag}" for f in FORMS]
+    errs = dict.fromkeys(names, 0.0)
     gen = torch.Generator(device=DEVICE).manual_seed(12)
-    cases = [c for c in bf16_cases(shapes) if c[1].shape[1] > 1]
+    cases = [c for c in control_cases(shapes, tag) if c[1].shape[1] > 1]
 
     def same(kname, got, want, label, nan_any=False):
         ok = (same_or_both_nan(got, want) if nan_any
@@ -3247,63 +3320,72 @@ def check_bf16_kernels(shapes):
         n, k = th.shape[1], leaf_k(th.shape[1])
         (vals, idx), = topk_select([th], [k], [v])
         want = topk_select_plain(th, k, v=v)
-        same("topk_select_bf16", vals, want[0], name)
-        same("topk_select_bf16", idx, want[1], name)
+        same(f"topk_select_{tag}", vals, want[0], name)
+        same(f"topk_select_{tag}", idx, want[1], name)
         (vals, idx), = delta_pack([th], [v], SURVIVORS)
         want = delta_pack_plain(th, v, SURVIVORS)
-        same("delta_pack_bf16", vals, want[0], name)
-        same("delta_pack_bf16", idx, want[1], name)
-        vb = (v.float() * 0.5 + 0.01).to(torch.bfloat16)
+        same(f"delta_pack_{tag}", vals, want[0], name)
+        same(f"delta_pack_{tag}", idx, want[1], name)
+        vb = (v.float() * 0.5 + 0.01).to(dt)
         dvb = torch.randn(th.shape, generator=gen, device=DEVICE) * 1e-2
         dv = torch.randn(th.shape, generator=gen, device=DEVICE) * 1e-2
+        if dt == torch.float16:
+            # deltas that round to f16 subnormals and to ±0
+            dvb[:, ::5] = torch.randint(-60, 61, dvb[:, ::5].shape,
+                                        generator=gen, device=DEVICE
+                                        ).float() * 2.0 ** -25
+            dv[:, 1::5] = -0.0
         xi = torch.randn(th.shape, generator=gen, device=DEVICE) * 1e-3
         finite = bool(torch.isfinite(th).all() and torch.isfinite(
             v.float()).all())
         for kname, got, want in (
-                ("fused_update_bf16",
-                 fused_update_bf16(th, vb, v, dvb, dv, xi, 0.03, 1.0),
-                 fused_update_bf16_plain(th, vb, v, dvb, dv, xi, 0.03, 1.0)),
-                ("cffl_update_bf16",
-                 cffl_update_bf16(th, vb, v, dvb, dv, 0.03),
-                 cffl_update_bf16_plain(th, vb, v, dvb, dv, 0.03))):
+                (f"fused_update_{tag}",
+                 fused_update_control(th, vb, v, dvb, dv, xi, 0.03, 1.0),
+                 fused_update_control_plain(th, vb, v, dvb, dv, xi, 0.03, 1.0)),
+                (f"cffl_update_{tag}",
+                 cffl_update_control(th, vb, v, dvb, dv, 0.03),
+                 cffl_update_control_plain(th, vb, v, dvb, dv, 0.03))):
             for part, g, w in zip(("θ'", "v̄'", "v'"), got, want):
                 same(kname, g, w, f"{name} ({part})", nan_any=not finite)
-        log("bf16", f"{name}: K={K} n={n}: topk_select, delta-pack, "
-                    f"fused_update and cffl_update with bf16 v (and v̄) "
-                    f"bit-exact to their plain versions")
+        log(tag, f"{name}: K={K} n={n}: topk_select, delta-pack, "
+                 f"fused_update and cffl_update with {tag} v (and v̄) "
+                 f"bit-exact to their plain versions")
     ks = [leaf_k(c[1].shape[1]) for c in cases]
     xs, vs = [c[1] for c in cases], [c[2] for c in cases]
-    before = (topk_select_bf16.launches, delta_pack_bf16.launches)
+    sel_form = kernels.WRAPPERS[f"topk_select_{tag}"]
+    pack_form = kernels.WRAPPERS[f"delta_pack_{tag}"]
+    before = (sel_form.launches, pack_form.launches)
     got = topk_select(xs, ks, vs)
     packed = delta_pack(xs, vs, SURVIVORS)
-    if (topk_select_bf16.launches - before[0],
-            delta_pack_bf16.launches - before[1]) != (1, 1):
-        raise AssertionError("a mixed bf16 topk_select or delta-pack table "
-                             "took other than one launch")
+    if (sel_form.launches - before[0],
+            pack_form.launches - before[1]) != (1, 1):
+        raise AssertionError(f"a mixed {tag} topk_select or delta-pack "
+                             f"table took other than one launch")
     for (name, x, v), k, sel, pk in zip(cases, ks, got, packed):
         want = topk_select_plain(x, k, v=v)
-        same("topk_select_bf16", sel[0], want[0], f"the table's {name}")
-        same("topk_select_bf16", sel[1], want[1], f"the table's {name}")
+        same(f"topk_select_{tag}", sel[0], want[0], f"the table's {name}")
+        same(f"topk_select_{tag}", sel[1], want[1], f"the table's {name}")
         want = delta_pack_plain(x, v, SURVIVORS)
-        same("delta_pack_bf16", pk[0], want[0], f"the table's {name}")
-        same("delta_pack_bf16", pk[1], want[1], f"the table's {name}")
-    log("bf16", f"one table launch each of topk_select and delta-pack with "
-                f"bf16 v over the {len(xs)} leaves above: bit-exact")
+        same(f"delta_pack_{tag}", pk[0], want[0], f"the table's {name}")
+        same(f"delta_pack_{tag}", pk[1], want[1], f"the table's {name}")
+    log(tag, f"one table launch each of topk_select and delta-pack with "
+             f"{tag} v over the {len(xs)} leaves above: bit-exact")
     return errs
 
 
-def time_bf16_kernels(shapes, timing):
-    """Phase 11 (a)'s times: each bf16 form over the 10 full-width leaves
-    (K=10) as the round runs it (topk_select and delta-pack one table
-    launch, the updates one launch a leaf), beside its plain version, its
-    bound and its f32 twin's phase-2 device time; for topk_select the
-    library call of its f32 twin (one stable torch.sort of the blocks'
-    keys)."""
+def time_control_kernels(shapes, timing, tag: str = "bf16"):
+    """Phase 11 (a)'s times: each 2-byte form of ``tag`` over the 10
+    full-width leaves (K=10) as the round runs it (topk_select and
+    delta-pack one table launch, the updates one launch a leaf), beside its
+    plain version, its bound and its f32 twin's phase-2 device time; for
+    topk_select the library call of its f32 twin (one stable torch.sort of
+    the blocks' keys)."""
+    dt = CONTROL_DTYPES[tag][0]
     gen = torch.Generator(device=DEVICE).manual_seed(13)
     ths = [torch.randn((K, int(np.prod(s))), generator=gen, device=DEVICE)
            for _, s in shapes]
-    vs = [(t * 0.1).to(torch.bfloat16) for t in ths]
-    vbs = [(t * 0.05).to(torch.bfloat16) for t in ths]
+    vs = [(t * 0.1).to(dt) for t in ths]
+    vbs = [(t * 0.05).to(dt) for t in ths]
     dvs = [t * 0.01 for t in ths]
     dvbs = [t * 0.02 for t in ths]
     xis = [t * 0.001 for t in ths]
@@ -3318,53 +3400,60 @@ def time_bf16_kernels(shapes, timing):
     sel_padded = sum(vals.shape[1] * K * BLOCK for vals, _ in sel)
     keys = torch.cat([magnitude_keys(to_blocks(t - v.float(), BLOCK))
                       for t, v in zip(ths, vs)])
+    ops = UPDATE_FORM_OPS[tag]
     rows = {
-        "topk_select_bf16": (
+        "topk_select": (
             lambda: topk_select(ths, ks, vs),
             lambda: [topk_select_plain(t, k, v=v)
                      for t, k, v in zip(ths, ks, vs)],
             lambda: torch.sort(keys, dim=1, descending=True, stable=True),
             total * 6 + sel_wire, TOPK_SELECT_OPS * sel_padded),
-        "delta_pack_bf16": (
+        "delta_pack": (
             lambda: delta_pack(ths, vs, SURVIVORS),
             lambda: [delta_pack_plain(t, v, SURVIVORS)
                      for t, v in zip(ths, vs)],
             None, total * 6 + pack_wire, DELTA_PACK_OPS * padded),
-        "fused_update_bf16": (
-            lambda: [fused_update_bf16(*a, 0.03, 1.0) for a in
+        "fused_update": (
+            lambda: [fused_update_control(*a, 0.03, 1.0) for a in
                      zip(ths, vbs, vs, dvbs, dvs, xis)],
-            lambda: [fused_update_bf16_plain(*a, 0.03, 1.0) for a in
+            lambda: [fused_update_control_plain(*a, 0.03, 1.0) for a in
                      zip(ths, vbs, vs, dvbs, dvs, xis)],
-            None, total * 28, BF16_UPDATE_OPS["fused_update_bf16"] * total),
-        "cffl_update_bf16": (
-            lambda: [cffl_update_bf16(*a, 0.03) for a in
+            None, total * 28, ops["fused_update"] * total),
+        "cffl_update": (
+            lambda: [cffl_update_control(*a, 0.03) for a in
                      zip(ths, vbs, vs, dvbs, dvs)],
-            lambda: [cffl_update_bf16_plain(*a, 0.03) for a in
+            lambda: [cffl_update_control_plain(*a, 0.03) for a in
                      zip(ths, vbs, vs, dvbs, dvs)],
-            None, total * 24, BF16_UPDATE_OPS["cffl_update_bf16"] * total),
+            None, total * 24, ops["cffl_update"] * total),
     }
     out = {}
-    for name, (kern, plain, lib, nbytes, ops) in rows.items():
-        b_ms, b_by = bound(nbytes, ops)
-        readings = traced_readings([kern])
+    for twin, (kern, plain, lib, nbytes, nops) in rows.items():
+        name = f"{twin}_{tag}"
+        b_ms, b_by = bound(nbytes, nops)
+        # the profiler can lose a whole trace's launches late in the
+        # process (PERF.md §7): up to three tries for a reading
+        readings = None
+        for _ in range(3):
+            readings = traced_readings([kern])
+            if readings:
+                break
         r = dict(ms=device_ms(kern), plain_ms=device_ms(plain, reps=3,
                                                          per_rep=2),
                  device_ms=readings and statistics.median(readings),
                  plain_device_ms=traced_ms([plain]), bound_ms=b_ms,
-                 bound_by=b_by, nbytes=nbytes, ops=ops,
+                 bound_by=b_by, nbytes=nbytes, ops=nops,
                  library_ms=None if lib is None else traced_ms([lib]))
         out[name] = r
-        twin = timing.get(F32_TWIN[name], {})
-        log("bf16", f"{name} per round (10 leaves, K={K}): device "
-                    f"{fmt_ms(r['device_ms'])} (median of the traces' "
-                    f"{readings and [round(x, 4) for x in readings]}), "
-                    f"event-timed {r['ms']:.4f} ms; its f32 twin "
-                    f"{F32_TWIN[name]} {fmt_ms(twin.get('device_ms'))} "
-                    f"(phase 2); plain: device "
-                    f"{fmt_ms(r['plain_device_ms'])}, event-timed "
-                    f"{r['plain_ms']:.4f} ms; library "
-                    f"{fmt_ms(r['library_ms']) if lib else 'none'}; bound "
-                    f"{b_ms:.4f} ms ({b_by}: {nbytes:.0f} B, {ops:.0f} ops)")
+        f32 = timing.get(twin, {})
+        log(tag, f"{name} per round (10 leaves, K={K}): device "
+                 f"{fmt_ms(r['device_ms'])} (median of the traces' "
+                 f"{readings and [round(x, 4) for x in readings]}), "
+                 f"event-timed {r['ms']:.4f} ms; its f32 twin {twin} "
+                 f"{fmt_ms(f32.get('device_ms'))} (phase 2); plain: device "
+                 f"{fmt_ms(r['plain_device_ms'])}, event-timed "
+                 f"{r['plain_ms']:.4f} ms; library "
+                 f"{fmt_ms(r['library_ms']) if lib else 'none'}; bound "
+                 f"{b_ms:.4f} ms ({b_by}: {nbytes:.0f} B, {nops:.0f} ops)")
     return out
 
 
@@ -3378,9 +3467,22 @@ def time_bf16_kernels(shapes, timing):
 # by at most 5.1e-7 either way: there only the norms tell bf16 from f32.
 BF16_METRIC_RTOL = 2e-6
 BF16_NORM_RTOL = {"cdbfl": 5e-7, "fused": 5e-7, "cffl": 3e-6}
+# the same for float16 control variates against the reference's f16 run
+# (tests/golden/f16_rounds_lenet_radar.json). f16 keeps 11 bits where bf16
+# keeps 8, so the f32 control lies closer: its norms move by 4.7e-7 and
+# 1.18e-6 (cdbfl), 4.0e-7 and 2.81e-6 (fused), 9.6e-7 and 2.77e-6 (cffl)
+# of the record's, its losses and consensus by at most 1.6e-6. And f16
+# rounds away less of the card's last bits: the first card run read the
+# cdbfl norms within 3.0e-8, the fused run's ‖v̄‖ 9.16e-7 off. The
+# norm limits sit between those readings and the control's.
+F16_METRIC_RTOL = 2e-6
+F16_NORM_RTOL = {"cdbfl": 3e-7, "fused": 2e-6, "cffl": 2e-6}
+CONTROL_RTOL = {"bf16": (BF16_METRIC_RTOL, BF16_NORM_RTOL),
+                "f16": (F16_METRIC_RTOL, F16_NORM_RTOL)}
 
 
-def check_bf16_golden(name: str, fed: FedConfig, res, norms) -> None:
+def check_bf16_golden(name: str, fed: FedConfig, res, norms,
+                      tag: str = "bf16") -> None:
     """Rounds 1-2 against the reference's CPU run of the same bf16
     configuration: bytes exact; loss, consensus and the control state's
     ‖v‖₂, ‖v̄‖₂ after round 2 (``norms``) within the limits above. The
@@ -3388,14 +3490,16 @@ def check_bf16_golden(name: str, fed: FedConfig, res, norms) -> None:
     another order than XLA's CPU code, which moves the local steps' last
     bits) and the same run's with float32 control variates, which the
     check also asserts lie beyond them."""
-    want = json.loads(BF16_GOLDEN.read_text())[name]
+    golden = CONTROL_GOLDEN[tag]
+    metric_rtol, norm_rtol = CONTROL_RTOL[tag]
+    want = json.loads(golden.read_text())[name]
     mine = {k: getattr(fed, k) for k in want["config"]["fed"]}
     if want["config"]["fed"] != mine or want["config"]["reduced"] != REDUCED:
-        raise AssertionError(f"{BF16_GOLDEN.name} ran {want['config']}, "
+        raise AssertionError(f"{golden.name} ran {want['config']}, "
                              f"this run is {mine}")
     n = len(want["loss"])
     if res.wire_history[:n] != want["wire_bytes"]:
-        raise AssertionError(f"bf16 {name}: bytes {res.wire_history[:n]} "
+        raise AssertionError(f"{tag} {name}: bytes {res.wire_history[:n]} "
                              f"!= {want['wire_bytes']}")
     f32 = want["f32_control"]
     readings, control = {}, {}
@@ -3408,9 +3512,9 @@ def check_bf16_golden(name: str, fed: FedConfig, res, norms) -> None:
     for metric in ("v_norm", "v_bar_norm"):
         readings[metric] = abs(norms[metric] - want[metric]) / want[metric]
         control[metric] = abs(f32[metric] - want[metric]) / want[metric]
-    limit = {m: BF16_NORM_RTOL[name] if m.endswith("norm")
-             else BF16_METRIC_RTOL for m in readings}
-    log("bf16", f"{name}, seed 0, rounds 1-{n} against the reference's CPU "
+    limit = {m: norm_rtol[name] if m.endswith("norm")
+             else metric_rtol for m in readings}
+    log(tag, f"{name}, seed 0, rounds 1-{n} against the reference's CPU "
                 f"run: loss {res.loss_history[:n]} vs {want['loss']}, "
                 f"consensus {res.consensus_history[:n]} vs "
                 f"{want['consensus']}, ‖v‖ {norms['v_norm']!r} vs "
@@ -3421,24 +3525,26 @@ def check_bf16_golden(name: str, fed: FedConfig, res, norms) -> None:
                 f"{ {m: float(f'{r:.3g}') for m, r in control.items()} }")
     over = {m: r for m, r in readings.items() if r > limit[m]}
     if over:
-        raise AssertionError(f"bf16 {name}: {over} over the limits {limit} "
-                             f"against the reference's bf16 run")
+        raise AssertionError(f"{tag} {name}: {over} over the limits {limit} "
+                             f"against the reference's {tag} run")
     if not any(control[m] > limit[m] for m in control):
-        raise AssertionError(f"bf16 {name}: the f32 control's readings "
+        raise AssertionError(f"{tag} {name}: the f32 control's readings "
                              f"{control} lie within the limits {limit}")
 
 
-def run_bf16(name: str, train, test, evals):
-    """Phase 11 (b): one configuration with control_dtype="bfloat16" at
-    full width, 4 rounds on the host engine and on the scan engine (chunks
+def run_control(name: str, train, test, evals, tag: str = "bf16"):
+    """Phase 11 (b): one configuration with the 2-byte control dtype of
+    ``tag`` at full width, 4 rounds on the host engine and on the scan engine (chunks
     of 2), the two bit for bit; rounds 1-2 against the reference's; the
     control state's bytes; a replayed chunk timed beside phase 7's f32
     run of the same algorithm (``evals``). Returns the host run's trainer
     and launches."""
     from repro_torch.train import FedTrainer
-    overrides, launched, twins = BF16_RUNS[name]
+    dt, dname = CONTROL_DTYPES[tag]
+    overrides, twins, others = CONTROL_RUNS[name]
+    launched = tuple(f"{t}_{tag}" for t in twins) + others
     algorithm = overrides.get("algorithm", "cdbfl")
-    fed = default_config(algorithm, BF16_ROUNDS, control_dtype="bfloat16",
+    fed = default_config(algorithm, CONTROL_ROUNDS, control_dtype=dname,
                          **{k: v for k, v in overrides.items()
                             if k != "algorithm"})
     runs = {}
@@ -3448,23 +3554,23 @@ def run_bf16(name: str, train, test, evals):
                              seed=0, engine=engine, chunk=2, bank_thin=1,
                              device=DEVICE)
         kernels.reset_launch_counts()
-        res = trainer.run(rounds=BF16_ROUNDS, eval_batch=test)
+        res = trainer.run(rounds=CONTROL_ROUNDS, eval_batch=test)
         launches = kernels.launch_counts()
         runs[engine] = (trainer, res, launches)
         values = res.loss_history + res.consensus_history + [res.accuracy,
                                                               res.ece]
         if not all(math.isfinite(x) for x in values):
-            raise AssertionError(f"bf16 {name}: non-finite metric {values}")
+            raise AssertionError(f"{tag} {name}: non-finite metric {values}")
         missing = [k for k in launched if launches[k] <= 0]
         twin = {k: launches[k] for k in twins if launches[k]}
         if missing or twin:
-            raise AssertionError(f"bf16 {name} ({engine}): never launched "
+            raise AssertionError(f"{tag} {name} ({engine}): never launched "
                                  f"{missing}; launched the f32 forms {twin}")
         for part in ("v", "v_bar"):
-            if any(x.dtype != torch.bfloat16
+            if any(x.dtype != dt
                    for x in tree_leaves(getattr(trainer.state, part))):
-                raise AssertionError(f"bf16 {name}: {part} is not bf16")
-        log("bf16", f"{name} ({engine} engine): ms/round "
+                raise AssertionError(f"{tag} {name}: {part} is not {tag}")
+        log(tag, f"{name} ({engine} engine): ms/round "
                     f"{[round(x, 2) for x in res.round_ms]}; losses "
                     f"{res.loss_history}; consensus {res.consensus_history}; "
                     f"day-1 accuracy {res.accuracy:.4f} ECE {res.ece:.4f}; "
@@ -3477,27 +3583,27 @@ def run_bf16(name: str, train, test, evals):
     short_res = short.run(rounds=2)
     if (short_res.loss_history != res.loss_history[:2]
             or short_res.consensus_history != res.consensus_history[:2]):
-        raise AssertionError(f"bf16 {name}: a 2-round run differs from the "
+        raise AssertionError(f"{tag} {name}: a 2-round run differs from the "
                              f"4-round run's first two rounds")
-    check_bf16_golden(name, fed, short_res, control_norms(short.state))
+    check_bf16_golden(name, fed, short_res, control_norms(short.state), tag)
     del short
     if (sres.loss_history != res.loss_history
             or sres.consensus_history != res.consensus_history
             or sres.wire_history != res.wire_history):
-        raise AssertionError(f"bf16 {name}: the scan run's metrics differ "
+        raise AssertionError(f"{tag} {name}: the scan run's metrics differ "
                              f"from the host run's")
     for part in ("params", "v", "v_bar"):
-        same_tensors(f"bf16 {name} {part}",
+        same_tensors(f"{tag} {name} {part}",
                      tree_leaves(getattr(scan.state, part)),
                      tree_leaves(getattr(host.state, part)))
-    same_tensors(f"bf16 {name} key", [scan.key], [host.key])
+    same_tensors(f"{tag} {name} key", [scan.key], [host.key])
     control = sum(x.numel() * x.element_size() for part in ("v", "v_bar")
                   for x in tree_leaves(getattr(host.state, part)))
     f32 = sum(x.numel() * 4 for part in ("v", "v_bar")
               for x in tree_leaves(getattr(host.state, part)))
-    wall, busy, _, _ = time_replay(scan._engine, BF16_ROUNDS, 2)
+    wall, busy, _, _ = time_replay(scan._engine, CONTROL_ROUNDS, 2)
     f32_wall, f32_busy = evals[algorithm]["replay_ms"]
-    log("bf16", f"{name}: scan engine equal to the host engine bit for bit "
+    log(tag, f"{name}: scan engine equal to the host engine bit for bit "
                 f"(params, v, v̄, key, losses, consensus, bytes); control "
                 f"state v + v̄ {control:,} B against {f32:,} B in f32; a "
                 f"replayed chunk of 2: {wall:.3f} ms a round, {busy:.3f} ms "
@@ -3557,7 +3663,7 @@ def run_eval_cli(trainer) -> None:
         if line.startswith("|"):
             log("eval", line)
     with tempfile.TemporaryDirectory() as d:
-        save_checkpoint(d, BF16_ROUNDS, trainer.state.params)
+        save_checkpoint(d, CONTROL_ROUNDS, trainer.state.params)
         if _looks_reduced(trainer.state.params, "lenet-radar"):
             raise AssertionError("_looks_reduced took the full-width "
                                  "checkpoint for the reduced config")
@@ -3596,24 +3702,33 @@ def run_quickstart() -> dict:
 
 
 def run_phase11(shapes, timing, train, test, evals):
-    """Phase 11 (``evals``: phase 7's, for its f32 replay times). Returns
-    the bf16 forms' errors, timings and launches."""
+    """Phase 11 (``evals``: phase 7's, for its f32 replay times), (a) and
+    (b) for bf16 and then f16 control variates. Returns the 2-byte forms'
+    errors, timings and launches."""
     log("bf16", f"on {card_line()}")
-    errs = check_bf16_kernels(shapes)
-    bf16_timing = time_bf16_kernels(shapes, timing)
-    launches, trainers = {}, {}
-    for name in BF16_RUNS:
-        trainers[name], launches[name] = run_bf16(name, train, test, evals)
+    errs, form_timing, counts = {}, {}, {}
+    trainers = {}
+    for tag in CONTROL_DTYPES:
+        errs.update(check_control_kernels(shapes, tag))
+        form_timing.update(time_control_kernels(shapes, timing, tag))
+        launches = {}
+        for name in CONTROL_RUNS:
+            trainer, launches[name] = run_control(name, train, test, evals,
+                                                  tag)
+            if tag == "bf16":
+                trainers[name] = trainer
+            del trainer
+        counts.update({
+            f"topk_select_{tag}": launches["cdbfl"][f"topk_select_{tag}"],
+            f"fused_update_{tag}": launches["cdbfl"][f"fused_update_{tag}"],
+            f"delta_pack_{tag}": launches["fused"][f"delta_pack_{tag}"],
+            f"cffl_update_{tag}": launches["cffl"][f"cffl_update_{tag}"]})
     run_claims()
     run_eval_cli(trainers["cdbfl"])
     del trainers
     torch.cuda.empty_cache()
     run_quickstart()
-    counts = dict(topk_select_bf16=launches["cdbfl"]["topk_select_bf16"],
-                  fused_update_bf16=launches["cdbfl"]["fused_update_bf16"],
-                  delta_pack_bf16=launches["fused"]["delta_pack_bf16"],
-                  cffl_update_bf16=launches["cffl"]["cffl_update_bf16"])
-    return errs, bf16_timing, counts
+    return errs, form_timing, counts
 
 
 # --------------------------------------------------------------------------
@@ -4092,8 +4207,9 @@ DECODE_M, DECODE_MAX_LEN, DECODE_NEW, DECODE_REQUESTS = 4, 128, 16, 16
 DECODE_SLOTS = (8, 64)                     # lanes M x slots: 32 and 256
 DECODE_WINDOW = 8                          # the ring-buffer case
 # the head groups of 128 that phase 2 also holds to the plain version:
-# 8 heads over each KV head (yi-9b) and 12 (mistral-large-123b)
-DECODE_WIDE_ARCHS = ("yi-9b", "mistral-large-123b")
+# 8 heads over each KV head (yi-9b), 12 (mistral-large-123b) and 6
+# (grok-1-314b, which phase 16 (c) decodes)
+DECODE_WIDE_ARCHS = ("yi-9b", "mistral-large-123b", "grok-1-314b")
 # f32 operations: an element of each of the decode attention's two dot
 # products (a multiply and an add); an element of the sampler: a sample's
 # scale, subtraction, XLA's exp (EXP_OPS), division and add, then the
@@ -4158,11 +4274,12 @@ def slot_positions(pos: torch.Tensor, slots: int, window: int):
 
 
 def attention_case(cfg, b: int, dtype, pos, window: int = 0, seed: int = 0,
-                   reset: int = 0, slots: int = DECODE_MAX_LEN):
-    """Full-width inputs of one layer's launch: M x b lanes at positions
+                   reset: int = 0, slots: int = DECODE_MAX_LEN,
+                   m: int = DECODE_M):
+    """Full-width inputs of one layer's launch: m x b lanes at positions
     ``pos``, the first ``reset`` lanes reset (slot_pos -1, as an admit
     leaves them); ``window`` slots in a ring buffer, else ``slots``."""
-    g, h, kv, hd = DECODE_M, cfg.num_heads, cfg.num_kv_heads, \
+    g, h, kv, hd = m, cfg.num_heads, cfg.num_kv_heads, \
         cfg.resolved_head_dim
     slots = window or slots
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -4191,8 +4308,9 @@ def check_decode_attention() -> float:
     decoding from position 0), a window-8 ring buffer wrapping around,
     caches of 256 slots (the serve CLI's ``--max-len 256``: the kernel
     takes the rows in two tiles), and groups of 8 and 12 heads of 128
-    (yi-9b's and mistral-large-123b's heads) over 32 lanes. Returns the
-    largest absolute error (0)."""
+    (yi-9b's and mistral-large-123b's heads) and of 6 (grok-1's) over 32
+    lanes, and grok-1's as phase 16 (c) launches them (M=1, 4 lanes, 32
+    slots). Returns the largest absolute error (0)."""
     cfg = decode_model_cfg()
     err = 0.0
     cases = []
@@ -4220,6 +4338,12 @@ def check_decode_attention() -> float:
                               wide, 8, dtype, [(37 * i) % 200
                                                for i in range(8)],
                               seed=r, reset=1)))
+    grok = get_arch("grok-1-314b").config
+    for dtype in (torch.bfloat16, torch.float32):
+        cases.append((f"grok-1-314b as phase 16 (c): 1x{GROK_SLOTS} lanes, "
+                      f"{FAMILY_MAX_LEN} slots {dtype}", attention_case(
+                          grok, GROK_SLOTS, dtype, [0, 1, 5, 31], seed=6,
+                          slots=FAMILY_MAX_LEN, m=1)))
     for label, (q, kn, vn, kc, vc, sp, pos, window) in cases:
         mine = [kc.clone(), vc.clone(), sp.clone()]
         theirs = [kc.clone(), vc.clone(), sp.clone()]
@@ -4241,13 +4365,14 @@ def check_decode_attention() -> float:
 
 
 def sample_case(s: int, dtype, vocab: int = 49152, seed: int = 0,
-                edges: bool = False):
+                edges: bool = False, m: int = DECODE_M):
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    lg = torch.randn((DECODE_M, s, vocab), generator=gen, device=DEVICE)
+    lg = torch.randn((m, s, vocab), generator=gen, device=DEVICE)
     if edges:
         lg[:, 0] = 0.5                                 # every logit tied
         lg[:, 1, 100:] = float("-inf")                 # 100 finite
-        lg[1, 2] = float("-inf")                       # a sample's -inf row
+        if m > 1:
+            lg[1, 2] = float("-inf")                   # a sample's -inf row
     keys = random.split(random.PRNGKey(seed, DEVICE), s)
     pos = torch.arange(s, dtype=torch.int64, device=DEVICE) * 9
     return lg.to(dtype), keys, pos
@@ -4257,8 +4382,10 @@ def check_bma_sample() -> float:
     """bma_sample against its plain version, bit for bit (tokens,
     probabilities, entropies): 8 and 64 slots of M=4 at V=49,152 (bf16 and
     f32), and ties, -inf, V = 1031 (not a whole number of 16-byte packs)
-    and V = 152,064 (qwen2.5-14b's, 3.09 packs a thread). Returns the
-    largest absolute error (0)."""
+    and V = 152,064 (qwen2.5-14b's, 3.09 packs a thread); and phase 16's
+    vocabularies at its banks: V = 131,072 at M=1 over GROK_SLOTS slots
+    (grok-1), V = 102,400 at M=2 and M=1 over FAMILY_SLOTS (deepseek-v2's
+    bf16 and f32 engines). Returns the largest absolute error (0)."""
     err = 0.0
     cases = [(f"{s} slots {dt}", sample_case(s, dt, seed=s))
              for s in DECODE_SLOTS for dt in (torch.bfloat16, torch.float32)]
@@ -4269,6 +4396,13 @@ def check_bma_sample() -> float:
     for dt in (torch.bfloat16, torch.float32):
         cases.append((f"8 slots, V=152064 {dt}", sample_case(
             8, dt, 152064, seed=7, edges=True)))
+    for dt in (torch.bfloat16, torch.float32):
+        cases.append((f"M=1, {GROK_SLOTS} slots, V=131072 {dt}", sample_case(
+            GROK_SLOTS, dt, 131072, seed=8, edges=True, m=1)))
+        for m in (2, 1):
+            cases.append((f"M={m}, {FAMILY_SLOTS} slots, V=102400 {dt}",
+                          sample_case(FAMILY_SLOTS, dt, 102400, seed=9 + m,
+                                      edges=True, m=m)))
     for label, (lg, keys, pos) in cases:
         got = bma_sample(lg, keys, pos)
         want = bma_sample_plain(lg, keys, pos)
@@ -5387,6 +5521,608 @@ def run_phase14() -> None:
     log("lm", f"phase 14 in {time.perf_counter() - t0:.1f} s")
 
 
+# --------------------------------------------------------------------------
+# phases 15 and 16: the vlm family (llava-next) and the moe family
+# (grok-1, deepseek-v2 with MLA) (ROADMAP A12 parts 3 and 4)
+# --------------------------------------------------------------------------
+
+# the reference's records (tests/torch_golden.py lm-families, vlm-full)
+# and their limits, relative unless named: at reduced width in f32 the
+# round's losses and consensus, and θ at the record's picks (absolute),
+# v's survivors a leaf exact. Readings of the first card run (the port on
+# the CPU reads at most 5.4e-7 and 1.2e-7): losses and consensus within
+# 1e-7 of the CPU port's, θ up to 1.03e-4 (llava's final norm scale; the
+# MoE archs 2.1e-5): the card sums each gradient in another order, and
+# the step η·data_scale = 6e-3 carries it. At full width the nodes' NLL of
+# the init and the gradient over img_proj and the first layer (each leaf's
+# 16 largest |g| over its largest, its norm), where a bf16-compute control
+# must fail each limit
+FAMILY_TOL = dict(loss=1e-5, consensus=1e-5, value=5e-4)
+# the kernels of these K=2 rounds: a ring of two mixes with one dense
+# einsum, not gossip_mix
+FAMILY_LAUNCHED = ("topk_select", "unpack_set", "fused_update", "threefry")
+VLM_NLL_RTOL, VLM_GRAD_TOL = 4e-6, 1e-4
+# phase 15 (c)'s decode: layers of the 32 an M=2 bank holds on one card
+# beside the run's other tables, slots, new tokens
+VLM_DECODE_LAYERS, FAMILY_SLOTS, FAMILY_NEW = 8, 8, 8
+# the full-width engines' cache length; grok-1's slots (phase 16 (c))
+FAMILY_MAX_LEN, GROK_SLOTS = 32, 4
+# phase 16 (b): deepseek-v2 at full width, one layer; the tokens of its
+# decode = forward check
+MOE_DECODE_LAYERS, MOE_CHECK_TOKENS = 1, 6
+# and its forward against the reference's record (tests/torch_golden.py
+# moe-full): the top logits over the largest |logit|, the NLL and the aux
+# term relative, where a bf16-compute control must fail the first two
+MOE_REC_TOL = dict(logits=1e-4, nll=4e-6, aux=1e-5)
+
+
+def family_record() -> dict:
+    rec = json.loads(LM_FAMILIES_FILE.read_text())
+    if rec["config"] != LM_FAMILY_CONFIG or rec["decode"] != \
+            LM_FAMILY_DECODE:
+        raise AssertionError(f"{LM_FAMILIES_FILE.name} ran {rec['config']}")
+    return rec
+
+
+def family_trainer(cfg, pools, engine: str, **kw):
+    from repro_torch.train import FedTrainer
+    c = LM_FAMILY_CONFIG
+    fed = FedConfig(rounds=c["rounds"], **c["fed"])
+    return FedTrainer(get_model(cfg), fed, pools, minibatch=c["minibatch"],
+                      seed=c["seed"], engine=engine, chunk=c["rounds"],
+                      bank_capacity=1, device=DEVICE, **kw)
+
+
+def check_family_run(name: str, want: dict) -> dict:
+    """A reduced-width run of the record (``LM_FAMILY_RUNS[name]``) on the
+    card, f32: the host engine's losses, consensus, bytes and θ against
+    the record; the scan engine (one chunk, a CUDA graph) bit for bit to
+    the host engine; the round's kernels launched. Returns the readings."""
+    from repro_torch.config import MoEConfig
+    from repro_torch.data.synthetic_lm import markov_tokens
+    run, c = LM_FAMILY_RUNS[name], LM_FAMILY_CONFIG
+    cfg = family_cfg(get_arch, MoEConfig, run["arch"], run["impl"],
+                     c["dtype"])
+    pools = family_pools(cfg, markov_tokens, c["fed"]["num_nodes"], c["pool"],
+                         c["seq"], c["seed"])
+    host = family_trainer(cfg, pools, "host")
+    eng, losses = host._engine, []
+    round_fn = eng.round_fn
+
+    def hooked(state, batches, key, draws=None):
+        out = round_fn(state, batches, key, draws)
+        losses.append(out[1].loss.double().cpu().numpy())
+        return out
+    hooked.draws = round_fn.draws
+    eng.round_fn = hooked
+    kernels.reset_launch_counts()
+    res = host.run(rounds=c["rounds"])
+    launches = kernels.launch_counts()
+    check_launched(f"{name} host run", launches, FAMILY_LAUNCHED)
+    if res.wire_history != want["wire_bytes"]:
+        raise AssertionError(f"{name}: bytes {res.wire_history} != "
+                             f"{want['wire_bytes']}")
+    got = dict(
+        loss=max(float(np.abs(l / np.asarray(w) - 1).max())
+                 for l, w in zip(losses, want["loss"])),
+        consensus=max(abs(g / w - 1) for g, w in zip(
+            res.consensus_history, want["consensus"])),
+        value=max(leaf_reading(x, want["theta"][p.replace(".", "/")])[0]
+                  for p, x in tree_leaves_with_path(host.state.params)))
+    survivors = {p.replace(".", "/"): int(torch.count_nonzero(x))
+                 for p, x in tree_leaves_with_path(host.state.v)}
+    if survivors != want["v_survivors"]:
+        raise AssertionError(f"{name}: v's survivors {survivors} against the "
+                             f"record's {want['v_survivors']}")
+    over = {k: v for k, v in got.items() if not v <= FAMILY_TOL[k]}
+    if over:
+        raise AssertionError(f"{name}: {over} over {FAMILY_TOL} against the "
+                             f"reference's record")
+    hstate = lm_state_of(host)
+    scan = family_trainer(cfg, pools, "scan")
+    sres = scan.run(rounds=c["rounds"])
+    same_lm_state(f"{name} scan against host", scan.state, hstate)
+    if sres.loss_history != res.loss_history:
+        raise AssertionError(f"{name}: scan losses differ from the host's")
+    wall, busy, _, _ = time_replay(scan._engine, c["rounds"], c["rounds"])
+    log("family", f"{name} ({cfg.name}, f32, K={c['fed']['num_nodes']}, "
+                  f"L={c['fed']['local_steps']}; {card_line()}): bytes and "
+                  f"v's survivors exact, readings "
+                  f"{ {k: float(f'{v:.3g}') for k, v in got.items()} } "
+                  f"(limits {FAMILY_TOL}); scan engine bit for bit; a "
+                  f"replayed chunk of {c['rounds']}: {wall:.3f} ms a round "
+                  f"wall, {busy:.3f} ms on the device; launches "
+                  f"{ {k: v for k, v in launches.items() if v} }")
+    return dict(got, launches=launches, replay_ms=busy)
+
+
+def check_family_decode(name: str, want: dict) -> dict:
+    """The port's DecodeEngine (its ``impl``) on the record's bank and
+    requests at reduced width, f32: tokens equal to the reference
+    engine's, entropies within rtol 1e-4."""
+    from repro_torch.config import MoEConfig
+    run, c, d = LM_FAMILY_RUNS[name], LM_FAMILY_CONFIG, LM_FAMILY_DECODE
+    cfg = family_cfg(get_arch, MoEConfig, run["arch"], run["impl"],
+                     c["dtype"])
+    model = get_model(cfg)
+    key = random.PRNGKey(0, DEVICE)
+    bank = tree_map(lambda *xs: torch.stack(xs), *[
+        model.init(random.fold_in(key, i), DEVICE)
+        for i in range(d["samples"])])
+    kernels.reset_launch_counts()
+    eng = DecodeEngine(model, ServeConfig(slots=d["slots"],
+                                          max_len=d["max_len"],
+                                          max_new_tokens=d["new_tokens"]),
+                       stacked=bank)
+    resps = eng.run([ServeRequest(prompt_token=t, seed=s) for t, s in
+                     decode_requests(cfg.vocab_size, d["requests"], 0)])
+    launches = kernels.launch_counts()
+    worst = 0.0
+    for r, w in zip(sorted(resps, key=lambda r: r.request_id),
+                    want["decode"]):
+        if r.tokens.tolist() != w["tokens"]:
+            raise AssertionError(f"{name} decode: tokens {r.tokens.tolist()}"
+                                 f" != the reference's {w['tokens']}")
+        worst = max(worst, float(np.abs(np.asarray(r.token_entropy)
+                                        / np.asarray(w["entropy"]) - 1)
+                                 .max()))
+    if worst > 1e-4 or eng.compile_count() != 1:
+        raise AssertionError(f"{name} decode: entropies {worst:.3g} off, "
+                             f"{eng.compile_count()} captures")
+    check_launched(f"{name} decode", launches, ("bma_sample",) + (
+        ("decode_attention",) if not cfg.kv_lora_rank else ()))
+    log("family", f"{name} decode ({d['samples']} samples, {d['slots']} "
+                  f"slots, {d['requests']} requests): tokens the reference "
+                  f"engine's, entropies within {worst:.3g}; one capture; "
+                  f"launches { {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def full_bank(model, samples: int, cast=None):
+    """A bank of ``samples`` inits from fold_in(PRNGKey(0), i), leaf by
+    leaf into a stacked tree (f32, or ``cast`` but for the leaves a served
+    bank keeps in f32)."""
+    from repro_torch.serve.engine import F32_LEAVES
+    key = random.PRNGKey(0, DEVICE)
+    bank = None
+    for i in range(samples):
+        one = model.init(random.fold_in(key, i), DEVICE)
+        if bank is None:
+            bank = tree_map_with_path(lambda p, x: torch.empty(
+                (samples,) + x.shape, device=DEVICE,
+                dtype=x.dtype if cast is None or p.endswith(F32_LEAVES)
+                else cast), one)
+        for b, x in zip(tree_leaves(bank), tree_leaves(one)):
+            b[i].copy_(x)
+        del one
+        torch.cuda.empty_cache()
+    return bank
+
+
+def run_family_decode_full(cfg, label: str, samples: int = 2,
+                           slots: int = FAMILY_SLOTS) -> dict:
+    """DecodeEngine at full width in bf16: ``samples`` inits, ``slots``
+    slots, FAMILY_NEW new tokens over 2·slots requests; one capture, every
+    entropy finite; a replayed step's device ms."""
+    model = get_model(cfg.replace(dtype="bfloat16"))
+    bank = full_bank(model, samples, torch.bfloat16)
+    n = tree_count(tree_map(lambda x: x[0], bank))
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    eng = DecodeEngine(model, ServeConfig(slots=slots, max_len=FAMILY_MAX_LEN,
+                                          max_new_tokens=FAMILY_NEW),
+                       stacked=bank)
+    del bank
+    gc.collect()
+    torch.cuda.empty_cache()
+    reqs = [ServeRequest(prompt_token=t, seed=s) for t, s in
+            decode_requests(cfg.vocab_size, 2 * slots, 0)]
+    t0 = time.perf_counter()
+    resps = eng.run(reqs)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    ents = np.concatenate([r.token_entropy for r in resps])
+    if eng.compile_count() != 1 or not np.isfinite(ents).all() or \
+            len(resps) != len(reqs):
+        raise AssertionError(f"{label} decode: {eng.compile_count()} "
+                             f"captures, entropies {ents}")
+    step_ms = device_ms(eng._graph.replay, reps=5, per_rep=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(label, f"DecodeEngine at full width, {cfg.num_layers} layers, bf16: "
+               f"{samples} samples of {n:,} parameters, {slots} "
+               f"slots, {len(reqs)} requests of {FAMILY_NEW} tokens in "
+               f"{wall:.2f} s wall, one capture, entropies finite "
+               f"({float(ents.min()):.3f}-{float(ents.max()):.3f}); a "
+               f"replayed step {step_ms:.4f} ms on the device (CUDA events, "
+               f"median of 5) on {card_line()}; peak allocated {peak:.2f} "
+               f"GiB; launches { {k: v for k, v in launches.items() if v} }")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_ms=step_ms)
+
+
+def vlm_record() -> dict:
+    rec = json.loads(VLM_FULL_FILE.read_text())
+    if rec["config"] != VLM_FULL_CONFIG:
+        raise AssertionError(f"{VLM_FULL_FILE.name} ran {rec['config']}")
+    return rec
+
+
+def vlm_grad_reading(model, params, batch, want) -> tuple:
+    """The gradient of node 0's NLL over img_proj and the first layer
+    against the record's (``grad_reading``'s measure; the backward inside
+    ``f32_sums``, as the round takes it)."""
+    from repro_torch.core import algorithms as alg
+    paths = [p for p, _ in tree_leaves_with_path(params)]
+    _, grads = alg._value_and_grad(model.nll, paths, tree_leaves(params),
+                                   batch, 0.0, 1.0)
+    worst, where = 0.0, ""
+    for path, g in zip(paths, grads):
+        key = path.replace(".", "/")
+        if key not in want:
+            continue
+        w = want[key]
+        flat = (g[0] if key == "embed/img_proj" else g[0, 0]).reshape(-1)
+        got = flat[torch.tensor(w["idx"], device=flat.device)].double()
+        err = max(float(np.abs(got.cpu().numpy() - np.asarray(w["values"]))
+                        .max()) / w["absmax"],
+                  abs(float(flat.double().norm()) / w["norm"] - 1))
+        if err > worst:
+            worst, where = err, path
+    return worst, where
+
+
+@permissive_matmuls()
+def run_phase15() -> dict:
+    """Phase 15: llava-next. (a) the reduced record's rounds; (b) full
+    width at 2 layers against the reference's record: init bit for bit,
+    wire bytes exact, each node's NLL and the gradient over img_proj and
+    the first layer with a bf16 control that must fail their limits, then
+    one f32 round; (c) two bf16 rounds at full width, one layer, L=1, on
+    both engines, bit for bit; (d) DecodeEngine text-only at full width on VLM_DECODE_LAYERS
+    layers. Returns the launches of (c)'s host run and (d)."""
+    from repro_torch.data.synthetic_lm import markov_tokens
+    from repro_torch.train import FedTrainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("vlm", f"on {card_line()}; {torch.cuda.memory_allocated() / 2**30:.2f}"
+               f" GiB allocated at the phase's start")
+    frec = family_record()
+    check_family_run("llava", frec["runs"]["llava"])
+    rec = vlm_record()
+    c = rec["config"]
+    cfg = get_arch(c["arch"]).config.replace(num_layers=c["num_layers"],
+                                             dtype=c["dtype"])
+    pools = family_pools(cfg, markov_tokens, c["nodes"], c["pool"], c["seq"],
+                         c["seed"])
+    t0 = time.perf_counter()
+    model, control = get_model(cfg), get_model(cfg.replace(dtype="bfloat16"))
+    fed = FedConfig(rounds=1, burn_in=0, local_steps=2, **c["fed"])
+    trainer = FedTrainer(model, fed, pools, minibatch=1, seed=c["seed"],
+                         engine="host", bank_capacity=1, device=DEVICE)
+    for path, x in tree_leaves_with_path(trainer.state.params):
+        err, _, bits = leaf_reading(x[0], rec["init"][path.replace(".", "/")])
+        if err != 0 or not bits:
+            raise AssertionError(f"(b) init of {path} is not the reference's")
+    params = tree_map(lambda x: x[:1], trainer.state.params)
+    params = tree_map(lambda x: x.expand((c["nodes"],) + x.shape[1:]),
+                      params)
+    batch = {k: torch.from_numpy(np.stack([p[k][0] for p in pools])[:, None]
+                                 ).to(DEVICE) for k in pools[0]}
+    readings = {}
+    for name, m in (("f32", model), ("bf16 control", control)):
+        with torch.no_grad():
+            got = m.nll(params, batch).double().cpu().numpy()
+        nll = float(np.abs(got / np.asarray(rec["nll"]) - 1).max())
+        one = {k: v[:1] for k, v in batch.items()}
+        grad, at = vlm_grad_reading(m, tree_map(lambda x: x[:1], params),
+                                    one, rec["grad"])
+        readings[name] = (nll, grad, at)
+        gc.collect()
+        torch.cuda.empty_cache()
+    (nll, grad, at), (cnll, cgrad, _) = readings["f32"], \
+        readings["bf16 control"]
+    if not (nll <= VLM_NLL_RTOL < cnll and grad <= VLM_GRAD_TOL < cgrad):
+        raise AssertionError(f"(b) {readings} against the limits "
+                             f"{VLM_NLL_RTOL}, {VLM_GRAD_TOL}")
+    del params
+    res = trainer.run(rounds=1)
+    if res.wire_history != [rec["wire_bytes"]] or not all(
+            math.isfinite(x) for x in res.loss_history):
+        raise AssertionError(f"(b) round: {res.wire_history} "
+                             f"{res.loss_history}")
+    n = tree_count(tree_map(lambda x: x[0], trainer.state.params))
+    log("vlm", f"(b) {cfg.name} at full width, {c['cuts']}: {n:,} "
+               f"parameters a node, {cfg.num_image_patches} patches and "
+               f"{c['seq']} tokens a sequence; init bit for bit, wire bytes "
+               f"{rec['wire_bytes']:,.0f} exact; the nodes' NLL "
+               f"{rec['nll']} within {nll:.3g} (limit {VLM_NLL_RTOL}; bf16 "
+               f"control {cnll:.3g}); the gradient over img_proj and the "
+               f"first layer within {grad:.3g} ({at}; limit {VLM_GRAD_TOL}; "
+               f"bf16 control {cgrad:.3g}); one f32 round (K=2, L=2): loss "
+               f"{res.loss_history}, {res.round_ms[0]:.1f} ms; "
+               f"{time.perf_counter() - t0:.1f} s")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the scan engine holds its chunk's scratch state and its graph's pool
+    # beside the trainer's: at 2 layers (715 M parameters a node) it
+    # outgrows the card; at one (497 M), L=2 and chunks of 2 it peaked at
+    # 68 GiB alone and outgrew the card after the earlier phases: one
+    # layer, L=1, chunks of one round
+    bcfg = cfg.replace(dtype="bfloat16", num_layers=1)
+    runs = {}
+    for engine in ("host", "scan"):
+        torch.cuda.reset_peak_memory_stats()
+        tr = FedTrainer(get_model(bcfg), FedConfig(rounds=2, burn_in=0,
+                                                   local_steps=1,
+                                                   **c["fed"]),
+                        pools, minibatch=1, seed=c["seed"], engine=engine,
+                        chunk=1, bank_capacity=1, device=DEVICE)
+        kernels.reset_launch_counts()
+        r = tr.run(rounds=2)
+        # the host run's state waits on the host: the scan trainer's
+        # state and its chunk's scratch fill the card
+        runs[engine] = ({k: [x.cpu() for x in v]
+                         for k, v in lm_state_of(tr).items()}, r,
+                        kernels.launch_counts(),
+                        torch.cuda.max_memory_allocated() / 2**30)
+        if engine == "scan":
+            wall, busy, _, _ = time_replay(tr._engine, 2, 1)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    hstate, hres, hl, _ = runs["host"]
+    sstate, sres, _, peak = runs["scan"]
+    for part in ("params", "v", "v_bar"):
+        same_tensors(f"(c) scan {part}", sstate[part], hstate[part])
+    if sres.loss_history != hres.loss_history:
+        raise AssertionError("(c) scan losses differ from the host's")
+    check_launched("(c) host run", hl, FAMILY_LAUNCHED)
+    log("vlm", f"(c) bf16 at full width, one layer, L=1, 2 rounds (chunks "
+               f"of 1): scan engine bit for bit to the host engine; losses "
+               f"{hres.loss_history}; a replayed round {busy:.3f} ms on the device ({wall:.3f} ms wall) on "
+               f"{card_line()}; peak allocated {peak:.2f} GiB")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    d = run_family_decode_full(
+        get_arch(c["arch"]).config.replace(num_layers=VLM_DECODE_LAYERS),
+        "vlm")
+    check_launched("(d) decode", d["launches"], DECODE_LAUNCHED)
+    return dict(round=hl, decode=d["launches"], round_ms=busy,
+                step_ms=d["step_ms"])
+
+
+def moe_record() -> dict:
+    rec = json.loads(MOE_FULL_FILE.read_text())
+    if rec["config"] != MOE_FULL_CONFIG:
+        raise AssertionError(f"{MOE_FULL_FILE.name} ran {rec['config']}")
+    return rec
+
+
+def moe_forward_reading(model, bank, fwd) -> dict:
+    """The forward of the record's sequence against the record's: each
+    position's top logits over the largest |logit|, the NLL and the aux
+    term (relative)."""
+    toks = torch.tensor([fwd["tokens"]], device=DEVICE)
+    with torch.no_grad():
+        lg = model.logits(bank, {"tokens": toks})[0, 0].float()
+        got = lg.gather(1, torch.tensor(fwd["top_idx"], device=DEVICE))
+        del lg
+        _, parts = model.loss(bank, {"tokens": toks})
+    return dict(logits=float(np.abs(got.double().cpu().numpy()
+                                    - np.asarray(fwd["top_logits"])).max())
+                / fwd["absmax"],
+                nll=abs(float(parts["nll"][0]) / fwd["nll"] - 1),
+                aux=abs(float(parts["aux"][0]) / fwd["aux"] - 1))
+
+
+def check_moe_decode_equals_forward(model, params) -> float:
+    """deepseek-v2's absorbed MLA decode through f32 latent caches and the
+    ragged dispatch, MOE_CHECK_TOKENS steps, against the forward's logits
+    of the same tokens (atol 2e-3, the reference's own check of its zoo).
+    Returns the largest difference."""
+    toks = torch.from_numpy(np.asarray(decode_requests(
+        model.cfg.vocab_size, MOE_CHECK_TOKENS, 0))[:, 0].reshape(1, -1)
+                            ).to(DEVICE)
+    with torch.no_grad():
+        fwd = model.logits(params, {"tokens": toks})[0, 0]
+        cache = model.init_decode_state(1, 8, dtype_kv=torch.float32,
+                                        device=DEVICE)
+        worst = 0.0
+        for pos in range(toks.shape[1]):
+            cache, lg = model.decode_step(params, cache, toks[:, pos],
+                                          torch.full((1,), pos,
+                                                     device=DEVICE))
+            worst = max(worst, float((lg[0, 0, 0] - fwd[pos]).abs().max()))
+    if worst > 2e-3:
+        raise AssertionError(f"(b) deepseek-v2 decode off its forward by "
+                             f"{worst:.3g}")
+    return worst
+
+
+def check_moe_full() -> dict:
+    """(b) deepseek-v2 at full width, one layer, f32, against the
+    reference's record (MOE_FULL_FILE): the bank of one init bit for bit;
+    the forward of the record's sequence (ragged dispatch): each
+    position's top logits, the NLL and the aux term within MOE_REC_TOL,
+    where a bf16-compute control on the same weights must fail the logits'
+    and the NLL's limits; DecodeEngine on the bank (M=1, the record's
+    slots and requests): tokens equal the reference engine's at every step
+    above the margin, entropies within rtol (compare_decode), one capture;
+    and the decode of MOE_CHECK_TOKENS tokens equal to the forward's
+    logits. Returns the readings and the engine's launches."""
+    rec = moe_record()
+    c, d = rec["config"], rec["config"]["decode"]
+    cfg = get_arch(c["arch"]).config.replace(num_layers=c["num_layers"],
+                                             dtype=c["dtype"])
+    t0 = time.perf_counter()
+    model = get_model(cfg)
+    bank = full_bank(model, d["samples"])
+    for path, x in tree_leaves_with_path(bank):
+        # the record's paths: a list index as "[i]"
+        key = "/".join(f"[{p}]" if p.isdigit() else p
+                       for p in path.split("."))
+        err, _, bits = leaf_reading(x[0], rec["init"][key])
+        if err != 0 or not bits:
+            raise AssertionError(f"(b) init of {path} is not the reference's")
+    readings = {name: moe_forward_reading(m, bank, rec["forward"]) for
+                name, m in (("f32", model), ("bf16 control", get_model(
+                    cfg.replace(dtype="bfloat16"))))}
+    got, control = readings["f32"], readings["bf16 control"]
+    if not (all(got[k] <= MOE_REC_TOL[k] for k in MOE_REC_TOL) and
+            all(control[k] > MOE_REC_TOL[k] for k in ("logits", "nll"))):
+        raise AssertionError(f"(b) forward {readings} against the limits "
+                             f"{MOE_REC_TOL}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    eng = DecodeEngine(model, ServeConfig(
+        slots=d["slots"], max_len=d["max_len"],
+        max_new_tokens=d["max_new_tokens"]), stacked=bank)
+    resps = eng.run([ServeRequest(prompt_token=t, seed=s) for t, s in
+                     decode_requests(cfg.vocab_size, d["requests"],
+                                     d["seed"])])
+    launches = kernels.launch_counts()
+    if eng.compile_count() != 1:
+        raise AssertionError(f"(b) {eng.compile_count()} captures")
+    check_launched("(b) deepseek-v2 f32 decode", launches, ("bma_sample",))
+    compare_decode(f"(b) deepseek-v2 at full width, {c['num_layers']} "
+                   f"layer, f32, M={d['samples']}, {d['slots']} slots",
+                   resps, rec["decode"], "float32")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    dvf = check_moe_decode_equals_forward(model, bank)
+    log("moe", f"(b) deepseek-v2 at full width, {c['cuts']}, f32: "
+               f"{tree_count(tree_map(lambda x: x[0], bank)):,} parameters, "
+               f"init bit for bit the reference's; the forward of "
+               f"{len(rec['forward']['tokens'])} tokens (ragged dispatch) "
+               f"within {fmt_readings(got)} of the record (limits "
+               f"{MOE_REC_TOL}; bf16 control {fmt_readings(control)}); "
+               f"DecodeEngine one capture, launches "
+               f"{ {k: v for k, v in launches.items() if v} }; "
+               f"{MOE_CHECK_TOKENS} absorbed-MLA decode steps through f32 "
+               f"latent caches equal the forward's logits within {dvf:.3g} "
+               f"(atol 2e-3); {time.perf_counter() - t0:.1f} s")
+    del bank
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(readings, decode_vs_forward=dvf, launches=launches)
+
+
+def fmt_readings(r: dict) -> str:
+    return str({k: float(f"{v:.3g}") for k, v in r.items()})
+
+
+def probe_grouped_mm() -> dict:
+    """(d) The library's grouped product as the ragged dispatch would call
+    it: ``torch.nn.functional.grouped_mm`` of a (token, slot) copy a row,
+    sorted by expert, against deepseek-v2's 160 gate matrices of 5120 x
+    1536, the experts' offsets a cumsum of ``scatter_add_`` counts on the
+    device (no host read); at 96 copies (the M=2, 8-slot decode step's)
+    and 4096, in bf16 and f32: its device ms beside the gathered batched
+    product's (the port's route), the error against it in f32 (96
+    copies), whether it captures in a CUDA graph and whether it has a
+    backward. A record of what the library offers on this card; the
+    dispatch does not use it (PERF.md §5)."""
+    e, d, f = 160, 5120, 1536
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for n in (96, 4096):
+            gen = torch.Generator(device=DEVICE).manual_seed(n)
+            w = (torch.randn((e, d, f), generator=gen, device=DEVICE)
+                 * 0.02).to(dtype)
+            x = torch.randn((n, d), generator=gen, device=DEVICE).to(dtype)
+            ex = torch.sort(torch.randint(0, e, (n,), generator=gen,
+                                          device=DEVICE), stable=True)[0]
+            counts = torch.zeros(e, dtype=torch.int32, device=DEVICE)
+            counts.scatter_add_(0, ex, torch.ones_like(ex, dtype=torch.int32))
+            offs = torch.cumsum(counts, 0, dtype=torch.int32)
+            grouped = lambda: torch.nn.functional.grouped_mm(  # noqa: E731
+                x, w, offs=offs)
+            r = {}
+            try:
+                got = grouped()
+                r["ms"] = device_ms(grouped, per_rep=2)
+            except RuntimeError as err:
+                r["forward"] = str(err).splitlines()[0][:120]
+                out[(str(dtype), n)] = r
+                continue
+            if n <= 96:
+                gathered = lambda: torch.bmm(x[:, None], w[ex])  # noqa
+                want = torch.bmm(x[:, None].float(), w[ex].float())[:, 0]
+                r["err"] = float((got.float() - want).abs().max()
+                                 / want.abs().max())
+                r["gathered_ms"] = device_ms(gathered, per_rep=2)
+            try:
+                s = torch.cuda.Stream()
+                s.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(s):
+                    grouped()
+                torch.cuda.current_stream().wait_stream(s)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    cap = grouped()
+                graph.replay()
+                r["captures"] = bool(torch.equal(cap, got))
+            except RuntimeError as err:
+                r["captures"] = str(err).splitlines()[0][:120]
+            torch.cuda.synchronize()
+            xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
+            step = lambda: torch.autograd.grad(  # noqa: E731
+                torch.nn.functional.grouped_mm(xr, wr, offs=offs).float()
+                .sum(), (xr, wr))
+            try:
+                step()
+                r["backward_ms"] = device_ms(step, reps=3, per_rep=1)
+            except RuntimeError as err:
+                r["backward"] = str(err).splitlines()[0][:120]
+            out[(str(dtype), n)] = r
+            del w, x, xr, wr
+            gc.collect()
+            torch.cuda.empty_cache()
+    for (dt, n), r in out.items():
+        log("moe", f"(d) grouped_mm, {n} copies over {e} experts of {d} x "
+                   f"{f}, {dt}: " + "; ".join(
+                       f"{k} {v:.4g}" if isinstance(v, float) else
+                       f"{k}: {v}" for k, v in r.items())
+            + f" (device ms by CUDA events; {card_line()})")
+    return out
+
+
+@permissive_matmuls()
+def run_phase16() -> dict:
+    """Phase 16: the moe family. (a) the reduced records' rounds (grok-1
+    ragged, deepseek-v2 gshard and ragged) and decode engines; (b)
+    deepseek-v2 at full width against the reference's record
+    (check_moe_full), then DecodeEngine M=2 in bf16, timed; (c) grok-1's
+    GQA decode at full width, one layer; (d) the grouped_mm probe. A round
+    at full width does not fit one card (ROADMAP A10). Returns the
+    readings."""
+    log("moe", f"on {card_line()}")
+    rec = family_record()
+    out = {}
+    for name in ("grok_ragged", "deepseek_gshard", "deepseek_ragged"):
+        out[name] = check_family_run(name, rec["runs"][name])
+    for name in ("grok_ragged", "deepseek_ragged"):
+        out[f"{name} decode"] = check_family_decode(name, rec["runs"][name])
+    out["deepseek_full"] = check_moe_full()
+    d = run_family_decode_full(get_arch("deepseek-v2-236b").config.replace(
+        num_layers=MOE_DECODE_LAYERS), "moe")
+    check_launched("(b) deepseek-v2 decode", d["launches"], ("bma_sample",))
+    # grok-1's one layer is 6.5 B parameters (13 GB a sample in bf16) and
+    # each token copy gathers its experts' 1.2 GB: one sample, 4 slots
+    g = run_family_decode_full(get_arch("grok-1-314b").config.replace(
+        num_layers=1), "moe", samples=1, slots=GROK_SLOTS)
+    check_launched("(c) grok-1 decode", g["launches"], DECODE_LAUNCHED)
+    out.update(deepseek_step_ms=d["step_ms"], grok_step_ms=g["step_ms"],
+               decode=g["launches"], grouped_mm=probe_grouped_mm())
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5471,6 +6207,8 @@ def main() -> int:
     run_phase12(train, test, shift)
     decode_launches = run_phase13()
     run_phase14()
+    run_phase15()
+    run_phase16()
     log("default", "accuracy / ECE, day-1 test maps and days-2/3 shift set: "
                    + "; ".join(f"{a}: {e['accuracy']:.4f} / {e['ece']:.4f}, "
                                f"{e['shift_accuracy']:.4f} / "

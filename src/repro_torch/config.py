@@ -173,8 +173,7 @@ class ContinualConfig:
 
 @dataclass(frozen=True)
 class MoEConfig:
-    """The reference's MoE knobs (``repro/config.py:19-32``); the port runs
-    no MoE family yet (ROADMAP A12)."""
+    """The reference's MoE knobs (``repro/config.py:19-32``)."""
     num_experts: int = 0            # routed experts (0 = dense MLP)
     num_shared_experts: int = 0     # always-on experts (DeepSeek style)
     top_k: int = 2
@@ -187,7 +186,8 @@ class MoEConfig:
 class ModelConfig:
     """One architecture: every field of the reference ``ModelConfig``
     (``repro/config.py:35-93``) with its default. The port runs the
-    ``lenet`` and ``dense`` families (``repro_torch.models``)."""
+    ``lenet``, ``dense``, ``vlm`` and ``moe`` families
+    (``repro_torch.models``)."""
     name: str = "model"
     family: str = "dense"           # dense | moe | hybrid | ssm | vlm | audio | lenet
     num_layers: int = 2
@@ -249,8 +249,8 @@ _SUPPORTED = {
     # powers of two: XLA folds the reference's `/ s / (1 + ω)` differently
     # in its qsgd kernel and in its decode for any other s (ROADMAP C5)
     "qsgd_levels": ((1, 2, 4, 8, 16, 32, 64), "C5 (QSGD levels)"),
-    "control_dtype": (("float32", "bfloat16"),
-                      "A3 (float16 control variates)"),
+    "control_dtype": (("float32", "bfloat16", "float16"),
+                      "A3 (control variate dtypes)"),
     "topology": (("full", "ring", "chain", "star", "grid", "torus",
                   "k_regular", "erdos_renyi", "geometric"),
                  "A4 (graph families)"),
@@ -356,9 +356,6 @@ _ARCHS: Dict[str, ArchSpec] = {}
 # the reference's registry (``repro/configs``): the ids the port does not
 # run yet, each with the part of the LM model zoo (ROADMAP A12) that ports it
 _UNPORTED_ARCHS = {
-    "deepseek-v2-236b": "A12 part 4 (moe and MLA)",
-    "grok-1-314b": "A12 part 4 (moe)",
-    "llava-next-mistral-7b": "A12 part 3 (vlm)",
     "recurrentgemma-9b": "A12 part 5 (hybrid, RG-LRU)",
     "xlstm-1.3b": "A12 part 6 (ssm, xLSTM)",
     "whisper-tiny": "A12 part 7 (audio)",
@@ -452,3 +449,59 @@ for _arch_id, _cfg, _reduced, _source, _notes in _DENSE:
     register_arch(ArchSpec(arch_id=_arch_id, config=_cfg,
                            reduced=_cfg.replace(**_reduced), source=_source,
                            notes=_notes))
+
+
+# llava-next (``repro/configs/llava_next_mistral_7b.py``): the Mistral-7B
+# backbone with 1,152 precomputed patch embeddings in front of the text
+LLAVA_NEXT = ModelConfig(name="llava-next-mistral-7b", family="vlm",
+                         num_layers=32, d_model=4096, num_heads=32,
+                         num_kv_heads=8, head_dim=128, d_ff=14336,
+                         vocab_size=32000, num_image_patches=1152)
+register_arch(ArchSpec(
+    arch_id="llava-next-mistral-7b",
+    config=LLAVA_NEXT,
+    reduced=LLAVA_NEXT.replace(
+        name="llava-next-reduced", num_layers=2, d_model=128, num_heads=4,
+        num_kv_heads=2, head_dim=32, d_ff=256, vocab_size=512,
+        num_image_patches=16),
+    source="hf:llava-hf/llava-v1.6-mistral-7b-hf",
+    notes="Backbone = Mistral-7B. ViT/projector stubbed per the brief: "
+          "input_specs() supplies (B, 1152, 4096) patch embeddings; text loss "
+          "masked to token positions. long_500k via sliding_window variant.",
+))
+
+# the MoE family (``repro/configs/{deepseek_v2_236b,grok_1_314b}.py``)
+DEEPSEEK_V2 = ModelConfig(
+    name="deepseek-v2-236b", family="moe", num_layers=60, d_model=5120,
+    num_heads=128, num_kv_heads=128, head_dim=128, d_ff=1536,
+    vocab_size=102400,
+    moe=MoEConfig(num_experts=160, num_shared_experts=2, top_k=6),
+    kv_lora_rank=512, q_lora_rank=1536, rope_head_dim=64)
+register_arch(ArchSpec(
+    arch_id="deepseek-v2-236b",
+    config=DEEPSEEK_V2,
+    reduced=DEEPSEEK_V2.replace(
+        name="deepseek-v2-reduced", num_layers=2, d_model=128, num_heads=4,
+        num_kv_heads=4, head_dim=32, d_ff=64, vocab_size=512,
+        moe=MoEConfig(num_experts=4, num_shared_experts=1, top_k=2),
+        kv_lora_rank=32, q_lora_rank=48, rope_head_dim=16),
+    source="arXiv:2405.04434 (DeepSeek-V2)",
+    notes="MLA latent cache (512+64 per token) keeps decode caches small; "
+          "long_500k runs the MLA decode path (per-token cost O(S·rank), "
+          "cache linear in S at rank size — the arch's own long-context story).",
+))
+GROK_1 = ModelConfig(
+    name="grok-1-314b", family="moe", num_layers=64, d_model=6144,
+    num_heads=48, num_kv_heads=8, head_dim=128, d_ff=32768,
+    vocab_size=131072,
+    moe=MoEConfig(num_experts=8, num_shared_experts=0, top_k=2), act="gelu")
+register_arch(ArchSpec(
+    arch_id="grok-1-314b",
+    config=GROK_1,
+    reduced=GROK_1.replace(
+        name="grok-1-reduced", num_layers=2, d_model=128, num_heads=4,
+        num_kv_heads=2, head_dim=32, d_ff=256, vocab_size=512,
+        moe=MoEConfig(num_experts=4, num_shared_experts=0, top_k=2)),
+    source="hf:xai-org/grok-1",
+    notes="8-expert top-2 MoE with GQA. long_500k via sliding_window variant.",
+))

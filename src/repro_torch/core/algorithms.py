@@ -38,10 +38,11 @@ reads no key, so its rounds derive none.
 
 With ``control_dtype="bfloat16"`` the stored v and v̄ are bf16; the
 codec's kernels read them as they are, and Eqs. 7–9 run as one launch a
-leaf (``fused_update_bf16``, ``cffl_update_bf16``) that takes the round's
-f32 deltas: Eq. 9 reads the f32 sums and the new v, v̄ are those sums
-rounded to bf16, as the reference's jitted round executes them on the CPU
-(ROADMAP C23).
+leaf (``fused_update_control``, ``cffl_update_control``) that takes the
+round's f32 deltas: Eq. 9 reads the f32 sums and the new v, v̄ are those
+sums rounded to bf16, as the reference's jitted round executes them on the
+CPU (ROADMAP C23). With ``"float16"`` the same launches' f16 forms round
+the sums to f16 and Eq. 9 reads the rounded sums (C32).
 
 DSGLD draws ``knoise, kmix = split(key)`` and its noise from ``knoise``,
 its masks from ``kmix``; CF-FL keys its codec by ``kq, _ = split(key)``,
@@ -77,7 +78,9 @@ from repro_torch.core.topology import resolve_topology
 from repro_torch.core.transport import (TransportMetrics, resolve_transport,
                                         sum_nodes)
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.fused_update import cffl_update_bf16, fused_update_bf16
+from repro_torch.kernels._build import CONTROL_DTYPES
+from repro_torch.kernels.fused_update import (cffl_update_control,
+                                              fused_update_control)
 from repro_torch.models.layers import f32_sums
 from repro_torch.utils.tree import (tree_count, tree_leaves,
                                     tree_leaves_with_path, tree_map,
@@ -191,15 +194,16 @@ def _local_sgd(nll_fn, params, batches, eta: float, prior_weight: float,
 def _control_update(theta_l, state, delta_v, mixed, zeta: float, noise=None):
     """Eqs. 7–9: ``(params, v, v̄)`` after the round. f32 control variates
     take the adds in torch and Eq. 9's kernel (fused_update, or
-    cffl_update without ``noise``); bf16 ones the one launch a leaf of
-    ``fused_update_bf16`` / ``cffl_update_bf16`` (ROADMAP C23)."""
-    if tree_leaves(state.v)[0].dtype == torch.bfloat16:
+    cffl_update without ``noise``); bf16 and f16 ones the one launch a
+    leaf of ``fused_update_control`` / ``cffl_update_control`` (ROADMAP
+    C23, C32)."""
+    if tree_leaves(state.v)[0].dtype in CONTROL_DTYPES:
         if noise is None:
-            outs = tree_map(lambda t_, vb, v, m, d: cffl_update_bf16(
+            outs = tree_map(lambda t_, vb, v, m, d: cffl_update_control(
                 t_, vb, v, m, d, zeta), theta_l, state.v_bar, state.v, mixed,
                 delta_v)
         else:
-            outs = tree_map(lambda t_, vb, v, m, d, n: fused_update_bf16(
+            outs = tree_map(lambda t_, vb, v, m, d, n: fused_update_control(
                                 t_, vb, v, m, d, n, zeta, 1.0),
                             theta_l, state.v_bar, state.v, mixed, delta_v,
                             noise)

@@ -6,15 +6,18 @@ first launch (``_build.library``).
 from repro_torch.kernels.bma_sample import bma_sample
 from repro_torch.kernels.block_topk import block_topk
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.fused_compress import (delta_pack, delta_pack_bf16,
+from repro_torch.kernels.fused_compress import (DELTA_PACK_FORMS, delta_pack,
                                                 grid_quant_leaves)
-from repro_torch.kernels.fused_update import (cffl_update, cffl_update_bf16,
+from repro_torch.kernels.fused_update import (CFFL_UPDATE_FORMS,
+                                              FUSED_UPDATE_FORMS,
+                                              cffl_update,
+                                              cffl_update_control,
                                               dsgld_update, fused_update,
-                                              fused_update_bf16, gossip_mix)
+                                              fused_update_control,
+                                              gossip_mix)
 from repro_torch.kernels.gilbert import gilbert_keep
-from repro_torch.kernels.pack import (pack_topk, topk_select,
-                                      topk_select_bf16, unpack_set,
-                                      unpack_topk)
+from repro_torch.kernels.pack import (TOPK_SELECT_FORMS, pack_topk,
+                                      topk_select, unpack_set, unpack_topk)
 from repro_torch.kernels.qsgd import qsgd
 from repro_torch.kernels.threefry import draw
 
@@ -25,11 +28,11 @@ WRAPPERS = {"pack": pack_topk, "delta_pack": delta_pack,
             "topk_select": topk_select, "unpack_set": unpack_set,
             "cffl_update": cffl_update, "dsgld_update": dsgld_update,
             "gossip_mix": gossip_mix, "gilbert_keep": gilbert_keep,
-            # the forms that read bfloat16 control variates
-            "topk_select_bf16": topk_select_bf16,
-            "delta_pack_bf16": delta_pack_bf16,
-            "fused_update_bf16": fused_update_bf16,
-            "cffl_update_bf16": cffl_update_bf16,
+            # the forms that read bfloat16 or float16 control variates,
+            # counted a dtype ("topk_select_bf16", ..., "cffl_update_f16")
+            **{form.__name__: form for forms in (
+                TOPK_SELECT_FORMS, DELTA_PACK_FORMS, FUSED_UPDATE_FORMS,
+                CFFL_UPDATE_FORMS) for form in forms.values()},
             # the decode step's (ROADMAP A12)
             "decode_attention": decode_attention, "bma_sample": bma_sample}
 

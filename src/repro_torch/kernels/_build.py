@@ -65,6 +65,14 @@ _SIGNATURES = {
     "repro_fused_update_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _F,
                                 _F, _P],
     "repro_cffl_update_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _F, _P],
+    # v (and v̄) stored in float16
+    "repro_delta_pack_f16": [_PP, _PP, _PL, _PL, _PL, _I, _L, _P, _P, _I,
+                             _P],
+    "repro_topk_select_f16": [_PP, _PP, _PL, _PL, _PI, _PL, _I, _L, _P, _P,
+                              _P],
+    "repro_fused_update_f16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _F,
+                               _F, _P],
+    "repro_cffl_update_f16": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _F, _P],
 }
 
 _lib = None
@@ -152,6 +160,26 @@ def check(rc: int, kernel: str) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+class Launches:
+    """The launch count of one form of a kernel whose wrapper serves
+    several: the 2-byte control-variate forms, one counter a stored dtype
+    (:func:`control_forms`)."""
+
+    def __init__(self, name: str):
+        self.__name__, self.launches = name, 0
+
+
+# the stored dtypes of 2-byte control variates, by their entry points'
+# suffixes (``repro_<form>_<suffix>``)
+CONTROL_DTYPES = {torch.bfloat16: "bf16", torch.float16: "f16"}
+
+
+def control_forms(form: str) -> dict:
+    """``{dtype: Launches("<form>_<suffix>")}`` over CONTROL_DTYPES."""
+    return {dt: Launches(f"{form}_{sfx}")
+            for dt, sfx in CONTROL_DTYPES.items()}
 
 
 def on_card(kernel: str, operands, strided: bool = False) -> bool:

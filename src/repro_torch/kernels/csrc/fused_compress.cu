@@ -289,6 +289,18 @@ extern "C" int repro_delta_pack_bf16(const float* const* thetas,
       rows, vals, idx, k, stream);
 }
 
+// The same with v stored in float16.
+extern "C" int repro_delta_pack_f16(const float* const* thetas,
+                                    const __half* const* vs,
+                                    const long long* ns, const long long* nbs,
+                                    const long long* outs, int count,
+                                    long long rows, float* vals,
+                                    uint16_t* idx, int k, void* stream) {
+  return repro_torch::launch_pack<true, __half>(
+      thetas, reinterpret_cast<const void* const*>(vs), ns, nbs, outs, count,
+      rows, vals, idx, k, stream);
+}
+
 // One launch quantizes `count` <= kMaxLeaves carriers of `rows` rows each:
 // leaf l is the (rows, ms[l]) carrier xs[l] and uniforms us[l], its int8
 // grid goes to qs[l] and its (rows,) norms to norms[l].

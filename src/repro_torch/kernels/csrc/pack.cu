@@ -206,7 +206,7 @@ unpack_kernel(const __grid_constant__ UnpackTable table, int k) {
 // ceil(ratio·n) of its n, a longer leaf ceil(ratio·block) a block).
 struct TopkLeaf {
   const float* x;
-  const void* v;                                  // float or bfloat16
+  const void* v;                          // float, bfloat16 or half
   long long n, nb, begin, out;
   int k;
 };
@@ -423,6 +423,19 @@ extern "C" int repro_topk_select_bf16(const float* const* xs,
                                       uint16_t* idx, void* stream) {
   if (!vs) return (int)cudaErrorInvalidValue;
   return repro_torch::launch_topk_select<__nv_bfloat16>(
+      xs, reinterpret_cast<const void* const*>(vs), ns, nbs, ks, outs, count,
+      rows, vals, idx, stream);
+}
+
+// The same with v stored in float16.
+extern "C" int repro_topk_select_f16(const float* const* xs,
+                                     const __half* const* vs,
+                                     const long long* ns, const long long* nbs,
+                                     const int* ks, const long long* outs,
+                                     int count, long long rows, float* vals,
+                                     uint16_t* idx, void* stream) {
+  if (!vs) return (int)cudaErrorInvalidValue;
+  return repro_torch::launch_topk_select<__half>(
       xs, reinterpret_cast<const void* const*>(vs), ns, nbs, ks, outs, count,
       rows, vals, idx, stream);
 }

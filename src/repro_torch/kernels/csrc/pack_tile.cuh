@@ -35,8 +35,8 @@
 // order is (j, lane). The rank of an element is a prefix popcount of its
 // ballot row plus a running total that every lane holds.
 //
-// v may be stored in bfloat16 (FedConfig.control_dtype, ROADMAP A3): the
-// tile then reads the 2-byte elements and widens each in registers, which
+// v may be stored in bfloat16 or float16 (FedConfig.control_dtype, ROADMAP
+// A3): the tile then reads the 2-byte elements and widens each in registers, which
 // is exact, so d = θ − v is the f32 subtraction the reference computes
 // after its v.astype(f32). A lane's loads keep their pattern: element
 // j*32 + lane, a warp's 32 loads one coalesced 64-byte row.
@@ -44,6 +44,7 @@
 
 #include <cstdint>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace repro_torch {
@@ -72,15 +73,17 @@ __device__ __forceinline__ float max_keep_nan(float a, float b) {
   return r;
 }
 
-// a stored control-variate element as f32 (exact for bfloat16)
+// a stored control-variate element as f32 (exact for bfloat16 and float16,
+// subnormal halves included)
 __device__ __forceinline__ float widen(float a) { return a; }
 __device__ __forceinline__ float widen(__nv_bfloat16 a) {
   return __bfloat162float(a);
 }
+__device__ __forceinline__ float widen(__half a) { return __half2float(a); }
 
 // Load the block that starts at element `start` of a row (d = x − v when
 // HAS_V: the residual is formed here and lives only in registers, which is
-// fused_compress.py's point; v's elements are VT, float or bfloat16).
+// fused_compress.py's point; v's elements are VT, float, bfloat16 or half).
 // Elements at or past n read as 0, as the reference's zero padding of the
 // ragged last block: such zeros can be picked as ties. A whole block takes
 // its loads unpredicated.
@@ -213,7 +216,7 @@ __device__ __forceinline__ void rank_block(const float (&d)[kPerLane],
 // copied).
 struct PackLeaf {
   const float* x;
-  const void* v;                                  // float or bfloat16
+  const void* v;                          // float, bfloat16 or half
   long long n, nb, begin, out;
 };
 

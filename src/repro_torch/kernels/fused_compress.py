@@ -10,9 +10,10 @@ its packed leaves with one call). The plain version forms the same f32
 residual and runs the same plain tile, leaf by leaf, so the two paths agree
 bit for bit.
 
-With ``v`` stored in bfloat16 (``FedConfig.control_dtype``) the same
-kernel reads the 2-byte elements and widens them in registers
-(:func:`delta_pack_bf16`, counted apart).
+With ``v`` stored in bfloat16 or float16 (``FedConfig.control_dtype``)
+the same kernel reads the 2-byte elements and widens them in registers,
+each dtype's launches counted apart (``delta_pack_bf16``,
+``delta_pack_f16``).
 
 ``grid_quant_leaves(carriers, us, levels)`` rounds each packed ``(rows,
 m)`` carrier onto the signed QSGD grid, ``sign(x)·q`` as int8, under each
@@ -31,7 +32,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels._build import check, library, on_card, stream_of
+from repro_torch.kernels._build import (check, control_forms, library,
+                                       on_card, stream_of)
 from repro_torch.kernels.pack import (aligned_offsets, c_array, pack_table,
                                       pack_topk_plain, tables)
 from repro_torch.kernels.qsgd import qsgd_levels_plain
@@ -51,8 +53,8 @@ def delta_pack(thetas, vs, k: int, block_size: int = 1024):
         raise ValueError(f"delta_pack: {len(thetas)} thetas, {len(vs)} vs")
     if not thetas:
         return []
-    if vs[0].dtype == torch.bfloat16:
-        return delta_pack_bf16(thetas, vs, k, block_size)
+    if vs[0].dtype in DELTA_PACK_FORMS:
+        return _delta_pack_control(thetas, vs, k, block_size)
     if not on_card("delta_pack", [(t, torch.float32) for t in thetas]
                    + [(v, torch.float32) for v in vs]):
         return [delta_pack_plain(t, v, k, block_size)
@@ -61,20 +63,25 @@ def delta_pack(thetas, vs, k: int, block_size: int = 1024):
                       k, block_size)
 
 
-def delta_pack_bf16(thetas, vs, k: int, block_size: int = 1024):
-    """:func:`delta_pack` with the ``vs`` stored in bfloat16
+# the launches of each stored dtype's form
+DELTA_PACK_FORMS = control_forms("delta_pack")
+
+
+def _delta_pack_control(thetas, vs, k: int, block_size: int):
+    """:func:`delta_pack` with the ``vs`` stored in bfloat16 or float16
     (``FedConfig.control_dtype``): the kernel widens each element of v in
-    registers, exactly; the plain version computes ``theta − v.float()``."""
-    if not on_card("delta_pack_bf16", [(t, torch.float32) for t in thetas]
-                   + [(v, torch.bfloat16) for v in vs]):
+    registers, exactly (subnormal halves too); the plain version computes
+    ``theta − v.float()``."""
+    form = DELTA_PACK_FORMS[vs[0].dtype]
+    if not on_card(form.__name__, [(t, torch.float32) for t in thetas]
+                   + [(v, vs[0].dtype) for v in vs]):
         return [delta_pack_plain(t, v, k, block_size)
                 for t, v in zip(thetas, vs)]
-    return pack_table(delta_pack_bf16, library().repro_delta_pack_bf16,
+    return pack_table(form, getattr(library(), f"repro_{form.__name__}"),
                       [thetas, vs], k, block_size)
 
 
 delta_pack.launches = 0
-delta_pack_bf16.launches = 0
 
 
 # the norm's summation order (csrc/fused_compress.cu): SEGMENT_LANES lane

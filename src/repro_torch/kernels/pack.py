@@ -29,7 +29,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels._build import check, library, on_card, stream_of
+from repro_torch.kernels._build import (check, control_forms, library,
+                                       on_card, stream_of)
 
 BISECT_ITERS = 40
 KERNEL_BLOCK = 1024          # the CUDA kernels hold one block per warp
@@ -338,8 +339,8 @@ def topk_select(xs, ks, vs=None, block_size: int = 1024):
     if not xs:
         return []
     operands = [xs] if vs is None else [xs, vs]
-    if vs is not None and vs[0].dtype == torch.bfloat16:
-        return topk_select_bf16(xs, ks, vs, block_size)
+    if vs is not None and vs[0].dtype in TOPK_SELECT_FORMS:
+        return _topk_select_control(xs, ks, vs, block_size)
     if not on_card("topk_select", [(t, torch.float32) for op in operands
                                    for t in op]):
         return [topk_select_plain(x, k, block_size,
@@ -349,17 +350,23 @@ def topk_select(xs, ks, vs=None, block_size: int = 1024):
                               ks, vs, block_size)
 
 
-def topk_select_bf16(xs, ks, vs, block_size: int = 1024):
+# the launches of each stored dtype's form
+TOPK_SELECT_FORMS = control_forms("topk_select")
+
+
+def _topk_select_control(xs, ks, vs, block_size: int):
     """:func:`topk_select` of ``x − v`` with the ``vs`` stored in bfloat16
-    (``FedConfig.control_dtype``): the kernel widens each element of v in
-    registers, exactly; the plain version computes ``x − v.float()``."""
-    if not on_card("topk_select_bf16", [(x, torch.float32) for x in xs]
-                   + [(v, torch.bfloat16) for v in vs]):
+    or float16 (``FedConfig.control_dtype``): the kernel widens each
+    element of v in registers, exactly (subnormal halves too); the plain
+    version computes ``x − v.float()``."""
+    form = TOPK_SELECT_FORMS[vs[0].dtype]
+    if not on_card(form.__name__, [(x, torch.float32) for x in xs]
+                   + [(v, vs[0].dtype) for v in vs]):
         return [topk_select_plain(x, k, block_size, v)
                 for x, k, v in zip(xs, ks, vs)]
-    return _topk_select_table(topk_select_bf16,
-                              library().repro_topk_select_bf16, xs, ks, vs,
-                              block_size)
+    return _topk_select_table(form, getattr(library(),
+                                            f"repro_{form.__name__}"),
+                              xs, ks, vs, block_size)
 
 
 def _topk_select_table(wrapper, entry, xs, ks, vs, block_size: int):
@@ -403,7 +410,6 @@ def _topk_select_table(wrapper, entry, xs, ks, vs, block_size: int):
 
 
 topk_select.launches = 0
-topk_select_bf16.launches = 0
 
 
 def unpack_set_plain(vals: torch.Tensor, idx: torch.Tensor, n: int,

@@ -1,7 +1,8 @@
 """The CD-BFL training CLI of the port (``repro/launch/train.py``).
 
 The reference's flags with its defaults, for the ``lenet`` family and the
-dense LMs (``--arch smollm-135m``, the default, and the other dense archs:
+LMs (``--arch smollm-135m``, the default, the other dense archs and the
+moe family's grok-1 and deepseek-v2:
 per-node Markov token pools, ``markov_tokens(pool, seq, V, seed, k)``, and
 in-training evals of the held-out stream of node K through
 ``lm_apply_fn``), on one device: the card unless ``--device cpu``. Each round gathers its minibatch
@@ -51,7 +52,11 @@ reference's format, which both packages' ``launch.serve`` read.
 
 Flags of paths the port does not run yet exit naming their ROADMAP item:
 ``--mesh > 1`` and ``--engine shard`` (A10), and the archs of the LM
-families the port does not run yet (A12 parts 3–7).
+families the port does not run yet (A12 parts 5–7). As the reference's
+CLI, it builds token pools for every LM arch, so llava-next (whose loss
+reads ``batch["patches"]``) fails at its first round with the reference's
+``KeyError: 'patches'``; llava trains through ``FedTrainer`` on pools of
+``{tokens, patches}``.
 """
 from __future__ import annotations
 

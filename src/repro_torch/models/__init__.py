@@ -1,4 +1,4 @@
-"""Model factory: the radar LeNet and the dense decoders."""
+"""Model factory: the radar LeNet and the decoders (dense, vlm, moe)."""
 from types import SimpleNamespace
 
 from repro_torch.models import lenet as _lenet

@@ -1,6 +1,7 @@
 """Decoder blocks (``repro/models/blocks.py:37-131``): pre-norm mixer and
-residual, then pre-norm FFN and residual. The port runs the dense specs,
-``("attn" | "local_attn", "mlp")``; every other mixer or FFN raises, naming
+residual, then pre-norm FFN and residual. The port runs the mixers
+``attn``, ``local_attn`` and ``mla`` (DeepSeek-V2's latent attention) and
+the FFNs ``mlp``, ``moe`` and ``none``; every other mixer raises, naming
 the part of ROADMAP A12 that ports it.
 """
 from __future__ import annotations
@@ -11,14 +12,15 @@ import torch
 
 from repro_torch import random
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import init_mlp, init_rmsnorm, mlp, rmsnorm
 
 BlockSpec = Tuple[str, str]
 
 # the mixers and FFNs of the reference's zoo the port does not run yet
-_UNPORTED = {"mla": "A12 part 4 (MLA)", "rec": "A12 part 5 (RG-LRU)",
-             "mlstm": "A12 part 6 (xLSTM)", "slstm": "A12 part 6 (xLSTM)",
-             "moe": "A12 part 4 (moe)"}
+_UNPORTED = {"rec": "A12 part 5 (RG-LRU)",
+             "mlstm": "A12 part 6 (xLSTM)", "slstm": "A12 part 6 (xLSTM)"}
 
 
 def _check(spec: BlockSpec) -> None:
@@ -27,9 +29,9 @@ def _check(spec: BlockSpec) -> None:
             raise NotImplementedError(
                 f"block {part!r} is not ported yet; ROADMAP {_UNPORTED[part]}")
     mixer, ffn = spec
-    if mixer not in ("attn", "local_attn"):
+    if mixer not in ("attn", "local_attn", "mla"):
         raise ValueError(mixer)
-    if ffn not in ("mlp", "none"):
+    if ffn not in ("mlp", "moe", "none"):
         raise ValueError(ffn)
 
 
@@ -45,43 +47,61 @@ def init_block(key: torch.Tensor, spec: BlockSpec, cfg):
     the FFN's from the second; keys with leading axes (the reference's
     ``vmap`` over layer groups) give leaves with them."""
     _check(spec)
+    mixer, ffn = spec
     lead = tuple(key.shape[:-1])
     k12 = yield from random.split.program(key)
-    progs = [attn_mod.init_attention.program(k12[..., 0, :], cfg)]
-    if spec[1] == "mlp":
+    init_mixer = mla_mod.init_mla if mixer == "mla" else \
+        attn_mod.init_attention
+    progs = [init_mixer.program(k12[..., 0, :], cfg)]
+    if ffn == "mlp":
         progs.append(init_mlp.program(k12[..., 1, :], cfg.d_model, cfg.d_ff))
+    elif ffn == "moe":
+        progs.append(moe_mod.init_moe.program(k12[..., 1, :], cfg))
     parts = yield from random.together(*progs)
     p: Dict = {"norm1": init_rmsnorm(cfg.d_model, key.device, lead),
-               "attn": parts[0]}
-    if spec[1] == "mlp":
+               "mla" if mixer == "mla" else "attn": parts[0]}
+    if ffn != "none":
         p["norm2"] = init_rmsnorm(cfg.d_model, key.device, lead)
-        p["mlp"] = parts[1]
+        p[ffn] = parts[1]
     return p
 
 
 def _ffn(params, x, spec, cfg):
-    if spec[1] != "mlp":
-        return x
+    """The FFN and its residual: ``(x, aux (G,) or 0)``."""
+    ffn = spec[1]
+    if ffn == "none":
+        return x, torch.zeros((), device=x.device)
+    h = rmsnorm(params["norm2"], x, cfg.norm_eps)
+    if ffn == "moe":
+        h, aux = moe_mod.moe_ffn(params["moe"], h, cfg)
+        return x + h, aux
     g, b, s, d = x.shape
-    h = rmsnorm(params["norm2"], x, cfg.norm_eps).reshape(g, b * s, d)
-    return x + mlp(params["mlp"], h, cfg.act).reshape(g, b, s, d)
+    h = mlp(params["mlp"], h.reshape(g, b * s, d), cfg.act)
+    return x + h.reshape(g, b, s, d), torch.zeros((), device=x.device)
 
 
 def apply_block(params, x, positions, spec: BlockSpec, cfg, angles=None):
-    """Training and prefill: x ``(G, B, S, D)`` -> ``(x, aux)`` (aux 0: no
-    dense block has a router loss). ``angles``: the positions' RoPE
-    rotations, computed once a forward."""
+    """Training and prefill: x ``(G, B, S, D)`` -> ``(x, aux)``, aux the
+    router's load-balance term ``(G,)`` of a ``moe`` block, else 0.
+    ``angles``: the positions' RoPE rotations of the attention layers,
+    computed once a forward (MLA rotates its own ``rope_head_dim``)."""
     _check(spec)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    x = x + attn_mod.attention(params["attn"], h, positions, cfg,
+    if spec[0] == "mla":
+        h = mla_mod.mla_attention(params["mla"], h, positions, cfg)
+    else:
+        h = attn_mod.attention(params["attn"], h, positions, cfg,
                                window=_mixer_window(spec[0], cfg),
                                angles=angles)
-    return _ffn(params, x, spec, cfg), torch.zeros((), device=x.device)
+    return _ffn(params, x + h, spec, cfg)
 
 
 def init_block_cache(spec: BlockSpec, cfg, lanes, max_len: int,
                      dtype=torch.bfloat16, device="cpu") -> Dict:
     _check(spec)
+    if spec[0] == "mla":
+        return mla_mod.init_mla_cache(cfg, lanes, max_len, dtype=dtype,
+                                      device=device)
     return attn_mod.init_cache(cfg, lanes, max_len,
                                window=_mixer_window(spec[0], cfg),
                                dtype=dtype, device=device)
@@ -89,10 +109,14 @@ def init_block_cache(spec: BlockSpec, cfg, lanes, max_len: int,
 
 def decode_block(params, cache, x, pos, spec: BlockSpec, cfg, angles=None):
     """One token a lane: x ``(G, B, 1, D)``, ``pos`` ``(B,)``. Returns
-    ``(cache, x)``; the cache is updated in place."""
+    ``(cache, x)``; the cache is updated in place. The router's aux term is
+    dropped, as the reference drops it."""
     _check(spec)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    cache, h = attn_mod.decode_attention(params["attn"], cache, h, pos, cfg,
-                                         window=_mixer_window(spec[0], cfg),
-                                         angles=angles)
-    return cache, _ffn(params, x + h, spec, cfg)
+    if spec[0] == "mla":
+        cache, h = mla_mod.mla_decode(params["mla"], cache, h, pos, cfg)
+    else:
+        cache, h = attn_mod.decode_attention(
+            params["attn"], cache, h, pos, cfg,
+            window=_mixer_window(spec[0], cfg), angles=angles)
+    return cache, _ffn(params, x + h, spec, cfg)[0]

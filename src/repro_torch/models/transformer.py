@@ -1,5 +1,5 @@
-"""Decoder-only models (``repro/models/transformer.py:31-220``), the dense
-family.
+"""Decoder-only models (``repro/models/transformer.py:31-220``): the dense,
+vlm and moe families.
 
 The parameter tree is the reference's: ``embed/tok``, ``final_norm``,
 ``lm_head`` (untied), and the layers either stacked under ``groups/u0``
@@ -15,6 +15,12 @@ are ``torch.bmm``.
     nll(params, batch)                           -> (G,)
     init_decode_state(batch, max_len, groups=1)  -> cache of G·B lanes
     decode_step(params, cache, tokens, pos)      -> (cache, (G, B, 1, V))
+
+The vlm family (llava-next) puts ``batch["patches"] @ embed/img_proj``
+(``(B, P, D)``, or ``(G, B, P, D)`` a group's own) in front of the token
+embeddings; its losses read the text positions only, and its decode is
+text-only, as the reference's. The moe family's blocks are ``(mla | attn,
+moe)``; their routers' load-balance terms are ``aux``, a group's own.
 
 ``logits`` and ``loss`` read one ``(B, S)`` token batch for every group;
 ``nll`` reads group g's own ``(G, B, S)`` tokens (and ``loss_mask``), as
@@ -50,9 +56,7 @@ from repro_torch.models.layers import (dense_init, embed_init, f32_sums,
 from repro_torch.utils.tree import tree_map
 
 # the families of the reference's zoo the port does not run yet
-_UNPORTED_FAMILIES = {"moe": "A12 part 4 (moe and MLA)",
-                      "vlm": "A12 part 3 (vlm)",
-                      "hybrid": "A12 part 5 (hybrid, RG-LRU)",
+_UNPORTED_FAMILIES = {"hybrid": "A12 part 5 (hybrid, RG-LRU)",
                       "ssm": "A12 part 6 (ssm, xLSTM)",
                       "audio": "A12 part 7 (audio)"}
 
@@ -62,13 +66,17 @@ def full_pattern(cfg) -> List[blk.BlockSpec]:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet; ROADMAP "
             f"{_UNPORTED_FAMILIES[cfg.family]}")
-    if cfg.family != "dense":
-        raise ValueError(cfg.family)
-    return [("attn", "mlp")] * cfg.num_layers
+    if cfg.family in ("dense", "vlm"):
+        return [("attn", "mlp")] * cfg.num_layers
+    if cfg.family == "moe":
+        mixer = "mla" if cfg.kv_lora_rank else "attn"
+        return [(mixer, "moe")] * cfg.num_layers
+    raise ValueError(cfg.family)
 
 
 def scan_unit(cfg) -> Tuple[List[blk.BlockSpec], int, List[blk.BlockSpec]]:
-    """(repeating unit, n_groups, tail specs): one block for dense."""
+    """(repeating unit, n_groups, tail specs): one block for dense, vlm and
+    moe."""
     pat = full_pattern(cfg)
     unit = pat[:1]
     n_groups = len(pat) // len(unit)
@@ -91,17 +99,21 @@ def make_model(cfg) -> SimpleNamespace:
     unit, n_groups, tail = scan_unit(cfg)
     use_scan = cfg.scan_layers and n_groups > 1
     pat = full_pattern(cfg)
+    vision = cfg.family == "vlm" and cfg.num_image_patches > 0
 
     def init(key: torch.Tensor, device) -> Dict:
         """The reference's ``init(key)``: ``split(key, 5)`` into the
         embedding, layer, tail, head and image keys; the layer groups from
         ``split(klayers, n_groups)``, each group's draws from its own key
         (the reference's ``vmap``)."""
-        kemb, klayers, _, khead, _ = random.split(key.to(device), 5)
+        kemb, klayers, _, khead, kimg = random.split(key.to(device), 5)
         progs = [embed_init.program(kemb, cfg.vocab_size, cfg.d_model)]
         if not cfg.tie_embeddings:
             progs.append(dense_init.program(khead, cfg.d_model,
                                             (cfg.vocab_size,)))
+        if vision:
+            progs.append(dense_init.program(kimg, cfg.d_model,
+                                            (cfg.d_model,)))
         if use_scan:
             gkeys = random.split(klayers, n_groups)
             uks = random.split(gkeys, len(unit))
@@ -116,6 +128,8 @@ def make_model(cfg) -> SimpleNamespace:
                    "final_norm": init_rmsnorm(cfg.d_model, device)}
         if not cfg.tie_embeddings:
             p["lm_head"] = out.pop(0)
+        if vision:
+            p["embed"]["img_proj"] = out.pop(0)
         if use_scan:
             p["groups"] = {f"u{i}": out[i] for i in range(len(unit))}
         else:
@@ -123,7 +137,7 @@ def make_model(cfg) -> SimpleNamespace:
         return p
 
     # -- embedding and head --------------------------------------------------
-    def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
+    def _tokens(params, tokens: torch.Tensor) -> torch.Tensor:
         """tokens ``(B, S)`` (one batch for every group) or ``(G, B, S)``
         (group g's own) -> ``(G, B, S, D)`` in the compute dtype."""
         tok = params["embed"]["tok"].to(dtype)
@@ -131,6 +145,21 @@ def make_model(cfg) -> SimpleNamespace:
             return tok[:, tokens.long()]
         rows = torch.arange(tok.shape[0], device=tok.device)[:, None, None]
         return tok[rows, tokens.long()]
+
+    def _embed(params, batch) -> torch.Tensor:
+        """The batch's token embeddings, after its image patches' for the
+        vlm family (``batch["patches"]`` ``(B, P, D)`` or ``(G, B, P, D)``,
+        through ``img_proj`` in the compute dtype)."""
+        x = _tokens(params, batch["tokens"])
+        if not vision:
+            return x
+        w = params["embed"]["img_proj"].to(dtype)
+        patches = batch["patches"].to(dtype)
+        if patches.dim() == 3:
+            patches = patches.expand((w.shape[0],) + patches.shape)
+        g, b, n, d = patches.shape
+        img = torch.bmm(patches.reshape(g, b * n, d), w).reshape(g, b, n, -1)
+        return torch.cat([img, x], dim=2)
 
     def _head(params, x: torch.Tensor) -> torch.Tensor:
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -144,7 +173,7 @@ def make_model(cfg) -> SimpleNamespace:
         b, s = x.shape[1], x.shape[2]
         positions = torch.arange(s, device=x.device).expand(b, s)
         angles = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
-        aux = torch.zeros((), device=x.device)
+        aux = torch.zeros(x.shape[:1], device=x.device)
         for spec, lp in zip(pat, layers_of(params, len(pat), use_scan)):
             x, ai = blk.apply_block(lp, x, positions, spec, cfg, angles)
             aux = aux + ai
@@ -152,13 +181,16 @@ def make_model(cfg) -> SimpleNamespace:
 
     @f32_sums()
     def logits(params, batch) -> torch.Tensor:
-        x, _ = _trunk(params, _embed(params, batch["tokens"]))
+        x, _ = _trunk(params, _embed(params, batch))
         return _head(params, x)
 
     def _mean_nll(lg, tokens, mask) -> torch.Tensor:
         """The mean next-token NLL of each group, ``(G,)``: logits ``(G, B,
-        S, V)`` against tokens ``(G, B, S)``, over ``mask[..., 1:]`` (``(B,
-        S)`` or ``(G, B, S)``) where one is given."""
+        S', V)`` against tokens ``(G, B, S)``, over ``mask[..., 1:]``
+        (``(B, S)`` or ``(G, B, S)``) where one is given; of the logits only
+        the last S positions, the text's, are read (a vlm's image positions
+        come first)."""
+        lg = lg[:, :, lg.shape[2] - tokens.shape[2]:]
         logp = torch.log_softmax(lg[:, :, :-1].float(), dim=-1)
         nll = -torch.gather(logp, -1, tokens[:, :, 1:, None])[..., 0]
         if mask is None:
@@ -173,11 +205,11 @@ def make_model(cfg) -> SimpleNamespace:
         """The mean next-token NLL a model, over ``loss_mask[:, 1:]`` where
         the batch has one: ``((G,), {"nll": (G,), "aux": (G,)})``."""
         tokens = batch["tokens"].long()
-        x, aux = _trunk(params, _embed(params, tokens))
+        x, aux = _trunk(params, _embed(params, batch))
         lg = _head(params, x)
         mean_nll = _mean_nll(lg, tokens.expand((lg.shape[0],) + tokens.shape),
                              batch.get("loss_mask"))
-        return mean_nll + aux, {"nll": mean_nll, "aux": aux.expand_as(mean_nll)}
+        return mean_nll + aux, {"nll": mean_nll, "aux": aux}
 
     @f32_sums()
     def nll(params, batch) -> torch.Tensor:
@@ -186,7 +218,7 @@ def make_model(cfg) -> SimpleNamespace:
         ``(G, B, S)``, over its ``loss_mask[g, :, 1:]`` where the batch has
         one, ``(G,)`` (the reference's ``vmap(loss)``)."""
         tokens = batch["tokens"].long()
-        x, aux = _trunk(params, _embed(params, tokens))
+        x, aux = _trunk(params, _embed(params, batch))
         return _mean_nll(_head(params, x), tokens,
                          batch.get("loss_mask")) + aux
 
@@ -214,7 +246,7 @@ def make_model(cfg) -> SimpleNamespace:
         if not torch.is_tensor(pos) or pos.dim() == 0:
             pos = torch.full(tokens.shape, int(pos), dtype=torch.int64,
                              device=tokens.device)
-        x = _embed(params, tokens[:, None])
+        x = _tokens(params, tokens[:, None])
         angles = rope_angles(pos[:, None], cfg.resolved_head_dim,
                              cfg.rope_theta)
         for i, (spec, lp) in enumerate(zip(pat, layers_of(params, len(pat),

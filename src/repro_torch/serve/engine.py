@@ -22,7 +22,7 @@ With ``slots`` equal to an eval engine's batch size, the BMA probabilities
 equal that engine's bit for bit on the same device (the same forward at
 the same shape; on the card, given that cuDNN picks one algorithm a shape,
 as it does with ``torch.backends.cudnn.benchmark`` off). The
-autoregressive :class:`DecodeEngine` serves the dense LMs the same way: a
+autoregressive :class:`DecodeEngine` serves the LMs the same way: a
 captured step over a fixed slot table, its bank swapped in place.
 """
 from __future__ import annotations
@@ -218,6 +218,13 @@ class ClassifyEngine(ServingEngine):
         return self.predictor.compile_count()
 
 
+# the leaves a resident bank keeps in f32 whatever the compute dtype, as the
+# reference reads them: norm scales and the MoE routers
+F32_LEAVES = ("scale", "router")
+# a decode cache leaf's lane axis, counted from its end (KV caches: 4)
+_LANE_FROM_END = {"slot_pos": 2, "ckv": 3, "kr": 3}
+
+
 class DecodeEngine(ServingEngine):
     """Continuous batching for autoregressive decode under BMA
     (``repro/serve/engine.py:240-439``).
@@ -237,8 +244,8 @@ class DecodeEngine(ServingEngine):
     * the bank in the compute dtype, the weights stored layer-major so each
       layer's are one block: ``install_bank`` copies a bank into it in place
       (the reference casts at use; the values are the same, and a step reads
-      the weights once at half the bytes in bfloat16). Norm scales stay f32,
-      as the reference reads them.
+      the weights once at half the bytes in bfloat16). Norm scales and MoE
+      routers stay f32, as the reference reads them.
 
     One step advances every lane: the M samples' decode steps over all
     slots (``decode_attention``, one launch a layer), then ``bma_sample``
@@ -287,7 +294,7 @@ class DecodeEngine(ServingEngine):
         dt = self.model.dtype
 
         def buffer(path: str, x: torch.Tensor) -> torch.Tensor:
-            want = torch.float32 if path.endswith("scale") else dt
+            want = torch.float32 if path.endswith(F32_LEAVES) else dt
             if path.startswith("groups."):
                 # (G, L, ...) read a layer at a time: store (L, G, ...)
                 buf = torch.empty((x.shape[1], x.shape[0]) + x.shape[2:],
@@ -364,9 +371,11 @@ class DecodeEngine(ServingEngine):
     def _admit(self, i: int, tok0: int, seed: int) -> None:
         """Reset slot ``i``'s M lanes to the pristine init and its tables."""
         for path, c in tree_leaves_with_path(self._caches):
-            # the slot axis: before (slots,) or (slots, KV, hd)
-            rows = path.endswith("slot_pos")
-            c.select(c.dim() - (2 if rows else 4), i).fill_(-1 if rows else 0)
+            # the slot axis: before (slots,), (slots, KV, hd) or MLA's
+            # (slots, rank)
+            leaf = path.rsplit(".", 1)[-1]
+            c.select(c.dim() - _LANE_FROM_END.get(leaf, 4), i).fill_(
+                -1 if leaf == "slot_pos" else 0)
         self._tokens[i] = int(tok0)
         self._pos[i] = 0
         self._keys[i] = random.PRNGKey(seed, self.device)

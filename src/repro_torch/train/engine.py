@@ -364,11 +364,14 @@ class ScanRoundEngine:
 
 
 def _clone(tree):
-    """A copy of every tensor of a tree of dicts (``None`` stays)."""
+    """A copy of every tensor of a tree of dicts and lists (``None``
+    stays)."""
     if tree is None:
         return None
     if isinstance(tree, dict):
         return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone(v) for v in tree]
     return tree.clone()
 
 

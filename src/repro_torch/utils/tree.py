@@ -34,7 +34,9 @@ def tree_leaves(tree: Tree) -> List[Any]:
 
 
 def tree_unflatten(paths: List[str], leaves: List[Any]) -> Tree:
-    """Inverse of :func:`tree_leaves_with_path`."""
+    """Inverse of :func:`tree_leaves_with_path`: a node whose keys are the
+    indices ``0 .. n-1`` is a list again (a decoder's unscanned
+    ``layers``)."""
     out: Tree = {}
     for path, leaf in zip(paths, leaves):
         node = out
@@ -42,7 +44,15 @@ def tree_unflatten(paths: List[str], leaves: List[Any]) -> Tree:
         for p in parents:
             node = node.setdefault(p, {})
         node[last] = leaf
-    return out
+
+    def relist(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: relist(v) for k, v in node.items()}
+        if node and sorted(node) == sorted(str(i) for i in range(len(node))):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+    return relist(out)
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:

@@ -55,8 +55,10 @@ def test_c20_get_arch_returns_the_reference_arch_spec():
     for name in ("config", "reduced"):
         _same_config(getattr(got, name), getattr(want, name))
     assert got.reduced.input_hw == (32, 16) and got.config.input_hw == (256, 63)
-    assert config.list_archs() == ["lenet-radar", "mistral-large-123b",
-                                   "qwen2.5-14b", "smollm-135m", "yi-9b"]
+    assert config.list_archs() == ["deepseek-v2-236b", "grok-1-314b",
+                                   "lenet-radar", "llava-next-mistral-7b",
+                                   "mistral-large-123b", "qwen2.5-14b",
+                                   "smollm-135m", "yi-9b"]
 
 
 def test_c20_unknown_and_unported_archs():

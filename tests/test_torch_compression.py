@@ -164,12 +164,14 @@ def test_wire_bytes_match_reference(reduced, want):
 
 
 def test_make_compressor_refuses_unported_values():
-    """``layer_pipelines`` runs (ROADMAP A6's PerLayerPipeline); a level
-    count that is not a power of two still refuses (C5)."""
+    """``layer_pipelines`` runs (ROADMAP A6's PerLayerPipeline) and so do
+    float16 control variates (A3); a level count that is not a power of
+    two still refuses (C5), fused or not."""
     assert make_compressor(FedConfig(layer_pipelines=(("fc", "qsgd"),))
                            ).rules[0][0] == "fc"
+    make_compressor(FedConfig(control_dtype="float16"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_compressor(FedConfig(control_dtype="float16"))
+        make_compressor(FedConfig(qsgd_levels=3))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_compressor(FedConfig(fused_compress=True, qsgd_levels=10))
 
@@ -364,12 +366,13 @@ def test_make_compressor_routes_and_refuses():
     # every codec name and composition runs; what is left refuses
     for ok in (dict(pipeline=PIPE), dict(pipeline="qsgd", fused_compress=True),
                dict(pipeline="block_topk|sign", fused_compress=True),
-               dict(layer_pipelines=(("*", PIPE),))):
+               dict(layer_pipelines=(("*", PIPE),)),
+               dict(pipeline=PIPE, control_dtype="float16")):
         assert isinstance(make_compressor(FedConfig(**ok)),
                           CompressionPipeline)
     for bad in (dict(compressor="sign_pallas"),
                 dict(pipeline=PIPE, fused_compress=True, qsgd_levels=10),
-                dict(control_dtype="float16")):
+                dict(pipeline=PIPE, qsgd_levels=3)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_compressor(FedConfig(**bad))
 

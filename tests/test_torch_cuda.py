@@ -12,10 +12,10 @@ from repro_torch.kernels.block_topk import block_topk_plain
 from repro_torch.kernels.fused_compress import (carrier_norms_plain,
                                                 delta_pack_plain,
                                                 grid_quant_plain)
-from repro_torch.kernels.fused_update import (cffl_update_bf16_plain,
+from repro_torch.kernels.fused_update import (cffl_update_control_plain,
                                               cffl_update_plain,
                                               dsgld_update_plain,
-                                              fused_update_bf16_plain,
+                                              fused_update_control_plain,
                                               fused_update_plain)
 from repro_torch.kernels.pack import (pack_topk_plain, topk_select_plain,
                                       unpack_set_plain, unpack_topk_plain)
@@ -35,7 +35,8 @@ def card():
 
 def _same_bits(a, b):
     view = {torch.float32: torch.int32, torch.uint16: torch.int16,
-            torch.int8: torch.int8, torch.bfloat16: torch.int16}[a.dtype]
+            torch.int8: torch.int8, torch.bfloat16: torch.int16,
+            torch.float16: torch.int16}[a.dtype]
     return a.shape == b.shape and torch.equal(a.view(view), b.view(view))
 
 
@@ -64,6 +65,8 @@ def test_kernels_match_plain_versions(card, n):
         "dsgld_update": 0, "gossip_mix": 0, "gilbert_keep": 0,
         "topk_select_bf16": 0, "delta_pack_bf16": 0,
         "fused_update_bf16": 0, "cffl_update_bf16": 0,
+        "topk_select_f16": 0, "delta_pack_f16": 0,
+        "fused_update_f16": 0, "cffl_update_f16": 0,
         "decode_attention": 0, "bma_sample": 0}
 
 
@@ -1081,15 +1084,52 @@ def test_bf16_updates_match_plain_versions(card, n, offset, nonfinite):
                    for s in (1e-2, 1e-2, 1e-3))
     ops = [x.reshape(-1)[offset:] for x in (theta, vb, v, dvb, dv, xi)]
     kernels.reset_launch_counts()
-    got = kernels.fused_update_bf16(*ops, 0.03, 1.0)
-    want = fused_update_bf16_plain(*ops, 0.03, 1.0)
+    got = kernels.fused_update_control(*ops, 0.03, 1.0)
+    want = fused_update_control_plain(*ops, 0.03, 1.0)
     assert all(_same_or_nan(g, w) for g, w in zip(got, want))
-    got = kernels.cffl_update_bf16(*ops[:5], 0.03)
-    want = cffl_update_bf16_plain(*ops[:5], 0.03)
+    got = kernels.cffl_update_control(*ops[:5], 0.03)
+    want = cffl_update_control_plain(*ops[:5], 0.03)
     assert all(_same_or_nan(g, w) for g, w in zip(got, want))
     counts = kernels.launch_counts()
     assert counts["fused_update_bf16"] == counts["cffl_update_bf16"] == 1
     assert counts["fused_update"] == counts["cffl_update"] == 0
+
+
+@pytest.mark.parametrize("n", [7, 4097])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_f16_forms_match_plain_versions(card, n, offset):
+    """The float16 forms (ROADMAP C32): topk_select and delta-pack of θ − v
+    with v in f16 (subnormal halves and ±0 among its elements), and the
+    Eqs. 7–9 updates, whose sums are rounded to f16 before Eq. 9, on
+    aligned and unaligned operands: bit for bit, one launch each."""
+    theta, v, gen = _bf16_operands(card, n, n + 11)
+    v = v.float()
+    v[:, ::5] = torch.randint(-1023, 1024, v[:, ::5].shape, generator=gen,
+                              device=card).float() * 2.0 ** -24
+    v[:, 1::7] = -0.0
+    v = v.to(torch.float16)
+    kernels.reset_launch_counts()
+    k = max(1, -(-n // 100)) if n <= 1024 else 11
+    (vals, idx), = kernels.topk_select([theta], [k], [v])
+    want = topk_select_plain(theta, k, v=v)
+    assert _same_bits(vals, want[0]) and _same_bits(idx, want[1])
+    (vals, idx), = kernels.delta_pack([theta], [v], 11)
+    want = delta_pack_plain(theta, v, 11)
+    assert _same_bits(vals, want[0]) and _same_bits(idx, want[1])
+    vb = (v.float() * 0.5 + 1e-6).to(torch.float16)
+    dvb, dv, xi = (torch.randn((4, n), generator=gen, device=card) * s
+                   for s in (1e-2, 1e-6, 1e-3))
+    ops = [x.reshape(-1)[offset:] for x in (theta, vb, v, dvb, dv, xi)]
+    got = kernels.fused_update_control(*ops, 0.03, 1.0)
+    assert all(_same_or_nan(g, w) for g, w in zip(
+        got, fused_update_control_plain(*ops, 0.03, 1.0)))
+    got = kernels.cffl_update_control(*ops[:5], 0.03)
+    assert all(_same_or_nan(g, w) for g, w in zip(
+        got, cffl_update_control_plain(*ops[:5], 0.03)))
+    counts = kernels.launch_counts()
+    assert [counts[f"{f}_f16"] for f in ("topk_select", "delta_pack",
+                                         "fused_update", "cffl_update")] \
+        == [1, 1, 1, 1]
 
 
 def _keyed_loss(params, batch, key):

@@ -74,10 +74,11 @@ def test_trainer_defaults_to_the_card():
 def test_unported_options_name_their_roadmap_item():
     from repro_torch.config import ContinualConfig, FedConfig
     # transport, participation and continual run since ROADMAP A8, A7 and
-    # A9 were ported
+    # A9 were ported, float16 control variates since A3 was
     FedConfig(continual=ContinualConfig(scenario="gain_drift",
                                         window=4)).check_supported()
-    for bad in (dict(qsgd_levels=3), dict(control_dtype="float16"),
+    FedConfig(control_dtype="float16").check_supported()
+    for bad in (dict(qsgd_levels=3), dict(qsgd_levels=12),
                 dict(compressor="sign_pallas")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             FedConfig(**{"fused_compress": True, **bad}).check_supported()

@@ -21,8 +21,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.fused_compress import (carrier_norms_plain, delta_pack,
                                                 grid_quant_leaves,
                                                 grid_quant_plain)
-from repro_torch.kernels.fused_update import (FORMS, cffl_update_bf16,
-                                              fma_f32, fused_update_bf16,
+from repro_torch.kernels.fused_update import (FORMS, cffl_update_control,
+                                              fma_f32, fused_update_control,
                                               gossip_mix_plain)
 from repro_torch.kernels.pack import (BISECT_ITERS, bisection_bounds,
                                       pack_topk, unpack_topk_plain)
@@ -316,8 +316,13 @@ def test_cpu_tensors_run_the_plain_versions():
     vb = x.to(torch.bfloat16)
     ops.topk_select_leaves([x], [11], [vb])
     ops.fused_delta_pack_leaves([x], [vb])
-    fused_update_bf16(x, vb, vb, x, x, x, 0.03, 1.0)
-    cffl_update_bf16(x, vb, vb, x, x, 0.03)
+    fused_update_control(x, vb, vb, x, x, x, 0.03, 1.0)
+    cffl_update_control(x, vb, vb, x, x, 0.03)
+    vh = x.to(torch.float16)
+    ops.topk_select_leaves([x], [11], [vh])
+    ops.fused_delta_pack_leaves([x], [vh])
+    kernels.fused_update_control(x, vh, vh, x, x, x, 0.03, 1.0)
+    kernels.cffl_update_control(x, vh, vh, x, x, 0.03)
     q = torch.randn(1, 2, 3, 8)
     kv = torch.randn(1, 2, 3, 8)
     kernels.decode_attention(q, kv, kv, torch.zeros(1, 2, 4, 3, 8),
@@ -333,6 +338,8 @@ def test_cpu_tensors_run_the_plain_versions():
         "dsgld_update": 0, "gossip_mix": 0, "gilbert_keep": 0,
         "topk_select_bf16": 0, "delta_pack_bf16": 0,
         "fused_update_bf16": 0, "cffl_update_bf16": 0,
+        "topk_select_f16": 0, "delta_pack_f16": 0,
+        "fused_update_f16": 0, "cffl_update_f16": 0,
         "decode_attention": 0, "bma_sample": 0}
 
 

@@ -330,8 +330,6 @@ def test_chunked_attention_equals_naive():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("deepseek-v2-236b", "A12 part 4"), ("grok-1-314b", "A12 part 4"),
-    ("llava-next-mistral-7b", "A12 part 3"),
     ("recurrentgemma-9b", "A12 part 5"), ("xlstm-1.3b", "A12 part 6"),
     ("whisper-tiny", "A12 part 7")])
 def test_unported_archs_and_families_name_their_part(arch, item):
@@ -340,6 +338,26 @@ def test_unported_archs_and_families_name_their_part(arch, item):
     family = jax_get_arch(arch).config.family
     with pytest.raises(NotImplementedError, match="A12 part"):
         get_model(get_arch("smollm-135m").reduced.replace(family=family))
+
+
+@pytest.mark.parametrize("arch,family", [
+    ("deepseek-v2-236b", "moe"), ("grok-1-314b", "moe"),
+    ("llava-next-mistral-7b", "vlm")])
+def test_archs_of_parts_3_and_4_run(arch, family):
+    """The archs that named A12 parts 3 and 4 here until those were
+    ported: their entries and families build, and a reduced forward runs
+    (their parity with the reference is ``test_torch_lm_moe.py``'s)."""
+    cfg = get_arch(arch).reduced
+    assert cfg.family == family == jax_get_arch(arch).config.family
+    model = get_model(cfg)
+    params = tree_map(lambda x: x[None], model.init(random.PRNGKey(0), "cpu"))
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64)}
+    if family == "vlm":
+        batch["patches"] = torch.zeros((1, cfg.num_image_patches,
+                                        cfg.d_model))
+    lg = model.logits(params, batch)
+    assert lg.shape[-1] == cfg.vocab_size
+    assert torch.isfinite(lg.float()).all()
 
 
 def test_params_round_trip_through_numpy():

@@ -217,7 +217,7 @@ def test_unported_serving_paths_name_their_roadmap_item(radar):
         ClassifyEngine(lenet_apply, ServeConfig(ensemble_axis="ens"),
                        input_shape=(16, 16, 1))
     with pytest.raises(NotImplementedError, match="A12"):
-        get_arch("deepseek-v2-236b")
+        get_arch("recurrentgemma-9b")
     assert isinstance(peval.make_eval_engine("scan", lenet_apply),
                       peval.ScanEvalEngine)
     assert isinstance(peval.make_eval_engine("host", lenet_apply),
@@ -482,7 +482,7 @@ def test_cli_polling_without_a_directory_serves_the_synthetic_bank():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--arch", "grok-1-314b"], "A12"), (["--mesh", "2"], "A10"),
+    (["--arch", "recurrentgemma-9b"], "A12"), (["--mesh", "2"], "A10"),
     (["--arch", "xlstm-1.3b"], "A12")])
 def test_cli_unported_modes_name_their_roadmap_item(argv, item):
     from repro_torch.launch.serve import main

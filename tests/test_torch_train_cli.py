@@ -111,7 +111,7 @@ def test_cli_snapshots_are_served(tmp_path, capsys):
     (["--straggler-prob", "0.1"], "A7"), (["--dead-node", "2:3"], "A7"),
     (["--drift", "gain_drift"], "A9"), (["--refresh-window", "4"], "A9"),
     (["--mesh", "2"], "A10"), (["--engine", "shard"], "A10"),
-    (["--arch", "llava-next-mistral-7b"], "A12")])
+    (["--arch", "recurrentgemma-9b"], "A12")])
 def test_unported_flags_exit_naming_their_item(flags, item, capsys,
                                                monkeypatch):
     """The flags of a path the port does not run yet exit naming its

@@ -16,6 +16,10 @@ PyTorch port's tests and for ``chip_smoke.py``, which reads them on the card.
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py decode
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py kv-flips
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py lm-rounds
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py f16-rounds
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py lm-families
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py vlm-full
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py moe-full
 
 ``threefry`` writes ``tests/golden/threefry_draws.npz``: ``jax.random``'s
 keys, bits, uniforms, normals, truncated normals and randints for the cases
@@ -69,6 +73,10 @@ fused ``block_topk`` (the seeded-rounds configuration) and cffl; with the
 control state's ‖v‖₂ and ‖v̄‖₂ after the last round, and under
 ``f32_control`` the loss, consensus and norms of the same run with
 float32 control variates.
+
+``f16-rounds`` writes ``tests/golden/f16_rounds_lenet_radar.json``: the same
+runs with ``control_dtype="float16"`` (ROADMAP C32), their ``f32_control``
+copied from the bf16 record (the same configurations in f32).
 
 ``claims-smoke`` writes ``tests/golden/claims_smoke_lenet_radar.json``: the
 reference's ``repro.eval.matrix.run_claims_smoke(CLAIMS_SPEC)`` (reduced
@@ -153,6 +161,7 @@ the CPU tests of its rule hold to the plain version.
 from __future__ import annotations
 
 import json
+import math
 import sys
 import time
 from pathlib import Path
@@ -651,6 +660,24 @@ def write_bf16_rounds() -> None:
           f"{ {n: (r['loss'], r['wire_bytes']) for n, r in records.items()} }")
 
 
+# chip_smoke.py's phase-11 (b) runs again with float16 control variates
+# (ROADMAP C32); their float32 controls are the bf16 runs' (the same
+# configurations but for the control dtype)
+F16_ROUNDS_FILE = GOLDEN / "f16_rounds_lenet_radar.json"
+
+
+def write_f16_rounds() -> None:
+    bf16 = json.loads(BF16_ROUNDS_FILE.read_text())
+    records = {}
+    for name, c in BF16_RUNS.items():
+        c = dict(c, fed=dict(c["fed"], control_dtype="float16"))
+        records[name] = seeded_rounds(c, "f16-rounds", norms=True)
+        records[name]["f32_control"] = bf16[name]["f32_control"]
+    F16_ROUNDS_FILE.write_text(json.dumps(records, indent=1) + "\n")
+    print(f"wrote {F16_ROUNDS_FILE}: "
+          f"{ {n: (r['loss'], r['wire_bytes']) for n, r in records.items()} }")
+
+
 # chip_smoke.py's phase-12 run: the paper-default cdbfl (phase 7's) under a
 # days-2/3 critical drift that comes in round 1 and goes in round 2, the
 # bank aged by a 2-round window and a 0.9 decay, bank thin 1
@@ -915,8 +942,8 @@ DECODE_CONFIG = dict(arch="smollm-135m", seed=0, samples=4, slots=8,
 def leaf_picks(n: int) -> list:
     """The flat indices of a leaf of ``n`` elements whose values the decode
     record keeps: both ends and five points between."""
-    return sorted({0, n // 7, n // 3, n // 2, (5 * n) // 7, n - 2, n - 1}
-                  & set(range(n)))
+    return sorted(i for i in {0, n // 7, n // 3, n // 2, (5 * n) // 7,
+                              n - 2, n - 1} if 0 <= i < n)
 
 
 def decode_requests(vocab: int, requests: int, seed: int) -> list:
@@ -932,12 +959,60 @@ def leaf_record(a: np.ndarray) -> dict:
             "idx": idx, "values": [float(flat[i]) for i in idx]}
 
 
+def reference_decode(model, stacked, c: dict) -> dict:
+    """The reference DecodeEngine's run of :func:`decode_requests` on the
+    bank ``stacked`` (``c``: slots, max_len, max_new_tokens, requests, seed,
+    top): each request's tokens, token entropies, mean entropy and argmax,
+    the top-two margin of the perturbed scores at each of its steps (a
+    token is held to the record only above a margin) recomputed from the
+    step's BMA probabilities and the lane's Gumbel draw, and the first
+    step's top ``top`` probabilities of each slot."""
+    import jax
+    import jax.numpy as jnp
+    from repro.config import ServeConfig
+    from repro.serve import DecodeEngine, ServeRequest
+    scores = jax.jit(lambda p, g: jnp.log(jnp.maximum(p, 1e-12)) + g)
+    eng = DecodeEngine(model, ServeConfig(
+        slots=c["slots"], max_len=c["max_len"],
+        max_new_tokens=c["max_new_tokens"]), stacked=stacked)
+    step_fn, margins, first, mismatch = eng._step_fn, {}, [], [0]
+
+    def hooked(bank, caches, tokens, pos, keys):
+        out = step_fn(bank, caches, tokens, pos, keys)
+        probs, nxt = np.asarray(out[3]), np.asarray(out[1][:, 0])
+        pos_h, keys_h = np.asarray(pos), np.asarray(keys)
+        for i, rid in enumerate(eng.slot_req):
+            if rid is None:
+                continue
+            g = jax.random.gumbel(jax.random.fold_in(
+                jnp.asarray(keys_h[i]), int(pos_h[i])), probs.shape[-1:])
+            s = np.asarray(scores(jnp.asarray(probs[i]), g))
+            top = np.argsort(-s, kind="stable")[:2]
+            mismatch[0] += int(top[0] != nxt[i])
+            margins.setdefault(rid, []).append(float(s[top[0]] - s[top[1]]))
+        if not first:
+            order = np.argsort(-probs, axis=-1, kind="stable")[:, :c["top"]]
+            first.append({"idx": order.tolist(), "probs": np.take_along_axis(
+                probs, order, -1).tolist()})
+        return out
+
+    eng._step_fn = hooked
+    reqs = [ServeRequest(prompt_token=t, seed=s) for t, s in
+            decode_requests(model.cfg.vocab_size, c["requests"], c["seed"])]
+    resps = eng.run(reqs)
+    return {"tokens": [r.tokens.tolist() for r in resps],
+            "token_entropy": [r.token_entropy.tolist() for r in resps],
+            "entropy": [r.entropy for r in resps],
+            "pred": [int(np.argmax(r.probs)) for r in resps],
+            "margins": [margins[r.request_id] for r in resps],
+            "first_step_top": first[0], "argmax_mismatches": mismatch[0]}
+
+
 def write_decode() -> None:
     import jax
     import jax.numpy as jnp
-    from repro.config import ServeConfig, get_arch
+    from repro.config import get_arch
     from repro.models import get_model
-    from repro.serve import DecodeEngine, ServeRequest
     c = DECODE_CONFIG
     cfg = get_arch(c["arch"]).config
     key = jax.random.PRNGKey(c["seed"])
@@ -950,51 +1025,17 @@ def write_decode() -> None:
               for path, x in jax.tree_util.tree_leaves_with_path(stacked)}
     print(f"bank: {len(leaves)} leaves in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    scores = jax.jit(lambda p, g: jnp.log(jnp.maximum(p, 1e-12)) + g)
     runs = {}
     for dtype in c["dtypes"]:
         t0 = time.perf_counter()
-        eng = DecodeEngine(get_model(cfg.replace(dtype=dtype)), ServeConfig(
-            slots=c["slots"], max_len=c["max_len"],
-            max_new_tokens=c["max_new_tokens"]), stacked=stacked)
-        step_fn, margins, first, mismatch = eng._step_fn, {}, [], [0]
-
-        def hooked(bank, caches, tokens, pos, keys):
-            out = step_fn(bank, caches, tokens, pos, keys)
-            probs, nxt = np.asarray(out[3]), np.asarray(out[1][:, 0])
-            pos_h, keys_h = np.asarray(pos), np.asarray(keys)
-            for i, rid in enumerate(eng.slot_req):
-                if rid is None:
-                    continue
-                g = jax.random.gumbel(jax.random.fold_in(
-                    jnp.asarray(keys_h[i]), int(pos_h[i])), probs.shape[-1:])
-                s = np.asarray(scores(jnp.asarray(probs[i]), g))
-                top = np.argsort(-s, kind="stable")[:2]
-                mismatch[0] += int(top[0] != nxt[i])
-                margins.setdefault(rid, []).append(
-                    float(s[top[0]] - s[top[1]]))
-            if not first:
-                order = np.argsort(-probs, axis=-1, kind="stable")[:, :c["top"]]
-                first.append({"idx": order.tolist(), "probs": np.take_along_axis(
-                    probs, order, -1).tolist()})
-            return out
-
-        eng._step_fn = hooked
-        reqs = [ServeRequest(prompt_token=t, seed=s) for t, s in
-                decode_requests(cfg.vocab_size, c["requests"], c["seed"])]
-        resps = eng.run(reqs)
-        runs[dtype] = {
-            "tokens": [r.tokens.tolist() for r in resps],
-            "token_entropy": [r.token_entropy.tolist() for r in resps],
-            "entropy": [r.entropy for r in resps],
-            "pred": [int(np.argmax(r.probs)) for r in resps],
-            "margins": [margins[r.request_id] for r in resps],
-            "first_step_top": first[0], "argmax_mismatches": mismatch[0]}
-        print(f"{dtype}: {len(resps)} requests in "
+        runs[dtype] = reference_decode(get_model(cfg.replace(dtype=dtype)),
+                                       stacked, c)
+        print(f"{dtype}: {len(runs[dtype]['tokens'])} requests in "
               f"{time.perf_counter() - t0:.1f} s; smallest margin "
-              f"{min(min(m) for m in margins.values()):.3g}; recomputed "
-              f"argmax off the engine's token {mismatch[0]} times; first "
-              f"tokens {runs[dtype]['tokens'][0][:6]}", flush=True)
+              f"{min(min(m) for m in runs[dtype]['margins']):.3g}; "
+              f"recomputed argmax off the engine's token "
+              f"{runs[dtype]['argmax_mismatches']} times; first tokens "
+              f"{runs[dtype]['tokens'][0][:6]}", flush=True)
     DECODE_FILE.write_text(json.dumps(
         {"config": c, "leaves": leaves, "runs": runs}, indent=1) + "\n")
     print(f"wrote {DECODE_FILE}")
@@ -1141,6 +1182,336 @@ def write_lm_rounds() -> None:
     print(f"wrote {LM_ROUNDS_FILE}")
 
 
+# chip_smoke.py's phases 15 and 16 at reduced width: llava-next (with its
+# patches), grok-1 and deepseek-v2 (MLA, shared experts) under cdbfl in
+# f32 on the reference's host engine, and the reference's DecodeEngine on
+# the two MoE archs. The reference's engine vmaps a batch-1 decode over
+# its lanes, where jax.lax.ragged_dot has no batching rule (jax 0.9.0:
+# "ragged_dot vmap over any dim but 0 - NYI"), so it decodes with
+# impl="gshard": one token a lane drops no copy at any capacity, so it is
+# the ragged dispatch's function there.
+LM_FAMILIES_FILE = GOLDEN / "lm_families_reduced.json"
+LM_FAMILY_RUNS = {
+    "llava": dict(arch="llava-next-mistral-7b", impl=None),
+    "grok_ragged": dict(arch="grok-1-314b", impl="ragged"),
+    "deepseek_gshard": dict(arch="deepseek-v2-236b", impl="gshard"),
+    "deepseek_ragged": dict(arch="deepseek-v2-236b", impl="ragged"),
+}
+LM_FAMILY_CONFIG = dict(
+    dtype="float32", seed=0, rounds=2, pool=6, minibatch=2, seq=16,
+    fed=dict(num_nodes=2, local_steps=2, eta=1e-3, zeta=0.3,
+             temperature=0.1, topology="ring", compressor="block_topk",
+             compress_ratio=0.05, burn_in=1))
+# the decode runs: a bank of 2 inits from fold_in(PRNGKey(0), i), 6
+# requests (decode_requests), 2 slots, 5 new tokens, in f32
+LM_FAMILY_DECODE = dict(samples=2, requests=6, slots=2, max_len=8,
+                        new_tokens=5)
+
+
+def family_cfg(get_arch, moe_cls, arch: str, impl, dtype: str):
+    """The reduced config of ``arch`` in ``dtype`` with MoE dispatch
+    ``impl`` (either package's ``get_arch`` and ``MoEConfig``)."""
+    cfg = get_arch(arch).reduced.replace(dtype=dtype)
+    if impl is not None:
+        m = cfg.moe
+        cfg = cfg.replace(moe=moe_cls(m.num_experts, m.num_shared_experts,
+                                      m.top_k, m.aux_loss_weight, impl,
+                                      m.capacity_factor))
+    return cfg
+
+
+def family_pools(cfg, markov_tokens, nodes: int, pool: int, seq: int,
+                 seed: int = 0) -> list:
+    """Each node's pool: markov tokens, and for the vlm family numpy
+    normal patches ``(pool, P, D)`` from ``default_rng(seed + 100 + k)``."""
+    pools = lm_pools(markov_tokens, nodes, pool, seq, cfg.vocab_size, seed)
+    if cfg.family == "vlm":
+        for k, p in enumerate(pools):
+            p["patches"] = np.random.default_rng(seed + 100 + k) \
+                .standard_normal((pool, cfg.num_image_patches,
+                                  cfg.d_model)).astype(np.float32)
+    return pools
+
+
+def write_lm_families() -> None:
+    """Each run of :data:`LM_FAMILY_RUNS`: its rounds' losses (K, L),
+    consensus and wire bytes, θ after them (:func:`tree_record`) and v's
+    nonzero count a leaf; for
+    the MoE archs the reference's engine's tokens and entropies."""
+    import jax
+    import jax.numpy as jnp
+    from repro.config import FedConfig, MoEConfig, ServeConfig, get_arch
+    from repro.data.synthetic_lm import markov_tokens
+    from repro.models import get_model
+    from repro.serve import DecodeEngine, ServeRequest
+    from repro.train import FedTrainer
+    c, d = LM_FAMILY_CONFIG, LM_FAMILY_DECODE
+    out = {"command": "JAX_PLATFORMS=cpu PYTHONPATH=src python "
+                      "tests/torch_golden.py lm-families",
+           "config": c, "decode": d, "runs": {}}
+    for name, run in LM_FAMILY_RUNS.items():
+        cfg = family_cfg(get_arch, MoEConfig, run["arch"], run["impl"],
+                         c["dtype"])
+        fed = FedConfig(rounds=c["rounds"], **c["fed"])
+        pools = family_pools(cfg, markov_tokens, fed.num_nodes, c["pool"],
+                             c["seq"], c["seed"])
+        trainer = FedTrainer(get_model(cfg), fed, pools,
+                             minibatch=c["minibatch"], seed=c["seed"],
+                             engine="host", bank_capacity=1)
+        eng, losses = trainer._engine, []
+        round_fn = eng.round_fn
+
+        def hooked(state, batches, key, round_fn=round_fn, losses=losses):
+            o = round_fn(state, batches, key)
+            losses.append(np.asarray(o[1].loss, np.float64).tolist())
+            return o
+        eng.round_fn = hooked
+        res = trainer.run(rounds=c["rounds"])
+        rec = {"loss": losses,
+               "consensus": [float(x) for x in res.consensus_history],
+               "wire_bytes": [float(x) for x in res.wire_history],
+               "theta": tree_record(jax.tree.map(np.asarray,
+                                                 trainer.state.params)),
+               "v_survivors": {
+                   "/".join(str(getattr(k, "key", k)) for k in path):
+                   int(np.count_nonzero(np.asarray(x))) for path, x in
+                   jax.tree_util.tree_leaves_with_path(trainer.state.v)}}
+        if cfg.family == "moe":
+            dcfg = family_cfg(get_arch, MoEConfig, run["arch"], "gshard",
+                              c["dtype"])
+            model = get_model(dcfg)
+            key = jax.random.PRNGKey(0)
+            bank = jax.tree.map(lambda *xs: jnp.stack(xs), *[
+                model.init(jax.random.fold_in(key, i))
+                for i in range(d["samples"])])
+            resps = DecodeEngine(model, ServeConfig(
+                slots=d["slots"], max_len=d["max_len"],
+                max_new_tokens=d["new_tokens"]), stacked=bank).run(
+                [ServeRequest(prompt_token=t, seed=s) for t, s in
+                 decode_requests(cfg.vocab_size, d["requests"], 0)])
+            rec["decode"] = [{"tokens": [int(x) for x in r.tokens],
+                              "entropy": [float(x) for x in r.token_entropy]}
+                             for r in resps]
+        out["runs"][name] = rec
+        print(f"{name}: loss {losses}, bytes {rec['wire_bytes']}", flush=True)
+    LM_FAMILIES_FILE.write_text(json.dumps(out, indent=1) + "\n")
+    print(f"wrote {LM_FAMILIES_FILE}")
+
+
+# chip_smoke.py's phase-15 record of llava-next at full width, cut to the
+# fewest layers that scan (2): the init of one model (seed 0), each of its
+# leaves' record; each node's NLL of it on its own first sequence
+# (1,152 patches and 32 text tokens); the gradient of node 0's NLL over
+# img_proj and each layer leaf (its first layer); and the wire bytes a
+# node a round of K=2 nodes under the default codec, from the shapes
+VLM_FULL_FILE = GOLDEN / "vlm_llava_next.json"
+VLM_FULL_CONFIG = dict(arch="llava-next-mistral-7b", num_layers=2,
+                       dtype="float32", seed=0, nodes=2, seq=32, pool=1,
+                       fed=dict(num_nodes=2, compressor="block_topk",
+                                compress_ratio=0.01),
+                       cuts={"num_layers": "32 -> 2"})
+
+
+def write_vlm_full() -> None:
+    import jax
+    import jax.numpy as jnp
+    from repro.config import FedConfig, get_arch
+    from repro.core import make_compressor
+    from repro.data.synthetic_lm import markov_tokens
+    from repro.models import get_model
+    c = VLM_FULL_CONFIG
+    cfg = get_arch(c["arch"]).config.replace(num_layers=c["num_layers"],
+                                             dtype=c["dtype"])
+    model = get_model(cfg)
+    t0 = time.time()
+    params = model.init(jax.random.PRNGKey(c["seed"]))
+    pools = family_pools(cfg, markov_tokens, c["nodes"], c["pool"], c["seq"],
+                         c["seed"])
+    rec = {"command": "JAX_PLATFORMS=cpu PYTHONPATH=src python "
+                      "tests/torch_golden.py vlm-full",
+           "config": c, "init": tree_record(jax.tree.map(np.asarray, params)),
+           "wire_bytes": float(make_compressor(FedConfig(**c["fed"]))
+                               .wire_bytes(params))}
+    print(f"init in {time.time() - t0:.1f} s", flush=True)
+    loss = jax.jit(lambda p, b: model.loss(p, b)[0])
+    rec["nll"] = [float(loss(params, jax.tree.map(jnp.asarray, p)))
+                  for p in pools]
+    print(f"nll {rec['nll']} at {time.time() - t0:.1f} s", flush=True)
+    g = jax.jit(jax.grad(lambda p, b: model.loss(p, b)[0]))(
+        params, jax.tree.map(jnp.asarray, pools[0]))
+    rec["grad"] = {}
+    for path, x in jax.tree_util.tree_leaves_with_path(g):
+        key = "/".join(str(getattr(k, "key", k)) for k in path)
+        if key == "embed/img_proj":
+            rec["grad"][key] = grad_record(np.asarray(x))
+        elif key.startswith("groups/"):
+            rec["grad"][key] = grad_record(np.asarray(x)[0])
+    del g
+    VLM_FULL_FILE.write_text(json.dumps(rec, indent=1) + "\n")
+    print(f"wrote {VLM_FULL_FILE} in {time.time() - t0:.1f} s")
+
+
+# chip_smoke.py's phase-16 (b) record of deepseek-v2 at full width, cut to
+# one layer (5.0 B parameters, 20 GB in f32): the init of bank sample 0
+# (fold_in(PRNGKey(0), 0)), each leaf's record; its logits of one markov
+# sequence of ``seq`` tokens through the ragged dispatch (each position's
+# ``top`` largest) with their NLL and aux term; and the reference
+# DecodeEngine's run (:func:`reference_decode`) on a bank of that one
+# sample, with impl="gshard" (one token a lane: the ragged dispatch's
+# function, see LM_FAMILY_RUNS). Each cut of the serving CLI's decode
+# defaults (DECODE_CONFIG) is listed under ``cuts``.
+MOE_FULL_FILE = GOLDEN / "moe_deepseek_v2.json"
+MOE_FULL_CONFIG = dict(
+    arch="deepseek-v2-236b", num_layers=1, dtype="float32", seed=0, seq=16,
+    top=8, decode=dict(samples=1, slots=8, max_len=16, max_new_tokens=6,
+                       requests=16, seed=0, top=8, impl="gshard"),
+    cuts={"num_layers": "60 -> 1", "samples": "4 -> 1",
+          "max_len": "128 -> 16", "max_new_tokens": "16 -> 6"})
+
+
+def aligned_empty(shape, dtype) -> np.ndarray:
+    """An uninitialized C-contiguous array at a 64-byte boundary, which
+    ``jnp.from_dlpack`` takes on the CPU without a copy."""
+    dtype = np.dtype(dtype)
+    n = int(np.prod(shape, dtype=np.int64))
+    buf = np.empty(n * dtype.itemsize + 64, np.uint8)
+    off = -buf.ctypes.data % 64
+    return buf[off:off + n * dtype.itemsize].view(dtype).reshape(shape)
+
+
+def chunked_dense_init(chunk: int = 1 << 26):
+    """The reference's ``dense_init`` (``repro/models/layers.py``), drawn
+    about ``chunk`` elements of leading rows at a time into one
+    :func:`aligned_empty` numpy array. JAX's threefry is partitionable
+    (``jax_threefry_partitionable``): a draw depends on the key and its
+    flat index alone, the index split into two uint32 counters by
+    ``prng.iota_2x32_shape``; each block's draws take that function with
+    the counters offset to the block's first index, so the blocks are the
+    whole leaf's draws without its several leaf-sized temporaries (a
+    full-width deepseek-v2 layer's init otherwise outgrows 60 GB)."""
+    import jax
+    import jax.numpy as jnp
+    from jax import lax
+    from jax._src import prng
+
+    def counters(offset: int):
+        lo0, hi0 = np.uint32(offset & 0xFFFFFFFF), np.uint32(offset >> 32)
+
+        def iota(shape):
+            lo = lax.iota(np.uint32, math.prod(shape)).reshape(shape) + lo0
+            return [(lo < lo0).astype(np.uint32) + hi0, lo]
+        return iota
+
+    def init(key, in_dim, out_shape, scale=1.0, dtype=jnp.float32):
+        shape = (in_dim,) + tuple(out_shape)
+        row = math.prod(shape[1:])
+        rows = max(1, chunk // row)
+        out = aligned_empty(shape, dtype)
+        std = scale / math.sqrt(in_dim)
+        if rows >= in_dim:                      # one block: as drawn
+            out[...] = np.asarray((std * jax.random.truncated_normal(
+                key, -2.0, 2.0, shape)).astype(dtype))
+            return out
+        saved = prng.iota_2x32_shape
+        try:
+            for a in range(0, in_dim, rows):
+                b = min(a + rows, in_dim)
+                prng.iota_2x32_shape = counters(a * row)
+                jax.clear_caches()
+                out[a:b] = np.asarray((std * jax.random.truncated_normal(
+                    key, -2.0, 2.0, (b - a,) + shape[1:])).astype(dtype))
+        finally:
+            prng.iota_2x32_shape = saved
+            jax.clear_caches()
+        return out
+    return init
+
+
+def lean_init(model, key, chunk: int = 1 << 26):
+    """``model.init(key)`` of a transformer whose large leaves come from
+    ``dense_init`` (the moe and mla blocks', the head's), with
+    :func:`chunked_dense_init` in its place: the leaves are numpy arrays
+    (those the init transposes or reshapes, views)."""
+    from repro.models import mla, moe, transformer
+    mods = (moe, mla, transformer)
+    saved = [m.dense_init for m in mods]
+    for m in mods:
+        m.dense_init = chunked_dense_init(chunk)
+    try:
+        return model.init(key)
+    finally:
+        for m, f in zip(mods, saved):
+            m.dense_init = f
+
+
+def jax_leaf(x, lead: bool = False):
+    """A JAX array over numpy ``x``'s memory (a C-contiguous aligned copy
+    first where ``x`` is not one), with a leading axis of 1 if ``lead``."""
+    import jax.numpy as jnp
+    if not isinstance(x, np.ndarray):
+        return x[None] if lead else x
+    return jnp.from_dlpack(x[None] if lead else x)
+
+
+def contiguous(x):
+    if isinstance(x, np.ndarray) and not (x.flags.c_contiguous and
+                                          x.ctypes.data % 64 == 0):
+        y = aligned_empty(x.shape, x.dtype)
+        y[...] = x
+        return y
+    return x
+
+
+def write_moe_full() -> None:
+    import jax
+    from repro.config import MoEConfig, get_arch
+    from repro.data.synthetic_lm import markov_tokens
+    from repro.models import get_model
+    c, d = MOE_FULL_CONFIG, MOE_FULL_CONFIG["decode"]
+    cfg = get_arch(c["arch"]).config.replace(num_layers=c["num_layers"],
+                                             dtype=c["dtype"])
+    t0 = time.time()
+    model = get_model(cfg)
+    host = lean_init(model, jax.random.fold_in(
+        jax.random.PRNGKey(c["seed"]), 0))
+    leaves, tdef = jax.tree_util.tree_flatten(host)
+    del host
+    for i in range(len(leaves)):
+        leaves[i] = contiguous(leaves[i])
+    host = jax.tree_util.tree_unflatten(tdef, leaves)
+    del leaves
+    rec = {"command": "JAX_PLATFORMS=cpu PYTHONPATH=src python "
+                      "tests/torch_golden.py moe-full",
+           "config": c, "init": tree_record(host)}
+    print(f"init in {time.time() - t0:.1f} s", flush=True)
+    params = jax.tree.map(jax_leaf, host)
+    tokens = markov_tokens(1, c["seq"], cfg.vocab_size, seed=c["seed"])
+    batch = {"tokens": jax.numpy.asarray(tokens)}
+    lg = np.asarray(jax.jit(model.logits)(params, batch))[0]
+    order = np.argsort(-lg, axis=-1, kind="stable")[:, :c["top"]]
+    _, parts = jax.jit(model.loss)(params, batch)
+    rec["forward"] = {"tokens": tokens[0].tolist(),
+                      "top_idx": order.tolist(),
+                      "top_logits": np.take_along_axis(lg, order, -1).tolist(),
+                      "absmax": float(np.abs(lg).max()),
+                      "nll": float(parts["nll"]), "aux": float(parts["aux"])}
+    print(f"forward: nll {rec['forward']['nll']}, aux {rec['forward']['aux']}"
+          f" at {time.time() - t0:.1f} s", flush=True)
+    del params, lg
+    m = cfg.moe
+    dmodel = get_model(cfg.replace(moe=MoEConfig(
+        m.num_experts, m.num_shared_experts, m.top_k, m.aux_loss_weight,
+        d["impl"], m.capacity_factor)))
+    stacked = jax.tree.map(lambda x: jax_leaf(x, lead=True), host)
+    rec["decode"] = reference_decode(dmodel, stacked, d)
+    print(f"decode: smallest margin "
+          f"{min(min(x) for x in rec['decode']['margins']):.3g}, first "
+          f"tokens {rec['decode']['tokens'][0]} at {time.time() - t0:.1f} s",
+          flush=True)
+    MOE_FULL_FILE.write_text(json.dumps(rec, indent=1) + "\n")
+    print(f"wrote {MOE_FULL_FILE} in {time.time() - t0:.1f} s")
+
+
 def print_kv_flips(draws: int = 200) -> None:
     import jax
     import jax.numpy as jnp
@@ -1211,6 +1582,7 @@ if __name__ == "__main__":
          "topology-rounds": write_topology_rounds,
          "transport-rounds": write_transport_rounds,
          "bf16-rounds": write_bf16_rounds,
+         "f16-rounds": write_f16_rounds,
          "claims-smoke": write_claims_smoke,
          "claims-port": compare_claims_port,
          "claims-nudged": compare_claims_nudged,
@@ -1218,4 +1590,7 @@ if __name__ == "__main__":
          "drift-claims": write_drift_claims,
          "decode": write_decode,
          "lm-rounds": write_lm_rounds,
-         "kv-flips": print_kv_flips}[name]()
+         "kv-flips": print_kv_flips,
+         "lm-families": write_lm_families,
+         "vlm-full": write_vlm_full,
+         "moe-full": write_moe_full}[name]()
