@@ -309,6 +309,41 @@ Phases, each of which fails the run by raising:
              Training at full width does not fit one card (ROADMAP A10).
              Phase 2 holds decode_attention at grok-1's heads and
              bma_sample at V = 131,072 and 102,400 at these banks.
+17. hybrid — recurrentgemma-9b (ROADMAP A12 part 5): (a) the reference's
+             reduced-width f32 rounds and decode
+             (``tests/golden/lm_families_recurrent.json``) as 15 (a); (b)
+             one (rec, rec, local_attn) group at full width (2.75 B
+             parameters), f32, against ``hybrid_recurrentgemma_9b.json``:
+             the init bit for bit (a_param within 2.5e-7: XLA's expm1,
+             ROADMAP C39), the forward's top logits within 1e-4 of the
+             largest and its NLL within rtol 1e-5, a bf16-compute control
+             failing both, DecodeEngine M=1 tokens equal to the reference
+             engine's above the margin, decode = forward through f32
+             caches (the split decode_attention on f32 rows of 256); (c)
+             one f32 round of that group at S = 1,024 (chunked_lru,
+             chunked_gqa), K=1, the vocabulary cut to 8,192 (at 256,000 the
+             round holds ~110 GB), scan = host bit for bit, device ms and
+             peaks; (d) DecodeEngine M=2 in bf16 on 18 layers (the depth
+             an M=2 bank and the engine's copy of it hold), timed.
+18. ssm    — xlstm-1.3b (ROADMAP A12 part 6): (a) as 17 (a); (b) full
+             width and full depth (48 layers, 1.24 B), f32, against
+             ``ssm_xlstm_1_3b.json``: init bit for bit, the forward as 17
+             (b), decode = forward through f32 states; (c) a K=2 round of
+             one group (7 mLSTM + 1 sLSTM, 378 M) at S = 1,024
+             (chunkwise_mlstm, the sLSTM's 1,024 steps), scan = host; (d)
+             DecodeEngine M=2 in bf16 at full depth, timed.
+19. audio  — whisper-tiny (ROADMAP A12 part 7): (a) as 17 (a), pools with
+             frames; (b) full width and depth against
+             ``audio_whisper_tiny.json``: init bit for bit, each node's NLL
+             of 1,500 frames and 32 tokens within rtol 1e-5, the encoder's
+             output (prefill_encoder) within 1e-4, two f32 rounds on
+             {tokens, frames} pools, bytes exact, scan = host; (c)
+             DecodeEngine M=2, 8 slots, f32, against zero encoder output
+             (the reference engine's, ROADMAP C37): tokens equal to the
+             record's above the margin, a replayed step timed.
+             Phase 2 holds decode_attention at recurrentgemma-9b's 16
+             heads of 256 over a 2,048-slot ring (bf16 and f32 caches)
+             and whisper's 6 heads of 64, and bma_sample at V = 256,000.
 
 Phase 11 (a) and (b) run for float16 control variates too, after bf16:
 the f16 forms of topk_select, delta-pack, fused_update and cffl_update
@@ -462,6 +497,10 @@ from torch_golden import (LM_FAMILIES_FILE, LM_FAMILY_CONFIG,  # noqa: E402
                           LM_FAMILY_DECODE, LM_FAMILY_RUNS, MOE_FULL_CONFIG,
                           MOE_FULL_FILE, VLM_FULL_CONFIG, VLM_FULL_FILE,
                           family_cfg, family_pools)
+from torch_golden import (AUDIO_CONFIG, AUDIO_FILE,  # noqa: E402
+                          HYBRID_FULL_CONFIG, HYBRID_FULL_FILE,
+                          RECURRENT_FAMILIES_FILE, RECURRENT_FAMILY_RUNS,
+                          SSM_FULL_CONFIG, SSM_FULL_FILE)
 
 DEVICE = "cuda"
 REDUCED = False                                    # full lenet-radar width
@@ -1975,7 +2014,7 @@ TRACE_NAMES = {kname: re.compile(pattern) for kname, pattern in {
     "delta_pack_f16": r"pack_kernel<true, \w*half",
     "fused_update_f16": r"control_update_\w+<0, \w*half",
     "cffl_update_f16": r"control_update_\w+<1, \w*half",
-    "decode_attention": r"decode_attention_kernel",
+    "decode_attention": r"decode_attention_(split_)?kernel",
     "bma_sample": r"bma_sample_kernel"}.items()}
 # tries at a whole trace, and the least launches of its warm-up (profiled)
 TRACE_ATTEMPTS, WARM_LAUNCHES = 4, 32
@@ -4210,6 +4249,9 @@ DECODE_WINDOW = 8                          # the ring-buffer case
 # 8 heads over each KV head (yi-9b), 12 (mistral-large-123b) and 6
 # (grok-1-314b, which phase 16 (c) decodes)
 DECODE_WIDE_ARCHS = ("yi-9b", "mistral-large-123b", "grok-1-314b")
+# phases 17 and 19's decode shapes that phase 2 also holds: the bank's
+# samples of recurrentgemma-9b's engine, whisper-tiny's cache length
+RG_M, AUDIO_MAX_LEN = 2, 32
 # f32 operations: an element of each of the decode attention's two dot
 # products (a multiply and an add); an element of the sampler: a sample's
 # scale, subtraction, XLA's exp (EXP_OPS), division and add, then the
@@ -4275,10 +4317,11 @@ def slot_positions(pos: torch.Tensor, slots: int, window: int):
 
 def attention_case(cfg, b: int, dtype, pos, window: int = 0, seed: int = 0,
                    reset: int = 0, slots: int = DECODE_MAX_LEN,
-                   m: int = DECODE_M):
+                   m: int = DECODE_M, cache_dtype=torch.bfloat16):
     """Full-width inputs of one layer's launch: m x b lanes at positions
     ``pos``, the first ``reset`` lanes reset (slot_pos -1, as an admit
-    leaves them); ``window`` slots in a ring buffer, else ``slots``."""
+    leaves them); ``window`` slots in a ring buffer, else ``slots``; the
+    caches in ``cache_dtype``."""
     g, h, kv, hd = m, cfg.num_heads, cfg.num_kv_heads, \
         cfg.resolved_head_dim
     slots = window or slots
@@ -4289,8 +4332,8 @@ def attention_case(cfg, b: int, dtype, pos, window: int = 0, seed: int = 0,
     sp[:, :reset] = -1
     return (rnd(g, b, h, hd).to(dtype), rnd(g, b, kv, hd).to(dtype),
             rnd(g, b, kv, hd).to(dtype),
-            rnd(g, b, slots, kv, hd).to(torch.bfloat16),
-            rnd(g, b, slots, kv, hd).to(torch.bfloat16), sp, pos, window)
+            rnd(g, b, slots, kv, hd).to(cache_dtype),
+            rnd(g, b, slots, kv, hd).to(cache_dtype), sp, pos, window)
 
 
 def dtype_ulp_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -4310,7 +4353,10 @@ def check_decode_attention() -> float:
     takes the rows in two tiles), and groups of 8 and 12 heads of 128
     (yi-9b's and mistral-large-123b's heads) and of 6 (grok-1's) over 32
     lanes, and grok-1's as phase 16 (c) launches them (M=1, 4 lanes, 32
-    slots). Returns the largest absolute error (0)."""
+    slots); recurrentgemma-9b's ring of 2,048 slots under 16 heads of 256
+    (the split form) with bf16 and f32 caches, positions aligned and
+    wrapped past 2,048, and whisper-tiny's 6 heads of 64. Returns the
+    largest absolute error (0)."""
     cfg = decode_model_cfg()
     err = 0.0
     cases = []
@@ -4344,6 +4390,27 @@ def check_decode_attention() -> float:
                       f"{FAMILY_MAX_LEN} slots {dtype}", attention_case(
                           grok, GROK_SLOTS, dtype, [0, 1, 5, 31], seed=6,
                           slots=FAMILY_MAX_LEN, m=1)))
+    # recurrentgemma-9b's local attention (the split form: 16 CTAs of 128
+    # slots a lane): 16 heads of 256 over one KV head in a ring of 2,048,
+    # bf16 and f32 caches (f32 rows: 64 segments, two a thread), positions
+    # aligned, before the ring fills and past it (wrapped)
+    rg = get_arch("recurrentgemma-9b").config
+    rg_pos = [0, 5, 2047, 2048, 2049, 3000, 4095, 6143]
+    for cache in (torch.bfloat16, torch.float32):
+        for dtype in (torch.bfloat16, torch.float32):
+            cases.append((f"recurrentgemma-9b: 16 heads of 256, ring of "
+                          f"{rg.local_attn_window}, {RG_M}x8 lanes {dtype}, "
+                          f"{cache} cache", attention_case(
+                              rg, 8, dtype, rg_pos,
+                              window=rg.local_attn_window, seed=11, reset=1,
+                              m=RG_M, cache_dtype=cache)))
+    # whisper-tiny's decoder self-attention: 6 heads of 64, a full cache
+    wh = get_arch("whisper-tiny").config
+    for dtype in (torch.bfloat16, torch.float32):
+        cases.append((f"whisper-tiny: 6 heads of 64, {AUDIO_MAX_LEN} slots, "
+                      f"2x8 lanes {dtype}", attention_case(
+                          wh, 8, dtype, [0, 1, 7, 8, 20, 31, 32, 40],
+                          seed=12, reset=1, slots=AUDIO_MAX_LEN, m=2)))
     for label, (q, kn, vn, kc, vc, sp, pos, window) in cases:
         mine = [kc.clone(), vc.clone(), sp.clone()]
         theirs = [kc.clone(), vc.clone(), sp.clone()]
@@ -4385,7 +4452,8 @@ def check_bma_sample() -> float:
     and V = 152,064 (qwen2.5-14b's, 3.09 packs a thread); and phase 16's
     vocabularies at its banks: V = 131,072 at M=1 over GROK_SLOTS slots
     (grok-1), V = 102,400 at M=2 and M=1 over FAMILY_SLOTS (deepseek-v2's
-    bf16 and f32 engines). Returns the largest absolute error (0)."""
+    bf16 and f32 engines); and V = 256,000 at M=2 (recurrentgemma-9b's,
+    phase 17). Returns the largest absolute error (0)."""
     err = 0.0
     cases = [(f"{s} slots {dt}", sample_case(s, dt, seed=s))
              for s in DECODE_SLOTS for dt in (torch.bfloat16, torch.float32)]
@@ -4399,6 +4467,9 @@ def check_bma_sample() -> float:
     for dt in (torch.bfloat16, torch.float32):
         cases.append((f"M=1, {GROK_SLOTS} slots, V=131072 {dt}", sample_case(
             GROK_SLOTS, dt, 131072, seed=8, edges=True, m=1)))
+        # recurrentgemma-9b's vocabulary, the largest yet (phase 17)
+        cases.append((f"M={RG_M}, 8 slots, V=256000 {dt}", sample_case(
+            8, dt, 256000, seed=13, edges=True, m=RG_M)))
         for m in (2, 1):
             cases.append((f"M={m}, {FAMILY_SLOTS} slots, V=102400 {dt}",
                           sample_case(FAMILY_SLOTS, dt, 102400, seed=9 + m,
@@ -4447,6 +4518,44 @@ def sdpa_yardstick(q, kc, vc, sp, pos):
         lanes, 1, 1, slots)
     return lambda: torch.nn.functional.scaled_dot_product_attention(
         qq, kk, vv, attn_mask=mask, enable_gqa=True)
+
+
+def time_rg_attention() -> dict:
+    """decode_attention at one local-attention layer of recurrentgemma-9b's
+    bf16 engine (phase 17 (d): M=2 x 8 slots, 16 heads of 256, a ring of
+    2,048 slots full, bf16 caches; the split form): device ms beside its
+    bound (the K and V rows it reads, at HBM rate), its plain version's
+    event-timed ms and SDPA over the same lanes and mask."""
+    rg = get_arch("recurrentgemma-9b").config
+    w = rg.local_attn_window
+    q, kn, vn, kc, vc, sp, posv, _ = attention_case(
+        rg, 8, torch.bfloat16, [w + 37 * i for i in range(8)], window=w,
+        seed=14, m=RG_M)
+    lanes = RG_M * 8
+    slots, kv, hd, h = kc.shape[2], kc.shape[3], kc.shape[4], q.shape[2]
+    nbytes = (2 * lanes * slots * kv * hd * 2 + 2 * lanes * h * hd * 2
+              + 2 * lanes * kv * hd * 2 + lanes * slots * 4 + 8 * 8)
+    ops = ATTN_OPS * lanes * h * slots * hd
+    b_ms, b_by = bound(nbytes, ops)
+    kern = lambda: decode_attention(q, kn, vn, kc, vc, sp, posv, w)  # noqa
+    plain = lambda: decode_attention_plain(q, kn, vn, kc, vc, sp,  # noqa
+                                           posv, w)
+    lib = sdpa_yardstick(q, kc, vc, sp, posv)
+    # the plain version's thousands of small launches make its trace
+    # slow to read (~45 s): it is timed by CUDA events, host gaps included
+    r = dict(ms=device_ms(kern), device_ms=traced_ms([kern]),
+             plain_ms=device_ms(plain, reps=1, per_rep=1),
+             library_ms=traced_ms([lib]),
+             bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, ops=ops)
+    log("kernels", f"decode_attention, one local-attention layer of "
+                   f"recurrentgemma-9b's bf16 step ({lanes} lanes x {slots}"
+                   f" slots, 16 heads of 256, split form; {card_line()}): "
+                   f"device {fmt_ms(r['device_ms'], 5)}, event-timed "
+                   f"{r['ms']:.5f} ms; plain: event-timed "
+                   f"{r['plain_ms']:.4f} ms; SDPA (library): "
+                   f"{fmt_ms(r['library_ms'], 5)}; bound {b_ms:.6f} ms "
+                   f"({b_by}: {nbytes} B, {ops} ops)")
+    return r
 
 
 def time_decode_kernels() -> dict:
@@ -4503,6 +4612,7 @@ def time_decode_kernels() -> dict:
                        f"({b_by}: {nbytes} B); library: none")
         if b == DECODE_SLOTS[0]:
             out["bma_sample"] = r
+    out["decode_attention_rg"] = time_rg_attention()
     keys = random.split(random.PRNGKey(1, DEVICE), DECODE_SLOTS[0])
     gum = lambda: random.gumbel(keys, (49152,))  # noqa: E731
     n = DECODE_SLOTS[0] * 49152
@@ -5573,14 +5683,14 @@ def family_trainer(cfg, pools, engine: str, **kw):
                       bank_capacity=1, device=DEVICE, **kw)
 
 
-def check_family_run(name: str, want: dict) -> dict:
-    """A reduced-width run of the record (``LM_FAMILY_RUNS[name]``) on the
+def check_family_run(name: str, want: dict, runs=LM_FAMILY_RUNS) -> dict:
+    """A reduced-width run of the record (``runs[name]``) on the
     card, f32: the host engine's losses, consensus, bytes and θ against
     the record; the scan engine (one chunk, a CUDA graph) bit for bit to
     the host engine; the round's kernels launched. Returns the readings."""
     from repro_torch.config import MoEConfig
     from repro_torch.data.synthetic_lm import markov_tokens
-    run, c = LM_FAMILY_RUNS[name], LM_FAMILY_CONFIG
+    run, c = runs[name], LM_FAMILY_CONFIG
     cfg = family_cfg(get_arch, MoEConfig, run["arch"], run["impl"],
                      c["dtype"])
     pools = family_pools(cfg, markov_tokens, c["fed"]["num_nodes"], c["pool"],
@@ -5602,14 +5712,15 @@ def check_family_run(name: str, want: dict) -> dict:
     if res.wire_history != want["wire_bytes"]:
         raise AssertionError(f"{name}: bytes {res.wire_history} != "
                              f"{want['wire_bytes']}")
+    value, at = max((leaf_reading(x, want["theta"][record_key(p)])[0], p)
+                    for p, x in tree_leaves_with_path(host.state.params))
     got = dict(
         loss=max(float(np.abs(l / np.asarray(w) - 1).max())
                  for l, w in zip(losses, want["loss"])),
         consensus=max(abs(g / w - 1) for g, w in zip(
             res.consensus_history, want["consensus"])),
-        value=max(leaf_reading(x, want["theta"][p.replace(".", "/")])[0]
-                  for p, x in tree_leaves_with_path(host.state.params)))
-    survivors = {p.replace(".", "/"): int(torch.count_nonzero(x))
+        value=value)
+    survivors = {record_key(p): int(torch.count_nonzero(x))
                  for p, x in tree_leaves_with_path(host.state.v)}
     if survivors != want["v_survivors"]:
         raise AssertionError(f"{name}: v's survivors {survivors} against the "
@@ -5617,7 +5728,7 @@ def check_family_run(name: str, want: dict) -> dict:
     over = {k: v for k, v in got.items() if not v <= FAMILY_TOL[k]}
     if over:
         raise AssertionError(f"{name}: {over} over {FAMILY_TOL} against the "
-                             f"reference's record")
+                             f"reference's record (θ at {at})")
     hstate = lm_state_of(host)
     scan = family_trainer(cfg, pools, "scan")
     sres = scan.run(rounds=c["rounds"])
@@ -5636,12 +5747,12 @@ def check_family_run(name: str, want: dict) -> dict:
     return dict(got, launches=launches, replay_ms=busy)
 
 
-def check_family_decode(name: str, want: dict) -> dict:
+def check_family_decode(name: str, want: dict, runs=LM_FAMILY_RUNS) -> dict:
     """The port's DecodeEngine (its ``impl``) on the record's bank and
     requests at reduced width, f32: tokens equal to the reference
     engine's, entropies within rtol 1e-4."""
     from repro_torch.config import MoEConfig
-    run, c, d = LM_FAMILY_RUNS[name], LM_FAMILY_CONFIG, LM_FAMILY_DECODE
+    run, c, d = runs[name], LM_FAMILY_CONFIG, LM_FAMILY_DECODE
     cfg = family_cfg(get_arch, MoEConfig, run["arch"], run["impl"],
                      c["dtype"])
     model = get_model(cfg)
@@ -5670,7 +5781,7 @@ def check_family_decode(name: str, want: dict) -> dict:
         raise AssertionError(f"{name} decode: entropies {worst:.3g} off, "
                              f"{eng.compile_count()} captures")
     check_launched(f"{name} decode", launches, ("bma_sample",) + (
-        ("decode_attention",) if not cfg.kv_lora_rank else ()))
+        ("decode_attention",) if attends(cfg) else ()))
     log("family", f"{name} decode ({d['samples']} samples, {d['slots']} "
                   f"slots, {d['requests']} requests): tokens the reference "
                   f"engine's, entropies within {worst:.3g}; one capture; "
@@ -5678,11 +5789,16 @@ def check_family_decode(name: str, want: dict) -> dict:
     return launches
 
 
+def attends(cfg) -> bool:
+    """Whether the model's decode runs decode_attention: every LM but the
+    MLA archs (their own latent decode) and xLSTM (no attention)."""
+    return not cfg.kv_lora_rank and cfg.family != "ssm"
+
+
 def full_bank(model, samples: int, cast=None):
     """A bank of ``samples`` inits from fold_in(PRNGKey(0), i), leaf by
     leaf into a stacked tree (f32, or ``cast`` but for the leaves a served
-    bank keeps in f32)."""
-    from repro_torch.serve.engine import F32_LEAVES
+    bank keeps in f32, ``model.f32_leaf``)."""
     key = random.PRNGKey(0, DEVICE)
     bank = None
     for i in range(samples):
@@ -5690,7 +5806,7 @@ def full_bank(model, samples: int, cast=None):
         if bank is None:
             bank = tree_map_with_path(lambda p, x: torch.empty(
                 (samples,) + x.shape, device=DEVICE,
-                dtype=x.dtype if cast is None or p.endswith(F32_LEAVES)
+                dtype=x.dtype if cast is None or model.f32_leaf(p)
                 else cast), one)
         for b, x in zip(tree_leaves(bank), tree_leaves(one)):
             b[i].copy_(x)
@@ -5902,47 +6018,6 @@ def moe_record() -> dict:
     return rec
 
 
-def moe_forward_reading(model, bank, fwd) -> dict:
-    """The forward of the record's sequence against the record's: each
-    position's top logits over the largest |logit|, the NLL and the aux
-    term (relative)."""
-    toks = torch.tensor([fwd["tokens"]], device=DEVICE)
-    with torch.no_grad():
-        lg = model.logits(bank, {"tokens": toks})[0, 0].float()
-        got = lg.gather(1, torch.tensor(fwd["top_idx"], device=DEVICE))
-        del lg
-        _, parts = model.loss(bank, {"tokens": toks})
-    return dict(logits=float(np.abs(got.double().cpu().numpy()
-                                    - np.asarray(fwd["top_logits"])).max())
-                / fwd["absmax"],
-                nll=abs(float(parts["nll"][0]) / fwd["nll"] - 1),
-                aux=abs(float(parts["aux"][0]) / fwd["aux"] - 1))
-
-
-def check_moe_decode_equals_forward(model, params) -> float:
-    """deepseek-v2's absorbed MLA decode through f32 latent caches and the
-    ragged dispatch, MOE_CHECK_TOKENS steps, against the forward's logits
-    of the same tokens (atol 2e-3, the reference's own check of its zoo).
-    Returns the largest difference."""
-    toks = torch.from_numpy(np.asarray(decode_requests(
-        model.cfg.vocab_size, MOE_CHECK_TOKENS, 0))[:, 0].reshape(1, -1)
-                            ).to(DEVICE)
-    with torch.no_grad():
-        fwd = model.logits(params, {"tokens": toks})[0, 0]
-        cache = model.init_decode_state(1, 8, dtype_kv=torch.float32,
-                                        device=DEVICE)
-        worst = 0.0
-        for pos in range(toks.shape[1]):
-            cache, lg = model.decode_step(params, cache, toks[:, pos],
-                                          torch.full((1,), pos,
-                                                     device=DEVICE))
-            worst = max(worst, float((lg[0, 0, 0] - fwd[pos]).abs().max()))
-    if worst > 2e-3:
-        raise AssertionError(f"(b) deepseek-v2 decode off its forward by "
-                             f"{worst:.3g}")
-    return worst
-
-
 def check_moe_full() -> dict:
     """(b) deepseek-v2 at full width, one layer, f32, against the
     reference's record (MOE_FULL_FILE): the bank of one init bit for bit;
@@ -5961,14 +6036,8 @@ def check_moe_full() -> dict:
     t0 = time.perf_counter()
     model = get_model(cfg)
     bank = full_bank(model, d["samples"])
-    for path, x in tree_leaves_with_path(bank):
-        # the record's paths: a list index as "[i]"
-        key = "/".join(f"[{p}]" if p.isdigit() else p
-                       for p in path.split("."))
-        err, _, bits = leaf_reading(x[0], rec["init"][key])
-        if err != 0 or not bits:
-            raise AssertionError(f"(b) init of {path} is not the reference's")
-    readings = {name: moe_forward_reading(m, bank, rec["forward"]) for
+    check_init("(b) deepseek-v2", bank, rec["init"])
+    readings = {name: forward_reading(m, bank, rec["forward"]) for
                 name, m in (("f32", model), ("bf16 control", get_model(
                     cfg.replace(dtype="bfloat16"))))}
     got, control = readings["f32"], readings["bf16 control"]
@@ -5995,7 +6064,7 @@ def check_moe_full() -> dict:
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    dvf = check_moe_decode_equals_forward(model, bank)
+    dvf = decode_equals_forward(model, bank, MOE_CHECK_TOKENS)
     log("moe", f"(b) deepseek-v2 at full width, {c['cuts']}, f32: "
                f"{tree_count(tree_map(lambda x: x[0], bank)):,} parameters, "
                f"init bit for bit the reference's; the forward of "
@@ -6123,6 +6192,400 @@ def run_phase16() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phases 17-19: the hybrid (recurrentgemma-9b), ssm (xlstm-1.3b) and audio
+# (whisper-tiny) families (ROADMAP A12 parts 5-7)
+# --------------------------------------------------------------------------
+
+# the full-width forwards against the reference's records (tests/
+# torch_golden.py hybrid-full, ssm-full, audio): each position's top
+# logits over the largest |logit| (whisper: the encoder's output at the
+# record's picks) and the NLL, relative, where a bf16-compute control must
+# fail both. xlstm's 48 layers of exponential gating carry f32 summation
+# differences furthest: an NVIDIA H100 80GB HBM3 at 700 W read logits
+# 4.4e-4 and NLL 1.2e-5 (the bf16 control 0.83 and 1.9e-2). RG-LRU's a_param comes from XLA's expm1, which is not
+# correctly rounded where the port's is: within A_PARAM_RTOL of the
+# record's (2 f32 ulps at its magnitudes), every other leaf bit for bit
+REC_TOL = {"hybrid": dict(logits=1e-4, nll=1e-5),
+           "ssm": dict(logits=1e-3, nll=5e-5),
+           "audio": dict(logits=1e-4, nll=1e-5)}
+A_PARAM_RTOL = 2.5e-7
+# decode = forward through f32 caches and states (the reference's own check
+# of its zoo), tokens
+CHECK_TOKENS = 6
+# phase 17 (c): the round of one (rec, rec, local_attn) group at full layer
+# width, S = 1,024 so that chunked_lru and chunked_gqa run, K = 1, L = 1,
+# the vocabulary cut (the embedding and head are 2.1 B parameters at
+# 256,000: a round of the group at full vocabulary holds ~110 GB); (d) the
+# layers an M=2 bf16 bank holds beside its copy in the engine
+ROUND_SEQ = 1024
+RG_ROUND_LAYERS, RG_ROUND_VOCAB, RG_DECODE_LAYERS = 3, 8192, 18
+# phase 18 (c): one group of xlstm-1.3b (7 mLSTM + 1 sLSTM, 378 M
+# parameters), K = 2
+XLSTM_ROUND_LAYERS = 8
+# the rounds' kernels (K = 1 mixes nothing: no gossip)
+ROUND_LAUNCHED = ("topk_select", "unpack_set", "fused_update", "threefry")
+
+
+def recurrent_record() -> dict:
+    rec = json.loads(RECURRENT_FAMILIES_FILE.read_text())
+    if rec["config"] != LM_FAMILY_CONFIG or rec["decode"] != \
+            LM_FAMILY_DECODE:
+        raise AssertionError(f"{RECURRENT_FAMILIES_FILE.name} ran "
+                             f"{rec['config']}")
+    return rec
+
+
+def full_record(path, config) -> dict:
+    rec = json.loads(path.read_text())
+    if rec["config"] != config:
+        raise AssertionError(f"{path.name} ran {rec['config']}")
+    return rec
+
+
+def record_key(path: str) -> str:
+    """A port leaf path as the records name it (a list index "[i]")."""
+    return "/".join(f"[{p}]" if p.isdigit() else p for p in path.split("."))
+
+
+def check_init(label: str, bank, want: dict) -> None:
+    """Sample 0 of ``bank`` against the record's init: every leaf bit for
+    bit, a_param within A_PARAM_RTOL."""
+    for path, x in tree_leaves_with_path(bank):
+        w = want[record_key(path)]
+        err, _, bits = leaf_reading(x[0], w)
+        if path.endswith("a_param"):
+            if err > A_PARAM_RTOL * max(abs(v) for v in w["values"]):
+                raise AssertionError(f"{label}: a_param {err:.3g} off")
+        elif err != 0 or not bits:
+            raise AssertionError(f"{label}: init of {path} is not the "
+                                 f"reference's")
+
+
+def forward_reading(model, bank, fwd) -> dict:
+    """The forward of the record's sequence against the record's: each
+    position's top logits over the largest |logit|, the NLL and, where the
+    record has one (the MoE archs), the aux term, relative."""
+    toks = torch.tensor([fwd["tokens"]], device=DEVICE)
+    with torch.no_grad():
+        lg = model.logits(bank, {"tokens": toks})[0, 0].float()
+        got = lg.gather(1, torch.tensor(fwd["top_idx"], device=DEVICE))
+        del lg
+        _, parts = model.loss(bank, {"tokens": toks})
+    out = dict(logits=float(np.abs(got.double().cpu().numpy()
+                                   - np.asarray(fwd["top_logits"])).max())
+               / fwd["absmax"],
+               nll=abs(float(parts["nll"][0]) / fwd["nll"] - 1))
+    if "aux" in fwd:
+        out["aux"] = abs(float(parts["aux"][0]) / fwd["aux"] - 1)
+    return out
+
+
+def decode_equals_forward(model, params, n: int = CHECK_TOKENS) -> float:
+    """``n`` decode steps through f32 caches and states against the
+    forward's logits of the same tokens (atol 2e-3, the reference's own
+    check of its zoo). Returns the largest difference."""
+    toks = torch.from_numpy(np.asarray(decode_requests(
+        model.cfg.vocab_size, n, 0))[:, 0].reshape(1, -1)).to(DEVICE)
+    with torch.no_grad():
+        fwd = model.logits(params, {"tokens": toks})[0, 0]
+        cache = model.init_decode_state(1, n, dtype_kv=torch.float32,
+                                        device=DEVICE)
+        worst = 0.0
+        for pos in range(n):
+            cache, lg = model.decode_step(params, cache, toks[:, pos],
+                                          torch.full((1,), pos,
+                                                     device=DEVICE))
+            worst = max(worst, float((lg[0, 0, 0] - fwd[pos]).abs().max()))
+    if worst > 2e-3:
+        raise AssertionError(f"{model.cfg.name}: decode off its forward by "
+                             f"{worst:.3g}")
+    return worst
+
+
+def check_full_forward(label: str, path, config) -> dict:
+    """A full-width model against the reference's record, f32: the bank of
+    one init (fold_in(PRNGKey(0), 0)) against the record's init; the
+    forward of its sequence within REC_TOL, a bf16-compute control failing
+    both limits; where the record has one, DecodeEngine M=1 on the bank
+    (the record's slots and requests): tokens equal to the reference
+    engine's at every step above the margin (compare_decode), one capture;
+    and decode = forward through f32 caches. Returns the readings."""
+    rec = full_record(path, config)
+    c = rec["config"]
+    cfg = get_arch(c["arch"]).config.replace(
+        dtype=c["dtype"], num_layers=c.get(
+            "num_layers", get_arch(c["arch"]).config.num_layers))
+    t0 = time.perf_counter()
+    model = get_model(cfg)
+    bank = full_bank(model, 1)
+    check_init(label, bank, rec["init"])
+    readings = {name: forward_reading(m, bank, rec["forward"]) for
+                name, m in (("f32", model), ("bf16 control", get_model(
+                    cfg.replace(dtype="bfloat16"))))}
+    got, control = readings["f32"], readings["bf16 control"]
+    tol = REC_TOL[label]
+    if not (all(got[k] <= tol[k] for k in tol) and
+            all(control[k] > tol[k] for k in tol)):
+        raise AssertionError(f"{label}: forward {readings} against the "
+                             f"limits {tol}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {}
+    if "decode" in rec:
+        d = c["decode"]
+        kernels.reset_launch_counts()
+        eng = DecodeEngine(model, ServeConfig(
+            slots=d["slots"], max_len=d["max_len"],
+            max_new_tokens=d["max_new_tokens"]), stacked=bank)
+        resps = eng.run([ServeRequest(prompt_token=t, seed=s) for t, s in
+                         decode_requests(cfg.vocab_size, d["requests"],
+                                         d["seed"])])
+        launches = kernels.launch_counts()
+        if eng.compile_count() != 1:
+            raise AssertionError(f"{label}: {eng.compile_count()} captures")
+        check_launched(f"{label} f32 decode", launches, DECODE_LAUNCHED)
+        compare_decode(f"{label}: {cfg.name} at full width, "
+                       f"{cfg.num_layers} layers, f32, M=1, {d['slots']} "
+                       f"slots", resps, rec["decode"], "float32")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    dvf = decode_equals_forward(model, bank)
+    n = tree_count(tree_map(lambda x: x[0], bank))
+    log(label, f"{cfg.name} at full width, {cfg.num_layers} layers, f32: "
+               f"{n:,} parameters, init the reference's (a_param within "
+               f"{A_PARAM_RTOL:g}); the forward of "
+               f"{len(rec['forward']['tokens'])} tokens within "
+               f"{fmt_readings(got)} of the record (limits {tol}; bf16 "
+               f"control {fmt_readings(control)}); {CHECK_TOKENS} decode "
+               f"steps through f32 caches and states equal the forward "
+               f"within {dvf:.3g} (atol 2e-3); "
+               f"{time.perf_counter() - t0:.1f} s")
+    del bank
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(readings, decode_vs_forward=dvf, launches=launches)
+
+
+def run_full_round(label: str, cfg, nodes: int, pools=None) -> dict:
+    """One f32 round (L=1, batch 1, the default codec on a full graph of
+    ``nodes``) on the host engine, then on the scan engine (one chunk, a
+    CUDA graph), bit for bit; a replayed round's device ms and each
+    engine's peak memory. ``pools``: each node's pool (default: one markov
+    sequence of ROUND_SEQ tokens)."""
+    from repro_torch.data.synthetic_lm import markov_tokens
+    from repro_torch.train import FedTrainer
+    if pools is None:
+        pools = lm_pools(markov_tokens, nodes, 1, ROUND_SEQ, cfg.vocab_size)
+    fed = FedConfig(num_nodes=nodes, local_steps=1, eta=1e-4, zeta=0.3,
+                    burn_in=0, rounds=1, topology="full",
+                    compressor="block_topk", compress_ratio=0.01)
+    runs = {}
+    for engine in ("host", "scan"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = FedTrainer(get_model(cfg), fed, pools, minibatch=1, seed=0,
+                        engine=engine, chunk=1, bank_capacity=1,
+                        device=DEVICE)
+        kernels.reset_launch_counts()
+        res = tr.run(rounds=1)
+        state = {k: [x.cpu() for x in v] for k, v in lm_state_of(tr).items()}
+        launches = kernels.launch_counts()
+        busy = time_replay(tr._engine, 1, 1)[1] if engine == "scan" else None
+        runs[engine] = (state, res, launches,
+                        torch.cuda.max_memory_allocated() / 2**30, busy)
+        del tr
+    (hstate, hres, hl, hpeak, _), (sstate, sres, _, speak, busy) = \
+        runs["host"], runs["scan"]
+    for part in ("params", "v", "v_bar"):
+        same_tensors(f"{label} round, scan {part}", sstate[part],
+                     hstate[part])
+    if sres.loss_history != hres.loss_history or not all(
+            math.isfinite(x) for x in hres.loss_history):
+        raise AssertionError(f"{label} round: losses {hres.loss_history} "
+                             f"{sres.loss_history}")
+    check_launched(f"{label} round", hl, ROUND_LAUNCHED)
+    n = sum(x.numel() for x in hstate["params"]) // nodes
+    log(label, f"one f32 round of {cfg.name}, {cfg.num_layers} layers at "
+               f"full width (vocabulary {cfg.vocab_size:,}), {n:,} "
+               f"parameters a node, K={nodes}, L=1, {ROUND_SEQ} tokens: loss "
+               f"{hres.loss_history}, scan engine bit for bit the host's; a "
+               f"replayed round {busy:.3f} ms on the device (CUDA events) on "
+               f"{card_line()}; peak allocated {hpeak:.2f} GiB (host), "
+               f"{speak:.2f} GiB (scan); launches "
+               f"{ {k: v for k, v in hl.items() if v} }")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=hl, round_ms=busy, peak_gib=max(hpeak, speak))
+
+
+@permissive_matmuls()
+def run_phase17() -> dict:
+    """Phase 17: recurrentgemma-9b. (a) the reduced record's rounds and
+    decode; (b) one (rec, rec, local_attn) group at full width against
+    the reference's record (check_full_forward: init, forward, the
+    engine's f32 tokens, decode = forward through f32 caches: the split
+    decode_attention on f32 rows of 256); (c) one round of that group at
+    S = 1,024 (chunked_lru, chunked_gqa), scan = host; (d) DecodeEngine
+    M=2 in bf16 on RG_DECODE_LAYERS layers, timed. Returns the readings."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("hybrid", f"on {card_line()}")
+    frec = recurrent_record()["runs"]["recurrentgemma"]
+    out = {"reduced": check_family_run("recurrentgemma", frec,
+                                       RECURRENT_FAMILY_RUNS),
+           "reduced_decode": check_family_decode("recurrentgemma", frec,
+                                                 RECURRENT_FAMILY_RUNS),
+           "full": check_full_forward("hybrid", HYBRID_FULL_FILE,
+                                      HYBRID_FULL_CONFIG)}
+    rg = get_arch("recurrentgemma-9b").config
+    out["round"] = run_full_round("hybrid", rg.replace(
+        num_layers=RG_ROUND_LAYERS, vocab_size=RG_ROUND_VOCAB,
+        dtype="float32"), 1)
+    d = run_family_decode_full(rg.replace(num_layers=RG_DECODE_LAYERS),
+                               "hybrid")
+    check_launched("(d) recurrentgemma decode", d["launches"],
+                   DECODE_LAUNCHED)
+    out["decode"] = d
+    return out
+
+
+@permissive_matmuls()
+def run_phase18() -> dict:
+    """Phase 18: xlstm-1.3b. (a) the reduced record's rounds and decode;
+    (b) full width and full depth against the reference's record (init,
+    forward; decode = forward through f32 states); (c) a K=2 round of one
+    group (7 mLSTM + 1 sLSTM) at S = 1,024 (chunkwise_mlstm, the sLSTM's
+    steps), scan = host; (d) DecodeEngine M=2 in bf16 at full depth,
+    timed. Returns the readings."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("ssm", f"on {card_line()}")
+    frec = recurrent_record()["runs"]["xlstm"]
+    out = {"reduced": check_family_run("xlstm", frec, RECURRENT_FAMILY_RUNS),
+           "reduced_decode": check_family_decode("xlstm", frec,
+                                                 RECURRENT_FAMILY_RUNS),
+           "full": check_full_forward("ssm", SSM_FULL_FILE, SSM_FULL_CONFIG)}
+    xl = get_arch("xlstm-1.3b").config
+    out["round"] = run_full_round("ssm", xl.replace(
+        num_layers=XLSTM_ROUND_LAYERS, dtype="float32"), 2)
+    d = run_family_decode_full(xl, "ssm")
+    check_launched("(d) xlstm decode", d["launches"], ("bma_sample",))
+    out["decode"] = d
+    return out
+
+
+@permissive_matmuls()
+def run_phase19() -> dict:
+    """Phase 19: whisper-tiny. (a) the reduced record's rounds (pools with
+    frames) and decode; (b) full width and depth against the reference's
+    record (tests/torch_golden.py audio): the init bit for bit, the wire
+    bytes exact, each node's NLL of its first sequence (1,500 frames)
+    within REC_TOL's, the encoder's output (prefill_encoder) at the
+    record's picks, then rounds through FedTrainer on {tokens, frames}
+    pools, scan = host; (c) DecodeEngine (M=2, zero encoder output: ROADMAP
+    C37) against the reference engine's record above the margin, one
+    capture, a replayed step's device ms. Returns the readings."""
+    from repro_torch.data.synthetic_lm import markov_tokens
+    from repro_torch.train import FedTrainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("audio", f"on {card_line()}")
+    frec = recurrent_record()["runs"]["whisper"]
+    out = {"reduced": check_family_run("whisper", frec,
+                                       RECURRENT_FAMILY_RUNS),
+           "reduced_decode": check_family_decode("whisper", frec,
+                                                 RECURRENT_FAMILY_RUNS)}
+    rec = full_record(AUDIO_FILE, AUDIO_CONFIG)
+    c, d = rec["config"], rec["config"]["decode"]
+    cfg = get_arch(c["arch"]).config.replace(dtype=c["dtype"])
+    t0 = time.perf_counter()
+    model = get_model(cfg)
+    pools = family_pools(cfg, markov_tokens, c["nodes"], c["pool"], c["seq"],
+                         c["seed"])
+    host = FedTrainer(model, FedConfig(rounds=2, burn_in=0, local_steps=1,
+                                       **c["fed"]), pools, minibatch=1,
+                      seed=c["seed"], engine="host", bank_capacity=1,
+                      device=DEVICE)
+    params = host.state.params
+    for path, x in tree_leaves_with_path(params):
+        err, _, bits = leaf_reading(x[0], rec["init"][record_key(path)])
+        if err != 0 or not bits:
+            raise AssertionError(f"(b) init of {path} is not the "
+                                 f"reference's")
+    first = {k: torch.from_numpy(np.stack([p[k][:1] for p in pools])).to(
+        DEVICE) for k in pools[0]}
+    with torch.no_grad():
+        nll = float(np.abs(model.nll(params, first).double().cpu().numpy()
+                           / np.asarray(rec["nll"]) - 1).max())
+        cache = model.prefill_encoder(
+            tree_map(lambda x: x[:1], params),
+            model.init_decode_state(1, 8, dtype_kv=torch.float32,
+                                    device=DEVICE), first["frames"][0])
+    enc, _, _ = leaf_reading(cache["enc_out"][0], rec["enc_out"])
+    enc /= max(abs(v) for v in rec["enc_out"]["values"])
+    del cache
+    tol = REC_TOL["audio"]
+    if nll > tol["nll"] or enc > tol["logits"]:
+        raise AssertionError(f"(b) whisper NLL {nll:.3g}, encoder output "
+                             f"{enc:.3g} against {tol}")
+    kernels.reset_launch_counts()
+    hres = host.run(rounds=2)
+    hl = kernels.launch_counts()
+    hstate = lm_state_of(host)
+    scan = FedTrainer(model, FedConfig(rounds=2, burn_in=0, local_steps=1,
+                                       **c["fed"]), pools, minibatch=1,
+                      seed=c["seed"], engine="scan", chunk=2,
+                      bank_capacity=1, device=DEVICE)
+    sres = scan.run(rounds=2)
+    same_lm_state("(b) whisper scan against host", scan.state, hstate)
+    if sres.loss_history != hres.loss_history or \
+            hres.wire_history != [rec["wire_bytes"]] * 2:
+        raise AssertionError(f"(b) whisper rounds: {hres.loss_history} "
+                             f"{sres.loss_history} {hres.wire_history}")
+    check_launched("(b) whisper rounds", hl, FAMILY_LAUNCHED)
+    busy = time_replay(scan._engine, 2, 2)[1]
+    log("audio", f"(b) {cfg.name} at full width: {cfg.encoder_seq_len} "
+                 f"frames, {c['seq']} tokens; init bit for bit, each node's "
+                 f"NLL within {nll:.3g} and the encoder's output within "
+                 f"{enc:.3g} of the record (limits {tol}); two f32 "
+                 f"rounds (K={c['nodes']}, L=1) on {{tokens, frames}} pools, "
+                 f"wire bytes {rec['wire_bytes']:,.0f} exact, scan = host "
+                 f"bit for bit, a replayed round {busy:.3f} ms on the device "
+                 f"({card_line()}); {time.perf_counter() - t0:.1f} s")
+    del host, scan
+    gc.collect()
+    torch.cuda.empty_cache()
+    bank = full_bank(model, d["samples"])
+    kernels.reset_launch_counts()
+    eng = DecodeEngine(model, ServeConfig(
+        slots=d["slots"], max_len=d["max_len"],
+        max_new_tokens=d["max_new_tokens"]), stacked=bank)
+    resps = eng.run([ServeRequest(prompt_token=t, seed=s) for t, s in
+                     decode_requests(cfg.vocab_size, d["requests"],
+                                     d["seed"])])
+    launches = kernels.launch_counts()
+    if eng.compile_count() != 1 or eng._caches["enc_out"].any():
+        raise AssertionError(f"(c) whisper: {eng.compile_count()} captures "
+                             f"or an encoder output not zero")
+    check_launched("(c) whisper decode", launches, DECODE_LAUNCHED)
+    compare_decode(f"(c) whisper-tiny at full width, f32, M={d['samples']}, "
+                   f"{d['slots']} slots, zero encoder output (C37)", resps,
+                   rec["decode"], "float32")
+    step_ms = device_ms(eng._graph.replay, reps=5, per_rep=1)
+    log("audio", f"(c) DecodeEngine's replayed step {step_ms:.4f} ms on "
+                 f"the device (f32, M={d['samples']}, {d['slots']} slots; "
+                 f"{card_line()}); launches "
+                 f"{ {k: v for k, v in launches.items() if v} }")
+    del eng, bank
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(round=hl, round_ms=busy, decode=launches, step_ms=step_ms)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6209,6 +6672,9 @@ def main() -> int:
     run_phase14()
     run_phase15()
     run_phase16()
+    run_phase17()
+    run_phase18()
+    run_phase19()
     log("default", "accuracy / ECE, day-1 test maps and days-2/3 shift set: "
                    + "; ".join(f"{a}: {e['accuracy']:.4f} / {e['ece']:.4f}, "
                                f"{e['shift_accuracy']:.4f} / "

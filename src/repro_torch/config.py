@@ -185,9 +185,8 @@ class MoEConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     """One architecture: every field of the reference ``ModelConfig``
-    (``repro/config.py:35-93``) with its default. The port runs the
-    ``lenet``, ``dense``, ``vlm`` and ``moe`` families
-    (``repro_torch.models``)."""
+    (``repro/config.py:35-93``) with its default. The port runs every
+    family of the reference (``repro_torch.models``)."""
     name: str = "model"
     family: str = "dense"           # dense | moe | hybrid | ssm | vlm | audio | lenet
     num_layers: int = 2
@@ -353,13 +352,6 @@ class ArchSpec:
 
 
 _ARCHS: Dict[str, ArchSpec] = {}
-# the reference's registry (``repro/configs``): the ids the port does not
-# run yet, each with the part of the LM model zoo (ROADMAP A12) that ports it
-_UNPORTED_ARCHS = {
-    "recurrentgemma-9b": "A12 part 5 (hybrid, RG-LRU)",
-    "xlstm-1.3b": "A12 part 6 (ssm, xLSTM)",
-    "whisper-tiny": "A12 part 7 (audio)",
-}
 
 
 def register_arch(spec: ArchSpec) -> ArchSpec:
@@ -368,17 +360,11 @@ def register_arch(spec: ArchSpec) -> ArchSpec:
 
 
 def get_arch(arch_id: str) -> ArchSpec:
-    """The registry entry of ``arch_id``: ``KeyError`` for an id the
-    reference does not know, ``NotImplementedError`` for one it knows and
-    the port does not run yet."""
+    """The registry entry of ``arch_id``; ``KeyError`` for an id the
+    reference does not know."""
     if arch_id in _ARCHS:
         return _ARCHS[arch_id]
-    if arch_id in _UNPORTED_ARCHS:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet (ported: {sorted(_ARCHS)}); "
-            f"ROADMAP {_UNPORTED_ARCHS[arch_id]}")
-    raise KeyError(f"unknown arch {arch_id!r}; known: "
-                   f"{sorted(set(_ARCHS) | set(_UNPORTED_ARCHS))}")
+    raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_ARCHS)}")
 
 
 def list_archs():
@@ -504,4 +490,58 @@ register_arch(ArchSpec(
         moe=MoEConfig(num_experts=4, num_shared_experts=0, top_k=2)),
     source="hf:xai-org/grok-1",
     notes="8-expert top-2 MoE with GQA. long_500k via sliding_window variant.",
+))
+
+
+# the hybrid, ssm and audio families (``repro/configs/{recurrentgemma_9b,
+# xlstm_1_3b,whisper_tiny}.py``)
+RECURRENTGEMMA = ModelConfig(
+    name="recurrentgemma-9b", family="hybrid", num_layers=38, d_model=4096,
+    num_heads=16, num_kv_heads=1, d_ff=12288, vocab_size=256000,
+    block_pattern=("rec", "rec", "local_attn"), rglru_dim=4096,
+    local_attn_window=2048, act="gelu")
+register_arch(ArchSpec(
+    arch_id="recurrentgemma-9b",
+    config=RECURRENTGEMMA,
+    reduced=RECURRENTGEMMA.replace(
+        name="recurrentgemma-reduced", num_layers=3, d_model=128,
+        num_heads=4, num_kv_heads=1, d_ff=256, vocab_size=512,
+        rglru_dim=128, local_attn_window=32),
+    source="arXiv:2402.19427 (Griffin/RecurrentGemma)",
+    notes="Hybrid: RG-LRU recurrence makes long_500k decode O(1) state; "
+          "local attention window 2048 bounds the KV cache.",
+))
+XLSTM = ModelConfig(
+    name="xlstm-1.3b", family="ssm", num_layers=48, d_model=2048,
+    num_heads=4, num_kv_heads=4, d_ff=0, vocab_size=50304, mlstm_ratio=7)
+register_arch(ArchSpec(
+    arch_id="xlstm-1.3b",
+    config=XLSTM,
+    reduced=XLSTM.replace(name="xlstm-reduced", num_layers=2, d_model=128,
+                          num_heads=2, num_kv_heads=2, vocab_size=512,
+                          mlstm_ratio=1),
+    source="arXiv:2405.04517 (xLSTM)",
+    notes="Recurrent-state decode: long_500k runs natively (O(1) state). "
+          "mLSTM trains in the stabilized parallel form, sLSTM via lax.scan.",
+))
+WHISPER = ModelConfig(
+    name="whisper-tiny", family="audio", num_layers=4, encoder_layers=4,
+    encoder_seq_len=1500, d_model=384, num_heads=6, num_kv_heads=6,
+    d_ff=1536, vocab_size=51865, scan_layers=False)
+register_arch(ArchSpec(
+    arch_id="whisper-tiny",
+    config=WHISPER,
+    reduced=WHISPER.replace(
+        name="whisper-reduced", num_layers=2, encoder_layers=2,
+        encoder_seq_len=64, d_model=96, num_heads=3, num_kv_heads=3,
+        d_ff=192, vocab_size=512),
+    source="arXiv:2212.04356 (Whisper)",
+    notes="Enc-dec; mel+conv frontend stubbed per the brief — input_specs() "
+          "supplies (B, 1500, 384) frame embeddings. decode_32k lowers the "
+          "decoder self-attn cache at 32k (beyond the audio model's nominal "
+          "448 ctx but architecturally exercised).",
+    skips={
+        "long_500k": "enc-dec with full attention; no sub-quadratic variant "
+                     "in the family (see DESIGN.md §Shape skips)",
+    },
 ))

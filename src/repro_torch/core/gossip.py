@@ -42,15 +42,18 @@ from repro_torch.config import TopologyConfig
 from repro_torch.core.topology import MixSchedule, build_schedule
 from repro_torch.kernels.fused_update import (CIRCULANT, LAPLACIAN, RING,
                                               gossip_mix)
+from repro_torch.models.layers import f32_sums
 from repro_torch.utils.device import device_const
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 def dense_mix(omega: torch.Tensor, tree):
-    """``einsum("kj,j...->k...", Ω, delta)`` leafwise, in f32."""
-    return tree_map(
-        lambda d: torch.einsum("kj,j...->k...", omega, d.float()).to(d.dtype),
-        tree)
+    """``einsum("kj,j...->k...", Ω, delta)`` leafwise, in full f32 whatever
+    the process allows (``f32_sums``: no TF32 on the card, ROADMAP C40)."""
+    with f32_sums():
+        return tree_map(
+            lambda d: torch.einsum("kj,j...->k...", omega,
+                                   d.float()).to(d.dtype), tree)
 
 
 class _Terms:

@@ -53,7 +53,7 @@ _SIGNATURES = {
     "repro_gilbert_keep": [_PP, _PP, _PP, _PL, _I, _L, _P, _PF, _P],
     # the decode step's kernels (ROADMAP A12)
     "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I,
-                               _I, _I, _I, _I, _F, _F, _I, _I, _P],
+                               _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _P],
     "repro_bma_sample": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                          _F, _F, _I, _P],
     "repro_exp_xla": [_P, _P, _L, _P],

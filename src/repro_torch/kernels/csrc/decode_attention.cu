@@ -61,11 +61,52 @@
 // (chip_smoke.py's card, an NVIDIA H100 80GB HBM3 at 700 W) showed a
 // phase per head, each a chain of dependent shared-memory loads,
 // shuffles and conversions, which this form interleaves.
+//
+// The split form (decode_attention_split_kernel) takes what one CTA cannot
+// hold: recurrentgemma-9b's local-attention ring of 2,048 slots with 16
+// query heads of 256 over one KV head (the scores alone are 128 KB a head
+// group, the P.V partials of 8 warps 128 KB more), and f32 rows of 256,
+// 64 segments of 16 bytes, which a thread takes two at a time (E = 8 f32
+// elements a thread, so a row still spans one warp). One (lane, KV head)
+// is a thread block cluster of NC CTAs (a power of two, at most 16); CTA
+// q owns the slots [q TS, (q + 1) TS), TS = ceil(slots / NC), and runs the
+// one-CTA form's arithmetic over them with its own thread mapping (local
+// row t - q TS). What crosses the cluster goes through distributed shared
+// memory, in rank order:
+//
+//   the maximum: each CTA's maximum of each head, the cluster's the
+//     maximum of those (order-free);
+//   the softmax's sum: each CTA's sum in the one-CTA order over its own
+//     rows (from +0), then the cluster's: CTA 0's sum plus CTA 1's, and so
+//     on in rank order;
+//   P.V: each CTA's sums in the one-CTA order over its rows (from +0),
+//     then CTA 0's plus CTA 1's, ... in rank order, then rounded to the
+//     compute dtype; CTA q adds and writes the q-th slice of the outputs.
+//
+// With NC = 1 that is the one-CTA form's order exactly. Each thread
+// copies its K rows (and, where shared memory holds both, its V rows) to
+// shared memory with cp.async before any arithmetic, so a CTA waits about
+// one memory latency; then, four query heads at a time held in registers
+// (laid out in shared memory so that a warp's reads of one element fall
+// in distinct banks), it dots each of its staged K rows with them; f32
+// rows stage V into K's place once the scores are done. A CTA holds 128
+// slots' rows (64 KB of bf16 K, as much V) beside 72 KB of queries,
+// scores and partial sums, one CTA an SM. What bounds it: the lanes' K
+// and V bytes, 33.5 MB a layer at 16 lanes of recurrentgemma-9b in bf16,
+// 0.0100 ms at 3.35 TB/s. Timed in a CUDA graph of 20 launches (an NVIDIA
+// H100 80GB HBM3 at 700 W): 0.163 ms at 16 lanes (SDPA 0.029); a single
+// CTA of 128 f32 slots 0.050 ms at 16 heads and 0.018 at 1. Rows outer
+// and heads inner took 0.175; all 16 heads at once 0.194; the queries in
+// row order (8-way bank conflicts) 0.285 (events around 20 eager
+// launches). What holds a CTA there is not measured apart (no ncu).
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "threefry.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace repro_torch {
 
@@ -523,6 +564,461 @@ int launch_tpr(const DecodeArgs& a, long long lanes, cudaStream_t stream) {
   }
 }
 
+// the split form's largest cluster, and its dynamic shared memory: the
+// card's 227 KB less the kernel's static arrays
+constexpr int kMaxCluster = 16;      // decode_attention.py: MAX_CLUSTER
+constexpr int kSplitMaxSmem = 232448 - 1280;   // SPLIT_MAX_SMEM
+
+// the split cluster barrier (arrive releasing this thread's shared-memory
+// writes to the cluster, wait acquiring its peers')
+__device__ __forceinline__ void split_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void split_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// SEG 16-byte segments of a row (a thread's E = SEG * 16 / sizeof(C)
+// elements), as f32
+template <typename C, int SEG>
+__device__ __forceinline__ void row_f32(const uint4 (&w)[SEG],
+                                        float (&f)[SEG * 16 / sizeof(C)]) {
+  constexpr int E1 = 16 / (int)sizeof(C);
+#pragma unroll
+  for (int s = 0; s < SEG; ++s) {
+    const uint32_t u[4] = {w[s].x, w[s].y, w[s].z, w[s].w};
+    float g[E1];
+    unpack(u, g, E1, C());
+#pragma unroll
+    for (int e = 0; e < E1; ++e) f[s * E1 + e] = g[e];
+  }
+}
+
+// the split form's shared memory: the staged K rows (and V rows when
+// `two`, else V reuses K's), then f32 queries, scores, a head chunk's
+// warp sums, the CTA's P.V sums, and the tile's slot_pos
+__host__ __device__ inline long long split_stage(int ts, int tpr, int seg) {
+  const int rpp = kAttnThreads / tpr;
+  return (long long)((ts + rpp - 1) / rpp) * kAttnThreads * seg * 16;
+}
+__host__ __device__ inline long long split_rest(int rp, int hd, int ts) {
+  return 4LL * ((long long)rp * hd + (long long)rp * ts +
+                (long long)kAttnWarps * kHeadChunk * hd + (long long)rp * hd +
+                (ts + 3) / 4 * 4);
+}
+
+template <typename T, typename C, int TPR, int SEG>
+__global__ void __launch_bounds__(kAttnThreads, 1)
+decode_attention_split_kernel(const __grid_constant__ DecodeArgs a,
+                              const int nc, const int ts, const int two) {
+  constexpr int E1 = 16 / (int)sizeof(C);    // elements a segment
+  constexpr int E = SEG * E1;                // elements a thread
+  constexpr int RPP = kAttnThreads / TPR;    // row groups
+  constexpr int KH = kHeadChunk;
+  extern __shared__ uint4 dsm[];
+  __shared__ float red[2][kAttnWarps * kMaxGroup];
+  __shared__ float cmax[kMaxGroup], csum[kMaxGroup];   // read by the peers
+  __shared__ float gmax[kMaxGroup], gsum[kMaxGroup];   // the cluster's
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int unit = blockIdx.x / nc;          // (lane, KV head)
+  const int lane = unit / a.kv;
+  const int kvh = unit - lane * a.kv;
+  const int r = a.heads / a.kv, hd = a.hd, T_ = a.slots, kv = a.kv;
+  const int rp = (r + KH - 1) / KH * KH;
+  const int tid = threadIdx.x, warp = tid / 32, ln = tid % 32;
+  const int g = tid / TPR, c = tid % TPR;
+  const int base = rank * ts;                // this CTA's first slot
+  const int nt = max(0, min(ts, T_ - base)); // its slots
+  const int nr = (ts + RPP - 1) / RPP;       // rows a thread, at most
+  const int nrows = nt > g ? (nt - g + RPP - 1) / RPP : 0;  // its rows
+  const int nrows_all = (nt + RPP - 1) / RPP;                // uniform
+  uint4* kst = dsm;                          // kst[(i * 256 + tid) * SEG]
+  uint4* vst = two ? dsm + (long long)nr * kAttnThreads * SEG : dsm;
+  float* qs = reinterpret_cast<float*>(   // (rp, E, TPR): see below
+      dsm + (long long)(two ? 2 : 1) * nr * kAttnThreads * SEG);
+  float* ss = qs + rp * hd;                  // (rp, ts): scores, probs
+  float* pv = ss + rp * ts;                  // (warps, KH, hd)
+  float* part = pv + kAttnWarps * KH * hd;   // (rp, hd): P.V sums
+  int* sps = reinterpret_cast<int*>(part + rp * hd);  // (ts,) slot_pos
+
+  const long long row16 = (long long)kv * hd / E1;  // a row, in 16 bytes
+  const long long at = (long long)lane * T_ * kv * hd + kvh * hd + c * E;
+  const uint4* kc = reinterpret_cast<const uint4*>(
+      static_cast<const C*>(a.k_cache) + at);
+  const uint4* vc = reinterpret_cast<const uint4*>(
+      static_cast<const C*>(a.v_cache) + at);
+  const int* sp = a.slot_pos + (long long)lane * T_;
+
+  // every K row of the thread (and its V rows, with two buffers) copied to
+  // shared memory asynchronously before any arithmetic: one memory
+  // latency; each thread reads back only the rows it copied
+  for (int i = 0; i < nrows; ++i) {
+    const long long t = base + g + RPP * i;
+#pragma unroll
+    for (int s = 0; s < SEG; ++s)
+      copy16(kst + (i * kAttnThreads + tid) * SEG + s, kc + t * row16 + s);
+  }
+  copies_commit();
+  if (two) {
+    for (int i = 0; i < nrows; ++i) {
+      const long long t = base + g + RPP * i;
+#pragma unroll
+      for (int s = 0; s < SEG; ++s)
+        copy16(vst + (i * kAttnThreads + tid) * SEG + s, vc + t * row16 + s);
+    }
+  }
+  copies_commit();
+  for (int t = tid; t < nt; t += kAttnThreads) sps[t] = sp[base + t];
+  const long long p = a.pos[lane % a.batch];
+  const int slot = a.window > 0 ? (int)(p % T_)
+                                : (int)(p < T_ - 1 ? p : T_ - 1);
+  const T* q = static_cast<const T*>(a.q) +
+               ((long long)lane * a.heads + kvh * r) * hd;
+  // the group's queries as f32, 16 loads a thread issued at once
+  constexpr int QN = 16;
+  for (int i0 = 0; i0 < rp * hd; i0 += QN * kAttnThreads) {
+    float qv[QN];
+#pragma unroll
+    for (int k = 0; k < QN; ++k) {
+      const int i = i0 + tid + k * kAttnThreads;
+      qv[k] = i < r * hd ? to_f(q[i]) : 0.0f;  // padded heads score 0
+    }
+#pragma unroll
+    for (int k = 0; k < QN; ++k) {
+      // element d = c E + e of head h at h hd + e TPR + c: a warp's reads
+      // of one element across its threads fall in 32 banks
+      const int i = i0 + tid + k * kAttnThreads;
+      const int h = i / hd, d = i - h * hd;
+      if (i < rp * hd) qs[h * hd + (d % E) * TPR + d / E] = qv[k];
+    }
+  }
+  // 1: the new rows in the cache dtype, by the CTA whose tile holds the
+  // slot, from the threads of its row group
+  const bool mine = slot >= base && slot < base + nt;
+  const bool owner = mine && (slot - base) % RPP == g;
+  uint4 knew[SEG], vnew[SEG];
+#pragma unroll
+  for (int s = 0; s < SEG; ++s) knew[s] = vnew[s] = make_uint4(0u, 0u, 0u, 0u);
+  if (owner) {
+    const long long src = ((long long)lane * kv + kvh) * hd + c * E;
+#pragma unroll
+    for (int s = 0; s < SEG; ++s) {
+      float f[E1];
+      load_f32<T, E1>(static_cast<const T*>(a.k_new) + src + s * E1, f);
+      knew[s] = pack16<C, E1>(f);
+      load_f32<T, E1>(static_cast<const T*>(a.v_new) + src + s * E1, f);
+      vnew[s] = pack16<C, E1>(f);
+    }
+    uint4* kw = reinterpret_cast<uint4*>(static_cast<C*>(a.k_cache) + at);
+    uint4* vw = reinterpret_cast<uint4*>(static_cast<C*>(a.v_cache) + at);
+#pragma unroll
+    for (int s = 0; s < SEG; ++s) {
+      kw[slot * row16 + s] = knew[s];
+      vw[slot * row16 + s] = vnew[s];
+    }
+  }
+  if (mine && kvh == 0 && tid == 0)
+    a.slot_pos[(long long)lane * T_ + slot] = (int)p;
+  split_arrive();                       // this CTA has started
+  __syncthreads();                      // qs, sps
+  copies_wait<1>();                     // the K rows
+
+  // 2-3: the scores, KH heads at a time against all of a thread's staged
+  // rows (its queries in registers, each row read from shared memory once
+  // a chunk); each thread's maximum of each head, then the warp's
+  const float neg_inf = round_to<T>(-1e30f);
+  for (int h0 = 0; h0 < rp; h0 += KH) {
+    float qf[KH][E], rmax[KH];
+#pragma unroll
+    for (int j = 0; j < KH; ++j) {
+      rmax[j] = -__int_as_float(0x7f800000);
+#pragma unroll
+      for (int e = 0; e < E; ++e) qf[j][e] = qs[(h0 + j) * hd + e * TPR + c];
+    }
+    for (int i = 0; i < nrows_all; ++i) {
+      const int tl = g + RPP * i;            // the local row
+      const int t = base + tl;
+      const bool live = i < nrows;           // uniform over a row's threads
+      uint4 kr[SEG];
+#pragma unroll
+      for (int s = 0; s < SEG; ++s)
+        kr[s] = (live && t != slot) ? kst[(i * kAttnThreads + tid) * SEG + s]
+                                    : knew[s];
+      const long long tpos = t == slot ? p : live ? (long long)sps[tl] : -1;
+      const bool valid = tpos >= 0 && tpos <= p &&
+                         (a.window <= 0 || tpos > p - a.window);
+      float kf[E];
+      row_f32<C, SEG>(kr, kf);
+      float acc[KH], num[KH], sc[KH];
+      bool slow = false;
+#pragma unroll
+      for (int j = 0; j < KH; ++j) {
+        acc[j] = 0.0f;
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          acc[j] = __fmaf_rn(qf[j][e], as_compute<T, C>(kf[e]), acc[j]);
+      }
+#pragma unroll
+      for (int off = TPR / 2; off > 0; off >>= 1)
+#pragma unroll
+        for (int j = 0; j < KH; ++j)
+          acc[j] = __fadd_rn(acc[j],
+                             __shfl_xor_sync(0xffffffffu, acc[j], off));
+#pragma unroll
+      for (int j = 0; j < KH; ++j) {
+        num[j] = round_to<T>(acc[j]);
+        sc[j] = div_rn(num[j], a.scale, a.inv_scale, slow);
+      }
+      if (slow) {
+#pragma unroll
+        for (int j = 0; j < KH; ++j) sc[j] = __fdiv_rn(num[j], a.scale);
+      }
+      if (live) {
+#pragma unroll
+        for (int j = 0; j < KH; ++j) {
+          const float v = valid ? round_to<T>(sc[j]) : neg_inf;
+          rmax[j] = nan_max(rmax[j], v);
+          if (c == 0) ss[(h0 + j) * ts + tl] = v;
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int j = 0; j < KH; ++j)
+        rmax[j] = nan_max(rmax[j], __shfl_xor_sync(0xffffffffu, rmax[j], off));
+    if (ln == 0) {
+#pragma unroll
+      for (int j = 0; j < KH; ++j) red[0][warp * kMaxGroup + h0 + j] = rmax[j];
+    }
+  }
+  if (!two) {
+    // V into the K rows' place: this thread's own, read by it alone
+    for (int i = 0; i < nrows; ++i) {
+      const long long t = base + g + RPP * i;
+#pragma unroll
+      for (int s = 0; s < SEG; ++s)
+        copy16(vst + (i * kAttnThreads + tid) * SEG + s, vc + t * row16 + s);
+    }
+    copies_commit();
+  }
+  __syncthreads();
+  if (tid < rp) {
+    float m = red[0][tid];
+    for (int w = 1; w < kAttnWarps; ++w)
+      m = nan_max(m, red[0][w * kMaxGroup + tid]);
+    cmax[tid] = m;
+  }
+  split_wait();                         // every CTA has started
+  split_arrive();                       // cmax
+  split_wait();
+  // thread h gathers head h's maxima from the cluster into gmax[h]
+  if (tid < rp) {
+    float v = *cluster.map_shared_rank(&cmax[tid], 0);
+    for (int qq = 1; qq < nc; ++qq)
+      v = nan_max(v, *cluster.map_shared_rank(&cmax[tid], qq));
+    gmax[tid] = v;
+  }
+  __syncthreads();
+
+  // 4: the f32 softmax: the cluster's maximum; thread tid's terms over its
+  // local rows tid, tid + 256, ..., the warp's tree, the warps in order
+  // from +0 (this CTA's sum), then the CTAs' sums in rank order
+  for (int h0 = 0; h0 < rp; h0 += KH) {
+    float sum[KH], mh[KH];
+#pragma unroll
+    for (int j = 0; j < KH; ++j) {
+      sum[j] = 0.0f;
+      mh[j] = gmax[h0 + j];
+    }
+    for (int t = tid; t < nt; t += kAttnThreads) {
+#pragma unroll
+      for (int j = 0; j < KH; ++j) {
+        const float e = exp_xla(__fsub_rn(ss[(h0 + j) * ts + t], mh[j]));
+        ss[(h0 + j) * ts + t] = e;
+        sum[j] = __fadd_rn(sum[j], e);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int j = 0; j < KH; ++j)
+        sum[j] = __fadd_rn(sum[j], __shfl_xor_sync(0xffffffffu, sum[j], off));
+    if (ln == 0) {
+#pragma unroll
+      for (int j = 0; j < KH; ++j) red[1][warp * kMaxGroup + h0 + j] = sum[j];
+    }
+  }
+  __syncthreads();
+  if (tid < rp) {
+    float v = 0.0f;
+    for (int w = 0; w < kAttnWarps; ++w)
+      v = __fadd_rn(v, red[1][w * kMaxGroup + tid]);
+    csum[tid] = v;
+  }
+  split_arrive();                       // csum
+  split_wait();
+  // thread h adds head h's sums in rank order into gsum[h]
+  if (tid < rp) {
+    float v = *cluster.map_shared_rank(&csum[tid], 0);
+    for (int qq = 1; qq < nc; ++qq)
+      v = __fadd_rn(v, *cluster.map_shared_rank(&csum[tid], qq));
+    gsum[tid] = v;
+  }
+  __syncthreads();
+  for (int h0 = 0; h0 < rp; h0 += KH) {
+    float tot[KH], rtot[KH];
+#pragma unroll
+    for (int j = 0; j < KH; ++j) {
+      tot[j] = gsum[h0 + j];
+      rtot[j] = __frcp_rn(tot[j]);
+    }
+    for (int t = tid; t < nt; t += kAttnThreads) {
+      float e[KH], pt[KH];
+      bool slow = false;
+#pragma unroll
+      for (int j = 0; j < KH; ++j) {
+        e[j] = ss[(h0 + j) * ts + t];
+        pt[j] = div_rn(e[j], tot[j], rtot[j], slow);
+      }
+      if (slow) {
+#pragma unroll
+        for (int j = 0; j < KH; ++j) pt[j] = __fdiv_rn(e[j], tot[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < KH; ++j) ss[(h0 + j) * ts + t] = round_to<T>(pt[j]);
+    }
+  }
+  __syncthreads();                      // the probabilities
+  copies_wait<0>();                     // the V rows
+
+  // 5: P.V, KH heads at a time: thread (g, c) over its staged V rows in
+  // order from +0; the warp's row groups' tree; the warps in order from +0
+  // into this CTA's sums
+  for (int h0 = 0; h0 < rp; h0 += KH) {
+    float acc[KH][E];
+#pragma unroll
+    for (int j = 0; j < KH; ++j)
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[j][e] = 0.0f;
+    for (int i = 0; i < nrows; ++i) {
+      const int tl = g + RPP * i;
+      uint4 vr[SEG];
+#pragma unroll
+      for (int s = 0; s < SEG; ++s)
+        vr[s] = base + tl != slot ? vst[(i * kAttnThreads + tid) * SEG + s]
+                                  : vnew[s];
+      float vf[E], pt[KH];
+      row_f32<C, SEG>(vr, vf);
+#pragma unroll
+      for (int j = 0; j < KH; ++j) pt[j] = ss[(h0 + j) * ts + tl];
+#pragma unroll
+      for (int j = 0; j < KH; ++j)
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          acc[j][e] = __fmaf_rn(pt[j], as_compute<T, C>(vf[e]), acc[j][e]);
+    }
+#pragma unroll
+    for (int off = 16; off >= TPR; off >>= 1)
+#pragma unroll
+      for (int j = 0; j < KH; ++j)
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          acc[j][e] = __fadd_rn(acc[j][e],
+                                __shfl_xor_sync(0xffffffffu, acc[j][e], off));
+    if (ln < TPR) {
+#pragma unroll
+      for (int j = 0; j < KH; ++j)
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          pv[(warp * KH + j) * hd + c * E + e] = acc[j][e];
+    }
+    __syncthreads();                    // pv
+    for (int i = tid; i < KH * hd; i += kAttnThreads) {
+      float v = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kAttnWarps; ++w)
+        v = __fadd_rn(v, pv[w * KH * hd + i]);
+      part[h0 * hd + i] = v;
+    }
+    __syncthreads();                    // pv is free again
+  }
+  split_arrive();                       // part
+  split_wait();
+  // this CTA's slice of the outputs: the CTAs' sums in rank order
+  const int n_out = r * hd;
+  const int per = (n_out + nc - 1) / nc;
+  T* out = static_cast<T*>(a.out) +
+           ((long long)lane * a.heads + kvh * r) * hd;
+  for (int i = rank * per + tid; i < min(n_out, (rank + 1) * per);
+       i += kAttnThreads) {
+    float v = *cluster.map_shared_rank(&part[i], 0);
+    for (int qq = 1; qq < nc; ++qq)
+      v = __fadd_rn(v, *cluster.map_shared_rank(&part[i], qq));
+    out[i] = from_f<T>(v);
+  }
+  split_arrive();                       // no CTA leaves while read
+  split_wait();
+}
+
+template <typename T, typename C, int TPR, int SEG>
+int launch_split(const DecodeArgs& a, long long lanes, int nc, int ts,
+                 cudaStream_t stream) {
+  const int r = a.heads / a.kv;
+  const int rp = (r + kHeadChunk - 1) / kHeadChunk * kHeadChunk;
+  const long long stage = split_stage(ts, TPR, SEG);
+  const long long rest = split_rest(rp, a.hd, ts);
+  const int two = 2 * stage + rest <= kSplitMaxSmem;
+  const long long smem = (two ? 2 : 1) * stage + rest;
+  if (smem > kSplitMaxSmem) return (int)cudaErrorInvalidValue;
+  static long long allowed = 0;        // raised once a size (not in a capture)
+  if (allowed == 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_attention_split_kernel<T, C, TPR, SEG>,
+        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+    allowed = 48 * 1024;
+  }
+  if (smem > allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_attention_split_kernel<T, C, TPR, SEG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    allowed = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(lanes * a.kv * nc), 1, 1);
+  cfg.blockDim = dim3(kAttnThreads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)nc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, decode_attention_split_kernel<T, C, TPR, SEG>, a, nc, ts, two);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// the split form's instantiations: a row of TPR threads of SEG segments
+template <typename T, typename C>
+int launch_split_tpr(const DecodeArgs& a, long long lanes, int nc, int ts,
+                     cudaStream_t stream) {
+  switch (a.hd / (16 / (int)sizeof(C))) {
+    case 4: return launch_split<T, C, 4, 1>(a, lanes, nc, ts, stream);
+    case 8: return launch_split<T, C, 8, 1>(a, lanes, nc, ts, stream);
+    case 16: return launch_split<T, C, 16, 1>(a, lanes, nc, ts, stream);
+    case 32: return launch_split<T, C, 32, 1>(a, lanes, nc, ts, stream);
+    case 64: return launch_split<T, C, 32, 2>(a, lanes, nc, ts, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace repro_torch
 
 // One launch for every lane: q (lanes, heads, hd), k_new and v_new (lanes,
@@ -531,25 +1027,42 @@ int launch_tpr(const DecodeArgs& a, long long lanes, cudaStream_t stream) {
 // and slot_pos (lanes, slots) int32, updated in place; pos (batch,) int64,
 // lane l at pos[l % batch]; out (lanes, heads, hd) in the compute dtype.
 // heads is a multiple of kv, heads / kv <= 16; hd is 16 bytes of the cache
-// dtype times 4, 8, 16 or 32 (head dims 32, 64 and 128); the caches and
-// the new rows are 16-byte aligned; scale is sqrt(hd) in the compute dtype
-// and inv_scale RN(1 / scale).
+// dtype times 4, 8, 16 or 32 (head dims 32, 64 and 128), or 64 in the
+// split form (f32 rows of 256); the caches and the new rows are 16-byte
+// aligned; scale is sqrt(hd) in the compute dtype and inv_scale RN(1 /
+// scale). cluster: 0 for the one-CTA form, else the split form's CTAs a
+// (lane, KV head), a power of two up to 16, each over tile slots
+// (decode_attention.py: split_of).
 extern "C" int repro_decode_attention(
     const void* q, const void* k_new, const void* v_new, void* k_cache,
     void* v_cache, int* slot_pos, const long long* pos, void* out,
     long long lanes, int batch, int heads, int kv, int hd, int slots,
     int window, float scale, float inv_scale, int compute_bf16,
-    int cache_bf16, void* stream) {
+    int cache_bf16, int cluster, int tile, void* stream) {
   using namespace repro_torch;
   const int e = cache_bf16 ? 8 : 4, tpr = hd / e;
+  const int max_tpr = cluster ? 64 : 32;
   if (lanes < 1 || batch < 1 || lanes % batch || kv < 1 || heads % kv ||
-      heads / kv > kMaxGroup || hd < 1 || hd % e || tpr < 4 || tpr > 32 ||
-      (tpr & (tpr - 1)) || slots < 1 || window < 0 ||
-      lanes * kv > 0x7fffffffLL)
+      heads / kv > kMaxGroup || hd < 1 || hd % e || tpr < 4 ||
+      tpr > max_tpr || (tpr & (tpr - 1)) || slots < 1 || window < 0 ||
+      lanes * kv * (cluster ? cluster : 1) > 0x7fffffffLL ||
+      (cluster && (cluster > kMaxCluster || (cluster & (cluster - 1)) ||
+                   tile < 1 || (long long)tile * cluster < slots)))
     return (int)cudaErrorInvalidValue;
   const DecodeArgs a{q, k_new, v_new, k_cache, v_cache, slot_pos, pos, out,
                      batch, heads, kv, hd, slots, window, scale, inv_scale};
   cudaStream_t st = (cudaStream_t)stream;
+  if (cluster) {
+    if (compute_bf16)
+      return cache_bf16 ? launch_split_tpr<__nv_bfloat16, __nv_bfloat16>(
+                              a, lanes, cluster, tile, st)
+                        : launch_split_tpr<__nv_bfloat16, float>(
+                              a, lanes, cluster, tile, st);
+    return cache_bf16 ? launch_split_tpr<float, __nv_bfloat16>(
+                            a, lanes, cluster, tile, st)
+                      : launch_split_tpr<float, float>(a, lanes, cluster,
+                                                        tile, st);
+  }
   if (compute_bf16) {
     return cache_bf16 ? launch_tpr<__nv_bfloat16, __nv_bfloat16>(a, lanes, st)
                       : launch_tpr<__nv_bfloat16, float>(a, lanes, st);

@@ -13,14 +13,18 @@ rounded to ``dt``.
 Kernel and plain version compute in f32 with XLA's exp (``exp_plain``, the
 reference's own softmax numerators) and add in one fixed order, which the
 kernel's source comment states: each dot product as fma chains over a
-thread's 16 bytes of the cache row and a halving tree over the row's
-threads; the softmax's sum thread by thread, then a warp's tree, then the
-warps in order; the weighted values as fma chains over a thread's rows,
-then a tree over a warp's row groups, then the warps in order. The plain
-version follows that order op for op (single-rounding ``_fma`` and
-``_div``), so the two agree bit for bit. The reference sums in f32 in
-XLA's order, so against it the port is within f32 summation error before
-the ``dt`` rounding.
+thread's 16 bytes of the cache row (32 for an f32 row of 256) and a
+halving tree over the row's threads; the softmax's sum thread by thread,
+then a warp's tree, then the warps in order; the weighted values as fma
+chains over a thread's rows, then a tree over a warp's row groups, then
+the warps in order. A cache that one CTA cannot hold (recurrentgemma-9b's
+ring of 2,048 slots under 16 heads of 256, or any f32 row of 256) takes
+the split form: a cluster of CTAs a (lane, KV head), each over a tile of
+the slots in that order, the tiles' sums added in rank order
+(:func:`split_of`). The plain version follows that order op for op
+(single-rounding ``_fma`` and ``_div``), so the two agree bit for bit. The
+reference sums in f32 in XLA's order, so against it the port is within f32
+summation error before the ``dt`` rounding.
 
 The plain version runs for CPU tensors; a CUDA tensor launches the kernel
 or raises; ``decode_attention.launches`` counts launches. No
@@ -41,8 +45,10 @@ THREADS = 256                      # csrc/decode_attention.cu: kAttnThreads
 WARPS = THREADS // 32
 MAX_GROUP = 16                     # kMaxGroup
 MAX_SMEM = 232448 - 2 * WARPS * MAX_GROUP * 4   # the dynamic shared memory
-CARD_TPR = (4, 8, 16, 32)          # the kernel's instantiations of TPR
 HEAD_CHUNK = 4                     # kHeadChunk
+MAX_CLUSTER = 16                   # kMaxCluster: the split form's CTAs
+SPLIT_MAX_SMEM = 232448 - 1280     # kSplitMaxSmem
+SPLIT_SLOTS = 128                  # the slots a split CTA takes at most
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -58,10 +64,28 @@ def cache_slots(pos: torch.Tensor, slots: int, window: int) -> torch.Tensor:
 
 
 def segment(hd: int, cache_dtype) -> tuple:
-    """``(E, TPR)``: the elements in 16 bytes of the cache dtype, and the
-    threads that share a row of ``hd``."""
+    """``(E, TPR)``: the elements a thread holds, 16 bytes of the cache
+    dtype (32 where a row would span more than a warp: an f32 row of 256),
+    and the threads that share a row of ``hd``."""
     e = 128 // torch.finfo(cache_dtype).bits
+    if hd // e > 32:
+        e *= 2
     return e, hd // e
+
+
+def split_of(r: int, hd: int, slots: int, cache_dtype):
+    """``(NC, TS)`` of the split form, or ``None`` where one CTA a (lane,
+    KV head) holds the cache (rows of at most 32 segments of 16 bytes,
+    :func:`smem_bytes` within ``MAX_SMEM``): NC CTAs, the least power of
+    two with ``NC · SPLIT_SLOTS >= slots`` (at most ``MAX_CLUSTER``), each
+    over ``TS = ceil(slots / NC)`` slots."""
+    e = 128 // torch.finfo(cache_dtype).bits
+    if hd // e <= 32 and smem_bytes(r, hd, slots, hd // e) <= MAX_SMEM:
+        return None
+    nc = 1
+    while nc * SPLIT_SLOTS < slots and nc < MAX_CLUSTER:
+        nc *= 2
+    return nc, -(-slots // nc)
 
 
 def _pad(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
@@ -88,35 +112,59 @@ def dot_plain(qf: torch.Tensor, kf: torch.Tensor, e: int) -> torch.Tensor:
     return fold_sum(acc)
 
 
-def softmax_sum_plain(ex: torch.Tensor) -> torch.Tensor:
+def _tiles(x: torch.Tensor, dim: int, ts: int):
+    """``x`` cut along ``dim`` into tiles of ``ts`` (the last may be
+    short)."""
+    return [x.narrow(dim, i, min(ts, x.shape[dim] - i))
+            for i in range(0, x.shape[dim], ts)]
+
+
+def _ranks(parts) -> torch.Tensor:
+    """The tiles' sums added in rank order, from the first (no +0)."""
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
+def softmax_sum_plain(ex: torch.Tensor, ts: int = 0) -> torch.Tensor:
     """The softmax's f32 sum over the last axis (the slots), in the
-    kernel's order: thread ``tid``'s terms ``t = tid, tid + THREADS, ...``
-    from +0, a warp's halving tree, the warps in order from +0."""
-    lead, slots = ex.shape[:-1], ex.shape[-1]
-    n = -(-slots // THREADS)
-    terms = _pad(ex, -1, n * THREADS).reshape(lead + (n, THREADS))
-    part = fold_sum(seq_sum(terms.transpose(-1, -2)).reshape(
-        lead + (WARPS, 32)))
-    return seq_sum(part)
+    kernel's order: a tile's (of ``ts`` slots; all of them with ``ts`` 0)
+    thread ``tid``'s terms ``t = tid, tid + THREADS, ...`` from +0, a warp's
+    halving tree, the warps in order from +0; the tiles in rank order."""
+    parts = []
+    for tile in _tiles(ex, -1, ts or ex.shape[-1]):
+        lead, slots = tile.shape[:-1], tile.shape[-1]
+        n = -(-slots // THREADS)
+        terms = _pad(tile, -1, n * THREADS).reshape(lead + (n, THREADS))
+        part = fold_sum(seq_sum(terms.transpose(-1, -2)).reshape(
+            lead + (WARPS, 32)))
+        parts.append(seq_sum(part))
+    return _ranks(parts)
 
 
 def weighted_plain(probs: torch.Tensor, vf: torch.Tensor,
-                   tpr: int) -> torch.Tensor:
+                   tpr: int, ts: int = 0) -> torch.Tensor:
     """The weighted values' f32 sums, in the kernel's order: ``probs``
     ``(..., r, slots)`` and ``vf`` ``(..., slots, hd)`` -> ``(..., r,
-    hd)``: thread (row group ``g``, segment) over its rows ``g, g + RPP,
-    ...`` as an fma chain from +0, a halving tree over a warp's row groups,
-    the warps in order from +0."""
-    lead, slots, hd = vf.shape[:-2], vf.shape[-2], vf.shape[-1]
-    r, rpp = probs.shape[-2], THREADS // tpr
-    n = -(-slots // rpp)
-    pr = _pad(probs, -1, n * rpp).reshape(lead + (r, n, rpp, 1))
-    vv = _pad(vf, -2, n * rpp).reshape(lead + (1, n, rpp, hd))
-    acc = torch.zeros(lead + (r, rpp, hd), device=vf.device)
-    for i in range(n):
-        acc = _fma(pr[..., i, :, :], vv[..., i, :, :], acc)
-    acc = acc.reshape(lead + (r, WARPS, 32 // tpr, hd)).transpose(-1, -2)
-    return seq_sum(fold_sum(acc).transpose(-1, -2))
+    hd)``: in a tile (of ``ts`` slots; all of them with ``ts`` 0) thread
+    (row group ``g``, segment) over its rows ``g, g + RPP, ...`` as an fma
+    chain from +0, a halving tree over a warp's row groups, the warps in
+    order from +0; the tiles in rank order."""
+    ts = ts or vf.shape[-2]
+    parts = []
+    for pt, vt in zip(_tiles(probs, -1, ts), _tiles(vf, -2, ts)):
+        lead, slots, hd = vt.shape[:-2], vt.shape[-2], vt.shape[-1]
+        r, rpp = pt.shape[-2], THREADS // tpr
+        n = -(-slots // rpp)
+        pr = _pad(pt, -1, n * rpp).reshape(lead + (r, n, rpp, 1))
+        vv = _pad(vt, -2, n * rpp).reshape(lead + (1, n, rpp, hd))
+        acc = torch.zeros(lead + (r, rpp, hd), device=vt.device)
+        for i in range(n):
+            acc = _fma(pr[..., i, :, :], vv[..., i, :, :], acc)
+        acc = acc.reshape(lead + (r, WARPS, 32 // tpr, hd)).transpose(-1, -2)
+        parts.append(seq_sum(fold_sum(acc).transpose(-1, -2)))
+    return _ranks(parts)
 
 
 def decode_attention_plain(q, k_new, v_new, k_cache, v_cache, slot_pos, pos,
@@ -127,6 +175,7 @@ def decode_attention_plain(q, k_new, v_new, k_cache, v_cache, slot_pos, pos,
     slots, kv = k_cache.shape[2], k_cache.shape[3]
     r, dt = h // kv, q.dtype
     e, tpr = segment(hd, k_cache.dtype)
+    ts = (split_of(r, hd, slots, k_cache.dtype) or (1, 0))[1]
     pos = pos.to(torch.int64)
     slot = cache_slots(pos, slots, window)
     rows = torch.arange(b, device=q.device)
@@ -145,8 +194,9 @@ def decode_attention_plain(q, k_new, v_new, k_cache, v_cache, slot_pos, pos,
         valid = valid & (sp > p - window)
     s = s.masked_fill(~valid, float(torch.tensor(NEG_INF).to(dt)))
     ex = exp_plain(s - s.amax(dim=-1, keepdim=True))
-    probs = _div(ex, softmax_sum_plain(ex)[..., None]).to(dt).float()
-    out = weighted_plain(probs, v_cache.to(dt).float().transpose(2, 3), tpr)
+    probs = _div(ex, softmax_sum_plain(ex, ts)[..., None]).to(dt).float()
+    out = weighted_plain(probs, v_cache.to(dt).float().transpose(2, 3), tpr,
+                         ts)
     return out.to(dt).reshape(g, b, h, hd)
 
 
@@ -157,12 +207,28 @@ def row_tile(tpr: int) -> int:
 
 
 def smem_bytes(r: int, hd: int, slots: int, tpr: int) -> int:
-    """The kernel's dynamic shared memory: the staged K and V rows, then
-    the queries, the scores and the warps' P·V sums in f32, the heads
+    """The one-CTA form's dynamic shared memory: the staged K and V rows,
+    then the queries, the scores and the warps' P·V sums in f32, the heads
     padded to chunks of ``HEAD_CHUNK``."""
     rp = -(-r // HEAD_CHUNK) * HEAD_CHUNK
     return 2 * 16 * row_tile(tpr) * THREADS + \
         4 * (rp * hd + rp * slots + WARPS * rp * hd)
+
+
+def split_smem_bytes(r: int, hd: int, ts: int, cache_dtype) -> int:
+    """The split form's dynamic shared memory a CTA (``split_stage`` and
+    ``split_rest`` of the kernel): its threads' staged K rows, and V rows
+    beside them where both fit in ``SPLIT_MAX_SMEM`` (else in their
+    place), then the queries, the tile's scores, a head chunk's warp sums
+    and the CTA's P·V sums in f32, and the tile's slot_pos."""
+    rp = -(-r // HEAD_CHUNK) * HEAD_CHUNK
+    e, tpr = segment(hd, cache_dtype)
+    seg = e * torch.finfo(cache_dtype).bits // 128
+    rpp = THREADS // tpr
+    stage = -(-ts // rpp) * THREADS * seg * 16
+    rest = 4 * (rp * hd + rp * ts + WARPS * HEAD_CHUNK * hd + rp * hd
+                + -(-ts // 4) * 4)
+    return (2 if 2 * stage + rest <= SPLIT_MAX_SMEM else 1) * stage + rest
 
 
 def _check(q, k_new, v_new, k_cache, v_cache, slot_pos, pos, window):
@@ -183,29 +249,34 @@ def _check(q, k_new, v_new, k_cache, v_cache, slot_pos, pos, window):
                          f", pos {tuple(pos.shape)}")
     if window < 0:
         raise ValueError(f"decode_attention: window {window}")
-    e, tpr = segment(hd, k_cache.dtype)
-    if hd % e or tpr > 32 or tpr & (tpr - 1):
+    e1 = 128 // torch.finfo(k_cache.dtype).bits
+    segs = hd // e1
+    if hd % e1 or segs > 64 or segs & (segs - 1):
         raise ValueError(f"decode_attention: head_dim {hd} of "
                          f"{k_cache.dtype} is not 16 bytes times a power of "
-                         f"two up to 32")
+                         f"two up to 64")
 
 
 def _check_card(q, k_new, v_new, k_cache, v_cache):
-    """What the kernel alone cannot take: a row of other than 4, 8, 16 or
-    32 segments (head dims 32, 64 and 128), shared memory beyond the
-    card's, rows off 16-byte alignment."""
+    """What the kernel alone cannot take: a row of fewer than 4 segments of
+    16 bytes (a head dim under 32 bf16 or 16 f32), a split form's tile
+    beyond the card's shared memory, rows off 16-byte alignment."""
     g, b, h, hd = q.shape
     slots, kv = k_cache.shape[2], k_cache.shape[3]
-    tpr = segment(hd, k_cache.dtype)[1]
-    if tpr not in CARD_TPR:
-        raise ValueError(f"decode_attention: the kernel takes head dims of "
-                         f"{CARD_TPR} segments of 16 bytes, not {hd} of "
-                         f"{k_cache.dtype}")
-    need = smem_bytes(h // kv, hd, slots, tpr)
-    if need > MAX_SMEM:
-        raise ValueError(f"decode_attention: {slots} slots of {h // kv} "
-                         f"heads of {hd} need {need} bytes of shared "
-                         f"memory, the kernel has {MAX_SMEM}")
+    r = h // kv
+    segs = hd // (128 // torch.finfo(k_cache.dtype).bits)
+    if segs < 4:
+        raise ValueError(f"decode_attention: the kernel takes rows of 4 to "
+                         f"64 segments of 16 bytes, not a head dim of {hd} "
+                         f"of {k_cache.dtype}")
+    split = split_of(r, hd, slots, k_cache.dtype)
+    if split is not None:
+        need = split_smem_bytes(r, hd, split[1], k_cache.dtype)
+        if need > SPLIT_MAX_SMEM:
+            raise ValueError(f"decode_attention: {slots} slots of {r} heads "
+                             f"of {hd} over {split[0]} CTAs need {need} "
+                             f"bytes of shared memory a CTA, the kernel has "
+                             f"{SPLIT_MAX_SMEM}")
     for t in (k_new, v_new, k_cache, v_cache):
         if t.data_ptr() % 16:
             raise ValueError("decode_attention: the new rows and the caches "
@@ -232,6 +303,7 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, slot_pos, pos,
     _check_card(q, k_new, v_new, k_cache, v_cache)
     g, b, h, hd = q.shape
     slots, kv = k_cache.shape[2], k_cache.shape[3]
+    nc, ts = split_of(h // kv, hd, slots, k_cache.dtype) or (0, 0)
     scale = head_scale(hd, dt)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -240,7 +312,7 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, slot_pos, pos,
             k_cache.data_ptr(), v_cache.data_ptr(), slot_pos.data_ptr(),
             pos.data_ptr(), out.data_ptr(), g * b, b, h, kv, hd, slots,
             window, scale, to_f32(1.0 / scale), int(dt == torch.bfloat16),
-            int(k_cache.dtype == torch.bfloat16), stream_of(q))
+            int(k_cache.dtype == torch.bfloat16), nc, ts, stream_of(q))
     check(rc, "decode_attention")
     decode_attention.launches += 1
     return out

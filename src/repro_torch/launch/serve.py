@@ -1,7 +1,7 @@
 """Uncertainty-aware serving CLI over ``repro_torch.serve``
 (``repro/launch/serve.py``): classify for the radar LeNet, BMA decode for
-the LMs (the dense, vlm and moe families; a vlm decodes text only, as the
-reference's).
+the LMs (every family; a vlm decodes text only, and whisper against zero
+encoder output, as the reference's).
 
 A thin argparse shim over :class:`repro_torch.config.ServeConfig`: one flag
 a field, every behaviour in the engine. Loads the posterior bank snapshots

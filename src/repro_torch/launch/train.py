@@ -1,8 +1,7 @@
 """The CD-BFL training CLI of the port (``repro/launch/train.py``).
 
 The reference's flags with its defaults, for the ``lenet`` family and the
-LMs (``--arch smollm-135m``, the default, the other dense archs and the
-moe family's grok-1 and deepseek-v2:
+LMs (``--arch smollm-135m``, the default, and every other LM arch:
 per-node Markov token pools, ``markov_tokens(pool, seq, V, seed, k)``, and
 in-training evals of the held-out stream of node K through
 ``lm_apply_fn``), on one device: the card unless ``--device cpu``. Each round gathers its minibatch
@@ -51,12 +50,11 @@ reference's format, which both packages' ``launch.serve`` read.
         --bank-capacity 2 --burn-in 2 --eval-every 2 --ckpt-dir /tmp/ckpt
 
 Flags of paths the port does not run yet exit naming their ROADMAP item:
-``--mesh > 1`` and ``--engine shard`` (A10), and the archs of the LM
-families the port does not run yet (A12 parts 5–7). As the reference's
-CLI, it builds token pools for every LM arch, so llava-next (whose loss
-reads ``batch["patches"]``) fails at its first round with the reference's
-``KeyError: 'patches'``; llava trains through ``FedTrainer`` on pools of
-``{tokens, patches}``.
+``--mesh > 1`` and ``--engine shard`` (A10). As the reference's CLI, it
+builds token pools for every LM arch, so llava-next (whose loss reads
+``batch["patches"]``) and whisper-tiny (``batch["frames"]``) fail at their
+first round with the reference's ``KeyError``; both train through
+``FedTrainer`` on pools that hold those fields.
 """
 from __future__ import annotations
 

@@ -20,6 +20,7 @@ from repro_torch import random
 from repro_torch.kernels.decode_attention import NEG_INF, head_scale
 from repro_torch.kernels.decode_attention import \
     decode_attention as decode_attention_kernel
+from repro_torch.models.chunked import chunked_gqa, use_chunked
 from repro_torch.models.layers import apply_rope, dense_init, rope_angles
 from repro_torch.utils.device import device_const
 
@@ -119,13 +120,7 @@ def attention(params, x, positions, cfg, window: int = 0,
         q = _proj(x, params["wq"])
         return _gqa_out(_gqa_scores(q, k), v, params, dt)
     q, k, v = _qkv(params, x, cfg, positions, angles)
-    s = q.shape[2]
-    use_chunked = causal and (
-        cfg.attn_impl == "chunked"
-        or (cfg.attn_impl == "auto" and s >= 2 * cfg.chunk_size
-            and s % cfg.chunk_size == 0))
-    if use_chunked:
-        from repro_torch.models.chunked import chunked_gqa
+    if causal and use_chunked(cfg, q.shape[2]):
         return _out(params, chunked_gqa(q, k, v, window=window,
                                         chunk=cfg.chunk_size))
     scores = _gqa_scores(q, k)

@@ -1,8 +1,13 @@
 """Decoder blocks (``repro/models/blocks.py:37-131``): pre-norm mixer and
-residual, then pre-norm FFN and residual. The port runs the mixers
-``attn``, ``local_attn`` and ``mla`` (DeepSeek-V2's latent attention) and
-the FFNs ``mlp``, ``moe`` and ``none``; every other mixer raises, naming
-the part of ROADMAP A12 that ports it.
+residual, then pre-norm FFN and residual. The mixers are the reference's:
+``attn``, ``local_attn``, ``mla`` (DeepSeek-V2's latent attention),
+``rec`` (Griffin's RG-LRU) and ``mlstm`` / ``slstm`` (xLSTM); the FFNs
+``mlp``, ``moe`` and ``none``.
+
+A block's decode cache is the mixer's: a KV cache (or MLA's latent cache)
+in the cache dtype, or a recurrent state in f32 whatever the cache dtype,
+as the reference keeps it. :func:`reads_f32` names the leaves the
+reference reads uncast, in f32, whatever the compute dtype.
 """
 from __future__ import annotations
 
@@ -14,25 +19,47 @@ from repro_torch import random
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import init_mlp, init_rmsnorm, mlp, rmsnorm
 
 BlockSpec = Tuple[str, str]
 
-# the mixers and FFNs of the reference's zoo the port does not run yet
-_UNPORTED = {"rec": "A12 part 5 (RG-LRU)",
-             "mlstm": "A12 part 6 (xLSTM)", "slstm": "A12 part 6 (xLSTM)"}
+# a mixer's (or FFN's) init, train, state and decode functions
+_MIXERS = {
+    "rec": (rglru_mod.init_rglru_block, rglru_mod.rglru_block,
+            rglru_mod.init_rglru_state, rglru_mod.rglru_block_decode),
+    "mlstm": (xlstm_mod.init_mlstm_block, xlstm_mod.mlstm_block,
+              xlstm_mod.init_mlstm_state, xlstm_mod.mlstm_block_decode),
+    "slstm": (xlstm_mod.init_slstm_block, xlstm_mod.slstm_block,
+              xlstm_mod.init_slstm_state, xlstm_mod.slstm_block_decode),
+}
+# the leaves, by their parent's name, that the reference reads uncast in
+# f32 whatever the compute dtype: a resident bank keeps them f32
+F32_PARAMS = {"rec": ("a_param",), "mlstm": ("wif", "bif"),
+              "slstm": ("b", "wh"), "moe": ("router",)}
+
+
+def reads_f32(path: str) -> bool:
+    """Whether the reference reads the leaf at ``path`` (dotted, as
+    ``tree_leaves_with_path`` gives it) in f32: the norms' scales and
+    :data:`F32_PARAMS`."""
+    parts = path.split(".")
+    return parts[-1] == "scale" or (
+        len(parts) > 1 and parts[-1] in F32_PARAMS.get(parts[-2], ()))
 
 
 def _check(spec: BlockSpec) -> None:
-    for part in spec:
-        if part in _UNPORTED:
-            raise NotImplementedError(
-                f"block {part!r} is not ported yet; ROADMAP {_UNPORTED[part]}")
     mixer, ffn = spec
-    if mixer not in ("attn", "local_attn", "mla"):
+    if mixer not in ("attn", "local_attn", "mla") and mixer not in _MIXERS:
         raise ValueError(mixer)
     if ffn not in ("mlp", "moe", "none"):
         raise ValueError(ffn)
+
+
+def _param_name(mixer: str) -> str:
+    """The mixer's subtree: ``attn`` for both attentions, else its name."""
+    return "attn" if mixer in ("attn", "local_attn") else mixer
 
 
 def _mixer_window(spec_mixer: str, cfg) -> int:
@@ -50,8 +77,9 @@ def init_block(key: torch.Tensor, spec: BlockSpec, cfg):
     mixer, ffn = spec
     lead = tuple(key.shape[:-1])
     k12 = yield from random.split.program(key)
-    init_mixer = mla_mod.init_mla if mixer == "mla" else \
-        attn_mod.init_attention
+    init_mixer = (_MIXERS[mixer][0] if mixer in _MIXERS else
+                  mla_mod.init_mla if mixer == "mla" else
+                  attn_mod.init_attention)
     progs = [init_mixer.program(k12[..., 0, :], cfg)]
     if ffn == "mlp":
         progs.append(init_mlp.program(k12[..., 1, :], cfg.d_model, cfg.d_ff))
@@ -59,7 +87,7 @@ def init_block(key: torch.Tensor, spec: BlockSpec, cfg):
         progs.append(moe_mod.init_moe.program(k12[..., 1, :], cfg))
     parts = yield from random.together(*progs)
     p: Dict = {"norm1": init_rmsnorm(cfg.d_model, key.device, lead),
-               "mla" if mixer == "mla" else "attn": parts[0]}
+               _param_name(mixer): parts[0]}
     if ffn != "none":
         p["norm2"] = init_rmsnorm(cfg.d_model, key.device, lead)
         p[ffn] = parts[1]
@@ -87,7 +115,9 @@ def apply_block(params, x, positions, spec: BlockSpec, cfg, angles=None):
     computed once a forward (MLA rotates its own ``rope_head_dim``)."""
     _check(spec)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    if spec[0] == "mla":
+    if spec[0] in _MIXERS:
+        h = _MIXERS[spec[0]][1](params[spec[0]], h, cfg)
+    elif spec[0] == "mla":
         h = mla_mod.mla_attention(params["mla"], h, positions, cfg)
     else:
         h = attn_mod.attention(params["attn"], h, positions, cfg,
@@ -98,7 +128,11 @@ def apply_block(params, x, positions, spec: BlockSpec, cfg, angles=None):
 
 def init_block_cache(spec: BlockSpec, cfg, lanes, max_len: int,
                      dtype=torch.bfloat16, device="cpu") -> Dict:
+    """The mixer's cache for each lane of ``lanes``: a KV (or latent) cache
+    in ``dtype``, or a recurrent state in f32."""
     _check(spec)
+    if spec[0] in _MIXERS:
+        return _MIXERS[spec[0]][2](cfg, lanes, device=device)
     if spec[0] == "mla":
         return mla_mod.init_mla_cache(cfg, lanes, max_len, dtype=dtype,
                                       device=device)
@@ -113,7 +147,9 @@ def decode_block(params, cache, x, pos, spec: BlockSpec, cfg, angles=None):
     dropped, as the reference drops it."""
     _check(spec)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    if spec[0] == "mla":
+    if spec[0] in _MIXERS:
+        cache, h = _MIXERS[spec[0]][3](params[spec[0]], cache, h, cfg)
+    elif spec[0] == "mla":
         cache, h = mla_mod.mla_decode(params["mla"], cache, h, pos, cfg)
     else:
         cache, h = attn_mod.decode_attention(

@@ -1,13 +1,16 @@
 """Decoder-only models (``repro/models/transformer.py:31-220``): the dense,
-vlm and moe families.
+vlm, moe, hybrid (RecurrentGemma) and ssm (xLSTM) families.
 
 The parameter tree is the reference's: ``embed/tok``, ``final_norm``,
-``lm_head`` (untied), and the layers either stacked under ``groups/u0``
-with a leading ``n_groups`` axis (``scan_layers`` and more than one layer)
-or as a ``layers`` list. So a bank checkpoint written by either package
-loads in the other. Every function takes params with a leading group axis
-``G`` (the samples of a bank; see ``models/lenet.py``); per-sample products
-are ``torch.bmm``.
+``lm_head`` (untied), and the layers either stacked by the repeating unit
+of the family's block pattern under ``groups/u0, u1, ...`` with a leading
+``n_groups`` axis (``scan_layers`` and more than one group; dense, vlm and
+moe: one block, hybrid: ``(rec, rec, local_attn)``, ssm: ``mlstm_ratio``
+mLSTMs and an sLSTM), the layers left over as a ``tail`` list, or all
+layers as a ``layers`` list. So a bank checkpoint written by either
+package loads in the other. Every function takes params with a leading
+group axis ``G`` (the samples of a bank; see ``models/lenet.py``);
+per-sample products are ``torch.bmm``.
 
     init(key, device)                            -> params of one model
     logits(params, batch)                        -> (G, B, S, V)
@@ -55,43 +58,46 @@ from repro_torch.models.layers import (dense_init, embed_init, f32_sums,
                                        torch_dtype)
 from repro_torch.utils.tree import tree_map
 
-# the families of the reference's zoo the port does not run yet
-_UNPORTED_FAMILIES = {"hybrid": "A12 part 5 (hybrid, RG-LRU)",
-                      "ssm": "A12 part 6 (ssm, xLSTM)",
-                      "audio": "A12 part 7 (audio)"}
-
-
-def full_pattern(cfg) -> List[blk.BlockSpec]:
-    if cfg.family in _UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet; ROADMAP "
-            f"{_UNPORTED_FAMILIES[cfg.family]}")
+def _unit(cfg) -> List[blk.BlockSpec]:
+    """The repeating unit of the family's block pattern."""
     if cfg.family in ("dense", "vlm"):
-        return [("attn", "mlp")] * cfg.num_layers
+        return [("attn", "mlp")]
     if cfg.family == "moe":
-        mixer = "mla" if cfg.kv_lora_rank else "attn"
-        return [(mixer, "moe")] * cfg.num_layers
+        return [("mla" if cfg.kv_lora_rank else "attn", "moe")]
+    if cfg.family == "hybrid":
+        return [(m, "mlp") for m in (tuple(cfg.block_pattern)
+                                     or ("rec", "rec", "local_attn"))]
+    if cfg.family == "ssm":
+        return [("mlstm", "none")] * cfg.mlstm_ratio + [("slstm", "none")]
     raise ValueError(cfg.family)
 
 
+def full_pattern(cfg) -> List[blk.BlockSpec]:
+    """Every layer's block: the unit repeated, cut at ``num_layers``."""
+    unit = _unit(cfg)
+    n = cfg.num_layers
+    return (unit * ((n + len(unit) - 1) // len(unit)))[:n]
+
+
 def scan_unit(cfg) -> Tuple[List[blk.BlockSpec], int, List[blk.BlockSpec]]:
-    """(repeating unit, n_groups, tail specs): one block for dense, vlm and
-    moe."""
-    pat = full_pattern(cfg)
-    unit = pat[:1]
+    """(repeating unit, n_groups, tail specs)."""
+    pat, unit = full_pattern(cfg), _unit(cfg)
     n_groups = len(pat) // len(unit)
     return unit, n_groups, pat[n_groups * len(unit):]
 
 
-def layers_of(params, n: int, use_scan: bool) -> List:
-    """Every layer's params, each leaf ``(G, ...)``: the scanned leaves
-    unbound once along their layer axis. Its backward stacks the layers'
-    gradients in one write, where ``n`` slices would each scatter theirs
-    into a zeroed leaf of the whole stack (``n`` times the leaf's bytes)."""
+def layers_of(params, unit_len: int, n_groups: int, use_scan: bool) -> List:
+    """Every layer's params in the pattern's order, each leaf ``(G, ...)``:
+    the scanned leaves unbound once along their group axis, then the tail.
+    Its backward stacks the layers' gradients in one write, where a slice a
+    layer would each scatter its gradient into a zeroed leaf of the whole
+    stack (``n_groups`` times the leaf's bytes)."""
     if not use_scan:
         return params["layers"]
-    cols = tree_map(lambda a: a.unbind(1), params["groups"]["u0"])
-    return [tree_map(lambda c: c[i], cols) for i in range(n)]
+    cols = [tree_map(lambda a: a.unbind(1), params["groups"][f"u{i}"])
+            for i in range(unit_len)]
+    return [tree_map(lambda c: c[g], cols[i]) for g in range(n_groups)
+            for i in range(unit_len)] + params.get("tail", [])
 
 
 def make_model(cfg) -> SimpleNamespace:
@@ -105,8 +111,8 @@ def make_model(cfg) -> SimpleNamespace:
         """The reference's ``init(key)``: ``split(key, 5)`` into the
         embedding, layer, tail, head and image keys; the layer groups from
         ``split(klayers, n_groups)``, each group's draws from its own key
-        (the reference's ``vmap``)."""
-        kemb, klayers, _, khead, kimg = random.split(key.to(device), 5)
+        (the reference's ``vmap``), the tail's from ``split(ktail)``."""
+        kemb, klayers, ktail, khead, kimg = random.split(key.to(device), 5)
         progs = [embed_init.program(kemb, cfg.vocab_size, cfg.d_model)]
         if not cfg.tie_embeddings:
             progs.append(dense_init.program(khead, cfg.d_model,
@@ -119,6 +125,10 @@ def make_model(cfg) -> SimpleNamespace:
             uks = random.split(gkeys, len(unit))
             progs += [blk.init_block.program(uks[:, i], spec, cfg)
                       for i, spec in enumerate(unit)]
+            if tail:
+                tkeys = random.split(ktail, len(tail))
+                progs += [blk.init_block.program(tkeys[i], spec, cfg)
+                          for i, spec in enumerate(tail)]
         else:
             lkeys = random.split(klayers, max(1, len(pat)))
             progs += [blk.init_block.program(lkeys[i], spec, cfg)
@@ -132,6 +142,8 @@ def make_model(cfg) -> SimpleNamespace:
             p["embed"]["img_proj"] = out.pop(0)
         if use_scan:
             p["groups"] = {f"u{i}": out[i] for i in range(len(unit))}
+            if tail:
+                p["tail"] = out[len(unit):]
         else:
             p["layers"] = out
         return p
@@ -168,13 +180,16 @@ def make_model(cfg) -> SimpleNamespace:
         g, b, s, d = x.shape
         return torch.bmm(x.reshape(g, b * s, d), w).reshape(g, b, s, -1)
 
+    def layers(params) -> List:
+        return layers_of(params, len(unit), n_groups, use_scan)
+
     # -- forward -------------------------------------------------------------
     def _trunk(params, x):
         b, s = x.shape[1], x.shape[2]
         positions = torch.arange(s, device=x.device).expand(b, s)
         angles = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
         aux = torch.zeros(x.shape[:1], device=x.device)
-        for spec, lp in zip(pat, layers_of(params, len(pat), use_scan)):
+        for spec, lp in zip(pat, layers(params)):
             x, ai = blk.apply_block(lp, x, positions, spec, cfg, angles)
             aux = aux + ai
         return x, aux
@@ -225,18 +240,32 @@ def make_model(cfg) -> SimpleNamespace:
     # -- decode --------------------------------------------------------------
     def init_decode_state(batch_size: int, max_len: int, groups: int = 1,
                           dtype_kv=torch.bfloat16, device="cpu"):
-        """Zeroed caches, one lane a (group, row) pair: with scanned layers
-        ``{"groups": {"u0": {k, v: (n_groups, G, B, slots, KV, hd),
-        slot_pos: (n_groups, G, B, slots)}}}``, layer-major so each layer's
-        cache is one contiguous block; else ``{"layers": [...]}``."""
+        """Pristine caches, one lane a (group, row) pair: with scanned
+        layers ``{"groups": {"u0": {k, v: (n_groups, G, B, slots, KV, hd),
+        slot_pos: (n_groups, G, B, slots)}, ...}, "tail": [...]}``,
+        layer-major so each layer's cache is one contiguous block; else
+        ``{"layers": [...]}``. A recurrent layer's state is f32."""
         lanes = (groups, batch_size)
         if use_scan:
-            return {"groups": {f"u{i}": blk.init_block_cache(
+            cache = {"groups": {f"u{i}": blk.init_block_cache(
                 spec, cfg, (n_groups,) + lanes, max_len, dtype_kv, device)
                 for i, spec in enumerate(unit)}}
+            if tail:
+                cache["tail"] = [blk.init_block_cache(
+                    spec, cfg, lanes, max_len, dtype_kv, device)
+                    for spec in tail]
+            return cache
         return {"layers": [blk.init_block_cache(spec, cfg, lanes, max_len,
                                                 dtype_kv, device)
                            for spec in pat]}
+
+    def layer_caches(cache) -> List:
+        """Every layer's cache in the pattern's order (views)."""
+        if not use_scan:
+            return cache["layers"]
+        return [tree_map(lambda c: c[g], cache["groups"][f"u{i}"])
+                for g in range(n_groups) for i in range(len(unit))] + \
+            cache.get("tail", [])
 
     @f32_sums()
     def decode_step(params, cache, tokens, pos):
@@ -249,10 +278,7 @@ def make_model(cfg) -> SimpleNamespace:
         x = _tokens(params, tokens[:, None])
         angles = rope_angles(pos[:, None], cfg.resolved_head_dim,
                              cfg.rope_theta)
-        for i, (spec, lp) in enumerate(zip(pat, layers_of(params, len(pat),
-                                                          use_scan))):
-            lc = (tree_map(lambda c: c[i], cache["groups"]["u0"]) if use_scan
-                  else cache["layers"][i])
+        for spec, lp, lc in zip(pat, layers(params), layer_caches(cache)):
             _, x = blk.decode_block(lp, lc, x, pos, spec, cfg, angles)
         return cache, _head(params, x)
 
@@ -260,7 +286,7 @@ def make_model(cfg) -> SimpleNamespace:
         cfg=cfg, init=init, loss=loss, logits=logits, nll=nll,
         init_decode_state=init_decode_state, decode_step=decode_step,
         pattern=pat, scan_unit=(unit, n_groups, tail), use_scan=use_scan,
-        dtype=dtype)
+        dtype=dtype, f32_leaf=blk.reads_f32)
 
 
 def params_from_jax(np_tree, device="cpu"):

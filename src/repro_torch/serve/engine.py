@@ -218,11 +218,15 @@ class ClassifyEngine(ServingEngine):
         return self.predictor.compile_count()
 
 
-# the leaves a resident bank keeps in f32 whatever the compute dtype, as the
-# reference reads them: norm scales and the MoE routers
-F32_LEAVES = ("scale", "router")
-# a decode cache leaf's lane axis, counted from its end (KV caches: 4)
-_LANE_FROM_END = {"slot_pos": 2, "ckv": 3, "kr": 3}
+def slot_axes(model, max_len: int) -> List[int]:
+    """Each decode cache leaf's slot axis, in ``tree_leaves`` order, read
+    from the cache's own layout: the axis whose length follows the slot
+    count between caches of one and two slots (made on the meta device)."""
+    one, two = (tree_leaves(model.init_decode_state(n, max_len,
+                                                    device="meta"))
+                for n in (1, 2))
+    return [next(i for i, (p, q) in enumerate(zip(a.shape, b.shape))
+                 if p != q) for a, b in zip(one, two)]
 
 
 class DecodeEngine(ServingEngine):
@@ -232,10 +236,13 @@ class DecodeEngine(ServingEngine):
     State lives in fixed-shape device tables, sized at the first
     :meth:`install_bank`:
 
-    * the KV caches, one lane a (posterior sample, slot) pair
-      (``model.init_decode_state(slots, max_len, groups=M)``). An admit
-      resets its slot's M lanes to the pristine init (zeros, ``slot_pos =
-      -1``: the attention mask makes the lane decode as a fresh cache); a
+    * the decode caches, one lane a (posterior sample, slot) pair
+      (``model.init_decode_state(slots, max_len, groups=M)``): KV caches,
+      recurrent states, whisper's encoder output. An admit copies a
+      pristine one-lane cache (``init_decode_state(1, max_len)``, made
+      once) into its slot's M lanes, along each leaf's slot axis as the
+      cache's layout gives it (:func:`slot_axes`), so every leaf starts
+      as the model inits it (``slot_pos = -1``, sLSTM's normalizer 1); a
       retire only frees the slot; a swap never touches them.
     * ``tokens (slots,)``, ``pos (slots,)``: each slot's last token and
       position, so lanes advance independently; ``keys (slots, 2)``: each
@@ -244,8 +251,9 @@ class DecodeEngine(ServingEngine):
     * the bank in the compute dtype, the weights stored layer-major so each
       layer's are one block: ``install_bank`` copies a bank into it in place
       (the reference casts at use; the values are the same, and a step reads
-      the weights once at half the bytes in bfloat16). Norm scales and MoE
-      routers stay f32, as the reference reads them.
+      the weights once at half the bytes in bfloat16). The leaves that the
+      reference reads uncast, in f32 (``model.f32_leaf``: norm scales, MoE
+      routers, RG-LRU's ``a_param``, xLSTM's gate weights), stay f32.
 
     One step advances every lane: the M samples' decode steps over all
     slots (``decode_attention``, one launch a layer), then ``bma_sample``
@@ -275,6 +283,7 @@ class DecodeEngine(ServingEngine):
         self._bank = None
         self._num_samples = 0
         self._caches = self._tokens = self._pos = self._keys = None
+        self._fresh1 = self._slot_axes = None
         self._out = None            # (next, probs, entropy) of a step
         self._graph = None
         self._stream = None
@@ -294,7 +303,7 @@ class DecodeEngine(ServingEngine):
         dt = self.model.dtype
 
         def buffer(path: str, x: torch.Tensor) -> torch.Tensor:
-            want = torch.float32 if path.endswith(F32_LEAVES) else dt
+            want = torch.float32 if self.model.f32_leaf(path) else dt
             if path.startswith("groups."):
                 # (G, L, ...) read a layer at a time: store (L, G, ...)
                 buf = torch.empty((x.shape[1], x.shape[0]) + x.shape[2:],
@@ -306,6 +315,9 @@ class DecodeEngine(ServingEngine):
         s = self.cfg.slots
         self._caches = self.model.init_decode_state(
             s, self.cfg.max_len, groups=m, device=dev)
+        self._fresh1 = tree_leaves(self.model.init_decode_state(
+            1, self.cfg.max_len, device=dev))
+        self._slot_axes = slot_axes(self.model, self.cfg.max_len)
         self._tokens = torch.zeros((s,), dtype=torch.int64, device=dev)
         self._pos = torch.zeros((s,), dtype=torch.int64, device=dev)
         self._keys = torch.zeros((s, 2), dtype=torch.int64, device=dev)
@@ -369,13 +381,11 @@ class DecodeEngine(ServingEngine):
         return self._out
 
     def _admit(self, i: int, tok0: int, seed: int) -> None:
-        """Reset slot ``i``'s M lanes to the pristine init and its tables."""
-        for path, c in tree_leaves_with_path(self._caches):
-            # the slot axis: before (slots,), (slots, KV, hd) or MLA's
-            # (slots, rank)
-            leaf = path.rsplit(".", 1)[-1]
-            c.select(c.dim() - _LANE_FROM_END.get(leaf, 4), i).fill_(
-                -1 if leaf == "slot_pos" else 0)
+        """Copy the pristine one-lane cache into slot ``i``'s M lanes (its
+        sample axis of one broadcast over M), and reset its tables."""
+        for c, f, ax in zip(tree_leaves(self._caches), self._fresh1,
+                            self._slot_axes):
+            c.select(ax, i).copy_(f.select(ax, 0))
         self._tokens[i] = int(tok0)
         self._pos[i] = 0
         self._keys[i] = random.PRNGKey(seed, self.device)

@@ -58,21 +58,22 @@ def test_c20_get_arch_returns_the_reference_arch_spec():
     assert config.list_archs() == ["deepseek-v2-236b", "grok-1-314b",
                                    "lenet-radar", "llava-next-mistral-7b",
                                    "mistral-large-123b", "qwen2.5-14b",
-                                   "smollm-135m", "yi-9b"]
+                                   "recurrentgemma-9b", "smollm-135m",
+                                   "whisper-tiny", "xlstm-1.3b", "yi-9b"]
 
 
 def test_c20_unknown_and_unported_archs():
+    """An unknown id raises ``KeyError`` in both packages; every arch of
+    the reference's registry is the port's (A12 is done: none is left
+    unported)."""
     with pytest.raises(KeyError):
         jconfig.get_arch("no-such-arch")
     with pytest.raises(KeyError):
         config.get_arch("no-such-arch")
+    assert config.list_archs() == sorted(jconfig.list_archs())
     for arch in jconfig.list_archs():
-        if arch in config.list_archs():
-            _same_config(config.get_arch(arch).config,
-                         jconfig.get_arch(arch).config)
-            continue
-        with pytest.raises(NotImplementedError, match="A12"):
-            config.get_arch(arch)
+        _same_config(config.get_arch(arch).config,
+                     jconfig.get_arch(arch).config)
 
 
 def test_c20_register_arch():

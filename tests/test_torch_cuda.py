@@ -1228,15 +1228,87 @@ def test_decode_attention_matches_plain_version(card, dtype, cache, h, kv,
     assert _same_bits(got, want)
 
 
+@pytest.mark.parametrize("window", [0, 2048])
+@pytest.mark.parametrize("dtype,cache,slots", [
+    (torch.bfloat16, torch.bfloat16, 2048),
+    (torch.float32, torch.bfloat16, 2048),
+    (torch.bfloat16, torch.float32, 2048),
+    (torch.float32, torch.float32, 2048),
+    (torch.float32, torch.float32, 40),
+    (torch.bfloat16, torch.bfloat16, 300)])
+def test_decode_attention_split_form_matches_plain_version(
+        card, dtype, cache, slots, window):
+    """recurrentgemma-9b's local attention, 16 heads of 256 over one KV
+    head: a ring (or full cache) of 2,048 slots, the split form's 16 CTAs
+    of 128 slots, bf16 and f32 caches (an f32 row of 256: 64 segments, two
+    a thread); f32 rows at 40 slots (one CTA of the split form) and 300
+    bf16 slots (4 CTAs of 75); positions 0, aligned at the ring's size,
+    wrapped past it and a reset lane; the caches, slot_pos and the output
+    bit for bit."""
+    from repro_torch.kernels.decode_attention import (decode_attention_plain,
+                                                      split_of)
+    window = min(window, slots)
+    h, kv, hd, g, b = 16, 1, 256, 2, 5
+    assert split_of(h, hd, slots, cache) is not None
+    gen = torch.Generator(device=card).manual_seed(slots + window)
+    q = torch.randn((g, b, h, hd), generator=gen, device=card).to(dtype)
+    kn = torch.randn((g, b, kv, hd), generator=gen, device=card).to(dtype)
+    vn = torch.randn((g, b, kv, hd), generator=gen, device=card).to(dtype)
+    kc = torch.randn((g, b, slots, kv, hd), generator=gen,
+                     device=card).to(cache)
+    vc = torch.randn((g, b, slots, kv, hd), generator=gen,
+                     device=card).to(cache)
+    pos = torch.tensor([0, slots, slots + 37, 3 * slots - 1, 5],
+                       device=card)
+    t = torch.arange(slots, device=card)[None]
+    p = pos[:, None]
+    sp = (p - 1 - torch.remainder(p - 1 - t, slots)) if window else \
+        torch.where(t < p, t, -1)
+    sp = torch.where(sp >= 0, sp, -1).to(torch.int32).expand(
+        g, b, slots).contiguous()
+    sp[:, 4] = -1                                    # a reset lane
+    args = [kc, vc, sp]
+    want_args = [x.clone() for x in args]
+    got = kernels.decode_attention(q, kn, vn, *args, pos, window)
+    want = decode_attention_plain(q, kn, vn, *want_args, pos, window)
+    for a, b_ in zip(args, want_args):
+        assert torch.equal(a, b_)
+    assert _same_bits(got, want)
+
+
+def test_c40_dense_mix_sums_in_f32_whatever_the_process_allows(card):
+    """ROADMAP C40: the dense mixer's einsum with TF32 allowed for the
+    process (chip_smoke's phases 13-19 allow it) sums in full f32: within
+    K f32 roundings of the float64 mix, where TF32's 10-bit products are
+    ~2^-11 off."""
+    from repro_torch.core.gossip import dense_mix
+    gen = torch.Generator(device=card).manual_seed(40)
+    omega = torch.rand((4, 4), generator=gen, device=card)
+    omega = omega / omega.sum(1, keepdim=True)
+    d = torch.randn((4, 4096), generator=gen, device=card)
+    m = torch.backends.cuda.matmul
+    saved = m.allow_tf32
+    m.allow_tf32 = True
+    try:
+        got = dense_mix(omega, {"w": d})["w"]
+    finally:
+        m.allow_tf32 = saved
+    want = omega.double() @ d.double()
+    bound = 8 * 2.0 ** -24 * (omega.abs().double() @ d.abs().double())
+    assert ((got.double() - want).abs() <= bound).all()
+    assert not m.allow_tf32 or saved
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bma_sample_matches_plain_version(card, dtype):
     """4 samples, 3 slots, V = 49,152, 152,064 (qwen2.5-14b's) and one not
-    a multiple of the 16-byte pack, with -inf and tied logits; and 64
-    slots at V = 49,152: tokens, probabilities and entropies bit for
-    bit."""
+    a multiple of the 16-byte pack, with -inf and tied logits; 64 slots at
+    V = 49,152; and 8 slots at V = 256,000 (recurrentgemma-9b's): tokens,
+    probabilities and entropies bit for bit."""
     from repro_torch import random
     from repro_torch.kernels.bma_sample import bma_sample_plain
-    for slots, vocab in ((3, 49152), (3, 152064), (3, 1031), (64, 49152)):
+    for slots, vocab in ((3, 49152), (3, 152064), (3, 1031), (64, 49152),
+                         (8, 256000)):
         gen = torch.Generator(device=card).manual_seed(vocab + slots)
         lg = torch.randn((4, slots, vocab), generator=gen, device=card) * 4
         lg[:, 1, 100:] = float("-inf")

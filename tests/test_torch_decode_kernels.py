@@ -33,9 +33,10 @@ from repro_torch import random
 from repro_torch.config import get_arch
 from repro_torch.kernels.bma_sample import (bma_sample_plain, ordered_sum,
                                             pack_of)
-from repro_torch.kernels.decode_attention import (dot_plain, segment,
+from repro_torch.kernels.decode_attention import (decode_attention_plain,
+                                                  dot_plain, segment,
                                                   softmax_sum_plain,
-                                                  weighted_plain)
+                                                  split_of, weighted_plain)
 from repro_torch.kernels.threefry import (_div, _fma, exp_plain, exp_xla,
                                           log_plain)
 from repro_torch.models import attention as pattn
@@ -224,3 +225,84 @@ def test_decode_attention_matches_the_reference(dtype):
         jnp.asarray(sp).at[pos].set(pos), x).astype(jnp.float32))
     rel = np.abs(got[0].float().numpy() - want).max() / np.abs(want).max()
     assert rel <= (F32_TOL if dtype == "float32" else BF16_TOL)
+
+
+def test_split_form_is_where_one_cta_cannot_hold_the_cache():
+    """``split_of``: the one-CTA form for every shape it took before
+    (smollm's 3 heads of 64 at 128 and 256 slots, 12 heads of 128, r = 16
+    of 256 in bf16 up to 288 slots), the split form for recurrentgemma-9b's
+    ring (16 heads of 256 over 2,048 slots: 16 CTAs of 128 slots) and for
+    any f32 row of 256 (64 segments of 16 bytes, two a thread)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    for r, hd, slots, dt in ((3, 64, 128, bf), (3, 64, 256, f32),
+                             (12, 128, 256, bf), (12, 128, 256, f32),
+                             (16, 256, 288, bf), (1, 64, 448, bf)):
+        assert split_of(r, hd, slots, dt) is None
+    assert split_of(16, 256, 2048, bf) == (16, 128)
+    assert split_of(16, 256, 2048, f32) == (16, 128)
+    assert split_of(16, 256, 32, f32) == (1, 32)
+    assert split_of(16, 256, 300, bf) == (4, 75)
+    assert segment(256, f32) == (8, 32) and segment(256, bf) == (8, 32)
+    assert segment(128, f32) == (4, 32)
+
+
+@pytest.mark.parametrize("ts", [75, 128])
+def test_split_sums_are_the_tiles_in_rank_order(ts):
+    """The split form's softmax and P·V sums: each tile's in the one-CTA
+    order, then added in rank order from the first; one tile is the
+    one-CTA form's sum bit for bit; and each is within ``n · 2^-24 ·
+    Σ|terms|`` of the float64 sum."""
+    gen = torch.Generator().manual_seed(ts)
+    slots, r, hd = 300, 4, 256
+    ex = torch.rand((2, r, slots), generator=gen)
+    vf = torch.randn((2, slots, hd), generator=gen)
+    tot = softmax_sum_plain(ex, ts)
+    parts = [softmax_sum_plain(ex[..., i:i + ts]) for i in range(0, slots, ts)]
+    want = parts[0]
+    for p_ in parts[1:]:
+        want = want + p_
+    assert torch.equal(tot, want)
+    assert torch.equal(softmax_sum_plain(ex, slots), softmax_sum_plain(ex))
+    assert ((tot.double() - ex.double().sum(-1)).abs()
+            <= slots * EPS * ex.double().sum(-1)).all()
+    probs = ex / tot[..., None]
+    out = weighted_plain(probs, vf, 32, ts)
+    terms = probs.double()[..., :, :, None] * vf.double()[..., None, :, :]
+    assert ((out.double() - terms.sum(-2)).abs()
+            <= slots * EPS * terms.abs().sum(-2)).all()
+    assert torch.equal(weighted_plain(probs, vf, 32, slots),
+                       weighted_plain(probs, vf, 32))
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_version_takes_recurrentgemmas_ring(cache_dtype, dtype):
+    """The plain version (the split form's order) at recurrentgemma-9b's
+    local-attention shape, 16 heads of 256 over one KV head and a ring of
+    2,048 slots, 2 lanes past the ring's end (positions 2,100 and 4,095,
+    every slot written, the oldest overwritten): its output against the
+    float64 attention over the same caches and the same rounded scores,
+    within f32 summation error (f32: 1e-5 of the largest) or bf16's
+    rounding of the probabilities and output (3e-2)."""
+    g, b, h, hd, slots, window = 1, 2, 16, 256, 2048, 2048
+    gen = torch.Generator().manual_seed(7)
+    q = torch.randn((g, b, h, hd), generator=gen).to(dtype)
+    kn = torch.randn((g, b, 1, hd), generator=gen).to(dtype)
+    vn = torch.randn((g, b, 1, hd), generator=gen).to(dtype)
+    kc = torch.randn((g, b, slots, 1, hd), generator=gen).to(cache_dtype)
+    vc = torch.randn((g, b, slots, 1, hd), generator=gen).to(cache_dtype)
+    pos = torch.tensor([2100, 4095])
+    t = torch.arange(slots)[None]
+    sp = (pos[:, None] - 1 - torch.remainder(pos[:, None] - 1 - t, slots))
+    sp = sp.to(torch.int32)[None].contiguous()
+    out = decode_attention_plain(q, kn, vn, kc, vc, sp, pos, window)
+    assert sp[0, 0, 2100 % slots] == 2100 and sp[0, 1, 4095 % slots] == 4095
+    kd = kc.to(dtype).double()[0, :, :, 0]          # (b, slots, hd)
+    vd = vc.to(dtype).double()[0, :, :, 0]
+    s = torch.einsum("bhk,btk->bht", q[0].double(), kd) / hd ** 0.5
+    valid = (sp[0] >= 0) & (sp[0].long() <= pos[:, None]) & \
+        (sp[0].long() > pos[:, None] - window)
+    s = s.masked_fill(~valid[:, None], -1e30)
+    want = torch.einsum("bht,btk->bhk", torch.softmax(s, -1), vd)
+    rel = float((out[0].double() - want).abs().max() / want.abs().max())
+    assert rel <= (F32_TOL if dtype == torch.float32 else BF16_TOL)

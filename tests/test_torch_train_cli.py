@@ -115,8 +115,8 @@ def test_cli_snapshots_are_served(tmp_path, capsys):
 def test_unported_flags_exit_naming_their_item(flags, item, capsys,
                                                monkeypatch):
     """The flags of a path the port does not run yet exit naming its
-    ROADMAP item (A10, and A12 for the LM families not ported yet: the
-    dense LMs train since A12 part 2). The transport's (A8), the participation
+    ROADMAP item (A10; the LM archs of A12 train since it was ported, and
+    with ``--mesh 2`` they exit naming A10). The transport's (A8), the participation
     model's (A7) and the drift's (A9) flags run since those items were
     ported: one round, whose header, link, drift and accounting lines
     equal the reference CLI's."""
@@ -134,6 +134,9 @@ def test_unported_flags_exit_naming_their_item(flags, item, capsys,
         assert any(ln.startswith("round    1 loss=") for ln in got)
         return
     if flags[0] == "--arch":
-        argv = argv[2:]
+        # the archs of A12 train since it was ported: what is refused
+        # them is A10's mesh
+        argv = argv[2:] + ["--mesh", "2"]
+        item = "A10"
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         port_train.main(argv + flags)

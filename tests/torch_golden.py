@@ -20,6 +20,10 @@ PyTorch port's tests and for ``chip_smoke.py``, which reads them on the card.
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py lm-families
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py vlm-full
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py moe-full
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py recurrent-families
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py hybrid-full
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py ssm-full
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden.py audio
 
 ``threefry`` writes ``tests/golden/threefry_draws.npz``: ``jax.random``'s
 keys, bits, uniforms, normals, truncated normals and randints for the cases
@@ -152,6 +156,18 @@ bank at full ``lenet-radar`` width (:data:`SERVE_CONFIG`: the inits from
 requests (``make_dataset(requests, seed=seed + 7)``), beside the
 configuration as JSON under ``config``. A CPU test holds the port to it
 within rtol 1e-5, ``chip_smoke.py`` the card within rtol 1e-4.
+
+``recurrent-families``, ``hybrid-full``, ``ssm-full`` and ``audio`` write
+the records of ``chip_smoke.py``'s phases 17–19 (ROADMAP A12 parts 5–7):
+the reduced rounds and decode of recurrentgemma-9b, xlstm-1.3b and
+whisper-tiny (``lm_families_recurrent.json``, as ``lm-families``);
+recurrentgemma's one full-width ``(rec, rec, local_attn)`` group in f32,
+its init drawn in row blocks (:func:`lean_init`), forward and the
+reference engine's run (``hybrid_recurrentgemma_9b.json``; 41 GB peak);
+xlstm at full width and depth, its init and forward
+(``ssm_xlstm_1_3b.json``); whisper at full width, its init, wire bytes,
+NLL on frames, encoder output and the reference engine's run against
+zero encoder output (``audio_whisper_tiny.json``, ROADMAP C37).
 
 :func:`boundary_blocks` is not a record of the reference but test data
 shared the same way: one-block leaves at the edge of the top_k-order
@@ -1223,21 +1239,28 @@ def family_cfg(get_arch, moe_cls, arch: str, impl, dtype: str):
 def family_pools(cfg, markov_tokens, nodes: int, pool: int, seq: int,
                  seed: int = 0) -> list:
     """Each node's pool: markov tokens, and for the vlm family numpy
-    normal patches ``(pool, P, D)`` from ``default_rng(seed + 100 + k)``."""
+    normal patches ``(pool, P, D)`` from ``default_rng(seed + 100 + k)``,
+    for the audio family frames ``(pool, S_enc, D)`` from
+    ``default_rng(seed + 200 + k)``."""
     pools = lm_pools(markov_tokens, nodes, pool, seq, cfg.vocab_size, seed)
-    if cfg.family == "vlm":
-        for k, p in enumerate(pools):
+    for k, p in enumerate(pools):
+        if cfg.family == "vlm":
             p["patches"] = np.random.default_rng(seed + 100 + k) \
                 .standard_normal((pool, cfg.num_image_patches,
+                                  cfg.d_model)).astype(np.float32)
+        if cfg.family == "audio":
+            p["frames"] = np.random.default_rng(seed + 200 + k) \
+                .standard_normal((pool, cfg.encoder_seq_len,
                                   cfg.d_model)).astype(np.float32)
     return pools
 
 
-def write_lm_families() -> None:
-    """Each run of :data:`LM_FAMILY_RUNS`: its rounds' losses (K, L),
-    consensus and wire bytes, θ after them (:func:`tree_record`) and v's
-    nonzero count a leaf; for
-    the MoE archs the reference's engine's tokens and entropies."""
+def write_lm_families(runs=None, path=None, command="lm-families") -> None:
+    """Each run of ``runs`` (:data:`LM_FAMILY_RUNS`): its rounds' losses
+    (K, L), consensus and wire bytes, θ after them (:func:`tree_record`)
+    and v's nonzero count a leaf; for every family but the vlm the
+    reference's engine's tokens and entropies (the MoE archs with
+    ``impl="gshard"``)."""
     import jax
     import jax.numpy as jnp
     from repro.config import FedConfig, MoEConfig, ServeConfig, get_arch
@@ -1245,11 +1268,14 @@ def write_lm_families() -> None:
     from repro.models import get_model
     from repro.serve import DecodeEngine, ServeRequest
     from repro.train import FedTrainer
+    runs = LM_FAMILY_RUNS if runs is None else runs
+    path = LM_FAMILIES_FILE if path is None else path
     c, d = LM_FAMILY_CONFIG, LM_FAMILY_DECODE
     out = {"command": "JAX_PLATFORMS=cpu PYTHONPATH=src python "
-                      "tests/torch_golden.py lm-families",
+                      f"tests/torch_golden.py {command}",
            "config": c, "decode": d, "runs": {}}
-    for name, run in LM_FAMILY_RUNS.items():
+    for name, run in runs.items():
+        t0 = time.time()
         cfg = family_cfg(get_arch, MoEConfig, run["arch"], run["impl"],
                          c["dtype"])
         fed = FedConfig(rounds=c["rounds"], **c["fed"])
@@ -1276,8 +1302,9 @@ def write_lm_families() -> None:
                    "/".join(str(getattr(k, "key", k)) for k in path):
                    int(np.count_nonzero(np.asarray(x))) for path, x in
                    jax.tree_util.tree_leaves_with_path(trainer.state.v)}}
-        if cfg.family == "moe":
-            dcfg = family_cfg(get_arch, MoEConfig, run["arch"], "gshard",
+        if cfg.family != "vlm":
+            dcfg = family_cfg(get_arch, MoEConfig, run["arch"],
+                              "gshard" if cfg.family == "moe" else None,
                               c["dtype"])
             model = get_model(dcfg)
             key = jax.random.PRNGKey(0)
@@ -1293,9 +1320,27 @@ def write_lm_families() -> None:
                               "entropy": [float(x) for x in r.token_entropy]}
                              for r in resps]
         out["runs"][name] = rec
-        print(f"{name}: loss {losses}, bytes {rec['wire_bytes']}", flush=True)
-    LM_FAMILIES_FILE.write_text(json.dumps(out, indent=1) + "\n")
-    print(f"wrote {LM_FAMILIES_FILE}")
+        print(f"{name}: loss {losses}, bytes {rec['wire_bytes']} in "
+              f"{time.time() - t0:.1f} s", flush=True)
+    path.write_text(json.dumps(out, indent=1) + "\n")
+    print(f"wrote {path}")
+
+
+# chip_smoke.py's phases 17-19 at reduced width: recurrentgemma-9b (RG-LRU
+# and a local-attention ring), xlstm-1.3b (mlstm_ratio 1) and whisper-tiny
+# (on pools with frames) under LM_FAMILY_CONFIG, and the reference's
+# DecodeEngine on each (whisper against zero encoder output, ROADMAP C37)
+RECURRENT_FAMILIES_FILE = GOLDEN / "lm_families_recurrent.json"
+RECURRENT_FAMILY_RUNS = {
+    "recurrentgemma": dict(arch="recurrentgemma-9b", impl=None),
+    "xlstm": dict(arch="xlstm-1.3b", impl=None),
+    "whisper": dict(arch="whisper-tiny", impl=None),
+}
+
+
+def write_recurrent_families() -> None:
+    write_lm_families(RECURRENT_FAMILY_RUNS, RECURRENT_FAMILIES_FILE,
+                      "recurrent-families")
 
 
 # chip_smoke.py's phase-15 record of llava-next at full width, cut to the
@@ -1429,11 +1474,12 @@ def chunked_dense_init(chunk: int = 1 << 26):
 
 def lean_init(model, key, chunk: int = 1 << 26):
     """``model.init(key)`` of a transformer whose large leaves come from
-    ``dense_init`` (the moe and mla blocks', the head's), with
+    ``dense_init`` (every block's, the head's), with
     :func:`chunked_dense_init` in its place: the leaves are numpy arrays
     (those the init transposes or reshapes, views)."""
-    from repro.models import mla, moe, transformer
-    mods = (moe, mla, transformer)
+    from repro.models import (attention, layers, mla, moe, rglru,
+                              transformer, xlstm)
+    mods = (moe, mla, transformer, attention, layers, rglru, xlstm)
     saved = [m.dense_init for m in mods]
     for m in mods:
         m.dense_init = chunked_dense_init(chunk)
@@ -1486,18 +1532,10 @@ def write_moe_full() -> None:
     print(f"init in {time.time() - t0:.1f} s", flush=True)
     params = jax.tree.map(jax_leaf, host)
     tokens = markov_tokens(1, c["seq"], cfg.vocab_size, seed=c["seed"])
-    batch = {"tokens": jax.numpy.asarray(tokens)}
-    lg = np.asarray(jax.jit(model.logits)(params, batch))[0]
-    order = np.argsort(-lg, axis=-1, kind="stable")[:, :c["top"]]
-    _, parts = jax.jit(model.loss)(params, batch)
-    rec["forward"] = {"tokens": tokens[0].tolist(),
-                      "top_idx": order.tolist(),
-                      "top_logits": np.take_along_axis(lg, order, -1).tolist(),
-                      "absmax": float(np.abs(lg).max()),
-                      "nll": float(parts["nll"]), "aux": float(parts["aux"])}
+    rec["forward"] = forward_record(model, params, tokens, c["top"])
     print(f"forward: nll {rec['forward']['nll']}, aux {rec['forward']['aux']}"
           f" at {time.time() - t0:.1f} s", flush=True)
-    del params, lg
+    del params
     m = cfg.moe
     dmodel = get_model(cfg.replace(moe=MoEConfig(
         m.num_experts, m.num_shared_experts, m.top_k, m.aux_loss_weight,
@@ -1510,6 +1548,165 @@ def write_moe_full() -> None:
           flush=True)
     MOE_FULL_FILE.write_text(json.dumps(rec, indent=1) + "\n")
     print(f"wrote {MOE_FULL_FILE} in {time.time() - t0:.1f} s")
+
+
+def forward_record(model, params, tokens, top: int) -> dict:
+    """The reference's f32 forward of one sequence (``tokens`` ``(1, S)``):
+    each position's ``top`` largest logits, the largest |logit|, the NLL
+    and, where the model has one (the MoE archs), the aux term."""
+    import jax
+    import jax.numpy as jnp
+    batch = {"tokens": jnp.asarray(tokens)}
+    lg = np.asarray(jax.jit(model.logits)(params, batch))[0]
+    order = np.argsort(-lg, axis=-1, kind="stable")[:, :top]
+    _, parts = jax.jit(model.loss)(params, batch)
+    rec = {"tokens": tokens[0].tolist(), "top_idx": order.tolist(),
+           "top_logits": np.take_along_axis(lg, order, -1).tolist(),
+           "absmax": float(np.abs(lg).max()), "nll": float(parts["nll"])}
+    if float(parts.get("aux", 0.0)):
+        rec["aux"] = float(parts["aux"])
+    return rec
+
+
+# chip_smoke.py's phase-17 (b) record of recurrentgemma-9b at full width,
+# cut to one (rec, rec, local_attn) group (2.75 B parameters, 11.0 GB in
+# f32): the init of bank sample 0 (fold_in(PRNGKey(0), 0)), drawn in row
+# blocks (lean_init), each leaf's record; the f32 forward of one markov
+# sequence (forward_record); and the reference DecodeEngine's run
+# (reference_decode) on a bank of that one sample. Each cut of the serving
+# CLI's decode defaults is listed under ``cuts``.
+HYBRID_FULL_FILE = GOLDEN / "hybrid_recurrentgemma_9b.json"
+HYBRID_FULL_CONFIG = dict(
+    arch="recurrentgemma-9b", num_layers=3, dtype="float32", seed=0,
+    seq=16, top=8, decode=dict(samples=1, slots=8, max_len=16,
+                               max_new_tokens=6, requests=16, seed=0, top=8),
+    cuts={"num_layers": "38 -> 3 (one (rec, rec, local_attn) group)",
+          "samples": "4 -> 1", "max_len": "128 -> 16",
+          "max_new_tokens": "16 -> 6"})
+
+
+def write_hybrid_full() -> None:
+    import jax
+    from repro.config import get_arch
+    from repro.data.synthetic_lm import markov_tokens
+    from repro.models import get_model
+    c, d = HYBRID_FULL_CONFIG, HYBRID_FULL_CONFIG["decode"]
+    cfg = get_arch(c["arch"]).config.replace(num_layers=c["num_layers"],
+                                             dtype=c["dtype"])
+    t0 = time.time()
+    model = get_model(cfg)
+    host = lean_init(model, jax.random.fold_in(
+        jax.random.PRNGKey(c["seed"]), 0))
+    leaves, tdef = jax.tree_util.tree_flatten(host)
+    del host
+    for i in range(len(leaves)):
+        leaves[i] = contiguous(leaves[i])
+    host = jax.tree_util.tree_unflatten(tdef, leaves)
+    del leaves
+    rec = {"command": "JAX_PLATFORMS=cpu PYTHONPATH=src python "
+                      "tests/torch_golden.py hybrid-full",
+           "config": c, "init": tree_record(host)}
+    print(f"init in {time.time() - t0:.1f} s", flush=True)
+    params = jax.tree.map(jax_leaf, host)
+    tokens = markov_tokens(1, c["seq"], cfg.vocab_size, seed=c["seed"])
+    rec["forward"] = forward_record(model, params, tokens, c["top"])
+    print(f"forward: nll {rec['forward']['nll']} at {time.time() - t0:.1f} s",
+          flush=True)
+    del params
+    stacked = jax.tree.map(lambda x: jax_leaf(x, lead=True), host)
+    rec["decode"] = reference_decode(model, stacked, d)
+    print(f"decode: smallest margin "
+          f"{min(min(x) for x in rec['decode']['margins']):.3g}, first "
+          f"tokens {rec['decode']['tokens'][0]} at {time.time() - t0:.1f} s",
+          flush=True)
+    HYBRID_FULL_FILE.write_text(json.dumps(rec, indent=1) + "\n")
+    print(f"wrote {HYBRID_FULL_FILE} in {time.time() - t0:.1f} s")
+
+
+# chip_smoke.py's phase-18 (b) record of xlstm-1.3b at full width and full
+# depth (1.24 B parameters, 4.96 GB in f32): the init of bank sample 0
+# (fold_in(PRNGKey(seed), 0)), each leaf's record, and the f32 forward of
+# one markov sequence
+SSM_FULL_FILE = GOLDEN / "ssm_xlstm_1_3b.json"
+SSM_FULL_CONFIG = dict(arch="xlstm-1.3b", dtype="float32", seed=0, seq=16,
+                       top=8)
+
+
+def write_ssm_full() -> None:
+    import jax
+    from repro.config import get_arch
+    from repro.data.synthetic_lm import markov_tokens
+    from repro.models import get_model
+    c = SSM_FULL_CONFIG
+    cfg = get_arch(c["arch"]).config.replace(dtype=c["dtype"])
+    t0 = time.time()
+    model = get_model(cfg)
+    params = model.init(jax.random.fold_in(jax.random.PRNGKey(c["seed"]), 0))
+    rec = {"command": "JAX_PLATFORMS=cpu PYTHONPATH=src python "
+                      "tests/torch_golden.py ssm-full",
+           "config": c, "init": tree_record(jax.tree.map(np.asarray,
+                                                         params))}
+    print(f"init in {time.time() - t0:.1f} s", flush=True)
+    tokens = markov_tokens(1, c["seq"], cfg.vocab_size, seed=c["seed"])
+    rec["forward"] = forward_record(model, params, tokens, c["top"])
+    print(f"forward: nll {rec['forward']['nll']} at {time.time() - t0:.1f} s",
+          flush=True)
+    SSM_FULL_FILE.write_text(json.dumps(rec, indent=1) + "\n")
+    print(f"wrote {SSM_FULL_FILE} in {time.time() - t0:.1f} s")
+
+
+# chip_smoke.py's phase-19 record of whisper-tiny at full width and depth:
+# the init of PRNGKey(seed), each leaf's record; the wire bytes a node a
+# round under the default codec; each node's NLL of its first sequence
+# (``seq`` tokens, 1,500 frames; family_pools); the encoder's output on
+# node 0's first frames (prefill_encoder); and the reference DecodeEngine's
+# run on a bank of ``samples`` inits from fold_in(PRNGKey(0), i), against
+# the zero encoder output of init_decode_state (ROADMAP C37)
+AUDIO_FILE = GOLDEN / "audio_whisper_tiny.json"
+AUDIO_CONFIG = dict(arch="whisper-tiny", dtype="float32", seed=0, nodes=2,
+                    seq=32, pool=2,
+                    fed=dict(num_nodes=2, compressor="block_topk",
+                             compress_ratio=0.01),
+                    decode=dict(samples=2, slots=8, max_len=32,
+                                max_new_tokens=8, requests=16, seed=0,
+                                top=8))
+
+
+def write_audio() -> None:
+    import jax
+    import jax.numpy as jnp
+    from repro.config import FedConfig, get_arch
+    from repro.core import make_compressor
+    from repro.data.synthetic_lm import markov_tokens
+    from repro.models import get_model
+    c, d = AUDIO_CONFIG, AUDIO_CONFIG["decode"]
+    cfg = get_arch(c["arch"]).config.replace(dtype=c["dtype"])
+    t0 = time.time()
+    model = get_model(cfg)
+    params = model.init(jax.random.PRNGKey(c["seed"]))
+    pools = family_pools(cfg, markov_tokens, c["nodes"], c["pool"], c["seq"],
+                         c["seed"])
+    loss = jax.jit(lambda p, b: model.loss(p, b)[0])
+    first = [{k: jnp.asarray(v[:1]) for k, v in p.items()} for p in pools]
+    cache = model.prefill_encoder(params, model.init_decode_state(
+        1, 8, jnp.float32), first[0]["frames"])
+    rec = {"command": "JAX_PLATFORMS=cpu PYTHONPATH=src python "
+                      "tests/torch_golden.py audio",
+           "config": c, "init": tree_record(jax.tree.map(np.asarray, params)),
+           "wire_bytes": float(make_compressor(FedConfig(**c["fed"]))
+                               .wire_bytes(params)),
+           "nll": [float(loss(params, b)) for b in first],
+           "enc_out": leaf_record(np.asarray(cache["enc_out"]))}
+    print(f"init, nll {rec['nll']} at {time.time() - t0:.1f} s", flush=True)
+    key = jax.random.PRNGKey(0)
+    bank = jax.tree.map(lambda *xs: jnp.stack(xs), *[
+        model.init(jax.random.fold_in(key, i)) for i in range(d["samples"])])
+    rec["decode"] = reference_decode(model, bank, d)
+    print(f"decode: smallest margin "
+          f"{min(min(x) for x in rec['decode']['margins']):.3g} at "
+          f"{time.time() - t0:.1f} s", flush=True)
+    AUDIO_FILE.write_text(json.dumps(rec, indent=1) + "\n")
+    print(f"wrote {AUDIO_FILE} in {time.time() - t0:.1f} s")
 
 
 def print_kv_flips(draws: int = 200) -> None:
@@ -1593,4 +1790,8 @@ if __name__ == "__main__":
          "kv-flips": print_kv_flips,
          "lm-families": write_lm_families,
          "vlm-full": write_vlm_full,
-         "moe-full": write_moe_full}[name]()
+         "moe-full": write_moe_full,
+         "recurrent-families": write_recurrent_families,
+         "hybrid-full": write_hybrid_full,
+         "ssm-full": write_ssm_full,
+         "audio": write_audio}[name]()
