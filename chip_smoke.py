@@ -414,6 +414,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -468,7 +469,8 @@ from repro_torch.kernels.threefry import (BITS, GUMBEL,  # noqa: E402
 from repro_torch.kernels.bma_sample import (CLUSTER,  # noqa: E402
                                             bma_sample, bma_sample_plain)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention, decode_attention_plain)
+    SPLIT_CLOCKS, decode_attention, decode_attention_clocks,
+    decode_attention_plain, split_clusters, split_of)
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
@@ -4252,6 +4254,12 @@ DECODE_WIDE_ARCHS = ("yi-9b", "mistral-large-123b", "grok-1-314b")
 # phases 17 and 19's decode shapes that phase 2 also holds: the bank's
 # samples of recurrentgemma-9b's engine, whisper-tiny's cache length
 RG_M, AUDIO_MAX_LEN = 2, 32
+# the split form at narrower heads, each a little past the slots one CTA
+# holds in a bf16 cache: (heads, KV heads, head dim, slots, whose heads)
+SPLIT_NARROW = ((32, 4, 128, 4100, "yi-9b's"),
+                (96, 8, 128, 2400, "mistral-large-123b's"),
+                (8, 1, 64, 5700, ""), (12, 1, 64, 3600, ""),
+                (9, 3, 64, 12000, "smollm's"), (16, 1, 32, 3100, ""))
 # f32 operations: an element of each of the decode attention's two dot
 # products (a multiply and an add); an element of the sampler: a sample's
 # scale, subtraction, XLA's exp (EXP_OPS), division and add, then the
@@ -4354,9 +4362,11 @@ def check_decode_attention() -> float:
     (yi-9b's and mistral-large-123b's heads) and of 6 (grok-1's) over 32
     lanes, and grok-1's as phase 16 (c) launches them (M=1, 4 lanes, 32
     slots); recurrentgemma-9b's ring of 2,048 slots under 16 heads of 256
-    (the split form) with bf16 and f32 caches, positions aligned and
-    wrapped past 2,048, and whisper-tiny's 6 heads of 64. Returns the
-    largest absolute error (0)."""
+    (the split form) with bf16 and f32 caches, positions at its tiles'
+    edges, aligned and wrapped past 2,048; the split form at narrower heads
+    (SPLIT_NARROW: 8 and 12 heads of 128 and of 64, smollm's 3 of 64, 16 of
+    32) past the slots one CTA holds; and whisper-tiny's 6 heads of 64.
+    Returns the largest absolute error (0)."""
     cfg = decode_model_cfg()
     err = 0.0
     cases = []
@@ -4390,20 +4400,39 @@ def check_decode_attention() -> float:
                       f"{FAMILY_MAX_LEN} slots {dtype}", attention_case(
                           grok, GROK_SLOTS, dtype, [0, 1, 5, 31], seed=6,
                           slots=FAMILY_MAX_LEN, m=1)))
-    # recurrentgemma-9b's local attention (the split form: 16 CTAs of 128
-    # slots a lane): 16 heads of 256 over one KV head in a ring of 2,048,
-    # bf16 and f32 caches (f32 rows: 64 segments, two a thread), positions
-    # aligned, before the ring fills and past it (wrapped)
+    # recurrentgemma-9b's local attention (the split form: a cluster of 8
+    # CTAs of 256 slots a lane): 16 heads of 256 over one KV head in a ring
+    # of 2,048, bf16 and f32 caches, positions at the tiles' edges before
+    # the ring fills, at its size, one past it (the new row at slot 1), on
+    # a tile edge inside the wrapped ring, mid-tile in it (slot 952) and
+    # far past it
     rg = get_arch("recurrentgemma-9b").config
-    rg_pos = [0, 5, 2047, 2048, 2049, 3000, 4095, 6143]
+    rg_pos = [0, 255, 256, 257, 2048, 2049, 2304, 3000, 4095, 6143]
     for cache in (torch.bfloat16, torch.float32):
         for dtype in (torch.bfloat16, torch.float32):
             cases.append((f"recurrentgemma-9b: 16 heads of 256, ring of "
-                          f"{rg.local_attn_window}, {RG_M}x8 lanes {dtype}, "
-                          f"{cache} cache", attention_case(
-                              rg, 8, dtype, rg_pos,
+                          f"{rg.local_attn_window}, {RG_M}x{len(rg_pos)} "
+                          f"lanes {dtype}, {cache} cache", attention_case(
+                              rg, len(rg_pos), dtype, rg_pos,
                               window=rg.local_attn_window, seed=11, reset=1,
                               m=RG_M, cache_dtype=cache)))
+    # the split form at narrower heads (SPLIT_NARROW: other thread maps of
+    # its K stages and P.V), full caches past what one CTA holds, positions
+    # at the tiles' edges, at the cache's end and past it
+    for h, kv, hd, slots, whose in SPLIT_NARROW:
+        shape = types.SimpleNamespace(num_heads=h, num_kv_heads=kv,
+                                      resolved_head_dim=hd)
+        ts = -(-slots // 8)
+        for cache in (torch.bfloat16, torch.float32):
+            for dtype in (torch.bfloat16, torch.float32):
+                cases.append((
+                    f"split form, {whose or 'synthetic'} {h} heads of {hd} "
+                    f"over {kv}, {slots} slots, {RG_M}x6 lanes {dtype}, "
+                    f"{cache} cache", attention_case(
+                        shape, 6, dtype,
+                        [0, ts - 1, ts, ts + 1, slots - 1, slots + 7],
+                        seed=hd + h, reset=1, slots=slots, m=RG_M,
+                        cache_dtype=cache)))
     # whisper-tiny's decoder self-attention: 6 heads of 64, a full cache
     wh = get_arch("whisper-tiny").config
     for dtype in (torch.bfloat16, torch.float32):
@@ -4520,42 +4549,117 @@ def sdpa_yardstick(q, kc, vc, sp, pos):
         qq, kk, vv, attn_mask=mask, enable_gqa=True)
 
 
+def max_sm_mhz() -> float:
+    """The card's highest SM clock (nvidia-smi), to read clock64 cycles."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def log_split_clocks(c, lanes: int) -> None:
+    """The split form's clocks (decode_attention_clocks): its first
+    CTA's phases and waits by clock64, then every CTA's time from its start
+    to its last barrier by globaltimer, apart for the CTAs alone on their
+    SM and those that share one."""
+    mhz = max_sm_mhz()
+    phases = [(name, c[k + 1] - c[k]) for k, name in enumerate(
+        ("loads (first K stage landed)", "scores", "maxima exchanged",
+         "the CTA's sums", "sums exchanged", "probabilities", "P.V",
+         "rank sums"))]
+    waits = list(zip(("stages in the scores", "stages in P.V",
+                      "the cluster after the maxima",
+                      "the cluster after the sums"), c[9:SPLIT_CLOCKS]))
+    log("kernels", f"decode_attention's split form, one CTA's phases at "
+                   f"{lanes} lanes (clock64 of thread 0 of the first CTA, "
+                   f"cycles and us at the max SM clock {mhz:.0f} MHz; "
+                   f"{card_line()}): " + "; ".join(
+                       f"{n} {v} ({v / mhz:.3f} us)" for n, v in phases)
+                   + f"; total {c[8] - c[0]} ({(c[8] - c[0]) / mhz:.3f} us);"
+                     " waiting for " + ", ".join(
+                         f"{n} {v} ({v / mhz:.3f} us)" for n, v in waits))
+    ctas = np.array(c[SPLIT_CLOCKS:], dtype=np.int64).reshape(-1, 3)
+    took = (ctas[:, 1] - ctas[:, 0]) / 1e3
+    per_sm = np.bincount(ctas[:, 2])[ctas[:, 2]]
+    shared = per_sm > 1
+
+    def spread(x):
+        return (f"{x.min():.3f} / {np.median(x):.3f} / {x.max():.3f} us"
+                if len(x) else "none")
+    log("kernels", f"decode_attention's split form at {lanes} lanes, each "
+                   f"CTA from its start to its last barrier (globaltimer; min"
+                   f" / median / max): {spread(took)}; {int((~shared).sum())}"
+                   f" CTAs alone on their SM {spread(took[~shared])}, "
+                   f"{int(shared.sum())} sharing one {spread(took[shared])};"
+                   f" starts within {(ctas[:, 0].max() - ctas[:, 0].min()) / 1e3:.3f}"
+                   f" us, the launch's CTAs from first start to last end "
+                   f"{(ctas[:, 1].max() - ctas[:, 0].min()) / 1e3:.3f} us "
+                   f"({card_line()})")
+
+
 def time_rg_attention() -> dict:
     """decode_attention at one local-attention layer of recurrentgemma-9b's
     bf16 engine (phase 17 (d): M=2 x 8 slots, 16 heads of 256, a ring of
-    2,048 slots full, bf16 caches; the split form): device ms beside its
-    bound (the K and V rows it reads, at HBM rate), its plain version's
-    event-timed ms and SDPA over the same lanes and mask."""
+    2,048 slots full, bf16 caches; the split form): traced device ms beside
+    its bound (the K and V rows it reads, at HBM rate), its plain version's
+    event-timed ms, SDPA over the same lanes and mask, and how many of its
+    clusters the card runs at once (cudaOccupancyMaxActiveClusters), held
+    bit for bit to its plain version; the same at 128 lanes (M=2 x 64
+    slots: many waves); and one CTA's phases by clock64."""
     rg = get_arch("recurrentgemma-9b").config
     w = rg.local_attn_window
-    q, kn, vn, kc, vc, sp, posv, _ = attention_case(
-        rg, 8, torch.bfloat16, [w + 37 * i for i in range(8)], window=w,
-        seed=14, m=RG_M)
-    lanes = RG_M * 8
-    slots, kv, hd, h = kc.shape[2], kc.shape[3], kc.shape[4], q.shape[2]
-    nbytes = (2 * lanes * slots * kv * hd * 2 + 2 * lanes * h * hd * 2
-              + 2 * lanes * kv * hd * 2 + lanes * slots * 4 + 8 * 8)
-    ops = ATTN_OPS * lanes * h * slots * hd
-    b_ms, b_by = bound(nbytes, ops)
-    kern = lambda: decode_attention(q, kn, vn, kc, vc, sp, posv, w)  # noqa
-    plain = lambda: decode_attention_plain(q, kn, vn, kc, vc, sp,  # noqa
-                                           posv, w)
-    lib = sdpa_yardstick(q, kc, vc, sp, posv)
-    # the plain version's thousands of small launches make its trace
-    # slow to read (~45 s): it is timed by CUDA events, host gaps included
-    r = dict(ms=device_ms(kern), device_ms=traced_ms([kern]),
-             plain_ms=device_ms(plain, reps=1, per_rep=1),
-             library_ms=traced_ms([lib]),
-             bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, ops=ops)
-    log("kernels", f"decode_attention, one local-attention layer of "
-                   f"recurrentgemma-9b's bf16 step ({lanes} lanes x {slots}"
-                   f" slots, 16 heads of 256, split form; {card_line()}): "
-                   f"device {fmt_ms(r['device_ms'], 5)}, event-timed "
-                   f"{r['ms']:.5f} ms; plain: event-timed "
-                   f"{r['plain_ms']:.4f} ms; SDPA (library): "
-                   f"{fmt_ms(r['library_ms'], 5)}; bound {b_ms:.6f} ms "
-                   f"({b_by}: {nbytes} B, {ops} ops)")
-    return r
+    out = {}
+    for b in (8, 64):
+        q, kn, vn, kc, vc, sp, posv, _ = attention_case(
+            rg, b, torch.bfloat16, [w + 37 * i for i in range(b)],
+            window=w, seed=14, m=RG_M)
+        lanes = RG_M * b
+        slots, kv, hd, h = kc.shape[2], kc.shape[3], kc.shape[4], q.shape[2]
+        nbytes = (2 * lanes * slots * kv * hd * 2 + 2 * lanes * h * hd * 2
+                  + 2 * lanes * kv * hd * 2 + lanes * slots * 4 + b * 8)
+        ops = ATTN_OPS * lanes * h * slots * hd
+        b_ms, b_by = bound(nbytes, ops)
+        kern = lambda: decode_attention(  # noqa: E731
+            q, kn, vn, kc, vc, sp, posv, w)
+        nc, ts = split_of(h // kv, hd, slots, kc.dtype)
+        active = split_clusters(lanes, h, kv, hd, slots, q.dtype, kc.dtype)
+        r = dict(ms=device_ms(kern), device_ms=traced_ms([kern]),
+                 library_ms=traced_ms([sdpa_yardstick(q, kc, vc, sp, posv)]),
+                 bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, ops=ops,
+                 clusters=active)
+        plain = ""
+        if b == 8:
+            mine = [kc.clone(), vc.clone(), sp.clone()]
+            got = decode_attention(q, kn, vn, *mine, posv, w)
+            theirs = [kc.clone(), vc.clone(), sp.clone()]
+            want = decode_attention_plain(q, kn, vn, *theirs, posv, w)
+            if not bitwise_equal(got, want) or not all(
+                    torch.equal(x, y) for x, y in zip(mine, theirs)):
+                raise AssertionError(
+                    f"decode_attention's split form, {nc} CTAs of {ts} "
+                    f"slots: differs from its plain version")
+            # the plain version's thousands of small launches make its
+            # trace slow to read: it is timed by CUDA events, host gaps
+            # included
+            r["plain_ms"] = device_ms(lambda: decode_attention_plain(
+                q, kn, vn, kc, vc, sp, posv, w), reps=1, per_rep=1)
+            plain = (f"bit for bit its plain version; plain: event-timed "
+                     f"{r['plain_ms']:.4f} ms; ")
+            for _ in range(3):
+                _, clk = decode_attention_clocks(q, kn, vn, kc, vc, sp, posv,
+                                                 w)
+            log_split_clocks(clk.tolist(), lanes)
+        log("kernels", f"decode_attention, one local-attention layer of "
+                       f"recurrentgemma-9b's bf16 step ({lanes} lanes x "
+                       f"{slots} slots, 16 heads of 256, split form: "
+                       f"clusters of {nc} CTAs of {ts} slots, {lanes * nc} "
+                       f"CTAs, {active} clusters at once; {card_line()}): "
+                       f"device {fmt_ms(r['device_ms'], 5)}, event-timed "
+                       f"{r['ms']:.5f} ms; {plain}SDPA (library): "
+                       f"{fmt_ms(r['library_ms'], 5)}; bound {b_ms:.6f} ms "
+                       f"({b_by}: {nbytes} B, {ops} ops)")
+        out[lanes] = r
+    return out[RG_M * 8]
 
 
 def time_decode_kernels() -> dict:

@@ -54,6 +54,11 @@ _SIGNATURES = {
     # the decode step's kernels (ROADMAP A12)
     "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I,
                                _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _P],
+    "repro_decode_attention_clocks": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I,
+                                      _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
+                                      _I, _P, _P],
+    "repro_decode_attention_clusters": [_L, _I, _I, _I, _I, _I, _I, _I, _I,
+                                        _P],
     "repro_bma_sample": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                          _F, _F, _I, _P],
     "repro_exp_xla": [_P, _P, _L, _P],

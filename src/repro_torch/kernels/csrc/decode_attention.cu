@@ -64,44 +64,66 @@
 //
 // The split form (decode_attention_split_kernel) takes what one CTA cannot
 // hold: recurrentgemma-9b's local-attention ring of 2,048 slots with 16
-// query heads of 256 over one KV head (the scores alone are 128 KB a head
-// group, the P.V partials of 8 warps 128 KB more), and f32 rows of 256,
-// 64 segments of 16 bytes, which a thread takes two at a time (E = 8 f32
-// elements a thread, so a row still spans one warp). One (lane, KV head)
-// is a thread block cluster of NC CTAs (a power of two, at most 16); CTA
-// q owns the slots [q TS, (q + 1) TS), TS = ceil(slots / NC), and runs the
-// one-CTA form's arithmetic over them with its own thread mapping (local
-// row t - q TS). What crosses the cluster goes through distributed shared
-// memory, in rank order:
+// query heads of 256 over one KV head, and any f32 row of 256. One (lane,
+// KV head) is a portable thread block cluster of NC CTAs (a power of two,
+// at most 8); CTA q owns the slots [q TS, (q + 1) TS), TS = ceil(slots /
+// NC), with NC the least power of two with NC 256 >= slots (split_of: a
+// function of the lane's shapes alone, so a lane's output does not depend
+// on how many lanes share the launch). Its order, which the plain version
+// follows op for op:
 //
-//   the maximum: each CTA's maximum of each head, the cluster's the
-//     maximum of those (order-free);
-//   the softmax's sum: each CTA's sum in the one-CTA order over its own
-//     rows (from +0), then the cluster's: CTA 0's sum plus CTA 1's, and so
-//     on in rank order;
-//   P.V: each CTA's sums in the one-CTA order over its rows (from +0),
-//     then CTA 0's plus CTA 1's, ... in rank order, then rounded to the
-//     compute dtype; CTA q adds and writes the q-th slice of the outputs.
+//   score: thread tid takes local rows tid, tid + 256, ... and all the
+//     group's heads at once; each head's dot product is one fma chain over
+//     d = 0, 1, ..., hd - 1 from +0 (no tree), then rounded, divided and
+//     masked as above;
+//   the maximum: each head's over the cluster (order-free);
+//   softmax: thread tid's terms exp_xla(s_t - max) over its local rows in
+//     order from +0, a halving tree over the warp's 32 lanes (xor 16, ...,
+//     1), the 8 warps' sums in index order from +0 (the CTA's sum), then
+//     the CTAs' sums in rank order from CTA 0's; p_t = round(e_t / sum);
+//   P.V: each output (head, column) one fma chain over the CTA's rows in
+//     order from +0, then CTA 0's sum plus CTA 1's, ... in rank order,
+//     rounded to the compute dtype; CTA q adds and writes the q-th slice.
 //
-// With NC = 1 that is the one-CTA form's order exactly. Each thread
-// copies its K rows (and, where shared memory holds both, its V rows) to
-// shared memory with cp.async before any arithmetic, so a CTA waits about
-// one memory latency; then, four query heads at a time held in registers
-// (laid out in shared memory so that a warp's reads of one element fall
-// in distinct banks), it dots each of its staged K rows with them; f32
-// rows stage V into K's place once the scores are done. A CTA holds 128
-// slots' rows (64 KB of bf16 K, as much V) beside 72 KB of queries,
-// scores and partial sums, one CTA an SM. What bounds it: the lanes' K
-// and V bytes, 33.5 MB a layer at 16 lanes of recurrentgemma-9b in bf16,
-// 0.0100 ms at 3.35 TB/s. Timed in a CUDA graph of 20 launches (an NVIDIA
-// H100 80GB HBM3 at 700 W): 0.163 ms at 16 lanes (SDPA 0.029); a single
-// CTA of 128 f32 slots 0.050 ms at 16 heads and 0.018 at 1. Rows outer
-// and heads inner took 0.175; all 16 heads at once 0.194; the queries in
-// row order (8-way bank conflicts) 0.285 (events around 20 eager
-// launches). What holds a CTA there is not measured apart (no ncu).
+// Design, for the SM's 128 f32 fma lanes: each dot product and each
+// weighted value is one thread's fma chain, so no warp re-reduces what a
+// thread holds, and the threads are blocked so that each value read from
+// shared memory feeds 4 fmas: a score lane takes 4 rows by 4 heads (K
+// staged in the cache dtype, the queries in f32), a P.V thread 4 heads by
+// 4 columns (the probabilities in f32, V in the cache dtype). K and V
+// stream through one ring of 16 KB stages, each one tensor copy (TMA,
+// cp.async.bulk.tensor) that one thread starts and an mbarrier a stage
+// reports landed; stage s + ns is copied once every thread has read stage
+// s, so V's first stages land while the scores run and the cluster
+// exchanges its maxima and sums, and no tile has to fit at once (an f32
+// row of 256 takes the same path). The ring is sized so that two CTAs fit
+// an SM (5 stages, 104 KB a CTA at recurrentgemma's shapes; tiles of more
+// than about 1,600 slots, where not two stages fit beside the scores,
+// take the SM alone): with one CTA an SM only 15 clusters of 8 fit the
+// card's GPCs at once, and 16 lanes' 128 CTAs took two waves. The
+// clusters are portable (at most 8 CTAs). What crosses the cluster goes
+// through distributed shared memory behind 4 cluster barriers (maxima,
+// sums, P.V sums, exit), every rank's values read at once. What bounds
+// it: the lanes' K and V bytes, 33.96 MB a layer at 16 lanes of
+// recurrentgemma-9b in bf16, 0.0101 ms at 3.35 TB/s; its 268 M fmas take
+// 0.008 ms at the card's 67 TFLOP/s f32. Measured (chip_smoke.py, an
+// NVIDIA H100 80GB HBM3 at 700.00 W): 0.0532 ms a layer at 16 lanes
+// against SDPA's 0.0269 (its predecessor, 16-CTA clusters of 128 slots
+// with a shuffle tree a score, 0.15936); in one A/B run 0.0522-0.0529
+// against 0.0549 for the same ring of cp.async copies, 16 bytes a thread;
+// a ring sized for one CTA an SM took 0.0796. The 112 CTAs alone on their
+// SM take 36.5-37.6 us, the 16 that share one 47.7-52.1, and those set
+// the layer's time; a lone CTA spends 5.4 us before its first stage
+// lands, 12.1 in the scores, 6.4 in the softmax and its two exchanges,
+// 11.6 in P.V and 1.7 in the rank sums, 5.0 of them waiting for stages:
+// its fmas run at about a third of the SM's rate. What holds them there
+// is not measured apart (no ncu).
 #include <cooperative_groups.h>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 
 #include "threefry.cuh"
@@ -564,10 +586,68 @@ int launch_tpr(const DecodeArgs& a, long long lanes, cudaStream_t stream) {
   }
 }
 
-// the split form's largest cluster, and its dynamic shared memory: the
-// card's 227 KB less the kernel's static arrays
-constexpr int kMaxCluster = 16;      // decode_attention.py: MAX_CLUSTER
-constexpr int kSplitMaxSmem = 232448 - 1280;   // SPLIT_MAX_SMEM
+// The split form (decode_attention_split_kernel): a cluster of nc CTAs a
+// (lane, KV head), CTA q over the slots [q ts, q ts + nt). Its constants;
+// decode_attention.py mirrors each. Its dynamic shared memory: half of the
+// SM's 228 KB less the 1 KB reserved a CTA, so that two CTAs share an SM,
+// or where not two stages fit there the card's 227 KB a CTA; each less the
+// kernel's static arrays (red, cmax ... grcp, peer and the stages'
+// mbarriers: 1,984 bytes), padded to the 1 KB that the ring's alignment
+// takes.
+constexpr int kMaxCluster = 8;       // MAX_CLUSTER: a portable cluster
+constexpr int kMaxStages = 16;       // MAX_STAGES: the ring's mbarriers
+constexpr int kSplitStatic =         // SPLIT_STATIC
+    (4 * (2 * kAttnWarps * kMaxGroup + 5 * kMaxGroup +
+          kMaxGroup * kMaxCluster) + 8 * kMaxStages + 1023) / 1024 * 1024;
+constexpr int kSplitMaxSmem = 232448 - kSplitStatic;   // SPLIT_MAX_SMEM
+constexpr int kSplitTwoSmem =        // SPLIT_TWO_SMEM
+    233472 / 2 - 1024 - kSplitStatic;
+constexpr int kStageBytes = 16384;   // STAGE_BYTES: a K or V stage
+constexpr int kSplitClocks = 13;     // SPLIT_CLOCKS: phase ends, waits
+
+// The split form's layout for head dim HD of the cache dtype C
+template <int HD, typename C>
+struct SplitShape {
+  static constexpr int ROWB = HD * (int)sizeof(C);      // a cache row, bytes
+  static constexpr int NCC = ROWB / 64;                 // K stages a row block
+  static constexpr int EL = 16 / (int)sizeof(C);        // elements a chunk
+  static constexpr int RV = kStageBytes / ROWB;         // rows a V stage
+  static constexpr int NCG = HD / 4;                    // P.V column groups
+  static constexpr int HO = HD / 64 < 1 ? 1 : HD / 64;  // P.V heads a thread
+  static constexpr int HOP = HO < 4 ? 4 : HO;           // probs row padding
+};
+
+// the heads padded to 4, and the probabilities' row (padded to HOP)
+__host__ __device__ inline int split_rp(int r) { return (r + 3) / 4 * 4; }
+__host__ __device__ inline int split_rps(int r, int hop) {
+  return (split_rp(r) + hop - 1) / hop * hop;
+}
+
+// the f32 queries, then in their place the f32 probabilities, and the
+// tile's scores in the compute dtype (tsize bytes): the shared memory
+// beside the ring
+__host__ __device__ inline long long split_rest(int r, int hd, int ts,
+                                                int tsize) {
+  const int hop = hd / 64 < 4 ? 4 : hd / 64;
+  const long long qp = (long long)hd * split_rp(r) >
+                               (long long)ts * split_rps(r, hop)
+                           ? (long long)hd * split_rp(r)
+                           : (long long)ts * split_rps(r, hop);
+  return 4 * qp + (long long)tsize * ts * split_rps(r, hop);
+}
+
+// the ring's stages: as many as fit beside the rest in the shared memory
+// of one of two CTAs that share an SM, or where not two fit there (tiles
+// of more than about 1,600 slots) in that of one CTA; 0 where not two fit
+// at all
+__host__ __device__ inline int split_stages(int r, int hd, int ts,
+                                            int tsize) {
+  const long long rest = split_rest(r, hd, ts, tsize);
+  const long long two = (kSplitTwoSmem - rest) / kStageBytes;
+  const long long one = (kSplitMaxSmem - rest) / kStageBytes;
+  const long long ns = two >= 2 ? two : one >= 2 ? one : 0;
+  return (int)(ns < kMaxStages ? ns : kMaxStages);
+}
 
 // the split cluster barrier (arrive releasing this thread's shared-memory
 // writes to the cluster, wait acquiring its peers')
@@ -578,279 +658,413 @@ __device__ __forceinline__ void split_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// SEG 16-byte segments of a row (a thread's E = SEG * 16 / sizeof(C)
-// elements), as f32
-template <typename C, int SEG>
-__device__ __forceinline__ void row_f32(const uint4 (&w)[SEG],
-                                        float (&f)[SEG * 16 / sizeof(C)]) {
-  constexpr int E1 = 16 / (int)sizeof(C);
+// The ring's copies: one thread arms a stage's mbarrier for its 16 KB
+// and starts one tensor copy (TMA) into it; every thread then waits on
+// the mbarrier's phase
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+// wait for the phase of this parity to complete; a copy that never lands
+// traps (an error to the host) instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (int i = 0; !done; ++i) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (i > (1 << 22)) __trap();
+  }
+}
+// the box of map at (c0, c1, c2, c3[, c4]) into shared memory at dst
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+        "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+        "r"(c2), "r"(c3), "r"(c4), "r"(bar)
+      : "memory");
+}
+
+// 16 bytes of the new row (T) at element `at`, in the cache dtype C
+template <typename T, typename C>
+__device__ __forceinline__ uint4 new_chunk(const void* src, long long at) {
+  constexpr int EL = 16 / (int)sizeof(C);
+  float f[EL];
+  load_f32<T, EL>(static_cast<const T*>(src) + at, f);
+  return pack16<C, EL>(f);
+}
+
+// N f32 values at p (aligned to 16 bytes where N is a multiple of 4)
+template <int N>
+__device__ __forceinline__ void load_n(const float* p, float (&f)[N]) {
+  if constexpr (N % 4 == 0) {
 #pragma unroll
-  for (int s = 0; s < SEG; ++s) {
-    const uint32_t u[4] = {w[s].x, w[s].y, w[s].z, w[s].w};
-    float g[E1];
-    unpack(u, g, E1, C());
+    for (int k = 0; k < N; k += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + k);
+      f[k] = v.x, f[k + 1] = v.y, f[k + 2] = v.z, f[k + 3] = v.w;
+    }
+  } else {
 #pragma unroll
-    for (int e = 0; e < E1; ++e) f[s * E1 + e] = g[e];
+    for (int k = 0; k < N; ++k) f[k] = p[k];
   }
 }
 
-// the split form's shared memory: the staged K rows (and V rows when
-// `two`, else V reuses K's), then f32 queries, scores, a head chunk's
-// warp sums, the CTA's P.V sums, and the tile's slot_pos
-__host__ __device__ inline long long split_stage(int ts, int tpr, int seg) {
-  const int rpp = kAttnThreads / tpr;
-  return (long long)((ts + rpp - 1) / rpp) * kAttnThreads * seg * 16;
+// 4 values, each exact in T, stored at p (4 * sizeof(T)-aligned)
+__device__ __forceinline__ void store4(float* p, const float (&f)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
 }
-__host__ __device__ inline long long split_rest(int rp, int hd, int ts) {
-  return 4LL * ((long long)rp * hd + (long long)rp * ts +
-                (long long)kAttnWarps * kHeadChunk * hd + (long long)rp * hd +
-                (ts + 3) / 4 * 4);
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&f)[4]) {
+  uint32_t w[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    w[k] = (__float_as_uint(f[2 * k]) >> 16) |
+           (__float_as_uint(f[2 * k + 1]) & 0xffff0000u);
+  *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
 }
 
-template <typename T, typename C, int TPR, int SEG>
-__global__ void __launch_bounds__(kAttnThreads, 1)
-decode_attention_split_kernel(const __grid_constant__ DecodeArgs a,
-                              const int nc, const int ts, const int two) {
-  constexpr int E1 = 16 / (int)sizeof(C);    // elements a segment
-  constexpr int E = SEG * E1;                // elements a thread
-  constexpr int RPP = kAttnThreads / TPR;    // row groups
-  constexpr int KH = kHeadChunk;
-  extern __shared__ uint4 dsm[];
+// Scores: lane (g, hg) = (l % 8, l / 8) of warp w takes rows rb 256 + 32
+// w + g + 8 i (i < 4) against heads 4 hg ... 4 hg + 3, each dot product
+// one fma chain over d = 0 ... hd - 1 from +0; each head's maximum of its
+// rows, a warp's, the CTA's, the cluster's (order-free). Softmax: thread
+// tid's terms exp_xla(s - max) over its local rows tid, tid + 256, ... in
+// order from +0, the warp's halving tree (xor 16, ..., 1), the 8 warps'
+// sums in order from +0 (the CTA's sum), the CTAs' sums in rank order
+// from rank 0's; p = RN_dt(e / sum) (a thread's first row's e kept, the
+// others' computed again). P.V: thread (head
+// block, column group) chains p_t v_t over the tile's rows in order from
+// +0 for HO heads by 4 columns; the CTAs' sums in rank order from rank
+// 0's, rounded to dt, CTA q adding and writing the q-th slice.
+//
+// K and V stream through one ring of ns stages of 16 KB, each one tensor
+// copy (km, vm) reported by its mbarrier: K stage (rb, cc) holds bytes
+// [64 cc, 64 cc + 64) of the row block's 256 rows (chunk c of row x at c
+// XOR (x / 2 mod 4), the map's 64-byte swizzle, so the 8 rows a warp
+// reads at once hit distinct bank groups), V stage j rows [j RV, (j + 1)
+// RV) whole; stage s + ns is copied as soon as every thread has read
+// stage s, so V's first
+// stages land while the scores run and the cluster exchanges its maxima
+// and sums. With kTimed (decode_attention_split_timed, chip_smoke.py's
+// phase clocks only) thread 0 of CTA 0 writes clk[0 .. kSplitClocks) and
+// thread 0 of every CTA its 3 stamps (repro_decode_attention_clocks).
+template <typename T, typename C, int HD, bool kTimed>
+__device__ __forceinline__ void split_body(const DecodeArgs& a, const int nc,
+                                           const int ts, const int ns,
+                                           const CUtensorMap* km,
+                                           const CUtensorMap* vm,
+                                           long long* const clk) {
+  using S = SplitShape<HD, C>;
+  constexpr int PR = S::ROWB / 16;           // 16-byte chunks a row
+  constexpr int WEL = 64 / (int)sizeof(C);   // elements a K stage's row
+  constexpr int SCH = kStageBytes / 16;      // chunks a stage
+  constexpr int TCH = SCH / kAttnThreads;    // chunks a thread writes
+  extern __shared__ __align__(1024) uint4 dsm[];
+  __shared__ unsigned long long bars[kMaxStages];      // a stage's mbarrier
   __shared__ float red[2][kAttnWarps * kMaxGroup];
   __shared__ float cmax[kMaxGroup], csum[kMaxGroup];   // read by the peers
   __shared__ float gmax[kMaxGroup], gsum[kMaxGroup];   // the cluster's
+  __shared__ float grcp[kMaxGroup];                    // RN(1 / gsum)
+  __shared__ float peer[kMaxGroup * kMaxCluster];      // the ranks' values
   cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, warp = tid / 32, ln = tid % 32;
+  const bool timed = kTimed && blockIdx.x == 0 && tid == 0;
+  if (timed) clk[0] = clock64();
+  const bool stamp = kTimed && tid == 0;   // each CTA's thread 0
+  long long* const cta =
+      stamp ? clk + kSplitClocks + 3LL * blockIdx.x : nullptr;
+  if (stamp) {
+    unsigned sm;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(cta[0]));
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    cta[2] = sm;
+  }
   const int rank = (int)cluster.block_rank();
   const int unit = blockIdx.x / nc;          // (lane, KV head)
   const int lane = unit / a.kv;
   const int kvh = unit - lane * a.kv;
-  const int r = a.heads / a.kv, hd = a.hd, T_ = a.slots, kv = a.kv;
-  const int rp = (r + KH - 1) / KH * KH;
-  const int tid = threadIdx.x, warp = tid / 32, ln = tid % 32;
-  const int g = tid / TPR, c = tid % TPR;
+  const int r = a.heads / a.kv, T_ = a.slots, kv = a.kv;
+  const int rp = split_rp(r), rps = split_rps(r, S::HOP);
   const int base = rank * ts;                // this CTA's first slot
   const int nt = max(0, min(ts, T_ - base)); // its slots
-  const int nr = (ts + RPP - 1) / RPP;       // rows a thread, at most
-  const int nrows = nt > g ? (nt - g + RPP - 1) / RPP : 0;  // its rows
-  const int nrows_all = (nt + RPP - 1) / RPP;                // uniform
-  uint4* kst = dsm;                          // kst[(i * 256 + tid) * SEG]
-  uint4* vst = two ? dsm + (long long)nr * kAttnThreads * SEG : dsm;
-  float* qs = reinterpret_cast<float*>(   // (rp, E, TPR): see below
-      dsm + (long long)(two ? 2 : 1) * nr * kAttnThreads * SEG);
-  float* ss = qs + rp * hd;                  // (rp, ts): scores, probs
-  float* pv = ss + rp * ts;                  // (warps, KH, hd)
-  float* part = pv + kAttnWarps * KH * hd;   // (rp, hd): P.V sums
-  int* sps = reinterpret_cast<int*>(part + rp * hd);  // (ts,) slot_pos
+  const int nrb = (nt + kAttnThreads - 1) / kAttnThreads;  // row blocks
+  const int nk = nrb * S::NCC;               // K stages
+  const int n = nk + (nt + S::RV - 1) / S::RV;   // and V stages
+  const int n0 = min(ns, n);                 // copied at the start
 
-  const long long row16 = (long long)kv * hd / E1;  // a row, in 16 bytes
-  const long long at = (long long)lane * T_ * kv * hd + kvh * hd + c * E;
-  const uint4* kc = reinterpret_cast<const uint4*>(
-      static_cast<const C*>(a.k_cache) + at);
-  const uint4* vc = reinterpret_cast<const uint4*>(
-      static_cast<const C*>(a.v_cache) + at);
+  uint4* ring = dsm;
+  // the f32 queries (HD, rp), then in their place the f32 probabilities
+  // (ts, rps); the tile's scores (ts, rps) in the compute dtype
+  float* qs = reinterpret_cast<float*>(ring + ns * SCH);
+  float* pf = qs;
+  T* ps = reinterpret_cast<T*>(qs + max(HD * rp, ts * rps));
+  float* part = reinterpret_cast<float*>(dsm);   // (r, HD) after the ring
+
+  const long long row16 = (long long)kv * HD / S::EL;  // a row, in 16 bytes
+  const long long at = (long long)lane * T_ * kv * HD + (long long)kvh * HD;
   const int* sp = a.slot_pos + (long long)lane * T_;
-
-  // every K row of the thread (and its V rows, with two buffers) copied to
-  // shared memory asynchronously before any arithmetic: one memory
-  // latency; each thread reads back only the rows it copied
-  for (int i = 0; i < nrows; ++i) {
-    const long long t = base + g + RPP * i;
-#pragma unroll
-    for (int s = 0; s < SEG; ++s)
-      copy16(kst + (i * kAttnThreads + tid) * SEG + s, kc + t * row16 + s);
-  }
-  copies_commit();
-  if (two) {
-    for (int i = 0; i < nrows; ++i) {
-      const long long t = base + g + RPP * i;
-#pragma unroll
-      for (int s = 0; s < SEG; ++s)
-        copy16(vst + (i * kAttnThreads + tid) * SEG + s, vc + t * row16 + s);
-    }
-  }
-  copies_commit();
-  for (int t = tid; t < nt; t += kAttnThreads) sps[t] = sp[base + t];
+  const long long src = ((long long)lane * kv + kvh) * HD;   // the new rows
   const long long p = a.pos[lane % a.batch];
   const int slot = a.window > 0 ? (int)(p % T_)
                                 : (int)(p < T_ - 1 ? p : T_ - 1);
-  const T* q = static_cast<const T*>(a.q) +
-               ((long long)lane * a.heads + kvh * r) * hd;
-  // the group's queries as f32, 16 loads a thread issued at once
-  constexpr int QN = 16;
-  for (int i0 = 0; i0 < rp * hd; i0 += QN * kAttnThreads) {
-    float qv[QN];
-#pragma unroll
-    for (int k = 0; k < QN; ++k) {
-      const int i = i0 + tid + k * kAttnThreads;
-      qv[k] = i < r * hd ? to_f(q[i]) : 0.0f;  // padded heads score 0
-    }
-#pragma unroll
-    for (int k = 0; k < QN; ++k) {
-      // element d = c E + e of head h at h hd + e TPR + c: a warp's reads
-      // of one element across its threads fall in 32 banks
-      const int i = i0 + tid + k * kAttnThreads;
-      const int h = i / hd, d = i - h * hd;
-      if (i < rp * hd) qs[h * hd + (d % E) * TPR + d / E] = qv[k];
-    }
-  }
-  // 1: the new rows in the cache dtype, by the CTA whose tile holds the
-  // slot, from the threads of its row group
   const bool mine = slot >= base && slot < base + nt;
-  const bool owner = mine && (slot - base) % RPP == g;
-  uint4 knew[SEG], vnew[SEG];
-#pragma unroll
-  for (int s = 0; s < SEG; ++s) knew[s] = vnew[s] = make_uint4(0u, 0u, 0u, 0u);
-  if (owner) {
-    const long long src = ((long long)lane * kv + kvh) * hd + c * E;
-#pragma unroll
-    for (int s = 0; s < SEG; ++s) {
-      float f[E1];
-      load_f32<T, E1>(static_cast<const T*>(a.k_new) + src + s * E1, f);
-      knew[s] = pack16<C, E1>(f);
-      load_f32<T, E1>(static_cast<const T*>(a.v_new) + src + s * E1, f);
-      vnew[s] = pack16<C, E1>(f);
+
+  auto swz = [](int x) { return (x >> 1) & 3; };
+  // stage s's copy, by thread 0: K stage (rb, cc) the 64-byte column block
+  // cc of the row block's 256 rows (the tensor map's 64-byte swizzle puts
+  // chunk c of row x at c XOR swz(x)), V stage j rows [j RV, (j + 1) RV)
+  // whole; rows past the tile are the next tile's or, past the lane's
+  // slots, zeros, and read by no thread
+  auto fill = [&](int s) {
+    if (tid) return;
+    const uint32_t st = smem_u32(ring + (s % ns) * SCH);
+    const uint32_t bar = smem_u32(bars + s % ns);
+    mbar_expect(bar, kStageBytes);
+    if (s < nk) {
+      const int rb = s / S::NCC, cc = s - rb * S::NCC;
+      tma_load(st, km, bar, cc * WEL, kvh, base + rb * kAttnThreads, lane);
+    } else {
+      tma_load(st, vm, bar, 0, 0, kvh, base + (s - nk) * S::RV, lane);
     }
+  };
+  // the new row's chunks in landed stage s written over from the new rows
+  // (the copy read the slot's old row), fenced for the copy that later
+  // fills their place
+  auto renew = [&](int s) {
+    uint4* st = ring + (s % ns) * SCH;
+#pragma unroll
+    for (int k = 0; k < TCH; ++k) {
+      const int pi = tid + kAttnThreads * k;
+      if (s < nk) {
+        const int rb = s / S::NCC, cc = s - rb * S::NCC;
+        const int x = pi / 4, c = pi % 4;
+        if (mine && base + rb * kAttnThreads + x == slot) {
+          st[x * 4 + (c ^ swz(x))] = new_chunk<T, C>(
+              a.k_new, src + (long long)cc * WEL + c * S::EL);
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        }
+      } else if (mine && base + (s - nk) * S::RV + pi / PR == slot) {
+        st[pi] = new_chunk<T, C>(a.v_new, src + pi % PR * S::EL);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      }
+    }
+  };
+  // stage s, read by every thread: landed (its mbarrier's (s / ns)-th
+  // phase), the new row written over, then (every thread being past stage
+  // s - 1) stage s - 1 + ns copied into s - 1's place
+  long long waited = 0;                 // thread 0's cycles in arrive
+  auto arrive = [&](int s) {
+    const long long t0 = timed ? clock64() : 0;
+    mbar_wait(smem_u32(bars + s % ns), (uint32_t)(s / ns) & 1u);
+    renew(s);
+    __syncthreads();
+    if (timed) waited += clock64() - t0;
+    if (s >= 1 && s - 1 + ns < n) fill(s - 1 + ns);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < ns; ++i) mbar_init(smem_u32(bars + i));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();                      // the mbarriers
+  for (int s = 0; s < n0; ++s) fill(s);
+
+  // 1: the new rows in the cache dtype, by the CTA whose tile holds the
+  // slot; slot_pos[slot] by its KV-head-0 CTA
+  if (mine && tid < PR) {
     uint4* kw = reinterpret_cast<uint4*>(static_cast<C*>(a.k_cache) + at);
     uint4* vw = reinterpret_cast<uint4*>(static_cast<C*>(a.v_cache) + at);
-#pragma unroll
-    for (int s = 0; s < SEG; ++s) {
-      kw[slot * row16 + s] = knew[s];
-      vw[slot * row16 + s] = vnew[s];
-    }
+    kw[slot * row16 + tid] = new_chunk<T, C>(a.k_new, src + tid * S::EL);
+    vw[slot * row16 + tid] = new_chunk<T, C>(a.v_new, src + tid * S::EL);
   }
   if (mine && kvh == 0 && tid == 0)
     a.slot_pos[(long long)lane * T_ + slot] = (int)p;
-  split_arrive();                       // this CTA has started
-  __syncthreads();                      // qs, sps
-  copies_wait<1>();                     // the K rows
-
-  // 2-3: the scores, KH heads at a time against all of a thread's staged
-  // rows (its queries in registers, each row read from shared memory once
-  // a chunk); each thread's maximum of each head, then the warp's
-  const float neg_inf = round_to<T>(-1e30f);
-  for (int h0 = 0; h0 < rp; h0 += KH) {
-    float qf[KH][E], rmax[KH];
+  // the group's queries, qs[d rp + h] (padded heads 0)
+  const T* q = static_cast<const T*>(a.q) +
+               ((long long)lane * a.heads + kvh * r) * HD;
+  for (int d = tid; d < HD; d += kAttnThreads) {
+    for (int j = 0; j < rp; j += 4) {
+      float f[4];
 #pragma unroll
-    for (int j = 0; j < KH; ++j) {
-      rmax[j] = -__int_as_float(0x7f800000);
-#pragma unroll
-      for (int e = 0; e < E; ++e) qf[j][e] = qs[(h0 + j) * hd + e * TPR + c];
+      for (int u = 0; u < 4; ++u)
+        f[u] = j + u < r ? to_f(q[(j + u) * HD + d]) : 0.0f;
+      store4(qs + d * rp + j, f);
     }
-    for (int i = 0; i < nrows_all; ++i) {
-      const int tl = g + RPP * i;            // the local row
-      const int t = base + tl;
-      const bool live = i < nrows;           // uniform over a row's threads
-      uint4 kr[SEG];
+  }
+  __syncthreads();                      // qs
+
+  // 2-3: the scores, row block by row block, K stage by K stage
+  const float neg_inf = round_to<T>(-1e30f);
+  const int g = ln % 8, h4 = ln / 8 * 4;     // rows g + 8 i, heads h4 + u
+  const bool heads = h4 < rp;
+  const int sw = swz(g);                // of each row 32 w + g + 8 i
+  float rmax[4];
 #pragma unroll
-      for (int s = 0; s < SEG; ++s)
-        kr[s] = (live && t != slot) ? kst[(i * kAttnThreads + tid) * SEG + s]
-                                    : knew[s];
-      const long long tpos = t == slot ? p : live ? (long long)sps[tl] : -1;
-      const bool valid = tpos >= 0 && tpos <= p &&
-                         (a.window <= 0 || tpos > p - a.window);
-      float kf[E];
-      row_f32<C, SEG>(kr, kf);
-      float acc[KH], num[KH], sc[KH];
-      bool slow = false;
+  for (int u = 0; u < 4; ++u) rmax[u] = -__int_as_float(0x7f800000);
+  int s = 0;
+  for (int rb = 0; rb < nrb; ++rb) {
+    const int tl0 = rb * kAttnThreads + warp * 32 + g;  // + 8 i
+    long long tpos[4];
 #pragma unroll
-      for (int j = 0; j < KH; ++j) {
-        acc[j] = 0.0f;
+    for (int i = 0; i < 4; ++i) {
+      const int t = base + tl0 + 8 * i;
+      tpos[i] = t == slot ? p : tl0 + 8 * i < nt ? (long long)sp[t] : -1;
+    }
+    const bool busy = rb * kAttnThreads + warp * 32 < nt && heads;
+    float acc[4][4];
 #pragma unroll
-        for (int e = 0; e < E; ++e)
-          acc[j] = __fmaf_rn(qf[j][e], as_compute<T, C>(kf[e]), acc[j]);
-      }
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int off = TPR / 2; off > 0; off >>= 1)
+      for (int u = 0; u < 4; ++u) acc[i][u] = 0.0f;
+    for (int cc = 0; cc < S::NCC; ++cc, ++s) {
+      arrive(s);
+      if (timed && s == 0) clk[1] = clock64();
+      if (busy) {
+        const uint4* kr = ring + (s % ns) * SCH + (warp * 32 + g) * 4;
 #pragma unroll
-        for (int j = 0; j < KH; ++j)
-          acc[j] = __fadd_rn(acc[j],
-                             __shfl_xor_sync(0xffffffffu, acc[j], off));
+        for (int c = 0; c < 4; ++c) {
+          float kf[4][S::EL];
 #pragma unroll
-      for (int j = 0; j < KH; ++j) {
-        num[j] = round_to<T>(acc[j]);
-        sc[j] = div_rn(num[j], a.scale, a.inv_scale, slow);
-      }
-      if (slow) {
+          for (int i4 = 0; i4 < 4; ++i4) {
+            const uint4 w4 = kr[i4 * 32 + (c ^ sw)];
+            const uint32_t w[4] = {w4.x, w4.y, w4.z, w4.w};
+            unpack(w, kf[i4], S::EL, C());
 #pragma unroll
-        for (int j = 0; j < KH; ++j) sc[j] = __fdiv_rn(num[j], a.scale);
-      }
-      if (live) {
+            for (int e = 0; e < S::EL; ++e)
+              kf[i4][e] = as_compute<T, C>(kf[i4][e]);
+          }
+          const float* qd = qs + (cc * WEL + c * S::EL) * rp + h4;
 #pragma unroll
-        for (int j = 0; j < KH; ++j) {
-          const float v = valid ? round_to<T>(sc[j]) : neg_inf;
-          rmax[j] = nan_max(rmax[j], v);
-          if (c == 0) ss[(h0 + j) * ts + tl] = v;
+          for (int e = 0; e < S::EL; ++e) {
+            const float4 q4 = *reinterpret_cast<const float4*>(qd + e * rp);
+            const float qf[4] = {q4.x, q4.y, q4.z, q4.w};
+#pragma unroll
+            for (int i4 = 0; i4 < 4; ++i4)
+#pragma unroll
+              for (int u = 0; u < 4; ++u)
+                acc[i4][u] = __fmaf_rn(qf[u], kf[i4][e], acc[i4][u]);
+          }
         }
       }
     }
+    if (heads) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
+      for (int i = 0; i < 4; ++i) {
+        const int tl = tl0 + 8 * i;
+        if (tl < nt) {
+          const bool valid = tpos[i] >= 0 && tpos[i] <= p &&
+                             (a.window <= 0 || tpos[i] > p - a.window);
+          float num[4], sc[4];
+          bool slow = false;
 #pragma unroll
-      for (int j = 0; j < KH; ++j)
-        rmax[j] = nan_max(rmax[j], __shfl_xor_sync(0xffffffffu, rmax[j], off));
-    if (ln == 0) {
+          for (int u = 0; u < 4; ++u) {
+            num[u] = round_to<T>(acc[i][u]);
+            sc[u] = div_rn(num[u], a.scale, a.inv_scale, slow);
+          }
+          if (slow) {
 #pragma unroll
-      for (int j = 0; j < KH; ++j) red[0][warp * kMaxGroup + h0 + j] = rmax[j];
+            for (int u = 0; u < 4; ++u) sc[u] = __fdiv_rn(num[u], a.scale);
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            sc[u] = valid ? round_to<T>(sc[u]) : neg_inf;
+            rmax[u] = nan_max(rmax[u], sc[u]);
+          }
+          store4(ps + tl * rps + h4, sc);
+        }
+      }
     }
   }
-  if (!two) {
-    // V into the K rows' place: this thread's own, read by it alone
-    for (int i = 0; i < nrows; ++i) {
-      const long long t = base + g + RPP * i;
 #pragma unroll
-      for (int s = 0; s < SEG; ++s)
-        copy16(vst + (i * kAttnThreads + tid) * SEG + s, vc + t * row16 + s);
-    }
-    copies_commit();
+  for (int u = 0; u < 4; ++u) {
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1)
+      rmax[u] = nan_max(rmax[u], __shfl_xor_sync(0xffffffffu, rmax[u], off));
   }
-  __syncthreads();
+  if (g == 0 && heads) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) red[0][warp * kMaxGroup + h4 + u] = rmax[u];
+  }
+  __syncthreads();                      // ps, the warps' maxima
   if (tid < rp) {
     float m = red[0][tid];
     for (int w = 1; w < kAttnWarps; ++w)
       m = nan_max(m, red[0][w * kMaxGroup + tid]);
     cmax[tid] = m;
   }
-  split_wait();                         // every CTA has started
-  split_arrive();                       // cmax
+  if (timed) {
+    clk[2] = clock64();
+    clk[9] = waited;                    // of the scores' phase
+    waited = 0;
+  }
+  split_arrive();                       // cmax (and: every CTA has started)
+  const long long b0 = timed ? clock64() : 0;
   split_wait();
-  // thread h gathers head h's maxima from the cluster into gmax[h]
+  if (timed) clk[11] = clock64() - b0;
+  // thread (h, q) reads rank q's maximum of head h, all at once; thread h
+  // takes the maximum of the nc values
+  if (tid < rp * nc)
+    peer[tid] = *cluster.map_shared_rank(&cmax[tid / nc], tid % nc);
+  __syncthreads();
   if (tid < rp) {
-    float v = *cluster.map_shared_rank(&cmax[tid], 0);
-    for (int qq = 1; qq < nc; ++qq)
-      v = nan_max(v, *cluster.map_shared_rank(&cmax[tid], qq));
+    float v = peer[tid * nc];
+    for (int qq = 1; qq < nc; ++qq) v = nan_max(v, peer[tid * nc + qq]);
     gmax[tid] = v;
   }
-  __syncthreads();
+  __syncthreads();                      // gmax
+  if (timed) clk[3] = clock64();
 
-  // 4: the f32 softmax: the cluster's maximum; thread tid's terms over its
-  // local rows tid, tid + 256, ..., the warp's tree, the warps in order
-  // from +0 (this CTA's sum), then the CTAs' sums in rank order
-  for (int h0 = 0; h0 < rp; h0 += KH) {
-    float sum[KH], mh[KH];
+  // 4: the f32 softmax over this CTA's rows, then the cluster's sum; the
+  // terms of a thread's first row kept for the probabilities, the others'
+  // computed again
+  float sum[kMaxGroup], e0[kMaxGroup];
 #pragma unroll
-    for (int j = 0; j < KH; ++j) {
-      sum[j] = 0.0f;
-      mh[j] = gmax[h0 + j];
-    }
-    for (int t = tid; t < nt; t += kAttnThreads) {
+  for (int j = 0; j < kMaxGroup; ++j) sum[j] = 0.0f;
+  for (int tl = tid; tl < nt; tl += kAttnThreads) {
 #pragma unroll
-      for (int j = 0; j < KH; ++j) {
-        const float e = exp_xla(__fsub_rn(ss[(h0 + j) * ts + t], mh[j]));
-        ss[(h0 + j) * ts + t] = e;
-        sum[j] = __fadd_rn(sum[j], e);
+    for (int j = 0; j < kMaxGroup; j += 4) {
+      if (j < rp) {
+        float sc[4];
+        load_f32<T, 4>(ps + tl * rps + j, sc);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float e = exp_xla(__fsub_rn(sc[u], gmax[j + u]));
+          if (tl == tid) e0[j + u] = e;
+          sum[j + u] = __fadd_rn(sum[j + u], e);
+        }
       }
     }
+  }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
+  for (int j = 0; j < kMaxGroup; ++j) {
+    if (j < rp) {
 #pragma unroll
-      for (int j = 0; j < KH; ++j)
+      for (int off = 16; off > 0; off >>= 1)
         sum[j] = __fadd_rn(sum[j], __shfl_xor_sync(0xffffffffu, sum[j], off));
-    if (ln == 0) {
-#pragma unroll
-      for (int j = 0; j < KH; ++j) red[1][warp * kMaxGroup + h0 + j] = sum[j];
+      if (ln == 0) red[1][warp * kMaxGroup + j] = sum[j];
     }
   }
-  __syncthreads();
+  __syncthreads();                      // the warps' sums
+  if (timed) clk[4] = clock64();
   if (tid < rp) {
     float v = 0.0f;
     for (int w = 0; w < kAttnWarps; ++w)
@@ -858,165 +1072,330 @@ decode_attention_split_kernel(const __grid_constant__ DecodeArgs a,
     csum[tid] = v;
   }
   split_arrive();                       // csum
+  const long long b1 = timed ? clock64() : 0;
   split_wait();
-  // thread h adds head h's sums in rank order into gsum[h]
-  if (tid < rp) {
-    float v = *cluster.map_shared_rank(&csum[tid], 0);
-    for (int qq = 1; qq < nc; ++qq)
-      v = __fadd_rn(v, *cluster.map_shared_rank(&csum[tid], qq));
-    gsum[tid] = v;
-  }
+  if (timed) clk[12] = clock64() - b1;
+  // the sums read as the maxima were, then added in rank order
+  if (tid < rp * nc)
+    peer[tid] = *cluster.map_shared_rank(&csum[tid / nc], tid % nc);
   __syncthreads();
-  for (int h0 = 0; h0 < rp; h0 += KH) {
-    float tot[KH], rtot[KH];
+  if (tid < rp) {
+    float v = peer[tid * nc];
+    for (int qq = 1; qq < nc; ++qq) v = __fadd_rn(v, peer[tid * nc + qq]);
+    gsum[tid] = v;
+    grcp[tid] = __frcp_rn(v);
+  }
+  __syncthreads();                      // gsum
+  if (timed) clk[5] = clock64();
+  for (int tl = tid; tl < nt; tl += kAttnThreads) {
 #pragma unroll
-    for (int j = 0; j < KH; ++j) {
-      tot[j] = gsum[h0 + j];
-      rtot[j] = __frcp_rn(tot[j]);
-    }
-    for (int t = tid; t < nt; t += kAttnThreads) {
-      float e[KH], pt[KH];
-      bool slow = false;
+    for (int j = 0; j < kMaxGroup; j += 4) {
+      if (j < rp) {
+        float e[4], pt[4];
+        load_f32<T, 4>(ps + tl * rps + j, e);
+        bool slow = false;
 #pragma unroll
-      for (int j = 0; j < KH; ++j) {
-        e[j] = ss[(h0 + j) * ts + t];
-        pt[j] = div_rn(e[j], tot[j], rtot[j], slow);
+        for (int u = 0; u < 4; ++u) {
+          e[u] = tl == tid ? e0[j + u]
+                           : exp_xla(__fsub_rn(e[u], gmax[j + u]));
+          pt[u] = div_rn(e[u], gsum[j + u], grcp[j + u], slow);
+        }
+        if (slow) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) pt[u] = __fdiv_rn(e[u], gsum[j + u]);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) pt[u] = round_to<T>(pt[u]);
+        store4(pf + tl * rps + j, pt);
       }
-      if (slow) {
-#pragma unroll
-        for (int j = 0; j < KH; ++j) pt[j] = __fdiv_rn(e[j], tot[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < KH; ++j) ss[(h0 + j) * ts + t] = round_to<T>(pt[j]);
     }
   }
-  __syncthreads();                      // the probabilities
-  copies_wait<0>();                     // the V rows
+  if (timed) clk[6] = clock64();
 
-  // 5: P.V, KH heads at a time: thread (g, c) over its staged V rows in
-  // order from +0; the warp's row groups' tree; the warps in order from +0
-  // into this CTA's sums
-  for (int h0 = 0; h0 < rp; h0 += KH) {
-    float acc[KH][E];
+  // 5: P.V, V stage by V stage (the first one's barrier also makes the
+  // probabilities visible): thread (head block, column group) over heads
+  // h0 ... h0 + HO - 1 and columns 4 cg ... 4 cg + 3
+  const int cg4 = tid % S::NCG * 4, h0 = tid / S::NCG * S::HO;
+  const bool pv = h0 < r;
+  float acc[S::HO][4];
 #pragma unroll
-    for (int j = 0; j < KH; ++j)
+  for (int u = 0; u < S::HO; ++u)
 #pragma unroll
-      for (int e = 0; e < E; ++e) acc[j][e] = 0.0f;
-    for (int i = 0; i < nrows; ++i) {
-      const int tl = g + RPP * i;
-      uint4 vr[SEG];
+    for (int k = 0; k < 4; ++k) acc[u][k] = 0.0f;
+  for (int j = 0; s < n; ++j, ++s) {
+    arrive(s);
+    if (pv) {
+      const int rows = min(S::RV, nt - j * S::RV);
+      const C* vrow = reinterpret_cast<const C*>(ring + (s % ns) * SCH) + cg4;
+      const float* prow = pf + (long long)j * S::RV * rps + h0;
+      for (int x = 0; x < rows; ++x) {
+        float pt[S::HO], vf[4];
+        load_n<S::HO>(prow, pt);
+        load_f32<C, 4>(vrow, vf);
 #pragma unroll
-      for (int s = 0; s < SEG; ++s)
-        vr[s] = base + tl != slot ? vst[(i * kAttnThreads + tid) * SEG + s]
-                                  : vnew[s];
-      float vf[E], pt[KH];
-      row_f32<C, SEG>(vr, vf);
+        for (int k = 0; k < 4; ++k) vf[k] = as_compute<T, C>(vf[k]);
 #pragma unroll
-      for (int j = 0; j < KH; ++j) pt[j] = ss[(h0 + j) * ts + tl];
+        for (int u = 0; u < S::HO; ++u)
 #pragma unroll
-      for (int j = 0; j < KH; ++j)
-#pragma unroll
-        for (int e = 0; e < E; ++e)
-          acc[j][e] = __fmaf_rn(pt[j], as_compute<T, C>(vf[e]), acc[j][e]);
+          for (int k = 0; k < 4; ++k)
+            acc[u][k] = __fmaf_rn(pt[u], vf[k], acc[u][k]);
+        vrow += HD;
+        prow += rps;
+      }
     }
+  }
+  __syncthreads();                      // the ring is read: part in its place
+  if (pv) {
 #pragma unroll
-    for (int off = 16; off >= TPR; off >>= 1)
-#pragma unroll
-      for (int j = 0; j < KH; ++j)
-#pragma unroll
-        for (int e = 0; e < E; ++e)
-          acc[j][e] = __fadd_rn(acc[j][e],
-                                __shfl_xor_sync(0xffffffffu, acc[j][e], off));
-    if (ln < TPR) {
-#pragma unroll
-      for (int j = 0; j < KH; ++j)
-#pragma unroll
-        for (int e = 0; e < E; ++e)
-          pv[(warp * KH + j) * hd + c * E + e] = acc[j][e];
-    }
-    __syncthreads();                    // pv
-    for (int i = tid; i < KH * hd; i += kAttnThreads) {
-      float v = 0.0f;
-#pragma unroll
-      for (int w = 0; w < kAttnWarps; ++w)
-        v = __fadd_rn(v, pv[w * KH * hd + i]);
-      part[h0 * hd + i] = v;
-    }
-    __syncthreads();                    // pv is free again
+    for (int u = 0; u < S::HO; ++u)
+      if (h0 + u < r) store4(part + (h0 + u) * HD + cg4, acc[u]);
+  }
+  if (timed) {
+    clk[7] = clock64();
+    clk[10] = waited;                    // of P.V's
   }
   split_arrive();                       // part
   split_wait();
   // this CTA's slice of the outputs: the CTAs' sums in rank order
-  const int n_out = r * hd;
-  const int per = (n_out + nc - 1) / nc;
+  const int n_out = r * HD;
+  const int per = ((n_out + nc - 1) / nc + 3) / 4 * 4;
   T* out = static_cast<T*>(a.out) +
-           ((long long)lane * a.heads + kvh * r) * hd;
-  for (int i = rank * per + tid; i < min(n_out, (rank + 1) * per);
-       i += kAttnThreads) {
-    float v = *cluster.map_shared_rank(&part[i], 0);
-    for (int qq = 1; qq < nc; ++qq)
-      v = __fadd_rn(v, *cluster.map_shared_rank(&part[i], qq));
-    out[i] = from_f<T>(v);
+           ((long long)lane * a.heads + kvh * r) * HD;
+  for (int i = rank * per + 4 * tid; i < min(n_out, (rank + 1) * per);
+       i += 4 * kAttnThreads) {
+    // every rank's 4 sums read at once, then added in rank order
+    float4 u[kMaxCluster];
+#pragma unroll
+    for (int qq = 0; qq < kMaxCluster; ++qq)
+      if (qq < nc)
+        u[qq] = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(part + i, qq));
+    float4 v = u[0];
+#pragma unroll
+    for (int qq = 1; qq < kMaxCluster; ++qq) {
+      if (qq < nc) {
+        v.x = __fadd_rn(v.x, u[qq].x);
+        v.y = __fadd_rn(v.y, u[qq].y);
+        v.z = __fadd_rn(v.z, u[qq].z);
+        v.w = __fadd_rn(v.w, u[qq].w);
+      }
+    }
+    out[i] = from_f<T>(v.x);
+    out[i + 1] = from_f<T>(v.y);
+    out[i + 2] = from_f<T>(v.z);
+    out[i + 3] = from_f<T>(v.w);
   }
+  if (timed) clk[8] = clock64();
+  if (stamp) asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(cta[1]));
   split_arrive();                       // no CTA leaves while read
   split_wait();
 }
 
-template <typename T, typename C, int TPR, int SEG>
-int launch_split(const DecodeArgs& a, long long lanes, int nc, int ts,
-                 cudaStream_t stream) {
-  const int r = a.heads / a.kv;
-  const int rp = (r + kHeadChunk - 1) / kHeadChunk * kHeadChunk;
-  const long long stage = split_stage(ts, TPR, SEG);
-  const long long rest = split_rest(rp, a.hd, ts);
-  const int two = 2 * stage + rest <= kSplitMaxSmem;
-  const long long smem = (two ? 2 : 1) * stage + rest;
-  if (smem > kSplitMaxSmem) return (int)cudaErrorInvalidValue;
-  static long long allowed = 0;        // raised once a size (not in a capture)
-  if (allowed == 0) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        decode_attention_split_kernel<T, C, TPR, SEG>,
-        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
-    allowed = 48 * 1024;
-  }
+// km, vm: the caches' tensor maps (split_maps)
+template <typename T, typename C, int HD>
+__global__ void __launch_bounds__(kAttnThreads, 2)
+decode_attention_split_kernel(const __grid_constant__ DecodeArgs a,
+                              const int nc, const int ts, const int ns,
+                              const __grid_constant__ CUtensorMap km,
+                              const __grid_constant__ CUtensorMap vm) {
+  split_body<T, C, HD, false>(a, nc, ts, ns, &km, &vm, nullptr);
+}
+
+// the same with its phase clocks (chip_smoke.py)
+template <typename T, typename C, int HD>
+__global__ void __launch_bounds__(kAttnThreads, 2)
+decode_attention_split_timed(const __grid_constant__ DecodeArgs a,
+                             const int nc, const int ts, const int ns,
+                             const __grid_constant__ CUtensorMap km,
+                             const __grid_constant__ CUtensorMap vm,
+                             long long* const clk) {
+  split_body<T, C, HD, true>(a, nc, ts, ns, &km, &vm, clk);
+}
+
+template <typename T, typename C, int HD, bool kTimed>
+const void* split_kernel() {
+  if constexpr (kTimed)
+    return (const void*)decode_attention_split_timed<T, C, HD>;
+  else
+    return (const void*)decode_attention_split_kernel<T, C, HD>;
+}
+
+// the split form's launch configuration: a cluster of nc CTAs a (lane, KV
+// head), the ring's ns stages, the kernel's dynamic shared memory allowed
+// once a size
+template <typename T, typename C, int HD, bool kTimed>
+int split_config(const DecodeArgs& a, long long lanes, int nc, int ts,
+                 cudaStream_t stream, cudaLaunchConfig_t& cfg,
+                 cudaLaunchAttribute* attr, int& ns) {
+  ns = split_stages(a.heads / a.kv, HD, ts, (int)sizeof(T));
+  const long long smem = (long long)ns * kStageBytes +
+                         split_rest(a.heads / a.kv, HD, ts, (int)sizeof(T));
+  if (ns < 2 || smem > kSplitMaxSmem) return (int)cudaErrorInvalidValue;
+  static long long allowed = 48 * 1024;  // raised once a size
   if (smem > allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_attention_split_kernel<T, C, TPR, SEG>,
+        split_kernel<T, C, HD, kTimed>(),
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     allowed = smem;
   }
-  cudaLaunchConfig_t cfg = {};
+  cfg = {};
   cfg.gridDim = dim3((unsigned)(lanes * a.kv * nc), 1, 1);
   cfg.blockDim = dim3(kAttnThreads, 1, 1);
   cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = (unsigned)nc;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, decode_attention_split_kernel<T, C, TPR, SEG>, a, nc, ts, two);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return 0;
 }
 
-// the split form's instantiations: a row of TPR threads of SEG segments
-template <typename T, typename C>
-int launch_split_tpr(const DecodeArgs& a, long long lanes, int nc, int ts,
-                     cudaStream_t stream) {
-  switch (a.hd / (16 / (int)sizeof(C))) {
-    case 4: return launch_split<T, C, 4, 1>(a, lanes, nc, ts, stream);
-    case 8: return launch_split<T, C, 8, 1>(a, lanes, nc, ts, stream);
-    case 16: return launch_split<T, C, 16, 1>(a, lanes, nc, ts, stream);
-    case 32: return launch_split<T, C, 32, 1>(a, lanes, nc, ts, stream);
-    case 64: return launch_split<T, C, 32, 2>(a, lanes, nc, ts, stream);
+// the caches' tensor maps: K (lanes, slots, kv, HD) read in boxes of 64
+// bytes by 256 rows, swizzled by 64 bytes; V as (lanes, slots, kv, HD /
+// H0, H0), H0 = min(HD, 256) (a box dimension's limit), in boxes of RV
+// whole rows
+template <typename C, int HD>
+int split_maps(const DecodeArgs& a, long long lanes, CUtensorMap& km,
+               CUtensorMap& vm) {
+  using S = SplitShape<HD, C>;
+  constexpr int H0 = HD < 256 ? HD : 256;
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (!encode) {
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled",
+                                     (void**)&encode, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", (void**)&encode,
+                            cudaEnableDefault, &found);
+#endif
+    if (!encode) return (int)cudaErrorNotSupported;
+  }
+  const CUtensorMapDataType type = sizeof(C) == 2
+                                       ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const cuuint64_t es = sizeof(C), kv = a.kv, slots = a.slots;
+  const cuuint64_t kdims[4] = {HD, kv, slots, (cuuint64_t)lanes};
+  const cuuint64_t kstrides[3] = {HD * es, kv * HD * es, slots * kv * HD * es};
+  const cuuint32_t kbox[4] = {64 / (cuuint32_t)es, 1, kAttnThreads, 1};
+  const cuuint64_t vdims[5] = {H0, HD / H0, kv, slots, (cuuint64_t)lanes};
+  const cuuint64_t vstrides[4] = {H0 * es, HD * es, kv * HD * es,
+                                  slots * kv * HD * es};
+  const cuuint32_t vbox[5] = {H0, HD / H0, 1, S::RV, 1};
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  if (encode(&km, type, 4, a.k_cache, kdims, kstrides, kbox, ones,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
+      encode(&vm, type, 5, a.v_cache, vdims, vstrides, vbox, ones,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+// the split form's launch, timed where clk is not null (the timed kernel
+// is built for bf16 at head dim 256 alone, recurrentgemma-9b's layer that
+// chip_smoke.py reads)
+struct SplitLaunch {
+  const DecodeArgs& a;
+  long long lanes;
+  int nc, ts;
+  cudaStream_t stream;
+  long long* clk;
+  template <typename T, typename C, int HD>
+  int run() const {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    CUtensorMap km, vm;
+    int ns;
+    int rc = split_maps<C, HD>(a, lanes, km, vm);
+    if (rc) return rc;
+    cudaError_t err;
+    if (clk) {
+      constexpr bool kClocked = std::is_same_v<T, __nv_bfloat16> &&
+                                std::is_same_v<C, __nv_bfloat16> && HD == 256;
+      if constexpr (kClocked) {
+        rc = split_config<T, C, HD, true>(a, lanes, nc, ts, stream, cfg,
+                                          attr, ns);
+        if (rc) return rc;
+        err = cudaLaunchKernelEx(&cfg,
+                                 decode_attention_split_timed<T, C, HD>, a,
+                                 nc, ts, ns, km, vm, clk);
+      } else {
+        return (int)cudaErrorInvalidValue;
+      }
+    } else {
+      rc = split_config<T, C, HD, false>(a, lanes, nc, ts, stream, cfg, attr,
+                                         ns);
+      if (rc) return rc;
+      err = cudaLaunchKernelEx(&cfg, decode_attention_split_kernel<T, C, HD>,
+                               a, nc, ts, ns, km, vm);
+    }
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  }
+};
+
+// how many of the split form's clusters the card runs at once
+struct SplitOccupancy {
+  const DecodeArgs& a;
+  long long lanes;
+  int nc, ts;
+  int* clusters;
+  template <typename T, typename C, int HD>
+  int run() const {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    int ns;
+    const int rc = split_config<T, C, HD, false>(a, lanes, nc, ts, nullptr,
+                                                 cfg, attr, ns);
+    if (rc) return rc;
+    return (int)cudaOccupancyMaxActiveClusters(
+        clusters, split_kernel<T, C, HD, false>(), &cfg);
+  }
+};
+
+// a split job over its instantiation: rows of 4 to 64 chunks of 16 bytes
+template <typename J, typename T, typename C>
+int split_hd(const J& job, int hd) {
+  constexpr int E = 16 / (int)sizeof(C);
+  switch (hd / E) {
+    case 4: return job.template run<T, C, 4 * E>();
+    case 8: return job.template run<T, C, 8 * E>();
+    case 16: return job.template run<T, C, 16 * E>();
+    case 32: return job.template run<T, C, 32 * E>();
+    case 64: return job.template run<T, C, 64 * E>();
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+template <typename J>
+int split_job(const J& job, int hd, int compute_bf16, int cache_bf16) {
+  if (compute_bf16)
+    return cache_bf16 ? split_hd<J, __nv_bfloat16, __nv_bfloat16>(job, hd)
+                      : split_hd<J, __nv_bfloat16, float>(job, hd);
+  return cache_bf16 ? split_hd<J, float, __nv_bfloat16>(job, hd)
+                    : split_hd<J, float, float>(job, hd);
+}
+
+// the shapes a launch takes (see repro_decode_attention)
+inline bool bad_shapes(long long lanes, int batch, int heads, int kv, int hd,
+                       int slots, int window, int cache_bf16, int cluster,
+                       int tile) {
+  const int e = cache_bf16 ? 8 : 4, tpr = hd / e;
+  const int max_tpr = cluster ? 64 : 32;
+  return lanes < 1 || batch < 1 || lanes % batch || kv < 1 || heads % kv ||
+         heads / kv > kMaxGroup || hd < 1 || hd % e || tpr < 4 ||
+         tpr > max_tpr || (tpr & (tpr - 1)) || slots < 1 || window < 0 ||
+         lanes * kv * (cluster ? cluster : 1) > 0x7fffffffLL ||
+         (cluster && (cluster > kMaxCluster || (cluster & (cluster - 1)) ||
+                      tile < 1 || (long long)tile * cluster < slots));
 }
 
 }  // namespace repro_torch
@@ -1028,11 +1407,11 @@ int launch_split_tpr(const DecodeArgs& a, long long lanes, int nc, int ts,
 // lane l at pos[l % batch]; out (lanes, heads, hd) in the compute dtype.
 // heads is a multiple of kv, heads / kv <= 16; hd is 16 bytes of the cache
 // dtype times 4, 8, 16 or 32 (head dims 32, 64 and 128), or 64 in the
-// split form (f32 rows of 256); the caches and the new rows are 16-byte
-// aligned; scale is sqrt(hd) in the compute dtype and inv_scale RN(1 /
-// scale). cluster: 0 for the one-CTA form, else the split form's CTAs a
-// (lane, KV head), a power of two up to 16, each over tile slots
-// (decode_attention.py: split_of).
+// split form; the caches and the new rows are 16-byte aligned; scale is
+// sqrt(hd) in the compute dtype and inv_scale RN(1 / scale). cluster: 0
+// for the one-CTA form, else the split form's CTAs a (lane, KV head), a
+// power of two up to 8, each over tile slots (decode_attention.py:
+// split_of).
 extern "C" int repro_decode_attention(
     const void* q, const void* k_new, const void* v_new, void* k_cache,
     void* v_cache, int* slot_pos, const long long* pos, void* out,
@@ -1040,33 +1419,61 @@ extern "C" int repro_decode_attention(
     int window, float scale, float inv_scale, int compute_bf16,
     int cache_bf16, int cluster, int tile, void* stream) {
   using namespace repro_torch;
-  const int e = cache_bf16 ? 8 : 4, tpr = hd / e;
-  const int max_tpr = cluster ? 64 : 32;
-  if (lanes < 1 || batch < 1 || lanes % batch || kv < 1 || heads % kv ||
-      heads / kv > kMaxGroup || hd < 1 || hd % e || tpr < 4 ||
-      tpr > max_tpr || (tpr & (tpr - 1)) || slots < 1 || window < 0 ||
-      lanes * kv * (cluster ? cluster : 1) > 0x7fffffffLL ||
-      (cluster && (cluster > kMaxCluster || (cluster & (cluster - 1)) ||
-                   tile < 1 || (long long)tile * cluster < slots)))
+  if (bad_shapes(lanes, batch, heads, kv, hd, slots, window, cache_bf16,
+                 cluster, tile))
     return (int)cudaErrorInvalidValue;
   const DecodeArgs a{q, k_new, v_new, k_cache, v_cache, slot_pos, pos, out,
                      batch, heads, kv, hd, slots, window, scale, inv_scale};
   cudaStream_t st = (cudaStream_t)stream;
-  if (cluster) {
-    if (compute_bf16)
-      return cache_bf16 ? launch_split_tpr<__nv_bfloat16, __nv_bfloat16>(
-                              a, lanes, cluster, tile, st)
-                        : launch_split_tpr<__nv_bfloat16, float>(
-                              a, lanes, cluster, tile, st);
-    return cache_bf16 ? launch_split_tpr<float, __nv_bfloat16>(
-                            a, lanes, cluster, tile, st)
-                      : launch_split_tpr<float, float>(a, lanes, cluster,
-                                                        tile, st);
-  }
+  if (cluster)
+    return split_job(SplitLaunch{a, lanes, cluster, tile, st, nullptr}, hd,
+                     compute_bf16, cache_bf16);
   if (compute_bf16) {
     return cache_bf16 ? launch_tpr<__nv_bfloat16, __nv_bfloat16>(a, lanes, st)
                       : launch_tpr<__nv_bfloat16, float>(a, lanes, st);
   }
   return cache_bf16 ? launch_tpr<float, __nv_bfloat16>(a, lanes, st)
                     : launch_tpr<float, float>(a, lanes, st);
+}
+
+// The split form's launch as repro_decode_attention's (cluster > 0, bf16
+// compute and cache, hd 256), with its phase clocks: clocks, 13 int64 that the first CTA's thread 0 fills
+// with clock64() at its phases' ends (start, first K stage landed, scores,
+// maxima exchanged, its sums, sums exchanged, probabilities, P.V, rank
+// sums), then with the cycles it waited for stages in the scores and in
+// P.V and in the cluster barriers after the maxima and the sums; then 3 a
+// CTA: its globaltimer at its start and before its last barrier, its SM.
+extern "C" int repro_decode_attention_clocks(
+    const void* q, const void* k_new, const void* v_new, void* k_cache,
+    void* v_cache, int* slot_pos, const long long* pos, void* out,
+    long long lanes, int batch, int heads, int kv, int hd, int slots,
+    int window, float scale, float inv_scale, int compute_bf16,
+    int cache_bf16, int cluster, int tile, void* clocks, void* stream) {
+  using namespace repro_torch;
+  if (!cluster || !clocks ||
+      bad_shapes(lanes, batch, heads, kv, hd, slots, window, cache_bf16,
+                 cluster, tile))
+    return (int)cudaErrorInvalidValue;
+  const DecodeArgs a{q, k_new, v_new, k_cache, v_cache, slot_pos, pos, out,
+                     batch, heads, kv, hd, slots, window, scale, inv_scale};
+  return split_job(SplitLaunch{a, lanes, cluster, tile, (cudaStream_t)stream,
+                               static_cast<long long*>(clocks)},
+                   hd, compute_bf16, cache_bf16);
+}
+
+// cudaOccupancyMaxActiveClusters of the split form's launch over lanes
+// lanes of these shapes (cluster CTAs of tile slots) into *clusters; no
+// launch
+extern "C" int repro_decode_attention_clusters(
+    long long lanes, int heads, int kv, int hd, int slots, int compute_bf16,
+    int cache_bf16, int cluster, int tile, int* clusters) {
+  using namespace repro_torch;
+  if (!cluster || bad_shapes(lanes, 1, heads, kv, hd, slots, 0, cache_bf16,
+                             cluster, tile))
+    return (int)cudaErrorInvalidValue;
+  const DecodeArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                     nullptr, nullptr, 1, heads, kv, hd, slots, 0, 1.0f,
+                     1.0f};
+  return split_job(SplitOccupancy{a, lanes, cluster, tile, clusters}, hd,
+                   compute_bf16, cache_bf16);
 }

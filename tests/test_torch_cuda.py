@@ -1239,17 +1239,19 @@ def test_decode_attention_matches_plain_version(card, dtype, cache, h, kv,
 def test_decode_attention_split_form_matches_plain_version(
         card, dtype, cache, slots, window):
     """recurrentgemma-9b's local attention, 16 heads of 256 over one KV
-    head: a ring (or full cache) of 2,048 slots, the split form's 16 CTAs
-    of 128 slots, bf16 and f32 caches (an f32 row of 256: 64 segments, two
-    a thread); f32 rows at 40 slots (one CTA of the split form) and 300
-    bf16 slots (4 CTAs of 75); positions 0, aligned at the ring's size,
-    wrapped past it and a reset lane; the caches, slot_pos and the output
-    bit for bit."""
+    head: a ring (or full cache) of 2,048 slots, the split form's cluster
+    of 8 CTAs of 256 slots, bf16 and f32 caches; f32 rows at 40 slots
+    (one CTA of the split form) and 300 bf16 slots (2 CTAs of 150); 2 x 8
+    lanes at positions 0, at the tiles' edges (TS - 1, TS, TS + 1: 255,
+    256, 257 at 2,048 slots), at the ring's size, on a tile edge inside a
+    wrapped ring (slots + TS), far past it, and a reset lane; the caches,
+    slot_pos and the output bit for bit; and each lane decoded alone (1
+    lane beside 16) bit for bit its output among the 16."""
     from repro_torch.kernels.decode_attention import (decode_attention_plain,
                                                       split_of)
     window = min(window, slots)
-    h, kv, hd, g, b = 16, 1, 256, 2, 5
-    assert split_of(h, hd, slots, cache) is not None
+    h, kv, hd, g, b = 16, 1, 256, 2, 8
+    nc, ts = split_of(h, hd, slots, cache)
     gen = torch.Generator(device=card).manual_seed(slots + window)
     q = torch.randn((g, b, h, hd), generator=gen, device=card).to(dtype)
     kn = torch.randn((g, b, kv, hd), generator=gen, device=card).to(dtype)
@@ -1258,19 +1260,71 @@ def test_decode_attention_split_form_matches_plain_version(
                      device=card).to(cache)
     vc = torch.randn((g, b, slots, kv, hd), generator=gen,
                      device=card).to(cache)
-    pos = torch.tensor([0, slots, slots + 37, 3 * slots - 1, 5],
-                       device=card)
+    pos = torch.tensor([0, ts - 1, ts, ts + 1, slots, slots + ts,
+                        3 * slots - 1, 5], device=card)
     t = torch.arange(slots, device=card)[None]
     p = pos[:, None]
     sp = (p - 1 - torch.remainder(p - 1 - t, slots)) if window else \
         torch.where(t < p, t, -1)
     sp = torch.where(sp >= 0, sp, -1).to(torch.int32).expand(
         g, b, slots).contiguous()
-    sp[:, 4] = -1                                    # a reset lane
-    args = [kc, vc, sp]
+    sp[:, 7] = -1                                    # a reset lane
+    args = [kc.clone(), vc.clone(), sp.clone()]
     want_args = [x.clone() for x in args]
     got = kernels.decode_attention(q, kn, vn, *args, pos, window)
     want = decode_attention_plain(q, kn, vn, *want_args, pos, window)
+    for a, b_ in zip(args, want_args):
+        assert torch.equal(a, b_)
+    assert _same_bits(got, want)
+    for m in range(g):
+        for i in range(b):
+            one = [x[m:m + 1, i:i + 1].clone() for x in (kc, vc, sp)]
+            alone = kernels.decode_attention(
+                q[m:m + 1, i:i + 1], kn[m:m + 1, i:i + 1],
+                vn[m:m + 1, i:i + 1], *one, pos[i:i + 1], window)
+            assert _same_bits(alone[0, 0], got[m, i])
+            for a, b_ in zip(one, args):
+                assert torch.equal(a[0, 0], b_[m, i])
+
+
+@pytest.mark.parametrize("dtype,cache", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.float32)])
+@pytest.mark.parametrize("h,kv,hd,slots", [
+    (32, 4, 128, 4100), (96, 8, 128, 2400), (8, 1, 64, 5700),
+    (12, 1, 64, 3600), (9, 3, 64, 12000), (16, 1, 32, 3100)])
+def test_decode_attention_split_form_at_narrower_heads(card, dtype, cache, h,
+                                                       kv, hd, slots):
+    """The split form where ``split_of`` sends narrower heads: 8 and 12
+    heads of 128 (yi-9b's and mistral-large-123b's) and of 64, smollm's 3
+    of 64 and 16 of 32, each in a full cache a little past the slots one
+    CTA holds (bf16 and f32 caches, both compute dtypes): their K stages,
+    P·V maps (1 or 2 heads a thread, fewer than 256 threads at a head dim
+    of 32) and tiles of 300 to 1,500 slots. 2 x 6 lanes at positions 0
+    (a reset lane), at the tiles' edges, the cache's last slot and past
+    it; the caches, slot_pos and the output bit for bit."""
+    from repro_torch.kernels.decode_attention import (decode_attention_plain,
+                                                      split_of)
+    nc, ts = split_of(h // kv, hd, slots, cache)
+    assert nc == 8
+    g, b = 2, 6
+    gen = torch.Generator(device=card).manual_seed(h + hd)
+    q = torch.randn((g, b, h, hd), generator=gen, device=card).to(dtype)
+    kn = torch.randn((g, b, kv, hd), generator=gen, device=card).to(dtype)
+    vn = torch.randn((g, b, kv, hd), generator=gen, device=card).to(dtype)
+    kc = torch.randn((g, b, slots, kv, hd), generator=gen,
+                     device=card).to(cache)
+    vc = torch.randn((g, b, slots, kv, hd), generator=gen,
+                     device=card).to(cache)
+    pos = torch.tensor([0, ts - 1, ts, ts + 1, slots - 1, slots + 7],
+                       device=card)
+    t = torch.arange(slots, device=card)[None]
+    sp = torch.where(t < pos[:, None], t, -1).to(torch.int32).expand(
+        g, b, slots).contiguous()
+    args = [kc, vc, sp]
+    want_args = [x.clone() for x in args]
+    got = kernels.decode_attention(q, kn, vn, *args, pos, 0)
+    want = decode_attention_plain(q, kn, vn, *want_args, pos, 0)
     for a, b_ in zip(args, want_args):
         assert torch.equal(a, b_)
     assert _same_bits(got, want)

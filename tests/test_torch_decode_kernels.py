@@ -20,6 +20,10 @@ on the CPU.
   neighbour (ROADMAP C29), the output within the LM tests' decode
   tolerances (``test_torch_lm_model.py``: 1e-5 of the largest value in
   f32, 3e-2 in bf16) of the reference's attention over those caches.
+- The split form (recurrentgemma-9b's ring): its tiles (``split_of``, a
+  function of one lane's shapes) and shared memory, its sums tile by tile
+  in rank order, its output against the float64 attention, and one lane's
+  output the same decoded alone and among 16 lanes.
 """
 import jax
 import jax.numpy as jnp
@@ -33,10 +37,16 @@ from repro_torch import random
 from repro_torch.config import get_arch
 from repro_torch.kernels.bma_sample import (bma_sample_plain, ordered_sum,
                                             pack_of)
-from repro_torch.kernels.decode_attention import (decode_attention_plain,
+from repro_torch.kernels.decode_attention import (MAX_CLUSTER,
+                                                  SPLIT_MAX_SMEM,
+                                                  SPLIT_STATIC,
+                                                  decode_attention_clocks,
+                                                  decode_attention_plain,
                                                   dot_plain, segment,
                                                   softmax_sum_plain,
-                                                  split_of, weighted_plain)
+                                                  split_of, split_smem_bytes,
+                                                  split_stages,
+                                                  weighted_plain)
 from repro_torch.kernels.threefry import (_div, _fma, exp_plain, exp_xla,
                                           log_plain)
 from repro_torch.models import attention as pattn
@@ -231,27 +241,88 @@ def test_split_form_is_where_one_cta_cannot_hold_the_cache():
     """``split_of``: the one-CTA form for every shape it took before
     (smollm's 3 heads of 64 at 128 and 256 slots, 12 heads of 128, r = 16
     of 256 in bf16 up to 288 slots), the split form for recurrentgemma-9b's
-    ring (16 heads of 256 over 2,048 slots: 16 CTAs of 128 slots) and for
-    any f32 row of 256 (64 segments of 16 bytes, two a thread)."""
+    ring (16 heads of 256 over 2,048 slots: a portable cluster of 8 CTAs
+    of 256 slots, 128 CTAs at 16 lanes) and for any f32 row of 256 (64
+    segments of 16 bytes, which the one-CTA form's rows of at most 32
+    cannot take); each split tile within the card's shared memory."""
     bf, f32 = torch.bfloat16, torch.float32
     for r, hd, slots, dt in ((3, 64, 128, bf), (3, 64, 256, f32),
                              (12, 128, 256, bf), (12, 128, 256, f32),
                              (16, 256, 288, bf), (1, 64, 448, bf)):
         assert split_of(r, hd, slots, dt) is None
-    assert split_of(16, 256, 2048, bf) == (16, 128)
-    assert split_of(16, 256, 2048, f32) == (16, 128)
+    assert split_of(16, 256, 2048, bf) == (8, 256)
+    assert split_of(16, 256, 2048, f32) == (8, 256)
     assert split_of(16, 256, 32, f32) == (1, 32)
-    assert split_of(16, 256, 300, bf) == (4, 75)
-    assert segment(256, f32) == (8, 32) and segment(256, bf) == (8, 32)
+    assert split_of(16, 256, 40, f32) == (1, 40)
+    assert split_of(16, 256, 300, bf) == (2, 150)
+    assert split_of(16, 256, 4096, bf) == (8, 512)
+    assert split_of(16, 256, 8192, f32) == (8, 1024)
+    for slots, dt in ((2048, bf), (2048, f32), (300, bf), (4096, bf),
+                      (8192, f32)):
+        nc, ts = split_of(16, 256, slots, dt)
+        assert nc <= MAX_CLUSTER
+        for cdt in (bf, f32):
+            assert split_smem_bytes(16, 256, ts, cdt) <= SPLIT_MAX_SMEM
+            assert split_stages(16, 256, ts, cdt) >= 2
+    # two CTAs an SM at recurrentgemma's bf16 step: a ring of 5 stages, 2 x
+    # (the dynamic and static shared memory and 1 KB reserved) within the
+    # SM's 228 KB; a tile of 1,024 slots, where not two stages fit there,
+    # takes the SM alone (8 stages in bf16, 6 in f32)
+    assert split_stages(16, 256, 256, bf) == 5
+    assert 2 * (split_smem_bytes(16, 256, 256, bf) + SPLIT_STATIC + 1024) \
+        <= 233472
+    assert split_stages(16, 256, 1024, bf) == 8
+    assert split_stages(16, 256, 1024, f32) == 6
+    assert 2 * (split_smem_bytes(16, 256, 1024, bf) + SPLIT_STATIC + 1024) \
+        > 233472
+    assert segment(256, f32) == (4, 64) and segment(256, bf) == (8, 32)
     assert segment(128, f32) == (4, 32)
 
 
-@pytest.mark.parametrize("ts", [75, 128])
+@pytest.mark.parametrize("h,kv,hd,first", [
+    (32, 4, 128, 4033), (96, 8, 128, 2305), (8, 1, 64, 5633),
+    (12, 1, 64, 3563), (9, 3, 64, 11841), (16, 1, 32, 3073)])
+def test_split_tiles_at_narrower_heads(h, kv, hd, first):
+    """Where ``split_of`` sends narrower heads to the split form (the card
+    test ``test_decode_attention_split_form_at_narrower_heads`` holds each
+    there): one CTA up to ``first - 1`` bf16 slots, then a cluster of 8
+    CTAs of ``ceil(slots / 8)``, every tile up to 4 times the first with a
+    ring of at least two stages in both compute dtypes."""
+    r, bf = h // kv, torch.bfloat16
+    assert split_of(r, hd, first - 1, bf) is None
+    for slots in (first, first + 67, 4 * first):
+        nc, ts = split_of(r, hd, slots, bf)
+        assert (nc, ts) == (8, -(-slots // 8))
+        for dt in (bf, torch.float32):
+            assert split_stages(r, hd, ts, dt) >= 2
+            assert split_smem_bytes(r, hd, ts, dt) <= SPLIT_MAX_SMEM
+
+
+def test_split_clocks_are_the_cards():
+    """``decode_attention_clocks`` (the timed build of the split kernel)
+    runs only on the card: CPU tensors raise rather than fall back."""
+    g, b, h, hd, slots = 1, 1, 16, 256, 2048
+    bf = torch.bfloat16
+    with pytest.raises(ValueError, match="clocks"):
+        decode_attention_clocks(
+            torch.zeros((g, b, h, hd), dtype=bf),
+            torch.zeros((g, b, 1, hd), dtype=bf),
+            torch.zeros((g, b, 1, hd), dtype=bf),
+            torch.zeros((g, b, slots, 1, hd), dtype=bf),
+            torch.zeros((g, b, slots, 1, hd), dtype=bf),
+            torch.full((g, b, slots), -1, dtype=torch.int32),
+            torch.zeros((b,), dtype=torch.int64), 2048)
+
+
+@pytest.mark.parametrize("ts", [75, 128, 150, 256])
 def test_split_sums_are_the_tiles_in_rank_order(ts):
-    """The split form's softmax and P·V sums: each tile's in the one-CTA
-    order, then added in rank order from the first; one tile is the
-    one-CTA form's sum bit for bit; and each is within ``n · 2^-24 ·
-    Σ|terms|`` of the float64 sum."""
+    """The split form's softmax and P·V sums over 300 slots (tiles of 128
+    and 256 leave a short last tile): the softmax's each tile's in the
+    one-CTA order, the P·V's each output one fma chain over a tile's rows
+    in order from +0, the tiles' sums added in rank order from the first;
+    one tile is the one-CTA form's softmax sum and a single chain over
+    every row; and each is within ``n · 2^-24 · Σ|terms|`` of the float64
+    sum."""
     gen = torch.Generator().manual_seed(ts)
     slots, r, hd = 300, 4, 256
     ex = torch.rand((2, r, slots), generator=gen)
@@ -267,11 +338,22 @@ def test_split_sums_are_the_tiles_in_rank_order(ts):
             <= slots * EPS * ex.double().sum(-1)).all()
     probs = ex / tot[..., None]
     out = weighted_plain(probs, vf, 32, ts)
+
+    def chain(lo, hi):
+        acc = torch.zeros((2, r, hd))
+        for t in range(lo, hi):
+            acc = _fma(probs[..., t:t + 1], vf[:, None, t], acc)
+        return acc
+    tiles = [chain(i, min(slots, i + ts)) for i in range(0, slots, ts)]
+    want = tiles[0]
+    for p_ in tiles[1:]:
+        want = want + p_
+    assert torch.equal(out, want)
     terms = probs.double()[..., :, :, None] * vf.double()[..., None, :, :]
     assert ((out.double() - terms.sum(-2)).abs()
             <= slots * EPS * terms.abs().sum(-2)).all()
     assert torch.equal(weighted_plain(probs, vf, 32, slots),
-                       weighted_plain(probs, vf, 32))
+                       chain(0, slots))
 
 
 @pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32])
@@ -306,3 +388,40 @@ def test_plain_version_takes_recurrentgemmas_ring(cache_dtype, dtype):
     want = torch.einsum("bht,btk->bhk", torch.softmax(s, -1), vd)
     rel = float((out[0].double() - want).abs().max() / want.abs().max())
     assert rel <= (F32_TOL if dtype == torch.float32 else BF16_TOL)
+
+
+@pytest.mark.parametrize("window", [0, 2048])
+def test_a_lanes_output_is_the_same_alone_and_among_16_lanes(window):
+    """The split form's tiles are one lane's (``split_of`` takes no lane
+    count): recurrentgemma-9b's 16 heads of 256 over 2,048 bf16 slots,
+    each of 16 lanes (M=2 x 8, phase 17 (d)'s launch) decoded alone
+    through the plain version gives bit for bit its output among the 16,
+    and the same caches and slot_pos."""
+    g, b, h, hd, slots = 2, 8, 16, 256, 2048
+    gen = torch.Generator().manual_seed(33 + window)
+    bf = torch.bfloat16
+    q = torch.randn((g, b, h, hd), generator=gen).to(bf)
+    kn = torch.randn((g, b, 1, hd), generator=gen).to(bf)
+    vn = torch.randn((g, b, 1, hd), generator=gen).to(bf)
+    kc = torch.randn((g, b, slots, 1, hd), generator=gen).to(bf)
+    vc = torch.randn((g, b, slots, 1, hd), generator=gen).to(bf)
+    pos = torch.tensor([0, 5, 255, 256, 2047, 2048, 2300, 4095])
+    t = torch.arange(slots)[None]
+    p = pos[:, None]
+    sp = (p - 1 - torch.remainder(p - 1 - t, slots)) if window else \
+        torch.where(t < p, t, -1)
+    sp = torch.where(sp >= 0, sp, -1).to(torch.int32).expand(
+        g, b, slots).contiguous()
+    sp[1, 2] = -1                                    # a reset lane
+    many = [kc.clone(), vc.clone(), sp.clone()]
+    out = decode_attention_plain(q, kn, vn, *many, pos, window)
+    for m in range(g):
+        for i in range(b):
+            one = [x[m:m + 1, i:i + 1].clone() for x in (kc, vc, sp)]
+            alone = decode_attention_plain(
+                q[m:m + 1, i:i + 1], kn[m:m + 1, i:i + 1],
+                vn[m:m + 1, i:i + 1], *one, pos[i:i + 1], window)
+            assert _same(alone[0, 0].float().numpy(),
+                         out[m, i].float().numpy())
+            for a_, b_ in zip(one, many):
+                assert torch.equal(a_[0, 0], b_[m, i])
